@@ -1,0 +1,233 @@
+// Shared tile machinery of the two decode kernels (ray_decode.cu = K1,
+// ief_decode.cu = K4): small matrix products of a block's activation tile
+// (rows in shared memory) with a weight matrix read through L2, the LeakyReLU
+// / squash epilogues, and the 256 -> 128 -> 64 -> 1 MLP tail that both
+// decoders share.
+//
+// Numerics follow implicit_depth_tpu/ops/pallas_ray_decode.py::_decode_rows:
+// every product takes operands in the compute type T (float or bf16) and
+// accumulates in f32; each hidden activation is rounded to T before its
+// product. A bf16 x bf16 product is exact in f32, so the f32 FMA path and the
+// bf16 tensor-core path compute the same sums up to their order.
+//
+// Two product routines:
+//   * mma_tile (T = bf16): nvcuda::wmma 16x16x16 bf16 fragments with f32
+//     accumulators. A comes from shared memory, B (weights) straight from
+//     global memory / L2. M = 64 rows, 8 warps: warp w owns row tile w % 4 and
+//     N/32 column tiles.
+//   * fma_tile (any T): CUDA-core FMA, each thread a 4x4 output micro-tile.
+//     Used for every f32 product (exact f32, as the plain version computes)
+//     and for the small per-ray layer-1 product in both types.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace idt {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kLeaky = 0.02f;
+// f32(pi / 2): cos x = sin(x + pi/2), with the phase rounded to f32 exactly
+// as the JAX package's _posenc_consts does.
+constexpr float kHalfPi = 1.57079637050628662109375f;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Read-only global load (through the non-coherent cache) of one element.
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+// One element of T copied from global memory without conversion.
+__device__ __forceinline__ float ldg_raw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldg_raw(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+__device__ __forceinline__ float leaky(float v) {
+  return v > 0.f ? v : kLeaky * v;
+}
+
+__device__ __forceinline__ float squash(float x, bool use_sigmoid) {
+  if (use_sigmoid) return 1.f / (1.f + expf(-x));
+  // max(min(x, 0.01x + 0.99), 0.01x)
+  return fmaxf(fminf(x, 0.01f * x + 0.99f), 0.01f * x);
+}
+
+// C[M x N] (f32, shared, ldc) = A[M x K] (T, shared, lda) @ B[K x N] (T,
+// global row-major, ldb). K, N multiples of 4; M multiple of 4.
+template <typename T, int M>
+__device__ void fma_tile(const T* A, int lda, const T* __restrict__ B, int ldb,
+                         int K, int N, float* C, int ldc) {
+  const int col_groups = N / 4;
+  const int items = (M / 4) * col_groups;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int cg = it % col_groups, rg = it / col_groups;
+    const T* a0 = A + rg * 4 * lda;
+    const T* b0 = B + cg * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = to_f32(a0[i * lda + k]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ldg_f32(b0 + (size_t)k * ldb + j);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        C[(rg * 4 + i) * ldc + cg * 4 + j] = acc[i][j];
+  }
+}
+
+// C[64 x N] (f32, shared, ldc) = A[64 x K] (bf16, shared, lda) @ B[K x N]
+// (bf16, global row-major, ldb) on the tensor cores. K multiple of 16; N
+// multiple of 32; lda, ldb multiples of 16; B 32-byte aligned.
+template <int N>
+__device__ void mma_tile(const __nv_bfloat16* A, int lda,
+                         const __nv_bfloat16* __restrict__ B, int ldb, int K,
+                         float* C, int ldc) {
+  using namespace nvcuda;
+  constexpr int kRowTiles = 4;                 // 64 rows
+  constexpr int kGroups = kWarps / kRowTiles;  // warps along N
+  constexpr int kColTiles = N / 16 / kGroups;  // column tiles per warp
+  static_assert(kColTiles >= 1 && N % (16 * kGroups) == 0, "N tiling");
+  const int warp = threadIdx.x / 32;
+  const int rt = warp % kRowTiles, grp = warp / kRowTiles;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kColTiles];
+#pragma unroll
+  for (int c = 0; c < kColTiles; ++c) wmma::fill_fragment(acc[c], 0.f);
+  for (int k = 0; k < K; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
+        a;
+    wmma::load_matrix_sync(a, A + rt * 16 * lda + k, lda);
+#pragma unroll
+    for (int c = 0; c < kColTiles; ++c) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          b;
+      wmma::load_matrix_sync(
+          b, B + (size_t)k * ldb + (grp * kColTiles + c) * 16, ldb);
+      wmma::mma_sync(acc[c], a, b, acc[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kColTiles; ++c)
+    wmma::store_matrix_sync(C + rt * 16 * ldc + (grp * kColTiles + c) * 16,
+                            acc[c], ldc, wmma::mem_row_major);
+}
+
+// The block's M x N product: tensor cores for bf16 (M = 64), FMA for f32.
+template <typename T, int M, int N>
+__device__ __forceinline__ void tile_product(const T* A, int lda,
+                                             const T* __restrict__ B, int ldb,
+                                             int K, float* C, int ldc) {
+  if constexpr (sizeof(T) == 2) {
+    static_assert(M == 64, "the bf16 path tiles 64 rows");
+    mma_tile<N>(A, lda, B, ldb, K, C, ldc);
+  } else {
+    fma_tile<T, M>(A, lda, B, ldb, K, N, C, ldc);
+  }
+}
+
+// Weights of layers 2-4 of one decoder (widths 256 -> 128 -> 64 -> 1).
+template <typename T>
+struct TailWeights {
+  const T* w2;      // (256, 128)
+  const float* b2;  // (128,) f32 holding T-rounded values
+  const T* w3;      // (128, 64)
+  const float* b3;  // (64,)
+  const T* w4;      // (64,)
+  const float* b4;  // (1,)
+};
+
+constexpr int kG1 = 256, kG2 = 128, kG3 = 64;
+
+// Layers 2-4 from the T-rounded layer-1 activation H (M x 256, shared).
+// Uses C (f32, M x 128) as product scratch and H2 (M x 128), H3 (M x 64) of
+// type T. Returns the pre-squash output of layer 4 (without b4) of each row
+// into out[row] (f32, shared), added to what out holds when accumulate.
+template <typename T, int M>
+__device__ void mlp_tail(const T* H, float* C, T* H2, T* H3,
+                         const TailWeights<T>& w, float* out,
+                         bool accumulate) {
+  tile_product<T, M, kG2>(H, kG1, w.w2, kG2, kG1, C, kG2);
+  __syncthreads();
+  for (int i = threadIdx.x; i < M * kG2; i += blockDim.x)
+    H2[i] = from_f32<T>(leaky(C[i] + __ldg(w.b2 + i % kG2)));
+  __syncthreads();
+  tile_product<T, M, kG3>(H2, kG2, w.w3, kG3, kG2, C, kG3);
+  __syncthreads();
+  for (int i = threadIdx.x; i < M * kG3; i += blockDim.x)
+    H3[i] = from_f32<T>(leaky(C[i] + __ldg(w.b3 + i % kG3)));
+  __syncthreads();
+  // layer 4: each row's 64-term dot, split over kThreads / M lanes
+  constexpr int kLanes = kThreads / M;
+  static_assert(kLanes >= 1 && 32 % kLanes == 0, "lanes per row");
+  const int row = threadIdx.x / kLanes, part = threadIdx.x % kLanes;
+  float s = 0.f;
+  if (row < M) {
+    for (int k = part; k < kG3; k += kLanes)
+      s = fmaf(to_f32(H3[row * kG3 + k]), ldg_f32(w.w4 + k), s);
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off /= 2)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < M && part == 0) out[row] = accumulate ? out[row] + s : s;
+  __syncthreads();
+}
+
+// The IEF offset loop from the layer-1 pre-activation E1 (M x 256 f32, the
+// per-row part, iteration-invariant): per iteration
+//   h1 = act(e1 + offset * a_vec + c_vec)  (rounded to T)
+//   offset = offset + tail(h1) + b4
+// offset (M,) f32 in shared memory, initialised by the caller.
+template <typename T, int M>
+__device__ void ief_loop(const float* E1, T* H, float* C, T* H2, T* H3,
+                         const float* __restrict__ a_vec,
+                         const float* __restrict__ c_vec,
+                         const TailWeights<T>& w, float* offset, int n_iter) {
+  const float b4 = __ldg(w.b4);
+  for (int it = 0; it < n_iter; ++it) {
+    for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
+      const int c = i % kG1;
+      H[i] = from_f32<T>(
+          leaky(E1[i] + offset[i / kG1] * __ldg(a_vec + c) + __ldg(c_vec + c)));
+    }
+    __syncthreads();
+    mlp_tail<T, M>(H, C, H2, H3, w, offset, /*accumulate=*/true);
+    if (threadIdx.x < M) offset[threadIdx.x] += b4;
+    __syncthreads();
+  }
+}
+
+inline size_t align_up(size_t x, size_t a) { return (x + a - 1) / a * a; }
+
+}  // namespace idt

@@ -1,0 +1,298 @@
+"""LIDF stage 1: local implicit depth function (counterpart of
+``implicit_depth_tpu/models/lidf.py``).
+
+* :func:`prepare_inputs` — the geometry stage: valid-point sampling, the
+  dense 9³ occupancy grid, the ray/grid pair slots and the labels. Serving
+  and eval only (``train=False``); the training inputs come with stage-1
+  training.
+* :class:`LIDFModel` — ResNet34-8s features, two-stage PointNet voxel
+  features, per-ray ROI features and the ray-major decode of each ray's
+  ``pairs_budget`` nearest pair slots (``per_ray`` mode) through
+  ``ops/ray_decode.ray_decode`` (kernel K1 on the card), then the masked
+  softmax/argmax over the slots and the predicted position.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from implicit_depth_torch.geometry.rays import ray_dir_map
+from implicit_depth_torch.geometry.sampling import sample_valid_stratified
+from implicit_depth_torch.geometry.voxel import VoxelGrid, voxelize_points
+from implicit_depth_torch.models.embedder import posenc_dim, positional_encoding
+from implicit_depth_torch.models.imnet import IEF, IMNet
+from implicit_depth_torch.models.init import PreparedWeights
+from implicit_depth_torch.models.pointnet import PointNet2Stage
+from implicit_depth_torch.models.resnet import ResNet34_8s
+from implicit_depth_torch.ops.masked import masked_argmax, masked_softmax, take_slot
+from implicit_depth_torch.ops.ray_decode import prep_ray_decode_weights, ray_decode
+from implicit_depth_torch.ops.ray_grid import ray_grid_intersect
+from implicit_depth_torch.ops.roi_align import roi_window_pool
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LIDFStatic:
+    """Static shape/geometry configuration shared by prepare/model."""
+
+    grid: VoxelGrid
+    n_valid: int = 10000       # grid.valid_sample_num (H*W when use_all_valid)
+    n_rays: int = 20000        # grid.miss_sample_num (train); H*W at eval
+    k_pairs: int = 20          # tpu.max_pairs_per_ray
+    roi_inp_bbox: int = 8
+    roi_out_bbox: int = 2
+    use_all_valid: bool = False  # grid.valid_sample_num == -1
+
+
+def prepare_inputs(static: LIDFStatic, batch: Tensors, train: bool = False,
+                   mask_type: str = "all",
+                   pred_mask: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   valid_idx: Optional[torch.Tensor] = None) -> Tensors:
+    """Geometry stage for eval/serving: every pixel is a ray slot.
+
+    batch: rgb (B,H,W,3) standardized; xyz / xyz_corrupt (B,H,W,3);
+    depth_corrupt (B,H,W); corrupt_mask (B,H,W); fx, fy, cx, cy (B,).
+    ``valid_idx`` (B, n_valid) replaces the stratified draw of the valid
+    points (whose jitter comes from ``generator``) with given indices."""
+    if train:
+        raise NotImplementedError("training inputs (miss-ray windows) are "
+                                  "not ported yet")
+    grid = static.grid
+    rgb = batch["rgb"]
+    b, h, w, _ = rgb.shape
+    dev = rgb.device
+    if mask_type == "pred":
+        if pred_mask is None:
+            raise ValueError("mask_type='pred' needs a pred_mask")
+        miss_mask = pred_mask > 0.5
+        valid_mask = ~miss_mask
+    elif mask_type == "all":  # every zero-input-depth pixel is a ray
+        miss_mask = torch.ones((b, h, w), dtype=torch.bool, device=dev)
+        valid_mask = batch["depth_corrupt"] != 0
+    else:
+        raise ValueError(f"mask_type {mask_type!r}")
+
+    # -- valid points -----------------------------------------------------
+    if static.use_all_valid:
+        vidx = torch.arange(h * w, dtype=torch.int32,
+                            device=dev).expand(b, h * w)
+        vslot = valid_mask.reshape(b, -1)
+    elif valid_idx is not None:
+        vidx = valid_idx.to(device=dev, dtype=torch.int32)
+        vslot = valid_mask.reshape(b, -1).any(1)[:, None].expand(vidx.shape)
+    else:
+        vidx, vslot, _ = sample_valid_stratified(valid_mask, static.n_valid,
+                                                 generator)
+    xyz_corrupt_flat = batch["xyz_corrupt"].reshape(b, h * w, 3)
+    vg = torch.cat([xyz_corrupt_flat, rgb.reshape(b, h * w, 3)], -1).gather(
+        1, vidx.long()[..., None].expand(-1, -1, 6))
+    valid_xyz, valid_rgb = vg[..., :3], vg[..., 3:]
+
+    # -- occupied voxels ----------------------------------------------------
+    vox = voxelize_points(grid, valid_xyz, vslot)
+
+    # -- rays: eval rays are pixel-aligned (miss_idx == arange) -------------
+    dirs = ray_dir_map(h, w, batch["fx"], batch["fy"], batch["cx"],
+                       batch["cy"], device=dev)
+    midx = torch.arange(h * w, dtype=torch.int32, device=dev).expand(b, h * w)
+    mslot = miss_mask.reshape(b, -1)
+    miss_dir = dirs.reshape(b, h * w, 3)
+    gt_pos = batch["xyz"].reshape(b, h * w, 3)
+
+    pairs = ray_grid_intersect(grid, miss_dir, vox["occupancy"],
+                               static.k_pairs, ray_mask=mslot)
+
+    # -- labels: point-in-voxel is a floor ----------------------------------
+    gt_ijk = grid.cell_of(gt_pos)
+    gt_cell = torch.where(grid.in_bounds(gt_ijk), grid.linear_id(gt_ijk),
+                          torch.full_like(gt_ijk[..., 0], -1))
+    pair_label = pairs["valid"] & (pairs["cell_id"] == gt_cell[..., None])
+
+    return {
+        "rgb": rgb,
+        "xyz_flat": gt_pos,
+        "xyz_corrupt_flat": xyz_corrupt_flat,
+        "corrupt_mask": batch["corrupt_mask"],
+        "valid_xyz": valid_xyz,
+        "valid_rgb": valid_rgb,
+        "valid_slot": vslot,
+        "valid_idx": vidx,
+        "vox_cell_id": vox["cell_id"],
+        "vox_point_valid": vox["valid"],
+        "vox_rel_coord": vox["rel_coord"],
+        "occupancy": vox["occupancy"],
+        "miss_idx": midx,
+        "miss_slot": mslot,
+        "miss_mask_flat": mslot,
+        "miss_start": torch.zeros((b,), dtype=torch.int32, device=dev),
+        "miss_dir": miss_dir,
+        "miss_rgb": rgb.reshape(b, h * w, 3),
+        "miss_px": midx % w,
+        "miss_py": torch.div(midx, w, rounding_mode="floor"),
+        "pair_cell": pairs["cell_id"],
+        "pair_valid": pairs["valid"],
+        "t_enter": pairs["t_enter"],
+        "t_exit": pairs["t_exit"],
+        "gt_pos": gt_pos,
+        "pair_label": pair_label,
+    }
+
+
+def decoder_weights(offset_dec: IEF, prob_dec: IMNet) -> Tensors:
+    """The IEF offset + IMNet prob decoder parameters in the JAX package's
+    decode weight-dict layout (kernels (in, out)), detached: the decode
+    kernels are forward-only."""
+    w = {"off_enc_w": offset_dec.offset_enc.weight.t(),
+         "off_enc_b": offset_dec.offset_enc.bias}
+    for i, (lo, lp) in enumerate(zip(offset_dec.mlp.layers(),
+                                     prob_dec.mlp.layers()), 1):
+        w[f"off_w{i}"], w[f"off_b{i}"] = lo.weight.t(), lo.bias
+        w[f"prob_w{i}"], w[f"prob_b{i}"] = lp.weight.t(), lp.bias
+    return {k: v.detach() for k, v in w.items()}
+
+
+class LIDFModel(nn.Module):
+    """Parameterized stage-1 compute (get_embedding + get_pred)."""
+
+    def __init__(self, static: LIDFStatic, rgb_out: int = 32,
+                 pnet_out: int = 128, pnet_gf: int = 32, imnet_gf: int = 64,
+                 multires: int = 8, multires_views: int = 4,
+                 pos_encode: bool = True, intersect_pos_type: str = "abs",
+                 offdec_type: str = "IEF", n_iter: int = 2,
+                 use_sigmoid: bool = False,
+                 offset_range: Sequence[float] = (0.0, 1.0),
+                 resnet_stages: Sequence[int] = (3, 4, 6, 3),
+                 pairs_budget: int = 8, pairs_budget_mode: str = "per_ray",
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not (pos_encode and offdec_type == "IEF"
+                and pairs_budget_mode == "per_ray"
+                and 0 < pairs_budget < static.k_pairs):
+            raise NotImplementedError(
+                "only the per_ray ray-major decode (IEF, pos_encode, "
+                "0 < pairs_budget_per_ray < max_pairs_per_ray) is ported")
+        self.static = static
+        self.multires, self.multires_views = multires, multires_views
+        self.intersect_pos_type = intersect_pos_type
+        self.n_iter, self.use_sigmoid = n_iter, use_sigmoid
+        self.offset_range = tuple(offset_range)
+        self.pairs_budget = pairs_budget
+        self.dtype = dtype
+        roi_dim = rgb_out * static.roi_out_bbox ** 2
+        self.dims = {"c_vox": pnet_out, "c_roi": roi_dim,
+                     "c_dir": posenc_dim(multires_views)}
+        embed = pnet_out + roi_dim + 2 * posenc_dim(multires) \
+            + posenc_dim(multires_views)
+        self.resnet = ResNet34_8s(out_ch=rgb_out, stage_sizes=resnet_stages,
+                                  generator=generator)
+        self.pnet = PointNet2Stage(out_channels=pnet_out, gf_dim=pnet_gf,
+                                   generator=generator)
+        self.offset_dec = IEF(embed, gf_dim=imnet_gf, n_iter=n_iter,
+                              use_sigmoid=use_sigmoid, generator=generator)
+        self.prob_dec = IMNet(embed, gf_dim=imnet_gf, use_sigmoid=use_sigmoid,
+                              generator=generator)
+        self._decode_w = PreparedWeights()
+
+    def decode_operands(self) -> Tensors:
+        """K1's weight operands in the compute dtype, prepared once and
+        reused while the decoder parameters and the dtype stay unchanged."""
+        return self._decode_w.get(
+            (self.offset_dec, self.prob_dec), self.dtype,
+            lambda: prep_ray_decode_weights(
+                decoder_weights(self.offset_dec, self.prob_dec),
+                self.dims["c_vox"], self.dims["c_roi"], self.dims["c_dir"],
+                self.multires, self.dtype))
+
+    def voxel_features(self, inputs: Tensors) -> torch.Tensor:
+        """(B·G³, pnet_out) f32 voxel features of the sampled valid points."""
+        grid = self.static.grid
+        b, n = inputs["valid_xyz"].shape[:2]
+        pnet_inp = torch.cat([inputs["vox_rel_coord"], inputs["valid_rgb"]], -1)
+        seg = (torch.arange(b, dtype=torch.int32, device=pnet_inp.device)[:, None]
+               * grid.n_cells + inputs["vox_cell_id"])
+        return self.pnet(pnet_inp.reshape(b * n, -1), seg.reshape(-1),
+                         b * grid.n_cells,
+                         inputs["vox_point_valid"].reshape(-1), self.dtype)
+
+    def trunk(self, inputs: Tensors):
+        """Per-image work shared by all rays: RGB features + voxel features."""
+        return self.resnet(inputs["rgb"], self.dtype), self.voxel_features(inputs)
+
+    def _pair_positions(self, inputs: Tensors):
+        grid = self.static.grid
+        dirs = inputs["miss_dir"][:, :, None, :]
+        enter = dirs * inputs["t_enter"][..., None]
+        leave = dirs * inputs["t_exit"][..., None]
+        if self.intersect_pos_type == "rel":
+            center = grid.cell_center(grid.unlinear(inputs["pair_cell"]))
+            enter, leave = enter - center, leave - center
+        return enter, leave
+
+    def decode_rays(self, inputs: Tensors, feat_map: torch.Tensor,
+                    vox_feat: torch.Tensor) -> Tensors:
+        """Per-ray work: ROI pooling, ray-major pair decode of the nearest
+        ``pairs_budget`` slots, per-ray softmax/argmax, predicted position."""
+        grid = self.static.grid
+        b, r, _ = inputs["pair_valid"].shape
+        kb = self.pairs_budget
+        dev = feat_map.device
+
+        pix_xy = torch.stack([inputs["miss_px"], inputs["miss_py"]], -1)
+        bidx = torch.arange(b, device=dev)[:, None].expand(b, r)
+        roi = roi_window_pool(feat_map, pix_xy, bidx,
+                              inp_bbox=self.static.roi_inp_bbox,
+                              out_bbox=self.static.roi_out_bbox).reshape(b, r, -1)
+        dirs = inputs["miss_dir"]
+        dir_e = positional_encoding(dirs, self.multires_views)
+
+        # the pair slots are t-sorted and front-packed: the first kb slots
+        # are each ray's nearest pairs, a dense (B, R, kb) block
+        sliced = {k: inputs[k][:, :, :kb] for k in
+                  ("pair_cell", "pair_valid", "t_enter", "t_exit")}
+        sliced["miss_dir"] = dirs
+        enter, leave = self._pair_positions(sliced)
+        pos = torch.cat([enter, leave], -1).float().reshape(b * r, kb, 6)
+        cells = (torch.arange(b, dtype=torch.int32, device=dev)[:, None, None]
+                 * grid.n_cells + sliced["pair_cell"]).reshape(b * r, kb)
+        ray_feat = torch.cat([roi.to(self.dtype), dir_e.to(self.dtype)],
+                             -1).reshape(b * r, -1)
+        off, logit = ray_decode(vox_feat.to(self.dtype), cells, pos, ray_feat,
+                                self.decode_operands(), n_iter=self.n_iter,
+                                init_offset=self.offset_dec.init_offset,
+                                use_sigmoid=self.use_sigmoid)
+        pred_offset, prob_logit = off.reshape(b, r, kb), logit.reshape(b, r, kb)
+        pair_valid = sliced["pair_valid"]
+
+        lo, hi = self.offset_range
+        c_off = math.sqrt(3.0) * grid.part_size
+        prob_softmax = masked_softmax(prob_logit, pair_valid)
+        max_slot, has_pair = masked_argmax(prob_softmax, pair_valid)
+        t_sel = take_slot(sliced["t_enter"], max_slot)
+        off_sel = take_slot(pred_offset, max_slot)
+        scaled_sel = (off_sel * (hi - lo) + lo) * c_off
+        pred_pos = dirs * (t_sel + scaled_sel)[..., None]
+        pred_pos = torch.where(has_pair[..., None], pred_pos,
+                               torch.zeros((), device=dev))
+        return {
+            "roi_feat": roi,
+            "prob_logit": prob_logit,
+            "prob_softmax": prob_softmax,
+            "pair_valid": pair_valid,
+            "pred_offset": pred_offset,
+            "max_slot": max_slot,
+            "has_pair": has_pair,
+            "pred_pos": pred_pos,
+        }
+
+    def forward(self, inputs: Tensors) -> Tensors:
+        feat_map, vox_feat = self.trunk(inputs)
+        out = self.decode_rays(inputs, feat_map, vox_feat)
+        return {**out, "feat_map": feat_map, "vox_feat": vox_feat}

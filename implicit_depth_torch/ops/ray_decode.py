@@ -1,0 +1,321 @@
+"""Ray-major fused implicit decodes: stage 1 (kernel K1) and stage 2 (K4).
+
+Counterpart of ``implicit_depth_tpu/ops/pallas_ray_decode.py``:
+
+* :func:`ray_decode` — stage-1 per-pair decode (``fused_ray_decode``,
+  ``xla_ray_decode``, ``_decode_rows``). The per_ray pair slots are t-sorted
+  and front-packed, so decoding the first ``kb`` slots of every ray is a
+  dense (N, kb) computation. Layer 1 of both decoders (IEF offset, IMNet
+  termination probability) is split into a per-PAIR part over
+  [vox | pos6 | trig] and a per-RAY part over [roi | dir_e], computed once
+  per ray (``split_l1``). The positional encoding of the enter/leave points
+  is never materialised: only its sin/cos columns (``trig``) are built from
+  the raw positions, in the kernel. The kernel reads each pair's voxel row
+  by its cell id from the (B·G³, Cv) voxel table instead of taking gathered
+  (N·kb, Cv) rows.
+* :func:`ief_decode` — stage-2 per-ray IEF decode (``fused_ief_rows``,
+  ``xla_ief_rows``, ``_ief_rows``) over the embed parts [end | rc | pos_e].
+
+Both IEF decoders hoist layer 1 out of the iterations and fold the 1 -> 16
+offset encoder into a rank-1 update: (offset·enc_w + enc_b) @ W_x =
+offset·a_vec + c_vec. Rounding follows ``_decode_rows`` / ``_ief_rows``:
+every product takes compute-dtype operands with f32 accumulation; biases
+1 and 4 add in f32, biases 2 and 3 are rounded to the compute dtype first;
+each hidden activation is rounded to the compute dtype before its product.
+
+Each wrapper runs the plain PyTorch version for CPU tensors and launches its
+CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ief_decode.cu``) for CUDA
+tensors, counting launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from implicit_depth_torch.ops import cuda
+
+LEAKY = 0.02
+_PAD = 16  # kernels' K-dimension granule (bf16 tensor-core fragment depth)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _act(v):
+    return torch.where(v > 0, v, LEAKY * v)
+
+
+def soft_clamp(x):
+    return torch.maximum(torch.minimum(x, 0.01 * x + 0.99), 0.01 * x)
+
+
+def _squash(x, use_sigmoid: bool):
+    return torch.sigmoid(x) if use_sigmoid else soft_clamp(x)
+
+
+def _dot(a, b, dtype):
+    """a @ b with ``dtype`` operands and f32 accumulation."""
+    return a.to(dtype).float() @ b.to(dtype).float()
+
+
+def _pad_rows(w, rows):
+    return torch.cat([w, w.new_zeros((rows - w.shape[0], *w.shape[1:]))], 0)
+
+
+def _rank1(enc_w, enc_b, w_x, dtype):
+    """a_vec, c_vec (4g,) f32 of the folded offset encoder."""
+    return _dot(enc_w, w_x, dtype)[0], _dot(enc_b[None, :], w_x, dtype)[0]
+
+
+def _tail_weights(w2, b2, w3, b3, w4, b4, dtype) -> Dict[str, torch.Tensor]:
+    return {"w2": w2.to(dtype).contiguous(), "b2": b2.to(dtype).float(),
+            "w3": w3.to(dtype).contiguous(), "b3": b3.to(dtype).float(),
+            "w4": w4.reshape(-1).to(dtype).contiguous(),
+            "b4": b4.reshape(1).float()}
+
+
+def trig_block(pos6: torch.Tensor, multires: int) -> torch.Tensor:
+    """(rows, 6) f32 [enter xyz | leave xyz] -> (rows, 12·multires) sin/cos
+    columns of both positions' encodings, in embedder order per position:
+    for each frequency j, [sin(x·2^j) (3) | cos(x·2^j) (3)]."""
+    rows = pos6.shape[0]
+    freqs = torch.tensor([2.0 ** j for j in range(multires)],
+                         dtype=torch.float32, device=pos6.device)
+    phase = torch.tensor([0.0, math.pi / 2], dtype=torch.float32,
+                         device=pos6.device)
+    p = pos6.float().reshape(rows, 2, 1, 1, 3)
+    arg = p * freqs[:, None, None] + phase[:, None]         # (rows, 2, m, 2, 3)
+    return torch.sin(arg).reshape(rows, 12 * multires)
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: per-pair decode (K1)
+# ---------------------------------------------------------------------------
+
+def prep_ray_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
+                            c_roi: int, c_dir: int, multires: int,
+                            dtype) -> Dict[str, torch.Tensor]:
+    """Split the decoder weights (JAX layout: off_enc_w/b, off_w1..4,
+    off_b1..4, prob_w1..4, prob_b1..4; kernels (in, out)) into the kernel
+    operands. Layer 1's input layout is the embed [vox | roi | pe(enter) |
+    pe(leave) | dir (| 16 offset-encoder rows for IEF)].
+
+    Returns pair_w1 (KP, 2·4g) rows [vox | pos6 | trig | 0-pad] and ray_w1
+    (CRP, 2·4g) rows [roi | dir | 0-pad], columns [off | prob], in ``dtype``;
+    b1 (2·4g,), a_vec, c_vec (4g,) f32; and each decoder's layers 2-4."""
+    c_pos = 6 * (1 + 2 * multires)
+    half = c_pos // 2
+    o1, o2, o3, o4 = c_vox, c_vox + c_roi, c_vox + c_roi + c_pos, \
+        c_vox + c_roi + c_pos + c_dir
+
+    def split(w1):
+        pe = w1[o2:o3]
+        pair = torch.cat([w1[:o1], pe[0:3], pe[half:half + 3],
+                          pe[3:half], pe[half + 3:]], 0)
+        ray = torch.cat([w1[o1:o2], w1[o3:o4]], 0)
+        return pair, ray
+
+    off_pair, off_ray = split(weights["off_w1"])
+    prob_pair, prob_ray = split(weights["prob_w1"])
+    kp = _round_up(c_vox + 6 + 12 * multires, _PAD)
+    crp = _round_up(c_roi + c_dir, _PAD)
+    a_vec, c_vec = _rank1(weights["off_enc_w"], weights["off_enc_b"],
+                          weights["off_w1"][o4:], dtype)
+    w = {
+        "pair_w1": _pad_rows(torch.cat([off_pair, prob_pair], 1), kp),
+        "ray_w1": _pad_rows(torch.cat([off_ray, prob_ray], 1), crp),
+        "b1": torch.cat([weights["off_b1"], weights["prob_b1"]]).float(),
+        "a_vec": a_vec, "c_vec": c_vec,
+    }
+    w["pair_w1"] = w["pair_w1"].to(dtype).contiguous()
+    w["ray_w1"] = w["ray_w1"].to(dtype).contiguous()
+    for p in ("off", "prob"):
+        for k, v in _tail_weights(*(weights[f"{p}_{n}"] for n in
+                                    ("w2", "b2", "w3", "b3", "w4", "b4")),
+                                  dtype).items():
+            w[f"{p}_{k}"] = v
+    w["dims"] = (c_vox, c_roi + c_dir, multires)
+    return w
+
+
+def _mlp_tail(h1, w, prefix, dtype):
+    """Layers 2-4 from the rounded layer-1 activation; returns (rows,) f32."""
+    h2 = _act(_dot(h1, w[f"{prefix}w2"], dtype) + w[f"{prefix}b2"])
+    h3 = _act(_dot(h2, w[f"{prefix}w3"], dtype) + w[f"{prefix}b3"])
+    return _dot(h3, w[f"{prefix}w4"][:, None], dtype)[:, 0]
+
+
+def _ief_loop(e1, w, prefix, n_iter, init_offset, dtype):
+    offset = torch.full(e1.shape[:1], init_offset, dtype=torch.float32,
+                        device=e1.device)
+    for _ in range(n_iter):
+        h1 = _act(e1 + offset[:, None] * w["a_vec"] + w["c_vec"])
+        offset = offset + _mlp_tail(h1, w, prefix, dtype) + w[f"{prefix}b4"]
+    return offset
+
+
+def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
+                     init_offset=0.001, use_sigmoid=False):
+    """vox_table (S, Cv); cells (N, kb) int row ids into it; pos (N, kb, 6)
+    f32 [enter | leave]; ray_feat (N, Cr) -> (offset, prob_logit), each
+    (N, kb) f32 after the squash."""
+    dtype = w["pair_w1"].dtype
+    n, kb = cells.shape
+    c_vox, c_ray, multires = w["dims"]
+    g4 = w["b1"].shape[0] // 2
+    pos6 = pos.reshape(n * kb, 6).float()
+    x = torch.cat([vox_table[cells.reshape(-1).long()].to(dtype),
+                   pos6.to(dtype), trig_block(pos6, multires).to(dtype)], 1)
+    e1 = (_dot(x, w["pair_w1"][:x.shape[1]], dtype)
+          + _dot(ray_feat, w["ray_w1"][:c_ray], dtype).repeat_interleave(kb, 0)
+          + w["b1"])
+    e1_off, z1p = e1[:, :g4], e1[:, g4:]
+    offset = _ief_loop(e1_off, w, "off_", n_iter, init_offset, dtype)
+    logit = _mlp_tail(_act(z1p), w, "prob_", dtype) + w["prob_b4"]
+    return (_squash(offset, use_sigmoid).reshape(n, kb),
+            _squash(logit, use_sigmoid).reshape(n, kb))
+
+
+def _check_cuda(name, tensors, dtype):
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: all operands must be CUDA tensors")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: compute dtype {dtype} not supported")
+
+
+def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
+                     use_sigmoid):
+    dtype = w["pair_w1"].dtype
+    n, kb = cells.shape
+    c_vox, c_ray, multires = w["dims"]
+    g4 = w["b1"].shape[0] // 2
+    _check_cuda("ray_decode", [vox_table, cells, pos, ray_feat,
+                               *(w[k] for k in _K1_WEIGHTS)], dtype)
+    if kb != 8 or g4 != 256 or w["off_w3"].shape != (128, 64):
+        raise ValueError(f"ray_decode kernel takes kb=8 and layer widths "
+                         f"256-128-64-1 (got kb={kb}, 4g={g4})")
+    if vox_table.shape[1] != c_vox or ray_feat.shape != (n, c_ray) \
+            or pos.shape != (n, kb, 6):
+        raise ValueError("ray_decode: operand shapes do not match the weights")
+    vox_table = vox_table.to(dtype).contiguous()
+    cells = cells.to(torch.int32).contiguous()
+    pos = pos.float().contiguous()
+    ray_feat = ray_feat.to(dtype).contiguous()
+    off = torch.empty((n, kb), dtype=torch.float32, device=cells.device)
+    logit = torch.empty_like(off)
+    ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
+                           *(w[k] for k in _K1_WEIGHTS), off, logit])
+    fn = cuda.bind("ray_decode", "idt_ray_decode", cuda.PTR, *[cuda.I64] * 9,
+                   cuda.F32)
+    cuda.check(fn(ptrs, n, c_vox, c_ray, multires, w["pair_w1"].shape[0],
+                  w["ray_w1"].shape[0], n_iter, int(dtype == torch.bfloat16),
+                  int(use_sigmoid), init_offset, cuda.stream_ptr(cells.device)),
+               "ray_decode")
+    return off, logit
+
+
+_K1_WEIGHTS = ("pair_w1", "ray_w1", "b1", "a_vec", "c_vec",
+               "off_w2", "off_b2", "off_w3", "off_b3", "off_w4", "off_b4",
+               "prob_w2", "prob_b2", "prob_w3", "prob_b3", "prob_w4", "prob_b4")
+
+
+def ray_decode(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
+               init_offset=0.001, use_sigmoid=False):
+    """Stage-1 decode (see :func:`ray_decode_plain`); kernel K1 on CUDA."""
+    if cells.device.type == "cpu":
+        return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
+                                n_iter=n_iter, init_offset=init_offset,
+                                use_sigmoid=use_sigmoid)
+    out = _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter,
+                           init_offset, use_sigmoid)
+    ray_decode.launches += 1
+    return out
+
+
+ray_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: per-ray IEF decode (K4)
+# ---------------------------------------------------------------------------
+
+def prep_ief_weights(weights: Dict[str, torch.Tensor], c_end: int, c_rc: int,
+                     c_pos: int, c_dir: int, dtype) -> Dict[str, torch.Tensor]:
+    """Split the refine IEF weights (JAX layout enc_w/enc_b, w1..w4, b1..b4)
+    over the stage-2 embed [end | roi | pos_e | dir_e | enc(16)] into w1
+    (KP, 4g) rows [end | rc = (roi, dir) | pos | 0-pad] in ``dtype``, b1,
+    a_vec, c_vec f32 and layers 2-4."""
+    w1 = weights["w1"]
+    o1 = c_end
+    o2 = o1 + (c_rc - c_dir)
+    o3 = o2 + c_pos
+    o4 = o3 + c_dir
+    kp = _round_up(c_end + c_rc + c_pos, _PAD)
+    a_vec, c_vec = _rank1(weights["enc_w"], weights["enc_b"], w1[o4:], dtype)
+    w = {"w1": _pad_rows(torch.cat([w1[:o1], w1[o1:o2], w1[o3:o4], w1[o2:o3]],
+                                   0), kp).to(dtype).contiguous(),
+         "b1": weights["b1"].float(), "a_vec": a_vec, "c_vec": c_vec}
+    w.update(_tail_weights(*(weights[n] for n in
+                             ("w2", "b2", "w3", "b3", "w4", "b4")), dtype))
+    w["dims"] = (c_end, c_rc, c_pos)
+    return w
+
+
+def ief_decode_plain(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
+                     init_offset=0.001, use_sigmoid=False):
+    """end (N, c_end), rc (N, c_rc), pos_e (N, c_pos) -> (N,) f32 offsets
+    after the squash."""
+    dtype = w["w1"].dtype
+    x = torch.cat([end_rows.to(dtype), rc_rows.to(dtype), pos_rows.to(dtype)], 1)
+    e1 = _dot(x, w["w1"][:x.shape[1]], dtype) + w["b1"]
+    return _squash(_ief_loop(e1, w, "", n_iter, init_offset, dtype),
+                   use_sigmoid)
+
+
+def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
+                     use_sigmoid):
+    dtype = w["w1"].dtype
+    n = end_rows.shape[0]
+    c_end, c_rc, c_pos = w["dims"]
+    _check_cuda("ief_decode", [end_rows, rc_rows, pos_rows,
+                               *(w[k] for k in _K4_WEIGHTS)], dtype)
+    if w["w1"].shape[1] != 256 or w["w3"].shape != (128, 64):
+        raise ValueError("ief_decode kernel takes layer widths 256-128-64-1")
+    if end_rows.shape != (n, c_end) or rc_rows.shape != (n, c_rc) \
+            or pos_rows.shape != (n, c_pos):
+        raise ValueError("ief_decode: operand shapes do not match the weights")
+    end_rows, rc_rows, pos_rows = (t.to(dtype).contiguous()
+                                   for t in (end_rows, rc_rows, pos_rows))
+    out = torch.empty((n,), dtype=torch.float32, device=end_rows.device)
+    ptrs = cuda.ptr_array([end_rows, rc_rows, pos_rows,
+                           *(w[k] for k in _K4_WEIGHTS), out])
+    fn = cuda.bind("ief_decode", "idt_ief_decode", cuda.PTR, *[cuda.I64] * 8,
+                   cuda.F32)
+    cuda.check(fn(ptrs, n, c_end, c_rc, c_pos, w["w1"].shape[0], n_iter,
+                  int(dtype == torch.bfloat16), int(use_sigmoid), init_offset,
+                  cuda.stream_ptr(end_rows.device)), "ief_decode")
+    return out
+
+
+_K4_WEIGHTS = ("w1", "b1", "a_vec", "c_vec", "w2", "b2", "w3", "b3", "w4", "b4")
+
+
+def ief_decode(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
+               init_offset=0.001, use_sigmoid=False):
+    """Stage-2 IEF decode (see :func:`ief_decode_plain`); kernel K4 on CUDA."""
+    if end_rows.device.type == "cpu":
+        return ief_decode_plain(end_rows, rc_rows, pos_rows, w, n_iter=n_iter,
+                                init_offset=init_offset,
+                                use_sigmoid=use_sigmoid)
+    out = _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter,
+                           init_offset, use_sigmoid)
+    ief_decode.launches += 1
+    return out
+
+
+ief_decode.launches = 0

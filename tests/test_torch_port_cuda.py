@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU (the kernels have no CPU mode) and skips
+without one. The file imports no JAX, so it also runs on a machine that has
+none; there, skip the JAX-importing conftest:
+
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from implicit_depth_torch.builder import (
+    build_lidf,
+    build_refine,
+    build_static,
+    randomize_weights_,
+)
+from implicit_depth_torch.config import load_config
+from implicit_depth_torch.infer import DepthCompleter
+from implicit_depth_torch.ops import ray_decode as rd
+from implicit_depth_torch.ops import segment
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# f32: one algebra, another summation order; bf16: the summation order can
+# move the bf16 rounding of a hidden activation by one ulp (~0.4% of ~1)
+ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _mlp_weights(rng, prefix, in_dim, gf4, w):
+    dims = [(in_dim, gf4), (gf4, gf4 // 2), (gf4 // 2, gf4 // 4), (gf4 // 4, 1)]
+    for i, (a, b) in enumerate(dims, 1):
+        w[f"{prefix}w{i}"] = rng.normal(size=(a, b)) / np.sqrt(a)
+        w[f"{prefix}b{i}"] = 0.1 * rng.normal(size=(b,))
+
+
+def _t(a, dev, dtype=torch.float32):
+    return torch.as_tensor(np.asarray(a)).to(dev, dtype)
+
+
+def _close(got, ref, atol):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   r.float().cpu().numpy(), atol=atol, rtol=0)
+
+
+# 100 rays: not a multiple of any kernel's rows per block (ragged last block)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ray_decode_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(11)
+    n, cv, c_roi, c_dir = 100, 128, 128, 27
+    c_embed = cv + c_roi + 102 + c_dir
+    w = {"off_enc_w": rng.normal(size=(1, 16)),
+         "off_enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp_weights(rng, "off_", c_embed + 16, 256, w)
+    _mlp_weights(rng, "prob_", c_embed, 256, w)
+    pw = rd.prep_ray_decode_weights({k: _t(v, dev) for k, v in w.items()},
+                                    cv, c_roi, c_dir, 8, DTYPES[dtype])
+    args = (_t(rng.normal(size=(30, cv)), dev, DTYPES[dtype]),
+            _t(rng.integers(0, 30, (n, 8)), dev, torch.int32),
+            _t(0.6 * rng.normal(size=(n, 8, 6)), dev),
+            _t(rng.normal(size=(n, c_roi + c_dir)), dev, DTYPES[dtype]))
+    before = rd.ray_decode.launches
+    _close(rd.ray_decode(*args, pw), rd.ray_decode_plain(*args, pw), ATOL[dtype])
+    assert rd.ray_decode.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ief_decode_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(12)
+    n, c_end, c_rc, c_pos, c_dir = 100, 128, 155, 51, 27
+    w = {"enc_w": rng.normal(size=(1, 16)), "enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp_weights(rng, "", c_end + c_rc + c_pos + 16, 256, w)
+    pw = rd.prep_ief_weights({k: _t(v, dev) for k, v in w.items()}, c_end,
+                             c_rc, c_pos, c_dir, DTYPES[dtype])
+    args = tuple(_t(rng.normal(size=(n, c)), dev, DTYPES[dtype])
+                 for c in (c_end, c_rc, c_pos))
+    before = rd.ief_decode.launches
+    _close(rd.ief_decode(*args, pw), rd.ief_decode_plain(*args, pw), ATOL[dtype])
+    assert rd.ief_decode.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_segment_max0_kernel_matches_plain(dev, dtype, with_valid):
+    rng = np.random.default_rng(13)
+    n, c, s = 5000, 64, 50  # segments 40..49 stay empty
+    data = _t(np.abs(rng.normal(size=(n, c))), dev, DTYPES[dtype])
+    data[::7] = 0  # post-ReLU zeros
+    ids = _t(rng.integers(0, 40, n), dev, torch.int32)
+    valid = _t(rng.random(n) < 0.7, dev, torch.bool) if with_valid else None
+    before = segment.segment_max0.launches
+    got = segment.segment_max0(data, ids, s, valid)
+    _close(got, segment.segment_max0_plain(data, ids, s, valid), 0.0)  # exact
+    assert got.dtype == data.dtype and (got[40:] == 0).all()
+    assert segment.segment_max0.launches == before + 1
+
+
+def test_depth_completer_card_matches_cpu(dev):
+    """A tiny two-stage model in f32, every valid pixel a point (no random
+    draw): the card (kernels) against the CPU (plain versions)."""
+    cfg = load_config(overrides={
+        "mask_type": "all", "dataset": {"img_height": 48, "img_width": 64},
+        "model": {"rgb_out": 8, "pnet_out": 16, "pnet_gf": 8,
+                  "resnet_stages": [1, 1, 1, 1]},
+        "refine": {"pnet_out": 16, "pnet_gf": 8},
+        "grid": {"valid_sample_num": -1},
+        "tpu": {"max_pairs_per_ray": 12, "compute_dtype": "float32"}})
+    static = build_static(cfg, n_rays=48 * 64)
+    rng = np.random.default_rng(14)
+    depth = rng.uniform(0.6, 1.4, (96, 128)).astype(np.float32)
+    depth[rng.random((96, 128)) < 0.3] = 0
+    rgb = rng.integers(0, 255, (96, 128, 3), dtype=np.uint8)
+    outs = []
+    for device in (dev, "cpu"):
+        # weights at unit activation scale: decoder outputs spread over (0, 1)
+        g = torch.Generator().manual_seed(0)
+        dc = DepthCompleter(
+            cfg, lidf=randomize_weights_(build_lidf(cfg, static, g), g),
+            refine=randomize_weights_(build_refine(cfg, static, g), g),
+            device=device)
+        outs.append(dc.complete(rgb, depth, (100.0, 100.0, 64.0, 48.0)))
+    card, cpu = outs
+    have = depth != 0
+    assert card["depth"][have].tobytes() == depth[have].tobytes()
+    # 1e-3 m on 99% of pixels: a 1e-6 difference can move a prediction
+    # across a voxel boundary, and the refine then decodes another cell
+    agree = np.abs(card["depth_pred"] - cpu["depth_pred"]) <= 1e-3
+    assert agree.mean() >= 0.99, agree.mean()
