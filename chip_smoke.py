@@ -1,11 +1,13 @@
 """Chip smoke test of the PyTorch/CUDA port (``implicit_depth_torch``) on one
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
-version at the serving shapes, serves synthetic frames through the port's
-two-stage ``DepthCompleter`` at the full default width, and cross-checks one
-frame against the plain CPU path.
+version at the shapes of its main path, serves synthetic frames through the
+port's two-stage ``DepthCompleter`` and trains stage 1 for a few steps, both
+at the full default width, and cross-checks a frame and a train step against
+the plain CPU path.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
-    python3 chip_smoke.py --profile   # also a torch.profiler table of a frame
+    python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
+                                      # and of a train step
 
 Phases:
   1. device: a CUDA device must be present; prints name and power limit;
@@ -20,7 +22,18 @@ Phases:
      card (launch counters from 0: K1 1, K4 2, K5 10 per frame), finite output,
      input depth passed through bit for bit; median ms per frame;
   5. cross-check: one frame in f32 on the card (kernels) and on the CPU
-     (plain versions), same weights and valid-point draw.
+     (plain versions), same weights and valid-point draw;
+  6. training kernels: K2 ray_decode_save and K3 ray_decode_bwd on the inputs
+     a warm-up train step gives them (recorded), in bf16 and f32, against
+     their plain versions: outputs, saves, d_vox_table, d_ray_feat and every
+     weight gradient; times and bounds;
+  7. training path: 5 timed Adam steps (after the warm-up) of the default
+     stage-1 model at 240x320, 20,000 rays and 10,000 valid points per image,
+     batch 4, bf16 (launch counters from 0: K2 1, K3 1, K5 2 per step),
+     finite losses, every parameter moved; median step_ms, peak memory;
+  8. training cross-check: one f32 train step on the card and on the CPU
+     (a smaller frame), same weights and draws: losses and each parameter's
+     gradient.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -67,8 +80,49 @@ BITE = 10
 # difference can still move a predicted point across a voxel boundary (the
 # refine then pools and decodes another cell) or flip a near-tie slot
 XCHECK_ATOL, XCHECK_FRAC = 1e-3, 0.01
+# training: the default model and sizes (240x320, 20,000 rays and 10,000
+# valid points per image); the configured batch_size 32 is cut to the JAX
+# bench's training batch 4 (640,000 decoded pairs per step)
+TRAIN_OVERRIDES = {}
+TRAIN_BATCH, TRAIN_STEPS = 4, 5
+EXPECT_PER_STEP = {"ray_decode_save": 1, "ray_decode_bwd": 1,
+                   "segment_max0": 2}
+# the training kernels against their plain versions. K2's outputs: f32
+# 1e-5 as K1's; bf16 1e-3 (2.5x the 4e-4 measured on an H100 at these
+# shapes: the training model's decoder outputs spread less than the served
+# ones, std ~0.026, and K1's 4e-3 would not bite); its saves, rounded to
+# the compute type from sums taken in another order, may differ by an ulp
+# of each value: f32 1e-5, bf16 2^-7 of the largest value. K3 per
+# gradient, by the norm of the difference over the norm of the plain
+# gradient: f32 1e-4 (one algebra, another order); bf16 2e-2 (the kernel
+# rounds each cotangent to bf16 before its product, as the JAX kernel does;
+# the plain autograd does not)
+TRAIN_TOL = {("ray_decode_save_out", torch.float32): 1e-5,
+             ("ray_decode_save_out", torch.bfloat16): 1e-3,
+             ("ray_decode_save", torch.float32): 1e-5,
+             ("ray_decode_save", torch.bfloat16): 2.0 ** -7,
+             ("ray_decode_bwd", torch.float32): 1e-4,
+             ("ray_decode_bwd", torch.bfloat16): 2e-2}
+# train-step cross-check (f32, card vs CPU, same weights and draws, the
+# curriculum's labelled slot so that no near-tie picks another slot): losses
+# within 1e-4; the gradient of each decoder and PointNet parameter (the
+# port's kernels and the K5 gradient) within 1e-3 of its norm (the atomics
+# of d_vox_table sum in another order); each ResNet parameter's within 2e-2:
+# cuDNN's f32 convolutions give a feature map 1.3e-5 off the CPU's, and the
+# backward through 33 convolutions and train-mode batch norms (each
+# subtracting the batch means of its cotangent) grew that to 7.5e-3 on an
+# H100 when only the position loss flowed back through the decode, whose
+# own cotangents then agreed to 4e-8
+XCHECK_TRAIN = {"dataset": {"img_height": 120, "img_width": 160},
+                "grid": {"miss_sample_num": 2000, "valid_sample_num": 2000},
+                "tpu": {"compute_dtype": "float32"}}
+XCHECK_LOSS_RTOL, XCHECK_GRAD_RTOL, XCHECK_RESNET_RTOL = 1e-4, 1e-3, 2e-2
 SOURCES = {"ray_decode": ("implicit_depth_torch/csrc/ray_decode.cu",
                           "implicit_depth_tpu/ops/pallas_ray_decode.py:357"),
+           "ray_decode_save": ("implicit_depth_torch/csrc/ray_decode.cu",
+                               "implicit_depth_tpu/ops/pallas_ray_decode.py:650"),
+           "ray_decode_bwd": ("implicit_depth_torch/csrc/ray_decode_bwd.cu",
+                              "implicit_depth_tpu/ops/pallas_ray_decode.py:931"),
            "ief_decode": ("implicit_depth_torch/csrc/ief_decode.cu",
                           "implicit_depth_tpu/ops/pallas_ray_decode.py:821"),
            "segment_max0": ("implicit_depth_torch/csrc/segment_max.cu",
@@ -100,11 +154,21 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
 
 
+def rel_norm(got, ref, floor=0.0):
+    """|got - ref| / max(|ref|, floor) over the whole tensor. ``floor``
+    serves a gradient that is a sum which cancels, as the gradient of a
+    decoder's last bias (the sum of its output's cotangents; the softmax
+    cross-entropy's sum to ~0 over each ray's slots): it is then measured
+    against the sum of the magnitudes it adds up."""
+    got, ref = got.double(), ref.double()
+    return ((got - ref).norm() / ref.norm().clamp(min=max(floor, 1e-30))).item()
+
+
 def bound(name, a, dt):
     """(bound_ms, bound_by, flops, bytes) of one call on these inputs: each
     input read once, each output written once, the operations at the peak
     rate of the units that do them."""
-    if name == "ray_decode":
+    if name in ("ray_decode", "ray_decode_save"):
         vt, cells, pos, rf, w = a
         n, kb = cells.shape
         c_vox, c_ray, multires = w["dims"]
@@ -116,6 +180,27 @@ def bound(name, a, dt):
         flops = 2 * (n * kb * ((c_vox + 6 + 12 * multires) * 2 * g1 + 3 * tail)
                      + n * c_ray * 2 * g1)
         byt = nbytes(vt, cells, pos, rf, *w.values()) + 2 * n * kb * 4
+        if name == "ray_decode_save":  # e1, z1p, trig written
+            byt += n * kb * (2 * g1 + 12 * multires) * vt.element_size()
+        peak = PEAK_TC[dt]
+    elif name == "ray_decode_bwd":
+        vt, cells, pos, rf, w, saved, g_off, g_logit = a
+        n, kb = cells.shape
+        c_vox, c_ray, multires = w["dims"]
+        g1, g2, g3 = 256, 128, 64
+        tail = g1 * g2 + g2 * g3 + g3
+        # per pair, from the saved layer-1 pre-activations: the three tails
+        # recomputed (2 IEF iterations + the prob decoder) and differentiated
+        # (input and weight gradients: 2 products each), layer 1's weight
+        # gradient over [vox | pos6 | trig] and d(voxel row), for both
+        # decoders; per ray: the [roi | dir_e] weight gradient and d_ray_feat
+        flops = 2 * (n * kb * (3 * tail + 3 * 2 * tail
+                               + (c_vox + 6 + 12 * multires) * 2 * g1
+                               + c_vox * 2 * g1)
+                     + n * c_ray * 2 * g1 * 2)
+        byt = (nbytes(vt, cells, pos, rf, *w.values(), *saved, g_off, g_logit)
+               + vt.numel() * 4 + n * c_ray * 4          # d_table, d_ray_feat
+               + sum(w[k].numel() * 4 for k in w if k != "dims"))
         peak = PEAK_TC[dt]
     elif name == "ief_decode":
         e, rc, p, w = a
@@ -164,11 +249,11 @@ def kernel_modules():
             "segment_max0": (pointnet, "segment_max0")}
 
 
-def record_kernel_calls(dc, frame):
-    """Serve ``frame`` once; returns {(name, shapes): (args, kwargs)} of each
-    kernel wrapper's first call per input shape."""
+def record_calls(mods, run):
+    """``run()`` with each kernel wrapper of ``mods`` ({name: (module,
+    attribute)}) replaced by a recorder; returns {(name, shapes): (args,
+    kwargs)} of each wrapper's first call per input shape."""
     recorded = {}
-    mods = kernel_modules()
     originals = {name: getattr(m, attr) for name, (m, attr) in mods.items()}
 
     def recorder(name):
@@ -176,12 +261,15 @@ def record_kernel_calls(dc, frame):
             shape = tuple(tuple(t.shape) for t in a if torch.is_tensor(t))
             recorded.setdefault((name, shape), (a, kw))
             return originals[name](*a, **kw)
+        # a wrapper that counts through its own module's global name counts
+        # on this recorder while it stands in there
+        call.launches = 0
         return call
 
     for name, (m, attr) in mods.items():
         setattr(m, attr, recorder(name))
     try:
-        dc.complete(*frame)
+        run()
     finally:
         for name, (m, attr) in mods.items():
             setattr(m, attr, originals[name])
@@ -353,8 +441,298 @@ def cross_check(overrides, lidf_cpu, refine_cpu, frame, dev):
         raise AssertionError("cross-check: the card and the CPU disagree")
 
 
-def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False):
-    """Phases 2-6 on ``dev``; prints the kernels line."""
+def train_batches(n, cfg, batch, dev):
+    """``n`` seeded synthetic training batches at the config's resolution,
+    as device tensors."""
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+    h, w = cfg.dataset.img_height, cfg.dataset.img_width
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_batch(SEED + 1 + i, batch, h, w).items()}
+            for i in range(n)]
+
+
+def train_kernel_modules():
+    """(module, attribute) of each kernel wrapper as a train step calls it."""
+    from implicit_depth_torch.models import pointnet
+    from implicit_depth_torch.ops import ray_decode as rd
+    return {"ray_decode_save": (rd, "ray_decode_save"),
+            "ray_decode_bwd": (rd, "ray_decode_bwd"),
+            "segment_max0": (pointnet, "segment_max0")}
+
+
+def record_train_calls(step, state, batch, gen):
+    """One (warm-up) train step; returns {name: (args, kwargs)} of the first
+    call of each training kernel wrapper, and under "f32_operands" the
+    decode's weight operands in f32 from the weights that step saw."""
+    from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import ray_decode as rd
+    m = state.model
+    f32 = rd.prep_ray_decode_weights(
+        {k: v.detach().clone() for k, v in
+         decoder_weights(m.offset_dec, m.prob_dec).items()},
+        m.dims["c_vox"], m.dims["c_roi"], m.dims["c_dir"], m.multires,
+        torch.float32)
+    losses = {}
+    calls = record_calls(train_kernel_modules(), lambda: losses.update(
+        step(state, batch, gen, 0)))
+    assert all(torch.isfinite(v) for v in losses.values()), losses
+    recorded = {"f32_operands": f32}
+    for (name, _), call in calls.items():
+        recorded.setdefault(name, call)
+    return recorded
+
+
+@torch.no_grad()
+def train_kernel_phase(recorded):
+    """K2 and K3 at the recorded training shapes, in bf16 (as recorded) and
+    f32: kernel vs plain, times, bounds. Returns each kernel's bf16 row."""
+    from implicit_depth_torch.ops import ray_decode as rd
+
+    w32 = recorded["f32_operands"]
+    (vt, cells, pos, rf, w_bf), kw2 = recorded["ray_decode_save"]
+    a3, kw3 = recorded["ray_decode_bwd"]
+    g_off, g_logit = a3[6], a3[7]
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        w = w_bf if dt == torch.bfloat16 else w32
+        a2 = (vt.to(dt), cells, pos, rf.to(dt), w)
+        # K2: outputs as K1's; saves relative to their largest value
+        got, ref = rd.ray_decode_save(*a2, **kw2), \
+            rd.ray_decode_plain(*a2, **kw2, saves=True)
+        torch.cuda.synchronize()
+        tol_out = TRAIN_TOL[("ray_decode_save_out", dt)]
+        checks = [("offset", got[0], ref[0], tol_out),
+                  ("logit", got[1], ref[1], tol_out)]
+        for nm, g, r in zip(("e1", "z1p", "trig"), got[2], ref[2]):
+            checks.append((nm, g, r, TRAIN_TOL[("ray_decode_save", dt)]
+                           * r.float().abs().max().item()))
+        err2 = row_checks("ray_decode_save", dt, checks)
+        saved = got[2]
+        # K3: every gradient against autograd of the plain decode started
+        # from the same saves, by the relative norm of the difference
+        a3 = (*a2, saved, g_off, g_logit)
+        k3 = rd.ray_decode_bwd(*a3, **kw3)
+        p3 = rd.ray_decode_bwd_plain(*a2[:4], w, g_off, g_logit, **kw3,
+                                     dtype=dt, saved=saved)
+        torch.cuda.synchronize()
+        tol3 = TRAIN_TOL[("ray_decode_bwd", dt)]
+        worst, err3, failed = ("", 0.0), 0.0, []
+        pairs = [("d_vox_table", k3[0], p3[0]), ("d_ray_feat", k3[1], p3[1])]
+        pairs += [(k, k3[2][k], p3[2][k]) for k in k3[2]]
+        floors = {"off_b4": g_off.abs().sum().item(),
+                  "prob_b4": g_logit.abs().sum().item()}
+        for nm, g, r in pairs:
+            e = rel_norm(g, r, floors.get(nm, 0.0))
+            log(f"kernel ray_decode_bwd {str(dt).split('.')[-1]} {nm}: "
+                f"relative error {e:.3g}, max |diff| "
+                f"{(g - r).abs().max().item():.3g}, max |ref| "
+                f"{r.abs().max().item():.3g}")
+            if not (torch.isfinite(g).all() and e <= tol3):
+                failed.append(f"{nm}: relative error {e} > {tol3}")
+            if e >= worst[1]:
+                worst, err3 = (nm, e), (g - r).abs().max().item()
+        if failed:
+            raise AssertionError(f"ray_decode_bwd {dt}: {failed}")
+        # against the exact gradient of the plain decode (not from the
+        # saves), for the record: the bf16 saves move it by a few percent
+        exact = rd.ray_decode_bwd_plain(*a2[:4], w, g_off, g_logit, **kw3,
+                                        dtype=dt)
+        drift = max(rel_norm(g, r, floors.get(nm, 0.0)) for (nm, g, _), r in
+                    zip(pairs, [exact[0], exact[1],
+                                *(exact[2][k] for k in k3[2])]))
+        log(f"kernel ray_decode_bwd {str(dt).split('.')[-1]}: worst relative error "
+            f"{worst[1]:.3g} ({worst[0]}, tol {tol3}: the plain gradients' "
+            f"own spread is 1); max |diff| there {err3:.3g}; from the exact "
+            f"gradient of the unsaved decode at most {drift:.3g}")
+        for name, args, kw, err, extra in (
+                ("ray_decode_save", a2, kw2, err2, {}),
+                ("ray_decode_bwd", a3, kw3, err3,
+                 {"max_rel_err": worst[1], "worst": worst[0],
+                  "tolerance_rel": tol3})):
+            if name == "ray_decode_save":
+                kern, plain = (lambda: rd.ray_decode_save(*a2, **kw2),
+                               lambda: rd.ray_decode_plain(*a2, **kw2,
+                                                           saves=True))
+            else:
+                kern = lambda: rd.ray_decode_bwd(*a3, **kw3)  # noqa: E731
+                plain = lambda: rd.ray_decode_bwd_plain(  # noqa: E731
+                    *a2[:4], w, g_off, g_logit, **kw3, dtype=dt, saved=saved)
+            ms = time_ms(kern, warmup=1, reps=5)
+            plain_ms = time_ms(plain, warmup=1, reps=3)
+            b_ms, b_by, flops, byt = bound(name, args, dt)
+            row = {"name": name, "dtype": str(dt).split(".")[-1],
+                   "shape": [list(cells.shape)], "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+                   "bytes": byt, **extra}
+            log(f"kernel {name} {row['dtype']} {row['shape']}: ms {ms:.4f} "
+                f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            if dt == torch.bfloat16:
+                rows[name] = row
+        del a3, k3, p3, exact, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def row_checks(name, dt, checks):
+    """Each (what, got, ref, tol): max |got - ref| <= tol, finite, and tol
+    BITE times below the spread of ref; returns the largest error."""
+    worst, failed = 0.0, []
+    for what, g, r, tol in checks:
+        err = (g.float() - r.float()).abs().max().item()
+        spread = r.float().std().item()
+        log(f"kernel {name} {str(dt).split('.')[-1]} {what}: max_abs_err "
+            f"{err:.3g} (tol {tol:.3g}; std {spread:.3g})")
+        if not (err <= tol and torch.isfinite(g).all()):
+            failed.append(f"{what}: {err} > {tol}")
+        if BITE * tol > spread:
+            failed.append(f"{what}: tolerance {tol} is not {BITE}x below the "
+                          f"spread {spread}")
+        worst = max(worst, err)
+    if failed:
+        raise AssertionError(f"{name} {dt}: {failed}")
+    return worst
+
+
+def train_path(cfg, model, dev, profile=False):
+    """Warm-up step (recording the kernels' inputs), then TRAIN_STEPS timed
+    steps with every launch counter from 0; returns (recorded, launches,
+    step_ms)."""
+    from implicit_depth_torch.ops import ray_decode as rd
+    from implicit_depth_torch.ops import segment
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    state = TrainState.create(model, cfg.training, steps_per_epoch=1000)
+    step = make_lidf_train_step(cfg, model, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = train_batches(TRAIN_STEPS + 1, cfg, TRAIN_BATCH, dev)
+    recorded = record_train_calls(step, state, batches[0], gen)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    counters = {"ray_decode_save": rd.ray_decode_save,
+                "ray_decode_bwd": rd.ray_decode_bwd,
+                "segment_max0": segment.segment_max0}
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    step_ms, losses = [], []
+    for i, b in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        out = step(state, b, gen, i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: v.item() for k, v in out.items()})
+    launches = {k: f.launches for k, f in counters.items()}
+    log(f"training: {TRAIN_STEPS} steps of batch {TRAIN_BATCH} at "
+        f"{cfg.dataset.img_height}x{cfg.dataset.img_width}, launches "
+        f"{launches}, step_ms {step_ms}, median step_ms "
+        f"{statistics.median(step_ms)}")
+    log(f"training losses {losses}")
+    log(f"training peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k, per in EXPECT_PER_STEP.items():
+        if launches[k] != per * TRAIN_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{TRAIN_STEPS} steps, expected {per} each")
+    if not all(np.isfinite(v) for ls in losses for v in ls.values()):
+        raise AssertionError("training: a loss is not finite")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"training: parameters did not move: {still}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            step(state, batches[1], gen, 0)
+            torch.cuda.synchronize()
+        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+    return recorded, launches, step_ms
+
+
+def train_cross_check(dev):
+    """One f32 train step of the same weights on the card (kernels) and on
+    the CPU (plain versions), same valid-point and ray-window draws."""
+    from implicit_depth_torch.builder import (
+        build_lidf,
+        build_static,
+        randomize_weights_,
+    )
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.geometry.sampling import (
+        sample_masked_window,
+        sample_valid_stratified,
+    )
+    from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import ray_decode as rd
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    cfg = load_config(overrides=XCHECK_TRAIN)
+    static = build_static(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    model = randomize_weights_(build_lidf(cfg, static, gen), gen)
+    batch = train_batches(1, cfg, 1, "cpu")[0]
+    vidx, _, _ = sample_valid_stratified(batch["valid_mask"] > 0.5,
+                                         static.n_valid, gen)
+    _, _, _, mstart = sample_masked_window(
+        (batch["corrupt_mask"] > 0.5).reshape(1, -1), static.n_rays, gen)
+    # the decoders' last biases: their gradients are sums of the decode's
+    # cotangents that cancel (see rel_norm), measured against the sum of
+    # the cotangents' magnitudes, taken from the card's K3 call
+    floors = {}
+    bwd = rd.ray_decode_bwd
+
+    def recorder(*a, **kw):
+        floors["off_b4"] = a[6].abs().sum().item()
+        floors["prob_b4"] = a[7].abs().sum().item()
+        return bwd(*a, **kw)
+
+    recorder.launches = 0
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        m = copy.deepcopy(model).to(device)
+        state = TrainState.create(m, cfg.training, steps_per_epoch=1000)
+        rd.ray_decode_bwd = recorder if device == dev else bwd
+        try:
+            losses = make_lidf_train_step(cfg, m, device)(
+                state, {k: v.to(device) for k, v in batch.items()}, None, 0,
+                valid_idx=vidx, miss_start=mstart)
+        finally:
+            rd.ray_decode_bwd = bwd
+        names = {id(p): n for n, p in m.named_parameters()}
+        last_bias = {names[id(p)]: k for k, p in decoder_weights(
+            m.offset_dec, m.prob_dec).items() if k in floors}
+        runs.append(({k: v.item() for k, v in losses.items()},
+                     {n: p.grad.cpu() for n, p in m.named_parameters()}))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-6)
+                   for k in l_cpu)
+    errs = {n: rel_norm(g_card[n], g_cpu[n],
+                        floors[last_bias[n]] if n in last_bias else 0.0)
+            for n in g_cpu}
+    log(f"train cross-check f32 {dev} vs cpu ({cfg.dataset.img_height}x"
+        f"{cfg.dataset.img_width}, {static.n_rays} rays): losses card "
+        f"{l_card} cpu {l_cpu}, largest relative loss difference "
+        f"{loss_err:.3g}")
+    failed = loss_err > XCHECK_LOSS_RTOL
+    for group, tol in (("resnet", XCHECK_RESNET_RTOL),
+                       ("decoders and pnet", XCHECK_GRAD_RTOL)):
+        errs_g = {n: e for n, e in errs.items()
+                  if n.startswith("resnet.") == (group == "resnet")}
+        worst = max(errs_g, key=errs_g.get)
+        log(f"train cross-check gradients of the {group} parameters: largest "
+            f"relative error {errs_g[worst]:.3g} ({worst}, tol {tol}), median "
+            f"{statistics.median(errs_g.values()):.3g}")
+        failed |= errs_g[worst] > tol
+    if failed:
+        raise AssertionError("train cross-check: the card and the CPU "
+                             "disagree")
+
+
+def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
+        train_overrides=TRAIN_OVERRIDES):
+    """Phases 2-8 on ``dev``; prints the kernels line."""
     from implicit_depth_torch.builder import (
         build_lidf,
         build_refine,
@@ -380,7 +758,9 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False):
         f"forward_times={cfg.refine.forward_times}")
     frames = make_frames(MAIN_FRAMES + 1, frame_hw)
 
-    rows = kernel_phase(record_kernel_calls(dc, frames[0]), lidf, refine, dev)
+    rows = kernel_phase(record_calls(kernel_modules(),
+                                   lambda: dc.complete(*frames[0])),
+                      lidf, refine, dev)
     launches = main_path(dc, frames[1:], cfg)
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -390,18 +770,47 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False):
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
     cross_check(overrides, lidf_cpu, refine_cpu, frames[1], dev)
+    del dc, lidf, refine, lidf_cpu, refine_cpu
+    torch.cuda.empty_cache()
+
+    # -- stage-1 training ------------------------------------------------------
+    cfg_t = load_config(overrides=train_overrides)
+    static_t = build_static(cfg_t)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = randomize_weights_(build_lidf(cfg_t, static_t, gen), gen).to(dev)
+    log(f"training model: {cfg_t.dataset.img_height}x"
+        f"{cfg_t.dataset.img_width}, batch {TRAIN_BATCH} (configured "
+        f"{cfg_t.training.batch_size}), rays {static_t.n_rays}, valid "
+        f"{static_t.n_valid}, K={static_t.k_pairs}, "
+        f"kb={cfg_t.tpu.pairs_budget_per_ray}, dtype "
+        f"{cfg_t.tpu.compute_dtype}, decode_bwd {cfg_t.tpu.decode_bwd}, "
+        f"{cfg_t.training.optimizer_name} lr {cfg_t.training.lr}")
+    recorded, launches_t, _ = train_path(cfg_t, model, dev, profile)
+    rows.update(train_kernel_phase(recorded))
+    del recorded, model
+    torch.cuda.empty_cache()
+    train_cross_check(dev)
 
     kernels = []
     for name, row in sorted(rows.items()):
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[name],
-            "max_abs_err": row["max_abs_err"], "tolerance": row["tolerance"],
-            "typical_abs": row["typical_abs"], "ms": row["ms"],
+            "replaces": SOURCES[name][1],
+            "launches": launches.get(name, launches_t.get(name)),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "dtype": row["dtype"], "shape": row["shape"],
-            "launches_per_frame": launches[name] // MAIN_FRAMES})
+            "dtype": row["dtype"], "shape": row["shape"]}
+        for k in ("tolerance", "typical_abs", "max_rel_err", "worst",
+                  "tolerance_rel"):
+            if k in row:
+                entry[k] = row[k]
+        if name in launches:
+            entry["launches_per_frame"] = launches[name] // MAIN_FRAMES
+        if name in launches_t:
+            entry["launches_train"] = launches_t[name]
+            entry["launches_per_step"] = launches_t[name] // TRAIN_STEPS
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
 
 

@@ -62,6 +62,7 @@ def build_lidf(cfg: Config, static: LIDFStatic,
         resnet_stages=tuple(m.get("resnet_stages", (3, 4, 6, 3))),
         pairs_budget=cfg.tpu.get("pairs_budget_per_ray", 0),
         pairs_budget_mode=cfg.tpu.get("pairs_budget_mode", "per_ray"),
+        decode_bwd=cfg.tpu.get("decode_bwd", "kernel_save"),
         dtype=compute_dtype(cfg),
         generator=generator,
     )

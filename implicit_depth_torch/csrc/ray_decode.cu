@@ -1,9 +1,16 @@
 // K1: stage-1 ray-major pair decode (IEF offset + IMNet termination logit).
+// K2: the same kernel instantiated with kSave, the training forward.
 //
 // Replaces implicit_depth_tpu/ops/pallas_ray_decode.py::fused_ray_decode
 // (_fused_fwd_impl and its Pallas kernel): for every ray, its kb = 8 nearest
 // pair slots are decoded by two 4-layer MLPs (256 -> 128 -> 64 -> 1, LeakyReLU
-// 0.02, soft clamp), the offset decoder as a 2-iteration IEF.
+// 0.02, soft clamp), the offset decoder as a 2-iteration IEF. With kSave it
+// replaces fused_ray_decode_table's training forward (_table_fwd,
+// save_mode='l1'): it also writes, rounded to T as the JAX kernel rounds
+// them, e1 (the IEF layer-1 pre-activation before the offset term), z1p (the
+// probability decoder's layer-1 pre-activation) and trig (the sin block),
+// which the backward K3 (ray_decode_bwd.cu) starts from. The outputs of K1
+// and K2 are the same bits: the saves are stores of values K1 computes.
 //
 // What bounds it on the H100: operations. At serving shapes (76,800 rays x 8
 // slots) it is ~3e11 FLOP against ~0.2 GB of operand bytes, ~0.3 ms at the
@@ -71,12 +78,15 @@ struct Params {
   TailWeights<T> off, prob;
   float* out_off;         // (n, kb)
   float* out_logit;       // (n, kb)
+  T* save_e1;             // kSave: (n*kb, 256)
+  T* save_z1p;            // kSave: (n*kb, 256)
+  T* save_trig;           // kSave: (n*kb, 12*multires)
   long long n;
   int c_vox, c_ray, multires, kp, crp, n_iter, use_sigmoid;
   float init_offset;
 };
 
-template <typename T, int M>
+template <typename T, int M, bool kSave>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_kernel(const Params<T> p) {
   constexpr int MR = M / kKb;  // rays per block
@@ -129,6 +139,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     X[i] = v;
+    if constexpr (kSave) {
+      const int t = col - p.c_vox - 6;
+      if (ray < p.n && t >= 0 && t < n_trig)
+        p.save_trig[(ray * kKb + row % kKb) * n_trig + t] = v;
+    }
   }
   __syncthreads();
 
@@ -142,14 +157,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
     const int row = i / kG1, c = i % kG1;
     E1[i] = E1[i] + RAY[(row / kKb) * 2 * kG1 + c] + __ldg(p.b1 + c);
+    if constexpr (kSave) {
+      const long long ray = ray0 + row / kKb;
+      if (ray < p.n)
+        p.save_e1[(ray * kKb + row % kKb) * kG1 + c] = from_f32<T>(E1[i]);
+    }
   }
   // -- probability decoder layer 1: H = act(X @ W_prob + ray part + b1) -------
   tile_product<T, M, kG1>(X, kp, p.pair_w1 + kG1, 2 * kG1, kp, C, kG1);
   __syncthreads();
   for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
     const int row = i / kG1, c = i % kG1;
-    H[i] = from_f32<T>(leaky(C[i] + RAY[(row / kKb) * 2 * kG1 + kG1 + c] +
-                             __ldg(p.b1 + kG1 + c)));
+    const float z = C[i] + RAY[(row / kKb) * 2 * kG1 + kG1 + c] +
+                    __ldg(p.b1 + kG1 + c);
+    H[i] = from_f32<T>(leaky(z));
+    if constexpr (kSave) {
+      const long long ray = ray0 + row / kKb;
+      if (ray < p.n)
+        p.save_z1p[(ray * kKb + row % kKb) * kG1 + c] = from_f32<T>(z);
+    }
   }
   __syncthreads();
 
@@ -174,11 +200,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int M>
+template <typename T, int M, bool kSave>
 int launch(const Params<T>& p, void* stream) {
   constexpr int MR = M / kKb;
   const Smem<T> lay(M, MR, p.kp, p.crp);
-  auto kernel = ray_decode_kernel<T, M>;
+  auto kernel = ray_decode_kernel<T, M, kSave>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -187,7 +213,7 @@ int launch(const Params<T>& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kSave>
 int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
         long long multires, long long kp, long long crp, long long n_iter,
         long long use_sigmoid, float init_offset, void* stream) {
@@ -213,6 +239,9 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
   }
   p.out_off = (float*)ptrs[21];
   p.out_logit = (float*)ptrs[22];
+  p.save_e1 = kSave ? (T*)ptrs[23] : nullptr;
+  p.save_z1p = kSave ? (T*)ptrs[24] : nullptr;
+  p.save_trig = kSave ? (T*)ptrs[25] : nullptr;
   p.n = n;
   p.c_vox = (int)c_vox;
   p.c_ray = (int)c_ray;
@@ -226,9 +255,9 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   if constexpr (sizeof(T) == 2) {
-    return launch<T, 64>(p, stream);
+    return launch<T, 64, kSave>(p, stream);
   } else {
-    return launch<T, 32>(p, stream);
+    return launch<T, 32, kSave>(p, stream);
   }
 }
 
@@ -242,9 +271,24 @@ extern "C" int idt_ray_decode(void* const* ptrs, long long n, long long c_vox,
                               long long kp, long long crp, long long n_iter,
                               long long is_bf16, long long use_sigmoid,
                               float init_offset, void* stream) {
-  return is_bf16 ? run<__nv_bfloat16>(ptrs, n, c_vox, c_ray, multires, kp,
-                                      crp, n_iter, use_sigmoid, init_offset,
-                                      stream)
-                 : run<float>(ptrs, n, c_vox, c_ray, multires, kp, crp,
-                              n_iter, use_sigmoid, init_offset, stream);
+  return is_bf16 ? run<__nv_bfloat16, false>(ptrs, n, c_vox, c_ray, multires,
+                                             kp, crp, n_iter, use_sigmoid,
+                                             init_offset, stream)
+                 : run<float, false>(ptrs, n, c_vox, c_ray, multires, kp, crp,
+                                     n_iter, use_sigmoid, init_offset, stream);
+}
+
+// K2: the pointers of idt_ray_decode, then save_e1, save_z1p, save_trig
+// (26 device pointers). Returns a cudaError_t.
+extern "C" int idt_ray_decode_save(void* const* ptrs, long long n,
+                                   long long c_vox, long long c_ray,
+                                   long long multires, long long kp,
+                                   long long crp, long long n_iter,
+                                   long long is_bf16, long long use_sigmoid,
+                                   float init_offset, void* stream) {
+  return is_bf16 ? run<__nv_bfloat16, true>(ptrs, n, c_vox, c_ray, multires,
+                                            kp, crp, n_iter, use_sigmoid,
+                                            init_offset, stream)
+                 : run<float, true>(ptrs, n, c_vox, c_ray, multires, kp, crp,
+                                    n_iter, use_sigmoid, init_offset, stream);
 }

@@ -1,8 +1,9 @@
 """Procedural synthetic RGB-D scenes (the port's copy of
-``implicit_depth_tpu/data/synthetic.py::synthetic_scene_raw``): a tilted
-background plane plus a few spheres, one of them "transparent". They feed
-``chip_smoke.py`` frames at the sensor's resolution when no dataset is at
-hand.
+``implicit_depth_tpu/data/synthetic.py``): a tilted background plane plus a
+few spheres, one of them "transparent". ``synthetic_batch`` gives training
+batches (standardized RGB, GT and corrupted point clouds, corrupt and valid
+masks) with the loaders' contract; ``synthetic_scene_raw`` gives frames at
+the sensor's resolution for ``chip_smoke.py``'s serving phases.
 """
 
 from __future__ import annotations
@@ -10,6 +11,79 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+from implicit_depth_torch import constants
+
+
+def _xyz_np(depth: np.ndarray, fx, fy, cx, cy) -> np.ndarray:
+    """(H, W) depth -> (H, W, 3) camera-space points, as
+    ``implicit_depth_tpu/geometry/camera.py::compute_xyz_np`` computes them."""
+    h, w = depth.shape
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    depth = depth.astype(np.float32, copy=False)
+    out = np.empty((h, w, 3), np.float32)
+    np.multiply(u - cx, depth, out=out[..., 0])
+    out[..., 0] /= fx
+    np.multiply(v - cy, depth, out=out[..., 1])
+    out[..., 1] /= fy
+    out[..., 2] = depth
+    return out
+
+
+def synthetic_sample(rng: np.random.Generator, h: int = 240,
+                     w: int = 320) -> Dict[str, np.ndarray]:
+    """One training sample: depth is removed inside the first sphere."""
+    fov_x = 1.2112585306167603
+    fov_y = 0.7428327202796936
+    fx = w * 0.5 / np.tan(fov_x * 0.5)
+    fy = h * 0.5 / np.tan(fov_y * 0.5)
+    cx, cy = w * 0.5, h * 0.5
+
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    z0 = rng.uniform(0.8, 1.6)
+    a, b = rng.uniform(-0.2, 0.2, size=2)
+    depth = z0 + a * (u - cx) / w + b * (v - cy) / h
+
+    corrupt_mask = np.zeros((h, w), np.float32)
+    n_obj = rng.integers(2, 5)
+    for i in range(n_obj):
+        ou, ov = rng.uniform(0.2, 0.8) * w, rng.uniform(0.2, 0.8) * h
+        rad = rng.uniform(0.05, 0.15) * w
+        d2 = (u - ou) ** 2 + (v - ov) ** 2
+        inside = d2 < rad ** 2
+        bump = np.sqrt(np.maximum(rad ** 2 - d2, 0.0)) / fx
+        obj_z = depth - rng.uniform(0.05, 0.3) - bump
+        depth = np.where(inside, obj_z, depth)
+        if i == 0:  # first object is "transparent"
+            corrupt_mask = np.where(inside, 1.0, corrupt_mask).astype(np.float32)
+
+    depth = depth.astype(np.float32)
+    rgb = rng.uniform(0.0, 1.0, size=(h, w, 3)).astype(np.float32)
+    rgb = (rgb - np.asarray(constants.IMG_MEAN, np.float32)) / np.asarray(
+        constants.IMG_NORM, np.float32)
+
+    depth_corrupt = depth * (1.0 - corrupt_mask)
+    return {
+        "rgb": rgb,
+        "depth": depth,
+        "depth_corrupt": depth_corrupt,
+        "xyz": _xyz_np(depth, fx, fy, cx, cy),
+        "xyz_corrupt": _xyz_np(depth_corrupt, fx, fy, cx, cy),
+        "corrupt_mask": corrupt_mask,
+        "valid_mask": (1.0 - corrupt_mask).astype(np.float32),
+        "fx": np.float32(fx),
+        "fy": np.float32(fy),
+        "cx": np.float32(cx),
+        "cy": np.float32(cy),
+    }
+
+
+def synthetic_batch(seed: int, batch_size: int, h: int = 240,
+                    w: int = 320) -> Dict[str, np.ndarray]:
+    """``batch_size`` samples from ``default_rng(seed)``, stacked."""
+    rng = np.random.default_rng(seed)
+    samples = [synthetic_sample(rng, h, w) for _ in range(batch_size)]
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 def synthetic_scene_raw(rng: np.random.Generator, h: int = 480,

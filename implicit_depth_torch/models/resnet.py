@@ -4,9 +4,13 @@
 Once the running stride reaches 8, later stride-2 stages keep stride 1 and
 multiply their dilation instead (layer3 -> dilation 2, layer4 -> 4; 3×3
 convs pad by the dilation). A 1×1 conv maps to ``out_ch`` and the map is
-bilinearly resized back to the input size (align_corners=False). BatchNorm
-runs in eval mode (running statistics, eps 1e-5) in f32; convolutions run in
-the compute dtype. Input and output are NHWC, as in the JAX module.
+bilinearly resized back to the input size (align_corners=False).
+Convolutions run in the compute dtype; BatchNorm (eps 1e-5) runs in f32, as
+flax's ``BatchNorm(dtype=float32)``: in eval mode on the running statistics,
+in train mode (``.train()``) on the batch's mean and biased variance
+E[x²] - E[x]², updating the running statistics as flax does with momentum
+0.9 (ra = 0.9·ra + 0.1·batch statistic, the biased variance included).
+Input and output are NHWC, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -38,9 +42,23 @@ def _conv_dt(x, conv: nn.Conv2d, dtype):
                     conv.padding, conv.dilation)
 
 
+_MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
+
+
 def _bn_f32(x, bn: nn.BatchNorm2d):
-    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
+    x = x.float()
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    # F.batch_norm(training=True) would update running_var with the unbiased
+    # variance; flax keeps the biased one, so the statistics are done here
+    mean = x.mean((0, 2, 3))
+    var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp(min=0)
+    with torch.no_grad():
+        bn.running_mean.mul_(_MOMENTUM).add_(mean, alpha=1 - _MOMENTUM)
+        bn.running_var.mul_(_MOMENTUM).add_(var, alpha=1 - _MOMENTUM)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
 
 
 class BasicBlock(nn.Module):

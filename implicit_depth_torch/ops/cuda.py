@@ -115,12 +115,21 @@ def bind(name: str, fn: str, *argtypes):
 
 
 def ptr_array(tensors) -> ctypes.Array:
-    """A host array of the tensors' device pointers (``void* const*``)."""
+    """A host array of the tensors' device pointers (``void* const*``). The
+    kernels index every operand as a dense row-major array."""
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"kernel operand of shape {tuple(t.shape)} is "
+                             "not contiguous")
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(status: int, what: str) -> None:

@@ -18,6 +18,16 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1):
     return e / e.sum(dim=dim, keepdim=True).clamp(min=1e-30)
 
 
+def masked_log_softmax(logits: torch.Tensor, mask: torch.Tensor,
+                       dim: int = -1):
+    """Log-softmax over the True entries; False entries return -1e30."""
+    z = torch.where(mask, logits, torch.full_like(logits, _NEG))
+    m = z.amax(dim=dim, keepdim=True)
+    e = torch.where(mask, torch.exp(z - m), torch.zeros_like(z))
+    lse = m + torch.log(e.sum(dim=dim, keepdim=True).clamp(min=1e-30))
+    return torch.where(mask, logits - lse, torch.full_like(logits, _NEG))
+
+
 def masked_argmax(values: torch.Tensor, mask: torch.Tensor, dim: int = -1):
     """Argmax over True entries, ties to the first. Returns (idx, any_valid);
     idx is 0 for all-False rows."""

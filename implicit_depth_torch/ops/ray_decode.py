@@ -30,6 +30,7 @@ tensors, counting launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict
 
@@ -57,9 +58,19 @@ def _squash(x, use_sigmoid: bool):
     return torch.sigmoid(x) if use_sigmoid else soft_clamp(x)
 
 
+def _q(x, dtype):
+    """``x`` rounded to ``dtype``, held in f32. Under autograd the rounding
+    is a straight-through step: the gradient reaches ``x`` unrounded, so
+    that weight gradients stay f32 as the JAX kernel accumulates them."""
+    r = x.to(dtype).float()
+    if x.dtype == torch.float32 and torch.is_grad_enabled() and x.requires_grad:
+        return x + (r - x).detach()
+    return r
+
+
 def _dot(a, b, dtype):
     """a @ b with ``dtype`` operands and f32 accumulation."""
-    return a.to(dtype).float() @ b.to(dtype).float()
+    return _q(a, dtype) @ _q(b, dtype)
 
 
 def _pad_rows(w, rows):
@@ -72,8 +83,8 @@ def _rank1(enc_w, enc_b, w_x, dtype):
 
 
 def _tail_weights(w2, b2, w3, b3, w4, b4, dtype) -> Dict[str, torch.Tensor]:
-    return {"w2": w2.to(dtype).contiguous(), "b2": b2.to(dtype).float(),
-            "w3": w3.to(dtype).contiguous(), "b3": b3.to(dtype).float(),
+    return {"w2": w2.to(dtype).contiguous(), "b2": _q(b2, dtype),
+            "w3": w3.to(dtype).contiguous(), "b3": _q(b3, dtype),
             "w4": w4.reshape(-1).to(dtype).contiguous(),
             "b4": b4.reshape(1).float()}
 
@@ -99,14 +110,43 @@ def trig_block(pos6: torch.Tensor, multires: int) -> torch.Tensor:
 def prep_ray_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
                             c_roi: int, c_dir: int, multires: int,
                             dtype) -> Dict[str, torch.Tensor]:
+    """The kernel operands (:func:`split_ray_decode_weights` cast by
+    :func:`cast_ray_decode_operands`)."""
+    return cast_ray_decode_operands(split_ray_decode_weights(
+        weights, c_vox, c_roi, c_dir, multires, dtype), dtype)
+
+
+_MATRICES = ("pair_w1", "ray_w1", "off_w2", "off_w3", "off_w4",
+             "prob_w2", "prob_w3", "prob_w4")
+_ROUNDED_BIASES = ("off_b2", "off_b3", "prob_b2", "prob_b3")
+
+
+def cast_ray_decode_operands(w: Dict[str, torch.Tensor],
+                             dtype) -> Dict[str, torch.Tensor]:
+    """The f32 split operands as the kernels take them: matrices in
+    ``dtype``, biases 2 and 3 rounded to ``dtype`` and held in f32."""
+    out = dict(w)
+    for k in _MATRICES:
+        out[k] = w[k].to(dtype).contiguous()
+    for k in _ROUNDED_BIASES:
+        out[k] = _q(w[k], dtype)
+    return out
+
+
+def split_ray_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
+                             c_roi: int, c_dir: int, multires: int,
+                             dtype) -> Dict[str, torch.Tensor]:
     """Split the decoder weights (JAX layout: off_enc_w/b, off_w1..4,
     off_b1..4, prob_w1..4, prob_b1..4; kernels (in, out)) into the kernel
-    operands. Layer 1's input layout is the embed [vox | roi | pe(enter) |
-    pe(leave) | dir (| 16 offset-encoder rows for IEF)].
+    operands, all in f32. Layer 1's input layout is the embed [vox | roi |
+    pe(enter) | pe(leave) | dir (| 16 offset-encoder rows for IEF)].
 
     Returns pair_w1 (KP, 2·4g) rows [vox | pos6 | trig | 0-pad] and ray_w1
-    (CRP, 2·4g) rows [roi | dir | 0-pad], columns [off | prob], in ``dtype``;
-    b1 (2·4g,), a_vec, c_vec (4g,) f32; and each decoder's layers 2-4."""
+    (CRP, 2·4g) rows [roi | dir | 0-pad], columns [off | prob]; b1 (2·4g,);
+    a_vec, c_vec (4g,) of the offset encoder folded into layer 1 with
+    ``dtype`` operands; and each decoder's layers 2-4. Only slicing,
+    concatenation and the rank-1 fold: training differentiates through it,
+    which lays the kernels' split gradients back onto the parameters."""
     c_pos = 6 * (1 + 2 * multires)
     half = c_pos // 2
     o1, o2, o3, o4 = c_vox, c_vox + c_roi, c_vox + c_roi + c_pos, \
@@ -126,18 +166,16 @@ def prep_ray_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
     a_vec, c_vec = _rank1(weights["off_enc_w"], weights["off_enc_b"],
                           weights["off_w1"][o4:], dtype)
     w = {
-        "pair_w1": _pad_rows(torch.cat([off_pair, prob_pair], 1), kp),
-        "ray_w1": _pad_rows(torch.cat([off_ray, prob_ray], 1), crp),
+        "pair_w1": _pad_rows(torch.cat([off_pair, prob_pair], 1), kp).float(),
+        "ray_w1": _pad_rows(torch.cat([off_ray, prob_ray], 1), crp).float(),
         "b1": torch.cat([weights["off_b1"], weights["prob_b1"]]).float(),
         "a_vec": a_vec, "c_vec": c_vec,
     }
-    w["pair_w1"] = w["pair_w1"].to(dtype).contiguous()
-    w["ray_w1"] = w["ray_w1"].to(dtype).contiguous()
     for p in ("off", "prob"):
-        for k, v in _tail_weights(*(weights[f"{p}_{n}"] for n in
-                                    ("w2", "b2", "w3", "b3", "w4", "b4")),
-                                  dtype).items():
-            w[f"{p}_{k}"] = v
+        w[f"{p}_w2"], w[f"{p}_b2"], w[f"{p}_w3"], w[f"{p}_b3"] = (
+            weights[f"{p}_{n}"].float() for n in ("w2", "b2", "w3", "b3"))
+        w[f"{p}_w4"] = weights[f"{p}_w4"].reshape(-1).float()
+        w[f"{p}_b4"] = weights[f"{p}_b4"].reshape(1).float()
     w["dims"] = (c_vox, c_roi + c_dir, multires)
     return w
 
@@ -159,25 +197,42 @@ def _ief_loop(e1, w, prefix, n_iter, init_offset, dtype):
 
 
 def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
-                     init_offset=0.001, use_sigmoid=False):
+                     init_offset=0.001, use_sigmoid=False, dtype=None,
+                     saves=False, from_saves=None):
     """vox_table (S, Cv); cells (N, kb) int row ids into it; pos (N, kb, 6)
     f32 [enter | leave]; ray_feat (N, Cr) -> (offset, prob_logit), each
-    (N, kb) f32 after the squash."""
-    dtype = w["pair_w1"].dtype
+    (N, kb) f32 after the squash. ``dtype``: the compute dtype (default:
+    that of ``w["pair_w1"]``, which may then hold f32 values).
+
+    ``saves``: also return what the saving forward (K2) writes for the
+    backward (K3), in ``dtype``: e1 (N·kb, 4g), the IEF layer-1
+    pre-activation before the offset term; z1p (N·kb, 4g), the probability
+    decoder's layer-1 pre-activation; trig (N·kb, 12·multires).
+    ``from_saves``: (e1, z1p) whose values replace the computed ones, with
+    the gradient flowing as through the computed ones: the function whose
+    gradient K3 computes, as it starts from K2's (rounded) saves."""
+    dtype = dtype or w["pair_w1"].dtype
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
     g4 = w["b1"].shape[0] // 2
     pos6 = pos.reshape(n * kb, 6).float()
-    x = torch.cat([vox_table[cells.reshape(-1).long()].to(dtype),
-                   pos6.to(dtype), trig_block(pos6, multires).to(dtype)], 1)
+    trig = _q(trig_block(pos6, multires), dtype)
+    x = torch.cat([_q(vox_table[cells.reshape(-1).long()].float(), dtype),
+                   _q(pos6, dtype), trig], 1)
     e1 = (_dot(x, w["pair_w1"][:x.shape[1]], dtype)
           + _dot(ray_feat, w["ray_w1"][:c_ray], dtype).repeat_interleave(kb, 0)
           + w["b1"])
     e1_off, z1p = e1[:, :g4], e1[:, g4:]
+    if from_saves is not None:
+        e1_off, z1p = (x + (sv.float() - x).detach()
+                       for x, sv in zip((e1_off, z1p), from_saves))
     offset = _ief_loop(e1_off, w, "off_", n_iter, init_offset, dtype)
     logit = _mlp_tail(_act(z1p), w, "prob_", dtype) + w["prob_b4"]
-    return (_squash(offset, use_sigmoid).reshape(n, kb),
-            _squash(logit, use_sigmoid).reshape(n, kb))
+    out = (_squash(offset, use_sigmoid).reshape(n, kb),
+           _squash(logit, use_sigmoid).reshape(n, kb))
+    if saves:
+        out += ((e1_off.to(dtype), z1p.to(dtype), trig.to(dtype)),)
+    return out
 
 
 def _check_cuda(name, tensors, dtype):
@@ -188,35 +243,51 @@ def _check_cuda(name, tensors, dtype):
         raise ValueError(f"{name}: compute dtype {dtype} not supported")
 
 
-def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
-                     use_sigmoid):
+def _decode_operands(name, vox_table, cells, pos, ray_feat, w):
+    """Checks the K1/K2/K3 operands; returns them contiguous in the kernels'
+    types."""
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
     g4 = w["b1"].shape[0] // 2
-    _check_cuda("ray_decode", [vox_table, cells, pos, ray_feat,
-                               *(w[k] for k in _K1_WEIGHTS)], dtype)
+    _check_cuda(name, [vox_table, cells, pos, ray_feat,
+                       *(w[k] for k in _K1_WEIGHTS)], dtype)
     if kb != 8 or g4 != 256 or w["off_w3"].shape != (128, 64):
-        raise ValueError(f"ray_decode kernel takes kb=8 and layer widths "
+        raise ValueError(f"{name} kernel takes kb=8 and layer widths "
                          f"256-128-64-1 (got kb={kb}, 4g={g4})")
     if vox_table.shape[1] != c_vox or ray_feat.shape != (n, c_ray) \
             or pos.shape != (n, kb, 6):
-        raise ValueError("ray_decode: operand shapes do not match the weights")
-    vox_table = vox_table.to(dtype).contiguous()
-    cells = cells.to(torch.int32).contiguous()
-    pos = pos.float().contiguous()
-    ray_feat = ray_feat.to(dtype).contiguous()
+        raise ValueError(f"{name}: operand shapes do not match the weights")
+    return (vox_table.to(dtype).contiguous(),
+            cells.to(torch.int32).contiguous(), pos.float().contiguous(),
+            ray_feat.to(dtype).contiguous())
+
+
+def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
+                     use_sigmoid, saves=False):
+    """K1, or with ``saves`` K2 (K1 that also writes e1, z1p and trig)."""
+    name = "ray_decode_save" if saves else "ray_decode"
+    vox_table, cells, pos, ray_feat = _decode_operands(
+        name, vox_table, cells, pos, ray_feat, w)
+    dtype = w["pair_w1"].dtype
+    n, kb = cells.shape
+    c_vox, c_ray, multires = w["dims"]
     off = torch.empty((n, kb), dtype=torch.float32, device=cells.device)
     logit = torch.empty_like(off)
+    outs = [off, logit]
+    if saves:
+        g4 = w["b1"].shape[0] // 2
+        outs += [torch.empty((n * kb, c), dtype=dtype, device=cells.device)
+                 for c in (g4, g4, 12 * multires)]
     ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
-                           *(w[k] for k in _K1_WEIGHTS), off, logit])
-    fn = cuda.bind("ray_decode", "idt_ray_decode", cuda.PTR, *[cuda.I64] * 9,
+                           *(w[k] for k in _K1_WEIGHTS), *outs])
+    fn = cuda.bind("ray_decode", f"idt_{name}", cuda.PTR, *[cuda.I64] * 9,
                    cuda.F32)
     cuda.check(fn(ptrs, n, c_vox, c_ray, multires, w["pair_w1"].shape[0],
                   w["ray_w1"].shape[0], n_iter, int(dtype == torch.bfloat16),
                   int(use_sigmoid), init_offset, cuda.stream_ptr(cells.device)),
-               "ray_decode")
-    return off, logit
+               name)
+    return (off, logit, tuple(outs[2:])) if saves else (off, logit)
 
 
 _K1_WEIGHTS = ("pair_w1", "ray_w1", "b1", "a_vec", "c_vec",
@@ -238,6 +309,174 @@ def ray_decode(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
 
 
 ray_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Stage-1 training decode: saving forward (K2) and fused backward (K3)
+# ---------------------------------------------------------------------------
+
+def ray_decode_save(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
+                    init_offset=0.001, use_sigmoid=False):
+    """The training forward: :func:`ray_decode` plus the saves of
+    :func:`ray_decode_plain` (``saves=True``) -> (offset, logit, (e1, z1p,
+    trig)). Kernel K2 on CUDA; the plain version on the CPU."""
+    if cells.device.type == "cpu":
+        return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
+                                n_iter=n_iter, init_offset=init_offset,
+                                use_sigmoid=use_sigmoid, saves=True)
+    out = _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter,
+                           init_offset, use_sigmoid, saves=True)
+    ray_decode_save.launches += 1
+    return out
+
+
+ray_decode_save.launches = 0
+
+def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
+                         *, n_iter=2, init_offset=0.001, use_sigmoid=False,
+                         dtype=None, saved=None):
+    """K3's function in plain PyTorch: autograd of :func:`ray_decode_plain`
+    at the operands ``w`` (compute ``dtype``) -> (d_vox_table, d_ray_feat,
+    {operand: gradient}), all f32. With ``saved`` (K2's e1, z1p, trig) the
+    decode starts from the saved pre-activations, as K3 does."""
+    with torch.enable_grad():
+        leaves = {k: w[k].detach().float().requires_grad_()
+                  for k in _K1_WEIGHTS}
+        vt = vox_table.detach().float().requires_grad_()
+        rf = ray_feat.detach().float().requires_grad_()
+        wq = {**w, **leaves}
+        wq.update({k: _q(wq[k], dtype) for k in _ROUNDED_BIASES})
+        off, logit = ray_decode_plain(
+            vt, cells, pos, rf, wq, n_iter=n_iter, init_offset=init_offset,
+            use_sigmoid=use_sigmoid, dtype=dtype,
+            from_saves=None if saved is None else saved[:2])
+        grads = torch.autograd.grad((off, logit), [vt, rf, *leaves.values()],
+                                    (g_off.float(), g_logit.float()))
+    return grads[0], grads[1], dict(zip(leaves, grads[2:]))
+
+
+def ray_decode_bwd(vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
+                   *, n_iter=2, init_offset=0.001, use_sigmoid=False):
+    """Kernel K3: gradients of the stage-1 decode from K2's saves.
+
+    ``w`` are the kernel operands (:func:`cast_ray_decode_operands`);
+    ``saved`` = (e1, z1p, trig) from :func:`ray_decode_save`; g_off, g_logit
+    (N, kb) the cotangents of its outputs. Returns (d_vox_table (S, Cv),
+    d_ray_feat (N, Cr), {operand: gradient in the operand's shape}), all
+    f32. The weight gradients are summed per block into a workspace and
+    then over the blocks in a fixed order (deterministic); d_vox_table is
+    summed with atomics (the order of the additions varies)."""
+    vox_table, cells, pos, ray_feat = _decode_operands(
+        "ray_decode_bwd", vox_table, cells, pos, ray_feat, w)
+    dtype = w["pair_w1"].dtype
+    n, kb = cells.shape
+    c_vox, c_ray, multires = w["dims"]
+    g4 = w["b1"].shape[0] // 2
+    dev = cells.device
+    e1, z1p, trig = (t.contiguous() for t in saved)
+    for t, c in ((e1, g4), (z1p, g4), (trig, 12 * multires)):
+        if t.shape != (n * kb, c) or t.dtype != dtype or t.device != dev:
+            raise ValueError("ray_decode_bwd: saves do not match the operands")
+    if c_vox % 32 or c_vox > 256 or w["pair_w1"].shape[0] > 256:
+        raise ValueError(f"ray_decode_bwd kernel takes c_vox a multiple of "
+                         f"32 up to 256 (got {c_vox})")
+    g = torch.stack([g_off.float(), g_logit.float()], -1).contiguous()
+    if g.shape != (n, kb, 2):
+        raise ValueError("ray_decode_bwd: cotangents must be (N, kb)")
+    kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
+    layout = (cuda.I64 * (len(_K1_WEIGHTS) + 1))()
+    cuda.check(cuda.bind("ray_decode_bwd", "idt_ray_decode_bwd_layout",
+                         cuda.I64, cuda.I64, cuda.PTR)(
+                             kp, crp, ctypes.addressof(layout), None),
+               "ray_decode_bwd layout")
+    slice_floats = layout[len(_K1_WEIGHTS)]
+    blocks = min(cuda.sm_count(dev), -(-n // (8 if dtype == torch.bfloat16
+                                              else 4)))
+    blocks = max(blocks, 1)
+    work = torch.zeros((blocks, slice_floats), dtype=torch.float32, device=dev)
+    d_w = torch.empty((slice_floats,), dtype=torch.float32, device=dev)
+    d_table = torch.zeros(vox_table.shape, dtype=torch.float32, device=dev)
+    d_rf = torch.empty((n, c_ray), dtype=torch.float32, device=dev)
+    ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
+                           *(w[k] for k in _K1_WEIGHTS), e1, z1p, trig, g,
+                           d_table, d_rf, work, d_w])
+    fn = cuda.bind("ray_decode_bwd", "idt_ray_decode_bwd", cuda.PTR,
+                   *[cuda.I64] * 10, cuda.F32)
+    cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp, n_iter,
+                  int(dtype == torch.bfloat16), int(use_sigmoid), blocks,
+                  init_offset, cuda.stream_ptr(dev)),
+               "ray_decode_bwd")
+    ray_decode_bwd.launches += 1
+    grads = {}
+    for i, k in enumerate(_K1_WEIGHTS):
+        ref = w[k]
+        grads[k] = d_w[layout[i]:layout[i] + ref.numel()].view(ref.shape)
+    return d_table, d_rf, grads
+
+
+ray_decode_bwd.launches = 0
+
+DECODE_BWD_MODES = ("kernel_save", "kernel", "kernel_save_all", "xla")
+
+
+class RayDecodeTrain(torch.autograd.Function):
+    """The training decode on the card: forward K2, backward K3.
+
+    Takes the f32 split operands (:func:`split_ray_decode_weights`) and
+    casts them inside, so that their gradients reach the f32 parameters
+    unrounded; ``cells`` and ``pos`` get no gradient (geometry, as in the
+    JAX package)."""
+
+    @staticmethod
+    def forward(ctx, opts, vox_table, cells, pos, ray_feat, *ops):
+        dtype, dims, n_iter, init_offset, use_sigmoid = opts
+        w32 = dict(zip(_K1_WEIGHTS, ops), dims=dims)
+        w = cast_ray_decode_operands(w32, dtype)
+        off, logit, saved = ray_decode_save(
+            vox_table, cells, pos, ray_feat, w, n_iter=n_iter,
+            init_offset=init_offset, use_sigmoid=use_sigmoid)
+        ctx.opts = opts
+        ctx.in_dtypes = (vox_table.dtype, ray_feat.dtype)
+        ctx.save_for_backward(vox_table, cells, pos, ray_feat, *saved,
+                              *(w[k] for k in _K1_WEIGHTS))
+        return off, logit
+
+    @staticmethod
+    def backward(ctx, g_off, g_logit):
+        dtype, dims, n_iter, init_offset, use_sigmoid = ctx.opts
+        vox_table, cells, pos, ray_feat, e1, z1p, trig, *ops = ctx.saved_tensors
+        w = dict(zip(_K1_WEIGHTS, ops), dims=dims)
+        d_table, d_rf, d_w = ray_decode_bwd(
+            vox_table, cells, pos, ray_feat, w, (e1, z1p, trig), g_off,
+            g_logit, n_iter=n_iter, init_offset=init_offset,
+            use_sigmoid=use_sigmoid)
+        return (None, d_table.to(ctx.in_dtypes[0]), None, None,
+                d_rf.to(ctx.in_dtypes[1]), *(d_w[k] for k in _K1_WEIGHTS))
+
+
+def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
+                     n_iter=2, init_offset=0.001, use_sigmoid=False,
+                     decode_bwd="kernel_save"):
+    """Differentiable stage-1 decode of the training step.
+
+    ``w32``: the f32 split operands from live parameters
+    (:func:`split_ray_decode_weights`, never the serving cache). CPU tensors
+    take plain autograd through :func:`ray_decode_plain` (every
+    ``decode_bwd`` mode); CUDA tensors take :class:`RayDecodeTrain` (K2, K3),
+    which implements ``decode_bwd='kernel_save'`` only."""
+    if decode_bwd not in DECODE_BWD_MODES:
+        raise ValueError(f"decode_bwd {decode_bwd!r}")
+    if cells.device.type == "cpu":
+        w = {**w32, **{k: _q(w32[k], dtype) for k in _ROUNDED_BIASES}}
+        return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
+                                n_iter=n_iter, init_offset=init_offset,
+                                use_sigmoid=use_sigmoid, dtype=dtype)
+    if decode_bwd != "kernel_save":
+        raise NotImplementedError(f"decode_bwd={decode_bwd!r} has no CUDA "
+                                  "kernel; only 'kernel_save' is ported")
+    return RayDecodeTrain.apply(
+        (dtype, w32["dims"], n_iter, init_offset, use_sigmoid), vox_table,
+        cells, pos, ray_feat, *(w32[k] for k in _K1_WEIGHTS))
 
 
 # ---------------------------------------------------------------------------

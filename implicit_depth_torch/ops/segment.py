@@ -11,6 +11,12 @@ exactly 0 for an empty segment.
 ``csrc/segment_max.cu`` and counts the launch in ``segment_max0.launches``.
 The kernel's contract, like the TPU kernel's, is NON-NEGATIVE data (post-ReLU
 features), where it is exact.
+
+The kernel's gradient (:class:`_SegmentMax0`) is plain PyTorch, as the JAX
+package trains through ``jax.ops.segment_max`` and has no backward kernel.
+It follows JAX's rule: a segment's cotangent is shared equally among all
+valid rows that tie at its maximum (post-ReLU zeros tie often); invalid rows
+and empty segments get nothing.
 """
 
 from __future__ import annotations
@@ -60,17 +66,52 @@ def _segment_max0_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
     return table.to(data.dtype)
 
 
+def segment_max0_grad(data: torch.Tensor, segment_ids: torch.Tensor,
+                      valid: torch.Tensor | None, out: torch.Tensor,
+                      grad: torch.Tensor) -> torch.Tensor:
+    """d data (N, C) of :func:`segment_max0` given its output ``out`` and
+    cotangent ``grad`` (S, C): each segment's cotangent split equally among
+    the valid rows equal to its maximum. A row of an empty segment cannot be
+    valid, so empty segments pass nothing on."""
+    ids = segment_ids.long()
+    tie = data == out[ids]
+    if valid is not None:
+        tie &= valid[:, None]
+    tie = tie.float()
+    n_tie = torch.zeros(out.shape, dtype=torch.float32, device=data.device)
+    n_tie.index_add_(0, ids, tie)
+    share = grad.float() / n_tie.clamp(min=1.0)
+    return (tie * share[ids]).to(data.dtype)
+
+
+class _SegmentMax0(torch.autograd.Function):
+    """Kernel K5 forward, plain-PyTorch backward."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments, valid):
+        out = _segment_max0_cuda(data, segment_ids, num_segments, valid)
+        ctx.save_for_backward(data, segment_ids, valid, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, segment_ids, valid, out = ctx.saved_tensors
+        return segment_max0_grad(data, segment_ids, valid, out, grad), \
+            None, None, None
+
+
 def segment_max0(data: torch.Tensor, segment_ids: torch.Tensor,
                  num_segments: int,
                  valid: torch.Tensor | None = None) -> torch.Tensor:
     """Max-pool NON-NEGATIVE rows of ``data`` (N, C) into ``num_segments``
     buckets; invalid rows are excluded and empty segments are exactly 0.
-    CPU tensors take the plain version; CUDA tensors take kernel K5."""
+    CPU tensors take the plain version; CUDA tensors take kernel K5 (with
+    its gradient)."""
     if data.device.type == "cpu":
         return segment_max0_plain(data, segment_ids, num_segments, valid)
     if data.device.type != "cuda":
         raise ValueError(f"segment_max0: no kernel for device {data.device}")
-    out = _segment_max0_cuda(data, segment_ids, num_segments, valid)
+    out = _SegmentMax0.apply(data, segment_ids, num_segments, valid)
     segment_max0.launches += 1
     return out
 

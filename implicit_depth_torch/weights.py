@@ -8,6 +8,12 @@ The trees come with numpy leaves (convert with ``jax.device_get`` or
 * BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` ->
   ``weight``/``bias``/``running_mean``/``running_var``.
 
+The other way, :func:`resnet_batch_stats` gives the ResNet's running
+statistics as a flax ``batch_stats`` tree, and :func:`lidf_grads_from_jax`
+lays a JAX gradient tree (shaped like ``params``) onto the port's parameter
+names through the same transposes, so that gradients compare parameter by
+parameter.
+
 Names mapped: ``resnet/conv1``, ``resnet/bn1``,
 ``resnet/layer{s}_{i}/{conv1,bn1,conv2,bn2,down_conv,down_bn}``,
 ``resnet/fc``; ``pnet/Dense_0..5``; ``offset_dec/{Dense_0, _MLP4_0/Dense_0..3}``;
@@ -17,6 +23,7 @@ spatial-major layout, so decoder weights need transposes only.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -35,7 +42,7 @@ _PNET = ("l0", "l1", "v1_mlp", "l3", "l4", "v2_mlp")  # Dense_0..Dense_5
 
 
 def _copy(dst: torch.Tensor, src, what: str) -> None:
-    src = torch.as_tensor(np.asarray(src, np.float32))
+    src = torch.from_numpy(np.array(src, np.float32))
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{what}: shape {tuple(src.shape)} does not fit "
                          f"{tuple(dst.shape)}")
@@ -56,10 +63,12 @@ def _conv(conv: nn.Conv2d, p: Tree, what: str) -> None:
 
 
 def _bn(bn: nn.BatchNorm2d, p: Tree, stats: Tree, what: str) -> None:
+    """scale/bias, and the running statistics when ``stats`` has them."""
     _copy(bn.weight, p["scale"], f"{what}/scale")
     _copy(bn.bias, p["bias"], f"{what}/bias")
-    _copy(bn.running_mean, stats["mean"], f"{what}/mean")
-    _copy(bn.running_var, stats["var"], f"{what}/var")
+    if stats:
+        _copy(bn.running_mean, stats["mean"], f"{what}/mean")
+        _copy(bn.running_var, stats["var"], f"{what}/var")
 
 
 def _resnet_parts(m: ResNet34_8s) -> Iterator[Tuple[str, nn.Module]]:
@@ -84,6 +93,20 @@ def load_resnet(m: ResNet34_8s, params: Tree, stats: Tree) -> None:
             _bn(mod, p, s, f"resnet/{path}")
         else:
             _conv(mod, p, f"resnet/{path}")
+
+
+def resnet_batch_stats(m: ResNet34_8s) -> Tree:
+    """The running statistics as the flax tree under ``batch_stats/resnet``
+    (numpy leaves)."""
+    tree: Tree = {}
+    for path, mod in _resnet_parts(m):
+        if isinstance(mod, nn.BatchNorm2d):
+            node = tree
+            for key in path.split("/"):
+                node = node.setdefault(key, {})
+            node["mean"] = mod.running_mean.detach().cpu().numpy()
+            node["var"] = mod.running_var.detach().cpu().numpy()
+    return tree
 
 
 def load_pointnet(m: PointNet2Stage, params: Tree, what: str = "pnet") -> None:
@@ -120,3 +143,10 @@ def refine_from_jax(params: Tree, model: RefineModel) -> RefineModel:
     load_pointnet(model.pnet, params["pnet"])
     load_mlp_decoder(model.offset_dec, params["offset_dec"], "offset_dec")
     return model
+
+
+def lidf_grads_from_jax(grads: Tree, model: LIDFModel) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of ``LIDFModel`` params (numpy leaves) in the
+    port's layout: {name of ``model.named_parameters()``: tensor}."""
+    m = lidf_from_jax({"params": grads}, copy.deepcopy(model).cpu())
+    return {name: p.detach() for name, p in m.named_parameters()}

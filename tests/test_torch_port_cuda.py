@@ -143,3 +143,147 @@ def test_depth_completer_card_matches_cpu(dev):
     # across a voxel boundary, and the refine then decodes another cell
     agree = np.abs(card["depth_pred"] - cpu["depth_pred"]) <= 1e-3
     assert agree.mean() >= 0.99, agree.mean()
+
+
+# -- stage-1 training: K2, K3, the K5 gradient, a train step ------------------
+
+def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
+                 n_table=30):
+    c_embed = cv + c_roi + 102 + c_dir
+    w = {"off_enc_w": rng.normal(size=(1, 16)),
+         "off_enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp_weights(rng, "off_", c_embed + 16, 256, w)
+    _mlp_weights(rng, "prob_", c_embed, 256, w)
+    for pre, bias in (("off_", 0.25), ("prob_", 0.5)):  # outputs in (0, 1)
+        w[f"{pre}w4"] *= 0.25
+        w[f"{pre}b4"] = np.full((1,), bias)
+    w32 = rd.split_ray_decode_weights({k: _t(v, dev) for k, v in w.items()},
+                                      cv, c_roi, c_dir, 8, DTYPES[dtype])
+    args = (_t(rng.normal(size=(n_table, cv)), dev),
+            _t(rng.integers(0, n_table, (n, 8)), dev, torch.int32),
+            _t(0.6 * rng.normal(size=(n, 8, 6)), dev),
+            _t(rng.normal(size=(n, c_roi + c_dir)), dev, DTYPES[dtype]))
+    cot = (_t(rng.normal(size=(n, 8)), dev), _t(rng.normal(size=(n, 8)), dev))
+    return w32, args, cot
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ray_decode_save_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(15)
+    w32, args, _ = _decode_case(rng, dev, dtype)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    before = rd.ray_decode_save.launches
+    off, logit, saves = rd.ray_decode_save(*args, w)
+    assert rd.ray_decode_save.launches == before + 1
+    # K2 is K1 plus stores: the same bits
+    k1 = rd.ray_decode(*args, w)
+    assert torch.equal(off, k1[0]) and torch.equal(logit, k1[1])
+    ref = rd.ray_decode_plain(*args, w, saves=True)
+    _close((off, logit), ref[:2], ATOL[dtype])
+    for got, want in zip(saves, ref[2]):
+        assert got.dtype == DTYPES[dtype]
+        _close(got, want, ATOL[dtype])
+
+
+def _rel_norm(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [100, 1000])  # ragged last tile; many tiles
+def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n):
+    rng = np.random.default_rng(16)
+    w32, args, cot = _decode_case(rng, dev, dtype, n=n)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    _, _, saves = rd.ray_decode_save(*args, w)
+    before = rd.ray_decode_bwd.launches
+    d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
+    assert rd.ray_decode_bwd.launches == before + 1
+    ref = rd.ray_decode_bwd_plain(*args, w32, *cot, dtype=DTYPES[dtype],
+                                  saved=saves)
+    torch.cuda.synchronize()
+    # f32: the same algebra in another order (1e-4 of the norm); bf16: the
+    # kernel rounds each cotangent to bf16 before its product, as the JAX
+    # kernel does, the plain autograd does not (2e-2 of the norm)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    got = {"d_table": d_tab, "d_ray_feat": d_rf, **d_w}
+    want = {"d_table": ref[0], "d_ray_feat": ref[1], **ref[2]}
+    for k, g in got.items():
+        assert torch.isfinite(g).all(), k
+        assert _rel_norm(g, want[k]) <= tol, (k, _rel_norm(g, want[k]))
+    # deterministic weight gradients (fixed-order sums over the blocks)
+    again = rd.ray_decode_bwd(*args, w, saves, *cot)[2]
+    for k in d_w:
+        assert torch.equal(again[k], d_w[k]), k
+
+
+def test_ray_decode_train_raises_for_unported_modes(dev):
+    rng = np.random.default_rng(17)
+    w32, args, _ = _decode_case(rng, dev, "float32")
+    for mode in ("kernel", "kernel_save_all", "xla"):
+        with pytest.raises(NotImplementedError):
+            rd.ray_decode_train(*args, w32, torch.float32, decode_bwd=mode)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_max0_backward_matches_plain(dev, dtype):
+    rng = np.random.default_rng(18)
+    n, c, s = 5000, 64, 50  # segments 40..49 stay empty
+    data = _t(np.abs(rng.normal(size=(n, c))), dev, DTYPES[dtype])
+    data[::7] = 0           # post-ReLU zeros tie
+    ids = _t(rng.integers(0, 40, n), dev, torch.int32)
+    valid = _t(rng.random(n) < 0.7, dev, torch.bool)
+    cot = _t(rng.normal(size=(s, c)), dev)
+    grads = []
+    for fn in (segment.segment_max0, segment.segment_max0_plain):
+        d = data.clone().requires_grad_()
+        (fn(d, ids, s, valid).float() * cot).sum().backward()
+        grads.append(d.grad)
+    # the same shares: exact in f32; in bf16 one rounding of a share
+    _close(grads[0], grads[1], 0.0 if dtype == "float32" else 4e-3)
+
+
+def test_train_step_card_matches_cpu(dev):
+    """One f32 train step of a tiny model at the kernels' decoder widths,
+    on the card (K2, K3, K5) and on the CPU (plain versions)."""
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+    from implicit_depth_torch.geometry.sampling import (
+        sample_masked_window,
+        sample_valid_stratified,
+    )
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    cfg = load_config(overrides={
+        "dataset": {"img_height": 48, "img_width": 64},
+        "model": {"rgb_out": 8, "pnet_out": 32, "pnet_gf": 8,
+                  "resnet_stages": [1, 1, 1, 1]},
+        "grid": {"miss_sample_num": 256, "valid_sample_num": 512},
+        "tpu": {"max_pairs_per_ray": 12, "compute_dtype": "float32"}})
+    static = build_static(cfg)
+    raw = {k: torch.from_numpy(v) for k, v in synthetic_batch(0, 2, 48, 64).items()}
+    g = torch.Generator().manual_seed(0)
+    vidx, _, _ = sample_valid_stratified(raw["valid_mask"] > 0.5,
+                                         static.n_valid, g)
+    _, _, _, mstart = sample_masked_window(
+        (raw["corrupt_mask"] > 0.5).reshape(2, -1), static.n_rays, g)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        g = torch.Generator().manual_seed(1)
+        model = randomize_weights_(build_lidf(cfg, static, g), g).to(device)
+        state = TrainState.create(model, cfg.training, steps_per_epoch=10)
+        batch = {k: v.to(device) for k, v in raw.items()}
+        losses = make_lidf_train_step(cfg, model, device)(
+            state, batch, None, 10, valid_idx=vidx, miss_start=mstart)
+        runs.append((losses, {n: p.grad.cpu() for n, p in
+                              model.named_parameters()}))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    for k in l_cpu:  # f32: the same algebra in another order
+        np.testing.assert_allclose(l_card[k].item(), l_cpu[k].item(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    for name, ref in g_cpu.items():
+        # 1e-3 of the norm: cuDNN's convolution backward and the atomics of
+        # d_vox_table sum in other orders through the whole model
+        assert _rel_norm(g_card[name], ref) <= 1e-3, (name, _rel_norm(
+            g_card[name], ref))

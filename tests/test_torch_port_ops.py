@@ -117,6 +117,45 @@ def test_ray_decode_plain_matches_xla_ray_decode(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_operands_from_transposed_views_are_dense(dtype):
+    """The training decode splits live parameters, whose (in, out) kernels
+    are transposed views of the (out, in) weights; the cast operands the
+    kernels read as dense row-major arrays must be contiguous copies with
+    the same values."""
+    rng = np.random.default_rng(3)
+    cv, c_roi, c_dir, multires = 32, 128, 27, 8
+    c_embed = cv + c_roi + 6 * (1 + 2 * multires) + c_dir
+    w = {"off_enc_w": rng.normal(size=(1, 16)).astype(np.float32),
+         "off_enc_b": (0.1 * rng.normal(size=(16,))).astype(np.float32)}
+    _mlp_weights(rng, "off_", c_embed + 16, 64, w)
+    _mlp_weights(rng, "prob_", c_embed, 64, w)
+    views = {k: (T(v.T.copy()).t() if v.ndim == 2 else T(v))
+             for k, v in w.items()}
+    assert not views["off_w2"].is_contiguous()
+    tdt = DTYPES[dtype][0]
+    split = rd.split_ray_decode_weights(views, cv, c_roi, c_dir, multires, tdt)
+    ops = rd.cast_ray_decode_operands(split, tdt)
+    want = rd.prep_ray_decode_weights({k: T(v) for k, v in w.items()}, cv,
+                                      c_roi, c_dir, multires, tdt)
+    for k in rd._K1_WEIGHTS:
+        assert ops[k].is_contiguous(), k
+        if k in ("a_vec", "c_vec"):  # products: the layout moves the order
+            torch.testing.assert_close(ops[k], want[k], rtol=1e-6, atol=1e-7)
+        else:                        # slices, copies and casts: exact
+            assert torch.equal(ops[k], want[k]), k
+
+
+def test_kernel_operands_must_be_contiguous():
+    """The kernels index every operand as a dense row-major array: a strided
+    view is refused before any pointer reaches them."""
+    from implicit_depth_torch.ops import cuda
+    a = torch.zeros((4, 3))
+    assert len(cuda.ptr_array([a, a[1:]])) == 2
+    with pytest.raises(ValueError, match="not contiguous"):
+        cuda.ptr_array([a, a.t()])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ief_decode_plain_matches_xla_ief_rows(dtype):
     rng = np.random.default_rng(2)
     n, c_end, c_rc, c_pos, c_dir, gf4 = 96, 32, 128 + 27, 51, 27, 64
