@@ -11,7 +11,8 @@ both frameworks the same seeded numpy inputs and weights; the random draws
 Tolerances: f32 compares one algebra summed in another order (1e-4 relative
 to the largest value of a tensor, as each case states); bf16 compares two
 frameworks that round at other places, by the relative norm of the
-difference (2e-2 per tensor).
+difference (2e-2 per tensor; the whole train step's parameter gradients
+miss that, and are held per group of parameters: ``BF16_GRAD_LIMITS``).
 """
 
 import jax
@@ -594,11 +595,10 @@ def _both_models(dtype, seed=34):
     return jcfg, jstatic, jmodel, var, raw, cfg, model
 
 
-def _jax_step(jcfg, jstatic, jmodel, var, raw, epoch):
+def _jax_step(jcfg, jstatic, jmodel, var, raw, epoch, compiler_options=None):
     """JAX's inputs, gradients, losses and new batch_stats of one step."""
     batch = {k: jnp.asarray(v) for k, v in raw.items()}
 
-    @jax.jit
     def jstep(params, stats, b, key, ep):
         inputs = jlidf.prepare_inputs(jstatic, b, key, train=True)
 
@@ -615,10 +615,24 @@ def _jax_step(jcfg, jstatic, jmodel, var, raw, epoch):
         grads, aux = jax.grad(loss_fn, has_aux=True)(params)
         return inputs, grads, aux
 
-    jin, grads, (losses, stats) = jstep(var["params"], var["batch_stats"],
-                                        batch, jax.random.key(2),
-                                        jnp.asarray(epoch))
+    args = (var["params"], var["batch_stats"], batch, jax.random.key(2),
+            jnp.asarray(epoch))
+    jin, grads, (losses, stats) = jax.jit(jstep).lower(*args).compile(
+        compiler_options=compiler_options)(*args)
     return jin, jax.device_get(grads), losses, jax.device_get(stats)
+
+
+# bf16: the port's gradient of each parameter against JAX's bf16 gradient,
+# by the relative norm of the difference; the largest and the median of each
+# group of parameters may reach (measured at this seed, epochs 0 / 10:
+# ResNet largest 0.132 / 0.151, median 0.106 / 0.114; PointNet 0.074 / 0.041,
+# 0.027 / 0.032; offset decoder 0.053 / 0.078, 0.019 / 0.029; probability
+# decoder 0.022, 0.016 at both). 11 of the 68 parameters keep within 2e-2,
+# all but one in the decoders. A ResNet whose batch norm ran in bf16, or
+# whose first convolution kept f32, gave ResNet medians of 0.24-0.27 and
+# PointNet medians of 0.068-0.080.
+BF16_GRAD_LIMITS = {"resnet": (0.25, 0.17), "pnet": (0.12, 0.05),
+                    "offset_dec": (0.12, 0.05), "prob_dec": (0.04, 0.03)}
 
 
 @pytest.mark.parametrize("dtype,epoch", [("float32", 0), ("float32", 10),
@@ -628,20 +642,22 @@ def test_train_step_matches_jax_grad(dtype, epoch):
 
     f32: every gradient within 1e-4 of its largest value (plus 1e-7 for
     sums that cancel to ~0, as the probability decoder's last bias does).
-    bf16: the two frameworks round at other places, and the differences
-    grow through every layer of the backward (a few percent at the
-    decoders, tens of percent at the ResNet's first layers, for JAX's own
-    bf16 gradient against its f32 one). So each port gradient must lie no
-    farther from JAX's f32 gradient than 1.5x JAX's own bf16 gradient does,
-    plus 2% of its norm."""
+
+    bf16: JAX is compiled with ``xla_allow_excess_precision`` off, so that
+    XLA rounds to bf16 wherever the program does, as the port does (left
+    on, XLA keeps f32 across some of those roundings, and the port's
+    gradients lie about twice as far from JAX's). Even so, the two
+    frameworks' convolutions and products sum in other orders, a bf16
+    rounding flips here and there, and the backward through the train-mode
+    batch norms amplifies those flips: a bound of 2e-2 per parameter holds
+    for 11 of 68 parameters, and the ResNet's gradients miss it by 2-8x
+    (BF16_GRAD_LIMITS gives each group's readings and limits). A rounding
+    missed or added in the ResNet shows in the group's median."""
     jcfg, jstatic, jmodel, var, raw, cfg, model = _both_models(dtype)
-    jin, jgrads, jlosses, jstats = _jax_step(jcfg, jstatic, jmodel, var, raw,
-                                             epoch)
     f32 = dtype == "float32"
-    if not f32:
-        _, _, jmodel32, _, _, _, _ = _both_models("float32")
-        _, jgrads32, _, _ = _jax_step(jcfg, jstatic, jmodel32, var, raw, epoch)
-        want32 = lidf_grads_from_jax(jgrads32, model)
+    jin, jgrads, jlosses, jstats = _jax_step(
+        jcfg, jstatic, jmodel, var, raw, epoch,
+        None if f32 else {"xla_allow_excess_precision": False})
     state = TrainState.create(model, cfg.training, steps_per_epoch=10)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     losses = make_lidf_train_step(cfg, model, "cpu")(
@@ -655,16 +671,24 @@ def test_train_step_matches_jax_grad(dtype, epoch):
             np.testing.assert_allclose(N(losses[k]), np.asarray(jlosses[k]),
                                        rtol=2e-2, atol=1e-3, err_msg=k)
     want = lidf_grads_from_jax(jgrads, model)
+    errs = {}
     for name, p in model.named_parameters():
         if f32:
             assert_rel_max(N(p.grad), N(want[name]), 1e-4, name, atol=1e-7)
         else:
-            exact = N(want32[name])
-            own = np.linalg.norm(N(want[name]) - exact)
-            err = np.linalg.norm(N(p.grad) - exact)
-            assert err <= 1.5 * own + 2e-2 * np.linalg.norm(exact) + 1e-6, \
-                f"{name}: {err:.3g} from the f32 gradient, JAX bf16 {own:.3g}"
+            diff = np.linalg.norm(N(p.grad) - N(want[name]))
+            # a sum that cancels to ~1e-9 (the probability decoder's last
+            # bias) is held to 1e-7, as in f32
+            errs[name] = (0.0 if diff <= 1e-7
+                          else diff / np.linalg.norm(N(want[name])))
         assert (p.detach() != before[name]).any(), f"{name} did not move"
+    if not f32:
+        assert {n.split(".")[0] for n in errs} == set(BF16_GRAD_LIMITS)
+        for group, (largest, median) in BF16_GRAD_LIMITS.items():
+            e = {n: v for n, v in errs.items() if n.split(".")[0] == group}
+            worst, med = max(e, key=e.get), np.median(list(e.values()))
+            assert e[worst] <= largest and med <= median, \
+                f"{group}: largest {e[worst]:.3g} ({worst}), median {med:.3g}"
     got_stats = resnet_batch_stats(model.resnet)
     for path, node in _leaves(jstats["resnet"]):
         g = got_stats
