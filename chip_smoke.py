@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch/CUDA port (``implicit_depth_torch``) on one
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
 version at the shapes of its main path, serves synthetic frames through the
-port's two-stage ``DepthCompleter`` and trains stage 1 for a few steps, both
-at the full default width, and cross-checks a frame and a train step against
-the plain CPU path.
+port's two-stage ``DepthCompleter`` (in the default per_ray decode mode and
+in the ``global`` and dense modes) and trains stage 1 for a few steps (with
+``decode_bwd`` ``kernel_save`` and ``kernel``), all at the full default
+width, and cross-checks frames and a train step against the plain CPU path.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
@@ -36,7 +37,20 @@ Phases:
   8. training cross-check: one f32 train step on the card and on the CPU
      (a smaller frame), same weights and draws, for three seeds: losses and
      each parameter's gradient; for the first seed also the card with
-     cuDNN deterministic and with cuDNN off, logged.
+     cuDNN deterministic and with cuDNN off, logged;
+  9. the ``global`` (budget 8) and dense (``pairs_budget_per_ray`` 0) decode
+     modes, each: K6 pair_decode against its plain version on the inputs
+     recorded from a warm-up frame, in bf16 and f32, with times and bound;
+     MODE_FRAMES frames of 480x640 served (launch counters from 0: K6 1, K1
+     0, K4 2, K5 10 per frame), input depth bit for bit, median ms per
+     frame, the valid pairs per frame and the pairs the budget dropped; an
+     f32 frame at 120x160 on the card and on the CPU (as phase 5), the
+     ``global`` one at budget 1, which must drop pairs;
+ 10. training with ``decode_bwd: kernel``: TRAIN_STEPS Adam steps as in
+     phase 6 (launch counters from 0: K1 1, K3 1, K2 0, K5 2 per step); on
+     the recorded inputs, in bf16 and f32, K1 against ``ray_decode_plain``
+     at K2's output tolerances and K3's recompute instance against
+     ``ray_decode_bwd_plain(saved=None)`` at K3's, with times and bounds.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -61,6 +75,20 @@ SEED = 0
 # the full default model; every pixel of a frame is a ray
 SERVE_OVERRIDES = {"mask_type": "all"}
 EXPECT_PER_FRAME = {"ray_decode": 1, "ief_decode": 2, "segment_max0": 10}
+# the global and dense decode modes: K6 in place of K1
+MODES = {"global": {"pairs_budget_mode": "global", "pairs_budget_per_ray": 8},
+         "dense": {"pairs_budget_per_ray": 0}}
+MODE_FRAMES = 3
+EXPECT_PER_MODE_FRAME = {"pair_decode": 1, "ray_decode": 0, "ief_decode": 2,
+                         "segment_max0": 10}
+# a dense f32 decode on the CPU at 240x320 is 1.5 M rows: cross-check the
+# modes at a quarter of the pixels
+MODE_XCHECK_DATASET = {"img_height": 120, "img_width": 160}
+# the served frames hold 2.3-3.4 valid pairs per ray, so budget 8 drops none:
+# the global cross-check runs at budget 1, which must drop pairs, so that the
+# spill slot and the per-ray competition over `pair_valid & decoded` run on
+# the card too
+MODE_XCHECK_TPU = {"global": {"pairs_budget_per_ray": 1}, "dense": {}}
 # H100 SXM peaks: dense bf16 tensor cores, f32 on the CUDA cores, HBM3
 PEAK_TC = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_CUDA_CORES = 67e12
@@ -73,6 +101,7 @@ PEAK_BYTES = 3.35e12
 # which moved outputs by up to ~2e-3 on an H100: the tolerance is twice
 # that; K5 — a max is exact in any order
 TOL = {("ray_decode", torch.float32): 1e-5, ("ray_decode", torch.bfloat16): 4e-3,
+       ("pair_decode", torch.float32): 1e-5, ("pair_decode", torch.bfloat16): 4e-3,
        ("ief_decode", torch.float32): 1e-5, ("ief_decode", torch.bfloat16): 4e-3,
        ("segment_max0", torch.float32): 0.0, ("segment_max0", torch.bfloat16): 0.0}
 # a tolerance must be this many times smaller than the spread (standard
@@ -91,6 +120,9 @@ TRAIN_OVERRIDES = {}
 TRAIN_BATCH, TRAIN_STEPS = 4, 5
 EXPECT_PER_STEP = {"ray_decode_save": 1, "ray_decode_bwd": 1,
                    "segment_max0": 2}
+# decode_bwd 'kernel': K1's save-free forward, K3 recomputing layer 1
+EXPECT_PER_STEP_KERNEL = {"ray_decode": 1, "ray_decode_save": 0,
+                          "ray_decode_bwd": 1, "segment_max0": 2}
 # the training kernels against their plain versions. K2's outputs: f32
 # 1e-5 as K1's; bf16 1e-3 (2.5x the 4e-4 measured on an H100 at these
 # shapes: the training model's decoder outputs spread less than the served
@@ -106,7 +138,9 @@ TRAIN_TOL = {("ray_decode_save_out", torch.float32): 1e-5,
              ("ray_decode_save", torch.float32): 1e-5,
              ("ray_decode_save", torch.bfloat16): 2.0 ** -7,
              ("ray_decode_bwd", torch.float32): 1e-4,
-             ("ray_decode_bwd", torch.bfloat16): 2e-2}
+             ("ray_decode_bwd", torch.bfloat16): 2e-2,
+             ("ray_decode_bwd_recompute", torch.float32): 1e-4,
+             ("ray_decode_bwd_recompute", torch.bfloat16): 2e-2}
 # train-step cross-check (f32, card vs CPU, same weights and draws, the
 # curriculum's labelled slot so that no near-tie picks another slot), per
 # seed: the largest relative difference of a loss, and of a parameter's
@@ -131,6 +165,11 @@ SOURCES = {"ray_decode": ("implicit_depth_torch/csrc/ray_decode.cu",
                                "implicit_depth_tpu/ops/pallas_ray_decode.py:650"),
            "ray_decode_bwd": ("implicit_depth_torch/csrc/ray_decode_bwd.cu",
                               "implicit_depth_tpu/ops/pallas_ray_decode.py:931"),
+           "ray_decode_bwd_recompute": (
+               "implicit_depth_torch/csrc/ray_decode_bwd.cu",
+               "implicit_depth_tpu/ops/pallas_ray_decode.py:931"),
+           "pair_decode": ("implicit_depth_torch/csrc/pair_decode.cu",
+                           "implicit_depth_tpu/ops/pallas_decode.py:111"),
            "ief_decode": ("implicit_depth_torch/csrc/ief_decode.cu",
                           "implicit_depth_tpu/ops/pallas_ray_decode.py:821"),
            "segment_max0": ("implicit_depth_torch/csrc/segment_max.cu",
@@ -191,22 +230,36 @@ def bound(name, a, dt):
         if name == "ray_decode_save":  # e1, z1p, trig written
             byt += n * kb * (2 * g1 + 12 * multires) * vt.element_size()
         peak = PEAK_TC[dt]
-    elif name == "ray_decode_bwd":
+    elif name == "pair_decode":
+        vt, cells, pos, rf, w, rays = a
+        p = cells.shape[0]
+        c_vox, c_roi, c_dir, multires = w["dims"]
+        c_embed = c_vox + c_roi + 6 * (1 + 2 * multires) + c_dir
+        tail = 256 * 128 + 128 * 64 + 64
+        # per row: layer 1 of both decoders over the whole embedding (the
+        # IEF's once), two IEF tails and the probability tail
+        flops = 2 * p * (c_embed * 2 * 256 + 3 * tail)
+        byt = nbytes(vt, cells, pos, rf, rays, *w.values()) + 2 * p * 4
+        peak = PEAK_TC[dt]
+    elif name in ("ray_decode_bwd", "ray_decode_bwd_recompute"):
         vt, cells, pos, rf, w, saved, g_off, g_logit = a
         n, kb = cells.shape
         c_vox, c_ray, multires = w["dims"]
         g1, g2, g3 = 256, 128, 64
         tail = g1 * g2 + g2 * g3 + g3
+        c_pair = c_vox + 6 + 12 * multires
         # per pair, from the saved layer-1 pre-activations: the three tails
         # recomputed (2 IEF iterations + the prob decoder) and differentiated
         # (input and weight gradients: 2 products each), layer 1's weight
         # gradient over [vox | pos6 | trig] and d(voxel row), for both
         # decoders; per ray: the [roi | dir_e] weight gradient and d_ray_feat
-        flops = 2 * (n * kb * (3 * tail + 3 * 2 * tail
-                               + (c_vox + 6 + 12 * multires) * 2 * g1
+        flops = 2 * (n * kb * (3 * tail + 3 * 2 * tail + c_pair * 2 * g1
                                + c_vox * 2 * g1)
                      + n * c_ray * 2 * g1 * 2)
-        byt = (nbytes(vt, cells, pos, rf, *w.values(), *saved, g_off, g_logit)
+        if saved is None:  # recompute: both layer-1 products, per pair and ray
+            flops += 2 * (n * kb * c_pair * 2 * g1 + n * c_ray * 2 * g1)
+        byt = (nbytes(vt, cells, pos, rf, *w.values(), *(saved or ()), g_off,
+                      g_logit)
                + vt.numel() * 4 + n * c_ray * 4          # d_table, d_ray_feat
                + sum(w[k].numel() * 4 for k in w if k != "dims"))
         peak = PEAK_TC[dt]
@@ -259,10 +312,23 @@ def make_frames(n, hw):
 
 
 def kernel_modules():
-    """(module, attribute) of each kernel wrapper as the main path calls it."""
+    """(module, attribute) of each kernel wrapper as the serving paths call
+    it."""
     from implicit_depth_torch.models import lidf, pointnet, refine
     return {"ray_decode": (lidf, "ray_decode"), "ief_decode": (refine, "ief_decode"),
-            "segment_max0": (pointnet, "segment_max0")}
+            "segment_max0": (pointnet, "segment_max0"),
+            "pair_decode": (lidf, "pair_decode")}
+
+
+def counters():
+    """Each kernel wrapper, which counts its launches in ``.launches``."""
+    from implicit_depth_torch.ops import pair_decode as pd
+    from implicit_depth_torch.ops import ray_decode as rd
+    from implicit_depth_torch.ops import segment
+    return {"ray_decode": rd.ray_decode, "ray_decode_save": rd.ray_decode_save,
+            "ray_decode_bwd": rd.ray_decode_bwd, "ief_decode": rd.ief_decode,
+            "segment_max0": segment.segment_max0,
+            "pair_decode": pd.pair_decode}
 
 
 def record_calls(mods, run):
@@ -331,17 +397,19 @@ def segment_as_f32(name, a):
     return d.detach().float(), ids, ns, v
 
 
-def forward_rows(recorded, as_f32, dev):
+def forward_rows(recorded, as_f32, dev, tols=TOL):
     """Each recorded call ({(name, shapes): (args, kwargs)}) in bf16 (as
     recorded) and f32 (``as_f32(name, args)``): max |kernel - plain| against
-    TOL, which must lie BITE times below the outputs' spread; times; bound.
-    Returns the row of each kernel at its largest bf16 shape."""
+    ``tols``, which must lie BITE times below the outputs' spread; times;
+    bound. Returns the row of each kernel at its largest bf16 shape."""
+    from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     from implicit_depth_torch.ops import segment
 
     mods = kernel_modules()
     plain = {"ray_decode": rd.ray_decode_plain, "ief_decode": rd.ief_decode_plain,
-             "segment_max0": segment.segment_max0_plain}
+             "segment_max0": segment.segment_max0_plain,
+             "pair_decode": pd.pair_decode_plain}
     entries = {}
     for (name, shape), (a0, kw) in sorted(recorded.items()):
         kern = getattr(*mods[name])
@@ -356,7 +424,7 @@ def forward_rows(recorded, as_f32, dev):
             # typical size and least spread of the outputs compared
             typical = max(r.float().abs().mean().item() for r in ref)
             spread = min(r.float().std().item() for r in ref)
-            tol = TOL[(name, dt)]
+            tol = tols[(name, dt)]
             ok = err <= tol and all(torch.isfinite(g).all() for g in got)
             ms = time_ms(lambda: kern(*a, **kw))
             plain_ms = time_ms(lambda: plain[name](*a, **kw))
@@ -398,14 +466,11 @@ def forward_rows(recorded, as_f32, dev):
     return {name: row for name, (_, row) in entries.items()}
 
 
-def main_path(dc, frames, cfg):
-    """Serve ``frames`` with every launch counter from 0; returns the
-    launches."""
-    from implicit_depth_torch.ops import ray_decode as rd
-    from implicit_depth_torch.ops import segment
-    counters = {"ray_decode": rd.ray_decode, "ief_decode": rd.ief_decode,
-                "segment_max0": segment.segment_max0}
-    for f in counters.values():
+def main_path(dc, frames, cfg, expect=EXPECT_PER_FRAME, label="main path"):
+    """Serve ``frames`` with the launch counters of ``expect`` from 0;
+    returns the launches and the median ms per frame."""
+    counts = {k: f for k, f in counters().items() if k in expect}
+    for f in counts.values():
         f.launches = 0
     frame_ms = []
     for rgb, depth, intr in frames:
@@ -420,22 +485,23 @@ def main_path(dc, frames, cfg):
         assert have.any() and (~have).any()
         assert out["depth"][have].tobytes() == depth[have].tobytes(), \
             "input depth not passed through bit for bit"
-    launches = {k: f.launches for k, f in counters.items()}
-    log(f"main path: {len(frames)} frames {frames[0][1].shape[0]}x"
+    launches = {k: f.launches for k, f in counts.items()}
+    log(f"{label}: {len(frames)} frames {frames[0][1].shape[0]}x"
         f"{frames[0][1].shape[1]}, launches {launches}, "
         f"frame_ms {frame_ms}, median frame_ms {statistics.median(frame_ms)}")
-    for k, per in EXPECT_PER_FRAME.items():
+    for k, per in expect.items():
         if launches[k] != per * len(frames):
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{len(frames)} frames, expected "
                                  f"{per} per frame")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, statistics.median(frame_ms)
 
 
 def cross_check(overrides, lidf_cpu, refine_cpu, frame, dev):
     """One frame in f32 through the same weights on ``dev`` (kernels) and on
-    the CPU (plain versions), with the same valid-point draw."""
+    the CPU (plain versions), with the same valid-point draw. Returns the
+    frame's (valid pair slots, rays)."""
     from implicit_depth_torch.config import load_config
     from implicit_depth_torch.geometry.sampling import sample_valid_stratified
     from implicit_depth_torch.infer import DepthCompleter
@@ -472,6 +538,8 @@ def cross_check(overrides, lidf_cpu, refine_cpu, frame, dev):
         f"{diff.max().item():.3g}")
     if agree < 1 - XCHECK_FRAC or slot_same < 1 - XCHECK_FRAC:
         raise AssertionError("cross-check: the card and the CPU disagree")
+    valid = inputs["pair_valid"]
+    return int(valid.sum().item()), valid.shape[0] * valid.shape[1]
 
 
 def train_batches(n, cfg, batch, dev, seed=SEED):
@@ -484,20 +552,22 @@ def train_batches(n, cfg, batch, dev, seed=SEED):
             for i in range(n)]
 
 
-def train_kernel_modules():
-    """(module, attribute) of each kernel wrapper as a train step calls it."""
+def train_kernel_modules(decode_bwd="kernel_save"):
+    """(module, attribute) of each kernel wrapper as a train step calls it:
+    the forward K2 (``kernel_save``) or K1 (``kernel``), K3, K5."""
     from implicit_depth_torch.models import pointnet
     from implicit_depth_torch.ops import ray_decode as rd
-    return {"ray_decode_save": (rd, "ray_decode_save"),
-            "ray_decode_bwd": (rd, "ray_decode_bwd"),
+    fwd = "ray_decode_save" if decode_bwd == "kernel_save" else "ray_decode"
+    return {fwd: (rd, fwd), "ray_decode_bwd": (rd, "ray_decode_bwd"),
             "segment_max0": (pointnet, "segment_max0")}
 
 
-def record_train_calls(step, state, batch, gen):
+def record_train_calls(step, state, batch, gen, decode_bwd="kernel_save"):
     """One (warm-up) train step; returns {name: (args, kwargs)} of the first
-    call of K2 and K3, {(name, shapes): (args, kwargs)} of each K5 call
-    under "segment_max0", and under "f32_operands" the decode's weight
-    operands in f32 from the weights that step saw."""
+    call of the decode's forward (K2 or K1) and of K3, {(name, shapes):
+    (args, kwargs)} of each K5 call under "segment_max0", and under
+    "f32_operands" the decode's weight operands in f32 from the weights that
+    step saw."""
     from implicit_depth_torch.models.lidf import decoder_weights
     from implicit_depth_torch.ops import ray_decode as rd
     m = state.model
@@ -507,8 +577,8 @@ def record_train_calls(step, state, batch, gen):
         m.dims["c_vox"], m.dims["c_roi"], m.dims["c_dir"], m.multires,
         torch.float32)
     losses = {}
-    calls = record_calls(train_kernel_modules(), lambda: losses.update(
-        step(state, batch, gen, 0)))
+    calls = record_calls(train_kernel_modules(decode_bwd),
+                         lambda: losses.update(step(state, batch, gen, 0)))
     assert all(torch.isfinite(v) for v in losses.values()), losses
     recorded = {"f32_operands": f32, "segment_max0": {}}
     for (name, shape), (a, kw) in calls.items():
@@ -582,6 +652,29 @@ def segment_train_phase(calls, dev):
     return row
 
 
+def bwd_checks(name, dt, got, ref, tol, floors):
+    """K3's (d_vox_table, d_ray_feat, {operand: gradient}) ``got`` against
+    the plain version's ``ref``, each gradient by the relative norm of the
+    difference (``rel_norm`` with ``floors``) within ``tol``, logged; raises
+    on a miss. Returns ([(what, got, ref)], (worst what, its relative
+    error), its max |difference|)."""
+    worst, err, failed = ("", 0.0), 0.0, []
+    pairs = [("d_vox_table", got[0], ref[0]), ("d_ray_feat", got[1], ref[1])]
+    pairs += [(k, got[2][k], ref[2][k]) for k in got[2]]
+    for nm, g, r in pairs:
+        e = rel_norm(g, r, floors.get(nm, 0.0))
+        log(f"kernel {name} {str(dt).split('.')[-1]} {nm}: relative error "
+            f"{e:.3g}, max |diff| {(g - r).abs().max().item():.3g}, max "
+            f"|ref| {r.abs().max().item():.3g}")
+        if not (torch.isfinite(g).all() and e <= tol):
+            failed.append(f"{nm}: relative error {e} > {tol}")
+        if e >= worst[1]:
+            worst, err = (nm, e), (g - r).abs().max().item()
+    if failed:
+        raise AssertionError(f"{name} {dt}: {failed}")
+    return pairs, worst, err
+
+
 @torch.no_grad()
 def train_kernel_phase(recorded):
     """K2 and K3 at the recorded training shapes, in bf16 (as recorded) and
@@ -616,23 +709,10 @@ def train_kernel_phase(recorded):
                                      dtype=dt, saved=saved)
         torch.cuda.synchronize()
         tol3 = TRAIN_TOL[("ray_decode_bwd", dt)]
-        worst, err3, failed = ("", 0.0), 0.0, []
-        pairs = [("d_vox_table", k3[0], p3[0]), ("d_ray_feat", k3[1], p3[1])]
-        pairs += [(k, k3[2][k], p3[2][k]) for k in k3[2]]
         floors = {"off_b4": g_off.abs().sum().item(),
                   "prob_b4": g_logit.abs().sum().item()}
-        for nm, g, r in pairs:
-            e = rel_norm(g, r, floors.get(nm, 0.0))
-            log(f"kernel ray_decode_bwd {str(dt).split('.')[-1]} {nm}: "
-                f"relative error {e:.3g}, max |diff| "
-                f"{(g - r).abs().max().item():.3g}, max |ref| "
-                f"{r.abs().max().item():.3g}")
-            if not (torch.isfinite(g).all() and e <= tol3):
-                failed.append(f"{nm}: relative error {e} > {tol3}")
-            if e >= worst[1]:
-                worst, err3 = (nm, e), (g - r).abs().max().item()
-        if failed:
-            raise AssertionError(f"ray_decode_bwd {dt}: {failed}")
+        pairs, worst, err3 = bwd_checks("ray_decode_bwd", dt, k3, p3, tol3,
+                                        floors)
         # against the exact gradient of the plain decode (not from the
         # saves), for the record: the bf16 saves move it by a few percent
         exact = rd.ray_decode_bwd_plain(*a2[:4], w, g_off, g_logit, **kw3,
@@ -694,26 +774,23 @@ def row_checks(name, dt, checks):
     return worst
 
 
-def train_path(cfg, model, dev, profile=False):
+def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP):
     """Warm-up step (recording the kernels' inputs), then TRAIN_STEPS timed
-    steps with every launch counter from 0; returns (recorded, launches,
-    step_ms)."""
-    from implicit_depth_torch.ops import ray_decode as rd
-    from implicit_depth_torch.ops import segment
+    steps with the launch counters of ``expect`` from 0; returns (recorded,
+    launches, step_ms)."""
     from implicit_depth_torch.train.state import TrainState
     from implicit_depth_torch.train.steps import make_lidf_train_step
 
+    decode_bwd = cfg.tpu.decode_bwd
     state = TrainState.create(model, cfg.training, steps_per_epoch=1000)
     step = make_lidf_train_step(cfg, model, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     batches = train_batches(TRAIN_STEPS + 1, cfg, TRAIN_BATCH, dev)
-    recorded = record_train_calls(step, state, batches[0], gen)
+    recorded = record_train_calls(step, state, batches[0], gen, decode_bwd)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    counters = {"ray_decode_save": rd.ray_decode_save,
-                "ray_decode_bwd": rd.ray_decode_bwd,
-                "segment_max0": segment.segment_max0}
+    counts = {k: f for k, f in counters().items() if k in expect}
     torch.cuda.reset_peak_memory_stats()
-    for f in counters.values():
+    for f in counts.values():
         f.launches = 0
     step_ms, losses = [], []
     for i, b in enumerate(batches[1:]):
@@ -722,15 +799,16 @@ def train_path(cfg, model, dev, profile=False):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: v.item() for k, v in out.items()})
-    launches = {k: f.launches for k, f in counters.items()}
-    log(f"training: {TRAIN_STEPS} steps of batch {TRAIN_BATCH} at "
-        f"{cfg.dataset.img_height}x{cfg.dataset.img_width}, launches "
+    launches = {k: f.launches for k, f in counts.items()}
+    log(f"training (decode_bwd {decode_bwd}): {TRAIN_STEPS} steps of batch "
+        f"{TRAIN_BATCH} at {cfg.dataset.img_height}x{cfg.dataset.img_width}, "
+        f"launches "
         f"{launches}, step_ms {step_ms}, median step_ms "
         f"{statistics.median(step_ms)}")
     log(f"training losses {losses}")
     log(f"training peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for k, per in EXPECT_PER_STEP.items():
+    for k, per in expect.items():
         if launches[k] != per * TRAIN_STEPS:
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{TRAIN_STEPS} steps, expected {per} each")
@@ -880,12 +958,238 @@ def cross_check_seed(dev, seed, witness):
     return failed
 
 
-def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
-        train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-8 on ``dev``; prints the kernels line."""
+def mode_overrides(overrides, mode, **extra):
+    """``overrides`` in the decode mode ``mode`` (of MODES)."""
+    out = {**overrides, **extra}
+    out["tpu"] = {**overrides.get("tpu", {}), **MODES[mode]}
+    return out
+
+
+def build_models(cfg):
+    """The stage-1 and stage-2 models of ``cfg`` (every pixel a ray) with
+    the seeded weights at unit activation scale that every serving phase
+    uses."""
     from implicit_depth_torch.builder import (
         build_lidf,
         build_refine,
+        build_static,
+        randomize_weights_,
+    )
+    static = build_static(cfg, n_rays=cfg.dataset.img_height
+                          * cfg.dataset.img_width)
+    gen = torch.Generator().manual_seed(SEED)
+    lidf = randomize_weights_(build_lidf(cfg, static, gen), gen)
+    refine = randomize_weights_(build_refine(cfg, static, gen), gen)
+    return lidf, refine
+
+
+def pair_kernel_rows(recorded, lidf, dev):
+    """K6 on the calls recorded from a served frame (``forward_rows``, with
+    the weights re-prepared in f32 for the f32 run)."""
+    from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import pair_decode as pd
+
+    f32w = pd.prep_pair_decode_weights(
+        decoder_weights(lidf.offset_dec, lidf.prob_dec), lidf.dims["c_vox"],
+        lidf.dims["c_roi"], lidf.dims["c_dir"], lidf.multires, torch.float32)
+
+    def as_f32(name, a):
+        vt, cells, pos, rf, _, rays = a
+        return vt.float(), cells, pos, rf.float(), f32w, rays
+
+    with torch.inference_mode():
+        return forward_rows(recorded, as_f32, dev)["pair_decode"]
+
+
+def mode_pairs(dc, frames, budget):
+    """(valid pair slots, pairs the global budget dropped) of each frame, from
+    the geometry its served run computed (same seed, same valid draw)."""
+    from implicit_depth_torch.models.lidf import prepare_inputs
+    out = []
+    for rgb, depth, intr in frames:
+        batch = dc.device_batch([rgb], [depth], [intr])
+        gen = torch.Generator(device=dc.device).manual_seed(0)
+        with torch.inference_mode():
+            valid = prepare_inputs(dc.static, batch, mask_type="all",
+                                   generator=gen)["pair_valid"]
+        b, r, _ = valid.shape
+        n = int(valid.sum().item())
+        out.append((n, max(n - b * r * budget, 0) if budget else 0))
+    return out
+
+
+def pair_modes_phase(dev, overrides, frame_hw):
+    """Phase 9: the global and dense decode modes (see the module doc).
+    Returns K6's row (its largest bf16 shape, the dense frame's) with each
+    mode's under "modes", and the launches of both modes' runs."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.infer import DepthCompleter
+
+    frames = make_frames(MODE_FRAMES + 1, frame_hw)
+    rows = {}
+    for mode in MODES:
+        cfg = load_config(overrides=mode_overrides(overrides, mode))
+        lidf, refine = build_models(cfg)
+        assert lidf.decode_mode == mode, lidf.decode_mode
+        dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+        recorded = record_calls({"pair_decode": kernel_modules()["pair_decode"]},
+                                lambda: dc.complete(*frames[0]))
+        mode_row = pair_kernel_rows(recorded, lidf, dev)
+        launches, frame_ms = main_path(
+            dc, frames[1:], cfg, EXPECT_PER_MODE_FRAME, f"{mode} mode")
+        budget = cfg.tpu.pairs_budget_per_ray if mode == "global" else 0
+        pairs = mode_pairs(dc, frames[1:], budget)
+        log(f"{mode} mode: valid pairs per frame {[v for v, _ in pairs]}, "
+            f"dropped by the budget {[d for _, d in pairs]} (budget "
+            f"{budget or 'none'} per ray, {lidf.static.k_pairs} slots)")
+        rows[mode] = add_launches(
+            {**mode_row, "frame_ms": frame_ms,
+             "valid_pairs": [v for v, _ in pairs],
+             "dropped_pairs": [d for _, d in pairs]},
+            launches["pair_decode"], MODE_FRAMES, "frame")
+        del dc, lidf, refine
+        torch.cuda.empty_cache()
+        # the f32 cross-check, at MODE_XCHECK_DATASET and MODE_XCHECK_TPU
+        xo = mode_overrides(overrides, mode, dataset=MODE_XCHECK_DATASET)
+        xo["tpu"].update(MODE_XCHECK_TPU[mode])
+        xcfg = load_config(overrides=xo)
+        n_pairs, n_rays = cross_check(xo, *build_models(xcfg), frames[1], dev)
+        if mode == "global":
+            budget = xcfg.tpu.pairs_budget_per_ray
+            dropped = max(n_pairs - n_rays * budget, 0)
+            log(f"global cross-check: {n_pairs} valid pairs, budget {budget} "
+                f"per ray over {n_rays} rays dropped {dropped}")
+            if dropped == 0:
+                raise AssertionError("global cross-check: the budget dropped "
+                                     "no pair")
+            rows[mode]["xcheck_dropped_pairs"] = dropped
+        torch.cuda.empty_cache()
+    # the JSON row at the largest shape (the dense frame's), as forward_rows
+    row = dict(max(rows.values(), key=lambda r: np.prod(r["shape"][1])))
+    row["modes"] = {m: {k: r[k] for k in (
+        "shape", "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+        "bound_by", "frame_ms", "valid_pairs", "dropped_pairs",
+        "xcheck_dropped_pairs", "launches", "launches_per_frame") if k in r}
+        for m, r in rows.items()}
+    row["launches"] = sum(r["launches"] for r in rows.values())
+    row["launches_per_frame"] = {m: r["launches_per_frame"]
+                                 for m, r in rows.items()}
+    return row
+
+
+@torch.no_grad()
+def recompute_kernel_rows(recorded):
+    """Phase 10's kernel check: K3's recompute instance (``saved=None``) on
+    the recorded training inputs against ``ray_decode_bwd_plain(saved=None)``
+    in bf16 (as recorded) and f32, by the relative norm of each gradient's
+    difference; times, bound. Returns its bf16 row."""
+    from implicit_depth_torch.ops import ray_decode as rd
+
+    w32 = recorded["f32_operands"]
+    (vt, cells, pos, rf, w_bf, saved, g_off, g_logit), kw = \
+        recorded["ray_decode_bwd"]
+    assert saved is None
+    floors = {"off_b4": g_off.abs().sum().item(),
+              "prob_b4": g_logit.abs().sum().item()}
+    out = None
+    for dt in (torch.bfloat16, torch.float32):
+        w = w_bf if dt == torch.bfloat16 else w32
+        a = (vt.to(dt), cells, pos, rf.to(dt), w, None, g_off, g_logit)
+        got = rd.ray_decode_bwd(*a, **kw)
+        ref = rd.ray_decode_bwd_plain(*a[:5], g_off, g_logit, **kw, dtype=dt,
+                                      saved=None)
+        torch.cuda.synchronize()
+        tol = TRAIN_TOL[("ray_decode_bwd_recompute", dt)]
+        dtn = str(dt).split(".")[-1]
+        _, worst, err = bwd_checks("ray_decode_bwd_recompute", dt, got, ref,
+                                   tol, floors)
+        log(f"kernel ray_decode_bwd_recompute {dtn} {list(cells.shape)}: "
+            f"worst relative error {worst[1]:.3g} ({worst[0]}, tol {tol}), "
+            f"max |diff| there {err:.3g}")
+        del got, ref
+        ms = time_ms(lambda: rd.ray_decode_bwd(*a, **kw), warmup=1, reps=5)
+        plain_ms = time_ms(lambda: rd.ray_decode_bwd_plain(
+            *a[:5], g_off, g_logit, **kw, dtype=dt, saved=None),
+            warmup=1, reps=3)
+        b_ms, b_by, flops, byt = bound("ray_decode_bwd_recompute", a, dt)
+        log(f"kernel ray_decode_bwd_recompute {dtn}: ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        if dt == torch.bfloat16:
+            out = {"name": "ray_decode_bwd_recompute", "dtype": dtn,
+                   "shape": [list(cells.shape)], "max_abs_err": err,
+                   "max_rel_err": worst[1], "worst": worst[0],
+                   "tolerance_rel": tol, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "flops": flops, "bytes": byt}
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_forward_row(recorded, dev):
+    """Phase 10's forward check: K1 on the recorded training inputs against
+    ``ray_decode_plain`` (``forward_rows``), at K2's output tolerances: the
+    same decode, whose outputs spread less under the training weights than
+    the served ones, so that K1's serving tolerance would not bite."""
+    w32 = recorded["f32_operands"]
+    a, kw = recorded["ray_decode"]
+    shape = tuple(tuple(t.shape) for t in a if torch.is_tensor(t))
+
+    def as_f32(name, a):
+        vt, cells, pos, rf, _ = a
+        return vt.float(), cells, pos, rf.float(), w32
+
+    tols = {("ray_decode", dt): TRAIN_TOL[("ray_decode_save_out", dt)]
+            for dt in (torch.bfloat16, torch.float32)}
+    with torch.inference_mode():
+        return forward_rows({("ray_decode", shape): (a, kw)}, as_f32, dev,
+                            tols)["ray_decode"]
+
+
+def train_kernel_variant_phase(dev, train_overrides):
+    """Phase 10: training with ``decode_bwd: kernel``. Returns K1's row at
+    the training shapes and K3's recompute row, each with its launches."""
+    from implicit_depth_torch.builder import (
+        build_lidf,
+        build_static,
+        randomize_weights_,
+    )
+    from implicit_depth_torch.config import load_config
+
+    cfg = load_config(overrides={**train_overrides, "tpu": {
+        **train_overrides.get("tpu", {}), "decode_bwd": "kernel"}})
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = randomize_weights_(build_lidf(cfg, build_static(cfg), gen),
+                               gen).to(dev)
+    recorded, launches, _ = train_path(cfg, model, dev,
+                                       expect=EXPECT_PER_STEP_KERNEL)
+    del model
+    torch.cuda.empty_cache()
+    k1 = add_launches(train_forward_row(recorded, dev),
+                      launches["ray_decode"], TRAIN_STEPS, "step")
+    k3 = add_launches(recompute_kernel_rows(recorded),
+                      launches["ray_decode_bwd"], TRAIN_STEPS, "step")
+    return k1, k3
+
+
+def add_launches(row, n, runs, unit):
+    """``row`` with its kernel's ``n`` launches in a main path of ``runs``
+    frames or steps (``unit``)."""
+    row.update({"launches": n, f"launches_per_{unit}": n // runs})
+    return row
+
+
+# what the kernels line copies from each kernel's row
+ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms", "dtype", "shape", "tolerance",
+              "typical_abs", "max_rel_err", "worst", "tolerance_rel",
+              "launches_per_frame", "launches_per_step", "train", "modes")
+
+
+def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
+        train_overrides=TRAIN_OVERRIDES):
+    """Phases 2-10 on ``dev``; prints the kernels line."""
+    from implicit_depth_torch.builder import (
+        build_lidf,
         build_static,
         randomize_weights_,
     )
@@ -896,10 +1200,8 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     # random weights from a seed, redrawn at unit activation scale so that
     # every comparison below sees decoder outputs spread over (0, 1)
     cfg = load_config(overrides=overrides)
-    static = build_static(cfg, n_rays=cfg.dataset.img_height * cfg.dataset.img_width)
-    gen = torch.Generator().manual_seed(SEED)
-    lidf = randomize_weights_(build_lidf(cfg, static, gen), gen)
-    refine = randomize_weights_(build_refine(cfg, static, gen), gen)
+    lidf, refine = build_models(cfg)
+    static = lidf.static
     lidf_cpu, refine_cpu = copy.deepcopy(lidf), copy.deepcopy(refine)
     dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
     log(f"model: {cfg.dataset.img_height}x{cfg.dataset.img_width}, "
@@ -911,7 +1213,9 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     rows = kernel_phase(record_calls(kernel_modules(),
                                    lambda: dc.complete(*frames[0])),
                       lidf, refine, dev)
-    launches = main_path(dc, frames[1:], cfg)
+    launches, _ = main_path(dc, frames[1:], cfg)
+    for name, n in launches.items():
+        add_launches(rows[name], n, MAIN_FRAMES, "frame")
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
         with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -936,33 +1240,30 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         f"{cfg_t.tpu.compute_dtype}, decode_bwd {cfg_t.tpu.decode_bwd}, "
         f"{cfg_t.training.optimizer_name} lr {cfg_t.training.lr}")
     recorded, launches_t, _ = train_path(cfg_t, model, dev, profile)
-    rows.update(train_kernel_phase(recorded))
-    rows["segment_max0"]["train"] = segment_train_phase(
+    train_rows = train_kernel_phase(recorded)
+    train_rows["segment_max0"] = segment_train_phase(
         recorded["segment_max0"], dev)
+    for name, n in launches_t.items():
+        add_launches(train_rows[name], n, TRAIN_STEPS, "step")
+    rows["segment_max0"]["train"] = train_rows.pop("segment_max0")
+    rows.update(train_rows)
     del recorded, model
     torch.cuda.empty_cache()
     train_cross_check(dev)
 
-    kernels = []
-    for name, row in sorted(rows.items()):
-        entry = {
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1],
-            "launches": launches.get(name, launches_t.get(name)),
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "dtype": row["dtype"], "shape": row["shape"]}
-        for k in ("tolerance", "typical_abs", "max_rel_err", "worst",
-                  "tolerance_rel", "train"):
-            if k in row:
-                entry[k] = row[k]
-        if name in launches:
-            entry["launches_per_frame"] = launches[name] // MAIN_FRAMES
-        if name in launches_t:
-            entry["launches_train"] = launches_t[name]
-            entry["launches_per_step"] = launches_t[name] // TRAIN_STEPS
-        kernels.append(entry)
+    # -- the global and dense decode modes (K6) ------------------------------
+    rows["pair_decode"] = pair_modes_phase(dev, overrides, frame_hw)
+    # -- stage-1 training with decode_bwd: kernel ------------------------------
+    rows["ray_decode"]["train"], rows["ray_decode_bwd_recompute"] = \
+        train_kernel_variant_phase(dev, train_overrides)
+
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
+                "replaces": SOURCES[name][1],
+                **{k: row[k] for k in ENTRY_KEYS if k in row}}
+               for name, row in sorted(rows.items())]
+    uncounted = [e["name"] for e in kernels if "launches" not in e]
+    if uncounted:
+        raise AssertionError(f"kernels with no main-path launches: {uncounted}")
     log(json.dumps({"kernels": kernels}))
 
 

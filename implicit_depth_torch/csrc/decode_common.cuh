@@ -61,6 +61,19 @@ __device__ __forceinline__ __nv_bfloat16 ldg_raw(const __nv_bfloat16* p) {
       __ldg(reinterpret_cast<const unsigned short*>(p)));
 }
 
+// Column t of a pair's trig block (the sin/cos columns of K1's split layer
+// 1) from its f32 positions pos6 = [enter xyz | leave xyz]: position
+// t / (6m), frequency j, sin | cos, axis d, in embedder order (per
+// position, per frequency [sin xyz | cos xyz]); cos x = sin(x + pi/2).
+__device__ __forceinline__ float trig_column(const float* pos6, int t,
+                                             int multires) {
+  const int per_pos = 6 * multires;
+  const int which = t / per_pos, u = t % per_pos;
+  const int j = u / 6, ph = (u % 6) / 3, d = u % 3;
+  const float x = __ldg(pos6 + which * 3 + d);
+  return sinf(x * (float)(1 << j) + (ph ? kHalfPi : 0.f));
+}
+
 __device__ __forceinline__ float leaky(float v) {
   return v > 0.f ? v : kLeaky * v;
 }

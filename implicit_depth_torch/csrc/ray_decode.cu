@@ -127,15 +127,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       } else if (col < p.c_vox + 6) {
         v = from_f32<T>(__ldg(p.pos + prow * 6 + (col - p.c_vox)));
       } else if (col < p.c_vox + 6 + n_trig) {
-        // trig column t: position (t / (6m)), frequency j, sin|cos, axis d,
-        // in embedder order: for each position, for j, [sin xyz | cos xyz]
-        const int t = col - p.c_vox - 6;
-        const int per_pos = 6 * p.multires;
-        const int which = t / per_pos, u = t % per_pos;
-        const int j = u / 6, ph = (u % 6) / 3, d = u % 3;
-        const float x = __ldg(p.pos + prow * 6 + which * 3 + d);
-        const float arg = x * (float)(1 << j) + (ph ? kHalfPi : 0.f);
-        v = from_f32<T>(sinf(arg));
+        v = from_f32<T>(
+            trig_column(p.pos + prow * 6, col - p.c_vox - 6, p.multires));
       }
     }
     X[i] = v;

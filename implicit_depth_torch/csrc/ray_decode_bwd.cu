@@ -1,11 +1,20 @@
 // K3: fused backward of the stage-1 ray-major decode (both decoders).
 //
 // Replaces implicit_depth_tpu/ops/pallas_ray_decode.py::_fused_bwd_impl (its
-// Pallas kernel, in table mode with save_mode='l1', the decode_bwd =
-// 'kernel_save' default). From the saves of K2 (ray_decode.cu: e1, z1p,
-// trig) it recomputes, per tile of rows, the layer-1 activations and the
-// tails of both IEF iterations and of the probability decoder, then
-// backpropagates through them:
+// Pallas kernel, in table mode), in two instances:
+//   * kFromSaves (save_mode='l1', the decode_bwd = 'kernel_save' default):
+//     from the saves of K2 (ray_decode.cu: e1, z1p, trig);
+//   * recompute (decode_bwd = 'kernel', after K1's save-free forward): per
+//     tile it computes trig from the positions, the per-ray part of layer 1
+//     and both layer-1 pre-activations from the table rows, pos6, trig and
+//     [roi | dir_e], unrounded in f32 as the JAX kernel keeps them. z1p goes
+//     straight into the probability decoder's activation; e1, read once per
+//     IEF iteration forward and backward, goes to the block's own f32 slice
+//     of a scratch buffer in global memory (L2-resident: 64 KB a block),
+//     since shared memory has no room for it beside the backward's buffers.
+// From there both instances recompute, per tile of rows, the layer-1
+// activations and the tails of both IEF iterations and of the probability
+// decoder, then backpropagate through them:
 //   * d_vox_table (S, Cv) f32: each row's d(voxel row) added with atomicAdd
 //     at its cell (the TPU kernel folds a one-hot product instead);
 //   * d_ray_feat (N, Cr) f32: the layer-1 cotangent summed over each ray's
@@ -226,9 +235,10 @@ struct BwdParams {
   const float* a_vec;   // (256,)
   const float* c_vec;   // (256,)
   TailWeights<T> off, prob;
-  const T* e1;          // (n*kb, 256) saves of K2
+  const T* e1;          // (n*kb, 256) saves of K2 (kFromSaves)
   const T* z1p;         // (n*kb, 256)
   const T* trig;        // (n*kb, 12*multires)
+  float* e1_scratch;    // recompute: (gridDim.x, M, 256) f32
   const float* g;       // (n, kb, 2) cotangents [offset | logit]
   float* d_table;       // (S, c_vox), zeroed by the caller
   float* d_ray;         // (n, c_ray)
@@ -365,7 +375,7 @@ __device__ void tail_backward(const T* H1, T* H2, T* H3, float* DOFF,
   }
 }
 
-template <typename T, int M>
+template <typename T, int M, bool kFromSaves>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_bwd_kernel(const BwdParams<T> p) {
   constexpr int MR = M / kKb;
@@ -393,6 +403,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const Layout L(p.kp, p.crp);
   float* ws = p.work + (size_t)blockIdx.x * p.slice;
+  float* E1G = kFromSaves ? nullptr
+                          : p.e1_scratch + (size_t)blockIdx.x * M * kG1;
   const int kp = p.kp, crp = p.crp, c_vox = p.c_vox;
   const int n_trig = 12 * p.multires;
   const long long n_tiles = (p.n + MR - 1) / MR;
@@ -434,7 +446,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           } else if (col < c_vox + 6) {
             v = from_f32<T>(__ldg(p.pos + prow * 6 + (col - c_vox)));
           } else if (col < c_vox + 6 + n_trig) {
-            v = ldg_raw(p.trig + prow * n_trig + (col - c_vox - 6));
+            if constexpr (kFromSaves)
+              v = ldg_raw(p.trig + prow * n_trig + (col - c_vox - 6));
+            else
+              v = from_f32<T>(
+                  trig_column(p.pos + prow * 6, col - c_vox - 6, p.multires));
           }
         }
         X[i] = v;
@@ -469,10 +485,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
 
     // -- probability decoder: forward recompute from z1p, then backward ----
-    for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
-      const int r = i / kG1, c = i % kG1;
-      const float z = row_ok(r) ? ldg_f32(p.z1p + grow(r) * kG1 + c) : 0.f;
-      H1[i] = from_f32<T>(leaky(z));
+    if constexpr (kFromSaves) {
+      for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
+        const int r = i / kG1, c = i % kG1;
+        const float z = row_ok(r) ? ldg_f32(p.z1p + grow(r) * kG1 + c) : 0.f;
+        H1[i] = from_f32<T>(leaky(z));
+      }
+    } else {
+      // layer 1 as K1 computes it: the per-ray part RAY = RF @ ray_w1 (in
+      // C), then e1 = X @ W_off + RAY + b1 (into the scratch slice) and
+      // z1p = X @ W_prob + RAY + b1 (into H1 = act(z1p), over X)
+      float* RAY = C;
+      stage_x();
+      __syncthreads();
+      fma_tile<T, MR>(RF, crp, p.ray_w1, 2 * kG1, crp, 2 * kG1, RAY, 2 * kG1);
+      tile_product<T, M, kG1>(X, kp, p.pair_w1, 2 * kG1, kp, D, kG1);
+      __syncthreads();
+      for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
+        const int r = i / kG1, c = i % kG1;
+        E1G[i] = D[i] + RAY[(r / kKb) * 2 * kG1 + c] + __ldg(p.b1 + c);
+      }
+      __syncthreads();
+      tile_product<T, M, kG1>(X, kp, p.pair_w1 + kG1, 2 * kG1, kp, D, kG1);
+      __syncthreads();
+      for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
+        const int r = i / kG1, c = i % kG1;
+        H1[i] = from_f32<T>(leaky(D[i] + RAY[(r / kKb) * 2 * kG1 + kG1 + c] +
+                                  __ldg(p.b1 + kG1 + c)));
+      }
     }
     __syncthreads();
     mlp_tail<T, M>(H1, C, H2, H3, p.prob, TMP, /*accumulate=*/false);
@@ -488,7 +528,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto ief_forward = [&](int it) {  // H1..H3 of iteration it, into TMP
       for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
         const int r = i / kG1, c = i % kG1;
-        const float e = row_ok(r) ? ldg_f32(p.e1 + grow(r) * kG1 + c) : 0.f;
+        float e = 0.f;
+        if (row_ok(r)) {
+          if constexpr (kFromSaves)
+            e = ldg_f32(p.e1 + grow(r) * kG1 + c);
+          else
+            e = E1G[i];
+        }
         H1[i] = from_f32<T>(leaky(e + OFF[it * M + r] * AV[c] + CV[c]));
       }
       __syncthreads();
@@ -543,11 +589,11 @@ __global__ void reduce_slices(const float* __restrict__ work, long long slice,
   }
 }
 
-template <typename T, int M>
+template <typename T, int M, bool kFromSaves>
 int launch(const BwdParams<T>& p, int blocks, float* out, void* stream) {
   constexpr int MR = M / kKb;
   const BwdSmem<T> lay(M, MR, p.kp, p.crp, p.n_iter);
-  auto kernel = ray_decode_bwd_kernel<T, M>;
+  auto kernel = ray_decode_bwd_kernel<T, M, kFromSaves>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -593,6 +639,7 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
   p.d_ray = (float*)ptrs[26];
   p.work = (float*)ptrs[27];
   float* out = (float*)ptrs[28];
+  p.e1_scratch = (float*)ptrs[29];
   p.n = n;
   p.slice = Layout((int)kp, (int)crp).off[kParts];
   p.c_vox = (int)c_vox;
@@ -606,12 +653,14 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
   if (kp % 16 || crp % 16 || kp < c_vox + 6 + 12 * multires || crp < c_ray ||
       kp > kG1 || c_vox % 32 || c_vox > kG1 || n_iter < 1 || blocks < 1)
     return (int)cudaErrorInvalidValue;
+  const bool from_saves = p.e1 != nullptr;
+  if (from_saves ? (p.z1p == nullptr || p.trig == nullptr)
+                 : p.e1_scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  if constexpr (sizeof(T) == 2) {
-    return launch<T, 64>(p, (int)blocks, out, stream);
-  } else {
-    return launch<T, 32>(p, (int)blocks, out, stream);
-  }
+  constexpr int M = sizeof(T) == 2 ? 64 : 32;
+  return from_saves ? launch<T, M, true>(p, (int)blocks, out, stream)
+                    : launch<T, M, false>(p, (int)blocks, out, stream);
 }
 
 }  // namespace
@@ -627,9 +676,11 @@ extern "C" int idt_ray_decode_bwd_layout(long long kp, long long crp,
 
 // ptrs: vox_table, cells, pos, ray_feat, pair_w1, ray_w1, b1, a_vec, c_vec,
 // off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4} (as for idt_ray_decode),
-// e1, z1p, trig (K2's saves), g (n, kb, 2) f32 cotangents, d_table (S, c_vox)
-// f32 zeroed, d_ray (n, c_ray) f32, work (blocks, slice) f32 zeroed, out
-// (slice,) f32 weight gradients (29 device pointers). Returns a cudaError_t.
+// e1, z1p, trig (K2's saves; all null for the recompute instance), g (n, kb,
+// 2) f32 cotangents, d_table (S, c_vox) f32 zeroed, d_ray (n, c_ray) f32,
+// work (blocks, slice) f32 zeroed, out (slice,) f32 weight gradients,
+// e1_scratch (blocks, rows per block, 256) f32 for the recompute instance
+// (else null) (30 device pointers). Returns a cudaError_t.
 extern "C" int idt_ray_decode_bwd(void* const* ptrs, long long n,
                                   long long c_vox, long long c_ray,
                                   long long multires, long long kp,

@@ -6,12 +6,24 @@
   training (``train=True``) the miss rays are a random window of each
   image's corrupted pixels.
 * :class:`LIDFModel` — ResNet34-8s features, two-stage PointNet voxel
-  features, per-ray ROI features and the ray-major decode of each ray's
-  ``pairs_budget`` nearest pair slots (``per_ray`` mode), then the masked
-  softmax/argmax over the slots and the predicted position. In eval mode
-  the decode is ``ops/ray_decode.ray_decode`` (kernel K1 on the card); in
-  train mode (``.train()``) it is ``ray_decode_train`` (K2 forward, K3
-  backward) on operands prepared from the live parameters.
+  features, per-ray ROI features and the pair decode, then the masked
+  softmax/argmax over the slots and the predicted position. Three decode
+  modes, chosen as the JAX package chooses them:
+  - ``per_ray`` (0 < pairs_budget < K, the default): the ray-major decode of
+    each ray's ``pairs_budget`` nearest slots. In eval mode
+    ``ops/ray_decode.ray_decode`` (kernel K1 on the card); in train mode
+    (``.train()``) ``ray_decode_train`` (K2 or K1 forward, K3 backward) on
+    operands prepared from the live parameters.
+  - ``global`` (``pairs_budget_mode='global'``): the valid pairs of the
+    whole batch compacted to B·R·pairs_budget rows, the farthest dropped
+    first, decoded by ``ops/pair_decode.pair_decode`` (K6 on the card) and
+    scattered back to (B, R, K); dropped pairs leave the per-ray
+    competitions.
+  - dense (pairs_budget 0, or >= K): every (B, R, K) slot through K6.
+  K6 has no backward (nor has the JAX kernel): in train mode the ``global``
+  and dense decodes run the plain version under autograd on the CPU, as the
+  JAX package trains them with ``use_pallas_decode: false``, and raise on
+  the card.
 * :func:`lidf_loss` — position L1, per-ray termination cross-entropy,
   surface-normal and smoothness terms, and the metrics.
 """
@@ -42,6 +54,13 @@ from implicit_depth_torch.ops.masked import (
     masked_log_softmax,
     masked_softmax,
     take_slot,
+)
+from implicit_depth_torch.ops.pair_decode import (
+    pair_decode,
+    pair_decode_plain,
+    pair_decode_weights,
+    prep_pair_decode_weights,
+    round_pair_biases,
 )
 from implicit_depth_torch.ops.ray_decode import (
     prep_ray_decode_weights,
@@ -217,12 +236,16 @@ class LIDFModel(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not (pos_encode and offdec_type == "IEF"
-                and pairs_budget_mode == "per_ray"
-                and 0 < pairs_budget < static.k_pairs):
-            raise NotImplementedError(
-                "only the per_ray ray-major decode (IEF, pos_encode, "
-                "0 < pairs_budget_per_ray < max_pairs_per_ray) is ported")
+        if not (pos_encode and offdec_type == "IEF"):
+            raise NotImplementedError("only the IEF offset decoder with "
+                                      "positional encoding is ported")
+        if pairs_budget > 0 and pairs_budget_mode == "per_ray" \
+                and pairs_budget < static.k_pairs:
+            self.decode_mode = "per_ray"
+        elif pairs_budget > 0 and pairs_budget_mode == "global":
+            self.decode_mode = "global"
+        else:
+            self.decode_mode = "dense"
         self.static = static
         self.multires, self.multires_views = multires, multires_views
         self.intersect_pos_type = intersect_pos_type
@@ -245,6 +268,7 @@ class LIDFModel(nn.Module):
         self.prob_dec = IMNet(embed, gf_dim=imnet_gf, use_sigmoid=use_sigmoid,
                               generator=generator)
         self._decode_w = PreparedWeights()
+        self._pair_w = PreparedWeights()
 
     def decode_operands(self) -> Tensors:
         """K1's weight operands in the compute dtype, prepared once and
@@ -266,6 +290,17 @@ class LIDFModel(nn.Module):
             decoder_weights(self.offset_dec, self.prob_dec),
             self.dims["c_vox"], self.dims["c_roi"], self.dims["c_dir"],
             self.multires, self.dtype)
+
+    def pair_operands(self) -> Tensors:
+        """K6's weight operands in the compute dtype, cached as
+        :meth:`decode_operands` is."""
+        return self._pair_w.get(
+            (self.offset_dec, self.prob_dec), self.dtype,
+            lambda: prep_pair_decode_weights(
+                {k: v.detach() for k, v in
+                 decoder_weights(self.offset_dec, self.prob_dec).items()},
+                self.dims["c_vox"], self.dims["c_roi"], self.dims["c_dir"],
+                self.multires, self.dtype))
 
     def voxel_features(self, inputs: Tensors) -> torch.Tensor:
         """(B·G³, pnet_out) f32 voxel features of the sampled valid points."""
@@ -292,12 +327,90 @@ class LIDFModel(nn.Module):
             enter, leave = enter - center, leave - center
         return enter, leave
 
+    def _decode_pairs(self, vox_feat, cells, pos, ray_feat, rays=None):
+        """K6's decode of pair rows (see ``ops/pair_decode.pair_decode``):
+        the kernel in eval mode; in train mode the plain version under
+        autograd at operands from the live parameters, on the CPU only."""
+        kw = dict(n_iter=self.n_iter, init_offset=self.offset_dec.init_offset,
+                  use_sigmoid=self.use_sigmoid)
+        if not self.training:
+            return pair_decode(vox_feat.to(self.dtype), cells, pos, ray_feat,
+                               self.pair_operands(), rays, **kw)
+        if cells.device.type != "cpu":
+            raise NotImplementedError(
+                f"training in the {self.decode_mode!r} decode mode has no "
+                "CUDA path: K6 (fused_pair_decode) has no backward in the JAX "
+                "package, which trains this mode only through its plain XLA "
+                "decode (use_pallas_decode: false); train on the CPU or in "
+                "the per_ray mode")
+        w = round_pair_biases(pair_decode_weights(
+            decoder_weights(self.offset_dec, self.prob_dec),
+            self.dims["c_vox"], self.dims["c_roi"], self.dims["c_dir"],
+            self.multires, self.dtype), self.dtype)
+        return pair_decode_plain(vox_feat, cells, pos, ray_feat, w, rays,
+                                 dtype=self.dtype, **kw)
+
+    def _decode_dense(self, inputs, vox_feat, ray_feat):
+        """Every (B, R, K) slot, invalid ones included (cell 0, t 0: decoded
+        and masked afterwards) -> (offset, logit), each (B, R, K)."""
+        b, r, k = inputs["pair_valid"].shape
+        cells = (torch.arange(b, dtype=torch.int32, device=vox_feat.device
+                              )[:, None, None] * self.static.grid.n_cells
+                 + inputs["pair_cell"])
+        enter, leave = self._pair_positions(inputs)
+        pos = torch.cat([enter, leave], -1).float().reshape(-1, 6)
+        off, logit = self._decode_pairs(vox_feat, cells.reshape(-1), pos,
+                                        ray_feat)
+        return off.reshape(b, r, k), logit.reshape(b, r, k)
+
+    def _decode_compacted(self, inputs, vox_feat, ray_feat):
+        """The ``global`` mode (``_decode_compacted`` of the JAX package):
+        the valid slots ranked k-major (every ray's nearest pair before any
+        second-nearest), the first P = min(B·R·pairs_budget, B·R·K) decoded
+        (pad rows decode slot 0 and are zeroed), the results scattered back.
+        Returns (offset, logit, decoded), each (B, R, K)."""
+        b, r, k = inputs["pair_valid"].shape
+        dev = vox_feat.device
+        n_slots = b * r * k
+        p = min(b * r * self.pairs_budget, n_slots)
+        valid_km = inputs["pair_valid"].permute(2, 0, 1).reshape(-1)
+        rank = torch.cumsum(valid_km.long(), 0) - 1
+        rank = torch.where(valid_km & (rank < p), rank,
+                           torch.full_like(rank, p))
+        # slot p takes every dropped index and is cut off
+        sel = torch.full((p + 1,), n_slots, dtype=torch.long,
+                         device=dev).scatter_(
+            0, rank, torch.arange(n_slots, device=dev))[:p]
+        sel_valid = sel < n_slots
+        sel = torch.where(sel_valid, sel, torch.zeros_like(sel))
+        sel_ray = sel % (b * r)                      # flat b·R + r
+        row = sel_ray * k + sel // (b * r)           # row-major (B, R, K)
+        cells = (torch.div(sel_ray, r, rounding_mode="floor")
+                 * self.static.grid.n_cells
+                 + inputs["pair_cell"].reshape(-1)[row])
+        enter, leave = self._pair_positions(inputs)
+        pos = torch.cat([enter, leave], -1).float().reshape(-1, 6)[row]
+        off_s, logit_s = self._decode_pairs(vox_feat, cells, pos, ray_feat,
+                                            sel_ray)
+        row_w = torch.where(sel_valid, row, torch.full_like(row, n_slots))
+
+        def scatter_back(v):
+            v = torch.where(sel_valid, v, torch.zeros((), dtype=v.dtype,
+                                                      device=dev))
+            return torch.zeros((n_slots + 1,), dtype=v.dtype,
+                               device=dev).scatter(0, row_w, v)[
+                :n_slots].reshape(b, r, k)
+
+        return (scatter_back(off_s), scatter_back(logit_s),
+                scatter_back(sel_valid))
+
     def decode_rays(self, inputs: Tensors, feat_map: torch.Tensor,
                     vox_feat: torch.Tensor, use_gt_label=False) -> Tensors:
-        """Per-ray work: ROI pooling, ray-major pair decode of the nearest
-        ``pairs_budget`` slots, per-ray softmax/argmax, predicted position.
-        In train mode the slot is the labelled one while ``use_gt_label``
-        (the ``maxpool_label_epo`` curriculum), else the most probable."""
+        """Per-ray work: ROI pooling, the pair decode of ``decode_mode``,
+        per-ray softmax/argmax, predicted position. Outputs are (B, R, kb)
+        in the ``per_ray`` mode, (B, R, K) in the others. In train mode the
+        slot is the labelled one while ``use_gt_label`` (the
+        ``maxpool_label_epo`` curriculum), else the most probable."""
         grid = self.static.grid
         b, r, _ = inputs["pair_valid"].shape
         kb = self.pairs_budget
@@ -310,29 +423,49 @@ class LIDFModel(nn.Module):
                               out_bbox=self.static.roi_out_bbox).reshape(b, r, -1)
         dirs = inputs["miss_dir"]
         dir_e = positional_encoding(dirs, self.multires_views)
-
-        # the pair slots are t-sorted and front-packed: the first kb slots
-        # are each ray's nearest pairs, a dense (B, R, kb) block
-        sliced = {k: inputs[k][:, :, :kb] for k in
-                  ("pair_cell", "pair_valid", "t_enter", "t_exit")}
-        sliced["miss_dir"] = dirs
-        enter, leave = self._pair_positions(sliced)
-        pos = torch.cat([enter, leave], -1).float().reshape(b * r, kb, 6)
-        cells = (torch.arange(b, dtype=torch.int32, device=dev)[:, None, None]
-                 * grid.n_cells + sliced["pair_cell"]).reshape(b * r, kb)
         ray_feat = torch.cat([roi.to(self.dtype), dir_e.to(self.dtype)],
                              -1).reshape(b * r, -1)
-        kw = dict(n_iter=self.n_iter, init_offset=self.offset_dec.init_offset,
-                  use_sigmoid=self.use_sigmoid)
-        if self.training:
-            off, logit = ray_decode_train(vox_feat, cells, pos, ray_feat,
-                                          self.train_operands(), self.dtype,
-                                          decode_bwd=self.decode_bwd, **kw)
+
+        if self.decode_mode == "per_ray":
+            # the pair slots are t-sorted and front-packed: the first kb
+            # slots are each ray's nearest pairs, a dense (B, R, kb) block
+            sliced = {k: inputs[k][:, :, :kb] for k in
+                      ("pair_cell", "pair_valid", "t_enter", "t_exit",
+                       "pair_label")}
+            sliced["miss_dir"] = dirs
+            enter, leave = self._pair_positions(sliced)
+            pos = torch.cat([enter, leave], -1).float().reshape(b * r, kb, 6)
+            cells = (torch.arange(b, dtype=torch.int32,
+                                  device=dev)[:, None, None]
+                     * grid.n_cells + sliced["pair_cell"]).reshape(b * r, kb)
+            kw = dict(n_iter=self.n_iter,
+                      init_offset=self.offset_dec.init_offset,
+                      use_sigmoid=self.use_sigmoid)
+            if self.training:
+                off, logit = ray_decode_train(vox_feat, cells, pos, ray_feat,
+                                              self.train_operands(),
+                                              self.dtype,
+                                              decode_bwd=self.decode_bwd,
+                                              **kw)
+            else:
+                off, logit = ray_decode(vox_feat.to(self.dtype), cells, pos,
+                                        ray_feat, self.decode_operands(),
+                                        **kw)
+            pred_offset = off.reshape(b, r, kb)
+            prob_logit = logit.reshape(b, r, kb)
+            pair_valid = sliced["pair_valid"]
         else:
-            off, logit = ray_decode(vox_feat.to(self.dtype), cells, pos,
-                                    ray_feat, self.decode_operands(), **kw)
-        pred_offset, prob_logit = off.reshape(b, r, kb), logit.reshape(b, r, kb)
-        pair_valid = sliced["pair_valid"]
+            sliced = inputs
+            if self.decode_mode == "global":
+                pred_offset, prob_logit, decoded = self._decode_compacted(
+                    inputs, vox_feat, ray_feat)
+                # pairs dropped by the budget have no logit: they leave
+                # every per-ray competition
+                pair_valid = inputs["pair_valid"] & decoded
+            else:
+                pred_offset, prob_logit = self._decode_dense(
+                    inputs, vox_feat, ray_feat)
+                pair_valid = inputs["pair_valid"]
 
         lo, hi = self.offset_range
         c_off = math.sqrt(3.0) * grid.part_size
@@ -341,8 +474,8 @@ class LIDFModel(nn.Module):
         prob_softmax = masked_softmax(prob_logit.detach(), pair_valid)
         max_slot, has_pair = masked_argmax(prob_softmax, pair_valid)
         if self.training and use_gt_label:
-            max_slot, _ = masked_argmax(
-                inputs["pair_label"][:, :, :kb].float(), pair_valid)
+            max_slot, _ = masked_argmax(sliced["pair_label"].float(),
+                                        pair_valid)
         t_sel = take_slot(sliced["t_enter"], max_slot)
         off_sel = take_slot(pred_offset, max_slot)
         scaled_sel = (off_sel * (hi - lo) + lo) * c_off

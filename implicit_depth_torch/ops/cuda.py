@@ -115,13 +115,14 @@ def bind(name: str, fn: str, *argtypes):
 
 
 def ptr_array(tensors) -> ctypes.Array:
-    """A host array of the tensors' device pointers (``void* const*``). The
-    kernels index every operand as a dense row-major array."""
+    """A host array of the tensors' device pointers (``void* const*``; a
+    ``None`` entry is a null pointer). The kernels index every operand as a
+    dense row-major array."""
     for t in tensors:
-        if not t.is_contiguous():
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"kernel operand of shape {tuple(t.shape)} is "
                              "not contiguous")
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    return (ctypes.c_void_p * len(tensors))(*(ptr(t) for t in tensors))
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -24,8 +24,10 @@ every product takes compute-dtype operands with f32 accumulation; biases
 each hidden activation is rounded to the compute dtype before its product.
 
 Each wrapper runs the plain PyTorch version for CPU tensors and launches its
-CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ief_decode.cu``) for CUDA
-tensors, counting launches in ``<wrapper>.launches``.
+CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ray_decode_bwd.cu``,
+``csrc/ief_decode.cu``) for CUDA tensors, counting launches in
+``<wrapper>.launches``. The ``global`` and dense stage-1 modes decode
+through ``ops/pair_decode.py`` (K6).
 """
 
 from __future__ import annotations
@@ -357,15 +359,18 @@ def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
 
 def ray_decode_bwd(vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
                    *, n_iter=2, init_offset=0.001, use_sigmoid=False):
-    """Kernel K3: gradients of the stage-1 decode from K2's saves.
+    """Kernel K3: gradients of the stage-1 decode, from K2's saves or, with
+    ``saved=None``, recomputing layer 1 (``decode_bwd='kernel'``).
 
     ``w`` are the kernel operands (:func:`cast_ray_decode_operands`);
-    ``saved`` = (e1, z1p, trig) from :func:`ray_decode_save`; g_off, g_logit
-    (N, kb) the cotangents of its outputs. Returns (d_vox_table (S, Cv),
-    d_ray_feat (N, Cr), {operand: gradient in the operand's shape}), all
-    f32. The weight gradients are summed per block into a workspace and
-    then over the blocks in a fixed order (deterministic); d_vox_table is
-    summed with atomics (the order of the additions varies)."""
+    ``saved`` = (e1, z1p, trig) from :func:`ray_decode_save`, or None;
+    g_off, g_logit (N, kb) the cotangents of its outputs. Its plain version
+    is :func:`ray_decode_bwd_plain` with the same ``saved``. Returns
+    (d_vox_table (S, Cv), d_ray_feat (N, Cr), {operand: gradient in the
+    operand's shape}), all f32. The weight gradients are summed per block
+    into a workspace and then over the blocks in a fixed order
+    (deterministic); d_vox_table is summed with atomics (the order of the
+    additions varies)."""
     vox_table, cells, pos, ray_feat = _decode_operands(
         "ray_decode_bwd", vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
@@ -373,9 +378,11 @@ def ray_decode_bwd(vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
     c_vox, c_ray, multires = w["dims"]
     g4 = w["b1"].shape[0] // 2
     dev = cells.device
-    e1, z1p, trig = (t.contiguous() for t in saved)
-    for t, c in ((e1, g4), (z1p, g4), (trig, 12 * multires)):
-        if t.shape != (n * kb, c) or t.dtype != dtype or t.device != dev:
+    saved = (None,) * 3 if saved is None else tuple(
+        t.contiguous() for t in saved)
+    for t, c in zip(saved, (g4, g4, 12 * multires)):
+        if t is not None and (t.shape != (n * kb, c) or t.dtype != dtype
+                              or t.device != dev):
             raise ValueError("ray_decode_bwd: saves do not match the operands")
     if c_vox % 32 or c_vox > 256 or w["pair_w1"].shape[0] > 256:
         raise ValueError(f"ray_decode_bwd kernel takes c_vox a multiple of "
@@ -397,9 +404,14 @@ def ray_decode_bwd(vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
     d_w = torch.empty((slice_floats,), dtype=torch.float32, device=dev)
     d_table = torch.zeros(vox_table.shape, dtype=torch.float32, device=dev)
     d_rf = torch.empty((n, c_ray), dtype=torch.float32, device=dev)
+    # the recompute instance keeps each block's f32 e1 tile in a scratch
+    # slice of its own (64 or 32 rows of 256)
+    scratch = None if saved[0] is not None else torch.empty(
+        (blocks, 64 if dtype == torch.bfloat16 else 32, g4),
+        dtype=torch.float32, device=dev)
     ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
-                           *(w[k] for k in _K1_WEIGHTS), e1, z1p, trig, g,
-                           d_table, d_rf, work, d_w])
+                           *(w[k] for k in _K1_WEIGHTS), *saved, g,
+                           d_table, d_rf, work, d_w, scratch])
     fn = cuda.bind("ray_decode_bwd", "idt_ray_decode_bwd", cuda.PTR,
                    *[cuda.I64] * 10, cuda.F32)
     cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp, n_iter,
@@ -420,7 +432,9 @@ DECODE_BWD_MODES = ("kernel_save", "kernel", "kernel_save_all", "xla")
 
 
 class RayDecodeTrain(torch.autograd.Function):
-    """The training decode on the card: forward K2, backward K3.
+    """The training decode on the card. ``decode_bwd='kernel_save'``:
+    forward K2, backward K3 from its saves; ``'kernel'``: forward K1 (no
+    saves), backward K3 recomputing layer 1.
 
     Takes the f32 split operands (:func:`split_ray_decode_weights`) and
     casts them inside, so that their gradients reach the f32 parameters
@@ -429,25 +443,31 @@ class RayDecodeTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, opts, vox_table, cells, pos, ray_feat, *ops):
-        dtype, dims, n_iter, init_offset, use_sigmoid = opts
+        dtype, dims, n_iter, init_offset, use_sigmoid, decode_bwd = opts
         w32 = dict(zip(_K1_WEIGHTS, ops), dims=dims)
         w = cast_ray_decode_operands(w32, dtype)
-        off, logit, saved = ray_decode_save(
-            vox_table, cells, pos, ray_feat, w, n_iter=n_iter,
-            init_offset=init_offset, use_sigmoid=use_sigmoid)
+        kw = dict(n_iter=n_iter, init_offset=init_offset,
+                  use_sigmoid=use_sigmoid)
+        if decode_bwd == "kernel_save":
+            off, logit, saved = ray_decode_save(vox_table, cells, pos,
+                                                ray_feat, w, **kw)
+        else:
+            (off, logit), saved = ray_decode(vox_table, cells, pos, ray_feat,
+                                             w, **kw), ()
         ctx.opts = opts
         ctx.in_dtypes = (vox_table.dtype, ray_feat.dtype)
-        ctx.save_for_backward(vox_table, cells, pos, ray_feat, *saved,
-                              *(w[k] for k in _K1_WEIGHTS))
+        ctx.save_for_backward(vox_table, cells, pos, ray_feat,
+                              *(w[k] for k in _K1_WEIGHTS), *saved)
         return off, logit
 
     @staticmethod
     def backward(ctx, g_off, g_logit):
-        dtype, dims, n_iter, init_offset, use_sigmoid = ctx.opts
-        vox_table, cells, pos, ray_feat, e1, z1p, trig, *ops = ctx.saved_tensors
-        w = dict(zip(_K1_WEIGHTS, ops), dims=dims)
+        dtype, dims, n_iter, init_offset, use_sigmoid, _ = ctx.opts
+        vox_table, cells, pos, ray_feat, *rest = ctx.saved_tensors
+        w = dict(zip(_K1_WEIGHTS, rest), dims=dims)
+        saved = tuple(rest[len(_K1_WEIGHTS):]) or None
         d_table, d_rf, d_w = ray_decode_bwd(
-            vox_table, cells, pos, ray_feat, w, (e1, z1p, trig), g_off,
+            vox_table, cells, pos, ray_feat, w, saved, g_off,
             g_logit, n_iter=n_iter, init_offset=init_offset,
             use_sigmoid=use_sigmoid)
         return (None, d_table.to(ctx.in_dtypes[0]), None, None,
@@ -462,8 +482,9 @@ def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
     ``w32``: the f32 split operands from live parameters
     (:func:`split_ray_decode_weights`, never the serving cache). CPU tensors
     take plain autograd through :func:`ray_decode_plain` (every
-    ``decode_bwd`` mode); CUDA tensors take :class:`RayDecodeTrain` (K2, K3),
-    which implements ``decode_bwd='kernel_save'`` only."""
+    ``decode_bwd`` mode); CUDA tensors take :class:`RayDecodeTrain`, which
+    implements ``decode_bwd`` 'kernel_save' (K2, K3) and 'kernel' (K1, K3
+    recomputing layer 1)."""
     if decode_bwd not in DECODE_BWD_MODES:
         raise ValueError(f"decode_bwd {decode_bwd!r}")
     if cells.device.type == "cpu":
@@ -471,12 +492,13 @@ def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
         return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
                                 n_iter=n_iter, init_offset=init_offset,
                                 use_sigmoid=use_sigmoid, dtype=dtype)
-    if decode_bwd != "kernel_save":
+    if decode_bwd not in ("kernel_save", "kernel"):
         raise NotImplementedError(f"decode_bwd={decode_bwd!r} has no CUDA "
-                                  "kernel; only 'kernel_save' is ported")
+                                  "kernel; 'kernel_save' and 'kernel' are "
+                                  "ported")
     return RayDecodeTrain.apply(
-        (dtype, w32["dims"], n_iter, init_offset, use_sigmoid), vox_table,
-        cells, pos, ray_feat, *(w32[k] for k in _K1_WEIGHTS))
+        (dtype, w32["dims"], n_iter, init_offset, use_sigmoid, decode_bwd),
+        vox_table, cells, pos, ray_feat, *(w32[k] for k in _K1_WEIGHTS))
 
 
 # ---------------------------------------------------------------------------

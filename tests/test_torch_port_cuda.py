@@ -19,6 +19,7 @@ from implicit_depth_torch.builder import (
 )
 from implicit_depth_torch.config import load_config
 from implicit_depth_torch.infer import DepthCompleter
+from implicit_depth_torch.ops import pair_decode as pd
 from implicit_depth_torch.ops import ray_decode as rd
 from implicit_depth_torch.ops import segment
 
@@ -79,6 +80,34 @@ def test_ray_decode_kernel_matches_plain(dev, dtype):
     before = rd.ray_decode.launches
     _close(rd.ray_decode(*args, pw), rd.ray_decode_plain(*args, pw), ATOL[dtype])
     assert rd.ray_decode.launches == before + 1
+
+
+# P = 1000: not a multiple of either type's rows per block (64, 32)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("indexed", [True, False])  # global rows; dense layout
+def test_pair_decode_kernel_matches_plain(dev, dtype, indexed):
+    rng = np.random.default_rng(19)
+    p, n_rays, cv, c_roi, c_dir = 1000, 50, 128, 128, 27
+    c_embed = cv + c_roi + 102 + c_dir
+    w = {"off_enc_w": rng.normal(size=(1, 16)),
+         "off_enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp_weights(rng, "off_", c_embed + 16, 256, w)
+    _mlp_weights(rng, "prob_", c_embed, 256, w)
+    for pre, bias in (("off_", 0.25), ("prob_", 0.5)):  # outputs in (0, 1)
+        w[f"{pre}w4"] *= 0.25
+        w[f"{pre}b4"] = np.full((1,), bias)
+    pw = pd.prep_pair_decode_weights({k: _t(v, dev) for k, v in w.items()},
+                                     cv, c_roi, c_dir, 8, DTYPES[dtype])
+    args = (_t(rng.normal(size=(30, cv)), dev, DTYPES[dtype]),
+            _t(rng.integers(0, 30, p), dev, torch.int32),
+            _t(0.6 * rng.normal(size=(p, 6)), dev),
+            _t(rng.normal(size=(n_rays, c_roi + c_dir)), dev, DTYPES[dtype]),
+            pw, _t(rng.integers(0, n_rays, p), dev, torch.int32)
+            if indexed else None)
+    before = pd.pair_decode.launches
+    got = pd.pair_decode(*args)
+    assert pd.pair_decode.launches == before + 1
+    _close(got, pd.pair_decode_plain(*args), ATOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -192,11 +221,12 @@ def _rel_norm(a, b):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [100, 1000])  # ragged last tile; many tiles
-def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n):
+@pytest.mark.parametrize("from_saves", [True, False])  # kernel_save; kernel
+def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n, from_saves):
     rng = np.random.default_rng(16)
     w32, args, cot = _decode_case(rng, dev, dtype, n=n)
     w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
-    _, _, saves = rd.ray_decode_save(*args, w)
+    saves = rd.ray_decode_save(*args, w)[2] if from_saves else None
     before = rd.ray_decode_bwd.launches
     d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
     assert rd.ray_decode_bwd.launches == before + 1
@@ -221,9 +251,30 @@ def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n):
 def test_ray_decode_train_raises_for_unported_modes(dev):
     rng = np.random.default_rng(17)
     w32, args, _ = _decode_case(rng, dev, "float32")
-    for mode in ("kernel", "kernel_save_all", "xla"):
+    for mode in ("kernel_save_all", "xla"):
         with pytest.raises(NotImplementedError):
             rd.ray_decode_train(*args, w32, torch.float32, decode_bwd=mode)
+
+
+@pytest.mark.parametrize("decode_bwd", ["kernel_save", "kernel"])
+def test_ray_decode_train_launches_its_kernels(dev, decode_bwd):
+    """kernel_save: K2 then K3 from its saves; kernel: K1 then K3
+    recomputing layer 1. Both give the plain autograd's gradients."""
+    rng = np.random.default_rng(20)
+    w32, args, cot = _decode_case(rng, dev, "float32")
+    counts = {f: f.launches for f in (rd.ray_decode, rd.ray_decode_save,
+                                      rd.ray_decode_bwd)}
+    leaves = [args[0].clone().requires_grad_(), args[3].clone().requires_grad_()]
+    off, logit = rd.ray_decode_train(leaves[0], args[1], args[2], leaves[1],
+                                     w32, torch.float32,
+                                     decode_bwd=decode_bwd)
+    torch.autograd.backward((off, logit), cot)
+    fwd = rd.ray_decode_save if decode_bwd == "kernel_save" else rd.ray_decode
+    for f, n in counts.items():
+        assert f.launches == n + (f is fwd or f is rd.ray_decode_bwd), f
+    ref = rd.ray_decode_bwd_plain(*args, w32, *cot, dtype=torch.float32)
+    for g, r in zip((leaves[0].grad, leaves[1].grad), ref[:2]):
+        assert _rel_norm(g, r) <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -242,6 +293,70 @@ def test_segment_max0_backward_matches_plain(dev, dtype):
         grads.append(d.grad)
     # the same shares: exact in f32; in bf16 one rounding of a share
     _close(grads[0], grads[1], 0.0 if dtype == "float32" else 4e-3)
+
+
+# global at budget 1: the frame's valid pairs overflow it, so pairs are
+# dropped, the spill slot fills and the per-ray competition runs over
+# `pair_valid & decoded`
+@pytest.mark.parametrize("tpu", [{"pairs_budget_per_ray": 0},
+                                 {"pairs_budget_mode": "global",
+                                  "pairs_budget_per_ray": 1}])
+def test_pair_decode_modes_serve_on_the_card_and_refuse_to_train(dev, tpu):
+    """The dense and global modes: eval frames launch K6 once and K1 never
+    and agree with the CPU (plain version) in f32, every valid pixel a
+    point; train mode raises (K6 has no backward, as the JAX kernel has
+    none)."""
+    from implicit_depth_torch.models.lidf import prepare_inputs
+
+    def mode_cfg(valid_sample_num):
+        return load_config(overrides={
+            "mask_type": "all", "dataset": {"img_height": 48, "img_width": 64},
+            "model": {"rgb_out": 8, "pnet_out": 16, "pnet_gf": 8,
+                      "resnet_stages": [1, 1, 1, 1]},
+            "refine": {"pnet_out": 16, "pnet_gf": 8},
+            "grid": {"miss_sample_num": 256,
+                     "valid_sample_num": valid_sample_num},
+            "tpu": {"max_pairs_per_ray": 12, "compute_dtype": "float32",
+                    **tpu}})
+
+    cfg = mode_cfg(-1)  # every valid pixel a point: no draw to match
+    static = build_static(cfg, n_rays=48 * 64)
+    rng = np.random.default_rng(21)
+    depth = rng.uniform(0.6, 1.4, (48, 64)).astype(np.float32)
+    depth[rng.random((48, 64)) < 0.3] = 0
+    rgb = rng.integers(0, 255, (48, 64, 3), dtype=np.uint8)
+    intr = (60.0, 60.0, 32.0, 24.0)
+    outs = []
+    for device in (dev, "cpu"):
+        g = torch.Generator().manual_seed(0)
+        dc = DepthCompleter(
+            cfg, lidf=randomize_weights_(build_lidf(cfg, static, g), g),
+            refine=randomize_weights_(build_refine(cfg, static, g), g),
+            device=device)
+        k1, k6 = rd.ray_decode.launches, pd.pair_decode.launches
+        outs.append(dc.complete(rgb, depth, intr))
+        assert np.isfinite(outs[-1]["depth_pred"]).all()
+        if device == dev:
+            assert (rd.ray_decode.launches, pd.pair_decode.launches) == \
+                (k1, k6 + 1)
+    agree = np.abs(outs[0]["depth_pred"] - outs[1]["depth_pred"]) <= 1e-3
+    assert agree.mean() >= 0.99, agree.mean()
+    if "pairs_budget_mode" in tpu:
+        with torch.inference_mode():
+            valid = prepare_inputs(static, dc.device_batch(
+                [rgb], [depth], [intr]), mask_type="all")["pair_valid"]
+        assert valid.sum().item() > valid.shape[0] * valid.shape[1], \
+            "the budget of 1 pair per ray drops no pair"
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+    tcfg = mode_cfg(512)
+    model = randomize_weights_(build_lidf(tcfg, build_static(tcfg), g), g)
+    state = TrainState.create(model, tcfg.training, steps_per_epoch=10)
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(0, 1, 48, 64).items()}
+    with pytest.raises(NotImplementedError, match="no backward"):
+        make_lidf_train_step(tcfg, model, dev)(state, batch, None, 0)
 
 
 def test_train_step_card_matches_cpu(dev):
