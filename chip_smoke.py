@@ -18,7 +18,9 @@ Phases:
      max |kernel - plain| against a stated tolerance that lies well below
      the spread of the outputs (the weights are redrawn at unit activation
      scale), and median times of the kernel, its plain version and (K5) the
-     library yardstick;
+     library yardstick; for K5 also the bare kernel's device time and the
+     yardstick's (torch.profiler, 100 calls) and every device operation a
+     call puts on the stream;
   4. main path: 5 frames of 480x640 through DepthCompleter.complete on the
      card (launch counters from 0: K1 1, K4 2, K5 10 per frame), finite output,
      input depth passed through bit for bit; median ms per frame;
@@ -33,7 +35,9 @@ Phases:
      in bf16 and f32, against their plain versions: K2 ray_decode_save's
      outputs and saves; K3 ray_decode_bwd's d_vox_table, d_ray_feat and
      every weight gradient; K5 segment_max0's forward and its gradient
-     (exact); times and bounds;
+     (exact); times and bounds; K3's passes (device ms of Pass A, Pass B and
+     the final reduction from CUDA events the C function records between
+     its launches) and its scratch;
   8. training cross-check: one f32 train step on the card and on the CPU
      (a smaller frame), same weights and draws, for three seeds: losses and
      each parameter's gradient; for the first seed also the card with
@@ -50,7 +54,8 @@ Phases:
      phase 6 (launch counters from 0: K1 1, K3 1, K2 0, K5 2 per step); on
      the recorded inputs, in bf16 and f32, K1 against ``ray_decode_plain``
      at K2's output tolerances and K3's recompute instance against
-     ``ray_decode_bwd_plain(saved=None)`` at K3's, with times and bounds.
+     ``ray_decode_bwd_plain(saved=None)`` at K3's, with times, passes and
+     bounds; the step medians of both ``decode_bwd`` modes of this run.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -195,6 +200,31 @@ def time_ms(fn, warmup=2, reps=10):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, match, reps=100):
+    """(mean device ms per call of the kernels whose name holds ``match``,
+    {device operation: (ms, count) per call}) over ``reps`` calls of ``fn``
+    (torch.profiler, after one warm-up call); (None, {}) where the profiler
+    sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, ops = 0.0, {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = ev.cuda_time_total
+        if t <= 0 or str(getattr(ev, "device_type", "")).endswith("CPU"):
+            continue
+        ops[ev.key[:80]] = (t / reps / 1e3, ev.count / reps)
+        if match in ev.key:
+            total += t
+    return (total / reps / 1e3 if total else None), ops
 
 
 def nbytes(*ts):
@@ -407,6 +437,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
     from implicit_depth_torch.ops import segment
 
     mods = kernel_modules()
+    by_shape = {}
     plain = {"ray_decode": rd.ray_decode_plain, "ief_decode": rd.ief_decode_plain,
              "segment_max0": segment.segment_max0_plain,
              "pair_decode": pd.pair_decode_plain}
@@ -428,7 +459,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
             ok = err <= tol and all(torch.isfinite(g).all() for g in got)
             ms = time_ms(lambda: kern(*a, **kw))
             plain_ms = time_ms(lambda: plain[name](*a, **kw))
-            lib_ms = None
+            lib_ms, extra = None, {}
             if name == "segment_max0":  # yardstick: one PyTorch scatter call
                 d, ids, ns, v = a
                 src = torch.where(v[:, None], d, torch.zeros((), dtype=d.dtype,
@@ -439,18 +470,26 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
                 table = torch.zeros((ns, d.shape[1]), dtype=d.dtype, device=dev)
                 lib_ms = time_ms(lambda: table.scatter_reduce_(0, idx, src,
                                                                "amax"))
+                # device times: the bare kernel (of 100 wrapper calls), what
+                # else each call puts on the stream, and the yardstick's
+                extra["kernel_device_ms"], extra["device_ops_per_call"] = \
+                    device_ms(lambda: kern(*a, **kw), "segment_max")
+                extra["library_device_ms"], _ = device_ms(
+                    lambda: table.scatter_reduce_(0, idx, src, "amax"),
+                    "scatter")
             b_ms, b_by, flops, byt = bound(name, a, dt)
             row = {"name": name, "dtype": str(dt).split(".")[-1],
                    "shape": [list(s) for s in shape], "max_abs_err": err,
                    "tolerance": tol, "typical_abs": typical,
                    "spread": spread, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "flops": flops, "bytes": byt}
+                   "flops": flops, "bytes": byt, **extra}
             log(f"kernel {name} {row['dtype']} {row['shape']}: "
                 f"max_abs_err {err:.3g} (tol {tol}; outputs: mean |y| "
                 f"{typical:.3g}, std {spread:.3g}) ms {ms:.4f} "
                 f"plain_ms {plain_ms:.4f} library_ms {lib_ms} "
-                f"bound_ms {b_ms:.4f} ({b_by})")
+                f"bound_ms {b_ms:.4f} ({b_by})"
+                + "".join(f" {k} {v}" for k, v in extra.items()))
             if not ok:
                 raise AssertionError(f"{name} {dt}: kernel disagrees with its "
                                      f"plain version: {err} > {tol}")
@@ -458,12 +497,20 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
                 raise AssertionError(f"{name} {dt}: tolerance {tol} is not "
                                      f"{BITE}x below the outputs' spread "
                                      f"{spread}")
+            if extra:  # K5: every shape's times, for the record
+                by_shape.setdefault(name, []).append(
+                    {k: row[k] for k in ("shape", "dtype", "ms", "library_ms",
+                                         "kernel_device_ms",
+                                         "library_device_ms")})
             # the JSON line carries the main path's dtype at its largest shape
             if dt == torch.bfloat16:
                 size = shape[0][0] * (shape[0][1] if len(shape[0]) > 1 else 1)
                 if name not in entries or size >= entries[name][0]:
                     entries[name] = (size, row)
-    return {name: row for name, (_, row) in entries.items()}
+    rows = {name: row for name, (_, row) in entries.items()}
+    for name, shapes in by_shape.items():
+        rows[name]["by_shape"] = shapes
+    return rows
 
 
 def main_path(dc, frames, cfg, expect=EXPECT_PER_FRAME, label="main path"):
@@ -740,6 +787,8 @@ def train_kernel_phase(recorded):
             ms = time_ms(kern, warmup=1, reps=5)
             plain_ms = time_ms(plain, warmup=1, reps=3)
             b_ms, b_by, flops, byt = bound(name, args, dt)
+            if name == "ray_decode_bwd":
+                extra = {**extra, "passes": k3_passes(a3, kw3)}
             row = {"name": name, "dtype": str(dt).split(".")[-1],
                    "shape": [list(cells.shape)], "max_abs_err": err,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -752,6 +801,29 @@ def train_kernel_phase(recorded):
         del a3, k3, p3, exact, got, ref
         torch.cuda.empty_cache()
     return rows
+
+
+def k3_passes(a, kw):
+    """K3's passes on the operands ``a`` (as ``ray_decode_bwd`` takes them):
+    the device ms of Pass A and of Pass B over all chunks and of the final
+    reduction (median of 3 calls after one, from CUDA events the C function
+    records between its launches), the plan's scratch bytes, and the peak
+    device memory one call adds to what is allocated before it."""
+    from implicit_depth_torch.ops import ray_decode as rd
+    rd.ray_decode_bwd_pass_ms(*a, **kw)
+    runs = [rd.ray_decode_bwd_pass_ms(*a, **kw) for _ in range(3)]
+    out = {k: statistics.median(r[k] for r in runs)
+           for k in ("pass_a_ms", "pass_b_ms", "reduce_ms")}
+    out.update(chunks=runs[0]["chunks"], scratch_bytes=runs[0]["scratch_bytes"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = rd.ray_decode_bwd(*a, **kw)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del got
+    log(f"kernel ray_decode_bwd passes: {out}")
+    return out
 
 
 def row_checks(name, dt, checks):
@@ -1114,13 +1186,14 @@ def recompute_kernel_rows(recorded):
         b_ms, b_by, flops, byt = bound("ray_decode_bwd_recompute", a, dt)
         log(f"kernel ray_decode_bwd_recompute {dtn}: ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        passes = k3_passes(a, kw)
         if dt == torch.bfloat16:
             out = {"name": "ray_decode_bwd_recompute", "dtype": dtn,
                    "shape": [list(cells.shape)], "max_abs_err": err,
                    "max_rel_err": worst[1], "worst": worst[0],
                    "tolerance_rel": tol, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-                   "flops": flops, "bytes": byt}
+                   "flops": flops, "bytes": byt, "passes": passes}
         torch.cuda.empty_cache()
     return out
 
@@ -1160,14 +1233,15 @@ def train_kernel_variant_phase(dev, train_overrides):
     gen = torch.Generator().manual_seed(SEED + 1)
     model = randomize_weights_(build_lidf(cfg, build_static(cfg), gen),
                                gen).to(dev)
-    recorded, launches, _ = train_path(cfg, model, dev,
-                                       expect=EXPECT_PER_STEP_KERNEL)
+    recorded, launches, step_ms = train_path(cfg, model, dev,
+                                             expect=EXPECT_PER_STEP_KERNEL)
     del model
     torch.cuda.empty_cache()
     k1 = add_launches(train_forward_row(recorded, dev),
                       launches["ray_decode"], TRAIN_STEPS, "step")
     k3 = add_launches(recompute_kernel_rows(recorded),
                       launches["ray_decode_bwd"], TRAIN_STEPS, "step")
+    k3["step_ms"] = statistics.median(step_ms)
     return k1, k3
 
 
@@ -1182,7 +1256,9 @@ def add_launches(row, n, runs, unit):
 ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "bound_by", "library_ms", "dtype", "shape", "tolerance",
               "typical_abs", "max_rel_err", "worst", "tolerance_rel",
-              "launches_per_frame", "launches_per_step", "train", "modes")
+              "launches_per_frame", "launches_per_step", "train", "modes",
+              "kernel_device_ms", "library_device_ms", "device_ops_per_call",
+              "by_shape", "passes", "step_ms")
 
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
@@ -1239,13 +1315,14 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         f"kb={cfg_t.tpu.pairs_budget_per_ray}, dtype "
         f"{cfg_t.tpu.compute_dtype}, decode_bwd {cfg_t.tpu.decode_bwd}, "
         f"{cfg_t.training.optimizer_name} lr {cfg_t.training.lr}")
-    recorded, launches_t, _ = train_path(cfg_t, model, dev, profile)
+    recorded, launches_t, step_ms = train_path(cfg_t, model, dev, profile)
     train_rows = train_kernel_phase(recorded)
     train_rows["segment_max0"] = segment_train_phase(
         recorded["segment_max0"], dev)
     for name, n in launches_t.items():
         add_launches(train_rows[name], n, TRAIN_STEPS, "step")
     rows["segment_max0"]["train"] = train_rows.pop("segment_max0")
+    train_rows["ray_decode_bwd"]["step_ms"] = statistics.median(step_ms)
     rows.update(train_rows)
     del recorded, model
     torch.cuda.empty_cache()
@@ -1256,6 +1333,9 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     # -- stage-1 training with decode_bwd: kernel ------------------------------
     rows["ray_decode"]["train"], rows["ray_decode_bwd_recompute"] = \
         train_kernel_variant_phase(dev, train_overrides)
+    log(f"step medians in this run: decode_bwd kernel_save "
+        f"{rows['ray_decode_bwd']['step_ms']} ms, kernel "
+        f"{rows['ray_decode_bwd_recompute']['step_ms']} ms")
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],

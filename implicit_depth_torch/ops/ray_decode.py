@@ -357,8 +357,195 @@ def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
     return grads[0], grads[1], dict(zip(leaves, grads[2:]))
 
 
+# -- K3's plan: chunks of rays, operand streams, the weight-gradient products
+
+K3_CHUNK_RAYS = 32768  # rays per chunk of the operand streams, at most
+K3_SPLIT_ROWS = 4096   # contraction rows of one Pass B block
+K3_TILE = (64, 128)    # Pass B's output tile (gradient rows, columns)
+_G1, _G2, _G3 = 256, 128, 64
+# the operand streams Pass A writes, each (rows per instance, width): rows
+# are a chunk's pair rows, or its rays for the per-ray streams
+K3_STREAMS = ("x", "de_off", "de_prob", "rf", "dre_off", "dre_prob",
+              "h1", "dt2", "h2", "dt3")
+_PER_RAY_STREAMS = ("rf", "dre_off", "dre_prob")
+_TAIL_STREAMS = ("h1", "dt2", "h2", "dt3")
+# the gradients Pass A sums per block (f32, in shared memory), in order
+K3_SMALL = ("b1", "a_vec", "c_vec", "off_b2", "off_b3", "off_w4", "off_b4",
+            "prob_b2", "prob_b3", "prob_w4", "prob_b4")
+# Pass B's products: (gradient, column offset in it, A stream, B stream,
+# IEF instances (else the probability decoder's, instance 0))
+K3_JOBS = (("pair_w1", 0, "x", "de_off", False),
+           ("pair_w1", _G1, "x", "de_prob", False),
+           ("ray_w1", 0, "rf", "dre_off", False),
+           ("ray_w1", _G1, "rf", "dre_prob", False),
+           ("off_w2", 0, "h1", "dt2", True),
+           ("prob_w2", 0, "h1", "dt2", False),
+           ("off_w3", 0, "h2", "dt3", True),
+           ("prob_w3", 0, "h2", "dt3", False))
+_PLAN_HEADER = 40   # int64 fields before the jobs (see csrc/ray_decode_bwd.cu)
+_JOB_FIELDS, _RED_FIELDS = 12, 9
+
+
+def _align(x: int, a: int = 64) -> int:
+    return -(-x // a) * a
+
+
+def bwd_grad_layout(kp: int, crp: int) -> Dict[str, tuple]:
+    """{operand: (float offset, shape)} of each weight gradient in K3's f32
+    output, in the operand order of K1/K2, each at a 64-float boundary;
+    ``"total"``: (its size, ())."""
+    shapes = {"pair_w1": (kp, 2 * _G1), "ray_w1": (crp, 2 * _G1),
+              "b1": (2 * _G1,), "a_vec": (_G1,), "c_vec": (_G1,)}
+    for p in ("off", "prob"):
+        shapes.update({f"{p}_w2": (_G1, _G2), f"{p}_b2": (_G2,),
+                       f"{p}_w3": (_G2, _G3), f"{p}_b3": (_G3,),
+                       f"{p}_w4": (_G3,), f"{p}_b4": (1,)})
+    out, off = {}, 0
+    for k in _K1_WEIGHTS:
+        out[k] = (off, shapes[k])
+        off = _align(off + math.prod(shapes[k]))
+    out["total"] = (off, ())
+    return out
+
+
+def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
+             sm_count: int, chunk_rays: int = K3_CHUNK_RAYS,
+             split_rows: int = K3_SPLIT_ROWS) -> dict:
+    """The host-side arithmetic of K3 for ``n`` rays of kb = 8 pairs.
+
+    Pass A walks the rays in ``n_chunks`` chunks of at most
+    ``chunk_rays`` rays (equal but for the last), tiles of ``rows_per_tile``
+    pair rows (64 bf16, 32 f32) on a persistent grid of ``blocks_a`` blocks,
+    and writes each weight gradient's operands into the streams
+    (``streams``: {name: (element offset, rows per instance, width,
+    instances)} in one scratch buffer of the compute type, reused by every
+    chunk). Pass B then forms each gradient product of ``jobs`` over the
+    chunk as split-K tiles of K3_TILE: split s of a job covers rows [s·split
+    rows, ...) of one instance, and adds its tile into its own f32 partial,
+    so that every partial is summed in one order. The reductions ``reds``
+    sum the partials, and the per-block sums of the small gradients
+    (``small``), in a fixed order into the output (:func:`bwd_grad_layout`).
+    """
+    if n < 1 or chunk_rays < 1 or split_rows < 1 or n_iter < 1:
+        raise ValueError("bwd_plan: empty or invalid sizes")
+    m = 64 if is_bf16 else 32
+    mr = m // 8
+    n_chunks = -(-n // chunk_rays)
+    chunk = _align(-(-n // n_chunks), mr)
+    n_chunks = -(-n // chunk)
+    n_inst = n_iter + 1
+    rows = chunk * 8
+    widths = {"x": kp, "de_off": _G1, "de_prob": _G1, "rf": crp,
+              "dre_off": _G1, "dre_prob": _G1, "h1": _G1, "dt2": _G2,
+              "h2": _G2, "dt3": _G3}
+    streams, off = {}, 0
+    for name in K3_STREAMS:
+        r = chunk if name in _PER_RAY_STREAMS else rows
+        inst = n_inst if name in _TAIL_STREAMS else 1
+        streams[name] = (off, r, widths[name], inst)
+        off = _align(off + r * widths[name] * inst)
+    scratch = off
+    layout = bwd_grad_layout(kp, crp)
+    jobs, reds, p_off, blocks_b = [], [], 0, 0
+    tk_rows, tn_cols = K3_TILE
+    for grad, col, a, b, ief in K3_JOBS:
+        _, r, kw, _ = streams[a]
+        nw = streams[b][2]
+        tiles_k, tiles_n = -(-kw // tk_rows), -(-nw // tn_cols)
+        inst0, n_inst_job = (1, n_iter) if ief else (0, 1)
+        spi = -(-r // split_rows)
+        splits = n_inst_job * spi
+        ld_src = tiles_n * tn_cols
+        stride = tiles_k * tk_rows * ld_src
+        jobs.append({"a": a, "b": b, "inst0": inst0, "n_inst": n_inst_job,
+                     "tiles_k": tiles_k, "tiles_n": tiles_n,
+                     "splits_per_inst": spi, "p_off": p_off,
+                     "block0": blocks_b})
+        g_off, shape = layout[grad]
+        reds.append({"src": p_off, "stride": stride, "dst": g_off + col,
+                     "splits": splits, "k": kw, "n": nw, "ld_src": ld_src,
+                     "ld_dst": shape[1]})
+        p_off += splits * stride
+        blocks_b += tiles_k * tiles_n * splits
+    tiles = -(-chunk // mr)
+    blocks_a = max(1, min(sm_count, tiles))
+    small, s_off = {}, 0
+    for k in K3_SMALL:
+        size = math.prod(layout[k][1])
+        small[k] = s_off
+        reds.append({"src": p_off + s_off, "stride": 0, "dst": layout[k][0],
+                     "splits": blocks_a, "k": 1, "n": size, "ld_src": size,
+                     "ld_dst": size})
+        s_off = _align(s_off + size, 4)
+    for r in reds[len(jobs):]:
+        r["stride"] = s_off
+    return {"rows_per_tile": m, "chunk_rays": chunk, "n_chunks": n_chunks,
+            "tiles_per_chunk": tiles, "blocks_a": blocks_a,
+            "n_inst": n_inst, "split_rows": split_rows, "streams": streams,
+            "scratch_elems": scratch, "jobs": jobs, "blocks_b": blocks_b,
+            "small": small, "small_size": s_off, "small_off": p_off,
+            "partial_floats": p_off + blocks_a * s_off, "reds": reds,
+            "grad_floats": layout["total"][0]}
+
+
+def bwd_scratch_bytes(plan: dict, elem_bytes: int) -> int:
+    """K3's scratch beyond its outputs: the streams and the f32 partials."""
+    return plan["scratch_elems"] * elem_bytes + plan["partial_floats"] * 4
+
+
+def pack_bwd_plan(plan: dict) -> list:
+    """The plan as the int64 array idt_ray_decode_bwd reads."""
+    hdr = [plan["chunk_rays"], plan["n_chunks"], plan["blocks_a"],
+           plan["rows_per_tile"], plan["n_inst"], plan["split_rows"],
+           len(plan["jobs"]), len(plan["reds"])]
+    hdr += [plan["streams"][k][0] for k in K3_STREAMS]
+    hdr += [plan["small"][k] for k in K3_SMALL]
+    hdr += [plan["small_size"], plan["small_off"], plan["scratch_elems"],
+            plan["partial_floats"], plan["blocks_b"]]
+    hdr += [0] * (_PLAN_HEADER - len(hdr))
+    out = hdr
+    for j in plan["jobs"]:
+        out += [K3_STREAMS.index(j["a"]), K3_STREAMS.index(j["b"]),
+                j["inst0"], j["n_inst"], j["tiles_k"], j["tiles_n"],
+                j["splits_per_inst"], j["p_off"], j["block0"], 0, 0, 0]
+    for r in plan["reds"]:
+        out += [r["src"], r["stride"], r["dst"], r["splits"], r["k"],
+                r["n"], r["ld_src"], r["ld_dst"], 0]
+    return out
+
+
 def ray_decode_bwd(vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
                    *, n_iter=2, init_offset=0.001, use_sigmoid=False):
+    """Kernel K3 (see :func:`_ray_decode_bwd_cuda`), counted in
+    ``ray_decode_bwd.launches``."""
+    out = _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved,
+                               g_off, g_logit, n_iter=n_iter,
+                               init_offset=init_offset,
+                               use_sigmoid=use_sigmoid)
+    ray_decode_bwd.launches += 1
+    return out
+
+
+def ray_decode_bwd_pass_ms(*args, **kw) -> dict:
+    """Measurement: one K3 call on ``args``/``kw`` as :func:`ray_decode_bwd`
+    takes them, with CUDA events recorded by the C function between its
+    passes (not counted as a launch of the main path). Returns the device
+    ms of Pass A and of Pass B, each summed over the chunks, of the final
+    reduction, and the plan's scratch bytes."""
+    holder = {}
+    _ray_decode_bwd_cuda(*args, **kw, events=holder)
+    torch.cuda.synchronize()
+    ev, n_chunks = holder["events"], holder["plan"]["n_chunks"]
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+    return {"pass_a_ms": sum(ms[0:2 * n_chunks:2]),
+            "pass_b_ms": sum(ms[1:2 * n_chunks:2]),
+            "reduce_ms": ms[2 * n_chunks], "chunks": n_chunks,
+            "scratch_bytes": holder["scratch_bytes"]}
+
+
+def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
+                         g_logit, *, n_iter=2, init_offset=0.001,
+                         use_sigmoid=False, events=None):
     """Kernel K3: gradients of the stage-1 decode, from K2's saves or, with
     ``saved=None``, recomputing layer 1 (``decode_bwd='kernel'``).
 
@@ -367,10 +554,12 @@ def ray_decode_bwd(vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
     g_off, g_logit (N, kb) the cotangents of its outputs. Its plain version
     is :func:`ray_decode_bwd_plain` with the same ``saved``. Returns
     (d_vox_table (S, Cv), d_ray_feat (N, Cr), {operand: gradient in the
-    operand's shape}), all f32. The weight gradients are summed per block
-    into a workspace and then over the blocks in a fixed order
-    (deterministic); d_vox_table is summed with atomics (the order of the
-    additions varies)."""
+    operand's shape}), all f32. One C call runs the passes of
+    :func:`bwd_plan` chunk by chunk (``events``: a dict that receives the
+    CUDA events it records between them, for measurement); the weight
+    gradients are summed in a fixed order (bit-identical run to run);
+    d_vox_table is summed with atomics (the order of the additions across
+    tiles varies)."""
     vox_table, cells, pos, ray_feat = _decode_operands(
         "ray_decode_bwd", vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
@@ -391,38 +580,49 @@ def ray_decode_bwd(vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
     if g.shape != (n, kb, 2):
         raise ValueError("ray_decode_bwd: cotangents must be (N, kb)")
     kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
-    layout = (cuda.I64 * (len(_K1_WEIGHTS) + 1))()
-    cuda.check(cuda.bind("ray_decode_bwd", "idt_ray_decode_bwd_layout",
-                         cuda.I64, cuda.I64, cuda.PTR)(
-                             kp, crp, ctypes.addressof(layout), None),
-               "ray_decode_bwd layout")
-    slice_floats = layout[len(_K1_WEIGHTS)]
-    blocks = min(cuda.sm_count(dev), -(-n // (8 if dtype == torch.bfloat16
-                                              else 4)))
-    blocks = max(blocks, 1)
-    work = torch.zeros((blocks, slice_floats), dtype=torch.float32, device=dev)
-    d_w = torch.empty((slice_floats,), dtype=torch.float32, device=dev)
+    layout = bwd_grad_layout(kp, crp)
+    d_w = torch.empty((layout["total"][0],), dtype=torch.float32, device=dev)
     d_table = torch.zeros(vox_table.shape, dtype=torch.float32, device=dev)
     d_rf = torch.empty((n, c_ray), dtype=torch.float32, device=dev)
-    # the recompute instance keeps each block's f32 e1 tile in a scratch
-    # slice of its own (64 or 32 rows of 256)
-    scratch = None if saved[0] is not None else torch.empty(
-        (blocks, 64 if dtype == torch.bfloat16 else 32, g4),
-        dtype=torch.float32, device=dev)
-    ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
-                           *(w[k] for k in _K1_WEIGHTS), *saved, g,
-                           d_table, d_rf, work, d_w, scratch])
-    fn = cuda.bind("ray_decode_bwd", "idt_ray_decode_bwd", cuda.PTR,
-                   *[cuda.I64] * 10, cuda.F32)
-    cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp, n_iter,
-                  int(dtype == torch.bfloat16), int(use_sigmoid), blocks,
-                  init_offset, cuda.stream_ptr(dev)),
-               "ray_decode_bwd")
-    ray_decode_bwd.launches += 1
-    grads = {}
-    for i, k in enumerate(_K1_WEIGHTS):
-        ref = w[k]
-        grads[k] = d_w[layout[i]:layout[i] + ref.numel()].view(ref.shape)
+    if n > 0:
+        plan = bwd_plan(n, kp, crp, n_iter, dtype == torch.bfloat16,
+                        cuda.sm_count(dev), K3_CHUNK_RAYS, K3_SPLIT_ROWS)
+        packed = pack_bwd_plan(plan)
+        scratch = torch.empty((plan["scratch_elems"],), dtype=dtype,
+                              device=dev)
+        partials = torch.empty((plan["partial_floats"],),
+                               dtype=torch.float32, device=dev)
+        # the recompute instance keeps each block's f32 e1 tile in a slice
+        # of its own
+        e1_scratch = None if saved[0] is not None else torch.empty(
+            (plan["blocks_a"], plan["rows_per_tile"], g4),
+            dtype=torch.float32, device=dev)
+        ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
+                               *(w[k] for k in _K1_WEIGHTS), *saved, g,
+                               d_table, d_rf, d_w, scratch, partials,
+                               e1_scratch])
+        ev = None
+        if events is not None:  # measurement: events between the passes
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(2 * plan["n_chunks"] + 2)]
+            for e in marks:  # creates each event's CUDA handle
+                e.record()
+            ev = (ctypes.c_void_p * len(marks))(
+                *(e.cuda_event for e in marks))
+            events.update(events=marks, plan=plan,
+                          scratch_bytes=bwd_scratch_bytes(
+                              plan, scratch.element_size()))
+        fn = cuda.bind("ray_decode_bwd", "idt_ray_decode_bwd", cuda.PTR,
+                       cuda.PTR, *[cuda.I64] * 10, cuda.F32, cuda.PTR)
+        cuda.check(fn(ptrs, (cuda.I64 * len(packed))(*packed), len(packed),
+                      n, c_vox, c_ray, multires, kp, crp, n_iter,
+                      int(dtype == torch.bfloat16), int(use_sigmoid),
+                      init_offset, ev, cuda.stream_ptr(dev)),
+                   "ray_decode_bwd")
+    else:
+        d_w.zero_()
+    grads = {k: d_w[o:o + math.prod(shape)].view(shape)
+             for k, (o, shape) in layout.items() if k != "total"}
     return d_table, d_rf, grads
 
 

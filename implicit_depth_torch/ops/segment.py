@@ -43,9 +43,25 @@ def segment_max0_plain(data: torch.Tensor, segment_ids: torch.Tensor,
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
+_KERNEL = None  # the bound C function, looked up at the first call
+
+
+def _kernel():
+    global _KERNEL
+    if _KERNEL is None:
+        _KERNEL = cuda.bind("segment_max", "idt_segment_max", *[cuda.PTR] * 5,
+                            *[cuda.I64] * 4)
+    return _KERNEL
+
+
 def _segment_max0_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int,
                        valid: torch.Tensor | None) -> torch.Tensor:
+    """One C call: it zeroes an f32 table, merges the rows into it and, for
+    bf16 data, writes it out in bf16 (f32 data merges straight into the
+    output). ``valid`` is read as the bool tensor's bytes; int32 ids and
+    contiguous data are used as they are, so a call from the models makes no
+    launch from Python but this one."""
     if data.dim() != 2 or data.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"segment_max0 kernel takes (N, C) f32/bf16 data, "
                          f"got {tuple(data.shape)} {data.dtype}")
@@ -54,16 +70,16 @@ def _segment_max0_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
         raise ValueError("segment_ids / valid must be (N,)")
     data = data.contiguous()
     ids = segment_ids.to(torch.int32).contiguous()
-    vmask = None if valid is None else valid.to(torch.uint8).contiguous()
-    table = torch.zeros((num_segments, c), dtype=torch.float32,
-                        device=data.device)
-    fn = cuda.bind("segment_max", "idt_segment_max", *[cuda.PTR] * 4,
-                   *[cuda.I64] * 4)
-    cuda.check(fn(data.data_ptr(), ids.data_ptr(), cuda.ptr(vmask),
-                  table.data_ptr(), n, c, num_segments,
-                  int(data.dtype == torch.bfloat16),
-                  cuda.stream_ptr(data.device)), "segment_max")
-    return table.to(data.dtype)
+    vmask = None if valid is None else \
+        valid.to(torch.bool).contiguous().view(torch.uint8)
+    out = torch.empty((num_segments, c), dtype=data.dtype, device=data.device)
+    table = None if data.dtype == torch.float32 else torch.empty(
+        (num_segments, c), dtype=torch.float32, device=data.device)
+    cuda.check(_kernel()(data.data_ptr(), ids.data_ptr(), cuda.ptr(vmask),
+                         out.data_ptr(), cuda.ptr(table), n, c, num_segments,
+                         int(data.dtype == torch.bfloat16),
+                         cuda.stream_ptr(data.device)), "segment_max")
+    return out
 
 
 def segment_max0_grad(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -111,7 +127,10 @@ def segment_max0(data: torch.Tensor, segment_ids: torch.Tensor,
         return segment_max0_plain(data, segment_ids, num_segments, valid)
     if data.device.type != "cuda":
         raise ValueError(f"segment_max0: no kernel for device {data.device}")
-    out = _SegmentMax0.apply(data, segment_ids, num_segments, valid)
+    if torch.is_grad_enabled() and data.requires_grad:
+        out = _SegmentMax0.apply(data, segment_ids, num_segments, valid)
+    else:  # no graph to record: skip the autograd Function's host work
+        out = _segment_max0_cuda(data, segment_ids, num_segments, valid)
     segment_max0.launches += 1
     return out
 

@@ -219,10 +219,22 @@ def _rel_norm(a, b):
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
+# (rays, chunk rays, split rows): a ragged last tile (tiles of 8 rays in
+# bf16, 4 in f32); many tiles; less than one tile; several chunks of the
+# operand streams with a ragged last one, and Pass B splits that end inside
+# a shared-memory stage
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [100, 1000])  # ragged last tile; many tiles
+@pytest.mark.parametrize("n,chunk,split", [
+    (100, None, None), (1000, None, None), (3, None, None), (100, 24, 40),
+    (203, 64, 1000)])
 @pytest.mark.parametrize("from_saves", [True, False])  # kernel_save; kernel
-def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n, from_saves):
+def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n, chunk, split,
+                                             from_saves, monkeypatch):
+    if chunk is not None:
+        monkeypatch.setattr(rd, "K3_CHUNK_RAYS", chunk)
+        monkeypatch.setattr(rd, "K3_SPLIT_ROWS", split)
+        assert rd.bwd_plan(n, 240, 160, 2, dtype == "bfloat16", 132, chunk,
+                           split)["n_chunks"] > 1
     rng = np.random.default_rng(16)
     w32, args, cot = _decode_case(rng, dev, dtype, n=n)
     w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
@@ -275,6 +287,50 @@ def test_ray_decode_train_launches_its_kernels(dev, decode_bwd):
     ref = rd.ray_decode_bwd_plain(*args, w32, *cot, dtype=torch.float32)
     for g, r in zip((leaves[0].grad, leaves[1].grad), ref[:2]):
         assert _rel_norm(g, r) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["no valid row", "no rows", "odd channels",
+                                  "sorted ids"])
+def test_segment_max0_kernel_edge_cases(dev, dtype, case):
+    """Exact against the plain version: no valid row (every segment 0), N =
+    0, a channel count that is no whole number of 16-byte vectors (the
+    scalar instance) and runs of rows in one segment (the pre-reduction)."""
+    rng = np.random.default_rng(22)
+    n = {"no rows": 0, "odd channels": 300}.get(case, 3000)
+    c, s = (7 if case == "odd channels" else 128), 60
+    data = _t(np.abs(rng.normal(size=(n, c))), dev, DTYPES[dtype])
+    ids = rng.integers(0, s, n)
+    ids = _t(np.sort(ids) if case == "sorted ids" else ids, dev, torch.int32)
+    valid = _t(np.zeros(n, bool) if case == "no valid row"
+               else rng.random(n) < 0.8, dev, torch.bool)
+    got = segment.segment_max0(data, ids, s, valid)
+    _close(got, segment.segment_max0_plain(data, ids, s, valid), 0.0)
+    assert got.dtype == data.dtype and got.shape == (s, c)
+    if case == "no valid row":
+        assert (got == 0).all()
+
+
+def test_segment_max0_is_one_launch(dev):
+    """One call from Python: on the stream, beside the table's memset, only
+    the merge kernel and, for bf16, its conversion to bf16; no PyTorch
+    cast, mask copy or zero fill."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(23)
+    data = _t(np.abs(rng.normal(size=(4000, 64))), dev, torch.bfloat16)
+    ids = _t(rng.integers(0, 40, 4000), dev, torch.int32)
+    valid = _t(rng.random(4000) < 0.7, dev, torch.bool)
+    segment.segment_max0(data, ids, 50, valid)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        segment.segment_max0(data, ids, 50, valid)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memset" not in e.name.lower()]
+    assert len(kernels) == 2, kernels
+    assert any("segment_max_kernel" in k for k in kernels), kernels
+    assert any("to_bf16" in k for k in kernels), kernels
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

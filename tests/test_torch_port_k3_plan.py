@@ -1,0 +1,253 @@
+"""The host-side arithmetic of K3 (``ops/ray_decode.py::bwd_plan``), on the
+CPU: the chunks of rays, the operand streams, Pass B's split-K products and
+the reductions that lay the weight gradients out.
+
+The CUDA passes run only on the card (``test_torch_port_cuda.py``). Here a
+numpy emulation of Pass B and of the reductions, driven by nothing but the
+plan, must reproduce each weight gradient as the plain product of its
+operands over all rows, and the reductions must cover every element of the
+output exactly once. The JAX package has no counterpart of this arithmetic:
+its kernel keeps the weight gradients in VMEM across a sequential grid.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from implicit_depth_torch.ops import ray_decode as rd
+
+KP, CRP = 240, 160  # the default model's layer-1 operand rows (c_vox 128)
+
+
+def _grad_shapes(kp, crp):
+    w32 = {"pair_w1": (kp, 512), "ray_w1": (crp, 512), "b1": (512,),
+           "a_vec": (256,), "c_vec": (256,)}
+    for p in ("off", "prob"):
+        w32.update({f"{p}_w2": (256, 128), f"{p}_b2": (128,),
+                    f"{p}_w3": (128, 64), f"{p}_b3": (64,),
+                    f"{p}_w4": (64,), f"{p}_b4": (1,)})
+    return w32
+
+
+@pytest.mark.parametrize("kp,crp", [(KP, CRP), (64, 32)])
+def test_grad_layout_is_the_operand_layout(kp, crp):
+    """One region per operand, in K1's operand order, at 64-float
+    boundaries, of the operand's shape; regions do not overlap."""
+    lay = rd.bwd_grad_layout(kp, crp)
+    shapes = _grad_shapes(kp, crp)
+    assert list(lay)[:-1] == list(rd._K1_WEIGHTS)
+    end = 0
+    for k in rd._K1_WEIGHTS:
+        off, shape = lay[k]
+        assert shape == shapes[k] and off % 64 == 0 and off >= end, k
+        end = off + math.prod(shape)
+    assert lay["total"][0] >= end and lay["total"][0] % 64 == 0
+
+
+# (rays, bf16, n_iter, chunk rays, split rows): one ray; one tile; ragged
+# tiles and chunks; a chunk boundary inside a tile's worth of rays; the
+# training shapes at batch 4 and 32
+CASES = [(1, True, 2, 4096, 4096), (8, True, 2, 4096, 4096),
+         (100, False, 2, 16, 24), (1000, True, 3, 200, 1000),
+         (1001, True, 1, 64, 100), (80000, True, 2, rd.K3_CHUNK_RAYS,
+                                    rd.K3_SPLIT_ROWS),
+         (640000, False, 2, rd.K3_CHUNK_RAYS, rd.K3_SPLIT_ROWS)]
+
+
+@pytest.mark.parametrize("n,bf16,n_iter,chunk,split", CASES)
+def test_chunks_and_tiles_cover_the_rays(n, bf16, n_iter, chunk, split):
+    plan = rd.bwd_plan(n, KP, CRP, n_iter, bf16, 132, chunk, split)
+    m = 64 if bf16 else 32
+    assert plan["rows_per_tile"] == m
+    c = plan["chunk_rays"]
+    # whole tiles per chunk; chunks of at most the limit cover the rays,
+    # none empty
+    assert c % (m // 8) == 0 and c <= max(chunk, m // 8)
+    assert (plan["n_chunks"] - 1) * c < n <= plan["n_chunks"] * c
+    assert plan["tiles_per_chunk"] == -(-c // (m // 8))
+    assert 1 <= plan["blocks_a"] <= min(132, plan["tiles_per_chunk"])
+    assert plan["n_inst"] == n_iter + 1
+
+
+@pytest.mark.parametrize("n,bf16,n_iter,chunk,split", CASES)
+def test_streams_are_disjoint_and_sized(n, bf16, n_iter, chunk, split):
+    plan = rd.bwd_plan(n, KP, CRP, n_iter, bf16, 132, chunk, split)
+    c = plan["chunk_rays"]
+    widths = {"x": KP, "rf": CRP, "dt2": 128, "h2": 128, "dt3": 64}
+    end = 0
+    for name in rd.K3_STREAMS:
+        off, rows, width, inst = plan["streams"][name]
+        per_ray = name in ("rf", "dre_off", "dre_prob")
+        assert rows == (c if per_ray else 8 * c), name
+        assert width == widths.get(name, 256), name
+        assert inst == (n_iter + 1 if name in ("h1", "dt2", "h2", "dt3")
+                        else 1), name
+        # 16-byte vectors and tensor-core fragments need aligned rows
+        assert off % 64 == 0 and off >= end and width % 16 == 0, name
+        end = off + rows * width * inst
+    assert plan["scratch_elems"] >= end
+
+
+def test_scratch_is_bounded_at_the_configured_batch():
+    """The streams are sized by the chunk, not the batch: the configured
+    batch 32 (640,000 rays of 8 pairs) needs no more scratch than one chunk
+    of K3_CHUNK_RAYS rays, about 1.4 GB in bf16."""
+    b4 = rd.bwd_plan(80000, KP, CRP, 2, True, 132)
+    b32 = rd.bwd_plan(640000, KP, CRP, 2, True, 132)
+    one = rd.bwd_plan(rd.K3_CHUNK_RAYS, KP, CRP, 2, True, 132)
+    assert b32["n_chunks"] == 20 and b4["n_chunks"] == 3
+    assert rd.bwd_scratch_bytes(b32, 2) <= rd.bwd_scratch_bytes(one, 2) \
+        < 1.5e9
+    # per pair row: X, both layer-1 cotangents, three tail instances of
+    # h1, T(d_t2), h2, T(d_t3): ~5 KB, as the kernel's note says
+    per_row = sum(r * w * i for _, r, w, i in one["streams"].values()) * 2 \
+        / (8 * rd.K3_CHUNK_RAYS)
+    assert 4800 < per_row < 5400
+
+
+def _emulate(plan, streams, rows_c, rays_c, partials):
+    """Pass B of one chunk, as the kernel runs it from the plan: each job's
+    split s adds A[rows]^T B[rows] of its instance into its own padded
+    partial."""
+    tk, tn = rd.K3_TILE
+    for job in plan["jobs"]:
+        a, b = streams[job["a"]], streams[job["b"]]
+        per_ray = job["a"] == "rf"
+        rows = rays_c if per_ray else rows_c
+        spi = job["splits_per_inst"]
+        ld = job["tiles_n"] * tn
+        stride = job["tiles_k"] * tk * ld
+        for s in range(job["n_inst"] * spi):
+            inst = job["inst0"] + s // spi
+            r0 = (s % spi) * plan["split_rows"]
+            r1 = min(r0 + plan["split_rows"], rows)
+            if r0 >= r1:
+                continue
+            prod = a[inst, r0:r1].T @ b[inst, r0:r1]
+            p = partials[job["p_off"] + s * stride:
+                         job["p_off"] + (s + 1) * stride].reshape(-1, ld)
+            p[:prod.shape[0], :prod.shape[1]] += prod
+
+
+def _reduce(plan, partials, out):
+    for r in plan["reds"]:
+        for i in range(r["k"]):
+            src = r["src"] + i * r["ld_src"] + np.arange(r["n"])
+            acc = np.zeros(r["n"])
+            for t in range(r["splits"]):  # in order, as the kernel sums
+                acc += partials[src + t * r["stride"]]
+            dst = r["dst"] + i * r["ld_dst"]
+            out[dst:dst + r["n"]] += acc
+
+
+@pytest.mark.parametrize("n,n_iter,chunk,split", [
+    (1, 2, 64, 64), (37, 2, 16, 24), (100, 3, 40, 56), (130, 1, 64, 1000)])
+def test_pass_b_and_reductions_reproduce_the_gradients(n, n_iter, chunk,
+                                                       split):
+    """Random operand streams for every chunk: the emulated split-K products
+    and reductions equal each gradient's product over all rows (and all
+    IEF instances for the offset decoder), and the small gradients' per-block
+    partials sum to their totals. Integer-valued operands keep every sum
+    exact, so any row counted twice or missed shows."""
+    rng = np.random.default_rng(0)
+    kp, crp = 48, 32
+    plan = rd.bwd_plan(n, kp, crp, n_iter, True, 5, chunk, split)
+    lay = rd.bwd_grad_layout(kp, crp)
+    partials = np.zeros(plan["partial_floats"])
+    want = {k: np.zeros(shape) for k, (_, shape) in lay.items()
+            if k != "total"}
+    c = plan["chunk_rays"]
+    for ci in range(plan["n_chunks"]):
+        rays_c = min(c, n - ci * c)
+        rows_c = rays_c * 8
+        streams = {}
+        for name, (_, rows, width, inst) in plan["streams"].items():
+            s = np.zeros((inst, rows, width))
+            live = rays_c if rows == c else rows_c
+            s[:, :live] = rng.integers(-3, 4, (inst, live, width))
+            streams[name] = s
+        _emulate(plan, streams, rows_c, rays_c, partials)
+        for grad, col, a, b, ief in rd.K3_JOBS:
+            insts = range(1, n_iter + 1) if ief else range(1)
+            for i in insts:
+                prod = streams[a][i].T @ streams[b][i]
+                want[grad][:, col:col + prod.shape[1]] += prod
+        # Pass A's small sums: each block adds its own row of partials
+        for k in rd.K3_SMALL:
+            size = math.prod(lay[k][1])
+            for blk in range(plan["blocks_a"]):
+                v = rng.integers(-3, 4, size)
+                at = plan["small_off"] + blk * plan["small_size"] + \
+                    plan["small"][k]
+                partials[at:at + size] += v
+                want[k] += v.reshape(lay[k][1])
+    out = np.zeros(lay["total"][0])
+    _reduce(plan, partials, out)
+    for k, (off, shape) in lay.items():
+        if k != "total":
+            np.testing.assert_array_equal(
+                out[off:off + math.prod(shape)].reshape(shape), want[k], k)
+
+
+@pytest.mark.parametrize("n,bf16", [(100, True), (80000, True),
+                                    (80000, False)])
+def test_reductions_cover_each_gradient_once(n, bf16):
+    plan = rd.bwd_plan(n, KP, CRP, 2, bf16, 132)
+    lay = rd.bwd_grad_layout(KP, CRP)
+    hits = np.zeros(lay["total"][0], np.int64)
+    for r in plan["reds"]:
+        for i in range(r["k"]):
+            hits[r["dst"] + i * r["ld_dst"] + np.arange(r["n"])] += 1
+    for k, (off, shape) in lay.items():
+        if k != "total":
+            assert (hits[off:off + math.prod(shape)] == 1).all(), k
+    assert hits.sum() == sum(math.prod(s) for k, (_, s) in lay.items()
+                             if k != "total")
+    # the partial regions of the jobs, then the small sums, do not overlap
+    spans = sorted((r["src"], r["src"] + r["splits"] * r["stride"])
+                   for r in plan["reds"][:len(plan["jobs"])])
+    spans.append((plan["small_off"], plan["partial_floats"]))
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    # Pass B's grid: every job's blocks, in order
+    start = 0
+    for j in plan["jobs"]:
+        assert j["block0"] == start
+        start += j["tiles_k"] * j["tiles_n"] * j["n_inst"] * \
+            j["splits_per_inst"]
+    assert plan["blocks_b"] == start
+
+
+def test_packed_plan_layout():
+    """The int64 array the C function reads: a 40-field header, 12 fields a
+    job, 9 a reduction."""
+    plan = rd.bwd_plan(1000, KP, CRP, 2, True, 132, 200, 1000)
+    packed = rd.pack_bwd_plan(plan)
+    assert len(packed) == 40 + 12 * len(plan["jobs"]) + 9 * len(plan["reds"])
+    assert packed[:8] == [plan["chunk_rays"], plan["n_chunks"],
+                          plan["blocks_a"], 64, 3, 1000, 8, 19]
+    assert packed[8:18] == [plan["streams"][k][0] for k in rd.K3_STREAMS]
+    assert packed[29:34] == [plan["small_size"], plan["small_off"],
+                             plan["scratch_elems"], plan["partial_floats"],
+                             plan["blocks_b"]]
+    j0 = packed[40:52]
+    assert j0[:2] == [rd.K3_STREAMS.index("x"), rd.K3_STREAMS.index("de_off")]
+
+
+def test_bwd_plan_refuses_empty_sizes():
+    with pytest.raises(ValueError):
+        rd.bwd_plan(0, KP, CRP, 2, True, 132)
+
+
+def test_ray_decode_bwd_needs_the_card():
+    """K3's wrapper launches the kernel or raises: a CPU tensor gets no
+    silent fallback (training on the CPU goes through plain autograd)."""
+    w = {k: torch.zeros(1) for k in rd._K1_WEIGHTS}
+    w["pair_w1"] = torch.zeros((KP, 512))
+    w["dims"] = (128, 155, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rd.ray_decode_bwd(torch.zeros((4, 128)),
+                          torch.zeros((2, 8), dtype=torch.int32),
+                          torch.zeros((2, 8, 6)), torch.zeros((2, 155)), w,
+                          None, torch.zeros((2, 8)), torch.zeros((2, 8)))
