@@ -323,7 +323,8 @@ def build_phase():
     cuda.build_all()
     log(f"build_s {cuda.build_seconds:.2f}")
     for line in cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(k in line for k in ("Compiling entry", "registers", "spill",
+                                   "error")):
             log("  nvcc:", line.strip())
 
 

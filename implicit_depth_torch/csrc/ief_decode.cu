@@ -10,11 +10,18 @@
 // rays against ~80 MB of operands: ~0.03 ms at the bf16 tensor-core peak).
 // The design is K1's (ray_decode.cu) without the slot dimension: the parts
 // are concatenated only in shared memory (the (N, 334) embedding never
-// exists in device memory), layer 1 is computed once and hoisted out of the
-// iterations with the offset encoder folded into a rank-1 update, and every
-// activation stays in shared memory while weights are read through L2.
-// 64 rows per block in bf16 (tensor cores, wmma), 32 in f32 (CUDA cores).
-#include "decode_common.cuh"
+// exists in device memory), and layer 1 is computed once and hoisted out of
+// the iterations with the offset encoder folded into a rank-1 update.
+// bf16: ief_decode_tc, a persistent block per SM over tiles of 64 rows on
+// decode_tile.cuh's staged mma.sync products, E1 in registers; each tile's
+// rc and pos_e rows load as one contiguous block in 16-byte pieces, its end
+// rows by cp.async during the tile before. The first version (wmma
+// fragments from L2, f32 products through shared memory, 2-byte loads)
+// spent ~53% of its time in products, ~66% in their f32 round trips and
+// elementwise passes and ~30% in input loads (scripts/attribute_k1_k4.py).
+// f32 (cross-checks only): ief_decode_kernel, 32 rows a block, CUDA-core FMA
+// products with the weights read from L2.
+#include "decode_tile.cuh"
 
 namespace {
 
@@ -102,6 +109,98 @@ __global__ void __launch_bounds__(kThreads, 1)
     p.out[row0 + threadIdx.x] = squash(OFF[threadIdx.x], p.use_sigmoid);
 }
 
+// -- bf16: the staged tensor-core kernel -------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 1)
+    ief_decode_tc(const Params<__nv_bfloat16> p) {
+  using namespace tile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const tile::Smem lay(p.kp, 0);
+  // X of the even and of the odd tiles (by the block's tile count)
+  auto x_of = [&](int parity) {
+    return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
+  };
+  bf16* H = reinterpret_cast<bf16*>(smem + lay.h);
+  bf16* H2 = reinterpret_cast<bf16*>(smem + lay.h2);
+  float* OFF = reinterpret_cast<float*>(smem + lay.off);
+  float* L4 = reinterpret_cast<float*>(smem + lay.l4);
+  Seg* segs = reinterpret_cast<Seg*>(smem + lay.segs);
+
+  const int kp = p.kp, ldx = ld_of(kp);
+  const int o_rc = p.c_end, o_pos = p.c_end + p.c_rc,
+            o_pad = p.c_end + p.c_rc + p.c_pos;
+  const long long n_tiles = (p.n + kM - 1) / kM;
+  // the schedule: layer 1, then the tail once per IEF iteration
+  if (threadIdx.x == 0) {
+    segs[0] = {p.w1, kG1, kp, kG1};
+    for (int i = 0; i < p.n_iter; ++i) {
+      segs[1 + 2 * i] = {p.tail.w2, kG2, kG1, kG2};
+      segs[2 + 2 * i] = {p.tail.w3, kG3, kG2, kG3};
+    }
+  }
+  // the padding columns stay 0
+  for (int i = threadIdx.x; i < 2 * kM * (kp - o_pad); i += blockDim.x) {
+    const int r = i / (kp - o_pad);
+    x_of(r / kM)[(r % kM) * ldx + o_pad + i % (kp - o_pad)] =
+        __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+  Pipe pipe;
+  pipe.init(reinterpret_cast<bf16*>(smem + lay.ring), segs, 1 + 2 * p.n_iter);
+  // the end rows of a tile into X (16-byte rows: c_end % 8 == 0)
+  auto end_rows = [&](long long t, bf16* X) {
+    const long long row0 = t * kM;
+    rows_async(
+        [&](int r) -> const bf16* {
+          return row0 + r < p.n ? p.end + (row0 + r) * p.c_end : nullptr;
+        },
+        kM, p.c_end, X, ldx, p.end);
+  };
+  if (blockIdx.x < n_tiles) end_rows(blockIdx.x, x_of(0));
+  pipe.start();
+
+  int parity = 0;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, parity ^= 1) {
+    bf16* X = x_of(parity);
+    const long long row0 = t * kM;
+    const int valid = (int)min((long long)kM, p.n - row0);
+    stage_rows(p.rc + row0 * p.c_rc, valid, kM, p.c_rc, X, ldx, o_rc);
+    stage_rows(p.pos + row0 * p.c_pos, valid, kM, p.c_pos, X, ldx, o_pos);
+    if (threadIdx.x < kM) OFF[threadIdx.x] = p.init_offset;
+    // the next tile's end rows land while this one runs
+    if (t + gridDim.x < n_tiles) end_rows(t + gridDim.x, x_of(parity ^ 1));
+
+    float e1[2][8][4];
+    product<2, 8, kWN>(pipe, X, ldx, kp, e1);
+    for_pairs<2, 8, kWN>(e1, [&](int, int c, float& v0, float& v1) {
+      const float2 b = ldg2(p.b1 + c);
+      v0 += b.x;
+      v1 += b.y;
+    });
+    ief(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.tail, OFF, p.n_iter);
+
+    if (threadIdx.x < valid)
+      p.out[row0 + threadIdx.x] = squash(OFF[threadIdx.x], p.use_sigmoid);
+  }
+  pipe.drain();
+}
+
+int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
+  const tile::Smem lay(p.kp, 0);
+  auto kernel = ief_decode_tc;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (p.n + tile::kM - 1) / tile::kM;
+  const long long blocks = tiles < sms ? tiles : sms;  // one per SM
+  kernel<<<(unsigned)blocks, kThreads, lay.total, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int M>
 int launch(const Params<T>& p, void* stream) {
   const Smem<T> lay(M, p.kp);
@@ -144,7 +243,10 @@ int run(void* const* ptrs, long long n, long long c_end, long long c_rc,
   if (kp % 16 || kp < c_end + c_rc + c_pos) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   if constexpr (sizeof(T) == 2) {
-    return launch<T, 64>(p, stream);
+    if (c_end % 8 || n_iter > (tile::kMaxSegs - 1) / 2 ||
+        tile::Smem((int)kp, 0).total > tile::kMaxSmem)
+      return (int)cudaErrorInvalidValue;
+    return launch_tc(p, stream);
   } else {
     return launch<T, 32>(p, stream);
   }
@@ -163,4 +265,11 @@ extern "C" int idt_ief_decode(void* const* ptrs, long long n, long long c_end,
                                       use_sigmoid, init_offset, stream)
                  : run<float>(ptrs, n, c_end, c_rc, c_pos, kp, n_iter,
                               use_sigmoid, init_offset, stream);
+}
+
+// Dynamic shared memory (bytes) of one block of K4 at this layer-1 width
+// (ops/ray_decode.py::decode_plan mirrors it).
+extern "C" long long idt_ief_decode_smem(long long kp, long long is_bf16) {
+  return is_bf16 ? (long long)idt::tile::Smem((int)kp, 0).total
+                 : (long long)Smem<float>(32, (int)kp).total;
 }

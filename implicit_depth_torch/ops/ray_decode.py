@@ -27,7 +27,9 @@ Each wrapper runs the plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ray_decode_bwd.cu``,
 ``csrc/ief_decode.cu``) for CUDA tensors, counting launches in
 ``<wrapper>.launches``. The ``global`` and dense stage-1 modes decode
-through ``ops/pair_decode.py`` (K6).
+through ``ops/pair_decode.py`` (K6). :func:`decode_plan` mirrors the
+forward kernels' tiles, shared memory and weight schedule on the host
+(``csrc/decode_tile.cuh``); the wrappers refuse widths it says do not fit.
 """
 
 from __future__ import annotations
@@ -245,6 +247,120 @@ def _check_cuda(name, tensors, dtype):
         raise ValueError(f"{name}: compute dtype {dtype} not supported")
 
 
+def _aligned(t):
+    """``t`` at a 16-byte aligned address (the kernels load 16 bytes at a
+    time): a fresh copy where a view starts elsewhere."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# -- the forward decodes' plan (K1/K2, K4): tiles, shared memory, schedule ----
+
+MAX_SMEM = 232448      # dynamic shared memory one block may use (H100)
+TILE_ROWS = 64         # rows of a bf16 tile (decode_tile.cuh kM)
+TILE_PAD = 8           # elements past each shared row's width (kPad)
+SLAB_ELEMS = 9216      # elements of one weight slab (kSlabElems)
+RING = 3               # weight slabs in shared memory (kRing)
+MAX_SEGS = 24          # products of one tile's schedule (kMaxSegs)
+WARPS, WARPS_N = 8, 4  # warps of a block; along N in the 64-row products
+F32_ROWS = 32          # rows of an f32 block (FMA path)
+# the widest layer-1 inputs the wrappers accept: per pair or row (kp), per
+# ray (crp; K1); K1's kp is K3's limit too
+MAX_KP = {"K1": 256, "K4": 384}
+MAX_CRP = 256
+_SEG_BYTES = 24        # sizeof(Seg)
+
+
+def slab_rows(n: int) -> int:
+    """k-rows of one weight slab of a product ``n`` wide (16-row multiple)."""
+    return SLAB_ELEMS // (n + TILE_PAD) // 16 * 16
+
+
+def _regions(sizes):
+    """{name: byte offset} of consecutive regions, each 128-byte aligned,
+    and the total under "total"."""
+    out, o = {}, 0
+    for name, size in sizes:
+        out[name] = o
+        o = _align(o + size, 128)
+    out["total"] = o
+    return out
+
+
+def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
+                is_bf16: bool = True, n: int = 0, sm_count: int = 132) -> dict:
+    """The host-side arithmetic of the forward decodes, as the kernels lay
+    it out: ``kernel`` "K1" (also K2; ``n`` rays of kb = 8 pairs, layer-1
+    widths ``kp`` per pair and ``crp`` per ray) or "K4" (``n`` rows, layer-1
+    width ``kp``).
+
+    bf16 (``csrc/decode_tile.cuh``): a persistent grid of ``blocks`` = one
+    block per SM (at most the number of tiles) walks ``tiles`` tiles of
+    TILE_ROWS rows (8 rays for K1); ``smem`` holds the byte offset of each
+    region of ``tile::Smem`` and ``"total"``; ``schedule`` lists each
+    product of a tile in the order its weights stream through the slab
+    ring: (operand, first column, k, n, slab rows), and ``slabs_per_tile``
+    their number. f32: one block per tile of F32_ROWS rows, the FMA
+    kernels' ``Smem`` (no schedule)."""
+    if kernel not in ("K1", "K4"):
+        raise ValueError(f"decode_plan: kernel {kernel!r}")
+    k1 = kernel == "K1"
+    g1, g2, g3 = _G1, _G2, _G3
+    if is_bf16:
+        ld = lambda w: w + TILE_PAD  # noqa: E731
+        xb = TILE_ROWS * ld(kp) * 2
+        smem = _regions([
+            ("x0", xb), ("x1", xb),
+            ("rf", 16 * ld(crp) * 2 if k1 else 0),
+            ("ray", 8 * 2 * g1 * 4 if k1 else 0),
+            ("h", TILE_ROWS * ld(g1) * 2), ("h2", TILE_ROWS * ld(g2) * 2),
+            ("ring", RING * SLAB_ELEMS * 2), ("off", TILE_ROWS * 4),
+            ("logit", TILE_ROWS * 4), ("l4", WARPS_N * TILE_ROWS * 4),
+            ("segs", MAX_SEGS * _SEG_BYTES)])
+        tail = [("w2", 0, g1, g2), ("w3", 0, g2, g3)]
+        if k1:
+            sched = [("ray_w1", 0, crp, 2 * g1), ("pair_w1", g1, kp, g1),
+                     *((f"prob_{w}", c, k, nn) for w, c, k, nn in tail),
+                     ("pair_w1", 0, kp, g1),
+                     *((f"off_{w}", c, k, nn) for _ in range(n_iter)
+                       for w, c, k, nn in tail)]
+        else:
+            sched = [("w1", 0, kp, g1),
+                     *(s for _ in range(n_iter) for s in tail)]
+        sched = [(op, c, k, nn, slab_rows(nn)) for op, c, k, nn in sched]
+        rows = TILE_ROWS
+        tiles = -(-n // (rows // 8 if k1 else rows))
+        return {"rows_per_tile": rows, "tiles": tiles,
+                "blocks": min(tiles, sm_count), "smem": smem,
+                "schedule": sched,
+                "slabs_per_tile": sum(-(-k // s) for _, _, k, _, s in sched)}
+    m = F32_ROWS
+    x = m * max(kp, g2 + g3) * 4
+    if k1:
+        smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
+                         ("h", m * g1 * 4), ("ray", (m // 8) * 2 * g1 * 4),
+                         ("off", m * 4), ("logit", m * 4)])
+    else:
+        smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g2 * 4),
+                         ("h", m * g1 * 4), ("off", m * 4)])
+    tiles = -(-n // (m // 8 if k1 else m))
+    return {"rows_per_tile": m, "tiles": tiles, "blocks": tiles,
+            "smem": smem, "schedule": [], "slabs_per_tile": 0}
+
+
+def _check_plan(name, kernel, kp, crp, n_iter, is_bf16, n):
+    """Raises unless the kernel takes these widths; returns the plan."""
+    plan = decode_plan(kernel, kp, crp, n_iter, is_bf16, n)
+    if kp > MAX_KP[kernel] or crp > MAX_CRP \
+            or plan["smem"]["total"] > MAX_SMEM \
+            or len(plan["schedule"]) > MAX_SEGS:
+        raise ValueError(f"{name}: widths kp={kp}, crp={crp} or n_iter="
+                         f"{n_iter} do not fit the kernel (at most "
+                         f"{MAX_KP[kernel]}, {MAX_CRP}; {MAX_SEGS} products a "
+                         f"tile; {plan['smem']['total']} bytes of shared "
+                         "memory)")
+    return plan
+
+
 def _decode_operands(name, vox_table, cells, pos, ray_feat, w):
     """Checks the K1/K2/K3 operands; returns them contiguous in the kernels'
     types."""
@@ -260,9 +376,9 @@ def _decode_operands(name, vox_table, cells, pos, ray_feat, w):
     if vox_table.shape[1] != c_vox or ray_feat.shape != (n, c_ray) \
             or pos.shape != (n, kb, 6):
         raise ValueError(f"{name}: operand shapes do not match the weights")
-    return (vox_table.to(dtype).contiguous(),
+    return (_aligned(vox_table.to(dtype).contiguous()),
             cells.to(torch.int32).contiguous(), pos.float().contiguous(),
-            ray_feat.to(dtype).contiguous())
+            _aligned(ray_feat.to(dtype).contiguous()))
 
 
 def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
@@ -274,6 +390,12 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
+    kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
+    is_bf16 = dtype == torch.bfloat16
+    if is_bf16 and c_vox % 8:
+        raise ValueError(f"{name} kernel takes c_vox a multiple of 8 in "
+                         f"bf16 (got {c_vox})")
+    _check_plan(name, "K1", kp, crp, n_iter, is_bf16, n)
     off = torch.empty((n, kb), dtype=torch.float32, device=cells.device)
     logit = torch.empty_like(off)
     outs = [off, logit]
@@ -285,10 +407,9 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
                            *(w[k] for k in _K1_WEIGHTS), *outs])
     fn = cuda.bind("ray_decode", f"idt_{name}", cuda.PTR, *[cuda.I64] * 9,
                    cuda.F32)
-    cuda.check(fn(ptrs, n, c_vox, c_ray, multires, w["pair_w1"].shape[0],
-                  w["ray_w1"].shape[0], n_iter, int(dtype == torch.bfloat16),
-                  int(use_sigmoid), init_offset, cuda.stream_ptr(cells.device)),
-               name)
+    cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp, n_iter,
+                  int(is_bf16), int(use_sigmoid), init_offset,
+                  cuda.stream_ptr(cells.device)), name)
     return (off, logit, tuple(outs[2:])) if saves else (off, logit)
 
 
@@ -750,7 +871,12 @@ def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
     if end_rows.shape != (n, c_end) or rc_rows.shape != (n, c_rc) \
             or pos_rows.shape != (n, c_pos):
         raise ValueError("ief_decode: operand shapes do not match the weights")
-    end_rows, rc_rows, pos_rows = (t.to(dtype).contiguous()
+    is_bf16 = dtype == torch.bfloat16
+    if is_bf16 and c_end % 8:
+        raise ValueError(f"ief_decode kernel takes c_end a multiple of 8 in "
+                         f"bf16 (got {c_end})")
+    _check_plan("ief_decode", "K4", w["w1"].shape[0], 0, n_iter, is_bf16, n)
+    end_rows, rc_rows, pos_rows = (_aligned(t.to(dtype).contiguous())
                                    for t in (end_rows, rc_rows, pos_rows))
     out = torch.empty((n,), dtype=torch.float32, device=end_rows.device)
     ptrs = cuda.ptr_array([end_rows, rc_rows, pos_rows,
@@ -758,7 +884,7 @@ def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
     fn = cuda.bind("ief_decode", "idt_ief_decode", cuda.PTR, *[cuda.I64] * 8,
                    cuda.F32)
     cuda.check(fn(ptrs, n, c_end, c_rc, c_pos, w["w1"].shape[0], n_iter,
-                  int(dtype == torch.bfloat16), int(use_sigmoid), init_offset,
+                  int(is_bf16), int(use_sigmoid), init_offset,
                   cuda.stream_ptr(end_rows.device)), "ief_decode")
     return out
 

@@ -7,6 +7,8 @@ none; there, skip the JAX-importing conftest:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from implicit_depth_torch.builder import (
 )
 from implicit_depth_torch.config import load_config
 from implicit_depth_torch.infer import DepthCompleter
+from implicit_depth_torch.ops import cuda
 from implicit_depth_torch.ops import pair_decode as pd
 from implicit_depth_torch.ops import ray_decode as rd
 from implicit_depth_torch.ops import segment
@@ -212,6 +215,86 @@ def test_ray_decode_save_kernel_matches_plain(dev, dtype):
     for got, want in zip(saves, ref[2]):
         assert got.dtype == DTYPES[dtype]
         _close(got, want, ATOL[dtype])
+
+
+def _ief_case(rng, dev, dtype, n):
+    c_end, c_rc, c_pos, c_dir = 128, 155, 51, 27
+    w = {"enc_w": rng.normal(size=(1, 16)), "enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp_weights(rng, "", c_end + c_rc + c_pos + 16, 256, w)
+    pw = rd.prep_ief_weights({k: _t(v, dev) for k, v in w.items()}, c_end,
+                             c_rc, c_pos, c_dir, DTYPES[dtype])
+    return tuple(_t(rng.normal(size=(n, c)), dev, DTYPES[dtype])
+                 for c in (c_end, c_rc, c_pos)), pw
+
+
+def _save_close(got, want, dtype):
+    """K2's saves against the plain version's within an ulp of the largest
+    value (chip_smoke's TRAIN_TOL): a save is an f32 sum of many terms
+    rounded to the compute type, and summing in another order moves it by
+    an ulp of its summands, which near a cancellation is many ulps of the
+    value itself. bf16: 2^-7 of the largest value; f32: 1e-5."""
+    g, r = got.float(), want.float()
+    assert got.dtype == DTYPES[dtype] and g.shape == r.shape
+    assert torch.isfinite(g).all()
+    if g.numel():
+        ulp = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+        assert (g - r).abs().max() <= ulp * r.abs().max()
+
+
+# rays of K1/K2 (K4 decodes 8 times as many rows): a ragged last tile (tiles
+# of 8 rays / 64 rows in bf16, 4 / 32 in f32); less than one tile; none; and
+# more tiles than one round of the persistent bf16 grid (one block per SM)
+EDGE_SIZES = {"ragged": 100, "under one tile": 3, "none": 0,
+              "persistent": 8 * 132 * 2 + 5}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", list(EDGE_SIZES))
+def test_forward_decodes_at_edge_sizes(dev, dtype, size):
+    """K1, K2 and K4 against their plain versions; the forward has no
+    atomics, so two launches give the same bits, and K2's outputs are K1's
+    bits."""
+    n = EDGE_SIZES[size]
+    if size == "persistent":  # each block walks more than one tile
+        for kernel, rows in (("K1", n), ("K4", 8 * n)):
+            plan = rd.decode_plan(kernel, 240, 160, n=rows,
+                                  sm_count=cuda.sm_count(dev))
+            assert plan["tiles"] > plan["blocks"]
+    rng = np.random.default_rng(23)
+    w32, args, _ = _decode_case(rng, dev, dtype, n=n)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    k1, again = rd.ray_decode(*args, w), rd.ray_decode(*args, w)
+    off, logit, saves = rd.ray_decode_save(*args, w)
+    saves_again = rd.ray_decode_save(*args, w)[2]
+    ref = rd.ray_decode_plain(*args, w, saves=True)
+    torch.cuda.synchronize()
+    for a, b in zip((*k1, *saves), (*again, *saves_again)):
+        assert torch.equal(a, b)
+    assert torch.equal(off, k1[0]) and torch.equal(logit, k1[1])
+    assert off.shape == (n, 8)
+    _close(k1, ref[:2], ATOL[dtype])
+    for got, want in zip(saves, ref[2]):
+        _save_close(got, want, dtype)
+    rows, pw = _ief_case(rng, dev, dtype, 8 * n)
+    got = rd.ief_decode(*rows, pw)
+    assert torch.equal(got, rd.ief_decode(*rows, pw)) and got.shape == (8 * n,)
+    _close(got, rd.ief_decode_plain(*rows, pw), ATOL[dtype])
+
+
+def test_decode_plan_is_the_kernels_layout(dev):
+    """ops/ray_decode.py::decode_plan's shared memory is the kernels' own
+    (each C library reports its layout's size)."""
+    k1 = cuda.library("ray_decode").idt_ray_decode_smem
+    k4 = cuda.library("ief_decode").idt_ief_decode_smem
+    k1.argtypes, k4.argtypes = [cuda.I64] * 3, [cuda.I64] * 2
+    k1.restype = k4.restype = ctypes.c_longlong
+    for bf16 in (True, False):
+        for kp, crp in ((240, 160), (256, 256), (32, 16)):
+            assert k1(kp, crp, bf16) == rd.decode_plan(
+                "K1", kp, crp, is_bf16=bf16)["smem"]["total"]
+        for kp in (336, 384, 16):
+            assert k4(kp, bf16) == rd.decode_plan(
+                "K4", kp, is_bf16=bf16)["smem"]["total"]
 
 
 def _rel_norm(a, b):
