@@ -2,13 +2,15 @@
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
 version at the shapes of its main path, serves synthetic frames through the
 port's two-stage ``DepthCompleter`` (in the default per_ray decode mode and
-in the ``global`` and dense modes) and trains stage 1 for a few steps (with
-``decode_bwd`` ``kernel_save`` and ``kernel``), all at the full default
-width, and cross-checks frames and a train step against the plain CPU path.
+in the ``global`` and dense modes) and trains stage 1 for a few steps (in
+every ``decode_bwd`` mode: ``kernel_save``, ``kernel``, ``kernel_save_all``
+and ``xla``), all at the full default width, and cross-checks frames and a
+train step against the plain CPU path.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
-                                      # and of a train step
+                                      # and of a train step in each
+                                      # decode_bwd mode, with its device time
 
 Phases:
   1. device: a CUDA device must be present; prints name and power limit;
@@ -55,7 +57,20 @@ Phases:
      the recorded inputs, in bf16 and f32, K1 against ``ray_decode_plain``
      at K2's output tolerances and K3's recompute instance against
      ``ray_decode_bwd_plain(saved=None)`` at K3's, with times, passes and
-     bounds; the step medians of both ``decode_bwd`` modes of this run.
+     bounds;
+ 11. training with ``decode_bwd: kernel_save_all``: TRAIN_STEPS Adam steps
+     (launch counters from 0: K2 'all' 1, K3 1, K1 0, K2 0, K5 2 per step);
+     on the recorded inputs, in bf16 and f32, K2 'all' against
+     ``ray_decode_plain(saves='all')`` (outputs, the f32 offsets and logit
+     at K2's output tolerances, every other save within an ulp of its
+     largest value, the first offset exact) and K3 from full saves against
+     ``ray_decode_bwd_plain(saved=<those saves>)`` at K3's, with times,
+     passes, scratch and bounds;
+ 12. training with ``decode_bwd: xla``: TRAIN_STEPS Adam steps (launch
+     counters from 0: K1 1, K2 0, K2 'all' 0, K3 0, K5 2 per step; the
+     backward is autograd through the plain decode, as the JAX package's
+     'xla' mode is XLA autograd); the step medians of all four
+     ``decode_bwd`` modes of this run.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -128,6 +143,14 @@ EXPECT_PER_STEP = {"ray_decode_save": 1, "ray_decode_bwd": 1,
 # decode_bwd 'kernel': K1's save-free forward, K3 recomputing layer 1
 EXPECT_PER_STEP_KERNEL = {"ray_decode": 1, "ray_decode_save": 0,
                           "ray_decode_bwd": 1, "segment_max0": 2}
+# decode_bwd 'kernel_save_all': K2 'all', K3 from its full saves
+EXPECT_PER_STEP_SAVE_ALL = {"ray_decode_save_all": 1, "ray_decode_bwd": 1,
+                            "ray_decode": 0, "ray_decode_save": 0,
+                            "segment_max0": 2}
+# decode_bwd 'xla': K1, then autograd through the plain decode (no K3)
+EXPECT_PER_STEP_XLA = {"ray_decode": 1, "ray_decode_save": 0,
+                       "ray_decode_save_all": 0, "ray_decode_bwd": 0,
+                       "segment_max0": 2}
 # the training kernels against their plain versions. K2's outputs: f32
 # 1e-5 as K1's; bf16 1e-3 (2.5x the 4e-4 measured on an H100 at these
 # shapes: the training model's decoder outputs spread less than the served
@@ -145,7 +168,9 @@ TRAIN_TOL = {("ray_decode_save_out", torch.float32): 1e-5,
              ("ray_decode_bwd", torch.float32): 1e-4,
              ("ray_decode_bwd", torch.bfloat16): 2e-2,
              ("ray_decode_bwd_recompute", torch.float32): 1e-4,
-             ("ray_decode_bwd_recompute", torch.bfloat16): 2e-2}
+             ("ray_decode_bwd_recompute", torch.bfloat16): 2e-2,
+             ("ray_decode_bwd_all", torch.float32): 1e-4,
+             ("ray_decode_bwd_all", torch.bfloat16): 2e-2}
 # train-step cross-check (f32, card vs CPU, same weights and draws, the
 # curriculum's labelled slot so that no near-tie picks another slot), per
 # seed: the largest relative difference of a loss, and of a parameter's
@@ -171,6 +196,14 @@ SOURCES = {"ray_decode": ("implicit_depth_torch/csrc/ray_decode.cu",
            "ray_decode_bwd": ("implicit_depth_torch/csrc/ray_decode_bwd.cu",
                               "implicit_depth_tpu/ops/pallas_ray_decode.py:931"),
            "ray_decode_bwd_recompute": (
+               "implicit_depth_torch/csrc/ray_decode_bwd.cu",
+               "implicit_depth_tpu/ops/pallas_ray_decode.py:931"),
+           # fused_ray_decode_table's forward rule with save_mode='all'
+           # (_table_fwd), and _fused_bwd_impl's save_mode == "all" branch
+           "ray_decode_save_all": (
+               "implicit_depth_torch/csrc/ray_decode.cu",
+               "implicit_depth_tpu/ops/pallas_ray_decode.py:650"),
+           "ray_decode_bwd_all": (
                "implicit_depth_torch/csrc/ray_decode_bwd.cu",
                "implicit_depth_tpu/ops/pallas_ray_decode.py:931"),
            "pair_decode": ("implicit_depth_torch/csrc/pair_decode.cu",
@@ -241,11 +274,11 @@ def rel_norm(got, ref, floor=0.0):
     return ((got - ref).norm() / ref.norm().clamp(min=max(floor, 1e-30))).item()
 
 
-def bound(name, a, dt):
-    """(bound_ms, bound_by, flops, bytes) of one call on these inputs: each
-    input read once, each output written once, the operations at the peak
-    rate of the units that do them."""
-    if name in ("ray_decode", "ray_decode_save"):
+def bound(name, a, dt, n_iter=2):
+    """(bound_ms, bound_by, flops, bytes) of one call on these inputs (and
+    ``n_iter`` IEF iterations): each input read once, each output written
+    once, the operations at the peak rate of the units that do them."""
+    if name in ("ray_decode", "ray_decode_save", "ray_decode_save_all"):
         vt, cells, pos, rf, w = a
         n, kb = cells.shape
         c_vox, c_ray, multires = w["dims"]
@@ -257,8 +290,13 @@ def bound(name, a, dt):
         flops = 2 * (n * kb * ((c_vox + 6 + 12 * multires) * 2 * g1 + 3 * tail)
                      + n * c_ray * 2 * g1)
         byt = nbytes(vt, cells, pos, rf, *w.values()) + 2 * n * kb * 4
-        if name == "ray_decode_save":  # e1, z1p, trig written
+        if name != "ray_decode":  # e1, z1p, trig written
             byt += n * kb * (2 * g1 + 12 * multires) * vt.element_size()
+        if name == "ray_decode_save_all":
+            # and per IEF iteration and the probability decoder h2, h3; the
+            # offsets entering each iteration, the final one, the logit (f32)
+            byt += n * kb * ((n_iter + 1) * (g2 + g3) * vt.element_size()
+                             + (n_iter + 2) * 4)
         peak = PEAK_TC[dt]
     elif name == "pair_decode":
         vt, cells, pos, rf, w, rays = a
@@ -271,7 +309,8 @@ def bound(name, a, dt):
         flops = 2 * p * (c_embed * 2 * 256 + 3 * tail)
         byt = nbytes(vt, cells, pos, rf, rays, *w.values()) + 2 * p * 4
         peak = PEAK_TC[dt]
-    elif name in ("ray_decode_bwd", "ray_decode_bwd_recompute"):
+    elif name in ("ray_decode_bwd", "ray_decode_bwd_recompute",
+                  "ray_decode_bwd_all"):
         vt, cells, pos, rf, w, saved, g_off, g_logit = a
         n, kb = cells.shape
         c_vox, c_ray, multires = w["dims"]
@@ -286,6 +325,8 @@ def bound(name, a, dt):
         flops = 2 * (n * kb * (3 * tail + 3 * 2 * tail + c_pair * 2 * g1
                                + c_vox * 2 * g1)
                      + n * c_ray * 2 * g1 * 2)
+        if name == "ray_decode_bwd_all":  # from full saves: no forward tail
+            flops -= 2 * n * kb * 3 * tail
         if saved is None:  # recompute: both layer-1 products, per pair and ray
             flops += 2 * (n * kb * c_pair * 2 * g1 + n * c_ray * 2 * g1)
         byt = (nbytes(vt, cells, pos, rf, *w.values(), *(saved or ()), g_off,
@@ -357,6 +398,7 @@ def counters():
     from implicit_depth_torch.ops import ray_decode as rd
     from implicit_depth_torch.ops import segment
     return {"ray_decode": rd.ray_decode, "ray_decode_save": rd.ray_decode_save,
+            "ray_decode_save_all": rd.ray_decode_save_all,
             "ray_decode_bwd": rd.ray_decode_bwd, "ief_decode": rd.ief_decode,
             "segment_max0": segment.segment_max0,
             "pair_decode": pd.pair_decode}
@@ -602,10 +644,13 @@ def train_batches(n, cfg, batch, dev, seed=SEED):
 
 def train_kernel_modules(decode_bwd="kernel_save"):
     """(module, attribute) of each kernel wrapper as a train step calls it:
-    the forward K2 (``kernel_save``) or K1 (``kernel``), K3, K5."""
+    the forward K2 (``kernel_save``), K2 'all' (``kernel_save_all``) or K1
+    (``kernel``, ``xla``), K3, K5."""
     from implicit_depth_torch.models import pointnet
     from implicit_depth_torch.ops import ray_decode as rd
-    fwd = "ray_decode_save" if decode_bwd == "kernel_save" else "ray_decode"
+    fwd = {"kernel_save": "ray_decode_save",
+           "kernel_save_all": "ray_decode_save_all"}.get(decode_bwd,
+                                                         "ray_decode")
     return {fwd: (rd, fwd), "ray_decode_bwd": (rd, "ray_decode_bwd"),
             "segment_max0": (pointnet, "segment_max0")}
 
@@ -897,7 +942,16 @@ def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP):
                                   ProfilerActivity.CUDA]) as prof:
             step(state, batches[1], gen, 0)
             torch.cuda.synchronize()
-        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+        events = prof.key_averages()
+        log(events.table(sort_by="cuda_time_total", row_limit=30))
+        # the table's "Self CUDA time total": the device operations' own
+        # entries, user annotations left out
+        device_us = sum(ev.self_device_time_total for ev in events
+                        if str(ev.device_type).endswith("CUDA")
+                        and not getattr(ev, "is_user_annotation", False))
+        log(f"training (decode_bwd {decode_bwd}): device time of one step "
+            f"{device_us / 1e3:.3f} ms (the sum of every device operation's "
+            f"time)")
     return recorded, launches, step_ms
 
 
@@ -1219,22 +1273,11 @@ def train_forward_row(recorded, dev):
                             tols)["ray_decode"]
 
 
-def train_kernel_variant_phase(dev, train_overrides):
+def train_kernel_variant_phase(dev, train_overrides, profile=False):
     """Phase 10: training with ``decode_bwd: kernel``. Returns K1's row at
     the training shapes and K3's recompute row, each with its launches."""
-    from implicit_depth_torch.builder import (
-        build_lidf,
-        build_static,
-        randomize_weights_,
-    )
-    from implicit_depth_torch.config import load_config
-
-    cfg = load_config(overrides={**train_overrides, "tpu": {
-        **train_overrides.get("tpu", {}), "decode_bwd": "kernel"}})
-    gen = torch.Generator().manual_seed(SEED + 1)
-    model = randomize_weights_(build_lidf(cfg, build_static(cfg), gen),
-                               gen).to(dev)
-    recorded, launches, step_ms = train_path(cfg, model, dev,
+    cfg, model = train_mode_model(dev, train_overrides, "kernel")
+    recorded, launches, step_ms = train_path(cfg, model, dev, profile,
                                              expect=EXPECT_PER_STEP_KERNEL)
     del model
     torch.cuda.empty_cache()
@@ -1244,6 +1287,140 @@ def train_kernel_variant_phase(dev, train_overrides):
                       launches["ray_decode_bwd"], TRAIN_STEPS, "step")
     k3["step_ms"] = statistics.median(step_ms)
     return k1, k3
+
+
+def train_mode_model(dev, train_overrides, decode_bwd):
+    """The config and seeded training model of ``train_overrides`` with
+    ``tpu.decode_bwd`` set (the weights of phase 6's model)."""
+    from implicit_depth_torch.builder import (
+        build_lidf,
+        build_static,
+        randomize_weights_,
+    )
+    from implicit_depth_torch.config import load_config
+
+    cfg = load_config(overrides={**train_overrides, "tpu": {
+        **train_overrides.get("tpu", {}), "decode_bwd": decode_bwd}})
+    gen = torch.Generator().manual_seed(SEED + 1)
+    return cfg, randomize_weights_(build_lidf(cfg, build_static(cfg), gen),
+                                   gen).to(dev)
+
+
+@torch.no_grad()
+def save_all_kernel_rows(recorded):
+    """Phase 11's kernel checks on the recorded training inputs, in bf16 (as
+    recorded) and f32: K2 'all' against ``ray_decode_plain(saves='all')``,
+    K3 from its full saves against ``ray_decode_bwd_plain`` from the same
+    saves. Returns both kernels' bf16 rows."""
+    from implicit_depth_torch.ops import ray_decode as rd
+
+    w32 = recorded["f32_operands"]
+    (vt, cells, pos, rf, w_bf), kw2 = recorded["ray_decode_save_all"]
+    a3, kw3 = recorded["ray_decode_bwd"]
+    g_off, g_logit = a3[6], a3[7]
+    names = rd.save_names(kw2["n_iter"], "all")
+    floors = {"off_b4": g_off.abs().sum().item(),
+              "prob_b4": g_logit.abs().sum().item()}
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dtn = str(dt).split(".")[-1]
+        w = w_bf if dt == torch.bfloat16 else w32
+        a2 = (vt.to(dt), cells, pos, rf.to(dt), w)
+        got = rd.ray_decode_save_all(*a2, **kw2)
+        ref = rd.ray_decode_plain(*a2, **kw2, saves="all")
+        torch.cuda.synchronize()
+        # outputs, and the f32 offsets and logit before the squash (the
+        # soft clamp is the identity on (0, 1)), at K2's output tolerance;
+        # the other saves within an ulp of their largest value; the offset
+        # entering the first iteration is init_offset, exactly
+        tol_out = TRAIN_TOL[("ray_decode_save_out", dt)]
+        checks = [("offset", got[0], ref[0], tol_out),
+                  ("logit", got[1], ref[1], tol_out)]
+        for nm, g, r in zip(names, got[2], ref[2]):
+            if nm == "off0":
+                if not torch.equal(g, r):
+                    raise AssertionError(f"ray_decode_save_all {dt}: off0 "
+                                         "is not init_offset")
+                continue
+            f32 = nm.startswith("off") or nm == "logit"
+            checks.append((nm, g, r, tol_out if f32 else
+                           TRAIN_TOL[("ray_decode_save", dt)]
+                           * r.float().abs().max().item()))
+        err2 = row_checks("ray_decode_save_all", dt, checks)
+        saved = got[2]
+        a3 = (*a2, saved, g_off, g_logit)
+        k3 = rd.ray_decode_bwd(*a3, **kw3)
+        p3 = rd.ray_decode_bwd_plain(*a2[:4], w, g_off, g_logit, **kw3,
+                                     dtype=dt, saved=saved)
+        torch.cuda.synchronize()
+        tol3 = TRAIN_TOL[("ray_decode_bwd_all", dt)]
+        _, worst, err3 = bwd_checks("ray_decode_bwd_all", dt, k3, p3, tol3,
+                                    floors)
+        log(f"kernel ray_decode_bwd_all {dtn}: worst relative error "
+            f"{worst[1]:.3g} ({worst[0]}, tol {tol3}), max |diff| there "
+            f"{err3:.3g}")
+        del k3, p3, ref
+        torch.cuda.empty_cache()
+        for name, args, kern, plain, err, extra in (
+                ("ray_decode_save_all", a2,
+                 lambda: rd.ray_decode_save_all(*a2, **kw2),
+                 lambda: rd.ray_decode_plain(*a2, **kw2, saves="all"),
+                 err2, {"save_bytes": sum(t.numel() * t.element_size()
+                                          for t in saved)}),
+                ("ray_decode_bwd_all", a3,
+                 lambda: rd.ray_decode_bwd(*a3, **kw3),
+                 lambda: rd.ray_decode_bwd_plain(
+                     *a2[:4], w, g_off, g_logit, **kw3, dtype=dt,
+                     saved=saved),
+                 err3, {"max_rel_err": worst[1], "worst": worst[0],
+                        "tolerance_rel": tol3})):
+            ms = time_ms(kern, warmup=1, reps=5)
+            plain_ms = time_ms(plain, warmup=1, reps=3)
+            b_ms, b_by, flops, byt = bound(name, args, dt, kw2["n_iter"])
+            if name == "ray_decode_bwd_all":
+                extra = {**extra, "passes": k3_passes(a3, kw3)}
+            log(f"kernel {name} {dtn} {list(cells.shape)}: ms {ms:.4f} "
+                f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            if dt == torch.bfloat16:
+                rows[name] = {"name": name, "dtype": dtn,
+                              "shape": [list(cells.shape)],
+                              "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": None,
+                              "bound_ms": b_ms, "bound_by": b_by,
+                              "flops": flops, "bytes": byt, **extra}
+        del a3, got, saved
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_save_all_phase(dev, train_overrides, profile=False):
+    """Phase 11: training with ``decode_bwd: kernel_save_all``. Returns the
+    rows of K2 'all' and K3 from full saves, each with its launches."""
+    cfg, model = train_mode_model(dev, train_overrides, "kernel_save_all")
+    recorded, launches, step_ms = train_path(cfg, model, dev, profile,
+                                             expect=EXPECT_PER_STEP_SAVE_ALL)
+    del model
+    torch.cuda.empty_cache()
+    rows = save_all_kernel_rows(recorded)
+    add_launches(rows["ray_decode_save_all"],
+                 launches["ray_decode_save_all"], TRAIN_STEPS, "step")
+    add_launches(rows["ray_decode_bwd_all"], launches["ray_decode_bwd"],
+                 TRAIN_STEPS, "step")
+    rows["ray_decode_bwd_all"]["step_ms"] = statistics.median(step_ms)
+    return rows
+
+
+def train_xla_phase(dev, train_overrides, profile=False):
+    """Phase 12: training with ``decode_bwd: xla`` (K1, then autograd of the
+    plain decode). Returns its launches per step and median step_ms."""
+    cfg, model = train_mode_model(dev, train_overrides, "xla")
+    _, launches, step_ms = train_path(cfg, model, dev, profile,
+                                      expect=EXPECT_PER_STEP_XLA)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches_per_step": {k: n // TRAIN_STEPS
+                                  for k, n in launches.items()},
+            "step_ms": statistics.median(step_ms)}
 
 
 def add_launches(row, n, runs, unit):
@@ -1259,7 +1436,7 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "typical_abs", "max_rel_err", "worst", "tolerance_rel",
               "launches_per_frame", "launches_per_step", "train", "modes",
               "kernel_device_ms", "library_device_ms", "device_ops_per_call",
-              "by_shape", "passes", "step_ms")
+              "by_shape", "passes", "step_ms", "save_bytes", "train_xla")
 
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
@@ -1333,10 +1510,16 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     rows["pair_decode"] = pair_modes_phase(dev, overrides, frame_hw)
     # -- stage-1 training with decode_bwd: kernel ------------------------------
     rows["ray_decode"]["train"], rows["ray_decode_bwd_recompute"] = \
-        train_kernel_variant_phase(dev, train_overrides)
+        train_kernel_variant_phase(dev, train_overrides, profile)
+    # -- stage-1 training with decode_bwd: kernel_save_all and xla -----------
+    rows.update(train_save_all_phase(dev, train_overrides, profile))
+    rows["ray_decode"]["train_xla"] = train_xla_phase(dev, train_overrides,
+                                                      profile)
     log(f"step medians in this run: decode_bwd kernel_save "
         f"{rows['ray_decode_bwd']['step_ms']} ms, kernel "
-        f"{rows['ray_decode_bwd_recompute']['step_ms']} ms")
+        f"{rows['ray_decode_bwd_recompute']['step_ms']} ms, kernel_save_all "
+        f"{rows['ray_decode_bwd_all']['step_ms']} ms, xla "
+        f"{rows['ray_decode']['train_xla']['step_ms']} ms")
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
@@ -1351,7 +1534,8 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="print a torch.profiler table of one served frame")
+                    help="print torch.profiler tables of one served frame "
+                    "and of one train step in each decode_bwd mode")
     args = ap.parse_args()
 
     # -- 1. device -------------------------------------------------------------

@@ -237,9 +237,16 @@ __device__ __forceinline__ void for_pairs(float (&acc)[MT][NT][4], F&& f) {
 // activation H (kM x 256, ld_of(256)); H2 (kM x 128) scratch; L4 (kWN x kM
 // f32) the layer-4 partial sums. out[row] = (accumulate ? out[row] : 0) +
 // layer 4, then + b4, as decode_common.cuh::mlp_tail and its callers.
+// kSaveAll (K2 'all'): also the tile's first s_rows rows of h2 and h3 to
+// s_h2 (kG2 a row) and s_h3 (kG3 a row) in device memory: h2 from its
+// shared tile after the next product's barrier, 16 bytes a thread; h3,
+// which never reaches shared memory, from the layer-3 epilogue's registers.
+template <bool kSaveAll = false>
 __device__ __forceinline__ void tail(Pipe& pipe, const bf16* H, bf16* H2,
                                      float* L4, const TailWeights<bf16>& w,
-                                     float* out, bool accumulate) {
+                                     float* out, bool accumulate,
+                                     bf16* s_h2 = nullptr,
+                                     bf16* s_h3 = nullptr, int s_rows = 0) {
   {
     float acc[2][4][4];
     product<2, 4, kWN>(pipe, H, ld_of(kG1), kG1, acc);
@@ -262,17 +269,34 @@ __device__ __forceinline__ void tail(Pipe& pipe, const bf16* H, bf16* H2,
       for (int h = 0; h < 2; ++h) {
         float s = 0.f;
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+        for (int n = 0; n < 2; ++n) {
+          float hv[2];
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int c = c0 + n * 8 + j;
             const float h3 = bf16_round(leaky(acc[m][n][2 * h + j] + __ldg(w.b3 + c)));
+            hv[j] = h3;
             s = fmaf(h3, ldg_f32(w.w4 + c), s);
           }
+          if constexpr (kSaveAll) {
+            const int r = r0 + m * 16 + 8 * h;
+            if (r < s_rows) st_bf16x2(s_h3 + r * kG3 + c0 + n * 8, hv[0], hv[1]);
+          }
+        }
         s += __shfl_xor_sync(0xffffffffu, s, 1);
         s += __shfl_xor_sync(0xffffffffu, s, 2);
         if ((lane & 3) == 0) L4[(warp % kWN) * kM + r0 + m * 16 + 8 * h] = s;
       }
+  }
+  if constexpr (kSaveAll) {
+    // every warp has passed the product's acquire() since the layer-2
+    // epilogue wrote H2, and nothing writes it again before the barrier
+    // below
+    for (int i = threadIdx.x; i < s_rows * (kG2 / 8); i += blockDim.x) {
+      const int r = i / (kG2 / 8), q = i % (kG2 / 8);
+      *reinterpret_cast<uint4*>(s_h2 + r * kG2 + q * 8) =
+          *reinterpret_cast<const uint4*>(H2 + r * ld_of(kG2) + q * 8);
+    }
   }
   __syncthreads();
   if (threadIdx.x < kM) {
@@ -289,20 +313,34 @@ __device__ __forceinline__ void tail(Pipe& pipe, const bf16* H, bf16* H2,
 // layer-1 pre-activation (iteration-invariant): per iteration
 //   h1 = bf16(act(e1 + offset * a_vec + c_vec)) -> H, then the tail into
 //   offset (OFF, f32 in shared memory, initialised by the caller).
+// kSaveAll (K2 'all'): iteration it also stores the offset entering it and
+// its h2, h3 (tail<true>) for the tile's first s_rows rows, at s_off, s_h2,
+// s_h3 (the tile's first row) plus it * s_inst rows.
+template <bool kSaveAll = false>
 __device__ __forceinline__ void ief(Pipe& pipe, float (&e1)[2][8][4], bf16* H,
                                     bf16* H2, float* L4,
                                     const float* __restrict__ a_vec,
                                     const float* __restrict__ c_vec,
                                     const TailWeights<bf16>& w, float* OFF,
-                                    int n_iter) {
+                                    int n_iter, float* s_off = nullptr,
+                                    bf16* s_h2 = nullptr, bf16* s_h3 = nullptr,
+                                    long long s_inst = 0, int s_rows = 0) {
   for (int it = 0; it < n_iter; ++it) {
+    if constexpr (kSaveAll) {  // OFF[t] was last written by thread t
+      if ((int)threadIdx.x < s_rows)
+        s_off[it * s_inst + threadIdx.x] = OFF[threadIdx.x];
+    }
     for_pairs<2, 8, kWN>(e1, [&](int r, int c, float v0, float v1) {
       const float o = OFF[r];
       const float2 a = ldg2(a_vec + c), cv = ldg2(c_vec + c);
       st_bf16x2(H + r * ld_of(kG1) + c, leaky(v0 + o * a.x + cv.x),
                 leaky(v1 + o * a.y + cv.y));
     });
-    tail(pipe, H, H2, L4, w, OFF, /*accumulate=*/true);
+    if constexpr (kSaveAll)
+      tail<true>(pipe, H, H2, L4, w, OFF, /*accumulate=*/true,
+                 s_h2 + it * s_inst * kG2, s_h3 + it * s_inst * kG3, s_rows);
+    else
+      tail(pipe, H, H2, L4, w, OFF, /*accumulate=*/true);
   }
 }
 

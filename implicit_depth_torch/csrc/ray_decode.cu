@@ -1,5 +1,6 @@
 // K1: stage-1 ray-major pair decode (IEF offset + IMNet termination logit).
-// K2: the same kernel instantiated with kSave, the training forward.
+// K2: the same kernel instantiated with kSave, the training forward; K2 'all'
+// with kSaveAll, the training forward of decode_bwd = 'kernel_save_all'.
 //
 // Replaces implicit_depth_tpu/ops/pallas_ray_decode.py::fused_ray_decode
 // (_fused_fwd_impl and its Pallas kernel): for every ray, its kb = 8 nearest
@@ -9,8 +10,15 @@
 // save_mode='l1'): it also writes, rounded to T as the JAX kernel rounds
 // them, e1 (the IEF layer-1 pre-activation before the offset term), z1p (the
 // probability decoder's layer-1 pre-activation) and trig (the sin block),
-// which the backward K3 (ray_decode_bwd.cu) starts from. The outputs of K1
-// and K2 are the same bits: the saves are stores of values K1 computes.
+// which the backward K3 (ray_decode_bwd.cu) starts from. With kSaveAll it
+// replaces _table_fwd's save_mode='all' (_save_layout, _decode_rows): it also
+// writes, per IEF iteration, the offset entering it (f32), h2 and h3, then
+// the final offset, the probability decoder's h2 and h3, and the logit before
+// the squash (f32), so that K3 recomputes no product. The outputs of K1, K2
+// and K2 'all' are the same bits: the saves are stores of values K1
+// computes. K2 'all' writes 1,168 bytes a pair row more than K2 in bf16; h2
+// goes from its shared tile in 16-byte pieces, h3 (never in shared memory)
+// from the layer-3 epilogue's registers, 4 bytes a store.
 //
 // What bounds it on the H100: operations. At serving shapes (76,800 rays x 8
 // slots) it is ~3e11 FLOP against ~0.2 GB of operand bytes, ~0.3 ms at the
@@ -90,11 +98,23 @@ struct Params {
   long long n;
   int c_vox, c_ray, multires, kp, crp, n_iter, use_sigmoid;
   float init_offset;
+  // kSaveAll: instance i < n_iter of a save is IEF iteration i's, instance
+  // n_iter the final offset's and the probability decoder's; instance i of
+  // pair row r at (i * n * kb + r) * width
+  float* save_off;        // (n_iter + 1, n*kb) the offset entering each iteration
+  T* save_h2;             // (n_iter + 1, n*kb, 128)
+  T* save_h3;             // (n_iter + 1, n*kb, 64)
+  float* save_logit;      // (n*kb,) before the squash
 };
 
-template <typename T, int M, bool kSave>
+// which saves an instance writes: none (K1), e1 | z1p | trig (K2), and all
+// (K2 'all')
+enum SaveMode { kNoSave, kSaveL1, kSaveAll };
+
+template <typename T, int M, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_kernel(const Params<T> p) {
+  constexpr bool kSave = kMode != kNoSave;
   constexpr int MR = M / kKb;  // rays per block
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem<T> lay(M, MR, p.kp, p.crp);
@@ -178,8 +198,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
+  // kSaveAll: H2, H3 of the tail that just ran (instance inst), the block's
+  // valid rows
+  const long long rows_all = p.n * kKb;
+  auto save_tail = [&](int inst) {
+    for (int i = threadIdx.x; i < M * kG2; i += blockDim.x) {
+      const int row = i / kG2;
+      if (ray0 + row / kKb < p.n)
+        p.save_h2[(inst * rows_all + ray0 * kKb + row) * kG2 + i % kG2] = H2[i];
+    }
+    for (int i = threadIdx.x; i < M * kG3; i += blockDim.x) {
+      const int row = i / kG3;
+      if (ray0 + row / kKb < p.n)
+        p.save_h3[(inst * rows_all + ray0 * kKb + row) * kG3 + i % kG3] = H3[i];
+    }
+  };
+
   // -- probability decoder layers 2-4 -----------------------------------------
   mlp_tail<T, M>(H, C, H2, H3, p.prob, LOGIT, /*accumulate=*/false);
+  if constexpr (kMode == kSaveAll) save_tail(p.n_iter);
   if (threadIdx.x < M) {
     LOGIT[threadIdx.x] += __ldg(p.prob.b4);
     OFF[threadIdx.x] = p.init_offset;
@@ -187,7 +224,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // -- offset decoder: IEF iterations over the hoisted layer 1 ----------------
-  ief_loop<T, M>(E1, H, C, H2, H3, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
+  if constexpr (kMode == kSaveAll) {
+    // decode_common.cuh::ief_loop, with each iteration's saves
+    const float b4 = __ldg(p.off.b4);
+    for (int it = 0; it < p.n_iter; ++it) {
+      if (threadIdx.x < M && ray0 + threadIdx.x / kKb < p.n)
+        p.save_off[it * rows_all + ray0 * kKb + threadIdx.x] = OFF[threadIdx.x];
+      for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
+        const int c = i % kG1;
+        H[i] = from_f32<T>(leaky(E1[i] + OFF[i / kG1] * __ldg(p.a_vec + c) +
+                                 __ldg(p.c_vec + c)));
+      }
+      __syncthreads();
+      mlp_tail<T, M>(H, C, H2, H3, p.off, OFF, /*accumulate=*/true);
+      save_tail(it);
+      if (threadIdx.x < M) OFF[threadIdx.x] += b4;
+      __syncthreads();
+    }
+  } else {
+    ief_loop<T, M>(E1, H, C, H2, H3, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
+  }
 
   if (threadIdx.x < M) {
     const long long ray = ray0 + threadIdx.x / kKb;
@@ -195,6 +251,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const long long prow = ray * kKb + threadIdx.x % kKb;
       p.out_off[prow] = squash(OFF[threadIdx.x], p.use_sigmoid);
       p.out_logit[prow] = squash(LOGIT[threadIdx.x], p.use_sigmoid);
+      if constexpr (kMode == kSaveAll) {
+        p.save_off[p.n_iter * rows_all + prow] = OFF[threadIdx.x];
+        p.save_logit[prow] = LOGIT[threadIdx.x];
+      }
     }
   }
 }
@@ -222,10 +282,11 @@ __device__ int k1_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
   return n;
 }
 
-template <bool kSave>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
+  constexpr bool kSave = kMode != kNoSave;
   extern __shared__ __align__(128) unsigned char smem[];
   const tile::Smem lay(p.kp, p.crp);
   // X of the even and of the odd tiles (by the block's tile count)
@@ -344,7 +405,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       });
     }
-    tail(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false);
+    // K2 'all': instance n_iter of each save is the probability decoder's
+    [[maybe_unused]] const long long rows_all = p.n * kKb, row0 = ray0 * kKb;
+    if constexpr (kMode == kSaveAll)
+      tail<true>(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false,
+                 p.save_h2 + (p.n_iter * rows_all + row0) * kG2,
+                 p.save_h3 + (p.n_iter * rows_all + row0) * kG3, valid * kKb);
+    else
+      tail(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false);
     // -- offset decoder: E1 = X @ W_off + ray part + b1, kept in registers --
     float e1[2][8][4];
     product<2, 8, kWN>(pipe, X, ldx, kp, e1);
@@ -359,21 +427,30 @@ __global__ void __launch_bounds__(kThreads, 1)
           st_bf16x2(p.save_e1 + (ray0 * kKb + r) * kG1 + c, v0, v1);
       }
     });
-    ief(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
+    if constexpr (kMode == kSaveAll)
+      ief<true>(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter,
+                p.save_off + row0, p.save_h2 + row0 * kG2,
+                p.save_h3 + row0 * kG3, rows_all, valid * kKb);
+    else
+      ief(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
 
     if (threadIdx.x < kM && threadIdx.x / kKb < valid) {
       const long long prow = ray0 * kKb + threadIdx.x;
       p.out_off[prow] = squash(OFF[threadIdx.x], p.use_sigmoid);
       p.out_logit[prow] = squash(LOGIT[threadIdx.x], p.use_sigmoid);
+      if constexpr (kMode == kSaveAll) {  // both written by this thread
+        p.save_off[p.n_iter * rows_all + prow] = OFF[threadIdx.x];
+        p.save_logit[prow] = LOGIT[threadIdx.x];
+      }
     }
   }
   pipe.drain();
 }
 
-template <bool kSave>
+template <int kMode>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
   const tile::Smem lay(p.kp, p.crp);
-  auto kernel = ray_decode_tc<kSave>;
+  auto kernel = ray_decode_tc<kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -387,11 +464,11 @@ int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int M, bool kSave>
+template <typename T, int M, int kMode>
 int launch(const Params<T>& p, void* stream) {
   constexpr int MR = M / kKb;
   const Smem<T> lay(M, MR, p.kp, p.crp);
-  auto kernel = ray_decode_kernel<T, M, kSave>;
+  auto kernel = ray_decode_kernel<T, M, kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -400,7 +477,7 @@ int launch(const Params<T>& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kSave>
+template <typename T, int kMode>
 int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
         long long multires, long long kp, long long crp, long long n_iter,
         long long use_sigmoid, float init_offset, void* stream) {
@@ -426,9 +503,14 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
   }
   p.out_off = (float*)ptrs[21];
   p.out_logit = (float*)ptrs[22];
+  constexpr bool kSave = kMode != kNoSave, kAll = kMode == kSaveAll;
   p.save_e1 = kSave ? (T*)ptrs[23] : nullptr;
   p.save_z1p = kSave ? (T*)ptrs[24] : nullptr;
   p.save_trig = kSave ? (T*)ptrs[25] : nullptr;
+  p.save_off = kAll ? (float*)ptrs[26] : nullptr;
+  p.save_h2 = kAll ? (T*)ptrs[27] : nullptr;
+  p.save_h3 = kAll ? (T*)ptrs[28] : nullptr;
+  p.save_logit = kAll ? (float*)ptrs[29] : nullptr;
   p.n = n;
   p.c_vox = (int)c_vox;
   p.c_ray = (int)c_ray;
@@ -446,9 +528,9 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
         n_iter > (tile::kMaxSegs - 5) / 2 ||
         tile::Smem((int)kp, (int)crp).total > tile::kMaxSmem)
       return (int)cudaErrorInvalidValue;
-    return launch_tc<kSave>(p, stream);
+    return launch_tc<kMode>(p, stream);
   } else {
-    return launch<T, 32, kSave>(p, stream);
+    return launch<T, 32, kMode>(p, stream);
   }
 }
 
@@ -462,11 +544,12 @@ extern "C" int idt_ray_decode(void* const* ptrs, long long n, long long c_vox,
                               long long kp, long long crp, long long n_iter,
                               long long is_bf16, long long use_sigmoid,
                               float init_offset, void* stream) {
-  return is_bf16 ? run<__nv_bfloat16, false>(ptrs, n, c_vox, c_ray, multires,
-                                             kp, crp, n_iter, use_sigmoid,
-                                             init_offset, stream)
-                 : run<float, false>(ptrs, n, c_vox, c_ray, multires, kp, crp,
-                                     n_iter, use_sigmoid, init_offset, stream);
+  return is_bf16 ? run<__nv_bfloat16, kNoSave>(ptrs, n, c_vox, c_ray, multires,
+                                               kp, crp, n_iter, use_sigmoid,
+                                               init_offset, stream)
+                 : run<float, kNoSave>(ptrs, n, c_vox, c_ray, multires, kp,
+                                       crp, n_iter, use_sigmoid, init_offset,
+                                       stream);
 }
 
 // K2: the pointers of idt_ray_decode, then save_e1, save_z1p, save_trig
@@ -477,11 +560,30 @@ extern "C" int idt_ray_decode_save(void* const* ptrs, long long n,
                                    long long crp, long long n_iter,
                                    long long is_bf16, long long use_sigmoid,
                                    float init_offset, void* stream) {
-  return is_bf16 ? run<__nv_bfloat16, true>(ptrs, n, c_vox, c_ray, multires,
-                                            kp, crp, n_iter, use_sigmoid,
-                                            init_offset, stream)
-                 : run<float, true>(ptrs, n, c_vox, c_ray, multires, kp, crp,
-                                    n_iter, use_sigmoid, init_offset, stream);
+  return is_bf16 ? run<__nv_bfloat16, kSaveL1>(ptrs, n, c_vox, c_ray, multires,
+                                               kp, crp, n_iter, use_sigmoid,
+                                               init_offset, stream)
+                 : run<float, kSaveL1>(ptrs, n, c_vox, c_ray, multires, kp,
+                                       crp, n_iter, use_sigmoid, init_offset,
+                                       stream);
+}
+
+// K2 'all': the pointers of idt_ray_decode_save, then save_off (n_iter + 1,
+// n*kb) f32, save_h2 (n_iter + 1, n*kb, 128), save_h3 (n_iter + 1, n*kb, 64),
+// save_logit (n*kb,) f32 (30 device pointers). Returns a cudaError_t.
+extern "C" int idt_ray_decode_save_all(void* const* ptrs, long long n,
+                                       long long c_vox, long long c_ray,
+                                       long long multires, long long kp,
+                                       long long crp, long long n_iter,
+                                       long long is_bf16, long long use_sigmoid,
+                                       float init_offset, void* stream) {
+  return is_bf16 ? run<__nv_bfloat16, kSaveAll>(ptrs, n, c_vox, c_ray,
+                                                multires, kp, crp, n_iter,
+                                                use_sigmoid, init_offset,
+                                                stream)
+                 : run<float, kSaveAll>(ptrs, n, c_vox, c_ray, multires, kp,
+                                        crp, n_iter, use_sigmoid, init_offset,
+                                        stream);
 }
 
 // Dynamic shared memory (bytes) of one block of K1/K2 at these widths
@@ -490,4 +592,11 @@ extern "C" long long idt_ray_decode_smem(long long kp, long long crp,
                                          long long is_bf16) {
   return is_bf16 ? (long long)idt::tile::Smem((int)kp, (int)crp).total
                  : (long long)Smem<float>(32, 32 / kKb, (int)kp, (int)crp).total;
+}
+
+// ... of K2 'all' (its saves take no shared memory of their own: K1's
+// layout; decode_plan "K2all").
+extern "C" long long idt_ray_decode_save_all_smem(long long kp, long long crp,
+                                                  long long is_bf16) {
+  return idt_ray_decode_smem(kp, crp, is_bf16);
 }

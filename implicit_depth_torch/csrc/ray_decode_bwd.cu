@@ -1,9 +1,16 @@
 // K3: fused backward of the stage-1 ray-major decode (both decoders).
 //
 // Replaces implicit_depth_tpu/ops/pallas_ray_decode.py::_fused_bwd_impl (its
-// Pallas kernel, in table mode), in two instances:
-//   * kFromSaves (save_mode='l1', the decode_bwd = 'kernel_save' default):
+// Pallas kernel, in table mode), in three instances (SaveMode):
+//   * kFromL1 (save_mode='l1', the decode_bwd = 'kernel_save' default):
 //     from the saves of K2 (ray_decode.cu: e1, z1p, trig);
+//   * kFromAll (save_mode='all', decode_bwd = 'kernel_save_all'): from the
+//     full saves of K2 'all', which add every h2, h3, the offset entering
+//     each IEF iteration and the pre-squash outputs. It runs no forward
+//     product: h1 = act(e1 + off_i * a_vec + c_vec) is elementwise, h2 and h3
+//     are read back (16-byte loads) into the tiles the backward uses, and
+//     the leaky-ReLU slopes come from their signs, as the JAX kernel's
+//     save_mode == "all" branch does;
 //   * recompute (decode_bwd = 'kernel', after K1's save-free forward): per
 //     tile it computes trig from the positions, the per-ray part of layer 1
 //     and both layer-1 pre-activations from the table rows, pos6, trig and
@@ -25,10 +32,12 @@
 // (ops/ray_decode.py::bwd_plan, which sizes everything below):
 //   * Pass A, a persistent grid (one 512-thread block per SM, ~214 KB of
 //     shared memory) walking tiles of 64 (bf16) or 32 (f32) pair rows: the
-//     row-local recompute and backward. It writes d_ray_feat per ray; adds
-//     d_vox_table with atomics after summing, in row order, the tile's rows
-//     that share a cell (rows of neighbouring rays cross the same voxels),
-//     so the table is not bit-deterministic; sums the small gradients
+//     row-local recompute and backward. It writes d_ray_feat per ray; sums,
+//     in row order, the tile's rows that share a cell (rows of neighbouring
+//     rays cross the same voxels) and adds each cell's sum into the block's
+//     own f32 copy of d_vox_table (a tile's cells are distinct, the block's
+//     tiles follow each other in a fixed order, across the chunks); sums the
+//     small gradients
 //     (biases, a_vec, c_vec, layer 4) per block in shared memory in f32;
 //     and, instead of forming the large weight gradients, writes their T
 //     operands to streams in device memory: X = [vox | pos6 | trig],
@@ -46,8 +55,11 @@
 //     accumulators) or, for f32, into 4 x 8 FMA micro-tiles, and adds its
 //     tile into its own f32 partial; chunks follow each other on the stream.
 //   * A reduction sums each gradient's partials, and the per-block small
-//     sums, in a fixed order into the output: the weight gradients are
-//     bit-identical run to run.
+//     sums, in a fixed order into the output, and one more sums the blocks'
+//     copies of d_vox_table in block order: every gradient is bit-identical
+//     run to run, as the JAX kernel's fixed-order sums are (the table's
+//     copies, 1.5 MB a block at the training shapes, replace atomics whose
+//     order varied).
 //
 // What bounds it on the H100: at the training shapes (640,000 pair rows)
 // ~0.73 TFLOP, 0.74 ms at the bf16 tensor-core peak; the streams add ~3 GB
@@ -100,8 +112,12 @@ constexpr int kStageElems = 2 * kG2 * (64 + 8);
 enum PlanField {
   kChunkRays, kNChunks, kBlocksA, kRowsPerTile, kNInst, kSplitRows, kNJobs,
   kNReds, kStreamOff = 8, kSmallOff = 18, kSmallSize = 29, kSmallBase = 30,
-  kScratchElems = 31, kPartialFloats = 32, kBlocksB = 33, kHeader = 40
+  kScratchElems = 31, kPartialFloats = 32, kBlocksB = 33, kTableOff = 34,
+  kTableStride = 35, kTableElems = 36, kHeader = 40
 };
+// what Pass A starts from: a recompute of layer 1 (decode_bwd = 'kernel'),
+// K2's saves ('kernel_save') or K2 'all''s ('kernel_save_all')
+enum SaveMode { kRecompute, kFromL1, kFromAll };
 constexpr int kJobFields = 12, kRedFields = 9, kMaxJobs = 8, kMaxReds = 24;
 enum Stream { kX, kDeOff, kDeProb, kRf, kDreOff, kDreProb, kH1, kDt2, kH2,
               kDt3, kStreams };
@@ -419,9 +435,10 @@ __device__ __forceinline__ void put(const T* src, int lds, T* dst, int width,
   }
 }
 
-// the converse of put: rows dense rows from global memory (written by this
-// block: plain loads, not __ldg) into shared memory (row stride lds), and
-// zeros in the tile's rows past them, m rows in all
+// the converse of put: rows dense rows from global memory (the streams,
+// written by this block: plain loads, not __ldg; or K2 'all''s saves) into
+// shared memory (row stride lds), and zeros in the tile's rows past them, m
+// rows in all
 template <typename T>
 __device__ __forceinline__ void fetch(const T* src, int width, T* dst,
                                       int lds, int rows, int m) {
@@ -460,9 +477,18 @@ struct BwdParams {
   const T* e1;          // (n*kb, 256) saves of K2 (kFromSaves)
   const T* z1p;         // (n*kb, 256)
   const T* trig;        // (n*kb, 12*multires)
+  // kFromAll: K2 'all''s saves, instance i < n_iter of IEF iteration i,
+  // n_iter of the final offset and the probability decoder; instance i of
+  // pair row r at (i * n * kb + r) * width
+  const float* s_off;   // (n_iter + 1, n*kb)
+  const T* s_h2;        // (n_iter + 1, n*kb, 128)
+  const T* s_h3;        // (n_iter + 1, n*kb, 64)
+  const float* s_logit; // (n*kb,)
+  long long s_inst;     // n*kb
   float* e1_scratch;    // recompute: (gridDim.x, M, 256) f32
   const float* g;       // (n, kb, 2) cotangents [offset | logit]
-  float* d_table;       // (S, c_vox), zeroed by the caller
+  float* table_part;    // (gridDim.x, table_stride) f32 copies of d_vox_table, zeroed
+  long long table_stride;
   float* d_ray;         // (n, c_ray)
   T* stream[kStreams];  // the chunk's operand streams
   long long inst_stride[kStreams];  // elements between tail instances
@@ -630,9 +656,10 @@ __device__ void tail_backward(const T* H1, T* H2, T* H3, float* DOFF,
   }
 }
 
-template <typename T, int M, bool kFromSaves>
+template <typename T, int M, int kMode>
 __global__ void __launch_bounds__(kThreadsA, 1)
     pass_a_kernel(const BwdParams<T> p) {
+  constexpr bool kFromSaves = kMode != kRecompute;
   constexpr int MR = M / kKb;
   // 8-element vectors of an M x 256 tile a thread handles
   constexpr int kTileVecs = M * kG1 / 8 / kThreadsA;
@@ -828,9 +855,21 @@ __global__ void __launch_bounds__(kThreadsA, 1)
       }
     }
     __syncthreads();
-    tail_forward<T, M>(H1, C, H2, H3, S, p.prob, TMP);
-    for (int r = threadIdx.x; r < M; r += blockDim.x)
-      DOFF[r] = dsquash(TMP[r] + __ldg(p.prob.b4), GL[r], p.use_sigmoid);
+    // instance i of a K2 'all' save, at the tile's first row
+    auto saved_at = [&](const auto* base, int inst, int width) {
+      return base + (inst * p.s_inst + grow(0)) * width;
+    };
+    if constexpr (kMode == kFromAll) {
+      fetch(saved_at(p.s_h2, p.n_iter, kG2), kG2, H2, kLd2, rows_ok, M);
+      fetch(saved_at(p.s_h3, p.n_iter, kG3), kG3, H3, kLd3, rows_ok, M);
+      for (int r = threadIdx.x; r < M; r += blockDim.x)
+        DOFF[r] = dsquash(row_ok(r) ? __ldg(p.s_logit + grow(r)) : 0.f, GL[r],
+                          p.use_sigmoid);
+    } else {
+      tail_forward<T, M>(H1, C, H2, H3, S, p.prob, TMP);
+      for (int r = threadIdx.x; r < M; r += blockDim.x)
+        DOFF[r] = dsquash(TMP[r] + __ldg(p.prob.b4), GL[r], p.use_sigmoid);
+    }
     __syncthreads();
     tail_backward<T, M>(H1, H2, H3, DOFF, C, D, S, false, nullptr, AV, p.prob,
                         SM + p.small_off[kSProbB2], SM + p.small_off[kSProbB3],
@@ -839,8 +878,16 @@ __global__ void __launch_bounds__(kThreadsA, 1)
     layer1(1);
 
     // -- IEF offset decoder: the offsets of every iteration, then backward --
-    for (int r = threadIdx.x; r < M; r += blockDim.x) OFF[r] = p.init_offset;
-    auto ief_forward = [&](int it) {  // H1..H3 of iteration it, into TMP
+    if constexpr (kMode == kFromAll) {  // the offsets saved, final included
+      for (int i = threadIdx.x; i < (p.n_iter + 1) * M; i += blockDim.x) {
+        const int it = i / M, r = i % M;
+        OFF[i] = row_ok(r) ? __ldg(saved_at(p.s_off, it, 1) + r) : 0.f;
+      }
+      __syncthreads();
+    } else {
+      for (int r = threadIdx.x; r < M; r += blockDim.x) OFF[r] = p.init_offset;
+    }
+    auto ief_h1 = [&](int it) {  // H1 of iteration it
 #pragma unroll
       for (int u = 0; u < kTileVecs; ++u) {
         const int i = (threadIdx.x + u * kThreadsA) * 8, r = i / kG1,
@@ -862,12 +909,12 @@ __global__ void __launch_bounds__(kThreadsA, 1)
           H1[r * kLd1 + c + j] =
               from_f32<T>(leaky(e[j] + o * AV[c + j] + CV[c + j]));
       }
-      __syncthreads();
-      tail_forward<T, M>(H1, C, H2, H3, S, p.off, TMP);
     };
     const float b4 = __ldg(p.off.b4);
-    for (int it = 0; it < p.n_iter; ++it) {
-      ief_forward(it);
+    for (int it = 0; kMode != kFromAll && it < p.n_iter; ++it) {
+      ief_h1(it);  // then H2, H3 and the tail's output into TMP
+      __syncthreads();
+      tail_forward<T, M>(H1, C, H2, H3, S, p.off, TMP);
       for (int r = threadIdx.x; r < M; r += blockDim.x)
         OFF[(it + 1) * M + r] = (OFF[it * M + r] + TMP[r]) + b4;
       if (it != p.n_iter - 1) {
@@ -884,9 +931,15 @@ __global__ void __launch_bounds__(kThreadsA, 1)
     __syncthreads();
     for (int it = p.n_iter - 1; it >= 0; --it) {
       // the last iteration's H1..H3 are still in place from the loop above;
-      // the others come back from their streams
+      // the others come back from their streams (kFromAll: h1 from e1 and
+      // the saved offset, h2 and h3 from K2 'all''s saves, every iteration)
       const bool last = it == p.n_iter - 1;
-      if (!last) {
+      if constexpr (kMode == kFromAll) {
+        ief_h1(it);
+        fetch(saved_at(p.s_h2, it, kG2), kG2, H2, kLd2, rows_ok, M);
+        fetch(saved_at(p.s_h3, it, kG3), kG3, H3, kLd3, rows_ok, M);
+        __syncthreads();
+      } else if (!last) {
         fetch(inst_at(kH1, 1 + it), kG1, H1, kLd1, rows_ok, M);
         fetch(inst_at(kH2, 1 + it), kG2, H2, kLd2, rows_ok, M);
         fetch(inst_at(kDt3, 1 + it), kG3, H3, kLd3, rows_ok, M);
@@ -896,7 +949,8 @@ __global__ void __launch_bounds__(kThreadsA, 1)
                           OFF + it * M, AV, p.off, SM + p.small_off[kSOffB2],
                           SM + p.small_off[kSOffB3], SM + p.small_off[kSOffW4],
                           SM + p.small_off[kSOffB4], SM + p.small_off[kSAVec],
-                          SM + p.small_off[kSCVec], tail_out(1 + it, last));
+                          SM + p.small_off[kSCVec],
+                          tail_out(1 + it, last || kMode == kFromAll));
     }
     layer1(0);
 
@@ -926,12 +980,16 @@ __global__ void __launch_bounds__(kThreadsA, 1)
       NEXT[r] = next;
     }
     __syncthreads();
+    // each cell's sum into the block's copy of the table: a tile's leaders
+    // hold distinct cells, and the block's earlier tiles wrote before the
+    // __syncthreads at the top of this one (plain loads, not __ldg)
+    float* table = p.table_part + (size_t)blockIdx.x * p.table_stride;
     for (int i = threadIdx.x; i < M * c_vox; i += blockDim.x) {
       const int r = i / c_vox, col = i % c_vox;
       if (!LEAD[r]) continue;
       float s = 0.f;
       for (int q = r; q >= 0; q = NEXT[q]) s += D[q * c_vox + col];
-      atomicAdd(p.d_table + (long long)CELL[r] * c_vox + col, s);
+      table[(long long)CELL[r] * c_vox + col] += s;
     }
     for (int i = threadIdx.x; i < MR * p.c_ray; i += blockDim.x) {
       const int r = i / p.c_ray, col = i % p.c_ray;
@@ -1141,18 +1199,23 @@ int stream_width(int s, int kp, int crp) {
 }
 bool is_per_ray(int s) { return s == kRf || s == kDreOff || s == kDreProb; }
 
-template <typename T, int M, bool kFromSaves>
+template <typename T, int M, int kMode>
 int run_passes(BwdParams<T> p, const long long* plan, long long n,
-               T* scratch, float* partials, float* d_w,
+               T* scratch, float* partials, float* d_w, float* d_table,
                cudaEvent_t const* events, cudaStream_t stream) {
   constexpr int MR = M / kKb;
   const long long chunk = plan[kChunkRays];
   const int n_chunks = (int)plan[kNChunks], blocks_a = (int)plan[kBlocksA];
   const int n_jobs = (int)plan[kNJobs], n_reds = (int)plan[kNReds];
+  const long long table_elems = plan[kTableElems];
   if (plan[kRowsPerTile] != M || plan[kNInst] != p.n_iter + 1 ||
       n_jobs > kMaxJobs || n_reds > kMaxReds || chunk % MR ||
-      chunk * n_chunks < n || blocks_a < 1)
+      chunk * n_chunks < n || blocks_a < 1 ||
+      plan[kTableStride] < table_elems || table_elems % p.c_vox ||
+      table_elems > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  p.table_part = partials + plan[kTableOff];
+  p.table_stride = plan[kTableStride];
   for (int s = 0; s < kStreams; ++s) {
     p.stream[s] = scratch + plan[kStreamOff + s];
     p.inst_stride[s] = (is_per_ray(s) ? chunk : chunk * kKb) *
@@ -1196,7 +1259,7 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
       partials, 0, (size_t)plan[kPartialFloats] * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   const BwdSmem<T, M> lay(p.crp, p.n_iter, p.small_size);
-  auto ka = pass_a_kernel<T, M, kFromSaves>;
+  auto ka = pass_a_kernel<T, M, kMode>;
   err = cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -1220,6 +1283,13 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
     if (err != cudaSuccess) return (int)err;
   }
   reduce_kernel<<<dim3(64, n_reds), kThreads, 0, stream>>>(partials, d_w, rp);
+  // the blocks' copies of d_vox_table, in block order
+  RedParams rt;
+  rt.r[0] = Red{plan[kTableOff], plan[kTableStride], 0, blocks_a, 1,
+                (int)table_elems, (int)table_elems, (int)table_elems};
+  const long long grid = (table_elems + kThreads - 1) / kThreads;
+  reduce_kernel<<<dim3((unsigned)(grid < 1024 ? grid : 1024), 1), kThreads, 0,
+                  stream>>>(partials, d_table, rt);
   mark(1 + 2 * n_chunks);
   return (int)cudaGetLastError();
 }
@@ -1253,12 +1323,17 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   p.z1p = (const T*)ptrs[22];
   p.trig = (const T*)ptrs[23];
   p.g = (const float*)ptrs[24];
-  p.d_table = (float*)ptrs[25];
+  float* d_table = (float*)ptrs[25];
   p.d_ray = (float*)ptrs[26];
   float* d_w = (float*)ptrs[27];
   T* scratch = (T*)ptrs[28];
   float* partials = (float*)ptrs[29];
   p.e1_scratch = (float*)ptrs[30];
+  p.s_off = (const float*)ptrs[31];
+  p.s_h2 = (const T*)ptrs[32];
+  p.s_h3 = (const T*)ptrs[33];
+  p.s_logit = (const float*)ptrs[34];
+  p.s_inst = n * kKb;
   p.c_vox = (int)c_vox;
   p.c_ray = (int)c_ray;
   p.multires = (int)multires;
@@ -1274,15 +1349,22 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   if (n_plan != kHeader + plan[kNJobs] * kJobFields + plan[kNReds] * kRedFields)
     return (int)cudaErrorInvalidValue;
   const bool from_saves = p.e1 != nullptr;
+  const bool from_all = p.s_off != nullptr;
   if (from_saves ? (p.z1p == nullptr || p.trig == nullptr)
-                 : p.e1_scratch == nullptr)
+                 : (p.e1_scratch == nullptr || from_all))
+    return (int)cudaErrorInvalidValue;
+  if (from_all && (p.s_h2 == nullptr || p.s_h3 == nullptr ||
+                   p.s_logit == nullptr))
     return (int)cudaErrorInvalidValue;
   constexpr int M = sizeof(T) == 2 ? 64 : 32;
+  if (from_all)
+    return run_passes<T, M, kFromAll>(p, plan, n, scratch, partials, d_w,
+                                      d_table, events, stream);
   return from_saves
-             ? run_passes<T, M, true>(p, plan, n, scratch, partials, d_w,
-                                      events, stream)
-             : run_passes<T, M, false>(p, plan, n, scratch, partials, d_w,
-                                       events, stream);
+             ? run_passes<T, M, kFromL1>(p, plan, n, scratch, partials, d_w,
+                                         d_table, events, stream)
+             : run_passes<T, M, kRecompute>(p, plan, n, scratch, partials,
+                                            d_w, d_table, events, stream);
 }
 
 }  // namespace
@@ -1290,10 +1372,12 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
 // ptrs: vox_table, cells, pos, ray_feat, pair_w1, ray_w1, b1, a_vec, c_vec,
 // off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4} (as for idt_ray_decode),
 // e1, z1p, trig (K2's saves; all null for the recompute instance), g (n, kb,
-// 2) f32 cotangents, d_table (S, c_vox) f32 zeroed, d_ray (n, c_ray) f32,
-// d_w (the weight gradients, f32, in ops/ray_decode.py::bwd_grad_layout),
-// scratch (the streams, T), partials (f32), e1_scratch (blocks, rows per
-// tile, 256) f32 for the recompute instance (else null): 31 device
+// 2) f32 cotangents, d_table (S, c_vox) f32, d_ray (n, c_ray) f32, d_w (the
+// weight gradients, f32, in ops/ray_decode.py::bwd_grad_layout), scratch
+// (the streams, T), partials (f32), e1_scratch (blocks, rows per tile, 256)
+// f32 for the recompute instance (else null), then K2 'all''s off (n_iter +
+// 1, n*kb) f32, h2 (n_iter + 1, n*kb, 128), h3 (n_iter + 1, n*kb, 64) and
+// logit (n*kb,) f32 for the instance from full saves (else null): 35 device
 // pointers. plan: ops/ray_decode.py::pack_bwd_plan (n_plan int64). events:
 // null, or 2 * n_chunks + 2 CUDA events recorded before the first pass and
 // after each pass, for measurement. Returns a cudaError_t.

@@ -200,6 +200,28 @@ def _ief_loop(e1, w, prefix, n_iter, init_offset, dtype):
     return offset
 
 
+def save_names(n_iter: int, mode: str = "l1") -> tuple:
+    """The names of the training forward's saves, in the order of the JAX
+    package's ``_save_layout``: 'l1' (``decode_bwd: kernel_save``) e1, z1p,
+    trig; 'all' (``kernel_save_all``) also, per IEF iteration i, off{i} (the
+    offset entering it), h2_{i}, h3_{i}, then off_fin, h2p, h3p, logit."""
+    names = ("e1", "z1p", "trig")
+    if mode == "all":
+        for i in range(n_iter):
+            names += (f"off{i}", f"h2_{i}", f"h3_{i}")
+        names += ("off_fin", "h2p", "h3p", "logit")
+    return names
+
+
+def _saved_act(z, saved):
+    """LeakyReLU of ``z`` whose value is the saved activation and whose
+    slope comes from the saved activation's sign, as the JAX kernel's
+    backward from full saves reads it (``dlrelu`` of the saved h)."""
+    h = saved.float()
+    slope = torch.where(h > 0, 1.0, LEAKY)
+    return h + (z * slope - (z * slope).detach())
+
+
 def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
                      init_offset=0.001, use_sigmoid=False, dtype=None,
                      saves=False, from_saves=None):
@@ -208,17 +230,33 @@ def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
     (N, kb) f32 after the squash. ``dtype``: the compute dtype (default:
     that of ``w["pair_w1"]``, which may then hold f32 values).
 
-    ``saves``: also return what the saving forward (K2) writes for the
-    backward (K3), in ``dtype``: e1 (N·kb, 4g), the IEF layer-1
-    pre-activation before the offset term; z1p (N·kb, 4g), the probability
-    decoder's layer-1 pre-activation; trig (N·kb, 12·multires).
-    ``from_saves``: (e1, z1p) whose values replace the computed ones, with
-    the gradient flowing as through the computed ones: the function whose
-    gradient K3 computes, as it starts from K2's (rounded) saves."""
+    ``saves``: also return the tuple of what the saving forward writes for
+    the backward (K3), named by :func:`save_names`: True (K2): e1
+    (N·kb, 4g), the IEF layer-1 pre-activation before the offset term; z1p
+    (N·kb, 4g), the probability decoder's layer-1 pre-activation; trig
+    (N·kb, 12·multires), all in ``dtype``. 'all' (K2 'all'): also each IEF
+    iteration's entering offset (N·kb, 1) f32 and its h2 (N·kb, g2), h3
+    (N·kb, g3) in ``dtype``, the final offset and the logit before the
+    squash (N·kb, 1) f32, and the probability decoder's h2p, h3p.
+    ``from_saves``: either tuple, whose values replace the computed ones
+    with the gradient flowing as through the computed ones: the function
+    whose gradient K3 computes from those saves. e1, z1p, the offsets and
+    the logit pass their gradient straight through; the saved h2 and h3
+    also set the LeakyReLU slopes by their signs (as JAX's backward from
+    full saves does); h1 is recomputed from the saved e1 and offset; trig
+    is recomputed (the same sin block)."""
     dtype = dtype or w["pair_w1"].dtype
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
     g4 = w["b1"].shape[0] // 2
+    sv = {} if from_saves is None else dict(
+        zip(save_names(n_iter, "all"), from_saves))
+
+    def keep(x, name):  # x with the saved value, the gradient through
+        if name not in sv:
+            return x
+        return x + (sv[name].float().reshape(x.shape) - x).detach()
+
     pos6 = pos.reshape(n * kb, 6).float()
     trig = _q(trig_block(pos6, multires), dtype)
     x = torch.cat([_q(vox_table[cells.reshape(-1).long()].float(), dtype),
@@ -226,16 +264,41 @@ def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
     e1 = (_dot(x, w["pair_w1"][:x.shape[1]], dtype)
           + _dot(ray_feat, w["ray_w1"][:c_ray], dtype).repeat_interleave(kb, 0)
           + w["b1"])
-    e1_off, z1p = e1[:, :g4], e1[:, g4:]
-    if from_saves is not None:
-        e1_off, z1p = (x + (sv.float() - x).detach()
-                       for x, sv in zip((e1_off, z1p), from_saves))
-    offset = _ief_loop(e1_off, w, "off_", n_iter, init_offset, dtype)
-    logit = _mlp_tail(_act(z1p), w, "prob_", dtype) + w["prob_b4"]
+    e1_off, z1p = keep(e1[:, :g4], "e1"), keep(e1[:, g4:], "z1p")
+    acts = []
+
+    def act(z, name):
+        return _saved_act(z, sv[name]) if name in sv else _act(z)
+
+    def tail(h1, p, tag):
+        """Layers 2-4 of decoder ``p`` (as :func:`_mlp_tail`), h2 and h3
+        from the saves named by ``tag`` where given."""
+        h2 = act(_dot(h1, w[f"{p}w2"], dtype) + w[f"{p}b2"], f"h2{tag}")
+        h3 = act(_dot(h2, w[f"{p}w3"], dtype) + w[f"{p}b3"], f"h3{tag}")
+        acts.extend((h2, h3))
+        return _dot(h3, w[f"{p}w4"][:, None], dtype)[:, 0]
+
+    offset = torch.full(e1_off.shape[:1], init_offset, dtype=torch.float32,
+                        device=e1_off.device)
+    offs = []
+    for i in range(n_iter):
+        offset = keep(offset, f"off{i}")
+        offs.append(offset)
+        h1 = _act(e1_off + offset[:, None] * w["a_vec"] + w["c_vec"])
+        offset = offset + tail(h1, "off_", f"_{i}") + w["off_b4"]
+    offset = keep(offset, "off_fin")
+    logit = keep(tail(_act(z1p), "prob_", "p") + w["prob_b4"], "logit")
     out = (_squash(offset, use_sigmoid).reshape(n, kb),
            _squash(logit, use_sigmoid).reshape(n, kb))
     if saves:
-        out += ((e1_off.to(dtype), z1p.to(dtype), trig.to(dtype)),)
+        q = lambda t: t.to(dtype)  # noqa: E731
+        col = lambda t: t.float().reshape(-1, 1)  # noqa: E731
+        out_saves = (q(e1_off), q(z1p), q(trig))
+        if saves == "all":
+            for i in range(n_iter):
+                out_saves += (col(offs[i]), q(acts[2 * i]), q(acts[2 * i + 1]))
+            out_saves += (col(offset), q(acts[-2]), q(acts[-1]), col(logit))
+        out += (out_saves,)
     return out
 
 
@@ -265,7 +328,7 @@ WARPS, WARPS_N = 8, 4  # warps of a block; along N in the 64-row products
 F32_ROWS = 32          # rows of an f32 block (FMA path)
 # the widest layer-1 inputs the wrappers accept: per pair or row (kp), per
 # ray (crp; K1); K1's kp is K3's limit too
-MAX_KP = {"K1": 256, "K4": 384}
+MAX_KP = {"K1": 256, "K2all": 256, "K4": 384}
 MAX_CRP = 256
 _SEG_BYTES = 24        # sizeof(Seg)
 
@@ -290,8 +353,9 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
                 is_bf16: bool = True, n: int = 0, sm_count: int = 132) -> dict:
     """The host-side arithmetic of the forward decodes, as the kernels lay
     it out: ``kernel`` "K1" (also K2; ``n`` rays of kb = 8 pairs, layer-1
-    widths ``kp`` per pair and ``crp`` per ray) or "K4" (``n`` rows, layer-1
-    width ``kp``).
+    widths ``kp`` per pair and ``crp`` per ray), "K2all" (K2 'all': K1's
+    layout, its saves go from registers and the shared h2 tile to device
+    memory) or "K4" (``n`` rows, layer-1 width ``kp``).
 
     bf16 (``csrc/decode_tile.cuh``): a persistent grid of ``blocks`` = one
     block per SM (at most the number of tiles) walks ``tiles`` tiles of
@@ -301,9 +365,9 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     ring: (operand, first column, k, n, slab rows), and ``slabs_per_tile``
     their number. f32: one block per tile of F32_ROWS rows, the FMA
     kernels' ``Smem`` (no schedule)."""
-    if kernel not in ("K1", "K4"):
+    if kernel not in ("K1", "K2all", "K4"):
         raise ValueError(f"decode_plan: kernel {kernel!r}")
-    k1 = kernel == "K1"
+    k1 = kernel != "K4"
     g1, g2, g3 = _G1, _G2, _G3
     if is_bf16:
         ld = lambda w: w + TILE_PAD  # noqa: E731
@@ -383,8 +447,11 @@ def _decode_operands(name, vox_table, cells, pos, ray_feat, w):
 
 def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
                      use_sigmoid, saves=False):
-    """K1, or with ``saves`` K2 (K1 that also writes e1, z1p and trig)."""
-    name = "ray_decode_save" if saves else "ray_decode"
+    """K1; with ``saves`` True K2 (K1 that also writes e1, z1p and trig),
+    with ``saves`` 'all' K2 'all' (also every IEF iteration's offset, h2,
+    h3, the probability decoder's, and the pre-squash outputs)."""
+    name = {False: "ray_decode", True: "ray_decode_save",
+            "all": "ray_decode_save_all"}[saves]
     vox_table, cells, pos, ray_feat = _decode_operands(
         name, vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
@@ -395,22 +462,40 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
     if is_bf16 and c_vox % 8:
         raise ValueError(f"{name} kernel takes c_vox a multiple of 8 in "
                          f"bf16 (got {c_vox})")
-    _check_plan(name, "K1", kp, crp, n_iter, is_bf16, n)
-    off = torch.empty((n, kb), dtype=torch.float32, device=cells.device)
+    _check_plan(name, "K2all" if saves == "all" else "K1", kp, crp, n_iter,
+                is_bf16, n)
+    dev = cells.device
+    off = torch.empty((n, kb), dtype=torch.float32, device=dev)
     logit = torch.empty_like(off)
     outs = [off, logit]
     if saves:
         g4 = w["b1"].shape[0] // 2
-        outs += [torch.empty((n * kb, c), dtype=dtype, device=cells.device)
+        outs += [torch.empty((n * kb, c), dtype=dtype, device=dev)
                  for c in (g4, g4, 12 * multires)]
+    if saves == "all":
+        # instance i < n_iter: IEF iteration i; n_iter: the final offset
+        # and the probability decoder's activations
+        rows, inst = n * kb, n_iter + 1
+        outs += [torch.empty((inst, rows, 1), dtype=torch.float32, device=dev),
+                 torch.empty((inst, rows, _G2), dtype=dtype, device=dev),
+                 torch.empty((inst, rows, _G3), dtype=dtype, device=dev),
+                 torch.empty((rows, 1), dtype=torch.float32, device=dev)]
     ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
                            *(w[k] for k in _K1_WEIGHTS), *outs])
     fn = cuda.bind("ray_decode", f"idt_{name}", cuda.PTR, *[cuda.I64] * 9,
                    cuda.F32)
     cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp, n_iter,
                   int(is_bf16), int(use_sigmoid), init_offset,
-                  cuda.stream_ptr(cells.device)), name)
-    return (off, logit, tuple(outs[2:])) if saves else (off, logit)
+                  cuda.stream_ptr(dev)), name)
+    if not saves:
+        return off, logit
+    saved = tuple(outs[2:5])
+    if saves == "all":
+        offs, h2s, h3s, logit_pre = outs[5:]
+        for i in range(n_iter + 1):
+            saved += (offs[i], h2s[i], h3s[i])
+        saved += (logit_pre,)
+    return off, logit, saved
 
 
 _K1_WEIGHTS = ("pair_w1", "ray_w1", "b1", "a_vec", "c_vec",
@@ -455,13 +540,35 @@ def ray_decode_save(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
 
 ray_decode_save.launches = 0
 
+
+def ray_decode_save_all(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
+                        init_offset=0.001, use_sigmoid=False):
+    """The training forward of ``decode_bwd: kernel_save_all``:
+    :func:`ray_decode` plus the full saves of :func:`ray_decode_plain`
+    (``saves='all'``) -> (offset, logit, saves named by
+    :func:`save_names`). Kernel K2 'all' on CUDA, where the saves of each
+    name are slices of one buffer per kind; the plain version on the CPU."""
+    if cells.device.type == "cpu":
+        return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
+                                n_iter=n_iter, init_offset=init_offset,
+                                use_sigmoid=use_sigmoid, saves="all")
+    out = _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter,
+                           init_offset, use_sigmoid, saves="all")
+    ray_decode_save_all.launches += 1
+    return out
+
+
+ray_decode_save_all.launches = 0
+
+
 def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
                          *, n_iter=2, init_offset=0.001, use_sigmoid=False,
                          dtype=None, saved=None):
     """K3's function in plain PyTorch: autograd of :func:`ray_decode_plain`
     at the operands ``w`` (compute ``dtype``) -> (d_vox_table, d_ray_feat,
-    {operand: gradient}), all f32. With ``saved`` (K2's e1, z1p, trig) the
-    decode starts from the saved pre-activations, as K3 does."""
+    {operand: gradient}), all f32. With ``saved`` (K2's e1, z1p, trig, or
+    K2 'all''s full saves, :func:`save_names`) the decode starts from the
+    saved values, as K3 does (``from_saves`` of :func:`ray_decode_plain`)."""
     with torch.enable_grad():
         leaves = {k: w[k].detach().float().requires_grad_()
                   for k in _K1_WEIGHTS}
@@ -471,8 +578,7 @@ def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
         wq.update({k: _q(wq[k], dtype) for k in _ROUNDED_BIASES})
         off, logit = ray_decode_plain(
             vt, cells, pos, rf, wq, n_iter=n_iter, init_offset=init_offset,
-            use_sigmoid=use_sigmoid, dtype=dtype,
-            from_saves=None if saved is None else saved[:2])
+            use_sigmoid=use_sigmoid, dtype=dtype, from_saves=saved)
         grads = torch.autograd.grad((off, logit), [vt, rf, *leaves.values()],
                                     (g_off.float(), g_logit.float()))
     return grads[0], grads[1], dict(zip(leaves, grads[2:]))
@@ -531,8 +637,9 @@ def bwd_grad_layout(kp: int, crp: int) -> Dict[str, tuple]:
 
 def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
              sm_count: int, chunk_rays: int = K3_CHUNK_RAYS,
-             split_rows: int = K3_SPLIT_ROWS) -> dict:
-    """The host-side arithmetic of K3 for ``n`` rays of kb = 8 pairs.
+             split_rows: int = K3_SPLIT_ROWS, table_elems: int = 0) -> dict:
+    """The host-side arithmetic of K3 for ``n`` rays of kb = 8 pairs and a
+    voxel table of ``table_elems`` elements (rows x c_vox).
 
     Pass A walks the rays in ``n_chunks`` chunks of at most
     ``chunk_rays`` rays (equal but for the last), tiles of ``rows_per_tile``
@@ -546,6 +653,10 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
     so that every partial is summed in one order. The reductions ``reds``
     sum the partials, and the per-block sums of the small gradients
     (``small``), in a fixed order into the output (:func:`bwd_grad_layout`).
+    Each Pass A block also adds its tiles' d_vox_table rows into a table of
+    its own (``table_stride`` floats a block from ``table_off``, across the
+    chunks), and a last reduction sums those in block order: d_vox_table is
+    bit-identical run to run, as the weight gradients are.
     """
     if n < 1 or chunk_rays < 1 or split_rows < 1 or n_iter < 1:
         raise ValueError("bwd_plan: empty or invalid sizes")
@@ -600,13 +711,17 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         s_off = _align(s_off + size, 4)
     for r in reds[len(jobs):]:
         r["stride"] = s_off
+    table_off = _align(p_off + blocks_a * s_off)
+    table_stride = _align(table_elems)
     return {"rows_per_tile": m, "chunk_rays": chunk, "n_chunks": n_chunks,
             "tiles_per_chunk": tiles, "blocks_a": blocks_a,
             "n_inst": n_inst, "split_rows": split_rows, "streams": streams,
             "scratch_elems": scratch, "jobs": jobs, "blocks_b": blocks_b,
             "small": small, "small_size": s_off, "small_off": p_off,
-            "partial_floats": p_off + blocks_a * s_off, "reds": reds,
-            "grad_floats": layout["total"][0]}
+            "table_off": table_off, "table_stride": table_stride,
+            "table_elems": table_elems,
+            "partial_floats": table_off + blocks_a * table_stride,
+            "reds": reds, "grad_floats": layout["total"][0]}
 
 
 def bwd_scratch_bytes(plan: dict, elem_bytes: int) -> int:
@@ -622,7 +737,8 @@ def pack_bwd_plan(plan: dict) -> list:
     hdr += [plan["streams"][k][0] for k in K3_STREAMS]
     hdr += [plan["small"][k] for k in K3_SMALL]
     hdr += [plan["small_size"], plan["small_off"], plan["scratch_elems"],
-            plan["partial_floats"], plan["blocks_b"]]
+            plan["partial_floats"], plan["blocks_b"], plan["table_off"],
+            plan["table_stride"], plan["table_elems"]]
     hdr += [0] * (_PLAN_HEADER - len(hdr))
     out = hdr
     for j in plan["jobs"]:
@@ -664,23 +780,72 @@ def ray_decode_bwd_pass_ms(*args, **kw) -> dict:
             "scratch_bytes": holder["scratch_bytes"]}
 
 
+def _stacked(ts):
+    """The equal-shaped contiguous tensors ``ts`` as one (len, ...) tensor:
+    a view where they lie one after another in one buffer (as K2 'all'
+    writes its saves), else a copy."""
+    t0, step = ts[0], ts[0].numel() * ts[0].element_size()
+    if all(t.is_contiguous() and t.shape == t0.shape and t.dtype == t0.dtype
+           and t.untyped_storage().data_ptr()
+           == t0.untyped_storage().data_ptr()
+           and t.data_ptr() == t0.data_ptr() + i * step
+           for i, t in enumerate(ts)):
+        return t0.as_strided((len(ts), *t0.shape),
+                             (t0.numel(), *t0.stride()))
+    return torch.stack([t.contiguous() for t in ts])
+
+
+def _bwd_saves(saved, n, kb, g4, multires, n_iter, dtype, dev):
+    """K3's save operands: (e1, z1p, trig) and, for full saves, the offsets
+    (n_iter + 1, N·kb, 1) f32, h2 (n_iter + 1, N·kb, g2), h3 and the logit
+    (N·kb, 1) f32 (instance n_iter: the final offset and the probability
+    decoder's); None where the instance does not read them."""
+    if saved is None:
+        return (None,) * 7
+    kinds = {len(save_names(n_iter, m)): m for m in ("l1", "all")}
+    if len(saved) not in kinds:
+        raise ValueError("ray_decode_bwd: saves are neither K2's nor K2 "
+                         "'all''s")
+    sv = dict(zip(save_names(n_iter, kinds[len(saved)]), saved))
+    for name, t in sv.items():
+        # the offsets and the logit are f32 columns
+        c, dt = {"e1": (g4, dtype), "z1p": (g4, dtype),
+                 "trig": (12 * multires, dtype), "h2": (_G2, dtype),
+                 "h3": (_G3, dtype)}.get(name[:2] if name[0] == "h" else name,
+                                         (1, torch.float32))
+        if t.shape != (n * kb, c) or t.dtype != dt or t.device != dev:
+            raise ValueError(f"ray_decode_bwd: save {name} does not match "
+                             "the operands")
+    out = tuple(sv[k].contiguous() for k in ("e1", "z1p", "trig"))
+    if len(sv) == 3:
+        return out + (None,) * 4
+    its = range(n_iter)
+    return out + (
+        _stacked([*(sv[f"off{i}"] for i in its), sv["off_fin"]]),
+        _stacked([*(sv[f"h2_{i}"] for i in its), sv["h2p"]]),
+        _stacked([*(sv[f"h3_{i}"] for i in its), sv["h3p"]]),
+        sv["logit"].contiguous())
+
+
 def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
                          g_logit, *, n_iter=2, init_offset=0.001,
                          use_sigmoid=False, events=None):
-    """Kernel K3: gradients of the stage-1 decode, from K2's saves or, with
-    ``saved=None``, recomputing layer 1 (``decode_bwd='kernel'``).
+    """Kernel K3: gradients of the stage-1 decode, from K2's saves, from K2
+    'all''s full saves (``decode_bwd='kernel_save_all'``: no forward
+    product) or, with ``saved=None``, recomputing layer 1
+    (``decode_bwd='kernel'``).
 
     ``w`` are the kernel operands (:func:`cast_ray_decode_operands`);
-    ``saved`` = (e1, z1p, trig) from :func:`ray_decode_save`, or None;
-    g_off, g_logit (N, kb) the cotangents of its outputs. Its plain version
-    is :func:`ray_decode_bwd_plain` with the same ``saved``. Returns
+    ``saved`` = (e1, z1p, trig) from :func:`ray_decode_save`, the full saves
+    from :func:`ray_decode_save_all`, or None; g_off, g_logit (N, kb) the
+    cotangents of its outputs. Its plain version is
+    :func:`ray_decode_bwd_plain` with the same ``saved``. Returns
     (d_vox_table (S, Cv), d_ray_feat (N, Cr), {operand: gradient in the
     operand's shape}), all f32. One C call runs the passes of
     :func:`bwd_plan` chunk by chunk (``events``: a dict that receives the
-    CUDA events it records between them, for measurement); the weight
-    gradients are summed in a fixed order (bit-identical run to run);
-    d_vox_table is summed with atomics (the order of the additions across
-    tiles varies)."""
+    CUDA events it records between them, for measurement); every gradient,
+    d_vox_table too, is summed in a fixed order (bit-identical run to
+    run)."""
     vox_table, cells, pos, ray_feat = _decode_operands(
         "ray_decode_bwd", vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
@@ -688,12 +853,7 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
     c_vox, c_ray, multires = w["dims"]
     g4 = w["b1"].shape[0] // 2
     dev = cells.device
-    saved = (None,) * 3 if saved is None else tuple(
-        t.contiguous() for t in saved)
-    for t, c in zip(saved, (g4, g4, 12 * multires)):
-        if t is not None and (t.shape != (n * kb, c) or t.dtype != dtype
-                              or t.device != dev):
-            raise ValueError("ray_decode_bwd: saves do not match the operands")
+    saves = _bwd_saves(saved, n, kb, g4, multires, n_iter, dtype, dev)
     if c_vox % 32 or c_vox > 256 or w["pair_w1"].shape[0] > 256:
         raise ValueError(f"ray_decode_bwd kernel takes c_vox a multiple of "
                          f"32 up to 256 (got {c_vox})")
@@ -703,11 +863,12 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
     kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
     layout = bwd_grad_layout(kp, crp)
     d_w = torch.empty((layout["total"][0],), dtype=torch.float32, device=dev)
-    d_table = torch.zeros(vox_table.shape, dtype=torch.float32, device=dev)
+    d_table = torch.empty(vox_table.shape, dtype=torch.float32, device=dev)
     d_rf = torch.empty((n, c_ray), dtype=torch.float32, device=dev)
     if n > 0:
         plan = bwd_plan(n, kp, crp, n_iter, dtype == torch.bfloat16,
-                        cuda.sm_count(dev), K3_CHUNK_RAYS, K3_SPLIT_ROWS)
+                        cuda.sm_count(dev), K3_CHUNK_RAYS, K3_SPLIT_ROWS,
+                        vox_table.numel())
         packed = pack_bwd_plan(plan)
         scratch = torch.empty((plan["scratch_elems"],), dtype=dtype,
                               device=dev)
@@ -715,13 +876,13 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
                                dtype=torch.float32, device=dev)
         # the recompute instance keeps each block's f32 e1 tile in a slice
         # of its own
-        e1_scratch = None if saved[0] is not None else torch.empty(
+        e1_scratch = None if saved is not None else torch.empty(
             (plan["blocks_a"], plan["rows_per_tile"], g4),
             dtype=torch.float32, device=dev)
         ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
-                               *(w[k] for k in _K1_WEIGHTS), *saved, g,
+                               *(w[k] for k in _K1_WEIGHTS), *saves[:3], g,
                                d_table, d_rf, d_w, scratch, partials,
-                               e1_scratch])
+                               e1_scratch, *saves[3:]])
         ev = None
         if events is not None:  # measurement: events between the passes
             marks = [torch.cuda.Event(enable_timing=True)
@@ -742,6 +903,7 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
                    "ray_decode_bwd")
     else:
         d_w.zero_()
+        d_table.zero_()
     grads = {k: d_w[o:o + math.prod(shape)].view(shape)
              for k, (o, shape) in layout.items() if k != "total"}
     return d_table, d_rf, grads
@@ -753,9 +915,17 @@ DECODE_BWD_MODES = ("kernel_save", "kernel", "kernel_save_all", "xla")
 
 
 class RayDecodeTrain(torch.autograd.Function):
-    """The training decode on the card. ``decode_bwd='kernel_save'``:
-    forward K2, backward K3 from its saves; ``'kernel'``: forward K1 (no
-    saves), backward K3 recomputing layer 1.
+    """The training decode on the card, by ``decode_bwd``:
+
+    * 'kernel_save': forward K2, backward K3 from its saves;
+    * 'kernel_save_all': forward K2 'all', backward K3 from its full saves
+      (no forward product is recomputed);
+    * 'kernel': forward K1 (no saves), backward K3 recomputing layer 1;
+    * 'xla': forward K1, backward autograd through :func:`ray_decode_plain`
+      (:func:`ray_decode_bwd_plain` with ``saved=None``). This is the
+      counterpart of the JAX package's 'xla' mode, whose backward is XLA
+      autograd of ``xla_ray_decode`` and runs no kernel: the one place on a
+      card path where the plain decode runs, by design, not as a stand-in.
 
     Takes the f32 split operands (:func:`split_ray_decode_weights`) and
     casts them inside, so that their gradients reach the f32 parameters
@@ -772,6 +942,9 @@ class RayDecodeTrain(torch.autograd.Function):
         if decode_bwd == "kernel_save":
             off, logit, saved = ray_decode_save(vox_table, cells, pos,
                                                 ray_feat, w, **kw)
+        elif decode_bwd == "kernel_save_all":
+            off, logit, saved = ray_decode_save_all(vox_table, cells, pos,
+                                                    ray_feat, w, **kw)
         else:
             (off, logit), saved = ray_decode(vox_table, cells, pos, ray_feat,
                                              w, **kw), ()
@@ -783,14 +956,20 @@ class RayDecodeTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_off, g_logit):
-        dtype, dims, n_iter, init_offset, use_sigmoid, _ = ctx.opts
+        dtype, dims, n_iter, init_offset, use_sigmoid, decode_bwd = ctx.opts
         vox_table, cells, pos, ray_feat, *rest = ctx.saved_tensors
         w = dict(zip(_K1_WEIGHTS, rest), dims=dims)
         saved = tuple(rest[len(_K1_WEIGHTS):]) or None
-        d_table, d_rf, d_w = ray_decode_bwd(
-            vox_table, cells, pos, ray_feat, w, saved, g_off,
-            g_logit, n_iter=n_iter, init_offset=init_offset,
-            use_sigmoid=use_sigmoid)
+        kw = dict(n_iter=n_iter, init_offset=init_offset,
+                  use_sigmoid=use_sigmoid)
+        if decode_bwd == "xla":
+            d_table, d_rf, d_w = ray_decode_bwd_plain(
+                vox_table, cells, pos, ray_feat, w, g_off, g_logit,
+                dtype=dtype, **kw)
+        else:
+            d_table, d_rf, d_w = ray_decode_bwd(
+                vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
+                **kw)
         return (None, d_table.to(ctx.in_dtypes[0]), None, None,
                 d_rf.to(ctx.in_dtypes[1]), *(d_w[k] for k in _K1_WEIGHTS))
 
@@ -804,8 +983,7 @@ def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
     (:func:`split_ray_decode_weights`, never the serving cache). CPU tensors
     take plain autograd through :func:`ray_decode_plain` (every
     ``decode_bwd`` mode); CUDA tensors take :class:`RayDecodeTrain`, which
-    implements ``decode_bwd`` 'kernel_save' (K2, K3) and 'kernel' (K1, K3
-    recomputing layer 1)."""
+    implements each of ``DECODE_BWD_MODES``."""
     if decode_bwd not in DECODE_BWD_MODES:
         raise ValueError(f"decode_bwd {decode_bwd!r}")
     if cells.device.type == "cpu":
@@ -813,10 +991,6 @@ def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
         return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
                                 n_iter=n_iter, init_offset=init_offset,
                                 use_sigmoid=use_sigmoid, dtype=dtype)
-    if decode_bwd not in ("kernel_save", "kernel"):
-        raise NotImplementedError(f"decode_bwd={decode_bwd!r} has no CUDA "
-                                  "kernel; 'kernel_save' and 'kernel' are "
-                                  "ported")
     return RayDecodeTrain.apply(
         (dtype, w32["dims"], n_iter, init_offset, use_sigmoid, decode_bwd),
         vox_table, cells, pos, ray_feat, *(w32[k] for k in _K1_WEIGHTS))

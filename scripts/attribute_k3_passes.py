@@ -5,17 +5,18 @@ its costs, on one NVIDIA GPU.
         [--variants "as is,products"] [--baseline DIR]
 
 Records the inputs of K3 from one stage-1 train step (batch 4, 240x320,
-bf16, ``chip_smoke``'s helpers), then times K3 on them, both instances
-(from K2's saves; recomputing layer 1), as built and in measurement builds
-with one cost of Pass A skipped each (outputs wrong, time only):
+bf16, ``chip_smoke``'s helpers), then times K3 on them, every instance
+(from K2's saves; recomputing layer 1; from K2 'all''s full saves, made by
+K2 'all' from the same inputs), as built and in measurement builds with one
+cost of Pass A skipped each (outputs wrong, time only):
 
 * ``stream writes``: Pass A's writes of the weight gradients' operands;
 * ``products``: every product of Pass A (tails, input gradients, d_rows,
   d_ray_feat, the recompute's layer 1);
 * ``serial``: the column sums, the layer-4 weight gradient and the IEF
   offset sums between ``__syncthreads``;
-* ``atomics``: the pre-reduction of the rows that share a cell and the
-  d_vox_table atomics;
+* ``table sums``: the pre-reduction of the rows that share a cell and its
+  adds into the block's copy of d_vox_table;
 * ``staging X``: the [vox | pos6 | trig] tile;
 * ``saved loads``: the loads of K2's e1 and z1p (the saves' instance);
 * all six at once: what is left (the elementwise passes and the
@@ -25,9 +26,11 @@ Each build is its own process (``cuda.CSRC`` pointed at an edited copy of
 the sources), since two builds of one kernel do not share a process; each
 reports Pass A and Pass B from the CUDA events K3's C function records
 between its launches. Writes ``--out`` and prints the share of Pass A each
-skip removes. ``--baseline DIR`` also times K3 as built from the sources
-in ``DIR`` (another version's ``csrc/``, with the same C interface), in a
-process of its own, as the row ``baseline``.
+skip removes. ``--baseline DIR`` also times K3 as another version builds
+and calls it, on the same inputs, as the row ``baseline``: ``DIR`` is the
+root of that version's tree (e.g. a ``git archive`` unpacked under
+``build/``), whose own copy of this script runs in a process of its own
+with that tree's package and sources (its K3 instances only).
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ EDITS = [
      "          load8(p.z1p + grow(r) * kG1 + i % kG1, z);"),
 ]
 VARIANTS = {"as is": 0, "stream writes": 1, "products": 2, "serial": 4,
-            "atomics": 8, "staging X": 16, "saved loads": 32,
+            "table sums": 8, "staging X": 16, "saved loads": 32,
             "all six": 63}
 
 
@@ -106,7 +109,9 @@ def child(csrc: Path, inputs: Path):
         inputs, weights_only=False)
     out = {}
     with torch.no_grad():
-        for inst, sv in (("kernel_save", saved), ("kernel", None)):
+        full = rd.ray_decode_save_all(vt, cells, pos, rf, w, **kw)[2]
+        for inst, sv in (("kernel_save", saved), ("kernel", None),
+                         ("kernel_save_all", full)):
             args = (vt, cells, pos, rf, w, sv, g_off, g_logit)
             ms = cs.time_ms(lambda: rd.ray_decode_bwd(*args, **kw),
                             warmup=1, reps=5)
@@ -167,21 +172,25 @@ def main():
     labels = ["as is", *(v for v in args.variants.split(",")
                          if v in VARIANTS and v != "as is")]
     builds = [(label, variant_dir(work, VARIANTS[label])) for label in labels]
+    script = {label: Path(__file__) for label, _ in builds}
     if args.baseline is not None:
-        base = work / "baseline" / "csrc"
-        if base.exists():
-            shutil.rmtree(base)
-        shutil.copytree(args.baseline, base)
-        builds.append(("baseline", base))
+        root = args.baseline.resolve()
+        builds.append(("baseline", root / "implicit_depth_torch" / "csrc"))
+        script["baseline"] = root / "scripts" / "attribute_k3_passes.py"
     for label, d in builds:
-        res = subprocess.run([sys.executable, __file__, "--child", str(d),
-                              "--inputs", str(inputs)], capture_output=True,
-                             text=True)
+        res = subprocess.run([sys.executable, str(script[label]), "--child",
+                              str(d), "--inputs", str(inputs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"{label}: {res.stdout}\n{res.stderr}")
         rows[label] = json.loads(res.stdout.strip().splitlines()[-1])
         cs.log(f"{label}: {rows[label]}")
-    for inst in ("kernel_save", "kernel"):
+    for inst in rows["as is"]:
+        if "baseline" in rows and inst in rows["baseline"]:
+            b, a = rows["baseline"][inst], rows["as is"][inst]
+            cs.log(f"K3 {inst}: ms {a['ms']:.3f} (baseline {b['ms']:.3f}, "
+                   f"{a['ms'] - b['ms']:+.3f}); reduce_ms "
+                   f"{a['reduce_ms']:.3f} ({b['reduce_ms']:.3f})")
         base = rows["as is"][inst]["pass_a_ms"]
         cs.log(f"K3 {inst}: share of Pass A ({base:.3f} ms) each skip "
                "removes: " + ", ".join(

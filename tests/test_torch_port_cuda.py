@@ -281,17 +281,59 @@ def test_forward_decodes_at_edge_sizes(dev, dtype, size):
     _close(got, rd.ief_decode_plain(*rows, pw), ATOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", list(EDGE_SIZES))
+def test_save_all_decodes_at_edge_sizes(dev, dtype, size):
+    """K2 'all' against ``ray_decode_plain(saves='all')``: its outputs and
+    its l1 saves are K2's bits (the same decode, more stores), two launches
+    give the same bits, the offsets and logit before the squash lie within
+    the outputs' tolerance, the first offset is init_offset exactly, h2 and
+    h3 within an ulp of their largest value."""
+    n = EDGE_SIZES[size]
+    rng = np.random.default_rng(24)
+    w32, args, _ = _decode_case(rng, dev, dtype, n=n)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    before = rd.ray_decode_save_all.launches
+    off, logit, saves = rd.ray_decode_save_all(*args, w)
+    assert rd.ray_decode_save_all.launches == before + 1
+    again = rd.ray_decode_save_all(*args, w)
+    k2 = rd.ray_decode_save(*args, w)
+    ref = rd.ray_decode_plain(*args, w, saves="all")
+    torch.cuda.synchronize()
+    names = rd.save_names(2, "all")
+    assert len(saves) == len(names)
+    for a, b in zip((off, logit, *saves), (again[0], again[1], *again[2])):
+        assert torch.equal(a, b)
+    assert torch.equal(off, k2[0]) and torch.equal(logit, k2[1])
+    for a, b in zip(saves[:3], k2[2]):
+        assert torch.equal(a, b)
+    _close((off, logit), ref[:2], ATOL[dtype])
+    for name, got, want in zip(names, saves, ref[2]):
+        assert got.shape == want.shape, name
+        if name == "off0":
+            assert torch.equal(got, want)
+        elif name.startswith("off") or name == "logit":
+            assert got.dtype == torch.float32
+            _close(got, want, ATOL[dtype])
+        else:
+            _save_close(got, want, dtype)
+
+
 def test_decode_plan_is_the_kernels_layout(dev):
     """ops/ray_decode.py::decode_plan's shared memory is the kernels' own
     (each C library reports its layout's size)."""
     k1 = cuda.library("ray_decode").idt_ray_decode_smem
+    k2all = cuda.library("ray_decode").idt_ray_decode_save_all_smem
     k4 = cuda.library("ief_decode").idt_ief_decode_smem
-    k1.argtypes, k4.argtypes = [cuda.I64] * 3, [cuda.I64] * 2
-    k1.restype = k4.restype = ctypes.c_longlong
+    k1.argtypes = k2all.argtypes = [cuda.I64] * 3
+    k4.argtypes = [cuda.I64] * 2
+    k1.restype = k2all.restype = k4.restype = ctypes.c_longlong
     for bf16 in (True, False):
         for kp, crp in ((240, 160), (256, 256), (32, 16)):
             assert k1(kp, crp, bf16) == rd.decode_plan(
                 "K1", kp, crp, is_bf16=bf16)["smem"]["total"]
+            assert k2all(kp, crp, bf16) == rd.decode_plan(
+                "K2all", kp, crp, is_bf16=bf16)["smem"]["total"]
         for kp in (336, 384, 16):
             assert k4(kp, bf16) == rd.decode_plan(
                 "K4", kp, is_bf16=bf16)["smem"]["total"]
@@ -313,6 +355,29 @@ def _rel_norm(a, b):
 @pytest.mark.parametrize("from_saves", [True, False])  # kernel_save; kernel
 def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n, chunk, split,
                                              from_saves, monkeypatch):
+    _bwd_matches_plain(dev, dtype, n, chunk, split,
+                       "l1" if from_saves else None, monkeypatch)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,chunk,split", [
+    (100, None, None), (1000, None, None), (3, None, None), (100, 24, 40),
+    (203, 64, 1000)])
+def test_ray_decode_bwd_all_kernel_matches_plain(dev, dtype, n, chunk, split,
+                                                 monkeypatch):
+    """K3 from K2 'all''s full saves (``kernel_save_all``), as above."""
+    _bwd_matches_plain(dev, dtype, n, chunk, split, "all", monkeypatch)
+
+
+def _k2_saves(args, w, saves):
+    """K2's (``saves`` 'l1') or K2 'all''s saves of ``args``, or None."""
+    if saves is None:
+        return None
+    fwd = rd.ray_decode_save if saves == "l1" else rd.ray_decode_save_all
+    return fwd(*args, w)[2]
+
+
+def _bwd_matches_plain(dev, dtype, n, chunk, split, saves_of, monkeypatch):
     if chunk is not None:
         monkeypatch.setattr(rd, "K3_CHUNK_RAYS", chunk)
         monkeypatch.setattr(rd, "K3_SPLIT_ROWS", split)
@@ -321,7 +386,7 @@ def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n, chunk, split,
     rng = np.random.default_rng(16)
     w32, args, cot = _decode_case(rng, dev, dtype, n=n)
     w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
-    saves = rd.ray_decode_save(*args, w)[2] if from_saves else None
+    saves = _k2_saves(args, w, saves_of)
     before = rd.ray_decode_bwd.launches
     d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
     assert rd.ray_decode_bwd.launches == before + 1
@@ -343,30 +408,49 @@ def test_ray_decode_bwd_kernel_matches_plain(dev, dtype, n, chunk, split,
         assert torch.equal(again[k], d_w[k]), k
 
 
-def test_ray_decode_train_raises_for_unported_modes(dev):
-    rng = np.random.default_rng(17)
-    w32, args, _ = _decode_case(rng, dev, "float32")
-    for mode in ("kernel_save_all", "xla"):
-        with pytest.raises(NotImplementedError):
-            rd.ray_decode_train(*args, w32, torch.float32, decode_bwd=mode)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("saves_of", ["l1", None, "all"])  # each K3 instance
+def test_ray_decode_bwd_d_vox_table_is_deterministic(dev, dtype, saves_of,
+                                                     monkeypatch):
+    """Three K3 launches on the same inputs give the same d_vox_table bits,
+    as the JAX kernel's fixed-order sums do: 4,000 rays over 30 cells, so
+    that every block's tiles add into the same cells, in three chunks."""
+    monkeypatch.setattr(rd, "K3_CHUNK_RAYS", 1500)
+    monkeypatch.setattr(rd, "K3_SPLIT_ROWS", 1000)
+    rng = np.random.default_rng(18)
+    w32, args, cot = _decode_case(rng, dev, dtype, n=4000)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    saves = _k2_saves(args, w, saves_of)
+    first = rd.ray_decode_bwd(*args, w, saves, *cot)
+    for _ in range(2):
+        again = rd.ray_decode_bwd(*args, w, saves, *cot)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
 
 
-@pytest.mark.parametrize("decode_bwd", ["kernel_save", "kernel"])
+@pytest.mark.parametrize("decode_bwd", ["kernel_save", "kernel",
+                                        "kernel_save_all", "xla"])
 def test_ray_decode_train_launches_its_kernels(dev, decode_bwd):
     """kernel_save: K2 then K3 from its saves; kernel: K1 then K3
-    recomputing layer 1. Both give the plain autograd's gradients."""
+    recomputing layer 1; kernel_save_all: K2 'all' then K3 from its full
+    saves; xla: K1 then autograd through the plain decode (no K3). Each
+    gives the plain autograd's gradients."""
     rng = np.random.default_rng(20)
     w32, args, cot = _decode_case(rng, dev, "float32")
     counts = {f: f.launches for f in (rd.ray_decode, rd.ray_decode_save,
+                                      rd.ray_decode_save_all,
                                       rd.ray_decode_bwd)}
     leaves = [args[0].clone().requires_grad_(), args[3].clone().requires_grad_()]
     off, logit = rd.ray_decode_train(leaves[0], args[1], args[2], leaves[1],
                                      w32, torch.float32,
                                      decode_bwd=decode_bwd)
     torch.autograd.backward((off, logit), cot)
-    fwd = rd.ray_decode_save if decode_bwd == "kernel_save" else rd.ray_decode
+    fwd = {"kernel_save": rd.ray_decode_save,
+           "kernel_save_all": rd.ray_decode_save_all}.get(decode_bwd,
+                                                          rd.ray_decode)
+    bwd = rd.ray_decode_bwd if decode_bwd != "xla" else None
     for f, n in counts.items():
-        assert f.launches == n + (f is fwd or f is rd.ray_decode_bwd), f
+        assert f.launches == n + (f is fwd or f is bwd), f
     ref = rd.ray_decode_bwd_plain(*args, w32, *cot, dtype=torch.float32)
     for g, r in zip((leaves[0].grad, leaves[1].grad), ref[:2]):
         assert _rel_norm(g, r) <= 1e-4

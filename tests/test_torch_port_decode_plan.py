@@ -25,10 +25,11 @@ from implicit_depth_torch.ops import ray_decode as rd
 ROOT = Path(__file__).resolve().parents[1]
 # layer-1 widths of the default models (kp, crp): K1/K2 per pair and per
 # ray; K4 per row
-DEFAULT = {"K1": (240, 160), "K4": (336, 0)}
-WIDEST = {"K1": (rd.MAX_KP["K1"], rd.MAX_CRP), "K4": (rd.MAX_KP["K4"], 0)}
-INSTANCES = [(k, bf16, widths) for k in ("K1", "K4") for bf16 in (True, False)
-             for widths in ("default", "widest")]
+DEFAULT = {"K1": (240, 160), "K2all": (240, 160), "K4": (336, 0)}
+WIDEST = {"K1": (rd.MAX_KP["K1"], rd.MAX_CRP),
+          "K2all": (rd.MAX_KP["K2all"], rd.MAX_CRP), "K4": (rd.MAX_KP["K4"], 0)}
+INSTANCES = [(k, bf16, widths) for k in ("K1", "K4", "K2all")
+             for bf16 in (True, False) for widths in ("default", "widest")]
 
 
 def _widths(kernel, which):
@@ -50,7 +51,7 @@ def test_every_instance_fits_one_block(kernel, bf16, which):
     rd._check_plan("test", kernel, kp, crp, 2, bf16, 1000)  # accepted
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K4"])
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K2all"])
 def test_wrappers_refuse_what_does_not_fit(kernel):
     kp, crp = WIDEST[kernel]
     for bad in ((kp + 16, crp, 2), (kp, crp + 16 if crp else 0, 2),
@@ -60,7 +61,7 @@ def test_wrappers_refuse_what_does_not_fit(kernel):
         with pytest.raises(ValueError):
             rd._check_plan("test", kernel, *bad, True, 1000)
     # the most IEF iterations a schedule holds
-    n_max = (rd.MAX_SEGS - (5 if kernel == "K1" else 1)) // 2
+    n_max = (rd.MAX_SEGS - (1 if kernel == "K4" else 5)) // 2
     assert len(rd.decode_plan(kernel, kp, crp, n_max)["schedule"]) \
         <= rd.MAX_SEGS
 
@@ -188,3 +189,13 @@ def test_attribution_edits_apply_to_the_sources(variant, tmp_path):
                         mod.VARIANTS["staged"][variant])
     text = (d / "decode_tile.cuh").read_text()
     assert text.startswith("#ifndef IDT_SKIP") and "IDT_SKIP &" in text
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_save_all_has_k1s_layout_and_schedule(bf16):
+    """K2 'all' stores its saves from registers and from the shared h2 tile
+    straight to device memory: its block is K1's, region by region, with
+    K1's tiles, grid and weight schedule."""
+    for n in (0, 100, 80000):
+        assert rd.decode_plan("K2all", 240, 160, is_bf16=bf16, n=n) == \
+            rd.decode_plan("K1", 240, 160, is_bf16=bf16, n=n)

@@ -10,7 +10,9 @@ output exactly once. The JAX package has no counterpart of this arithmetic:
 its kernel keeps the weight gradients in VMEM across a sequential grid.
 """
 
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +21,9 @@ import torch
 from implicit_depth_torch.ops import ray_decode as rd
 
 KP, CRP = 240, 160  # the default model's layer-1 operand rows (c_vox 128)
+# d_vox_table at the training shapes: batch 4 of 9^3 cells, c_vox 128
+TABLE = 4 * 729 * 128
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _grad_shapes(kp, crp):
@@ -228,9 +233,10 @@ def test_packed_plan_layout():
     assert packed[:8] == [plan["chunk_rays"], plan["n_chunks"],
                           plan["blocks_a"], 64, 3, 1000, 8, 19]
     assert packed[8:18] == [plan["streams"][k][0] for k in rd.K3_STREAMS]
-    assert packed[29:34] == [plan["small_size"], plan["small_off"],
+    assert packed[29:37] == [plan["small_size"], plan["small_off"],
                              plan["scratch_elems"], plan["partial_floats"],
-                             plan["blocks_b"]]
+                             plan["blocks_b"], plan["table_off"],
+                             plan["table_stride"], plan["table_elems"]]
     j0 = packed[40:52]
     assert j0[:2] == [rd.K3_STREAMS.index("x"), rd.K3_STREAMS.index("de_off")]
 
@@ -251,3 +257,69 @@ def test_ray_decode_bwd_needs_the_card():
                           torch.zeros((2, 8), dtype=torch.int32),
                           torch.zeros((2, 8, 6)), torch.zeros((2, 155)), w,
                           None, torch.zeros((2, 8)), torch.zeros((2, 8)))
+
+
+@pytest.mark.parametrize("n,bf16,blocks", [(100, True, 5), (80000, True, 132),
+                                           (80000, False, 132)])
+def test_table_copies_follow_the_other_partials(n, bf16, blocks):
+    """Each Pass A block's copy of d_vox_table: ``table_stride`` floats (at
+    least the table, 64-float aligned) from ``table_off``, past every job's
+    partials and the small sums, inside ``partial_floats`` (which the C
+    function zeroes before Pass A)."""
+    plan = rd.bwd_plan(n, KP, CRP, 2, bf16, blocks, table_elems=TABLE)
+    assert plan["table_elems"] == TABLE
+    assert plan["table_stride"] >= TABLE and plan["table_stride"] % 64 == 0
+    assert plan["table_off"] % 64 == 0
+    assert plan["table_off"] >= plan["small_off"] + \
+        plan["blocks_a"] * plan["small_size"]
+    assert plan["partial_floats"] == plan["table_off"] + \
+        plan["blocks_a"] * plan["table_stride"]
+
+
+def test_table_copies_cost_a_bounded_scratch():
+    """At the training shapes the copies add blocks x 1.49 MB: ~197 MB on
+    132 SMs, beside ~1.16 GB of streams and partials."""
+    plan = rd.bwd_plan(80000, KP, CRP, 2, True, 132, table_elems=TABLE)
+    base = rd.bwd_plan(80000, KP, CRP, 2, True, 132)
+    extra = rd.bwd_scratch_bytes(plan, 2) - rd.bwd_scratch_bytes(base, 2)
+    assert plan["blocks_a"] == 132
+    assert 132 * TABLE * 4 <= extra < 132 * (TABLE + 64) * 4 + 256
+    assert extra < 0.2e9
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 7])
+def test_table_reduction_sums_the_copies_in_block_order(blocks):
+    """The table's reduction, as the C function builds it from the plan
+    (one Red over ``blocks_a`` copies ``table_stride`` apart), emulated with
+    the emulation of the weight gradients' reductions: it adds every block's
+    copy of every element once, in block order."""
+    rng = np.random.default_rng(1)
+    elems = 37 * 16
+    plan = rd.bwd_plan(200, 48, 32, 2, True, blocks, 16, 24,
+                       table_elems=elems)
+    partials = np.zeros(plan["partial_floats"])
+    copies = rng.integers(-3, 4, (plan["blocks_a"], elems)).astype(float)
+    for b in range(plan["blocks_a"]):
+        at = plan["table_off"] + b * plan["table_stride"]
+        partials[at:at + elems] = copies[b]
+    red = {"src": plan["table_off"], "stride": plan["table_stride"],
+           "dst": 0, "splits": plan["blocks_a"], "k": 1, "n": elems,
+           "ld_src": elems, "ld_dst": elems}
+    out = np.zeros(elems)
+    _reduce({"reds": [red]}, partials, out)
+    np.testing.assert_array_equal(out, copies.sum(0))
+
+
+@pytest.mark.parametrize("variant", ["stream writes", "products", "serial",
+                                     "table sums", "staging X", "saved loads",
+                                     "all six"])
+def test_k3_attribution_edits_apply_to_the_sources(variant, tmp_path):
+    """scripts/attribute_k3_passes.py's measurement builds of today's K3:
+    every anchor it edits is found once in csrc/ray_decode_bwd.cu."""
+    spec = importlib.util.spec_from_file_location(
+        "attribute_k3_passes", ROOT / "scripts" / "attribute_k3_passes.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    d = mod.variant_dir(tmp_path, mod.VARIANTS[variant])
+    text = (d / "ray_decode_bwd.cu").read_text()
+    assert text.startswith(f"#define IDT_SKIP {mod.VARIANTS[variant]}")

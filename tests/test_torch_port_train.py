@@ -334,10 +334,96 @@ def test_ray_decode_save_matches_the_l1_saves(dtype):
         check(N(got), np.asarray(want, np.float32), tol, name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ray_decode_save_all_matches_the_full_saves(dtype):
+    """``decode_bwd: kernel_save_all``'s forward: every save of the plain
+    ``ray_decode_plain(saves='all')`` (through ``ray_decode_save_all`` on
+    the CPU) against the JAX kernel's ``save_mode='all'``, by name, at the
+    tolerances of the l1 saves."""
+    case = _decode_case(28)
+    tdt, jdt = DTYPES[dtype]
+    cells, pos, rf, table = _jax_table_args(case, jdt)
+    joff, jlogit, jsaves = _fused_fwd_impl(
+        None, pos, rf, {k: jnp.asarray(v) for k, v in case["w"].items()}, KB,
+        MULTIRES, 2, 0.001, False, jdt, TILE, True, cell_ids=cells,
+        vox_table=table, tiles_per_image=RAYS_PER_IMG // TILE,
+        save_mode="all", train=True)
+    _, w32 = _port_w32(case, tdt)
+    off, logit, saves = rd.ray_decode_save_all(
+        T(case["table"]).to(tdt), T(case["cells"]), T(case["pos"]),
+        T(case["ray_feat"]).to(tdt),
+        rd.cast_ray_decode_operands(w32, tdt))
+    names = rd.save_names(2, "all")
+    assert len(names) == len(saves) == len(jsaves) == 13
+    check = assert_rel_max if dtype == "float32" else assert_rel_norm
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    check(N(off), joff, tol, "offset")
+    check(N(logit), jlogit, tol, "logit")
+    for name, got, want in zip(names, saves, jsaves):
+        # the offsets and the logit before the squash stay f32
+        f32 = name.startswith("off") or name == "logit"
+        assert got.dtype == (torch.float32 if f32 else tdt), name
+        check(N(got), np.asarray(want, np.float32), tol, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_sigmoid", [False, True])
+def test_ray_decode_bwd_plain_from_full_saves_matches_jax(dtype, use_sigmoid):
+    """``ray_decode_bwd_plain`` from the full saves (K3 'all''s function)
+    against ``jax.vjp`` of ``fused_ray_decode_table(bwd_impl=
+    'kernel_save_all')`` in interpret mode. f32: 1e-4 of each gradient's
+    scale. bf16: the JAX kernel starts from its bf16 saves and rounds each
+    cotangent, so it lies a few percent from JAX's own 'xla' gradient; the
+    port must lie no farther from it than 1.25 times that, plus 1e-2."""
+    case = _decode_case(29)
+    tdt, jdt = DTYPES[dtype]
+    cells, pos, rf, table = _jax_table_args(case, jdt)
+    jw = {k: jnp.asarray(v) for k, v in case["w"].items()}
+
+    def jgrads(bwd_impl):
+        def f(rf_, tb, ws):
+            return fused_ray_decode_table(
+                cells, pos, rf_, tb, ws, KB, RAYS_PER_IMG // TILE, MULTIRES,
+                2, 0.001, use_sigmoid, jdt, TILE, True, bwd_impl)
+        _, vjp = jax.vjp(f, rf, table, jw)
+        d_rf, d_tab, d_w = vjp((jnp.asarray(case["g_off"]),
+                                jnp.asarray(case["g_logit"])))
+        return {"d_table": d_tab, "d_ray_feat": d_rf, **d_w}
+
+    want = jgrads("kernel_save_all")
+    _, w32 = _port_w32(case, tdt)
+    w = rd.cast_ray_decode_operands(w32, tdt)
+    args = (T(case["table"]).to(tdt), T(case["cells"]), T(case["pos"]),
+            T(case["ray_feat"]).to(tdt))
+    kw = dict(use_sigmoid=use_sigmoid)
+    saves = rd.ray_decode_plain(*args, w, **kw, saves="all")[2]
+    d_tab, d_rf, d_split = rd.ray_decode_bwd_plain(
+        *args, w, T(case["g_off"]), T(case["g_logit"]), **kw, dtype=tdt,
+        saved=saves)
+    # the split operands' gradients laid back onto the parameters, as
+    # training does through split_ray_decode_weights
+    wp, w32p = _port_w32(case, tdt, requires_grad=True)
+    torch.autograd.backward([w32p[k] for k in rd._K1_WEIGHTS],
+                            [d_split[k] for k in rd._K1_WEIGHTS])
+    got = {"d_table": N(d_tab), "d_ray_feat": N(d_rf),
+           **{k: N(v.grad) for k, v in wp.items()}}
+    xla = jgrads("xla") if dtype == "bfloat16" else None
+    for k, g in got.items():
+        ref = np.asarray(want[k], np.float32)
+        if dtype == "float32":
+            assert_rel_max(g, ref, 1e-4, k)
+        else:
+            x = np.asarray(xla[k], np.float32)
+            own = np.linalg.norm(x - ref) / max(np.linalg.norm(ref), 1e-12)
+            assert_rel_norm(g, ref, 1.25 * own + 1e-2, k)
+
+
 @pytest.mark.parametrize("dtype,use_sigmoid,bwd_impl", [
     ("float32", False, "kernel_save"), ("float32", True, "kernel_save"),
     ("bfloat16", False, "kernel_save"), ("bfloat16", True, "kernel_save"),
-    ("float32", False, "xla"), ("bfloat16", False, "xla")])
+    ("float32", False, "xla"), ("bfloat16", False, "xla"),
+    ("float32", False, "kernel_save_all"), ("bfloat16", True,
+                                            "kernel_save_all")])
 def test_ray_decode_train_grads_match_jax(dtype, use_sigmoid, bwd_impl):
     case = _decode_case(25)
     tdt, jdt = DTYPES[dtype]
@@ -351,15 +437,16 @@ def test_ray_decode_train_grads_match_jax(dtype, use_sigmoid, bwd_impl):
 
     jw = {k: jnp.asarray(v) for k, v in case["w"].items()}
     jd_rf, jd_tab, jd_w = jax.grad(jloss, argnums=(0, 1, 2))(rf, table, jw)
-    bf16_kernel = dtype == "bfloat16" and bwd_impl == "kernel_save"
+    bf16_kernel = dtype == "bfloat16" and bwd_impl.startswith("kernel_save")
     if bf16_kernel:
-        # the JAX kernel recomputes from its bf16 saves of e1 and z1p: its
+        # the JAX kernel recomputes from its bf16 saves of e1 and z1p (and
+        # with 'kernel_save_all' reads every activation from them): its
         # gradients lie a few percent from the exact gradient of the bf16
         # forward ('xla', which plain autograd computes). The port must lie
         # no farther from it than JAX's own 'xla' does.
-        bwd_impl = "xla"
+        mode, bwd_impl = bwd_impl, "xla"
         jx_rf, jx_tab, jx_w = jax.grad(jloss, argnums=(0, 1, 2))(rf, table, jw)
-        bwd_impl = "kernel_save"
+        bwd_impl = mode
 
     w, w32 = _port_w32(case, tdt, requires_grad=True)
     tab = T(case["table"]).requires_grad_()
@@ -416,6 +503,68 @@ def test_ray_decode_train_modes_on_the_cpu_and_bad_mode():
         np.testing.assert_array_equal(N(o[0]), N(outs[0][0]))
     with pytest.raises(ValueError):
         rd.ray_decode_train(*args, w32, torch.float32, decode_bwd="nope")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decode_bwd", rd.DECODE_BWD_MODES)
+def test_ray_decode_train_function_runs_each_mode(dtype, decode_bwd,
+                                                  monkeypatch):
+    """The card's autograd Function (``RayDecodeTrain``) on the CPU, with
+    each kernel wrapper replaced by a stand-in that counts its calls and
+    computes the plain version: each mode calls its forward and its
+    backward once (the 'xla' backward is plain autograd, no K3) and gives
+    ``ray_decode_bwd_plain``'s gradients from that forward's saves."""
+    tdt = DTYPES[dtype][0]
+    case = _decode_case(30)
+    _, w32 = _port_w32(case, tdt)
+    calls = {}
+
+    def stand_in(name, fn):
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        call.launches = 0
+        return call
+
+    def bwd(vt, cells, pos, rf, w, saved, g_off, g_logit, **kw):
+        return rd.ray_decode_bwd_plain(vt, cells, pos, rf, w, g_off, g_logit,
+                                       dtype=w["pair_w1"].dtype, saved=saved,
+                                       **kw)
+
+    fwd = {"kernel_save": ("ray_decode_save", True),
+           "kernel_save_all": ("ray_decode_save_all", "all")}
+    for name, fn in (("ray_decode", lambda *a, **kw: rd.ray_decode_plain(
+                         *a, **kw)),
+                     ("ray_decode_save", lambda *a, **kw: rd.ray_decode_plain(
+                         *a, **kw, saves=True)),
+                     ("ray_decode_save_all",
+                      lambda *a, **kw: rd.ray_decode_plain(*a, **kw,
+                                                           saves="all")),
+                     ("ray_decode_bwd", bwd)):
+        monkeypatch.setattr(rd, name, stand_in(name, fn))
+    table = T(case["table"]).to(tdt).requires_grad_()
+    rf = T(case["ray_feat"]).to(tdt).requires_grad_()
+    ops = [w32[k].detach().clone().requires_grad_() for k in rd._K1_WEIGHTS]
+    args = (T(case["cells"]), T(case["pos"]))
+    off, logit = rd.RayDecodeTrain.apply(
+        (tdt, w32["dims"], 2, 0.001, False, decode_bwd), table, *args, rf,
+        *ops)
+    cot = (T(case["g_off"]), T(case["g_logit"]))
+    torch.autograd.backward((off, logit), cot)
+    name, saves = fwd.get(decode_bwd, ("ray_decode", False))
+    want_calls = {name: 1}
+    if decode_bwd != "xla":
+        want_calls["ray_decode_bwd"] = 1
+    assert calls == want_calls
+    w = rd.cast_ray_decode_operands(w32, tdt)
+    plain = (T(case["table"]).to(tdt), *args, T(case["ray_feat"]).to(tdt))
+    saved = rd.ray_decode_plain(*plain, w, saves=saves)[2] if saves else None
+    ref = rd.ray_decode_bwd_plain(*plain, w, *cot, dtype=tdt, saved=saved)
+    np.testing.assert_array_equal(N(off), N(rd.ray_decode_plain(*plain, w)[0]))
+    np.testing.assert_array_equal(N(table.grad), N(ref[0].to(tdt)))
+    np.testing.assert_array_equal(N(rf.grad), N(ref[1].to(tdt)))
+    for k, g in zip(rd._K1_WEIGHTS, ops):
+        np.testing.assert_array_equal(N(g.grad), N(ref[2][k]), err_msg=k)
 
 
 # -- losses ----------------------------------------------------------------------
