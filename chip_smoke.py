@@ -46,7 +46,11 @@ Phases:
      cuDNN deterministic and with cuDNN off, logged;
   9. the ``global`` (budget 8) and dense (``pairs_budget_per_ray`` 0) decode
      modes, each: K6 pair_decode against its plain version on the inputs
-     recorded from a warm-up frame, in bf16 and f32, with times and bound;
+     recorded from a warm-up frame, in bf16 and f32, with times and bound
+     (in ``global`` over the rows below the frame's row count, which K6
+     alone decodes: every row past it must be exactly 0 and every row below
+     it the bits of the call without the count, whose time and bound are
+     logged too); K6's ptxas registers and spills from the build;
      MODE_FRAMES frames of 480x640 served (launch counters from 0: K6 1, K1
      0, K4 2, K5 10 per frame), input depth bit for bit, median ms per
      frame, the valid pairs per frame and the pairs the budget dropped; an
@@ -274,10 +278,12 @@ def rel_norm(got, ref, floor=0.0):
     return ((got - ref).norm() / ref.norm().clamp(min=max(floor, 1e-30))).item()
 
 
-def bound(name, a, dt, n_iter=2):
+def bound(name, a, dt, n_iter=2, rows=None):
     """(bound_ms, bound_by, flops, bytes) of one call on these inputs (and
     ``n_iter`` IEF iterations): each input read once, each output written
-    once, the operations at the peak rate of the units that do them."""
+    once, the operations at the peak rate of the units that do them. K6:
+    ``rows`` rows decoded (default all), whose cells, rays and positions are
+    read; every row's outputs written."""
     if name in ("ray_decode", "ray_decode_save", "ray_decode_save_all"):
         vt, cells, pos, rf, w = a
         n, kb = cells.shape
@@ -301,13 +307,15 @@ def bound(name, a, dt, n_iter=2):
     elif name == "pair_decode":
         vt, cells, pos, rf, w, rays = a
         p = cells.shape[0]
+        rows = p if rows is None else rows
         c_vox, c_roi, c_dir, multires = w["dims"]
         c_embed = c_vox + c_roi + 6 * (1 + 2 * multires) + c_dir
         tail = 256 * 128 + 128 * 64 + 64
-        # per row: layer 1 of both decoders over the whole embedding (the
-        # IEF's once), two IEF tails and the probability tail
-        flops = 2 * p * (c_embed * 2 * 256 + 3 * tail)
-        byt = nbytes(vt, cells, pos, rf, rays, *w.values()) + 2 * p * 4
+        # per row decoded: layer 1 of both decoders over the whole embedding
+        # (the IEF's once), two IEF tails and the probability tail
+        flops = 2 * rows * (c_embed * 2 * 256 + 3 * tail)
+        per_row = nbytes(cells, pos, rays) / max(p, 1)
+        byt = nbytes(vt, rf, *w.values()) + rows * per_row + 2 * p * 4
         peak = PEAK_TC[dt]
     elif name in ("ray_decode_bwd", "ray_decode_bwd_recompute",
                   "ray_decode_bwd_all"):
@@ -503,6 +511,9 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
             ms = time_ms(lambda: kern(*a, **kw))
             plain_ms = time_ms(lambda: plain[name](*a, **kw))
             lib_ms, extra = None, {}
+            rows = None
+            if kw.get("n_rows") is not None:  # K6 in the global mode
+                rows, extra = count_checks(name, dt, kern, a, kw, got, ms)
             if name == "segment_max0":  # yardstick: one PyTorch scatter call
                 d, ids, ns, v = a
                 src = torch.where(v[:, None], d, torch.zeros((), dtype=d.dtype,
@@ -520,7 +531,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
                 extra["library_device_ms"], _ = device_ms(
                     lambda: table.scatter_reduce_(0, idx, src, "amax"),
                     "scatter")
-            b_ms, b_by, flops, byt = bound(name, a, dt)
+            b_ms, b_by, flops, byt = bound(name, a, dt, rows=rows)
             row = {"name": name, "dtype": str(dt).split(".")[-1],
                    "shape": [list(s) for s in shape], "max_abs_err": err,
                    "tolerance": tol, "typical_abs": typical,
@@ -540,7 +551,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
                 raise AssertionError(f"{name} {dt}: tolerance {tol} is not "
                                      f"{BITE}x below the outputs' spread "
                                      f"{spread}")
-            if extra:  # K5: every shape's times, for the record
+            if name == "segment_max0":  # every shape's times, for the record
                 by_shape.setdefault(name, []).append(
                     {k: row[k] for k in ("shape", "dtype", "ms", "library_ms",
                                          "kernel_device_ms",
@@ -554,6 +565,58 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
     for name, shapes in by_shape.items():
         rows[name]["by_shape"] = shapes
     return rows
+
+
+def count_checks(name, dt, kern, a, kw, got, ms):
+    """K6 called with its row count (the global mode's valid prefix): every
+    output row at or past the count exactly 0, and the rows below it the
+    bits of the same call without the count (which decodes every row).
+    Returns (rows decoded, the row's extra entries: rows_decoded, and the
+    time and bound of the call without the count)."""
+    rows = int(kw["n_rows"].item())
+    p = got[0].shape[0]
+    kw_all = {k: v for k, v in kw.items() if k != "n_rows"}
+    full = kern(*a, **kw_all)
+    torch.cuda.synchronize()
+    for g, f in zip(got, full):
+        if (g[rows:] != 0).any():
+            raise AssertionError(f"{name} {dt}: rows at or past n_rows={rows} "
+                                 "are not 0")
+        if not torch.equal(g[:rows], f[:rows]):
+            raise AssertionError(f"{name} {dt}: the rows below n_rows differ "
+                                 "from the call without it")
+    ms_all = time_ms(lambda: kern(*a, **kw_all))
+    b_all = bound(name, a, dt)[0]
+    log(f"kernel {name} {str(dt).split('.')[-1]}: {rows} of {p} rows "
+        f"decoded: ms {ms:.4f}; every row: ms {ms_all:.4f} bound_ms "
+        f"{b_all:.4f}")
+    return rows, {"rows_decoded": rows, "rows": p, "ms_all_rows": ms_all,
+                  "bound_ms_all_rows": b_all}
+
+
+def ptxas_of(source, match):
+    """{entry function: {registers, spill_stores, spill_loads}} of the
+    entries of ``source`` (e.g. "pair_decode.cu") whose mangled name holds
+    ``match``, from this process's build log (nvcc -Xptxas -v); {} when the
+    kernels were built before this process."""
+    from implicit_depth_torch.ops import cuda
+    out, entry, section = {}, None, None
+    for line in cuda.build_log.splitlines():
+        if line.startswith("== "):
+            section = line[3:].strip()
+        elif section != source:
+            continue
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and match in entry and "spill stores" in line:
+            f = line.split()
+            out.setdefault(entry, {}).update(
+                spill_stores=int(f[f.index("spill") - 2]),
+                spill_loads=int(f[-4]))
+        elif entry and match in entry and "registers" in line:
+            f = line.replace(",", " ").split()
+            out.setdefault(entry, {})["registers"] = int(f[f.index("registers") - 1])
+    return out
 
 
 def main_path(dc, frames, cfg, expect=EXPECT_PER_FRAME, label="main path"):
@@ -937,22 +1000,30 @@ def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP):
     if still:
         raise AssertionError(f"training: parameters did not move: {still}")
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof_ctx
-        with prof_ctx(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            step(state, batches[1], gen, 0)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        log(events.table(sort_by="cuda_time_total", row_limit=30))
-        # the table's "Self CUDA time total": the device operations' own
-        # entries, user annotations left out
-        device_us = sum(ev.self_device_time_total for ev in events
-                        if str(ev.device_type).endswith("CUDA")
-                        and not getattr(ev, "is_user_annotation", False))
-        log(f"training (decode_bwd {decode_bwd}): device time of one step "
-            f"{device_us / 1e3:.3f} ms (the sum of every device operation's "
-            f"time)")
+        profile_device_ms(lambda: step(state, batches[1], gen, 0),
+                          f"training (decode_bwd {decode_bwd}): device time "
+                          "of one step")
     return recorded, launches, step_ms
+
+
+def profile_device_ms(fn, label):
+    """One call of ``fn`` under torch.profiler: logs the table and ``label``
+    with the device time, the table's "Self CUDA time total" (the device
+    operations' own entries, user annotations left out); returns it in
+    ms."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    log(events.table(sort_by="cuda_time_total", row_limit=30))
+    device_us = sum(ev.self_device_time_total for ev in events
+                    if str(ev.device_type).endswith("CUDA")
+                    and not getattr(ev, "is_user_annotation", False))
+    log(f"{label} {device_us / 1e3:.3f} ms (the sum of every device "
+        "operation's time)")
+    return device_us / 1e3
 
 
 def train_cross_check(dev):
@@ -1125,7 +1196,9 @@ def pair_kernel_rows(recorded, lidf, dev):
         return vt.float(), cells, pos, rf.float(), f32w, rays
 
     with torch.inference_mode():
-        return forward_rows(recorded, as_f32, dev)["pair_decode"]
+        row = forward_rows(recorded, as_f32, dev)["pair_decode"]
+    row.setdefault("rows_decoded", row["shape"][1][0])  # cells: every row
+    return row
 
 
 def mode_pairs(dc, frames, budget):
@@ -1145,7 +1218,7 @@ def mode_pairs(dc, frames, budget):
     return out
 
 
-def pair_modes_phase(dev, overrides, frame_hw):
+def pair_modes_phase(dev, overrides, frame_hw, profile=False):
     """Phase 9: the global and dense decode modes (see the module doc).
     Returns K6's row (its largest bf16 shape, the dense frame's) with each
     mode's under "modes", and the launches of both modes' runs."""
@@ -1164,6 +1237,10 @@ def pair_modes_phase(dev, overrides, frame_hw):
         mode_row = pair_kernel_rows(recorded, lidf, dev)
         launches, frame_ms = main_path(
             dc, frames[1:], cfg, EXPECT_PER_MODE_FRAME, f"{mode} mode")
+        if profile:
+            mode_row["frame_device_ms"] = profile_device_ms(
+                lambda: dc.complete(*frames[1]),
+                f"{mode} mode: device time of one frame")
         budget = cfg.tpu.pairs_budget_per_ray if mode == "global" else 0
         pairs = mode_pairs(dc, frames[1:], budget)
         log(f"{mode} mode: valid pairs per frame {[v for v, _ in pairs]}, "
@@ -1195,9 +1272,13 @@ def pair_modes_phase(dev, overrides, frame_hw):
     row = dict(max(rows.values(), key=lambda r: np.prod(r["shape"][1])))
     row["modes"] = {m: {k: r[k] for k in (
         "shape", "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
-        "bound_by", "frame_ms", "valid_pairs", "dropped_pairs",
+        "bound_by", "rows_decoded", "ms_all_rows", "bound_ms_all_rows",
+        "frame_ms", "frame_device_ms", "valid_pairs", "dropped_pairs",
         "xcheck_dropped_pairs", "launches", "launches_per_frame") if k in r}
         for m, r in rows.items()}
+    # registers and spills of the K6 entries, from this run's build
+    row["ptxas"] = ptxas_of("pair_decode.cu", "pair_decode")
+    log(f"pair_decode ptxas: {row['ptxas']}")
     row["launches"] = sum(r["launches"] for r in rows.values())
     row["launches_per_frame"] = {m: r["launches_per_frame"]
                                  for m, r in rows.items()}
@@ -1436,7 +1517,8 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "typical_abs", "max_rel_err", "worst", "tolerance_rel",
               "launches_per_frame", "launches_per_step", "train", "modes",
               "kernel_device_ms", "library_device_ms", "device_ops_per_call",
-              "by_shape", "passes", "step_ms", "save_bytes", "train_xla")
+              "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
+              "rows_decoded", "ptxas")
 
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
@@ -1471,12 +1553,8 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     for name, n in launches.items():
         add_launches(rows[name], n, MAIN_FRAMES, "frame")
     if profile:
-        from torch.profiler import ProfilerActivity, profile as prof_ctx
-        with prof_ctx(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            dc.complete(*frames[1])
-            torch.cuda.synchronize()
-        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+        profile_device_ms(lambda: dc.complete(*frames[1]),
+                          "main path: device time of one frame")
     cross_check(overrides, lidf_cpu, refine_cpu, frames[1], dev)
     del dc, lidf, refine, lidf_cpu, refine_cpu
     torch.cuda.empty_cache()
@@ -1507,7 +1585,7 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     train_cross_check(dev)
 
     # -- the global and dense decode modes (K6) ------------------------------
-    rows["pair_decode"] = pair_modes_phase(dev, overrides, frame_hw)
+    rows["pair_decode"] = pair_modes_phase(dev, overrides, frame_hw, profile)
     # -- stage-1 training with decode_bwd: kernel ------------------------------
     rows["ray_decode"]["train"], rows["ray_decode_bwd_recompute"] = \
         train_kernel_variant_phase(dev, train_overrides, profile)

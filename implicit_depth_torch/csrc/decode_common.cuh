@@ -1,8 +1,11 @@
-// Shared tile machinery of the two decode kernels (ray_decode.cu = K1,
-// ief_decode.cu = K4): small matrix products of a block's activation tile
-// (rows in shared memory) with a weight matrix read through L2, the LeakyReLU
-// / squash epilogues, and the 256 -> 128 -> 64 -> 1 MLP tail that both
-// decoders share.
+// Shared tile machinery of the decode kernels: the LeakyReLU / squash
+// epilogues, the tail weights, and the CUDA-core FMA path of the f32
+// instances (ray_decode.cu = K1/K2, ief_decode.cu = K4, pair_decode.cu = K6):
+// small matrix products of a block's activation tile (rows in shared memory)
+// with a weight matrix read through L2, and the 256 -> 128 -> 64 -> 1 MLP
+// tail and IEF loop on them. The bf16 instances run on decode_tile.cuh's
+// staged tensor-core products instead; ray_decode_bwd.cu (K3) runs its own
+// wmma products (hence <mma.h> here).
 //
 // Numerics follow implicit_depth_tpu/ops/pallas_ray_decode.py::_decode_rows:
 // every product takes operands in the compute type T (float or bf16) and
@@ -10,14 +13,8 @@
 // product. A bf16 x bf16 product is exact in f32, so the f32 FMA path and the
 // bf16 tensor-core path compute the same sums up to their order.
 //
-// Two product routines:
-//   * mma_tile (T = bf16): nvcuda::wmma 16x16x16 bf16 fragments with f32
-//     accumulators. A comes from shared memory, B (weights) straight from
-//     global memory / L2. M = 64 rows, 8 warps: warp w owns row tile w % 4 and
-//     N/32 column tiles.
-//   * fma_tile (any T): CUDA-core FMA, each thread a 4x4 output micro-tile.
-//     Used for every f32 product (exact f32, as the plain version computes)
-//     and for the small per-ray layer-1 product in both types.
+// fma_tile (any T): CUDA-core FMA, each thread a 4x4 output micro-tile. Used
+// for every f32 product (exact f32, as the plain version computes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -120,54 +117,13 @@ __device__ void fma_tile(const T* A, int lda, const T* __restrict__ B, int ldb,
   }
 }
 
-// C[64 x N] (f32, shared, ldc) = A[64 x K] (bf16, shared, lda) @ B[K x N]
-// (bf16, global row-major, ldb) on the tensor cores. K multiple of 16; N
-// multiple of 32; lda, ldb multiples of 16; B 32-byte aligned.
-template <int N>
-__device__ void mma_tile(const __nv_bfloat16* A, int lda,
-                         const __nv_bfloat16* __restrict__ B, int ldb, int K,
-                         float* C, int ldc) {
-  using namespace nvcuda;
-  constexpr int kRowTiles = 4;                 // 64 rows
-  constexpr int kGroups = kWarps / kRowTiles;  // warps along N
-  constexpr int kColTiles = N / 16 / kGroups;  // column tiles per warp
-  static_assert(kColTiles >= 1 && N % (16 * kGroups) == 0, "N tiling");
-  const int warp = threadIdx.x / 32;
-  const int rt = warp % kRowTiles, grp = warp / kRowTiles;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kColTiles];
-#pragma unroll
-  for (int c = 0; c < kColTiles; ++c) wmma::fill_fragment(acc[c], 0.f);
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        a;
-    wmma::load_matrix_sync(a, A + rt * 16 * lda + k, lda);
-#pragma unroll
-    for (int c = 0; c < kColTiles; ++c) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          b;
-      wmma::load_matrix_sync(
-          b, B + (size_t)k * ldb + (grp * kColTiles + c) * 16, ldb);
-      wmma::mma_sync(acc[c], a, b, acc[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kColTiles; ++c)
-    wmma::store_matrix_sync(C + rt * 16 * ldc + (grp * kColTiles + c) * 16,
-                            acc[c], ldc, wmma::mem_row_major);
-}
-
-// The block's M x N product: tensor cores for bf16 (M = 64), FMA for f32.
+// The block's M x N product of the f32 instances, on the CUDA cores.
 template <typename T, int M, int N>
 __device__ __forceinline__ void tile_product(const T* A, int lda,
                                              const T* __restrict__ B, int ldb,
                                              int K, float* C, int ldc) {
-  if constexpr (sizeof(T) == 2) {
-    static_assert(M == 64, "the bf16 path tiles 64 rows");
-    mma_tile<N>(A, lda, B, ldb, K, C, ldc);
-  } else {
-    fma_tile<T, M>(A, lda, B, ldb, K, N, C, ldc);
-  }
+  static_assert(sizeof(T) == 4, "bf16 products run on decode_tile.cuh");
+  fma_tile<T, M>(A, lda, B, ldb, K, N, C, ldc);
 }
 
 // Weights of layers 2-4 of one decoder (widths 256 -> 128 -> 64 -> 1).

@@ -1,12 +1,13 @@
 // Staged tensor-core tiles of the bf16 decode kernels on Hopper
-// (ray_decode.cu = K1/K2, ief_decode.cu = K4).
+// (ray_decode.cu = K1/K2, ief_decode.cu = K4, pair_decode.cu = K6).
 //
-// What this replaces, and why (scripts/attribute_k1_k4.py on the first
-// versions, PERF.md): decode_common.cuh's mma_tile reads every 16x16 weight
-// fragment straight from L2, one k-step at a time, in each of the four
-// row-tile warps that need it, and stores every product's f32 accumulators
-// to a 64 KB shared scratch that an elementwise pass reads back; together
-// with the f32 E1 that left one 256-thread block per SM. Here:
+// What this replaced, and why (scripts/attribute_k1_k4.py on the first
+// versions, PERF.md): the first kernels' wmma products (a routine since
+// removed from decode_common.cuh) read every 16x16 weight fragment straight
+// from L2, one k-step at a time, in each of the four row-tile warps that
+// need it, and stored every product's f32 accumulators to a 64 KB shared
+// scratch that an elementwise pass read back; together with the f32 E1 that
+// left one 256-thread block per SM. Here:
 //   * one block per SM walks row tiles (a persistent grid); every product's
 //     weights pass through shared memory in slabs of 16-128 k-rows (kRing
 //     of them, cp.async), taken from a cyclic schedule of segments (Seg):
@@ -407,7 +408,7 @@ __device__ __forceinline__ void rows_async(RowPtr row_ptr, int rows, int c,
 
 // Byte offsets of the regions of a bf16 decode block (mirrored by
 // ops/ray_decode.py::decode_plan). kp: the layer-1 input width (X); crp:
-// K1's per-ray input width (0 for K4, which has no per-ray part).
+// K1's per-ray input width (0 for K4 and K6, which have no per-ray part).
 struct Smem {
   size_t x0, x1, rf, ray, h, h2, ring, off, logit, l4, segs, total;
   __host__ __device__ static size_t al(size_t b) {

@@ -327,11 +327,15 @@ class LIDFModel(nn.Module):
             enter, leave = enter - center, leave - center
         return enter, leave
 
-    def _decode_pairs(self, vox_feat, cells, pos, ray_feat, rays=None):
-        """K6's decode of pair rows (see ``ops/pair_decode.pair_decode``):
-        the kernel in eval mode; in train mode the plain version under
-        autograd at operands from the live parameters, on the CPU only."""
-        kw = dict(n_iter=self.n_iter, init_offset=self.offset_dec.init_offset,
+    def _decode_pairs(self, vox_feat, cells, pos, ray_feat, rays=None,
+                      n_rows=None):
+        """K6's decode of pair rows (see ``ops/pair_decode.pair_decode``;
+        rows at or past the device count ``n_rows`` are 0 and, in the
+        kernel, not decoded): the kernel in eval mode; in train mode the
+        plain version under autograd at operands from the live parameters,
+        on the CPU only."""
+        kw = dict(n_rows=n_rows, n_iter=self.n_iter,
+                  init_offset=self.offset_dec.init_offset,
                   use_sigmoid=self.use_sigmoid)
         if not self.training:
             return pair_decode(vox_feat.to(self.dtype), cells, pos, ray_feat,
@@ -366,9 +370,12 @@ class LIDFModel(nn.Module):
     def _decode_compacted(self, inputs, vox_feat, ray_feat):
         """The ``global`` mode (``_decode_compacted`` of the JAX package):
         the valid slots ranked k-major (every ray's nearest pair before any
-        second-nearest), the first P = min(B·R·pairs_budget, B·R·K) decoded
-        (pad rows decode slot 0 and are zeroed), the results scattered back.
-        Returns (offset, logit, decoded), each (B, R, K)."""
+        second-nearest), the first P = min(B·R·pairs_budget, B·R·K) taken,
+        the results scattered back. The valid rows are the prefix of
+        min(valid slots, P) rows, counted on the device: only those are
+        decoded (the JAX package decodes the pad rows too, at slot 0, and
+        zeroes them; the outputs are the same). Returns (offset, logit,
+        decoded), each (B, R, K)."""
         b, r, k = inputs["pair_valid"].shape
         dev = vox_feat.device
         n_slots = b * r * k
@@ -390,8 +397,10 @@ class LIDFModel(nn.Module):
                  + inputs["pair_cell"].reshape(-1)[row])
         enter, leave = self._pair_positions(inputs)
         pos = torch.cat([enter, leave], -1).float().reshape(-1, 6)[row]
+        # the valid prefix's length, with no host sync
+        n_rows = valid_km.sum().clamp(max=p).to(torch.int32)
         off_s, logit_s = self._decode_pairs(vox_feat, cells, pos, ray_feat,
-                                            sel_ray)
+                                            sel_ray, n_rows)
         row_w = torch.where(sel_valid, row, torch.full_like(row, n_slots))
 
         def scatter_back(v):

@@ -316,7 +316,7 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-# -- the forward decodes' plan (K1/K2, K4): tiles, shared memory, schedule ----
+# -- the forward decodes' plan (K1/K2, K4, K6): tiles, shared memory, schedule
 
 MAX_SMEM = 232448      # dynamic shared memory one block may use (H100)
 TILE_ROWS = 64         # rows of a bf16 tile (decode_tile.cuh kM)
@@ -327,8 +327,8 @@ MAX_SEGS = 24          # products of one tile's schedule (kMaxSegs)
 WARPS, WARPS_N = 8, 4  # warps of a block; along N in the 64-row products
 F32_ROWS = 32          # rows of an f32 block (FMA path)
 # the widest layer-1 inputs the wrappers accept: per pair or row (kp), per
-# ray (crp; K1); K1's kp is K3's limit too
-MAX_KP = {"K1": 256, "K2all": 256, "K4": 384}
+# ray (crp; K1); K1's kp is K3's limit too; K6's fills the shared memory
+MAX_KP = {"K1": 256, "K2all": 256, "K4": 384, "K6": 464}
 MAX_CRP = 256
 _SEG_BYTES = 24        # sizeof(Seg)
 
@@ -355,7 +355,9 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     it out: ``kernel`` "K1" (also K2; ``n`` rays of kb = 8 pairs, layer-1
     widths ``kp`` per pair and ``crp`` per ray), "K2all" (K2 'all': K1's
     layout, its saves go from registers and the shared h2 tile to device
-    memory) or "K4" (``n`` rows, layer-1 width ``kp``).
+    memory), "K4" (``n`` rows, layer-1 width ``kp``) or "K6" (``n`` pair
+    rows, layer-1 width ``kp``: ``ops/pair_decode.py::pair_layout``; the
+    operand "w1" holds both decoders' layer 1, offset columns first).
 
     bf16 (``csrc/decode_tile.cuh``): a persistent grid of ``blocks`` = one
     block per SM (at most the number of tiles) walks ``tiles`` tiles of
@@ -365,9 +367,9 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     ring: (operand, first column, k, n, slab rows), and ``slabs_per_tile``
     their number. f32: one block per tile of F32_ROWS rows, the FMA
     kernels' ``Smem`` (no schedule)."""
-    if kernel not in ("K1", "K2all", "K4"):
+    if kernel not in ("K1", "K2all", "K4", "K6"):
         raise ValueError(f"decode_plan: kernel {kernel!r}")
-    k1 = kernel != "K4"
+    k1 = kernel in ("K1", "K2all")
     g1, g2, g3 = _G1, _G2, _G3
     if is_bf16:
         ld = lambda w: w + TILE_PAD  # noqa: E731
@@ -387,6 +389,12 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
                      ("pair_w1", 0, kp, g1),
                      *((f"off_{w}", c, k, nn) for _ in range(n_iter)
                        for w, c, k, nn in tail)]
+        elif kernel == "K6":
+            sched = [("w1", g1, kp, g1),
+                     *((f"prob_{w}", c, k, nn) for w, c, k, nn in tail),
+                     ("w1", 0, kp, g1),
+                     *((f"off_{w}", c, k, nn) for _ in range(n_iter)
+                       for w, c, k, nn in tail)]
         else:
             sched = [("w1", 0, kp, g1),
                      *(s for _ in range(n_iter) for s in tail)]
@@ -403,6 +411,9 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
         smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
                          ("h", m * g1 * 4), ("ray", (m // 8) * 2 * g1 * 4),
                          ("off", m * 4), ("logit", m * 4)])
+    elif kernel == "K6":
+        smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
+                         ("h", m * g1 * 4), ("off", m * 4), ("logit", m * 4)])
     else:
         smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g2 * 4),
                          ("h", m * g1 * 4), ("off", m * 4)])

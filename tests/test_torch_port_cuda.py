@@ -85,12 +85,10 @@ def test_ray_decode_kernel_matches_plain(dev, dtype):
     assert rd.ray_decode.launches == before + 1
 
 
-# P = 1000: not a multiple of either type's rows per block (64, 32)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("indexed", [True, False])  # global rows; dense layout
-def test_pair_decode_kernel_matches_plain(dev, dtype, indexed):
-    rng = np.random.default_rng(19)
-    p, n_rays, cv, c_roi, c_dir = 1000, 50, 128, 128, 27
+def _pair_case(rng, dev, dtype, p, n_rays, indexed):
+    """K6's operands at the default widths: P rows over ``n_rays`` rays (the
+    dense layout when not ``indexed``: P / n_rays consecutive rows a ray)."""
+    cv, c_roi, c_dir = 128, 128, 27
     c_embed = cv + c_roi + 102 + c_dir
     w = {"off_enc_w": rng.normal(size=(1, 16)),
          "off_enc_b": 0.1 * rng.normal(size=(16,))}
@@ -101,16 +99,63 @@ def test_pair_decode_kernel_matches_plain(dev, dtype, indexed):
         w[f"{pre}b4"] = np.full((1,), bias)
     pw = pd.prep_pair_decode_weights({k: _t(v, dev) for k, v in w.items()},
                                      cv, c_roi, c_dir, 8, DTYPES[dtype])
-    args = (_t(rng.normal(size=(30, cv)), dev, DTYPES[dtype]),
+    return (_t(rng.normal(size=(30, cv)), dev, DTYPES[dtype]),
             _t(rng.integers(0, 30, p), dev, torch.int32),
             _t(0.6 * rng.normal(size=(p, 6)), dev),
             _t(rng.normal(size=(n_rays, c_roi + c_dir)), dev, DTYPES[dtype]),
             pw, _t(rng.integers(0, n_rays, p), dev, torch.int32)
             if indexed else None)
+
+
+# P = 1000: not a multiple of either type's rows per block (64, 32)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("indexed", [True, False])  # global rows; dense layout
+def test_pair_decode_kernel_matches_plain(dev, dtype, indexed):
+    args = _pair_case(np.random.default_rng(19), dev, dtype, 1000, 50, indexed)
     before = pd.pair_decode.launches
     got = pd.pair_decode(*args)
     assert pd.pair_decode.launches == before + 1
     _close(got, pd.pair_decode_plain(*args), ATOL[dtype])
+
+
+# rows of K6 (20 a ray in the dense layout): less than one tile; a ragged
+# last tile (of 64 rows in bf16, 32 in f32); more tiles than one round of the
+# persistent bf16 grid (one block per SM)
+PAIR_SIZES = {"under one tile": 40, "ragged": 1000,
+              "persistent": 20 * 846}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", list(PAIR_SIZES))
+def test_pair_decode_rows_below_the_count(dev, dtype, size):
+    """K6 with the row count n_rows (0, a partial tile, a multiple of 64,
+    past one round of the grid, P and past P), indexed and dense, against
+    its plain version: rows at or past the count exactly 0, the rows below
+    it the bits of the call without a count; two calls give the same
+    bits."""
+    p = PAIR_SIZES[size]
+    if size == "persistent":
+        plan = rd.decode_plan("K6", 400, n=p, sm_count=cuda.sm_count(dev))
+        assert plan["tiles"] > plan["blocks"]
+    for indexed in (True, False):
+        args = _pair_case(np.random.default_rng(29), dev, dtype, p, p // 20,
+                          indexed)
+        full = pd.pair_decode(*args)
+        again = pd.pair_decode(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(full, again))
+        _close(full, pd.pair_decode_plain(*args), ATOL[dtype])
+        for n in sorted({0, 37, 64, 64 * cuda.sm_count(dev) + 100, p, p + 5}):
+            n_rows = torch.tensor(n, dtype=torch.int32, device=dev)
+            before = pd.pair_decode.launches
+            got = pd.pair_decode(*args, n_rows=n_rows)
+            assert pd.pair_decode.launches == before + 1
+            _close(got, pd.pair_decode_plain(*args, n_rows=n_rows),
+                   ATOL[dtype])
+            k = min(n, p)
+            for g, f in zip(got, full):
+                assert g.shape == (p,) and (g[k:] == 0).all()
+                assert torch.equal(g[:k], f[:k])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -321,13 +366,14 @@ def test_save_all_decodes_at_edge_sizes(dev, dtype, size):
 
 def test_decode_plan_is_the_kernels_layout(dev):
     """ops/ray_decode.py::decode_plan's shared memory is the kernels' own
-    (each C library reports its layout's size)."""
+    (each C library reports its layout's size): K1, K2 'all', K4, K6."""
     k1 = cuda.library("ray_decode").idt_ray_decode_smem
     k2all = cuda.library("ray_decode").idt_ray_decode_save_all_smem
     k4 = cuda.library("ief_decode").idt_ief_decode_smem
+    k6 = cuda.library("pair_decode").idt_pair_decode_smem
     k1.argtypes = k2all.argtypes = [cuda.I64] * 3
-    k4.argtypes = [cuda.I64] * 2
-    k1.restype = k2all.restype = k4.restype = ctypes.c_longlong
+    k4.argtypes = k6.argtypes = [cuda.I64] * 2
+    k1.restype = k2all.restype = k4.restype = k6.restype = ctypes.c_longlong
     for bf16 in (True, False):
         for kp, crp in ((240, 160), (256, 256), (32, 16)):
             assert k1(kp, crp, bf16) == rd.decode_plan(
@@ -337,6 +383,9 @@ def test_decode_plan_is_the_kernels_layout(dev):
         for kp in (336, 384, 16):
             assert k4(kp, bf16) == rd.decode_plan(
                 "K4", kp, is_bf16=bf16)["smem"]["total"]
+        for kp in (400, rd.MAX_KP["K6"], 16):
+            assert k6(kp, bf16) == rd.decode_plan(
+                "K6", kp, is_bf16=bf16)["smem"]["total"]
 
 
 def _rel_norm(a, b):
@@ -580,6 +629,51 @@ def test_pair_decode_modes_serve_on_the_card_and_refuse_to_train(dev, tpu):
              for k, v in synthetic_batch(0, 1, 48, 64).items()}
     with pytest.raises(NotImplementedError, match="no backward"):
         make_lidf_train_step(tcfg, model, dev)(state, batch, None, 0)
+
+
+@pytest.mark.parametrize("budget", [8, 1])  # pad rows; dropped pairs
+def test_global_frame_is_the_same_without_the_count(dev, budget, monkeypatch):
+    """A served bf16 frame in the global mode: K6 decoding only the valid
+    prefix (the count) gives the bits of K6 decoding every row, whose pad
+    rows the scatter back then zeroes."""
+    from implicit_depth_torch.models import lidf as lidf_mod
+
+    cfg = load_config(overrides={
+        "mask_type": "all", "dataset": {"img_height": 48, "img_width": 64},
+        "model": {"rgb_out": 8, "pnet_out": 16, "pnet_gf": 8,
+                  "resnet_stages": [1, 1, 1, 1]},
+        "refine": {"pnet_out": 16, "pnet_gf": 8},
+        "grid": {"valid_sample_num": -1},
+        "tpu": {"max_pairs_per_ray": 12, "pairs_budget_mode": "global",
+                "pairs_budget_per_ray": budget}})
+    static = build_static(cfg, n_rays=48 * 64)
+    rng = np.random.default_rng(31)
+    depth = rng.uniform(0.6, 1.4, (48, 64)).astype(np.float32)
+    depth[rng.random((48, 64)) < 0.3] = 0
+    rgb = rng.integers(0, 255, (48, 64, 3), dtype=np.uint8)
+    g = torch.Generator().manual_seed(0)
+    dc = DepthCompleter(
+        cfg, lidf=randomize_weights_(build_lidf(cfg, static, g), g),
+        refine=randomize_weights_(build_refine(cfg, static, g), g),
+        device=dev)
+    assert dc.lidf.decode_mode == "global"
+    counts = []
+    original = lidf_mod.pair_decode
+
+    def recorder(*a, n_rows=None, **kw):
+        counts.append(int(n_rows.item()))
+        return original(*a, n_rows=n_rows, **kw)
+
+    monkeypatch.setattr(lidf_mod, "pair_decode", recorder)
+    with_count = dc.complete(rgb, depth, (60.0, 60.0, 32.0, 24.0))
+    monkeypatch.setattr(lidf_mod, "pair_decode",
+                        lambda *a, n_rows=None, **kw: original(*a, **kw))
+    without = dc.complete(rgb, depth, (60.0, 60.0, 32.0, 24.0))
+    assert 0 < counts[0] <= 48 * 64 * budget
+    if budget == 8:  # the frame's valid pairs leave pad rows
+        assert counts[0] < 48 * 64 * budget
+    for k in ("depth", "depth_pred"):
+        assert with_count[k].tobytes() == without[k].tobytes(), k
 
 
 def test_train_step_card_matches_cpu(dev):

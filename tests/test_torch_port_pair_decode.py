@@ -182,6 +182,108 @@ def test_pair_decode_dense_layout_is_the_indexed_one():
                              T(c["pos"][:119]), T(c["ray_feat"]), w)
 
 
+# -- K6's layer-1 layout and the row count ------------------------------------
+
+def _pe_col(u, multires):
+    """(element of pos6, kind 0 x / 1 sin / 2 cos, scale) of column u of a
+    pair's [pe(enter) | pe(leave)] block, or None past it: a transcription of
+    csrc/pair_decode.cu's pe_col, by which each lane stages its columns."""
+    c_pe = 3 * (1 + 2 * multires)
+    if u >= 2 * c_pe:
+        return None
+    which, t = divmod(u, c_pe)
+    if t < 3:
+        return which * 3 + t, 0, 1.0
+    v = t - 3
+    return which * 3 + v % 3, 1 + (v % 6) // 3, float(2 ** (v // 6))
+
+
+def _kernel_x(c, lay):
+    """X as pair_decode_tc stages it (f32, unrounded): the voxel row and the
+    zero-padded ray row gathered by index into columns [0, o_pe), then each
+    column of [pe(enter) | pe(leave) | 0] from its lane's column table."""
+    rows = torch.cat([T(c["table"])[T(c["cells"]).long()],
+                      pd._ray_rows(T(c["ray_feat"]), lay["c_rp"])[
+                          T(c["rays"]).long()]], 1)
+    pos = T(c["pos"]).double()
+    cols = []
+    for u in range(lay["kp"] - lay["o_pe"]):
+        col = _pe_col(u, MULTIRES)
+        if col is None:
+            cols.append(torch.zeros(pos.shape[0], dtype=torch.float64))
+            continue
+        src, kind, scale = col
+        x = pos[:, src]
+        cols.append(x if kind == 0 else
+                    (torch.sin if kind == 1 else torch.cos)(x * scale))
+    return torch.cat([rows.double(), torch.stack(cols, 1)], 1)
+
+
+def test_kernel_layer1_layout_gives_the_embedding_order_layer1():
+    """The kernel's layer-1 operands (w1's rows reordered and zero-padded,
+    the ray rows padded to c_rp, the positional encoding staged by lane
+    column tables), emulated here, give the layer-1 pre-activation of the
+    JAX package's embedding order [vox | roi | pe(enter) | pe(leave) |
+    dir_e] @ w1, and so does the plain version's layer1. f32 sums in
+    another order: within 1e-5 of the largest value (measured ~1e-7); a
+    shifted block of rows or columns is off by O(1)."""
+    c = _pair_case(43)
+    lay = pd.pair_layout(CV, C_ROI, C_DIR, MULTIRES)
+    assert lay["c_rp"] % 8 == 0 and lay["kp"] % 16 == 0
+    wj = {k: T(v) for k, v in c["w"].items()}
+    w = pd.prep_pair_decode_weights(wj, CV, C_ROI, C_DIR, MULTIRES,
+                                    torch.float32)
+    assert w["w1"].shape == (lay["kp"], 2 * GF4)
+    # the embedding order of _decode_tile, and its layer-1 weights
+    rf = T(c["ray_feat"])[T(c["rays"]).long()]
+    pos = T(c["pos"])
+    emb = torch.cat([T(c["table"])[T(c["cells"]).long()], rf[:, :C_ROI],
+                     pd.posenc_rows(pos[:, :3], MULTIRES),
+                     pd.posenc_rows(pos[:, 3:], MULTIRES), rf[:, C_ROI:]], 1)
+    w1_emb = torch.cat([wj["off_w1"][:emb.shape[1]], wj["prob_w1"]], 1)
+    ref = (emb.double() @ w1_emb.double()).numpy()
+    emu = (_kernel_x(c, lay) @ w["w1"].double()).numpy()
+    plain = (pd.layer1(T(c["table"]), T(c["cells"]), pos, T(c["ray_feat"]), w,
+                       T(c["rays"]), torch.float32) - w["b1"]).numpy()
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(emu, ref, atol=1e-5 * scale, rtol=0)
+    np.testing.assert_allclose(plain, ref, atol=1e-5 * scale, rtol=0)
+    # the padding rows of w1 are zero: X's padding columns add nothing
+    pad = torch.ones(lay["kp"], dtype=torch.bool)
+    pad[:CV + C_ROI + C_DIR] = False
+    pad[lay["o_pe"]:lay["o_pe"] + 2 * lay["c_pe"]] = False
+    assert (w["w1"][pad] == 0).all() and pad.sum() > 0
+    # a mutant that swaps the two positions' blocks is far off
+    swapped = w["w1"].clone()
+    o, k = lay["o_pe"], lay["c_pe"]
+    swapped[o:o + k], swapped[o + k:o + 2 * k] = \
+        w["w1"][o + k:o + 2 * k], w["w1"][o:o + k]
+    bad = (_kernel_x(c, lay) @ swapped.double()).numpy()
+    assert np.abs(bad - ref).max() > 100 * 1e-5 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("indexed", [True, False])
+def test_pair_decode_plain_zeroes_rows_at_or_past_the_count(dtype, indexed):
+    """n_rows = 0, 1, 63, 64, 65, P (and past P): rows >= n_rows exactly 0
+    in both outputs, the rows below it the bits of the call without a
+    count."""
+    c = _pair_case(44, p=120, n_rays=40)
+    tdt = DTYPES[dtype][0]
+    w = pd.prep_pair_decode_weights({k: T(v) for k, v in c["w"].items()}, CV,
+                                    C_ROI, C_DIR, MULTIRES, tdt)
+    args = (T(c["table"]).to(tdt), T(c["cells"]), T(c["pos"]),
+            T(c["ray_feat"]).to(tdt), w, T(c["rays"]) if indexed else None)
+    full = pd.pair_decode(*args)
+    assert all((f != 0).all() for f in full)
+    for n in (0, 1, 63, 64, 65, 120, 130):
+        got = pd.pair_decode(*args, n_rows=torch.tensor(n, dtype=torch.int32))
+        k = min(n, 120)
+        for g, f in zip(got, full):
+            assert g.shape == (120,) and (g[k:] == 0).all()
+            assert torch.equal(g[:k], f[:k])
+
+
 # -- the two modes through the serving slice -----------------------------------
 
 def tiny_overrides(dtype, tpu):
@@ -334,6 +436,45 @@ def test_slice_in_mode(mode, dtype):
         for key in ("pred_pos", "refined"):
             np.testing.assert_allclose(p[key][same], j[key][same], atol=0.02,
                                        rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("budget", [2, 12])  # dropped pairs; pad rows
+def test_global_mode_count_leaves_decode_rays_unchanged(dtype, budget,
+                                                        monkeypatch):
+    """The port's global mode decoding only the valid prefix (the device
+    count it passes) gives decode_rays' outputs bit for bit as decoding
+    every row, pad rows included, as the JAX package does."""
+    from implicit_depth_torch.builder import randomize_weights_
+    from implicit_depth_torch.data.synthetic import synthetic_batch as tsb
+    from implicit_depth_torch.models import lidf as lidf_mod
+
+    cfg = load_config(overrides=tiny_overrides(dtype, GLOBAL(budget)))
+    static = build_static(cfg, n_rays=H * W)
+    g = torch.Generator().manual_seed(5)
+    model = randomize_weights_(build_lidf(cfg, static, g), g).eval()
+    batch = {k: torch.from_numpy(v) for k, v in tsb(4, 1, H, W).items()}
+    with torch.no_grad():
+        inp = prepare_inputs(static, batch,
+                             generator=torch.Generator().manual_seed(0))
+        counts = []
+        original = lidf_mod.pair_decode
+
+        def recorder(*a, n_rows=None, **kw):
+            counts.append(int(n_rows))
+            return original(*a, n_rows=n_rows, **kw)
+
+        monkeypatch.setattr(lidf_mod, "pair_decode", recorder)
+        with_count = model(inp)
+        monkeypatch.setattr(lidf_mod, "pair_decode",
+                            lambda *a, n_rows=None, **kw: original(*a, **kw))
+        without = model(inp)
+    p = min(H * W * budget, H * W * 12)
+    n_valid = int(inp["pair_valid"].sum())
+    assert counts == [min(n_valid, p)]
+    assert counts[0] < p if budget == 12 else counts[0] == p
+    for k, v in with_count.items():
+        assert torch.equal(v, without[k]), k
 
 
 # -- the eval and train steps in the global mode -------------------------------
