@@ -2,15 +2,17 @@
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
 version at the shapes of its main path, serves synthetic frames through the
 port's two-stage ``DepthCompleter`` (in the default per_ray decode mode and
-in the ``global`` and dense modes) and trains stage 1 for a few steps (in
+in the ``global`` and dense modes), trains stage 1 for a few steps (in
 every ``decode_bwd`` mode: ``kernel_save``, ``kernel``, ``kernel_save_all``
-and ``xla``), all at the full default width, and cross-checks frames and a
-train step against the plain CPU path.
+and ``xla``) and stage 2 behind a frozen stage 1, all at the full default
+width, cross-checks frames and train steps against the plain CPU path, and
+serves and resumes from checkpoints.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
                                       # and of a train step in each
-                                      # decode_bwd mode, with its device time
+                                      # decode_bwd mode and of a stage-2
+                                      # step, with its device time
 
 Phases:
   1. device: a CUDA device must be present; prints name and power limit;
@@ -74,7 +76,34 @@ Phases:
      counters from 0: K1 1, K2 0, K2 'all' 0, K3 0, K5 2 per step; the
      backward is autograd through the plain decode, as the JAX package's
      'xla' mode is XLA autograd); the step medians of all four
-     ``decode_bwd`` modes of this run.
+     ``decode_bwd`` modes of this run;
+ 13. stage-2 training: TRAIN_STEPS Adam steps of the refine network
+     (configs/train_refine.yaml's settings: forward_times 2, perturbation
+     0.8, lr 1e-3, pos_w 100, surf_norm_w 10) behind the frozen per_ray
+     stage 1, batch 4 at 240x320, 20,000 rays and 10,000 valid points per
+     image, bf16 (launch counters from 0: K1 1, K4 2, K5 10, K2 0, K3 0, K6
+     0 per step), finite losses, every refine parameter moved, every stage-1
+     parameter and buffer bit for bit as before; median step_ms, peak
+     memory; on the inputs the warm-up step gave K4's training entry and
+     the refine network's K5 calls (recorded), in bf16 and f32: K4 against
+     ``ief_decode_plain`` (phase 3's tolerances), the training decode's
+     gradients (K4 forward, autograd of the plain decode recomputed)
+     against autograd of ``ief_decode_plain`` on the same inputs, whether
+     they are the same bits, and the backward's time; K5 and its gradient
+     exact, as phase 7;
+ 14. stage 2 with hard negatives (configs/train_refine_hardneg.yaml: ratio
+     0.1, pos_w 20, lr 1e-4): HARDNEG_STEPS steps, finite, the same launch
+     counts;
+ 15. the refine eval step on one 240x320 image, every pixel a ray,
+     ``use_all_pix`` false, in f32 on the card (K1 1, K4 2, K5 10) and on
+     the CPU, same weights and valid points: as phase 5;
+ 16. one f32 refine step on the card and on the CPU (phase 8's frame),
+     same weights and draws, for three seeds: losses and each refine
+     parameter's gradient;
+ 17. checkpoints: phase 13's stage 1 and refine state saved;
+     ``DepthCompleter.from_checkpoint`` serves a 480x640 frame bit for bit
+     as the in-memory pair; the refine state restored into fresh models
+     takes one more step bit for bit as the uninterrupted state does.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -193,6 +222,45 @@ XCHECK_TRAIN = {"dataset": {"img_height": 120, "img_width": 160},
                 "tpu": {"compute_dtype": "float32"}}
 XCHECK_SEEDS = (0, 1, 2)
 XCHECK_LOSS_RTOL, XCHECK_GRAD_RTOL, XCHECK_RESNET_RTOL = 1e-4, 5e-3, 4e-2
+# stage-2 training: the settings of configs/train_refine.yaml that the port
+# reads, copied so that the smoke needs no pyyaml
+# (tests/test_torch_port_refine_train holds them against the file), the
+# default widths, 240x320 at 20,000 rays and 10,000 valid points per image,
+# bf16; the configured batch_size 32 cut to 4, as for stage 1
+REFINE_OVERRIDES = {"mask_type": "all", "model": {"maxpool_label_epo": 0},
+                    "refine": {"forward_times": 2, "perturb": True,
+                               "perturb_prob": 0.8,
+                               "offset_range": [-0.2, 0.2]},
+                    "training": {"batch_size": 32, "nepochs": 30,
+                                 "nepoch_decay": 30, "lr": 0.001},
+                    "loss": {"pos_w": 100.0, "prob_w": 0,
+                             "surf_norm_w": 10.0},
+                    "tpu": {"max_pairs_per_ray": 20,
+                            "compute_dtype": "bfloat16"}}
+# configs/train_refine_hardneg.yaml: hard negatives (ratio 0.1), pos_w 20,
+# lr 1e-4
+REFINE_HARDNEG_OVERRIDES = {
+    **REFINE_OVERRIDES,
+    "training": {"batch_size": 32, "nepochs": 30, "lr": 0.0001},
+    "loss": {"hard_neg": True, "hard_neg_ratio": 0.1, "pos_w": 20.0,
+             "prob_w": 0, "surf_norm_w": 10.0}}
+HARDNEG_STEPS = 2
+# per stage-2 step: the frozen stage 1's serving K1 (no graph), two refine
+# iterations each decoding through K4 and pooling through K5 4 times (2
+# parts x 2 pools), stage 1's 2 K5 pools; no stage-1 training kernel
+EXPECT_PER_REFINE_STEP = {"ray_decode": 1, "ief_decode": 2,
+                          "segment_max0": 10, "ray_decode_save": 0,
+                          "ray_decode_save_all": 0, "ray_decode_bwd": 0,
+                          "pair_decode": 0}
+# the training IEF decode's backward (autograd of the plain decode,
+# recomputed) against autograd of the plain decode on the same inputs: the
+# same computation, expected bit for bit; held to K3's tolerances
+REFINE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the f32 refine step cross-check (card vs CPU, same weights and draws):
+# phase 8's frame and limits (losses 1e-4, decoder and PointNet gradients
+# 5e-3)
+REFINE_XCHECK = {**REFINE_OVERRIDES, **XCHECK_TRAIN,
+                 "tpu": {"max_pairs_per_ray": 20, "compute_dtype": "float32"}}
 SOURCES = {"ray_decode": ("implicit_depth_torch/csrc/ray_decode.cu",
                           "implicit_depth_tpu/ops/pallas_ray_decode.py:357"),
            "ray_decode_save": ("implicit_depth_torch/csrc/ray_decode.cu",
@@ -412,17 +480,19 @@ def counters():
             "pair_decode": pd.pair_decode}
 
 
-def record_calls(mods, run):
+def record_calls(mods, run, when=None, keep=None):
     """``run()`` with each kernel wrapper of ``mods`` ({name: (module,
     attribute)}) replaced by a recorder; returns {(name, shapes): (args,
-    kwargs)} of each wrapper's first call per input shape."""
+    kwargs)} of each wrapper's first call per input shape (among the calls
+    ``when(args)`` accepts; stored as ``keep(args)`` gives them)."""
     recorded = {}
     originals = {name: getattr(m, attr) for name, (m, attr) in mods.items()}
 
     def recorder(name):
         def call(*a, **kw):
             shape = tuple(tuple(t.shape) for t in a if torch.is_tensor(t))
-            recorded.setdefault((name, shape), (a, kw))
+            if (name, shape) not in recorded and (when is None or when(a)):
+                recorded[(name, shape)] = (keep(a) if keep else a, kw)
             return originals[name](*a, **kw)
         # a wrapper that counts through its own module's global name counts
         # on this recorder while it stands in there
@@ -1163,19 +1233,19 @@ def mode_overrides(overrides, mode, **extra):
     return out
 
 
-def build_models(cfg):
-    """The stage-1 and stage-2 models of ``cfg`` (every pixel a ray) with
-    the seeded weights at unit activation scale that every serving phase
-    uses."""
+def build_models(cfg, train=False, seed=SEED):
+    """The stage-1 and stage-2 models of ``cfg`` (every pixel a ray, or
+    with ``train`` the training rays) with the seeded weights at unit
+    activation scale that every serving phase uses."""
     from implicit_depth_torch.builder import (
         build_lidf,
         build_refine,
         build_static,
         randomize_weights_,
     )
-    static = build_static(cfg, n_rays=cfg.dataset.img_height
-                          * cfg.dataset.img_width)
-    gen = torch.Generator().manual_seed(SEED)
+    static = build_static(cfg) if train else build_static(
+        cfg, n_rays=cfg.dataset.img_height * cfg.dataset.img_width)
+    gen = torch.Generator().manual_seed(seed)
     lidf = randomize_weights_(build_lidf(cfg, static, gen), gen)
     refine = randomize_weights_(build_refine(cfg, static, gen), gen)
     return lidf, refine
@@ -1504,6 +1574,384 @@ def train_xla_phase(dev, train_overrides, profile=False):
             "step_ms": statistics.median(step_ms)}
 
 
+# -- stage 2: training, its eval step, checkpoints (phases 13-17) ------------
+
+def refine_kernel_modules():
+    """(module, attribute) of each kernel entry as a refine train step calls
+    it: the training IEF decode (K4's forward) and K5."""
+    from implicit_depth_torch.models import pointnet, refine
+    return {"ief_decode_train": (refine, "ief_decode_train"),
+            "segment_max0": (pointnet, "segment_max0")}
+
+
+def snapshot(a):
+    """A recorded call's arguments, detached and copied: the training
+    decode's f32 operands alias live parameters that the update changes."""
+    def one(x):
+        if torch.is_tensor(x):
+            return x.detach().clone()
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        return x
+    return tuple(one(x) for x in a)
+
+
+def refine_train_path(cfg, lidf, refine, dev, steps, profile=False,
+                      label="stage 2"):
+    """A warm-up refine step (recording the inputs of K4's training entry
+    and of the refine network's K5 calls, those with a gradient), then
+    ``steps`` timed steps with the launch counters of
+    EXPECT_PER_REFINE_STEP from 0: finite losses, every refine parameter
+    moved, the frozen stage 1's parameters and buffers bit for bit.
+    Returns a dict of the state, the step, the batches, the recorded calls,
+    the launches, step_ms and (``profile``) the device time of a step."""
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_refine_train_step
+
+    state = TrainState.create(refine, cfg.training, steps_per_epoch=1000)
+    step = make_refine_train_step(cfg, lidf, refine, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = train_batches(steps + 1, cfg, TRAIN_BATCH, dev)
+    lidf_before = {k: v.clone() for k, v in lidf.state_dict().items()}
+    warm = {}
+    recorded = record_calls(refine_kernel_modules(),
+                            lambda: warm.update(step(state, batches[0], gen,
+                                                     0)),
+                            when=lambda a: a[0].requires_grad, keep=snapshot)
+    assert all(torch.isfinite(v) for v in warm.values()), warm
+    before = {n: p.detach().clone() for n, p in refine.named_parameters()}
+    counts = {k: f for k, f in counters().items()
+              if k in EXPECT_PER_REFINE_STEP}
+    torch.cuda.reset_peak_memory_stats()
+    for f in counts.values():
+        f.launches = 0
+    step_ms, losses = [], []
+    for i, b in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        out = step(state, b, gen, i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: v.item() for k, v in out.items()})
+    launches = {k: f.launches for k, f in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label}: {steps} steps of batch {TRAIN_BATCH} at "
+        f"{cfg.dataset.img_height}x{cfg.dataset.img_width}, launches "
+        f"{launches}, step_ms {step_ms}, median step_ms "
+        f"{statistics.median(step_ms)}")
+    log(f"{label} losses {losses}")
+    log(f"{label} peak device memory {peak:.2f} GiB")
+    for k, per in EXPECT_PER_REFINE_STEP.items():
+        if launches[k] != per * steps:
+            raise AssertionError(f"{label}: {k}: {launches[k]} launches in "
+                                 f"{steps} steps, expected {per} each")
+    if not all(np.isfinite(v) for ls in losses for v in ls.values()):
+        raise AssertionError(f"{label}: a loss is not finite")
+    still = [n for n, p in refine.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"{label}: refine parameters did not move: "
+                             f"{still}")
+    changed = [k for k, v in lidf.state_dict().items()
+               if not torch.equal(v, lidf_before[k])]
+    if changed or any(p.requires_grad for p in lidf.parameters()):
+        raise AssertionError(f"{label}: the frozen stage 1 changed: {changed}")
+    log(f"{label}: every refine parameter moved; the stage-1 parameters and "
+        f"buffers ({len(lidf_before)} tensors) are bit for bit as before")
+    device = None
+    if profile:
+        device = profile_device_ms(lambda: step(state, batches[1], gen, 0),
+                                   f"{label}: device time of one step")
+    return {"state": state, "step": step, "batches": batches,
+            "recorded": recorded, "launches": launches,
+            "step_ms": statistics.median(step_ms), "peak_gib": peak,
+            "device_ms": device}
+
+
+def refine_k4_row(recorded, dev):
+    """Phase 13's K4 checks on the recorded inputs of K4's training entry
+    (one refine iteration's rows), in bf16 (as recorded) and f32: the
+    kernel against ``ief_decode_plain`` (``forward_rows``, phase 3's
+    tolerances), and the training decode's gradients (``IefDecodeTrain``:
+    K4 forward, autograd of the plain decode recomputed) against autograd
+    of ``ief_decode_plain`` on the same inputs, with the backward's time.
+    Returns the bf16 row."""
+    from implicit_depth_torch.ops import ray_decode as rd
+
+    (_, shape), (a, kw) = next((k, v) for k, v in recorded.items()
+                               if k[0] == "ief_decode_train")
+    end, rc, pos, w32, dtype = a
+    call = {("ief_decode", shape[:3]):
+            ((end, rc, pos, rd.cast_ief_operands(w32, dtype)), kw)}
+
+    def as_f32(name, args):
+        e, r, p, _ = args
+        return (e.float(), r.float(), p.float(),
+                rd.cast_ief_operands(w32, torch.float32))
+
+    with torch.inference_mode():
+        row = forward_rows(call, as_f32, dev)["ief_decode"]
+    g = torch.randn(end.shape[0], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    row["grad"] = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dtn = str(dt).split(".")[-1]
+        wl = {k: w32[k].clone().requires_grad_() for k in rd._K4_WEIGHTS}
+        w = dict(wl, dims=w32["dims"])
+        e = end.to(dt).clone().requires_grad_()
+        p = pos.to(dt).clone().requires_grad_()
+        r = rc.to(dt)
+        leaves = [e, p, *wl.values()]
+        names = ["d_end", "d_pos", *wl]
+        out = rd.ief_decode_train(e, r, p, w, dt, **kw)
+        got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+        ref_out = rd.ief_decode_plain(e, r, p, rd._ief_train_operands(w, dt),
+                                      dtype=dt, **kw)
+        ref = torch.autograd.grad(ref_out, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        errs = {n: rel_norm(x, y) for n, x, y in zip(names, got, ref)}
+        worst = max(errs, key=errs.get)
+        tol = REFINE_GRAD_TOL[dt]
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                     retain_graph=True),
+                         warmup=1, reps=5)
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            ref_out, leaves, g, retain_graph=True), warmup=1, reps=5)
+        log(f"kernel ief_decode training gradient {dtn} {list(end.shape)}: "
+            f"{'the same bits as' if same else 'differs from'} autograd of "
+            f"ief_decode_plain; worst relative error {errs[worst]:.3g} "
+            f"({worst}, tol {tol}); backward ms {bwd_ms:.4f} (autograd of "
+            f"the plain decode alone {plain_bwd_ms:.4f})")
+        if not (all(torch.isfinite(x).all() for x in got)
+                and errs[worst] <= tol):
+            raise AssertionError(f"ief_decode training gradient {dt}: "
+                                 f"{worst} {errs[worst]} > {tol}")
+        row["grad"][dtn] = {"same_bits": same, "max_rel_err": errs[worst],
+                            "worst": worst, "tolerance_rel": tol,
+                            "bwd_ms": bwd_ms, "plain_bwd_ms": plain_bwd_ms}
+        del out, ref_out, got, ref
+        torch.cuda.empty_cache()
+    return row
+
+
+def refine_train_phase(dev, profile=False):
+    """Phase 13: stage-2 training behind the frozen per_ray stage 1. Returns
+    K4's and K5's training rows, each with its launches per step, and the
+    models, state and step for phase 17."""
+    from implicit_depth_torch.config import load_config
+
+    cfg = load_config(overrides=REFINE_OVERRIDES)
+    lidf, refine = (m.to(dev) for m in build_models(cfg, train=True))
+    log(f"stage-2 training model: {cfg.dataset.img_height}x"
+        f"{cfg.dataset.img_width}, batch {TRAIN_BATCH} (configured "
+        f"{cfg.training.batch_size}), rays {lidf.static.n_rays}, valid "
+        f"{lidf.static.n_valid}, K={lidf.static.k_pairs}, "
+        f"kb={cfg.tpu.pairs_budget_per_ray}, dtype {cfg.tpu.compute_dtype}, "
+        f"forward_times {cfg.refine.forward_times}, perturb "
+        f"{cfg.refine.perturb_prob}, {cfg.training.optimizer_name} lr "
+        f"{cfg.training.lr}, pos_w {cfg.loss.pos_w}, surf_norm_w "
+        f"{cfg.loss.surf_norm_w}")
+    run = refine_train_path(cfg, lidf, refine, dev, TRAIN_STEPS, profile)
+    k4 = add_launches(refine_k4_row(run["recorded"], dev),
+                      run["launches"]["ief_decode"], TRAIN_STEPS, "step")
+    k4.update(step_ms=run["step_ms"], step_device_ms=run["device_ms"],
+              peak_gib=run["peak_gib"])
+    k5 = add_launches(segment_train_phase(
+        {k: v for k, v in run["recorded"].items() if k[0] == "segment_max0"},
+        dev), run["launches"]["segment_max0"], TRAIN_STEPS, "step")
+    return {"ief_decode": k4, "segment_max0": k5}, (cfg, lidf, run)
+
+
+def refine_hardneg_phase(dev):
+    """Phase 14: HARDNEG_STEPS refine steps with hard negatives. Returns its
+    launches per step and median step_ms."""
+    from implicit_depth_torch.config import load_config
+
+    cfg = load_config(overrides=REFINE_HARDNEG_OVERRIDES)
+    assert cfg.loss.hard_neg
+    lidf, refine = (m.to(dev) for m in build_models(cfg, train=True))
+    run = refine_train_path(cfg, lidf, refine, dev, HARDNEG_STEPS,
+                            label="stage 2 hard_neg")
+    return {"launches_per_step": {k: n // HARDNEG_STEPS
+                                  for k, n in run["launches"].items()},
+            "step_ms": run["step_ms"]}
+
+
+def refine_eval_phase(dev):
+    """Phase 15: the refine eval step on one 240x320 image, every pixel a
+    ray, ``use_all_pix`` false (only zero-depth pixels' predictions enter
+    the PointNet), in f32 on the card (one K1, two K4, ten K5) and on the
+    CPU with the same weights and valid-point draw: the refined points
+    within XCHECK_ATOL on all but XCHECK_FRAC of the rays."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.geometry.sampling import sample_valid_stratified
+    from implicit_depth_torch.train.steps import make_refine_eval_step
+
+    over = {**REFINE_OVERRIDES,
+            "refine": {**REFINE_OVERRIDES["refine"], "use_all_pix": False},
+            "tpu": {**REFINE_OVERRIDES["tpu"], "compute_dtype": "float32"}}
+    cfg = load_config(overrides=over)
+    lidf, refine = build_models(cfg)
+    batch = train_batches(1, cfg, 1, "cpu")[0]
+    vidx, _, _ = sample_valid_stratified(batch["depth_corrupt"] != 0,
+                                         lidf.static.n_valid,
+                                         torch.Generator().manual_seed(SEED))
+    runs = {}
+    counts = {k: f for k, f in counters().items()
+              if k in EXPECT_PER_REFINE_STEP}
+    for device in (dev, torch.device("cpu")):
+        for f in counts.values():
+            f.launches = 0
+        step = make_refine_eval_step(cfg, copy.deepcopy(lidf),
+                                     copy.deepcopy(refine), device)
+        _, out, pred, losses = step(None, {k: v.to(device) for k, v in
+                                           batch.items()}, valid_idx=vidx)
+        runs[device.type] = (pred.float().cpu(), {k: v.item() for k, v in
+                                                  losses.items()})
+        if device == dev:
+            launches = {k: f.launches for k, f in counts.items()}
+    diff = (runs[dev.type][0] - runs["cpu"][0]).abs().amax(-1)
+    agree = (diff <= XCHECK_ATOL).float().mean().item()
+    injected = (batch["depth_corrupt"] == 0).float().mean().item()
+    log(f"refine eval step f32 {dev} vs cpu ({cfg.dataset.img_height}x"
+        f"{cfg.dataset.img_width}, every pixel a ray, use_all_pix false: "
+        f"{injected:.3f} of the pixels injected): launches {launches}, "
+        f"refined points within {XCHECK_ATOL} m: {agree:.6f}, median |diff| "
+        f"{diff.median().item():.3g}, max |diff| {diff.max().item():.3g}; "
+        f"losses card {runs[dev.type][1]} cpu {runs['cpu'][1]}")
+    want = {k: EXPECT_PER_REFINE_STEP[k] for k in
+            ("ray_decode", "ief_decode", "segment_max0")}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"refine eval step: launches {launches}, "
+                             f"expected {want}")
+    if agree < 1 - XCHECK_FRAC:
+        raise AssertionError("refine eval step: the card and the CPU "
+                             "disagree")
+    return {"agree": agree, "launches": launches}
+
+
+def refine_cross_check(dev):
+    """Phase 16: for each seed of XCHECK_SEEDS, one f32 refine step of the
+    same weights on the card (kernels) and on the CPU (plain versions),
+    same valid points, ray window and perturbation: the losses within
+    XCHECK_LOSS_RTOL, each refine gradient within XCHECK_GRAD_RTOL. Every
+    seed is logged before a failure is raised."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.geometry.sampling import (
+        sample_masked_window,
+        sample_valid_stratified,
+    )
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_refine_train_step
+
+    cfg = load_config(overrides=REFINE_XCHECK)
+    failed = []
+    for seed in XCHECK_SEEDS:
+        lidf, refine = build_models(cfg, train=True, seed=seed)
+        static = lidf.static
+        batch = train_batches(1, cfg, 1, "cpu", seed)[0]
+        gen = torch.Generator().manual_seed(seed)
+        vidx, _, _ = sample_valid_stratified(batch["valid_mask"] > 0.5,
+                                             static.n_valid, gen)
+        _, _, _, mstart = sample_masked_window(
+            (batch["corrupt_mask"] > 0.5).reshape(1, -1), static.n_rays, gen)
+        noise = {k: torch.rand((1,), generator=gen)
+                 for k in ("apply", "bucket", "u")}
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            lm, rm = copy.deepcopy(lidf), copy.deepcopy(refine)
+            state = TrainState.create(rm, cfg.training, steps_per_epoch=1000)
+            losses = make_refine_train_step(cfg, lm, rm, device)(
+                state, {k: v.to(device) for k, v in batch.items()}, None, 0,
+                valid_idx=vidx, miss_start=mstart,
+                noise={k: v.to(device) for k, v in noise.items()})
+            runs[device.type] = ({k: v.item() for k, v in losses.items()},
+                                 {n: p.grad.cpu()
+                                  for n, p in rm.named_parameters()})
+        (la, ga), (lb, gb) = runs[dev.type], runs["cpu"]
+        loss_err = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-6) for k in lb)
+        errs = {n: rel_norm(ga[n], gb[n]) for n in gb}
+        worst = max(errs, key=errs.get)
+        log(f"refine cross-check f32 seed {seed}, card vs cpu "
+            f"({cfg.dataset.img_height}x{cfg.dataset.img_width}, "
+            f"{static.n_rays} rays, perturbation {noise}): losses card {la} "
+            f"cpu {lb}; largest relative loss difference {loss_err:.3g}; "
+            f"gradients, largest relative error {errs[worst]:.3g} ({worst}), "
+            f"median {statistics.median(errs.values()):.3g}")
+        if loss_err > XCHECK_LOSS_RTOL:
+            failed.append(f"seed {seed} losses: {loss_err}")
+        if errs[worst] > XCHECK_GRAD_RTOL:
+            failed.append(f"seed {seed} {worst}: {errs[worst]}")
+    if failed:
+        raise AssertionError(f"refine cross-check: the card and the CPU "
+                             f"disagree: {failed}")
+
+
+def checkpoint_phase(dev, cfg, lidf, run):
+    """Phase 17: checkpoints on the card. Phase 13's stage 1 and refine
+    state saved; ``DepthCompleter.from_checkpoint`` of them serves a
+    480x640 frame bit for bit as the in-memory pair; the refine state
+    restored into fresh models takes one more step bit for bit as the
+    uninterrupted state does (same batch, same draws)."""
+    import os
+    import tempfile
+
+    from implicit_depth_torch.builder import build_refine
+    from implicit_depth_torch.infer import DepthCompleter
+    from implicit_depth_torch.train.checkpoint import Checkpointer
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_refine_train_step
+
+    state, step, batch = run["state"], run["step"], run["batches"][1]
+    frame = make_frames(1, FRAME_HW)[0]
+    with tempfile.TemporaryDirectory() as d:
+        lidf_dir, refine_dir = os.path.join(d, "lidf"), os.path.join(d, "refine")
+        Checkpointer(lidf_dir).save(lidf, epoch=0)
+        Checkpointer(refine_dir).save(state, epoch=0, meta={"phase": 13})
+        want = DepthCompleter(cfg, lidf=lidf, refine=state.model,
+                              device=dev).complete(*frame)
+        dc = DepthCompleter.from_checkpoint(lidf_dir, refine_dir, cfg=cfg,
+                                            device=dev)
+        got = dc.complete(*frame)
+        same_frame = all(got[k].tobytes() == want[k].tobytes()
+                         for k in ("depth", "depth_pred"))
+        fresh = TrainState.create(build_refine(cfg, lidf.static).to(dev),
+                                  cfg.training, steps_per_epoch=1000)
+        fresh, meta = Checkpointer(refine_dir).restore(fresh)
+    resumed = make_refine_train_step(cfg, lidf, fresh.model, dev)
+    outs = []
+    for st, fn in ((state, step), (fresh, resumed)):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        outs.append({k: v.item() for k, v in fn(st, batch, gen, 1).items()})
+    same_losses = outs[0] == outs[1]
+    differ = [n for (n, p), q in zip(state.model.named_parameters(),
+                                     fresh.model.parameters())
+              if not torch.equal(p, q)]
+    log(f"checkpoints: a 480x640 frame from DepthCompleter.from_checkpoint "
+        f"{'is' if same_frame else 'is NOT'} bit for bit the in-memory "
+        f"pair's; restored refine state (step {fresh.step}, meta {meta}): "
+        f"one more step gives losses {outs[1]} against the uninterrupted "
+        f"{outs[0]} ({'the same bits' if same_losses else 'different'}), "
+        f"parameters differing: {differ}")
+    if not (same_frame and same_losses and not differ):
+        raise AssertionError("checkpoints: the restored models do not give "
+                             "the bits of the in-memory ones")
+    return {"frame_bit_identical": same_frame, "resume_bit_identical": True}
+
+
+def refine_phases(dev, profile=False):
+    """Phases 13-17 (see the module doc). Returns K4's and K5's stage-2
+    training rows."""
+    rows, (cfg, lidf, run) = refine_train_phase(dev, profile)
+    rows["ief_decode"]["hard_neg"] = refine_hardneg_phase(dev)
+    rows["ief_decode"]["eval"] = refine_eval_phase(dev)
+    refine_cross_check(dev)
+    rows["ief_decode"]["checkpoint"] = checkpoint_phase(dev, cfg, lidf, run)
+    del run, lidf
+    torch.cuda.empty_cache()
+    return rows
+
+
 def add_launches(row, n, runs, unit):
     """``row`` with its kernel's ``n`` launches in a main path of ``runs``
     frames or steps (``unit``)."""
@@ -1518,12 +1966,12 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "launches_per_frame", "launches_per_step", "train", "modes",
               "kernel_device_ms", "library_device_ms", "device_ops_per_call",
               "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
-              "rows_decoded", "ptxas")
+              "rows_decoded", "ptxas", "refine_train")
 
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-10 on ``dev``; prints the kernels line."""
+    """Phases 2-17 on ``dev``; prints the kernels line."""
     from implicit_depth_torch.builder import (
         build_lidf,
         build_static,
@@ -1593,11 +2041,17 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     rows.update(train_save_all_phase(dev, train_overrides, profile))
     rows["ray_decode"]["train_xla"] = train_xla_phase(dev, train_overrides,
                                                       profile)
+    # -- stage-2 training, its eval step, checkpoints ------------------------
+    refine_rows = refine_phases(dev, profile)
+    rows["ief_decode"]["refine_train"] = refine_rows["ief_decode"]
+    rows["segment_max0"]["refine_train"] = refine_rows["segment_max0"]
     log(f"step medians in this run: decode_bwd kernel_save "
         f"{rows['ray_decode_bwd']['step_ms']} ms, kernel "
         f"{rows['ray_decode_bwd_recompute']['step_ms']} ms, kernel_save_all "
         f"{rows['ray_decode_bwd_all']['step_ms']} ms, xla "
-        f"{rows['ray_decode']['train_xla']['step_ms']} ms")
+        f"{rows['ray_decode']['train_xla']['step_ms']} ms; stage 2 "
+        f"{refine_rows['ief_decode']['step_ms']} ms, hard_neg "
+        f"{refine_rows['ief_decode']['hard_neg']['step_ms']} ms")
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
@@ -1613,7 +2067,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler tables of one served frame "
-                    "and of one train step in each decode_bwd mode")
+                    "and of one train step in each decode_bwd mode and of "
+                    "one stage-2 step")
     args = ap.parse_args()
 
     # -- 1. device -------------------------------------------------------------

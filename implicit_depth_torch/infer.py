@@ -4,6 +4,9 @@
     from implicit_depth_torch.infer import DepthCompleter
 
     dc = DepthCompleter(cfg, lidf=lidf_model, refine=refine_model)
+    # or trained weights, from the trainers' checkpoint directories:
+    dc = DepthCompleter.from_checkpoint("logs/lidf/ckpt",
+                                        refine_ckpt_dir="logs/refine/ckpt")
     out = dc.complete(rgb_u8, depth_m, (fx, fy, cx, cy))
     out["depth"]       # completed depth at the input resolution (H0, W0)
     out["depth_pred"]  # the model's predicted depth at every pixel (h, w)
@@ -19,6 +22,7 @@ Entry points run on ``cuda`` unless ``device="cpu"`` is asked for.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -29,7 +33,7 @@ from implicit_depth_torch.config import Config, load_config
 from implicit_depth_torch.data.augmentation import standardize_image
 from implicit_depth_torch.geometry.camera import compute_xyz
 from implicit_depth_torch.models.lidf import LIDFModel, prepare_inputs
-from implicit_depth_torch.models.refine import RefineModel
+from implicit_depth_torch.models.refine import RefineModel, refine_forward
 
 Intrinsics = Union[Tuple[float, float, float, float], Sequence[float]]
 
@@ -58,7 +62,8 @@ class DepthCompleter:
     """Two-stage (LIDF + optional RefineNet) depth completion as a service.
 
     ``lidf`` / ``refine`` are the port's modules with their weights (random
-    from ``builder``, or loaded with ``weights.lidf_from_jax``). The models
+    from ``builder``, loaded with ``weights.lidf_from_jax``, or trained:
+    :meth:`from_checkpoint`). The models
     are moved to ``device`` and put in eval mode. ``batch_size`` is the most
     frames one :meth:`complete_batch` call takes."""
 
@@ -77,6 +82,49 @@ class DepthCompleter:
         self.forward_times = int(self.cfg.refine.forward_times)
         self.use_all_pix = bool(self.cfg.refine.use_all_pix)
 
+    @classmethod
+    def from_checkpoint(cls, lidf_ckpt_dir: str,
+                        refine_ckpt_dir: Optional[str] = None,
+                        cfg: Optional[Config] = None,
+                        ckpt_name: str = "best_network", batch_size: int = 1,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> "DepthCompleter":
+        """Serve trained weights from the checkpoint directories of the
+        trainers (``train/checkpoint.py``): the stage-1 model and, when
+        ``refine_ckpt_dir`` is given, the stage-2 model, each built from
+        ``cfg`` and loaded by ``restore_params_only``. ``ckpt_name`` falls
+        back to ``latest_network`` where a directory has no such
+        checkpoint."""
+        from implicit_depth_torch.builder import (
+            build_lidf,
+            build_refine,
+            build_static,
+        )
+        from implicit_depth_torch.train.checkpoint import (
+            LATEST,
+            restore_params_only,
+        )
+
+        cfg = cfg if cfg is not None else load_config(
+            overrides={"mask_type": "all"})
+
+        def pick(d):
+            named = os.path.join(d, ckpt_name)
+            return ckpt_name if (os.path.isdir(named)
+                                 or os.path.isdir(named + ".prev")) else LATEST
+
+        h, w = cfg.dataset.img_height, cfg.dataset.img_width
+        static = build_static(cfg, n_rays=h * w)
+        lidf = restore_params_only(lidf_ckpt_dir, build_lidf(cfg, static),
+                                   pick(lidf_ckpt_dir))
+        refine = None
+        if refine_ckpt_dir is not None:
+            refine = restore_params_only(refine_ckpt_dir,
+                                         build_refine(cfg, static),
+                                         pick(refine_ckpt_dir))
+        return cls(cfg, lidf=lidf, refine=refine, batch_size=batch_size,
+                   device=device)
+
     # -- device forward -----------------------------------------------------
     @torch.inference_mode()
     def forward(self, batch: Dict[str, torch.Tensor], seed: int = 0,
@@ -94,8 +142,8 @@ class DepthCompleter:
             if not self.use_all_pix:  # inject zero-input-depth pixels only
                 b = batch["depth_corrupt"].shape[0]
                 inject = batch["depth_corrupt"].reshape(b, -1) == 0
-            for _ in range(self.forward_times):
-                pred = self.refine(inputs, out, pred, inject)
+            pred = refine_forward(self.refine, inputs, out,
+                                  self.forward_times, inject_mask=inject)
         pred_z = pred[..., 2].reshape(-1, self.h, self.w)
         depth_in = batch["depth_corrupt"]
         return torch.where(depth_in == 0, pred_z, depth_in), pred_z

@@ -85,11 +85,12 @@ class IEF(nn.Module):
                                        dtype).float()
         return torch.sigmoid(offset) if self.use_sigmoid else soft_clamp01(offset)
 
-    def decode_weights(self) -> dict:
-        """The decode weight dict of ``ops/ray_decode.prep_ief_weights``,
-        JAX (in, out) layout: enc_w/enc_b and w1..w4/b1..b4, detached (the
-        decode kernel is forward-only)."""
+    def decode_weights(self, detach: bool = True) -> dict:
+        """The decode weight dict of ``ops/ray_decode.split_ief_weights``,
+        JAX (in, out) layout: enc_w/enc_b and w1..w4/b1..b4; detached for
+        the forward-only kernel, else views of the live parameters (the
+        training decode)."""
         w = {"enc_w": self.offset_enc.weight.t(), "enc_b": self.offset_enc.bias}
         for i, lin in enumerate(self.mlp.layers(), 1):
             w[f"w{i}"], w[f"b{i}"] = lin.weight.t(), lin.bias
-        return {k: v.detach() for k, v in w.items()}
+        return {k: v.detach() for k, v in w.items()} if detach else w

@@ -14,7 +14,11 @@ Counterpart of ``implicit_depth_tpu/ops/pallas_ray_decode.py``:
   by its cell id from the (B·G³, Cv) voxel table instead of taking gathered
   (N·kb, Cv) rows.
 * :func:`ief_decode` — stage-2 per-ray IEF decode (``fused_ief_rows``,
-  ``xla_ief_rows``, ``_ief_rows``) over the embed parts [end | rc | pos_e].
+  ``xla_ief_rows``, ``_ief_rows``) over the embed parts [end | rc | pos_e];
+  forward only, it refuses an operand that asks for a gradient.
+  :func:`ief_decode_train` is the refine training's decode: K4 forward and,
+  as ``fused_ief_rows``' VJP recomputes through ``xla_ief_rows``, autograd
+  of the plain decode recomputed (:class:`IefDecodeTrain`).
 
 Both IEF decoders hoist layer 1 out of the iterations and fold the 1 -> 16
 offset encoder into a rank-1 update: (offset·enc_w + enc_b) @ W_x =
@@ -84,13 +88,6 @@ def _pad_rows(w, rows):
 def _rank1(enc_w, enc_b, w_x, dtype):
     """a_vec, c_vec (4g,) f32 of the folded offset encoder."""
     return _dot(enc_w, w_x, dtype)[0], _dot(enc_b[None, :], w_x, dtype)[0]
-
-
-def _tail_weights(w2, b2, w3, b3, w4, b4, dtype) -> Dict[str, torch.Tensor]:
-    return {"w2": w2.to(dtype).contiguous(), "b2": _q(b2, dtype),
-            "w3": w3.to(dtype).contiguous(), "b3": _q(b3, dtype),
-            "w4": w4.reshape(-1).to(dtype).contiguous(),
-            "b4": b4.reshape(1).float()}
 
 
 def trig_block(pos6: torch.Tensor, multires: int) -> torch.Tensor:
@@ -1011,12 +1008,16 @@ def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
 # Stage 2: per-ray IEF decode (K4)
 # ---------------------------------------------------------------------------
 
-def prep_ief_weights(weights: Dict[str, torch.Tensor], c_end: int, c_rc: int,
-                     c_pos: int, c_dir: int, dtype) -> Dict[str, torch.Tensor]:
+def split_ief_weights(weights: Dict[str, torch.Tensor], c_end: int,
+                      c_rc: int, c_pos: int, c_dir: int,
+                      dtype) -> Dict[str, torch.Tensor]:
     """Split the refine IEF weights (JAX layout enc_w/enc_b, w1..w4, b1..b4)
-    over the stage-2 embed [end | roi | pos_e | dir_e | enc(16)] into w1
-    (KP, 4g) rows [end | rc = (roi, dir) | pos | 0-pad] in ``dtype``, b1,
-    a_vec, c_vec f32 and layers 2-4."""
+    over the stage-2 embed [end | roi | pos_e | dir_e | enc(16)] into the
+    kernel operands, all in f32: w1 (KP, 4g) rows [end | rc = (roi, dir) |
+    pos | 0-pad], b1, a_vec, c_vec (the offset encoder folded into layer 1
+    with ``dtype`` operands) and layers 2-4. Only slicing, concatenation
+    and the rank-1 fold: the training decode differentiates through it,
+    which lays the split gradients back onto the parameters."""
     w1 = weights["w1"]
     o1 = c_end
     o2 = o1 + (c_rc - c_dir)
@@ -1025,19 +1026,42 @@ def prep_ief_weights(weights: Dict[str, torch.Tensor], c_end: int, c_rc: int,
     kp = _round_up(c_end + c_rc + c_pos, _PAD)
     a_vec, c_vec = _rank1(weights["enc_w"], weights["enc_b"], w1[o4:], dtype)
     w = {"w1": _pad_rows(torch.cat([w1[:o1], w1[o1:o2], w1[o3:o4], w1[o2:o3]],
-                                   0), kp).to(dtype).contiguous(),
+                                   0), kp).float(),
          "b1": weights["b1"].float(), "a_vec": a_vec, "c_vec": c_vec}
-    w.update(_tail_weights(*(weights[n] for n in
-                             ("w2", "b2", "w3", "b3", "w4", "b4")), dtype))
+    for n in ("w2", "b2", "w3", "b3"):
+        w[n] = weights[n].float()
+    w["w4"] = weights["w4"].reshape(-1).float()
+    w["b4"] = weights["b4"].reshape(1).float()
     w["dims"] = (c_end, c_rc, c_pos)
     return w
 
 
+def cast_ief_operands(w: Dict[str, torch.Tensor],
+                      dtype) -> Dict[str, torch.Tensor]:
+    """The f32 split operands as K4 takes them: matrices in ``dtype``,
+    biases 2 and 3 rounded to ``dtype`` and held in f32."""
+    out = dict(w)
+    for k in ("w1", "w2", "w3", "w4"):
+        out[k] = w[k].to(dtype).contiguous()
+    for k in ("b2", "b3"):
+        out[k] = _q(w[k], dtype)
+    return out
+
+
+def prep_ief_weights(weights: Dict[str, torch.Tensor], c_end: int, c_rc: int,
+                     c_pos: int, c_dir: int, dtype) -> Dict[str, torch.Tensor]:
+    """The kernel operands (:func:`split_ief_weights` cast by
+    :func:`cast_ief_operands`)."""
+    return cast_ief_operands(split_ief_weights(weights, c_end, c_rc, c_pos,
+                                               c_dir, dtype), dtype)
+
+
 def ief_decode_plain(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
-                     init_offset=0.001, use_sigmoid=False):
+                     init_offset=0.001, use_sigmoid=False, dtype=None):
     """end (N, c_end), rc (N, c_rc), pos_e (N, c_pos) -> (N,) f32 offsets
-    after the squash."""
-    dtype = w["w1"].dtype
+    after the squash. ``dtype``: the compute dtype (default: that of
+    ``w["w1"]``, which may then hold f32 values)."""
+    dtype = dtype or w["w1"].dtype
     x = torch.cat([end_rows.to(dtype), rc_rows.to(dtype), pos_rows.to(dtype)], 1)
     e1 = _dot(x, w["w1"][:x.shape[1]], dtype) + w["b1"]
     return _squash(_ief_loop(e1, w, "", n_iter, init_offset, dtype),
@@ -1079,7 +1103,15 @@ _K4_WEIGHTS = ("w1", "b1", "a_vec", "c_vec", "w2", "b2", "w3", "b3", "w4", "b4")
 
 def ief_decode(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
                init_offset=0.001, use_sigmoid=False):
-    """Stage-2 IEF decode (see :func:`ief_decode_plain`); kernel K4 on CUDA."""
+    """Stage-2 IEF decode (see :func:`ief_decode_plain`); kernel K4 on CUDA.
+    No gradient: raises when grad is enabled and an operand requires one
+    (:func:`ief_decode_train` is the differentiable decode)."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad
+            for t in (end_rows, rc_rows, pos_rows, *w.values())):
+        raise RuntimeError("ief_decode carries no gradient, and an operand "
+                           "requires one: decode through the training entry "
+                           "(ief_decode_train), or under torch.no_grad()")
     if end_rows.device.type == "cpu":
         return ief_decode_plain(end_rows, rc_rows, pos_rows, w, n_iter=n_iter,
                                 init_offset=init_offset,
@@ -1091,3 +1123,67 @@ def ief_decode(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
 
 
 ief_decode.launches = 0
+
+
+def _ief_train_operands(w32, dtype):
+    """The f32 split operands with biases 2 and 3 rounded to ``dtype`` as
+    the kernel takes them (straight through under autograd)."""
+    return {**w32, "b2": _q(w32["b2"], dtype), "b3": _q(w32["b3"], dtype)}
+
+
+class IefDecodeTrain(torch.autograd.Function):
+    """The training IEF decode on the card: forward K4, backward autograd
+    through :func:`ief_decode_plain` recomputed from the same inputs and the
+    f32 split operands, as the JAX package's ``fused_ief_rows`` VJP
+    recomputes through ``xla_ief_rows`` (no backward kernel there either).
+
+    Takes the f32 split operands (:func:`split_ief_weights`) and casts them
+    inside, so that their gradients reach the f32 parameters unrounded.
+    Returns d end, d pos and every operand's gradient; d rc only when rc
+    asks for one."""
+
+    @staticmethod
+    def forward(ctx, opts, end_rows, rc_rows, pos_rows, *ops):
+        dtype, dims, n_iter, init_offset, use_sigmoid = opts
+        w32 = dict(zip(_K4_WEIGHTS, ops), dims=dims)
+        out = ief_decode(end_rows, rc_rows, pos_rows,
+                         cast_ief_operands(w32, dtype), n_iter=n_iter,
+                         init_offset=init_offset, use_sigmoid=use_sigmoid)
+        ctx.opts = opts
+        ctx.save_for_backward(end_rows, rc_rows, pos_rows, *ops)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dtype, dims, n_iter, init_offset, use_sigmoid = ctx.opts
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            end_rows, rc_rows, pos_rows, *ops = leaves
+            w = _ief_train_operands(dict(zip(_K4_WEIGHTS, ops), dims=dims),
+                                    dtype)
+            out = ief_decode_plain(end_rows, rc_rows, pos_rows, w,
+                                   n_iter=n_iter, init_offset=init_offset,
+                                   use_sigmoid=use_sigmoid, dtype=dtype)
+            wanted = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, g)) if wanted else ()
+        return (None, *(next(grads) if n else None for n in need))
+
+
+def ief_decode_train(end_rows, rc_rows, pos_rows, w32, dtype, *, n_iter=2,
+                     init_offset=0.001, use_sigmoid=False):
+    """Differentiable stage-2 IEF decode of the refine training step.
+
+    ``w32``: the f32 split operands from live parameters
+    (:func:`split_ief_weights`, never the serving cache). CPU tensors take
+    plain autograd through :func:`ief_decode_plain`; CUDA tensors take
+    :class:`IefDecodeTrain` (K4 forward, the plain recompute backward)."""
+    kw = dict(n_iter=n_iter, init_offset=init_offset, use_sigmoid=use_sigmoid)
+    if end_rows.device.type == "cpu":
+        return ief_decode_plain(end_rows, rc_rows, pos_rows,
+                                _ief_train_operands(w32, dtype), dtype=dtype,
+                                **kw)
+    return IefDecodeTrain.apply(
+        (dtype, w32["dims"], n_iter, init_offset, use_sigmoid),
+        end_rows, rc_rows, pos_rows, *(w32[k] for k in _K4_WEIGHTS))

@@ -78,7 +78,9 @@ def make_optimizer(name: str, params: Iterable[nn.Parameter],
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BatchNorm statistics), its optimizer, the
-    learning-rate schedule and the count of updates made."""
+    learning-rate schedule and the count of updates made. The stage-2 state
+    holds the refine model, whose parameters are all it trains: it has no
+    batch statistics, and the frozen stage 1 stays outside the state."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -88,11 +90,13 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, cfg_training,
                steps_per_epoch: int) -> "TrainState":
-        """Optimizer + StepLR from a ``training`` config section."""
+        """Optimizer + StepLR from a ``training`` config section, over the
+        parameters of ``model`` that ask for a gradient."""
         sched = step_lr(cfg_training.lr, steps_per_epoch,
                         cfg_training.nepoch_decay, cfg_training.decay_gamma)
         opt = make_optimizer(cfg_training.optimizer_name,
-                             model.parameters(), sched)
+                             [p for p in model.parameters() if p.requires_grad],
+                             sched)
         return cls(model=model, optimizer=opt, lr=sched)
 
     def apply_gradients(self) -> None:

@@ -10,9 +10,9 @@ The trees come with numpy leaves (convert with ``jax.device_get`` or
 
 The other way, :func:`resnet_batch_stats` gives the ResNet's running
 statistics as a flax ``batch_stats`` tree, and :func:`lidf_grads_from_jax`
-lays a JAX gradient tree (shaped like ``params``) onto the port's parameter
-names through the same transposes, so that gradients compare parameter by
-parameter.
+and :func:`refine_grads_from_jax` lay a JAX gradient tree (shaped like
+``params``) onto the port's parameter names through the same transposes,
+so that gradients compare parameter by parameter.
 
 Names mapped: ``resnet/conv1``, ``resnet/bn1``,
 ``resnet/layer{s}_{i}/{conv1,bn1,conv2,bn2,down_conv,down_bn}``,
@@ -149,4 +149,12 @@ def lidf_grads_from_jax(grads: Tree, model: LIDFModel) -> Dict[str, torch.Tensor
     """A JAX gradient tree of ``LIDFModel`` params (numpy leaves) in the
     port's layout: {name of ``model.named_parameters()``: tensor}."""
     m = lidf_from_jax({"params": grads}, copy.deepcopy(model).cpu())
+    return {name: p.detach() for name, p in m.named_parameters()}
+
+
+def refine_grads_from_jax(grads: Tree,
+                          model: RefineModel) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of ``RefineModel`` params (numpy leaves) in the
+    port's layout: {name of ``model.named_parameters()``: tensor}."""
+    m = refine_from_jax(grads, copy.deepcopy(model).cpu())
     return {name: p.detach() for name, p in m.named_parameters()}

@@ -719,3 +719,262 @@ def test_train_step_card_matches_cpu(dev):
         # d_vox_table sum in other orders through the whole model
         assert _rel_norm(g_card[name], ref) <= 1e-3, (name, _rel_norm(
             g_card[name], ref))
+
+
+# -- stage-2 training: K4's training entry, the refine step, checkpoints -------
+
+def _ief_train_case(rng, dev, dtype, n):
+    """Rows and live f32 parameters of the IEF decode at the kernel's
+    widths; the f32 split operands from them (requiring gradients)."""
+    c_end, c_rc, c_pos, c_dir = 128, 155, 51, 27
+    w = {"enc_w": rng.normal(size=(1, 16)), "enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp_weights(rng, "", c_end + c_rc + c_pos + 16, 256, w)
+    params = {k: _t(v, dev).requires_grad_() for k, v in w.items()}
+    rows = [_t(rng.normal(size=(n, c)), dev, dtype).requires_grad_(need)
+            for c, need in ((c_end, True), (c_rc, False), (c_pos, True))]
+    w32 = rd.split_ief_weights(params, c_end, c_rc, c_pos, c_dir, dtype)
+    return rows, params, w32
+
+
+def _ief_grads(out, rows, params, g):
+    leaves = [t for t in rows if t.requires_grad] + list(params.values())
+    # the split of the parameters is shared by both decodes' graphs
+    return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1000, 3])
+def test_ief_decode_train_is_k4_forward_and_the_plain_gradient(dev, dtype, n):
+    """On the card the training IEF decode's forward is K4 (the bits of
+    ``ief_decode`` on the operands ``prep_ief_weights`` makes, one launch)
+    and its backward is autograd of ``ief_decode_plain`` on the same
+    inputs, bit for bit; rc, which asks for no gradient, gets none."""
+    dt = DTYPES[dtype]
+    rows, params, w32 = _ief_train_case(np.random.default_rng(60), dev, dt, n)
+    before = rd.ief_decode.launches
+    out = rd.ief_decode_train(*rows, w32, dt)
+    assert rd.ief_decode.launches == before + 1
+    with torch.no_grad():
+        k4 = rd.ief_decode(*rows, rd.prep_ief_weights(
+            params, 128, 155, 51, 27, dt))
+    assert torch.equal(out, k4)
+    g = torch.randn(out.shape, generator=torch.Generator(dev).manual_seed(1),
+                    device=dev)
+    got = _ief_grads(out, rows, params, g)
+    plain = rd.ief_decode_plain(*rows, rd._ief_train_operands(w32, dt),
+                                dtype=dt)
+    want = _ief_grads(plain, rows, params, g)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+    assert rows[1].grad is None
+
+
+def _refine_cfg(dtype="bfloat16", **extra):
+    # the kernels' decoder widths (K4 takes 256-128-64-1), a narrow trunk
+    return load_config(overrides={
+        "mask_type": "all", "dataset": {"img_height": 48, "img_width": 64},
+        "model": {"rgb_out": 8, "pnet_out": 16, "pnet_gf": 8,
+                  "resnet_stages": [1, 1, 1, 1]},
+        "refine": {"pnet_out": 16, "pnet_gf": 8},
+        "grid": {"miss_sample_num": 256, "valid_sample_num": 512},
+        "tpu": {"max_pairs_per_ray": 12, "compute_dtype": dtype}, **extra})
+
+
+def _refine_pair(cfg, static, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (randomize_weights_(build_lidf(cfg, static, g), g),
+            randomize_weights_(build_refine(cfg, static, g), g))
+
+
+def _refine_steps(dev, cfg, lidf, refine, batches):
+    """Refine train steps on ``dev`` from copies of the given models; each
+    step's draws from a generator seeded by its index. Returns the losses
+    and the refine parameters after the steps."""
+    import copy
+
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_refine_train_step
+
+    lm, rm = copy.deepcopy(lidf).to(dev), copy.deepcopy(refine).to(dev)
+    state = TrainState.create(rm, cfg.training, steps_per_epoch=10)
+    step = make_refine_train_step(cfg, lm, rm, dev)
+    losses = []
+    for i, b in enumerate(batches):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        out = step(state, {k: v.to(dev) for k, v in b.items()}, gen, 10)
+        losses.append({k: v.item() for k, v in out.items()})
+    return losses, {n: p.detach().cpu() for n, p in rm.named_parameters()}
+
+
+def test_refine_steps_are_bit_identical_and_launch_their_kernels(dev):
+    """Two refine steps from the same state, twice: the same losses and
+    parameters bit for bit (no atomics on the path: the gathers' backward
+    is PyTorch's sorted index_put_, K5's gradient counts its ties with an
+    index_add_ of 0/1). Per step: K1 1 (the frozen stage 1), K4 2, K5 10."""
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+
+    cfg = _refine_cfg()
+    lidf, refine = _refine_pair(cfg, build_static(cfg))
+    batches = [{k: torch.from_numpy(v) for k, v in
+                synthetic_batch(60 + i, 2, 48, 64).items()} for i in range(2)]
+    names = ("ray_decode", "ray_decode_save", "ray_decode_bwd", "ief_decode")
+    counts = {n: getattr(rd, n) for n in names}
+    counts["segment_max0"] = segment.segment_max0
+    before = {n: f.launches for n, f in counts.items()}
+    a = _refine_steps(dev, cfg, lidf, refine, batches)
+    launched = {n: f.launches - before[n] for n, f in counts.items()}
+    assert launched == {"ray_decode": 2, "ray_decode_save": 0,
+                        "ray_decode_bwd": 0, "ief_decode": 4,
+                        "segment_max0": 20}, launched
+    b = _refine_steps(dev, cfg, lidf, refine, batches)
+    assert a[0] == b[0]
+    assert all(np.isfinite(v) for ls in a[0] for v in ls.values())
+    for n in a[1]:
+        assert torch.equal(a[1][n], b[1][n]), n
+        assert not torch.equal(a[1][n], refine.state_dict()[n]), n
+
+
+def test_refine_step_card_matches_cpu(dev):
+    """One f32 refine step of a tiny model on the card (K1, K4, K5) and on
+    the CPU (plain versions): losses within 1e-4, each refine gradient
+    within 1e-3 of its norm (the refine PointNet's products and the decode
+    sum in other orders)."""
+    import copy
+
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+    from implicit_depth_torch.models.lidf import prepare_inputs
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_refine_train_step
+
+    cfg = _refine_cfg("float32")
+    static = build_static(cfg)
+    lidf, refine = _refine_pair(cfg, static, seed=1)
+    raw = {k: torch.from_numpy(v) for k, v in synthetic_batch(62, 2, 48, 64).items()}
+    gen = torch.Generator().manual_seed(2)
+    inp = prepare_inputs(static, raw, train=True, generator=gen)
+    noise = {k: torch.rand((2,), generator=gen) for k in ("apply", "bucket", "u")}
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        lm, rm = copy.deepcopy(lidf).to(device), copy.deepcopy(refine).to(device)
+        state = TrainState.create(rm, cfg.training, steps_per_epoch=10)
+        losses = make_refine_train_step(cfg, lm, rm, device)(
+            state, {k: v.to(device) for k, v in raw.items()}, None, 10,
+            valid_idx=inp["valid_idx"], miss_start=inp["miss_start"],
+            noise={k: v.to(device) for k, v in noise.items()})
+        runs.append((losses, {n: p.grad.cpu() for n, p in
+                              rm.named_parameters()}))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    for k in l_cpu:
+        np.testing.assert_allclose(l_card[k].item(), l_cpu[k].item(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    for name, ref in g_cpu.items():
+        assert _rel_norm(g_card[name], ref) <= 1e-3, (name, _rel_norm(
+            g_card[name], ref))
+
+
+def _old_k4_operands(refine):
+    """K4's operands straight from the decoder's weights, each cast as it
+    is split (no f32 split in between): the operands a served frame took
+    before the training decode shared the split."""
+    w = refine.offset_dec.decode_weights()
+    c_end, c_rc, c_pos, c_dir = (refine.dims[k] for k in
+                                 ("c_end", "c_rc", "c_pos", "c_dir"))
+    dtype = refine.dtype
+    w1 = w["w1"]
+    o1, o2 = c_end, c_end + (c_rc - c_dir)
+    o3, o4 = o2 + c_pos, o2 + c_pos + c_dir
+    kp = -(-(c_end + c_rc + c_pos) // 16) * 16
+    a_vec, c_vec = rd._rank1(w["enc_w"], w["enc_b"], w1[o4:], dtype)
+    out = {"w1": rd._pad_rows(torch.cat([w1[:o1], w1[o1:o2], w1[o3:o4],
+                                         w1[o2:o3]], 0), kp).to(dtype
+                                                                ).contiguous(),
+           "b1": w["b1"].float(), "a_vec": a_vec, "c_vec": c_vec}
+    out.update({"w2": w["w2"].to(dtype).contiguous(),
+                "b2": rd._q(w["b2"], dtype),
+                "w3": w["w3"].to(dtype).contiguous(),
+                "b3": rd._q(w["b3"], dtype),
+                "w4": w["w4"].reshape(-1).to(dtype).contiguous(),
+                "b4": w["b4"].reshape(1).float()})
+    out["dims"] = (c_end, c_rc, c_pos)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_served_frame_is_unchanged_by_the_training_decode(dev, dtype,
+                                                          monkeypatch):
+    """Serving goes on through K4 on the cached operands: a frame served
+    is bit for bit the frame served with K4's operands made straight from
+    the weights (``_old_k4_operands``)."""
+    from implicit_depth_torch.models.refine import RefineModel
+
+    cfg = _refine_cfg(dtype)
+    static = build_static(cfg, n_rays=48 * 64)
+    rng = np.random.default_rng(63)
+    depth = rng.uniform(0.6, 1.4, (48, 64)).astype(np.float32)
+    depth[rng.random((48, 64)) < 0.3] = 0
+    rgb = rng.integers(0, 255, (48, 64, 3), dtype=np.uint8)
+    frame = (rgb, depth, (60.0, 60.0, 32.0, 24.0))
+    lidf, refine = _refine_pair(cfg, static, seed=3)
+    dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+    now = dc.complete(*frame)
+    old = _old_k4_operands(refine)
+    new = refine.decode_operands()
+    for k in rd._K4_WEIGHTS:
+        assert torch.equal(old[k], new[k]), k
+    monkeypatch.setattr(RefineModel, "decode_operands",
+                        lambda self: _old_k4_operands(self))
+    before = dc.complete(*frame)
+    for k in ("depth", "depth_pred"):
+        assert now[k].tobytes() == before[k].tobytes(), k
+
+
+def test_checkpoint_saved_on_the_card_restores_on_the_cpu_and_back(dev,
+                                                                     tmp_path):
+    """A refine train state saved on the card restores into CPU models and,
+    saved again from there, back onto the card: parameters, optimizer
+    state and step bit for bit; a served frame from the restored pair
+    equals the original pair's."""
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+    from implicit_depth_torch.train.checkpoint import (
+        Checkpointer,
+        restore_params_only,
+    )
+    from implicit_depth_torch.train.state import TrainState
+
+    cfg = _refine_cfg()
+    static = build_static(cfg)
+    lidf, refine = _refine_pair(cfg, static, seed=4)
+    batch = {k: torch.from_numpy(v) for k, v in
+             synthetic_batch(64, 2, 48, 64).items()}
+    _, params = _refine_steps(dev, cfg, lidf, refine, [batch])
+    rm = build_refine(cfg, static).to(dev)
+    rm.load_state_dict({n: p.to(dev) for n, p in params.items()})
+    state = TrainState.create(rm, cfg.training, steps_per_epoch=10)
+    for p in rm.parameters():  # an optimizer state on the card
+        p.grad = torch.ones_like(p)
+    state.apply_gradients()
+    Checkpointer(str(tmp_path / "card")).save(state, epoch=1)
+    Checkpointer(str(tmp_path / "lidf")).save(lidf.to(dev), epoch=0)
+
+    cpu_state = TrainState.create(build_refine(cfg, static), cfg.training,
+                                  steps_per_epoch=10)
+    cpu_state, _ = Checkpointer(str(tmp_path / "card")).restore(cpu_state)
+    Checkpointer(str(tmp_path / "cpu")).save(cpu_state, epoch=1)
+    back = TrainState.create(build_refine(cfg, static).to(dev), cfg.training,
+                             steps_per_epoch=10)
+    back, _ = Checkpointer(str(tmp_path / "cpu")).restore(back)
+    assert cpu_state.step == back.step == state.step == 1
+    for (n, p), pc, pb in zip(rm.named_parameters(),
+                              cpu_state.model.parameters(),
+                              back.model.parameters()):
+        assert pc.device.type == "cpu" and pb.device.type == "cuda"
+        assert torch.equal(p.cpu(), pc.detach()) and torch.equal(p, pb), n
+    sa, sb = (s.optimizer.state_dict()["state"] for s in (state, back))
+    for i in sa:
+        for k in sa[i]:
+            assert torch.equal(torch.as_tensor(sa[i][k]).cpu(),
+                               torch.as_tensor(sb[i][k]).cpu()), k
+    lm = restore_params_only(str(tmp_path / "lidf"), build_lidf(cfg, static))
+    for k, v in lidf.state_dict().items():
+        assert torch.equal(v.cpu(), lm.state_dict()[k]), k
