@@ -5,8 +5,9 @@ port's two-stage ``DepthCompleter`` (in the default per_ray decode mode and
 in the ``global`` and dense modes), trains stage 1 for a few steps (in
 every ``decode_bwd`` mode: ``kernel_save``, ``kernel``, ``kernel_save_all``
 and ``xla``) and stage 2 behind a frozen stage 1, all at the full default
-width, cross-checks frames and train steps against the plain CPU path, and
-serves and resumes from checkpoints.
+width, cross-checks frames and train steps against the plain CPU path,
+serves and resumes from checkpoints, and runs the trainer through the CLI
+(``implicit_depth_torch.main``) on the user's configs.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
@@ -104,6 +105,34 @@ Phases:
      ``DepthCompleter.from_checkpoint`` serves a 480x640 frame bit for bit
      as the in-memory pair; the refine state restored into fresh models
      takes one more step bit for bit as the uninterrupted state does.
+ 18-22. the trainer, data pipeline and CLI: ``implicit_depth_torch.main``
+     on the user's configs (configs/train_lidf.yaml, train_refine.yaml,
+     test_lidf.yaml, read by the port's YAML reader) with synthetic data,
+     each cut a ``--set`` override, cuDNN deterministic; first the loader's
+     host time per sample and per batch of 32;
+ 18. (A) stage 1 at the config's batch 32, one epoch of 2 steps from
+     phase 6's unit-scale weights (a checkpoint the CLI loads): launch
+     counters from 0 (K2 1, K3 1, K5 2 per step), the trainer's step time
+     (epoch_time_s / steps), peak memory and, with ``--profile``, a step's
+     device time; the first step's K2 and K3 calls (recorded) against their
+     plain versions computed over chunks of 80,000 rays, with phase 7's
+     bf16 tolerances, timed; then 10 steps at batch 4 for the trainer's
+     step time beside phase 6's;
+ 19. (B) stage 1 at batch 4, 2 epochs of 2 steps, a checkpoint every step,
+     each epoch validated over 8 synthetic frames: launches per step as
+     phase 6, per eval frame K1 1, K5 2; finite losses, 2 epoch records,
+     valid_log.txt, latest, epoch000, epoch001 and best checkpoints;
+ 20. (C) B killed by a raising step after 3 steps; a fresh trainer resumes
+     at epoch 1 skipping 1 step and ends with B's parameters and buffers bit
+     for bit; a further resume starts at epoch 2 with no skip;
+ 21. (D) configs/test_lidf.yaml from B's checkpoint: result/synthetic.csv
+     (JAX's header, a row per frame, MEAN) equal to cleargrasp_metrics
+     recomputed from a fresh trainer's eval outputs; K1 1, K5 2 per frame;
+ 22. (E) configs/train_refine.yaml behind B's checkpoint, one epoch of 2
+     steps at batch 4, validated: per step K1 1, K4 2, K5 10, per eval frame
+     as a served frame; the frozen stage 1 bit for bit its checkpoint; a
+     480x640 frame from ``DepthCompleter.from_checkpoint`` of both
+     checkpoints, input depth bit for bit.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -364,12 +393,15 @@ def bound(name, a, dt, n_iter=2, rows=None):
         flops = 2 * (n * kb * ((c_vox + 6 + 12 * multires) * 2 * g1 + 3 * tail)
                      + n * c_ray * 2 * g1)
         byt = nbytes(vt, cells, pos, rf, *w.values()) + 2 * n * kb * 4
+        # the saves are written in the compute dtype (the table may be
+        # read in f32: the trainer hands K2 the PointNet's f32 features)
+        esize = torch.empty((), dtype=dt).element_size()
         if name != "ray_decode":  # e1, z1p, trig written
-            byt += n * kb * (2 * g1 + 12 * multires) * vt.element_size()
+            byt += n * kb * (2 * g1 + 12 * multires) * esize
         if name == "ray_decode_save_all":
             # and per IEF iteration and the probability decoder h2, h3; the
             # offsets entering each iteration, the final one, the logit (f32)
-            byt += n * kb * ((n_iter + 1) * (g2 + g3) * vt.element_size()
+            byt += n * kb * ((n_iter + 1) * (g2 + g3) * esize
                              + (n_iter + 2) * 4)
         peak = PEAK_TC[dt]
     elif name == "pair_decode":
@@ -484,7 +516,9 @@ def record_calls(mods, run, when=None, keep=None):
     """``run()`` with each kernel wrapper of ``mods`` ({name: (module,
     attribute)}) replaced by a recorder; returns {(name, shapes): (args,
     kwargs)} of each wrapper's first call per input shape (among the calls
-    ``when(args)`` accepts; stored as ``keep(args)`` gives them)."""
+    ``when(args)`` accepts; stored as ``keep(args)`` gives them). The
+    launches ``run()`` makes count on the wrappers as without the
+    recorders."""
     recorded = {}
     originals = {name: getattr(m, attr) for name, (m, attr) in mods.items()}
 
@@ -499,13 +533,17 @@ def record_calls(mods, run, when=None, keep=None):
         call.launches = 0
         return call
 
+    recorders = {name: recorder(name) for name in mods}
     for name, (m, attr) in mods.items():
-        setattr(m, attr, recorder(name))
+        setattr(m, attr, recorders[name])
     try:
         run()
     finally:
         for name, (m, attr) in mods.items():
             setattr(m, attr, originals[name])
+            # launches counted on the recorder go to the wrapper's count
+            if recorders[name].launches:
+                originals[name].launches += recorders[name].launches
     torch.cuda.synchronize()
     return recorded
 
@@ -1952,6 +1990,473 @@ def refine_phases(dev, profile=False):
     return rows
 
 
+# -- the trainer, data pipeline and CLI (phases 18-22) -----------------------
+# the user's configs, read through the port's YAML reader; each cut is a
+# --set override (PERF.md §4), the data synthetic (no dataset is in the repo)
+TRAINER_CONFIGS = {"lidf": "configs/train_lidf.yaml",
+                   "refine": "configs/train_refine.yaml",
+                   "test": "configs/test_lidf.yaml"}
+TRAINER_SET = ["dataset.type=synthetic", "training.log_interval=1"]
+# A: the config's batch 32, one epoch of 2 steps
+BATCH32_SET = ["dataset.synthetic_len=64", "training.nepochs=1",
+               "training.do_valid=False"]
+# the trainer at batch 4, 10 steps, beside phase 6's bare step
+BATCH4_SET = ["training.batch_size=4", "dataset.synthetic_len=40",
+              "training.nepochs=1", "training.do_valid=False"]
+# B: batch 4, 2 epochs of 2 steps, a mid-epoch checkpoint every step, each
+# epoch validated over the synthetic valid split (synthetic_len frames)
+STAGE1_SET = ["training.batch_size=4", "dataset.synthetic_len=8",
+              "training.nepochs=2", "training.ckpt_every_steps=1",
+              "training.valid_batch_size=1"]
+# C: B killed by a step that raises after this many steps
+KILL_AFTER = 3
+# E: stage 2, batch 4, one epoch of 2 steps, validated
+REFINE_TRAINER_SET = ["training.batch_size=4", "dataset.synthetic_len=8",
+                      "training.nepochs=1", "training.valid_batch_size=1"]
+# per eval frame: stage 1 (K1 and the stage-1 PointNet's 2 pools); stage 2
+# as a served frame
+EXPECT_PER_EVAL_FRAME = {"ray_decode": 1, "segment_max0": 2}
+# batch 32's plain K2 and K3 are computed over chunks of this many rays
+# (the batch-4 step's 80,000), so that their f32 graphs fit the card
+PLAIN_CHUNK_RAYS = 80000
+LOADER_SAMPLES = 32
+
+
+def cli(dev, stage, workdir, *sets, make=False):
+    """``implicit_depth_torch.main`` on ``dev`` with the config of ``stage``
+    (TRAINER_CONFIGS), logging into ``workdir``: the trainer it ran (or,
+    with ``make``, built and did not run)."""
+    from implicit_depth_torch import main as cli_main
+    argv = ["--device", dev.type, "--cfg_paths", TRAINER_CONFIGS[stage],
+            "--set", f"base_log_dir={workdir}", "log_name=run", *TRAINER_SET,
+            *sets]
+    return (cli_main.make_trainer if make else cli_main.main)(argv)
+
+
+def counted(run):
+    """``run()`` with every kernel wrapper's count from 0; returns (its
+    result, {kernel: launches})."""
+    counts = counters()
+    for f in counts.values():
+        f.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counts.items()}
+
+
+def expect_launches(label, launches, steps, frames, per_step, per_frame):
+    """Each kernel's launches against ``steps`` x ``per_step`` + ``frames``
+    x ``per_frame`` (a kernel named in neither: 0)."""
+    want = {k: steps * per_step.get(k, 0) + frames * per_frame.get(k, 0)
+            for k in launches}
+    log(f"{label}: launches {launches} in {steps} steps and {frames} eval "
+        f"frames")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+
+
+def epoch_records(tr):
+    with open(tr.epoch_log_path) as f:
+        return [json.loads(line) for line in f.read().splitlines()]
+
+
+def trainer_step_ms(tr, record):
+    """The trainer's host-clock time per step of one epoch's record."""
+    return record["train"]["epoch_time_s"] * 1e3 / tr.steps_per_epoch
+
+
+def loader_phase(dev, workdir):
+    """Host seconds per synthetic sample at the config's resolution, one
+    thread, and per batch of 32 through the trainer's loader (its 4
+    threads)."""
+    tr = cli(dev, "lidf", workdir, *BATCH32_SET, make=True)
+    ds = tr.train_loader.dataset
+    t0 = time.perf_counter()
+    for i in range(LOADER_SAMPLES):
+        ds.__getitem__(i, 0)
+    per_sample = (time.perf_counter() - t0) / LOADER_SAMPLES
+    t0 = time.perf_counter()
+    n = sum(1 for _ in tr.train_loader.epoch(0))
+    per_batch = (time.perf_counter() - t0) / n
+    log(f"loader: {per_sample * 1e3:.2f} ms a synthetic sample at "
+        f"{ds.h}x{ds.w} (one thread); {per_batch * 1e3:.1f} ms a batch of "
+        f"{tr.train_loader.batch_size} through the trainer's loader "
+        f"({tr.train_loader.num_workers} threads)")
+    return {"sample_ms": per_sample * 1e3, "batch32_ms": per_batch * 1e3}
+
+
+def chunked_plain_k2(a2, kw2, n_chunk):
+    """``ray_decode_plain(saves=True)`` over chunks of rays, concatenated:
+    the same function, rows computed independently."""
+    from implicit_depth_torch.ops import ray_decode as rd
+    vt, cells, pos, rf, w = a2
+    parts = [rd.ray_decode_plain(vt, cells[s:s + n_chunk], pos[s:s + n_chunk],
+                                 rf[s:s + n_chunk], w, **kw2, saves=True)
+             for s in range(0, cells.shape[0], n_chunk)]
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+            tuple(torch.cat([p[2][i] for p in parts]) for i in range(3)))
+
+
+def chunked_plain_k3(a3, kw3, dt, n_chunk):
+    """``ray_decode_bwd_plain`` from the saves over chunks of rays: the
+    table's and weights' gradients summed over the chunks, the rays'
+    concatenated."""
+    from implicit_depth_torch.ops import ray_decode as rd
+    vt, cells, pos, rf, w, saved, g_off, g_logit = a3
+    kb = cells.shape[1]
+    d_vt, d_rf, d_w = None, [], {}
+    for s in range(0, cells.shape[0], n_chunk):
+        e = s + n_chunk
+        g = rd.ray_decode_bwd_plain(
+            vt, cells[s:e], pos[s:e], rf[s:e], w, g_off[s:e], g_logit[s:e],
+            **kw3, dtype=dt, saved=tuple(t[s * kb:e * kb] for t in saved))
+        d_vt = g[0] if d_vt is None else d_vt + g[0]
+        d_rf.append(g[1])
+        for k, v in g[2].items():
+            d_w[k] = v if k not in d_w else d_w[k] + v
+    return d_vt, torch.cat(d_rf), d_w
+
+
+@torch.no_grad()
+def batch32_kernel_rows(recorded):
+    """Phase 18's K2 and K3 checks: the calls recorded from a batch-32
+    trainer step, in bf16 (as the trainer runs), against their plain
+    versions computed over chunks of rays (``chunked_plain_k2`` /
+    ``_k3``), with phase 7's tolerances; times and bounds."""
+    from implicit_depth_torch.ops import ray_decode as rd
+    dt, n_chunk = torch.bfloat16, PLAIN_CHUNK_RAYS
+    first = {}
+    for (name, _), call in recorded.items():
+        first.setdefault(name, call)
+    a2, kw2 = first["ray_decode_save"]
+    a3, kw3 = first["ray_decode_bwd"]
+    got = rd.ray_decode_save(*a2, **kw2)
+    ref = chunked_plain_k2(a2, kw2, n_chunk)
+    tol_out = TRAIN_TOL[("ray_decode_save_out", dt)]
+    checks = [("offset", got[0], ref[0], tol_out),
+              ("logit", got[1], ref[1], tol_out)]
+    for nm, g, r in zip(("e1", "z1p", "trig"), got[2], ref[2]):
+        checks.append((nm, g, r, TRAIN_TOL[("ray_decode_save", dt)]
+                       * r.float().abs().max().item()))
+    err2 = row_checks("ray_decode_save", dt, checks)
+    del ref
+    k3_args = (*a2, got[2], a3[6], a3[7])
+    k3 = rd.ray_decode_bwd(*k3_args, **kw3)
+    p3 = chunked_plain_k3(k3_args, kw3, dt, n_chunk)
+    torch.cuda.synchronize()
+    tol3 = TRAIN_TOL[("ray_decode_bwd", dt)]
+    floors = {"off_b4": a3[6].abs().sum().item(),
+              "prob_b4": a3[7].abs().sum().item()}
+    _, worst, err3 = bwd_checks("ray_decode_bwd", dt, k3, p3, tol3, floors)
+    del k3, p3
+    rows = {}
+    for name, args, kw, err, kern, plain in (
+            ("ray_decode_save", a2, kw2, err2,
+             lambda: rd.ray_decode_save(*a2, **kw2),
+             lambda: chunked_plain_k2(a2, kw2, n_chunk)),
+            ("ray_decode_bwd", k3_args, kw3, err3,
+             lambda: rd.ray_decode_bwd(*k3_args, **kw3),
+             lambda: chunked_plain_k3(k3_args, kw3, dt, n_chunk))):
+        ms = time_ms(kern, warmup=1, reps=3)
+        plain_ms = time_ms(plain, warmup=0, reps=1)
+        b_ms, b_by, _, _ = bound(name, args, dt)
+        rows[name] = {"shape": list(args[1].shape), "max_abs_err": err,
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by}
+        if name == "ray_decode_bwd":
+            rows[name].update(max_rel_err=worst[1], worst=worst[0])
+        log(f"kernel {name} bf16 at batch 32 {rows[name]['shape']}: ms "
+            f"{ms:.4f} plain_ms (chunks of {n_chunk} rays) {plain_ms:.4f} "
+            f"bound_ms {b_ms:.4f} ({b_by})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def unit_scale_checkpoint(stage, sets, ckpt_dir):
+    """A checkpoint of the stage-1 model of the CLI's config with the
+    seeded unit-scale weights of ``build_models`` (phase 6's), for the
+    trainer to start from (``checkpoint_path``): the builders' own initial
+    decoders output ~1e-3, where no tolerance of K2 against its plain
+    version could bite."""
+    from implicit_depth_torch.builder import (
+        build_lidf,
+        build_static,
+        randomize_weights_,
+    )
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.main import parse_overrides
+    from implicit_depth_torch.train.checkpoint import Checkpointer
+    cfg = load_config(TRAINER_CONFIGS[stage],
+                      overrides=parse_overrides([*TRAINER_SET, *sets]))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = randomize_weights_(build_lidf(cfg, build_static(cfg), gen), gen)
+    Checkpointer(str(ckpt_dir)).save(model, epoch=0)
+    return ckpt_dir
+
+
+def trainer_batch32_phase(dev, workdir, profile=False):
+    """Phase 18 (A): stage 1 through the CLI at the config's batch 32, one
+    epoch of 2 steps from unit-scale weights (``unit_scale_checkpoint``),
+    recording the first step's K2 and K3 calls (checked after:
+    ``batch32_kernel_rows``); then the same at batch 4 for 10 steps, the
+    trainer's step time beside phase 6's bare step."""
+    init = unit_scale_checkpoint("lidf", BATCH32_SET, workdir / "init")
+    sets = (*BATCH32_SET, f"checkpoint_path={init}")
+    holder = {}
+    torch.cuda.reset_peak_memory_stats()
+    recorded, launches = counted(lambda: record_calls(
+        train_kernel_modules(),
+        lambda: holder.update(tr=cli(dev, "lidf", workdir / "a32", *sets))))
+    tr = holder["tr"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = epoch_records(tr)[-1]
+    step_ms = trainer_step_ms(tr, rec)
+    expect_launches("trainer batch 32", launches, tr.steps_per_epoch, 0,
+                    EXPECT_PER_STEP, {})
+    if not np.isfinite(rec["train"]["loss_net"]):
+        raise AssertionError(f"trainer batch 32: losses {rec['train']}")
+    log(f"trainer batch 32: {tr.steps_per_epoch} steps of batch "
+        f"{tr.cfg.training.batch_size} at {tr.cfg.dataset.img_height}x"
+        f"{tr.cfg.dataset.img_width}, {tr.static.n_rays} rays and "
+        f"{tr.static.n_valid} valid points an image, step time (epoch_time_s "
+        f"/ steps) {step_ms:.1f} ms, peak device memory {peak:.2f} GiB (with "
+        f"the recorded first step's K2 and K3 operands held), losses "
+        f"{rec['train']}")
+    out = {"step_ms": step_ms, "peak_gib": peak, "launches": launches}
+    if profile:
+        from implicit_depth_torch.train.trainer import to_device
+        batch = to_device(next(iter(tr.train_loader.epoch(1))), tr.device)
+        out["step_device_ms"] = profile_device_ms(
+            lambda: tr.train_step(tr.state, batch, tr.generator, 1),
+            "trainer batch 32: device time of one step")
+    del tr, holder
+    torch.cuda.empty_cache()
+    out["kernels"] = batch32_kernel_rows(recorded)
+    del recorded
+    torch.cuda.empty_cache()
+    tr4, launches4 = counted(lambda: cli(dev, "lidf", workdir / "a4",
+                                         *BATCH4_SET,
+                                         f"checkpoint_path={init}"))
+    expect_launches("trainer batch 4", launches4, tr4.steps_per_epoch, 0,
+                    EXPECT_PER_STEP, {})
+    out["batch4_step_ms"] = trainer_step_ms(tr4, epoch_records(tr4)[-1])
+    log(f"trainer batch 4: step time {out['batch4_step_ms']:.1f} ms over "
+        f"{tr4.steps_per_epoch} steps")
+    return out
+
+
+def assert_same_tensors(label, a, b):
+    """Two state dicts, every tensor bit for bit."""
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if set(a) != set(b) or differ:
+        raise AssertionError(f"{label}: differ at {differ or set(a) ^ set(b)}")
+    log(f"{label}: {len(a)} tensors bit for bit")
+
+
+def trainer_stage1_phase(dev, workdir):
+    """Phases 19-20 (B, C): stage 1 through the CLI at batch 4, 2 epochs of
+    2 steps with validation and a checkpoint every step; then the same run
+    killed after KILL_AFTER steps, resumed mid-epoch by a fresh trainer to
+    the bits of the uninterrupted one, and resumed again at its end. cuDNN
+    runs its deterministic algorithms. Returns B's trainer and launches."""
+    import os
+
+    from implicit_depth_torch.train import trainer as trainer_mod
+
+    tr, launches = counted(lambda: cli(dev, "lidf", workdir / "b",
+                                       *STAGE1_SET))
+    recs = epoch_records(tr)
+    steps = tr.steps_per_epoch * len(recs)
+    frames = sum(len(tr.make_valid_loaders()["synthetic"].dataset)
+                 for r in recs if "valid" in r)
+    expect_launches("trainer stage 1", launches, steps, frames,
+                    EXPECT_PER_STEP, EXPECT_PER_EVAL_FRAME)
+    ckpts = ("latest_network", "epoch000_network", "epoch001_network",
+             "best_network")
+    missing = [c for c in ckpts if not os.path.isdir(
+        os.path.join(tr.ckpt_dir, c))]
+    losses = [v for r in recs for v in (*r["train"].values(),
+                                        *r["valid"]["synthetic"].values())]
+    if (len(recs) != 2 or missing or not os.path.exists(tr.valid_log_path)
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"trainer stage 1: records {recs}, missing "
+                             f"checkpoints {missing}")
+    log(f"trainer stage 1: {len(recs)} epochs, step times "
+        f"{[trainer_step_ms(tr, r) for r in recs]} ms (a checkpoint every "
+        f"step), valid {[r['valid'] for r in recs]}; checkpoints {ckpts}")
+
+    class Preempted(RuntimeError):
+        pass
+
+    real_make, calls = trainer_mod.make_lidf_train_step, {"n": 0}
+
+    def dying_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def dying(*sa, **skw):
+            if calls["n"] >= KILL_AFTER:
+                raise Preempted("simulated preemption")
+            calls["n"] += 1
+            return step(*sa, **skw)
+        return dying
+
+    trainer_mod.make_lidf_train_step = dying_make
+    try:
+        cli(dev, "lidf", workdir / "c", *STAGE1_SET)
+        raise AssertionError("trainer resume: the dying step did not raise")
+    except Preempted:
+        pass
+    finally:
+        trainer_mod.make_lidf_train_step = real_make
+    resumed = cli(dev, "lidf", workdir / "c", *STAGE1_SET, make=True)
+    at = (resumed.start_epoch, resumed._resume_skip_steps, resumed.state.step)
+    want = divmod(KILL_AFTER, tr.steps_per_epoch) + (KILL_AFTER,)
+    log(f"trainer resume: killed after {KILL_AFTER} steps; the fresh trainer "
+        f"starts at epoch {at[0]}, skipping {at[1]} steps, at update {at[2]}")
+    if at != want:
+        raise AssertionError(f"trainer resume: at {at}, expected {want}")
+    resumed.run()
+    assert_same_tensors("trainer resume: the resumed run's parameters and "
+                        "buffers against the uninterrupted run's",
+                        tr.model.state_dict(), resumed.model.state_dict())
+    again = cli(dev, "lidf", workdir / "c", *STAGE1_SET, make=True)
+    if (again.start_epoch, again._resume_skip_steps) != (2, 0):
+        raise AssertionError(f"trainer resume: a resume after the run starts "
+                             f"at {again.start_epoch}, skip "
+                             f"{again._resume_skip_steps}")
+    log("trainer resume: a resume after the end starts at epoch 2, no skip")
+    return tr, launches
+
+
+def trainer_test_phase(dev, workdir, ckpt_dir):
+    """Phase 21 (D): configs/test_lidf.yaml through the CLI from B's
+    checkpoint: the per-image CSV, each value equal to cleargrasp_metrics
+    of the eval outputs of a fresh trainer of the same config."""
+    import csv
+    import os
+
+    from implicit_depth_torch.train.metrics import (
+        cleargrasp_metrics,
+        depth_images_from_outputs,
+    )
+    from implicit_depth_torch.train.trainer import to_device
+
+    sets = (f"checkpoint_path={ckpt_dir}", "dataset.synthetic_len=8")
+    tr, launches = counted(lambda: cli(dev, "test", workdir / "d", *sets))
+    loader = tr.make_valid_loaders()["synthetic"]
+    expect_launches("trainer test", launches, 0, len(loader.dataset), {},
+                    EXPECT_PER_EVAL_FRAME)
+    with open(os.path.join(tr.result_dir, "synthetic.csv")) as f:
+        rows = list(csv.reader(f))
+    fresh = cli(dev, "test", workdir / "d2", *sets, make=True)
+    h, w = fresh.cfg.dataset.img_height, fresh.cfg.dataset.img_width
+    want = []
+    for batch in loader.epoch(0):
+        inputs, pred, _ = fresh._eval(to_device(batch, fresh.device))
+        depth = depth_images_from_outputs(inputs, pred, h, w)
+        for i, path in enumerate(batch["item_path"]):
+            m = cleargrasp_metrics(depth[i], batch["depth"][i],
+                                   batch["corrupt_mask"][i])
+            if m:
+                want.append([path, *(repr(m[k]) for k in (
+                    "rmse", "abs_rel", "mae", "a1", "a2", "a3"))])
+    mean = np.asarray([r[1:] for r in want], np.float64).mean(0)
+    header = ["Image Num", "RMSE", "REL", "MAE", "Delta 1.05", "Delta 1.10",
+              "Delta 1.25"]
+    ok = (rows[0] == header and rows[1:-1] == want and rows[-1][0] == "MEAN"
+          and np.array_equal(np.asarray(rows[-1][1:], np.float64), mean))
+    log(f"trainer test: result/synthetic.csv {len(rows) - 2} rows and MEAN "
+        f"{rows[-1][1:]}; {'equal to' if ok else 'NOT equal to'} the "
+        f"metrics recomputed from a fresh trainer's eval outputs")
+    if not ok:
+        raise AssertionError(f"trainer test: CSV {rows} against {want}")
+    return launches
+
+
+def trainer_refine_phase(dev, workdir, ckpt_dir, profile=False):
+    """Phase 22 (E): configs/train_refine.yaml through the CLI behind B's
+    checkpoint: launches per step and eval frame, the stage-1 tensors bit
+    for bit the checkpoint's; then DepthCompleter.from_checkpoint on both
+    checkpoints serves a 480x640 frame, input depth bit for bit."""
+    from implicit_depth_torch.builder import build_lidf
+    from implicit_depth_torch.infer import DepthCompleter
+    from implicit_depth_torch.train.checkpoint import restore_params_only
+
+    tr, launches = counted(lambda: cli(dev, "refine", workdir / "e",
+                                       f"lidf_ckpt_path={ckpt_dir}",
+                                       *REFINE_TRAINER_SET))
+    recs = epoch_records(tr)
+    frames = len(tr.make_valid_loaders()["synthetic"].dataset)
+    expect_launches("trainer stage 2", launches, tr.steps_per_epoch, frames,
+                    EXPECT_PER_REFINE_STEP, EXPECT_PER_FRAME)
+    if not all(np.isfinite(v) for v in recs[-1]["train"].values()):
+        raise AssertionError(f"trainer stage 2: {recs}")
+    saved = restore_params_only(ckpt_dir, build_lidf(tr.cfg, tr.static))
+    assert_same_tensors("trainer stage 2: the frozen stage 1 against its "
+                        "checkpoint", {k: v.cpu() for k, v in
+                                       tr.lidf_model.state_dict().items()},
+                        saved.state_dict())
+    step_ms = trainer_step_ms(tr, recs[-1])
+    log(f"trainer stage 2: step time {step_ms:.1f} ms, losses "
+        f"{recs[-1]['train']}, valid {recs[-1].get('valid')}")
+    out = {"step_ms": step_ms, "launches": launches}
+    if profile:
+        from implicit_depth_torch.train.trainer import to_device
+        batch = to_device(next(iter(tr.train_loader.epoch(1))), tr.device)
+        out["step_device_ms"] = profile_device_ms(
+            lambda: tr.train_step(tr.state, batch, tr.generator, 1),
+            "trainer stage 2: device time of one step")
+    dc = DepthCompleter.from_checkpoint(ckpt_dir, tr.ckpt_dir, cfg=tr.cfg,
+                                        device=dev)
+    rgb, depth, intr = make_frames(1, FRAME_HW)[0]
+    got = dc.complete(rgb, depth, intr)
+    have = depth != 0
+    same = got["depth"][have].tobytes() == depth[have].tobytes()
+    log(f"trainer stage 2: a {FRAME_HW[0]}x{FRAME_HW[1]} frame served from "
+        f"both checkpoints; input depth {'bit for bit' if same else 'CHANGED'}"
+        f", finite {bool(np.isfinite(got['depth']).all())}")
+    if not (same and np.isfinite(got["depth"]).all()):
+        raise AssertionError("trainer stage 2: the served frame")
+    return out
+
+
+def trainer_phases(dev, profile=False):
+    """Phases 18-22 (see the module doc) in a temporary directory. Returns
+    {kernel: its trainer record} for the kernels line, and the step times."""
+    import os
+    import pathlib
+    import tempfile
+
+    os.environ["IDT_TIMING"] = "1"  # the trainer logs its epoch's phases
+    with tempfile.TemporaryDirectory() as d, cudnn_flags(
+            deterministic=True, benchmark=False):
+        workdir = pathlib.Path(d)
+        loader = loader_phase(dev, workdir / "loader")
+        a = trainer_batch32_phase(dev, workdir, profile)
+        b, b_launches = trainer_stage1_phase(dev, workdir)
+        d_launches = trainer_test_phase(dev, workdir, b.ckpt_dir)
+        e = trainer_refine_phase(dev, workdir, b.ckpt_dir, profile)
+    per_step = {k: per for k, per in EXPECT_PER_STEP.items()}
+    rows = {}
+    for name in counters():
+        rows[name] = {
+            "launches": {"batch32": a["launches"][name],
+                         "stage1": b_launches[name], "test": d_launches[name],
+                         "stage2": e["launches"][name]},
+            "launches_per_step": per_step.get(name, 0),
+            "launches_per_eval_frame": EXPECT_PER_EVAL_FRAME.get(name, 0),
+            "launches_per_stage2_step": EXPECT_PER_REFINE_STEP.get(name, 0)}
+        if name in a["kernels"]:
+            rows[name]["batch32"] = a["kernels"][name]
+    times = {"loader": loader, "batch32_step_ms": a["step_ms"],
+             "batch32_peak_gib": a["peak_gib"],
+             "batch32_step_device_ms": a.get("step_device_ms"),
+             "batch4_step_ms": a["batch4_step_ms"],
+             "stage2_step_ms": e["step_ms"],
+             "stage2_step_device_ms": e.get("step_device_ms")}
+    return rows, times
+
+
 def add_launches(row, n, runs, unit):
     """``row`` with its kernel's ``n`` launches in a main path of ``runs``
     frames or steps (``unit``)."""
@@ -1966,12 +2471,12 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "launches_per_frame", "launches_per_step", "train", "modes",
               "kernel_device_ms", "library_device_ms", "device_ops_per_call",
               "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
-              "rows_decoded", "ptxas", "refine_train")
+              "rows_decoded", "ptxas", "refine_train", "trainer")
 
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-17 on ``dev``; prints the kernels line."""
+    """Phases 2-22 on ``dev``; prints the kernels line."""
     from implicit_depth_torch.builder import (
         build_lidf,
         build_static,
@@ -2052,6 +2557,20 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         f"{rows['ray_decode']['train_xla']['step_ms']} ms; stage 2 "
         f"{refine_rows['ief_decode']['step_ms']} ms, hard_neg "
         f"{refine_rows['ief_decode']['hard_neg']['step_ms']} ms")
+
+    # -- the trainer, data pipeline and CLI -------------------------------------
+    trainer_rows, trainer_times = trainer_phases(dev, profile)
+    for name, row in trainer_rows.items():
+        rows[name]["trainer"] = row
+    log(f"trainer against the bare steps in this run: stage 1 batch 4 "
+        f"{trainer_times['batch4_step_ms']:.1f} ms a step (phase 6 "
+        f"{rows['ray_decode_bwd']['step_ms']:.1f}), stage 2 "
+        f"{trainer_times['stage2_step_ms']:.1f} ms (phase 13 "
+        f"{refine_rows['ief_decode']['step_ms']:.1f}); batch 32 "
+        f"{trainer_times['batch32_step_ms']:.1f} ms a step, device time "
+        f"{trainer_times['batch32_step_device_ms']}, peak "
+        f"{trainer_times['batch32_peak_gib']:.2f} GiB; loader "
+        f"{trainer_times['loader']}")
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],

@@ -4,15 +4,22 @@ The port's own copy of ``implicit_depth_tpu/config.py`` (``Config``,
 ``_DEFAULTS``, ``load_config``, ``validate_config``): every key is kept, so
 the same ``configs/*.yaml`` files load. The ``tpu`` section's kernel tile
 sizes and Pallas switches are read by the JAX package only; the port accepts
-and ignores them. ``yaml`` is imported only where a YAML file is read or
-written, so a config built from a dict needs no ``pyyaml``.
+and ignores them.
+
+YAML files are read and written by :func:`load_yaml` / :func:`dump_yaml`,
+which handle the subset the configs use (nested block mappings by
+indentation, ``#`` comments, flow lists, and plain or quoted scalars
+resolved as ``yaml.safe_load`` resolves them), so that the port needs no
+``pyyaml``; anything else in a file raises.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import math
 import re
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 _PLACEHOLDER = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
 
@@ -98,9 +105,8 @@ class Config:
         return node
 
     def save(self, path: str) -> None:
-        import yaml
         with open(path, "w") as f:
-            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+            f.write(dump_yaml(self.to_dict()))
 
     def __repr__(self) -> str:
         return f"Config({self.to_dict()!r})"
@@ -356,13 +362,206 @@ def validate_config(cfg: Config) -> Config:
 def load_config(*yaml_paths: str, overrides: Optional[Dict[str, Any]] = None) -> Config:
     """Build a config: defaults <- yaml overlays (in order) <- overrides."""
     cfg = default_config()
-    if yaml_paths:
-        import yaml
     for path in yaml_paths:
         with open(path) as f:
-            data = yaml.safe_load(f) or {}
+            data = load_yaml(f.read()) or {}
         cfg.update_from(data)
     if overrides:
         cfg.update_from(overrides)
     cfg.interpolate()
     return validate_config(cfg)
+
+
+# -- the YAML subset ---------------------------------------------------------
+# yaml.safe_load's (YAML 1.1) resolution of plain scalars
+_YAML_NULL = re.compile(r"~|null|Null|NULL|")
+_YAML_BOOL = {v: b for b, vs in ((True, "yes Yes YES true True TRUE on On ON"),
+                                 (False, "no No NO false False FALSE off Off "
+                                         "OFF")) for v in vs.split()}
+_YAML_INT = re.compile(r"[-+]?(0b[0-1_]+|0[0-7_]+|0|[1-9][0-9_]*|"
+                       r"0x[0-9a-fA-F_]+)")
+_YAML_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)\.[0-9_]*([eE][-+][0-9]+)?|"
+                         r"\.[0-9][0-9_]*([eE][-+][0-9]+)?|"
+                         r"[-+]?\.(inf|Inf|INF)|\.(nan|NaN|NAN)")
+
+
+def _yaml_scalar(text: str) -> Any:
+    """A flow scalar: quoted, or plain resolved as yaml.safe_load does."""
+    if text[:1] == '"':
+        return json.loads(text)
+    if text[:1] == "'":
+        if len(text) < 2 or text[-1] != "'":
+            raise ValueError(f"yaml: unterminated string {text!r}")
+        return text[1:-1].replace("''", "'")
+    if text[:1] in "[{&*!|>%@`" or text.startswith("- "):
+        raise ValueError(f"yaml: {text!r} is outside the supported subset")
+    if _YAML_NULL.fullmatch(text):
+        return None
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    if _YAML_INT.fullmatch(text):
+        sign, body = (-1, text[1:]) if text[0] == "-" else (
+            1, text[1:] if text[0] == "+" else text)
+        body = body.replace("_", "")
+        if body.startswith("0b"):
+            return sign * int(body[2:], 2)
+        if body.startswith("0x"):
+            return sign * int(body[2:], 16)
+        if len(body) > 1 and body[0] == "0":
+            return sign * int(body, 8)
+        return sign * int(body)
+    if _YAML_FLOAT.fullmatch(text):
+        low = text.replace("_", "").lower()
+        if "nan" in low:
+            return math.nan
+        return float(low.replace(".inf", "inf"))
+    return text
+
+
+def _split_flow(text: str) -> List[str]:
+    """The items of a flow list's inside, split at top-level commas."""
+    items, depth, quote, start = [], 0, None, 0
+    for i, c in enumerate(text):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"":
+            quote = c
+        elif c == "[":
+            depth += 1
+        elif c == "]":
+            depth -= 1
+        elif c == "," and depth == 0:
+            items.append(text[start:i].strip())
+            start = i + 1
+    last = text[start:].strip()
+    if last or items:
+        items.append(last)
+    return items
+
+
+def _yaml_value(text: str) -> Any:
+    if text == "{}":
+        return {}
+    if text[:1] == "[":
+        if text[-1:] != "]":
+            raise ValueError(f"yaml: unterminated flow list {text!r}")
+        return [_yaml_value(t) for t in _split_flow(text[1:-1])]
+    return _yaml_scalar(text)
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without its ``#`` comment (a ``#`` at the start or after
+    whitespace, outside quotes) and trailing whitespace."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def _split_key(text: str) -> Tuple[str, str]:
+    """``key: value`` -> (key, value); the key may be quoted."""
+    if text[:1] in "'\"":
+        end = text.index(text[0], 1)
+        key, rest = _yaml_scalar(text[:end + 1]), text[end + 1:]
+        if not rest.startswith(":"):
+            raise ValueError(f"yaml: expected ':' after a key in {text!r}")
+        return key, rest[1:].strip()
+    m = re.match(r"([^:]*?):(\s|$)", text)
+    if not m or not m.group(1).strip():
+        raise ValueError(f"yaml: not a 'key: value' line: {text!r}")
+    return m.group(1).strip(), text[m.end():].strip()
+
+
+def load_yaml(text: str) -> Any:
+    """Parses the YAML subset the configs use: block mappings nested by
+    indentation (spaces), ``#`` comments, flow lists (``[-0.2, 0.2]``),
+    ``{}``, and scalars (plain, 'single' or "double" quoted) resolved as
+    ``yaml.safe_load`` resolves them (``1e-3`` stays a string there, as
+    here). An empty document is None; any other document is a mapping.
+    Anything else raises ValueError."""
+    lines = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+            raise ValueError(f"yaml line {n}: tab in the indentation")
+        line = _strip_comment(raw)
+        if line.strip() in ("", "---"):
+            continue
+        lines.append((len(line) - len(line.lstrip(" ")), line.strip(), n))
+    if not lines:
+        return None
+    pos = 0
+
+    def mapping(indent: int) -> Dict[str, Any]:
+        nonlocal pos
+        out: Dict[str, Any] = {}
+        while pos < len(lines):
+            ind, body, n = lines[pos]
+            if ind < indent:
+                break
+            if ind > indent:
+                raise ValueError(f"yaml line {n}: unexpected indentation")
+            key, value = _split_key(body)
+            if key in out:
+                raise ValueError(f"yaml line {n}: duplicate key {key!r}")
+            pos += 1
+            if value:
+                out[key] = _yaml_value(value)
+            elif pos < len(lines) and lines[pos][0] > indent:
+                out[key] = mapping(lines[pos][0])
+            else:
+                out[key] = None
+        return out
+
+    out = mapping(lines[0][0])
+    if pos < len(lines):
+        raise ValueError(f"yaml line {lines[pos][2]}: unexpected dedent")
+    return out
+
+
+def _yaml_repr(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        mant, e, exp = text.partition("e")
+        # yaml.safe_load reads 1e-05 as a string: give the mantissa a dot
+        return (mant if "." in mant else mant + ".0") + e + exp
+    if isinstance(value, str):
+        return json.dumps(value)
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_yaml_repr(v) for v in value) + "]"
+    if isinstance(value, dict) and not value:
+        return "{}"
+    raise TypeError(f"yaml: cannot write a {type(value).__name__}")
+
+
+def dump_yaml(data: Dict[str, Any], indent: int = 0) -> str:
+    """``data`` (nested dicts of scalars and lists) as YAML in the subset
+    :func:`load_yaml` reads; ``yaml.safe_load`` reads it back equal too.
+    Strings are written double-quoted."""
+    out = []
+    for k, v in data.items():
+        k = str(k)
+        plain = re.fullmatch(r"[A-Za-z_][A-Za-z0-9_.-]*", k) and \
+            _yaml_scalar(k) == k
+        key = " " * indent + (k if plain else _yaml_repr(k)) + ":"
+        if isinstance(v, dict) and v:
+            out.append(key + "\n" + dump_yaml(v, indent + 2))
+        else:
+            out.append(f"{key} {_yaml_repr(v)}\n")
+    return "".join(out)

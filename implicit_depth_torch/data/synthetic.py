@@ -13,21 +13,7 @@ from typing import Dict
 import numpy as np
 
 from implicit_depth_torch import constants
-
-
-def _xyz_np(depth: np.ndarray, fx, fy, cx, cy) -> np.ndarray:
-    """(H, W) depth -> (H, W, 3) camera-space points, as
-    ``implicit_depth_tpu/geometry/camera.py::compute_xyz_np`` computes them."""
-    h, w = depth.shape
-    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
-    depth = depth.astype(np.float32, copy=False)
-    out = np.empty((h, w, 3), np.float32)
-    np.multiply(u - cx, depth, out=out[..., 0])
-    out[..., 0] /= fx
-    np.multiply(v - cy, depth, out=out[..., 1])
-    out[..., 1] /= fy
-    out[..., 2] = depth
-    return out
+from implicit_depth_torch.geometry.camera import compute_xyz_np
 
 
 def synthetic_sample(rng: np.random.Generator, h: int = 240,
@@ -67,8 +53,8 @@ def synthetic_sample(rng: np.random.Generator, h: int = 240,
         "rgb": rgb,
         "depth": depth,
         "depth_corrupt": depth_corrupt,
-        "xyz": _xyz_np(depth, fx, fy, cx, cy),
-        "xyz_corrupt": _xyz_np(depth_corrupt, fx, fy, cx, cy),
+        "xyz": compute_xyz_np(depth, fx, fy, cx, cy),
+        "xyz_corrupt": compute_xyz_np(depth_corrupt, fx, fy, cx, cy),
         "corrupt_mask": corrupt_mask,
         "valid_mask": (1.0 - corrupt_mask).astype(np.float32),
         "fx": np.float32(fx),

@@ -1,10 +1,26 @@
 """Pinhole camera back-projection (counterpart of
-``implicit_depth_tpu/geometry/camera.py::compute_xyz``): x = (u - cx) * z / fx,
+``implicit_depth_tpu/geometry/camera.py``): x = (u - cx) * z / fx,
 y = (v - cy) * z / fy in camera space."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def compute_xyz_np(depth: np.ndarray, fx, fy, cx, cy) -> np.ndarray:
+    """(H, W) depth -> (H, W, 3) ordered point cloud on the host, in the
+    JAX package's order of float32 operations."""
+    h, w = depth.shape
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    depth = depth.astype(np.float32, copy=False)
+    out = np.empty((h, w, 3), np.float32)
+    np.multiply(u - cx, depth, out=out[..., 0])
+    out[..., 0] /= fx
+    np.multiply(v - cy, depth, out=out[..., 1])
+    out[..., 1] /= fy
+    out[..., 2] = depth
+    return out
 
 
 def compute_xyz(depth: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:

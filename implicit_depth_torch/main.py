@@ -1,0 +1,81 @@
+"""CLI launcher (counterpart of ``implicit_depth_tpu/main.py``).
+
+Parity: src/main.py:11-51 — two flags (default config + overlay configs),
+seeding, dynamic trainer dispatch — plus ``--set`` dotted overrides and
+``--device`` (default ``cuda``; the trainers raise without a card unless
+``cpu`` is asked for). One process drives one device.
+
+Usage:
+  python -m implicit_depth_torch.main --cfg_paths configs/train_lidf.yaml
+  python -m implicit_depth_torch.main --cfg_paths configs/test_refine.yaml
+  python -m implicit_depth_torch.main --device cpu \\
+      --cfg_paths configs/smoke_synthetic.yaml --set training.nepochs=1
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+
+import numpy as np
+
+
+def parse_overrides(pairs) -> dict:
+    """``["a.b=1", "c=x"]`` -> ``{"a": {"b": 1}, "c": "x"}``: each value
+    read by ``ast.literal_eval``, else kept as a string."""
+    overrides = {}
+    for kv in pairs:
+        key, _, value = kv.partition("=")
+        node = overrides
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        try:
+            node[parts[-1]] = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            node[parts[-1]] = value
+    return overrides
+
+
+def make_trainer(argv=None):
+    """The configured trainer, built (and resumed or loaded, as its config
+    says) but not run."""
+    parser = argparse.ArgumentParser("implicit_depth_torch")
+    parser.add_argument("--default_cfg_path", default=None,
+                        help="optional base YAML applied before cfg_paths")
+    parser.add_argument("--cfg_paths", nargs="+", default=[],
+                        help="experiment YAML overlays, applied in order")
+    parser.add_argument("--set", nargs="*", default=[],
+                        help="dotted overrides, e.g. training.lr=1e-4")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (cuda or cpu)")
+    args = parser.parse_args(argv)
+
+    from implicit_depth_torch.config import load_config
+
+    paths = ([args.default_cfg_path] if args.default_cfg_path else []) + args.cfg_paths
+    cfg = load_config(*paths, overrides=parse_overrides(args.set))
+
+    if cfg.seed is not None:
+        np.random.seed(cfg.seed)
+
+    from implicit_depth_torch.train.trainer import TRAINERS
+
+    return TRAINERS[cfg.trainer_name](cfg, device=args.device)
+
+
+def main(argv=None):
+    """Runs the configured trainer (train, or valid / test) and returns it."""
+    trainer = make_trainer(argv)
+    exp_type = trainer.cfg.exp_type
+    if exp_type == "train":
+        trainer.run()
+    elif exp_type in ("valid", "test"):
+        trainer.test()
+    else:
+        raise ValueError(f"unknown exp_type {exp_type!r}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,10 @@
 Once the running stride reaches 8, later stride-2 stages keep stride 1 and
 multiply their dilation instead (layer3 -> dilation 2, layer4 -> 4; 3×3
 convs pad by the dilation). A 1×1 conv maps to ``out_ch`` and the map is
-bilinearly resized back to the input size (align_corners=False).
+bilinearly resized back to the input size (align_corners=False; the
+gradient of the resize is two products with its interpolation matrices,
+which sum in a fixed order, where PyTorch's CUDA backward adds with
+atomics and so differs from run to run).
 Convolutions run in the compute dtype; BatchNorm (eps 1e-5) runs in f32, as
 flax's ``BatchNorm(dtype=float32)``: in eval mode on the running statistics,
 in train mode (``.train()``) on the batch's mean and biased variance
@@ -23,6 +26,41 @@ import torch.nn.functional as F
 from torch import nn
 
 from implicit_depth_torch.models.init import normal_
+
+
+def bilinear_matrix(n_out: int, n_in: int) -> torch.Tensor:
+    """(n_out, n_in) f32 on the CPU: row o holds the weights with which
+    ``F.interpolate(mode="bilinear", align_corners=False)`` mixes the input
+    rows into output row o (source (o + 0.5)·n_in/n_out - 0.5 clamped at 0,
+    its floor and the next row, clamped at the last)."""
+    src = ((torch.arange(n_out, dtype=torch.float32) + 0.5)
+           * (n_in / n_out) - 0.5).clamp(min=0)
+    i0 = src.long()
+    lam = src - i0
+    a = torch.zeros(n_out, n_in)
+    rows = torch.arange(n_out)
+    a[rows, i0] += 1 - lam
+    a[rows, (i0 + 1).clamp(max=n_in - 1)] += lam
+    return a
+
+
+class _BilinearResize(torch.autograd.Function):
+    """``F.interpolate`` bilinear (align_corners=False) to ``size``, whose
+    backward is A_hᵀ·g·A_w (``bilinear_matrix``) in f32: products that sum
+    in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_hw, ctx.dtype = x.shape[-2:], x.dtype
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h_out, w_out), (h_in, w_in) = g.shape[-2:], ctx.in_hw
+        a_h = bilinear_matrix(h_out, h_in).to(g.device)
+        a_w = bilinear_matrix(w_out, w_in).to(g.device)
+        return (a_h.t() @ (g.float() @ a_w)).to(ctx.dtype), None
 
 
 def _conv(cin, cout, k, stride, pad, dil, generator, bias=False):
@@ -121,6 +159,5 @@ class ResNet34_8s(nn.Module):
         for name in self.block_names:
             x = getattr(self, name)(x, dtype)
         x = _conv_dt(x, self.fc, dtype)
-        x = F.interpolate(x, size=(in_h, in_w), mode="bilinear",
-                          align_corners=False)
+        x = _BilinearResize.apply(x, (in_h, in_w))
         return x.permute(0, 2, 3, 1)

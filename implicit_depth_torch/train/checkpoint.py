@@ -22,11 +22,14 @@ each tensor whose name and shape match is taken, every other keeps the
 state's value) and keeps the state's optimizer state unless the saved one
 has the same structure. :func:`restore_params_only` loads the parameters
 and BatchNorm statistics alone (the frozen stage 1 of stage-2 training, and
-``DepthCompleter.from_checkpoint``).
+``DepthCompleter.from_checkpoint``). :func:`generator_state` /
+:func:`set_generator_state` carry a ``torch.Generator`` through the JSON
+sidecar (the trainer's mid-epoch checkpoints).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -252,3 +255,28 @@ def restore_params_only(ckpt_dir: str, model: nn.Module,
     model.load_state_dict(merge_compatible(template, raw.get("model", {}),
                                            "model"))
     return model
+
+
+def generator_state(gen: torch.Generator) -> Dict[str, Any]:
+    """The state of ``gen`` for a checkpoint's JSON sidecar: its device type
+    and the bytes of ``get_state()`` (a CUDA generator's seed and offset, a
+    CPU generator's Mersenne Twister) as a list of ints."""
+    return {"device": gen.device.type, "state": gen.get_state().tolist()}
+
+
+def set_generator_state(gen: torch.Generator, saved: Dict[str, Any]) -> None:
+    """Restore :func:`generator_state` into ``gen``. A state taken on the
+    same device type is set as it was; one from the other device type (a
+    CPU run resumed on the card, or back) cannot continue its stream there,
+    so ``gen`` is seeded from a hash of the saved bytes instead: the resumed
+    draws are then a fixed function of the checkpoint, though not the ones
+    the interrupted run would have made."""
+    state = torch.tensor(saved["state"], dtype=torch.uint8)
+    if saved["device"] == gen.device.type:
+        gen.set_state(state)
+        return
+    seed = int.from_bytes(hashlib.sha256(state.numpy().tobytes()).digest()[:8],
+                          "little") & (2 ** 63 - 1)
+    print(f"ckpt restore: generator state from {saved['device']} reseeds the "
+          f"{gen.device.type} generator ({seed})")
+    gen.manual_seed(seed)

@@ -978,3 +978,172 @@ def test_checkpoint_saved_on_the_card_restores_on_the_cpu_and_back(dev,
     lm = restore_params_only(str(tmp_path / "lidf"), build_lidf(cfg, static))
     for k, v in lidf.state_dict().items():
         assert torch.equal(v.cpu(), lm.state_dict()[k]), k
+
+
+# -- the trainer on the card ---------------------------------------------------
+
+def _trainer_cfg(tmp_path, tag, **training):
+    # the kernels' decoder widths (K3 takes voxel features of 32-256
+    # columns), a narrow trunk; 2 steps of batch 4
+    return load_config(overrides={
+        "trainer_name": "lidf", "exp_type": "train", "mask_type": "all",
+        "base_log_dir": str(tmp_path / tag), "log_name": "t", "seed": 0,
+        "dataset": {"type": "synthetic", "synthetic_len": 8,
+                    "img_height": 48, "img_width": 64},
+        "model": {"rgb_out": 8, "pnet_out": 32, "pnet_gf": 8,
+                  "resnet_stages": [1, 1, 1, 1]},
+        "grid": {"miss_sample_num": 256, "valid_sample_num": 512},
+        "training": {"batch_size": 4, "nepochs": 1, "do_valid": False,
+                     "num_workers": 2, "log_interval": 1, **training},
+        "tpu": {"max_pairs_per_ray": 12, "compute_dtype": "bfloat16"}})
+
+
+def test_lidf_train_steps_repeat_bit_for_bit(dev, tmp_path, monkeypatch):
+    """Two stage-1 steps from the same state, batches and draws, twice,
+    with cuDNN's deterministic algorithms: the same losses, parameters and
+    buffers bit for bit. (The ResNet's bilinear resize back to the input
+    size took PyTorch's CUDA backward, which adds with atomics: every
+    parameter then differed between the two runs.)"""
+    import copy
+
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = _trainer_cfg(tmp_path, "steps")
+    model = build_lidf(cfg, build_static(cfg),
+                       torch.Generator().manual_seed(0))
+    batches = [{k: torch.from_numpy(v) for k, v in
+                synthetic_batch(70 + i, 4, 48, 64).items()} for i in range(2)]
+    runs = []
+    for _ in range(2):
+        m = copy.deepcopy(model).to(dev)
+        state = TrainState.create(m, cfg.training, steps_per_epoch=10)
+        step = make_lidf_train_step(cfg, m, dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        losses = [{k: v.item() for k, v in step(state, b, gen, 0).items()}
+                  for b in batches]
+        runs.append((losses, {k: v.cpu() for k, v in m.state_dict().items()}))
+    (la, sa), (lb, sb) = runs
+    assert la == lb
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+
+
+def test_lidf_train_step_has_no_operation_without_a_deterministic_kernel(
+        dev, tmp_path, monkeypatch):
+    """No operation of a stage-1 step is one for which PyTorch has no
+    deterministic CUDA implementation (it warns for each under
+    ``use_deterministic_algorithms(True, warn_only=True)``; the bilinear
+    resize's backward did)."""
+    import warnings
+
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = _trainer_cfg(tmp_path, "warn")
+    model = build_lidf(cfg, build_static(cfg)).to(dev)
+    state = TrainState.create(model, cfg.training, steps_per_epoch=10)
+    step = make_lidf_train_step(cfg, model, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {k: torch.from_numpy(v) for k, v in
+             synthetic_batch(9, 4, 48, 64).items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(state, batch, gen, 0)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split("\n")[0] for w in caught
+                      if "deterministic" in str(w.message)})
+    assert not flagged, flagged
+
+
+def test_trainer_epoch_repeats_bit_for_bit_on_the_card(dev, tmp_path,
+                                                        monkeypatch):
+    """Two 2-step trainer epochs of batch 4 from the same seed, with cuDNN's
+    deterministic algorithms: the same parameters and buffers bit for bit;
+    per step K2 1, K3 1, K5 2."""
+    from implicit_depth_torch.train.trainer import LIDFTrainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    counts = {"ray_decode_save": rd.ray_decode_save,
+              "ray_decode_bwd": rd.ray_decode_bwd,
+              "segment_max0": segment.segment_max0}
+    runs = []
+    for tag in ("a", "b"):
+        tr = LIDFTrainer(_trainer_cfg(tmp_path, tag), device=dev)
+        before = {n: f.launches for n, f in counts.items()}
+        means = tr.train_epoch(0)
+        torch.cuda.synchronize()
+        assert {n: f.launches - before[n] for n, f in counts.items()} == {
+            "ray_decode_save": 2, "ray_decode_bwd": 2, "segment_max0": 4}
+        assert tr.state.step == 2 and np.isfinite(means["loss_net"])
+        runs.append((tr.model.state_dict(), means))
+    (a, ma), (b, mb) = runs
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert ma["loss_net"] == mb["loss_net"]
+
+
+def test_generator_state_saved_on_the_card_restores_on_the_card(dev):
+    import json
+
+    from implicit_depth_torch.train.checkpoint import (
+        generator_state,
+        set_generator_state,
+    )
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.rand(1000, generator=gen, device=dev)
+    saved = json.loads(json.dumps(generator_state(gen)))
+    assert saved["device"] == "cuda"
+    want = torch.rand(1000, generator=gen, device=dev)
+    other = torch.Generator(device=dev).manual_seed(9)
+    set_generator_state(other, saved)
+    assert torch.equal(torch.rand(1000, generator=other, device=dev), want)
+
+
+def test_cpu_saved_mid_epoch_checkpoint_resumes_on_the_card(dev, tmp_path):
+    """A CPU run killed after its first step (a mid-epoch checkpoint every
+    step) resumes on the card: the restored weights are the CPU's bits,
+    the epoch goes on at step 1 with the card's generator reseeded from the
+    saved CPU state, and it ends with finite losses."""
+    from implicit_depth_torch.train.checkpoint import restore_params_only
+    from implicit_depth_torch.train.trainer import LIDFTrainer
+
+    cpu = LIDFTrainer(_trainer_cfg(tmp_path, "r", ckpt_every_steps=1),
+                      device="cpu")
+    real, calls = cpu.train_step, {"n": 0}
+
+    def dying(*a, **k):
+        if calls["n"] >= 1:
+            raise RuntimeError("preempted")
+        calls["n"] += 1
+        return real(*a, **k)
+
+    cpu.train_step = dying
+    with pytest.raises(RuntimeError, match="preempted"):
+        cpu.run()
+    saved = restore_params_only(cpu.ckpt_dir, build_lidf(
+        cpu.cfg, build_static(cpu.cfg))).state_dict()
+
+    cfg = _trainer_cfg(tmp_path, "r", ckpt_every_steps=1)
+    cfg.resume = "latest_network"
+    tr = LIDFTrainer(cfg, device=dev)
+    assert tr.start_epoch == 0 and tr._resume_skip_steps == 1
+    assert tr.state.step == 1
+    for k, v in tr.model.state_dict().items():
+        assert v.device.type == dev.type and torch.equal(v.cpu(), saved[k]), k
+    tr.run()
+    assert tr.state.step == 2
+    with open(tr.epoch_log_path) as f:
+        import json
+        record = json.loads(f.read().splitlines()[-1])
+    assert np.isfinite(record["train"]["loss_net"])

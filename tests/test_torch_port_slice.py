@@ -228,3 +228,58 @@ def test_port_imports_no_jax(path):
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "implicit_depth_tpu")
     bad = [m for m in _imports(REPO / path) if m.split(".")[0] in banned]
     assert not bad, f"{path} imports {bad}"
+
+
+# the card's machine has no OpenCV, Pillow or pyyaml (nor JAX): what the
+# trainer and chip_smoke.py need must import and run without them
+_BLOCKED_IMPORTS = """
+import sys
+for name in ("cv2", "PIL", "yaml", "jax", "h5py"):
+    sys.modules[name] = None
+import importlib, os, tempfile
+for mod in ("implicit_depth_torch.main", "implicit_depth_torch.train.trainer",
+            "implicit_depth_torch.data.loader",
+            "implicit_depth_torch.data.datasets",
+            "implicit_depth_torch.train.metrics",
+            "implicit_depth_torch.train.visualize", "chip_smoke"):
+    importlib.import_module(mod)
+from implicit_depth_torch.config import load_config, load_yaml
+from implicit_depth_torch.data.datasets import get_dataset
+cfg = load_config("configs/train_lidf.yaml", overrides={"dataset": {
+    "type": "synthetic", "synthetic_len": 2, "img_height": 24,
+    "img_width": 32}})
+path = os.path.join(tempfile.mkdtemp(), "config.yaml")
+cfg.save(path)
+assert load_yaml(open(path).read()) == cfg.to_dict()
+assert get_dataset(cfg.dataset, "train")[1]["rgb"].shape == (24, 32, 3)
+from implicit_depth_torch.data import augmentation
+try:
+    augmentation.cv2_module()
+    raise SystemExit("cv2 imported")
+except ImportError as e:
+    assert "OpenCV" in str(e)
+print("ok")
+"""
+
+
+def test_port_runs_without_opencv_pillow_or_yaml():
+    import subprocess
+    import sys
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), \
+        out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (REPO / "configs").glob("*.yaml")))
+def test_yaml_reader_and_writer_equal_pyyaml(name, tmp_path):
+    import yaml
+
+    from implicit_depth_torch.config import load_yaml
+    text = (REPO / "configs" / name).read_text()
+    assert load_yaml(text) == yaml.safe_load(text)
+    cfg = load_config(str(REPO / "configs" / name))
+    cfg.save(str(tmp_path / "config.yaml"))
+    dumped = (tmp_path / "config.yaml").read_text()
+    assert yaml.safe_load(dumped) == cfg.to_dict() == load_yaml(dumped)
