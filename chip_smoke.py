@@ -133,6 +133,26 @@ Phases:
      as a served frame; the frozen stage 1 bit for bit its checkpoint; a
      480x640 frame from ``DepthCompleter.from_checkpoint`` of both
      checkpoints, input depth bit for bit.
+ 23-25. data-parallel training across processes: each rank a process of
+     ``python -m implicit_depth_torch.main`` with torchrun's variables
+     (RANK_LAUNCHER: cuDNN deterministic, no TF32, launches counted, each
+     gradient all-reduce timed); rank 0 alone may write files;
+ 23. stage 1 (configs/train_lidf.yaml, full width, one ResNet block a
+     stage: DP_STAGE1_DEPTH; f32) on 2 gloo ranks on this card, global
+     batch 4 (2 a rank), one epoch of 2 steps from a unit-scale
+     checkpoint, against one process at batch 4: losses
+     rtol 1e-3, atol 1e-5; parameters within the bounds of the JAX
+     package's two-process test; per rank per step K2 1, K3 1, K5 2; a
+     second run of the ranks bit for bit the first;
+ 24. stage 2 the same way (configs/train_refine_hardneg.yaml, the global
+     hard-negative top-k) behind phase 19's checkpoint (full depth: the
+     frozen stage 1 takes no gradient): per rank per step K1 1, K4 2, K5
+     10;
+ 25. bf16 stage-1 step time of 2 gloo ranks on this card against one rank
+     (an NCCL group of one) at 2 samples a rank, each rank's gradient
+     all-reduce time (gloo on one card goes through the host: not what
+     NCCL on two cards costs); with 2 or more cards, phases 23-24 again
+     under NCCL, one card a rank, else ``nccl_2card: not run``.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -143,6 +163,7 @@ import argparse
 import contextlib
 import copy
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -1995,7 +2016,8 @@ def refine_phases(dev, profile=False):
 # --set override (PERF.md §4), the data synthetic (no dataset is in the repo)
 TRAINER_CONFIGS = {"lidf": "configs/train_lidf.yaml",
                    "refine": "configs/train_refine.yaml",
-                   "test": "configs/test_lidf.yaml"}
+                   "test": "configs/test_lidf.yaml",
+                   "refine_hardneg": "configs/train_refine_hardneg.yaml"}
 TRAINER_SET = ["dataset.type=synthetic", "training.log_interval=1"]
 # A: the config's batch 32, one epoch of 2 steps
 BATCH32_SET = ["dataset.synthetic_len=64", "training.nepochs=1",
@@ -2056,7 +2078,11 @@ def expect_launches(label, launches, steps, frames, per_step, per_frame):
 
 
 def epoch_records(tr):
-    with open(tr.epoch_log_path) as f:
+    return epoch_log(tr.epoch_log_path)
+
+
+def epoch_log(path):
+    with open(path) as f:
         return [json.loads(line) for line in f.read().splitlines()]
 
 
@@ -2421,10 +2447,9 @@ def trainer_refine_phase(dev, workdir, ckpt_dir, profile=False):
 
 
 def trainer_phases(dev, profile=False):
-    """Phases 18-22 (see the module doc) in a temporary directory. Returns
+    """Phases 18-25 (see the module doc) in a temporary directory. Returns
     {kernel: its trainer record} for the kernels line, and the step times."""
     import os
-    import pathlib
     import tempfile
 
     os.environ["IDT_TIMING"] = "1"  # the trainer logs its epoch's phases
@@ -2436,6 +2461,7 @@ def trainer_phases(dev, profile=False):
         b, b_launches = trainer_stage1_phase(dev, workdir)
         d_launches = trainer_test_phase(dev, workdir, b.ckpt_dir)
         e = trainer_refine_phase(dev, workdir, b.ckpt_dir, profile)
+        dp_rows, dp_times = parallel_phases(dev, workdir, b.ckpt_dir)
     per_step = {k: per for k, per in EXPECT_PER_STEP.items()}
     rows = {}
     for name in counters():
@@ -2445,7 +2471,8 @@ def trainer_phases(dev, profile=False):
                          "stage2": e["launches"][name]},
             "launches_per_step": per_step.get(name, 0),
             "launches_per_eval_frame": EXPECT_PER_EVAL_FRAME.get(name, 0),
-            "launches_per_stage2_step": EXPECT_PER_REFINE_STEP.get(name, 0)}
+            "launches_per_stage2_step": EXPECT_PER_REFINE_STEP.get(name, 0),
+            "data_parallel": dp_rows[name]}
         if name in a["kernels"]:
             rows[name]["batch32"] = a["kernels"][name]
     times = {"loader": loader, "batch32_step_ms": a["step_ms"],
@@ -2453,7 +2480,288 @@ def trainer_phases(dev, profile=False):
              "batch32_step_device_ms": a.get("step_device_ms"),
              "batch4_step_ms": a["batch4_step_ms"],
              "stage2_step_ms": e["step_ms"],
-             "stage2_step_device_ms": e.get("step_device_ms")}
+             "stage2_step_device_ms": e.get("step_device_ms"),
+             "data_parallel": dp_times}
+    return rows, times
+
+
+# -- data-parallel training across processes (phases 23-25) -----------------
+# each rank a process of ``python -m implicit_depth_torch.main`` (through
+# RANK_LAUNCHER) with torchrun's variables set by hand; gloo puts both ranks
+# on this card, as NCCL refuses to
+DP_WORLD = 2
+DP_TIMEOUT_S = 300
+# 23 and 24: f32, global batch 4 (2 a rank), one epoch of 2 steps
+DP_SET = ["training.batch_size=4", "dataset.synthetic_len=8",
+          "training.nepochs=1", "training.do_valid=False",
+          "tpu.compute_dtype=float32"]
+# 23 cuts the ResNet's depth to one block a stage (the width stays). At
+# full depth f32 summation order alone, amplified by the backward of 33
+# train-mode batch norms and turned by Adam into flipped steps, takes the
+# run past the bounds of assert_params_close: on an H100
+# (scripts/dp_noise_floor.py), after this phase's 2 steps, one process
+# against itself (cuDNN's deterministic algorithms against PyTorch's own
+# convolutions) put 67 of 248 tensors past them (the worst at 11.4x its
+# outlier limit), 2 ranks against one process 62 (9.9x); at one block a
+# stage 0 (0.70) and 0 (0.50)
+DP_STAGE1_DEPTH = ["model.resnet_stages=[1, 1, 1, 1]"]
+# 25: bf16 (the config's), 2 samples a rank, 2 epochs of DP_TIME_STEPS
+# steps; the second epoch's time per step
+DP_TIME_STEPS = 3
+DP_TIME_SET = ["training.nepochs=2", "training.do_valid=False"]
+# a rank: cuDNN's deterministic algorithms and no TF32, as the trainer
+# phases run, its kernels' launches counted from 0, each gradient
+# all-reduce timed between two device synchronizations; writes both to
+# the JSON file argv[1] after the CLI (argv[2:]) has run
+RANK_LAUNCHER = r"""
+import json, runpy, sys, time
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from implicit_depth_torch.parallel import mesh
+
+counts = chip_smoke.counters()
+for fn in counts.values():
+    fn.launches = 0
+allreduce_ms, real = [], mesh.all_reduce_grads
+
+
+def timed(params):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    real(params)
+    torch.cuda.synchronize()
+    allreduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+
+mesh.all_reduce_grads = timed
+out = sys.argv[1]
+sys.argv = ["implicit_depth_torch.main", *sys.argv[2:]]
+runpy.run_module("implicit_depth_torch.main", run_name="__main__")
+with open(out, "w") as f:
+    json.dump({"launches": {k: fn.launches for k, fn in counts.items()},
+               "allreduce_ms": allreduce_ms}, f)
+"""
+
+
+def start_ranks(workdir, stage, sets, world=DP_WORLD, backend="gloo",
+                device="cuda:0"):
+    """Starts ``world`` ranks of the CLI on the config of ``stage``, rank r
+    logging under ``workdir/rank<r>`` (``device`` None: each rank on
+    cuda:LOCAL_RANK), its output into ``workdir/out<r>.txt``; returns what
+    :func:`finish_ranks` takes."""
+    import os
+    import socket
+
+    workdir.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(world):
+        argv = ["--cfg_paths", TRAINER_CONFIGS[stage], "--dist_backend",
+                backend, *(["--device", device] if device else []), "--set",
+                f"base_log_dir={workdir / f'rank{r}'}", "log_name=run",
+                *TRAINER_SET, *sets]
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        with open(workdir / f"out{r}.txt", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_LAUNCHER,
+                 str(workdir / f"counts{r}.json"), *argv],
+                env=env, stdout=out, stderr=subprocess.STDOUT))
+    return workdir, procs
+
+
+def finish_ranks(started):
+    """Waits for the ranks of :func:`start_ranks`. Raises unless every rank
+    exits 0 within DP_TIMEOUT_S, and if a rank other than 0 wrote a file
+    (every rank still running is killed). Returns rank 0's workdir and each
+    rank's {launches, allreduce_ms}."""
+    workdir, procs = started
+    try:
+        for p in procs:
+            p.wait(timeout=DP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        out = (workdir / f"out{r}.txt").read_text()
+        for line in out.splitlines():
+            if line.startswith(("[rank", "[timing]")):
+                log(f"  rank {r}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {len(procs)} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    wrote = [r for r in range(1, len(procs))
+             if (workdir / f"rank{r}").exists()]
+    if wrote:
+        raise AssertionError(f"ranks {wrote} wrote files")
+    ranks = [json.loads((workdir / f"counts{r}.json").read_text())
+             for r in range(len(procs))]
+    return workdir / "rank0" / "run", ranks
+
+
+def saved_state(run_dir):
+    return torch.load(run_dir / "ckpt" / "latest_network" / "state.pt",
+                      weights_only=True)["model"]
+
+
+def assert_params_close(label, got, want, frac=0.995, atol_bulk=5e-4,
+                        atol_max=5e-3):
+    """The bounds of the JAX package's two-process test
+    (tests/test_multiprocess.py::_assert_params_close): every element
+    within ``atol_max``, at most 0.5% (at least 3) of a tensor's elements
+    outside ``atol_bulk`` + 5e-3 of the value. Adam turns float
+    reassociation into a full step on the odd element whose gradient sits
+    near zero."""
+    worst = 0.0
+    for k, w in want.items():
+        d = (got[k].double() - w.double()).abs()
+        worst = max(worst, d.max().item())
+        bad = int((d > atol_bulk + w.double().abs() * 5e-3).sum())
+        limit = max(3, int((1 - frac) * d.numel()))
+        if d.max() >= atol_max or bad > limit:
+            raise AssertionError(f"{label}: {k} max |diff| {d.max():.2e}, "
+                                 f"{bad}/{d.numel()} outside (limit {limit})")
+    log(f"{label}: {len(want)} tensors within the bounds, largest "
+        f"|difference| {worst:.3g}")
+
+
+def compare_losses(label, got_recs, want_recs):
+    """Each epoch's train means (epoch_time_s aside) rtol 1e-3, atol 1e-5."""
+    for got, want in zip(got_recs, want_recs, strict=True):
+        for k, v in want["train"].items():
+            if k != "epoch_time_s" and not np.isclose(
+                    got["train"][k], v, rtol=1e-3, atol=1e-5):
+                raise AssertionError(f"{label}: epoch {want['epoch']} {k} "
+                                     f"{got['train'][k]} against {v}")
+    log(f"{label}: the ranks' losses {got_recs[-1]['train']}, one "
+        f"process's {want_recs[-1]['train']}")
+
+
+def dp_start(workdir, stage, sets, world=DP_WORLD, backend="gloo",
+             device="cuda:0", repeat=False):
+    """The ranks of a :func:`dp_phase`, started: one group, with ``repeat``
+    two (the second for the bit-for-bit repeat; every kernel on the path
+    is deterministic, so groups may run side by side)."""
+    return [start_ranks(workdir / name, stage, sets, world=world,
+                        backend=backend, device=device)
+            for name in ("two", "again")[:1 + repeat]]
+
+
+def stop_ranks(started):
+    """Kills every rank of ``started`` (groups of :func:`start_ranks`)
+    still running."""
+    for _, procs in started:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def dp_phase(dev, workdir, stage, sets, per_step, label, started):
+    """Phases 23 and 24: ``stage`` through the CLI on the ranks ``started``
+    (:func:`dp_start`) against one process on the same global batch, run
+    here meanwhile (losses, parameters, launches per rank per step, only
+    rank 0 writing); a second group, bit for bit the first. Returns each
+    rank's launches."""
+    one = cli(dev, stage, workdir / "one", *sets)
+    run_dir, ranks = finish_ranks(started[0])
+    for r, rk in enumerate(ranks):
+        expect_launches(f"{label} rank {r}", rk["launches"],
+                        one.steps_per_epoch, 0, per_step, {})
+    compare_losses(label, epoch_log(run_dir / "epoch_log.jsonl"),
+                   epoch_records(one))
+    want = saved_state(pathlib.Path(one.workdir))
+    got = saved_state(run_dir)
+    assert_params_close(f"{label}: parameters against one process", got, want)
+    if len(started) > 1:
+        again, _ = finish_ranks(started[1])
+        assert_same_tensors(f"{label}: a second run of the ranks", got,
+                            saved_state(again))
+    return [rk["launches"] for rk in ranks]
+
+
+def dp_timing_phase(workdir, init):
+    """Phase 25: bf16 stage-1 step time of DP_WORLD gloo ranks on this card
+    against one rank (an NCCL group of one, so that NCCL's init and
+    all-reduce run) at the same 2 samples a rank, and each rank's gradient
+    all-reduce time."""
+    per_rank = 2
+    out = {}
+    for world, backend, device in ((DP_WORLD, "gloo", "cuda:0"),
+                                   (1, "nccl", None)):
+        sets = [*DP_TIME_SET, f"training.batch_size={per_rank * world}",
+                f"dataset.synthetic_len={per_rank * world * DP_TIME_STEPS}",
+                f"checkpoint_path={init}"]
+        run_dir, ranks = finish_ranks(start_ranks(
+            workdir / f"time{world}", "lidf", sets, world=world,
+            backend=backend, device=device))
+        rec = epoch_log(run_dir / "epoch_log.jsonl")[-1]
+        out[world] = {
+            "backend": backend,
+            "step_ms": rec["train"]["epoch_time_s"] * 1e3 / DP_TIME_STEPS,
+            "allreduce_ms": [statistics.median(rk["allreduce_ms"]
+                                               [-DP_TIME_STEPS:])
+                             for rk in ranks]}
+    log(f"data parallel, bf16 stage 1 at {per_rank} samples a rank (second "
+        f"epoch): {DP_WORLD} gloo ranks on one card {out[DP_WORLD]['step_ms']:.1f}"
+        f" ms a step, gradient all-reduce (median, between device syncs) "
+        f"{out[DP_WORLD]['allreduce_ms']} ms per rank; 1 rank (NCCL group "
+        f"of one) {out[1]['step_ms']:.1f} ms a step, all-reduce "
+        f"{out[1]['allreduce_ms']} ms. Gloo on one card goes through the "
+        f"host: not what NCCL on two cards costs")
+    return out
+
+
+def parallel_phases(dev, workdir, stage1_ckpt):
+    """Phases 23-25 (see the module doc). Returns {kernel: {phase: [launches
+    of each rank]}} and phase 25's times."""
+    sets1 = [*DP_SET, *DP_STAGE1_DEPTH]
+    init1 = unit_scale_checkpoint("lidf", sets1, workdir / "dp_init1")
+    runs = {"dp_stage1": (workdir / "dp1", "lidf",
+                          [*sets1, f"checkpoint_path={init1}"],
+                          EXPECT_PER_STEP, True),
+            "dp_stage2": (workdir / "dp2", "refine_hardneg",
+                          [*DP_SET, f"lidf_ckpt_path={stage1_ckpt}"],
+                          EXPECT_PER_REFINE_STEP, False)}
+    launches = {}
+    # both phases' ranks start together, each phase's one process then
+    # runs beside them
+    torch.cuda.empty_cache()
+    started = {}
+    try:
+        for name, (d, stage, sets, _, repeat) in runs.items():
+            started[name] = dp_start(d, stage, sets, repeat=repeat)
+        for name, (d, stage, sets, per_step, _) in runs.items():
+            launches[name] = dp_phase(dev, d, stage, sets, per_step,
+                                      f"data parallel {name}", started[name])
+    finally:
+        stop_ranks([g for groups in started.values() for g in groups])
+    init = unit_scale_checkpoint("lidf", DP_TIME_SET, workdir / "dp_init")
+    times = dp_timing_phase(workdir / "dp_time", init)
+    if torch.cuda.device_count() >= DP_WORLD:
+        for name, (d, stage, sets, per_step, _) in runs.items():
+            d = d.with_name(d.name + "_nccl")
+            group = dp_start(d, stage, sets, backend="nccl", device=None)
+            try:
+                launches[f"{name}_nccl"] = dp_phase(
+                    dev, d, stage, sets, per_step,
+                    f"data parallel {name} NCCL on {DP_WORLD} cards", group)
+            finally:
+                stop_ranks(group)
+    else:
+        log(f"nccl_2card: not run ({torch.cuda.device_count()} card)")
+    rows = {k: {name: [rk[k] for rk in ranks]
+                for name, ranks in launches.items()}
+            for k in counters()}
     return rows, times
 
 
@@ -2476,7 +2784,7 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-22 on ``dev``; prints the kernels line."""
+    """Phases 2-25 on ``dev``; prints the kernels line."""
     from implicit_depth_torch.builder import (
         build_lidf,
         build_static,

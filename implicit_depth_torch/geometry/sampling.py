@@ -11,7 +11,10 @@
 
 The random draws come from an explicit ``torch.Generator``; they cannot
 reproduce ``jax.random``'s, so callers that need the JAX draw pass it in
-(``prepare_inputs(valid_idx=..., miss_start=...)``).
+(``prepare_inputs(valid_idx=..., miss_start=...)``). A rank of a
+data-parallel run passes ``shard=(rank, world)``: :func:`draw_uniform`
+then draws the global batch's tensor and keeps the rank's rows, so that
+the ranks see a 1-process run's draws and their generators stay equal.
 """
 
 from __future__ import annotations
@@ -27,6 +30,18 @@ def _block_order_perm(h: int, w: int, block_y: int, block_x: int) -> np.ndarray:
     """perm[k] = flat image index of the k-th pixel in block-scan order."""
     ids = np.arange(h * w).reshape(h // block_y, block_y, w // block_x, block_x)
     return ids.transpose(0, 2, 1, 3).reshape(-1)
+
+
+def draw_uniform(shape, generator: torch.Generator | None, device,
+                 shard=(0, 1)) -> torch.Tensor:
+    """U[0, 1) of ``shape`` (leading axis the batch) on ``device``, drawn
+    from ``generator`` on its own device. ``shard`` (r, n): rows
+    [r·b, (r+1)·b) of a draw of the global batch's n·b rows."""
+    r, n = shard
+    b = shape[0]
+    gen_dev = generator.device if generator is not None else device
+    u = torch.rand((n * b, *shape[1:]), generator=generator, device=gen_dev)
+    return u[r * b:(r + 1) * b].to(device)
 
 
 def _nonzero_first_order(mask_flat: torch.Tensor,
@@ -47,11 +62,12 @@ def _nonzero_first_order(mask_flat: torch.Tensor,
 def sample_masked_window(mask_flat: torch.Tensor, n_sample: int,
                          generator: torch.Generator | None = None,
                          rank: torch.Tensor | None = None,
-                         start: torch.Tensor | None = None):
+                         start: torch.Tensor | None = None, shard=(0, 1)):
     """Sample <= ``n_sample`` indices per image from a (B, M) bool mask.
 
     ``rank``: ``cumsum(mask_flat, 1) - 1`` when the caller has it; ``start``
-    (B,) replaces the random window start (drawn from ``generator``).
+    (B,) replaces the random window start (drawn from ``generator``, at
+    ``shard``: :func:`draw_uniform`).
 
     Returns idx (B, n) int32 flat indices (0 where the slot is invalid),
     slot (B, n) bool, cnt (B,) int32 mask pixels, start (B,) int32: slot j
@@ -64,8 +80,7 @@ def sample_masked_window(mask_flat: torch.Tensor, n_sample: int,
     cnt = mask_flat.sum(dim=1)
     if start is None:
         max_start = (cnt - n_sample).clamp(min=0)
-        gen_dev = generator.device if generator is not None else dev
-        u = torch.rand((b,), generator=generator, device=gen_dev).to(dev)
+        u = draw_uniform((b,), generator, dev, shard)
         start = torch.minimum((u * (max_start + 1)).long(), max_start)
     start = start.to(device=dev, dtype=torch.long)
     j = start[:, None] + torch.arange(n_sample, device=dev)
@@ -77,10 +92,12 @@ def sample_masked_window(mask_flat: torch.Tensor, n_sample: int,
 
 def sample_valid_stratified(valid_mask: torch.Tensor, n_sample: int,
                             generator: torch.Generator | None = None,
-                            block_y: int = 8, block_x: int = 8):
+                            block_y: int = 8, block_x: int = 8,
+                            shard=(0, 1)):
     """valid_mask (B, H, W) bool -> (idx (B, n) int32 flat indices,
     slot (B, n) bool — all False for an image with no valid pixel,
-    cnt (B,) int32 valid-pixel counts)."""
+    cnt (B,) int32 valid-pixel counts). The jitter is drawn from
+    ``generator`` at ``shard`` (:func:`draw_uniform`)."""
     b, h, w = valid_mask.shape
     dev = valid_mask.device
     m = h * w
@@ -92,8 +109,7 @@ def sample_valid_stratified(valid_mask: torch.Tensor, n_sample: int,
 
     i = torch.arange(n_sample, device=dev)
     stride = (cnt_safe // n_sample).clamp(min=1)
-    gen_dev = generator.device if generator is not None else dev
-    u = torch.rand((b, n_sample), generator=generator, device=gen_dev).to(dev)
+    u = draw_uniform((b, n_sample), generator, dev, shard)
     jitter = torch.minimum((u * stride[:, None]).long(), stride[:, None] - 1)
     rank_many = torch.minimum((i * cnt_safe[:, None]) // n_sample + jitter,
                               cnt_safe[:, None] - 1)

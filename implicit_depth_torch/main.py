@@ -1,15 +1,23 @@
 """CLI launcher (counterpart of ``implicit_depth_tpu/main.py``).
 
 Parity: src/main.py:11-51 — two flags (default config + overlay configs),
-seeding, dynamic trainer dispatch — plus ``--set`` dotted overrides and
+seeding, dynamic trainer dispatch — plus ``--set`` dotted overrides,
 ``--device`` (default ``cuda``; the trainers raise without a card unless
-``cpu`` is asked for). One process drives one device.
+``cpu`` is asked for) and ``--dist_backend``. One process drives one
+device; launched by ``torchrun`` (or with its ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` set by hand) each
+process is a rank of a data-parallel run (``parallel/mesh.py``) on
+``cuda:LOCAL_RANK``, and ``training.batch_size`` is the global batch.
 
 Usage:
   python -m implicit_depth_torch.main --cfg_paths configs/train_lidf.yaml
   python -m implicit_depth_torch.main --cfg_paths configs/test_refine.yaml
   python -m implicit_depth_torch.main --device cpu \\
       --cfg_paths configs/smoke_synthetic.yaml --set training.nepochs=1
+  torchrun --nproc_per_node 4 -m implicit_depth_torch.main \\
+      --cfg_paths configs/train_lidf.yaml          # NCCL, one card a rank
+  torchrun --nproc_per_node 2 -m implicit_depth_torch.main --device cuda:0 \\
+      --dist_backend gloo --cfg_paths ...          # two ranks on one card
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import argparse
 import ast
 
 import numpy as np
+
+from implicit_depth_torch.parallel import mesh
 
 
 def parse_overrides(pairs) -> dict:
@@ -47,9 +57,16 @@ def make_trainer(argv=None):
                         help="experiment YAML overlays, applied in order")
     parser.add_argument("--set", nargs="*", default=[],
                         help="dotted overrides, e.g. training.lr=1e-4")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to run on (cuda or cpu)")
+    parser.add_argument("--device", default=None,
+                        help="torch device to run on (default cuda, under "
+                        "torchrun cuda:LOCAL_RANK; or cpu)")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=mesh.BACKENDS,
+                        help="process group backend under torchrun (default "
+                        "nccl on a card, gloo on the cpu; gloo shares a "
+                        "card between ranks)")
     args = parser.parse_args(argv)
+    device = mesh.init_from_env(args.device, args.dist_backend)
 
     from implicit_depth_torch.config import load_config
 
@@ -61,20 +78,25 @@ def make_trainer(argv=None):
 
     from implicit_depth_torch.train.trainer import TRAINERS
 
-    return TRAINERS[cfg.trainer_name](cfg, device=args.device)
+    return TRAINERS[cfg.trainer_name](cfg, device=device)
 
 
 def main(argv=None):
-    """Runs the configured trainer (train, or valid / test) and returns it."""
-    trainer = make_trainer(argv)
-    exp_type = trainer.cfg.exp_type
-    if exp_type == "train":
-        trainer.run()
-    elif exp_type in ("valid", "test"):
-        trainer.test()
-    else:
-        raise ValueError(f"unknown exp_type {exp_type!r}")
-    return trainer
+    """Runs the configured trainer (train, or valid / test) and returns it.
+    A process group it joined is left at the end, an exception included,
+    so that no rank stays waiting on this one."""
+    try:
+        trainer = make_trainer(argv)
+        exp_type = trainer.cfg.exp_type
+        if exp_type == "train":
+            trainer.run()
+        elif exp_type in ("valid", "test"):
+            trainer.test()
+        else:
+            raise ValueError(f"unknown exp_type {exp_type!r}")
+        return trainer
+    finally:
+        mesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -70,6 +70,8 @@ from implicit_depth_torch.ops.ray_decode import (
 )
 from implicit_depth_torch.ops.ray_grid import ray_grid_intersect
 from implicit_depth_torch.ops.roi_align import roi_window_pool
+from implicit_depth_torch.parallel import mesh
+from implicit_depth_torch.parallel.hardneg import sharded_hard_neg_mean
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -92,7 +94,8 @@ def prepare_inputs(static: LIDFStatic, batch: Tensors, train: bool = False,
                    pred_mask: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    valid_idx: Optional[torch.Tensor] = None,
-                   miss_start: Optional[torch.Tensor] = None) -> Tensors:
+                   miss_start: Optional[torch.Tensor] = None,
+                   shard=(0, 1)) -> Tensors:
     """Geometry stage: sampling, voxelization, ray/grid pairs, GT labels.
 
     batch: rgb (B,H,W,3) standardized; xyz / xyz_corrupt (B,H,W,3);
@@ -101,8 +104,9 @@ def prepare_inputs(static: LIDFStatic, batch: Tensors, train: bool = False,
     a ray slot, the masks follow ``mask_type``. Training: the miss rays are
     ``static.n_rays`` slots of a random window of the corrupted pixels and
     the valid points come from ``valid_mask``. The random draws come from
-    ``generator``; ``valid_idx`` (B, n_valid) and ``miss_start`` (B,)
-    replace them with given ones."""
+    ``generator`` (at ``shard``, a rank's (rank, world):
+    ``geometry/sampling.py::draw_uniform``); ``valid_idx`` (B, n_valid) and
+    ``miss_start`` (B,) replace them with given ones."""
     grid = static.grid
     rgb = batch["rgb"]
     b, h, w, _ = rgb.shape
@@ -131,7 +135,7 @@ def prepare_inputs(static: LIDFStatic, batch: Tensors, train: bool = False,
         vslot = valid_mask.reshape(b, -1).any(1)[:, None].expand(vidx.shape)
     else:
         vidx, vslot, _ = sample_valid_stratified(valid_mask, static.n_valid,
-                                                 generator)
+                                                 generator, shard=shard)
     xyz_corrupt_flat = batch["xyz_corrupt"].reshape(b, h * w, 3)
     vg = torch.cat([xyz_corrupt_flat, rgb.reshape(b, h * w, 3)], -1).gather(
         1, vidx.long()[..., None].expand(-1, -1, 6))
@@ -151,7 +155,7 @@ def prepare_inputs(static: LIDFStatic, batch: Tensors, train: bool = False,
         miss_rank = torch.cumsum(miss_mask_flat.int(), 1, dtype=torch.int32) - 1
         midx, mslot, _, mstart = sample_masked_window(
             miss_mask_flat, static.n_rays, generator, rank=miss_rank,
-            start=miss_start)
+            start=miss_start, shard=shard)
         mg = torch.cat([dirs.reshape(b, h * w, 3), xyz_flat,
                         rgb.reshape(b, h * w, 3)], -1).gather(
             1, midx.long()[..., None].expand(-1, -1, 9))
@@ -512,15 +516,25 @@ class LIDFModel(nn.Module):
 # Loss (counterpart of the JAX package's lidf_loss and its helpers)
 # ---------------------------------------------------------------------------
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                sharded: bool = False) -> torch.Tensor:
+    """The mean of the masked values; ``sharded``: this rank's share of the
+    global batch's, its own sum over the count all-reduced (detached)."""
     num = torch.where(mask, x, torch.zeros((), dtype=x.dtype,
                                            device=x.device)).sum()
-    return num / mask.to(x.dtype).sum().clamp(min=1.0)
+    count = mask.to(x.dtype).sum()
+    if sharded:
+        count = mesh.all_reduce_sum(count)
+    return num / count.clamp(min=1.0)
 
 
-def hard_neg_mean(x: torch.Tensor, mask: torch.Tensor,
-                  ratio: float) -> torch.Tensor:
-    """Mean of the top-``ratio`` fraction of the masked values."""
+def hard_neg_mean(x: torch.Tensor, mask: torch.Tensor, ratio: float,
+                  sharded: bool = False) -> torch.Tensor:
+    """Mean of the top-``ratio`` fraction of the masked values;
+    ``sharded``: this rank's share of the global batch's
+    (``parallel/hardneg.py``)."""
+    if sharded:
+        return sharded_hard_neg_mean(x, mask, ratio)
     flat = torch.where(mask, x, torch.full((), float("-inf"), dtype=x.dtype,
                                            device=x.device)).reshape(-1)
     k = max(int(flat.shape[0] * ratio), 1)
@@ -554,17 +568,28 @@ def compose_pred_image(base_flat: torch.Tensor, values: torch.Tensor,
     return torch.where(in_win[..., None], vals, base_flat)
 
 
+def mean_fns(hard_neg: bool, hard_neg_ratio: float, sharded: bool):
+    """(the loss terms' reduction, masked_mean), both over the global batch
+    under ``sharded``."""
+    def mean(v, m):
+        return masked_mean(v, m, sharded)
+
+    def hard(v, m):
+        return hard_neg_mean(v, m, hard_neg_ratio, sharded)
+
+    return (hard if hard_neg else mean), mean
+
+
 def surf_smooth_terms(inputs: Tensors, pred_pos: torch.Tensor, *, train: bool,
                       img_hw, hard_neg: bool, hard_neg_ratio: float,
-                      want_smooth: bool):
+                      want_smooth: bool, sharded: bool = False):
     """(surf_norm_loss, angle_err, smooth_loss) over the miss pixels, from
     the channel-planar normals of the GT and the predicted point images;
     smooth_loss is 0 unless ``want_smooth``."""
     h, w = img_hw
     slot = inputs["miss_slot"]
     b = slot.shape[0]
-    reduce = ((lambda v, m: hard_neg_mean(v, m, hard_neg_ratio))
-              if hard_neg else masked_mean)
+    reduce, mean = mean_fns(hard_neg, hard_neg_ratio, sharded)
     base = inputs["xyz_flat"] if train else inputs["xyz_corrupt_flat"]
     # train: gt_pos is xyz_flat gathered at miss_idx, so writing it back
     # into xyz_flat is the identity
@@ -584,7 +609,7 @@ def surf_smooth_terms(inputs: Tensors, pred_pos: torch.Tensor, *, train: bool,
                                 inputs["miss_start"], slot.shape[1])
     else:
         in_win = slot
-    angle = (masked_mean(torch.arccos(cos_img.clamp(-1, 1)), in_win)
+    angle = (mean(torch.arccos(cos_img.clamp(-1, 1)), in_win)
              / math.pi * 180.0)
     zero = torch.zeros((), device=pred_pos.device)
     if want_smooth:
@@ -598,8 +623,8 @@ def surf_smooth_terms(inputs: Tensors, pred_pos: torch.Tensor, *, train: bool,
         smooth = (reduce(take1(dx2), slot) + reduce(take1(dy2), slot)
                   if want_smooth else zero)
     else:
-        surf = masked_mean(dist_img, in_win)
-        smooth = (masked_mean(dx2, in_win) + masked_mean(dy2, in_win)
+        surf = mean(dist_img, in_win)
+        smooth = (mean(dx2, in_win) + mean(dy2, in_win)
                   if want_smooth else zero)
     return surf, angle, smooth
 
@@ -608,16 +633,20 @@ def lidf_loss(inputs: Tensors, outputs: Tensors, *, train: bool, img_hw,
               pos_w: float = 100.0, prob_w: float = 0.5,
               surf_norm_w: float = 10.0, smooth_w: float = 0.0,
               surf_norm_on=True, smooth_on=True, hard_neg: bool = False,
-              hard_neg_ratio: float = 0.1) -> Tensors:
+              hard_neg_ratio: float = 0.1, sharded: bool = False) -> Tensors:
     """Position L1, per-ray termination CE, surface-normal and smoothness
     terms (``loss_net``) and the metrics acc, err, angle_err. The smooth
     term is computed when ``smooth_w`` is set or ``smooth_on`` is the
     literal True; a tensor ``smooth_on`` (the train step's epoch gate)
-    defers to the weight, as the JAX package's traced flag does."""
+    defers to the weight, as the JAX package's traced flag does.
+
+    ``sharded`` (a rank's block of the global batch): every value is the
+    rank's share of the global batch's, so that the shares sum over the
+    ranks to the 1-process loss and metrics, and their gradients to its
+    gradient."""
     slot = inputs["miss_slot"]
     gt_pos, pred_pos = inputs["gt_pos"], outputs["pred_pos"]
-    reduce = ((lambda v, m: hard_neg_mean(v, m, hard_neg_ratio))
-              if hard_neg else masked_mean)
+    reduce, mean = mean_fns(hard_neg, hard_neg_ratio, sharded)
 
     pos_loss = reduce((pred_pos - gt_pos).abs().mean(-1), slot)
 
@@ -632,7 +661,7 @@ def lidf_loss(inputs: Tensors, outputs: Tensors, *, train: bool, img_hw,
     surf_norm_loss, angle_err, smooth_loss = surf_smooth_terms(
         inputs, pred_pos, train=train, img_hw=img_hw, hard_neg=hard_neg,
         hard_neg_ratio=hard_neg_ratio,
-        want_smooth=bool(smooth_w) or smooth_on is True)
+        want_smooth=bool(smooth_w) or smooth_on is True, sharded=sharded)
 
     def flag(v):
         return torch.as_tensor(v, dtype=torch.float32, device=pred_pos.device)
@@ -642,9 +671,9 @@ def lidf_loss(inputs: Tensors, outputs: Tensors, *, train: bool, img_hw,
                 + smooth_w * flag(smooth_on) * smooth_loss)
 
     pr_slot, _ = masked_argmax(outputs["prob_softmax"], pair_valid)
-    acc = masked_mean((pr_slot == gt_slot).float(), slot)
+    acc = mean((pr_slot == gt_slot).float(), slot)
     nz = (gt_pos.abs().sum(-1) != 0) & slot
-    err = masked_mean(((pred_pos - gt_pos) ** 2).sum(-1).sqrt(), nz)
+    err = mean(((pred_pos - gt_pos) ** 2).sum(-1).sqrt(), nz)
     return {"pos_loss": pos_loss, "prob_loss": prob_loss,
             "surf_norm_loss": surf_norm_loss, "smooth_loss": smooth_loss,
             "loss_net": loss_net, "acc": acc, "err": err,

@@ -22,13 +22,13 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from implicit_depth_torch.geometry.sampling import draw_uniform
 from implicit_depth_torch.models.embedder import posenc_dim, positional_encoding
 from implicit_depth_torch.models.imnet import IEF
 from implicit_depth_torch.models.init import PreparedWeights
 from implicit_depth_torch.models.lidf import (
     LIDFStatic,
-    hard_neg_mean,
-    masked_mean,
+    mean_fns,
     surf_smooth_terms,
 )
 from implicit_depth_torch.models.pointnet import PointNet2Stage
@@ -48,19 +48,21 @@ def perturb_pred_pos(pred_pos: torch.Tensor, miss_dir: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
                      apply: Optional[torch.Tensor] = None,
                      bucket: Optional[torch.Tensor] = None,
-                     u: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     u: Optional[torch.Tensor] = None,
+                     shard=(0, 1)) -> torch.Tensor:
     """The reference's noise mixture, one scalar per image, along the ray:
     with probability ``perturb_prob`` a shift drawn from [-0.05, 0) (half
     the images), [0, 0.05) (3/10), [-0.1, -0.05) or [0.05, 0.1) (1/10 each)
     meters. ``apply``, ``bucket``, ``u``: the three (B,) uniform draws in
-    [0, 1), in that order; each not given is drawn from ``generator``."""
+    [0, 1), in that order; each not given is drawn from ``generator`` at
+    ``shard`` (``geometry/sampling.py::draw_uniform``)."""
     b = pred_pos.shape[0]
     dev = pred_pos.device
 
     def draw(given):
         if given is not None:
             return given.to(device=dev, dtype=torch.float32)
-        return torch.rand((b,), generator=generator, device=dev)
+        return draw_uniform((b,), generator, dev, shard)
 
     apply, bucket, u = draw(apply), draw(bucket), draw(u)
     noise = torch.where(
@@ -191,15 +193,18 @@ def refine_forward(model: RefineModel, inputs: Tensors, lidf_out: Tensors,
                    perturb_prob: float = 0.8,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Tensors] = None,
-                   inject_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   inject_mask: Optional[torch.Tensor] = None,
+                   shard=(0, 1)) -> torch.Tensor:
     """``forward_times`` iterations from the stage-1 prediction; with
     ``perturb`` (training) the prediction is perturbed before the first one
-    only (the draws from ``generator``, or ``noise``: {apply, bucket, u})."""
+    only (the draws from ``generator`` at ``shard``, or ``noise``: {apply,
+    bucket, u})."""
     pred = lidf_out["pred_pos"]
     for it in range(forward_times):
         if perturb and it == 0:
             pred = perturb_pred_pos(pred, inputs["miss_dir"], perturb_prob,
-                                    generator=generator, **(noise or {}))
+                                    generator=generator, shard=shard,
+                                    **(noise or {}))
         pred = model(inputs, lidf_out, pred, inject_mask)
     return pred
 
@@ -208,19 +213,18 @@ def refine_loss(inputs: Tensors, pred_pos_refine: torch.Tensor, *,
                 train: bool, img_hw, pos_w: float = 100.0,
                 surf_norm_w: float = 10.0, smooth_w: float = 0.0,
                 surf_norm_on=True, smooth_on=True, hard_neg: bool = False,
-                hard_neg_ratio: float = 0.1) -> Tensors:
+                hard_neg_ratio: float = 0.1, sharded: bool = False) -> Tensors:
     """The stage-2 loss: position L1 and the surface-normal (and smoothness)
     terms, no termination term; ``err`` over the rays with a non-zero
-    ground truth. The gates follow ``lidf_loss``."""
+    ground truth. The gates and ``sharded`` follow ``lidf_loss``."""
     slot = inputs["miss_slot"]
     gt_pos = inputs["gt_pos"]
-    reduce = ((lambda v, m: hard_neg_mean(v, m, hard_neg_ratio))
-              if hard_neg else masked_mean)
+    reduce, mean = mean_fns(hard_neg, hard_neg_ratio, sharded)
     pos_loss = reduce((pred_pos_refine - gt_pos).abs().mean(-1), slot)
     surf_norm_loss, angle_err, smooth_loss = surf_smooth_terms(
         inputs, pred_pos_refine, train=train, img_hw=img_hw,
         hard_neg=hard_neg, hard_neg_ratio=hard_neg_ratio,
-        want_smooth=bool(smooth_w) or smooth_on is True)
+        want_smooth=bool(smooth_w) or smooth_on is True, sharded=sharded)
 
     def flag(v):
         return torch.as_tensor(v, dtype=torch.float32,
@@ -230,7 +234,7 @@ def refine_loss(inputs: Tensors, pred_pos_refine: torch.Tensor, *,
                 + surf_norm_w * flag(surf_norm_on) * surf_norm_loss
                 + smooth_w * flag(smooth_on) * smooth_loss)
     nz = (gt_pos.abs().sum(-1) != 0) & slot
-    err = masked_mean(((pred_pos_refine - gt_pos) ** 2).sum(-1).sqrt(), nz)
+    err = mean(((pred_pos_refine - gt_pos) ** 2).sum(-1).sqrt(), nz)
     return {"pos_loss": pos_loss, "surf_norm_loss": surf_norm_loss,
             "smooth_loss": smooth_loss, "loss_net": loss_net, "err": err,
             "angle_err": angle_err}

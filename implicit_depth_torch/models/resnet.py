@@ -13,6 +13,9 @@ flax's ``BatchNorm(dtype=float32)``: in eval mode on the running statistics,
 in train mode (``.train()``) on the batch's mean and biased variance
 E[x²] - E[x]², updating the running statistics as flax does with momentum
 0.9 (ra = 0.9·ra + 0.1·batch statistic, the biased variance included).
+Under a process group of several ranks the train-mode statistics are the
+global batch's (the JAX step's, taken over the global array), the same on
+every rank, and so are the running statistics.
 Input and output are NHWC, as in the JAX module.
 """
 
@@ -22,10 +25,12 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
 from implicit_depth_torch.models.init import normal_
+from implicit_depth_torch.parallel import mesh
 
 
 def bilinear_matrix(n_out: int, n_in: int) -> torch.Tensor:
@@ -83,6 +88,18 @@ def _conv_dt(x, conv: nn.Conv2d, dtype):
 _MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
 
 
+def _global_moments(x):
+    """(E[x], E[x²]) per channel over the global batch: each rank's (Σx,
+    Σx²) all-reduced. The all-reduce's backward sums the ranks' incoming
+    gradients, so each rank's input gradient is that of the global
+    statistics. Every rank holds a batch of the same shape."""
+    c = x.shape[1]
+    sums = dist_fn.all_reduce(torch.cat([x.sum((0, 2, 3)),
+                                         (x * x).sum((0, 2, 3))]))
+    n = x.numel() // c * mesh.world()
+    return sums[:c] / n, sums[c:] / n
+
+
 def _bn_f32(x, bn: nn.BatchNorm2d):
     x = x.float()
     if not bn.training:
@@ -90,8 +107,11 @@ def _bn_f32(x, bn: nn.BatchNorm2d):
                             bn.bias, False, 0.0, bn.eps)
     # F.batch_norm(training=True) would update running_var with the unbiased
     # variance; flax keeps the biased one, so the statistics are done here
-    mean = x.mean((0, 2, 3))
-    var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp(min=0)
+    if mesh.world() > 1:
+        mean, ex2 = _global_moments(x)
+    else:
+        mean, ex2 = x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))
+    var = (ex2 - mean * mean).clamp(min=0)
     with torch.no_grad():
         bn.running_mean.mul_(_MOMENTUM).add_(mean, alpha=1 - _MOMENTUM)
         bn.running_var.mul_(_MOMENTUM).add_(var, alpha=1 - _MOMENTUM)

@@ -4,10 +4,12 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``build/idt_torch_kernels/<hash>/`` at the root of the checkout (the hash
 covers every source and the flags, so an edit rebuilds). All sources build
-in parallel: one ``nvcc`` process each, started together. Libraries are
-loaded with ``ctypes``; every C entry point takes raw device pointers and
-the CUDA stream as ``void*`` and returns ``cudaGetLastError()``, which
-:func:`check` turns into an exception.
+in parallel: one ``nvcc`` process each, started together, each into a
+file of its own process that is then renamed into place, so that the
+ranks of a data-parallel run that build at once each load a whole
+library. Libraries are loaded with ``ctypes``; every C entry point takes
+raw device pointers and the CUDA stream as ``void*`` and returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
 
 Nothing here runs at import time: the package imports on machines with no
 CUDA toolkit (the CPU tests).

@@ -25,6 +25,11 @@ and BatchNorm statistics alone (the frozen stage 1 of stage-2 training, and
 ``DepthCompleter.from_checkpoint``). :func:`generator_state` /
 :func:`set_generator_state` carry a ``torch.Generator`` through the JSON
 sidecar (the trainer's mid-epoch checkpoints).
+
+Under a process group (``parallel/mesh.py``) rank 0 alone writes, and
+every rank waits at a barrier after each save, so that no rank runs on
+before the checkpoint is whole (JAX ``checkpoint.py``: process 0 saves);
+every rank restores from the same files.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from implicit_depth_torch.parallel import mesh
 from implicit_depth_torch.train.state import TrainState
 
 LATEST = "latest_network"
@@ -83,24 +89,29 @@ def _load(path: str) -> Dict[str, Any]:
 class Checkpointer:
     def __init__(self, ckpt_dir: str):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if mesh.is_main():
+            os.makedirs(self.ckpt_dir, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, state: State, epoch: int, meta: Optional[Dict] = None,
              snapshot: bool = False) -> None:
         """``state`` (a TrainState, or a bare module) as ``latest_network``,
         and as ``epochNNN_network`` when ``snapshot``."""
-        tree, meta = _tree(state), dict(meta or {}, epoch=epoch)
-        self._write(os.path.join(self.ckpt_dir, LATEST), tree, meta)
-        if snapshot:
-            self._write(os.path.join(self.ckpt_dir, EPOCH_FMT.format(epoch)),
-                        tree, meta)
+        if mesh.is_main():
+            tree, meta = _tree(state), dict(meta or {}, epoch=epoch)
+            self._write(os.path.join(self.ckpt_dir, LATEST), tree, meta)
+            if snapshot:
+                self._write(os.path.join(self.ckpt_dir,
+                                         EPOCH_FMT.format(epoch)), tree, meta)
+        mesh.barrier()
 
     def save_as(self, state: State, epoch: int, name: str,
                 meta: Optional[Dict] = None) -> None:
         """``state`` under ``name`` (e.g. ``best_network``)."""
-        self._write(os.path.join(self.ckpt_dir, name), _tree(state),
-                    dict(meta or {}, epoch=epoch))
+        if mesh.is_main():
+            self._write(os.path.join(self.ckpt_dir, name), _tree(state),
+                        dict(meta or {}, epoch=epoch))
+        mesh.barrier()
 
     def _write(self, path: str, tree: Dict[str, Any], meta: Dict) -> None:
         """Crash-safe overwrite: write ``<path>.next``, then swap it in by

@@ -10,7 +10,15 @@ the frozen stage 1 (eval mode, running BatchNorm statistics, no graph: the
 serving K1) on the training rays, perturbs its prediction, runs
 ``refine.forward_times`` RefineNet iterations with the gradient flowing
 from one into the next (K4 and K5 on the card), then refine_loss ->
-backward -> one update of the refine parameters only. Epoch-dependent
+backward -> one update of the refine parameters only. Under a process
+group (``parallel/mesh.py``) a train step runs on the rank's block of the
+global batch: its draws are the global batch's rows of the rank, its loss
+the rank's share of the global loss (the BatchNorm statistics, normalisers
+and hard-negative top-k global), and its gradients are summed over the
+ranks before the update, so that every rank makes the update of one
+process on the global batch. The eval steps are unchanged (every rank
+evaluates the same frames); the vis steps draw as the train steps do, so
+that every rank, running them, keeps its generator in step. Epoch-dependent
 switches (the ``maxpool_label_epo`` curriculum, the ``surf_norm_epo`` /
 ``smooth_epo`` gates) are read from the epoch passed in. Like serving, the
 steps run on ``cuda`` unless ``device="cpu"`` is asked for: the models are
@@ -31,6 +39,7 @@ from implicit_depth_torch.models.refine import (
     refine_forward,
     refine_loss,
 )
+from implicit_depth_torch.parallel import mesh
 from implicit_depth_torch.train.state import TrainState
 
 Tensors = Dict[str, torch.Tensor]
@@ -55,6 +64,8 @@ def _loss_kwargs(cfg, train: bool, epoch: int, device) -> dict:
         smooth_on=gate(epoch >= loss.smooth_epo),
         hard_neg=bool(loss.hard_neg),
         hard_neg_ratio=float(loss.hard_neg_ratio or 0.1),
+        # training rays are the rank's block of the global batch
+        sharded=train and mesh.world() > 1,
     )
 
 
@@ -85,12 +96,14 @@ def make_lidf_train_step(cfg, model: LIDFModel,
         batch = {k: v.to(dev) for k, v in batch.items()}
         inputs = prepare_inputs(model.static, batch, train=True,
                                 mask_type=cfg.mask_type, generator=generator,
-                                valid_idx=valid_idx, miss_start=miss_start)
+                                valid_idx=valid_idx, miss_start=miss_start,
+                                shard=mesh.shard())
         use_gt = epoch < cfg.model.maxpool_label_epo
         out = model(inputs, use_gt_label=use_gt)
         losses = lidf_loss(inputs, out, **_loss_kwargs(cfg, True, epoch, dev))
         state.optimizer.zero_grad(set_to_none=True)
         losses["loss_net"].backward()
+        mesh.all_reduce_grads(model.parameters())
         state.apply_gradients()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -131,8 +144,9 @@ def make_lidf_eval_step(cfg, model: LIDFModel,
 def make_lidf_vis_step(cfg, model: LIDFModel,
                        device: Union[str, torch.device] = "cuda") -> Callable:
     """Returns ``vis_step(state, batch, generator) -> (inputs, pred_pos)``:
-    the forward only, at the training shapes (sampled rays), with running
-    BatchNorm statistics, for the train-time visualization."""
+    the forward only, at the training shapes (sampled rays, drawn at the
+    rank's shard), with running BatchNorm statistics, for the train-time
+    visualization."""
     dev = resolve_device(device)
     model.to(dev)
 
@@ -145,7 +159,8 @@ def make_lidf_vis_step(cfg, model: LIDFModel,
         batch = {k: v.to(dev) for k, v in batch.items()}
         inputs = prepare_inputs(model.static, batch, train=True,
                                 mask_type=cfg.mask_type, generator=generator,
-                                valid_idx=valid_idx, miss_start=miss_start)
+                                valid_idx=valid_idx, miss_start=miss_start,
+                                shard=mesh.shard())
         return inputs, model(inputs)["pred_pos"]
 
     return vis_step
@@ -187,17 +202,20 @@ def make_refine_train_step(cfg, lidf_model: LIDFModel,
         batch = {k: v.to(dev) for k, v in batch.items()}
         inputs = prepare_inputs(lidf.static, batch, train=True,
                                 mask_type=cfg.mask_type, generator=generator,
-                                valid_idx=valid_idx, miss_start=miss_start)
+                                valid_idx=valid_idx, miss_start=miss_start,
+                                shard=mesh.shard())
         with torch.no_grad():
             lidf_out = lidf(inputs,
                             use_gt_label=epoch < cfg.model.maxpool_label_epo)
         pred = refine_forward(refine_model, inputs, lidf_out, forward_times,
                               perturb=perturb, perturb_prob=perturb_prob,
-                              generator=generator, noise=noise)
+                              generator=generator, noise=noise,
+                              shard=mesh.shard())
         losses = refine_loss(inputs, pred,
                              **_refine_loss_kwargs(cfg, True, epoch, dev))
         state.optimizer.zero_grad(set_to_none=True)
         losses["loss_net"].backward()
+        mesh.all_reduce_grads(refine_model.parameters())
         state.apply_gradients()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -273,7 +291,8 @@ def make_refine_vis_step(cfg, lidf_model: LIDFModel,
         batch = {k: v.to(dev) for k, v in batch.items()}
         inputs = prepare_inputs(lidf.static, batch, train=True,
                                 mask_type=cfg.mask_type, generator=generator,
-                                valid_idx=valid_idx, miss_start=miss_start)
+                                valid_idx=valid_idx, miss_start=miss_start,
+                                shard=mesh.shard())
         lidf_out = lidf(inputs)
         return inputs, refine_forward(refine_model, inputs, lidf_out,
                                       forward_times)

@@ -7,7 +7,15 @@ optimizer + checkpoint/resume, train/valid/test loops with meters, JSONL
 epoch logs, per-image CSV at test, PLY/PNG visualization.
 
 One process drives one device (``device``, default ``cuda``; raises without
-a card unless ``"cpu"`` is asked for) and writes every file. The
+a card unless ``"cpu"`` is asked for). Under a process group
+(``parallel/mesh.py``, one process per rank, as the JAX trainer runs one
+process per host) ``training.batch_size`` is the global batch: each rank
+loads its block of ``batch_size // world`` samples of every global batch,
+its steps make the update of one process on the global batch (see
+``train/steps.py``), its logged losses are summed over the ranks into the
+global batch's, and only rank 0 writes files (logs, checkpoints, the test
+CSV, visual dumps). Validation and test run on every rank over the same
+frames, so that the ranks stay in step. The
 trainer's random draws (valid points, ray windows, the stage-2
 perturbation) come from one ``torch.Generator`` on that device, seeded from
 ``cfg.seed``; the initial weights from a CPU generator of the same seed, so
@@ -37,6 +45,7 @@ from implicit_depth_torch.config import Config
 from implicit_depth_torch.data.datasets import get_dataset
 from implicit_depth_torch.data.loader import DataLoader
 from implicit_depth_torch.infer import resolve_device
+from implicit_depth_torch.parallel import mesh
 from implicit_depth_torch.train.checkpoint import (
     Checkpointer,
     generator_state,
@@ -99,14 +108,19 @@ def to_device(batch: Dict[str, np.ndarray],
     return out
 
 
-def _host_scalars(values: List[Dict[str, torch.Tensor]]) -> List[Dict[str, float]]:
-    """Loss dicts of 0-d tensors -> floats, read back in one copy."""
+def _host_scalars(values: List[Dict[str, torch.Tensor]],
+                  sum_ranks: bool = False) -> List[Dict[str, float]]:
+    """Loss dicts of 0-d tensors -> floats, read back in one copy;
+    ``sum_ranks``: each summed over the ranks first, in one all-reduce
+    (the train steps' losses are each rank's share of the global batch's)."""
     if not values:
         return []
     keys = list(values[0])
-    host = torch.stack([torch.stack([d[k].float() for k in keys])
-                        for d in values]).cpu().tolist()
-    return [dict(zip(keys, row)) for row in host]
+    stacked = torch.stack([torch.stack([d[k].float() for k in keys])
+                           for d in values])
+    if sum_ranks:
+        stacked = mesh.all_reduce_sum(stacked)
+    return [dict(zip(keys, row)) for row in stacked.cpu().tolist()]
 
 
 class BaseTrainer:
@@ -116,6 +130,10 @@ class BaseTrainer:
                  device: Device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rank, self.world, self.is_main = (mesh.rank(), mesh.world(),
+                                               mesh.is_main())
+        # the global batch's block of this rank (JAX trainer.py:88)
+        self.per_host_batch = max(cfg.training.batch_size // self.world, 1)
         self.seed = int(cfg.seed or 0)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
@@ -125,9 +143,11 @@ class BaseTrainer:
         self.ckpt_dir = osp.join(self.workdir, "ckpt")
         self.vis_dir = osp.join(self.workdir, "vis")
         self.result_dir = osp.join(self.workdir, "result")
-        for d in (self.workdir, self.ckpt_dir, self.vis_dir, self.result_dir):
-            os.makedirs(d, exist_ok=True)
-        cfg.save(osp.join(self.workdir, "config.yaml"))
+        if self.is_main:
+            for d in (self.workdir, self.ckpt_dir, self.vis_dir,
+                      self.result_dir):
+                os.makedirs(d, exist_ok=True)
+            cfg.save(osp.join(self.workdir, "config.yaml"))
         self.ckpt = Checkpointer(self.ckpt_dir)
         self.meters = MeterBank()
         self.epoch_log_path = osp.join(self.workdir, "epoch_log.jsonl")
@@ -150,6 +170,18 @@ class BaseTrainer:
         self.state, meta = self.ckpt.restore(self.state)
         self.start_epoch = self._apply_resume_meta(meta)
         return True
+
+    def _replicate(self, *modules) -> None:
+        """Rank 0's weights, optimizer and generator states on every rank
+        (after init and after a restore; every rank read the same files)."""
+        mesh.replicate_state(*modules, optimizer=self.state.optimizer,
+                             generator=self.generator)
+
+    def _log_setup(self) -> None:
+        if self.world > 1:
+            print(f"[rank {self.rank}/{self.world}] per_host_batch "
+                  f"{self.per_host_batch} steps_per_epoch "
+                  f"{self.steps_per_epoch} device {self.device}", flush=True)
 
     def _update_best(self, record: Dict) -> bool:
         """Fold this epoch's metrics into the best scalars; returns True when
@@ -199,7 +231,8 @@ class BaseTrainer:
         """Host-RSS recycle guard (``tpu.host_rss_exit_gb``): when the
         process's resident memory crosses the limit, exit(82) right after
         the epoch checkpoint, so that an outer retry loop restarts with
-        ``resume=latest_network``. 0 (the default) disables it."""
+        ``resume=latest_network``; under a process group every rank exits
+        when one crosses it. 0 (the default) disables it."""
         limit_gb = float(self.cfg.tpu.get("host_rss_exit_gb", 0) or 0)
         if not limit_gb:
             return
@@ -207,8 +240,9 @@ class BaseTrainer:
             with open("/proc/self/statm") as f:
                 rss_gb = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
         except (OSError, ValueError):
-            return
-        if rss_gb > limit_gb:
+            rss_gb = 0.0
+        over = mesh.all_reduce_sum(torch.tensor([float(rss_gb > limit_gb)]))
+        if over.item() > 0:
             print(f"[recycle] host RSS {rss_gb:.1f} GB > {limit_gb:.0f} GB "
                   f"after epoch {epoch} — exiting for a clean resume",
                   flush=True)
@@ -258,8 +292,9 @@ class BaseTrainer:
     def make_train_loader(self) -> DataLoader:
         cfg = self.cfg
         ds = get_dataset(cfg.dataset, "train", base_seed=self.seed)
-        return DataLoader(ds, cfg.training.batch_size, shuffle=True,
+        return DataLoader(ds, self.per_host_batch, shuffle=True,
                           seed=self.seed, num_workers=cfg.training.num_workers,
+                          host_id=self.rank, num_hosts=self.world,
                           worker_type=cfg.training.get("worker_type", "thread"))
 
     def make_valid_loaders(self) -> Dict[str, DataLoader]:
@@ -284,6 +319,8 @@ class BaseTrainer:
         return out
 
     def log_epoch(self, epoch: int, record: Dict) -> None:
+        if not self.is_main:
+            return
         with open(self.epoch_log_path, "a") as f:
             f.write(json.dumps({"epoch": epoch, **record}) + "\n")
 
@@ -351,17 +388,18 @@ class BaseTrainer:
         if os.environ.get("IDT_TIMING"):
             # harvest(last) is where the queued device work drains, so it
             # reads as "device time the host could not overlap"
-            print(f"[timing] epoch {epoch} " + " ".join(
+            print(f"[timing] rank {self.rank} epoch {epoch} " + " ".join(
                 f"{k}={v:.2f}s" for k, v in phases.items()), flush=True)
         return means
 
     def _harvest_losses(self, epoch: int, pending, tag: str, log_keys) -> None:
-        """Read back one item's loss scalars in a single copy and add them
-        to the meters, logging every ``log_interval`` steps."""
+        """Read back one item's loss scalars (the global batch's) in a
+        single copy and add them to the meters, logging every
+        ``log_interval`` steps."""
         it0, losses = pending
-        for j, vals in enumerate(_host_scalars(losses)):
+        for j, vals in enumerate(_host_scalars(losses, sum_ranks=True)):
             self.meters.add(vals)
-            if (it0 + j) % self.cfg.training.log_interval == 0:
+            if self.is_main and (it0 + j) % self.cfg.training.log_interval == 0:
                 msg = " ".join(f"{k}={v:.4f}" for k, v in vals.items()
                                if k in log_keys)
                 print(f"[{tag}] epoch {epoch} it {it0 + j}/"
@@ -369,7 +407,9 @@ class BaseTrainer:
 
     def _train_vis(self, epoch: int, it: int, batch, dev_batch) -> None:
         """Train-time visualization (≙ train_lidf.py:469-473): dump visuals
-        ``train_vis_iter`` times per epoch on the current training batch."""
+        ``train_vis_iter`` times per epoch on the current training batch.
+        Every rank runs the vis step (its draws keep the generators in
+        step); rank 0 writes its own block's visuals."""
         vis_iter = self.cfg.training.get("train_vis_iter", 0)
         if not vis_iter:
             return
@@ -379,6 +419,8 @@ class BaseTrainer:
         if self._vis_step is None:
             self._vis_step = self._make_vis_step()
         inputs, pred = self._vis_step(self.state, dev_batch, self.generator)
+        if not self.is_main:
+            return
         from implicit_depth_torch.train.visualize import dump_batch_visuals
         dump_batch_visuals(self.vis_dir, f"train_ep{epoch}_it{it}", batch,
                            inputs, pred)
@@ -408,11 +450,13 @@ class BaseTrainer:
                                            batch["corrupt_mask"][i])
                     if m:
                         bank.add(m)
-                if vis_iter and it % vis_iter == 0:
+                if self.is_main and vis_iter and it % vis_iter == 0:
                     from implicit_depth_torch.train.visualize import dump_batch_visuals
                     dump_batch_visuals(self.vis_dir, f"{split}_ep{epoch}_it{it}",
                                        batch, inputs, pred)
             results[split] = bank.means()
+            if not self.is_main:
+                continue
             line = f"epoch {epoch} split {split} " + " ".join(
                 f"{k}={v:.4f}" for k, v in sorted(results[split].items()))
             with open(self.valid_log_path, "a") as f:
@@ -432,7 +476,7 @@ class BaseTrainer:
             for it, batch in enumerate(loader.epoch(0)):
                 paths = batch["item_path"]
                 inputs, pred, _ = self._eval(to_device(batch, self.device))
-                if vis_iter and it % vis_iter == 0:
+                if self.is_main and vis_iter and it % vis_iter == 0:
                     # ≙ test-time vis_cond2 (train_lidf.py:471-473)
                     from implicit_depth_torch.train.visualize import dump_batch_visuals
                     dump_batch_visuals(self.vis_dir, f"test_{split}_it{it}",
@@ -444,7 +488,7 @@ class BaseTrainer:
                     if m:
                         rows.append([paths[i], m["rmse"], m["abs_rel"], m["mae"],
                                      m["a1"], m["a2"], m["a3"]])
-            if rows:
+            if self.is_main and rows:
                 path = osp.join(self.result_dir, f"{split}.csv")
                 with open(path, "w", newline="") as f:
                     wcsv = csv.writer(f)
@@ -487,6 +531,8 @@ class LIDFTrainer(BaseTrainer):
             restore_params_only(cfg.checkpoint_path, self.model,
                                 name=cfg.get("checkpoint_name", "latest_network"))
             print(f"loaded weights from {cfg.checkpoint_path}")
+        self._replicate(self.model)
+        self._log_setup()
         self.train_step = make_lidf_train_step(cfg, self.model, self.device)
         self.eval_step = make_lidf_eval_step(cfg, self.model, self.device)
         self._vis_step = None  # train-shape vis forward, built on first use
@@ -534,6 +580,8 @@ class RefineTrainer(BaseTrainer):
             restore_params_only(cfg.checkpoint_path, self.refine_model,
                                 name=cfg.get("checkpoint_name", "latest_network"))
             print(f"loaded refine weights from {cfg.checkpoint_path}")
+        self._replicate(self.refine_model, self.lidf_model)
+        self._log_setup()
         self.train_step = make_refine_train_step(cfg, self.lidf_model,
                                                  self.refine_model, self.device)
         self.eval_step = make_refine_eval_step(cfg, self.lidf_model,

@@ -1147,3 +1147,125 @@ def test_cpu_saved_mid_epoch_checkpoint_resumes_on_the_card(dev, tmp_path):
         import json
         record = json.loads(f.read().splitlines()[-1])
     assert np.isfinite(record["train"]["loss_net"])
+
+
+# one rank of test_two_gloo_ranks_on_one_card_step_as_one_rank: one f32
+# stage-1 step on its block of the global batch, its results saved
+_RANK_STEP = r'''
+import sys
+import torch
+from implicit_depth_torch.parallel import mesh
+
+torch.backends.cudnn.enabled = False
+torch.backends.cuda.matmul.allow_tf32 = False
+
+device, out_path = sys.argv[1:3]
+device = mesh.init_from_env(device, "gloo", timeout_s=120)
+sys.path.insert(0, "tests")
+from test_torch_port_cuda import _two_rank_case, _one_step
+
+cfg, raw, model = _two_rank_case()
+r, world = mesh.rank(), mesh.world()
+b = raw["rgb"].shape[0] // world
+torch.save(_one_step(cfg, {k: v[r * b:(r + 1) * b] for k, v in raw.items()},
+                     model, torch.device(device)), out_path)
+mesh.shutdown()
+'''
+
+
+def _run_two_ranks(code, *args, timeout=300):
+    """``python -c code *args`` as ranks 0 and 1 of a group on this
+    machine; each rank's (return code, output)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, *(a.format(rank=r) for a in args)],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, log) for p, log in zip(procs, logs)]
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev):
+    code = ("from implicit_depth_torch.parallel import mesh\n"
+            "mesh.init_from_env('cuda:0', 'nccl', timeout_s=60)")
+    for rc, log in _run_two_ranks(code, timeout=120):
+        assert rc != 0 and "use --dist_backend gloo" in log, log[-3000:]
+
+
+def _two_rank_case():
+    """The f32 tiny model of test_train_step_card_matches_cpu (the
+    kernels' decoder widths) and a batch of 4 synthetic frames."""
+    from implicit_depth_torch.data.synthetic import synthetic_batch
+    cfg = load_config(overrides={
+        "dataset": {"img_height": 48, "img_width": 64},
+        "model": {"rgb_out": 8, "pnet_out": 32, "pnet_gf": 8,
+                  "resnet_stages": [1, 1, 1, 1]},
+        "grid": {"miss_sample_num": 256, "valid_sample_num": 512},
+        "tpu": {"max_pairs_per_ray": 12, "compute_dtype": "float32"}})
+    raw = {k: torch.from_numpy(v)
+           for k, v in synthetic_batch(0, 4, 48, 64).items()}
+    g = torch.Generator().manual_seed(1)
+    return cfg, raw, randomize_weights_(build_lidf(cfg, build_static(cfg), g),
+                                        g)
+
+
+def _one_step(cfg, batch, model, device):
+    """One step (draws from a generator on ``device`` seeded 3): losses,
+    gradients, state, all on the CPU."""
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+    model = model.to(device)
+    state = TrainState.create(model, cfg.training, steps_per_epoch=10)
+    gen = torch.Generator(device=device).manual_seed(3)
+    losses = make_lidf_train_step(cfg, model, device)(state, batch, gen, 10)
+    return {"losses": {k: v.cpu() for k, v in losses.items()},
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def test_two_gloo_ranks_on_one_card_step_as_one_rank(dev, tmp_path,
+                                                     monkeypatch):
+    """Two ranks of a gloo group, both on this card, take one f32 stage-1
+    step on their blocks of a batch of 4 (each through K2, K3, K5): their
+    summed losses and every gradient are those of one rank on the whole
+    batch, and both ranks hold the same gradients and state, bit for bit.
+
+    The convolutions are PyTorch's own (cuDNN off, in the ranks and here):
+    cuDNN picks its algorithms by the batch (2 a rank, 4 here), and the
+    backward through the train-mode batch norms amplifies their other
+    summation orders far past this bound (scripts/dp_noise_floor.py
+    measures how far at full width). Bound: 1e-4 of the norm, plus 1e-7
+    for a sum that cancels to ~0 (the probability decoder's last bias,
+    ~2e-8), as test_train_step_matches_jax_grad's f32 bound."""
+    monkeypatch.setattr(torch.backends.cudnn, "enabled", False)
+    for rc, log in _run_two_ranks(_RANK_STEP, "cuda:0",
+                                  str(tmp_path / "rank{rank}.pt")):
+        assert rc == 0, log[-4000:]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    cfg, raw, model = _two_rank_case()
+    one = _one_step(cfg, raw, model, dev)
+    for k, v in one["losses"].items():
+        np.testing.assert_allclose(sum(r["losses"][k].item() for r in ranks),
+                                   v.item(), rtol=1e-4, atol=1e-6, err_msg=k)
+    for name, ref in one["grads"].items():
+        assert torch.equal(ranks[0]["grads"][name], ranks[1]["grads"][name])
+        diff = (ranks[0]["grads"][name].double() - ref.double()).norm()
+        assert diff <= 1e-4 * ref.double().norm() + 1e-7, name
+    for k in one["state"]:
+        assert torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]), k
