@@ -17,7 +17,9 @@ serves and resumes from checkpoints, and runs the trainer through the CLI
 
 Phases:
   1. device: a CUDA device must be present; prints name and power limit;
-  2. build: nvcc builds csrc/*.cu (into build/idt_torch_kernels/);
+  2. build: nvcc builds csrc/*.cu (into build/idt_torch_kernels/; K3's
+     ray_decode_bwd.cu once per decoder width), all at once: seconds to
+     each library;
   3. kernels: K1 ray_decode, K4 ief_decode, K5 segment_max0 on the inputs the
      main path gives them (recorded from a warm-up frame), in bf16 and f32:
      max |kernel - plain| against a stated tolerance that lies well below
@@ -153,6 +155,28 @@ Phases:
      all-reduce time (gloo on one card goes through the host: not what
      NCCL on two cards costs); with 2 or more cards, phases 23-24 again
      under NCCL, one card a rank, else ``nccl_2card: not run``.
+ 26. the decoders' other widths, imnet_gf 32 (128-64-32-1: the widths of
+     configs/smoke_synthetic.yaml and both convergence configs) and 8
+     (32-16-8-1: the tiny CLI model), at 120x160: K1 and K4 on the calls of
+     a served frame, K6 on those of a ``global`` and a dense frame, K2, K2
+     'all' and K3's three instances on those of a training step of batch
+     4 in each decode_bwd mode (2,048 rays an image), each against its
+     plain version in bf16 and f32 at the tolerances of phases 3, 7 and
+     9-11 but the bf16 outputs' (WIDTH_BF16_TOL: the narrower decoders'
+     outputs spread less), with the launches of WIDTH_FRAMES frames and
+     TRAIN_STEPS steps at that width; K3 twice on each recorded call, the same bits; each
+     kernel's row under "at_widths", by its decoder widths;
+ 27. configs/smoke_synthetic.yaml as it stands (``--set`` only its log
+     directory) through the CLI: 2 epochs, validated (launches per step
+     K2 1, K3 1, K5 2; per eval frame K1 1, K5 2), finite losses; then
+     ``exp_type=test`` from its checkpoint (per eval frame K1 1, K5 2);
+ 28. the same test with ``tpu.eval_rays_per_chunk`` a quarter of a frame's
+     rays: per eval frame K1 4, K5 2; its CSV, and every eval output and
+     loss, the bits of the one-shot test's;
+ 29. configs/convergence_refine.yaml behind 27's checkpoint, cut by
+     ``--set`` to one epoch of 2 steps: per step K1 1, K4 2, K5 10, per
+     eval frame as a served frame; the frozen stage 1 bit for bit its
+     checkpoint. Then the seconds of phases 2-29.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -172,6 +196,9 @@ import time
 import numpy as np
 import torch
 
+# the checkout this script belongs to: the package, the configs and the
+# build directory are found beside it, whatever the working directory
+ROOT = pathlib.Path(__file__).resolve().parent
 MAIN_FRAMES = 5
 FRAME_HW = (480, 640)
 SEED = 0
@@ -396,6 +423,11 @@ def rel_norm(got, ref, floor=0.0):
     return ((got - ref).norm() / ref.norm().clamp(min=max(floor, 1e-30))).item()
 
 
+def decoder_widths(w):
+    """(4g, 2g, g) of the stage-1 decoders whose kernel operands are ``w``."""
+    return w["b1"].shape[0] // 2, w["off_w2"].shape[1], w["off_w3"].shape[1]
+
+
 def bound(name, a, dt, n_iter=2, rows=None):
     """(bound_ms, bound_by, flops, bytes) of one call on these inputs (and
     ``n_iter`` IEF iterations): each input read once, each output written
@@ -406,7 +438,7 @@ def bound(name, a, dt, n_iter=2, rows=None):
         vt, cells, pos, rf, w = a
         n, kb = cells.shape
         c_vox, c_ray, multires = w["dims"]
-        g1, g2, g3 = 256, 128, 64
+        g1, g2, g3 = decoder_widths(w)
         tail = g1 * g2 + g2 * g3 + g3
         # per pair: layer 1 over [vox | pos6 | trig] for both decoders, then
         # three tails (2 IEF iterations + the prob decoder); per ray: the
@@ -431,10 +463,11 @@ def bound(name, a, dt, n_iter=2, rows=None):
         rows = p if rows is None else rows
         c_vox, c_roi, c_dir, multires = w["dims"]
         c_embed = c_vox + c_roi + 6 * (1 + 2 * multires) + c_dir
-        tail = 256 * 128 + 128 * 64 + 64
+        g1, g2, g3 = decoder_widths(w)
+        tail = g1 * g2 + g2 * g3 + g3
         # per row decoded: layer 1 of both decoders over the whole embedding
         # (the IEF's once), two IEF tails and the probability tail
-        flops = 2 * rows * (c_embed * 2 * 256 + 3 * tail)
+        flops = 2 * rows * (c_embed * 2 * g1 + 3 * tail)
         per_row = nbytes(cells, pos, rays) / max(p, 1)
         byt = nbytes(vt, rf, *w.values()) + rows * per_row + 2 * p * 4
         peak = PEAK_TC[dt]
@@ -443,7 +476,7 @@ def bound(name, a, dt, n_iter=2, rows=None):
         vt, cells, pos, rf, w, saved, g_off, g_logit = a
         n, kb = cells.shape
         c_vox, c_ray, multires = w["dims"]
-        g1, g2, g3 = 256, 128, 64
+        g1, g2, g3 = decoder_widths(w)
         tail = g1 * g2 + g2 * g3 + g3
         c_pair = c_vox + 6 + 12 * multires
         # per pair, from the saved layer-1 pre-activations: the three tails
@@ -466,8 +499,9 @@ def bound(name, a, dt, n_iter=2, rows=None):
     elif name == "ief_decode":
         e, rc, p, w = a
         n = e.shape[0]
-        flops = 2 * n * ((e.shape[1] + rc.shape[1] + p.shape[1]) * 256
-                         + 2 * (256 * 128 + 128 * 64 + 64))
+        g1, g2, g3 = w["w1"].shape[1], w["w2"].shape[1], w["w3"].shape[1]
+        flops = 2 * n * ((e.shape[1] + rc.shape[1] + p.shape[1]) * g1
+                         + 2 * (g1 * g2 + g2 * g3 + g3))
         byt = nbytes(e, rc, p, *w.values()) + n * 4
         peak = PEAK_TC[dt]
     elif name == "segment_max0_bwd":
@@ -491,7 +525,8 @@ def bound(name, a, dt, n_iter=2, rows=None):
 def build_phase():
     from implicit_depth_torch.ops import cuda
     cuda.build_all()
-    log(f"build_s {cuda.build_seconds:.2f}")
+    log(f"build_s {cuda.build_seconds:.2f}; seconds to each library "
+        f"{ {k: round(v, 1) for k, v in cuda.source_seconds.items()} }")
     for line in cuda.build_log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill",
                                    "error")):
@@ -570,7 +605,7 @@ def record_calls(mods, run, when=None, keep=None):
 
 
 @torch.inference_mode()
-def kernel_phase(recorded, lidf, refine, dev):
+def kernel_phase(recorded, lidf, refine, dev, tols=TOL):
     """Each recorded call of a served frame, kernel vs plain (see
     ``forward_rows``). Returns the row of each kernel at its largest bf16
     shape."""
@@ -595,7 +630,7 @@ def kernel_phase(recorded, lidf, refine, dev):
             return e.float(), rc.float(), p.float(), f32w_k4
         return segment_as_f32(name, a)
 
-    rows = forward_rows(recorded, as_f32, dev)
+    rows = forward_rows(recorded, as_f32, dev, tols)
     if set(rows) != set(EXPECT_PER_FRAME):
         raise AssertionError(f"kernels measured: {sorted(rows)}")
     return rows
@@ -732,7 +767,7 @@ def ptxas_of(source, match):
     out, entry, section = {}, None, None
     for line in cuda.build_log.splitlines():
         if line.startswith("== "):
-            section = line[3:].strip()
+            section = line[3:].split()[0]
         elif section != source:
             continue
         elif "Compiling entry function" in line:
@@ -961,7 +996,7 @@ def bwd_checks(name, dt, got, ref, tol, floors):
 
 
 @torch.no_grad()
-def train_kernel_phase(recorded):
+def train_kernel_phase(recorded, tols=TRAIN_TOL):
     """K2 and K3 at the recorded training shapes, in bf16 (as recorded) and
     f32: kernel vs plain, times, bounds. Returns each kernel's bf16 row."""
     from implicit_depth_torch.ops import ray_decode as rd
@@ -978,11 +1013,11 @@ def train_kernel_phase(recorded):
         got, ref = rd.ray_decode_save(*a2, **kw2), \
             rd.ray_decode_plain(*a2, **kw2, saves=True)
         torch.cuda.synchronize()
-        tol_out = TRAIN_TOL[("ray_decode_save_out", dt)]
+        tol_out = tols[("ray_decode_save_out", dt)]
         checks = [("offset", got[0], ref[0], tol_out),
                   ("logit", got[1], ref[1], tol_out)]
         for nm, g, r in zip(("e1", "z1p", "trig"), got[2], ref[2]):
-            checks.append((nm, g, r, TRAIN_TOL[("ray_decode_save", dt)]
+            checks.append((nm, g, r, tols[("ray_decode_save", dt)]
                            * r.float().abs().max().item()))
         err2 = row_checks("ray_decode_save", dt, checks)
         saved = got[2]
@@ -993,7 +1028,7 @@ def train_kernel_phase(recorded):
         p3 = rd.ray_decode_bwd_plain(*a2[:4], w, g_off, g_logit, **kw3,
                                      dtype=dt, saved=saved)
         torch.cuda.synchronize()
-        tol3 = TRAIN_TOL[("ray_decode_bwd", dt)]
+        tol3 = tols[("ray_decode_bwd", dt)]
         floors = {"off_b4": g_off.abs().sum().item(),
                   "prob_b4": g_logit.abs().sum().item()}
         pairs, worst, err3 = bwd_checks("ray_decode_bwd", dt, k3, p3, tol3,
@@ -1310,7 +1345,7 @@ def build_models(cfg, train=False, seed=SEED):
     return lidf, refine
 
 
-def pair_kernel_rows(recorded, lidf, dev):
+def pair_kernel_rows(recorded, lidf, dev, tols=TOL):
     """K6 on the calls recorded from a served frame (``forward_rows``, with
     the weights re-prepared in f32 for the f32 run)."""
     from implicit_depth_torch.models.lidf import decoder_weights
@@ -1325,7 +1360,7 @@ def pair_kernel_rows(recorded, lidf, dev):
         return vt.float(), cells, pos, rf.float(), f32w, rays
 
     with torch.inference_mode():
-        row = forward_rows(recorded, as_f32, dev)["pair_decode"]
+        row = forward_rows(recorded, as_f32, dev, tols)["pair_decode"]
     row.setdefault("rows_decoded", row["shape"][1][0])  # cells: every row
     return row
 
@@ -1415,7 +1450,7 @@ def pair_modes_phase(dev, overrides, frame_hw, profile=False):
 
 
 @torch.no_grad()
-def recompute_kernel_rows(recorded):
+def recompute_kernel_rows(recorded, tols=TRAIN_TOL):
     """Phase 10's kernel check: K3's recompute instance (``saved=None``) on
     the recorded training inputs against ``ray_decode_bwd_plain(saved=None)``
     in bf16 (as recorded) and f32, by the relative norm of each gradient's
@@ -1436,7 +1471,7 @@ def recompute_kernel_rows(recorded):
         ref = rd.ray_decode_bwd_plain(*a[:5], g_off, g_logit, **kw, dtype=dt,
                                       saved=None)
         torch.cuda.synchronize()
-        tol = TRAIN_TOL[("ray_decode_bwd_recompute", dt)]
+        tol = tols[("ray_decode_bwd_recompute", dt)]
         dtn = str(dt).split(".")[-1]
         _, worst, err = bwd_checks("ray_decode_bwd_recompute", dt, got, ref,
                                    tol, floors)
@@ -1517,7 +1552,7 @@ def train_mode_model(dev, train_overrides, decode_bwd):
 
 
 @torch.no_grad()
-def save_all_kernel_rows(recorded):
+def save_all_kernel_rows(recorded, tols=TRAIN_TOL):
     """Phase 11's kernel checks on the recorded training inputs, in bf16 (as
     recorded) and f32: K2 'all' against ``ray_decode_plain(saves='all')``,
     K3 from its full saves against ``ray_decode_bwd_plain`` from the same
@@ -1543,7 +1578,7 @@ def save_all_kernel_rows(recorded):
         # soft clamp is the identity on (0, 1)), at K2's output tolerance;
         # the other saves within an ulp of their largest value; the offset
         # entering the first iteration is init_offset, exactly
-        tol_out = TRAIN_TOL[("ray_decode_save_out", dt)]
+        tol_out = tols[("ray_decode_save_out", dt)]
         checks = [("offset", got[0], ref[0], tol_out),
                   ("logit", got[1], ref[1], tol_out)]
         for nm, g, r in zip(names, got[2], ref[2]):
@@ -1554,7 +1589,7 @@ def save_all_kernel_rows(recorded):
                 continue
             f32 = nm.startswith("off") or nm == "logit"
             checks.append((nm, g, r, tol_out if f32 else
-                           TRAIN_TOL[("ray_decode_save", dt)]
+                           tols[("ray_decode_save", dt)]
                            * r.float().abs().max().item()))
         err2 = row_checks("ray_decode_save_all", dt, checks)
         saved = got[2]
@@ -1563,7 +1598,7 @@ def save_all_kernel_rows(recorded):
         p3 = rd.ray_decode_bwd_plain(*a2[:4], w, g_off, g_logit, **kw3,
                                      dtype=dt, saved=saved)
         torch.cuda.synchronize()
-        tol3 = TRAIN_TOL[("ray_decode_bwd_all", dt)]
+        tol3 = tols[("ray_decode_bwd_all", dt)]
         _, worst, err3 = bwd_checks("ray_decode_bwd_all", dt, k3, p3, tol3,
                                     floors)
         log(f"kernel ray_decode_bwd_all {dtn}: worst relative error "
@@ -2014,10 +2049,12 @@ def refine_phases(dev, profile=False):
 # -- the trainer, data pipeline and CLI (phases 18-22) -----------------------
 # the user's configs, read through the port's YAML reader; each cut is a
 # --set override (PERF.md §4), the data synthetic (no dataset is in the repo)
-TRAINER_CONFIGS = {"lidf": "configs/train_lidf.yaml",
-                   "refine": "configs/train_refine.yaml",
-                   "test": "configs/test_lidf.yaml",
-                   "refine_hardneg": "configs/train_refine_hardneg.yaml"}
+TRAINER_CONFIGS = {stage: str(ROOT / "configs" / name) for stage, name in (
+    ("lidf", "train_lidf.yaml"), ("refine", "train_refine.yaml"),
+    ("test", "test_lidf.yaml"),
+    ("refine_hardneg", "train_refine_hardneg.yaml"),
+    ("smoke", "smoke_synthetic.yaml"),
+    ("conv_refine", "convergence_refine.yaml"))}
 TRAINER_SET = ["dataset.type=synthetic", "training.log_interval=1"]
 # A: the config's batch 32, one epoch of 2 steps
 BATCH32_SET = ["dataset.synthetic_len=64", "training.nepochs=1",
@@ -2035,9 +2072,18 @@ KILL_AFTER = 3
 # E: stage 2, batch 4, one epoch of 2 steps, validated
 REFINE_TRAINER_SET = ["training.batch_size=4", "dataset.synthetic_len=8",
                       "training.nepochs=1", "training.valid_batch_size=1"]
-# per eval frame: stage 1 (K1 and the stage-1 PointNet's 2 pools); stage 2
-# as a served frame
-EXPECT_PER_EVAL_FRAME = {"ray_decode": 1, "segment_max0": 2}
+
+
+def expect_per_eval_frame(rays=1, chunk=0):
+    """Per eval batch of stage 1: K1 once (once a chunk of ``chunk`` rays,
+    ceil(rays / chunk) times, when ``tpu.eval_rays_per_chunk`` is below the
+    ``rays`` of a frame) and the stage-1 PointNet's 2 pools."""
+    return {"ray_decode": -(-rays // chunk) if 0 < chunk < rays else 1,
+            "segment_max0": 2}
+
+
+# per eval frame: stage 1 in one shot; stage 2 as a served frame
+EXPECT_PER_EVAL_FRAME = expect_per_eval_frame()
 # batch 32's plain K2 and K3 are computed over chunks of this many rays
 # (the batch-4 step's 80,000), so that their f32 graphs fit the card
 PLAIN_CHUNK_RAYS = 80000
@@ -2485,6 +2531,290 @@ def trainer_phases(dev, profile=False):
     return rows, times
 
 
+# -- the decoders' other widths (phases 26-29) ------------------------------
+# the widths of configs/smoke_synthetic.yaml and of both convergence configs
+# (imnet_gf 32: decoders 128-64-32-1, pnet_out 64, rgb_out 16) and of the
+# tiny CLI model (imnet_gf 8: 32-16-8-1, pnet_out 16, rgb_out 8), at the
+# smoke config's 120x160 frame (19,200 rays) and 2,048 training rays an image
+# (8,192 a step of batch 4)
+WIDTH_MODELS = {
+    32: {"model": {"rgb_out": 16, "pnet_out": 64, "pnet_gf": 16,
+                   "imnet_gf": 32},
+         "refine": {"pnet_out": 64, "pnet_gf": 16, "imnet_gf": 32}},
+    8: {"model": {"rgb_out": 8, "pnet_out": 16, "pnet_gf": 8, "imnet_gf": 8},
+        "refine": {"pnet_out": 16, "pnet_gf": 8, "imnet_gf": 8}}}
+WIDTH_HW = (120, 160)
+WIDTH_TRAIN = {"dataset": {"img_height": WIDTH_HW[0],
+                           "img_width": WIDTH_HW[1]},
+               "grid": {"miss_sample_num": 2048, "valid_sample_num": 2048}}
+WIDTH_FRAMES = 2
+# bf16 tolerances at these widths: (K1, K4 and K6; K2's outputs). The
+# randomized decoders' outputs spread less than at imnet_gf 64 (a served
+# frame's K1 std 0.020 at 32 and 0.035 at 8, K6's dense 0.018 and 0.032;
+# the training step's logit 0.012 and 0.0029), so the default width's
+# tolerances would not bite. Measured on an H100, the largest |kernel -
+# plain| of these calls: at 32, K1 5.8e-4, K4 6.5e-4, K6 5.9e-4, K2's
+# outputs 5.2e-4; at 8, K1 1.07e-3, K4 1.40e-3, K6 1.07e-3, K2's outputs
+# 1.6e-4 (K2 'all''s offset). Each tolerance is twice the largest
+# reading (at 8, 1.8x for K2's outputs) and BITE times below the spread; f32
+# keeps 1e-5 (readings ~1e-7), K3 its relative 2e-2 (readings 2.8e-3 and
+# 3.7e-3)
+WIDTH_BF16_TOL = {32: (1.3e-3, 1e-3), 8: (2.8e-3, 2.8e-4)}
+
+
+def width_tols(g):
+    """TOL and TRAIN_TOL with the bf16 tolerances of WIDTH_BF16_TOL[g]."""
+    serve, out = WIDTH_BF16_TOL[g]
+    bf = torch.bfloat16
+    return {**TOL, **TRAIN_TOL,
+            **{(name, bf): serve
+               for name in ("ray_decode", "ief_decode", "pair_decode")},
+            ("ray_decode_save_out", bf): out}
+
+# each K3 instance with the decode_bwd mode whose steps launch it
+WIDTH_TRAIN_MODES = (("kernel_save", EXPECT_PER_STEP),
+                     ("kernel", EXPECT_PER_STEP_KERNEL),
+                     ("kernel_save_all", EXPECT_PER_STEP_SAVE_ALL))
+# what the kernels line keeps of a kernel's row at another width
+WIDTH_KEYS = ("dtype", "shape", "max_abs_err", "tolerance", "max_rel_err",
+              "worst", "tolerance_rel", "ms", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "launches", "launches_per_frame",
+              "launches_per_step", "passes", "rows_decoded", "ms_all_rows",
+              "bound_ms_all_rows", "modes", "repeat_bit_identical")
+# phases 27-29 on configs/smoke_synthetic.yaml at its own widths (imnet_gf
+# 32), its test and chunked test, and configs/convergence_refine.yaml
+# behind its checkpoint, cut to one epoch of 2 steps
+CONV_REFINE_SET = ["training.nepochs=1", "dataset.synthetic_len=8"]
+
+
+def decoder_label(g):
+    """The decoder widths of imnet_gf ``g``, as the kernels line names
+    them."""
+    return f"{4 * g}-{2 * g}-{g}-1"
+
+
+def k3_repeats(recorded):
+    """K3 twice on a recorded call: every gradient, d_vox_table included,
+    the same bits (its fixed-order sums; no atomics)."""
+    from implicit_depth_torch.ops import ray_decode as rd
+    a, kw = recorded["ray_decode_bwd"]
+    first, again = rd.ray_decode_bwd(*a, **kw), rd.ray_decode_bwd(*a, **kw)
+    torch.cuda.synchronize()
+    same = (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+            and all(torch.equal(first[2][k], again[2][k]) for k in first[2]))
+    if not same:
+        raise AssertionError("ray_decode_bwd: two calls on the same inputs "
+                             "gave different bits")
+    return True
+
+
+def width_phase(dev, g):
+    """Phase 26 at imnet_gf ``g`` (WIDTH_MODELS): the serving path's K1 and
+    K4 and both decode modes' K6 on the calls recorded from a served
+    120x160 frame, and K2, K2 'all' and K3's three instances on the calls
+    recorded from a training step in each decode_bwd mode, each against
+    its plain version in bf16 and f32 at ``width_tols(g)``, with the
+    launches of WIDTH_FRAMES frames and
+    TRAIN_STEPS steps at this width; K3 twice on each recorded call, the
+    same bits. Returns {kernel: its bf16 row}."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.infer import DepthCompleter
+
+    label = decoder_label(g)
+    log(f"widths {label}: imnet_gf {g}, {WIDTH_MODELS[g]}")
+    serve = {"mask_type": "all",
+             "dataset": {"img_height": WIDTH_HW[0], "img_width": WIDTH_HW[1]},
+             **WIDTH_MODELS[g]}
+    frames = make_frames(WIDTH_FRAMES + 1, WIDTH_HW)
+    cfg = load_config(overrides=serve)
+    lidf, refine = build_models(cfg)
+    dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+    tols = width_tols(g)
+    rows = kernel_phase(record_calls(kernel_modules(),
+                                     lambda: dc.complete(*frames[0])),
+                        lidf, refine, dev, tols)
+    launches, _ = main_path(dc, frames[1:], cfg, label=f"widths {label}")
+    for name, n in launches.items():
+        add_launches(rows[name], n, WIDTH_FRAMES, "frame")
+    del rows["segment_max0"], dc, lidf, refine  # K5 has no decoder width
+    modes = {}
+    for mode in MODES:
+        cfg_m = load_config(overrides=mode_overrides(serve, mode))
+        lidf, refine = build_models(cfg_m)
+        dc = DepthCompleter(cfg_m, lidf=lidf, refine=refine, device=dev)
+        recorded = record_calls(
+            {"pair_decode": kernel_modules()["pair_decode"]},
+            lambda: dc.complete(*frames[0]))
+        row = pair_kernel_rows(recorded, lidf, dev, tols)
+        launches, _ = main_path(dc, frames[1:], cfg_m, EXPECT_PER_MODE_FRAME,
+                                f"widths {label}, {mode} mode")
+        modes[mode] = add_launches(row, launches["pair_decode"], WIDTH_FRAMES,
+                                   "frame")
+        del dc, lidf, refine
+    row = dict(max(modes.values(), key=lambda r: np.prod(r["shape"][1])))
+    row["modes"] = {m: {k: r[k] for k in WIDTH_KEYS if k in r}
+                    for m, r in modes.items()}
+    row["launches"] = sum(r["launches"] for r in modes.values())
+    rows["pair_decode"] = row
+    torch.cuda.empty_cache()
+    train = {**WIDTH_TRAIN, **WIDTH_MODELS[g]}
+    for decode_bwd, expect in WIDTH_TRAIN_MODES:
+        cfg_t, model = train_mode_model(dev, train, decode_bwd)
+        recorded, launches, _ = train_path(cfg_t, model, dev, expect=expect)
+        del model
+        torch.cuda.empty_cache()
+        if decode_bwd == "kernel_save":
+            got = train_kernel_phase(recorded, tols)
+            fwd = "ray_decode_save"
+            bwd = "ray_decode_bwd"
+        elif decode_bwd == "kernel":
+            got = {"ray_decode_bwd_recompute":
+                   recompute_kernel_rows(recorded, tols)}
+            fwd, bwd = None, "ray_decode_bwd_recompute"
+        else:
+            got = save_all_kernel_rows(recorded, tols)
+            fwd, bwd = "ray_decode_save_all", "ray_decode_bwd_all"
+        if fwd:
+            add_launches(got[fwd], launches[fwd], TRAIN_STEPS, "step")
+        add_launches(got[bwd], launches["ray_decode_bwd"], TRAIN_STEPS,
+                     "step")
+        got[bwd]["repeat_bit_identical"] = k3_repeats(recorded)
+        log(f"widths {label}: {bwd} twice on the recorded call: the same "
+            f"bits")
+        rows.update(got)
+        del recorded
+        torch.cuda.empty_cache()
+    return rows
+
+
+def config_cli(dev, stage, workdir, *sets, make=False):
+    """``implicit_depth_torch.main`` on ``dev`` with the config of ``stage``
+    (TRAINER_CONFIGS) as it stands: ``--set`` only the log directory and
+    ``sets``."""
+    from implicit_depth_torch import main as cli_main
+    argv = ["--device", dev.type, "--cfg_paths", TRAINER_CONFIGS[stage],
+            "--set", f"base_log_dir={workdir}", "log_name=run", *sets]
+    return (cli_main.make_trainer if make else cli_main.main)(argv)
+
+
+def eval_batches(tr):
+    """The batches of the trainer's validation split (its eval frames)."""
+    return tr.make_valid_loaders()["synthetic"].steps_per_epoch()
+
+
+def read_csv(tr):
+    import csv
+    import os
+    with open(os.path.join(tr.result_dir, "synthetic.csv")) as f:
+        return list(csv.reader(f))
+
+
+def config_phases(dev):
+    """Phases 27-29 (see the module doc) in a temporary directory, cuDNN
+    deterministic. Returns {kernel: its launches in each run} and the runs'
+    step times."""
+    import tempfile
+
+    from implicit_depth_torch.builder import build_lidf
+    from implicit_depth_torch.train.checkpoint import restore_params_only
+    from implicit_depth_torch.train.trainer import to_device
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d, cudnn_flags(
+            deterministic=True, benchmark=False):
+        workdir = pathlib.Path(d)
+        # 27: train, then test from the checkpoint
+        tr, launches = counted(lambda: config_cli(dev, "smoke",
+                                                  workdir / "smoke"))
+        recs = epoch_records(tr)
+        steps = tr.steps_per_epoch * len(recs)
+        frames = sum(eval_batches(tr) for r in recs if "valid" in r)
+        expect_launches("smoke config", launches, steps, frames,
+                        EXPECT_PER_STEP, EXPECT_PER_EVAL_FRAME)
+        losses = [v for r in recs for v in (*r["train"].values(),
+                                            *r.get("valid", {}).get(
+                                                "synthetic", {}).values())]
+        if len(recs) != tr.cfg.training.nepochs or not all(
+                np.isfinite(losses)):
+            raise AssertionError(f"smoke config: records {recs}")
+        log(f"smoke config: imnet_gf {tr.cfg.model.imnet_gf}, "
+            f"{len(recs)} epochs of {tr.steps_per_epoch} steps, step times "
+            f"{[trainer_step_ms(tr, r) for r in recs]} ms, train "
+            f"{recs[-1]['train']}, valid {recs[-1].get('valid')}")
+        out["smoke_train"] = {"launches": launches, "steps": steps,
+                              "eval_frames": frames,
+                              "step_ms": [trainer_step_ms(tr, r)
+                                          for r in recs]}
+        ckpt = tr.ckpt_dir
+        test = ("exp_type=test", f"checkpoint_path={ckpt}")
+        te, launches = counted(lambda: config_cli(dev, "smoke",
+                                                  workdir / "test", *test))
+        expect_launches("smoke config test", launches, 0, eval_batches(te),
+                        {}, EXPECT_PER_EVAL_FRAME)
+        one_shot = read_csv(te)
+        out["smoke_test"] = {"launches": launches,
+                             "eval_frames": eval_batches(te)}
+        # 28: the test with the decode over chunks of a quarter of the rays
+        rays = te.cfg.dataset.img_height * te.cfg.dataset.img_width
+        chunk = rays // 4
+        chunked = (*test, f"tpu.eval_rays_per_chunk={chunk}")
+        tc, launches = counted(lambda: config_cli(dev, "smoke",
+                                                  workdir / "chunked",
+                                                  *chunked))
+        per = expect_per_eval_frame(rays, chunk)
+        expect_launches(f"smoke config test, {chunk} rays a chunk", launches,
+                        0, eval_batches(tc), {}, per)
+        if read_csv(tc) != one_shot:
+            raise AssertionError("chunked test: its CSV differs from the "
+                                 "one-shot test's")
+        a = config_cli(dev, "smoke", workdir / "a", *test, make=True)
+        b = config_cli(dev, "smoke", workdir / "b", *chunked, make=True)
+        n_frames = 0
+        for batch in a.make_valid_loaders()["synthetic"].epoch(0):
+            db = to_device(batch, a.device)
+            ia, oa, la = a.eval_step(a.state, db, a.generator)
+            ib, ob, lb = b.eval_step(b.state, db, b.generator)
+            assert_same_tensors("chunked eval against one shot",
+                                {**oa, **{f"loss_{k}": v for k, v in
+                                          la.items()}},
+                                {**ob, **{f"loss_{k}": v for k, v in
+                                          lb.items()}})
+            n_frames += 1
+        log(f"smoke config test, {chunk} rays a chunk: K1 "
+            f"{per['ray_decode']} per eval frame; its CSV and every eval "
+            f"output and loss of {n_frames} eval batches the bits of the "
+            f"one-shot test")
+        out["smoke_test_chunked"] = {"launches": launches, "chunk": chunk,
+                                     "eval_frames": eval_batches(tc),
+                                     "bit_identical": True}
+        # 29: stage 2 behind the smoke run's checkpoint
+        tr2, launches = counted(lambda: config_cli(
+            dev, "conv_refine", workdir / "refine", f"lidf_ckpt_path={ckpt}",
+            *CONV_REFINE_SET))
+        recs = epoch_records(tr2)
+        frames = sum(eval_batches(tr2) for r in recs if "valid" in r)
+        expect_launches("convergence_refine config", launches,
+                        tr2.steps_per_epoch * len(recs), frames,
+                        EXPECT_PER_REFINE_STEP, EXPECT_PER_FRAME)
+        if not all(np.isfinite(v) for r in recs for v in r["train"].values()):
+            raise AssertionError(f"convergence_refine config: {recs}")
+        saved = restore_params_only(ckpt, build_lidf(tr2.cfg, tr2.static))
+        assert_same_tensors("convergence_refine config: the frozen stage 1 "
+                            "against its checkpoint",
+                            {k: v.cpu() for k, v in
+                             tr2.lidf_model.state_dict().items()},
+                            saved.state_dict())
+        log(f"convergence_refine config: refine imnet_gf "
+            f"{tr2.cfg.refine.imnet_gf}, {tr2.steps_per_epoch} steps, step "
+            f"time {trainer_step_ms(tr2, recs[-1]):.1f} ms, train "
+            f"{recs[-1]['train']}, valid {recs[-1].get('valid')}")
+        out["conv_refine"] = {"launches": launches,
+                              "steps": tr2.steps_per_epoch * len(recs),
+                              "eval_frames": frames,
+                              "step_ms": trainer_step_ms(tr2, recs[-1])}
+    return out
+
+
 # -- data-parallel training across processes (phases 23-25) -----------------
 # each rank a process of ``python -m implicit_depth_torch.main`` (through
 # RANK_LAUNCHER) with torchrun's variables set by hand; gloo puts both ranks
@@ -2573,7 +2903,7 @@ def start_ranks(workdir, stage, sets, world=DP_WORLD, backend="gloo",
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", RANK_LAUNCHER,
                  str(workdir / f"counts{r}.json"), *argv],
-                env=env, stdout=out, stderr=subprocess.STDOUT))
+                env=env, stdout=out, stderr=subprocess.STDOUT, cwd=ROOT))
     return workdir, procs
 
 
@@ -2779,12 +3109,14 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "launches_per_frame", "launches_per_step", "train", "modes",
               "kernel_device_ms", "library_device_ms", "device_ops_per_call",
               "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
-              "rows_decoded", "ptxas", "refine_train", "trainer")
+              "rows_decoded", "ptxas", "refine_train", "trainer", "decoder",
+              "at_widths", "config_runs")
 
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-25 on ``dev``; prints the kernels line."""
+    """Phases 2-29 on ``dev``; prints their seconds and the kernels line."""
+    t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
         build_static,
@@ -2880,6 +3212,19 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         f"{trainer_times['batch32_peak_gib']:.2f} GiB; loader "
         f"{trainer_times['loader']}")
 
+    # -- the decoders' other widths, the small-width configs (26-29) -------
+    for g in WIDTH_MODELS:
+        for name, row in width_phase(dev, g).items():
+            rows[name].setdefault("at_widths", {})[decoder_label(g)] = {
+                k: row[k] for k in WIDTH_KEYS if k in row}
+    for name in rows:
+        if name != "segment_max0":  # the main rows' decoders
+            rows[name]["decoder"] = decoder_label(64)
+    for run_name, rec in config_phases(dev).items():
+        for name, n in rec["launches"].items():
+            if name in rows:
+                rows[name].setdefault("config_runs", {})[run_name] = n
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 **{k: row[k] for k in ENTRY_KEYS if k in row}}
@@ -2887,6 +3232,7 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-29)")
     log(json.dumps({"kernels": kernels}))
 
 
@@ -2901,6 +3247,10 @@ def main():
     # -- 1. device -------------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
+        sys.exit(2)
+    if not (ROOT / "implicit_depth_torch").is_dir():
+        print(f"chip_smoke: the port (implicit_depth_torch/) is not beside "
+              f"the script in {ROOT}", file=sys.stderr)
         sys.exit(2)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

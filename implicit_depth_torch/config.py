@@ -284,8 +284,9 @@ _DEFAULTS: Dict[str, Any] = {
         "smooth_epo": 0,
     },
     # Settings of the JAX package's TPU paths (no reference equivalent). The
-    # port reads max_pairs_per_ray, pairs_budget_per_ray, pairs_budget_mode
-    # and compute_dtype; it accepts the other keys and ignores them.
+    # port reads max_pairs_per_ray, pairs_budget_per_ray, pairs_budget_mode,
+    # compute_dtype, decode_bwd, host_rss_exit_gb, train_steps_per_call and
+    # eval_rays_per_chunk; it accepts the other keys and ignores them.
     "tpu": {
         "max_pairs_per_ray": 20,     # K slots in the static (R, K) pair tensor
         "pairs_budget_per_ray": 8,   # pairs/ray decoded; 0 = dense (all K)

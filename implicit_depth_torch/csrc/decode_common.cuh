@@ -2,8 +2,8 @@
 // epilogues, the tail weights, and the CUDA-core FMA path of the f32
 // instances (ray_decode.cu = K1/K2, ief_decode.cu = K4, pair_decode.cu = K6):
 // small matrix products of a block's activation tile (rows in shared memory)
-// with a weight matrix read through L2, and the 256 -> 128 -> 64 -> 1 MLP
-// tail and IEF loop on them. The bf16 instances run on decode_tile.cuh's
+// with a weight matrix read through L2, and the 4g -> 2g -> g -> 1 MLP tail
+// and IEF loop on them (g = imnet_gf, a template parameter: Widths). The bf16 instances run on decode_tile.cuh's
 // staged tensor-core products instead; ray_decode_bwd.cu (K3) runs its own
 // wmma products (hence <mma.h> here).
 //
@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace idt {
 
@@ -126,45 +128,72 @@ __device__ __forceinline__ void tile_product(const T* A, int lda,
   fma_tile<T, M>(A, lda, B, ldb, K, N, C, ldc);
 }
 
-// Weights of layers 2-4 of one decoder (widths 256 -> 128 -> 64 -> 1).
+// Weights of layers 2-4 of one decoder (widths 4g -> 2g -> g -> 1).
 template <typename T>
 struct TailWeights {
-  const T* w2;      // (256, 128)
-  const float* b2;  // (128,) f32 holding T-rounded values
-  const T* w3;      // (128, 64)
-  const float* b3;  // (64,)
-  const T* w4;      // (64,)
+  const T* w2;      // (4g, 2g)
+  const float* b2;  // (2g,) f32 holding T-rounded values
+  const T* w3;      // (2g, g)
+  const float* b3;  // (g,)
+  const T* w4;      // (g,)
   const float* b4;  // (1,)
 };
 
-constexpr int kG1 = 256, kG2 = 128, kG3 = 64;
+// The decoder widths of imnet_gf G: layer 1 4G wide, then 2G, G, 1. The
+// kernels are instantiated for G in {8, 16, 32, 64} (with_width), as the
+// Pallas kernels take any width their operands have.
+template <int G>
+struct Widths {
+  static_assert(G == 8 || G == 16 || G == 32 || G == 64, "imnet_gf");
+  static constexpr int g1 = 4 * G, g2 = 2 * G, g3 = G;
+};
 
-// Layers 2-4 from the T-rounded layer-1 activation H (M x 256, shared).
-// Uses C (f32, M x 128) as product scratch and H2 (M x 128), H3 (M x 64) of
+// f(std::integral_constant<int, G>) for the instantiated imnet_gf g, or
+// cudaErrorInvalidValue for any other. A library built with -DIDT_GF=<g>
+// (ops/cuda.py PER_WIDTH) holds that width's instances only.
+template <class F>
+int with_width(long long g, F&& f) {
+#ifdef IDT_GF
+  if (g != IDT_GF) return (int)cudaErrorInvalidValue;
+  return f(std::integral_constant<int, IDT_GF>{});
+#else
+  switch (g) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+#endif
+}
+
+// Layers 2-4 from the T-rounded layer-1 activation H (M x 4G, shared).
+// Uses C (f32, M x 2G) as product scratch and H2 (M x 2G), H3 (M x G) of
 // type T. Returns the pre-squash output of layer 4 (without b4) of each row
 // into out[row] (f32, shared), added to what out holds when accumulate.
-template <typename T, int M>
+template <typename T, int M, int G>
 __device__ void mlp_tail(const T* H, float* C, T* H2, T* H3,
                          const TailWeights<T>& w, float* out,
                          bool accumulate) {
-  tile_product<T, M, kG2>(H, kG1, w.w2, kG2, kG1, C, kG2);
+  constexpr int g1 = Widths<G>::g1, g2 = Widths<G>::g2, g3 = Widths<G>::g3;
+  tile_product<T, M, g2>(H, g1, w.w2, g2, g1, C, g2);
   __syncthreads();
-  for (int i = threadIdx.x; i < M * kG2; i += blockDim.x)
-    H2[i] = from_f32<T>(leaky(C[i] + __ldg(w.b2 + i % kG2)));
+  for (int i = threadIdx.x; i < M * g2; i += blockDim.x)
+    H2[i] = from_f32<T>(leaky(C[i] + __ldg(w.b2 + i % g2)));
   __syncthreads();
-  tile_product<T, M, kG3>(H2, kG2, w.w3, kG3, kG2, C, kG3);
+  tile_product<T, M, g3>(H2, g2, w.w3, g3, g2, C, g3);
   __syncthreads();
-  for (int i = threadIdx.x; i < M * kG3; i += blockDim.x)
-    H3[i] = from_f32<T>(leaky(C[i] + __ldg(w.b3 + i % kG3)));
+  for (int i = threadIdx.x; i < M * g3; i += blockDim.x)
+    H3[i] = from_f32<T>(leaky(C[i] + __ldg(w.b3 + i % g3)));
   __syncthreads();
-  // layer 4: each row's 64-term dot, split over kThreads / M lanes
+  // layer 4: each row's G-term dot, split over kThreads / M lanes
   constexpr int kLanes = kThreads / M;
   static_assert(kLanes >= 1 && 32 % kLanes == 0, "lanes per row");
   const int row = threadIdx.x / kLanes, part = threadIdx.x % kLanes;
   float s = 0.f;
   if (row < M) {
-    for (int k = part; k < kG3; k += kLanes)
-      s = fmaf(to_f32(H3[row * kG3 + k]), ldg_f32(w.w4 + k), s);
+    for (int k = part; k < g3; k += kLanes)
+      s = fmaf(to_f32(H3[row * g3 + k]), ldg_f32(w.w4 + k), s);
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off /= 2)
@@ -173,25 +202,26 @@ __device__ void mlp_tail(const T* H, float* C, T* H2, T* H3,
   __syncthreads();
 }
 
-// The IEF offset loop from the layer-1 pre-activation E1 (M x 256 f32, the
+// The IEF offset loop from the layer-1 pre-activation E1 (M x 4G f32, the
 // per-row part, iteration-invariant): per iteration
 //   h1 = act(e1 + offset * a_vec + c_vec)  (rounded to T)
 //   offset = offset + tail(h1) + b4
 // offset (M,) f32 in shared memory, initialised by the caller.
-template <typename T, int M>
+template <typename T, int M, int G>
 __device__ void ief_loop(const float* E1, T* H, float* C, T* H2, T* H3,
                          const float* __restrict__ a_vec,
                          const float* __restrict__ c_vec,
                          const TailWeights<T>& w, float* offset, int n_iter) {
+  constexpr int g1 = Widths<G>::g1;
   const float b4 = __ldg(w.b4);
   for (int it = 0; it < n_iter; ++it) {
-    for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
-      const int c = i % kG1;
+    for (int i = threadIdx.x; i < M * g1; i += blockDim.x) {
+      const int c = i % g1;
       H[i] = from_f32<T>(
-          leaky(E1[i] + offset[i / kG1] * __ldg(a_vec + c) + __ldg(c_vec + c)));
+          leaky(E1[i] + offset[i / g1] * __ldg(a_vec + c) + __ldg(c_vec + c)));
     }
     __syncthreads();
-    mlp_tail<T, M>(H, C, H2, H3, w, offset, /*accumulate=*/true);
+    mlp_tail<T, M, G>(H, C, H2, H3, w, offset, /*accumulate=*/true);
     if (threadIdx.x < M) offset[threadIdx.x] += b4;
     __syncthreads();
   }

@@ -18,8 +18,13 @@
 //     16-byte pieces, and is used by every warp that needs it;
 //   * products run on mma.sync.m16n8k16 (bf16 in, f32 accumulators), with
 //     both operands loaded from shared memory by ldmatrix (B transposed on
-//     the fly from the slabs' row-major [k][n] layout), an 8-warp grid of
-//     2 x 4 warps over a 64-row tile. mma.sync rather than wgmma: its
+//     the fly from the slabs' row-major [k][n] layout), on a warp grid that
+//     Grid chooses from the product's width: 2 x 4 warps over a 64-row tile
+//     at the default widths; narrower products (imnet_gf < 64: layer 3 is
+//     8-32 wide) put fewer warps along N, an odd count of n8 tiles a warp
+//     (ldmatrix .x2 for the last), and at 8 wide leave half the warps
+//     without a tile (they still meet every barrier). mma.sync rather than
+//     wgmma: its
 //     accumulator layout is documented per thread, so every epilogue (bias,
 //     per-ray part, LeakyReLU, bf16 rounding, K2's saves, layer 4) runs on
 //     the registers and writes only the bf16 activation; at the kernel's
@@ -41,7 +46,7 @@ namespace tile {
 using bf16 = __nv_bfloat16;
 
 constexpr int kM = 64;           // rows of a tile
-constexpr int kWN = 4;           // warps along N in the 64-row products
+constexpr int kWN = 4;           // warps along N in the 64-row products, at most
 constexpr int kRing = 3;         // weight slabs in shared memory
 constexpr int kSlabElems = 9216; // elements of one slab (18,432 bytes)
 constexpr int kMaxSegs = 24;     // segments of a schedule
@@ -50,7 +55,7 @@ constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one block
 
 __host__ __device__ constexpr int ld_of(int width) { return width + kPad; }
 // k-rows of one slab of a product N wide: 16 (N 512), 32 (256), 64 (128),
-// 128 (64)
+// 128 (64), 224 (32), 384 (16), 576 (8)
 __host__ __device__ constexpr int slab_rows(int n) {
   return kSlabElems / (n + kPad) / 16 * 16;
 }
@@ -88,6 +93,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// two 8x8 b16 matrices, transposed; lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&b)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
       : "r"(smem_u32(p)));
 }
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&b0)[2], uint32_t (&b1)[2],
@@ -177,17 +189,36 @@ struct Pipe {
 
 // -- products -------------------------------------------------------------------
 
-// acc = A[(8 / WN) * MT * 16 rows x k] (bf16, shared, lda) @ the next k rows
-// of the pipe's weights (N = WN * NT * 8 wide). Warp w owns rows
+// The warp grid of a product R rows (64: a tile; 16: K1's per-ray rows) by N
+// columns: WN warps along N (at most kWN for a tile, all 8 for the per-ray
+// rows), WM along M, each warp MT m16 by NT n8 tiles; warps at or past
+// kActive own no tile.
+template <int R, int N>
+struct Grid {
+  static constexpr int TM = R / 16, TN = N / 8;
+  static constexpr int kMaxWN = R == 16 ? kWarps : kWN;
+  static constexpr int WN = TN < kMaxWN ? TN : kMaxWN;
+  static constexpr int WM = TM < kWarps / WN ? TM : kWarps / WN;
+  static constexpr int MT = TM / WM, NT = TN / WN, kActive = WM * WN;
+  static_assert(R % 16 == 0 && N % 8 == 0 && TM % WM == 0 && TN % WN == 0 &&
+                    kActive <= kWarps && kWarps % WN == 0,
+                "warp grid");
+};
+
+// acc = A[R rows x k] (bf16, shared, lda) @ the next k rows of the pipe's
+// weights (N wide), on Grid<R, N>: warp w < kActive owns rows
 // (w / WN) * MT * 16.. and columns (w % WN) * NT * 8..; its accumulators
-// follow the m16n8 layout (see for_pairs).
-template <int MT, int NT, int WN>
-__device__ __forceinline__ void product(Pipe& pipe, const bf16* A, int lda,
-                                        int k, float (&acc)[MT][NT][4]) {
-  static_assert(NT % 2 == 0 && kWarps % WN == 0, "warp grid");
-  constexpr int kN = WN * NT * 8, ks = slab_rows(kN), lds = ld_of(kN);
+// follow the m16n8 layout (see for_pairs). Every warp takes every slab.
+template <int R, int N>
+__device__ __forceinline__ void product(
+    Pipe& pipe, const bf16* A, int lda, int k,
+    float (&acc)[Grid<R, N>::MT][Grid<R, N>::NT][4]) {
+  using Gr = Grid<R, N>;
+  constexpr int MT = Gr::MT, NT = Gr::NT, WN = Gr::WN;
+  constexpr int ks = slab_rows(N), lds = ld_of(N);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp / WN, wn = warp % WN;
+  const bool active = Gr::kActive == kWarps || warp < Gr::kActive;
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -198,6 +229,7 @@ __device__ __forceinline__ void product(Pipe& pipe, const bf16* A, int lda,
   const int boff = (lane & 15) * lds + wn * NT * 8 + (lane >> 4) * 8;
   for (int k0 = 0; k0 < k; k0 += ks) {
     const bf16* sb = pipe.acquire() + boff;
+    if (!active) continue;
     const bf16* ap = a0 + k0;
     const int kn = min(ks, k - k0);
 #pragma unroll 2
@@ -206,7 +238,10 @@ __device__ __forceinline__ void product(Pipe& pipe, const bf16* A, int lda,
 #pragma unroll
       for (int m = 0; m < MT; ++m) ldsm_x4(a[m], ap + m * 16 * lda + kk);
 #pragma unroll
-      for (int n = 0; n < NT; n += 2) ldsm_x4_t(b[n], b[n + 1], sb + kk * lds + n * 8);
+      for (int n = 0; n + 1 < NT; n += 2)
+        ldsm_x4_t(b[n], b[n + 1], sb + kk * lds + n * 8);
+      if constexpr (NT % 2 == 1)
+        ldsm_x2_t(b[NT - 1], sb + kk * lds + (NT - 1) * 8);
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -216,12 +251,16 @@ __device__ __forceinline__ void product(Pipe& pipe, const bf16* A, int lda,
 }
 
 // f(row, col, v0, v1) for each pair of this thread's accumulators of a
-// product<MT, NT, WN>: elements (row, col) and (row, col + 1) of its output
-template <int MT, int NT, int WN, class F>
+// product<R, N>: elements (row, col) and (row, col + 1) of its output (none
+// in a warp without a tile)
+template <int R, int N, class F, int MT = Grid<R, N>::MT,
+          int NT = Grid<R, N>::NT>
 __device__ __forceinline__ void for_pairs(float (&acc)[MT][NT][4], F&& f) {
+  using Gr = Grid<R, N>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = (warp / WN) * MT * 16 + (lane >> 2);
-  const int c0 = (warp % WN) * NT * 8 + 2 * (lane & 3);
+  if (Gr::kActive < kWarps && warp >= Gr::kActive) return;
+  const int r0 = (warp / Gr::WN) * MT * 16 + (lane >> 2);
+  const int c0 = (warp % Gr::WN) * NT * 8 + 2 * (lane & 3);
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -232,93 +271,103 @@ __device__ __forceinline__ void for_pairs(float (&acc)[MT][NT][4], F&& f) {
           acc[m][n][2 * h + 1]);
 }
 
+// The accumulators of a tile's layer-1 product (kM x 4G): E1 of the IEF
+template <int G>
+using E1Acc = float[Grid<kM, Widths<G>::g1>::MT][Grid<kM, Widths<G>::g1>::NT][4];
+
 // -- the MLP tail ----------------------------------------------------------------
 
-// Layers 2-4 of one decoder (256 -> 128 -> 64 -> 1) from the bf16 layer-1
-// activation H (kM x 256, ld_of(256)); H2 (kM x 128) scratch; L4 (kWN x kM
+// Layers 2-4 of one decoder (4G -> 2G -> G -> 1) from the bf16 layer-1
+// activation H (kM x 4G, ld_of(4G)); H2 (kM x 2G) scratch; L4 (kWN x kM
 // f32) the layer-4 partial sums. out[row] = (accumulate ? out[row] : 0) +
 // layer 4, then + b4, as decode_common.cuh::mlp_tail and its callers.
 // kSaveAll (K2 'all'): also the tile's first s_rows rows of h2 and h3 to
-// s_h2 (kG2 a row) and s_h3 (kG3 a row) in device memory: h2 from its
+// s_h2 (2G a row) and s_h3 (G a row) in device memory: h2 from its
 // shared tile after the next product's barrier, 16 bytes a thread; h3,
 // which never reaches shared memory, from the layer-3 epilogue's registers.
-template <bool kSaveAll = false>
+template <int G, bool kSaveAll = false>
 __device__ __forceinline__ void tail(Pipe& pipe, const bf16* H, bf16* H2,
                                      float* L4, const TailWeights<bf16>& w,
                                      float* out, bool accumulate,
                                      bf16* s_h2 = nullptr,
                                      bf16* s_h3 = nullptr, int s_rows = 0) {
+  constexpr int g1 = Widths<G>::g1, g2 = Widths<G>::g2, g3 = Widths<G>::g3;
   {
-    float acc[2][4][4];
-    product<2, 4, kWN>(pipe, H, ld_of(kG1), kG1, acc);
-    for_pairs<2, 4, kWN>(acc, [&](int r, int c, float v0, float v1) {
+    float acc[Grid<kM, g2>::MT][Grid<kM, g2>::NT][4];
+    product<kM, g2>(pipe, H, ld_of(g1), g1, acc);
+    for_pairs<kM, g2>(acc, [&](int r, int c, float v0, float v1) {
       const float2 b = ldg2(w.b2 + c);
-      st_bf16x2(H2 + r * ld_of(kG2) + c, leaky(v0 + b.x), leaky(v1 + b.y));
+      st_bf16x2(H2 + r * ld_of(g2) + c, leaky(v0 + b.x), leaky(v1 + b.y));
     });
   }
+  using G3 = Grid<kM, g3>;
   {
     // layer 3's accumulators -> h3 (rounded) -> its dot with w4 over this
-    // thread's 4 columns of each row, then over the quad's 16
-    float acc[2][2][4];
-    product<2, 2, kWN>(pipe, H2, ld_of(kG2), kG2, acc);
+    // thread's 2 NT columns of each row, then over the quad's
+    float acc[G3::MT][G3::NT][4];
+    product<kM, g3>(pipe, H2, ld_of(g2), g2, acc);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r0 = (warp / kWN) * 32 + (lane >> 2);
-    const int c0 = (warp % kWN) * 16 + 2 * (lane & 3);
+    const int r0 = (warp / G3::WN) * G3::MT * 16 + (lane >> 2);
+    const int c0 = (warp % G3::WN) * G3::NT * 8 + 2 * (lane & 3);
+    if (G3::kActive == kWarps || warp < G3::kActive) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+      for (int m = 0; m < G3::MT; ++m)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float s = 0.f;
+        for (int h = 0; h < 2; ++h) {
+          float s = 0.f;
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          float hv[2];
+          for (int n = 0; n < G3::NT; ++n) {
+            float hv[2];
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = c0 + n * 8 + j;
-            const float h3 = bf16_round(leaky(acc[m][n][2 * h + j] + __ldg(w.b3 + c)));
-            hv[j] = h3;
-            s = fmaf(h3, ldg_f32(w.w4 + c), s);
+            for (int j = 0; j < 2; ++j) {
+              const int c = c0 + n * 8 + j;
+              const float h3 =
+                  bf16_round(leaky(acc[m][n][2 * h + j] + __ldg(w.b3 + c)));
+              hv[j] = h3;
+              s = fmaf(h3, ldg_f32(w.w4 + c), s);
+            }
+            if constexpr (kSaveAll) {
+              const int r = r0 + m * 16 + 8 * h;
+              if (r < s_rows)
+                st_bf16x2(s_h3 + r * g3 + c0 + n * 8, hv[0], hv[1]);
+            }
           }
-          if constexpr (kSaveAll) {
-            const int r = r0 + m * 16 + 8 * h;
-            if (r < s_rows) st_bf16x2(s_h3 + r * kG3 + c0 + n * 8, hv[0], hv[1]);
-          }
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          if ((lane & 3) == 0) L4[(warp % G3::WN) * kM + r0 + m * 16 + 8 * h] = s;
         }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if ((lane & 3) == 0) L4[(warp % kWN) * kM + r0 + m * 16 + 8 * h] = s;
-      }
+    }
   }
   if constexpr (kSaveAll) {
     // every warp has passed the product's acquire() since the layer-2
     // epilogue wrote H2, and nothing writes it again before the barrier
     // below
-    for (int i = threadIdx.x; i < s_rows * (kG2 / 8); i += blockDim.x) {
-      const int r = i / (kG2 / 8), q = i % (kG2 / 8);
-      *reinterpret_cast<uint4*>(s_h2 + r * kG2 + q * 8) =
-          *reinterpret_cast<const uint4*>(H2 + r * ld_of(kG2) + q * 8);
+    for (int i = threadIdx.x; i < s_rows * (g2 / 8); i += blockDim.x) {
+      const int r = i / (g2 / 8), q = i % (g2 / 8);
+      *reinterpret_cast<uint4*>(s_h2 + r * g2 + q * 8) =
+          *reinterpret_cast<const uint4*>(H2 + r * ld_of(g2) + q * 8);
     }
   }
   __syncthreads();
   if (threadIdx.x < kM) {
     float s = L4[threadIdx.x];
 #pragma unroll
-    for (int g = 1; g < kWN; ++g) s += L4[g * kM + threadIdx.x];
+    for (int g = 1; g < G3::WN; ++g) s += L4[g * kM + threadIdx.x];
     const float o = accumulate ? out[threadIdx.x] + s : s;
     out[threadIdx.x] = o + __ldg(w.b4);
   }
   __syncthreads();
 }
 
-// The IEF offset loop from E1, this thread's accumulators of the 64 x 256
+// The IEF offset loop from E1, this thread's accumulators of the kM x 4G
 // layer-1 pre-activation (iteration-invariant): per iteration
 //   h1 = bf16(act(e1 + offset * a_vec + c_vec)) -> H, then the tail into
 //   offset (OFF, f32 in shared memory, initialised by the caller).
 // kSaveAll (K2 'all'): iteration it also stores the offset entering it and
-// its h2, h3 (tail<true>) for the tile's first s_rows rows, at s_off, s_h2,
-// s_h3 (the tile's first row) plus it * s_inst rows.
-template <bool kSaveAll = false>
-__device__ __forceinline__ void ief(Pipe& pipe, float (&e1)[2][8][4], bf16* H,
+// its h2, h3 (tail<G, true>) for the tile's first s_rows rows, at s_off,
+// s_h2, s_h3 (the tile's first row) plus it * s_inst rows.
+template <int G, bool kSaveAll = false>
+__device__ __forceinline__ void ief(Pipe& pipe, E1Acc<G>& e1, bf16* H,
                                     bf16* H2, float* L4,
                                     const float* __restrict__ a_vec,
                                     const float* __restrict__ c_vec,
@@ -326,22 +375,23 @@ __device__ __forceinline__ void ief(Pipe& pipe, float (&e1)[2][8][4], bf16* H,
                                     int n_iter, float* s_off = nullptr,
                                     bf16* s_h2 = nullptr, bf16* s_h3 = nullptr,
                                     long long s_inst = 0, int s_rows = 0) {
+  constexpr int g1 = Widths<G>::g1, g2 = Widths<G>::g2, g3 = Widths<G>::g3;
   for (int it = 0; it < n_iter; ++it) {
     if constexpr (kSaveAll) {  // OFF[t] was last written by thread t
       if ((int)threadIdx.x < s_rows)
         s_off[it * s_inst + threadIdx.x] = OFF[threadIdx.x];
     }
-    for_pairs<2, 8, kWN>(e1, [&](int r, int c, float v0, float v1) {
+    for_pairs<kM, g1>(e1, [&](int r, int c, float v0, float v1) {
       const float o = OFF[r];
       const float2 a = ldg2(a_vec + c), cv = ldg2(c_vec + c);
-      st_bf16x2(H + r * ld_of(kG1) + c, leaky(v0 + o * a.x + cv.x),
+      st_bf16x2(H + r * ld_of(g1) + c, leaky(v0 + o * a.x + cv.x),
                 leaky(v1 + o * a.y + cv.y));
     });
     if constexpr (kSaveAll)
-      tail<true>(pipe, H, H2, L4, w, OFF, /*accumulate=*/true,
-                 s_h2 + it * s_inst * kG2, s_h3 + it * s_inst * kG3, s_rows);
+      tail<G, true>(pipe, H, H2, L4, w, OFF, /*accumulate=*/true,
+                    s_h2 + it * s_inst * g2, s_h3 + it * s_inst * g3, s_rows);
     else
-      tail(pipe, H, H2, L4, w, OFF, /*accumulate=*/true);
+      tail<G>(pipe, H, H2, L4, w, OFF, /*accumulate=*/true);
   }
 }
 
@@ -408,13 +458,14 @@ __device__ __forceinline__ void rows_async(RowPtr row_ptr, int rows, int c,
 
 // Byte offsets of the regions of a bf16 decode block (mirrored by
 // ops/ray_decode.py::decode_plan). kp: the layer-1 input width (X); crp:
-// K1's per-ray input width (0 for K4 and K6, which have no per-ray part).
+// K1's per-ray input width (0 for K4 and K6, which have no per-ray part);
+// g: imnet_gf (layers 4g, 2g, g).
 struct Smem {
   size_t x0, x1, rf, ray, h, h2, ring, off, logit, l4, segs, total;
   __host__ __device__ static size_t al(size_t b) {
     return (b + 127) / 128 * 128;
   }
-  __host__ __device__ Smem(int kp, int crp) {
+  __host__ __device__ Smem(int kp, int crp, int g) {
     size_t o = 0;
     const size_t xb = (size_t)kM * ld_of(kp) * 2;
     x0 = o;    // layer-1 input of the even tiles
@@ -423,12 +474,12 @@ struct Smem {
     o = al(o + xb);
     rf = o;    // per-ray inputs, 8 rays padded to 16 rows
     o = al(o + (crp ? (size_t)16 * ld_of(crp) * 2 : 0));
-    ray = o;   // per-ray layer-1 part, f32 (8 rays x 512)
-    o = al(o + (crp ? (size_t)8 * 2 * kG1 * 4 : 0));
+    ray = o;   // per-ray layer-1 part, f32 (8 rays x 2 * 4g)
+    o = al(o + (crp ? (size_t)8 * 2 * 4 * g * 4 : 0));
     h = o;     // bf16 layer-1 activation
-    o = al(o + (size_t)kM * ld_of(kG1) * 2);
+    o = al(o + (size_t)kM * ld_of(4 * g) * 2);
     h2 = o;    // bf16 layer-2 activation
-    o = al(o + (size_t)kM * ld_of(kG2) * 2);
+    o = al(o + (size_t)kM * ld_of(2 * g) * 2);
     ring = o;  // weight slabs
     o = al(o + (size_t)kRing * kSlabElems * 2);
     off = o;

@@ -3,8 +3,9 @@
 // Replaces implicit_depth_tpu/ops/pallas_ray_decode.py::fused_ief_rows
 // (_ief_fwd_impl and its Pallas kernel): each ray's embedding, given as its
 // parts [end voxel feature | rc = (roi, dir_e) | pos_e], goes through a
-// 2-iteration IEF decoder (256 -> 128 -> 64 -> 1, LeakyReLU 0.02, soft clamp)
-// to one offset.
+// 2-iteration IEF decoder (4g -> 2g -> g -> 1 for the refine imnet_gf g in
+// {8, 16, 32, 64}, 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02, soft
+// clamp) to one offset.
 //
 // What bounds it on the H100: operations (~2.6e10 FLOP per launch at 76,800
 // rays against ~80 MB of operands: ~0.03 ms at the bf16 tensor-core peak).
@@ -31,16 +32,17 @@ template <typename T>
 struct Smem {
   size_t x, e1, c, h, off, total;
   __host__ __device__ static size_t al(size_t b) { return (b + 127) / 128 * 128; }
-  __host__ __device__ Smem(int m, int kp) {
+  __host__ __device__ Smem(int m, int kp, int g) {
+    const int g1 = 4 * g, g2 = 2 * g, g23 = 3 * g;
     size_t o = 0;
     x = o;      // layer-1 input [end | rc | pos | 0]; later H2 | H3
-    o = al(o + (size_t)m * (kp > kG2 + kG3 ? kp : kG2 + kG3) * sizeof(T));
+    o = al(o + (size_t)m * (kp > g23 ? kp : g23) * sizeof(T));
     e1 = o;     // layer-1 pre-activation (iteration-invariant part)
-    o = al(o + (size_t)m * kG1 * 4);
+    o = al(o + (size_t)m * g1 * 4);
     c = o;      // product scratch (layers 2 and 3)
-    o = al(o + (size_t)m * kG2 * 4);
+    o = al(o + (size_t)m * g2 * 4);
     h = o;      // rounded layer-1 activation
-    o = al(o + (size_t)m * kG1 * sizeof(T));
+    o = al(o + (size_t)m * g1 * sizeof(T));
     off = o;
     o = al(o + (size_t)m * 4);
     total = o;
@@ -52,10 +54,10 @@ struct Params {
   const T* end;        // (n, c_end)
   const T* rc;         // (n, c_rc)
   const T* pos;        // (n, c_pos)
-  const T* w1;         // (kp, 256) rows [end | rc | pos | 0]
-  const float* b1;     // (256,)
-  const float* a_vec;  // (256,)
-  const float* c_vec;  // (256,)
+  const T* w1;         // (kp, 4g) rows [end | rc | pos | 0]
+  const float* b1;     // (4g,)
+  const float* a_vec;  // (4g,)
+  const float* c_vec;  // (4g,)
   TailWeights<T> tail;
   float* out;          // (n,)
   long long n;
@@ -63,11 +65,12 @@ struct Params {
   float init_offset;
 };
 
-template <typename T, int M>
+template <typename T, int M, int G>
 __global__ void __launch_bounds__(kThreads, 1)
     ief_decode_kernel(const Params<T> p) {
+  constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<T> lay(M, p.kp);
+  const Smem<T> lay(M, p.kp, G);
   T* X = reinterpret_cast<T*>(smem + lay.x);
   float* E1 = reinterpret_cast<float*>(smem + lay.e1);
   float* C = reinterpret_cast<float*>(smem + lay.c);
@@ -103,7 +106,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x < M) OFF[threadIdx.x] = p.init_offset;
   __syncthreads();
 
-  ief_loop<T, M>(E1, H, C, H2, H3, p.a_vec, p.c_vec, p.tail, OFF, p.n_iter);
+  ief_loop<T, M, G>(E1, H, C, H2, H3, p.a_vec, p.c_vec, p.tail, OFF,
+                    p.n_iter);
 
   if (threadIdx.x < M && row0 + threadIdx.x < p.n)
     p.out[row0 + threadIdx.x] = squash(OFF[threadIdx.x], p.use_sigmoid);
@@ -111,11 +115,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- bf16: the staged tensor-core kernel -------------------------------------
 
+template <int G>
 __global__ void __launch_bounds__(kThreads, 1)
     ief_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
+  constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, 0);
+  const tile::Smem lay(p.kp, 0, G);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -170,14 +176,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the next tile's end rows land while this one runs
     if (t + gridDim.x < n_tiles) end_rows(t + gridDim.x, x_of(parity ^ 1));
 
-    float e1[2][8][4];
-    product<2, 8, kWN>(pipe, X, ldx, kp, e1);
-    for_pairs<2, 8, kWN>(e1, [&](int, int c, float& v0, float& v1) {
+    E1Acc<G> e1;
+    product<kM, kG1>(pipe, X, ldx, kp, e1);
+    for_pairs<kM, kG1>(e1, [&](int, int c, float& v0, float& v1) {
       const float2 b = ldg2(p.b1 + c);
       v0 += b.x;
       v1 += b.y;
     });
-    ief(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.tail, OFF, p.n_iter);
+    ief<G>(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.tail, OFF, p.n_iter);
 
     if (threadIdx.x < valid)
       p.out[row0 + threadIdx.x] = squash(OFF[threadIdx.x], p.use_sigmoid);
@@ -185,9 +191,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
+template <int G>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, 0);
-  auto kernel = ief_decode_tc;
+  const tile::Smem lay(p.kp, 0, G);
+  auto kernel = ief_decode_tc<G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -201,10 +208,10 @@ int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int M>
+template <typename T, int M, int G>
 int launch(const Params<T>& p, void* stream) {
-  const Smem<T> lay(M, p.kp);
-  auto kernel = ief_decode_kernel<T, M>;
+  const Smem<T> lay(M, p.kp, G);
+  auto kernel = ief_decode_kernel<T, M, G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -215,8 +222,8 @@ int launch(const Params<T>& p, void* stream) {
 
 template <typename T>
 int run(void* const* ptrs, long long n, long long c_end, long long c_rc,
-        long long c_pos, long long kp, long long n_iter, long long use_sigmoid,
-        float init_offset, void* stream) {
+        long long c_pos, long long kp, long long n_iter, long long g,
+        long long use_sigmoid, float init_offset, void* stream) {
   Params<T> p;
   p.end = (const T*)ptrs[0];
   p.rc = (const T*)ptrs[1];
@@ -242,34 +249,39 @@ int run(void* const* ptrs, long long n, long long c_end, long long c_rc,
   p.init_offset = init_offset;
   if (kp % 16 || kp < c_end + c_rc + c_pos) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  if constexpr (sizeof(T) == 2) {
-    if (c_end % 8 || n_iter > (tile::kMaxSegs - 1) / 2 ||
-        tile::Smem((int)kp, 0).total > tile::kMaxSmem)
-      return (int)cudaErrorInvalidValue;
-    return launch_tc(p, stream);
-  } else {
-    return launch<T, 32>(p, stream);
-  }
+  return with_width(g, [&](auto w) {
+    constexpr int G = decltype(w)::value;
+    if constexpr (sizeof(T) == 2) {
+      if (c_end % 8 || n_iter > (tile::kMaxSegs - 1) / 2 ||
+          tile::Smem((int)kp, 0, G).total > tile::kMaxSmem)
+        return (int)cudaErrorInvalidValue;
+      return launch_tc<G>(p, stream);
+    } else {
+      return launch<T, 32, G>(p, stream);
+    }
+  });
 }
 
 }  // namespace
 
 // ptrs: end, rc, pos, w1, b1, a_vec, c_vec, w2, b2, w3, b3, w4, b4, out
-// (14 device pointers). Returns a cudaError_t.
+// (14 device pointers). g: imnet_gf, in {8, 16, 32, 64}. Returns a
+// cudaError_t.
 extern "C" int idt_ief_decode(void* const* ptrs, long long n, long long c_end,
                               long long c_rc, long long c_pos, long long kp,
-                              long long n_iter, long long is_bf16,
+                              long long n_iter, long long g, long long is_bf16,
                               long long use_sigmoid, float init_offset,
                               void* stream) {
   return is_bf16 ? run<__nv_bfloat16>(ptrs, n, c_end, c_rc, c_pos, kp, n_iter,
-                                      use_sigmoid, init_offset, stream)
-                 : run<float>(ptrs, n, c_end, c_rc, c_pos, kp, n_iter,
+                                      g, use_sigmoid, init_offset, stream)
+                 : run<float>(ptrs, n, c_end, c_rc, c_pos, kp, n_iter, g,
                               use_sigmoid, init_offset, stream);
 }
 
-// Dynamic shared memory (bytes) of one block of K4 at this layer-1 width
+// Dynamic shared memory (bytes) of one block of K4 at these widths
 // (ops/ray_decode.py::decode_plan mirrors it).
-extern "C" long long idt_ief_decode_smem(long long kp, long long is_bf16) {
-  return is_bf16 ? (long long)idt::tile::Smem((int)kp, 0).total
-                 : (long long)Smem<float>(32, (int)kp).total;
+extern "C" long long idt_ief_decode_smem(long long kp, long long g,
+                                         long long is_bf16) {
+  return is_bf16 ? (long long)idt::tile::Smem((int)kp, 0, (int)g).total
+                 : (long long)Smem<float>(32, (int)kp, (int)g).total;
 }

@@ -4,8 +4,9 @@
 // Replaces implicit_depth_tpu/ops/pallas_decode.py::fused_pair_decode (its
 // Pallas kernel over _decode_tile). Each row's 385-d embedding
 // [voxel row | roi | pe(enter) | pe(leave) | dir_e] is decoded by two
-// 4-layer MLPs (256 -> 128 -> 64 -> 1, LeakyReLU 0.02, soft clamp), the
-// offset decoder as a 2-iteration IEF.
+// 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf g in {8, 16, 32, 64},
+// 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02, soft clamp), the offset
+// decoder as a 2-iteration IEF.
 //
 // What bounds it on the H100: operations. One row costs ~0.64 MFLOP (layer 1
 // of both decoders over the embedding, two IEF tails and the probability
@@ -63,10 +64,10 @@ struct Params {
   const int32_t* rays;     // (p,) row ids into ray_feat; null: row / slots
   const float* pos;        // (p, 6) f32 [enter xyz | leave xyz]
   const T* ray_feat;       // (n, c_rp) [roi | dir_e | 0]
-  const T* w1;             // (kp, 512) rows in X's layout, cols [off | prob]
-  const float* b1;         // (512,) [off_b1 | prob_b1]
-  const float* a_vec;      // (256,)
-  const float* c_vec;      // (256,)
+  const T* w1;             // (kp, 2 * 4g) rows in X's layout, cols [off | prob]
+  const float* b1;         // (2 * 4g,) [off_b1 | prob_b1]
+  const float* a_vec;      // (4g,)
+  const float* c_vec;      // (4g,)
   TailWeights<T> off, prob;
   const int32_t* n_rows;   // 0-d: rows at or past it are 0; null: none
   float* out_off;          // (p,)
@@ -134,16 +135,17 @@ constexpr int kF32Rows = 32;
 struct SmemF32 {
   size_t x, e1, c, h, off, logit, total;
   __host__ __device__ static size_t al(size_t b) { return (b + 127) / 128 * 128; }
-  __host__ __device__ SmemF32(int m, int kp) {
+  __host__ __device__ SmemF32(int m, int kp, int g) {
+    const int g1 = 4 * g, g23 = 3 * g;
     size_t o = 0;
     x = o;      // the embedding; later H2 | H3
-    o = al(o + (size_t)m * (kp > kG2 + kG3 ? kp : kG2 + kG3) * 4);
+    o = al(o + (size_t)m * (kp > g23 ? kp : g23) * 4);
     e1 = o;     // offset layer-1 pre-activation
-    o = al(o + (size_t)m * kG1 * 4);
+    o = al(o + (size_t)m * g1 * 4);
     c = o;      // product scratch
-    o = al(o + (size_t)m * kG1 * 4);
+    o = al(o + (size_t)m * g1 * 4);
     h = o;      // layer-1 activation
-    o = al(o + (size_t)m * kG1 * 4);
+    o = al(o + (size_t)m * g1 * 4);
     off = o;
     o = al(o + (size_t)m * 4);
     logit = o;
@@ -152,15 +154,17 @@ struct SmemF32 {
   }
 };
 
+template <int G>
 __global__ void __launch_bounds__(kThreads, 1)
     pair_decode_f32(const Params<float> p) {
   constexpr int M = kF32Rows;
+  constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2;
   const long long n = rows_to_decode(p);
   zero_rows(p, n);
   const long long row0 = (long long)blockIdx.x * M;
   if (row0 >= n) return;
   extern __shared__ __align__(128) unsigned char smem[];
-  const SmemF32 lay(M, p.kp);
+  const SmemF32 lay(M, p.kp, G);
   float* X = reinterpret_cast<float*>(smem + lay.x);
   float* E1 = reinterpret_cast<float*>(smem + lay.e1);
   float* C = reinterpret_cast<float*>(smem + lay.c);
@@ -205,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // -- probability decoder layers 2-4 -----------------------------------------
-  mlp_tail<float, M>(H, C, H2, H3, p.prob, LOGIT, /*accumulate=*/false);
+  mlp_tail<float, M, G>(H, C, H2, H3, p.prob, LOGIT, /*accumulate=*/false);
   if (threadIdx.x < M) {
     LOGIT[threadIdx.x] += __ldg(p.prob.b4);
     OFF[threadIdx.x] = p.init_offset;
@@ -213,7 +217,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // -- offset decoder: IEF iterations over the hoisted layer 1 ----------------
-  ief_loop<float, M>(E1, H, C, H2, H3, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
+  ief_loop<float, M, G>(E1, H, C, H2, H3, p.a_vec, p.c_vec, p.off, OFF,
+                        p.n_iter);
 
   if (threadIdx.x < M) {
     const long long prow = row0 + threadIdx.x;
@@ -233,7 +238,9 @@ constexpr int kPeCols = 5;
 // The per-tile product schedule: the probability decoder's layer 1 and
 // tail, the offset decoder's layer 1, then its tail once per IEF iteration.
 // Returns the number of segments.
+template <int G>
 __device__ int k6_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
+  constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   int n = 0;
   s[n++] = {p.w1 + kG1, 2 * kG1, p.kp, kG1};
   s[n++] = {p.prob.w2, kG2, kG1, kG2};
@@ -246,15 +253,17 @@ __device__ int k6_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
   return n;
 }
 
+template <int G>
 __global__ void __launch_bounds__(kThreads, 1)
     pair_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
+  constexpr int kG1 = Widths<G>::g1;
   const long long n = rows_to_decode(p);
   zero_rows(p, n);
   const long long n_tiles = (n + kM - 1) / kM;
   if (blockIdx.x >= n_tiles) return;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, 0);
+  const tile::Smem lay(p.kp, 0, G);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -267,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   Seg* segs = reinterpret_cast<Seg*>(smem + lay.segs);
 
   const int kp = p.kp, ldx = ld_of(kp), o_pe = p.c_vox + p.c_rp;
-  if (threadIdx.x == 0) k6_schedule(p, segs);
+  if (threadIdx.x == 0) k6_schedule<G>(p, segs);
   __syncthreads();
   Pipe pipe;
   pipe.init(reinterpret_cast<bf16*>(smem + lay.ring), segs, 4 + 2 * p.n_iter);
@@ -332,23 +341,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // -- probability decoder: H = act(X @ W_prob + b1), tail -----------------
     {
-      float acc[2][8][4];
-      product<2, 8, kWN>(pipe, X, ldx, kp, acc);
-      for_pairs<2, 8, kWN>(acc, [&](int r, int c, float v0, float v1) {
+      E1Acc<G> acc;
+      product<kM, kG1>(pipe, X, ldx, kp, acc);
+      for_pairs<kM, kG1>(acc, [&](int r, int c, float v0, float v1) {
         const float2 b = ldg2(p.b1 + kG1 + c);
         st_bf16x2(H + r * ld_of(kG1) + c, leaky(v0 + b.x), leaky(v1 + b.y));
       });
     }
-    tail(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false);
+    tail<G>(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false);
     // -- offset decoder: E1 = X @ W_off + b1, kept in registers --------------
-    float e1[2][8][4];
-    product<2, 8, kWN>(pipe, X, ldx, kp, e1);
-    for_pairs<2, 8, kWN>(e1, [&](int, int c, float& v0, float& v1) {
+    E1Acc<G> e1;
+    product<kM, kG1>(pipe, X, ldx, kp, e1);
+    for_pairs<kM, kG1>(e1, [&](int, int c, float& v0, float& v1) {
       const float2 b = ldg2(p.b1 + c);
       v0 += b.x;
       v1 += b.y;
     });
-    ief(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
+    ief<G>(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
 
     if ((int)threadIdx.x < valid) {
       p.out_off[row0 + threadIdx.x] = squash(OFF[threadIdx.x], p.use_sigmoid);
@@ -359,9 +368,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
+template <int G>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, 0);
-  auto kernel = pair_decode_tc;
+  const tile::Smem lay(p.kp, 0, G);
+  auto kernel = pair_decode_tc<G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -376,22 +386,23 @@ int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <int G>
 int launch_f32(const Params<float>& p, void* stream) {
-  const SmemF32 lay(kF32Rows, p.kp);
+  const SmemF32 lay(kF32Rows, p.kp, G);
   cudaError_t err = cudaFuncSetAttribute(
-      pair_decode_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pair_decode_f32<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)lay.total);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (p.p + kF32Rows - 1) / kF32Rows;
-  pair_decode_f32<<<(unsigned)blocks, kThreads, lay.total,
-                    (cudaStream_t)stream>>>(p);
+  pair_decode_f32<G><<<(unsigned)blocks, kThreads, lay.total,
+                       (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int run(void* const* ptrs, long long n, long long c_vox, long long c_rp,
         long long multires, long long kp, long long slots, long long n_iter,
-        long long use_sigmoid, float init_offset, void* stream) {
+        long long g, long long use_sigmoid, float init_offset, void* stream) {
   Params<T> p;
   p.vox_table = (const T*)ptrs[0];
   p.cells = (const int32_t*)ptrs[1];
@@ -429,15 +440,18 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_rp,
       (p.rays == nullptr && slots < 1))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  if constexpr (sizeof(T) == 2) {
-    if (c_vox % 8 || c_rp % 8 || kp - o_pe > 32 * kPeCols ||
-        n_iter > (tile::kMaxSegs - 4) / 2 ||
-        tile::Smem((int)kp, 0).total > tile::kMaxSmem)
-      return (int)cudaErrorInvalidValue;
-    return launch_tc(p, stream);
-  } else {
-    return launch_f32(p, stream);
-  }
+  return with_width(g, [&](auto w) {
+    constexpr int G = decltype(w)::value;
+    if constexpr (sizeof(T) == 2) {
+      if (c_vox % 8 || c_rp % 8 || kp - o_pe > 32 * kPeCols ||
+          n_iter > (tile::kMaxSegs - 4) / 2 ||
+          tile::Smem((int)kp, 0, G).total > tile::kMaxSmem)
+        return (int)cudaErrorInvalidValue;
+      return launch_tc<G>(p, stream);
+    } else {
+      return launch_f32<G>(p, stream);
+    }
+  });
 }
 
 }  // namespace
@@ -445,23 +459,25 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_rp,
 // ptrs: vox_table, cells, rays (or null), pos, ray_feat, w1, b1, a_vec,
 // c_vec, off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4}, n_rows (a 0-d
 // int32, or null), out_off, out_logit (24 device pointers). slots: the rows
-// per ray of the dense layout, read when rays is null. Returns a
-// cudaError_t.
+// per ray of the dense layout, read when rays is null. g: imnet_gf, in
+// {8, 16, 32, 64}. Returns a cudaError_t.
 extern "C" int idt_pair_decode(void* const* ptrs, long long n, long long c_vox,
                                long long c_rp, long long multires,
                                long long kp, long long slots, long long n_iter,
-                               long long is_bf16, long long use_sigmoid,
-                               float init_offset, void* stream) {
+                               long long g, long long is_bf16,
+                               long long use_sigmoid, float init_offset,
+                               void* stream) {
   return is_bf16 ? run<__nv_bfloat16>(ptrs, n, c_vox, c_rp, multires, kp,
-                                      slots, n_iter, use_sigmoid, init_offset,
-                                      stream)
+                                      slots, n_iter, g, use_sigmoid,
+                                      init_offset, stream)
                  : run<float>(ptrs, n, c_vox, c_rp, multires, kp, slots,
-                              n_iter, use_sigmoid, init_offset, stream);
+                              n_iter, g, use_sigmoid, init_offset, stream);
 }
 
-// Dynamic shared memory (bytes) of one block of K6 at this layer-1 width
+// Dynamic shared memory (bytes) of one block of K6 at these widths
 // (ops/ray_decode.py::decode_plan "K6" mirrors it).
-extern "C" long long idt_pair_decode_smem(long long kp, long long is_bf16) {
-  return is_bf16 ? (long long)idt::tile::Smem((int)kp, 0).total
-                 : (long long)SmemF32(kF32Rows, (int)kp).total;
+extern "C" long long idt_pair_decode_smem(long long kp, long long g,
+                                          long long is_bf16) {
+  return is_bf16 ? (long long)idt::tile::Smem((int)kp, 0, (int)g).total
+                 : (long long)SmemF32(kF32Rows, (int)kp, (int)g).total;
 }

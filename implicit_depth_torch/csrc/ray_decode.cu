@@ -4,8 +4,9 @@
 //
 // Replaces implicit_depth_tpu/ops/pallas_ray_decode.py::fused_ray_decode
 // (_fused_fwd_impl and its Pallas kernel): for every ray, its kb = 8 nearest
-// pair slots are decoded by two 4-layer MLPs (256 -> 128 -> 64 -> 1, LeakyReLU
-// 0.02, soft clamp), the offset decoder as a 2-iteration IEF. With kSave it
+// pair slots are decoded by two 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf
+// g in {8, 16, 32, 64}: 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02,
+// soft clamp), the offset decoder as a 2-iteration IEF. With kSave it
 // replaces fused_ray_decode_table's training forward (_table_fwd,
 // save_mode='l1'): it also writes, rounded to T as the JAX kernel rounds
 // them, e1 (the IEF layer-1 pre-activation before the offset term), z1p (the
@@ -58,18 +59,19 @@ struct Smem {
   // byte offsets of each region in dynamic shared memory
   size_t x, e1, c, h, ray, off, logit, total;
   __host__ __device__ static size_t al(size_t b) { return (b + 127) / 128 * 128; }
-  __host__ __device__ Smem(int m, int mr, int kp, int crp) {
+  __host__ __device__ Smem(int m, int mr, int kp, int crp, int g) {
+    const int g1 = 4 * g, g23 = 3 * g;  // layer 1; layers 2 and 3
     size_t o = 0;
     x = o;      // pair layer-1 input; later H2 | H3
-    o = al(o + (size_t)m * (kp > kG2 + kG3 ? kp : kG2 + kG3) * sizeof(T));
+    o = al(o + (size_t)m * (kp > g23 ? kp : g23) * sizeof(T));
     e1 = o;     // offset layer-1 pre-activation
-    o = al(o + (size_t)m * kG1 * 4);
+    o = al(o + (size_t)m * g1 * 4);
     c = o;      // product scratch; first the per-ray inputs
-    o = al(o + (size_t)m * kG1 * 4);
+    o = al(o + (size_t)m * g1 * 4);
     h = o;      // rounded layer-1 activation
-    o = al(o + (size_t)m * kG1 * sizeof(T));
+    o = al(o + (size_t)m * g1 * sizeof(T));
     ray = o;    // per-ray layer-1 part
-    o = al(o + (size_t)mr * 2 * kG1 * 4);
+    o = al(o + (size_t)mr * 2 * g1 * 4);
     off = o;
     o = al(o + (size_t)m * 4);
     logit = o;
@@ -84,16 +86,16 @@ struct Params {
   const int32_t* cells;   // (n, kb) row ids into vox_table
   const float* pos;       // (n, kb, 6) f32 [enter xyz | leave xyz]
   const T* ray_feat;      // (n, c_ray)
-  const T* pair_w1;       // (kp, 512) rows [vox | pos6 | trig | 0], cols [off | prob]
-  const T* ray_w1;        // (crp, 512) rows [roi | dir | 0]
-  const float* b1;        // (512,)
-  const float* a_vec;     // (256,)
-  const float* c_vec;     // (256,)
+  const T* pair_w1;       // (kp, 2 * 4g) rows [vox | pos6 | trig | 0], cols [off | prob]
+  const T* ray_w1;        // (crp, 2 * 4g) rows [roi | dir | 0]
+  const float* b1;        // (2 * 4g,)
+  const float* a_vec;     // (4g,)
+  const float* c_vec;     // (4g,)
   TailWeights<T> off, prob;
   float* out_off;         // (n, kb)
   float* out_logit;       // (n, kb)
-  T* save_e1;             // kSave: (n*kb, 256)
-  T* save_z1p;            // kSave: (n*kb, 256)
+  T* save_e1;             // kSave: (n*kb, 4g)
+  T* save_z1p;            // kSave: (n*kb, 4g)
   T* save_trig;           // kSave: (n*kb, 12*multires)
   long long n;
   int c_vox, c_ray, multires, kp, crp, n_iter, use_sigmoid;
@@ -102,8 +104,8 @@ struct Params {
   // n_iter the final offset's and the probability decoder's; instance i of
   // pair row r at (i * n * kb + r) * width
   float* save_off;        // (n_iter + 1, n*kb) the offset entering each iteration
-  T* save_h2;             // (n_iter + 1, n*kb, 128)
-  T* save_h3;             // (n_iter + 1, n*kb, 64)
+  T* save_h2;             // (n_iter + 1, n*kb, 2g)
+  T* save_h3;             // (n_iter + 1, n*kb, g)
   float* save_logit;      // (n*kb,) before the squash
 };
 
@@ -111,13 +113,14 @@ struct Params {
 // (K2 'all')
 enum SaveMode { kNoSave, kSaveL1, kSaveAll };
 
-template <typename T, int M, int kMode>
+template <typename T, int M, int kMode, int G>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_kernel(const Params<T> p) {
   constexpr bool kSave = kMode != kNoSave;
   constexpr int MR = M / kKb;  // rays per block
+  constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<T> lay(M, MR, p.kp, p.crp);
+  const Smem<T> lay(M, MR, p.kp, p.crp, G);
   T* X = reinterpret_cast<T*>(smem + lay.x);
   float* E1 = reinterpret_cast<float*>(smem + lay.e1);
   float* C = reinterpret_cast<float*>(smem + lay.c);
@@ -215,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
 
   // -- probability decoder layers 2-4 -----------------------------------------
-  mlp_tail<T, M>(H, C, H2, H3, p.prob, LOGIT, /*accumulate=*/false);
+  mlp_tail<T, M, G>(H, C, H2, H3, p.prob, LOGIT, /*accumulate=*/false);
   if constexpr (kMode == kSaveAll) save_tail(p.n_iter);
   if (threadIdx.x < M) {
     LOGIT[threadIdx.x] += __ldg(p.prob.b4);
@@ -236,13 +239,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                                  __ldg(p.c_vec + c)));
       }
       __syncthreads();
-      mlp_tail<T, M>(H, C, H2, H3, p.off, OFF, /*accumulate=*/true);
+      mlp_tail<T, M, G>(H, C, H2, H3, p.off, OFF, /*accumulate=*/true);
       save_tail(it);
       if (threadIdx.x < M) OFF[threadIdx.x] += b4;
       __syncthreads();
     }
   } else {
-    ief_loop<T, M>(E1, H, C, H2, H3, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
+    ief_loop<T, M, G>(E1, H, C, H2, H3, p.a_vec, p.c_vec, p.off, OFF,
+                      p.n_iter);
   }
 
   if (threadIdx.x < M) {
@@ -268,7 +272,9 @@ constexpr int kColsPerLane = 8;
 // The per-tile product schedule: the per-ray part, the probability
 // decoder's layer 1 and tail, the offset decoder's layer 1, then its tail
 // once per IEF iteration. Returns the number of segments.
+template <int G>
 __device__ int k1_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
+  constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   int n = 0;
   s[n++] = {p.ray_w1, 2 * kG1, p.crp, 2 * kG1};
   s[n++] = {p.pair_w1 + kG1, 2 * kG1, p.kp, kG1};
@@ -282,13 +288,14 @@ __device__ int k1_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
   return n;
 }
 
-template <int kMode>
+template <int kMode, int G>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
   constexpr bool kSave = kMode != kNoSave;
+  constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, p.crp);
+  const tile::Smem lay(p.kp, p.crp, G);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -305,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kp = p.kp, c_vox = p.c_vox, n_trig = 12 * p.multires;
   const int ldx = ld_of(kp), ldr = ld_of(p.crp);
   const long long n_tiles = (p.n + kRays - 1) / kRays;
-  if (threadIdx.x == 0) k1_schedule(p, segs);
+  if (threadIdx.x == 0) k1_schedule<G>(p, segs);
   // the per-ray rows past the 8 rays, and the columns past c_ray, stay 0
   for (int i = threadIdx.x; i < 16 * ldr; i += blockDim.x)
     RF[i] = __float2bfloat16_rn(0.f);
@@ -382,18 +389,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // -- per-ray layer-1 part: RAY = RF @ ray_w1 (16 rows, 8 of them rays) --
     {
-      float acc[1][8][4];
-      product<1, 8, kWarps>(pipe, RF, ldr, p.crp, acc);
-      for_pairs<1, 8, kWarps>(acc, [&](int r, int c, float v0, float v1) {
+      float acc[Grid<16, 2 * kG1>::MT][Grid<16, 2 * kG1>::NT][4];
+      product<16, 2 * kG1>(pipe, RF, ldr, p.crp, acc);
+      for_pairs<16, 2 * kG1>(acc, [&](int r, int c, float v0, float v1) {
         if (r < kRays)
           *reinterpret_cast<float2*>(RAY + r * 2 * kG1 + c) = make_float2(v0, v1);
       });
     }
     // -- probability decoder: H = act(X @ W_prob + ray part + b1), tail ----
     {
-      float acc[2][8][4];
-      product<2, 8, kWN>(pipe, X, ldx, kp, acc);
-      for_pairs<2, 8, kWN>(acc, [&](int r, int c, float v0, float v1) {
+      E1Acc<G> acc;
+      product<kM, kG1>(pipe, X, ldx, kp, acc);
+      for_pairs<kM, kG1>(acc, [&](int r, int c, float v0, float v1) {
         const float2 ray = *reinterpret_cast<const float2*>(
             RAY + (r / kKb) * 2 * kG1 + kG1 + c);
         const float2 b = ldg2(p.b1 + kG1 + c);
@@ -408,15 +415,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     // K2 'all': instance n_iter of each save is the probability decoder's
     [[maybe_unused]] const long long rows_all = p.n * kKb, row0 = ray0 * kKb;
     if constexpr (kMode == kSaveAll)
-      tail<true>(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false,
+      tail<G, true>(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false,
                  p.save_h2 + (p.n_iter * rows_all + row0) * kG2,
                  p.save_h3 + (p.n_iter * rows_all + row0) * kG3, valid * kKb);
     else
-      tail(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false);
+      tail<G>(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false);
     // -- offset decoder: E1 = X @ W_off + ray part + b1, kept in registers --
-    float e1[2][8][4];
-    product<2, 8, kWN>(pipe, X, ldx, kp, e1);
-    for_pairs<2, 8, kWN>(e1, [&](int r, int c, float& v0, float& v1) {
+    E1Acc<G> e1;
+    product<kM, kG1>(pipe, X, ldx, kp, e1);
+    for_pairs<kM, kG1>(e1, [&](int r, int c, float& v0, float& v1) {
       const float2 ray =
           *reinterpret_cast<const float2*>(RAY + (r / kKb) * 2 * kG1 + c);
       const float2 b = ldg2(p.b1 + c);
@@ -428,11 +435,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     });
     if constexpr (kMode == kSaveAll)
-      ief<true>(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter,
+      ief<G, true>(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter,
                 p.save_off + row0, p.save_h2 + row0 * kG2,
                 p.save_h3 + row0 * kG3, rows_all, valid * kKb);
     else
-      ief(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
+      ief<G>(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
 
     if (threadIdx.x < kM && threadIdx.x / kKb < valid) {
       const long long prow = ray0 * kKb + threadIdx.x;
@@ -447,10 +454,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
-template <int kMode>
+template <int kMode, int G>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, p.crp);
-  auto kernel = ray_decode_tc<kMode>;
+  const tile::Smem lay(p.kp, p.crp, G);
+  auto kernel = ray_decode_tc<kMode, G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -464,11 +471,11 @@ int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int M, int kMode>
+template <typename T, int M, int kMode, int G>
 int launch(const Params<T>& p, void* stream) {
   constexpr int MR = M / kKb;
-  const Smem<T> lay(M, MR, p.kp, p.crp);
-  auto kernel = ray_decode_kernel<T, M, kMode>;
+  const Smem<T> lay(M, MR, p.kp, p.crp, G);
+  auto kernel = ray_decode_kernel<T, M, kMode, G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -480,7 +487,7 @@ int launch(const Params<T>& p, void* stream) {
 template <typename T, int kMode>
 int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
         long long multires, long long kp, long long crp, long long n_iter,
-        long long use_sigmoid, float init_offset, void* stream) {
+        long long g, long long use_sigmoid, float init_offset, void* stream) {
   Params<T> p;
   p.vox_table = (const T*)ptrs[0];
   p.cells = (const int32_t*)ptrs[1];
@@ -523,32 +530,37 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
   if (kp % 16 || crp % 16 || kp < c_vox + 6 + 12 * multires || crp < c_ray)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  if constexpr (sizeof(T) == 2) {
-    if (c_vox % 8 || kp - c_vox > 32 * kColsPerLane ||
-        n_iter > (tile::kMaxSegs - 5) / 2 ||
-        tile::Smem((int)kp, (int)crp).total > tile::kMaxSmem)
-      return (int)cudaErrorInvalidValue;
-    return launch_tc<kMode>(p, stream);
-  } else {
-    return launch<T, 32, kMode>(p, stream);
-  }
+  return with_width(g, [&](auto w) {
+    constexpr int G = decltype(w)::value;
+    if constexpr (sizeof(T) == 2) {
+      if (c_vox % 8 || kp - c_vox > 32 * kColsPerLane ||
+          n_iter > (tile::kMaxSegs - 5) / 2 ||
+          tile::Smem((int)kp, (int)crp, G).total > tile::kMaxSmem)
+        return (int)cudaErrorInvalidValue;
+      return launch_tc<kMode, G>(p, stream);
+    } else {
+      return launch<T, 32, kMode, G>(p, stream);
+    }
+  });
 }
 
 }  // namespace
 
 // ptrs: vox_table, cells, pos, ray_feat, pair_w1, ray_w1, b1, a_vec, c_vec,
 // off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4}, out_off, out_logit
-// (23 device pointers). Returns a cudaError_t.
+// (23 device pointers). g: imnet_gf, in {8, 16, 32, 64}. Returns a
+// cudaError_t.
 extern "C" int idt_ray_decode(void* const* ptrs, long long n, long long c_vox,
                               long long c_ray, long long multires,
                               long long kp, long long crp, long long n_iter,
-                              long long is_bf16, long long use_sigmoid,
+                              long long g, long long is_bf16,
+                              long long use_sigmoid,
                               float init_offset, void* stream) {
   return is_bf16 ? run<__nv_bfloat16, kNoSave>(ptrs, n, c_vox, c_ray, multires,
-                                               kp, crp, n_iter, use_sigmoid,
+                                               kp, crp, n_iter, g, use_sigmoid,
                                                init_offset, stream)
                  : run<float, kNoSave>(ptrs, n, c_vox, c_ray, multires, kp,
-                                       crp, n_iter, use_sigmoid, init_offset,
+                                       crp, n_iter, g, use_sigmoid, init_offset,
                                        stream);
 }
 
@@ -558,45 +570,50 @@ extern "C" int idt_ray_decode_save(void* const* ptrs, long long n,
                                    long long c_vox, long long c_ray,
                                    long long multires, long long kp,
                                    long long crp, long long n_iter,
-                                   long long is_bf16, long long use_sigmoid,
+                                   long long g, long long is_bf16,
+                                   long long use_sigmoid,
                                    float init_offset, void* stream) {
   return is_bf16 ? run<__nv_bfloat16, kSaveL1>(ptrs, n, c_vox, c_ray, multires,
-                                               kp, crp, n_iter, use_sigmoid,
+                                               kp, crp, n_iter, g, use_sigmoid,
                                                init_offset, stream)
                  : run<float, kSaveL1>(ptrs, n, c_vox, c_ray, multires, kp,
-                                       crp, n_iter, use_sigmoid, init_offset,
+                                       crp, n_iter, g, use_sigmoid, init_offset,
                                        stream);
 }
 
 // K2 'all': the pointers of idt_ray_decode_save, then save_off (n_iter + 1,
-// n*kb) f32, save_h2 (n_iter + 1, n*kb, 128), save_h3 (n_iter + 1, n*kb, 64),
+// n*kb) f32, save_h2 (n_iter + 1, n*kb, 2g), save_h3 (n_iter + 1, n*kb, g),
 // save_logit (n*kb,) f32 (30 device pointers). Returns a cudaError_t.
 extern "C" int idt_ray_decode_save_all(void* const* ptrs, long long n,
                                        long long c_vox, long long c_ray,
                                        long long multires, long long kp,
                                        long long crp, long long n_iter,
-                                       long long is_bf16, long long use_sigmoid,
+                                       long long g, long long is_bf16,
+                                   long long use_sigmoid,
                                        float init_offset, void* stream) {
   return is_bf16 ? run<__nv_bfloat16, kSaveAll>(ptrs, n, c_vox, c_ray,
-                                                multires, kp, crp, n_iter,
+                                                multires, kp, crp, n_iter, g,
                                                 use_sigmoid, init_offset,
                                                 stream)
                  : run<float, kSaveAll>(ptrs, n, c_vox, c_ray, multires, kp,
-                                        crp, n_iter, use_sigmoid, init_offset,
+                                        crp, n_iter, g, use_sigmoid, init_offset,
                                         stream);
 }
 
 // Dynamic shared memory (bytes) of one block of K1/K2 at these widths
 // (ops/ray_decode.py::decode_plan mirrors it).
 extern "C" long long idt_ray_decode_smem(long long kp, long long crp,
-                                         long long is_bf16) {
-  return is_bf16 ? (long long)idt::tile::Smem((int)kp, (int)crp).total
-                 : (long long)Smem<float>(32, 32 / kKb, (int)kp, (int)crp).total;
+                                         long long g, long long is_bf16) {
+  return is_bf16
+             ? (long long)idt::tile::Smem((int)kp, (int)crp, (int)g).total
+             : (long long)Smem<float>(32, 32 / kKb, (int)kp, (int)crp, (int)g)
+                   .total;
 }
 
 // ... of K2 'all' (its saves take no shared memory of their own: K1's
 // layout; decode_plan "K2all").
 extern "C" long long idt_ray_decode_save_all_smem(long long kp, long long crp,
+                                                  long long g,
                                                   long long is_bf16) {
-  return idt_ray_decode_smem(kp, crp, is_bf16);
+  return idt_ray_decode_smem(kp, crp, g, is_bf16);
 }

@@ -25,6 +25,10 @@
 // cotangents rounded to T, as the JAX kernel's dots round them) with f32
 // accumulation; bias gradients and the IEF offset chain are summed in f32.
 //
+// Every instance is compiled for the decoder widths 4g -> 2g -> g -> 1 of
+// imnet_gf g in {8, 16, 32, 64} (the template parameter G; the C entry
+// dispatches on g).
+//
 // The TPU kernel keeps its weight-gradient accumulators in VMEM across a
 // sequential grid. A GPU block has no room for them (1.15 MB at the default
 // widths) and no order between blocks, so the work is split in passes that
@@ -99,13 +103,24 @@ constexpr int kThreadsA = 512, kWarpsA = kThreadsA / 32;
 // weight fragments a warp of a per-ray product loads from L2 together
 // before it uses them
 constexpr int kPre = 8;
-// row strides of the T tiles in shared memory that feed the tensor cores:
-// 8 elements (16 bytes) past their widths, so that the 8 rows of each
-// fragment load fall in different banks
-constexpr int kLd1 = kG1 + 8, kLd2 = kG2 + 8, kLd3 = kG3 + 8;
+// The widths of imnet_gf G's decoder, and the row strides of its T tiles in
+// shared memory that feed the tensor cores: 8 elements (16 bytes) past their
+// widths, so that the 8 rows of each fragment load fall in different banks
+template <int G>
+struct Dims : Widths<G> {
+  static constexpr int ld1 = Widths<G>::g1 + 8, ld2 = Widths<G>::g2 + 8,
+                       ld3 = Widths<G>::g3 + 8;
+};
+#define IDT_DIMS(G)                                                      \
+  [[maybe_unused]] constexpr int kG1 = Dims<G>::g1, kG2 = Dims<G>::g2,     \
+                                 kG3 = Dims<G>::g3, kLd1 = Dims<G>::ld1,   \
+                                 kLd2 = Dims<G>::ld2, kLd3 = Dims<G>::ld3
 // elements of the bf16 weight staging buffer: two slabs of the largest
-// product's weights (128 columns of B^T, 64 k each, padded to 72)
-constexpr int kStageElems = 2 * kG2 * (64 + 8);
+// staged product's weights (128 columns of B^T, 64 k each, padded to 72)
+constexpr int kStageElems = 2 * 128 * (64 + 8);
+// the widest X = [vox | pos6 | trig | 0] row (kp) Pass A stages: X spans the
+// H1 and H2 regions, which lie one after the other
+constexpr int kMaxKp = 400;
 
 // -- the plan's fields (ops/ray_decode.py::pack_bwd_plan) ---------------------
 
@@ -378,14 +393,15 @@ __device__ void product(const T* A, int lda, const T* __restrict__ B, int ldb,
 }
 
 // Layers 2-4 of one decoder from the T-rounded layer-1 activation H (M x
-// 256, shared, row stride kLd1), as decode_common.cuh::mlp_tail computes
-// them, with this file's products: C (f32, M x 128) is product scratch, H2
-// (M x 128, stride kLd2), H3 (M x 64, stride kLd3) of type T, S the weight
+// 4G, shared, row stride kLd1), as decode_common.cuh::mlp_tail computes
+// them, with this file's products: C (f32, M x 2G) is product scratch, H2
+// (M x 2G, stride kLd2), H3 (M x G, stride kLd3) of type T, S the weight
 // staging buffer (or null). out[row] = the pre-squash output of layer 4
 // without b4 (f32, shared).
-template <typename T, int M>
+template <typename T, int M, int G>
 __device__ void tail_forward(const T* H, float* C, T* H2, T* H3, T* S,
                              const TailWeights<T>& w, float* out) {
+  IDT_DIMS(G);
   product<T, false>(H, kLd1, w.w2, kG2, M, kG1, kG2, C, kG2, false, S);
   __syncthreads();
   // the elementwise passes take 4 consecutive elements a thread
@@ -399,7 +415,7 @@ __device__ void tail_forward(const T* H, float* C, T* H2, T* H3, T* S,
     st4(H3 + i / kG3 * kLd3 + i % kG3,
         leaky4(add4(ld4(C + i), ld4(w.b3 + i % kG3))));
   __syncthreads();
-  // layer 4: each row's 64-term dot, a warp a row, the lanes over columns
+  // layer 4: each row's G-term dot, a warp a row, the lanes over columns
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < M; r += kWarpsA) {
     float s = 0.f;
@@ -508,20 +524,27 @@ __host__ __device__ constexpr size_t align128(size_t b) {
   return (b + 127) / 128 * 128;
 }
 
-template <typename T, int M>
+template <typename T, int M, int G>
 struct BwdSmem {
   static constexpr int kMR = M / kKb;
+  static constexpr int kG1 = Dims<G>::g1, kG2 = Dims<G>::g2,
+                       kLd1 = Dims<G>::ld1, kLd2 = Dims<G>::ld2,
+                       kLd3 = Dims<G>::ld3;
+  // the row width of the H1 region: X (stride kp <= kMaxKp) spans it and H2's
+  static constexpr int kLdH1 = kLd1 > kMaxKp - kLd2 ? kLd1 : kMaxKp - kLd2;
+  // d_z1 (M x 4G) and the d_rows (M x c_vox, c_vox <= 256) of the table
+  static constexpr int kDCols = kG1 > 256 ? kG1 : 256;
   static constexpr size_t kCF = (size_t)M * kG2 * 4;
   static constexpr size_t kCT = (size_t)M * kLd1 * sizeof(T);
-  // H1 | X (stride kp <= kG1), H2 | dT2, H3 | dT3
+  // H1 | X, H2 | dT2 (| X), H3 | dT3
   static constexpr size_t h1 = 0;
-  static constexpr size_t h2 = align128(h1 + (size_t)M * kLd1 * sizeof(T));
+  static constexpr size_t h2 = align128(h1 + (size_t)M * kLdH1 * sizeof(T));
   static constexpr size_t h3 = align128(h2 + (size_t)M * kLd2 * sizeof(T));
   // f32 product scratch | T(d_z1p), T(d_e1); d_z1 (f32) | d_rows
   static constexpr size_t c = align128(h3 + (size_t)M * kLd3 * sizeof(T));
   static constexpr size_t d = align128(c + (kCF > kCT ? kCF : kCT));
   // the bf16 products' weight slabs (the f32 products read B from L2)
-  static constexpr size_t stg = align128(d + (size_t)M * kG1 * 4);
+  static constexpr size_t stg = align128(d + (size_t)M * kDCols * 4);
   static constexpr size_t doff =
       align128(stg + (sizeof(T) == 2 ? (size_t)kStageElems * sizeof(T) : 0));
   static constexpr size_t tmp = align128(doff + (size_t)M * 4);
@@ -565,13 +588,14 @@ struct TailOut {
 // when accumulate. For the IEF (off_i != nullptr) also adds d_a_vec, d_c_vec
 // into s_a, s_c and adds sum_c d_z1 * a_vec to DOFF (the cotangent of the
 // iteration's input offset).
-template <typename T, int M>
+template <typename T, int M, int G>
 __device__ void tail_backward(const T* H1, T* H2, T* H3, float* DOFF,
                               float* C, float* D, T* S, bool accumulate,
                               const float* off_i, const float* AV,
                               const TailWeights<T>& w, float* s_b2,
                               float* s_b3, float* s_w4, float* s_b4,
                               float* s_a, float* s_c, const TailOut<T>& out) {
+  IDT_DIMS(G);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // layer 4: dW4 = H3^T T(d), db4 = sum d
   for (int c = threadIdx.x; c <= kG3; c += blockDim.x) {
@@ -619,7 +643,7 @@ __device__ void tail_backward(const T* H1, T* H2, T* H3, float* DOFF,
   if (out.h1 != nullptr) put(H1, kLd1, out.h1, kG1, out.rows);
   put(H2, kLd2, out.dt2, kG2, out.rows);
   __syncthreads();
-  // d_z1 = dleaky(h1, d_t2 @ W2^T), in two 128-column halves through C
+  // d_z1 = dleaky(h1, d_t2 @ W2^T), in two 2G-column halves through C
   for (int n0 = 0; n0 < kG1; n0 += kG2) {
     product<T, true>(H2, kLd2, w.w2 + (size_t)n0 * kG2, kG2, M, kG2, kG2, C,
                      kG2, false, S);
@@ -656,15 +680,19 @@ __device__ void tail_backward(const T* H1, T* H2, T* H3, float* DOFF,
   }
 }
 
-template <typename T, int M, int kMode>
+template <typename T, int M, int kMode, int G>
 __global__ void __launch_bounds__(kThreadsA, 1)
     pass_a_kernel(const BwdParams<T> p) {
+  IDT_DIMS(G);
   constexpr bool kFromSaves = kMode != kRecompute;
   constexpr int MR = M / kKb;
-  // 8-element vectors of an M x 256 tile a thread handles
-  constexpr int kTileVecs = M * kG1 / 8 / kThreadsA;
+  // 8-element vectors of an M x 4G tile a thread handles (the last round
+  // partial where they do not divide)
+  constexpr int kVecs = M * kG1 / 8;
+  constexpr int kTileVecs = (kVecs + kThreadsA - 1) / kThreadsA;
+  constexpr bool kRagged = kVecs % kThreadsA != 0;
   extern __shared__ __align__(128) unsigned char smem[];
-  using Lay = BwdSmem<T, M>;
+  using Lay = BwdSmem<T, M, G>;
   const Lay lay(p.crp, p.n_iter, p.small_size);
   T* H1 = reinterpret_cast<T*>(smem + Lay::h1);
   T* X = H1;
@@ -819,6 +847,7 @@ __global__ void __launch_bounds__(kThreadsA, 1)
     if constexpr (kFromSaves) {
 #pragma unroll
       for (int u = 0; u < kTileVecs; ++u) {
+        if (kRagged && (int)threadIdx.x + u * kThreadsA >= kVecs) break;
         const int i = (threadIdx.x + u * kThreadsA) * 8, r = i / kG1;
         float z[8] = {};
         if (row_ok(r)) load8(p.z1p + grow(r) * kG1 + i % kG1, z);
@@ -866,12 +895,13 @@ __global__ void __launch_bounds__(kThreadsA, 1)
         DOFF[r] = dsquash(row_ok(r) ? __ldg(p.s_logit + grow(r)) : 0.f, GL[r],
                           p.use_sigmoid);
     } else {
-      tail_forward<T, M>(H1, C, H2, H3, S, p.prob, TMP);
+      tail_forward<T, M, G>(H1, C, H2, H3, S, p.prob, TMP);
       for (int r = threadIdx.x; r < M; r += blockDim.x)
         DOFF[r] = dsquash(TMP[r] + __ldg(p.prob.b4), GL[r], p.use_sigmoid);
     }
     __syncthreads();
-    tail_backward<T, M>(H1, H2, H3, DOFF, C, D, S, false, nullptr, AV, p.prob,
+    tail_backward<T, M, G>(H1, H2, H3, DOFF, C, D, S, false, nullptr, AV,
+                           p.prob,
                         SM + p.small_off[kSProbB2], SM + p.small_off[kSProbB3],
                         SM + p.small_off[kSProbW4], SM + p.small_off[kSProbB4],
                         nullptr, nullptr, tail_out(0, true));
@@ -890,6 +920,7 @@ __global__ void __launch_bounds__(kThreadsA, 1)
     auto ief_h1 = [&](int it) {  // H1 of iteration it
 #pragma unroll
       for (int u = 0; u < kTileVecs; ++u) {
+        if (kRagged && (int)threadIdx.x + u * kThreadsA >= kVecs) break;
         const int i = (threadIdx.x + u * kThreadsA) * 8, r = i / kG1,
                   c = i % kG1;
         float e[8] = {};
@@ -914,7 +945,7 @@ __global__ void __launch_bounds__(kThreadsA, 1)
     for (int it = 0; kMode != kFromAll && it < p.n_iter; ++it) {
       ief_h1(it);  // then H2, H3 and the tail's output into TMP
       __syncthreads();
-      tail_forward<T, M>(H1, C, H2, H3, S, p.off, TMP);
+      tail_forward<T, M, G>(H1, C, H2, H3, S, p.off, TMP);
       for (int r = threadIdx.x; r < M; r += blockDim.x)
         OFF[(it + 1) * M + r] = (OFF[it * M + r] + TMP[r]) + b4;
       if (it != p.n_iter - 1) {
@@ -945,7 +976,7 @@ __global__ void __launch_bounds__(kThreadsA, 1)
         fetch(inst_at(kDt3, 1 + it), kG3, H3, kLd3, rows_ok, M);
         __syncthreads();
       }
-      tail_backward<T, M>(H1, H2, H3, DOFF, C, D, S, !last,
+      tail_backward<T, M, G>(H1, H2, H3, DOFF, C, D, S, !last,
                           OFF + it * M, AV, p.off, SM + p.small_off[kSOffB2],
                           SM + p.small_off[kSOffB3], SM + p.small_off[kSOffW4],
                           SM + p.small_off[kSOffB4], SM + p.small_off[kSAVec],
@@ -1188,18 +1219,18 @@ __global__ void reduce_kernel(const float* __restrict__ P,
 
 // -- the host side -------------------------------------------------------------
 
-int stream_width(int s, int kp, int crp) {
+int stream_width(int s, int kp, int crp, int g) {
   switch (s) {
     case kX: return kp;
     case kRf: return crp;
-    case kDt2: case kH2: return kG2;
-    case kDt3: return kG3;
-    default: return kG1;
+    case kDt2: case kH2: return 2 * g;
+    case kDt3: return g;
+    default: return 4 * g;
   }
 }
 bool is_per_ray(int s) { return s == kRf || s == kDreOff || s == kDreProb; }
 
-template <typename T, int M, int kMode>
+template <typename T, int M, int kMode, int G>
 int run_passes(BwdParams<T> p, const long long* plan, long long n,
                T* scratch, float* partials, float* d_w, float* d_table,
                cudaEvent_t const* events, cudaStream_t stream) {
@@ -1219,7 +1250,7 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
   for (int s = 0; s < kStreams; ++s) {
     p.stream[s] = scratch + plan[kStreamOff + s];
     p.inst_stride[s] = (is_per_ray(s) ? chunk : chunk * kKb) *
-                       stream_width(s, p.kp, p.crp);
+                       stream_width(s, p.kp, p.crp, G);
   }
   for (int s = 0; s < kSmall; ++s) p.small_off[s] = (int)plan[kSmallOff + s];
   p.small_size = (int)plan[kSmallSize];
@@ -1233,8 +1264,8 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
     const long long* f = jobs + j * kJobFields;
     const int sa = (int)f[0], sb = (int)f[1];
     GemmJob<T>& g = gp.job[j];
-    g.a_w = stream_width(sa, p.kp, p.crp);
-    g.b_w = stream_width(sb, p.kp, p.crp);
+    g.a_w = stream_width(sa, p.kp, p.crp, G);
+    g.b_w = stream_width(sb, p.kp, p.crp, G);
     g.a_stride = p.inst_stride[sa];
     g.b_stride = p.inst_stride[sb];
     g.a = p.stream[sa] + f[2] * g.a_stride;
@@ -1258,8 +1289,8 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
   cudaError_t err = cudaMemsetAsync(
       partials, 0, (size_t)plan[kPartialFloats] * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
-  const BwdSmem<T, M> lay(p.crp, p.n_iter, p.small_size);
-  auto ka = pass_a_kernel<T, M, kMode>;
+  const BwdSmem<T, M, G> lay(p.crp, p.n_iter, p.small_size);
+  auto ka = pass_a_kernel<T, M, kMode, G>;
   err = cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -1297,8 +1328,9 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
 template <typename T>
 int run(void* const* ptrs, const long long* plan, long long n_plan,
         long long n, long long c_vox, long long c_ray, long long multires,
-        long long kp, long long crp, long long n_iter, long long use_sigmoid,
-        float init_offset, cudaEvent_t const* events, cudaStream_t stream) {
+        long long kp, long long crp, long long n_iter, long long g,
+        long long use_sigmoid, float init_offset, cudaEvent_t const* events,
+        cudaStream_t stream) {
   BwdParams<T> p;
   p.vox_table = (const T*)ptrs[0];
   p.cells = (const int32_t*)ptrs[1];
@@ -1343,7 +1375,7 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   p.use_sigmoid = (int)use_sigmoid;
   p.init_offset = init_offset;
   if (kp % 16 || crp % 16 || kp < c_vox + 6 + 12 * multires || crp < c_ray ||
-      kp > kG1 || c_vox % 32 || c_vox > kG1 || n_iter < 1 || n < 1 ||
+      kp > kMaxKp || c_vox % 8 || c_vox > 256 || n_iter < 1 || n < 1 ||
       n_plan < kHeader)
     return (int)cudaErrorInvalidValue;
   if (n_plan != kHeader + plan[kNJobs] * kJobFields + plan[kNReds] * kRedFields)
@@ -1357,14 +1389,18 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
                    p.s_logit == nullptr))
     return (int)cudaErrorInvalidValue;
   constexpr int M = sizeof(T) == 2 ? 64 : 32;
-  if (from_all)
-    return run_passes<T, M, kFromAll>(p, plan, n, scratch, partials, d_w,
-                                      d_table, events, stream);
-  return from_saves
-             ? run_passes<T, M, kFromL1>(p, plan, n, scratch, partials, d_w,
-                                         d_table, events, stream)
-             : run_passes<T, M, kRecompute>(p, plan, n, scratch, partials,
-                                            d_w, d_table, events, stream);
+  return with_width(g, [&](auto w) {
+    constexpr int G = decltype(w)::value;
+    if (from_all)
+      return run_passes<T, M, kFromAll, G>(p, plan, n, scratch, partials, d_w,
+                                           d_table, events, stream);
+    return from_saves
+               ? run_passes<T, M, kFromL1, G>(p, plan, n, scratch, partials,
+                                              d_w, d_table, events, stream)
+               : run_passes<T, M, kRecompute, G>(p, plan, n, scratch,
+                                                 partials, d_w, d_table,
+                                                 events, stream);
+  });
 }
 
 }  // namespace
@@ -1374,27 +1410,28 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
 // e1, z1p, trig (K2's saves; all null for the recompute instance), g (n, kb,
 // 2) f32 cotangents, d_table (S, c_vox) f32, d_ray (n, c_ray) f32, d_w (the
 // weight gradients, f32, in ops/ray_decode.py::bwd_grad_layout), scratch
-// (the streams, T), partials (f32), e1_scratch (blocks, rows per tile, 256)
+// (the streams, T), partials (f32), e1_scratch (blocks, rows per tile, 4g)
 // f32 for the recompute instance (else null), then K2 'all''s off (n_iter +
-// 1, n*kb) f32, h2 (n_iter + 1, n*kb, 128), h3 (n_iter + 1, n*kb, 64) and
+// 1, n*kb) f32, h2 (n_iter + 1, n*kb, 2g), h3 (n_iter + 1, n*kb, g) and
 // logit (n*kb,) f32 for the instance from full saves (else null): 35 device
 // pointers. plan: ops/ray_decode.py::pack_bwd_plan (n_plan int64). events:
 // null, or 2 * n_chunks + 2 CUDA events recorded before the first pass and
-// after each pass, for measurement. Returns a cudaError_t.
+// after each pass, for measurement. g: imnet_gf, in {8, 16, 32, 64}.
+// Returns a cudaError_t.
 extern "C" int idt_ray_decode_bwd(void* const* ptrs, const long long* plan,
                                   long long n_plan, long long n,
                                   long long c_vox, long long c_ray,
                                   long long multires, long long kp,
-                                  long long crp, long long n_iter,
+                                  long long crp, long long n_iter, long long g,
                                   long long is_bf16, long long use_sigmoid,
                                   float init_offset, void* const* events,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaEvent_t const* ev = (cudaEvent_t const*)events;
   return is_bf16 ? run<__nv_bfloat16>(ptrs, plan, n_plan, n, c_vox, c_ray,
-                                      multires, kp, crp, n_iter, use_sigmoid,
-                                      init_offset, ev, s)
+                                      multires, kp, crp, n_iter, g,
+                                      use_sigmoid, init_offset, ev, s)
                  : run<float>(ptrs, plan, n_plan, n, c_vox, c_ray, multires,
-                              kp, crp, n_iter, use_sigmoid, init_offset, ev,
-                              s);
+                              kp, crp, n_iter, g, use_sigmoid, init_offset,
+                              ev, s);
 }

@@ -1,7 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``implicit_depth_torch/csrc``.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, at first use, into
+shared library with a plain C interface (a source of ``PER_WIDTH`` once per
+decoder width, ``-DIDT_GF=<g>``, into ``lib<name>_g<g>.so``), at first use,
+into
 ``build/idt_torch_kernels/<hash>/`` at the root of the checkout (the hash
 covers every source and the flags, so an edit rebuilds). All sources build
 in parallel: one ``nvcc`` process each, started together, each into a
@@ -33,12 +35,22 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "idt_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# imnet_gf of the decoders the decode kernels are compiled for (layers
+# 4g -> 2g -> g -> 1; csrc/decode_common.cuh with_width)
+DECODER_GF = (8, 16, 32, 64)
+# sources built once per width, in parallel: all of K3's instances in one
+# translation unit took 73 s of nvcc on the H100's host
+PER_WIDTH = ("ray_decode_bwd",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, object] = {}
 build_seconds: float = 0.0       # wall time of the last build (0 when cached)
-build_log: str = ""              # nvcc's output of the last build (-Xptxas -v)
+# nvcc's output of the last build (-Xptxas -v), each library's under
+# "== <source> [-DIDT_GF=<g>]"
+build_log: str = ""
+# seconds from the start of the last build to each library
+source_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -61,31 +73,50 @@ def _source_hash() -> str:
 
 def build_all() -> Path:
     """Compile every ``csrc/*.cu`` that has no library yet; returns the
-    build directory. One nvcc per source, all running at once."""
-    global build_seconds, build_log
+    build directory. One nvcc per library, all running at once."""
+    global build_seconds, build_log, source_seconds
     out_dir = BUILD_ROOT / _source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
-    todo = [p for p in sorted(CSRC.glob("*.cu"))
-            if not (out_dir / f"lib{p.stem}.so").exists()]
+    targets = []  # (source, library, flags)
+    for src in sorted(CSRC.glob("*.cu")):
+        if src.stem in PER_WIDTH:
+            targets += [(src, f"{src.stem}_g{g}", [f"-DIDT_GF={g}"])
+                        for g in DECODER_GF]
+        else:
+            targets.append((src, src.stem, []))
+    todo = [t for t in targets if not (out_dir / f"lib{t[1]}.so").exists()]
     if not todo:
         build_seconds = 0.0
         return out_dir
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
-    for src in todo:
-        tmp = out_dir / f"lib{src.stem}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        procs.append((src, tmp, subprocess.Popen(
+    for src, lib, flags in todo:
+        tmp = out_dir / f"lib{lib}.so.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
+        procs.append((lib, " ".join([src.name, *flags]), tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    outs = {}
+
+    def wait(lib, proc):  # one thread a process, so each finish is timed
+        outs[lib] = proc.communicate()[0]
+        source_seconds[lib] = time.perf_counter() - t0
+
+    source_seconds = {}
+    waiters = [threading.Thread(target=wait, args=(lib, proc))
+               for lib, _, _, proc in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failed = [], []
-    for src, tmp, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(f"== {src.name}\n{out}")
+    for lib, label, tmp, proc in procs:
+        logs.append(f"== {label}\n{outs[lib]}")
         if proc.returncode != 0:
-            failed.append(src.name)
+            failed.append(lib)
         else:
-            tmp.replace(out_dir / f"lib{src.stem}.so")
+            tmp.replace(out_dir / f"lib{lib}.so")
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(logs)
     if failed:
@@ -94,7 +125,8 @@ def build_all() -> Path:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    """The loaded library of ``csrc/<name>.cu`` (built on first use); of a
+    ``PER_WIDTH`` source, ``name`` is ``<stem>_g<g>``."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -3,7 +3,7 @@
 Counterpart of ``implicit_depth_tpu/ops/pallas_decode.py`` (``fused_pair_decode``,
 ``xla_pair_decode``, ``_decode_tile``). Each of P pair rows is decoded from
 its 385-d embedding [voxel row | roi | pe(enter) | pe(leave) | dir_e] by the
-IEF offset decoder (2 iterations of 256-128-64-1 over the hoisted layer 1,
+IEF offset decoder (2 iterations of 4g-2g-g-1 over the hoisted layer 1,
 the 1 -> 16 offset encoder folded into a rank-1 update) and the IMNet
 termination-probability decoder. A row names its voxel row by cell in the
 (B·G³, Cv) voxel table and its ray by index in the per-ray [roi | dir_e]
@@ -48,6 +48,7 @@ from implicit_depth_torch.ops.ray_decode import (
     _check_cuda,
     _check_plan,
     _dot,
+    decoder_gf,
     _ief_loop,
     _mlp_tail,
     _q,
@@ -217,8 +218,9 @@ def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
                                 *(w[k] for k in _K6_WEIGHTS),
                                 *(t for t in (rays, n_rows) if t is not None)],
                 dtype)
-    if w["w1"].shape[1] != 512 or w["off_w3"].shape != (128, 64):
-        raise ValueError("pair_decode kernel takes layer widths 256-128-64-1")
+    for dec in ("off", "prob"):
+        g = decoder_gf("pair_decode", w["b1"].shape[0] // 2,
+                       w[f"{dec}_w2"].shape, w[f"{dec}_w3"].shape)
     if vox_table.shape[1] != c_vox or ray_feat.shape[1] != c_roi + c_dir \
             or pos.shape != (p, 6) or cells.dim() != 1 or kp != lay["kp"] \
             or (rays is not None and rays.shape != (p,)) \
@@ -228,7 +230,7 @@ def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
         raise ValueError(f"pair_decode kernel takes c_vox a multiple of 8 and "
                          f"at most {MAX_PE_COLS} columns past the ray row in "
                          f"bf16 (got c_vox={c_vox}, {kp - lay['o_pe']})")
-    _check_plan("pair_decode", "K6", kp, 0, n_iter, is_bf16, p)
+    _check_plan("pair_decode", "K6", kp, 0, n_iter, is_bf16, p, g)
     if rays is None:
         slots = _dense_slots(p, ray_feat.shape[0])
     else:
@@ -243,8 +245,8 @@ def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
     ptrs = cuda.ptr_array([vox_table, cells, rays, pos, ray_feat,
                            *(w[k] for k in _K6_WEIGHTS), n_rows, off, logit])
     fn = cuda.bind("pair_decode", "idt_pair_decode", cuda.PTR,
-                   *[cuda.I64] * 9, cuda.F32)
-    cuda.check(fn(ptrs, p, c_vox, lay["c_rp"], multires, kp, slots, n_iter,
+                   *[cuda.I64] * 10, cuda.F32)
+    cuda.check(fn(ptrs, p, c_vox, lay["c_rp"], multires, kp, slots, n_iter, g,
                   int(is_bf16), int(use_sigmoid), init_offset,
                   cuda.stream_ptr(cells.device)), "pair_decode")
     return off, logit

@@ -31,9 +31,12 @@ Each wrapper runs the plain PyTorch version for CPU tensors and launches its
 CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ray_decode_bwd.cu``,
 ``csrc/ief_decode.cu``) for CUDA tensors, counting launches in
 ``<wrapper>.launches``. The ``global`` and dense stage-1 modes decode
-through ``ops/pair_decode.py`` (K6). :func:`decode_plan` mirrors the
-forward kernels' tiles, shared memory and weight schedule on the host
-(``csrc/decode_tile.cuh``); the wrappers refuse widths it says do not fit.
+through ``ops/pair_decode.py`` (K6). The kernels are compiled for the
+decoder widths 4g-2g-g-1 of ``imnet_gf`` g in :data:`DECODER_GF`, read
+from the weights as the Pallas kernels read theirs (:func:`decoder_gf`).
+:func:`decode_plan` mirrors the forward kernels' tiles, shared memory and
+weight schedule on the host (``csrc/decode_tile.cuh``); the wrappers refuse
+widths it says do not fit.
 """
 
 from __future__ import annotations
@@ -299,6 +302,25 @@ def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
     return out
 
 
+# imnet_gf of the decoders the kernels are compiled for: layers 4g -> 2g ->
+# g -> 1
+DECODER_GF = cuda.DECODER_GF
+
+
+def decoder_gf(name: str, g1: int, w2_shape, w3_shape) -> int:
+    """The ``imnet_gf`` g of a decoder whose layer 1 is ``g1`` wide and
+    whose layers 2 and 3 have the shapes ``w2_shape``, ``w3_shape``; raises
+    unless the widths are 4g-2g-g-1 for a g the kernels are compiled for."""
+    g = g1 // 4
+    widths = (g1, *w3_shape)
+    if g not in DECODER_GF or tuple(w2_shape) != (g1, 2 * g) \
+            or tuple(w3_shape) != (2 * g, g):
+        raise ValueError(
+            f"{name} kernel takes decoder widths 4g-2g-g-1 for imnet_gf g in "
+            f"{DECODER_GF} (got {'-'.join(map(str, widths))}-1)")
+    return g
+
+
 def _check_cuda(name, tensors, dtype):
     for t in tensors:
         if t.device.type != "cuda":
@@ -324,9 +346,12 @@ MAX_SEGS = 24          # products of one tile's schedule (kMaxSegs)
 WARPS, WARPS_N = 8, 4  # warps of a block; along N in the 64-row products
 F32_ROWS = 32          # rows of an f32 block (FMA path)
 # the widest layer-1 inputs the wrappers accept: per pair or row (kp), per
-# ray (crp; K1); K1's kp is K3's limit too; K6's fills the shared memory
-MAX_KP = {"K1": 256, "K2all": 256, "K4": 384, "K6": 464}
+# ray (crp; K1): K1's covers c_vox 256 with multires 8 (kp 368) and fits
+# the shared memory at imnet_gf 64 with crp 256; K6's fills it; K3 stages
+# X over its H1 and H2 tiles (csrc/ray_decode_bwd.cu kMaxKp)
+MAX_KP = {"K1": 368, "K2all": 368, "K4": 384, "K6": 464, "K3": 400}
 MAX_CRP = 256
+MAX_CVOX = 256  # K3's voxel feature width (pnet_out): its d_rows tile
 _SEG_BYTES = 24        # sizeof(Seg)
 
 
@@ -347,27 +372,30 @@ def _regions(sizes):
 
 
 def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
-                is_bf16: bool = True, n: int = 0, sm_count: int = 132) -> dict:
+                is_bf16: bool = True, n: int = 0, sm_count: int = 132,
+                g: int = 64) -> dict:
     """The host-side arithmetic of the forward decodes, as the kernels lay
     it out: ``kernel`` "K1" (also K2; ``n`` rays of kb = 8 pairs, layer-1
     widths ``kp`` per pair and ``crp`` per ray), "K2all" (K2 'all': K1's
     layout, its saves go from registers and the shared h2 tile to device
     memory), "K4" (``n`` rows, layer-1 width ``kp``) or "K6" (``n`` pair
     rows, layer-1 width ``kp``: ``ops/pair_decode.py::pair_layout``; the
-    operand "w1" holds both decoders' layer 1, offset columns first).
+    operand "w1" holds both decoders' layer 1, offset columns first); the
+    decoders' widths 4g-2g-g-1 of imnet_gf ``g``.
 
     bf16 (``csrc/decode_tile.cuh``): a persistent grid of ``blocks`` = one
     block per SM (at most the number of tiles) walks ``tiles`` tiles of
     TILE_ROWS rows (8 rays for K1); ``smem`` holds the byte offset of each
     region of ``tile::Smem`` and ``"total"``; ``schedule`` lists each
     product of a tile in the order its weights stream through the slab
-    ring: (operand, first column, k, n, slab rows), and ``slabs_per_tile``
-    their number. f32: one block per tile of F32_ROWS rows, the FMA
+    ring: (operand, first column, k, n, slab rows), ``slabs_per_tile``
+    their number, and ``warp_grid`` each product's warps and tiles
+    (:func:`warp_grid`). f32: one block per tile of F32_ROWS rows, the FMA
     kernels' ``Smem`` (no schedule)."""
     if kernel not in ("K1", "K2all", "K4", "K6"):
         raise ValueError(f"decode_plan: kernel {kernel!r}")
     k1 = kernel in ("K1", "K2all")
-    g1, g2, g3 = _G1, _G2, _G3
+    g1, g2, g3 = 4 * g, 2 * g, g
     if is_bf16:
         ld = lambda w: w + TILE_PAD  # noqa: E731
         xb = TILE_ROWS * ld(kp) * 2
@@ -401,7 +429,9 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
         return {"rows_per_tile": rows, "tiles": tiles,
                 "blocks": min(tiles, sm_count), "smem": smem,
                 "schedule": sched,
-                "slabs_per_tile": sum(-(-k // s) for _, _, k, _, s in sched)}
+                "slabs_per_tile": sum(-(-k // s) for _, _, k, _, s in sched),
+                "warp_grid": [warp_grid(16 if op == "ray_w1" else rows, nn)
+                              for op, _, _, nn, _ in sched]}
     m = F32_ROWS
     x = m * max(kp, g2 + g3) * 4
     if k1:
@@ -419,9 +449,25 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
             "smem": smem, "schedule": [], "slabs_per_tile": 0}
 
 
-def _check_plan(name, kernel, kp, crp, n_iter, is_bf16, n):
+def warp_grid(rows: int, n: int) -> dict:
+    """The warp grid of a bf16 product ``rows`` (64: a tile; 16: K1's
+    per-ray rows) by ``n`` columns (``csrc/decode_tile.cuh::Grid``): ``wn``
+    warps along N (at most WARPS_N for a tile, all WARPS for the per-ray
+    rows), ``wm`` along M, each ``mt`` m16 by ``nt`` n8 tiles; ``active``
+    warps own a tile, the others only meet the barriers."""
+    tm, tn = rows // 16, n // 8
+    wn = min(tn, WARPS if rows == 16 else WARPS_N)
+    wm = min(tm, WARPS // wn)
+    return {"wn": wn, "wm": wm, "mt": tm // wm, "nt": tn // wn,
+            "active": wm * wn}
+
+
+def _check_plan(name, kernel, kp, crp, n_iter, is_bf16, n, g=64):
     """Raises unless the kernel takes these widths; returns the plan."""
-    plan = decode_plan(kernel, kp, crp, n_iter, is_bf16, n)
+    if g not in DECODER_GF:
+        raise ValueError(f"{name} kernel takes imnet_gf g in {DECODER_GF} "
+                         f"(got {g})")
+    plan = decode_plan(kernel, kp, crp, n_iter, is_bf16, n, g=g)
     if kp > MAX_KP[kernel] or crp > MAX_CRP \
             or plan["smem"]["total"] > MAX_SMEM \
             or len(plan["schedule"]) > MAX_SEGS:
@@ -439,12 +485,14 @@ def _decode_operands(name, vox_table, cells, pos, ray_feat, w):
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
-    g4 = w["b1"].shape[0] // 2
     _check_cuda(name, [vox_table, cells, pos, ray_feat,
                        *(w[k] for k in _K1_WEIGHTS)], dtype)
-    if kb != 8 or g4 != 256 or w["off_w3"].shape != (128, 64):
-        raise ValueError(f"{name} kernel takes kb=8 and layer widths "
-                         f"256-128-64-1 (got kb={kb}, 4g={g4})")
+    if kb != 8:
+        raise ValueError(f"{name} kernel takes kb=8 pair slots a ray (got "
+                         f"kb={kb})")
+    for p in ("off", "prob"):
+        decoder_gf(name, w["b1"].shape[0] // 2, w[f"{p}_w2"].shape,
+                   w[f"{p}_w3"].shape)
     if vox_table.shape[1] != c_vox or ray_feat.shape != (n, c_ray) \
             or pos.shape != (n, kb, 6):
         raise ValueError(f"{name}: operand shapes do not match the weights")
@@ -466,12 +514,13 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
     kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
+    g = w["b1"].shape[0] // 8
     is_bf16 = dtype == torch.bfloat16
     if is_bf16 and c_vox % 8:
         raise ValueError(f"{name} kernel takes c_vox a multiple of 8 in "
                          f"bf16 (got {c_vox})")
     _check_plan(name, "K2all" if saves == "all" else "K1", kp, crp, n_iter,
-                is_bf16, n)
+                is_bf16, n, g)
     dev = cells.device
     off = torch.empty((n, kb), dtype=torch.float32, device=dev)
     logit = torch.empty_like(off)
@@ -485,14 +534,14 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
         # and the probability decoder's activations
         rows, inst = n * kb, n_iter + 1
         outs += [torch.empty((inst, rows, 1), dtype=torch.float32, device=dev),
-                 torch.empty((inst, rows, _G2), dtype=dtype, device=dev),
-                 torch.empty((inst, rows, _G3), dtype=dtype, device=dev),
+                 torch.empty((inst, rows, 2 * g), dtype=dtype, device=dev),
+                 torch.empty((inst, rows, g), dtype=dtype, device=dev),
                  torch.empty((rows, 1), dtype=torch.float32, device=dev)]
     ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
                            *(w[k] for k in _K1_WEIGHTS), *outs])
-    fn = cuda.bind("ray_decode", f"idt_{name}", cuda.PTR, *[cuda.I64] * 9,
+    fn = cuda.bind("ray_decode", f"idt_{name}", cuda.PTR, *[cuda.I64] * 10,
                    cuda.F32)
-    cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp, n_iter,
+    cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp, n_iter, g,
                   int(is_bf16), int(use_sigmoid), init_offset,
                   cuda.stream_ptr(dev)), name)
     if not saves:
@@ -597,7 +646,6 @@ def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
 K3_CHUNK_RAYS = 32768  # rays per chunk of the operand streams, at most
 K3_SPLIT_ROWS = 4096   # contraction rows of one Pass B block
 K3_TILE = (64, 128)    # Pass B's output tile (gradient rows, columns)
-_G1, _G2, _G3 = 256, 128, 64
 # the operand streams Pass A writes, each (rows per instance, width): rows
 # are a chunk's pair rows, or its rays for the per-ray streams
 K3_STREAMS = ("x", "de_off", "de_prob", "rf", "dre_off", "dre_prob",
@@ -607,16 +655,23 @@ _TAIL_STREAMS = ("h1", "dt2", "h2", "dt3")
 # the gradients Pass A sums per block (f32, in shared memory), in order
 K3_SMALL = ("b1", "a_vec", "c_vec", "off_b2", "off_b3", "off_w4", "off_b4",
             "prob_b2", "prob_b3", "prob_w4", "prob_b4")
-# Pass B's products: (gradient, column offset in it, A stream, B stream,
-# IEF instances (else the probability decoder's, instance 0))
-K3_JOBS = (("pair_w1", 0, "x", "de_off", False),
-           ("pair_w1", _G1, "x", "de_prob", False),
-           ("ray_w1", 0, "rf", "dre_off", False),
-           ("ray_w1", _G1, "rf", "dre_prob", False),
-           ("off_w2", 0, "h1", "dt2", True),
-           ("prob_w2", 0, "h1", "dt2", False),
-           ("off_w3", 0, "h2", "dt3", True),
-           ("prob_w3", 0, "h2", "dt3", False))
+
+
+def k3_jobs(g: int = 64) -> tuple:
+    """Pass B's products at imnet_gf ``g``: (gradient, column offset in it,
+    A stream, B stream, IEF instances (else the probability decoder's,
+    instance 0))."""
+    return (("pair_w1", 0, "x", "de_off", False),
+            ("pair_w1", 4 * g, "x", "de_prob", False),
+            ("ray_w1", 0, "rf", "dre_off", False),
+            ("ray_w1", 4 * g, "rf", "dre_prob", False),
+            ("off_w2", 0, "h1", "dt2", True),
+            ("prob_w2", 0, "h1", "dt2", False),
+            ("off_w3", 0, "h2", "dt3", True),
+            ("prob_w3", 0, "h2", "dt3", False))
+
+
+K3_JOBS = k3_jobs()  # at the default widths
 _PLAN_HEADER = 40   # int64 fields before the jobs (see csrc/ray_decode_bwd.cu)
 _JOB_FIELDS, _RED_FIELDS = 12, 9
 
@@ -625,16 +680,17 @@ def _align(x: int, a: int = 64) -> int:
     return -(-x // a) * a
 
 
-def bwd_grad_layout(kp: int, crp: int) -> Dict[str, tuple]:
+def bwd_grad_layout(kp: int, crp: int, g: int = 64) -> Dict[str, tuple]:
     """{operand: (float offset, shape)} of each weight gradient in K3's f32
-    output, in the operand order of K1/K2, each at a 64-float boundary;
-    ``"total"``: (its size, ())."""
-    shapes = {"pair_w1": (kp, 2 * _G1), "ray_w1": (crp, 2 * _G1),
-              "b1": (2 * _G1,), "a_vec": (_G1,), "c_vec": (_G1,)}
+    output (decoders of imnet_gf ``g``), in the operand order of K1/K2,
+    each at a 64-float boundary; ``"total"``: (its size, ())."""
+    g1, g2, g3 = 4 * g, 2 * g, g
+    shapes = {"pair_w1": (kp, 2 * g1), "ray_w1": (crp, 2 * g1),
+              "b1": (2 * g1,), "a_vec": (g1,), "c_vec": (g1,)}
     for p in ("off", "prob"):
-        shapes.update({f"{p}_w2": (_G1, _G2), f"{p}_b2": (_G2,),
-                       f"{p}_w3": (_G2, _G3), f"{p}_b3": (_G3,),
-                       f"{p}_w4": (_G3,), f"{p}_b4": (1,)})
+        shapes.update({f"{p}_w2": (g1, g2), f"{p}_b2": (g2,),
+                       f"{p}_w3": (g2, g3), f"{p}_b3": (g3,),
+                       f"{p}_w4": (g3,), f"{p}_b4": (1,)})
     out, off = {}, 0
     for k in _K1_WEIGHTS:
         out[k] = (off, shapes[k])
@@ -645,9 +701,13 @@ def bwd_grad_layout(kp: int, crp: int) -> Dict[str, tuple]:
 
 def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
              sm_count: int, chunk_rays: int = K3_CHUNK_RAYS,
-             split_rows: int = K3_SPLIT_ROWS, table_elems: int = 0) -> dict:
-    """The host-side arithmetic of K3 for ``n`` rays of kb = 8 pairs and a
-    voxel table of ``table_elems`` elements (rows x c_vox).
+             split_rows: int = K3_SPLIT_ROWS, table_elems: int = 0,
+             g: int = 64) -> dict:
+    """The host-side arithmetic of K3 for ``n`` rays of kb = 8 pairs, a
+    voxel table of ``table_elems`` elements (rows x c_vox) and decoders of
+    imnet_gf ``g`` (Pass B's tiles are K3_TILE at every width: a narrow
+    gradient fills part of its one tile column, the rest of the partial is
+    padding that no reduction reads).
 
     Pass A walks the rays in ``n_chunks`` chunks of at most
     ``chunk_rays`` rays (equal but for the last), tiles of ``rows_per_tile``
@@ -668,6 +728,9 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
     """
     if n < 1 or chunk_rays < 1 or split_rows < 1 or n_iter < 1:
         raise ValueError("bwd_plan: empty or invalid sizes")
+    if g not in DECODER_GF:
+        raise ValueError(f"bwd_plan: imnet_gf g in {DECODER_GF} (got {g})")
+    g1, g2, g3 = 4 * g, 2 * g, g
     m = 64 if is_bf16 else 32
     mr = m // 8
     n_chunks = -(-n // chunk_rays)
@@ -675,9 +738,9 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
     n_chunks = -(-n // chunk)
     n_inst = n_iter + 1
     rows = chunk * 8
-    widths = {"x": kp, "de_off": _G1, "de_prob": _G1, "rf": crp,
-              "dre_off": _G1, "dre_prob": _G1, "h1": _G1, "dt2": _G2,
-              "h2": _G2, "dt3": _G3}
+    widths = {"x": kp, "de_off": g1, "de_prob": g1, "rf": crp,
+              "dre_off": g1, "dre_prob": g1, "h1": g1, "dt2": g2,
+              "h2": g2, "dt3": g3}
     streams, off = {}, 0
     for name in K3_STREAMS:
         r = chunk if name in _PER_RAY_STREAMS else rows
@@ -685,10 +748,10 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         streams[name] = (off, r, widths[name], inst)
         off = _align(off + r * widths[name] * inst)
     scratch = off
-    layout = bwd_grad_layout(kp, crp)
+    layout = bwd_grad_layout(kp, crp, g)
     jobs, reds, p_off, blocks_b = [], [], 0, 0
     tk_rows, tn_cols = K3_TILE
-    for grad, col, a, b, ief in K3_JOBS:
+    for grad, col, a, b, ief in k3_jobs(g):
         _, r, kw, _ = streams[a]
         nw = streams[b][2]
         tiles_k, tiles_n = -(-kw // tk_rows), -(-nw // tn_cols)
@@ -805,7 +868,8 @@ def _stacked(ts):
 
 def _bwd_saves(saved, n, kb, g4, multires, n_iter, dtype, dev):
     """K3's save operands: (e1, z1p, trig) and, for full saves, the offsets
-    (n_iter + 1, N·kb, 1) f32, h2 (n_iter + 1, N·kb, g2), h3 and the logit
+    (n_iter + 1, N·kb, 1) f32, h2 (n_iter + 1, N·kb, g4 / 2), h3 and the
+    logit
     (N·kb, 1) f32 (instance n_iter: the final offset and the probability
     decoder's); None where the instance does not read them."""
     if saved is None:
@@ -818,9 +882,9 @@ def _bwd_saves(saved, n, kb, g4, multires, n_iter, dtype, dev):
     for name, t in sv.items():
         # the offsets and the logit are f32 columns
         c, dt = {"e1": (g4, dtype), "z1p": (g4, dtype),
-                 "trig": (12 * multires, dtype), "h2": (_G2, dtype),
-                 "h3": (_G3, dtype)}.get(name[:2] if name[0] == "h" else name,
-                                         (1, torch.float32))
+                 "trig": (12 * multires, dtype), "h2": (g4 // 2, dtype),
+                 "h3": (g4 // 4, dtype)}.get(
+                     name[:2] if name[0] == "h" else name, (1, torch.float32))
         if t.shape != (n * kb, c) or t.dtype != dt or t.device != dev:
             raise ValueError(f"ray_decode_bwd: save {name} does not match "
                              "the operands")
@@ -862,21 +926,23 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
     g4 = w["b1"].shape[0] // 2
     dev = cells.device
     saves = _bwd_saves(saved, n, kb, g4, multires, n_iter, dtype, dev)
-    if c_vox % 32 or c_vox > 256 or w["pair_w1"].shape[0] > 256:
+    kp = w["pair_w1"].shape[0]
+    if c_vox % 8 or c_vox > MAX_CVOX or kp > MAX_KP["K3"]:
         raise ValueError(f"ray_decode_bwd kernel takes c_vox a multiple of "
-                         f"32 up to 256 (got {c_vox})")
+                         f"8 up to {MAX_CVOX} and kp up to {MAX_KP['K3']} "
+                         f"(got c_vox={c_vox}, kp={kp})")
     g = torch.stack([g_off.float(), g_logit.float()], -1).contiguous()
     if g.shape != (n, kb, 2):
         raise ValueError("ray_decode_bwd: cotangents must be (N, kb)")
     kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
-    layout = bwd_grad_layout(kp, crp)
+    layout = bwd_grad_layout(kp, crp, g4 // 4)
     d_w = torch.empty((layout["total"][0],), dtype=torch.float32, device=dev)
     d_table = torch.empty(vox_table.shape, dtype=torch.float32, device=dev)
     d_rf = torch.empty((n, c_ray), dtype=torch.float32, device=dev)
     if n > 0:
         plan = bwd_plan(n, kp, crp, n_iter, dtype == torch.bfloat16,
                         cuda.sm_count(dev), K3_CHUNK_RAYS, K3_SPLIT_ROWS,
-                        vox_table.numel())
+                        vox_table.numel(), g4 // 4)
         packed = pack_bwd_plan(plan)
         scratch = torch.empty((plan["scratch_elems"],), dtype=dtype,
                               device=dev)
@@ -902,10 +968,11 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
             events.update(events=marks, plan=plan,
                           scratch_bytes=bwd_scratch_bytes(
                               plan, scratch.element_size()))
-        fn = cuda.bind("ray_decode_bwd", "idt_ray_decode_bwd", cuda.PTR,
-                       cuda.PTR, *[cuda.I64] * 10, cuda.F32, cuda.PTR)
+        fn = cuda.bind(f"ray_decode_bwd_g{g4 // 4}", "idt_ray_decode_bwd",
+                       cuda.PTR, cuda.PTR, *[cuda.I64] * 11, cuda.F32,
+                       cuda.PTR)
         cuda.check(fn(ptrs, (cuda.I64 * len(packed))(*packed), len(packed),
-                      n, c_vox, c_ray, multires, kp, crp, n_iter,
+                      n, c_vox, c_ray, multires, kp, crp, n_iter, g4 // 4,
                       int(dtype == torch.bfloat16), int(use_sigmoid),
                       init_offset, ev, cuda.stream_ptr(dev)),
                    "ray_decode_bwd")
@@ -1075,8 +1142,8 @@ def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
     c_end, c_rc, c_pos = w["dims"]
     _check_cuda("ief_decode", [end_rows, rc_rows, pos_rows,
                                *(w[k] for k in _K4_WEIGHTS)], dtype)
-    if w["w1"].shape[1] != 256 or w["w3"].shape != (128, 64):
-        raise ValueError("ief_decode kernel takes layer widths 256-128-64-1")
+    g = decoder_gf("ief_decode", w["w1"].shape[1], w["w2"].shape,
+                   w["w3"].shape)
     if end_rows.shape != (n, c_end) or rc_rows.shape != (n, c_rc) \
             or pos_rows.shape != (n, c_pos):
         raise ValueError("ief_decode: operand shapes do not match the weights")
@@ -1084,15 +1151,16 @@ def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
     if is_bf16 and c_end % 8:
         raise ValueError(f"ief_decode kernel takes c_end a multiple of 8 in "
                          f"bf16 (got {c_end})")
-    _check_plan("ief_decode", "K4", w["w1"].shape[0], 0, n_iter, is_bf16, n)
+    _check_plan("ief_decode", "K4", w["w1"].shape[0], 0, n_iter, is_bf16, n,
+                g)
     end_rows, rc_rows, pos_rows = (_aligned(t.to(dtype).contiguous())
                                    for t in (end_rows, rc_rows, pos_rows))
     out = torch.empty((n,), dtype=torch.float32, device=end_rows.device)
     ptrs = cuda.ptr_array([end_rows, rc_rows, pos_rows,
                            *(w[k] for k in _K4_WEIGHTS), out])
-    fn = cuda.bind("ief_decode", "idt_ief_decode", cuda.PTR, *[cuda.I64] * 8,
+    fn = cuda.bind("ief_decode", "idt_ief_decode", cuda.PTR, *[cuda.I64] * 9,
                    cuda.F32)
-    cuda.check(fn(ptrs, n, c_end, c_rc, c_pos, w["w1"].shape[0], n_iter,
+    cuda.check(fn(ptrs, n, c_end, c_rc, c_pos, w["w1"].shape[0], n_iter, g,
                   int(is_bf16), int(use_sigmoid), init_offset,
                   cuda.stream_ptr(end_rows.device)), "ief_decode")
     return out

@@ -1,7 +1,8 @@
 """Train, eval and vis steps of both stages (counterpart of
 ``implicit_depth_tpu/train/steps.py``: the single steps of
-``_lidf_train_core`` and ``_refine_train_core``, the one-shot
-``make_lidf_eval_step`` and ``make_refine_eval_step``, and the vis steps).
+``_lidf_train_core`` and ``_refine_train_core``, ``make_lidf_eval_step``
+(one shot, or the per-ray decode over chunks of ``tpu.eval_rays_per_chunk``
+rays), ``make_refine_eval_step`` and the vis steps).
 
 A stage-1 train step is prepare_inputs (training rays) -> LIDFModel in
 train mode (BatchNorm on batch statistics, the decode through K2/K3 on the
@@ -110,16 +111,46 @@ def make_lidf_train_step(cfg, model: LIDFModel,
     return step
 
 
+# the ray-axis inputs LIDFModel.decode_rays reads, which the chunked eval
+# splits (the JAX step's _RAY_KEYS)
+RAY_KEYS = ("miss_px", "miss_py", "miss_dir", "pair_cell", "pair_valid",
+            "t_enter", "t_exit", "pair_label")
+
+
+def chunked_forward(model: LIDFModel, inputs: Tensors, chunk: int) -> Tensors:
+    """The eval forward with the trunk run once and the per-ray decode over
+    consecutive chunks of ``chunk`` rays (the JAX step's
+    ``_chunked_forward``): the last chunk padded with zeros, the padding
+    cut from the joined outputs. Each ray's decode depends on its own rows
+    only, so the outputs are those of one shot."""
+    feat_map, vox_feat = model.trunk(inputs)
+    r = inputs["pair_valid"].shape[1]
+    n_chunks = -(-r // chunk)
+    pad = n_chunks * chunk - r
+
+    def part(x, i):  # (B, R, ...) -> (B, chunk, ...) of chunk i
+        x = x[:, i * chunk:(i + 1) * chunk]
+        if x.shape[1] < chunk:
+            x = torch.cat([x, x.new_zeros((x.shape[0], pad, *x.shape[2:]))], 1)
+        return x
+
+    outs = [model.decode_rays({**inputs, **{k: part(inputs[k], i)
+                                            for k in RAY_KEYS}},
+                              feat_map, vox_feat)
+            for i in range(n_chunks)]
+    out = {k: torch.cat([o[k] for o in outs], 1)[:, :r] for k in outs[0]}
+    return {**out, "feat_map": feat_map, "vox_feat": vox_feat}
+
+
 def make_lidf_eval_step(cfg, model: LIDFModel,
                         device: Union[str, torch.device] = "cuda"
                         ) -> Callable:
     """Returns ``eval_step(state, batch, generator) -> (inputs, outputs,
     losses)``: every pixel a ray (``mask_type``), running BatchNorm
-    statistics, no gradient, one shot (``tpu.eval_rays_per_chunk`` is not
-    ported)."""
-    if int(cfg.tpu.get("eval_rays_per_chunk", 0) or 0):
-        raise NotImplementedError("chunked eval (tpu.eval_rays_per_chunk) "
-                                  "is not ported")
+    statistics, no gradient; the per-ray decode over chunks of
+    ``tpu.eval_rays_per_chunk`` rays when that is set and below the ray
+    count (:func:`chunked_forward`), else one shot."""
+    chunk = int(cfg.tpu.get("eval_rays_per_chunk", 0) or 0)
     dev = resolve_device(device)
     model.to(dev)
 
@@ -133,7 +164,10 @@ def make_lidf_eval_step(cfg, model: LIDFModel,
                                 mask_type=cfg.mask_type,
                                 pred_mask=batch.get("pred_mask"),
                                 generator=generator, valid_idx=valid_idx)
-        out = model(inputs)
+        if chunk and chunk < inputs["pair_valid"].shape[1]:
+            out = chunked_forward(model, inputs, chunk)
+        else:
+            out = model(inputs)
         losses = lidf_loss(inputs, out, **_loss_kwargs(cfg, False, 10 ** 6,
                                                         dev))
         return inputs, out, losses
@@ -239,10 +273,7 @@ def make_refine_eval_step(cfg, lidf_model: LIDFModel,
     """Returns ``eval_step(state, batch, generator) -> (inputs, lidf_out,
     pred, losses)``: every pixel a ray (``mask_type``), both stages without
     a gradient, ``refine.forward_times`` iterations with no perturbation,
-    one shot."""
-    if int(cfg.tpu.get("eval_rays_per_chunk", 0) or 0):
-        raise NotImplementedError("chunked eval (tpu.eval_rays_per_chunk) "
-                                  "is not ported")
+    one shot (the JAX step reads no ``tpu.eval_rays_per_chunk`` either)."""
     dev = resolve_device(device)
     lidf = _frozen(lidf_model, dev)
     refine_model.to(dev)

@@ -1,0 +1,192 @@
+"""Time the decode kernels K1, K2 ('l1' and 'all'), K3 (its three
+instances), K4 and K6 (``global`` with its row count, and dense) at the
+default decoder widths (imnet_gf 64) and the main path's shapes, beside
+another version of the port, on one NVIDIA GPU.
+
+    python3 implicit_depth_torch/utils/time_decodes.py [--baseline DIR]
+        [--rounds 1] [--out build/time_decodes.json]
+
+The operands are drawn from a seed with numpy, the same in every version:
+K1 and K4 on a served 480x640 frame (76,800 rays of kb = 8 pair slots;
+76,800 refine rows), K2 and K3 on a training step of batch 4 (80,000 rays),
+K6 on the frame's 614,400 ``global`` rows (budget 8) with 215,040 of them
+below the row count, and on its 1,536,000 dense rows (K = 20). Each version
+times them in a process of its own, which imports that version's package
+from its root (``DIR`` is another checkout's root, e.g. ``git archive
+<commit>`` unpacked under ``build/``), builds its kernels there and
+prepares the weights with its own functions, so the C interfaces may
+differ: the median of 10 CUDA-event times after 2 warm-ups, bf16. The
+versions run in turns, baseline first (baseline, this tree, this tree,
+baseline), ``--rounds`` times. Writes ``--out`` and prints each kernel's
+times and this tree's over the baseline's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+THIS_ROOT = Path(__file__).resolve().parents[2]
+SEED = 0
+# the default model's widths
+C_VOX, C_ROI, C_DIR, MULTIRES, GF4 = 128, 128, 27, 8, 256
+C_END, C_POS = 128, 51
+SERVE_RAYS, TRAIN_RAYS, CELLS, KB = 76800, 80000, 729, 8
+GLOBAL_ROWS, GLOBAL_COUNT, DENSE_SLOTS = 614400, 215040, 20
+
+
+def _mlp(rng, w, prefix, in_dim):
+    dims = [(in_dim, GF4), (GF4, GF4 // 2), (GF4 // 2, GF4 // 4),
+            (GF4 // 4, 1)]
+    for i, (a, b) in enumerate(dims, 1):
+        w[f"{prefix}w{i}"] = rng.normal(size=(a, b)) / a ** 0.5
+        w[f"{prefix}b{i}"] = 0.1 * rng.normal(size=(b,))
+
+
+def _time(fn, warmup=2, reps=10):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def worker():
+    """Times every kernel with the package on sys.path; prints one JSON
+    line {kernel: ms}."""
+    import numpy as np
+    import torch
+
+    from implicit_depth_torch.ops import cuda
+    from implicit_depth_torch.ops import pair_decode as pd
+    from implicit_depth_torch.ops import ray_decode as rd
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    cuda.build_all()
+    rng = np.random.default_rng(SEED)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a)).to(dev, dtype)
+
+    c_embed = C_VOX + C_ROI + 6 * (1 + 2 * MULTIRES) + C_DIR
+    w = {"off_enc_w": rng.normal(size=(1, 16)),
+         "off_enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp(rng, w, "off_", c_embed + 16)
+    _mlp(rng, w, "prob_", c_embed)
+    w = {k: t(v) for k, v in w.items()}
+    k1w = rd.prep_ray_decode_weights(w, C_VOX, C_ROI, C_DIR, MULTIRES, bf)
+
+    def rays(n, images):
+        return (t(rng.normal(size=(images * CELLS, C_VOX)), bf),
+                t(rng.integers(0, images * CELLS, (n, KB)), torch.int32),
+                t(0.6 * rng.normal(size=(n, KB, 6))),
+                t(rng.normal(size=(n, C_ROI + C_DIR)), bf))
+
+    out = {}
+    serve = rays(SERVE_RAYS, 1)
+    out["K1"] = _time(lambda: rd.ray_decode(*serve, k1w))
+    train = rays(TRAIN_RAYS, 4)
+    cot = (t(rng.normal(size=(TRAIN_RAYS, KB))),
+           t(rng.normal(size=(TRAIN_RAYS, KB))))
+    out["K2 l1"] = _time(lambda: rd.ray_decode_save(*train, k1w))
+    out["K2 all"] = _time(lambda: rd.ray_decode_save_all(*train, k1w))
+    for name, saved in (("K3 from l1 saves", rd.ray_decode_save(*train,
+                                                                k1w)[2]),
+                        ("K3 from full saves",
+                         rd.ray_decode_save_all(*train, k1w)[2]),
+                        ("K3 recompute", None)):
+        out[name] = _time(lambda: rd.ray_decode_bwd(*train, k1w, saved, *cot),
+                          reps=5)
+    del train, cot
+    iw = {"enc_w": rng.normal(size=(1, 16)),
+          "enc_b": 0.1 * rng.normal(size=(16,))}
+    c_rc = C_ROI + C_DIR
+    _mlp(rng, iw, "", C_END + c_rc + C_POS + 16)
+    k4w = rd.prep_ief_weights({k: t(v) for k, v in iw.items()}, C_END, c_rc,
+                              C_POS, C_DIR, bf)
+    rows = tuple(t(rng.normal(size=(SERVE_RAYS, c)), bf)
+                 for c in (C_END, c_rc, C_POS))
+    out["K4"] = _time(lambda: rd.ief_decode(*rows, k4w))
+    k6w = pd.prep_pair_decode_weights(w, C_VOX, C_ROI, C_DIR, MULTIRES, bf)
+    table, ray_feat = serve[0], serve[3]
+    for name, p, indexed, count in (
+            ("K6 global", GLOBAL_ROWS, True, GLOBAL_COUNT),
+            ("K6 dense", SERVE_RAYS * DENSE_SLOTS, False, None)):
+        args = (table, t(rng.integers(0, CELLS, p), torch.int32),
+                t(0.6 * rng.normal(size=(p, 6))), ray_feat, k6w,
+                t(rng.integers(0, SERVE_RAYS, p), torch.int32)
+                if indexed else None)
+        kw = {} if count is None else {
+            "n_rows": torch.tensor(count, dtype=torch.int32, device=dev)}
+        out[name] = _time(lambda: pd.pair_decode(*args, **kw))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "ms": out}),
+          flush=True)
+
+
+def run_version(root: Path) -> dict:
+    """One worker process with the package of ``root``."""
+    code = ("import sys; sys.path.insert(0, %r); "
+            "sys.argv = ['time_decodes', '--worker']; __file__ = %r; "
+            "exec(open(__file__).read())") % (str(root), __file__)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root)
+    if res.returncode != 0:
+        raise RuntimeError(f"{root}: exit {res.returncode}\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--worker", action="store_true",
+                    help="time with the package on sys.path (internal)")
+    ap.add_argument("--baseline", type=Path, default=None)
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+    if args.worker:
+        worker()
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    versions = {"this": THIS_ROOT}
+    if args.baseline:
+        versions["baseline"] = args.baseline.resolve()
+    order = (["baseline", "this", "this", "baseline"] if args.baseline
+             else ["this"]) * args.rounds
+    runs = {v: [] for v in versions}
+    for v in order:
+        got = run_version(versions[v])
+        runs[v].append(got["ms"])
+        print(v, json.dumps(got["ms"]), flush=True)
+    summary = {}
+    for k in runs["this"][0]:
+        row = {v: [r[k] for r in rs] for v, rs in runs.items()}
+        if "baseline" in row:
+            row["this_over_baseline"] = (statistics.mean(row["this"])
+                                         / statistics.mean(row["baseline"]))
+        summary[k] = row
+        print(k, json.dumps(row), flush=True)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": smi, "runs": runs,
+                                        "summary": summary}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

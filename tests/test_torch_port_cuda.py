@@ -85,15 +85,17 @@ def test_ray_decode_kernel_matches_plain(dev, dtype):
     assert rd.ray_decode.launches == before + 1
 
 
-def _pair_case(rng, dev, dtype, p, n_rays, indexed):
-    """K6's operands at the default widths: P rows over ``n_rays`` rays (the
-    dense layout when not ``indexed``: P / n_rays consecutive rows a ray)."""
-    cv, c_roi, c_dir = 128, 128, 27
+def _pair_case(rng, dev, dtype, p, n_rays, indexed, cv=128, c_roi=128,
+               gf=64):
+    """K6's operands (the default widths unless given): P rows over
+    ``n_rays`` rays (the dense layout when not ``indexed``: P / n_rays
+    consecutive rows a ray)."""
+    c_dir = 27
     c_embed = cv + c_roi + 102 + c_dir
     w = {"off_enc_w": rng.normal(size=(1, 16)),
          "off_enc_b": 0.1 * rng.normal(size=(16,))}
-    _mlp_weights(rng, "off_", c_embed + 16, 256, w)
-    _mlp_weights(rng, "prob_", c_embed, 256, w)
+    _mlp_weights(rng, "off_", c_embed + 16, 4 * gf, w)
+    _mlp_weights(rng, "prob_", c_embed, 4 * gf, w)
     for pre, bias in (("off_", 0.25), ("prob_", 0.5)):  # outputs in (0, 1)
         w[f"{pre}w4"] *= 0.25
         w[f"{pre}b4"] = np.full((1,), bias)
@@ -225,12 +227,12 @@ def test_depth_completer_card_matches_cpu(dev):
 # -- stage-1 training: K2, K3, the K5 gradient, a train step ------------------
 
 def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
-                 n_table=30):
+                 n_table=30, gf=64):
     c_embed = cv + c_roi + 102 + c_dir
     w = {"off_enc_w": rng.normal(size=(1, 16)),
          "off_enc_b": 0.1 * rng.normal(size=(16,))}
-    _mlp_weights(rng, "off_", c_embed + 16, 256, w)
-    _mlp_weights(rng, "prob_", c_embed, 256, w)
+    _mlp_weights(rng, "off_", c_embed + 16, 4 * gf, w)
+    _mlp_weights(rng, "prob_", c_embed, 4 * gf, w)
     for pre, bias in (("off_", 0.25), ("prob_", 0.5)):  # outputs in (0, 1)
         w[f"{pre}w4"] *= 0.25
         w[f"{pre}b4"] = np.full((1,), bias)
@@ -262,10 +264,10 @@ def test_ray_decode_save_kernel_matches_plain(dev, dtype):
         _close(got, want, ATOL[dtype])
 
 
-def _ief_case(rng, dev, dtype, n):
-    c_end, c_rc, c_pos, c_dir = 128, 155, 51, 27
+def _ief_case(rng, dev, dtype, n, c_end=128, c_rc=155, gf=64):
+    c_pos, c_dir = 51, 27
     w = {"enc_w": rng.normal(size=(1, 16)), "enc_b": 0.1 * rng.normal(size=(16,))}
-    _mlp_weights(rng, "", c_end + c_rc + c_pos + 16, 256, w)
+    _mlp_weights(rng, "", c_end + c_rc + c_pos + 16, 4 * gf, w)
     pw = rd.prep_ief_weights({k: _t(v, dev) for k, v in w.items()}, c_end,
                              c_rc, c_pos, c_dir, DTYPES[dtype])
     return tuple(_t(rng.normal(size=(n, c)), dev, DTYPES[dtype])
@@ -366,26 +368,28 @@ def test_save_all_decodes_at_edge_sizes(dev, dtype, size):
 
 def test_decode_plan_is_the_kernels_layout(dev):
     """ops/ray_decode.py::decode_plan's shared memory is the kernels' own
-    (each C library reports its layout's size): K1, K2 'all', K4, K6."""
+    (each C library reports its layout's size): K1, K2 'all', K4, K6, at
+    every imnet_gf the kernels are compiled for."""
     k1 = cuda.library("ray_decode").idt_ray_decode_smem
     k2all = cuda.library("ray_decode").idt_ray_decode_save_all_smem
     k4 = cuda.library("ief_decode").idt_ief_decode_smem
     k6 = cuda.library("pair_decode").idt_pair_decode_smem
-    k1.argtypes = k2all.argtypes = [cuda.I64] * 3
-    k4.argtypes = k6.argtypes = [cuda.I64] * 2
+    k1.argtypes = k2all.argtypes = [cuda.I64] * 4
+    k4.argtypes = k6.argtypes = [cuda.I64] * 3
     k1.restype = k2all.restype = k4.restype = k6.restype = ctypes.c_longlong
-    for bf16 in (True, False):
-        for kp, crp in ((240, 160), (256, 256), (32, 16)):
-            assert k1(kp, crp, bf16) == rd.decode_plan(
-                "K1", kp, crp, is_bf16=bf16)["smem"]["total"]
-            assert k2all(kp, crp, bf16) == rd.decode_plan(
-                "K2all", kp, crp, is_bf16=bf16)["smem"]["total"]
-        for kp in (336, 384, 16):
-            assert k4(kp, bf16) == rd.decode_plan(
-                "K4", kp, is_bf16=bf16)["smem"]["total"]
-        for kp in (400, rd.MAX_KP["K6"], 16):
-            assert k6(kp, bf16) == rd.decode_plan(
-                "K6", kp, is_bf16=bf16)["smem"]["total"]
+    for g in rd.DECODER_GF:
+        for bf16 in (True, False):
+            for kp, crp in ((240, 160), (256, 256), (368, 160), (32, 16)):
+                assert k1(kp, crp, g, bf16) == rd.decode_plan(
+                    "K1", kp, crp, is_bf16=bf16, g=g)["smem"]["total"]
+                assert k2all(kp, crp, g, bf16) == rd.decode_plan(
+                    "K2all", kp, crp, is_bf16=bf16, g=g)["smem"]["total"]
+            for kp in (336, 384, 16):
+                assert k4(kp, g, bf16) == rd.decode_plan(
+                    "K4", kp, is_bf16=bf16, g=g)["smem"]["total"]
+            for kp in (400, rd.MAX_KP["K6"], 16):
+                assert k6(kp, g, bf16) == rd.decode_plan(
+                    "K6", kp, is_bf16=bf16, g=g)["smem"]["total"]
 
 
 def _rel_norm(a, b):
@@ -475,6 +479,119 @@ def test_ray_decode_bwd_d_vox_table_is_deterministic(dev, dtype, saves_of,
         again = rd.ray_decode_bwd(*args, w, saves, *cot)
         assert torch.equal(again[0], first[0])
         assert torch.equal(again[1], first[1])
+
+
+# -- the decoders' other widths: imnet_gf 32 (the smoke and convergence
+# configs: 128-64-32-1, pnet_out 64, rgb_out 16) and 8 (the tiny CLI model:
+# 32-16-8-1; pnet_out 40, not a multiple of 16, exercises the narrow table)
+WIDTHS = {32: {"cv": 64, "c_roi": 64}, 8: {"cv": 40, "c_roi": 32}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gf", list(WIDTHS))
+def test_forward_decodes_at_every_width(dev, dtype, gf):
+    """K1, K2 (both save modes), K4 and K6 (``global`` rows and the dense
+    layout) at imnet_gf 32 and 8 against their plain versions, over more
+    tiles than one round of the persistent bf16 grid: K2's outputs are
+    K1's bits, two launches give the same bits."""
+    n = 8 * 132 * 2 + 5
+    rng = np.random.default_rng(40 + gf)
+    wd = WIDTHS[gf]
+    w32, args, _ = _decode_case(rng, dev, dtype, n=n, gf=gf, **wd)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    counts = (rd.ray_decode.launches, rd.ray_decode_save.launches,
+              rd.ray_decode_save_all.launches)
+    k1, again = rd.ray_decode(*args, w), rd.ray_decode(*args, w)
+    off, logit, saves = rd.ray_decode_save(*args, w)
+    off_a, logit_a, saves_a = rd.ray_decode_save_all(*args, w)
+    assert (rd.ray_decode.launches, rd.ray_decode_save.launches,
+            rd.ray_decode_save_all.launches) == (counts[0] + 2, counts[1] + 1,
+                                                 counts[2] + 1)
+    ref = rd.ray_decode_plain(*args, w, saves="all")
+    torch.cuda.synchronize()
+    for a, b in zip(k1, again):
+        assert torch.equal(a, b)
+    for o in ((off, logit), (off_a, logit_a)):
+        assert torch.equal(o[0], k1[0]) and torch.equal(o[1], k1[1])
+    _close(k1, ref[:2], ATOL[dtype])
+    for got, want in zip(saves, ref[2][:3]):
+        _save_close(got, want, dtype)
+    for name, got, want in zip(rd.save_names(2, "all"), saves_a, ref[2]):
+        assert got.shape == want.shape, name
+        if name == "off0":
+            assert torch.equal(got, want)
+        elif name.startswith("off") or name == "logit":
+            _close(got, want, ATOL[dtype])
+        else:
+            _save_close(got, want, dtype)
+    rows, pw = _ief_case(rng, dev, dtype, 8 * n, c_end=wd["cv"],
+                         c_rc=wd["c_roi"] + 27, gf=gf)
+    before = rd.ief_decode.launches
+    got = rd.ief_decode(*rows, pw)
+    assert rd.ief_decode.launches == before + 1
+    assert torch.equal(got, rd.ief_decode(*rows, pw))
+    _close(got, rd.ief_decode_plain(*rows, pw), ATOL[dtype])
+    for indexed in (True, False):
+        case = _pair_case(rng, dev, dtype, 20 * 846, 846, indexed, gf=gf,
+                          **wd)
+        before = pd.pair_decode.launches
+        got = pd.pair_decode(*case)
+        assert pd.pair_decode.launches == before + 1
+        _close(got, pd.pair_decode_plain(*case), ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gf", list(WIDTHS))
+@pytest.mark.parametrize("saves_of", ["l1", None, "all"])  # each K3 instance
+def test_ray_decode_bwd_at_every_width(dev, dtype, gf, saves_of,
+                                       monkeypatch):
+    """K3's three instances at imnet_gf 32 and 8 against their plain
+    versions (the tolerances of test_ray_decode_bwd_kernel_matches_plain),
+    over several chunks and Pass B splits; a second launch gives the same
+    bits of every gradient, d_vox_table included."""
+    monkeypatch.setattr(rd, "K3_CHUNK_RAYS", 1500)
+    monkeypatch.setattr(rd, "K3_SPLIT_ROWS", 1000)
+    rng = np.random.default_rng(50 + gf)
+    w32, args, cot = _decode_case(rng, dev, dtype, n=4000, gf=gf,
+                                  **WIDTHS[gf])
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    saves = _k2_saves(args, w, saves_of)
+    before = rd.ray_decode_bwd.launches
+    d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
+    assert rd.ray_decode_bwd.launches == before + 1
+    ref = rd.ray_decode_bwd_plain(*args, w32, *cot, dtype=DTYPES[dtype],
+                                  saved=saves)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    got = {"d_table": d_tab, "d_ray_feat": d_rf, **d_w}
+    want = {"d_table": ref[0], "d_ray_feat": ref[1], **ref[2]}
+    for k, g in got.items():
+        assert g.shape == want[k].shape and torch.isfinite(g).all(), k
+        assert _rel_norm(g, want[k]) <= tol, (k, _rel_norm(g, want[k]))
+    again = rd.ray_decode_bwd(*args, w, saves, *cot)
+    assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_rf)
+    for k in d_w:
+        assert torch.equal(again[2][k], d_w[k]), k
+
+
+def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev):
+    """imnet_gf 24 (96-48-24-1): every decode wrapper names the widths it
+    takes."""
+    rng = np.random.default_rng(60)
+    w32, args, cot = _decode_case(rng, dev, "bfloat16", n=10, gf=24)
+    w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
+    for fn in (rd.ray_decode, rd.ray_decode_save, rd.ray_decode_save_all):
+        with pytest.raises(ValueError,
+                           match=r"imnet_gf g in \(8, 16, 32, 64\)"):
+            fn(*args, w)
+    with pytest.raises(ValueError, match="imnet_gf g in"):
+        rd.ray_decode_bwd(*args, w, None, *cot)
+    rows, pw = _ief_case(rng, dev, "bfloat16", 10, gf=24)
+    with pytest.raises(ValueError, match="imnet_gf g in"):
+        rd.ief_decode(*rows, pw)
+    case = _pair_case(rng, dev, "bfloat16", 40, 2, True, gf=24)
+    with pytest.raises(ValueError, match="imnet_gf g in"):
+        pd.pair_decode(*case)
 
 
 @pytest.mark.parametrize("decode_bwd", ["kernel_save", "kernel",
