@@ -176,7 +176,32 @@ Phases:
  29. configs/convergence_refine.yaml behind 27's checkpoint, cut by
      ``--set`` to one epoch of 2 steps: per step K1 1, K4 2, K5 10, per
      eval frame as a served frame; the frozen stage 1 bit for bit its
-     checkpoint. Then the seconds of phases 2-29.
+     checkpoint.
+ 30-32. the mesh's rays axis: RAYS_WORLD ranks of a gloo group on this
+     card at data 1 x rays 2 (mesh.use_layout; each rank a process of
+     RAYS_LAUNCHER, cuDNN deterministic), and DepthCompleter on a grid;
+ 30. on each rank, bf16 stage-1 and stage-2 steps of the full model
+     (phase 6's and phase 13's, a global batch of RAYS_BATCH image at
+     240x320, 1,000 of its 2,000 rays a rank: RAYS_GRID_SET): launches
+     per rank per step K2 1, K3 1, K5
+     2 and K1 1, K4 2, K5 10; the calls each kernel got on the rank's block
+     (K2, K3, K5, K1 of the frozen stage 1, K4 with its gradient) against
+     their plain versions at phases 3, 7 and 13's tolerances; then one f32
+     step (one ResNet block a stage, as phase 23) against one process on
+     the same batch: the ranks' loss shares summed within 1e-4, each
+     gradient at phase 8's limits;
+ 31. configs/test_lidf.yaml through the CLI's trainer on those ranks from
+     a unit-scale checkpoint: validation and the test CSV, each eval
+     frame's 76,800 rays split (K1 once a frame and rank over 38,400 rays,
+     K5 2); every eval output and the CSV the bits of one process's, rank
+     1 writing nothing;
+ 32. DepthCompleter(mesh=[[card, card]]) on 480x640 frames in the
+     per_ray, global and dense modes: K1 or K6 on a device's block and K4,
+     K5 of a recorded frame against their plain versions; per frame K1 or
+     K6 2, K4 2, K5 12; the completed depth and the prediction the bits of
+     one card's, frame_ms beside one card's. With 2 or more cards, 30-31
+     again under NCCL (one card a rank) and 32 on a grid of two cards,
+     else ``rays_2card: not run``. Then the seconds of phases 2-32.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -642,11 +667,13 @@ def segment_as_f32(name, a):
     return d.detach().float(), ids, ns, v
 
 
-def forward_rows(recorded, as_f32, dev, tols=TOL):
+def forward_rows(recorded, as_f32, dev, tols=TOL,
+                 dtypes=(torch.bfloat16, torch.float32)):
     """Each recorded call ({(name, shapes): (args, kwargs)}) in bf16 (as
-    recorded) and f32 (``as_f32(name, args)``): max |kernel - plain| against
-    ``tols``, which must lie BITE times below the outputs' spread; times;
-    bound. Returns the row of each kernel at its largest bf16 shape."""
+    recorded) and f32 (``as_f32(name, args)``), or in ``dtypes``: max
+    |kernel - plain| against ``tols``, which must lie BITE times below the
+    outputs' spread; times; bound. Returns the row of each kernel at its
+    largest shape in the first of ``dtypes``."""
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     from implicit_depth_torch.ops import segment
@@ -659,7 +686,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
     entries = {}
     for (name, shape), (a0, kw) in sorted(recorded.items()):
         kern = getattr(*mods[name])
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in dtypes:
             a = a0 if dt == torch.bfloat16 else as_f32(name, a0)
             got, ref = kern(*a, **kw), plain[name](*a, **kw)
             torch.cuda.synchronize()
@@ -721,7 +748,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL):
                                          "kernel_device_ms",
                                          "library_device_ms")})
             # the JSON line carries the main path's dtype at its largest shape
-            if dt == torch.bfloat16:
+            if dt == dtypes[0]:
                 size = shape[0][0] * (shape[0][1] if len(shape[0]) > 1 else 1)
                 if name not in entries or size >= entries[name][0]:
                     entries[name] = (size, row)
@@ -1761,14 +1788,15 @@ def refine_train_path(cfg, lidf, refine, dev, steps, profile=False,
             "device_ms": device}
 
 
-def refine_k4_row(recorded, dev):
+def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32)):
     """Phase 13's K4 checks on the recorded inputs of K4's training entry
     (one refine iteration's rows), in bf16 (as recorded) and f32: the
     kernel against ``ief_decode_plain`` (``forward_rows``, phase 3's
     tolerances), and the training decode's gradients (``IefDecodeTrain``:
     K4 forward, autograd of the plain decode recomputed) against autograd
-    of ``ief_decode_plain`` on the same inputs, with the backward's time.
-    Returns the bf16 row."""
+    of ``ief_decode_plain`` on the same inputs, with the backward's time
+    (the forward in ``dtypes`` only, the gradient in both). Returns the
+    forward's row in the first of ``dtypes``."""
     from implicit_depth_torch.ops import ray_decode as rd
 
     (_, shape), (a, kw) = next((k, v) for k, v in recorded.items()
@@ -1783,7 +1811,7 @@ def refine_k4_row(recorded, dev):
                 rd.cast_ief_operands(w32, torch.float32))
 
     with torch.inference_mode():
-        row = forward_rows(call, as_f32, dev)["ief_decode"]
+        row = forward_rows(call, as_f32, dev, dtypes=dtypes)["ief_decode"]
     g = torch.randn(end.shape[0], device=dev,
                     generator=torch.Generator(device=dev).manual_seed(SEED))
     row["grad"] = {}
@@ -2095,7 +2123,7 @@ def cli(dev, stage, workdir, *sets, make=False):
     (TRAINER_CONFIGS), logging into ``workdir``: the trainer it ran (or,
     with ``make``, built and did not run)."""
     from implicit_depth_torch import main as cli_main
-    argv = ["--device", dev.type, "--cfg_paths", TRAINER_CONFIGS[stage],
+    argv = ["--device", str(dev), "--cfg_paths", TRAINER_CONFIGS[stage],
             "--set", f"base_log_dir={workdir}", "log_name=run", *TRAINER_SET,
             *sets]
     return (cli_main.make_trainer if make else cli_main.main)(argv)
@@ -3095,6 +3123,414 @@ def parallel_phases(dev, workdir, stage1_ckpt):
     return rows, times
 
 
+# -- the mesh's rays axis (phases 30-32) -------------------------------------
+# 30-31: RAYS_WORLD gloo ranks on this card at data 1 x rays 2, each a
+# process of RAYS_LAUNCHER running rays_rank; 32: DepthCompleter on a grid
+RAYS_WORLD = 2
+RAYS_BATCH = 1          # the global batch of the bare steps: data 1 x rays 2
+RAYS_STEPS = 2
+# 30's ray slots an image, cut from 20,000: the synthetic training images
+# hold 800-7,066 corrupted pixels (the ray window's), so of 20,000 slots
+# the second rank's block would hold no ray, and no tolerance could bite on
+# its constant outputs. The warm-up step's image holds 5,673; at 4,000
+# slots the second block's rays (slots 2,000-3,999) met few occupied
+# voxels and K4's outputs there spread 8.3e-4, below what its tolerance
+# can bite on (H100); 2,000 slots give each rank 1,000 rays of the window's
+# start
+RAYS_GRID_SET = {"grid": {"miss_sample_num": 2000}}
+RAYS_TIMEOUT_S = 400
+# 31: configs/test_lidf.yaml from phase 30's unit-scale checkpoint
+RAYS_TEST_SET = ["dataset.synthetic_len=4"]
+RAYS_GRID_FRAMES = 2
+# per served frame on a 1 x 2 grid of one card: K1 (or K6) once a device,
+# the stage-1 PointNet's 2 pools a device, the RefineNet on the first
+# device as on one card
+EXPECT_PER_GRID_FRAME = {
+    "per_ray": {"ray_decode": 2, "pair_decode": 0, "ief_decode": 2,
+                "segment_max0": 12},
+    "global": {"ray_decode": 0, "pair_decode": 2, "ief_decode": 2,
+               "segment_max0": 12},
+    "dense": {"ray_decode": 0, "pair_decode": 2, "ief_decode": 2,
+              "segment_max0": 12}}
+# a rank: cuDNN's deterministic algorithms and no TF32 (as the trainer
+# phases run), joins the group from torchrun's variables on the card
+# argv[3] (empty: cuda:LOCAL_RANK) under the backend argv[4], runs
+# rays_rank(argv[1], argv[2]) and leaves the group
+RAYS_LAUNCHER = r"""
+import sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from implicit_depth_torch.parallel import mesh
+
+mesh.init_from_env(sys.argv[3] or None, sys.argv[4],
+                   timeout_s=chip_smoke.RAYS_TIMEOUT_S)
+try:
+    chip_smoke.rays_rank(sys.argv[1], sys.argv[2])
+finally:
+    mesh.shutdown()
+"""
+
+
+def rays_models(dev, f32=False):
+    """Phase 6's stage-1 model (``f32``: in f32, one ResNet block a stage,
+    as phase 23 cuts it) and its config, the seeded unit-scale weights."""
+    from implicit_depth_torch.builder import (
+        build_lidf,
+        build_static,
+        randomize_weights_,
+    )
+    from implicit_depth_torch.config import load_config
+    over = {**copy.deepcopy(TRAIN_OVERRIDES), **RAYS_GRID_SET}
+    if f32:
+        over.setdefault("tpu", {})["compute_dtype"] = "float32"
+        over.setdefault("model", {})["resnet_stages"] = [1, 1, 1, 1]
+    cfg = load_config(overrides=over)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = randomize_weights_(build_lidf(cfg, build_static(cfg), gen), gen)
+    return cfg, model.to(dev)
+
+
+def rays_f32_step(dev):
+    """One f32 stage-1 step (``rays_models(f32=True)``) of the global batch
+    of RAYS_BATCH: the losses (the rank's shares) and the summed
+    gradients."""
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+    cfg, model = rays_models(dev, f32=True)
+    state = TrainState.create(model, cfg.training, steps_per_epoch=1000)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = train_batches(1, cfg, RAYS_BATCH, dev)[0]
+    losses = make_lidf_train_step(cfg, model, dev)(state, batch, gen, 0)
+    return ({k: v.item() for k, v in losses.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def rays_k1_rows(lidf, run, dev):
+    """K1 on the calls ``run()`` gives the stage-1 model's decode, against
+    ``ray_decode_plain`` in f32 (phase 3's tolerance; see rays_stage2)."""
+    from implicit_depth_torch.models import lidf as lidf_mod
+    from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import ray_decode as rd
+    f32w = rd.prep_ray_decode_weights(
+        decoder_weights(lidf.offset_dec, lidf.prob_dec), lidf.dims["c_vox"],
+        lidf.dims["c_roi"], lidf.dims["c_dir"], lidf.multires, torch.float32)
+    calls = record_calls({"ray_decode": (lidf_mod, "ray_decode")}, run)
+
+    def as_f32(name, a):
+        vt, cells, pos, rf, _ = a
+        return vt.float(), cells, pos, rf.float(), f32w
+
+    with torch.inference_mode():
+        return forward_rows(calls, as_f32, dev,
+                            dtypes=(torch.float32,))["ray_decode"]
+
+
+def rays_eval(tr):
+    """The validation and test of trainer ``tr`` (each eval frame's rays
+    split over the ranks), with each kernel's launches from 0: returns
+    (launches, every eval output, the median host-clock ms of an eval
+    step, from its call to a device synchronization)."""
+    outs, ms = [], []
+    real = tr._eval
+
+    def keep(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs, pred, losses = real(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(pred.detach().cpu())
+        return inputs, pred, losses
+
+    tr._eval = keep
+    _, launches = counted(lambda: (tr.validate(0), tr.test()))
+    tr._eval = real
+    return launches, outs, statistics.median(ms)
+
+
+def rays_stage2(dev):
+    """Phase 13's stage-2 steps on this rank's block (refine_train_path:
+    launches per step, every refine parameter moved, the frozen stage 1 bit
+    for bit), the recorded calls of K1 (the frozen stage 1), K4 (its
+    training entry, with its gradient) and K5 against their plain versions.
+    K1's and K4's forwards are held in f32 only (tolerance 1e-5, which
+    bites). In bf16, on an H100: K4's outputs on a block of 1,000 training
+    rays (offsets near 0.25) spread 7e-4 to 9e-4, less than a bf16 ulp
+    there, so that no bf16 tolerance can bite (on the CPU, 1e-3 to 8e-3 at
+    batch 1 and 3; phase 13's check bites on its 80,000 rows through the
+    window's padding slots, whose outputs stand apart), and K1 on a block
+    of 2,000 rays differed from its plain version by 4.76e-3, past the
+    serving frames' 4e-3. Returns the launches and the rows' errors."""
+    from implicit_depth_torch.config import load_config
+    cfg = load_config(overrides={**REFINE_OVERRIDES, **RAYS_GRID_SET})
+    lidf, refine = (m.to(dev) for m in build_models(cfg, train=True))
+    run = {}
+    k1 = rays_k1_rows(lidf, lambda: run.update(refine_train_path(
+        cfg, lidf, refine, dev, TRAIN_STEPS)), dev)
+    k4 = refine_k4_row(run["recorded"], dev, dtypes=(torch.float32,))
+    k5 = segment_train_phase(
+        {k: v for k, v in run["recorded"].items() if k[0] == "segment_max0"},
+        dev)
+    return {"launches": run["launches"],
+            "rows": {name: {"max_abs_err": r["max_abs_err"],
+                            "shape": r["shape"], "dtype": r["dtype"]}
+                     for name, r in (("ray_decode", k1), ("ief_decode", k4),
+                                     ("segment_max0", k5))}}
+
+
+def rays_rank(out_path, workdir):
+    """One rank of phases 30-31, writing its results to ``out_path``
+    (torch.save): bf16 stage-1 and stage-2 steps of the full model on the
+    rank's block of the rays (TRAIN_STEPS steps a stage, launches per step
+    counted, each kernel's recorded calls on the block against its plain
+    version), one f32 step for the comparison with one process, then the
+    validation and test of configs/test_lidf.yaml through the CLI's
+    trainer."""
+    from implicit_depth_torch.parallel import mesh
+    global TRAIN_BATCH, TRAIN_STEPS
+    TRAIN_BATCH, TRAIN_STEPS = RAYS_BATCH, RAYS_STEPS
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lay = mesh.use_layout(RAYS_BATCH)
+    log(f"rays rank {mesh.rank()}: layout data {lay.data} x rays {lay.rays} "
+        f"at data {lay.data_index}, rays {lay.ray_index}")
+    out = {"layout": (lay.data, lay.rays, lay.data_index, lay.ray_index)}
+    # -- 30: bf16 stage 1 ---------------------------------------------------
+    cfg, model = rays_models(dev)
+    recorded, launches, step_ms = train_path(cfg, model, dev)
+    rows = train_kernel_phase(recorded)
+    rows["segment_max0"] = segment_train_phase(recorded["segment_max0"], dev)
+    out["stage1"] = {"launches": launches, "step_ms": step_ms,
+                     "rows": {k: {"max_abs_err": r["max_abs_err"],
+                                  "shape": r["shape"]}
+                              for k, r in rows.items()}}
+    del model, recorded
+    torch.cuda.empty_cache()
+    # -- 30: bf16 stage 2 ----------------------------------------------------
+    out["stage2"] = rays_stage2(dev)
+    torch.cuda.empty_cache()
+    # -- 30: f32 against one process -------------------------------------
+    out["f32"] = rays_f32_step(dev)
+    torch.cuda.empty_cache()
+    # -- 31: validation and the test CSV through the CLI's trainer --------
+    tr = cli(dev, "test", pathlib.Path(workdir) / f"rank{mesh.rank()}",
+             f"checkpoint_path={pathlib.Path(workdir) / 'ckpt'}",
+             *RAYS_TEST_SET, make=True)
+    out["eval"] = rays_eval(tr)
+    torch.save(out, out_path)
+
+
+def rays_one_step_ms(dev):
+    """Median host-clock ms of phase 30's bf16 stage-1 step in one process
+    (no group): RAYS_STEPS steps of RAYS_BATCH image after a warm-up."""
+    global TRAIN_BATCH, TRAIN_STEPS
+    saved = TRAIN_BATCH, TRAIN_STEPS
+    TRAIN_BATCH, TRAIN_STEPS = RAYS_BATCH, RAYS_STEPS
+    try:
+        cfg, model = rays_models(dev)
+        _, _, step_ms = train_path(cfg, model, dev)
+    finally:
+        TRAIN_BATCH, TRAIN_STEPS = saved
+    del model
+    torch.cuda.empty_cache()
+    return statistics.median(step_ms)
+
+
+def start_rays_ranks(workdir, device="cuda:0", backend="gloo"):
+    """The RAYS_WORLD ranks of phases 30-31, started on ``device`` (None:
+    rank r on cuda:r) under ``backend``."""
+    import os
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(RAYS_WORLD):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(RAYS_WORLD),
+                   LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        with open(workdir / f"out{r}.txt", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RAYS_LAUNCHER,
+                 str(workdir / f"rank{r}.pt"), str(workdir), device or "",
+                 backend],
+                env=env, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
+    return procs
+
+
+def finish_rays_ranks(workdir, procs):
+    """Each rank's results, after every rank exited 0 within
+    RAYS_TIMEOUT_S (its kernel checks logged here)."""
+    try:
+        for p in procs:
+            p.wait(timeout=RAYS_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = []
+    for r, p in enumerate(procs):
+        text = (workdir / f"out{r}.txt").read_text()
+        for line in text.splitlines():
+            if line.startswith(("kernel ", "rays ", "training", "stage 2")):
+                log(f"  rank {r}: {line}")
+        if p.returncode != 0:
+            failed.append(f"rays rank {r} exited {p.returncode}:\n"
+                          f"{text[-4000:]}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def rays_phases(dev, workdir, device="cuda:0", backend="gloo"):
+    """Phases 30-31 (see the module doc): the ranks (on ``device`` under
+    ``backend``, as :func:`start_rays_ranks`) run while this process takes
+    the one-process references. Returns {kernel: {phase: [launches of each
+    rank]}}."""
+    workdir.mkdir(parents=True)
+    unit_scale_checkpoint("test", RAYS_TEST_SET, workdir / "ckpt")
+    # the one-process references first, so that the ranks' times are theirs
+    with cudnn_flags(deterministic=True, benchmark=False):
+        one_loss, one_grads = rays_f32_step(dev)
+        tr = cli(dev, "test", workdir / "one",
+                 f"checkpoint_path={workdir / 'ckpt'}", *RAYS_TEST_SET,
+                 make=True)
+        one_launches, one_outs, one_eval_ms = rays_eval(tr)
+        one_step_ms = rays_one_step_ms(dev)
+    torch.cuda.empty_cache()
+    ranks = finish_rays_ranks(workdir, start_rays_ranks(workdir, device,
+                                                        backend))
+    for r, rk in enumerate(ranks):
+        if rk["layout"] != (1, RAYS_WORLD, 0, r):
+            raise AssertionError(f"rays rank {r}: layout {rk['layout']}")
+        log(f"rays rank {r}: stage 1 launches {rk['stage1']['launches']} in "
+            f"{RAYS_STEPS} steps, step_ms {rk['stage1']['step_ms']}; stage 2 "
+            f"{rk['stage2']['launches']}; kernel rows on the block "
+            f"{rk['stage1']['rows']}, {rk['stage2']['rows']}")
+    # f32: the ranks' shares summed against one process, each rank's
+    # summed gradient against its gradient (phase 8's limits)
+    loss, grads = ranks[0]["f32"]
+    for k, v in one_loss.items():
+        got = sum(rk["f32"][0][k] for rk in ranks)
+        if not np.isclose(got, v, rtol=XCHECK_LOSS_RTOL, atol=1e-6):
+            raise AssertionError(f"rays f32: {k} {got} against one "
+                                 f"process's {v}")
+    # a gradient that cancels (a decoder's last bias) is measured against a
+    # thousandth of the largest gradient's norm
+    floor = 1e-3 * max(g.double().norm().item() for g in one_grads.values())
+    worst = ("", 0.0)
+    for n, g in one_grads.items():
+        e = rel_norm(grads[n], g, floor)
+        tol = XCHECK_RESNET_RTOL if n.startswith("resnet") else \
+            XCHECK_GRAD_RTOL
+        if not (e <= tol and torch.isfinite(grads[n]).all()):
+            raise AssertionError(f"rays f32: {n} relative error {e} > {tol}")
+        worst = max(worst, (n, e), key=lambda x: x[1])
+    log(f"rays f32 step ({RAYS_WORLD} ranks, data 1 x rays {RAYS_WORLD}) "
+        f"against one process: losses {loss} (shares of rank 0), one "
+        f"process {one_loss}; worst gradient {worst[0]} relative "
+        f"{worst[1]:.3g}")
+    # 31: launches per eval frame and rank, the outputs and the CSV
+    frames = len(one_outs)
+    per = {"ray_decode": 1, "segment_max0": 2}
+    for r, rk in enumerate(ranks):
+        launches, outs, _ = rk["eval"]
+        expect_launches(f"rays validation and test, rank {r}", launches, 0,
+                        frames, {}, per)
+        if len(outs) != frames or not all(
+                torch.equal(a, b) for a, b in zip(outs, one_outs)):
+            raise AssertionError(f"rays rank {r}: the eval outputs are not "
+                                 "the bits of one process's")
+    expect_launches("rays validation and test, one process", one_launches,
+                    0, frames, {}, per)
+    csv_got = (workdir / "rank0" / "run" / "result" / "synthetic.csv")
+    csv_want = pathlib.Path(tr.result_dir) / "synthetic.csv"
+    if csv_got.read_bytes() != csv_want.read_bytes() or \
+            (workdir / "rank1" / "run").exists():
+        raise AssertionError("rays: rank 0's test CSV is not one process's, "
+                             "or rank 1 wrote files")
+    log(f"rays validation and test on {RAYS_WORLD} ranks: {frames} eval "
+        f"frames, K1 once a frame and rank over "
+        f"{tr.cfg.dataset.img_height * tr.cfg.dataset.img_width // RAYS_WORLD}"
+        f" rays; every eval output and the CSV the bits of one process's")
+    log(f"rays times (host clock to a device sync, median): an eval step "
+        f"{[rk['eval'][2] for rk in ranks]} ms per rank against one "
+        f"process's {one_eval_ms:.2f}; a bf16 stage-1 step of "
+        f"{RAYS_BATCH} image {[statistics.median(rk['stage1']['step_ms']) for rk in ranks]}"
+        f" ms per rank against one process's {one_step_ms:.2f}")
+    out = {"stage1": [rk["stage1"]["launches"] for rk in ranks],
+           "stage2": [rk["stage2"]["launches"] for rk in ranks],
+           "eval": [rk["eval"][0] for rk in ranks]}
+    return {k: {ph: [lc.get(k, 0) for lc in per_rank]
+                for ph, per_rank in out.items()} for k in counters()}
+
+
+def grid_phase(dev, grid=None):
+    """Phase 32: DepthCompleter on a grid (default ``[[dev, dev]]``: data 1
+    x rays 2 on this card) in the per_ray, ``global`` and dense modes: K1 /
+    K6 on a device's block of the rays and K4 / K5 on the recorded calls
+    of a frame against their plain versions, the launches per frame, the
+    completed depth and the prediction the bits of one card's, frame_ms
+    against one card. Returns {kernel: {mode: launches}} and the times."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.infer import DepthCompleter
+    grid = grid or [[dev, dev]]
+    label = ",".join(str(d) for d in grid[0])
+    frames = make_frames(RAYS_GRID_FRAMES + 1, FRAME_HW)
+    launches, times = {}, {}
+    for mode in ("per_ray", "global", "dense"):
+        over = (SERVE_OVERRIDES if mode == "per_ray"
+                else mode_overrides(SERVE_OVERRIDES, mode))
+        cfg = load_config(overrides=over)
+        lidf, refine = build_models(cfg)
+        one = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+        on_grid = DepthCompleter(cfg, lidf=lidf, refine=refine, mesh=grid)
+        recorded = record_calls(kernel_modules(),
+                                lambda: on_grid.complete(*frames[0]))
+        if mode == "per_ray":
+            rows = kernel_phase(recorded, lidf, refine, dev)
+        else:
+            rows = {"pair_decode": pair_kernel_rows(
+                {k: v for k, v in recorded.items() if k[0] == "pair_decode"},
+                lidf, dev)}
+        log(f"rays grid {label} {mode}: kernels on a device's block "
+            + "; ".join(f"{k} {r['shape']} max_abs_err {r['max_abs_err']:.3g}"
+                        for k, r in rows.items()))
+        outs, n = counted(lambda: [on_grid.complete(*f) for f in frames[1:]])
+        expect_launches(f"rays grid {label} {mode}", n, 0, RAYS_GRID_FRAMES,
+                        {}, EXPECT_PER_GRID_FRAME[mode])
+        for (rgb, depth, intr), got in zip(frames[1:], outs):
+            want = one.complete(rgb, depth, intr)
+            if not all(np.array_equal(got[k], want[k])
+                       for k in ("depth", "depth_pred")):
+                raise AssertionError(f"rays grid {label} {mode}: the frame is "
+                                     "not the bits of one card's")
+            have = depth != 0
+            if got["depth"][have].tobytes() != depth[have].tobytes():
+                raise AssertionError(f"rays grid {label} {mode}: input depth "
+                                     "not passed through")
+        grid_ms = statistics.median(time_ms(lambda: on_grid.complete(*f),
+                                            warmup=1, reps=3)
+                                    for f in frames[1:])
+        one_ms = statistics.median(time_ms(lambda: one.complete(*f),
+                                           warmup=1, reps=3)
+                                   for f in frames[1:])
+        times[mode] = {"frame_ms": grid_ms, "one_card_frame_ms": one_ms}
+        log(f"rays grid {label} {mode}: {RAYS_GRID_FRAMES} frames of "
+            f"{FRAME_HW[0]}x{FRAME_HW[1]} the bits of one card's; frame_ms "
+            f"{grid_ms:.2f} against one card {one_ms:.2f}")
+        for k, v in n.items():
+            launches.setdefault(k, {})[mode] = v
+        del one, on_grid, lidf, refine
+        torch.cuda.empty_cache()
+    return launches, times
+
+
 def add_launches(row, n, runs, unit):
     """``row`` with its kernel's ``n`` launches in a main path of ``runs``
     frames or steps (``unit``)."""
@@ -3110,12 +3546,12 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "kernel_device_ms", "library_device_ms", "device_ops_per_call",
               "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
               "rows_decoded", "ptxas", "refine_train", "trainer", "decoder",
-              "at_widths", "config_runs")
+              "at_widths", "config_runs", "rays")
 
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-29 on ``dev``; prints their seconds and the kernels line."""
+    """Phases 2-32 on ``dev``; prints their seconds and the kernels line."""
     t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
@@ -3225,6 +3661,28 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
             if name in rows:
                 rows[name].setdefault("config_runs", {})[run_name] = n
 
+    # -- the mesh's rays axis (phases 30-32) --------------------------------
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        rays = {"one_card": rays_phases(dev, pathlib.Path(d) / "rays")}
+        grids = {"one_card": grid_phase(dev)}
+        if torch.cuda.device_count() >= RAYS_WORLD:
+            rays["two_cards_nccl"] = rays_phases(
+                dev, pathlib.Path(d) / "rays_nccl", device=None,
+                backend="nccl")
+            grids["two_cards"] = grid_phase(dev, [[torch.device("cuda", i)
+                                                   for i in range(2)]])
+        else:
+            log(f"rays_2card: not run ({torch.cuda.device_count()} card)")
+    for name in rows:
+        rows[name]["rays"] = {
+            **{f"{where} {ph}": v for where, r in rays.items()
+               for ph, v in r.get(name, {}).items()},
+            **{f"grid {where}": g[0].get(name, {})
+               for where, g in grids.items()}}
+    log(f"rays grid frame_ms: "
+        f"{ {where: g[1] for where, g in grids.items()} }")
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 **{k: row[k] for k in ENTRY_KEYS if k in row}}
@@ -3232,7 +3690,7 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
-    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-29)")
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-32)")
     log(json.dumps({"kernels": kernels}))
 
 

@@ -287,6 +287,10 @@ _DEFAULTS: Dict[str, Any] = {
     # port reads max_pairs_per_ray, pairs_budget_per_ray, pairs_budget_mode,
     # compute_dtype, decode_bwd, host_rss_exit_gb, train_steps_per_call and
     # eval_rays_per_chunk; it accepts the other keys and ignores them.
+    # mesh_shape among them: the JAX trainer computes its ("data", "rays")
+    # mesh from the batch and the device count and never reads the key
+    # (make_mesh's default only), and so does the port (parallel/mesh.py::
+    # layout).
     "tpu": {
         "max_pairs_per_ray": 20,     # K slots in the static (R, K) pair tensor
         "pairs_budget_per_ray": 8,   # pairs/ray decoded; 0 = dense (all K)

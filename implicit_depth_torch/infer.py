@@ -18,12 +18,31 @@ the LIDF stage 1 and ``refine.forward_times`` RefineNet iterations, and the
 completed depth is composed on the device; one readback brings both images
 back. Input depth passes through bit for bit wherever it is present.
 Entry points run on ``cuda`` unless ``device="cpu"`` is asked for.
+
+Several cards serve one process as a ``(data, rays)`` grid (``mesh=``, the
+counterpart of the JAX ``DepthCompleter``'s mesh)::
+
+    dc = DepthCompleter(cfg, lidf=lidf_model, refine=refine_model,
+                        batch_size=2, mesh="auto")   # every visible card
+    dc = DepthCompleter(cfg, lidf=lidf_model, batch_size=2,
+                        mesh=[["cuda:0", "cuda:1"], ["cuda:2", "cuda:3"]])
+
+The geometry stage runs on the grid's first device over the whole batch
+(the valid points are the one-card draw); each device runs the stage-1
+trunk of its row's frames and decodes its block of their rays (K1, or K6
+in the ``global`` and dense modes: the ``global`` budget is chosen over the
+whole batch, and each device decodes the selected rows of its block); the
+blocks are joined on the first device, which runs the RefineNet's
+iterations whole (K4, K5) and composes the depth.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import math
 import os
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,8 +51,13 @@ import torch.nn.functional as F
 from implicit_depth_torch.config import Config, load_config
 from implicit_depth_torch.data.augmentation import standardize_image
 from implicit_depth_torch.geometry.camera import compute_xyz
-from implicit_depth_torch.models.lidf import LIDFModel, prepare_inputs
+from implicit_depth_torch.models.lidf import (
+    RAY_SPLIT_KEYS,
+    LIDFModel,
+    prepare_inputs,
+)
 from implicit_depth_torch.models.refine import RefineModel, refine_forward
+from implicit_depth_torch.parallel.mesh import ray_block
 
 Intrinsics = Union[Tuple[float, float, float, float], Sequence[float]]
 
@@ -46,6 +70,40 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
         raise RuntimeError(f"device {device!r} asked for, but no CUDA device "
                            "is available")
     return dev
+
+
+Mesh = Union[None, str, Sequence[Sequence[Union[str, torch.device]]]]
+
+
+def device_grid(mesh: Mesh, batch_size: int
+                ) -> Optional[List[List[torch.device]]]:
+    """``mesh`` as a (data, rays) grid of devices: None stays None;
+    ``"auto"`` puts every visible card on it, ``data = gcd(batch_size,
+    cards)`` and ``rays = cards // data`` (the JAX ``DepthCompleter``'s
+    rule); a nested list is taken as it is. Raises for a card asked for
+    without one, a ragged grid, or a batch the data axis does not
+    divide."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh {mesh!r}: None, 'auto' or a (data, "
+                             "rays) nested list of devices")
+        resolve_device("cuda")
+        n = torch.cuda.device_count()
+        data = math.gcd(batch_size, n)
+        rays = n // data
+        return [[torch.device("cuda", d * rays + r) for r in range(rays)]
+                for d in range(data)]
+    grid = [[resolve_device(d) for d in row] for row in mesh]
+    if not grid or not grid[0] or any(len(row) != len(grid[0])
+                                      for row in grid):
+        raise ValueError("mesh: a (data, rays) nested list of devices, "
+                         "every row as long")
+    if batch_size % len(grid):
+        raise ValueError(f"batch_size {batch_size} is not a multiple of the "
+                         f"mesh's data axis {len(grid)}")
+    return grid
 
 
 def _resize(img: np.ndarray, h: int, w: int, mode: str) -> np.ndarray:
@@ -65,12 +123,18 @@ class DepthCompleter:
     from ``builder``, loaded with ``weights.lidf_from_jax``, or trained:
     :meth:`from_checkpoint`). The models
     are moved to ``device`` and put in eval mode. ``batch_size`` is the most
-    frames one :meth:`complete_batch` call takes."""
+    frames one :meth:`complete_batch` call takes. ``mesh`` (None, ``"auto"``
+    or a (data, rays) nested list of devices: :func:`device_grid`) serves
+    on a grid of devices, ``device`` then its first; the stage-1 model is
+    copied to each other device once."""
 
     def __init__(self, cfg: Optional[Config] = None, *, lidf: LIDFModel,
                  refine: Optional[RefineModel] = None, batch_size: int = 1,
-                 device: Union[str, torch.device] = "cuda"):
-        self.device = resolve_device(device)
+                 device: Union[str, torch.device] = "cuda",
+                 mesh: Mesh = None):
+        self.grid = device_grid(mesh, int(batch_size))
+        self.device = (self.grid[0][0] if self.grid
+                       else resolve_device(device))
         self.cfg = cfg if cfg is not None else load_config(
             overrides={"mask_type": "all"})
         self.h = int(self.cfg.dataset.img_height)
@@ -81,20 +145,24 @@ class DepthCompleter:
         self.refine = None if refine is None else refine.to(self.device).eval()
         self.forward_times = int(self.cfg.refine.forward_times)
         self.use_all_pix = bool(self.cfg.refine.use_all_pix)
+        self._lidf_on = {self.device: self.lidf}
+        for dev in {d for row in (self.grid or []) for d in row}:
+            if dev not in self._lidf_on:
+                self._lidf_on[dev] = copy.deepcopy(self.lidf).to(dev).eval()
 
     @classmethod
     def from_checkpoint(cls, lidf_ckpt_dir: str,
                         refine_ckpt_dir: Optional[str] = None,
                         cfg: Optional[Config] = None,
                         ckpt_name: str = "best_network", batch_size: int = 1,
-                        device: Union[str, torch.device] = "cuda"
-                        ) -> "DepthCompleter":
+                        device: Union[str, torch.device] = "cuda",
+                        mesh: Mesh = None) -> "DepthCompleter":
         """Serve trained weights from the checkpoint directories of the
         trainers (``train/checkpoint.py``): the stage-1 model and, when
         ``refine_ckpt_dir`` is given, the stage-2 model, each built from
         ``cfg`` and loaded by ``restore_params_only``. ``ckpt_name`` falls
         back to ``latest_network`` where a directory has no such
-        checkpoint."""
+        checkpoint. ``mesh`` as the constructor takes it."""
         from implicit_depth_torch.builder import (
             build_lidf,
             build_refine,
@@ -123,7 +191,7 @@ class DepthCompleter:
                                          build_refine(cfg, static),
                                          pick(refine_ckpt_dir))
         return cls(cfg, lidf=lidf, refine=refine, batch_size=batch_size,
-                   device=device)
+                   device=device, mesh=mesh)
 
     # -- device forward -----------------------------------------------------
     @torch.inference_mode()
@@ -135,7 +203,7 @@ class DepthCompleter:
         inputs = prepare_inputs(self.static, batch, train=False,
                                 mask_type="all", generator=gen,
                                 valid_idx=valid_idx)
-        out = self.lidf(inputs)
+        out = self.lidf(inputs) if self.grid is None else self._on_grid(inputs)
         pred = out["pred_pos"]
         if self.refine is not None:
             inject = None
@@ -147,6 +215,41 @@ class DepthCompleter:
         pred_z = pred[..., 2].reshape(-1, self.h, self.w)
         depth_in = batch["depth_corrupt"]
         return torch.where(depth_in == 0, pred_z, depth_in), pred_z
+
+    def _on_grid(self, inputs: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Stage 1 on the grid: device (d, i) takes the frames of data row
+        d and block i of their rays (``parallel/mesh.py::ray_block``), as
+        contiguous copies, run with its card the current device (a kernel
+        launches on the current device's streams); its per-ray outputs are
+        joined on the first device, the rays block by block, then the
+        rows."""
+        data, rays = len(self.grid), len(self.grid[0])
+        b, r = inputs["pair_valid"].shape[:2]
+        rows_b = b // data
+        pair_valid = {}
+        rows = []
+        for d, row in enumerate(self.grid):
+            rs = slice(d * rows_b, (d + 1) * rows_b)
+            blocks = []
+            for i, dev in enumerate(row):
+                s, e = ray_block(r, rays, i)
+                sub = {k: (v[rs, s:e] if k in RAY_SPLIT_KEYS else v[rs]
+                           ).contiguous().to(dev) for k, v in inputs.items()}
+                model = self._lidf_on[dev]
+                whole = None
+                if model.decode_mode == "global":
+                    if dev not in pair_valid:
+                        pair_valid[dev] = inputs["pair_valid"].to(dev)
+                    whole = (pair_valid[dev], d * rows_b, s)
+                with (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    out = model(sub, whole=whole)
+                blocks.append({k: v.to(self.device) for k, v in out.items()
+                               if k not in ("feat_map", "vox_feat")})
+            rows.append({k: torch.cat([o[k] for o in blocks], 1)
+                         for k in blocks[0]})
+        return {k: torch.cat([o[k] for o in rows], 0) for k in rows[0]}
 
     # -- host-side frame handling ------------------------------------------
     def _prep_frame(self, rgb: np.ndarray, depth: np.ndarray,

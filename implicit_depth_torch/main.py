@@ -6,8 +6,11 @@ seeding, dynamic trainer dispatch — plus ``--set`` dotted overrides,
 ``cpu`` is asked for) and ``--dist_backend``. One process drives one
 device; launched by ``torchrun`` (or with its ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` set by hand) each
-process is a rank of a data-parallel run (``parallel/mesh.py``) on
-``cuda:LOCAL_RANK``, and ``training.batch_size`` is the global batch.
+process is a rank of a parallel run (``parallel/mesh.py``) on
+``cuda:LOCAL_RANK``, and ``training.batch_size`` is the global batch: the
+ranks take JAX's ``("data", "rays")`` layout, so that with fewer images
+than ranks the ranks of an image split its rays (4 ranks at batch 2: data
+2 × rays 2).
 
 Usage:
   python -m implicit_depth_torch.main --cfg_paths configs/train_lidf.yaml
@@ -18,6 +21,9 @@ Usage:
       --cfg_paths configs/train_lidf.yaml          # NCCL, one card a rank
   torchrun --nproc_per_node 2 -m implicit_depth_torch.main --device cuda:0 \\
       --dist_backend gloo --cfg_paths ...          # two ranks on one card
+  torchrun --nproc_per_node 4 -m implicit_depth_torch.main \\
+      --cfg_paths configs/train_lidf.yaml \\
+      --set training.batch_size=2                  # data 2 x rays 2
 """
 
 from __future__ import annotations

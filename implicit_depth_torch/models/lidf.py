@@ -26,6 +26,10 @@
   the card.
 * :func:`lidf_loss` — position L1, per-ray termination cross-entropy,
   surface-normal and smoothness terms, and the metrics.
+* :func:`split_rays` — a rank's block of the ray tensors under the mesh's
+  ``rays`` axis (the JAX step's ``ray_sharding_constraints``): the model
+  and the losses then run on the block, the image-level terms gathering
+  the predictions along the split (``parallel/mesh.py::Split``).
 """
 
 from __future__ import annotations
@@ -211,6 +215,26 @@ def prepare_inputs(static: LIDFStatic, batch: Tensors, train: bool = False,
     return out
 
 
+# the (B, R[, ...]) inputs that a rank splits along the rays (the keys of the
+# JAX step's ray_sharding_constraints, implicit_depth_tpu/train/steps.py:49);
+# every other input is per image and stays whole
+RAY_SPLIT_KEYS = ("miss_idx", "miss_slot", "miss_px", "miss_py", "miss_dir",
+                  "miss_rgb", "gt_pos", "pair_cell", "pair_valid", "t_enter",
+                  "t_exit", "pair_label")
+
+
+def split_rays(inputs: Tensors, split) -> Tensors:
+    """``inputs`` with each of :data:`RAY_SPLIT_KEYS` cut to the block of
+    rays that ``split`` gives this rank (contiguous copies, so that a
+    kernel reads the block from its start); ``inputs`` itself without a
+    split of more than one block."""
+    if not split or split.blocks == 1:
+        return inputs
+    s, e = split.bounds()
+    return {**inputs, **{k: inputs[k][:, s:e].contiguous()
+                         for k in RAY_SPLIT_KEYS}}
+
+
 def decoder_weights(offset_dec: IEF, prob_dec: IMNet) -> Tensors:
     """The IEF offset + IMNet prob decoder parameters in the JAX package's
     decode weight-dict layout (kernels (in, out)), as views of the live
@@ -371,7 +395,7 @@ class LIDFModel(nn.Module):
                                         ray_feat)
         return off.reshape(b, r, k), logit.reshape(b, r, k)
 
-    def _decode_compacted(self, inputs, vox_feat, ray_feat):
+    def _decode_compacted(self, inputs, vox_feat, ray_feat, whole=None):
         """The ``global`` mode (``_decode_compacted`` of the JAX package):
         the valid slots ranked k-major (every ray's nearest pair before any
         second-nearest), the first P = min(B·R·pairs_budget, B·R·K) taken,
@@ -379,30 +403,58 @@ class LIDFModel(nn.Module):
         min(valid slots, P) rows, counted on the device: only those are
         decoded (the JAX package decodes the pad rows too, at slot 0, and
         zeroes them; the outputs are the same). Returns (offset, logit,
-        decoded), each (B, R, K)."""
+        decoded), each (B, R, K).
+
+        ``whole`` (pair_valid (B', R', K) of the global batch, row0, ray0):
+        ``inputs`` hold the block of rows [row0, row0 + B) and rays [ray0,
+        ray0 + R) of that batch. The selection is then the global batch's,
+        and of its rows the block's are decoded: moved to the front in
+        selection order, their count the row count."""
         b, r, k = inputs["pair_valid"].shape
         dev = vox_feat.device
         n_slots = b * r * k
-        p = min(b * r * self.pairs_budget, n_slots)
-        valid_km = inputs["pair_valid"].permute(2, 0, 1).reshape(-1)
+        pv_all, row0, ray0 = (inputs["pair_valid"], 0, 0) if whole is None \
+            else whole
+        bt, rt = pv_all.shape[:2]
+        n_all = bt * rt * k
+        p = min(bt * rt * self.pairs_budget, n_all)
+        valid_km = pv_all.permute(2, 0, 1).reshape(-1)
         rank = torch.cumsum(valid_km.long(), 0) - 1
         rank = torch.where(valid_km & (rank < p), rank,
                            torch.full_like(rank, p))
         # slot p takes every dropped index and is cut off
-        sel = torch.full((p + 1,), n_slots, dtype=torch.long,
+        sel = torch.full((p + 1,), n_all, dtype=torch.long,
                          device=dev).scatter_(
-            0, rank, torch.arange(n_slots, device=dev))[:p]
-        sel_valid = sel < n_slots
+            0, rank, torch.arange(n_all, device=dev))[:p]
+        sel_valid = sel < n_all
         sel = torch.where(sel_valid, sel, torch.zeros_like(sel))
-        sel_ray = sel % (b * r)                      # flat b·R + r
-        row = sel_ray * k + sel // (b * r)           # row-major (B, R, K)
+        if whole is None:
+            sel_ray = sel % (b * r)                  # flat b·R + r
+            slot = sel // (b * r)
+            # the valid prefix's length, with no host sync
+            n_rows = valid_km.sum().clamp(max=p).to(torch.int32)
+        else:
+            gb = torch.div(sel % (bt * rt), rt, rounding_mode="floor") - row0
+            gr = sel % rt - ray0
+            mine = sel_valid & (gb >= 0) & (gb < b) & (gr >= 0) & (gr < r)
+            n_mine = mine.sum()
+            dest = torch.where(mine, torch.cumsum(mine, 0) - 1,
+                               n_mine + torch.cumsum(~mine, 0) - 1)
+            src = torch.empty_like(sel).scatter_(
+                0, dest, torch.arange(p, device=dev))
+            sel_valid = mine[src]
+            sel_ray = torch.where(sel_valid, (gb * r + gr)[src],
+                                  torch.zeros_like(sel))
+            slot = torch.where(sel_valid, torch.div(sel, bt * rt,
+                                                    rounding_mode="floor")[src],
+                               torch.zeros_like(sel))
+            n_rows = n_mine.to(torch.int32)
+        row = sel_ray * k + slot                     # row-major (B, R, K)
         cells = (torch.div(sel_ray, r, rounding_mode="floor")
                  * self.static.grid.n_cells
                  + inputs["pair_cell"].reshape(-1)[row])
         enter, leave = self._pair_positions(inputs)
         pos = torch.cat([enter, leave], -1).float().reshape(-1, 6)[row]
-        # the valid prefix's length, with no host sync
-        n_rows = valid_km.sum().clamp(max=p).to(torch.int32)
         off_s, logit_s = self._decode_pairs(vox_feat, cells, pos, ray_feat,
                                             sel_ray, n_rows)
         row_w = torch.where(sel_valid, row, torch.full_like(row, n_slots))
@@ -418,12 +470,17 @@ class LIDFModel(nn.Module):
                 scatter_back(sel_valid))
 
     def decode_rays(self, inputs: Tensors, feat_map: torch.Tensor,
-                    vox_feat: torch.Tensor, use_gt_label=False) -> Tensors:
+                    vox_feat: torch.Tensor, use_gt_label=False,
+                    whole=None) -> Tensors:
         """Per-ray work: ROI pooling, the pair decode of ``decode_mode``,
         per-ray softmax/argmax, predicted position. Outputs are (B, R, kb)
         in the ``per_ray`` mode, (B, R, K) in the others. In train mode the
         slot is the labelled one while ``use_gt_label`` (the
-        ``maxpool_label_epo`` curriculum), else the most probable."""
+        ``maxpool_label_epo`` curriculum), else the most probable. Every
+        ray's outputs depend on its own inputs only, so a block of rays
+        decodes as it does in the whole; but the ``global`` mode's budget
+        is the batch's, and a block of it takes ``whole``
+        (:meth:`_decode_compacted`)."""
         grid = self.static.grid
         b, r, _ = inputs["pair_valid"].shape
         kb = self.pairs_budget
@@ -471,7 +528,7 @@ class LIDFModel(nn.Module):
             sliced = inputs
             if self.decode_mode == "global":
                 pred_offset, prob_logit, decoded = self._decode_compacted(
-                    inputs, vox_feat, ray_feat)
+                    inputs, vox_feat, ray_feat, whole)
                 # pairs dropped by the budget have no logit: they leave
                 # every per-ray competition
                 pair_valid = inputs["pair_valid"] & decoded
@@ -506,9 +563,11 @@ class LIDFModel(nn.Module):
             "pred_pos": pred_pos,
         }
 
-    def forward(self, inputs: Tensors, use_gt_label=False) -> Tensors:
+    def forward(self, inputs: Tensors, use_gt_label=False,
+                whole=None) -> Tensors:
         feat_map, vox_feat = self.trunk(inputs)
-        out = self.decode_rays(inputs, feat_map, vox_feat, use_gt_label)
+        out = self.decode_rays(inputs, feat_map, vox_feat, use_gt_label,
+                               whole)
         return {**out, "feat_map": feat_map, "vox_feat": vox_feat}
 
 
@@ -517,9 +576,10 @@ class LIDFModel(nn.Module):
 # ---------------------------------------------------------------------------
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor,
-                sharded: bool = False) -> torch.Tensor:
-    """The mean of the masked values; ``sharded``: this rank's share of the
-    global batch's, its own sum over the count all-reduced (detached)."""
+                sharded=False) -> torch.Tensor:
+    """The mean of the masked values; ``sharded`` (True or a
+    ``mesh.Split``): this rank's share of the global batch's, its own sum
+    over the count all-reduced over every rank (detached)."""
     num = torch.where(mask, x, torch.zeros((), dtype=x.dtype,
                                            device=x.device)).sum()
     count = mask.to(x.dtype).sum()
@@ -529,12 +589,13 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor,
 
 
 def hard_neg_mean(x: torch.Tensor, mask: torch.Tensor, ratio: float,
-                  sharded: bool = False) -> torch.Tensor:
+                  sharded=False) -> torch.Tensor:
     """Mean of the top-``ratio`` fraction of the masked values;
-    ``sharded``: this rank's share of the global batch's
-    (``parallel/hardneg.py``)."""
+    ``sharded`` (True: the train step's split, or a ``mesh.Split``): this
+    rank's share of the global batch's (``parallel/hardneg.py``)."""
     if sharded:
-        return sharded_hard_neg_mean(x, mask, ratio)
+        return sharded_hard_neg_mean(
+            x, mask, ratio, None if sharded is True else sharded)
     flat = torch.where(mask, x, torch.full((), float("-inf"), dtype=x.dtype,
                                            device=x.device)).reshape(-1)
     k = max(int(flat.shape[0] * ratio), 1)
@@ -553,13 +614,15 @@ def window_in_mask(mask_flat, rank, start, r):
 
 def compose_pred_image(base_flat: torch.Tensor, values: torch.Tensor,
                        inputs: Tensors, train: bool) -> torch.Tensor:
-    """``values`` (B, R, C) of the ray slots written into the (B, H·W, C)
+    """``values`` (B, R, C) of every ray slot written into the (B, H·W, C)
     image ``base_flat`` at their pixels. Eval rays are pixel-aligned (a
-    select); training rays are window slots, so pixel p takes slot
+    select over the ray mask, ``miss_mask_flat``, which is every pixel's
+    ``miss_slot``); training rays are window slots, so pixel p takes slot
     rank(p) - start: one gather, whose gradient reaches each slot from its
     own pixel."""
     if not train:
-        return torch.where(inputs["miss_slot"][..., None], values, base_flat)
+        return torch.where(inputs["miss_mask_flat"][..., None], values,
+                           base_flat)
     rank, start = inputs["miss_rank"], inputs["miss_start"]
     r = values.shape[1]
     in_win = window_in_mask(inputs["miss_mask_flat"], rank, start, r)
@@ -568,7 +631,7 @@ def compose_pred_image(base_flat: torch.Tensor, values: torch.Tensor,
     return torch.where(in_win[..., None], vals, base_flat)
 
 
-def mean_fns(hard_neg: bool, hard_neg_ratio: float, sharded: bool):
+def mean_fns(hard_neg: bool, hard_neg_ratio: float, sharded):
     """(the loss terms' reduction, masked_mean), both over the global batch
     under ``sharded``."""
     def mean(v, m):
@@ -582,20 +645,31 @@ def mean_fns(hard_neg: bool, hard_neg_ratio: float, sharded: bool):
 
 def surf_smooth_terms(inputs: Tensors, pred_pos: torch.Tensor, *, train: bool,
                       img_hw, hard_neg: bool, hard_neg_ratio: float,
-                      want_smooth: bool, sharded: bool = False):
+                      want_smooth: bool, sharded=False):
     """(surf_norm_loss, angle_err, smooth_loss) over the miss pixels, from
     the channel-planar normals of the GT and the predicted point images;
-    smooth_loss is 0 unless ``want_smooth``."""
+    smooth_loss is 0 unless ``want_smooth``.
+
+    Under a ``mesh.Split`` of the rays (``sharded``) ``pred_pos`` and the
+    ray inputs are this rank's block: the image is composed from the
+    predictions of every block (gathered, with their gradient), and the
+    rank's share of each mean is taken over the pixels of its own block's
+    slots, so that the ranks' shares sum to the whole image's term."""
     h, w = img_hw
     slot = inputs["miss_slot"]
     b = slot.shape[0]
     reduce, mean = mean_fns(hard_neg, hard_neg_ratio, sharded)
+    split = sharded if isinstance(sharded, mesh.Split) else None
+    pred_all = split.gather(pred_pos) if split is not None else pred_pos
+    r = pred_all.shape[1]
+    s0, s1 = split.bounds() if split is not None else (0, r)
     base = inputs["xyz_flat"] if train else inputs["xyz_corrupt_flat"]
     # train: gt_pos is xyz_flat gathered at miss_idx, so writing it back
-    # into xyz_flat is the identity
+    # into xyz_flat is the identity; eval: gt_pos is xyz_flat (every pixel
+    # a ray slot)
     gt_rows = base if train else compose_pred_image(
-        base, inputs["gt_pos"], inputs, train)
-    pr_rows = compose_pred_image(base, pred_pos, inputs, train)
+        base, inputs["xyz_flat"], inputs, train)
+    pr_rows = compose_pred_image(base, pred_all, inputs, train)
 
     def planar(rows):
         return rows.reshape(b, h, w, 3).permute(0, 3, 1, 2)
@@ -604,11 +678,14 @@ def surf_smooth_terms(inputs: Tensors, pred_pos: torch.Tensor, *, train: bool,
     pr_n, dx, dy = surface_normals_planar(planar(pr_rows))
     cos_img = (gt_n * pr_n).sum(1).reshape(b, h * w)
     dist_img = (1.0 - cos_img) / 2.0
+    # the pixels of this rank's slots [s0, s1): a window slot's index is
+    # its pixel's rank - start, an eval slot's its pixel
     if train:
-        in_win = window_in_mask(inputs["miss_mask_flat"], inputs["miss_rank"],
-                                inputs["miss_start"], slot.shape[1])
+        j = inputs["miss_rank"] - inputs["miss_start"][:, None]
+        in_win = inputs["miss_mask_flat"] & (j >= s0) & (j < s1)
     else:
-        in_win = slot
+        j = torch.arange(h * w, device=slot.device)
+        in_win = inputs["miss_mask_flat"] & (j >= s0) & (j < s1)
     angle = (mean(torch.arccos(cos_img.clamp(-1, 1)), in_win)
              / math.pi * 180.0)
     zero = torch.zeros((), device=pred_pos.device)
@@ -633,17 +710,18 @@ def lidf_loss(inputs: Tensors, outputs: Tensors, *, train: bool, img_hw,
               pos_w: float = 100.0, prob_w: float = 0.5,
               surf_norm_w: float = 10.0, smooth_w: float = 0.0,
               surf_norm_on=True, smooth_on=True, hard_neg: bool = False,
-              hard_neg_ratio: float = 0.1, sharded: bool = False) -> Tensors:
+              hard_neg_ratio: float = 0.1, sharded=False) -> Tensors:
     """Position L1, per-ray termination CE, surface-normal and smoothness
     terms (``loss_net``) and the metrics acc, err, angle_err. The smooth
     term is computed when ``smooth_w`` is set or ``smooth_on`` is the
     literal True; a tensor ``smooth_on`` (the train step's epoch gate)
     defers to the weight, as the JAX package's traced flag does.
 
-    ``sharded`` (a rank's block of the global batch): every value is the
-    rank's share of the global batch's, so that the shares sum over the
-    ranks to the 1-process loss and metrics, and their gradients to its
-    gradient."""
+    ``sharded`` (a rank's block of the global batch: True, a block of its
+    images, or a ``mesh.Split``, a block of its images and of their rays):
+    every value is the rank's share of the global batch's, so that the
+    shares sum over the ranks to the 1-process loss and metrics, and their
+    gradients to its gradient."""
     slot = inputs["miss_slot"]
     gt_pos, pred_pos = inputs["gt_pos"], outputs["pred_pos"]
     reduce, mean = mean_fns(hard_neg, hard_neg_ratio, sharded)

@@ -12,7 +12,10 @@ from the live parameters (K4 forward and the plain recompute backward on
 the card), so the decoder and the PointNet get their gradients through it.
 Training perturbs the stage-1 prediction once, before the first iteration
 (:func:`perturb_pred_pos`, :func:`refine_forward`); :func:`refine_loss` is
-the stage-2 loss.
+the stage-2 loss. Under a split of the rays (``parallel/mesh.py::Split``)
+each iteration gathers the predictions of every block, re-voxelises all of
+an image's points through the PointNet, and decodes (K4) and returns the
+rank's own block of rows.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from implicit_depth_torch.ops.ray_decode import (
     prep_ief_weights,
     split_ief_weights,
 )
+from implicit_depth_torch.parallel import mesh
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -128,10 +132,20 @@ class RefineModel(nn.Module):
 
     def forward(self, inputs: Tensors, lidf_out: Tensors,
                 pred_pos: torch.Tensor,
-                inject_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                inject_mask: Optional[torch.Tensor] = None,
+                split: Optional[mesh.Split] = None) -> torch.Tensor:
         """pred_pos (B, R, 3) -> refined (B, R, 3). ``inject_mask`` (B, R)
-        optionally restricts which predictions enter the PointNet input."""
+        optionally restricts which predictions enter the PointNet input.
+
+        ``split``: ``pred_pos`` is this rank's block of the rays, while
+        ``inputs``, ``lidf_out`` and ``inject_mask`` hold every ray; the
+        block is gathered with the others (its gradient flowing back),
+        every point of the image enters the PointNet, and the block's rows
+        are decoded and returned."""
         grid = self.static.grid
+        block = pred_pos
+        if split is not None:
+            pred_pos = split.gather(pred_pos)
         b, r, _ = pred_pos.shape
         n = inputs["valid_xyz"].shape[1]
         dev = pred_pos.device
@@ -164,15 +178,20 @@ class RefineModel(nn.Module):
               inputs["vox_point_valid"].reshape(-1)),
              (pred_inp.reshape(b * r, -1), seg_pred.reshape(-1),
               pred_ok.reshape(-1))], b * grid.n_cells, self.dtype)
+        miss_dir, roi_feat = inputs["miss_dir"], lidf_out["roi_feat"]
+        if split is not None:  # the block's rows from here on
+            s, e = split.bounds()
+            seg_pred, end_center = seg_pred[:, s:e], end_center[:, s:e]
+            miss_dir, roi_feat = miss_dir[:, s:e], roi_feat[:, s:e]
+            pred_pos, r = block, e - s
         end_feat = vox_feat[seg_pred.reshape(-1).long()]          # (B·R, 128)
 
         # -- embedding parts + IEF decode ---------------------------------
         pos_inp = (pred_pos - end_center if self.intersect_pos_type == "rel"
                    else pred_pos)
         pos_e = positional_encoding(pos_inp, self.multires)
-        dir_e = positional_encoding(inputs["miss_dir"], self.multires_views)
-        rc = torch.cat([lidf_out["roi_feat"].to(self.dtype),
-                        dir_e.to(self.dtype)], -1)
+        dir_e = positional_encoding(miss_dir, self.multires_views)
+        rc = torch.cat([roi_feat.to(self.dtype), dir_e.to(self.dtype)], -1)
         rows = (end_feat.to(self.dtype), rc.reshape(b * r, -1),
                 pos_e.reshape(b * r, -1).to(self.dtype))
         kw = dict(n_iter=self.n_iter, init_offset=self.offset_dec.init_offset,
@@ -185,7 +204,7 @@ class RefineModel(nn.Module):
         off = off.reshape(b, r)
         lo, hi = self.offset_range
         scaled = off * (hi - lo) + lo
-        return pred_pos + scaled[..., None] * inputs["miss_dir"]
+        return pred_pos + scaled[..., None] * miss_dir
 
 
 def refine_forward(model: RefineModel, inputs: Tensors, lidf_out: Tensors,
@@ -194,18 +213,24 @@ def refine_forward(model: RefineModel, inputs: Tensors, lidf_out: Tensors,
                    generator: Optional[torch.Generator] = None,
                    noise: Optional[Tensors] = None,
                    inject_mask: Optional[torch.Tensor] = None,
-                   shard=(0, 1)) -> torch.Tensor:
+                   shard=(0, 1),
+                   split: Optional[mesh.Split] = None) -> torch.Tensor:
     """``forward_times`` iterations from the stage-1 prediction; with
     ``perturb`` (training) the prediction is perturbed before the first one
     only (the draws from ``generator`` at ``shard``, or ``noise``: {apply,
-    bucket, u})."""
-    pred = lidf_out["pred_pos"]
+    bucket, u}). ``split``: ``inputs`` and ``lidf_out`` hold every ray, and
+    the iterations carry and return this rank's block of the predictions
+    (:meth:`RefineModel.forward`)."""
+    pred, miss_dir = lidf_out["pred_pos"], inputs["miss_dir"]
+    if split is not None:
+        s, e = split.bounds()
+        pred, miss_dir = pred[:, s:e], miss_dir[:, s:e]
     for it in range(forward_times):
         if perturb and it == 0:
-            pred = perturb_pred_pos(pred, inputs["miss_dir"], perturb_prob,
+            pred = perturb_pred_pos(pred, miss_dir, perturb_prob,
                                     generator=generator, shard=shard,
                                     **(noise or {}))
-        pred = model(inputs, lidf_out, pred, inject_mask)
+        pred = model(inputs, lidf_out, pred, inject_mask, split)
     return pred
 
 
@@ -213,7 +238,7 @@ def refine_loss(inputs: Tensors, pred_pos_refine: torch.Tensor, *,
                 train: bool, img_hw, pos_w: float = 100.0,
                 surf_norm_w: float = 10.0, smooth_w: float = 0.0,
                 surf_norm_on=True, smooth_on=True, hard_neg: bool = False,
-                hard_neg_ratio: float = 0.1, sharded: bool = False) -> Tensors:
+                hard_neg_ratio: float = 0.1, sharded=False) -> Tensors:
     """The stage-2 loss: position L1 and the surface-normal (and smoothness)
     terms, no termination term; ``err`` over the rays with a non-zero
     ground truth. The gates and ``sharded`` follow ``lidf_loss``."""

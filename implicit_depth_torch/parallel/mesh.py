@@ -19,21 +19,37 @@ the global reductions are explicit:
   generator and keeps its rows (:func:`shard`), so that its generator
   stays equal to every other rank's and to a 1-rank run's.
 
+The ranks form JAX's ``("data", "rays")`` mesh (:func:`layout`, the rule of
+the JAX trainer, ``implicit_depth_tpu/train/trainer.py:77-93``): a train
+step's global batch is split into ``data`` blocks of images, and each
+image's rays into ``rays`` blocks (:func:`ray_block`), so that ranks
+beyond the batch size still share the work. The ranks of one data block
+(a *rays group*, within one host) hold the same images and compute their
+trunk alike; each decodes its block of rays, and the image-level loss
+terms gather the predictions along the group (:class:`Split`). Eval
+frames split their rays over every rank (JAX's ``ray_axis=("data",
+"rays")``). The BatchNorm moments reduce over the rank's *data group*
+(the ranks of its ray index: one copy of each image, see
+``models/resnet.py``); the loss counts, the hard-negative top-k and the
+gradients over every rank.
+
 The group comes from torchrun's variables (:func:`init_from_env`); without
 one, every function here is a no-op, and a 1-process run is the same bits
 as before this module existed. The rank-aware BatchNorm, loss and draws
 run when the group holds more than one rank; the gradient all-reduce, the
 barriers and the broadcasts run in any group (a 1-rank group's sum is its
-own value). The mesh's ``rays`` axis (one step's rays split across cards)
-is not ported.
+own value). Until :func:`use_layout` is called the layout is ``data`` =
+world, ``rays`` = 1: every rank a block of the batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
 import socket
-from typing import Iterable, Optional, Tuple
+from typing import Any, Iterable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -110,7 +126,10 @@ def _refuse_shared_cards(store, rank_: int, world_: int,
 
 
 def shutdown() -> None:
-    """Leaves the process group, when there is one."""
+    """Leaves the process group, when there is one, and forgets the
+    layout."""
+    global _LAYOUT, _RAYS_GROUP, _DATA_GROUP
+    _LAYOUT, _RAYS_GROUP, _DATA_GROUP = None, None, None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -128,8 +147,10 @@ def is_main() -> bool:
 
 
 def shard() -> Tuple[int, int]:
-    """(rank, world): which block of the global batch this rank holds."""
-    return rank(), world()
+    """(data index, data): which block of the global batch this rank holds
+    (every rank of a rays group the same one)."""
+    lay = current()
+    return lay.data_index, lay.data
 
 
 def local_device() -> torch.device:
@@ -226,3 +247,202 @@ def all_reduce_grads(params: Iterable[nn.Parameter]) -> None:
         n = g.numel()
         g.copy_(flat[offset:offset + n].view_as(g))
         offset += n
+
+
+# -- the ("data", "rays") layout ---------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """The ranks as JAX's ``("data", "rays")`` mesh: ``data`` blocks of the
+    global batch, each image's rays split over ``rays`` ranks; this rank at
+    (``data_index``, ``ray_index``), ``coords[r]`` rank r's."""
+
+    data: int
+    rays: int
+    data_index: int
+    ray_index: int
+    coords: Tuple[Tuple[int, int], ...]
+
+
+def layout(batch_size: int, world_size: Optional[int] = None,
+           local_world_size: Optional[int] = None,
+           rank_: Optional[int] = None) -> Layout:
+    """The layout of ``world_size`` ranks, ``local_world_size`` a host, for
+    a global batch of ``batch_size`` (defaults: the group's world and rank,
+    torchrun's ``LOCAL_WORLD_SIZE``, else one host). The JAX trainer's rule
+    (``implicit_depth_tpu/train/trainer.py:77-93``): per host the batch
+    ``batch_size // hosts``, ``data_local = gcd(per-host batch, local)``,
+    ``rays = local // data_local``, ``data = data_local · hosts``; ranks
+    are hosts-major, so that a rays group never crosses a host, and local
+    rank ``lr`` of host ``h`` sits at data index ``h·data_local + lr //
+    rays``, ray index ``lr % rays`` (``make_mesh``'s device order,
+    ``implicit_depth_tpu/parallel/mesh.py:63-69``). Raises a ValueError
+    for a layout JAX would refuse: uneven ranks a host, or a batch that is
+    not a multiple of the host count."""
+    world_size = world() if world_size is None else int(world_size)
+    rank_ = rank() if rank_ is None else int(rank_)
+    if local_world_size is None:
+        local_world_size = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    local = int(local_world_size)
+    if local < 1 or world_size % local:
+        raise ValueError(f"{world_size} ranks do not make hosts of "
+                         f"{local} ranks each (LOCAL_WORLD_SIZE)")
+    hosts = world_size // local
+    if batch_size < 1 or batch_size % hosts:
+        raise ValueError(f"training.batch_size {batch_size} must be a "
+                         f"multiple of the host count {hosts} ({world_size} "
+                         f"ranks, {local} a host): the data axis is split "
+                         "hosts-major and the rays stay within a host")
+    data_local = math.gcd(batch_size // hosts, local)
+    rays = local // data_local
+    coords = tuple((h * data_local + lr // rays, lr % rays)
+                   for h in range(hosts) for lr in range(local))
+    return Layout(data_local * hosts, rays, *coords[rank_], coords)
+
+
+_LAYOUT: Optional[Layout] = None
+_RAYS_GROUP = None  # this rank's rays group (None: the default group)
+_DATA_GROUP = None  # this rank's data group (None: the default group)
+
+
+def _axis_groups(lay: Layout, axis: int):
+    """The process group of this rank along ``axis`` of the layout (0: its
+    data group, the ranks of its ray index; 1: its rays group), made for
+    every index of the other axis in turn; None where the axis spans every
+    rank (the default group) or this rank alone."""
+    size, other = ((lay.data, lay.rays) if axis == 0
+                   else (lay.rays, lay.data))
+    if not dist.is_initialized() or size in (1, size * other):
+        return None
+    mine = (lay.ray_index, lay.data_index)[axis]
+    group = None
+    for i in range(other):
+        g = dist.new_group([r for r, c in enumerate(lay.coords)
+                            if c[1 - axis] == i])
+        if i == mine:
+            group = g
+    return group
+
+
+def use_layout(batch_size: int) -> Layout:
+    """Sets this process's layout for a global batch of ``batch_size``
+    (:func:`layout`) and makes the process groups of its rays groups and
+    data groups: every rank must call it, with the same batch size, in the
+    same order as its other collectives (``torch.distributed.new_group``
+    is one). Returns the layout."""
+    global _LAYOUT, _RAYS_GROUP, _DATA_GROUP
+    lay = layout(batch_size)
+    if lay == _LAYOUT:
+        return lay
+    _RAYS_GROUP = _axis_groups(lay, 1)
+    _DATA_GROUP = _axis_groups(lay, 0)
+    _LAYOUT = lay
+    return lay
+
+
+def data_group():
+    """The process group of this rank's data axis: the ranks of its ray
+    index, which hold one copy of each image of the global batch (None:
+    the default group, or this rank alone when ``data`` is 1)."""
+    return _DATA_GROUP
+
+
+def current() -> Layout:
+    """The layout :func:`use_layout` set; before that every rank a block of
+    the batch (``data`` = world, ``rays`` = 1)."""
+    if _LAYOUT is not None:
+        return _LAYOUT
+    w = world()
+    return Layout(w, 1, rank(), 0, tuple((r, 0) for r in range(w)))
+
+
+def ray_block(n: int, blocks: int, block: int) -> Tuple[int, int]:
+    """[start, stop) of block ``block`` of ``n`` rays split into ``blocks``
+    contiguous blocks: ``block·n // blocks`` on, the sizes differing by at
+    most one where ``blocks`` does not divide ``n`` (no slot is padded).
+    Raises when a block would be empty."""
+    if n < blocks:
+        raise ValueError(f"{n} rays split over {blocks} ranks: a rank's "
+                         "block of rays would be empty")
+    return block * n // blocks, (block + 1) * n // blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """Where a rank's (b, r, ...) ray tensors lie in the global batch's
+    (B, R, ...): rows [row·b, (row + 1)·b), of which there are ``rows``
+    blocks, and block ``block`` of the ``blocks`` blocks of each row's
+    ``n`` rays; ``group`` is the process group of the ranks that hold the
+    row's blocks, in block order (None: the default group)."""
+
+    row: int
+    rows: int
+    block: int
+    blocks: int
+    n: int
+    group: Any = None
+
+    def bounds(self) -> Tuple[int, int]:
+        return ray_block(self.n, self.blocks, self.block)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(b, n, ...): every block of ``x`` (b, r, ...) along the rays, in
+        block order; its gradient is the sum of the ranks' incoming
+        gradients, this rank's block of it (:class:`_GatherRays`)."""
+        if self.blocks == 1:
+            return x
+        return _GatherRays.apply(x, self)
+
+
+def train_split(n: int) -> Split:
+    """A train step's split of its images' ``n`` rays under the layout: the
+    rank's data block, its block of rays in its rays group."""
+    lay = current()
+    return Split(lay.data_index, lay.data, lay.ray_index, lay.rays, n,
+                 _RAYS_GROUP)
+
+
+def eval_split(n: int) -> Split:
+    """An eval step's split: every rank holds the same frames, and their
+    ``n`` rays are split over all ranks (JAX's ``ray_axis=("data",
+    "rays")``)."""
+    return Split(0, 1, rank(), world(), n, None)
+
+
+def _gather_rays(x: torch.Tensor, split: Split) -> torch.Tensor:
+    """The blocks of ``split`` joined along dim 1 (each padded to the
+    largest for the all-gather, the padding cut)."""
+    sizes = [ray_block(split.n, split.blocks, i) for i in range(split.blocks)]
+    width = max(e - s for s, e in sizes)
+    src = x.detach()
+    if src.dtype == torch.bool:  # gathered as bytes
+        src = src.to(torch.uint8)
+    src = _on_backend(src)
+    pad = width - src.shape[1]
+    if pad:
+        src = torch.cat([src, src.new_zeros((src.shape[0], pad,
+                                             *src.shape[2:]))], 1)
+    src = src.contiguous()
+    parts = [torch.empty_like(src) for _ in range(split.blocks)]
+    dist.all_gather(parts, src, group=split.group)
+    out = torch.cat([p[:, :e - s] for p, (s, e) in zip(parts, sizes)], 1)
+    return out.to(device=x.device, dtype=x.dtype)
+
+
+class _GatherRays(torch.autograd.Function):
+    """:meth:`Split.gather` with a gradient: the incoming gradients of the
+    gathered tensor summed over the ranks of the split (one all-reduce, the
+    same sum on every rank), this rank's block of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _gather_rays(x, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        split = ctx.split
+        buf = _on_backend(g.contiguous()).clone()
+        dist.all_reduce(buf, group=split.group)
+        s, e = split.bounds()
+        return buf[:, s:e].to(g.device).contiguous(), None

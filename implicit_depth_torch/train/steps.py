@@ -13,13 +13,20 @@ serving K1) on the training rays, perturbs its prediction, runs
 from one into the next (K4 and K5 on the card), then refine_loss ->
 backward -> one update of the refine parameters only. Under a process
 group (``parallel/mesh.py``) a train step runs on the rank's block of the
-global batch: its draws are the global batch's rows of the rank, its loss
-the rank's share of the global loss (the BatchNorm statistics, normalisers
-and hard-negative top-k global), and its gradients are summed over the
-ranks before the update, so that every rank makes the update of one
-process on the global batch. The eval steps are unchanged (every rank
-evaluates the same frames); the vis steps draw as the train steps do, so
-that every rank, running them, keeps its generator in step. Epoch-dependent
+global batch under the ``("data", "rays")`` layout: its draws are the
+global batch's rows of its data block, it decodes its block of those
+images' rays (``models/lidf.py::split_rays``; the trunk whole, as every
+rank of its rays group computes it), its loss is its share of the global
+loss (the BatchNorm statistics, normalisers and hard-negative top-k
+global; the image-level terms over the gathered predictions), and its
+gradients are summed over the ranks before the update, so that every rank
+makes the update of one process on the global batch. In stage 2 the
+frozen stage 1 decodes the block, its outputs are gathered, and each
+RefineNet iteration voxelises every point of the image and decodes the
+block. The eval steps split each frame's rays over every rank (every rank
+evaluates the same frames; the outputs are gathered, the losses are the
+ranks' shares); the vis steps draw as the train steps do, so that every
+rank, running them, keeps its generator in step. Epoch-dependent
 switches (the ``maxpool_label_epo`` curriculum, the ``surf_norm_epo`` /
 ``smooth_epo`` gates) are read from the epoch passed in. Like serving, the
 steps run on ``cuda`` unless ``device="cpu"`` is asked for: the models are
@@ -34,7 +41,12 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from implicit_depth_torch.infer import resolve_device
-from implicit_depth_torch.models.lidf import LIDFModel, lidf_loss, prepare_inputs
+from implicit_depth_torch.models.lidf import (
+    LIDFModel,
+    lidf_loss,
+    prepare_inputs,
+    split_rays,
+)
 from implicit_depth_torch.models.refine import (
     RefineModel,
     refine_forward,
@@ -46,7 +58,7 @@ from implicit_depth_torch.train.state import TrainState
 Tensors = Dict[str, torch.Tensor]
 
 
-def _loss_kwargs(cfg, train: bool, epoch: int, device) -> dict:
+def _loss_kwargs(cfg, train: bool, epoch: int, device, sharded=False) -> dict:
     loss = cfg.loss
 
     def gate(on: bool) -> torch.Tensor:
@@ -65,15 +77,50 @@ def _loss_kwargs(cfg, train: bool, epoch: int, device) -> dict:
         smooth_on=gate(epoch >= loss.smooth_epo),
         hard_neg=bool(loss.hard_neg),
         hard_neg_ratio=float(loss.hard_neg_ratio or 0.1),
-        # training rays are the rank's block of the global batch
-        sharded=train and mesh.world() > 1,
+        sharded=sharded,
     )
 
 
-def _refine_loss_kwargs(cfg, train: bool, epoch: int, device) -> dict:
-    kw = _loss_kwargs(cfg, train, epoch, device)
+def _refine_loss_kwargs(cfg, train: bool, epoch: int, device,
+                        sharded=False) -> dict:
+    kw = _loss_kwargs(cfg, train, epoch, device, sharded)
     del kw["prob_w"]  # stage 2 has no termination term
     return kw
+
+
+def _split(train: bool, n: int):
+    """This rank's split of ``n`` rays an image: the train step's under the
+    layout, the eval step's over every rank; False (no split) without a
+    group of several ranks."""
+    if mesh.world() == 1:
+        return False
+    return mesh.train_split(n) if train else mesh.eval_split(n)
+
+
+def _whole(model: LIDFModel, inputs: Tensors, split, train: bool):
+    """The ``global`` decode's view of the global batch for a block
+    (``LIDFModel._decode_compacted``): the pair slots of every image of it
+    (a train step's data blocks gathered from each rays group's first
+    rank), and the block's first row and ray."""
+    if model.decode_mode != "global" or not split:
+        return None
+    pv = inputs["pair_valid"]
+    if train and split.rows > 1:
+        lay = mesh.current()
+        every = mesh.all_gather(pv.to(torch.uint8))
+        firsts = sorted((d, r) for r, (d, ri) in enumerate(lay.coords)
+                        if ri == 0)
+        pv = every[[r for _, r in firsts]].flatten(0, 1).bool()
+    return pv, split.row * inputs["pair_valid"].shape[0], split.bounds()[0]
+
+
+def gather_outputs(out: Tensors, split) -> Tensors:
+    """The per-ray outputs of a block joined along the rays of every block
+    (``feat_map`` and ``vox_feat`` are per image and stay)."""
+    if not split or split.blocks == 1:
+        return out
+    return {k: (v if k in ("feat_map", "vox_feat") else split.gather(v))
+            for k, v in out.items()}
 
 
 def make_lidf_train_step(cfg, model: LIDFModel,
@@ -84,8 +131,10 @@ def make_lidf_train_step(cfg, model: LIDFModel,
     ``batch``: a batch dict (rgb, xyz, xyz_corrupt, depth_corrupt,
     corrupt_mask, valid_mask, fx, fy, cx, cy); ``generator`` draws the
     valid points and the miss-ray window (``valid_idx`` / ``miss_start``
-    replace the draws). The parameters' gradients stay in ``.grad`` after
-    the update; the returned losses are detached."""
+    replace the draws). Under a group, ``batch`` is the rank's data block
+    of the global batch (``valid_idx`` / ``miss_start`` its rows too) and
+    the losses are its shares. The parameters' gradients stay in ``.grad``
+    after the update; the returned losses are detached."""
     dev = resolve_device(device)
     model.to(dev)
 
@@ -99,9 +148,13 @@ def make_lidf_train_step(cfg, model: LIDFModel,
                                 mask_type=cfg.mask_type, generator=generator,
                                 valid_idx=valid_idx, miss_start=miss_start,
                                 shard=mesh.shard())
+        split = _split(True, inputs["pair_valid"].shape[1])
         use_gt = epoch < cfg.model.maxpool_label_epo
-        out = model(inputs, use_gt_label=use_gt)
-        losses = lidf_loss(inputs, out, **_loss_kwargs(cfg, True, epoch, dev))
+        blk = split_rays(inputs, split)
+        out = model(blk, use_gt_label=use_gt,
+                    whole=_whole(model, inputs, split, True))
+        losses = lidf_loss(blk, out, **_loss_kwargs(cfg, True, epoch, dev,
+                                                     split))
         state.optimizer.zero_grad(set_to_none=True)
         losses["loss_net"].backward()
         mesh.all_reduce_grads(model.parameters())
@@ -149,7 +202,10 @@ def make_lidf_eval_step(cfg, model: LIDFModel,
     losses)``: every pixel a ray (``mask_type``), running BatchNorm
     statistics, no gradient; the per-ray decode over chunks of
     ``tpu.eval_rays_per_chunk`` rays when that is set and below the ray
-    count (:func:`chunked_forward`), else one shot."""
+    count (:func:`chunked_forward`), else one shot. Under a group each
+    rank decodes its block of every frame's rays (chunked within the
+    block), the outputs are gathered along the rays and the losses are
+    the rank's shares; ``inputs`` are the whole frame's."""
     chunk = int(cfg.tpu.get("eval_rays_per_chunk", 0) or 0)
     dev = resolve_device(device)
     model.to(dev)
@@ -164,13 +220,15 @@ def make_lidf_eval_step(cfg, model: LIDFModel,
                                 mask_type=cfg.mask_type,
                                 pred_mask=batch.get("pred_mask"),
                                 generator=generator, valid_idx=valid_idx)
-        if chunk and chunk < inputs["pair_valid"].shape[1]:
-            out = chunked_forward(model, inputs, chunk)
+        split = _split(False, inputs["pair_valid"].shape[1])
+        blk = split_rays(inputs, split)
+        if chunk and chunk < blk["pair_valid"].shape[1]:
+            out = chunked_forward(model, blk, chunk)
         else:
-            out = model(inputs)
-        losses = lidf_loss(inputs, out, **_loss_kwargs(cfg, False, 10 ** 6,
-                                                        dev))
-        return inputs, out, losses
+            out = model(blk, whole=_whole(model, inputs, split, False))
+        losses = lidf_loss(blk, out, **_loss_kwargs(cfg, False, 10 ** 6,
+                                                     dev, split))
+        return inputs, gather_outputs(out, split), losses
 
     return eval_step
 
@@ -238,15 +296,19 @@ def make_refine_train_step(cfg, lidf_model: LIDFModel,
                                 mask_type=cfg.mask_type, generator=generator,
                                 valid_idx=valid_idx, miss_start=miss_start,
                                 shard=mesh.shard())
+        split = _split(True, inputs["pair_valid"].shape[1])
+        blk = split_rays(inputs, split)
         with torch.no_grad():
-            lidf_out = lidf(inputs,
-                            use_gt_label=epoch < cfg.model.maxpool_label_epo)
+            lidf_out = gather_outputs(lidf(
+                blk, use_gt_label=epoch < cfg.model.maxpool_label_epo,
+                whole=_whole(lidf, inputs, split, True)), split)
         pred = refine_forward(refine_model, inputs, lidf_out, forward_times,
                               perturb=perturb, perturb_prob=perturb_prob,
                               generator=generator, noise=noise,
-                              shard=mesh.shard())
-        losses = refine_loss(inputs, pred,
-                             **_refine_loss_kwargs(cfg, True, epoch, dev))
+                              shard=mesh.shard(), split=_ray_split(split))
+        losses = refine_loss(blk, pred,
+                             **_refine_loss_kwargs(cfg, True, epoch, dev,
+                                                   split))
         state.optimizer.zero_grad(set_to_none=True)
         losses["loss_net"].backward()
         mesh.all_reduce_grads(refine_model.parameters())
@@ -254,6 +316,11 @@ def make_refine_train_step(cfg, lidf_model: LIDFModel,
         return {k: v.detach() for k, v in losses.items()}
 
     return step
+
+
+def _ray_split(split):
+    """``split`` where it splits the rays, else None."""
+    return split if split and split.blocks > 1 else None
 
 
 def _inject_mask(cfg, batch: Tensors, inputs: Tensors):
@@ -273,7 +340,9 @@ def make_refine_eval_step(cfg, lidf_model: LIDFModel,
     """Returns ``eval_step(state, batch, generator) -> (inputs, lidf_out,
     pred, losses)``: every pixel a ray (``mask_type``), both stages without
     a gradient, ``refine.forward_times`` iterations with no perturbation,
-    one shot (the JAX step reads no ``tpu.eval_rays_per_chunk`` either)."""
+    one shot (the JAX step reads no ``tpu.eval_rays_per_chunk`` either).
+    Under a group each rank decodes its block of the rays in both stages,
+    as :func:`make_lidf_eval_step`."""
     dev = resolve_device(device)
     lidf = _frozen(lidf_model, dev)
     refine_model.to(dev)
@@ -290,11 +359,17 @@ def make_refine_eval_step(cfg, lidf_model: LIDFModel,
                                 mask_type=cfg.mask_type,
                                 pred_mask=batch.get("pred_mask"),
                                 generator=generator, valid_idx=valid_idx)
-        lidf_out = lidf(inputs)
+        split = _split(False, inputs["pair_valid"].shape[1])
+        blk = split_rays(inputs, split)
+        lidf_out = gather_outputs(
+            lidf(blk, whole=_whole(lidf, inputs, split, False)), split)
         pred = refine_forward(refine_model, inputs, lidf_out, forward_times,
-                              inject_mask=_inject_mask(cfg, batch, inputs))
-        losses = refine_loss(inputs, pred,
-                             **_refine_loss_kwargs(cfg, False, 10 ** 6, dev))
+                              inject_mask=_inject_mask(cfg, batch, inputs),
+                              split=_ray_split(split))
+        losses = refine_loss(blk, pred,
+                             **_refine_loss_kwargs(cfg, False, 10 ** 6, dev,
+                                                   split))
+        pred = split.gather(pred) if _ray_split(split) else pred
         return inputs, lidf_out, pred, losses
 
     return eval_step

@@ -9,13 +9,16 @@ epoch logs, per-image CSV at test, PLY/PNG visualization.
 One process drives one device (``device``, default ``cuda``; raises without
 a card unless ``"cpu"`` is asked for). Under a process group
 (``parallel/mesh.py``, one process per rank, as the JAX trainer runs one
-process per host) ``training.batch_size`` is the global batch: each rank
-loads its block of ``batch_size // world`` samples of every global batch,
-its steps make the update of one process on the global batch (see
+process per host) ``training.batch_size`` is the global batch, and the
+ranks take JAX's ``("data", "rays")`` layout (``mesh.use_layout``, the
+rule of the JAX trainer's mesh): each rank loads the block of ``batch_size
+// data`` samples of its data index of every global batch (the ranks of a
+rays group the same block), its steps decode its block of those images'
+rays and make the update of one process on the global batch (see
 ``train/steps.py``), its logged losses are summed over the ranks into the
 global batch's, and only rank 0 writes files (logs, checkpoints, the test
-CSV, visual dumps). Validation and test run on every rank over the same
-frames, so that the ranks stay in step. The
+CSV, visual dumps). Validation and test run every frame on every rank,
+each rank on its block of the frame's rays. The
 trainer's random draws (valid points, ray windows, the stage-2
 perturbation) come from one ``torch.Generator`` on that device, seeded from
 ``cfg.seed``; the initial weights from a CPU generator of the same seed, so
@@ -132,8 +135,10 @@ class BaseTrainer:
         self.device = resolve_device(device)
         self.rank, self.world, self.is_main = (mesh.rank(), mesh.world(),
                                                mesh.is_main())
-        # the global batch's block of this rank (JAX trainer.py:88)
-        self.per_host_batch = max(cfg.training.batch_size // self.world, 1)
+        # the ("data", "rays") layout of the ranks (JAX trainer.py:77-93);
+        # the global batch's block of this rank's data index
+        self.layout = mesh.use_layout(int(cfg.training.batch_size))
+        self.per_host_batch = int(cfg.training.batch_size) // self.layout.data
         self.seed = int(cfg.seed or 0)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
@@ -179,9 +184,12 @@ class BaseTrainer:
 
     def _log_setup(self) -> None:
         if self.world > 1:
+            lay = self.layout
             print(f"[rank {self.rank}/{self.world}] per_host_batch "
                   f"{self.per_host_batch} steps_per_epoch "
-                  f"{self.steps_per_epoch} device {self.device}", flush=True)
+                  f"{self.steps_per_epoch} device {self.device} layout "
+                  f"data {lay.data} x rays {lay.rays} at data "
+                  f"{lay.data_index}, rays {lay.ray_index}", flush=True)
 
     def _update_best(self, record: Dict) -> bool:
         """Fold this epoch's metrics into the best scalars; returns True when
@@ -294,7 +302,8 @@ class BaseTrainer:
         ds = get_dataset(cfg.dataset, "train", base_seed=self.seed)
         return DataLoader(ds, self.per_host_batch, shuffle=True,
                           seed=self.seed, num_workers=cfg.training.num_workers,
-                          host_id=self.rank, num_hosts=self.world,
+                          host_id=self.layout.data_index,
+                          num_hosts=self.layout.data,
                           worker_type=cfg.training.get("worker_type", "thread"))
 
     def make_valid_loaders(self) -> Dict[str, DataLoader]:
@@ -443,7 +452,8 @@ class BaseTrainer:
                 if max_batches and it >= max_batches:
                     break
                 inputs, pred, losses = self._eval(to_device(batch, self.device))
-                bank.add(_host_scalars([losses])[0])
+                # each rank's share of the frames' losses
+                bank.add(_host_scalars([losses], sum_ranks=True)[0])
                 pred_depth = depth_images_from_outputs(inputs, pred, h, w)
                 for i in range(pred_depth.shape[0]):
                     m = cleargrasp_metrics(pred_depth[i], batch["depth"][i],
