@@ -1,5 +1,6 @@
-"""Host-side data augmentation (numpy/OpenCV; the port's copy of
-``implicit_depth_tpu/data/augmentation.py``).
+"""Host-side data augmentation (the port's copy of
+``implicit_depth_tpu/data/augmentation.py``, on ``data/cv.py``'s numpy
+twins of its OpenCV calls).
 
 Behavioral parity with src/utils/data_augmentation.py: DexNet-style depth
 noise (gamma multiplicative :171, GP additive :186), ellipse dropout on the
@@ -7,9 +8,7 @@ valid mask (:132) and ellipse *addition* on the corrupt mask (:95 —
 ``corrupt_table`` aug), chromatic HLS jitter (:430) and gaussian/motion-blur
 RGB noise (:459), ImageNet standardization (:489). All functions take an
 explicit ``np.random.Generator`` instead of global numpy RNG state so the
-pipeline is reproducible per-sample. OpenCV is imported by the functions
-that need it (:func:`cv2_module`), so that a machine without it imports
-this module and standardizes images.
+pipeline is reproducible per-sample.
 """
 
 from __future__ import annotations
@@ -19,18 +18,7 @@ from typing import Dict
 import numpy as np
 
 from implicit_depth_torch import constants
-
-
-def cv2_module():
-    """OpenCV, which the disk datasets and their augmentation need; raises
-    an ImportError that says so where it is not installed."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("OpenCV (the cv2 module) is needed to read and "
-                          "augment the disk datasets; it is not "
-                          "installed") from e
-    return cv2
+from implicit_depth_torch.data import cv
 
 
 def standardize_image(rgb_u8: np.ndarray) -> np.ndarray:
@@ -52,12 +40,11 @@ def chromatic_transform(bgr_u8: np.ndarray, rng: np.random.Generator) -> np.ndar
     d_h = (rng.random() - 0.5) * 0.1 * 180
     d_l = (rng.random() - 0.5) * 0.2 * 256
     d_s = (rng.random() - 0.5) * 0.2 * 256
-    cv2 = cv2_module()
-    hls = cv2.cvtColor(bgr_u8, cv2.COLOR_BGR2HLS).astype(np.float32)
+    hls = cv.bgr_to_hls(bgr_u8).astype(np.float32)
     hls[..., 0] = (hls[..., 0] + d_h) % 180
     hls[..., 1] = np.clip(hls[..., 1] + d_l, 0, 255)
     hls[..., 2] = np.clip(hls[..., 2] + d_s, 0, 255)
-    return cv2.cvtColor(hls.astype(np.uint8), cv2.COLOR_HLS2BGR)
+    return cv.hls_to_bgr(hls.astype(np.uint8))
 
 
 def add_noise(bgr_u8: np.ndarray, rng: np.random.Generator,
@@ -74,7 +61,7 @@ def add_noise(bgr_u8: np.ndarray, rng: np.random.Generator,
         kernel[(size - 1) // 2, :] = 1.0
     else:
         kernel[:, (size - 1) // 2] = 1.0
-    return cv2_module().filter2D(bgr_u8, -1, kernel / size)
+    return cv.filter2d(bgr_u8, kernel / size)
 
 
 def _random_ellipses(mask_like: np.ndarray, centers_from: np.ndarray,
@@ -89,12 +76,10 @@ def _random_ellipses(mask_like: np.ndarray, centers_from: np.ndarray,
     rx = rng.gamma(params["ellipse_gamma_shape"], params["ellipse_gamma_scale"], n)
     ry = rng.gamma(params["ellipse_gamma_shape"], params["ellipse_gamma_scale"], n)
     angles = rng.integers(0, 360, n)
-    cv2 = cv2_module()
     for i in range(n):
-        cv2.ellipse(out, (int(centers[i][1]), int(centers[i][0])),
-                    (int(round(rx[i])), int(round(ry[i]))),
-                    angle=int(angles[i]), startAngle=0, endAngle=360,
-                    color=1, thickness=-1)
+        cv.fill_ellipse(out, (int(centers[i][1]), int(centers[i][0])),
+                        (int(round(rx[i])), int(round(ry[i]))),
+                        int(angles[i]), 1)
     return out
 
 
@@ -133,7 +118,6 @@ def add_noise_to_xyz(xyz: np.ndarray, depth: np.ndarray, params: Dict,
     f = params["gp_rescale_factor"]
     small = rng.normal(0.0, params["gaussian_scale"],
                        (h // f, w // f, c)).astype(np.float32)
-    cv2 = cv2_module()
-    field = cv2.resize(small, (w, h), interpolation=cv2.INTER_CUBIC)
+    field = cv.resize(small, (w, h), cv.INTER_CUBIC)
     # vectorized masked add (boolean fancy-indexing costs ~100 ms at 1080p)
     return xyz + field * (depth > 0)[..., None]

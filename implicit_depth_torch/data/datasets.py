@@ -13,9 +13,10 @@ Each dataset gets an integer-seeded per-item RNG (base_seed + epoch*len +
 idx) so augmentation is reproducible and independent of worker scheduling —
 the reference relies on global numpy state instead.
 
-The disk datasets read and resize images with OpenCV, imported where it is
-used (``augmentation.cv2_module``), and read masks with Pillow; the
-procedural ``SyntheticDataset`` needs neither.
+The disk datasets read JPEG, PNG, EXR and HDF5 files and resize images
+with the port's own numpy codecs and OpenCV twins (``data/jpeg.py``,
+``png.py``, ``exr.py``, ``hdf5.py``, ``cv.py``), so that they load without
+OpenCV, Pillow or h5py.
 """
 
 from __future__ import annotations
@@ -29,7 +30,11 @@ import numpy as np
 
 from implicit_depth_torch.config import load_yaml
 from implicit_depth_torch.data import augmentation as aug
+from implicit_depth_torch.data import cv
 from implicit_depth_torch.data.exr import exr_loader
+from implicit_depth_torch.data.hdf5 import read_hdf5
+from implicit_depth_torch.data.jpeg import read_jpeg
+from implicit_depth_torch.data.png import read_png_gray
 from implicit_depth_torch.data.seg_io import imread_indexed
 from implicit_depth_torch.geometry.camera import compute_xyz_np
 
@@ -49,12 +54,11 @@ def _connected_components(binary: np.ndarray) -> np.ndarray:
 
 def _process_rgb(bgr: np.ndarray, wh, train_aug: bool,
                  rng: np.random.Generator) -> np.ndarray:
-    cv2 = aug.cv2_module()
     if train_aug and rng.random() > 0.2:
         bgr = aug.chromatic_transform(bgr, rng)
         bgr = aug.add_noise(bgr, rng)
-    bgr = cv2.resize(bgr, wh, interpolation=cv2.INTER_LINEAR)
-    rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    bgr = cv.resize(bgr, wh, cv.INTER_LINEAR)
+    rgb = cv.bgr_to_rgb(bgr)
     return aug.standardize_image(rgb)
 
 
@@ -106,9 +110,8 @@ class ClearGraspSynthetic:
         rng = np.random.default_rng(self.base_seed + epoch * len(self) + idx)
         train_aug = self.exp_type == "train" and p["use_data_augmentation"]
 
-        cv2 = aug.cv2_module()
         rgb_path = self.image_paths[idx]
-        bgr = cv2.imread(rgb_path)
+        bgr = read_jpeg(rgb_path)
         src_h, src_w = bgr.shape[:2]
         scale = (w / src_w, h / src_h)
         rgb = _process_rgb(bgr, (w, h), train_aug, rng)
@@ -118,8 +121,7 @@ class ClearGraspSynthetic:
         if mask.ndim == 3:
             mask = mask[..., 0]
         labels = _connected_components(mask == 255)
-        labels = cv2.resize(labels.astype(np.int32), (w, h),
-                            interpolation=cv2.INTER_NEAREST)
+        labels = cv.resize(labels.astype(np.int32), (w, h), cv.INTER_NEAREST)
         corrupt_mask = (labels != 0).astype(np.float32)
 
         cam = self._cam_params(self._aux_path(rgb_path, "json-files", "-masks.json"),
@@ -134,7 +136,7 @@ class ClearGraspSynthetic:
         inp_xyz = compute_xyz_np(inp_depth, cam["fx"], cam["fy"], cam["cx"], cam["cy"])
         if train_aug and p.get("depth_aug"):
             inp_xyz = aug.add_noise_to_xyz(inp_xyz, inp_depth, p, rng)
-        rs = lambda im: cv2.resize(im, (w, h), interpolation=cv2.INTER_NEAREST)
+        rs = lambda im: cv.resize(im, (w, h), cv.INTER_NEAREST)
         depth, xyz = rs(depth), rs(xyz)
         inp_depth, inp_xyz = rs(inp_depth), rs(inp_xyz)
         depth_corrupt = inp_depth * (1 - corrupt_mask)
@@ -196,9 +198,8 @@ class ClearGraspReal:
         w, h = p["img_width"], p["img_height"]
         rng = np.random.default_rng(self.base_seed + idx)
 
-        cv2 = aug.cv2_module()
         rgb_path = self.image_paths[idx]
-        bgr = cv2.imread(rgb_path)
+        bgr = read_jpeg(rgb_path)
         src_h, src_w = bgr.shape[:2]
         scale = (w / src_w, h / src_h)
         rgb = _process_rgb(bgr, (w, h), False, rng)
@@ -207,15 +208,14 @@ class ClearGraspReal:
         if mask.ndim == 3:
             mask = mask[..., 0]
         labels = _connected_components(mask == 255)
-        labels = cv2.resize(labels.astype(np.int32), (w, h),
-                            interpolation=cv2.INTER_NEAREST)
+        labels = cv.resize(labels.astype(np.int32), (w, h), cv.INTER_NEAREST)
         corrupt_mask = (labels != 0).astype(np.float32)
 
         cam = self.intrinsics["d415" if "d415" in rgb_path else "d435"]
         fx, fy, cx, cy = (float(cam["fx"]), float(cam["fy"]),
                           float(cam["cx"]), float(cam["cy"]))
 
-        rs = lambda im: cv2.resize(im, (w, h), interpolation=cv2.INTER_NEAREST)
+        rs = lambda im: cv.resize(im, (w, h), cv.INTER_NEAREST)
         d_corrupt = exr_loader(
             rgb_path.replace("-transparent-rgb-img.jpg", "-transparent-depth-img.exr"), 1)
         d_corrupt = np.nan_to_num(d_corrupt, nan=0.0)
@@ -301,44 +301,41 @@ class Omniverse:
         return out
 
     def __getitem__(self, idx: int, epoch: int = 0) -> Dict[str, np.ndarray]:
-        import h5py
-        cv2 = aug.cv2_module()
         p = self.params
         w, h = p["img_width"], p["img_height"]
         rng = np.random.default_rng(self.base_seed + epoch * len(self) + idx)
         train_aug = self.exp_type == "train" and p["use_data_augmentation"]
 
-        with h5py.File(self.h5_paths[idx], "r") as f:
-            rgb_raw = f["rgb_glass"][:]
-            src_h, src_w = rgb_raw.shape[:2]
-            scale = (w / src_w, h / src_h)
-            bgr = cv2.cvtColor(rgb_raw, cv2.COLOR_RGB2BGR)
-            rgb = _process_rgb(bgr, (w, h), train_aug, rng)
+        f = read_hdf5(self.h5_paths[idx])
+        rgb_raw = f["rgb_glass"]
+        src_h, src_w = rgb_raw.shape[:2]
+        scale = (w / src_w, h / src_h)
+        bgr = cv.rgb_to_bgr(rgb_raw)
+        rgb = _process_rgb(bgr, (w, h), train_aug, rng)
 
-            inst_seg = f["instance_seg"][:]
-            n_inst = inst_seg.shape[0]
-            ids = np.arange(1, n_inst + 1).reshape(-1, 1, 1)
-            inst = np.sum(inst_seg * ids, 0).astype(np.uint8)
-            sem_seg = f["semantic_seg"][:]
-            sem_ids = np.arange(1, sem_seg.shape[0] + 1).reshape(-1, 1, 1)
-            sem = np.sum(sem_seg * sem_ids, 0).astype(np.uint8)
-            rs = lambda im: cv2.resize(im, (w, h), interpolation=cv2.INTER_NEAREST)
-            inst, sem = rs(inst), rs(sem)
+        inst_seg = f["instance_seg"]
+        n_inst = inst_seg.shape[0]
+        ids = np.arange(1, n_inst + 1).reshape(-1, 1, 1)
+        inst = np.sum(inst_seg * ids, 0).astype(np.uint8)
+        sem_seg = f["semantic_seg"]
+        sem_ids = np.arange(1, sem_seg.shape[0] + 1).reshape(-1, 1, 1)
+        sem = np.sum(sem_seg * sem_ids, 0).astype(np.uint8)
+        rs = lambda im: cv.resize(im, (w, h), cv.INTER_NEAREST)
+        inst, sem = rs(inst), rs(sem)
 
-            corrupt_mask = self._corrupt_mask(inst, sem, n_inst, rng,
-                                              corrupt_all=p["omni_corrupt_all"])
+        corrupt_mask = self._corrupt_mask(inst, sem, n_inst, rng,
+                                          corrupt_all=p["omni_corrupt_all"])
 
-            cam = f["camera"]
-            focal = cam["focal_length"][:][0]
-            ha = cam["horizontal_aperture"][:][0]
-            va = cam["vertical_aperture"][:][0]
-            fx = focal / ha * src_w
-            fy = focal / va * src_h
-            cx, cy = src_w // 2, src_h // 2
+        focal = f["camera/focal_length"][0]
+        ha = f["camera/horizontal_aperture"][0]
+        va = f["camera/vertical_aperture"][0]
+        fx = focal / ha * src_w
+        fy = focal / va * src_h
+        cx, cy = src_w // 2, src_h // 2
 
-            disparity = f["depth"][:]
-            depth = np.clip(1.0 / (disparity + 1e-8) * 0.01, 0,
-                            p.get("max_depth", 4))
+        disparity = f["depth"]
+        depth = np.clip(1.0 / (disparity + 1e-8) * 0.01, 0,
+                        p.get("max_depth", 4))
 
         inp_depth = depth.copy()
         if train_aug and p.get("depth_aug"):
@@ -347,7 +344,7 @@ class Omniverse:
         inp_xyz = compute_xyz_np(inp_depth, fx, fy, cx, cy)
         if train_aug and p.get("depth_aug"):
             inp_xyz = aug.add_noise_to_xyz(inp_xyz, inp_depth, p, rng)
-        rs = lambda im: cv2.resize(im, (w, h), interpolation=cv2.INTER_NEAREST)
+        rs = lambda im: cv.resize(im, (w, h), cv.INTER_NEAREST)
         depth, xyz, inp_depth, inp_xyz = rs(depth), rs(xyz), rs(inp_depth), rs(inp_xyz)
         depth_corrupt = inp_depth * (1 - corrupt_mask)
         xyz_corrupt = inp_xyz * (1 - corrupt_mask)[..., None]
@@ -444,10 +441,9 @@ class PredMaskDataset:
             for cand in (osp.join(self.pred_mask_dir, name + ".png"),
                          osp.join(self.pred_mask_dir, f"{idx:06d}.png")):
                 if osp.exists(cand):
-                    cv2 = aug.cv2_module()
-                    m = cv2.imread(cand, cv2.IMREAD_GRAYSCALE)
+                    m = read_png_gray(cand)
                     h, w = s["corrupt_mask"].shape
-                    m = cv2.resize(m, (w, h), interpolation=cv2.INTER_NEAREST)
+                    m = cv.resize(m, (w, h), cv.INTER_NEAREST)
                     pm = (m > 127).astype(np.float32)
                     break
         if pm is None:

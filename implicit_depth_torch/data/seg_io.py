@@ -1,6 +1,6 @@
 """Indexed-PNG segmentation IO (the port's copy of
-``implicit_depth_tpu/data/seg_io.py``; Pillow is imported by the functions
-that read or write a PNG).
+``implicit_depth_tpu/data/seg_io.py``, on ``data/png.py`` instead of
+Pillow).
 
 Parity: src/utils/seg_utils.py — ``imread_indexed`` (palette PNG -> raw index
 matrix) and ``imwrite_indexed`` (write with palette), plus the index-matrix
@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from implicit_depth_torch.data.png import read_png, write_png
+
 
 def build_matrix_of_indices(height: int, width: int) -> np.ndarray:
     """(H, W, 2): [..., 0] y coords, [..., 1] x coords."""
@@ -18,8 +20,9 @@ def build_matrix_of_indices(height: int, width: int) -> np.ndarray:
 
 
 def imread_indexed(path: str) -> np.ndarray:
-    from PIL import Image
-    return np.array(Image.open(path))
+    """The stored samples, as ``np.array(Image.open(path))``: a palette
+    image's indices, a grey image's values."""
+    return read_png(path)
 
 
 # The DAVIS palette used by ClearGrasp masks (first entries; rest generated).
@@ -40,10 +43,7 @@ def _default_palette() -> np.ndarray:
 
 def imwrite_indexed(path: str, array: np.ndarray,
                     palette: np.ndarray | None = None) -> None:
-    from PIL import Image
     if array.ndim != 2:
         raise ValueError("indexed PNG requires a 2-D label array")
-    im = Image.fromarray(array.astype(np.uint8))
     pal = palette if palette is not None else _default_palette()
-    im.putpalette(np.asarray(pal, np.uint8).ravel())
-    im.save(path, format="PNG")
+    write_png(path, np.asarray(array).astype(np.uint8), palette=pal)

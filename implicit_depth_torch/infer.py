@@ -46,9 +46,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from implicit_depth_torch.config import Config, load_config
+from implicit_depth_torch.data import cv
 from implicit_depth_torch.data.augmentation import standardize_image
 from implicit_depth_torch.geometry.camera import compute_xyz
 from implicit_depth_torch.models.lidf import (
@@ -104,16 +104,6 @@ def device_grid(mesh: Mesh, batch_size: int
         raise ValueError(f"batch_size {batch_size} is not a multiple of the "
                          f"mesh's data axis {len(grid)}")
     return grid
-
-
-def _resize(img: np.ndarray, h: int, w: int, mode: str) -> np.ndarray:
-    """(H0, W0[, C]) -> (h, w[, C]) float32 on the host; ``bilinear`` with
-    half-pixel centers (align_corners=False) or ``nearest``."""
-    t = torch.from_numpy(np.ascontiguousarray(img, np.float32))
-    t = t[None, None] if t.dim() == 2 else t.permute(2, 0, 1)[None]
-    kw = {"align_corners": False} if mode == "bilinear" else {}
-    out = F.interpolate(t, size=(h, w), mode=mode, **kw)[0]
-    return (out[0] if img.ndim == 2 else out.permute(1, 2, 0)).numpy()
 
 
 class DepthCompleter:
@@ -255,13 +245,17 @@ class DepthCompleter:
     def _prep_frame(self, rgb: np.ndarray, depth: np.ndarray,
                     intr: Intrinsics):
         """Resize a frame to the model resolution -> (rgb (h, w, 3)
-        standardized, depth (h, w), (fx, fy, cx, cy)), float32."""
+        standardized, depth (h, w), (fx, fy, cx, cy)), float32. The resizes
+        are OpenCV's (``data/cv.py``): uint8 RGB stays uint8 through its
+        bilinear resize, other RGB is resized as float32."""
         fx, fy, cx, cy = (float(v) for v in intr)
         h0, w0 = depth.shape[:2]
         is_u8 = rgb.dtype == np.uint8
         if (h0, w0) != (self.h, self.w):
-            rgb = _resize(rgb, self.h, self.w, "bilinear")
-            depth = _resize(depth, self.h, self.w, "nearest")
+            if not is_u8:
+                rgb = np.asarray(rgb, np.float32)
+            rgb = cv.resize(rgb, (self.w, self.h), cv.INTER_LINEAR)
+            depth = cv.resize(depth, (self.w, self.h), cv.INTER_NEAREST)
             fx *= self.w / w0
             cx *= self.w / w0
             fy *= self.h / h0
@@ -328,7 +322,7 @@ class DepthCompleter:
         for img, depth0 in zip(completed, depths):
             depth0 = np.asarray(depth0, np.float32)
             if depth0.shape != (self.h, self.w):
-                img = _resize(img, *depth0.shape, "nearest")
+                img = cv.resize(img, depth0.shape[::-1], cv.INTER_NEAREST)
             # input depth where present, bit for bit against the input frame
             out_depth.append(np.where(depth0 == 0, img, depth0))
         same = len({d.shape for d in out_depth}) == 1

@@ -1,5 +1,5 @@
 """Visualization dumps (the port's copy of
-``implicit_depth_tpu/train/visualize.py``; PNGs through ``utils/png.py``,
+``implicit_depth_tpu/train/visualize.py``; PNGs through ``data/png.py``,
 so that no OpenCV is needed).
 
 Parity: TrainLIDF.visualize (src/trainers/train_lidf.py:486-581): a 3-panel
@@ -17,7 +17,7 @@ import torch
 
 from implicit_depth_torch.data.augmentation import unstandardize_image
 from implicit_depth_torch.utils.ply import save_point_cloud
-from implicit_depth_torch.utils.png import write_png
+from implicit_depth_torch.data.png import write_png
 
 
 def _normal_png(normal_img: np.ndarray) -> np.ndarray:

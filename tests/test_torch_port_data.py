@@ -62,14 +62,27 @@ def dataset_overrides(disk_root, kind, **extra):
         "corrupt_table": True, "synthetic_len": 6, **extra}}
 
 
-def assert_samples_equal(got, want):
+# The GP depth noise of augmented train samples is a float32 INTER_CUBIC
+# resize, which this OpenCV build hands to Intel IPP: the port's twin gives
+# OpenCV's own bits (IPP off, tests/test_torch_port_codecs.py) and lies
+# within 6e-9 of IPP's field (largest difference measured there, 5.6e-9). Added to
+# xyz, that moves xyz_corrupt by at most one float32 ulp of the value plus
+# the field's difference; every other field stays exact.
+CUBIC_RTOL, CUBIC_ATOL = 2.0 ** -23, 1e-8
+
+
+def assert_samples_equal(got, want, near=()):
     assert set(got) == set(want)
     for k, v in want.items():
         if isinstance(v, str):
             assert got[k] == v, k
         else:
             assert np.asarray(got[k]).dtype == np.asarray(v).dtype, k
-            np.testing.assert_array_equal(got[k], v, err_msg=k)
+            if k in near:
+                np.testing.assert_allclose(got[k], v, rtol=CUBIC_RTOL,
+                                           atol=CUBIC_ATOL, err_msg=k)
+            else:
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 # (dataset type, exp_type, obj_type, extra dataset settings)
@@ -104,10 +117,12 @@ def test_get_dataset_samples_equal_jax(disk_root, kind, exp_type, obj_type,
                              obj_type, base_seed=3)
     assert type(ds).__name__ == type(jds).__name__
     assert len(ds) == len(jds) > 0
+    near = {"xyz_corrupt"} if exp_type == "train" and kind != "synthetic" \
+        else ()
     for idx in sorted({0, len(ds) - 1}):
         for epoch in (0, 2):
             assert_samples_equal(ds.__getitem__(idx, epoch),
-                                 jds.__getitem__(idx, epoch))
+                                 jds.__getitem__(idx, epoch), near)
 
 
 def test_pred_mask_dir_samples_equal_jax(disk_root, tmp_path):

@@ -225,7 +225,9 @@ def _imports(path):
     str(p.relative_to(REPO)) for p in
     [*(REPO / "implicit_depth_torch").rglob("*.py"), REPO / "chip_smoke.py"]))
 def test_port_imports_no_jax(path):
-    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "implicit_depth_tpu")
+    # nor OpenCV, Pillow or h5py: the port's codecs and twins replace them
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "implicit_depth_tpu",
+              "cv2", "PIL", "h5py")
     bad = [m for m in _imports(REPO / path) if m.split(".")[0] in banned]
     assert not bad, f"{path} imports {bad}"
 
@@ -252,12 +254,11 @@ path = os.path.join(tempfile.mkdtemp(), "config.yaml")
 cfg.save(path)
 assert load_yaml(open(path).read()) == cfg.to_dict()
 assert get_dataset(cfg.dataset, "train")[1]["rgb"].shape == (24, 32, 3)
-from implicit_depth_torch.data import augmentation
-try:
-    augmentation.cv2_module()
-    raise SystemExit("cv2 imported")
-except ImportError as e:
-    assert "OpenCV" in str(e)
+for mod in ("implicit_depth_torch.tools.make_disk_datasets",
+            "implicit_depth_torch.tools.complete_depth"):
+    importlib.import_module(mod)
+loaded = {m for m in ("cv2", "PIL", "h5py") if sys.modules.get(m)}
+assert not loaded, loaded
 print("ok")
 """
 
