@@ -7,9 +7,12 @@ every ``decode_bwd`` mode: ``kernel_save``, ``kernel``, ``kernel_save_all``
 and ``xla``) and stage 2 behind a frozen stage 1, all at the full default
 width, cross-checks frames and train steps against the plain CPU path,
 serves and resumes from checkpoints, runs the trainer through the CLI
-(``implicit_depth_torch.main``) on the user's configs, and (phases 33-35)
+(``implicit_depth_torch.main``) on the user's configs, (phases 33-35)
 writes the reference datasets' file layouts with the port's own codecs and
-trains, tests and serves from those files.
+trains, tests and serves from those files, and (phases 36-38) serves and
+tests the reference's own checkpoint layout, trains and serves the IMNet
+offset decoder and the decoders without positional encoding, and trains
+with a checkpointed backbone and with L-BFGS.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
@@ -224,8 +227,35 @@ Phases:
  35. tools/complete_depth.py on two real-val frames (a port-written JPEG,
      the depth as a 16-bit PNG in millimetres) from 34's checkpoints: the
      PNG it writes is DepthCompleter.complete's depth bit for bit; per
-     frame K1 1, K4 2, K5 10; cv2, PIL and h5py never loaded. Then the
-     seconds of phases 2-35 and of 33-35.
+     frame K1 1, K4 2, K5 10; cv2, PIL and h5py never loaded;
+ 36-38. the reference's checkpoints and the options of the last slice:
+ 36. the default model's seeded unit-scale weights written as the
+     reference writes its best_network.pth (both stages, its names, the
+     ROI columns channel-major, num_batches_tracked, an optimizer entry,
+     the epoch and a numpy metric), converted by
+     ``python -m implicit_depth_torch.tools.import_torch_ckpt``: every
+     tensor the file's; served by DepthCompleter.from_checkpoint in the
+     per_ray, global and dense modes (K1 or K6, K4, K5 against their plain
+     versions at phases 3 and 9's tolerances; launches per frame as phases
+     4 and 9; per_ray also f32 card vs CPU as phase 5, at 120x160);
+     test_lidf.yaml (checkpoint_path) and test_refine.yaml
+     (lidf_ckpt_path and checkpoint_path) at the imported directories:
+     each CSV equal to the metrics recomputed, launches per eval frame as
+     phase 21's and phase 4's;
+ 37. model.offdec_type IMNET, then pos_encode false, in both stages: a
+     stage-1 step at batch 4 and 240x320, a stage-2 step behind it, a
+     480x640 frame served in each decode mode, K5 alone launched (2 a
+     stage-1 step, 10 a stage-2 step or frame); the f32 card results
+     against the CPU's (frames at 120x160 in each mode; a stage-1 and a
+     stage-2 step, gradients by group at phase 8's limits); step times
+     beside the IEF steps of phases 6, 13 and 18;
+ 38. tpu.remat_backbone: a kernel_save step at batch 4 with and without,
+     gradients and running statistics bit for bit (cuDNN deterministic),
+     peak memory both ways at batch 4 and 32; L-BFGS: 3 steps (per step
+     K2 1, K3 1, K5 2), a checkpoint, a resume whose next step is bit for
+     bit, the card's update from the recorded gradients against a float64
+     two-loop (LBFGS_F64_RTOL), the step time and the optimizer's memory.
+     Then the seconds of phases 2-38, of 33-35 and of 36-38.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -2104,7 +2134,7 @@ def refine_phases(dev, profile=False):
 # --set override (PERF.md §4), the data synthetic (no dataset is in the repo)
 TRAINER_CONFIGS = {stage: str(ROOT / "configs" / name) for stage, name in (
     ("lidf", "train_lidf.yaml"), ("refine", "train_refine.yaml"),
-    ("test", "test_lidf.yaml"),
+    ("test", "test_lidf.yaml"), ("test_refine", "test_refine.yaml"),
     ("refine_hardneg", "train_refine_hardneg.yaml"),
     ("smoke", "smoke_synthetic.yaml"),
     ("conv_refine", "convergence_refine.yaml"))}
@@ -3571,7 +3601,8 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "kernel_device_ms", "library_device_ms", "device_ops_per_call",
               "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
               "rows_decoded", "ptxas", "refine_train", "trainer", "decoder",
-              "at_widths", "config_runs", "rays", "disk")
+              "at_widths", "config_runs", "rays", "disk", "reference_ckpt",
+              "options", "remat_lbfgs")
 
 
 # -- the disk datasets (phases 33-35) -------------------------------------------
@@ -3976,9 +4007,559 @@ def disk_phases(dev):
     return {**tree, **rec, "seconds": seconds}, rows
 
 
+# -- the reference's checkpoints, the other decoders, remat and L-BFGS -------
+# (phases 36-38)
+# 36: reference-layout files of the default model (seeded unit-scale
+# weights), their epoch and a metric scalar (a numpy value, as the
+# reference's may be)
+REF_META = {"epoch": 59, "xyz_err": 0.05}
+REF_TEST_SET = ["dataset.synthetic_len=4"]
+# 37: the configurations the kernels do not take, each in both stages; the
+# JAX package decodes them in XLA, the port in plain torch: K5 alone runs
+OPTION_SETS = {"imnet": {"model": {"offdec_type": "IMNET"},
+                         "refine": {"offdec_type": "IMNET"}},
+               "no_posenc": {"model": {"pos_encode": False},
+                             "refine": {"pos_encode": False}}}
+OPTION_STEPS = 2
+
+
+def only_k5(n):
+    """Every kernel 0 launches but K5's ``n``."""
+    return {**{k: 0 for k in counters()}, "segment_max0": n}
+
+
+# 38: batch 4 as phase 6, and the configured batch 32; L-BFGS steps before
+# the checkpoint, and its memory of 10 pairs
+REMAT_BATCHES = (TRAIN_BATCH, 32)
+LBFGS_STEPS = 3
+# the card's L-BFGS update (f32, cuBLAS inner products over the 21.6 M
+# parameters) against the float64 two-loop of the same recorded gradients:
+# the largest difference over the largest value of the update; f32
+# accumulation over 4.9 M values reached 1.3e-4 of it on a CPU (MKL)
+LBFGS_F64_RTOL = 1e-3
+
+
+def merged(*dicts):
+    """The nested overrides of ``dicts`` merged, the later winning."""
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = merged(out[k], v) if isinstance(v, dict) and isinstance(
+                out.get(k), dict) else copy.deepcopy(v)
+    return out
+
+
+def reference_state(model, prefix):
+    """The state of ``model``'s submodule ``prefix`` ("resnet.", "pnet.",
+    "offset_dec.", "prob_dec.") in the reference's checkpoint layout (the
+    inverse of ``utils/torch_import.py``): the ResNet's ``resnet34_8s.*``
+    names, the PointNet's ``point_lin*`` / ``vox_lin*``, a decoder's
+    ``linear_1..4`` with its layer-1 ROI columns back in channel-major
+    order."""
+    from implicit_depth_torch.utils import torch_import as ti
+    names = {port: ref for ref, port in ti._PNET}
+    out = {}
+    for k, v in model.state_dict().items():
+        if not k.startswith(prefix):
+            continue
+        k = k[len(prefix):]
+        if prefix == "resnet.":
+            for s in range(1, 5):
+                for i in range(8):
+                    k = k.replace(f"layer{s}_{i}.", f"layer{s}.{i}.")
+            k = "resnet34_8s." + k.replace("down_conv.", "downsample.0.") \
+                .replace("down_bn.", "downsample.1.")
+        elif prefix == "pnet.":
+            part, rest = k.split(".", 1)
+            k = f"{names[part]}.{rest}"
+        else:
+            for i in range(4):
+                k = k.replace(f"mlp.l{i}.", f"linear_{i + 1}.")
+        out[k] = v.detach().cpu().clone()
+    if prefix in ("offset_dec.", "prob_dec."):
+        s = model.static.roi_out_bbox ** 2
+        start = model.pnet.v2_mlp.weight.shape[0]
+        rgb = model.dims["c_rc" if "c_rc" in model.dims else "c_roi"]
+        rgb = (rgb - (model.dims["c_dir"] if "c_rc" in model.dims else 0)) // s
+        w = out["linear_1.weight"]
+        ref = w.clone()
+        ref[:, ti.roi_row_permutation(start, rgb, s)] = \
+            w[:, start:start + rgb * s]
+        out["linear_1.weight"] = ref
+    return out
+
+
+def reference_files(workdir, lidf, refine):
+    """The two stages as the reference saves them (``torch.save`` of one
+    dict each: the modules' states, an optimizer entry, the epoch and a
+    numpy metric scalar); returns their paths."""
+    s1 = {"resnet_model": reference_state(lidf, "resnet."),
+          "pnet_model": reference_state(lidf, "pnet."),
+          "offset_dec": reference_state(lidf, "offset_dec."),
+          "prob_dec": reference_state(lidf, "prob_dec."),
+          "optimizer": {"state": {}, "param_groups": [{"lr": 1e-3}]},
+          "epoch": REF_META["epoch"],
+          "xyz_err": np.float64(REF_META["xyz_err"])}
+    s2 = {"pnet_model_refine": reference_state(refine, "pnet."),
+          "offset_dec_refine": reference_state(refine, "offset_dec."),
+          "optimizer": {}, "epoch": REF_META["epoch"],
+          "xyz_err": np.float64(REF_META["xyz_err"])}
+    paths = (workdir / "best_network_lidf.pth",
+             workdir / "best_network_refine.pth")
+    for ck, p in zip((s1, s2), paths):
+        torch.save(ck, p)
+    return paths
+
+
+def import_tools(jobs, rgb_out):
+    """``python -m implicit_depth_torch.tools.import_torch_ckpt`` on each
+    (pth, out) of ``jobs``, each in a process of its own from the checkout,
+    all at once (``rgb_out``: a stage-2 file's ROI width, which it does not
+    hold)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "implicit_depth_torch.tools.import_torch_ckpt",
+         "--pth", str(pth), "--out", str(out), "--rgb_out", str(rgb_out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pth, out in jobs]
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        if p.returncode:
+            raise AssertionError(f"import_torch_ckpt: {err[-2000:]}")
+        log(f"import_torch_ckpt: {out.strip()}")
+
+
+def synthetic_csv(tr, fresh, label):
+    """The test run's result/synthetic.csv against cleargrasp_metrics of the
+    eval outputs of ``fresh`` (a trainer of the same config)."""
+    import csv
+    import os
+
+    from implicit_depth_torch.train.metrics import (
+        cleargrasp_metrics,
+        depth_images_from_outputs,
+    )
+    from implicit_depth_torch.train.trainer import to_device
+
+    h, w = fresh.cfg.dataset.img_height, fresh.cfg.dataset.img_width
+    want = []
+    for batch in fresh.make_valid_loaders()["synthetic"].epoch(0):
+        inputs, pred, _ = fresh._eval(to_device(batch, fresh.device))
+        depth = depth_images_from_outputs(inputs, pred, h, w)
+        for i, path in enumerate(batch["item_path"]):
+            m = cleargrasp_metrics(depth[i], batch["depth"][i],
+                                   batch["corrupt_mask"][i])
+            if m:
+                want.append([path, *(repr(m[k]) for k in (
+                    "rmse", "abs_rel", "mae", "a1", "a2", "a3"))])
+    with open(os.path.join(tr.result_dir, "synthetic.csv")) as f:
+        rows = list(csv.reader(f))
+    mean = np.asarray([r[1:] for r in want], np.float64).mean(0)
+    if not (want and rows[1:-1] == want and rows[-1][0] == "MEAN"
+            and np.array_equal(np.asarray(rows[-1][1:], np.float64), mean)):
+        raise AssertionError(f"{label}: CSV {rows} against {want}")
+    log(f"{label}: result/synthetic.csv {len(want)} rows, MEAN {rows[-1][1:]}"
+        f", equal to the metrics recomputed from a fresh trainer's eval "
+        f"outputs")
+    return rows[-1][1:]
+
+
+def reference_phase(dev, workdir):
+    """Phase 36: reference-layout files of the default model, converted by
+    the tool, served in the three decode modes (K1 or K6, K4, K5 against
+    their plain versions on those weights; per_ray also f32 card vs CPU)
+    and tested through the CLI. Returns {kernel: row}."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.infer import DepthCompleter
+
+    cfg = load_config(overrides=SERVE_OVERRIDES)
+    lidf, refine = build_models(cfg, seed=SEED + 36)
+    paths = reference_files(workdir, lidf, refine)
+    log(f"reference files: {[f'{p.name} {p.stat().st_size / 2**20:.1f} MiB' for p in paths]}")
+    dirs = [workdir / "imported_lidf", workdir / "imported_refine"]
+    import_tools(zip(paths, dirs), cfg.model.rgb_out)
+    frames = make_frames(2, FRAME_HW)
+    rows, launches = {}, {}
+    for mode in ("per_ray", *MODES):
+        o = SERVE_OVERRIDES if mode == "per_ray" else mode_overrides(
+            SERVE_OVERRIDES, mode)
+        mcfg = load_config(overrides=o)
+        dc = DepthCompleter.from_checkpoint(str(dirs[0]), str(dirs[1]),
+                                            cfg=mcfg, device=dev)
+        for name, (src, got) in (("lidf", (lidf, dc.lidf)),
+                                 ("refine", (refine, dc.refine))):
+            for k, v in src.state_dict().items():
+                if not k.endswith("num_batches_tracked") and not torch.equal(
+                        v, got.state_dict()[k].cpu()):
+                    raise AssertionError(f"imported {name} {k} is not the "
+                                         "file's")
+        assert dc.lidf.decode_mode == mode, dc.lidf.decode_mode
+        if mode == "per_ray":
+            rec = record_calls(kernel_modules(), lambda: dc.complete(*frames[0]))
+            mode_rows = kernel_phase(rec, dc.lidf, dc.refine, dev)
+            expect = EXPECT_PER_FRAME
+        else:
+            rec = record_calls({"pair_decode": kernel_modules()["pair_decode"]},
+                               lambda: dc.complete(*frames[0]))
+            mode_rows = {"pair_decode": pair_kernel_rows(rec, dc.lidf, dev)}
+            expect = EXPECT_PER_MODE_FRAME
+        n, frame_ms = main_path(dc, frames[1:], mcfg, expect,
+                                f"imported checkpoint, {mode} mode")
+        for name, row in mode_rows.items():
+            rows.setdefault(name, {})[mode] = {
+                k: row[k] for k in ("max_abs_err", "tolerance", "ms",
+                                    "plain_ms", "bound_ms", "shape", "dtype")
+                if k in row}
+        for k, v in n.items():
+            launches.setdefault(k, {})[mode] = v
+        if mode == "per_ray":  # phase 5's check, at a quarter of the pixels
+            xo = merged(o, {"dataset": MODE_XCHECK_DATASET})
+            xdc = DepthCompleter.from_checkpoint(
+                str(dirs[0]), str(dirs[1]), cfg=load_config(overrides=xo),
+                device="cpu")
+            cross_check(xo, xdc.lidf, xdc.refine, frames[1], dev)
+            del xdc
+        del dc
+        torch.cuda.empty_cache()
+    # the user's test configs through the CLI, at the imported directories
+    t1, l1 = counted(lambda: cli(dev, "test", workdir / "t1", *REF_TEST_SET,
+                                 f"checkpoint_path={dirs[0]}"))
+    fresh1 = cli(dev, "test", workdir / "t1b", *REF_TEST_SET,
+                 f"checkpoint_path={dirs[0]}", make=True)
+    n1 = len(t1.make_valid_loaders()["synthetic"].dataset)
+    expect_launches("imported test_lidf", l1, 0, n1, {},
+                    EXPECT_PER_EVAL_FRAME)
+    synthetic_csv(t1, fresh1, "imported test_lidf")
+    sets2 = (*REF_TEST_SET, f"checkpoint_path={dirs[1]}",
+             f"lidf_ckpt_path={dirs[0]}")
+    t2, l2 = counted(lambda: cli(dev, "test_refine", workdir / "t2", *sets2))
+    fresh2 = cli(dev, "test_refine", workdir / "t2b", *sets2, make=True)
+    expect_launches("imported test_refine", l2, 0, n1, {}, EXPECT_PER_FRAME)
+    synthetic_csv(t2, fresh2, "imported test_refine")
+    for k in l1:
+        launches.setdefault(k, {}).update(test_lidf=l1[k], test_refine=l2[k])
+    for k, v in launches.items():
+        rows.setdefault(k, {})["launches"] = v
+    return rows
+
+
+def option_xcheck(dev, overrides, label):
+    """One f32 stage-1 and one f32 stage-2 step of the same weights and
+    draws on the card and on the CPU: the losses within XCHECK_LOSS_RTOL,
+    each group's gradients (by the norm of the difference over the
+    group's) within phase 8's limits."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.geometry.sampling import (
+        sample_masked_window,
+        sample_valid_stratified,
+    )
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import (
+        make_lidf_train_step,
+        make_refine_train_step,
+    )
+
+    cfg = load_config(overrides=merged(REFINE_XCHECK, overrides))
+    lidf, refine = build_models(cfg, train=True, seed=SEED + 37)
+    batch = train_batches(1, cfg, 1, "cpu")[0]
+    gen = torch.Generator().manual_seed(SEED)
+    vidx, _, _ = sample_valid_stratified(batch["valid_mask"] > 0.5,
+                                         lidf.static.n_valid, gen)
+    _, _, _, mstart = sample_masked_window(
+        (batch["corrupt_mask"] > 0.5).reshape(1, -1), lidf.static.n_rays, gen)
+    noise = {k: torch.rand((1,), generator=gen) for k in ("apply", "bucket",
+                                                         "u")}
+    for stage in ("stage 1", "stage 2"):
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            lm, rm = copy.deepcopy(lidf), copy.deepcopy(refine)
+            trained = lm if stage == "stage 1" else rm
+            state = TrainState.create(trained, cfg.training,
+                                      steps_per_epoch=1000)
+            b = {k: v.to(device) for k, v in batch.items()}
+            if stage == "stage 1":
+                losses = make_lidf_train_step(cfg, lm, device)(
+                    state, b, None, 10, valid_idx=vidx, miss_start=mstart)
+            else:
+                losses = make_refine_train_step(cfg, lm, rm, device)(
+                    state, b, None, 10, valid_idx=vidx, miss_start=mstart,
+                    noise={k: v.to(device) for k, v in noise.items()})
+            runs[device.type] = ({k: v.item() for k, v in losses.items()},
+                                 {n: p.grad.cpu() for n, p in
+                                  trained.named_parameters()})
+        (la, ga), (lb, gb) = runs[dev.type], runs["cpu"]
+        loss_err = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-6) for k in lb)
+        errs = {}
+        for group in {n.split(".")[0] for n in gb}:
+            names = [n for n in gb if n.split(".")[0] == group]
+            errs[group] = rel_norm(torch.cat([ga[n].reshape(-1) for n in names]),
+                                   torch.cat([gb[n].reshape(-1) for n in names]))
+        log(f"{label} {stage} cross-check f32 card vs cpu "
+            f"({cfg.dataset.img_height}x{cfg.dataset.img_width}): largest "
+            f"relative loss difference {loss_err:.3g}; gradients by group "
+            f"{ {g: float(f'{e:.3g}') for g, e in errs.items()} }")
+        bad = [g for g, e in errs.items()
+               if e > (XCHECK_RESNET_RTOL if g == "resnet" else XCHECK_GRAD_RTOL)]
+        if loss_err > XCHECK_LOSS_RTOL or bad:
+            raise AssertionError(f"{label} {stage} cross-check: the card and "
+                                 f"the CPU disagree: {loss_err}, {bad}")
+
+
+def timed_steps(label, step, state, batches, expect):
+    """A warm-up step, then one a batch, the launch counters from 0:
+    returns the median host-clock ms and the launches."""
+    gen = torch.Generator(device=batches[0]["rgb"].device).manual_seed(SEED)
+    step(state, batches[0], gen, 10)
+    counts = counters()
+    for f in counts.values():
+        f.launches = 0
+    ms = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        out = step(state, b, gen, 10)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.isfinite(v) for v in out.values()):
+            raise AssertionError(f"{label}: a loss is not finite: {out}")
+    launches = {k: f.launches for k, f in counts.items()}
+    expect_launches(label, launches, len(ms), 0, expect, {})
+    log(f"{label}: step_ms {ms}, median {statistics.median(ms):.1f}")
+    return statistics.median(ms), launches
+
+
+def options_phase(dev):
+    """Phase 37: an IMNet offset decoder, then ``pos_encode: false``, each
+    in both stages: a stage-1 step at batch 4 and 240x320, a stage-2 step
+    behind it, a served 480x640 frame in each decode mode (K5 alone, no
+    other kernel), and the f32 card results against the CPU's (steps and
+    frames). Returns {option: record}."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.infer import DepthCompleter
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import (
+        make_lidf_train_step,
+        make_refine_train_step,
+    )
+
+    frames = make_frames(1, FRAME_HW)
+    out = {}
+    for option, sets in OPTION_SETS.items():
+        rec, launches = {}, {}
+        cfg = load_config(overrides=merged(TRAIN_OVERRIDES, sets))
+        lidf, _ = build_models(cfg, train=True, seed=SEED + 37)
+        lidf.to(dev)
+        assert not lidf.fused
+        batches = train_batches(OPTION_STEPS + 1, cfg, TRAIN_BATCH, dev)
+        state = TrainState.create(lidf, cfg.training, steps_per_epoch=1000)
+        rec["stage1_step_ms"], launches["stage1"] = timed_steps(
+            f"{option} stage 1", make_lidf_train_step(cfg, lidf, dev), state,
+            batches, only_k5(2))
+        torch.cuda.reset_peak_memory_stats()
+        cfg2 = load_config(overrides=merged(REFINE_OVERRIDES, sets))
+        lidf2, refine2 = build_models(cfg2, train=True, seed=SEED + 37)
+        lidf2.to(dev), refine2.to(dev)
+        state2 = TrainState.create(refine2, cfg2.training, steps_per_epoch=1000)
+        rec["stage2_step_ms"], launches["stage2"] = timed_steps(
+            f"{option} stage 2", make_refine_train_step(cfg2, lidf2, refine2,
+                                                        dev),
+            state2, train_batches(OPTION_STEPS + 1, cfg2, TRAIN_BATCH, dev),
+            only_k5(10))
+        del lidf, state, lidf2, refine2, state2, batches
+        torch.cuda.empty_cache()
+        for mode in ("per_ray", *MODES):
+            o = merged(SERVE_OVERRIDES, sets) if mode == "per_ray" else \
+                mode_overrides(merged(SERVE_OVERRIDES, sets), mode)
+            mcfg = load_config(overrides=o)
+            lm, rm = build_models(mcfg, seed=SEED + 37)
+            dc = DepthCompleter(mcfg, lidf=lm, refine=rm, device=dev)
+            dc.complete(*frames[0])  # warm-up
+            n, rec[f"{mode}_frame_ms"] = main_path(
+                dc, frames, mcfg, only_k5(10), f"{option} {mode} mode")
+            launches[mode] = n["segment_max0"]
+            del dc, lm, rm
+            torch.cuda.empty_cache()
+            xo = merged(o, {"dataset": MODE_XCHECK_DATASET})
+            if mode == "global":
+                xo["tpu"].update(MODE_XCHECK_TPU["global"])
+            cross_check(xo, *build_models(load_config(overrides=xo),
+                                          seed=SEED + 37), frames[0], dev)
+        option_xcheck(dev, sets, option)
+        rec["launches_k5"] = {k: (v["segment_max0"] if isinstance(v, dict)
+                                  else v) for k, v in launches.items()}
+        out[option] = rec
+        log(f"{option}: {rec}")
+    return out
+
+
+def remat_step(dev, cfg, batch, remat):
+    """One stage-1 ``kernel_save`` step of phase 6's weights with
+    ``remat_backbone`` as given: (gradients, running statistics, peak GiB,
+    launches)."""
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    c = copy.deepcopy(cfg)
+    c.tpu.remat_backbone = remat
+    model = build_models(c, train=True, seed=SEED + 38)[0].to(dev)
+    assert model.remat_backbone == remat
+    state = TrainState.create(model, c.training, steps_per_epoch=1000)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (_, launches) = counted(lambda: make_lidf_train_step(c, model, dev)(
+        state, batch, gen, 0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if "running" in k}
+    del model, state
+    return grads, stats, peak, launches
+
+
+def lbfgs_f64(history, g, memory=10):
+    """The L-BFGS direction (optax's scale_by_lbfgs) in float64 from the
+    f32 parameters and gradients of each step so far (``history``: [(w, g),
+    ...], this step's last) and this step's gradient."""
+    pairs = [(history[i + 1][0] - history[i][0],
+              history[i + 1][1] - history[i][1])
+             for i in range(len(history) - 1)][-memory:]
+    if not pairs:
+        return g / max(1.0, float(np.linalg.norm(g)))
+    rhos = [1.0 / du.dot(dw) for dw, du in pairs]
+    q, alphas = g.copy(), []
+    for (dw, du), rho in zip(reversed(pairs), reversed(rhos)):
+        alphas.append(rho * dw.dot(q))
+        q -= alphas[-1] * du
+    dw, du = pairs[-1]
+    q *= du.dot(dw) / du.dot(du)
+    for (dw, du), rho, a in zip(pairs, rhos, reversed(alphas)):
+        q += (a - rho * du.dot(q)) * dw
+    return q
+
+
+def remat_lbfgs_phase(dev, workdir):
+    """Phase 38: ``remat_backbone`` against none (gradients and running
+    statistics bit for bit; peak memory at batch 4 and 32), then L-BFGS:
+    LBFGS_STEPS steps, a checkpoint and a resume whose next step is bit for
+    bit the uninterrupted one, and the card's update from the recorded
+    gradients against a float64 two-loop. Returns its record."""
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.train.checkpoint import Checkpointer
+    from implicit_depth_torch.train.state import LBFGS, TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    rec, launches = {"peak_gib": {}}, {}
+    cfg = load_config(overrides=TRAIN_OVERRIDES)
+    with cudnn_flags(deterministic=True, benchmark=False):
+        for b in REMAT_BATCHES:
+            batch = train_batches(1, cfg, b, dev)[0]
+            g0, s0, p0, l0 = remat_step(dev, cfg, batch, False)
+            g1, s1, p1, l1 = remat_step(dev, cfg, batch, True)
+            rec["peak_gib"][f"batch {b}"] = {"remat": p1, "none": p0}
+            for k in l0:
+                launches[k] = launches.get(k, 0) + l0[k] + l1[k]
+            expect_launches(f"remat batch {b}", l1, 1, 0, EXPECT_PER_STEP, {})
+            if b == TRAIN_BATCH:
+                diff = [n for n in g0 if not torch.equal(g0[n], g1[n])] + \
+                    [k for k in s0 if not torch.equal(s0[k], s1[k])]
+                if diff:
+                    raise AssertionError(f"remat: not bit for bit: {diff}")
+                log(f"remat: batch {b}, {len(g0)} gradients and {len(s0)} "
+                    f"running statistics bit for bit without it")
+            log(f"remat: batch {b} peak device memory {p1:.2f} GiB with, "
+                f"{p0:.2f} without")
+            del g0, g1, s0, s1, batch
+            torch.cuda.empty_cache()
+
+        # L-BFGS: LBFGS_STEPS steps, a checkpoint, one more step; the same
+        # from the checkpoint in a fresh state
+        lcfg = load_config(overrides=merged(TRAIN_OVERRIDES, {
+            "training": {"optimizer_name": "lbfgs"}}))
+        batches = train_batches(LBFGS_STEPS + 1, lcfg, TRAIN_BATCH, dev)
+        model = build_models(lcfg, train=True, seed=SEED + 38)[0].to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before_opt = torch.cuda.memory_allocated()
+        state = TrainState.create(model, lcfg.training, steps_per_epoch=1000)
+        assert isinstance(state.optimizer, LBFGS)
+        opt_bytes = torch.cuda.memory_allocated() - before_opt
+        step = make_lidf_train_step(lcfg, model, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        history, ms = [], []
+        params = list(model.parameters())
+
+        def flat(ts):
+            return torch.cat([t.detach().reshape(-1)
+                              for t in ts]).double().cpu().numpy()
+
+        counts = counters()
+        for f in counts.values():
+            f.launches = 0
+        for i in range(LBFGS_STEPS):
+            w = flat(params)
+            t0 = time.perf_counter()
+            step(state, batches[i], gen, 0)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            history.append((w, flat([p.grad for p in params])))
+        l_lbfgs = {k: f.launches for k, f in counts.items()}
+        expect_launches("lbfgs", l_lbfgs, LBFGS_STEPS, 0, EXPECT_PER_STEP, {})
+        for k, n in l_lbfgs.items():
+            launches[k] = launches.get(k, 0) + n
+        ckpt = Checkpointer(str(workdir / "lbfgs"))
+        ckpt.save(state, epoch=0)
+        gen_state = gen.get_state()
+        step(state, batches[LBFGS_STEPS], gen, 0)
+        want = {n: p.detach().clone() for n, p in model.named_parameters()}
+        model2 = build_models(lcfg, train=True, seed=SEED + 99)[0].to(dev)
+        state2 = TrainState.create(model2, lcfg.training, steps_per_epoch=1000)
+        ckpt.restore(state2)
+        gen2 = torch.Generator(device=dev)
+        gen2.set_state(gen_state)
+        make_lidf_train_step(lcfg, model2, dev)(state2, batches[LBFGS_STEPS],
+                                                gen2, 0)
+        diff = [n for n, p in model2.named_parameters()
+                if not torch.equal(p.detach(), want[n])]
+        if diff or state2.step != state.step:
+            raise AssertionError(f"lbfgs resume: not bit for bit: {diff}")
+        log(f"lbfgs: {LBFGS_STEPS} steps, checkpoint, resume: step "
+            f"{state.step} bit for bit the uninterrupted one")
+        rec["lbfgs"] = {"step_ms": ms, "optimizer_gib": opt_bytes / 2 ** 30,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del model2, state2, want, model, state, step, batches
+        torch.cuda.empty_cache()
+
+        # the card's update from the recorded gradients (a fresh L-BFGS over
+        # one flat parameter, rate 1) against the float64 two-loop
+        flat_p = torch.nn.Parameter(torch.zeros(history[0][0].shape[0],
+                                                device=dev))
+        opt = LBFGS([flat_p], lr=1.0)
+        errs = []
+        for i, (w, g) in enumerate(history):
+            with torch.no_grad():
+                flat_p.copy_(torch.from_numpy(w).float())
+            flat_p.grad = torch.from_numpy(g).float().to(dev)
+            opt.step()
+            got = flat_p.detach().double().cpu().numpy() - w
+            ref = -lbfgs_f64(history[:i + 1], g)
+            errs.append(float(np.abs(got - ref).max() / np.abs(ref).max()))
+        log(f"lbfgs: the card's update from the recorded gradients against "
+            f"the float64 two-loop, largest difference over the largest "
+            f"value: {errs} (limit {LBFGS_F64_RTOL})")
+        if max(errs) > LBFGS_F64_RTOL:
+            raise AssertionError(f"lbfgs: {errs} > {LBFGS_F64_RTOL}")
+        rec["lbfgs"]["f64_rel_err"] = errs
+        del opt, flat_p
+        torch.cuda.empty_cache()
+    log(f"remat and lbfgs: {rec}")
+    return rec, launches
+
+
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-35 on ``dev``; prints their seconds and the kernels line."""
+    """Phases 2-38 on ``dev``; prints their seconds and the kernels line."""
     t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
@@ -4119,6 +4700,32 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
             rows[name]["disk"] = row
     log(f"disk: {json.dumps(disk)}")
 
+    # -- the reference's checkpoints, the other decoders, remat, L-BFGS ------
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for name, row in reference_phase(dev, pathlib.Path(d)).items():
+            rows[name]["reference_ckpt"] = row
+        t36 = time.perf_counter() - t0
+        options = options_phase(dev)
+        t37 = time.perf_counter() - t0 - t36
+        remat, remat_launches = remat_lbfgs_phase(dev, pathlib.Path(d))
+        t38 = time.perf_counter() - t0 - t36 - t37
+    rows["segment_max0"]["options"] = {k: v["launches_k5"]
+                                       for k, v in options.items()}
+    for name, n in remat_launches.items():
+        if name in rows:
+            rows[name]["remat_lbfgs"] = n
+    log(f"options against the IEF decode in this run: stage 1 step_ms "
+        f"{ {k: round(v['stage1_step_ms'], 1) for k, v in options.items()} } "
+        f"(IEF: phase 6 {rows['ray_decode_bwd']['step_ms']:.1f}, the "
+        f"trainer's batch 4 {trainer_times['batch4_step_ms']:.1f}); stage 2 "
+        f"{ {k: round(v['stage2_step_ms'], 1) for k, v in options.items()} } "
+        f"(IEF: phase 13 {refine_rows['ief_decode']['step_ms']:.1f}); "
+        f"per_ray frame_ms "
+        f"{ {k: round(v['per_ray_frame_ms'], 1) for k, v in options.items()} }")
+    log(f"phases 36-38 seconds {round(t36, 1)} / {round(t37, 1)} / "
+        f"{round(t38, 1)}")
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 **{k: row[k] for k in ENTRY_KEYS if k in row}}
@@ -4126,8 +4733,8 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
-    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-35; "
-        f"33-35: {disk_s:.1f})")
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-38; "
+        f"33-35: {disk_s:.1f}; 36-38: {t36 + t37 + t38:.1f})")
     log(json.dumps({"kernels": kernels}))
 
 

@@ -63,6 +63,7 @@ def build_lidf(cfg: Config, static: LIDFStatic,
         pairs_budget=cfg.tpu.get("pairs_budget_per_ray", 0),
         pairs_budget_mode=cfg.tpu.get("pairs_budget_mode", "per_ray"),
         decode_bwd=cfg.tpu.get("decode_bwd", "kernel_save"),
+        remat_backbone=bool(cfg.tpu.get("remat_backbone", False)),
         dtype=compute_dtype(cfg),
         generator=generator,
     )

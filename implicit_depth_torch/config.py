@@ -285,8 +285,9 @@ _DEFAULTS: Dict[str, Any] = {
     },
     # Settings of the JAX package's TPU paths (no reference equivalent). The
     # port reads max_pairs_per_ray, pairs_budget_per_ray, pairs_budget_mode,
-    # compute_dtype, decode_bwd, host_rss_exit_gb, train_steps_per_call and
-    # eval_rays_per_chunk; it accepts the other keys and ignores them.
+    # compute_dtype, decode_bwd, remat_backbone, host_rss_exit_gb,
+    # train_steps_per_call and eval_rays_per_chunk; it accepts the other
+    # keys and ignores them.
     # mesh_shape among them: the JAX trainer computes its ("data", "rays")
     # mesh from the batch and the device count and never reads the key
     # (make_mesh's default only), and so does the port (parallel/mesh.py::

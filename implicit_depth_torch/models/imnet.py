@@ -7,8 +7,12 @@ the last layer's kernel starts at mean 1e-5; outputs are soft-clamped to
 offset 0.001, encodes the running offset (1 -> 16, appended at the END of
 layer 1's input) and makes ``n_iter`` additive passes through the MLP.
 
-These modules hold the decoder parameters and compute the plain forward;
-the serving path decodes through ``ops/ray_decode.py`` (kernels K1, K4),
+These modules hold the decoder parameters and compute the plain forward
+(IEF's layer 1 split into the embedding's and the offset encoding's
+products, as the JAX module's ``from_parts`` computes it): the decode of
+the configurations the kernels do not take (an IMNet offset decoder, no
+positional encoding). The IEF decode with positional encoding goes through
+``ops/ray_decode.py`` and ``ops/pair_decode.py`` (kernels K1, K2, K4, K6),
 which take the same parameters split by embedding part.
 """
 
@@ -46,8 +50,11 @@ class MLP4(nn.Module):
         return self.l0, self.l1, self.l2, self.l3
 
     def forward(self, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-        h = _act(linear(x, self.l0, dtype))
-        h = _act(linear(h, self.l1, dtype))
+        return self.tail(_act(linear(x, self.l0, dtype)), dtype)
+
+    def tail(self, h1: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        """Layers 2-4 from layer 1's activated output."""
+        h = _act(linear(h1, self.l1, dtype))
         h = _act(linear(h, self.l2, dtype))
         return linear(h, self.l3, dtype)
 
@@ -77,12 +84,19 @@ class IEF(nn.Module):
         self.mlp = MLP4(in_dim + 16, gf_dim, out_dim, generator)
 
     def forward(self, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        """The JAX module's ``from_parts([x])``: layer 1 is x·W_x, computed
+        once and rounded to ``dtype``, plus each iteration's offset encoding
+        times W_f, plus the bias, each sum rounded to ``dtype``."""
+        l0 = self.mlp.l0
+        n = x.shape[-1]
+        zx = x.to(dtype) @ l0.weight[:, :n].to(dtype).t()
+        w_f, b0 = l0.weight[:, n:].to(dtype).t(), l0.bias.to(dtype)
         offset = torch.full((*x.shape[:-1], self.out_dim), self.init_offset,
                             dtype=torch.float32, device=x.device)
         for _ in range(self.n_iter):
             feat = linear(offset, self.offset_enc, dtype)
-            offset = offset + self.mlp(torch.cat([x.to(dtype), feat], -1),
-                                       dtype).float()
+            h1 = _act(zx + feat @ w_f + b0)
+            offset = offset + self.mlp.tail(h1, dtype).float()
         return torch.sigmoid(offset) if self.use_sigmoid else soft_clamp01(offset)
 
     def decode_weights(self, detach: bool = True) -> dict:

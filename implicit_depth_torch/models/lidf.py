@@ -24,6 +24,12 @@
   and dense decodes run the plain version under autograd on the CPU, as the
   JAX package trains them with ``use_pallas_decode: false``, and raise on
   the card.
+  The kernels take the IEF offset decoder with positional encoding. With
+  ``offdec_type`` IMNet or ``pos_encode`` false the config alone selects
+  the JAX package's non-fused decode (``_embed_decode``: the embedding,
+  then both decoders) in every mode, ``per_ray`` as the dense decode of
+  the kb slots, in plain torch under autograd on any device;
+  ``decode_bwd`` is then unread.
 * :func:`lidf_loss` — position L1, per-ray termination cross-entropy,
   surface-normal and smoothness terms, and the metrics.
 * :func:`split_rays` — a rank's block of the ray tensors under the mesh's
@@ -52,7 +58,7 @@ from implicit_depth_torch.models.embedder import posenc_dim, positional_encoding
 from implicit_depth_torch.models.imnet import IEF, IMNet
 from implicit_depth_torch.models.init import PreparedWeights
 from implicit_depth_torch.models.pointnet import PointNet2Stage
-from implicit_depth_torch.models.resnet import ResNet34_8s
+from implicit_depth_torch.models.resnet import ResNet34_8s, remat
 from implicit_depth_torch.ops.masked import (
     masked_argmax,
     masked_log_softmax,
@@ -261,12 +267,10 @@ class LIDFModel(nn.Module):
                  resnet_stages: Sequence[int] = (3, 4, 6, 3),
                  pairs_budget: int = 8, pairs_budget_mode: str = "per_ray",
                  decode_bwd: str = "kernel_save",
+                 remat_backbone: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not (pos_encode and offdec_type == "IEF"):
-            raise NotImplementedError("only the IEF offset decoder with "
-                                      "positional encoding is ported")
         if pairs_budget > 0 and pairs_budget_mode == "per_ray" \
                 and pairs_budget < static.k_pairs:
             self.decode_mode = "per_ray"
@@ -276,23 +280,34 @@ class LIDFModel(nn.Module):
             self.decode_mode = "dense"
         self.static = static
         self.multires, self.multires_views = multires, multires_views
+        self.pos_encode = pos_encode
+        # the kernels decode the IEF offset decoder with positional encoding
+        # (the JAX package's fused_ok / ray_major_ok); any other decoder
+        # decodes in plain torch, on the card too, as JAX decodes it in XLA
+        self.fused = pos_encode and offdec_type == "IEF"
         self.intersect_pos_type = intersect_pos_type
         self.n_iter, self.use_sigmoid = n_iter, use_sigmoid
         self.offset_range = tuple(offset_range)
         self.pairs_budget = pairs_budget
         self.decode_bwd = decode_bwd
+        self.remat_backbone = remat_backbone
         self.dtype = dtype
         roi_dim = rgb_out * static.roi_out_bbox ** 2
         self.dims = {"c_vox": pnet_out, "c_roi": roi_dim,
-                     "c_dir": posenc_dim(multires_views)}
-        embed = pnet_out + roi_dim + 2 * posenc_dim(multires) \
-            + posenc_dim(multires_views)
+                     "c_dir": posenc_dim(multires_views, enabled=pos_encode)}
+        embed = pnet_out + roi_dim \
+            + 2 * posenc_dim(multires, enabled=pos_encode) + self.dims["c_dir"]
         self.resnet = ResNet34_8s(out_ch=rgb_out, stage_sizes=resnet_stages,
                                   generator=generator)
         self.pnet = PointNet2Stage(out_channels=pnet_out, gf_dim=pnet_gf,
                                    generator=generator)
-        self.offset_dec = IEF(embed, gf_dim=imnet_gf, n_iter=n_iter,
-                              use_sigmoid=use_sigmoid, generator=generator)
+        if offdec_type == "IEF":
+            self.offset_dec = IEF(embed, gf_dim=imnet_gf, n_iter=n_iter,
+                                  use_sigmoid=use_sigmoid, generator=generator)
+        else:
+            self.offset_dec = IMNet(embed, gf_dim=imnet_gf,
+                                    use_sigmoid=use_sigmoid,
+                                    generator=generator)
         self.prob_dec = IMNet(embed, gf_dim=imnet_gf, use_sigmoid=use_sigmoid,
                               generator=generator)
         self._decode_w = PreparedWeights()
@@ -342,8 +357,14 @@ class LIDFModel(nn.Module):
                          inputs["vox_point_valid"].reshape(-1), self.dtype)
 
     def trunk(self, inputs: Tensors):
-        """Per-image work shared by all rays: RGB features + voxel features."""
-        return self.resnet(inputs["rgb"], self.dtype), self.voxel_features(inputs)
+        """Per-image work shared by all rays: RGB features + voxel features.
+        With ``remat_backbone`` the ResNet is checkpointed as one unit
+        (``models/resnet.py::remat``: its activations recomputed in the
+        backward, as the JAX package's ``nn.remat(ResNet34_8s)``)."""
+        rgb = inputs["rgb"]
+        feat_map = (remat(self.resnet, rgb, self.dtype) if self.remat_backbone
+                    else self.resnet(rgb, self.dtype))
+        return feat_map, self.voxel_features(inputs)
 
     def _pair_positions(self, inputs: Tensors):
         grid = self.static.grid
@@ -362,6 +383,8 @@ class LIDFModel(nn.Module):
         kernel, not decoded): the kernel in eval mode; in train mode the
         plain version under autograd at operands from the live parameters,
         on the CPU only."""
+        if not self.fused:
+            return self._embed_decode(vox_feat, cells, pos, ray_feat, rays)
         kw = dict(n_rows=n_rows, n_iter=self.n_iter,
                   init_offset=self.offset_dec.init_offset,
                   use_sigmoid=self.use_sigmoid)
@@ -381,6 +404,26 @@ class LIDFModel(nn.Module):
             self.multires, self.dtype), self.dtype)
         return pair_decode_plain(vox_feat, cells, pos, ray_feat, w, rays,
                                  dtype=self.dtype, **kw)
+
+    def _embed_decode(self, vox_feat, cells, pos, ray_feat, rays=None):
+        """The decode of pair rows without a kernel, for the decoders the
+        kernels do not take (the JAX package's ``_embed_and_decode`` when
+        ``fused_ok`` is false): each row's embedding [vox | roi |
+        posenc(enter) | posenc(leave) | posenc(dir)] in the compute dtype,
+        then both decoders; the arguments as :meth:`_decode_pairs` takes
+        them. Plain torch under autograd, on any device."""
+        p, n = cells.shape[0], ray_feat.shape[0]
+        rows = (ray_feat.repeat_interleave(p // n, 0) if rays is None
+                else ray_feat[rays.long()])
+        c_roi, dt = self.dims["c_roi"], self.dtype
+        enter_e, leave_e = (positional_encoding(pos[:, s:s + 3], self.multires,
+                                                self.pos_encode)
+                            for s in (0, 3))
+        embed = torch.cat([vox_feat[cells.long()].to(dt), rows[:, :c_roi],
+                           enter_e.to(dt), leave_e.to(dt), rows[:, c_roi:]],
+                          -1)
+        return (self.offset_dec(embed, dt)[..., 0],
+                self.prob_dec(embed, dt)[..., 0])
 
     def _decode_dense(self, inputs, vox_feat, ray_feat):
         """Every (B, R, K) slot, invalid ones included (cell 0, t 0: decoded
@@ -492,7 +535,7 @@ class LIDFModel(nn.Module):
                               inp_bbox=self.static.roi_inp_bbox,
                               out_bbox=self.static.roi_out_bbox).reshape(b, r, -1)
         dirs = inputs["miss_dir"]
-        dir_e = positional_encoding(dirs, self.multires_views)
+        dir_e = positional_encoding(dirs, self.multires_views, self.pos_encode)
         ray_feat = torch.cat([roi.to(self.dtype), dir_e.to(self.dtype)],
                              -1).reshape(b * r, -1)
 
@@ -503,6 +546,13 @@ class LIDFModel(nn.Module):
                       ("pair_cell", "pair_valid", "t_enter", "t_exit",
                        "pair_label")}
             sliced["miss_dir"] = dirs
+            pair_valid = sliced["pair_valid"]
+        if self.decode_mode == "per_ray" and not self.fused:
+            # the JAX package's non-fused per_ray decode: the dense decode
+            # of the (B, R, kb) block
+            pred_offset, prob_logit = self._decode_dense(sliced, vox_feat,
+                                                         ray_feat)
+        elif self.decode_mode == "per_ray":
             enter, leave = self._pair_positions(sliced)
             pos = torch.cat([enter, leave], -1).float().reshape(b * r, kb, 6)
             cells = (torch.arange(b, dtype=torch.int32,
@@ -523,7 +573,6 @@ class LIDFModel(nn.Module):
                                         **kw)
             pred_offset = off.reshape(b, r, kb)
             prob_logit = logit.reshape(b, r, kb)
-            pair_valid = sliced["pair_valid"]
         else:
             sliced = inputs
             if self.decode_mode == "global":

@@ -10,6 +10,9 @@ decode is ``ops/ray_decode.ief_decode`` (kernel K4 on the card) on cached
 operands; with grad enabled it is ``ief_decode_train`` on operands split
 from the live parameters (K4 forward and the plain recompute backward on
 the card), so the decoder and the PointNet get their gradients through it.
+With an IMNet offset decoder or ``pos_encode`` false (which K4 does not
+take) the config selects the JAX package's non-fused tail: the embedding
+concatenated, then the decoder, in plain torch on any device.
 Training perturbs the stage-1 prediction once, before the first iteration
 (:func:`perturb_pred_pos`, :func:`refine_forward`); :func:`refine_loss` is
 the stage-2 loss. Under a split of the rays (``parallel/mesh.py::Split``)
@@ -27,7 +30,7 @@ from torch import nn
 
 from implicit_depth_torch.geometry.sampling import draw_uniform
 from implicit_depth_torch.models.embedder import posenc_dim, positional_encoding
-from implicit_depth_torch.models.imnet import IEF
+from implicit_depth_torch.models.imnet import IEF, IMNet
 from implicit_depth_torch.models.init import PreparedWeights
 from implicit_depth_torch.models.lidf import (
     LIDFStatic,
@@ -89,25 +92,32 @@ class RefineModel(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not (pos_encode and offdec_type == "IEF"):
-            raise NotImplementedError("only the IEF offset decoder with "
-                                      "positional encoding is ported")
         self.static = static
         self.multires, self.multires_views = multires, multires_views
+        self.pos_encode = pos_encode
+        # K4 decodes the IEF offset decoder with positional encoding (the
+        # JAX package's fused_ok); any other decoder decodes in plain torch
+        self.fused = pos_encode and offdec_type == "IEF"
         self.intersect_pos_type = intersect_pos_type
         self.pnet_pos_type = pnet_pos_type
         self.n_iter, self.use_sigmoid = n_iter, use_sigmoid
         self.offset_range = tuple(offset_range)
         self.dtype = dtype
         roi_dim = rgb_out * static.roi_out_bbox ** 2
-        c_dir = posenc_dim(multires_views)
+        c_dir = posenc_dim(multires_views, enabled=pos_encode)
+        c_pos = posenc_dim(multires, enabled=pos_encode)
         self.dims = {"c_end": pnet_out, "c_rc": roi_dim + c_dir,
-                     "c_pos": posenc_dim(multires), "c_dir": c_dir}
+                     "c_pos": c_pos, "c_dir": c_dir}
         self.pnet = PointNet2Stage(out_channels=pnet_out, gf_dim=pnet_gf,
                                    generator=generator)
-        self.offset_dec = IEF(pnet_out + roi_dim + posenc_dim(multires) + c_dir,
-                              gf_dim=imnet_gf, n_iter=n_iter,
-                              use_sigmoid=use_sigmoid, generator=generator)
+        embed = pnet_out + roi_dim + c_pos + c_dir
+        if offdec_type == "IEF":
+            self.offset_dec = IEF(embed, gf_dim=imnet_gf, n_iter=n_iter,
+                                  use_sigmoid=use_sigmoid, generator=generator)
+        else:
+            self.offset_dec = IMNet(embed, gf_dim=imnet_gf,
+                                    use_sigmoid=use_sigmoid,
+                                    generator=generator)
         self._decode_w = PreparedWeights()
 
     def decode_operands(self) -> Tensors:
@@ -189,8 +199,18 @@ class RefineModel(nn.Module):
         # -- embedding parts + IEF decode ---------------------------------
         pos_inp = (pred_pos - end_center if self.intersect_pos_type == "rel"
                    else pred_pos)
-        pos_e = positional_encoding(pos_inp, self.multires)
-        dir_e = positional_encoding(miss_dir, self.multires_views)
+        pos_e = positional_encoding(pos_inp, self.multires, self.pos_encode)
+        dir_e = positional_encoding(miss_dir, self.multires_views,
+                                    self.pos_encode)
+        if not self.fused:
+            # the JAX package's non-fused tail: one embedding, the decoder
+            dt = self.dtype
+            embed = torch.cat([end_feat.to(dt),
+                               roi_feat.reshape(b * r, -1).to(dt),
+                               pos_e.reshape(b * r, -1).to(dt),
+                               dir_e.reshape(b * r, -1).to(dt)], -1)
+            return self._step(pred_pos, miss_dir,
+                              self.offset_dec(embed, dt)[..., 0])
         rc = torch.cat([roi_feat.to(self.dtype), dir_e.to(self.dtype)], -1)
         rows = (end_feat.to(self.dtype), rc.reshape(b * r, -1),
                 pos_e.reshape(b * r, -1).to(self.dtype))
@@ -201,9 +221,13 @@ class RefineModel(nn.Module):
                                    **kw)
         else:
             off = ief_decode(*rows, self.decode_operands(), **kw)
-        off = off.reshape(b, r)
+        return self._step(pred_pos, miss_dir, off)
+
+    def _step(self, pred_pos, miss_dir, off):
+        """pred_pos moved along the ray by the decoded offset (B·R,)
+        mapped into ``offset_range``."""
         lo, hi = self.offset_range
-        scaled = off * (hi - lo) + lo
+        scaled = off.reshape(pred_pos.shape[:2]) * (hi - lo) + lo
         return pred_pos + scaled[..., None] * miss_dir
 
 

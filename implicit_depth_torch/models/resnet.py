@@ -17,10 +17,14 @@ Under a process group of several data blocks the train-mode statistics
 are the global batch's (the JAX step's, taken over the global array), the
 same on every rank, and so are the running statistics.
 Input and output are NHWC, as in the JAX module.
+:func:`remat` checkpoints the whole network as one unit
+(``tpu.remat_backbone``): its activations are recomputed in the backward,
+and the recompute leaves the running statistics alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -28,6 +32,7 @@ import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from implicit_depth_torch.models.init import normal_
@@ -120,6 +125,40 @@ def _global_moments(x):
     return sums[:c] / n, sums[c:] / n
 
 
+class _Recompute:
+    """Set while :func:`remat` recomputes the forward in the backward. A
+    flag of the process, not of a thread: the CUDA backward runs on the
+    autograd engine's own thread."""
+
+    active = False
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _Recompute.active = True
+    try:
+        yield
+    finally:
+        _Recompute.active = False
+
+
+def remat(resnet: "ResNet34_8s", x: torch.Tensor, dtype) -> torch.Tensor:
+    """``resnet(x, dtype)`` checkpointed as one unit (the JAX package's
+    ``nn.remat(ResNet34_8s)``): only its input is kept for the backward,
+    which runs the forward again and differentiates that. The recompute
+    makes the same operations in the same order (under a process group the
+    BatchNorm moments' all-reduce too, on every rank), so the gradients are
+    the bits of the plain forward's; the running statistics move once, in
+    the forward, as flax throws the recompute's updates away. Without
+    autograd it is the plain call."""
+    if not torch.is_grad_enabled():
+        return resnet(x, dtype)
+    # preserve_rng_state: the network draws no random number
+    return torch.utils.checkpoint.checkpoint(
+        resnet, x, dtype, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+
+
 def _bn_f32(x, bn: nn.BatchNorm2d):
     x = x.float()
     if not bn.training:
@@ -132,9 +171,10 @@ def _bn_f32(x, bn: nn.BatchNorm2d):
     else:
         mean, ex2 = x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))
     var = (ex2 - mean * mean).clamp(min=0)
-    with torch.no_grad():
-        bn.running_mean.mul_(_MOMENTUM).add_(mean, alpha=1 - _MOMENTUM)
-        bn.running_var.mul_(_MOMENTUM).add_(var, alpha=1 - _MOMENTUM)
+    if not _Recompute.active:  # the forward updates them, its recompute not
+        with torch.no_grad():
+            bn.running_mean.mul_(_MOMENTUM).add_(mean, alpha=1 - _MOMENTUM)
+            bn.running_var.mul_(_MOMENTUM).add_(var, alpha=1 - _MOMENTUM)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
 

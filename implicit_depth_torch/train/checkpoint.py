@@ -209,7 +209,9 @@ def _resolve(ckpt_dir: str, name: str) -> str:
 def _opt_state_fits(opt: torch.optim.Optimizer, saved: Any) -> bool:
     """Whether a saved optimizer ``state_dict`` has the structure of
     ``opt``'s: the same groups of the same sizes, and per parameter the
-    same state entries with the shapes ``opt`` would give them."""
+    same state entries with the shapes ``opt`` would give them (those of
+    the entries it holds, as L-BFGS holds its state from the start; else
+    the parameter's)."""
     if not isinstance(saved, dict) or "param_groups" not in saved:
         return False
     groups = opt.param_groups
@@ -220,9 +222,12 @@ def _opt_state_fits(opt: torch.optim.Optimizer, saved: Any) -> bool:
     params = [p for g in groups for p in g["params"]]
     ids = [i for s in saved["param_groups"] for i in s["params"]]
     for p, i in zip(params, ids):
-        st = saved["state"].get(i, {})
+        st, own = saved["state"].get(i, {}), opt.state.get(p, {})
+        if own and set(st) != set(own):
+            return False
         for k, v in st.items():
-            if torch.is_tensor(v) and v.dim() > 0 and v.shape != p.shape:
+            want = own[k].shape if torch.is_tensor(own.get(k)) else p.shape
+            if torch.is_tensor(v) and v.dim() > 0 and v.shape != want:
                 return False
     return True
 

@@ -16,8 +16,8 @@ so that gradients compare parameter by parameter.
 
 Names mapped: ``resnet/conv1``, ``resnet/bn1``,
 ``resnet/layer{s}_{i}/{conv1,bn1,conv2,bn2,down_conv,down_bn}``,
-``resnet/fc``; ``pnet/Dense_0..5``; ``offset_dec/{Dense_0, _MLP4_0/Dense_0..3}``;
-``prob_dec/_MLP4_0/Dense_0..3``. The ROI features keep the JAX package's
+``resnet/fc``; ``pnet/Dense_0..5``; ``offset_dec/{Dense_0, _MLP4_0/Dense_0..3}``
+(an IMNet offset decoder: ``_MLP4_0`` alone); ``prob_dec/_MLP4_0/Dense_0..3``. The ROI features keep the JAX package's
 spatial-major layout, so decoder weights need transposes only.
 """
 

@@ -714,11 +714,6 @@ def test_optimizer_with_step_lr_matches_optax(name):
     assert state.step == 4
 
 
-def test_lbfgs_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_optimizer("lbfgs", [torch.nn.Parameter(torch.zeros(2))], 1e-3)
-
-
 # -- the whole train step and the eval step -------------------------------------
 
 def _both_models(dtype, seed=34):
