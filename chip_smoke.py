@@ -12,7 +12,8 @@ writes the reference datasets' file layouts with the port's own codecs and
 trains, tests and serves from those files, and (phases 36-38) serves and
 tests the reference's own checkpoint layout, trains and serves the IMNet
 offset decoder and the decoders without positional encoding, and trains
-with a checkpointed backbone and with L-BFGS.
+with a checkpointed backbone and with L-BFGS, and (phase 39) serves and
+trains at per-ray pair budgets other than 8.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
@@ -255,7 +256,22 @@ Phases:
      K2 1, K3 1, K5 2), a checkpoint, a resume whose next step is bit for
      bit, the card's update from the recorded gradients against a float64
      two-loop (LBFGS_F64_RTOL), the step time and the optimizer's memory.
-     Then the seconds of phases 2-38, of 33-35 and of 36-38.
+ 39. the per-ray pair budgets other than 8: the default model (K = 20) at
+     ``pairs_budget_per_ray`` 4, 12 and 16 (BUDGETS): a 480x640 frame
+     served (K1 1, K4 2, K5 10 a frame, input depth bit for bit), a bare
+     stage-1 step in each decode_bwd mode (launches as phases 6 and
+     10-12), a stage-2 step behind the frozen stage 1 (K1 1, K4 2, K5 10),
+     each after a step or frame whose K1, K2, K2 'all' and K3 calls are
+     recorded and held against their plain versions in bf16 and f32 at
+     phases 3, 7, 10 and 11's tolerances, with times and bounds (the
+     kernels line's "at_budgets"), K3 twice on each call the same bits; an
+     f32 frame card vs CPU at budget 12 (as phase 5, at 120x160); every
+     kernel at kb 1 and 64 on calls made from recorded ones (slots of a kb
+     4 call; a kb 16 call's slots four times over); then
+     configs/train_lidf.yaml at budget 16 through the CLI (one epoch of 2
+     steps at batch 4, validated: K2 1, K3 1, K5 2 a step; K1 1, K5 2 an
+     eval frame) and configs/test_lidf.yaml from its checkpoint (its CSV).
+     Then the seconds of phases 2-39, of 33-35, of 36-38 and of 39.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -683,17 +699,24 @@ def record_calls(mods, run, when=None, keep=None):
     return recorded
 
 
+def k1_f32_operands(lidf):
+    """K1's operands from ``lidf``'s decoders in f32 (the f32 twin of a
+    recorded bf16 call)."""
+    from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import ray_decode as rd
+    return rd.prep_ray_decode_weights(
+        decoder_weights(lidf.offset_dec, lidf.prob_dec), lidf.dims["c_vox"],
+        lidf.dims["c_roi"], lidf.dims["c_dir"], lidf.multires, torch.float32)
+
+
 @torch.inference_mode()
 def kernel_phase(recorded, lidf, refine, dev, tols=TOL, bite=True):
     """Each recorded call of a served frame, kernel vs plain (see
     ``forward_rows``). Returns the row of each kernel at its largest bf16
     shape."""
-    from implicit_depth_torch.models.lidf import decoder_weights
     from implicit_depth_torch.ops import ray_decode as rd
 
-    f32w_k1 = rd.prep_ray_decode_weights(
-        decoder_weights(lidf.offset_dec, lidf.prob_dec), lidf.dims["c_vox"],
-        lidf.dims["c_roi"], lidf.dims["c_dir"], lidf.multires, torch.float32)
+    f32w_k1 = k1_f32_operands(lidf)
     f32w_k4 = rd.prep_ief_weights(
         refine.offset_dec.decode_weights(), refine.dims["c_end"],
         refine.dims["c_rc"], refine.dims["c_pos"], refine.dims["c_dir"],
@@ -3602,7 +3625,7 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
               "rows_decoded", "ptxas", "refine_train", "trainer", "decoder",
               "at_widths", "config_runs", "rays", "disk", "reference_ckpt",
-              "options", "remat_lbfgs")
+              "options", "remat_lbfgs", "at_budgets")
 
 
 # -- the disk datasets (phases 33-35) -------------------------------------------
@@ -4557,9 +4580,306 @@ def remat_lbfgs_phase(dev, workdir):
     return rec, launches
 
 
+# -- the per-ray pair budgets other than 8 (phase 39) -------------------------
+# the default model (K = 20 pair slots) at these pairs_budget_per_ray: the
+# serving, bare training, stage-2 and (BUDGET_CLI) CLI paths
+BUDGETS = (4, 12, 16)
+# counted frames and steps of each path at a budget (after the recorded one)
+BUDGET_FRAMES, BUDGET_STEPS = 1, 1
+# the budget of the f32 frame card vs CPU (at MODE_XCHECK_DATASET), and of
+# the CLI runs
+BUDGET_XCHECK, BUDGET_CLI = 12, 16
+# configs/train_lidf.yaml cut to one epoch of 2 steps at batch 4, validated
+BUDGET_CLI_SET = ["training.batch_size=4", "dataset.synthetic_len=8",
+                  "training.nepochs=1", "training.valid_batch_size=1",
+                  f"tpu.pairs_budget_per_ray={BUDGET_CLI}"]
+# budgets only the kernels see, on calls made from recorded ones: kb 1, the
+# first slot of a kb-4 call; kb 64 (a ray a bf16 tile; two f32 blocks a
+# ray), a kb-16 call's slots four times over, on its first BUDGET_ALONE_RAYS
+# rays (256,000 pair rows: the phase's budget of time)
+BUDGET_ALONE = {1: 4, 64: 16}
+BUDGET_ALONE_RAYS = 4000
+# the frozen stage 1's K1 call in a stage-2 step (no earlier phase holds
+# it): its decoder outputs spread twice the served frame's (std 0.100-0.109
+# against 0.050-0.057 on an H100), and a bf16 flip of a hidden activation
+# moved one output by 8.05e-3 at kb 8, 12 and 16 alike (the same pair among
+# the first 8 slots; at kb 8 the kernel computes the parent's bits), 4.62e-3
+# at kb 4. bf16: twice the largest reading, as phase 3's 4e-3 is twice the
+# served frame's, which leaves it STAGE2_BITE (not BITE) times below the
+# spread: a dropped layer or iteration moves most outputs by about the
+# spread; f32 keeps 1e-5 and BITE
+STAGE2_K1_TOL = {("ray_decode", torch.float32): 1e-5,
+                 ("ray_decode", torch.bfloat16): 1.6e-2}
+STAGE2_BITE = 5
+# phase 39's timings (its budget of about a minute: K1-K3 at three budgets
+# in bf16 and f32; the plain K3 and the f32 K3 take 0.1-0.4 s a call on an
+# H100): a first call, whose time is the reading where it took over
+# BUDGET_SLOW_MS, else the median of BUDGET_REPS calls after it
+BUDGET_REPS, BUDGET_SLOW_MS = 3, 50.0
+# what the kernels line keeps of a kernel's row at a budget
+BUDGET_KEYS = WIDTH_KEYS + ("frame_ms", "train", "stage2")
+
+
+def budget_k1_row(recorded, lidf, dev, tols=TOL, bite=True):
+    """K1 on the calls of ``recorded`` (``forward_rows``, in bf16 as
+    recorded and in f32 with ``lidf``'s weights re-prepared)."""
+    f32w = k1_f32_operands(lidf)
+
+    def as_f32(name, a):
+        vt, cells, pos, rf, _ = a
+        return vt.float(), cells, pos, rf.float(), f32w
+
+    with torch.inference_mode():
+        return forward_rows(recorded, as_f32, dev, tols,
+                            bite=bite)["ray_decode"]
+
+
+def slots_of(kb, rays, *ts):
+    """Each (rays, slots, ...) tensor of ``ts`` at ``kb`` slots: its first
+    ``kb`` slots, or its slots repeated up to ``kb``, on its first ``rays``
+    rays."""
+    out = []
+    for t in ts:
+        t = t[:rays]
+        reps = -(-kb // t.shape[1])
+        out.append(t.repeat(1, reps, *([1] * (t.dim() - 2)))[:, :kb]
+                   .contiguous())
+    return out
+
+
+def budget_alone_rows(serve_calls, train_calls, lidf):
+    """K1, K2, K2 'all' and K3's three instances at the budgets of
+    BUDGET_ALONE, on calls made from the recorded ones of another budget,
+    each against its plain version in bf16 and f32 (phases 3, 7, 10 and
+    11's tolerances); K3 twice on each call, the same bits. Returns {kb:
+    {kernel: its bf16 row}}."""
+    out = {}
+    for kb, src in BUDGET_ALONE.items():
+        (a, kw), = serve_calls[src].values()
+        vt, cells, pos, rf, w = a
+        n = a[1].shape[0] if kb < src else BUDGET_ALONE_RAYS
+        cells, pos = slots_of(kb, n, cells, pos)
+        call = (vt, cells, pos, rf[:n].contiguous(), w)
+        rows = {"ray_decode": budget_k1_row(
+            {("ray_decode", tuple(tuple(t.shape) for t in call
+                                  if torch.is_tensor(t))): (call, kw)},
+            lidf, vt.device)}
+        rec = train_calls[src]
+        (vt, cells, pos, rf, w), kw2 = rec["ray_decode_save"]
+        a3, kw3 = rec["ray_decode_bwd"]
+        n = cells.shape[0] if kb < src else BUDGET_ALONE_RAYS
+        cells, pos, g_off, g_logit = slots_of(kb, n, cells, pos, a3[6], a3[7])
+        rf = rf[:n].contiguous()
+        derived = {"f32_operands": rec["f32_operands"],
+                   "ray_decode_save": ((vt, cells, pos, rf, w), kw2),
+                   "ray_decode_save_all": ((vt, cells, pos, rf, w), kw2),
+                   "ray_decode_bwd": ((vt, cells, pos, rf, w, None, g_off,
+                                       g_logit), kw3)}
+        log(f"kb {kb} alone: {n} rays of {kb} slots, from kb {src}'s calls")
+        rows.update(train_kernel_phase(derived))
+        rows["ray_decode_bwd_recompute"] = recompute_kernel_rows(derived)
+        rows.update(save_all_kernel_rows(derived))
+        from implicit_depth_torch.ops import ray_decode as rd
+        a2 = derived["ray_decode_save"][0]
+        for name, saved in (("ray_decode_bwd", rd.ray_decode_save(
+                *a2, **kw2)[2]), ("ray_decode_bwd_recompute", None),
+                            ("ray_decode_bwd_all", rd.ray_decode_save_all(
+                                *a2, **kw2)[2])):
+            rows[name]["repeat_bit_identical"] = k3_repeats(
+                {"ray_decode_bwd": ((*a2, saved, g_off, g_logit), kw3)})
+        log(f"kb {kb} alone: each K3 instance twice on its call: the same "
+            f"bits")
+        out[kb] = rows
+        del derived, rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def budget_cli_phase(dev, workdir):
+    """configs/train_lidf.yaml at ``pairs_budget_per_ray`` BUDGET_CLI
+    through the CLI (BUDGET_CLI_SET), then configs/test_lidf.yaml from its
+    checkpoint at the same budget: launches per step K2 1, K3 1, K5 2 and
+    per eval frame K1 1, K5 2; finite losses; the test's CSV. Returns
+    {kernel: launches} of both runs."""
+    tr, launches = counted(lambda: cli(dev, "lidf", workdir / "train",
+                                       *BUDGET_CLI_SET))
+    recs = epoch_records(tr)
+    steps = tr.steps_per_epoch * len(recs)
+    frames = sum(len(tr.make_valid_loaders()["synthetic"].dataset)
+                 for r in recs if "valid" in r)
+    expect_launches(f"kb {BUDGET_CLI} CLI train_lidf", launches, steps,
+                    frames, EXPECT_PER_STEP, EXPECT_PER_EVAL_FRAME)
+    losses = [v for r in recs for v in r["train"].values()]
+    if tr.cfg.tpu.pairs_budget_per_ray != BUDGET_CLI or steps != 2 \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"kb {BUDGET_CLI} CLI: records {recs}")
+    test, test_launches = counted(lambda: cli(
+        dev, "test", workdir / "test", f"checkpoint_path={tr.ckpt_dir}",
+        "dataset.synthetic_len=4", f"tpu.pairs_budget_per_ray={BUDGET_CLI}"))
+    expect_launches(f"kb {BUDGET_CLI} CLI test_lidf", test_launches, 0,
+                    len(test.make_valid_loaders()["synthetic"].dataset), {},
+                    EXPECT_PER_EVAL_FRAME)
+    rows = read_csv(test)
+    if rows[-1][0] != "MEAN" or not np.isfinite(
+            np.asarray(rows[-1][1:], np.float64)).all():
+        raise AssertionError(f"kb {BUDGET_CLI} CLI test: CSV {rows}")
+    log(f"kb {BUDGET_CLI} CLI: train_lidf.yaml {steps} steps, losses "
+        f"{[r['train'] for r in recs]}; test_lidf.yaml result/synthetic.csv "
+        f"{len(rows) - 2} rows, MEAN {rows[-1][1:]}")
+    return {k: launches[k] + test_launches[k] for k in launches}
+
+
+def budget_phase(dev, workdir):
+    """Phase 39: the default model at each pairs_budget_per_ray of BUDGETS
+    (K = 20 slots) through its entry points: DepthCompleter.complete on a
+    480x640 frame (K1's calls recorded, then BUDGET_FRAMES frames counted:
+    K1 1, K4 2, K5 10 a frame, input depth bit for bit), the bare stage-1
+    steps in each decode_bwd mode (a recorded step, then BUDGET_STEPS
+    counted: launches as phases 6 and 10-12), stage 2 behind the frozen
+    stage 1 (K1 1, K4 2, K5 10 a step; K1's call of a step recorded); each
+    recorded K1, K2, K2 'all' and K3 call against its plain version in bf16
+    and f32 at phases 3, 7, 10 and 11's tolerances, K3 twice on each call
+    the same bits; an f32 frame card vs CPU at BUDGET_XCHECK (as phase 5,
+    at MODE_XCHECK_DATASET); kb 1 and 64 on calls made from recorded ones
+    (budget_alone_rows); the CLI at BUDGET_CLI (budget_cli_phase). Returns
+    ({kernel: {"kb<kb>": its row}}, the CLI's launches)."""
+    global TRAIN_STEPS, time_ms, k3_passes
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.infer import DepthCompleter
+    from implicit_depth_torch.models import lidf as lidf_mod
+
+    frames = make_frames(BUDGET_FRAMES + 1, FRAME_HW)
+    out, serve_calls, train_calls = {}, {}, {}
+
+    def put(name, kb, row):
+        out.setdefault(name, {})[f"kb{kb}"] = {
+            k: row[k] for k in BUDGET_KEYS if k in row}
+
+    # fewer timing repeats; K3's passes timed in bf16 only
+    saved = TRAIN_STEPS, time_ms, k3_passes
+    full_time, full_passes = time_ms, k3_passes
+    TRAIN_STEPS = BUDGET_STEPS
+    def time_ms(fn, warmup=2, reps=10):
+        once = full_time(fn, 0, 1)
+        return once if once > BUDGET_SLOW_MS else full_time(fn, 0,
+                                                            BUDGET_REPS)
+    k3_passes = lambda a, kw: (  # noqa: E731
+        full_passes(a, kw) if a[4]["pair_w1"].dtype == torch.bfloat16
+        else None)
+    try:
+        for kb in BUDGETS:
+            t_kb = time.perf_counter()
+            tpu = {"tpu": {"pairs_budget_per_ray": kb}}
+            cfg = load_config(overrides=merged(SERVE_OVERRIDES, tpu))
+            lidf, refine = build_models(cfg)
+            assert lidf.decode_mode == "per_ray" and lidf.pairs_budget == kb
+            dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+            calls = record_calls({"ray_decode": kernel_modules()["ray_decode"]},
+                                 lambda: dc.complete(*frames[0]))
+            serve_calls[kb] = calls
+            k1 = budget_k1_row(calls, lidf, dev)
+            launches, frame_ms = main_path(dc, frames[1:], cfg,
+                                           label=f"kb {kb} main path")
+            k1 = add_launches(k1, launches["ray_decode"], BUDGET_FRAMES,
+                              "frame")
+            k1["frame_ms"] = frame_ms
+            if kb == BUDGET_XCHECK:
+                xo = merged(SERVE_OVERRIDES, tpu,
+                            {"dataset": MODE_XCHECK_DATASET})
+                cross_check(xo, *build_models(load_config(overrides=xo)),
+                            frames[1], dev)
+            del dc, lidf, refine
+            torch.cuda.empty_cache()
+            # the bare stage-1 steps, each decode_bwd mode
+            for decode_bwd, expect in (
+                    ("kernel_save", EXPECT_PER_STEP),
+                    ("kernel", EXPECT_PER_STEP_KERNEL),
+                    ("kernel_save_all", EXPECT_PER_STEP_SAVE_ALL),
+                    ("xla", EXPECT_PER_STEP_XLA)):
+                cfg_t, model = train_mode_model(
+                    dev, merged(TRAIN_OVERRIDES, tpu), decode_bwd)
+                assert model.pairs_budget == kb
+                recorded, launches, step_ms = train_path(cfg_t, model, dev,
+                                                         expect=expect)
+                del model
+                torch.cuda.empty_cache()
+                if decode_bwd == "kernel_save":
+                    train_calls[kb] = recorded
+                    got = train_kernel_phase(recorded)
+                    fwd, bwd = "ray_decode_save", "ray_decode_bwd"
+                elif decode_bwd == "kernel":
+                    k1["train"] = {k: v for k, v in add_launches(
+                        train_forward_row(recorded, dev),
+                        launches["ray_decode"], BUDGET_STEPS,
+                        "step").items() if k in WIDTH_KEYS}
+                    got = {"ray_decode_bwd_recompute":
+                           recompute_kernel_rows(recorded)}
+                    fwd, bwd = None, "ray_decode_bwd_recompute"
+                elif decode_bwd == "kernel_save_all":
+                    got = save_all_kernel_rows(recorded)
+                    fwd, bwd = "ray_decode_save_all", "ray_decode_bwd_all"
+                else:
+                    continue
+                if fwd:
+                    add_launches(got[fwd], launches[fwd], BUDGET_STEPS,
+                                 "step")
+                add_launches(got[bwd], launches["ray_decode_bwd"],
+                             BUDGET_STEPS, "step")
+                got[bwd]["step_ms"] = statistics.median(step_ms)
+                got[bwd]["repeat_bit_identical"] = k3_repeats(recorded)
+                log(f"kb {kb}: {bwd} twice on the recorded call: the same "
+                    f"bits")
+                for name, row in got.items():
+                    put(name, kb, row)
+                if decode_bwd != "kernel_save":
+                    del recorded
+                torch.cuda.empty_cache()
+            # stage 2 behind the frozen stage 1 at this budget
+            cfg_r = load_config(overrides=merged(REFINE_OVERRIDES, tpu))
+            lidf, refine = (m.to(dev) for m in build_models(cfg_r,
+                                                            train=True))
+            run2 = refine_train_path(cfg_r, lidf, refine, dev, BUDGET_STEPS,
+                                     label=f"kb {kb} stage 2")
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            calls = record_calls(
+                {"ray_decode": (lidf_mod, "ray_decode")},
+                lambda: run2["step"](run2["state"], run2["batches"][0], gen,
+                                     0))
+            row = budget_k1_row(calls, lidf, dev, STAGE2_K1_TOL, bite=False)
+            if STAGE2_BITE * row["tolerance"] > row["spread"]:
+                raise AssertionError(f"kb {kb} stage 2: K1's tolerance "
+                                     f"{row['tolerance']} is not "
+                                     f"{STAGE2_BITE}x below the outputs' "
+                                     f"spread {row['spread']}")
+            k1["stage2"] = {k: v for k, v in add_launches(
+                row, run2["launches"]["ray_decode"], BUDGET_STEPS,
+                "step").items() if k in WIDTH_KEYS}
+            k1["stage2"]["step_ms"] = run2["step_ms"]
+            put("ray_decode", kb, k1)
+            del lidf, refine, run2, calls
+            torch.cuda.empty_cache()
+            log(f"kb {kb}: {time.perf_counter() - t_kb:.1f} s")
+        t_alone = time.perf_counter()
+        lidf = build_models(load_config(overrides=SERVE_OVERRIDES))[0]
+        for kb, rows in budget_alone_rows(serve_calls, train_calls,
+                                          lidf.to(dev)).items():
+            for name, row in rows.items():
+                put(name, kb, row)
+        log(f"kb {', '.join(map(str, BUDGET_ALONE))} alone: "
+            f"{time.perf_counter() - t_alone:.1f} s")
+    finally:
+        TRAIN_STEPS, time_ms, k3_passes = saved
+    del serve_calls, train_calls
+    torch.cuda.empty_cache()
+    t_cli = time.perf_counter()
+    cli_launches = budget_cli_phase(dev, workdir)
+    log(f"kb {BUDGET_CLI} CLI: {time.perf_counter() - t_cli:.1f} s")
+    return out, cli_launches
+
+
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-38 on ``dev``; prints their seconds and the kernels line."""
+    """Phases 2-39 on ``dev``; prints their seconds and the kernels line."""
     t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
@@ -4710,6 +5030,18 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         t37 = time.perf_counter() - t0 - t36
         remat, remat_launches = remat_lbfgs_phase(dev, pathlib.Path(d))
         t38 = time.perf_counter() - t0 - t36 - t37
+    # -- the per-ray pair budgets other than 8 (phase 39) --------------------
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        budgets, budget_cli = budget_phase(dev, pathlib.Path(d))
+        t39 = time.perf_counter() - t0
+    for name, by_kb in budgets.items():
+        rows[name]["at_budgets"] = by_kb
+    for name, n in budget_cli.items():
+        if name in rows:
+            rows[name].setdefault("at_budgets", {})[
+                f"kb{BUDGET_CLI} cli"] = n
+    log(f"phase 39 seconds {round(t39, 1)}")
     rows["segment_max0"]["options"] = {k: v["launches_k5"]
                                        for k, v in options.items()}
     for name, n in remat_launches.items():
@@ -4733,8 +5065,9 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
-    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-38; "
-        f"33-35: {disk_s:.1f}; 36-38: {t36 + t37 + t38:.1f})")
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-39; "
+        f"33-35: {disk_s:.1f}; 36-38: {t36 + t37 + t38:.1f}; 39: "
+        f"{t39:.1f})")
     log(json.dumps({"kernels": kernels}))
 
 

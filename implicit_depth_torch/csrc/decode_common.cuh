@@ -229,4 +229,16 @@ __device__ void ief_loop(const float* E1, T* H, float* C, T* H2, T* H3,
 
 inline size_t align_up(size_t x, size_t a) { return (x + a - 1) / a * a; }
 
+// The most pair slots a ray the stage-1 decodes (K1, K2, K3) take: a ray of
+// a grid of up to 22 cells a side crosses at most 3 * 22 - 2 = 64 cells.
+constexpr int kMaxKb = 64;
+
+// The whole rays of kb pair slots that a tile of `rows` rows holds, at most
+// `cap` (the rows of the kernel's per-ray regions); 1 where a ray's slots
+// fill more than a tile (kb > rows: the ray then spans (kb + rows - 1) /
+// rows tiles of its slots). Mirrored by ops/ray_decode.py::rays_per_tile.
+__host__ __device__ constexpr int rays_per_tile(int kb, int rows, int cap) {
+  return kb > rows ? 1 : (rows / kb < cap ? rows / kb : cap);
+}
+
 }  // namespace idt

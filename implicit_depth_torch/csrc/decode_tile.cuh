@@ -397,14 +397,17 @@ __device__ __forceinline__ void ief(Pipe& pipe, E1Acc<G>& e1, bf16* H,
 
 // -- input staging -----------------------------------------------------------------
 
-// Rows [0, valid) of a dense bf16 block (row width c, starting at src,
-// 16-byte aligned: rows follow each other without padding) into columns
-// col0.. of the shared rows dst (stride ld), with 16-byte loads; rows
-// [valid, rows) get zeros.
+// Rows [0, valid) of a dense bf16 block (row width c, starting at src:
+// rows follow each other without padding) into columns col0.. of the
+// shared rows dst (stride ld), with 16-byte loads where src is 16-byte
+// aligned (else 2-byte loads: K1's tiles of a ray count that is not a
+// multiple of 8 start its ray features anywhere); rows [valid, rows) get
+// zeros.
 __device__ __forceinline__ void stage_rows(const bf16* src, int valid,
                                            int rows, int c, bf16* dst, int ld,
                                            int col0) {
-  const int total = valid * c, chunks = total / 8;
+  const int total = valid * c;
+  const int chunks = reinterpret_cast<uintptr_t>(src) % 16 ? 0 : total / 8;
   constexpr int kU = 4;  // loads in flight a thread
   for (int base = threadIdx.x; base < chunks; base += kU * blockDim.x) {
     uint4 u[kU];
@@ -472,10 +475,10 @@ struct Smem {
     o = al(o + xb);
     x1 = o;    // of the odd tiles (loaded while the even ones run)
     o = al(o + xb);
-    rf = o;    // per-ray inputs, 8 rays padded to 16 rows
+    rf = o;    // per-ray inputs, a tile's rays (up to 16) in 16 rows
     o = al(o + (crp ? (size_t)16 * ld_of(crp) * 2 : 0));
-    ray = o;   // per-ray layer-1 part, f32 (8 rays x 2 * 4g)
-    o = al(o + (crp ? (size_t)8 * 2 * 4 * g * 4 : 0));
+    ray = o;   // one decoder's per-ray layer-1 part, f32 (16 rays x 4g)
+    o = al(o + (crp ? (size_t)16 * 4 * g * 4 : 0));
     h = o;     // bf16 layer-1 activation
     o = al(o + (size_t)kM * ld_of(4 * g) * 2);
     h2 = o;    // bf16 layer-2 activation

@@ -3,8 +3,9 @@
 // with kSaveAll, the training forward of decode_bwd = 'kernel_save_all'.
 //
 // Replaces implicit_depth_tpu/ops/pallas_ray_decode.py::fused_ray_decode
-// (_fused_fwd_impl and its Pallas kernel): for every ray, its kb = 8 nearest
-// pair slots are decoded by two 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf
+// (_fused_fwd_impl and its Pallas kernel): for every ray, its kb nearest pair
+// slots (1 <= kb <= kMaxKb, as the Pallas kernel's tiles of t * kb rows take
+// any kb) are decoded by two 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf
 // g in {8, 16, 32, 64}: 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02,
 // soft clamp), the offset decoder as a 2-iteration IEF. With kSave it
 // replaces fused_ray_decode_table's training forward (_table_fwd,
@@ -29,30 +30,42 @@
 //   * the positional encoding of enter/leave is computed in the kernel from the
 //     raw f32 positions (sinf of pos * 2^j + phase), and layer 1 is split into a
 //     per-pair part over [vox | pos6 | trig] and a per-ray part over
-//     [roi | dir_e], computed once per ray and reused by its 8 slots;
+//     [roi | dir_e], computed once per ray and reused by its kb slots;
 //   * layer 1 of the offset decoder is hoisted out of the IEF iterations and
 //     its 1 -> 16 offset encoder is folded into a rank-1 update
 //     (offset * a_vec + c_vec).
 // bf16 (the served and trained type): ray_decode_tc, a persistent block per
-// SM over tiles of 8 rays (64 rows) on decode_tile.cuh's staged mma.sync
-// products. Its first version (decode_common.cuh's mma_tile, K6's design)
-// spent ~60% of its time in products whose weight fragments came from L2 in
-// every warp, ~74% in those products' f32 round trips through shared memory
-// and their elementwise passes, 9% in the per-ray part on CUDA cores and 16%
-// in 2-byte input loads (scripts/attribute_k1_k4.py, PERF.md). Now the
+// SM over tiles of 64 rows on decode_tile.cuh's staged mma.sync products. A
+// tile holds the whole rays of rays_per_tile(kb) = min(64 / kb, 16): 8 at
+// kb 8, all 64 rows wherever kb divides 64 from kb 4 up, fewer (the
+// trailing rows masked) where it does not, and 16 rays of 1-3 rows at
+// kb < 4 (the per-ray product's 16 rows cap them; the other rows idle). The
+// pair rows of a tile are consecutive, ray0 * kb + row, so kb enters only
+// the count of valid rows and the row -> ray map of the per-ray part. Its
+// first version (decode_common.cuh's mma_tile, K6's design) spent ~60% of
+// its time in products whose weight fragments came from L2 in every warp,
+// ~74% in those products' f32 round trips through shared memory and their
+// elementwise passes, 9% in the per-ray part on CUDA cores and 16% in
+// 2-byte input loads (scripts/attribute_k1_k4.py, PERF.md). Now the
 // weights are staged once per tile, E1 stays in registers, the per-ray part
-// (8 rays padded to 16 rows) runs on the tensor cores too, and the voxel rows
+// (the tile's rays padded to 16 rows) runs on the tensor cores too, each
+// decoder's half of it just before that decoder's layer 1 (so that one
+// 16 x 4g f32 region holds it), and the voxel rows
 // of the next tile are copied (cp.async, 16 bytes) while the current one
 // runs; ray features load 16 bytes at a time.
-// f32 (the card-vs-CPU cross-checks only): ray_decode_kernel, 4 rays (32
-// rows) a block, CUDA-core FMA products with the weights read from L2.
+// f32 (the card-vs-CPU cross-checks only): ray_decode_kernel, 32 rows a
+// block, min(32 / kb, 4) whole rays or, at kb > 32, 32 slots of one ray (its
+// per-ray part computed by each of its blocks), CUDA-core FMA products with
+// the weights read from L2.
 #include "decode_tile.cuh"
 
 namespace {
 
 using namespace idt;
 
-constexpr int kKb = 8;  // pair slots decoded per ray
+// rays of a bf16 tile (the per-ray product's rows) and of an f32 block, at
+// most
+constexpr int kTcRays = 16, kF32Rays = 4;
 
 template <typename T>
 struct Smem {
@@ -98,6 +111,8 @@ struct Params {
   T* save_z1p;            // kSave: (n*kb, 4g)
   T* save_trig;           // kSave: (n*kb, 12*multires)
   long long n;
+  int kb;                 // pair slots a ray
+  int rays;               // rays of a tile (bf16) or block (f32): rays_per_tile
   int c_vox, c_ray, multires, kp, crp, n_iter, use_sigmoid;
   float init_offset;
   // kSaveAll: instance i < n_iter of a save is IEF iteration i's, instance
@@ -117,7 +132,7 @@ template <typename T, int M, int kMode, int G>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_kernel(const Params<T> p) {
   constexpr bool kSave = kMode != kNoSave;
-  constexpr int MR = M / kKb;  // rays per block
+  constexpr int MR = kF32Rays;  // rays of a block, at most
   constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem<T> lay(M, MR, p.kp, p.crp, G);
@@ -132,24 +147,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* H2 = X;                                   // X is dead after layer 1
   T* H3 = X + M * kG2;
 
-  const long long ray0 = (long long)blockIdx.x * MR;
+  // the block's rows: p.rays whole rays, or (kb > M) the M slots from slot0
+  // of one ray, of which tpr blocks take its kb; row r is the pair row
+  // row0 + r of ray r / spt, for r < rows_ok
+  const int kb = p.kb, spt = kb < M ? kb : M, tpr = (kb + M - 1) / M;
+  const long long ray0 = (long long)(blockIdx.x / tpr) * p.rays;
+  const int slot0 = (int)(blockIdx.x % tpr) * spt;
+  const int rays_ok = (int)min((long long)p.rays, p.n - ray0);
+  const int rows_ok = (rays_ok - 1) * spt + min(spt, kb - slot0);
+  const long long row0 = ray0 * kb + slot0;
+  auto ray_of = [&](int row) { return min(row / spt, MR - 1); };
   const int kp = p.kp, crp = p.crp;
   const int n_trig = 12 * p.multires;
 
   // -- stage the per-ray inputs and the per-pair layer-1 input ----------------
   for (int i = threadIdx.x; i < MR * crp; i += blockDim.x) {
     const int r = i / crp, col = i % crp;
-    const long long ray = ray0 + r;
-    RF[i] = (ray < p.n && col < p.c_ray)
-                ? ldg_raw(p.ray_feat + ray * p.c_ray + col)
+    RF[i] = (r < rays_ok && col < p.c_ray)
+                ? ldg_raw(p.ray_feat + (ray0 + r) * p.c_ray + col)
                 : from_f32<T>(0.f);
   }
   for (int i = threadIdx.x; i < M * kp; i += blockDim.x) {
     const int row = i / kp, col = i % kp;
-    const long long ray = ray0 + row / kKb;
-    const long long prow = ray * kKb + row % kKb;  // global pair row
+    const long long prow = row0 + row;  // global pair row
     T v = from_f32<T>(0.f);
-    if (ray < p.n) {
+    if (row < rows_ok) {
       if (col < p.c_vox) {
         const long long cell = __ldg(p.cells + prow);
         v = ldg_raw(p.vox_table + cell * p.c_vox + col);
@@ -163,8 +185,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     X[i] = v;
     if constexpr (kSave) {
       const int t = col - p.c_vox - 6;
-      if (ray < p.n && t >= 0 && t < n_trig)
-        p.save_trig[(ray * kKb + row % kKb) * n_trig + t] = v;
+      if (row < rows_ok && t >= 0 && t < n_trig)
+        p.save_trig[prow * n_trig + t] = v;
     }
   }
   __syncthreads();
@@ -178,11 +200,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
     const int row = i / kG1, c = i % kG1;
-    E1[i] = E1[i] + RAY[(row / kKb) * 2 * kG1 + c] + __ldg(p.b1 + c);
+    E1[i] = E1[i] + RAY[ray_of(row) * 2 * kG1 + c] + __ldg(p.b1 + c);
     if constexpr (kSave) {
-      const long long ray = ray0 + row / kKb;
-      if (ray < p.n)
-        p.save_e1[(ray * kKb + row % kKb) * kG1 + c] = from_f32<T>(E1[i]);
+      if (row < rows_ok)
+        p.save_e1[(row0 + row) * kG1 + c] = from_f32<T>(E1[i]);
     }
   }
   // -- probability decoder layer 1: H = act(X @ W_prob + ray part + b1) -------
@@ -190,30 +211,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
     const int row = i / kG1, c = i % kG1;
-    const float z = C[i] + RAY[(row / kKb) * 2 * kG1 + kG1 + c] +
+    const float z = C[i] + RAY[ray_of(row) * 2 * kG1 + kG1 + c] +
                     __ldg(p.b1 + kG1 + c);
     H[i] = from_f32<T>(leaky(z));
     if constexpr (kSave) {
-      const long long ray = ray0 + row / kKb;
-      if (ray < p.n)
-        p.save_z1p[(ray * kKb + row % kKb) * kG1 + c] = from_f32<T>(z);
+      if (row < rows_ok)
+        p.save_z1p[(row0 + row) * kG1 + c] = from_f32<T>(z);
     }
   }
   __syncthreads();
 
   // kSaveAll: H2, H3 of the tail that just ran (instance inst), the block's
   // valid rows
-  const long long rows_all = p.n * kKb;
+  const long long rows_all = p.n * kb;
   auto save_tail = [&](int inst) {
     for (int i = threadIdx.x; i < M * kG2; i += blockDim.x) {
       const int row = i / kG2;
-      if (ray0 + row / kKb < p.n)
-        p.save_h2[(inst * rows_all + ray0 * kKb + row) * kG2 + i % kG2] = H2[i];
+      if (row < rows_ok)
+        p.save_h2[(inst * rows_all + row0 + row) * kG2 + i % kG2] = H2[i];
     }
     for (int i = threadIdx.x; i < M * kG3; i += blockDim.x) {
       const int row = i / kG3;
-      if (ray0 + row / kKb < p.n)
-        p.save_h3[(inst * rows_all + ray0 * kKb + row) * kG3 + i % kG3] = H3[i];
+      if (row < rows_ok)
+        p.save_h3[(inst * rows_all + row0 + row) * kG3 + i % kG3] = H3[i];
     }
   };
 
@@ -231,8 +251,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // decode_common.cuh::ief_loop, with each iteration's saves
     const float b4 = __ldg(p.off.b4);
     for (int it = 0; it < p.n_iter; ++it) {
-      if (threadIdx.x < M && ray0 + threadIdx.x / kKb < p.n)
-        p.save_off[it * rows_all + ray0 * kKb + threadIdx.x] = OFF[threadIdx.x];
+      if ((int)threadIdx.x < rows_ok)
+        p.save_off[it * rows_all + row0 + threadIdx.x] = OFF[threadIdx.x];
       for (int i = threadIdx.x; i < M * kG1; i += blockDim.x) {
         const int c = i % kG1;
         H[i] = from_f32<T>(leaky(E1[i] + OFF[i / kG1] * __ldg(p.a_vec + c) +
@@ -249,37 +269,34 @@ __global__ void __launch_bounds__(kThreads, 1)
                       p.n_iter);
   }
 
-  if (threadIdx.x < M) {
-    const long long ray = ray0 + threadIdx.x / kKb;
-    if (ray < p.n) {
-      const long long prow = ray * kKb + threadIdx.x % kKb;
-      p.out_off[prow] = squash(OFF[threadIdx.x], p.use_sigmoid);
-      p.out_logit[prow] = squash(LOGIT[threadIdx.x], p.use_sigmoid);
-      if constexpr (kMode == kSaveAll) {
-        p.save_off[p.n_iter * rows_all + prow] = OFF[threadIdx.x];
-        p.save_logit[prow] = LOGIT[threadIdx.x];
-      }
+  if ((int)threadIdx.x < rows_ok) {
+    const long long prow = row0 + threadIdx.x;
+    p.out_off[prow] = squash(OFF[threadIdx.x], p.use_sigmoid);
+    p.out_logit[prow] = squash(LOGIT[threadIdx.x], p.use_sigmoid);
+    if constexpr (kMode == kSaveAll) {
+      p.save_off[p.n_iter * rows_all + prow] = OFF[threadIdx.x];
+      p.save_logit[prow] = LOGIT[threadIdx.x];
     }
   }
 }
 
 // -- bf16: the staged tensor-core kernel -------------------------------------
 
-constexpr int kRays = tile::kM / kKb;  // rays per tile
 // columns past c_vox a lane stages (kp - c_vox <= 256)
 constexpr int kColsPerLane = 8;
 
-// The per-tile product schedule: the per-ray part, the probability
-// decoder's layer 1 and tail, the offset decoder's layer 1, then its tail
-// once per IEF iteration. Returns the number of segments.
+// The per-tile product schedule: the probability decoder's per-ray part,
+// layer 1 and tail, the offset decoder's per-ray part and layer 1, then its
+// tail once per IEF iteration. Returns the number of segments.
 template <int G>
 __device__ int k1_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
   constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   int n = 0;
-  s[n++] = {p.ray_w1, 2 * kG1, p.crp, 2 * kG1};
+  s[n++] = {p.ray_w1 + kG1, 2 * kG1, p.crp, kG1};
   s[n++] = {p.pair_w1 + kG1, 2 * kG1, p.kp, kG1};
   s[n++] = {p.prob.w2, kG2, kG1, kG2};
   s[n++] = {p.prob.w3, kG3, kG2, kG3};
+  s[n++] = {p.ray_w1, 2 * kG1, p.crp, kG1};
   s[n++] = {p.pair_w1, 2 * kG1, p.kp, kG1};
   for (int i = 0; i < p.n_iter; ++i) {
     s[n++] = {p.off.w2, kG2, kG1, kG2};
@@ -311,23 +328,33 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int kp = p.kp, c_vox = p.c_vox, n_trig = 12 * p.multires;
   const int ldx = ld_of(kp), ldr = ld_of(p.crp);
-  const long long n_tiles = (p.n + kRays - 1) / kRays;
+  const int kb = p.kb, rays = p.rays;
+  // the tile's ray of row r < 64: (r * kb_inv) >> 12 is r / kb exactly
+  // while r * (kb_inv * kb - 4096) < 4096, true for r < 64, kb <= 64; rows
+  // past the tile's rays (kb < 4) read the last row of RAY and are never
+  // stored
+  const unsigned kb_inv = (4096u + kb - 1) / kb;
+  auto ray_of = [&](int r) {
+    return min((int)(((unsigned)r * kb_inv) >> 12), kTcRays - 1);
+  };
+  const long long n_tiles = (p.n + rays - 1) / rays;
   if (threadIdx.x == 0) k1_schedule<G>(p, segs);
-  // the per-ray rows past the 8 rays, and the columns past c_ray, stay 0
-  for (int i = threadIdx.x; i < 16 * ldr; i += blockDim.x)
+  // the per-ray rows past the tile's rays, and the columns past c_ray, stay
+  // 0
+  for (int i = threadIdx.x; i < kTcRays * ldr; i += blockDim.x)
     RF[i] = __float2bfloat16_rn(0.f);
   __syncthreads();
   Pipe pipe;
   pipe.init(reinterpret_cast<bf16*>(smem + lay.ring), segs,
-            5 + 2 * p.n_iter);
+            6 + 2 * p.n_iter);
   // the voxel row of each pair of a tile into X, by its cell id
   auto vox_rows = [&](long long t, bf16* X) {
-    const long long ray0 = t * kRays;
+    const long long row0 = t * rays * kb;  // the tile's first pair row
+    const long long rows = min((long long)rays, p.n - t * rays) * kb;
     rows_async(
         [&](int r) -> const bf16* {
-          const long long ray = ray0 + r / kKb;
-          if (ray >= p.n) return nullptr;
-          return p.vox_table + (long long)__ldg(p.cells + ray * kKb + r % kKb) * c_vox;
+          if (r >= rows) return nullptr;
+          return p.vox_table + (long long)__ldg(p.cells + row0 + r) * c_vox;
         },
         kM, c_vox, X, ldx, p.vox_table);
   };
@@ -358,14 +385,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   int parity = 0;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, parity ^= 1) {
     bf16* X = x_of(parity);
-    const long long ray0 = t * kRays;
-    const int valid = (int)min((long long)kRays, p.n - ray0);
+    const long long ray0 = t * rays, row0 = ray0 * kb;
+    const int valid = (int)min((long long)rays, p.n - ray0);
+    const int valid_rows = valid * kb;  // rows past them are masked
 
     // -- stage [pos6 | trig | 0] of the pairs and the rays' features --------
     // a warp a row, its lanes over the columns (what each holds: col_src)
     for (int row = warp; row < kM; row += kWarps) {
-      const long long prow = ray0 * kKb + row;
-      const bool ok = row / kKb < valid;
+      const long long prow = row0 + row;
+      const bool ok = row < valid_rows;
 #pragma unroll
       for (int j = 0; j < kColsPerLane; ++j) {
         const int u = lane + 32 * j;  // column c_vox + u
@@ -382,67 +410,71 @@ __global__ void __launch_bounds__(kThreads, 1)
         X[row * ldx + c_vox + u] = __float2bfloat16_rn(v);
       }
     }
-    stage_rows(p.ray_feat + ray0 * p.c_ray, valid, kRays, p.c_ray, RF, ldr, 0);
+    stage_rows(p.ray_feat + ray0 * p.c_ray, valid, rays, p.c_ray, RF, ldr, 0);
     if (threadIdx.x < kM) OFF[threadIdx.x] = p.init_offset;
     // the next tile's voxel rows land while this one runs
     if (t + gridDim.x < n_tiles) vox_rows(t + gridDim.x, x_of(parity ^ 1));
 
-    // -- per-ray layer-1 part: RAY = RF @ ray_w1 (16 rows, 8 of them rays) --
-    {
-      float acc[Grid<16, 2 * kG1>::MT][Grid<16, 2 * kG1>::NT][4];
-      product<16, 2 * kG1>(pipe, RF, ldr, p.crp, acc);
-      for_pairs<16, 2 * kG1>(acc, [&](int r, int c, float v0, float v1) {
-        if (r < kRays)
-          *reinterpret_cast<float2*>(RAY + r * 2 * kG1 + c) = make_float2(v0, v1);
+    // -- a decoder's per-ray layer-1 part: RAY = RF @ ray_w1[:, its half] --
+    // (16 rows, the tile's rays among them)
+    auto ray_part = [&]() {
+      float acc[Grid<16, kG1>::MT][Grid<16, kG1>::NT][4];
+      product<16, kG1>(pipe, RF, ldr, p.crp, acc);
+      for_pairs<16, kG1>(acc, [&](int r, int c, float v0, float v1) {
+        *reinterpret_cast<float2*>(RAY + r * kG1 + c) = make_float2(v0, v1);
       });
-    }
+    };
     // -- probability decoder: H = act(X @ W_prob + ray part + b1), tail ----
+    ray_part();
     {
       E1Acc<G> acc;
       product<kM, kG1>(pipe, X, ldx, kp, acc);
       for_pairs<kM, kG1>(acc, [&](int r, int c, float v0, float v1) {
-        const float2 ray = *reinterpret_cast<const float2*>(
-            RAY + (r / kKb) * 2 * kG1 + kG1 + c);
+        const float2 ray =
+            *reinterpret_cast<const float2*>(RAY + ray_of(r) * kG1 + c);
         const float2 b = ldg2(p.b1 + kG1 + c);
         const float z0 = v0 + ray.x + b.x, z1 = v1 + ray.y + b.y;
         st_bf16x2(H + r * ld_of(kG1) + c, leaky(z0), leaky(z1));
         if constexpr (kSave) {
-          if (r / kKb < valid)
-            st_bf16x2(p.save_z1p + (ray0 * kKb + r) * kG1 + c, z0, z1);
+          if (r < valid_rows)
+            st_bf16x2(p.save_z1p + (row0 + r) * kG1 + c, z0, z1);
         }
       });
     }
     // K2 'all': instance n_iter of each save is the probability decoder's
-    [[maybe_unused]] const long long rows_all = p.n * kKb, row0 = ray0 * kKb;
+    [[maybe_unused]] const long long rows_all = p.n * kb;
     if constexpr (kMode == kSaveAll)
       tail<G, true>(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false,
                  p.save_h2 + (p.n_iter * rows_all + row0) * kG2,
-                 p.save_h3 + (p.n_iter * rows_all + row0) * kG3, valid * kKb);
+                 p.save_h3 + (p.n_iter * rows_all + row0) * kG3, valid_rows);
     else
       tail<G>(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false);
     // -- offset decoder: E1 = X @ W_off + ray part + b1, kept in registers --
+    // (every warp is past the probability epilogue's reads of RAY: the
+    // tail's products acquired their slabs since)
+    ray_part();
     E1Acc<G> e1;
     product<kM, kG1>(pipe, X, ldx, kp, e1);
     for_pairs<kM, kG1>(e1, [&](int r, int c, float& v0, float& v1) {
       const float2 ray =
-          *reinterpret_cast<const float2*>(RAY + (r / kKb) * 2 * kG1 + c);
+          *reinterpret_cast<const float2*>(RAY + ray_of(r) * kG1 + c);
       const float2 b = ldg2(p.b1 + c);
       v0 = v0 + ray.x + b.x;
       v1 = v1 + ray.y + b.y;
       if constexpr (kSave) {
-        if (r / kKb < valid)
-          st_bf16x2(p.save_e1 + (ray0 * kKb + r) * kG1 + c, v0, v1);
+        if (r < valid_rows)
+          st_bf16x2(p.save_e1 + (row0 + r) * kG1 + c, v0, v1);
       }
     });
     if constexpr (kMode == kSaveAll)
       ief<G, true>(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter,
                 p.save_off + row0, p.save_h2 + row0 * kG2,
-                p.save_h3 + row0 * kG3, rows_all, valid * kKb);
+                p.save_h3 + row0 * kG3, rows_all, valid_rows);
     else
       ief<G>(pipe, e1, H, H2, L4, p.a_vec, p.c_vec, p.off, OFF, p.n_iter);
 
-    if (threadIdx.x < kM && threadIdx.x / kKb < valid) {
-      const long long prow = ray0 * kKb + threadIdx.x;
+    if ((int)threadIdx.x < valid_rows) {
+      const long long prow = row0 + threadIdx.x;
       p.out_off[prow] = squash(OFF[threadIdx.x], p.use_sigmoid);
       p.out_logit[prow] = squash(LOGIT[threadIdx.x], p.use_sigmoid);
       if constexpr (kMode == kSaveAll) {  // both written by this thread
@@ -465,7 +497,7 @@ int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
   cudaGetDevice(&dev);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (p.n + kRays - 1) / kRays;
+  const long long tiles = (p.n + p.rays - 1) / p.rays;
   const long long blocks = tiles < sms ? tiles : sms;  // one per SM
   kernel<<<(unsigned)blocks, kThreads, lay.total, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
@@ -473,21 +505,22 @@ int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
 
 template <typename T, int M, int kMode, int G>
 int launch(const Params<T>& p, void* stream) {
-  constexpr int MR = M / kKb;
-  const Smem<T> lay(M, MR, p.kp, p.crp, G);
+  const Smem<T> lay(M, kF32Rays, p.kp, p.crp, G);
   auto kernel = ray_decode_kernel<T, M, kMode, G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (p.n + MR - 1) / MR;
+  // a block's rays, or the blocks of one ray's slots (kb > M)
+  const long long blocks = (p.n + p.rays - 1) / p.rays * ((p.kb + M - 1) / M);
   kernel<<<(unsigned)blocks, kThreads, lay.total, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int kMode>
-int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
-        long long multires, long long kp, long long crp, long long n_iter,
-        long long g, long long use_sigmoid, float init_offset, void* stream) {
+int run(void* const* ptrs, long long n, long long kb, long long c_vox,
+        long long c_ray, long long multires, long long kp, long long crp,
+        long long n_iter, long long g, long long use_sigmoid,
+        float init_offset, void* stream) {
   Params<T> p;
   p.vox_table = (const T*)ptrs[0];
   p.cells = (const int32_t*)ptrs[1];
@@ -519,6 +552,7 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
   p.save_h3 = kAll ? (T*)ptrs[28] : nullptr;
   p.save_logit = kAll ? (float*)ptrs[29] : nullptr;
   p.n = n;
+  p.kb = (int)kb;
   p.c_vox = (int)c_vox;
   p.c_ray = (int)c_ray;
   p.multires = (int)multires;
@@ -527,14 +561,17 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
   p.n_iter = (int)n_iter;
   p.use_sigmoid = (int)use_sigmoid;
   p.init_offset = init_offset;
-  if (kp % 16 || crp % 16 || kp < c_vox + 6 + 12 * multires || crp < c_ray)
+  if (kp % 16 || crp % 16 || kp < c_vox + 6 + 12 * multires || crp < c_ray ||
+      kb < 1 || kb > kMaxKb)
     return (int)cudaErrorInvalidValue;
+  p.rays = sizeof(T) == 2 ? rays_per_tile((int)kb, tile::kM, kTcRays)
+                          : rays_per_tile((int)kb, 32, kF32Rays);
   if (n == 0) return 0;
   return with_width(g, [&](auto w) {
     constexpr int G = decltype(w)::value;
     if constexpr (sizeof(T) == 2) {
       if (c_vox % 8 || kp - c_vox > 32 * kColsPerLane ||
-          n_iter > (tile::kMaxSegs - 5) / 2 ||
+          n_iter > (tile::kMaxSegs - 6) / 2 ||
           tile::Smem((int)kp, (int)crp, G).total > tile::kMaxSmem)
         return (int)cudaErrorInvalidValue;
       return launch_tc<kMode, G>(p, stream);
@@ -544,60 +581,65 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_ray,
   });
 }
 
+// run<T, kMode> for T bf16 or f32
+template <int kMode>
+int run_any(void* const* ptrs, long long n, long long kb, long long c_vox,
+            long long c_ray, long long multires, long long kp, long long crp,
+            long long n_iter, long long g, long long is_bf16,
+            long long use_sigmoid, float init_offset, void* stream) {
+  return is_bf16 ? run<__nv_bfloat16, kMode>(ptrs, n, kb, c_vox, c_ray,
+                                             multires, kp, crp, n_iter, g,
+                                             use_sigmoid, init_offset, stream)
+                 : run<float, kMode>(ptrs, n, kb, c_vox, c_ray, multires, kp,
+                                     crp, n_iter, g, use_sigmoid, init_offset,
+                                     stream);
+}
+
 }  // namespace
 
 // ptrs: vox_table, cells, pos, ray_feat, pair_w1, ray_w1, b1, a_vec, c_vec,
 // off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4}, out_off, out_logit
-// (23 device pointers). g: imnet_gf, in {8, 16, 32, 64}. Returns a
-// cudaError_t.
-extern "C" int idt_ray_decode(void* const* ptrs, long long n, long long c_vox,
-                              long long c_ray, long long multires,
-                              long long kp, long long crp, long long n_iter,
-                              long long g, long long is_bf16,
-                              long long use_sigmoid,
-                              float init_offset, void* stream) {
-  return is_bf16 ? run<__nv_bfloat16, kNoSave>(ptrs, n, c_vox, c_ray, multires,
-                                               kp, crp, n_iter, g, use_sigmoid,
-                                               init_offset, stream)
-                 : run<float, kNoSave>(ptrs, n, c_vox, c_ray, multires, kp,
-                                       crp, n_iter, g, use_sigmoid, init_offset,
-                                       stream);
+// (23 device pointers); n rays of kb pair slots, 1 <= kb <= kMaxKb. g:
+// imnet_gf, in {8, 16, 32, 64}. Returns a cudaError_t.
+extern "C" int idt_ray_decode(void* const* ptrs, long long n, long long kb,
+                              long long c_vox, long long c_ray,
+                              long long multires, long long kp, long long crp,
+                              long long n_iter, long long g, long long is_bf16,
+                              long long use_sigmoid, float init_offset,
+                              void* stream) {
+  return run_any<kNoSave>(ptrs, n, kb, c_vox, c_ray, multires, kp, crp,
+                          n_iter, g, is_bf16, use_sigmoid, init_offset,
+                          stream);
 }
 
 // K2: the pointers of idt_ray_decode, then save_e1, save_z1p, save_trig
 // (26 device pointers). Returns a cudaError_t.
 extern "C" int idt_ray_decode_save(void* const* ptrs, long long n,
-                                   long long c_vox, long long c_ray,
-                                   long long multires, long long kp,
-                                   long long crp, long long n_iter,
-                                   long long g, long long is_bf16,
-                                   long long use_sigmoid,
+                                   long long kb, long long c_vox,
+                                   long long c_ray, long long multires,
+                                   long long kp, long long crp,
+                                   long long n_iter, long long g,
+                                   long long is_bf16, long long use_sigmoid,
                                    float init_offset, void* stream) {
-  return is_bf16 ? run<__nv_bfloat16, kSaveL1>(ptrs, n, c_vox, c_ray, multires,
-                                               kp, crp, n_iter, g, use_sigmoid,
-                                               init_offset, stream)
-                 : run<float, kSaveL1>(ptrs, n, c_vox, c_ray, multires, kp,
-                                       crp, n_iter, g, use_sigmoid, init_offset,
-                                       stream);
+  return run_any<kSaveL1>(ptrs, n, kb, c_vox, c_ray, multires, kp, crp,
+                          n_iter, g, is_bf16, use_sigmoid, init_offset,
+                          stream);
 }
 
 // K2 'all': the pointers of idt_ray_decode_save, then save_off (n_iter + 1,
 // n*kb) f32, save_h2 (n_iter + 1, n*kb, 2g), save_h3 (n_iter + 1, n*kb, g),
 // save_logit (n*kb,) f32 (30 device pointers). Returns a cudaError_t.
 extern "C" int idt_ray_decode_save_all(void* const* ptrs, long long n,
-                                       long long c_vox, long long c_ray,
-                                       long long multires, long long kp,
-                                       long long crp, long long n_iter,
-                                       long long g, long long is_bf16,
-                                   long long use_sigmoid,
+                                       long long kb, long long c_vox,
+                                       long long c_ray, long long multires,
+                                       long long kp, long long crp,
+                                       long long n_iter, long long g,
+                                       long long is_bf16,
+                                       long long use_sigmoid,
                                        float init_offset, void* stream) {
-  return is_bf16 ? run<__nv_bfloat16, kSaveAll>(ptrs, n, c_vox, c_ray,
-                                                multires, kp, crp, n_iter, g,
-                                                use_sigmoid, init_offset,
-                                                stream)
-                 : run<float, kSaveAll>(ptrs, n, c_vox, c_ray, multires, kp,
-                                        crp, n_iter, g, use_sigmoid, init_offset,
-                                        stream);
+  return run_any<kSaveAll>(ptrs, n, kb, c_vox, c_ray, multires, kp, crp,
+                           n_iter, g, is_bf16, use_sigmoid, init_offset,
+                           stream);
 }
 
 // Dynamic shared memory (bytes) of one block of K1/K2 at these widths
@@ -606,7 +648,7 @@ extern "C" long long idt_ray_decode_smem(long long kp, long long crp,
                                          long long g, long long is_bf16) {
   return is_bf16
              ? (long long)idt::tile::Smem((int)kp, (int)crp, (int)g).total
-             : (long long)Smem<float>(32, 32 / kKb, (int)kp, (int)crp, (int)g)
+             : (long long)Smem<float>(32, kF32Rays, (int)kp, (int)crp, (int)g)
                    .total;
 }
 

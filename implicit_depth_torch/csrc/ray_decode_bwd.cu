@@ -36,9 +36,15 @@
 // (ops/ray_decode.py::bwd_plan, which sizes everything below):
 //   * Pass A, a persistent grid (one 512-thread block per SM, ~214 KB of
 //     shared memory) walking tiles of 64 (bf16) or 32 (f32) pair rows: the
-//     row-local recompute and backward. It writes d_ray_feat per ray; sums,
-//     in row order, the tile's rows that share a cell (rows of neighbouring
-//     rays cross the same voxels) and adds each cell's sum into the block's
+//     row-local recompute and backward. A tile holds the whole rays of
+//     rays_per_tile(kb) = min(rows / kb, rows / 8) (8 rays of 8 slots in
+//     bf16: the per-ray regions' rows cap it, and rows idle at kb < 8), or,
+//     in f32 at kb > 32, 32 slots of one ray: its tiles then follow each
+//     other in one block, which carries the ray's d_ray_feat across them
+//     and writes a per-ray stream row for each. It writes d_ray_feat per
+//     ray; sums, in row order, the tile's rows that share a cell (rows of
+//     neighbouring rays cross the same voxels) and adds each cell's sum
+//     into the block's
 //     own f32 copy of d_vox_table (a tile's cells are distinct, the block's
 //     tiles follow each other in a fixed order, across the chunks); sums the
 //     small gradients
@@ -95,7 +101,6 @@ namespace {
 
 using namespace idt;
 
-constexpr int kKb = 8;
 // Pass A's block: 16 warps, to hide the latency of its many short phases
 // (its products and tail loops use these; Pass B and the reduction keep
 // decode_common.cuh's 256 threads)
@@ -128,7 +133,8 @@ enum PlanField {
   kChunkRays, kNChunks, kBlocksA, kRowsPerTile, kNInst, kSplitRows, kNJobs,
   kNReds, kStreamOff = 8, kSmallOff = 18, kSmallSize = 29, kSmallBase = 30,
   kScratchElems = 31, kPartialFloats = 32, kBlocksB = 33, kTableOff = 34,
-  kTableStride = 35, kTableElems = 36, kHeader = 40
+  kTableStride = 35, kTableElems = 36, kSlots = 37, kRaysPerTile = 38,
+  kTilesPerRay = 39, kHeader = 40
 };
 // what Pass A starts from: a recompute of layer 1 (decode_bwd = 'kernel'),
 // K2's saves ('kernel_save') or K2 'all''s ('kernel_save_all')
@@ -512,6 +518,10 @@ struct BwdParams {
   int small_off[kSmall];
   int small_size;
   long long ray_base, n_chunk;  // the chunk's first ray and its rays
+  long long row_base;           // the chunk's first pair row, ray_base * kb
+  // pair slots a ray; whole rays of a tile; slots of a tile's ray (kb, or
+  // M at kb > M); tiles of a ray (1, or f32 at kb > M: 2)
+  int kb, rays, spt, tpr;
   int c_vox, c_ray, multires, kp, crp, n_iter, use_sigmoid;
   float init_offset;
 };
@@ -526,7 +536,7 @@ __host__ __device__ constexpr size_t align128(size_t b) {
 
 template <typename T, int M, int G>
 struct BwdSmem {
-  static constexpr int kMR = M / kKb;
+  static constexpr int kMR = M / 8;  // rays of a tile, at most
   static constexpr int kG1 = Dims<G>::g1, kG2 = Dims<G>::g2,
                        kLd1 = Dims<G>::ld1, kLd2 = Dims<G>::ld2,
                        kLd3 = Dims<G>::ld3;
@@ -684,15 +694,15 @@ template <typename T, int M, int kMode, int G>
 __global__ void __launch_bounds__(kThreadsA, 1)
     pass_a_kernel(const BwdParams<T> p) {
   IDT_DIMS(G);
+  using Lay = BwdSmem<T, M, G>;
   constexpr bool kFromSaves = kMode != kRecompute;
-  constexpr int MR = M / kKb;
+  constexpr int MR = Lay::kMR;  // rays of a tile, at most
   // 8-element vectors of an M x 4G tile a thread handles (the last round
   // partial where they do not divide)
   constexpr int kVecs = M * kG1 / 8;
   constexpr int kTileVecs = (kVecs + kThreadsA - 1) / kThreadsA;
   constexpr bool kRagged = kVecs % kThreadsA != 0;
   extern __shared__ __align__(128) unsigned char smem[];
-  using Lay = BwdSmem<T, M, G>;
   const Lay lay(p.crp, p.n_iter, p.small_size);
   T* H1 = reinterpret_cast<T*>(smem + Lay::h1);
   T* X = H1;
@@ -722,24 +732,38 @@ __global__ void __launch_bounds__(kThreadsA, 1)
                           : p.e1_scratch + (size_t)blockIdx.x * M * kG1;
   const int kp = p.kp, crp = p.crp, c_vox = p.c_vox;
   const int n_trig = 12 * p.multires;
-  const long long n_tiles = (p.n_chunk + MR - 1) / MR;
+  // the slots of a tile's ray and a ray's tiles: kb and 1 in bf16 (kb <=
+  // 64 = M); f32 at kb > M: M and 2
+  constexpr bool kSegs = sizeof(T) == 4;
+  const int kb = p.kb, rays = p.rays;
+  const int spt = kSegs ? p.spt : kb, tpr = kSegs ? p.tpr : 1;
+  const int n_units = (int)((p.n_chunk + rays - 1) / rays);
   for (int c = threadIdx.x; c < kG1; c += blockDim.x) {
     AV[c] = __ldg(p.a_vec + c);
     CV[c] = __ldg(p.c_vec + c);
   }
   for (int i = threadIdx.x; i < p.small_size; i += blockDim.x) SM[i] = 0.f;
 
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long lray0 = tile * MR;  // within the chunk
-    const long long ray0 = p.ray_base + lray0;
-    const int rays_ok = (int)(p.n_chunk - lray0 < MR ? p.n_chunk - lray0 : MR);
-    const int rows_ok = rays_ok * kKb;
+  // a unit of `rays` whole rays is one tile, or (tpr > 1) one ray's tiles in
+  // order: the block carries DRF from the first to the last
+  for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x)
+  for (int seg = 0; seg < tpr; ++seg) {
+    const int lray0 = unit * rays;  // within the chunk
+    const int rays_ok =
+        (int)(p.n_chunk - lray0 < rays ? p.n_chunk - lray0 : rays);
+    const int slot0 = seg * spt;
+    // the slots of each of the tile's rays
+    const int slots = kSegs && kb - slot0 < spt ? kb - slot0 : spt;
+    const int rows_ok = (rays_ok - 1) * spt + slots;
+    // rows are the pair rows from lrow0 (within the chunk), consecutive
+    const int lrow0 = lray0 * kb + slot0;
     auto row_ok = [&](int r) { return r < rows_ok; };
-    auto grow = [&](int r) { return ray0 * kKb + r; };
-    // the tile's place in a stream (instance 0)
+    auto grow = [&](int r) { return p.row_base + lrow0 + r; };
+    // the tile's place in a stream (instance 0): its first pair row, or for
+    // the per-ray streams its first ray's row (a row a ray and tile)
     auto at = [&](int s) {
       const bool per_ray = s == kRf || s == kDreOff || s == kDreProb;
-      return p.stream[s] + (per_ray ? lray0 : lray0 * kKb) *
+      return p.stream[s] + (size_t)(per_ray ? lray0 * tpr + seg : lrow0) *
                                (s == kX ? kp : s == kRf ? crp
                                 : s == kDt2 || s == kH2 ? kG2
                                 : s == kDt3 ? kG3 : kG1);
@@ -761,10 +785,11 @@ __global__ void __launch_bounds__(kThreadsA, 1)
       GL[r] = ok ? __ldg(p.g + grow(r) * 2 + 1) : 0.f;
       CELL[r] = ok ? __ldg(p.cells + grow(r)) : -1;
     }
-    for (int i = threadIdx.x; i < MR * crp; i += blockDim.x) {
+    for (int i = threadIdx.x; seg == 0 && i < MR * crp; i += blockDim.x) {
       const int r = i / crp, col = i % crp;
       RF[i] = (r < rays_ok && col < p.c_ray)
-                  ? ldg_raw(p.ray_feat + (ray0 + r) * p.c_ray + col)
+                  ? ldg_raw(p.ray_feat +
+                            (p.ray_base + lray0 + r) * p.c_ray + col)
                   : from_f32<T>(0.f);
       DRF[i] = 0.f;
     }
@@ -821,10 +846,14 @@ __global__ void __launch_bounds__(kThreadsA, 1)
     // sets DRF.
     auto layer1 = [&](int half) {
       colsum_add(D, kG1, M, kG1, SM + p.small_off[kSB1] + half * kG1);
+      // each ray's sum over its slots, in slot order
       for (int i = threadIdx.x; i < MR * kG1; i += blockDim.x) {
         const int r = i / kG1, c = i % kG1;
         float s = 0.f;
-        for (int k = 0; k < kKb; ++k) s += D[(r * kKb + k) * kG1 + c];
+        if (r < rays) {
+#pragma unroll 8
+          for (int k = 0; k < slots; ++k) s += D[(r * spt + k) * kG1 + c];
+        }
         RET[r * kLd1 + c] = from_f32<T>(s);
       }
       for (int i = 4 * threadIdx.x; i < M * kG1; i += 4 * blockDim.x)
@@ -860,6 +889,12 @@ __global__ void __launch_bounds__(kThreadsA, 1)
       // C), then e1 = X @ W_off + RAY + b1 (into the scratch slice) and
       // z1p = X @ W_prob + RAY + b1 (into H1 = act(z1p), over X)
       float* RAY = C;
+      // the tile's ray of row r < M (r < 64, spt <= 64): (r * spt_inv) >>
+      // 12 is r / spt exactly, as in ray_decode.cu
+      const unsigned spt_inv = (4096u + spt - 1) / spt;
+      auto ray_of = [&](int r) {
+        return min((int)(((unsigned)r * spt_inv) >> 12), MR - 1);
+      };
       stage_x();
       __syncthreads();
       product<T, false>(RF, crp, p.ray_w1, 2 * kG1, MR, crp, 2 * kG1, RAY,
@@ -869,8 +904,9 @@ __global__ void __launch_bounds__(kThreadsA, 1)
       __syncthreads();
       for (int i = 4 * threadIdx.x; i < M * kG1; i += 4 * blockDim.x) {
         const int r = i / kG1, c = i % kG1;
-        st4(E1G + i, add4(add4(ld4(D + i), ld4(RAY + (r / kKb) * 2 * kG1 + c)),
-                          ld4(p.b1 + c)));
+        st4(E1G + i,
+            add4(add4(ld4(D + i), ld4(RAY + ray_of(r) * 2 * kG1 + c)),
+                 ld4(p.b1 + c)));
       }
       __syncthreads();
       product<T, false>(X, kp, p.pair_w1 + kG1, 2 * kG1, M, kp, kG1, D, kG1,
@@ -879,7 +915,8 @@ __global__ void __launch_bounds__(kThreadsA, 1)
       for (int i = 4 * threadIdx.x; i < M * kG1; i += 4 * blockDim.x) {
         const int r = i / kG1, c = i % kG1;
         st4(H1 + r * kLd1 + c,
-            leaky4(add4(add4(ld4(D + i), ld4(RAY + (r / kKb) * 2 * kG1 + kG1 + c)),
+            leaky4(add4(add4(ld4(D + i),
+                             ld4(RAY + ray_of(r) * 2 * kG1 + kG1 + c)),
                         ld4(p.b1 + kG1 + c))));
       }
     }
@@ -1022,9 +1059,12 @@ __global__ void __launch_bounds__(kThreadsA, 1)
       for (int q = r; q >= 0; q = NEXT[q]) s += D[q * c_vox + col];
       table[(long long)CELL[r] * c_vox + col] += s;
     }
-    for (int i = threadIdx.x; i < MR * p.c_ray; i += blockDim.x) {
+    for (int i = threadIdx.x; seg == tpr - 1 && i < MR * p.c_ray;
+         i += blockDim.x) {
       const int r = i / p.c_ray, col = i % p.c_ray;
-      if (r < rays_ok) p.d_ray[(ray0 + r) * p.c_ray + col] = DRF[r * crp + col];
+      if (r < rays_ok)
+        p.d_ray[(p.ray_base + lray0 + r) * p.c_ray + col] =
+            DRF[r * crp + col];
     }
   }
   __syncthreads();
@@ -1234,13 +1274,17 @@ template <typename T, int M, int kMode, int G>
 int run_passes(BwdParams<T> p, const long long* plan, long long n,
                T* scratch, float* partials, float* d_w, float* d_table,
                cudaEvent_t const* events, cudaStream_t stream) {
-  constexpr int MR = M / kKb;
   const long long chunk = plan[kChunkRays];
   const int n_chunks = (int)plan[kNChunks], blocks_a = (int)plan[kBlocksA];
   const int n_jobs = (int)plan[kNJobs], n_reds = (int)plan[kNReds];
   const long long table_elems = plan[kTableElems];
+  p.rays = rays_per_tile(p.kb, M, BwdSmem<T, M, G>::kMR);
+  p.spt = p.kb < M ? p.kb : M;
+  p.tpr = (p.kb + M - 1) / M;
   if (plan[kRowsPerTile] != M || plan[kNInst] != p.n_iter + 1 ||
-      n_jobs > kMaxJobs || n_reds > kMaxReds || chunk % MR ||
+      plan[kRaysPerTile] != p.rays || plan[kTilesPerRay] != p.tpr ||
+      (sizeof(T) == 2 && p.tpr != 1) ||
+      n_jobs > kMaxJobs || n_reds > kMaxReds || chunk % p.rays ||
       chunk * n_chunks < n || blocks_a < 1 ||
       plan[kTableStride] < table_elems || table_elems % p.c_vox ||
       table_elems > 0x7fffffffLL)
@@ -1249,7 +1293,7 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
   p.table_stride = plan[kTableStride];
   for (int s = 0; s < kStreams; ++s) {
     p.stream[s] = scratch + plan[kStreamOff + s];
-    p.inst_stride[s] = (is_per_ray(s) ? chunk : chunk * kKb) *
+    p.inst_stride[s] = (is_per_ray(s) ? chunk * p.tpr : chunk * p.kb) *
                        stream_width(s, p.kp, p.crp, G);
   }
   for (int s = 0; s < kSmall; ++s) p.small_off[s] = (int)plan[kSmallOff + s];
@@ -1301,13 +1345,14 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
   mark(0);
   for (int c = 0; c < n_chunks; ++c) {
     p.ray_base = c * chunk;
+    p.row_base = p.ray_base * p.kb;
     p.n_chunk = n - p.ray_base < chunk ? n - p.ray_base : chunk;
     ka<<<blocks_a, kThreadsA, lay.total, stream>>>(p);
     mark(1 + 2 * c);
     for (int j = 0; j < n_jobs; ++j)
       gp.job[j].rows = (int)(is_per_ray((int)jobs[j * kJobFields])
-                                 ? p.n_chunk
-                                 : p.n_chunk * kKb);
+                                 ? p.n_chunk * p.tpr
+                                 : p.n_chunk * p.kb);
     pass_b_kernel<T><<<(unsigned)plan[kBlocksB], kThreads, 0, stream>>>(gp);
     mark(2 + 2 * c);
     err = cudaGetLastError();
@@ -1365,7 +1410,9 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   p.s_h2 = (const T*)ptrs[32];
   p.s_h3 = (const T*)ptrs[33];
   p.s_logit = (const float*)ptrs[34];
-  p.s_inst = n * kKb;
+  if (n_plan < kHeader) return (int)cudaErrorInvalidValue;
+  p.kb = (int)plan[kSlots];
+  p.s_inst = n * p.kb;
   p.c_vox = (int)c_vox;
   p.c_ray = (int)c_ray;
   p.multires = (int)multires;
@@ -1376,7 +1423,7 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   p.init_offset = init_offset;
   if (kp % 16 || crp % 16 || kp < c_vox + 6 + 12 * multires || crp < c_ray ||
       kp > kMaxKp || c_vox % 8 || c_vox > 256 || n_iter < 1 || n < 1 ||
-      n_plan < kHeader)
+      p.kb < 1 || p.kb > kMaxKb)
     return (int)cudaErrorInvalidValue;
   if (n_plan != kHeader + plan[kNJobs] * kJobFields + plan[kNReds] * kRedFields)
     return (int)cudaErrorInvalidValue;
@@ -1414,7 +1461,8 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
 // f32 for the recompute instance (else null), then K2 'all''s off (n_iter +
 // 1, n*kb) f32, h2 (n_iter + 1, n*kb, 2g), h3 (n_iter + 1, n*kb, g) and
 // logit (n*kb,) f32 for the instance from full saves (else null): 35 device
-// pointers. plan: ops/ray_decode.py::pack_bwd_plan (n_plan int64). events:
+// pointers; n rays of kb pair slots, kb (1 <= kb <= kMaxKb) in the plan.
+// plan: ops/ray_decode.py::pack_bwd_plan (n_plan int64). events:
 // null, or 2 * n_chunks + 2 CUDA events recorded before the first pass and
 // after each pass, for measurement. g: imnet_gf, in {8, 16, 32, 64}.
 // Returns a cudaError_t.

@@ -12,7 +12,8 @@ Counterpart of ``implicit_depth_tpu/ops/pallas_ray_decode.py``:
   is never materialised: only its sin/cos columns (``trig``) are built from
   the raw positions, in the kernel. The kernel reads each pair's voxel row
   by its cell id from the (B·G³, Cv) voxel table instead of taking gathered
-  (N·kb, Cv) rows.
+  (N·kb, Cv) rows. The kernels take every budget 1 <= kb <= :data:`MAX_KB`
+  (:func:`rays_per_tile`), as the Pallas kernels take any kb.
 * :func:`ief_decode` — stage-2 per-ray IEF decode (``fused_ief_rows``,
   ``xla_ief_rows``, ``_ief_rows``) over the embed parts [end | rc | pos_e];
   forward only, it refuses an operand that asks for a gradient.
@@ -353,6 +354,37 @@ MAX_KP = {"K1": 368, "K2all": 368, "K4": 384, "K6": 464, "K3": 400}
 MAX_CRP = 256
 MAX_CVOX = 256  # K3's voxel feature width (pnet_out): its d_rows tile
 _SEG_BYTES = 24        # sizeof(Seg)
+# the most pair slots a ray K1, K2 and K3 take (decode_common.cuh kMaxKb): a
+# ray of a grid of up to 22 cells a side crosses at most 3·22 - 2 cells
+MAX_KB = 64
+# whole rays of a tile at most: K1's bf16 tile (its per-ray product's 16
+# rows) and f32 block (ray_decode.cu kTcRays, kF32Rays), K3's tile of
+# rows_per_tile rows (its per-ray regions' rows_per_tile / 8)
+TC_RAYS, F32_RAYS = 16, 4
+
+
+def rays_per_tile(kb: int, rows: int, cap: int) -> int:
+    """The whole rays of ``kb`` pair slots that a tile of ``rows`` rows
+    holds, at most ``cap``; 1 where a ray's slots fill more than a tile
+    (kb > rows: the ray then spans ceil(kb / rows) tiles of its slots).
+    Mirrors decode_common.cuh::rays_per_tile."""
+    return 1 if kb > rows else min(rows // kb, cap)
+
+
+def tile_rows(kb: int, rows: int, rays: int, n: int, tile: int) -> list:
+    """The pair row (ray·kb + slot) of each row of tile ``tile`` of ``n``
+    rays, or None where the row is masked (past the tile's rays or past
+    the ray's slots), as the kernels map them: the tile's rays are
+    consecutive, ``rays`` of them, or (kb > rows) the tile is rows slots of
+    one ray. The CPU plan tests hold this map to cover each pair row once."""
+    spt, tpr = min(kb, rows), -(-kb // rows)
+    ray0, slot0 = tile // tpr * rays, tile % tpr * spt
+    out = []
+    for r in range(rows):
+        ray, slot = ray0 + r // spt, slot0 + r % spt
+        ok = r // spt < rays and ray < n and slot < kb
+        out.append(ray * kb + slot if ok else None)
+    return out
 
 
 def slab_rows(n: int) -> int:
@@ -373,9 +405,9 @@ def _regions(sizes):
 
 def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
                 is_bf16: bool = True, n: int = 0, sm_count: int = 132,
-                g: int = 64) -> dict:
+                g: int = 64, kb: int = 8) -> dict:
     """The host-side arithmetic of the forward decodes, as the kernels lay
-    it out: ``kernel`` "K1" (also K2; ``n`` rays of kb = 8 pairs, layer-1
+    it out: ``kernel`` "K1" (also K2; ``n`` rays of ``kb`` pairs, layer-1
     widths ``kp`` per pair and ``crp`` per ray), "K2all" (K2 'all': K1's
     layout, its saves go from registers and the shared h2 tile to device
     memory), "K4" (``n`` rows, layer-1 width ``kp``) or "K6" (``n`` pair
@@ -385,33 +417,38 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
 
     bf16 (``csrc/decode_tile.cuh``): a persistent grid of ``blocks`` = one
     block per SM (at most the number of tiles) walks ``tiles`` tiles of
-    TILE_ROWS rows (8 rays for K1); ``smem`` holds the byte offset of each
-    region of ``tile::Smem`` and ``"total"``; ``schedule`` lists each
+    TILE_ROWS rows (K1: ``rays_per_tile`` whole rays, :func:`tile_rows`);
+    ``smem`` holds the byte offset of each region of ``tile::Smem`` and
+    ``"total"``; ``schedule`` lists each
     product of a tile in the order its weights stream through the slab
     ring: (operand, first column, k, n, slab rows), ``slabs_per_tile``
     their number, and ``warp_grid`` each product's warps and tiles
-    (:func:`warp_grid`). f32: one block per tile of F32_ROWS rows, the FMA
-    kernels' ``Smem`` (no schedule)."""
+    (:func:`warp_grid`). f32: one block per tile of F32_ROWS rows (K1:
+    ``rays_per_tile`` whole rays or, at kb > F32_ROWS, ``tiles_per_ray``
+    tiles of one ray's slots), the FMA kernels' ``Smem`` (no schedule)."""
     if kernel not in ("K1", "K2all", "K4", "K6"):
         raise ValueError(f"decode_plan: kernel {kernel!r}")
     k1 = kernel in ("K1", "K2all")
+    if k1 and not 1 <= kb <= MAX_KB:
+        raise ValueError(f"decode_plan: kb in [1, {MAX_KB}] (got {kb})")
     g1, g2, g3 = 4 * g, 2 * g, g
     if is_bf16:
         ld = lambda w: w + TILE_PAD  # noqa: E731
         xb = TILE_ROWS * ld(kp) * 2
         smem = _regions([
             ("x0", xb), ("x1", xb),
-            ("rf", 16 * ld(crp) * 2 if k1 else 0),
-            ("ray", 8 * 2 * g1 * 4 if k1 else 0),
+            ("rf", TC_RAYS * ld(crp) * 2 if k1 else 0),
+            ("ray", TC_RAYS * g1 * 4 if k1 else 0),
             ("h", TILE_ROWS * ld(g1) * 2), ("h2", TILE_ROWS * ld(g2) * 2),
             ("ring", RING * SLAB_ELEMS * 2), ("off", TILE_ROWS * 4),
             ("logit", TILE_ROWS * 4), ("l4", WARPS_N * TILE_ROWS * 4),
             ("segs", MAX_SEGS * _SEG_BYTES)])
         tail = [("w2", 0, g1, g2), ("w3", 0, g2, g3)]
         if k1:
-            sched = [("ray_w1", 0, crp, 2 * g1), ("pair_w1", g1, kp, g1),
+            # each decoder's per-ray part just before its layer 1
+            sched = [("ray_w1", g1, crp, g1), ("pair_w1", g1, kp, g1),
                      *((f"prob_{w}", c, k, nn) for w, c, k, nn in tail),
-                     ("pair_w1", 0, kp, g1),
+                     ("ray_w1", 0, crp, g1), ("pair_w1", 0, kp, g1),
                      *((f"off_{w}", c, k, nn) for _ in range(n_iter)
                        for w, c, k, nn in tail)]
         elif kernel == "K6":
@@ -425,8 +462,10 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
                      *(s for _ in range(n_iter) for s in tail)]
         sched = [(op, c, k, nn, slab_rows(nn)) for op, c, k, nn in sched]
         rows = TILE_ROWS
-        tiles = -(-n // (rows // 8 if k1 else rows))
+        rays = rays_per_tile(kb, rows, TC_RAYS) if k1 else 0
+        tiles = -(-n // (rays if k1 else rows))
         return {"rows_per_tile": rows, "tiles": tiles,
+                "rays_per_tile": rays, "tiles_per_ray": 1,
                 "blocks": min(tiles, sm_count), "smem": smem,
                 "schedule": sched,
                 "slabs_per_tile": sum(-(-k // s) for _, _, k, _, s in sched),
@@ -436,7 +475,7 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     x = m * max(kp, g2 + g3) * 4
     if k1:
         smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
-                         ("h", m * g1 * 4), ("ray", (m // 8) * 2 * g1 * 4),
+                         ("h", m * g1 * 4), ("ray", F32_RAYS * 2 * g1 * 4),
                          ("off", m * 4), ("logit", m * 4)])
     elif kernel == "K6":
         smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
@@ -444,9 +483,12 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     else:
         smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g2 * 4),
                          ("h", m * g1 * 4), ("off", m * 4)])
-    tiles = -(-n // (m // 8 if k1 else m))
-    return {"rows_per_tile": m, "tiles": tiles, "blocks": tiles,
-            "smem": smem, "schedule": [], "slabs_per_tile": 0}
+    rays = rays_per_tile(kb, m, F32_RAYS) if k1 else 0
+    tpr = -(-kb // m) if k1 else 1
+    tiles = -(-n // rays) * tpr if k1 else -(-n // m)
+    return {"rows_per_tile": m, "tiles": tiles, "rays_per_tile": rays,
+            "tiles_per_ray": tpr, "blocks": tiles, "smem": smem,
+            "schedule": [], "slabs_per_tile": 0}
 
 
 def warp_grid(rows: int, n: int) -> dict:
@@ -462,12 +504,12 @@ def warp_grid(rows: int, n: int) -> dict:
             "active": wm * wn}
 
 
-def _check_plan(name, kernel, kp, crp, n_iter, is_bf16, n, g=64):
+def _check_plan(name, kernel, kp, crp, n_iter, is_bf16, n, g=64, kb=8):
     """Raises unless the kernel takes these widths; returns the plan."""
     if g not in DECODER_GF:
         raise ValueError(f"{name} kernel takes imnet_gf g in {DECODER_GF} "
                          f"(got {g})")
-    plan = decode_plan(kernel, kp, crp, n_iter, is_bf16, n, g=g)
+    plan = decode_plan(kernel, kp, crp, n_iter, is_bf16, n, g=g, kb=kb)
     if kp > MAX_KP[kernel] or crp > MAX_CRP \
             or plan["smem"]["total"] > MAX_SMEM \
             or len(plan["schedule"]) > MAX_SEGS:
@@ -487,9 +529,9 @@ def _decode_operands(name, vox_table, cells, pos, ray_feat, w):
     c_vox, c_ray, multires = w["dims"]
     _check_cuda(name, [vox_table, cells, pos, ray_feat,
                        *(w[k] for k in _K1_WEIGHTS)], dtype)
-    if kb != 8:
-        raise ValueError(f"{name} kernel takes kb=8 pair slots a ray (got "
-                         f"kb={kb})")
+    if not 1 <= kb <= MAX_KB:
+        raise ValueError(f"{name} kernel takes 1 <= kb <= {MAX_KB} pair slots "
+                         f"a ray (got kb={kb})")
     for p in ("off", "prob"):
         decoder_gf(name, w["b1"].shape[0] // 2, w[f"{p}_w2"].shape,
                    w[f"{p}_w3"].shape)
@@ -520,7 +562,7 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
         raise ValueError(f"{name} kernel takes c_vox a multiple of 8 in "
                          f"bf16 (got {c_vox})")
     _check_plan(name, "K2all" if saves == "all" else "K1", kp, crp, n_iter,
-                is_bf16, n, g)
+                is_bf16, n, g, kb)
     dev = cells.device
     off = torch.empty((n, kb), dtype=torch.float32, device=dev)
     logit = torch.empty_like(off)
@@ -539,9 +581,9 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
                  torch.empty((rows, 1), dtype=torch.float32, device=dev)]
     ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
                            *(w[k] for k in _K1_WEIGHTS), *outs])
-    fn = cuda.bind("ray_decode", f"idt_{name}", cuda.PTR, *[cuda.I64] * 10,
+    fn = cuda.bind("ray_decode", f"idt_{name}", cuda.PTR, *[cuda.I64] * 11,
                    cuda.F32)
-    cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp, n_iter, g,
+    cuda.check(fn(ptrs, n, kb, c_vox, c_ray, multires, kp, crp, n_iter, g,
                   int(is_bf16), int(use_sigmoid), init_offset,
                   cuda.stream_ptr(dev)), name)
     if not saves:
@@ -643,11 +685,14 @@ def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
 
 # -- K3's plan: chunks of rays, operand streams, the weight-gradient products
 
-K3_CHUNK_RAYS = 32768  # rays per chunk of the operand streams, at most
+# rays per chunk of the operand streams, at most; at kb > 8 pair slots a
+# ray, at most the pair rows of kb 8's chunk of the same batch (bwd_plan)
+K3_CHUNK_RAYS = 32768
 K3_SPLIT_ROWS = 4096   # contraction rows of one Pass B block
 K3_TILE = (64, 128)    # Pass B's output tile (gradient rows, columns)
 # the operand streams Pass A writes, each (rows per instance, width): rows
-# are a chunk's pair rows, or its rays for the per-ray streams
+# are a chunk's pair rows, or for the per-ray streams a row for each ray and
+# tile of its slots (one a ray but at kb > rows_per_tile in f32)
 K3_STREAMS = ("x", "de_off", "de_prob", "rf", "dre_off", "dre_prob",
               "h1", "dt2", "h2", "dt3")
 _PER_RAY_STREAMS = ("rf", "dre_off", "dre_prob")
@@ -702,17 +747,21 @@ def bwd_grad_layout(kp: int, crp: int, g: int = 64) -> Dict[str, tuple]:
 def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
              sm_count: int, chunk_rays: int = K3_CHUNK_RAYS,
              split_rows: int = K3_SPLIT_ROWS, table_elems: int = 0,
-             g: int = 64) -> dict:
-    """The host-side arithmetic of K3 for ``n`` rays of kb = 8 pairs, a
+             g: int = 64, kb: int = 8) -> dict:
+    """The host-side arithmetic of K3 for ``n`` rays of ``kb`` pairs, a
     voxel table of ``table_elems`` elements (rows x c_vox) and decoders of
     imnet_gf ``g`` (Pass B's tiles are K3_TILE at every width: a narrow
     gradient fills part of its one tile column, the rest of the partial is
     padding that no reduction reads).
 
-    Pass A walks the rays in ``n_chunks`` chunks of at most
-    ``chunk_rays`` rays (equal but for the last), tiles of ``rows_per_tile``
-    pair rows (64 bf16, 32 f32) on a persistent grid of ``blocks_a`` blocks,
-    and writes each weight gradient's operands into the streams
+    Pass A walks the rays in ``n_chunks`` chunks, equal but for the last,
+    of whole tiles of rays: at most ``chunk_rays`` rays, and at most the
+    pair rows of the chunks kb 8 takes at this batch, so that K3's scratch
+    at any kb is no larger than kb 8's. A tile of ``rows_per_tile`` pair
+    rows (64 bf16, 32 f32) holds ``rays_per_tile`` whole rays or, in f32 at
+    kb > 32, a ray's slots spread over ``tiles_per_ray`` tiles
+    (:func:`tile_rows`). Pass A runs on a persistent grid of ``blocks_a``
+    blocks and writes each weight gradient's operands into the streams
     (``streams``: {name: (element offset, rows per instance, width,
     instances)} in one scratch buffer of the compute type, reused by every
     chunk). Pass B then forms each gradient product of ``jobs`` over the
@@ -730,20 +779,26 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         raise ValueError("bwd_plan: empty or invalid sizes")
     if g not in DECODER_GF:
         raise ValueError(f"bwd_plan: imnet_gf g in {DECODER_GF} (got {g})")
+    if not 1 <= kb <= MAX_KB:
+        raise ValueError(f"bwd_plan: kb in [1, {MAX_KB}] (got {kb})")
     g1, g2, g3 = 4 * g, 2 * g, g
     m = 64 if is_bf16 else 32
-    mr = m // 8
-    n_chunks = -(-n // chunk_rays)
+    mr = rays_per_tile(kb, m, m // 8)
+    tpr = -(-kb // m)
+    # the rays of kb 8's chunk at this batch (its tiles: m // 8 rays)
+    chunk8 = _align(-(-n // -(-n // chunk_rays)), m // 8)
+    limit = max(mr, min(chunk_rays, chunk8 * 8 // kb) // mr * mr)
+    n_chunks = -(-n // limit)
     chunk = _align(-(-n // n_chunks), mr)
     n_chunks = -(-n // chunk)
     n_inst = n_iter + 1
-    rows = chunk * 8
+    rows = chunk * kb
     widths = {"x": kp, "de_off": g1, "de_prob": g1, "rf": crp,
               "dre_off": g1, "dre_prob": g1, "h1": g1, "dt2": g2,
               "h2": g2, "dt3": g3}
     streams, off = {}, 0
     for name in K3_STREAMS:
-        r = chunk if name in _PER_RAY_STREAMS else rows
+        r = chunk * tpr if name in _PER_RAY_STREAMS else rows
         inst = n_inst if name in _TAIL_STREAMS else 1
         streams[name] = (off, r, widths[name], inst)
         off = _align(off + r * widths[name] * inst)
@@ -770,8 +825,8 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
                      "ld_dst": shape[1]})
         p_off += splits * stride
         blocks_b += tiles_k * tiles_n * splits
-    tiles = -(-chunk // mr)
-    blocks_a = max(1, min(sm_count, tiles))
+    tiles = -(-chunk // mr) * tpr
+    blocks_a = max(1, min(sm_count, -(-chunk // mr)))
     small, s_off = {}, 0
     for k in K3_SMALL:
         size = math.prod(layout[k][1])
@@ -784,7 +839,8 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         r["stride"] = s_off
     table_off = _align(p_off + blocks_a * s_off)
     table_stride = _align(table_elems)
-    return {"rows_per_tile": m, "chunk_rays": chunk, "n_chunks": n_chunks,
+    return {"rows_per_tile": m, "kb": kb, "rays_per_tile": mr,
+            "tiles_per_ray": tpr, "chunk_rays": chunk, "n_chunks": n_chunks,
             "tiles_per_chunk": tiles, "blocks_a": blocks_a,
             "n_inst": n_inst, "split_rows": split_rows, "streams": streams,
             "scratch_elems": scratch, "jobs": jobs, "blocks_b": blocks_b,
@@ -809,7 +865,8 @@ def pack_bwd_plan(plan: dict) -> list:
     hdr += [plan["small"][k] for k in K3_SMALL]
     hdr += [plan["small_size"], plan["small_off"], plan["scratch_elems"],
             plan["partial_floats"], plan["blocks_b"], plan["table_off"],
-            plan["table_stride"], plan["table_elems"]]
+            plan["table_stride"], plan["table_elems"], plan["kb"],
+            plan["rays_per_tile"], plan["tiles_per_ray"]]
     hdr += [0] * (_PLAN_HEADER - len(hdr))
     out = hdr
     for j in plan["jobs"]:
@@ -942,7 +999,7 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
     if n > 0:
         plan = bwd_plan(n, kp, crp, n_iter, dtype == torch.bfloat16,
                         cuda.sm_count(dev), K3_CHUNK_RAYS, K3_SPLIT_ROWS,
-                        vox_table.numel(), g4 // 4)
+                        vox_table.numel(), g4 // 4, kb)
         packed = pack_bwd_plan(plan)
         scratch = torch.empty((plan["scratch_elems"],), dtype=dtype,
                               device=dev)

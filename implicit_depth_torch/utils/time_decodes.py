@@ -4,21 +4,24 @@ default decoder widths (imnet_gf 64) and the main path's shapes, beside
 another version of the port, on one NVIDIA GPU.
 
     python3 implicit_depth_torch/utils/time_decodes.py [--baseline DIR]
-        [--rounds 1] [--out build/time_decodes.json]
+        [--kb 8 [4 12 16 ...]] [--rounds 1] [--out build/time_decodes.json]
 
 The operands are drawn from a seed with numpy, the same in every version:
-K1 and K4 on a served 480x640 frame (76,800 rays of kb = 8 pair slots;
-76,800 refine rows), K2 and K3 on a training step of batch 4 (80,000 rays),
+K1 and K4 on a served 480x640 frame (76,800 rays of kb pair slots, for
+each ``--kb``, default 8; 76,800 refine rows), K2 and K3 on a training step
+of batch 4 (80,000 rays of kb pair slots),
 K6 on the frame's 614,400 ``global`` rows (budget 8) with 215,040 of them
 below the row count, and on its 1,536,000 dense rows (K = 20). Each version
 times them in a process of its own, which imports that version's package
 from its root (``DIR`` is another checkout's root, e.g. ``git archive
 <commit>`` unpacked under ``build/``), builds its kernels there and
 prepares the weights with its own functions, so the C interfaces may
-differ: the median of 10 CUDA-event times after 2 warm-ups, bf16. The
-versions run in turns, baseline first (baseline, this tree, this tree,
-baseline), ``--rounds`` times. Writes ``--out`` and prints each kernel's
-times and this tree's over the baseline's.
+differ: the median of 10 CUDA-event times after 2 warm-ups, bf16. A
+version whose wrapper refuses a budget (a port from before every budget
+was taken) times nothing there: null. K1, K2 and K3 are keyed "<kernel>
+kb<kb>". The versions run in turns, baseline first (baseline, this tree,
+this tree, baseline), ``--rounds`` times. Writes ``--out`` and prints each
+kernel's times and this tree's over the baseline's.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ SEED = 0
 # the default model's widths
 C_VOX, C_ROI, C_DIR, MULTIRES, GF4 = 128, 128, 27, 8, 256
 C_END, C_POS = 128, 51
-SERVE_RAYS, TRAIN_RAYS, CELLS, KB = 76800, 80000, 729, 8
+SERVE_RAYS, TRAIN_RAYS, CELLS = 76800, 80000, 729
 GLOBAL_ROWS, GLOBAL_COUNT, DENSE_SLOTS = 614400, 215040, 20
 
 
@@ -64,9 +67,9 @@ def _time(fn, warmup=2, reps=10):
     return statistics.median(times)
 
 
-def worker():
-    """Times every kernel with the package on sys.path; prints one JSON
-    line {kernel: ms}."""
+def worker(budgets):
+    """Times every kernel with the package on sys.path, K1-K3 at each of
+    ``budgets``; prints one JSON line {kernel: ms}."""
     import numpy as np
     import torch
 
@@ -89,28 +92,42 @@ def worker():
     w = {k: t(v) for k, v in w.items()}
     k1w = rd.prep_ray_decode_weights(w, C_VOX, C_ROI, C_DIR, MULTIRES, bf)
 
-    def rays(n, images):
+    def rays(n, images, kb):
         return (t(rng.normal(size=(images * CELLS, C_VOX)), bf),
-                t(rng.integers(0, images * CELLS, (n, KB)), torch.int32),
-                t(0.6 * rng.normal(size=(n, KB, 6))),
+                t(rng.integers(0, images * CELLS, (n, kb)), torch.int32),
+                t(0.6 * rng.normal(size=(n, kb, 6))),
                 t(rng.normal(size=(n, C_ROI + C_DIR)), bf))
 
+    def timed(fn, reps=10):  # null where this version refuses the budget
+        try:
+            return _time(fn, reps=reps)
+        except ValueError:
+            return None
+
     out = {}
-    serve = rays(SERVE_RAYS, 1)
-    out["K1"] = _time(lambda: rd.ray_decode(*serve, k1w))
-    train = rays(TRAIN_RAYS, 4)
-    cot = (t(rng.normal(size=(TRAIN_RAYS, KB))),
-           t(rng.normal(size=(TRAIN_RAYS, KB))))
-    out["K2 l1"] = _time(lambda: rd.ray_decode_save(*train, k1w))
-    out["K2 all"] = _time(lambda: rd.ray_decode_save_all(*train, k1w))
-    for name, saved in (("K3 from l1 saves", rd.ray_decode_save(*train,
-                                                                k1w)[2]),
-                        ("K3 from full saves",
-                         rd.ray_decode_save_all(*train, k1w)[2]),
-                        ("K3 recompute", None)):
-        out[name] = _time(lambda: rd.ray_decode_bwd(*train, k1w, saved, *cot),
-                          reps=5)
-    del train, cot
+    for kb in budgets:
+        serve = rays(SERVE_RAYS, 1, kb)
+        out[f"K1 kb{kb}"] = timed(lambda: rd.ray_decode(*serve, k1w))
+        train = rays(TRAIN_RAYS, 4, kb)
+        cot = (t(rng.normal(size=(TRAIN_RAYS, kb))),
+               t(rng.normal(size=(TRAIN_RAYS, kb))))
+        out[f"K2 l1 kb{kb}"] = timed(lambda: rd.ray_decode_save(*train, k1w))
+        out[f"K2 all kb{kb}"] = timed(
+            lambda: rd.ray_decode_save_all(*train, k1w))
+        for name, fwd in (("K3 from l1 saves", rd.ray_decode_save),
+                          ("K3 from full saves", rd.ray_decode_save_all),
+                          ("K3 recompute", None)):
+            try:
+                saved = fwd(*train, k1w)[2] if fwd else None
+            except ValueError:
+                out[f"{name} kb{kb}"] = None
+                continue
+            out[f"{name} kb{kb}"] = timed(
+                lambda: rd.ray_decode_bwd(*train, k1w, saved, *cot), reps=5)
+            del saved
+        del train, cot
+        torch.cuda.empty_cache()
+    serve = rays(SERVE_RAYS, 1, 8)
     iw = {"enc_w": rng.normal(size=(1, 16)),
           "enc_b": 0.1 * rng.normal(size=(16,))}
     c_rc = C_ROI + C_DIR
@@ -136,11 +153,12 @@ def worker():
           flush=True)
 
 
-def run_version(root: Path) -> dict:
+def run_version(root: Path, budgets) -> dict:
     """One worker process with the package of ``root``."""
     code = ("import sys; sys.path.insert(0, %r); "
-            "sys.argv = ['time_decodes', '--worker']; __file__ = %r; "
-            "exec(open(__file__).read())") % (str(root), __file__)
+            "sys.argv = ['time_decodes', '--worker', '--kb', *%r]; "
+            "__file__ = %r; exec(open(__file__).read())") % (
+                str(root), [str(kb) for kb in budgets], __file__)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=root)
     if res.returncode != 0:
@@ -154,11 +172,13 @@ def main():
     ap.add_argument("--worker", action="store_true",
                     help="time with the package on sys.path (internal)")
     ap.add_argument("--baseline", type=Path, default=None)
+    ap.add_argument("--kb", type=int, nargs="+", default=[8],
+                    help="pair slots a ray of K1-K3's operands")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.worker:
-        worker()
+        worker(args.kb)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -171,13 +191,13 @@ def main():
              else ["this"]) * args.rounds
     runs = {v: [] for v in versions}
     for v in order:
-        got = run_version(versions[v])
+        got = run_version(versions[v], args.kb)
         runs[v].append(got["ms"])
         print(v, json.dumps(got["ms"]), flush=True)
     summary = {}
     for k in runs["this"][0]:
         row = {v: [r[k] for r in rs] for v, rs in runs.items()}
-        if "baseline" in row:
+        if "baseline" in row and None not in row["this"] + row["baseline"]:
             row["this_over_baseline"] = (statistics.mean(row["this"])
                                          / statistics.mean(row["baseline"]))
         summary[k] = row

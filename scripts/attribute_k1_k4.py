@@ -139,10 +139,10 @@ EDITS = {
          "        if ((lane & 3) == 0 && !(IDT_SKIP & 4)) L4["),
         ("decode_tile.cuh",
          "                                           int col0) {\n"
-         "  const int total = valid * c, chunks = total / 8;",
+         "  const int total = valid * c;",
          "                                           int col0) {\n"
          "  if (IDT_SKIP & 8) return;\n"
-         "  const int total = valid * c, chunks = total / 8;"),
+         "  const int total = valid * c;"),
         ("decode_tile.cuh",
          "  const int per = c / 8;\n  for (int i = threadIdx.x; i < rows * per;",
          "  if (IDT_SKIP & 8) return;\n"

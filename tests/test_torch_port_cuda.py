@@ -227,7 +227,7 @@ def test_depth_completer_card_matches_cpu(dev):
 # -- stage-1 training: K2, K3, the K5 gradient, a train step ------------------
 
 def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
-                 n_table=30, gf=64):
+                 n_table=30, gf=64, kb=8):
     c_embed = cv + c_roi + 102 + c_dir
     w = {"off_enc_w": rng.normal(size=(1, 16)),
          "off_enc_b": 0.1 * rng.normal(size=(16,))}
@@ -239,10 +239,11 @@ def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
     w32 = rd.split_ray_decode_weights({k: _t(v, dev) for k, v in w.items()},
                                       cv, c_roi, c_dir, 8, DTYPES[dtype])
     args = (_t(rng.normal(size=(n_table, cv)), dev),
-            _t(rng.integers(0, n_table, (n, 8)), dev, torch.int32),
-            _t(0.6 * rng.normal(size=(n, 8, 6)), dev),
+            _t(rng.integers(0, n_table, (n, kb)), dev, torch.int32),
+            _t(0.6 * rng.normal(size=(n, kb, 6)), dev),
             _t(rng.normal(size=(n, c_roi + c_dir)), dev, DTYPES[dtype]))
-    cot = (_t(rng.normal(size=(n, 8)), dev), _t(rng.normal(size=(n, 8)), dev))
+    cot = (_t(rng.normal(size=(n, kb)), dev),
+           _t(rng.normal(size=(n, kb)), dev))
     return w32, args, cot
 
 
@@ -592,6 +593,103 @@ def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev):
     case = _pair_case(rng, dev, "bfloat16", 40, 2, True, gf=24)
     with pytest.raises(ValueError, match="imnet_gf g in"):
         pd.pair_decode(*case)
+
+
+# -- every per-ray pair budget: kb 1 (16 rays of a bf16 tile, most rows
+# idle), 3 and 12 (not dividing 64: trailing rows masked), 4 and 16 (whole
+# tiles), 64 (a ray a tile; two 32-row blocks a ray in f32), at
+# chip_smoke.py's tolerances: K1's outputs f32 1e-5, bf16 4e-3 (TOL); K2's
+# saves within an ulp of their largest value (_save_close); K3 per
+# gradient 1e-4 / 2e-2 of the norm (TRAIN_TOL)
+BUDGETS = [1, 3, 4, 12, 16, 64]
+K1_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kb", BUDGETS)
+def test_forward_decodes_at_every_budget(dev, dtype, kb):
+    """K1, K2 and K2 'all' at kb pair slots a ray against their plain
+    versions, over more tiles than one round of the persistent bf16 grid
+    and a ragged last tile: K2's outputs are K1's bits, two launches give
+    the same bits, the first offset is init_offset exactly."""
+    n = 16 * 132 * 2 + 5
+    rng = np.random.default_rng(70 + kb)
+    w32, args, _ = _decode_case(rng, dev, dtype, n=n, kb=kb)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    counts = (rd.ray_decode.launches, rd.ray_decode_save.launches,
+              rd.ray_decode_save_all.launches)
+    k1, again = rd.ray_decode(*args, w), rd.ray_decode(*args, w)
+    off, logit, saves = rd.ray_decode_save(*args, w)
+    off_a, logit_a, saves_a = rd.ray_decode_save_all(*args, w)
+    assert (rd.ray_decode.launches, rd.ray_decode_save.launches,
+            rd.ray_decode_save_all.launches) == (counts[0] + 2, counts[1] + 1,
+                                                 counts[2] + 1)
+    ref = rd.ray_decode_plain(*args, w, saves="all")
+    torch.cuda.synchronize()
+    assert k1[0].shape == (n, kb)
+    for a, b in zip(k1, again):
+        assert torch.equal(a, b)
+    for o in ((off, logit), (off_a, logit_a)):
+        assert torch.equal(o[0], k1[0]) and torch.equal(o[1], k1[1])
+    _close(k1, ref[:2], K1_TOL[dtype])
+    for got, want in zip(saves, ref[2][:3]):
+        _save_close(got, want, dtype)
+    for name, got, want in zip(rd.save_names(2, "all"), saves_a, ref[2]):
+        assert got.shape == want.shape, name
+        if name == "off0":
+            assert torch.equal(got, want)
+        elif name.startswith("off") or name == "logit":
+            _close(got, want, K1_TOL[dtype])
+        else:
+            _save_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kb", BUDGETS)
+@pytest.mark.parametrize("saves_of", ["l1", None, "all"])  # each K3 instance
+def test_ray_decode_bwd_at_every_budget(dev, dtype, kb, saves_of,
+                                        monkeypatch):
+    """K3's three instances at kb pair slots a ray against their plain
+    versions, over several chunks (sized by pair rows) and Pass B splits;
+    a second launch gives the same bits of every gradient, d_vox_table
+    included."""
+    monkeypatch.setattr(rd, "K3_CHUNK_RAYS", 1500)
+    monkeypatch.setattr(rd, "K3_SPLIT_ROWS", 1000)
+    n = 3001
+    assert rd.bwd_plan(n, 240, 160, 2, dtype == "bfloat16", 132, 1500, 1000,
+                       kb=kb)["n_chunks"] > 1
+    rng = np.random.default_rng(80 + kb)
+    w32, args, cot = _decode_case(rng, dev, dtype, n=n, kb=kb)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    saves = _k2_saves(args, w, saves_of)
+    before = rd.ray_decode_bwd.launches
+    d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
+    assert rd.ray_decode_bwd.launches == before + 1
+    ref = rd.ray_decode_bwd_plain(*args, w32, *cot, dtype=DTYPES[dtype],
+                                  saved=saves)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    got = {"d_table": d_tab, "d_ray_feat": d_rf, **d_w}
+    want = {"d_table": ref[0], "d_ray_feat": ref[1], **ref[2]}
+    for k, g in got.items():
+        assert g.shape == want[k].shape and torch.isfinite(g).all(), k
+        assert _rel_norm(g, want[k]) <= tol, (k, _rel_norm(g, want[k]))
+    again = rd.ray_decode_bwd(*args, w, saves, *cot)
+    assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_rf)
+    for k in d_w:
+        assert torch.equal(again[2][k], d_w[k]), k
+
+
+def test_decode_kernels_refuse_a_budget_past_the_limit(dev):
+    """kb 65: every stage-1 decode wrapper names the limit of 64."""
+    rng = np.random.default_rng(61)
+    w32, args, cot = _decode_case(rng, dev, "bfloat16", n=10, kb=65)
+    w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
+    for fn in (rd.ray_decode, rd.ray_decode_save, rd.ray_decode_save_all):
+        with pytest.raises(ValueError, match="kb <= 64"):
+            fn(*args, w)
+    with pytest.raises(ValueError, match="kb <= 64"):
+        rd.ray_decode_bwd(*args, w, None, *cot)
 
 
 @pytest.mark.parametrize("decode_bwd", ["kernel_save", "kernel",

@@ -35,7 +35,7 @@ WIDEST = {"K1": (rd.MAX_KP["K1"], rd.MAX_CRP),
 INSTANCES = [(k, bf16, widths) for k in ("K1", "K4", "K2all", "K6")
              for bf16 in (True, False) for widths in ("default", "widest")]
 # the products ahead of the IEF tails in a tile's schedule
-HEAD = {"K1": 5, "K2all": 5, "K4": 1, "K6": 4}
+HEAD = {"K1": 6, "K2all": 6, "K4": 1, "K6": 4}
 
 
 def _widths(kernel, which):
@@ -74,8 +74,9 @@ def test_wrappers_refuse_what_does_not_fit(kernel):
 
 def test_default_bf16_layout():
     """The regions of K1's bf16 block at the default widths, byte by byte:
-    two 64 x 248 layer-1 tiles, 16 x 168 per-ray rows, 8 x 512 f32 per-ray
-    parts, the 64 x 264 and 64 x 136 activations, three 18,432-byte slabs."""
+    two 64 x 248 layer-1 tiles, 16 x 168 per-ray rows, 16 x 256 f32 per-ray
+    parts (one decoder's at a time), the 64 x 264 and 64 x 136 activations,
+    three 18,432-byte slabs."""
     smem = rd.decode_plan("K1", 240, 160)["smem"]
     assert smem == {"x0": 0, "x1": 31744, "rf": 63488, "ray": 68864,
                     "h": 85248, "h2": 119040, "ring": 136448,
@@ -103,14 +104,14 @@ def test_tiles_and_persistent_grid(kernel, n):
 def test_slab_ring_and_warp_grid_divide_the_products(kernel, n_iter):
     """Each product of the schedule: k a multiple of the 16-deep mma step;
     n a multiple of the warp grid's 4 x 16 (64-row products) or 8 x 16
-    columns (K1's per-ray product), and n / 8 a power of two that a block's
+    columns (K1's per-ray products), and n / 8 a power of two that a block's
     threads divide (the slab copy's mapping); a slab a multiple of 16 rows
     that fits its share of the ring."""
     plan = rd.decode_plan(kernel, *DEFAULT[kernel], n_iter=n_iter)
     sched = plan["schedule"]
     assert len(sched) == HEAD[kernel] + 2 * n_iter
     for op, col, k, n, ks in sched:
-        warps_n = rd.WARPS if n == 512 else rd.WARPS_N
+        warps_n = rd.WARPS if op == "ray_w1" else rd.WARPS_N
         assert k % 16 == 0 and n % (warps_n * 16) == 0, op
         chunks = n // 8
         assert chunks & (chunks - 1) == 0 and 256 % chunks == 0, op
@@ -149,7 +150,8 @@ def test_schedule_streams_each_weight_from_its_slabs(kernel):
     """Emulates the ring: each product's slabs, cut from its operand by the
     plan alone (k0, rows), reassemble the operand's column block, and the
     product summed slab by slab is the whole product. Layer 1 of K1 (and of
-    K6) covers its 512 columns once; the offset tail recurs once per IEF
+    K6) covers its 512 columns once, K1's per-ray part too, each decoder's
+    half before that decoder's layer 1; the offset tail recurs once per IEF
     iteration."""
     rng = np.random.default_rng(0)
     kp, crp = DEFAULT[kernel]
@@ -171,7 +173,7 @@ def test_schedule_streams_each_weight_from_its_slabs(kernel):
         used.setdefault(op, []).append((col, n))
     if kernel == "K1":
         assert sorted(used["pair_w1"]) == [(0, 256), (256, 256)]
-        assert used["ray_w1"] == [(0, 512)]
+        assert used["ray_w1"] == [(256, 256), (0, 256)]
         assert len(used["off_w2"]) == 2 and len(used["prob_w2"]) == 1
     elif kernel == "K6":
         # the probability decoder's columns first (its tail runs before E1
