@@ -12,8 +12,9 @@ writes the reference datasets' file layouts with the port's own codecs and
 trains, tests and serves from those files, and (phases 36-38) serves and
 tests the reference's own checkpoint layout, trains and serves the IMNet
 offset decoder and the decoders without positional encoding, and trains
-with a checkpointed backbone and with L-BFGS, and (phase 39) serves and
-trains at per-ray pair budgets other than 8.
+with a checkpointed backbone and with L-BFGS, (phase 39) serves and
+trains at per-ray pair budgets other than 8, and (phase 40) trains stage 1
+in the ``global`` and dense modes.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
@@ -271,7 +272,21 @@ Phases:
      configs/train_lidf.yaml at budget 16 through the CLI (one epoch of 2
      steps at batch 4, validated: K2 1, K3 1, K5 2 a step; K1 1, K5 2 an
      eval frame) and configs/test_lidf.yaml from its checkpoint (its CSV).
-     Then the seconds of phases 2-39, of 33-35, of 36-38 and of 39.
+ 40. stage-1 training in the ``global`` (budget 8) and dense modes (K6
+     forward, the backward autograd of the plain decode recomputed in
+     chunks), each at phase 6's default widths: at batch 4 and at
+     train_lidf.yaml's batch 32 a recorded step and PAIR_STEPS counted ones
+     (launch counters from 0: K6 1, K5 2, K1-K3 0 a step; host ms, device
+     ms of a step, peak memory), K6 against its plain version on the
+     step's recorded forward call (bf16 and f32 at PAIR_TRAIN_TOL, on at
+     most PAIR_CHECK_ROWS of its rows), two steps twice bit for bit
+     under cuDNN's deterministic algorithms; at batch 4 the step's
+     gradients through K6 against the plain path's (f32 by parameter,
+     bf16 by group); an f32 step card vs CPU (as phase 8, one seed); then
+     configs/train_lidf.yaml in the mode through the CLI (one epoch of 2
+     steps at batch 4, validated: K6 1, K5 2 a step and an eval frame) and
+     configs/test_lidf.yaml from its checkpoint (its CSV).
+     Then the seconds of phases 2-40, of 33-35, of 36-38, of 39 and of 40.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -1275,18 +1290,19 @@ def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP):
     return recorded, launches, step_ms
 
 
-def profile_device_ms(fn, label):
-    """One call of ``fn`` under torch.profiler: logs the table and ``label``
-    with the device time, the table's "Self CUDA time total" (the device
-    operations' own entries, user annotations left out); returns it in
-    ms."""
+def profile_device_ms(fn, label, table=True):
+    """One call of ``fn`` under torch.profiler: logs the table (with
+    ``table``) and ``label`` with the device time, the table's "Self CUDA
+    time total" (the device operations' own entries, user annotations left
+    out); returns it in ms."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     with prof_ctx(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    log(events.table(sort_by="cuda_time_total", row_limit=30))
+    if table:
+        log(events.table(sort_by="cuda_time_total", row_limit=30))
     device_us = sum(ev.self_device_time_total for ev in events
                     if str(ev.device_type).endswith("CUDA")
                     and not getattr(ev, "is_user_annotation", False))
@@ -1326,8 +1342,9 @@ def cudnn_flags(**flags):
             setattr(torch.backends.cudnn, k, v)
 
 
-def cross_check_seed(dev, seed, witness):
-    """One seed of ``train_cross_check``; returns what failed."""
+def cross_check_seed(dev, seed, witness, mode=None):
+    """One seed of ``train_cross_check`` (in the decode ``mode`` of MODES
+    when given: phase 40); returns what failed."""
     from implicit_depth_torch.builder import (
         build_lidf,
         build_static,
@@ -1339,11 +1356,13 @@ def cross_check_seed(dev, seed, witness):
         sample_valid_stratified,
     )
     from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     from implicit_depth_torch.train.state import TrainState
     from implicit_depth_torch.train.steps import make_lidf_train_step
 
-    cfg = load_config(overrides=XCHECK_TRAIN)
+    cfg = load_config(overrides=XCHECK_TRAIN if mode is None
+                      else mode_overrides(XCHECK_TRAIN, mode))
     static = build_static(cfg)
     gen = torch.Generator().manual_seed(seed)
     model = randomize_weights_(build_lidf(cfg, static, gen), gen)
@@ -1354,13 +1373,16 @@ def cross_check_seed(dev, seed, witness):
         (batch["corrupt_mask"] > 0.5).reshape(1, -1), static.n_rays, gen)
     # the decoders' last biases: their gradients are sums of the decode's
     # cotangents that cancel (see rel_norm), measured against the sum of
-    # the cotangents' magnitudes, taken from the card's K3 call
+    # the cotangents' magnitudes, taken from the card's K3 call (in the
+    # global and dense modes, from the recompute's)
     floors = {}
-    bwd = rd.ray_decode_bwd
+    mod, attr, at = ((rd, "ray_decode_bwd", 6) if mode is None
+                     else (pd, "pair_decode_bwd_chunked", 7))
+    bwd = getattr(mod, attr)
 
     def recorder(*a, **kw):
-        floors["off_b4"] = a[6].abs().sum().item()
-        floors["prob_b4"] = a[7].abs().sum().item()
+        floors["off_b4"] = a[at].abs().sum().item()
+        floors["prob_b4"] = a[at + 1].abs().sum().item()
         return bwd(*a, **kw)
 
     recorder.launches = 0
@@ -1374,14 +1396,14 @@ def cross_check_seed(dev, seed, witness):
     for label, device, ctx in variants:
         m = copy.deepcopy(model).to(device)
         state = TrainState.create(m, cfg.training, steps_per_epoch=1000)
-        rd.ray_decode_bwd = recorder if label == "card" else bwd
+        setattr(mod, attr, recorder if label == "card" else bwd)
         try:
             with ctx:
                 losses = make_lidf_train_step(cfg, m, device)(
                     state, {k: v.to(device) for k, v in batch.items()}, None,
                     0, valid_idx=vidx, miss_start=mstart)
         finally:
-            rd.ray_decode_bwd = bwd
+            setattr(mod, attr, bwd)
         names = {id(p): n for n, p in m.named_parameters()}
         last_bias = {names[id(p)]: k for k, p in decoder_weights(
             m.offset_dec, m.prob_dec).items() if k in floors}
@@ -1400,7 +1422,8 @@ def cross_check_seed(dev, seed, witness):
             worst = max(errs_g, key=errs_g.get)
             groups[group] = (errs_g[worst], worst,
                              statistics.median(errs_g.values()))
-        log(f"train cross-check f32 seed {seed}, {a} vs {b} "
+        log(f"train cross-check f32 seed {seed}"
+            f"{f' ({mode} mode)' if mode else ''}, {a} vs {b} "
             f"({cfg.dataset.img_height}x{cfg.dataset.img_width}, "
             f"{static.n_rays} rays): largest relative loss difference "
             f"{loss_err:.3g}; gradients, largest relative error (median): "
@@ -4877,9 +4900,375 @@ def budget_phase(dev, workdir):
     return out, cli_launches
 
 
+# -- phase 40: the global and dense modes' stage-1 training -------------------
+# bare steps at the default widths (240x320, 20,000 rays and 10,000 points an
+# image, bf16) at the bench's batch 4 and train_lidf.yaml's batch 32: a
+# recorded step, then PAIR_STEPS counted
+PAIR_BATCHES = (4, 32)
+PAIR_STEPS = 2
+# per step: K6 forward once (its backward recomputes the plain decode), K5's
+# two pools, none of the per_ray kernels
+EXPECT_PER_PAIR_STEP = {"pair_decode": 1, "segment_max0": 2, "ray_decode": 0,
+                        "ray_decode_save": 0, "ray_decode_save_all": 0,
+                        "ray_decode_bwd": 0}
+EXPECT_PER_PAIR_EVAL_FRAME = {"pair_decode": 1, "segment_max0": 2}
+# K6 against its plain version on the recorded forward call, on at most
+# this many of its rows (the plain decode of batch 32's 12.8 M dense rows
+# would need ~50 GB of f32 intermediates): batch 4's dense rows, all
+PAIR_CHECK_ROWS = 1_600_000
+# K6 against its plain version in a training step: f32 1e-5 (as TOL); bf16
+# 2e-3, 2.5x the largest reading on an H100 (7.9e-4, dense batch 4; 6.5e-4
+# to 6.8e-4 global), as K2's training tolerance is 2.5x its reading: the
+# dense mode's outputs spread less (std 0.013) than the served frame's, so
+# that TOL's 4e-3 would not bite; with a bite of 5 (as STAGE2_BITE)
+PAIR_TRAIN_TOL = {("pair_decode", torch.float32): 1e-5,
+                  ("pair_decode", torch.bfloat16): 2e-3}
+PAIR_BITE = 5
+# the step's gradients, K6 route against the plain path's (autograd of
+# pair_decode_plain in one piece) on the card, same weights, batch, draws,
+# cuDNN deterministic, at batch 4 (the plain path's graph of batch 32's
+# rows would not fit the card): f32 by each parameter's relative norm; bf16
+# per group (the forward's outputs may differ by a bf16 rounding, and the
+# recompute sums the ray rows' gradients in f32 where the plain gather's
+# backward sums them in bf16; the backward through the batch norms carries
+# both into the ResNet). Readings on an H100 in both modes: f32 ResNet
+# 1.02e-5, decoders and PointNet 2.0e-6; bf16 1.74e-2 and 4.28e-3; limits
+# about 10x and 3-5x above them
+PAIR_GRAD_RTOL = 1e-4
+PAIR_BF16_GRAD_RTOL = {"resnet": 5e-2, "decoders and pnet": 2e-2}
+# train_lidf.yaml through the CLI in each mode: one epoch of 2 steps at
+# batch 4, validated; then test_lidf.yaml from its checkpoint
+PAIR_CLI_SET = ["training.batch_size=4", "dataset.synthetic_len=8",
+                "training.nepochs=1", "training.valid_batch_size=1"]
+PAIR_MODE_SETS = {"global": ["tpu.pairs_budget_mode=global"],
+                  "dense": ["tpu.pairs_budget_per_ray=0"]}
+
+
+def pair_train_model(dev, mode, dtype=None):
+    """The seeded training model of TRAIN_OVERRIDES in ``mode`` (the weights
+    of phase 6's model), with its config; in ``dtype`` when given."""
+    from implicit_depth_torch.builder import (
+        build_lidf,
+        build_static,
+        randomize_weights_,
+    )
+    from implicit_depth_torch.config import load_config
+    extra = {"compute_dtype": dtype} if dtype else {}
+    cfg = load_config(overrides=merged(TRAIN_OVERRIDES, {"tpu": {
+        **MODES[mode], **extra}}))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = randomize_weights_(build_lidf(cfg, build_static(cfg), gen), gen)
+    assert model.decode_mode == mode, model.decode_mode
+    return cfg, model.to(dev)
+
+
+def pair_f32_operands(model):
+    from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import pair_decode as pd
+    return pd.prep_pair_decode_weights(
+        {k: v.detach().clone() for k, v in
+         decoder_weights(model.offset_dec, model.prob_dec).items()},
+        model.dims["c_vox"], model.dims["c_roi"], model.dims["c_dir"],
+        model.multires, torch.float32)
+
+
+def cut_pair_call(a, kw, rows):
+    """A recorded K6 call cut to its first ``rows`` rows (whole rays in the
+    dense layout; the row count clamped)."""
+    vt, cells, pos, rf, w, rays = a
+    p = cells.shape[0]
+    if p <= rows:
+        return a, kw
+    if rays is None:
+        slots = p // rf.shape[0]
+        rows = rows // slots * slots
+        rf = rf[:rows // slots]
+    else:
+        rays = rays[:rows]
+    if kw.get("n_rows") is not None:
+        kw = {**kw, "n_rows": kw["n_rows"].clamp(max=rows)}
+    return (vt, cells[:rows], pos[:rows], rf, w, rays), kw
+
+
+def pair_k6_row(recorded, f32w, dev):
+    """K6 against its plain version on the step's recorded forward call (cut
+    to PAIR_CHECK_ROWS), bf16 as recorded and f32, at PAIR_TRAIN_TOL, which
+    must lie PAIR_BITE times below the outputs' spread; K6's time on the
+    whole call, and the recompute backward's on its recorded call, with the
+    rows it decoded."""
+    from implicit_depth_torch.ops import pair_decode as pd
+
+    (key, (a, kw)), = [(k, v) for k, v in recorded.items()
+                       if k[0] == "pair_decode"]
+    a = tuple(t.detach() if torch.is_tensor(t) else t for t in a)
+    with torch.inference_mode():
+        step_ms = time_ms(lambda: pd.pair_decode(*a, **kw))
+    (ab, kwb), = [v for k, v in recorded.items() if k[0] == "recompute"]
+    g_off, g_logit = ab[7], ab[8]
+    live = (g_off != 0) | (g_logit != 0)
+    if ab[6] is not None:
+        live &= torch.arange(live.shape[0], device=dev) < ab[6]
+    bwd_ms = time_ms(lambda: pd.pair_decode_bwd_chunked(*ab, **kwb),
+                     warmup=1, reps=3)
+    a, kw = cut_pair_call(a, kw, PAIR_CHECK_ROWS)
+
+    def as_f32(name, a):
+        vt, cells, pos, rf, _, rays = a
+        return vt.float(), cells, pos, rf.float(), f32w, rays
+
+    shape = tuple(tuple(t.shape) for t in a if torch.is_tensor(t))
+    with torch.inference_mode():
+        row = forward_rows({("pair_decode", shape): (a, kw)}, as_f32, dev,
+                           PAIR_TRAIN_TOL, bite=False)["pair_decode"]
+    if PAIR_BITE * row["tolerance"] > row["spread"]:
+        raise AssertionError(f"K6 in training: tolerance {row['tolerance']} "
+                             f"is not {PAIR_BITE}x below the outputs' spread "
+                             f"{row['spread']}")
+    row["rows_checked"] = a[1].shape[0]
+    row["rows_in_step"] = key[1][1][0]
+    row.update(step_ms=step_ms, recompute_ms=bwd_ms,
+               recompute_rows=int(live.sum().item()))
+    log(f"K6 in the step: {step_ms:.4f} ms over {row['rows_in_step']} rows; "
+        f"the recompute backward {bwd_ms:.4f} ms over the "
+        f"{row['recompute_rows']} rows that carry a gradient")
+    return row
+
+
+def pair_steps(cfg, model, dev, batch):
+    """A recorded step (K6's forward call), then PAIR_STEPS counted steps of
+    ``batch``: returns (recorded, launches, step_ms, peak GiB, device ms of
+    one step, losses)."""
+    from implicit_depth_torch.ops import pair_decode as pd
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    state = TrainState.create(model, cfg.training, steps_per_epoch=1000)
+    step = make_lidf_train_step(cfg, model, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = train_batches(PAIR_STEPS + 1, cfg, batch, dev)
+    recorded = record_calls({"pair_decode": (pd, "pair_decode"),
+                             "recompute": (pd, "pair_decode_bwd_chunked")},
+                            lambda: step(state, batches[0], gen, 0))
+    counts = {k: f for k, f in counters().items() if k in EXPECT_PER_PAIR_STEP}
+    for f in counts.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for i, b in enumerate(batches[1:]):
+        t0 = time.perf_counter()
+        out = step(state, b, gen, i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: v.item() for k, v in out.items()})
+    launches = {k: f.launches for k, f in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dev_ms = profile_device_ms(lambda: step(state, batches[1], gen, 0),
+                               f"batch {batch}: device time of one step",
+                               table=batch == PAIR_BATCHES[0])
+    for k, per in EXPECT_PER_PAIR_STEP.items():
+        if launches[k] != per * PAIR_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{PAIR_STEPS} steps, expected {per} each")
+    if not all(np.isfinite(v) for ls in losses for v in ls.values()):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    return recorded, launches, step_ms, peak, dev_ms, losses
+
+
+def pair_repeat(cfg, model, dev, batch):
+    """Two steps from the same state, batches and draws, twice, under
+    cuDNN's deterministic algorithms: the same losses, parameters and
+    buffers bit for bit."""
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+    batches = train_batches(2, cfg, batch, dev, seed=SEED + 7)
+    runs = []
+    with cudnn_flags(deterministic=True, benchmark=False):
+        for _ in range(2):
+            m = copy.deepcopy(model)
+            state = TrainState.create(m, cfg.training, steps_per_epoch=1000)
+            step = make_lidf_train_step(cfg, m, dev)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            losses = [{k: v.item() for k, v in step(state, b, gen, i).items()}
+                      for i, b in enumerate(batches)]
+            runs.append((losses, {k: v.clone() for k, v in
+                                  m.state_dict().items()}))
+            del m, state, step
+            torch.cuda.empty_cache()
+    (la, sa), (lb, sb) = runs
+    if la != lb:
+        raise AssertionError(f"losses differ: {la} {lb}")
+    assert_same_tensors(f"batch {batch}: two steps twice", sa, sb)
+    return True
+
+
+def pair_plain_grads(dev, mode, dtype):
+    """One step of batch TRAIN_BATCH in ``dtype`` through K6 and the
+    recompute, and through the plain path (autograd of pair_decode_plain
+    in one piece), same weights, batch and draws, cuDNN deterministic:
+    {group: (largest relative error, its parameter)}; losses' largest
+    relative difference."""
+    from implicit_depth_torch.models import lidf as lidf_mod
+    from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import pair_decode as pd
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+
+    cfg, model = pair_train_model(dev, mode, dtype)
+    batch = train_batches(1, cfg, TRAIN_BATCH, dev, seed=SEED + 9)[0]
+    floors = {}
+    bwd = pd.pair_decode_bwd_chunked
+
+    def recorder(*a, **kw):
+        floors["off_b4"] = a[7].abs().sum().item()
+        floors["prob_b4"] = a[8].abs().sum().item()
+        return bwd(*a, **kw)
+
+    def plain_train(vox, cells, pos, rf, w32, rays=None, *, dtype, **kw):
+        return pd.pair_decode_plain(vox, cells, pos, rf,
+                                    pd.round_pair_biases(w32, dtype), rays,
+                                    dtype=dtype, **kw)
+
+    runs = {}
+    train = lidf_mod.pair_decode_train
+    for route in ("kernel", "plain"):
+        m = copy.deepcopy(model)
+        state = TrainState.create(m, cfg.training, steps_per_epoch=1000)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        pd.pair_decode_bwd_chunked = recorder
+        if route == "plain":
+            lidf_mod.pair_decode_train = plain_train
+        try:
+            with cudnn_flags(deterministic=True, benchmark=False):
+                losses = make_lidf_train_step(cfg, m, dev)(state, batch, gen,
+                                                           0)
+        finally:
+            lidf_mod.pair_decode_train = train
+            pd.pair_decode_bwd_chunked = bwd
+        names = {id(p): n for n, p in m.named_parameters()}
+        last_bias = {names[id(p)]: k for k, p in decoder_weights(
+            m.offset_dec, m.prob_dec).items() if k in ("off_b4", "prob_b4")}
+        runs[route] = ({k: v.item() for k, v in losses.items()},
+                       {n: p.grad.detach().clone()
+                        for n, p in m.named_parameters()})
+        del m, state
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = runs["kernel"], runs["plain"]
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-6) for k in lp)
+    errs = {n: rel_norm(gk[n], gp[n], floors[last_bias[n]]
+                        if n in last_bias else 0.0) for n in gp}
+    groups = {}
+    for group in ("resnet", "decoders and pnet"):
+        e = {n: v for n, v in errs.items()
+             if n.startswith("resnet.") == (group == "resnet")}
+        worst = max(e, key=e.get)
+        groups[group] = (e[worst], worst)
+    return loss_err, groups
+
+
+def pair_cli_phase(dev, workdir, mode):
+    """train_lidf.yaml in ``mode`` through the CLI (PAIR_CLI_SET), then
+    test_lidf.yaml from its checkpoint in the same mode: per step K6 1, K5
+    2, K1-K3 0; per eval frame K6 1, K5 2; finite losses; the test's CSV.
+    Returns {kernel: launches} of both runs."""
+    sets = PAIR_MODE_SETS[mode]
+    tr, launches = counted(lambda: cli(dev, "lidf", workdir / f"{mode}_train",
+                                       *PAIR_CLI_SET, *sets))
+    recs = epoch_records(tr)
+    steps = tr.steps_per_epoch * len(recs)
+    frames = sum(len(tr.make_valid_loaders()["synthetic"].dataset)
+                 for r in recs if "valid" in r)
+    expect_launches(f"{mode} CLI train_lidf", launches, steps, frames,
+                    EXPECT_PER_PAIR_STEP, EXPECT_PER_PAIR_EVAL_FRAME)
+    losses = [v for r in recs for v in r["train"].values()]
+    if tr.model.decode_mode != mode or steps != 2 \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"{mode} CLI: mode {tr.model.decode_mode}, "
+                             f"records {recs}")
+    test, test_launches = counted(lambda: cli(
+        dev, "test", workdir / f"{mode}_test",
+        f"checkpoint_path={tr.ckpt_dir}", "dataset.synthetic_len=4", *sets))
+    expect_launches(f"{mode} CLI test_lidf", test_launches, 0,
+                    len(test.make_valid_loaders()["synthetic"].dataset), {},
+                    EXPECT_PER_PAIR_EVAL_FRAME)
+    rows = read_csv(test)
+    if rows[-1][0] != "MEAN" or not np.isfinite(
+            np.asarray(rows[-1][1:], np.float64)).all():
+        raise AssertionError(f"{mode} CLI test: CSV {rows}")
+    log(f"{mode} CLI: train_lidf.yaml {steps} steps, losses "
+        f"{[r['train'] for r in recs]}; test_lidf.yaml result/synthetic.csv "
+        f"{len(rows) - 2} rows, MEAN {rows[-1][1:]}")
+    return {k: launches[k] + test_launches[k] for k in launches}
+
+
+def pair_train_phase(dev, workdir):
+    """Phase 40: stage-1 training in the global (budget 8) and dense modes.
+    For each mode: at each batch of PAIR_BATCHES a recorded step and
+    PAIR_STEPS counted steps (K6 1, K5 2, K1-K3 0 a step; host ms, device
+    ms, peak GiB), K6 against its plain version on the recorded forward
+    call, two steps twice bit for bit under cuDNN's deterministic
+    algorithms; at batch 4 the step's gradients against the plain path's
+    (f32 and bf16); an f32 step card vs CPU at XCHECK_TRAIN (as phase 8);
+    then train_lidf.yaml and test_lidf.yaml through the CLI. Returns
+    {mode: its record}."""
+    failed, out = [], {}
+    for mode in MODES:
+        t_mode = time.perf_counter()
+        rec = {}
+        for batch in PAIR_BATCHES:
+            cfg, model = pair_train_model(dev, mode)
+            f32w = pair_f32_operands(model)
+            recorded, launches, step_ms, peak, dev_ms, losses = pair_steps(
+                cfg, model, dev, batch)
+            k6 = pair_k6_row(recorded, f32w, dev)
+            del recorded
+            torch.cuda.empty_cache()
+            same = pair_repeat(cfg, model, dev, batch)
+            log(f"{mode} training batch {batch}: launches {launches} in "
+                f"{PAIR_STEPS} steps, step_ms {step_ms}, device ms of a step "
+                f"{dev_ms:.3f}, peak {peak:.2f} GiB, losses {losses}; K6 "
+                f"max_abs_err {k6['max_abs_err']:.3g} (tol "
+                f"{k6['tolerance']}, spread {k6['spread']:.3g}) on "
+                f"{k6['rows_checked']} of {k6['rows_in_step']} rows")
+            rec[f"batch{batch}"] = {
+                "launches_per_step": {k: n // PAIR_STEPS
+                                      for k, n in launches.items()},
+                "step_ms": step_ms, "step_device_ms": dev_ms,
+                "peak_gib": peak, "repeat_bit_identical": same,
+                "k6": {k: k6[k] for k in (
+                    "dtype", "shape", "max_abs_err", "tolerance", "spread",
+                    "ms", "plain_ms", "bound_ms", "bound_by", "rows_checked",
+                    "rows_in_step", "rows_decoded", "step_ms", "recompute_ms",
+                    "recompute_rows") if k in k6}}
+            del model
+            torch.cuda.empty_cache()
+        for dtype, limits in (("float32", None), ("bfloat16",
+                                                  PAIR_BF16_GRAD_RTOL)):
+            loss_err, groups = pair_plain_grads(dev, mode, dtype)
+            log(f"{mode} {dtype} step, K6 and the recompute against the "
+                f"plain path: largest relative loss difference "
+                f"{loss_err:.3g}; gradients, largest relative error: "
+                + "; ".join(f"{g} {e:.3g} ({n})"
+                            for g, (e, n) in groups.items()))
+            rec[f"vs_plain_{dtype}"] = {g: e for g, (e, _) in groups.items()}
+            for g, (e, n) in groups.items():
+                tol = PAIR_GRAD_RTOL if limits is None else limits[g]
+                if e > tol:
+                    failed.append(f"{mode} {dtype} vs plain: {g} {e} ({n}) "
+                                  f"> {tol}")
+        failed += cross_check_seed(dev, SEED, witness=False, mode=mode)
+        rec["cli_launches"] = pair_cli_phase(dev, workdir, mode)
+        rec["seconds"] = time.perf_counter() - t_mode
+        log(f"phase 40 {mode}: {rec['seconds']:.1f} s")
+        out[mode] = rec
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase 40: {failed}")
+    return out
+
+
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-39 on ``dev``; prints their seconds and the kernels line."""
+    """Phases 2-40 on ``dev``; prints their seconds and the kernels line."""
     t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
@@ -5042,6 +5431,12 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
             rows[name].setdefault("at_budgets", {})[
                 f"kb{BUDGET_CLI} cli"] = n
     log(f"phase 39 seconds {round(t39, 1)}")
+    # -- the global and dense modes' stage-1 training (phase 40) -------------
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        rows["pair_decode"]["train"] = pair_train_phase(dev, pathlib.Path(d))
+        t40 = time.perf_counter() - t0
+    log(f"phase 40 seconds {round(t40, 1)}")
     rows["segment_max0"]["options"] = {k: v["launches_k5"]
                                        for k, v in options.items()}
     for name, n in remat_launches.items():
@@ -5065,9 +5460,9 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
-    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-39; "
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-40; "
         f"33-35: {disk_s:.1f}; 36-38: {t36 + t37 + t38:.1f}; 39: "
-        f"{t39:.1f})")
+        f"{t39:.1f}; 40: {t40:.1f})")
     log(json.dumps({"kernels": kernels}))
 
 

@@ -1,12 +1,16 @@
-"""Baseline JPEG decoding and encoding in numpy, without OpenCV or Pillow.
+"""JPEG decoding and baseline encoding in numpy, without OpenCV or Pillow.
 
-:func:`read_jpeg` decodes a baseline or extended sequential Huffman JPEG of
-8-bit samples (1 or 3 components, sampling factors 1-2, restart intervals)
-as libjpeg-turbo does by default, and so as ``cv2.imread`` does: the
-``islow`` integer IDCT (``jidctint.c``), "fancy" triangle upsampling of
-subsampled chroma (``jdsample.c``) and the fixed-point YCbCr to RGB of
-``jdcolor.c``. It returns BGR like ``cv2.imread``. Progressive,
-arithmetic-coded, lossless, hierarchical and 12-bit files raise a
+:func:`read_jpeg` decodes a baseline, extended sequential or progressive
+Huffman JPEG of 8-bit samples (1 or 3 components, sampling factors 1-2,
+restart intervals) as libjpeg-turbo does by default, and so as
+``cv2.imread`` does: the ``islow`` integer IDCT (``jidctint.c``), "fancy"
+triangle upsampling of subsampled chroma (``jdsample.c``) and the
+fixed-point YCbCr to RGB of ``jdcolor.c``. It returns BGR like
+``cv2.imread``. A progressive file's scans (DC first and refine, AC first
+with end-of-band runs, AC refine: ``jdphuff.c``) fill one coefficient
+buffer, read whole before the output is made, as libjpeg-turbo reads a
+file whole, whose block smoothing then has no incomplete coefficient to
+act on. Arithmetic-coded, lossless, hierarchical and 12-bit files raise a
 ``ValueError`` that names them.
 
 :func:`write_jpeg` encodes baseline 4:2:0 colour with libjpeg's
@@ -35,7 +39,7 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _SOF_NAMES = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical sequential",
+    0xC3: "lossless", 0xC5: "hierarchical sequential",
     0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
     0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
@@ -47,6 +51,7 @@ class _Component:
     def __init__(self, cid: int, h: int, v: int, tq: int):
         self.id, self.h, self.v, self.tq = cid, h, v, tq
         self.coef = None  # (blocks_y, blocks_x, 64) natural order
+        self.flat = None  # a progressive file's: every block's 64, a list
 
 
 # -- Huffman ---------------------------------------------------------------
@@ -316,6 +321,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     comps: List[_Component] = []
     restart = 0
     height = width = 0
+    progressive = False
     adobe_transform = None
     pos = 2
     n = len(data)
@@ -336,11 +342,13 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         pos += 2 + seg_len
         if m in _SOF_NAMES:
             raise ValueError(f"JPEG: {_SOF_NAMES[m]} files are not read "
-                             "(baseline and extended sequential Huffman only)")
+                             "(baseline, extended sequential and progressive "
+                             "Huffman only)")
         if m == 0xCC:
             raise ValueError("JPEG: arithmetic coding (DAC marker) is not "
                              "read")
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
+            progressive = m == 0xC2
             precision, height, width, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"JPEG: {precision}-bit samples are not read "
@@ -384,8 +392,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         elif m == 0xDA:
             if not comps:
                 raise ValueError("JPEG: scan before the frame header")
-            pos = _read_scan(data, pos, body, comps, tables, restart,
-                             height, width)
+            pos = (_read_progressive_scan if progressive else _read_scan)(
+                data, pos, body, comps, tables, restart, height, width)
+    if progressive:
+        for c in comps:
+            if c.flat is not None:
+                c.coef = np.array(c.flat, np.int64).reshape(c.coef.shape)
     if not comps or any(c.coef is None for c in comps):
         raise ValueError("JPEG: no complete image in the file")
     return _finish(comps, quant, height, width, adobe_transform)
@@ -399,49 +411,72 @@ def _geometry(comps, height, width):
     return hmax, vmax, mcux, mcuy
 
 
-def _read_scan(data, pos, body, comps, tables, restart, height, width):
+def _scan_selectors(body, comps):
+    """A scan header's (component index, DC table, AC table) per component
+    and its (Ss, Se, Ah, Al)."""
     ns = body[0]
-    sel = []
     ids = [c.id for c in comps]
+    sel = []
     for i in range(ns):
         cid, t = body[1 + 2 * i], body[2 + 2 * i]
-        if cid not in ids or (0, t >> 4) not in tables or (
-                1, t & 15) not in tables:
-            raise ValueError(f"JPEG: a scan names component {cid} or a "
-                             "Huffman table the file does not define")
+        if cid not in ids:
+            raise ValueError(f"JPEG: a scan names component {cid}, which "
+                             "the frame does not define")
         sel.append((ids.index(cid), t >> 4, t & 15))
     ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise ValueError("JPEG: spectral selection or successive "
-                         "approximation in a scan (progressive) is not read")
+    return sel, (ss, se, ahal >> 4, ahal & 15)
+
+
+def _need_tables(keys, tables):
+    for key in keys:
+        if key not in tables:
+            raise ValueError("JPEG: a scan names a Huffman table the file "
+                             "does not define")
+
+
+def _scan_units(cis, comps, height, width):
+    """The blocks a scan of the components ``cis`` codes, in its order, as
+    (component index, block index in the component's MCU-padded grid), and
+    the blocks of one MCU (of one restart unit): one component's own blocks
+    row by row; several components' blocks MCU by MCU. Allocates each
+    component's coefficients at its first scan."""
     hmax, vmax, mcux, mcuy = _geometry(comps, height, width)
-    for ci, _, _ in sel:
+    for ci in cis:
         c = comps[ci]
         if c.coef is None:
             c.coef = np.zeros((mcuy * c.v, mcux * c.h, 64), np.int64)
-    units = []  # (component, block index in its coef grid, td, ta)
-    if ns == 1:
-        ci, td, ta = sel[0]
-        c = comps[ci]
+    units = []
+    if len(cis) == 1:
+        c = comps[cis[0]]
         # the component's own blocks: ceil(ceil(size * factor / max) / 8)
         bw = -(-(-(-width * c.h // hmax)) // 8)
         bh = -(-(-(-height * c.v // vmax)) // 8)
         gw = c.coef.shape[1]
-        for by in range(bh):
-            for bx in range(bw):
-                units.append((ci, by * gw + bx, td, ta))
-        per_mcu = 1
-    else:
-        for my in range(mcuy):
-            for mx in range(mcux):
-                for ci, td, ta in sel:
-                    c = comps[ci]
-                    gw = c.coef.shape[1]
-                    for v in range(c.v):
-                        for h in range(c.h):
-                            units.append((ci, (my * c.v + v) * gw
-                                          + mx * c.h + h, td, ta))
-        per_mcu = sum(comps[ci].h * comps[ci].v for ci, _, _ in sel)
+        units = [(cis[0], by * gw + bx) for by in range(bh)
+                 for bx in range(bw)]
+        return units, 1
+    for my in range(mcuy):
+        for mx in range(mcux):
+            for ci in cis:
+                c = comps[ci]
+                gw = c.coef.shape[1]
+                for v in range(c.v):
+                    for h in range(c.h):
+                        units.append((ci, (my * c.v + v) * gw + mx * c.h + h))
+    return units, sum(comps[ci].h * comps[ci].v for ci in cis)
+
+
+def _read_scan(data, pos, body, comps, tables, restart, height, width):
+    sel, band = _scan_selectors(body, comps)
+    _need_tables([k for _, td, ta in sel for k in ((0, td), (1, ta))],
+                 tables)
+    if band != (0, 63, 0, 0):
+        raise ValueError("JPEG: spectral selection or successive "
+                         "approximation in a sequential scan")
+    tabs = {ci: (td, ta) for ci, td, ta in sel}
+    units, per_mcu = _scan_units([ci for ci, _, _ in sel], comps, height,
+                                 width)
+    units = [(ci, blk, *tabs[ci]) for ci, blk in units]
     segs, end = _scan_segments(data, pos)
     chunk = restart * per_mcu if restart else len(units)
     out_idx = {ci: [] for ci, _, _ in sel}
@@ -457,6 +492,174 @@ def _read_scan(data, pos, body, comps, tables, restart, height, width):
         flat[np.array(out_idx[ci], np.int64)] = np.array(out_val[ci],
                                                          np.int64)
     return end
+
+
+def _read_progressive_scan(data, pos, body, comps, tables, restart, height,
+                           width):
+    """One scan of a progressive file into the components' coefficient
+    lists (``jdphuff.c``): a DC scan (Ss = Se = 0) of one or several
+    components, first (Ah = 0) or refining (one bit a block), or an AC scan
+    of one component over the band Ss..Se, first or refining."""
+    sel, (ss, se, ah, al) = _scan_selectors(body, comps)
+    if (ss == 0) != (se == 0) or ss > se or se > 63 or al > 13 or (
+            ss and len(sel) != 1):
+        raise ValueError(f"JPEG: a progressive scan with the band "
+                         f"{ss}..{se} over {len(sel)} components (Al {al})")
+    if ss == 0:
+        keys = [] if ah else [(0, td) for _, td, _ in sel]
+    else:
+        keys = [(1, sel[0][2])]
+    _need_tables(keys, tables)
+    units, per_mcu = _scan_units([ci for ci, _, _ in sel], comps, height,
+                                 width)
+    for ci, _, _ in sel:
+        c = comps[ci]
+        if c.flat is None:
+            c.flat = [0] * c.coef.size
+    segs, end = _scan_segments(data, pos)
+    chunk = restart * per_mcu if restart else len(units)
+    dc = {ci: td for ci, td, _ in sel}
+    for s, start in enumerate(range(0, len(units), chunk)):
+        if s >= len(segs):
+            raise ValueError("JPEG: fewer restart intervals than the image "
+                             "needs")
+        seg = segs[s]
+        block = units[start:start + chunk]
+        if ss == 0:
+            _decode_dc_scan(seg, block, comps, dc, ah, al, tables)
+        else:
+            win = _windows(seg)
+            (_decode_ac_refine if ah else _decode_ac_first)(
+                _bit_table(win, tables[keys[0]]), win.tolist(),
+                len(seg) * 8, [blk for _, blk in block],
+                comps[sel[0][0]].flat, ss, se, al)
+    return end
+
+
+def _decode_dc_scan(seg, units, comps, dc, ah, al, tables):
+    """A progressive DC scan over one restart interval: the first (each
+    block's DC difference, coded as in a sequential scan, scaled by 2^Al)
+    or a refinement (one bit a block, set at 2^Al)."""
+    if ah:
+        bits = _windows(seg).tolist()
+        for pos, (ci, blk) in enumerate(units):
+            if bits[pos] >> 31:
+                comps[ci].flat[blk * 64] |= 1 << al
+        return
+    win = _windows(seg)
+    tabs = {td: _bit_table(win, tables[(0, td)]) for td in set(dc.values())}
+    pred = {ci: 0 for ci in dc}
+    pos = 0
+    for ci, blk in units:
+        e = tabs[dc[ci]][pos]
+        if e & 255 == 255:
+            raise ValueError("JPEG: bad Huffman code in the DC of a block")
+        pos += e & 255
+        pred[ci] += e >> 16
+        comps[ci].flat[blk * 64] = pred[ci] * (1 << al)
+    if pos > len(seg) * 8 + 64:
+        raise ValueError("JPEG: scan data ends inside a block")
+
+
+def _eob_run(bits, pos, r):
+    """An end-of-band run of 2^r + the r bits at ``pos`` blocks."""
+    return (1 << r) + ((bits[pos] >> (32 - r)) & ((1 << r) - 1) if r else 0)
+
+
+def _decode_ac_first(tab, bits, nbits, blks, flat, ss, se, al):
+    """A first AC scan of one component over one restart interval: each
+    block's coefficients Ss..Se, scaled by 2^Al, or a run of blocks that
+    end before the band (EOBRUN)."""
+    zz = ZIGZAG.tolist()
+    pos = eobrun = 0
+    for blk in blks:
+        if eobrun:
+            eobrun -= 1
+            continue
+        base = blk * 64
+        k = ss
+        while k <= se:
+            e = tab[pos]
+            adv = e & 255
+            if adv == 255:
+                raise ValueError("JPEG: bad Huffman code in the AC of a block")
+            pos += adv
+            r, s = (e >> 12) & 15, (e >> 8) & 15
+            if s:
+                k += r
+                if k > se:
+                    raise ValueError("JPEG: AC coefficient past the band")
+                flat[base + zz[k]] = (e >> 16) * (1 << al)
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = _eob_run(bits, pos, r) - 1
+                pos += r
+                break
+    if pos > nbits + 64:
+        raise ValueError("JPEG: scan data ends inside a block")
+
+
+def _decode_ac_refine(tab, bits, nbits, blks, flat, ss, se, al):
+    """An AC refinement scan of one component over one restart interval:
+    in each block, coefficients Ss..Se that were 0 become ±2^Al where the
+    scan says, and every one already nonzero takes a correction bit (its
+    magnitude grows by 2^Al where the bit is 1 and that bit is still
+    clear); blocks of an end-of-band run take correction bits only."""
+    zz = ZIGZAG.tolist()
+    p1 = 1 << al
+    pos = eobrun = 0
+    for blk in blks:
+        base = blk * 64
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = tab[pos]
+                adv = e & 255
+                if adv == 255:
+                    raise ValueError("JPEG: bad Huffman code in the AC of a "
+                                     "block")
+                pos += adv
+                r, s = (e >> 12) & 15, (e >> 8) & 15
+                new = 0
+                if s:  # its sign bit, read with the code: ±1
+                    new = p1 if e >> 16 > 0 else -p1
+                elif r != 15:
+                    eobrun = _eob_run(bits, pos, r)
+                    pos += r
+                    break
+                # past coefficients already nonzero (each a correction bit)
+                # and r that are still 0, to the one that becomes nonzero
+                while k <= se:
+                    z = base + zz[k]
+                    cur = flat[z]
+                    if cur:
+                        if bits[pos] >> 31 and not cur & p1:
+                            flat[z] = cur + p1 if cur >= 0 else cur - p1
+                        pos += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if new:
+                    if k > se:
+                        raise ValueError("JPEG: AC coefficient past the band")
+                    flat[base + zz[k]] = new
+                k += 1
+        if eobrun:
+            while k <= se:
+                z = base + zz[k]
+                cur = flat[z]
+                if cur:
+                    if bits[pos] >> 31 and not cur & p1:
+                        flat[z] = cur + p1 if cur >= 0 else cur - p1
+                    pos += 1
+                k += 1
+            eobrun -= 1
+    if pos > nbits + 64:
+        raise ValueError("JPEG: scan data ends inside a block")
 
 
 def _finish(comps, quant, height, width, adobe_transform):

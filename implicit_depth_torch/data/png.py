@@ -1,10 +1,15 @@
 """PNG reading and writing on ``zlib``, without OpenCV or Pillow.
 
-:func:`read_png` reads non-interlaced 8-bit grey, grey + alpha, RGB, RGBA
-and palette images and 16-bit grey, with every scanline filter (0-4); any
-other file raises a ``ValueError`` that names what it is. :func:`write_png`
-writes 8-bit grey and RGB, 16-bit grey, and palette images (indices plus a
-palette, as ``seg_io.imwrite_indexed`` stores masks).
+:func:`read_png` reads every image the PNG standard defines: grey at 1, 2,
+4, 8 and 16 bits, palette at 1, 2, 4 and 8 bits, grey + alpha, RGB and RGBA
+at 8 and 16 bits, each plain or Adam7-interlaced, with every scanline
+filter (0-4); it returns the stored samples. :func:`read_png_pillow` gives
+them as Pillow's ``np.array(Image.open(path))`` does, :func:`read_png_gray`
+as ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` does. A colour type and bit
+depth the standard does not pair, another compression, filter or interlace
+method raise a ``ValueError`` that names it. :func:`write_png` writes 8-bit
+grey and RGB, 16-bit grey, and palette images (indices plus a palette, as
+``seg_io.imwrite_indexed`` stores masks).
 """
 
 from __future__ import annotations
@@ -20,6 +25,15 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _COLOR_NAMES = {0: "grey", 2: "RGB", 3: "palette", 4: "grey + alpha",
                 6: "RGBA"}
+# the bit depths the standard allows for each colour type
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7: each pass's first row and column and its row and column steps
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+# libpng's rgb_to_gray weights as OpenCV asks for them (0.299, 0.587 of
+# 32768, truncated; blue the rest)
+_GRAY_W = (9797, 19234, 3737)
 
 
 def _chunks(data: bytes):
@@ -77,11 +91,38 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
     return rec[1:, 1:].reshape(h, stride).astype(np.uint8)
 
 
-def read_png(path: str, with_palette: bool = False):
-    """The stored samples of a PNG: (H, W) grey or palette indices, (H, W,
-    2) grey + alpha, (H, W, 3) RGB, (H, W, 4) RGBA; uint8, or uint16 for
-    16-bit grey. ``with_palette``: also return the (n, 3) uint8 palette
-    (None unless the image has one)."""
+def _unpack(rows: np.ndarray, depth: int, n: int) -> np.ndarray:
+    """(h, stride) unfiltered bytes -> (h, n) samples: big-endian uint16 at
+    16 bits, bytes at 8, MSB-first fields below (uint8)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16)[:, :n]
+    if depth == 8:
+        return rows[:, :n]
+    per = 8 // depth
+    shifts = np.arange(per - 1, -1, -1, dtype=np.uint8) * depth
+    fields = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return fields.reshape(h, -1)[:, :n].astype(np.uint8)
+
+
+def _pass_samples(buf: np.ndarray, pos: int, h: int, w: int, depth: int,
+                  ch: int, path: str):
+    """One image or interlace pass of ``h`` x ``w`` pixels from the
+    decompressed stream at ``pos`` -> ((h, w·ch) samples, the next pos)."""
+    stride = (w * ch * depth + 7) // 8
+    n = h * (stride + 1)
+    if pos + n > buf.size:
+        raise ValueError(f"{path}: PNG image data ends early "
+                         f"({buf.size} bytes)")
+    raw = buf[pos:pos + n].reshape(h, stride + 1)
+    rows = _unfilter(raw[:, 1:], raw[:, 0].astype(np.int64),
+                     max(1, ch * depth // 8))
+    return _unpack(rows, depth, w * ch), pos + n
+
+
+def _read(path: str):
+    """(samples (H, W, channels), bit depth, colour type, palette or
+    None)."""
     with open(path, "rb") as f:
         data = f.read()
     header, palette, idat = None, None, []
@@ -97,53 +138,104 @@ def read_png(path: str, with_palette: bool = False):
     w, h, depth, color, comp, filt, interlace = header
     if color not in _CHANNELS:
         raise ValueError(f"{path}: PNG colour type {color} does not exist")
-    name = f"{depth}-bit {_COLOR_NAMES[color]}"
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG, {name}: not read")
-    if comp or filt:
+    if depth not in _DEPTHS[color]:
+        raise ValueError(f"{path}: a {depth}-bit {_COLOR_NAMES[color]} PNG "
+                         f"does not exist ({_COLOR_NAMES[color]} takes "
+                         f"{_DEPTHS[color]} bits)")
+    if comp or filt or interlace > 1:
         raise ValueError(f"{path}: PNG compression method {comp} / filter "
-                         f"method {filt}: not read")
-    if not (depth == 8 or (depth == 16 and color == 0)):
-        raise ValueError(f"{path}: {name} PNG: reads 8-bit grey, grey + "
-                         "alpha, RGB, RGBA, palette and 16-bit grey")
+                         f"method {filt} / interlace method {interlace}: "
+                         "not read")
     if color == 3 and palette is None:
         raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     ch = _CHANNELS[color]
-    bpp = ch * depth // 8
-    stride = w * bpp
     buf = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if buf.size != h * (stride + 1):
-        raise ValueError(f"{path}: PNG image data of {buf.size} bytes, "
-                         f"{h * (stride + 1)} expected")
-    buf = buf.reshape(h, stride + 1)
-    rows = _unfilter(buf[:, 1:], buf[:, 0].astype(np.int64), bpp)
-    if depth == 16:
-        img = rows.view(">u2").astype(np.uint16).reshape(h, w)
+    if not interlace:
+        img, end = _pass_samples(buf, 0, h, w, depth, ch, path)
+        img = img.reshape(h, w, ch)
     else:
-        img = rows.reshape(h, w, ch)
-        img = img[..., 0] if ch == 1 else img
-    img = np.ascontiguousarray(img)
+        img = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        end = 0
+        for r0, c0, dr, dc in _ADAM7:
+            ph, pw = -(-(h - r0) // dr), -(-(w - c0) // dc)
+            if ph > 0 and pw > 0:
+                sub, end = _pass_samples(buf, end, ph, pw, depth, ch, path)
+                img[r0::dr, c0::dc] = sub.reshape(ph, pw, ch)
+    if end != buf.size:
+        raise ValueError(f"{path}: PNG image data of {buf.size} bytes, "
+                         f"{end} expected")
+    return np.ascontiguousarray(img), depth, color, palette
+
+
+def read_png(path: str, with_palette: bool = False):
+    """The stored samples of a PNG: (H, W) grey or palette indices, (H, W,
+    2) grey + alpha, (H, W, 3) RGB, (H, W, 4) RGBA; uint8 at 1-8 bits (the
+    values as stored, 0 to 2^depth - 1), uint16 at 16. ``with_palette``:
+    also return the (n, 3) uint8 palette (None unless the image has
+    one)."""
+    img, _, _, palette = _read(path)
+    img = np.ascontiguousarray(img[..., 0]) if img.shape[2] == 1 else img
     return (img, palette) if with_palette else img
 
 
+def _high_bytes(img: np.ndarray) -> np.ndarray:
+    return (img >> 8).astype(np.uint8) if img.dtype == np.uint16 else img
+
+
+def read_png_pillow(path: str) -> np.ndarray:
+    """A PNG as Pillow's ``np.array(Image.open(path))`` gives it: 1-bit
+    grey as bool, 2- and 4-bit grey scaled to 8 bits, palette images as
+    their indices at any depth, 16-bit grey as uint16, 16-bit colour as the
+    high bytes (grey + alpha as RGBA, the grey in R, G and B); every other
+    image its stored samples."""
+    img, depth, color, _ = _read(path)
+    if color == 0 and depth < 8:
+        img = img[..., 0]
+        return img.astype(bool) if depth == 1 else \
+            img * np.uint8(255 // ((1 << depth) - 1))
+    if depth == 16 and color != 0:
+        img = _high_bytes(img)
+        if color == 4:
+            img = img[..., [0, 0, 0, 1]]
+        return np.ascontiguousarray(img)
+    return np.ascontiguousarray(img[..., 0]) if img.shape[2] == 1 else img
+
+
+def read_png_rgb(path: str) -> np.ndarray:
+    """A PNG as (H, W, 3) uint8 RGB, as ``cv2.cvtColor(cv2.imread(path),
+    cv2.COLOR_BGR2RGB)`` gives it: grey (scaled to 8 bits below 8)
+    repeated, palette images through their colours, alpha dropped, 16 bits
+    cut to their high byte."""
+    img, depth, color, palette = _read(path)
+    if color == 3:
+        return palette[img[..., 0]]
+    if color == 0 and depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
+    img = _high_bytes(img)
+    if img.shape[2] <= 2:  # grey, grey + alpha
+        return np.repeat(img[..., :1], 3, -1)
+    return np.ascontiguousarray(img[..., :3])
+
+
 def read_png_gray(path: str) -> np.ndarray:
-    """An 8-bit PNG as one grey channel, as ``cv2.imread(path,
-    IMREAD_GRAYSCALE)`` gives it: palette images through their colours,
-    colour through libpng's ``rgb_to_gray`` (coefficients 9797, 19234, 3737
-    of 32768, truncated), alpha dropped."""
-    img, palette = read_png(path, with_palette=True)
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: read_png_gray takes an 8-bit PNG")
-    if palette is not None:
-        img = palette[img]
-    if img.ndim == 2:
-        return img
-    if img.shape[2] == 2:
-        return np.ascontiguousarray(img[..., 0])
+    """A PNG as one 8-bit grey channel, as ``cv2.imread(path,
+    IMREAD_GRAYSCALE)`` gives it: grey below 8 bits scaled to 8, palette
+    images through their colours, alpha dropped, colour through libpng's
+    ``rgb_to_gray`` (the weights 9797, 19234, 3737 of 32768: truncated at 8
+    bits; at 16 rounded, before the 16 bits are cut to their high byte),
+    16 bits cut to their high byte."""
+    img, depth, color, palette = _read(path)
+    if color == 3:
+        img, depth = palette[img[..., 0]], 8
+    elif color == 0 and depth < 8:
+        return img[..., 0] * np.uint8(255 // ((1 << depth) - 1))
+    if img.shape[2] <= 2:  # grey, grey + alpha
+        return _high_bytes(np.ascontiguousarray(img[..., 0]))
     rgb = img[..., :3].astype(np.int64)
-    gray = (9797 * rgb[..., 0] + 19234 * rgb[..., 1]
-            + 3737 * rgb[..., 2]) >> 15
-    return gray.astype(np.uint8)
+    gray = sum(c * rgb[..., i] for i, c in enumerate(_GRAY_W))
+    if depth == 16:
+        return ((gray + 16384) >> 23).astype(np.uint8)
+    return (gray >> 15).astype(np.uint8)
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

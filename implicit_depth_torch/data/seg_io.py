@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from implicit_depth_torch.data.png import read_png, write_png
+from implicit_depth_torch.data.png import read_png_pillow, write_png
 
 
 def build_matrix_of_indices(height: int, width: int) -> np.ndarray:
@@ -20,9 +20,9 @@ def build_matrix_of_indices(height: int, width: int) -> np.ndarray:
 
 
 def imread_indexed(path: str) -> np.ndarray:
-    """The stored samples, as ``np.array(Image.open(path))``: a palette
-    image's indices, a grey image's values."""
-    return read_png(path)
+    """The image as ``np.array(Image.open(path))``: a palette image's
+    indices, a grey image's values (``png.read_png_pillow``)."""
+    return read_png_pillow(path)
 
 
 # The DAVIS palette used by ClearGrasp masks (first entries; rest generated).

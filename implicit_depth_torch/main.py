@@ -90,7 +90,9 @@ def make_trainer(argv=None):
 def main(argv=None):
     """Runs the configured trainer (train, or valid / test) and returns it.
     A process group it joined is left at the end, an exception included,
-    so that no rank stays waiting on this one."""
+    so that no rank stays waiting on this one (after an exception at once,
+    without the barrier of a clean exit)."""
+    clean = False
     try:
         trainer = make_trainer(argv)
         exp_type = trainer.cfg.exp_type
@@ -100,9 +102,10 @@ def main(argv=None):
             trainer.test()
         else:
             raise ValueError(f"unknown exp_type {exp_type!r}")
+        clean = True
         return trainer
     finally:
-        mesh.shutdown()
+        mesh.shutdown(clean)
 
 
 if __name__ == "__main__":

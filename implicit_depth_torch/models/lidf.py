@@ -21,9 +21,11 @@
     competitions.
   - dense (pairs_budget 0, or >= K): every (B, R, K) slot through K6.
   K6 has no backward (nor has the JAX kernel): in train mode the ``global``
-  and dense decodes run the plain version under autograd on the CPU, as the
-  JAX package trains them with ``use_pallas_decode: false``, and raise on
-  the card.
+  and dense decodes take ``pair_decode_train``, K6 forward on the card and
+  autograd of the plain version recomputed in the backward, as the JAX
+  package trains them through autograd of its plain decode
+  (``use_pallas_decode: false``); on the CPU the plain version under
+  autograd. ``decode_bwd`` is unread in these modes, as in the JAX package.
   The kernels take the IEF offset decoder with positional encoding. With
   ``offdec_type`` IMNet or ``pos_encode`` false the config alone selects
   the JAX package's non-fused decode (``_embed_decode``: the embedding,
@@ -67,10 +69,9 @@ from implicit_depth_torch.ops.masked import (
 )
 from implicit_depth_torch.ops.pair_decode import (
     pair_decode,
-    pair_decode_plain,
+    pair_decode_train,
     pair_decode_weights,
     prep_pair_decode_weights,
-    round_pair_biases,
 )
 from implicit_depth_torch.ops.ray_decode import (
     prep_ray_decode_weights,
@@ -380,9 +381,10 @@ class LIDFModel(nn.Module):
                       n_rows=None):
         """K6's decode of pair rows (see ``ops/pair_decode.pair_decode``;
         rows at or past the device count ``n_rows`` are 0 and, in the
-        kernel, not decoded): the kernel in eval mode; in train mode the
-        plain version under autograd at operands from the live parameters,
-        on the CPU only."""
+        kernel, not decoded): the kernel in eval mode; in train mode
+        ``pair_decode_train`` at operands from the live parameters (K6
+        forward and the plain decode's recompute backward on the card, the
+        plain version under autograd on the CPU)."""
         if not self.fused:
             return self._embed_decode(vox_feat, cells, pos, ray_feat, rays)
         kw = dict(n_rows=n_rows, n_iter=self.n_iter,
@@ -391,18 +393,11 @@ class LIDFModel(nn.Module):
         if not self.training:
             return pair_decode(vox_feat.to(self.dtype), cells, pos, ray_feat,
                                self.pair_operands(), rays, **kw)
-        if cells.device.type != "cpu":
-            raise NotImplementedError(
-                f"training in the {self.decode_mode!r} decode mode has no "
-                "CUDA path: K6 (fused_pair_decode) has no backward in the JAX "
-                "package, which trains this mode only through its plain XLA "
-                "decode (use_pallas_decode: false); train on the CPU or in "
-                "the per_ray mode")
-        w = round_pair_biases(pair_decode_weights(
+        w32 = pair_decode_weights(
             decoder_weights(self.offset_dec, self.prob_dec),
             self.dims["c_vox"], self.dims["c_roi"], self.dims["c_dir"],
-            self.multires, self.dtype), self.dtype)
-        return pair_decode_plain(vox_feat, cells, pos, ray_feat, w, rays,
+            self.multires, self.dtype)
+        return pair_decode_train(vox_feat, cells, pos, ray_feat, w32, rays,
                                  dtype=self.dtype, **kw)
 
     def _embed_decode(self, vox_feat, cells, pos, ray_feat, rays=None):

@@ -30,7 +30,12 @@ sync.
 The wrapper :func:`pair_decode` runs :func:`pair_decode_plain` for CPU
 tensors and launches the CUDA kernel (``csrc/pair_decode.cu``) for CUDA
 tensors, counting launches in ``pair_decode.launches``. The kernel has no
-backward, as the JAX kernel has no VJP.
+backward, as the JAX kernel has no VJP: the training decode
+:func:`pair_decode_train` runs K6 forward and, in its backward
+(:class:`PairDecodeTrain`), takes autograd of :func:`pair_decode_plain`
+recomputed from the same inputs, by chunks of :data:`TRAIN_CHUNK_ROWS`
+rows, as the JAX package trains these modes through autograd of
+``xla_pair_decode``.
 """
 
 from __future__ import annotations
@@ -67,6 +72,10 @@ _K6_WEIGHTS = ("w1", "b1", "a_vec", "c_vec",
 # kernel stages in each row: 5 a lane of a warp
 MAX_PE_COLS = 160
 _RAY_ALIGN = 8  # a ray row padded to 16 bytes of bf16 (cp.async pieces)
+# rows of one recompute in the training backward (read at call time). Under
+# autograd a row of the plain decode keeps ~7-13 KB of activations: the
+# dense mode's 12.8 M rows at batch 32 in one piece would need 85-170 GB
+TRAIN_CHUNK_ROWS = 1 << 17
 
 
 def pair_layout(c_vox: int, c_roi: int, c_dir: int, multires: int) -> dict:
@@ -139,16 +148,24 @@ def round_pair_biases(w: Dict[str, torch.Tensor],
     return {**w, **{k: _q(w[k], dtype) for k in ROUNDED_BIASES}}
 
 
+def cast_pair_operands(w32: Dict[str, torch.Tensor],
+                       dtype) -> Dict[str, torch.Tensor]:
+    """The kernel operands of the f32 ones (:func:`pair_decode_weights`):
+    the matrices in ``dtype``, the IEF's biases 2 and 3 rounded to it."""
+    w = round_pair_biases(w32, dtype)
+    for k in _MATRICES:
+        w[k] = w[k].to(dtype).contiguous()
+    return w
+
+
 def prep_pair_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
                              c_roi: int, c_dir: int, multires: int,
                              dtype) -> Dict[str, torch.Tensor]:
     """The kernel operands: :func:`pair_decode_weights` with the matrices
     in ``dtype`` and the IEF's biases 2 and 3 rounded to it."""
-    w = round_pair_biases(pair_decode_weights(weights, c_vox, c_roi, c_dir,
-                                              multires, dtype), dtype)
-    for k in _MATRICES:
-        w[k] = w[k].to(dtype).contiguous()
-    return w
+    return cast_pair_operands(pair_decode_weights(weights, c_vox, c_roi,
+                                                  c_dir, multires, dtype),
+                              dtype)
 
 
 def _dense_slots(p: int, n_rays: int) -> int:
@@ -173,20 +190,43 @@ def _mask_rows(v: torch.Tensor, n_rows) -> torch.Tensor:
     return torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=v.device))
 
 
-def layer1(vox_table, cells, pos, ray_feat, w, rays, dtype):
-    """(P, 2·4g) f32 layer-1 pre-activations [off | prob] of both decoders,
-    biases added, from X in :func:`pair_layout`'s order."""
-    lay = pair_layout(*w["dims"])
-    multires = w["dims"][3]
+def _gather_rows(vox_table, cells, ray_feat, rays):
+    """Each pair row's voxel row and ray row (``rays`` None: the dense
+    layout)."""
     if rays is None:
         rays = torch.arange(cells.shape[0], device=cells.device) // \
             _dense_slots(cells.shape[0], ray_feat.shape[0])
+    return vox_table[cells.long()], ray_feat[rays.long()]
+
+
+def _layer1_of(vox_rows, pos, ray_rows, w, dtype):
+    lay = pair_layout(*w["dims"])
+    multires = w["dims"][3]
     pos = pos.float()
-    x = _q(torch.cat([vox_table[cells.long()].float(),
-                      _ray_rows(ray_feat[rays.long()].float(), lay["c_rp"]),
+    x = _q(torch.cat([vox_rows.float(),
+                      _ray_rows(ray_rows.float(), lay["c_rp"]),
                       posenc_rows(pos[:, :3], multires),
                       posenc_rows(pos[:, 3:], multires)], 1), dtype)
     return _dot(x, w["w1"][:x.shape[1]], dtype) + w["b1"]
+
+
+def layer1(vox_table, cells, pos, ray_feat, w, rays, dtype):
+    """(P, 2·4g) f32 layer-1 pre-activations [off | prob] of both decoders,
+    biases added, from X in :func:`pair_layout`'s order."""
+    vox_rows, ray_rows = _gather_rows(vox_table, cells, ray_feat, rays)
+    return _layer1_of(vox_rows, pos, ray_rows, w, dtype)
+
+
+def _decode_rows(vox_rows, pos, ray_rows, w, n_rows, n_iter, init_offset,
+                 use_sigmoid, dtype):
+    """:func:`pair_decode_plain` of rows whose voxel and ray rows are
+    gathered already."""
+    g4 = w["b1"].shape[0] // 2
+    z = _layer1_of(vox_rows, pos, ray_rows, w, dtype)
+    offset = _ief_loop(z[:, :g4], w, "off_", n_iter, init_offset, dtype)
+    logit = _mlp_tail(_act(z[:, g4:]), w, "prob_", dtype) + w["prob_b4"]
+    return (_mask_rows(_squash(offset, use_sigmoid), n_rows),
+            _mask_rows(_squash(logit, use_sigmoid), n_rows))
 
 
 def pair_decode_plain(vox_table, cells, pos, ray_feat, w, rays=None, *,
@@ -198,13 +238,9 @@ def pair_decode_plain(vox_table, cells, pos, ray_feat, w, rays=None, *,
     f32 after the squash, exactly 0 at rows >= ``n_rows`` (a 0-d integer
     tensor; None: every row). ``dtype``: the compute dtype (default: that of
     ``w["w1"]``, which may then hold f32 values)."""
-    dtype = dtype or w["w1"].dtype
-    g4 = w["b1"].shape[0] // 2
-    z = layer1(vox_table, cells, pos, ray_feat, w, rays, dtype)
-    offset = _ief_loop(z[:, :g4], w, "off_", n_iter, init_offset, dtype)
-    logit = _mlp_tail(_act(z[:, g4:]), w, "prob_", dtype) + w["prob_b4"]
-    return (_mask_rows(_squash(offset, use_sigmoid), n_rows),
-            _mask_rows(_squash(logit, use_sigmoid), n_rows))
+    vox_rows, ray_rows = _gather_rows(vox_table, cells, ray_feat, rays)
+    return _decode_rows(vox_rows, pos, ray_rows, w, n_rows, n_iter,
+                        init_offset, use_sigmoid, dtype or w["w1"].dtype)
 
 
 def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
@@ -271,3 +307,138 @@ def pair_decode(vox_table, cells, pos, ray_feat, w,
 
 
 pair_decode.launches = 0
+
+
+# -- training: K6 forward, the plain decode recomputed in the backward -------
+
+def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
+                            n_rows, g_off, g_logit, *, need, dtype, n_iter=2,
+                            init_offset=0.001, use_sigmoid=False):
+    """The gradients of :func:`pair_decode_plain` (at the f32 operands
+    ``w32`` with the IEF's biases 2 and 3 rounded to ``dtype``, as the
+    kernel takes them) for the cotangents ``g_off``, ``g_logit``, taken by
+    autograd of the decode recomputed over chunks of
+    :data:`TRAIN_CHUNK_ROWS` rows in order. ``need``: (vox_table, ray_feat,
+    the weights) as booleans. Returns (d vox_table, d ray_feat, {weight:
+    gradient}), None where not needed.
+
+    Only the rows that carry a gradient are recomputed: those below the row
+    count whose cotangents are not both 0 (a row with zero cotangents adds
+    exact zeros to every gradient). Finding them takes one host sync. The
+    dense layout's empty slots and the ``global`` mode's pad rows, most of
+    the rows, all name one cell of an image: their sorted scatter would
+    walk tens of thousands of duplicates of one index in series.
+
+    A chunk's voxel and ray rows are gathered as leaves of its own graph;
+    their gradients go back with the sorted ``index_put_(accumulate=True)``
+    (no atomics), and every sum runs in f32 in chunk order, so that the
+    result is the same bits run to run."""
+    need_vox, need_ray, need_w = need
+    p = cells.shape[0]
+    keep = (g_off != 0) | (g_logit != 0)
+    if n_rows is not None:
+        keep &= torch.arange(p, device=cells.device) < n_rows
+    live = keep.nonzero()[:, 0]
+    if rays is None:
+        slots = _dense_slots(p, ray_feat.shape[0])
+    d_vox = torch.zeros(vox_table.shape, dtype=torch.float32,
+                        device=vox_table.device) if need_vox else None
+    d_ray = torch.zeros(ray_feat.shape, dtype=torch.float32,
+                        device=ray_feat.device) if need_ray else None
+    d_w = {k: torch.zeros_like(w32[k], dtype=torch.float32)
+           for k in _K6_WEIGHTS if need_w}
+    chunk = max(1, TRAIN_CHUNK_ROWS)
+    for s in range(0, live.shape[0], chunk):
+        r = live[s:s + chunk]
+        cells_c = cells[r].long()
+        rays_c = r // slots if rays is None else rays[r].long()
+        with torch.enable_grad():
+            vox_rows = vox_table[cells_c].detach().requires_grad_(need_vox)
+            ray_rows = ray_feat[rays_c].detach().requires_grad_(need_ray)
+            leaves = {k: w32[k].detach().requires_grad_(need_w)
+                      for k in _K6_WEIGHTS}
+            w = round_pair_biases({**leaves, "dims": w32["dims"]}, dtype)
+            out = _decode_rows(vox_rows, pos[r], ray_rows, w, None, n_iter,
+                               init_offset, use_sigmoid, dtype)
+            wanted = ([vox_rows] if need_vox else []) \
+                + ([ray_rows] if need_ray else []) \
+                + (list(leaves.values()) if need_w else [])
+            grads = list(torch.autograd.grad(
+                out, wanted, (g_off[r], g_logit[r]), allow_unused=True))
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, wanted)]
+        if need_vox:
+            d_vox.index_put_((cells_c,), grads.pop(0).float(),
+                             accumulate=True)
+        if need_ray:
+            d_ray.index_put_((rays_c,), grads.pop(0).float(),
+                             accumulate=True)
+        for k, g in zip(d_w, grads):
+            d_w[k] += g
+    return (None if d_vox is None else d_vox.to(vox_table.dtype),
+            None if d_ray is None else d_ray.to(ray_feat.dtype),
+            d_w or None)
+
+
+class PairDecodeTrain(torch.autograd.Function):
+    """The training pair decode on the card: forward K6, backward
+    :func:`pair_decode_bwd_chunked` (autograd of :func:`pair_decode_plain`
+    recomputed from the same inputs and the f32 split operands), as the JAX
+    package trains the ``global`` and dense modes through autograd of
+    ``xla_pair_decode`` (K6 has no VJP there).
+
+    Takes the f32 operands (:func:`pair_decode_weights` of the live
+    parameters, never the serving cache) and casts them inside, so that
+    their gradients reach the f32 parameters unrounded. Saves only the
+    inputs. Returns d vox_table, d ray_feat and every operand's gradient;
+    cells, pos, rays and the row count are geometry and get none."""
+
+    @staticmethod
+    def forward(ctx, opts, vox_table, cells, pos, ray_feat, rays, n_rows,
+                *ops):
+        dtype, dims, n_iter, init_offset, use_sigmoid = opts
+        w32 = dict(zip(_K6_WEIGHTS, ops), dims=dims)
+        out = pair_decode(vox_table, cells, pos, ray_feat,
+                          cast_pair_operands(w32, dtype), rays, n_rows=n_rows,
+                          n_iter=n_iter, init_offset=init_offset,
+                          use_sigmoid=use_sigmoid)
+        ctx.opts = opts
+        ctx.save_for_backward(vox_table, cells, pos, ray_feat, rays, n_rows,
+                              *ops)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_off, g_logit):
+        dtype, dims, n_iter, init_offset, use_sigmoid = ctx.opts
+        vox_table, cells, pos, ray_feat, rays, n_rows, *ops = \
+            ctx.saved_tensors
+        need = ctx.needs_input_grad
+        d_vox, d_ray, d_w = pair_decode_bwd_chunked(
+            vox_table, cells, pos, ray_feat,
+            dict(zip(_K6_WEIGHTS, ops), dims=dims), rays, n_rows, g_off,
+            g_logit, need=(need[1], need[4], any(need[7:])), dtype=dtype,
+            n_iter=n_iter, init_offset=init_offset, use_sigmoid=use_sigmoid)
+        return (None, d_vox, None, None, d_ray, None, None,
+                *(d_w[k] if d_w and n else None
+                  for k, n in zip(_K6_WEIGHTS, need[7:])))
+
+
+def pair_decode_train(vox_table, cells, pos, ray_feat, w32, rays=None, *,
+                      dtype, n_rows=None, n_iter=2, init_offset=0.001,
+                      use_sigmoid=False):
+    """Differentiable pair decode of a ``global`` or dense training step.
+
+    ``w32``: the f32 operands from live parameters
+    (:func:`pair_decode_weights`). CPU tensors take plain autograd through
+    :func:`pair_decode_plain`; CUDA tensors take :class:`PairDecodeTrain`
+    (K6 forward, the chunked plain recompute backward), with no fallback."""
+    kw = dict(n_rows=n_rows, n_iter=n_iter, init_offset=init_offset,
+              use_sigmoid=use_sigmoid)
+    if cells.device.type == "cpu":
+        return pair_decode_plain(vox_table, cells, pos, ray_feat,
+                                 round_pair_biases(w32, dtype), rays,
+                                 dtype=dtype, **kw)
+    return PairDecodeTrain.apply(
+        (dtype, w32["dims"], n_iter, init_offset, use_sigmoid),
+        vox_table, cells, pos, ray_feat, rays, n_rows,
+        *(w32[k] for k in _K6_WEIGHTS))

@@ -98,8 +98,10 @@ def init_from_env(device: Optional[str] = None,
     if dist.is_initialized():
         return str(dev)
     timeout = datetime.timedelta(seconds=timeout_s)
+    global _STORE
     store, rank_, world_ = next(dist.rendezvous("env://", timeout=timeout))
     store.set_timeout(timeout)
+    _STORE = store
     kw = {}
     if backend == "nccl":
         _refuse_shared_cards(store, rank_, world_, dev)
@@ -125,13 +127,29 @@ def _refuse_shared_cards(store, rank_: int, world_: int,
                 "card; use --dist_backend gloo to share a card")
 
 
-def shutdown() -> None:
+def shutdown(clean: bool = True) -> None:
     """Leaves the process group, when there is one, and forgets the
-    layout."""
-    global _LAYOUT, _RAYS_GROUP, _DATA_GROUP
+    layout. ``clean`` (every rank got here without an error): a barrier
+    first, so that no rank tears its group down while another still has a
+    collective in flight, and the rank that serves the rendezvous store
+    (rank 0) waits, after leaving, until every other rank has left, so that
+    none of them loses the store in the middle of its own teardown. After
+    an error the group is torn down at once: the other ranks may never
+    reach the barrier."""
+    global _LAYOUT, _RAYS_GROUP, _DATA_GROUP, _STORE
     _LAYOUT, _RAYS_GROUP, _DATA_GROUP = None, None, None
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    store, _STORE = _STORE, None
+    if not dist.is_initialized():
+        return
+    rank_, world_ = dist.get_rank(), dist.get_world_size()
+    if clean:
+        dist.barrier()
+    dist.destroy_process_group()
+    if clean and store is not None and world_ > 1:
+        if rank_:
+            store.set(f"idt_left/{rank_}", "1")
+        else:
+            store.wait([f"idt_left/{r}" for r in range(1, world_)])
 
 
 def rank() -> int:
@@ -303,6 +321,7 @@ def layout(batch_size: int, world_size: Optional[int] = None,
 _LAYOUT: Optional[Layout] = None
 _RAYS_GROUP = None  # this rank's rays group (None: the default group)
 _DATA_GROUP = None  # this rank's data group (None: the default group)
+_STORE = None  # the rendezvous store of init_from_env's group
 
 
 def _axis_groups(lay: Layout, axis: int):

@@ -23,7 +23,7 @@ import numpy as np
 from implicit_depth_torch.data import cv
 from implicit_depth_torch.data.exr import exr_loader
 from implicit_depth_torch.data.jpeg import read_jpeg
-from implicit_depth_torch.data.png import read_png, write_png
+from implicit_depth_torch.data.png import read_png, read_png_rgb, write_png
 
 
 def load_depth(path: str) -> np.ndarray:
@@ -44,16 +44,7 @@ def load_rgb(path: str) -> np.ndarray:
         return np.load(path)
     if path.lower().endswith((".jpg", ".jpeg")):
         return cv.bgr_to_rgb(read_jpeg(path))
-    img, palette = read_png(path, with_palette=True)
-    if palette is not None:  # the palette's colours, as cv2 expands them
-        return palette[img]
-    if img.dtype == np.uint16:  # 16-bit grey; read_png refuses 16-bit colour
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, -1)
-    if img.shape[2] == 2:
-        return np.repeat(img[..., :1], 3, -1)
-    return np.ascontiguousarray(img[..., :3])
+    return read_png_rgb(path)
 
 
 def save_depth(path: str, depth: np.ndarray) -> None:

@@ -99,25 +99,154 @@ def test_png_writer_reads_back_through_cv2_and_pillow(tmp_path, kind):
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    def write(name, depth, color, interlace):
+    """Every image the standard defines is read; what it does not define
+    raises, naming it."""
+    def write(name, depth, color, interlace, method=0):
         path = str(tmp_path / name)
         raw = zlib.compress(bytes(4 * (1 + 8)))
         with open(path, "wb") as f:
-            f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
-                ">IIBBBBB", 4, 4, depth, color, 0, 0, interlace))
-                + chunk(b"IDAT", raw) + chunk(b"IEND", b""))
+            f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(
+                ">IIBBBBB", 4, 4, depth, color, method, 0, interlace))
+                + _png_chunk(b"IDAT", raw) + _png_chunk(b"IEND", b""))
         return path
 
-    with pytest.raises(ValueError, match="interlaced"):
-        png.read_png(write("i.png", 8, 0, 1))
-    with pytest.raises(ValueError, match="16-bit RGB"):
-        png.read_png(write("r16.png", 16, 2, 0))
-    with pytest.raises(ValueError, match="4-bit grey"):
-        png.read_png(write("g4.png", 4, 0, 0))
+    with pytest.raises(ValueError, match="interlace method 2"):
+        png.read_png(write("i.png", 8, 0, 2))
+    with pytest.raises(ValueError, match="16-bit palette PNG does not exist"):
+        png.read_png(write("p16.png", 16, 3, 0))
+    with pytest.raises(ValueError, match="4-bit RGB PNG does not exist"):
+        png.read_png(write("r4.png", 4, 2, 0))
+    with pytest.raises(ValueError, match="compression method 1"):
+        png.read_png(write("c1.png", 8, 0, 0, method=1))
+    with pytest.raises(ValueError, match="colour type 5"):
+        png.read_png(write("t5.png", 8, 5, 0))
+
+
+def _png_chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _png_rows(img, depth, ch):
+    """(h, w[, ch]) samples -> (h, stride) bytes, fields MSB first."""
+    h, w = img.shape[:2]
+    s = img.reshape(h, w * ch).astype(np.uint32)
+    if depth == 16:
+        return s.astype(">u2").view(np.uint8).reshape(h, -1)
+    per = 8 // depth
+    s = np.concatenate([s, np.zeros((h, -(w * ch) % per), np.uint32)], 1)
+    shifts = np.arange(per - 1, -1, -1) * depth
+    return (s.reshape(h, -1, per) << shifts).sum(2).astype(np.uint8)
+
+
+def _png_filtered(rows, bpp):
+    """Each row behind a filter byte, the filters 0-4 in turn."""
+    h, stride = rows.shape
+    out = np.zeros((h, stride + 1), np.uint8)
+    b = np.zeros(stride, np.int64)
+    for r in range(h):
+        x = rows[r].astype(np.int64)
+        a = np.concatenate([np.zeros(bpp, np.int64), x])[:stride]
+        c = np.concatenate([np.zeros(bpp, np.int64), b])[:stride]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = [0, a, b, (a + b) >> 1, paeth][r % 5]
+        out[r, 0], out[r, 1:] = r % 5, (x - pred) & 255
+        b = x
+    return out
+
+
+def write_png_any(path, img, depth, color, interlace, palette=None):
+    """Any PNG the standard defines (the writers at hand write none of the
+    interlaced, 2- and 4-bit grey or 16-bit grey + alpha images), its rows
+    behind every filter in turn, its data in two IDAT chunks."""
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    bpp = max(1, ch * depth // 8)
+    h, w = img.shape[:2]
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    raw = b"".join(
+        _png_filtered(_png_rows(img[r0::dr, c0::dc], depth, ch), bpp).tobytes()
+        for r0, c0, dr, dc in passes if r0 < h and c0 < w)
+    z = zlib.compress(raw, 9)
+    parts = [b"\x89PNG\r\n\x1a\n", _png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, color, 0, 0, int(interlace)))]
+    if palette is not None:
+        parts.append(_png_chunk(b"PLTE", palette.astype(np.uint8).tobytes()))
+    parts += [_png_chunk(b"IDAT", z[:len(z) // 2]),
+              _png_chunk(b"IDAT", z[len(z) // 2:]), _png_chunk(b"IEND", b"")]
+    with open(path, "wb") as f:
+        f.write(b"".join(parts))
+
+
+def assert_png_read_as_pillow_and_cv2(path, stored=None):
+    """The port's three views of a PNG against Pillow's and cv2's reads at
+    the JAX call sites (and the stored samples, when given)."""
+    want = np.array(Image.open(path))
+    got = png.read_png_pillow(path)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(png.read_png_gray(path),
+                                  cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    np.testing.assert_array_equal(png.read_png_rgb(path), cv2.cvtColor(
+        cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB))
+    if stored is not None:
+        np.testing.assert_array_equal(png.read_png(path), stored)
+
+
+PNG_KINDS = [(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (1, 3), (2, 3), (4, 3),
+             (8, 3), (8, 4), (16, 4), (8, 2), (16, 2), (8, 6), (16, 6)]
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("depth,color", PNG_KINDS)
+def test_png_reads_every_kind_as_pillow_and_cv2(tmp_path, depth, color,
+                                                interlace):
+    """Every colour type at every bit depth, plain and Adam7-interlaced, at
+    sizes whose rows end inside a byte and whose interlace passes are
+    ragged or empty (3x5), each row behind another filter."""
+    rng = np.random.default_rng(depth * 10 + color)
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    for h, w in ((37, 29), (3, 5)):
+        img = rng.integers(0, 1 << depth, (h, w, ch)).astype(
+            np.uint16 if depth == 16 else np.uint8)
+        img = img[..., 0] if ch == 1 else img
+        pal = rng.integers(0, 256, (1 << depth, 3)) if color == 3 else None
+        path = str(tmp_path / f"{h}x{w}.png")
+        write_png_any(path, img, depth, color, interlace, pal)
+        assert_png_read_as_pillow_and_cv2(path, stored=img)
+
+
+@pytest.mark.parametrize("kind", ["pillow 1-bit", "pillow palette 1-bit",
+                                  "pillow palette 2-bit",
+                                  "pillow palette 4-bit", "cv2 16-bit RGB",
+                                  "cv2 16-bit RGBA"])
+def test_png_reads_pillow_and_cv2_low_bit_and_16_bit_files(tmp_path, kind):
+    """The 1-, 2- and 4-bit files Pillow writes and the 16-bit colour files
+    cv2 writes, each row's filter chosen by the writer."""
+    rng = np.random.default_rng(5)
+    path = str(tmp_path / "x.png")
+    if kind == "pillow 1-bit":
+        Image.fromarray(smooth(rng, 97, 131, 1) > 128).save(path)
+    elif kind.startswith("pillow palette"):
+        bits = int(kind.split()[-1][0])
+        im = Image.fromarray((smooth(rng, 97, 131, 1) >> (8 - bits)).astype(
+            np.uint8), "P")
+        im.putpalette(rng.integers(0, 256, 3 << bits).tolist())
+        im.save(path, bits=bits)
+        assert Image.open(path).info.get("bits", bits) == bits
+    else:
+        ch = 3 if kind.endswith("RGB") else 4
+        cv2.imwrite(path, smooth(rng, 97, 131, ch, np.uint16, 65535))
+    with open(path, "rb") as f:
+        depth = f.read(25)[24]
+    assert depth == {"pillow 1-bit": 1}.get(
+        kind, 16 if kind.startswith("cv2") else int(kind.split()[-1][0]))
+    assert_png_read_as_pillow_and_cv2(path)
 
 
 # -- JPEG -------------------------------------------------------------------
@@ -154,6 +283,38 @@ def test_jpeg_decoder_gives_cv2_bits(sampling, quality, restart):
                                       cv2.imdecode(buf, cv2.IMREAD_COLOR))
 
 
+@pytest.mark.parametrize("restart", [0, 2])
+@pytest.mark.parametrize("sampling", ["420", "422", "444", "grey"])
+@pytest.mark.parametrize("quality", [75, 95])
+def test_jpeg_decoder_gives_cv2_bits_for_progressive_files(sampling, quality,
+                                                           restart):
+    """cv2-written progressive files (libjpeg's simple progression: DC
+    first and refine scans, AC first scans with end-of-band runs over
+    spectral bands, AC refine scans) at an odd size, a noisy and a scene
+    image, with and without restarts: the bits of cv2's decode."""
+    rng = np.random.default_rng(quality + restart + 1)
+    for img in (np.clip(rng.normal(128, 40, (97, 131, 3)), 0, 255).astype(
+            np.uint8), scene_bgr(97, 131, quality)):
+        if sampling == "grey":
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        ok, buf = cv2.imencode(".jpg", img, [
+            cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+            cv2.IMWRITE_JPEG_QUALITY, quality,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling],
+            cv2.IMWRITE_JPEG_RST_INTERVAL, restart])
+        assert ok and b"\xff\xc2" in buf.tobytes()
+        np.testing.assert_array_equal(jpeg.decode_jpeg(buf.tobytes()),
+                                      cv2.imdecode(buf, cv2.IMREAD_COLOR))
+
+
+def test_jpeg_decoder_reads_progressive_loader_frames_as_cv2(tmp_path):
+    """480x640 scenes written progressive, read as ``cv2.imread``."""
+    path = str(tmp_path / "p.jpg")
+    cv2.imwrite(path, scene_bgr(480, 640, 5), [cv2.IMWRITE_JPEG_PROGRESSIVE,
+                                               1])
+    np.testing.assert_array_equal(jpeg.read_jpeg(path), cv2.imread(path))
+
+
 def test_jpeg_decoder_reads_the_loader_frames_as_cv2(tmp_path):
     """480x640 scenes written as the disk datasets' JPEGs are, read as
     ``cv2.imread`` reads them."""
@@ -164,15 +325,20 @@ def test_jpeg_decoder_reads_the_loader_frames_as_cv2(tmp_path):
 
 
 def test_jpeg_decoder_refuses_other_modes(tmp_path):
+    """Arithmetic coding (sequential and progressive), 12-bit samples and
+    4:1:1 sampling raise, naming them."""
     img = scene_bgr(32, 48)
-    ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="progressive"):
-        jpeg.decode_jpeg(prog.tobytes())
     data = bytearray(cv2.imencode(".jpg", img)[1].tobytes())
     sof = data.index(b"\xff\xc0")
     arith = bytes(data[:sof + 1]) + b"\xc9" + bytes(data[sof + 2:])
     with pytest.raises(ValueError, match="arithmetic"):
         jpeg.decode_jpeg(arith)
+    ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    prog = bytearray(prog.tobytes())
+    sof2 = prog.index(b"\xff\xc2")
+    prog[sof2 + 1] = 0xCA
+    with pytest.raises(ValueError, match="arithmetic-coded progressive"):
+        jpeg.decode_jpeg(bytes(prog))
     twelve = bytes(data[:sof + 4]) + b"\x0c" + bytes(data[sof + 5:])
     with pytest.raises(ValueError, match="12-bit"):
         jpeg.decode_jpeg(twelve)
@@ -252,6 +418,9 @@ def test_hdf5_writer_reads_back_through_h5py(tmp_path):
 
 
 def test_hdf5_reads_compact_and_refuses_other_storage(tmp_path):
+    """Compact storage is read; what stays refused raises, naming it: a
+    filter other than deflate, shuffle and fletcher32 (lzf, scale-offset),
+    the file format of libver='latest', compound and string types."""
     path = str(tmp_path / "c.h5")
     with h5py.File(path, "w") as f:
         dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
@@ -261,20 +430,126 @@ def test_hdf5_reads_compact_and_refuses_other_storage(tmp_path):
         ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.arange(10, dtype=np.int16))
     np.testing.assert_array_equal(hdf5.read_hdf5(path)["compact"],
                                   np.arange(10))
-    with h5py.File(str(tmp_path / "z.h5"), "w") as f:
-        f.create_dataset("x", data=np.ones((64, 64), np.float32),
-                         chunks=(16, 16), compression="gzip")
-    with pytest.raises(ValueError, match="filter pipeline"):
-        hdf5.read_hdf5(str(tmp_path / "z.h5"))
-    with h5py.File(str(tmp_path / "k.h5"), "w") as f:
-        f.create_dataset("x", data=np.ones((64, 64), np.float32),
-                         chunks=(16, 16))
-    with pytest.raises(ValueError, match="chunked"):
-        hdf5.read_hdf5(str(tmp_path / "k.h5"))
+    refused = {"lzf": ({"compression": "lzf"}, "filter lzf"),
+               "so": ({"scaleoffset": 2}, "filter scale-offset"),
+               "cmp": ({"data": np.zeros(3, [("a", "<i4"), ("b", "<f4")])},
+                       "compound datatype"),
+               "str": ({"data": np.array([b"ab", b"cd"])},
+                       "string datatype")}
+    for tag, (kw, match) in refused.items():
+        with h5py.File(str(tmp_path / f"{tag}.h5"), "w") as f:
+            f.create_dataset("x", **({"data": np.ones((64, 64), np.float32)}
+                                     | kw))
+        with pytest.raises(ValueError, match=match):
+            hdf5.read_hdf5(str(tmp_path / f"{tag}.h5"))
     with h5py.File(str(tmp_path / "l.h5"), "w", libver="latest") as f:
         f["x"] = np.ones(3)
     with pytest.raises(ValueError, match="superblock version"):
         hdf5.read_hdf5(str(tmp_path / "l.h5"))
+
+
+HDF5_CHUNKED = {
+    "chunked": {"chunks": (16, 32)},
+    "gzip 1": {"compression": "gzip", "compression_opts": 1},
+    "gzip 9": {"compression": "gzip", "compression_opts": 9},
+    "shuffle + gzip": {"compression": "gzip", "shuffle": True},
+    "fletcher32": {"fletcher32": True, "chunks": (10, 10)},
+    "fletcher32 + shuffle + gzip": {"fletcher32": True, "shuffle": True,
+                                    "compression": "gzip", "chunks": (8, 5)},
+    "many chunks": {"chunks": (4, 4)},  # a B-tree of several levels
+}
+
+
+@pytest.mark.parametrize("kind", list(HDF5_CHUNKED))
+def test_hdf5_reads_chunked_and_filtered_datasets_as_h5py(tmp_path, kind):
+    """Each dataset h5py writes with these storage settings, at shapes its
+    chunks do not divide (edge chunks), of every type the reader takes:
+    little- and big-endian integers and floats, h5py's bool; and a dataset
+    most of whose chunks were never written (the fill value)."""
+    rng = np.random.default_rng(len(kind))
+    arrays = {"f4": rng.random((101, 75)).astype(np.float32),
+              "u8": rng.integers(0, 255, (50, 61, 3), np.uint8),
+              "i2": rng.integers(-900, 900, (33, 17), np.int16),
+              "be_f8": rng.random((37, 29)).astype(">f8"),
+              "be_i4": rng.integers(-5, 5, (23, 41)).astype(">i4"),
+              "bool": rng.random((70, 9)) > 0.5}
+    kw = dict(HDF5_CHUNKED[kind])
+    path = str(tmp_path / "k.h5")
+    with h5py.File(path, "w") as f:
+        for name, a in arrays.items():
+            chunks = kw.get("chunks")
+            if chunks:  # at most the shape (h5py's rule), whole trailing axes
+                chunks = tuple(min(c, n) for c, n in zip(
+                    chunks + a.shape[len(chunks):], a.shape))
+            f.create_dataset(name, data=a, **{**kw, "chunks": chunks or True})
+        part = f.create_dataset("part", shape=(64, 70), dtype=np.float32,
+                                fillvalue=-2.5, **{**kw, "chunks": (16, 16)})
+        part[5:20, 40:50] = 1.0
+        assert f["f4"].chunks is not None
+    got, want = hdf5.read_hdf5(path), _h5py_tree(path)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and \
+            got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert (got["part"] == -2.5).mean() > 0.9
+
+
+def test_hdf5_refuses_a_chunk_whose_checksum_does_not_match(tmp_path):
+    path = tmp_path / "f.h5"
+    data = np.arange(400, dtype=np.float32).reshape(20, 20)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("x", data=data, chunks=(20, 20), fletcher32=True)
+    raw = bytearray(path.read_bytes())
+    at = raw.index(data[7].tobytes())
+    raw[at] ^= 1
+    path.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="fletcher32 checksum"):
+        hdf5.read_hdf5(str(path))
+
+
+def test_gzip_omniverse_files_load_as_the_jax_package_loads_them(tmp_path):
+    """An Omniverse tree whose files h5py wrote chunked through the filters
+    (gzip; gzip with shuffle; gzip with fletcher32): read_hdf5 gives
+    h5py's arrays, and the port's dataset gives the JAX package's samples
+    (augmented train samples' xyz_corrupt within the INTER_CUBIC bound of
+    test_torch_port_data.py, as test_torch_port_disk.py holds them)."""
+    from make_disk_datasets import write_omniverse
+    from test_torch_port_data import assert_samples_equal
+
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.data import datasets as port_ds
+    from implicit_depth_tpu.config import load_config as jax_load_config
+    from implicit_depth_tpu.data import datasets as jax_ds
+
+    root = tmp_path / "omniverse"
+    write_omniverse(str(root / "train"), 6, np.random.default_rng(0),
+                    (48, 64))
+    filters = ({}, {"shuffle": True}, {"fletcher32": True}) * 2
+    paths = sorted((root / "train" / "batch0").glob("*.h5"))
+    for p, kw in zip(paths, filters):
+        arrays = _h5py_tree(str(p))
+        with h5py.File(p, "w") as f:
+            for k, v in arrays.items():
+                f.create_dataset(k, data=v, compression="gzip", **kw)
+        with h5py.File(p) as f:
+            assert f["rgb_glass"].compression == "gzip"
+        got, want = hdf5.read_hdf5(str(p)), _h5py_tree(str(p))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    ov = {"dataset": {"type": "omniverse", "omniverse_root_dir": str(root),
+                      "img_width": 64, "img_height": 48,
+                      "use_data_augmentation": True, "depth_aug": True}}
+    ds = port_ds.get_dataset(load_config(overrides=ov).dataset, "train",
+                             "known", base_seed=3)
+    jds = jax_ds.get_dataset(jax_load_config(overrides=ov).dataset, "train",
+                             "known", base_seed=3)
+    assert len(ds) == len(jds) >= 3  # the train split's share of the 6
+    for idx in range(len(ds)):
+        assert_samples_equal(ds.__getitem__(idx, 1), jds.__getitem__(idx, 1),
+                             {"xyz_corrupt"})
 
 
 # -- the OpenCV twins -------------------------------------------------------

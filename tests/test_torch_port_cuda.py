@@ -788,11 +788,12 @@ def test_segment_max0_backward_matches_plain(dev, dtype):
 @pytest.mark.parametrize("tpu", [{"pairs_budget_per_ray": 0},
                                  {"pairs_budget_mode": "global",
                                   "pairs_budget_per_ray": 1}])
-def test_pair_decode_modes_serve_on_the_card_and_refuse_to_train(dev, tpu):
+def test_pair_decode_modes_serve_and_train_on_the_card(dev, tpu):
     """The dense and global modes: eval frames launch K6 once and K1 never
     and agree with the CPU (plain version) in f32, every valid pixel a
-    point; train mode raises (K6 has no backward, as the JAX kernel has
-    none)."""
+    point; an f32 train step launches K6 once (forward; the backward
+    recomputes the plain decode), K5 twice and K1-K3 never, and matches
+    the CPU's step (plain autograd)."""
     from implicit_depth_torch.models.lidf import prepare_inputs
 
     def mode_cfg(valid_sample_num):
@@ -835,15 +836,117 @@ def test_pair_decode_modes_serve_on_the_card_and_refuse_to_train(dev, tpu):
         assert valid.sum().item() > valid.shape[0] * valid.shape[1], \
             "the budget of 1 pair per ray drops no pair"
     from implicit_depth_torch.data.synthetic import synthetic_batch
+    from implicit_depth_torch.geometry.sampling import (
+        sample_masked_window,
+        sample_valid_stratified,
+    )
     from implicit_depth_torch.train.state import TrainState
     from implicit_depth_torch.train.steps import make_lidf_train_step
     tcfg = mode_cfg(512)
-    model = randomize_weights_(build_lidf(tcfg, build_static(tcfg), g), g)
-    state = TrainState.create(model, tcfg.training, steps_per_epoch=10)
-    batch = {k: torch.from_numpy(v)
-             for k, v in synthetic_batch(0, 1, 48, 64).items()}
-    with pytest.raises(NotImplementedError, match="no backward"):
-        make_lidf_train_step(tcfg, model, dev)(state, batch, None, 0)
+    tstatic = build_static(tcfg)
+    raw = {k: torch.from_numpy(v)
+           for k, v in synthetic_batch(0, 2, 48, 64).items()}
+    vidx, _, _ = sample_valid_stratified(raw["valid_mask"] > 0.5,
+                                         tstatic.n_valid, g)
+    _, _, _, mstart = sample_masked_window(
+        (raw["corrupt_mask"] > 0.5).reshape(2, -1), tstatic.n_rays, g)
+    counted = {"pair_decode": pd.pair_decode, "ray_decode": rd.ray_decode,
+               "ray_decode_save": rd.ray_decode_save,
+               "ray_decode_bwd": rd.ray_decode_bwd,
+               "segment_max0": segment.segment_max0}
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        g = torch.Generator().manual_seed(1)
+        model = randomize_weights_(build_lidf(tcfg, tstatic, g), g).to(device)
+        assert model.decode_mode != "per_ray"
+        state = TrainState.create(model, tcfg.training, steps_per_epoch=10)
+        before = {n: f.launches for n, f in counted.items()}
+        losses = make_lidf_train_step(tcfg, model, device)(
+            state, {k: v.to(device) for k, v in raw.items()}, None, 0,
+            valid_idx=vidx, miss_start=mstart)
+        if device == dev:
+            torch.cuda.synchronize()
+            assert {n: f.launches - before[n] for n, f in counted.items()} \
+                == {"pair_decode": 1, "ray_decode": 0, "ray_decode_save": 0,
+                    "ray_decode_bwd": 0, "segment_max0": 2}
+        runs.append((losses, {n: p.grad.cpu() for n, p in
+                              model.named_parameters()}))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    for k in l_cpu:  # f32: the same algebra in another order
+        np.testing.assert_allclose(l_card[k].item(), l_cpu[k].item(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    for name, ref in g_cpu.items():
+        # as test_train_step_card_matches_cpu: cuDNN's convolutions sum in
+        # other orders through the whole model; plus 1e-7 for a sum that
+        # cancels (the probability decoder's last bias: 5.6e-9 on the CPU,
+        # 0 or -2.8e-9 on an H100)
+        err = (g_card[name] - ref).double().norm().item()
+        assert err <= 1e-3 * ref.double().norm().item() + 1e-7, (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("indexed", [True, False])  # global rows; dense layout
+def test_pair_decode_train_is_k6_forward_and_the_recompute_gradient(
+        dev, dtype, indexed, monkeypatch):
+    """The training pair decode on the card: its forward is K6 (the bits of
+    ``pair_decode`` on ``cast_pair_operands``, one launch; rows at or past
+    the count 0), its backward the chunked plain recompute (chunks of 128
+    rows, which divide neither the rows nor the dense layout's 20 slots a
+    ray): the bits of ``pair_decode_bwd_chunked`` called on the same
+    inputs, and one-shot autograd of ``pair_decode_plain`` within 5e-4 of
+    each gradient's norm (f32 sums in another order: readings up to
+    1.4e-4 on an H100, the offset encoder's weight, whose sum cancels;
+    bf16 ray rows summed in f32 here, in bf16 by the one-shot gather:
+    2^-7)."""
+    monkeypatch.setattr(pd, "TRAIN_CHUNK_ROWS", 128)
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(23)
+    vt, cells, pos, rf, _, rays = _pair_case(rng, dev, dtype, 1000, 50,
+                                             indexed)
+    c_embed = 128 + 128 + 102 + 27
+    w = {"off_enc_w": rng.normal(size=(1, 16)),
+         "off_enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp_weights(rng, "off_", c_embed + 16, 256, w)
+    _mlp_weights(rng, "prob_", c_embed, 256, w)
+    params = {k: _t(v, dev).requires_grad_() for k, v in w.items()}
+    vt = vt.float().requires_grad_()
+    rf = rf.requires_grad_()
+    n_rows = torch.tensor(777, dtype=torch.int32, device=dev) \
+        if indexed else None
+    g = torch.Generator(dev).manual_seed(2)
+    cot = (torch.randn(1000, generator=g, device=dev),
+           torch.randn(1000, generator=g, device=dev))
+
+    def w32():
+        return pd.pair_decode_weights(params, 128, 128, 27, 8, dt)
+
+    before = pd.pair_decode.launches
+    out = pd.pair_decode_train(vt, cells, pos, rf, w32(), rays, dtype=dt,
+                               n_rows=n_rows)
+    assert pd.pair_decode.launches == before + 1
+    with torch.no_grad():
+        k6 = pd.pair_decode(vt, cells, pos, rf, pd.cast_pair_operands(
+            w32(), dt), rays, n_rows=n_rows)
+    for a, b in zip(out, k6):
+        assert torch.equal(a, b)
+    if indexed:
+        assert (out[0][777:] == 0).all() and (out[1][777:] == 0).all()
+    leaves = [vt, rf, *params.values()]
+    got = torch.autograd.grad(out, leaves, cot)
+    d_vox, d_ray, _ = pd.pair_decode_bwd_chunked(
+        vt.detach(), cells, pos, rf.detach(), w32(), rays, n_rows, *cot,
+        need=(True, True, True), dtype=dt)
+    assert torch.equal(got[0], d_vox) and torch.equal(got[1], d_ray)
+    rf32 = rf.detach().float().requires_grad_()
+    plain = pd.pair_decode_plain(vt, cells, pos, rf32,
+                                 pd.round_pair_biases(w32(), dt), rays,
+                                 n_rows=n_rows, dtype=dt)
+    want = torch.autograd.grad(plain, [vt, rf32, *params.values()], cot)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all()
+        tol = 2.0 ** -7 if (i == 1 and dtype == "bfloat16") else 5e-4
+        assert _rel_norm(a.float(), b.float()) <= tol, (i, _rel_norm(
+            a.float(), b.float()))
 
 
 @pytest.mark.parametrize("budget", [8, 1])  # pad rows; dropped pairs
@@ -1197,7 +1300,15 @@ def test_checkpoint_saved_on_the_card_restores_on_the_cpu_and_back(dev,
 
 # -- the trainer on the card ---------------------------------------------------
 
-def _trainer_cfg(tmp_path, tag, **training):
+# the stage-1 decode modes: per_ray (K2/K3), global and dense (K6 forward,
+# the plain decode recomputed in the backward)
+TRAIN_MODES = {"per_ray": {},
+               "global": {"pairs_budget_mode": "global",
+                          "pairs_budget_per_ray": 8},
+               "dense": {"pairs_budget_per_ray": 0}}
+
+
+def _trainer_cfg(tmp_path, tag, tpu=None, **training):
     # the kernels' decoder widths (K3 takes voxel features of 32-256
     # columns), a narrow trunk; 2 steps of batch 4
     return load_config(overrides={
@@ -1210,10 +1321,13 @@ def _trainer_cfg(tmp_path, tag, **training):
         "grid": {"miss_sample_num": 256, "valid_sample_num": 512},
         "training": {"batch_size": 4, "nepochs": 1, "do_valid": False,
                      "num_workers": 2, "log_interval": 1, **training},
-        "tpu": {"max_pairs_per_ray": 12, "compute_dtype": "bfloat16"}})
+        "tpu": {"max_pairs_per_ray": 12, "compute_dtype": "bfloat16",
+                **(tpu or {})}})
 
 
-def test_lidf_train_steps_repeat_bit_for_bit(dev, tmp_path, monkeypatch):
+@pytest.mark.parametrize("mode", list(TRAIN_MODES))
+def test_lidf_train_steps_repeat_bit_for_bit(dev, tmp_path, monkeypatch,
+                                             mode):
     """Two stage-1 steps from the same state, batches and draws, twice,
     with cuDNN's deterministic algorithms: the same losses, parameters and
     buffers bit for bit. (The ResNet's bilinear resize back to the input
@@ -1227,7 +1341,7 @@ def test_lidf_train_steps_repeat_bit_for_bit(dev, tmp_path, monkeypatch):
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
-    cfg = _trainer_cfg(tmp_path, "steps")
+    cfg = _trainer_cfg(tmp_path, "steps", TRAIN_MODES[mode])
     model = build_lidf(cfg, build_static(cfg),
                        torch.Generator().manual_seed(0))
     batches = [{k: torch.from_numpy(v) for k, v in
@@ -1247,12 +1361,13 @@ def test_lidf_train_steps_repeat_bit_for_bit(dev, tmp_path, monkeypatch):
         assert torch.equal(sa[k], sb[k]), k
 
 
+@pytest.mark.parametrize("mode", list(TRAIN_MODES))
 def test_lidf_train_step_has_no_operation_without_a_deterministic_kernel(
-        dev, tmp_path, monkeypatch):
-    """No operation of a stage-1 step is one for which PyTorch has no
-    deterministic CUDA implementation (it warns for each under
-    ``use_deterministic_algorithms(True, warn_only=True)``; the bilinear
-    resize's backward did)."""
+        dev, tmp_path, monkeypatch, mode):
+    """No operation of a stage-1 step, in any decode mode, is one for which
+    PyTorch has no deterministic CUDA implementation (it warns for each
+    under ``use_deterministic_algorithms(True, warn_only=True)``; the
+    bilinear resize's backward did)."""
     import warnings
 
     from implicit_depth_torch.data.synthetic import synthetic_batch
@@ -1260,7 +1375,7 @@ def test_lidf_train_step_has_no_operation_without_a_deterministic_kernel(
     from implicit_depth_torch.train.steps import make_lidf_train_step
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cfg = _trainer_cfg(tmp_path, "warn")
+    cfg = _trainer_cfg(tmp_path, "warn", TRAIN_MODES[mode])
     model = build_lidf(cfg, build_static(cfg)).to(dev)
     state = TrainState.create(model, cfg.training, steps_per_epoch=10)
     step = make_lidf_train_step(cfg, model, dev)

@@ -394,8 +394,8 @@ def test_complete_depth_tool_matches_the_jax_script(checkpoints, tmp_path,
 def test_complete_depth_tool_reads_rgb_pngs_as_cv2(tmp_path, kind):
     """``load_rgb`` on each PNG kind gives the bits of ``cv2.imread``
     (IMREAD_COLOR) and BGR2RGB, as ``scripts/complete_depth.py`` reads the
-    frame: a palette image in its palette's colours, 16-bit grey by its high
-    byte; a 16-bit colour PNG is refused by name."""
+    frame: a palette image in its palette's colours, 16-bit grey and colour
+    by their high bytes."""
     rng = np.random.default_rng(12)
     path = str(tmp_path / f"{kind}.png")
     if kind == "palette":
@@ -415,10 +415,6 @@ def test_complete_depth_tool_reads_rgb_pngs_as_cv2(tmp_path, kind):
             Image.fromarray(img, mode).save(path)
         else:
             cv2.imwrite(path, img)
-    if kind == "rgb16":
-        with pytest.raises(ValueError, match="16-bit RGB"):
-            port_complete.load_rgb(path)
-        return
     got = port_complete.load_rgb(path)
     want = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
     assert got.dtype == np.uint8

@@ -527,13 +527,27 @@ def test_eval_step_in_global_mode_matches_jax():
                                atol=1e-4, rtol=0)
 
 
-def test_train_step_in_global_mode_matches_jax_grad():
-    """One f32 step on the CPU (the decode's plain version under autograd)
-    against jax.grad of the JAX loss_fn (xla_pair_decode under autograd):
-    every loss and parameter gradient within 1e-4 of its scale (plus 1e-7
-    for sums that cancel), as test_train_step_matches_jax_grad."""
+TRAIN_MODES = {"global": GLOBAL(2), "dense": DENSE}
+# bf16: each group's (largest, median) relative norm error of a parameter's
+# gradient against jax.grad (XLA without excess precision), as
+# test_torch_port_train.py's BF16_GRAD_LIMITS for the per_ray mode: the two
+# frameworks round the same program at the same places but sum the
+# convolutions, products and the gathers' backward in other orders, and
+# the backward through the train-mode batch norms amplifies the flips.
+# Readings here, the same in both modes (the dense mode's extra slots carry
+# zero cotangents, and the global budget keeps every valid pair of this
+# training batch): resnet 0.151 (median 0.120), pnet 0.055 (0.035),
+# offset_dec 0.037 (0.013), prob_dec 0.074 (0.034); limits about 1.5x
+BF16_MODE_GRAD_LIMITS = {"resnet": (0.25, 0.17), "pnet": (0.09, 0.05),
+                         "offset_dec": (0.06, 0.02), "prob_dec": (0.12, 0.05)}
+
+
+def _mode_step(mode, dtype, seed):
+    """One train step of both frameworks in ``mode`` -> (port model after
+    its step, its losses, JAX's losses, JAX's gradients in the port's
+    names)."""
     jcfg, jstatic, jmodel, var, raw, cfg, model = _both_models(
-        "float32", GLOBAL(2), 37)
+        dtype, TRAIN_MODES[mode], seed)
     batch = {k: jnp.asarray(v) for k, v in raw.items()}
     epoch = 0  # the curriculum's labelled slot, among the decoded pairs
 
@@ -555,20 +569,59 @@ def test_train_step_in_global_mode_matches_jax_grad():
         grads, losses = jax.grad(loss_fn, has_aux=True)(params)
         return inputs, grads, losses
 
-    jin, jgrads, jlosses = jax.jit(jstep)(var["params"], var["batch_stats"],
-                                          batch, jax.random.key(2),
-                                          jnp.asarray(epoch))
+    args = (var["params"], var["batch_stats"], batch, jax.random.key(2),
+            jnp.asarray(epoch))
+    compiled = jax.jit(jstep).lower(*args).compile(
+        compiler_options=None if dtype == "float32" else NO_EXCESS)
+    jin, jgrads, jlosses = compiled(*args)
     state = TrainState.create(model, cfg.training, steps_per_epoch=10)
     losses = make_lidf_train_step(cfg, model, "cpu")(
         state, {k: T(v) for k, v in raw.items()}, None, epoch,
         valid_idx=T(jin["valid_idx"]), miss_start=T(jin["miss_start"]))
-    assert model.decode_mode == "global"
+    assert model.decode_mode == mode
+    return (model, losses, jlosses,
+            lidf_grads_from_jax(jax.device_get(jgrads), model))
+
+
+@pytest.mark.parametrize("mode", list(TRAIN_MODES))
+def test_train_step_in_mode_matches_jax_grad(mode):
+    """One f32 step on the CPU (the decode's plain version under autograd,
+    the same algebra as the card's recompute backward) in the ``global``
+    mode (budget 2, pairs dropped) and the dense mode (K 12 > kb) against
+    jax.grad of the JAX loss_fn (xla_pair_decode under autograd): every
+    loss and parameter gradient within 1e-4 of its scale (plus 1e-7 for
+    sums that cancel), as test_train_step_matches_jax_grad."""
+    model, losses, jlosses, want = _mode_step(mode, "float32", 37)
     for k in jlosses:
         np.testing.assert_allclose(N(losses[k]), np.asarray(jlosses[k]),
                                    rtol=1e-4, atol=1e-6, err_msg=k)
-    want = lidf_grads_from_jax(jax.device_get(jgrads), model)
     for name, p in model.named_parameters():
         assert_rel_max(N(p.grad), N(want[name]), 1e-4, name, atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", list(TRAIN_MODES))
+def test_bf16_train_step_in_mode_matches_jax_grad_per_group(mode):
+    """The bf16 step of each mode against jax.grad compiled without excess
+    precision: the losses within a few bf16 ulps of each term (2e-2, as
+    the per_ray bf16 step), each parameter's gradient by the relative norm
+    of its error, held per group to BF16_MODE_GRAD_LIMITS."""
+    model, losses, jlosses, want = _mode_step(mode, "bfloat16", 37)
+    for k in jlosses:
+        np.testing.assert_allclose(N(losses[k]), np.asarray(jlosses[k]),
+                                   rtol=2e-2, atol=1e-3, err_msg=k)
+    errs = {}
+    for name, p in model.named_parameters():
+        diff = np.linalg.norm(N(p.grad) - N(want[name]))
+        # a sum that cancels to ~1e-9 (the probability decoder's last
+        # bias) is held to 1e-7, as in test_train_step_matches_jax_grad
+        errs[name] = (0.0 if diff <= 1e-7
+                      else diff / np.linalg.norm(N(want[name])))
+    assert {n.split(".")[0] for n in errs} == set(BF16_MODE_GRAD_LIMITS)
+    for group, (largest, median) in BF16_MODE_GRAD_LIMITS.items():
+        e = {n: v for n, v in errs.items() if n.split(".")[0] == group}
+        worst, med = max(e, key=e.get), np.median(list(e.values()))
+        assert e[worst] <= largest and med <= median, \
+            f"{group}: largest {e[worst]:.3g} ({worst}), median {med:.3g}"
 
 
 # -- decode_bwd 'kernel': the save-free backward ------------------------------

@@ -16,6 +16,7 @@ Tolerances: f32 sums taken in another order (the ranks' partial sums
 added by the all-reduce), 1e-6 relative for single reductions.
 """
 
+import itertools
 import os
 import socket
 import subprocess
@@ -147,10 +148,32 @@ mesh.shutdown()
 '''
 
 
+# rank 0's store ports: below the kernel's ephemeral range (32768 up on
+# Linux), so that no socket of another process (a gloo pair, a store
+# client) is handed one between free_port() and rank 0's bind, and a block
+# of them for each xdist worker, so that two workers' tests never share
+# one. Ports handed out by the kernel (bind to port 0) raced: another
+# worker's rank could take the port first, and a rank then joined the
+# wrong group, hung or aborted.
+PORT_BASE, PORTS_PER_WORKER = 20000, 200
+_NEXT_PORT = itertools.count()
+
+
 def free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    """A port for a launch's store, free now, that no other xdist worker of
+    this test run is handed and no earlier launch of this worker used."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    index = int(worker[2:]) if worker[2:].isdigit() else 0
+    first = PORT_BASE + index * PORTS_PER_WORKER
+    for _ in range(PORTS_PER_WORKER):
+        port = first + next(_NEXT_PORT) % PORTS_PER_WORKER
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in {first}..{first + PORTS_PER_WORKER}")
 
 
 def rank_env(rank, world, port, **extra):
