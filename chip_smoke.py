@@ -13,8 +13,10 @@ trains, tests and serves from those files, and (phases 36-38) serves and
 tests the reference's own checkpoint layout, trains and serves the IMNet
 offset decoder and the decoders without positional encoding, and trains
 with a checkpointed backbone and with L-BFGS, (phase 39) serves and
-trains at per-ray pair budgets other than 8, and (phase 40) trains stage 1
-in the ``global`` and dense modes.
+trains at per-ray pair budgets other than 8, (phase 40) trains stage 1
+in the ``global`` and dense modes, and (phase 41) serves and trains at
+every width option of the reference (imnet_gf 48 and 128, rgb_out 64,
+roi_out_bbox 4, pnet_out 100, pnet_out 512 with multires 10).
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
@@ -286,7 +288,20 @@ Phases:
      configs/train_lidf.yaml in the mode through the CLI (one epoch of 2
      steps at batch 4, validated: K6 1, K5 2 a step and an eval frame) and
      configs/test_lidf.yaml from its checkpoint (its CSV).
-     Then the seconds of phases 2-40, of 33-35, of 36-38, of 39 and of 40.
+ 41. model widths: the default model at each width option of the
+     reference (MODEL_WIDTHS: W1 imnet_gf 48, W2 128, W3 rgb_out 64, W4
+     roi_out_bbox 4, W5 pnet_out 100, W6 pnet_out 512 with multires 10),
+     bf16: a 480x640 frame per_ray (K1, K4, K5 recorded, then a frame
+     counted: K1 1, K4 2, K5 10) and ``global`` (K6 1, K4 2, K5 10), a
+     bare 240x320 batch-4 step with decode_bwd kernel_save (K2 1, K3 1, K5
+     2), kernel (K1 1, K3 1, K5 2) and kernel_save_all (K2 'all' 1, K3 1,
+     K5 2), a stage-2 step (K1 1, K4 2, K5 10);
+     each recorded call against its plain version at the default
+     tolerances grown with the depth of its widest product
+     (model_width_tols), MODEL_WIDTH_BITE below the outputs' spread; K3
+     twice on each call the same bits; two steps twice bit for bit at W2
+     and W6. Each kernel's row carries its widths (``at_model_widths``).
+     Then the seconds of phases 2-41, of 33-35, of 36-38, of 39, 40, 41.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -297,6 +312,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -348,6 +364,8 @@ TOL = {("ray_decode", torch.float32): 1e-5, ("ray_decode", torch.bfloat16): 4e-3
 # deviation) of the outputs it compares, or the comparison could not tell a
 # right kernel from one that drops an iteration or a layer
 BITE = 10
+# the types every kernel check runs in (phase 41: bf16 alone)
+CHECK_DTYPES = (torch.bfloat16, torch.float32)
 # cross-check (f32, card kernels vs CPU plain, same weights): a pixel agrees
 # when |depth difference| <= 1e-3 m; up to 1% may differ, because a 1e-6
 # difference can still move a predicted point across a voxel boundary (the
@@ -759,10 +777,10 @@ def segment_as_f32(name, a):
     return d.detach().float(), ids, ns, v
 
 
-def forward_rows(recorded, as_f32, dev, tols=TOL,
-                 dtypes=(torch.bfloat16, torch.float32), bite=True):
+def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True):
     """Each recorded call ({(name, shapes): (args, kwargs)}) in bf16 (as
-    recorded) and f32 (``as_f32(name, args)``), or in ``dtypes``: max
+    recorded) and f32 (``as_f32(name, args)``), or in ``dtypes`` (default
+    CHECK_DTYPES): max
     |kernel - plain| against ``tols``, which must lie BITE times below the
     outputs' spread (with ``bite``; else the spread is only reported);
     times; bound. Returns the row of each kernel at its largest shape in
@@ -771,6 +789,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL,
     from implicit_depth_torch.ops import ray_decode as rd
     from implicit_depth_torch.ops import segment
 
+    dtypes = dtypes or CHECK_DTYPES
     mods = kernel_modules()
     by_shape = {}
     plain = {"ray_decode": rd.ray_decode_plain, "ief_decode": rd.ief_decode_plain,
@@ -1126,7 +1145,7 @@ def train_kernel_phase(recorded, tols=TRAIN_TOL):
     a3, kw3 = recorded["ray_decode_bwd"]
     g_off, g_logit = a3[6], a3[7]
     rows = {}
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in CHECK_DTYPES:
         w = w_bf if dt == torch.bfloat16 else w32
         a2 = (vt.to(dt), cells, pos, rf.to(dt), w)
         # K2: outputs as K1's; saves relative to their largest value
@@ -1592,7 +1611,7 @@ def recompute_kernel_rows(recorded, tols=TRAIN_TOL):
     floors = {"off_b4": g_off.abs().sum().item(),
               "prob_b4": g_logit.abs().sum().item()}
     out = None
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in CHECK_DTYPES:
         w = w_bf if dt == torch.bfloat16 else w32
         a = (vt.to(dt), cells, pos, rf.to(dt), w, None, g_off, g_logit)
         got = rd.ray_decode_bwd(*a, **kw)
@@ -1626,11 +1645,12 @@ def recompute_kernel_rows(recorded, tols=TRAIN_TOL):
     return out
 
 
-def train_forward_row(recorded, dev):
+def train_forward_row(recorded, dev, train_tols=TRAIN_TOL):
     """Phase 10's forward check: K1 on the recorded training inputs against
-    ``ray_decode_plain`` (``forward_rows``), at K2's output tolerances: the
-    same decode, whose outputs spread less under the training weights than
-    the served ones, so that K1's serving tolerance would not bite."""
+    ``ray_decode_plain`` (``forward_rows``), at K2's output tolerances
+    (of ``train_tols``): the same decode, whose outputs spread less under
+    the training weights than the served ones, so that K1's serving
+    tolerance would not bite."""
     w32 = recorded["f32_operands"]
     a, kw = recorded["ray_decode"]
     shape = tuple(tuple(t.shape) for t in a if torch.is_tensor(t))
@@ -1639,7 +1659,7 @@ def train_forward_row(recorded, dev):
         vt, cells, pos, rf, _ = a
         return vt.float(), cells, pos, rf.float(), w32
 
-    tols = {("ray_decode", dt): TRAIN_TOL[("ray_decode_save_out", dt)]
+    tols = {("ray_decode", dt): train_tols[("ray_decode_save_out", dt)]
             for dt in (torch.bfloat16, torch.float32)}
     with torch.inference_mode():
         return forward_rows({("ray_decode", shape): (a, kw)}, as_f32, dev,
@@ -1695,7 +1715,7 @@ def save_all_kernel_rows(recorded, tols=TRAIN_TOL):
     floors = {"off_b4": g_off.abs().sum().item(),
               "prob_b4": g_logit.abs().sum().item()}
     rows = {}
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in CHECK_DTYPES:
         dtn = str(dt).split(".")[-1]
         w = w_bf if dt == torch.bfloat16 else w32
         a2 = (vt.to(dt), cells, pos, rf.to(dt), w)
@@ -1889,15 +1909,17 @@ def refine_train_path(cfg, lidf, refine, dev, steps, profile=False,
             "device_ms": device}
 
 
-def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32)):
+def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32),
+                  bite=True, tols=TOL):
     """Phase 13's K4 checks on the recorded inputs of K4's training entry
     (one refine iteration's rows), in bf16 (as recorded) and f32: the
     kernel against ``ief_decode_plain`` (``forward_rows``, phase 3's
-    tolerances), and the training decode's gradients (``IefDecodeTrain``:
-    K4 forward, autograd of the plain decode recomputed) against autograd
-    of ``ief_decode_plain`` on the same inputs, with the backward's time
-    (the forward in ``dtypes`` only, the gradient in both). Returns the
-    forward's row in the first of ``dtypes``."""
+    tolerances; ``bite`` as there), and the training decode's gradients
+    (``IefDecodeTrain``: K4 forward, autograd of the plain decode
+    recomputed) against autograd of ``ief_decode_plain`` on the same
+    inputs, with the backward's time (the forward in ``dtypes`` only, the
+    gradient in both). Returns the forward's row in the first of
+    ``dtypes``."""
     from implicit_depth_torch.ops import ray_decode as rd
 
     (_, shape), (a, kw) = next((k, v) for k, v in recorded.items()
@@ -1912,7 +1934,8 @@ def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32)):
                 rd.cast_ief_operands(w32, torch.float32))
 
     with torch.inference_mode():
-        row = forward_rows(call, as_f32, dev, dtypes=dtypes)["ief_decode"]
+        row = forward_rows(call, as_f32, dev, tols, dtypes=dtypes,
+                           bite=bite)["ief_decode"]
     g = torch.randn(end.shape[0], device=dev,
                     generator=torch.Generator(device=dev).manual_seed(SEED))
     row["grad"] = {}
@@ -3648,7 +3671,7 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
               "rows_decoded", "ptxas", "refine_train", "trainer", "decoder",
               "at_widths", "config_runs", "rays", "disk", "reference_ckpt",
-              "options", "remat_lbfgs", "at_budgets")
+              "options", "remat_lbfgs", "at_budgets", "at_model_widths")
 
 
 # -- the disk datasets (phases 33-35) -------------------------------------------
@@ -5266,9 +5289,236 @@ def pair_train_phase(dev, workdir):
     return out
 
 
+# -- phase 41: the reference's model options at their widths -----------------
+# the default model with each width option of the reference (seeded
+# weights, bf16): W1 imnet_gf 48 (run at the compiled 64, zero units), W2
+# 128 (the single-buffered layout; K3 on tiles of 32 rows), W3 rgb_out 64
+# (crp 288), W4 roi_out_bbox 4 (crp 544; K4's and K6's rows 720 and 784
+# wide), W5 pnet_out 100 (the voxel table padded to 104 columns), W6
+# pnet_out 512 with multires 10 (kp 640; K6's rows 800 wide)
+MODEL_WIDTHS = {
+    "W1": {"model": {"imnet_gf": 48}, "refine": {"imnet_gf": 48}},
+    "W2": {"model": {"imnet_gf": 128}, "refine": {"imnet_gf": 128}},
+    "W3": {"model": {"rgb_out": 64}},
+    "W4": {"model": {"roi_out_bbox": 4}},
+    "W5": {"model": {"pnet_out": 100}, "refine": {"pnet_out": 100}},
+    "W6": {"model": {"pnet_out": 512, "multires": 10},
+           "refine": {"pnet_out": 512}},
+}
+# the configurations whose stage-1 steps also run twice, bit for bit
+MODEL_WIDTH_REPEAT = ("W2", "W6")
+# The randomized models at these widths spread their outputs less than the
+# default model's (an exploratory run with every check logged, NVIDIA H100,
+# bf16: the served K1's std 0.0315-0.0727 against the default's 0.050, the
+# step's K1 at W6 0.0097), while a bf16 flip of a hidden activation moves
+# an output by about what it does at the default width (K1 1.39e-3 -
+# 2.62e-3, K6 1.59e-3 - 3.00e-3, K4 0.98e-3 - 2.23e-3): the default
+# tolerances (TOL, TRAIN_TOL, grown with the depth below) each at least
+# MODEL_WIDTH_BITE times below the outputs' spread, STAGE2_BITE's rule (a
+# dropped layer or iteration moves most outputs by about the spread). K4 in the stage-2
+# step is held at its tolerance with its spread recorded, not bitten
+# (W2 0.0139, W5 0.0025: that step's refine outputs sit near one value);
+# the served frame's K4 call, spread 0.069-0.156, bites.
+MODEL_WIDTH_BITE = 5
+# ... and each forward kernel's bf16 tolerance (K1, K4, K6: TOL) grows
+# with the depth of the decode's widest product: every hidden
+# pre-activation is an f32 sum of k bf16 products, summed in another order
+# than the plain version's, so the two sums differ by ~sqrt(k) roundings
+# and straddle a bf16 rounding boundary (moving the activation by an ulp,
+# 2^-8 of it) ~sqrt(k) times as often. A width's tolerance is the
+# default's times sqrt(k / k at the default widths), not below it; k: K1
+# kp + crp (the pair's and the ray's part of layer 1) or 4g, K4 and K6
+# their row's kp or 4g, whichever is larger. K2's outputs and saves keep
+# TRAIN_TOL's: their readings (2.9e-4 - 8.5e-4 at W1-W6; the most at W5,
+# shallower than the default) do not grow with k
+DEPTH_DEFAULT = {"ray_decode": 240 + 160, "ief_decode": 336,
+                 "pair_decode": 400}
+# what the kernels line keeps of a kernel's row at a width option
+MODEL_WIDTH_KEYS = WIDTH_KEYS + ("spread", "frame_ms", "step_ms", "widths",
+                                 "grad", "train", "steps_bit_identical")
+
+
+def model_widths(cfg):
+    """The layer-1 and decoder widths a configuration gives the kernels:
+    imnet_gf (stage 1, stage 2) and the compiled width each runs at, the
+    voxel width and its padded one, K1/K2/K3's kp and crp, K4's and K6's
+    row widths, whether K1's block takes the single layout, K3's rows a
+    tile."""
+    from implicit_depth_torch.models.embedder import posenc_dim
+    from implicit_depth_torch.ops import pair_decode as pd
+    from implicit_depth_torch.ops import ray_decode as rd
+    m, r = cfg.model, cfg.refine
+    c_vox, c_end = (-(-c // 8) * 8 for c in (m.pnet_out, r.pnet_out))
+    c_roi = m.rgb_out * m.roi_out_bbox ** 2
+    kp = -(-(c_vox + 6 + 12 * m.multires) // 16) * 16
+    crp = -(-(c_roi + posenc_dim(m.multires_views)) // 16) * 16
+    g, g2 = rd.compiled_gf(m.imnet_gf), rd.compiled_gf(r.imnet_gf)
+    return {"imnet_gf": [m.imnet_gf, g], "refine_imnet_gf": [r.imnet_gf, g2],
+            "c_vox": [m.pnet_out, c_vox], "kp": kp, "crp": crp,
+            "k4_kp": -(-(c_end + c_roi + posenc_dim(r.multires_views)
+                         + posenc_dim(r.multires)) // 16) * 16,
+            "k6_kp": pd.pair_layout(c_vox, c_roi, posenc_dim(m.multires_views),
+                                    m.multires)["kp"],
+            "k1_single": rd.decode_plan("K1", kp, crp, g=g)["single"],
+            "k3_rows": rd.bwd_plan(1, kp, crp, 2, True, 132, g=g,
+                                   c_vox=c_vox)["rows_per_tile"]}
+
+
+def model_width_tols(widths):
+    """TOL and TRAIN_TOL with the bf16 tolerances of K1, K4 and K6 scaled
+    to the depth of their widest product at ``widths`` (``model_widths``),
+    as the comment on DEPTH_DEFAULT says."""
+    g4, g4r = 4 * widths["imnet_gf"][1], 4 * widths["refine_imnet_gf"][1]
+    depth = {"ray_decode": max(widths["kp"] + widths["crp"], g4),
+             "ief_decode": max(widths["k4_kp"], g4r),
+             "pair_decode": max(widths["k6_kp"], g4)}
+    scale = {k: max(1.0, math.sqrt(depth[k] / DEPTH_DEFAULT[k]))
+             for k in depth}
+    bf = torch.bfloat16
+    out = {**TOL, **TRAIN_TOL}
+    for name in depth:
+        out[(name, bf)] = TOL[(name, bf)] * scale[name]
+    return out
+
+
+def model_width_phase(dev):
+    """Phase 41: the default model at each width option of MODEL_WIDTHS,
+    through its entry points, in bf16: DepthCompleter.complete on a
+    480x640 frame per_ray (K1, K4, K5 recorded, then a frame counted: K1 1,
+    K4 2, K5 10) and in the ``global`` mode (K6 recorded, then a frame
+    counted: K6 1, K4 2, K5 10); a bare 240x320 batch-4 stage-1 step with
+    ``decode_bwd`` kernel_save (K2 1, K3 1, K5 2), one with kernel (K1 1,
+    K3 1, K5 2) and one with kernel_save_all (K2 'all' 1, K3 1, K5 2),
+    each after a recorded one; a stage-2 step behind the
+    frozen stage 1 (K1 1, K4 2, K5 10). Each recorded call against its
+    plain version at phases 3, 7 and 10's tolerances grown with the depth
+    of its widest product (``model_width_tols``), MODEL_WIDTH_BITE times
+    below the outputs' spread (K4 in the step: the spread recorded; its
+    gradient at phase 13's tolerances); K3 twice
+    on each recorded call, the same bits; at MODEL_WIDTH_REPEAT two steps
+    twice bit for bit. Cuts: one counted frame or step a path; no f32 (the
+    cross-checks' type, which takes imnet_gf <= 64: phases 26-29 hold it).
+    Returns {kernel: {option: its row}}."""
+    global TRAIN_STEPS, time_ms, k3_passes, CHECK_DTYPES, device_ms, BITE
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.infer import DepthCompleter
+
+    frames = make_frames(2, FRAME_HW)
+    bf = (torch.bfloat16,)
+    out = {}
+
+    def put(name, w, row, widths):
+        row = {**row, "widths": widths}
+        out.setdefault(name, {})[w] = {k: row[k] for k in MODEL_WIDTH_KEYS
+                                       if k in row}
+
+    saved = TRAIN_STEPS, time_ms, k3_passes, CHECK_DTYPES, device_ms, BITE
+    full_time = time_ms
+    TRAIN_STEPS, CHECK_DTYPES, BITE = 1, bf, min(BITE, MODEL_WIDTH_BITE)
+
+    def time_ms(fn, warmup=2, reps=10):
+        once = full_time(fn, 0, 1)
+        return once if once > BUDGET_SLOW_MS else full_time(fn, 0,
+                                                            BUDGET_REPS)
+    # K3's passes and K5's profiler readings: phases 7 and 3 (no width)
+    k3_passes = lambda a, kw: None  # noqa: E731
+    device_ms = lambda fn, match, reps=100: (None, None)  # noqa: E731
+    try:
+        for w, opts in MODEL_WIDTHS.items():
+            t_w = time.perf_counter()
+            serve = merged(SERVE_OVERRIDES, opts)
+            cfg = load_config(overrides=serve)
+            widths = model_widths(cfg)
+            tols = model_width_tols(widths)
+            log(f"{w}: {opts}: {widths}; bf16 tolerances "
+                f"{ {k[0]: v for k, v in tols.items() if k[1] == torch.bfloat16} }")
+            lidf, refine = build_models(cfg)
+            dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+            with torch.inference_mode():
+                rows = forward_rows(record_calls(
+                    kernel_modules(), lambda: dc.complete(*frames[0])), None,
+                    dev, tols)
+            launches, frame_ms = main_path(dc, frames[1:], cfg,
+                                           label=f"{w} main path")
+            for name, n in launches.items():
+                add_launches(rows[name], n, 1, "frame")
+            rows["ray_decode"]["frame_ms"] = frame_ms
+            del dc, lidf, refine
+            cfg_g = load_config(overrides=mode_overrides(serve, "global"))
+            lidf, refine = build_models(cfg_g)
+            dc = DepthCompleter(cfg_g, lidf=lidf, refine=refine, device=dev)
+            k6 = pair_kernel_rows(record_calls(
+                {"pair_decode": kernel_modules()["pair_decode"]},
+                lambda: dc.complete(*frames[0])), lidf, dev, tols)
+            launches, frame_ms = main_path(dc, frames[1:], cfg_g,
+                                           EXPECT_PER_MODE_FRAME,
+                                           f"{w} global mode")
+            rows["pair_decode"] = add_launches(k6, launches["pair_decode"], 1,
+                                               "frame")
+            rows["pair_decode"]["frame_ms"] = frame_ms
+            del dc, lidf, refine
+            torch.cuda.empty_cache()
+            train = merged(TRAIN_OVERRIDES, opts)
+            for decode_bwd, expect in (
+                    ("kernel_save", EXPECT_PER_STEP),
+                    ("kernel", EXPECT_PER_STEP_KERNEL),
+                    ("kernel_save_all", EXPECT_PER_STEP_SAVE_ALL)):
+                cfg_t, model = train_mode_model(dev, train, decode_bwd)
+                recorded, launches, step_ms = train_path(cfg_t, model, dev,
+                                                         expect=expect)
+                if decode_bwd == "kernel_save":
+                    got = train_kernel_phase(recorded, tols)
+                    fwd, bwd = "ray_decode_save", "ray_decode_bwd"
+                elif decode_bwd == "kernel_save_all":
+                    got = save_all_kernel_rows(recorded, tols)
+                    fwd, bwd = "ray_decode_save_all", "ray_decode_bwd_all"
+                else:
+                    got = {"ray_decode_bwd_recompute":
+                           recompute_kernel_rows(recorded, tols)}
+                    rows["ray_decode"]["train"] = {
+                        k: v for k, v in add_launches(
+                            train_forward_row(recorded, dev, tols),
+                            launches["ray_decode"], 1, "step").items()
+                        if k in WIDTH_KEYS}
+                    fwd, bwd = None, "ray_decode_bwd_recompute"
+                if fwd:
+                    add_launches(got[fwd], launches[fwd], 1, "step")
+                add_launches(got[bwd], launches["ray_decode_bwd"], 1, "step")
+                got[bwd]["step_ms"] = statistics.median(step_ms)
+                got[bwd]["repeat_bit_identical"] = k3_repeats(recorded)
+                log(f"{w}: {bwd} twice on the recorded call: the same bits")
+                if decode_bwd == "kernel_save" and w in MODEL_WIDTH_REPEAT:
+                    got[bwd]["steps_bit_identical"] = pair_repeat(
+                        cfg_t, model, dev, TRAIN_BATCH)
+                    log(f"{w}: two steps twice: the same bits")
+                rows.update(got)
+                del model, recorded
+                torch.cuda.empty_cache()
+            cfg_r = load_config(overrides=merged(REFINE_OVERRIDES, opts))
+            lidf, refine = (m.to(dev) for m in build_models(cfg_r,
+                                                            train=True))
+            run2 = refine_train_path(cfg_r, lidf, refine, dev, 1,
+                                     label=f"{w} stage 2")
+            k4 = refine_k4_row(run2["recorded"], dev, dtypes=bf, bite=False,
+                               tols=tols)
+            rows["ief_decode"]["train"] = {
+                k: v for k, v in add_launches(
+                    k4, run2["launches"]["ief_decode"], 1, "step").items()
+                if k in MODEL_WIDTH_KEYS}
+            rows["ief_decode"]["train"]["step_ms"] = run2["step_ms"]
+            del lidf, refine, run2
+            torch.cuda.empty_cache()
+            for name, row in rows.items():
+                put(name, w, row, widths)
+            log(f"{w}: {time.perf_counter() - t_w:.1f} s")
+    finally:
+        TRAIN_STEPS, time_ms, k3_passes, CHECK_DTYPES, device_ms, BITE = saved
+    return out
+
+
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-40 on ``dev``; prints their seconds and the kernels line."""
+    """Phases 2-41 on ``dev``; prints their seconds and the kernels line."""
     t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
@@ -5437,6 +5687,12 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         rows["pair_decode"]["train"] = pair_train_phase(dev, pathlib.Path(d))
         t40 = time.perf_counter() - t0
     log(f"phase 40 seconds {round(t40, 1)}")
+    # -- the reference's model options at their widths (phase 41) -----------
+    t0 = time.perf_counter()
+    for name, by_w in model_width_phase(dev).items():
+        rows[name]["at_model_widths"] = by_w
+    t41 = time.perf_counter() - t0
+    log(f"phase 41 seconds {round(t41, 1)}")
     rows["segment_max0"]["options"] = {k: v["launches_k5"]
                                        for k, v in options.items()}
     for name, n in remat_launches.items():
@@ -5460,9 +5716,9 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
-    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-40; "
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-41; "
         f"33-35: {disk_s:.1f}; 36-38: {t36 + t37 + t38:.1f}; 39: "
-        f"{t39:.1f}; 40: {t40:.1f})")
+        f"{t39:.1f}; 40: {t40:.1f}; 41: {t41:.1f})")
     log(json.dumps({"kernels": kernels}))
 
 

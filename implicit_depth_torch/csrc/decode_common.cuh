@@ -140,11 +140,14 @@ struct TailWeights {
 };
 
 // The decoder widths of imnet_gf G: layer 1 4G wide, then 2G, G, 1. The
-// kernels are instantiated for G in {8, 16, 32, 64} (with_width), as the
-// Pallas kernels take any width their operands have.
+// kernels are instantiated for G in {8, 16, 32, 64, 128} (with_width); the
+// wrappers (ops/ray_decode.py) pad any other imnet_gf up to the next of
+// them with zero units, as the Pallas kernels take any width their
+// operands have.
 template <int G>
 struct Widths {
-  static_assert(G == 8 || G == 16 || G == 32 || G == 64, "imnet_gf");
+  static_assert(G == 8 || G == 16 || G == 32 || G == 64 || G == 128,
+                "imnet_gf");
   static constexpr int g1 = 4 * G, g2 = 2 * G, g3 = G;
 };
 
@@ -162,6 +165,7 @@ int with_width(long long g, F&& f) {
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
     default: return (int)cudaErrorInvalidValue;
   }
 #endif

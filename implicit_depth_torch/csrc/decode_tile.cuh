@@ -463,25 +463,46 @@ __device__ __forceinline__ void rows_async(RowPtr row_ptr, int rows, int c,
 // ops/ray_decode.py::decode_plan). kp: the layer-1 input width (X); crp:
 // K1's per-ray input width (0 for K4 and K6, which have no per-ray part);
 // g: imnet_gf (layers 4g, 2g, g).
+// Two layouts: the double-buffered one (the next tile's X rows land in x1
+// while this tile runs on x0) wherever it fits, else the single one, for
+// the widest layer-1 inputs and imnet_gf 128: one X buffer (x1 == x0; the
+// kernels then copy the next tile's rows once the offset decoder's layer 1
+// has read X) and the per-ray part in the h2 region (16 x 4g f32 fits in
+// its 64 x (2g + 8) bf16: each decoder's per-ray part is read by its layer-1
+// epilogue, before the tail's layer-2 epilogue writes h2).
 struct Smem {
   size_t x0, x1, rf, ray, h, h2, ring, off, logit, l4, segs, total;
+  bool single;
   __host__ __device__ static size_t al(size_t b) {
     return (b + 127) / 128 * 128;
   }
   __host__ __device__ Smem(int kp, int crp, int g) {
+    lay(kp, crp, g, false);
+    if (total > kMaxSmem) lay(kp, crp, g, true);
+  }
+  // the layout `one` names (a kernel instantiated for it)
+  __host__ __device__ Smem(int kp, int crp, int g, bool one) {
+    lay(kp, crp, g, one);
+  }
+  __host__ __device__ void lay(int kp, int crp, int g, bool one) {
+    single = one;
     size_t o = 0;
     const size_t xb = (size_t)kM * ld_of(kp) * 2;
     x0 = o;    // layer-1 input of the even tiles
     o = al(o + xb);
     x1 = o;    // of the odd tiles (loaded while the even ones run)
-    o = al(o + xb);
+    if (single)
+      x1 = x0;
+    else
+      o = al(o + xb);
     rf = o;    // per-ray inputs, a tile's rays (up to 16) in 16 rows
     o = al(o + (crp ? (size_t)16 * ld_of(crp) * 2 : 0));
     ray = o;   // one decoder's per-ray layer-1 part, f32 (16 rays x 4g)
-    o = al(o + (crp ? (size_t)16 * 4 * g * 4 : 0));
+    if (!single) o = al(o + (crp ? (size_t)16 * 4 * g * 4 : 0));
     h = o;     // bf16 layer-1 activation
     o = al(o + (size_t)kM * ld_of(4 * g) * 2);
     h2 = o;    // bf16 layer-2 activation
+    if (single && crp) ray = h2;
     o = al(o + (size_t)kM * ld_of(2 * g) * 2);
     ring = o;  // weight slabs
     o = al(o + (size_t)kRing * kSlabElems * 2);

@@ -4,8 +4,8 @@
 // (_ief_fwd_impl and its Pallas kernel): each ray's embedding, given as its
 // parts [end voxel feature | rc = (roi, dir_e) | pos_e], goes through a
 // 2-iteration IEF decoder (4g -> 2g -> g -> 1 for the refine imnet_gf g in
-// {8, 16, 32, 64}, 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02, soft
-// clamp) to one offset.
+// {8, 16, 32, 64, 128}; 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02,
+// soft clamp) to one offset.
 //
 // What bounds it on the H100: operations (~2.6e10 FLOP per launch at 76,800
 // rays against ~80 MB of operands: ~0.03 ms at the bf16 tensor-core peak).
@@ -16,7 +16,9 @@
 // bf16: ief_decode_tc, a persistent block per SM over tiles of 64 rows on
 // decode_tile.cuh's staged mma.sync products, E1 in registers; each tile's
 // rc and pos_e rows load as one contiguous block in 16-byte pieces, its end
-// rows by cp.async during the tile before. The first version (wmma
+// rows by cp.async during the tile before (kSingle, the layout of the widest
+// inputs and imnet_gf 128, tile::Smem: once layer 1 has read X, behind a
+// barrier). The first version (wmma
 // fragments from L2, f32 products through shared memory, 2-byte loads)
 // spent ~53% of its time in products, ~66% in their f32 round trips and
 // elementwise passes and ~30% in input loads (scripts/attribute_k1_k4.py).
@@ -115,13 +117,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- bf16: the staged tensor-core kernel -------------------------------------
 
-template <int G>
+template <int G, bool kSingle>
 __global__ void __launch_bounds__(kThreads, 1)
     ief_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
   constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, 0, G);
+  const tile::Smem lay(p.kp, 0, G, kSingle);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -174,10 +176,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     stage_rows(p.pos + row0 * p.c_pos, valid, kM, p.c_pos, X, ldx, o_pos);
     if (threadIdx.x < kM) OFF[threadIdx.x] = p.init_offset;
     // the next tile's end rows land while this one runs
-    if (t + gridDim.x < n_tiles) end_rows(t + gridDim.x, x_of(parity ^ 1));
+    if (!kSingle && t + gridDim.x < n_tiles)
+      end_rows(t + gridDim.x, x_of(parity ^ 1));
 
     E1Acc<G> e1;
     product<kM, kG1>(pipe, X, ldx, kp, e1);
+    if constexpr (kSingle) {  // X is read: the next tile's end rows
+      __syncthreads();
+      if (t + gridDim.x < n_tiles) end_rows(t + gridDim.x, X);
+    }
     for_pairs<kM, kG1>(e1, [&](int, int c, float& v0, float& v1) {
       const float2 b = ldg2(p.b1 + c);
       v0 += b.x;
@@ -191,10 +198,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
-template <int G>
+template <int G, bool kSingle>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, 0, G);
-  auto kernel = ief_decode_tc<G>;
+  const tile::Smem lay(p.kp, 0, G, kSingle);
+  auto kernel = ief_decode_tc<G, kSingle>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -252,11 +259,15 @@ int run(void* const* ptrs, long long n, long long c_end, long long c_rc,
   return with_width(g, [&](auto w) {
     constexpr int G = decltype(w)::value;
     if constexpr (sizeof(T) == 2) {
+      const tile::Smem lay((int)kp, 0, G);
       if (c_end % 8 || n_iter > (tile::kMaxSegs - 1) / 2 ||
-          tile::Smem((int)kp, 0, G).total > tile::kMaxSmem)
+          lay.total > tile::kMaxSmem)
         return (int)cudaErrorInvalidValue;
-      return launch_tc<G>(p, stream);
+      return lay.single ? launch_tc<G, true>(p, stream)
+                        : launch_tc<G, false>(p, stream);
     } else {
+      if (Smem<T>(32, (int)kp, G).total > tile::kMaxSmem)
+        return (int)cudaErrorInvalidValue;
       return launch<T, 32, G>(p, stream);
     }
   });
@@ -265,7 +276,7 @@ int run(void* const* ptrs, long long n, long long c_end, long long c_rc,
 }  // namespace
 
 // ptrs: end, rc, pos, w1, b1, a_vec, c_vec, w2, b2, w3, b3, w4, b4, out
-// (14 device pointers). g: imnet_gf, in {8, 16, 32, 64}. Returns a
+// (14 device pointers). g: imnet_gf, in {8, 16, 32, 64, 128}. Returns a
 // cudaError_t.
 extern "C" int idt_ief_decode(void* const* ptrs, long long n, long long c_end,
                               long long c_rc, long long c_pos, long long kp,

@@ -4,9 +4,9 @@
 // Replaces implicit_depth_tpu/ops/pallas_decode.py::fused_pair_decode (its
 // Pallas kernel over _decode_tile). Each row's 385-d embedding
 // [voxel row | roi | pe(enter) | pe(leave) | dir_e] is decoded by two
-// 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf g in {8, 16, 32, 64},
-// 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02, soft clamp), the offset
-// decoder as a 2-iteration IEF.
+// 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf g in {8, 16, 32, 64, 128},
+// 128 in bf16 only; 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02, soft
+// clamp), the offset decoder as a 2-iteration IEF.
 //
 // What bounds it on the H100: operations. One row costs ~0.64 MFLOP (layer 1
 // of both decoders over the embedding, two IEF tails and the probability
@@ -39,7 +39,9 @@
 // E1 in shared memory, ran one non-persistent block per 64 rows, built the
 // embedding one element a thread with 2-byte loads, and decoded the pad rows
 // of the `global` mode: ~37x its bound. Now the voxel and ray rows of the
-// next tile land by cp.async while the current one computes, the weights
+// next tile land by cp.async while the current one computes (kSingle, the
+// layout of the widest inputs and imnet_gf 128, tile::Smem: once the offset
+// decoder's layer 1 has read X, behind a barrier), the weights
 // stream through the slab ring once per tile, the epilogues run on the
 // registers, E1 stays in registers for both IEF iterations, and the
 // positional encoding is staged a warp a row, each lane over fixed columns.
@@ -253,7 +255,7 @@ __device__ int k6_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
   return n;
 }
 
-template <int G>
+template <int G, bool kSingle>
 __global__ void __launch_bounds__(kThreads, 1)
     pair_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
@@ -263,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long n_tiles = (n + kM - 1) / kM;
   if (blockIdx.x >= n_tiles) return;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, 0, G);
+  const tile::Smem lay(p.kp, 0, G, kSingle);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -337,7 +339,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (threadIdx.x < kM) OFF[threadIdx.x] = p.init_offset;
     // the next tile's voxel and ray rows land while this one runs
-    if (t + gridDim.x < n_tiles) gather(t + gridDim.x, x_of(parity ^ 1));
+    if (!kSingle && t + gridDim.x < n_tiles)
+      gather(t + gridDim.x, x_of(parity ^ 1));
 
     // -- probability decoder: H = act(X @ W_prob + b1), tail -----------------
     {
@@ -352,6 +355,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // -- offset decoder: E1 = X @ W_off + b1, kept in registers --------------
     E1Acc<G> e1;
     product<kM, kG1>(pipe, X, ldx, kp, e1);
+    if constexpr (kSingle) {  // X is read: the next tile's rows
+      __syncthreads();
+      if (t + gridDim.x < n_tiles) gather(t + gridDim.x, X);
+    }
     for_pairs<kM, kG1>(e1, [&](int, int c, float& v0, float& v1) {
       const float2 b = ldg2(p.b1 + c);
       v0 += b.x;
@@ -368,10 +375,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
-template <int G>
+template <int G, bool kSingle>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, 0, G);
-  auto kernel = pair_decode_tc<G>;
+  const tile::Smem lay(p.kp, 0, G, kSingle);
+  auto kernel = pair_decode_tc<G, kSingle>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -443,13 +450,16 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_rp,
   return with_width(g, [&](auto w) {
     constexpr int G = decltype(w)::value;
     if constexpr (sizeof(T) == 2) {
+      const tile::Smem lay((int)kp, 0, G);
       if (c_vox % 8 || c_rp % 8 || kp - o_pe > 32 * kPeCols ||
-          n_iter > (tile::kMaxSegs - 4) / 2 ||
-          tile::Smem((int)kp, 0, G).total > tile::kMaxSmem)
+          n_iter > (tile::kMaxSegs - 4) / 2 || lay.total > tile::kMaxSmem)
         return (int)cudaErrorInvalidValue;
-      return launch_tc<G>(p, stream);
-    } else {
+      return lay.single ? launch_tc<G, true>(p, stream)
+                        : launch_tc<G, false>(p, stream);
+    } else if constexpr (G <= 64) {  // f32 at 128: its blocks do not fit
       return launch_f32<G>(p, stream);
+    } else {
+      return (int)cudaErrorInvalidValue;
     }
   });
 }
@@ -460,7 +470,7 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_rp,
 // c_vec, off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4}, n_rows (a 0-d
 // int32, or null), out_off, out_logit (24 device pointers). slots: the rows
 // per ray of the dense layout, read when rays is null. g: imnet_gf, in
-// {8, 16, 32, 64}. Returns a cudaError_t.
+// {8, 16, 32, 64, 128} (128 in bf16 only). Returns a cudaError_t.
 extern "C" int idt_pair_decode(void* const* ptrs, long long n, long long c_vox,
                                long long c_rp, long long multires,
                                long long kp, long long slots, long long n_iter,

@@ -6,7 +6,8 @@
 // (_fused_fwd_impl and its Pallas kernel): for every ray, its kb nearest pair
 // slots (1 <= kb <= kMaxKb, as the Pallas kernel's tiles of t * kb rows take
 // any kb) are decoded by two 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf
-// g in {8, 16, 32, 64}: 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02,
+// g in {8, 16, 32, 64, 128}, and in bf16 128 only: 256 -> 128 -> 64 -> 1 by
+// default; LeakyReLU 0.02,
 // soft clamp), the offset decoder as a 2-iteration IEF. With kSave it
 // replaces fused_ray_decode_table's training forward (_table_fwd,
 // save_mode='l1'): it also writes, rounded to T as the JAX kernel rounds
@@ -52,7 +53,10 @@
 // decoder's half of it just before that decoder's layer 1 (so that one
 // 16 x 4g f32 region holds it), and the voxel rows
 // of the next tile are copied (cp.async, 16 bytes) while the current one
-// runs; ray features load 16 bytes at a time.
+// runs; ray features load 16 bytes at a time. Where that layout does not
+// fit (imnet_gf 128, the widest layer-1 inputs: tile::Smem), the single
+// layout's instance (kSingle) copies the next tile's voxel rows once the
+// offset decoder's layer 1 has read X, behind a barrier.
 // f32 (the card-vs-CPU cross-checks only): ray_decode_kernel, 32 rows a
 // block, min(32 / kb, 4) whole rays or, at kb > 32, 32 slots of one ray (its
 // per-ray part computed by each of its blocks), CUDA-core FMA products with
@@ -80,7 +84,8 @@ struct Smem {
     e1 = o;     // offset layer-1 pre-activation
     o = al(o + (size_t)m * g1 * 4);
     c = o;      // product scratch; first the per-ray inputs
-    o = al(o + (size_t)m * g1 * 4);
+    o = al(o + (m * g1 > mr * crp ? (size_t)m * g1 : (size_t)mr * crp) *
+                   sizeof(float));
     h = o;      // rounded layer-1 activation
     o = al(o + (size_t)m * g1 * sizeof(T));
     ray = o;    // per-ray layer-1 part
@@ -305,14 +310,14 @@ __device__ int k1_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
   return n;
 }
 
-template <int kMode, int G>
+template <int kMode, int G, bool kSingle>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
   constexpr bool kSave = kMode != kNoSave;
   constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, p.crp, G);
+  const tile::Smem lay(p.kp, p.crp, G, kSingle);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -413,7 +418,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     stage_rows(p.ray_feat + ray0 * p.c_ray, valid, rays, p.c_ray, RF, ldr, 0);
     if (threadIdx.x < kM) OFF[threadIdx.x] = p.init_offset;
     // the next tile's voxel rows land while this one runs
-    if (t + gridDim.x < n_tiles) vox_rows(t + gridDim.x, x_of(parity ^ 1));
+    if (!kSingle && t + gridDim.x < n_tiles)
+      vox_rows(t + gridDim.x, x_of(parity ^ 1));
 
     // -- a decoder's per-ray layer-1 part: RAY = RF @ ray_w1[:, its half] --
     // (16 rows, the tile's rays among them)
@@ -455,6 +461,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     ray_part();
     E1Acc<G> e1;
     product<kM, kG1>(pipe, X, ldx, kp, e1);
+    if constexpr (kSingle) {  // X is read: the next tile's voxel rows
+      __syncthreads();
+      if (t + gridDim.x < n_tiles) vox_rows(t + gridDim.x, X);
+    }
     for_pairs<kM, kG1>(e1, [&](int r, int c, float& v0, float& v1) {
       const float2 ray =
           *reinterpret_cast<const float2*>(RAY + ray_of(r) * kG1 + c);
@@ -486,10 +496,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
-template <int kMode, int G>
+template <int kMode, int G, bool kSingle>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, p.crp, G);
-  auto kernel = ray_decode_tc<kMode, G>;
+  const tile::Smem lay(p.kp, p.crp, G, kSingle);
+  auto kernel = ray_decode_tc<kMode, G, kSingle>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -570,13 +580,16 @@ int run(void* const* ptrs, long long n, long long kb, long long c_vox,
   return with_width(g, [&](auto w) {
     constexpr int G = decltype(w)::value;
     if constexpr (sizeof(T) == 2) {
+      const tile::Smem lay((int)kp, (int)crp, G);
       if (c_vox % 8 || kp - c_vox > 32 * kColsPerLane ||
-          n_iter > (tile::kMaxSegs - 6) / 2 ||
-          tile::Smem((int)kp, (int)crp, G).total > tile::kMaxSmem)
+          n_iter > (tile::kMaxSegs - 6) / 2 || lay.total > tile::kMaxSmem)
         return (int)cudaErrorInvalidValue;
-      return launch_tc<kMode, G>(p, stream);
-    } else {
+      return lay.single ? launch_tc<kMode, G, true>(p, stream)
+                        : launch_tc<kMode, G, false>(p, stream);
+    } else if constexpr (G <= 64) {  // f32 at 128: its blocks do not fit
       return launch<T, 32, kMode, G>(p, stream);
+    } else {
+      return (int)cudaErrorInvalidValue;
     }
   });
 }
@@ -600,7 +613,8 @@ int run_any(void* const* ptrs, long long n, long long kb, long long c_vox,
 // ptrs: vox_table, cells, pos, ray_feat, pair_w1, ray_w1, b1, a_vec, c_vec,
 // off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4}, out_off, out_logit
 // (23 device pointers); n rays of kb pair slots, 1 <= kb <= kMaxKb. g:
-// imnet_gf, in {8, 16, 32, 64}. Returns a cudaError_t.
+// imnet_gf, in {8, 16, 32, 64, 128} (128 in bf16 only). Returns a
+// cudaError_t.
 extern "C" int idt_ray_decode(void* const* ptrs, long long n, long long kb,
                               long long c_vox, long long c_ray,
                               long long multires, long long kp, long long crp,

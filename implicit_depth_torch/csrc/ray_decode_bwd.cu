@@ -26,8 +26,14 @@
 // accumulation; bias gradients and the IEF offset chain are summed in f32.
 //
 // Every instance is compiled for the decoder widths 4g -> 2g -> g -> 1 of
-// imnet_gf g in {8, 16, 32, 64} (the template parameter G; the C entry
-// dispatches on g).
+// imnet_gf g in {8, 16, 32, 64, 128} (the template parameter G; the C entry
+// dispatches on g; one library a width, -DIDT_GF), and for two tile heights
+// M (the plan's rows_per_tile, chosen by ops/ray_decode.py::bwd_plan): 64
+// rows in bf16 where Pass A's buffers fit (imnet_gf <= 64, kp <= 400, c_vox
+// <= 256, and the per-ray regions of crp), else 32 rows, which hold layer-1
+// inputs up to kp 640 and c_vox 512, per-ray inputs up to crp 544 and
+// imnet_gf 128 (bf16 only; at 32 rows a ray of kb > 32 slots spans two
+// tiles, as in f32, which always takes 32).
 //
 // The TPU kernel keeps its weight-gradient accumulators in VMEM across a
 // sequential grid. A GPU block has no room for them (1.15 MB at the default
@@ -123,9 +129,15 @@ struct Dims : Widths<G> {
 // elements of the bf16 weight staging buffer: two slabs of the largest
 // staged product's weights (128 columns of B^T, 64 k each, padded to 72)
 constexpr int kStageElems = 2 * 128 * (64 + 8);
-// the widest X = [vox | pos6 | trig | 0] row (kp) Pass A stages: X spans the
-// H1 and H2 regions, which lie one after the other
-constexpr int kMaxKp = 400;
+// the widest X = [vox | pos6 | trig | 0] row (kp) Pass A stages at M rows
+// a tile (X spans the H1 and H2 regions, which lie one after the other),
+// and the widest voxel row (c_vox, the d_rows tile's columns)
+// dynamic shared memory one block may use (H100)
+constexpr size_t kMaxSmemA = 232448;
+template <int M>
+constexpr int max_kp() { return M == 64 ? 400 : 640; }
+template <int M>
+constexpr int max_cvox() { return M == 64 ? 256 : 512; }
 
 // -- the plan's fields (ops/ray_decode.py::pack_bwd_plan) ---------------------
 
@@ -540,10 +552,11 @@ struct BwdSmem {
   static constexpr int kG1 = Dims<G>::g1, kG2 = Dims<G>::g2,
                        kLd1 = Dims<G>::ld1, kLd2 = Dims<G>::ld2,
                        kLd3 = Dims<G>::ld3;
-  // the row width of the H1 region: X (stride kp <= kMaxKp) spans it and H2's
+  // the row width of the H1 region: X (stride kp <= max_kp) spans it and H2's
+  static constexpr int kMaxKp = max_kp<M>();
   static constexpr int kLdH1 = kLd1 > kMaxKp - kLd2 ? kLd1 : kMaxKp - kLd2;
-  // d_z1 (M x 4G) and the d_rows (M x c_vox, c_vox <= 256) of the table
-  static constexpr int kDCols = kG1 > 256 ? kG1 : 256;
+  // d_z1 (M x 4G) and the d_rows (M x c_vox, c_vox <= max_cvox) of the table
+  static constexpr int kDCols = kG1 > max_cvox<M>() ? kG1 : max_cvox<M>();
   static constexpr size_t kCF = (size_t)M * kG2 * 4;
   static constexpr size_t kCT = (size_t)M * kLd1 * sizeof(T);
   // H1 | X, H2 | dT2 (| X), H3 | dT3
@@ -732,9 +745,9 @@ __global__ void __launch_bounds__(kThreadsA, 1)
                           : p.e1_scratch + (size_t)blockIdx.x * M * kG1;
   const int kp = p.kp, crp = p.crp, c_vox = p.c_vox;
   const int n_trig = 12 * p.multires;
-  // the slots of a tile's ray and a ray's tiles: kb and 1 in bf16 (kb <=
-  // 64 = M); f32 at kb > M: M and 2
-  constexpr bool kSegs = sizeof(T) == 4;
+  // the slots of a tile's ray and a ray's tiles: kb and 1 at 64 rows (kb <=
+  // 64 = M); at 32 rows and kb > M: M and 2
+  constexpr bool kSegs = M < kMaxKb;
   const int kb = p.kb, rays = p.rays;
   const int spt = kSegs ? p.spt : kb, tpr = kSegs ? p.tpr : 1;
   const int n_units = (int)((p.n_chunk + rays - 1) / rays);
@@ -1283,7 +1296,8 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
   p.tpr = (p.kb + M - 1) / M;
   if (plan[kRowsPerTile] != M || plan[kNInst] != p.n_iter + 1 ||
       plan[kRaysPerTile] != p.rays || plan[kTilesPerRay] != p.tpr ||
-      (sizeof(T) == 2 && p.tpr != 1) ||
+      (M == kMaxKb && p.tpr != 1) || p.kp > max_kp<M>() ||
+      p.c_vox > max_cvox<M>() ||
       n_jobs > kMaxJobs || n_reds > kMaxReds || chunk % p.rays ||
       chunk * n_chunks < n || blocks_a < 1 ||
       plan[kTableStride] < table_elems || table_elems % p.c_vox ||
@@ -1334,6 +1348,7 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
       partials, 0, (size_t)plan[kPartialFloats] * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   const BwdSmem<T, M, G> lay(p.crp, p.n_iter, p.small_size);
+  if (lay.total > kMaxSmemA) return (int)cudaErrorInvalidValue;
   auto ka = pass_a_kernel<T, M, kMode, G>;
   err = cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)lay.total);
@@ -1422,8 +1437,7 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   p.use_sigmoid = (int)use_sigmoid;
   p.init_offset = init_offset;
   if (kp % 16 || crp % 16 || kp < c_vox + 6 + 12 * multires || crp < c_ray ||
-      kp > kMaxKp || c_vox % 8 || c_vox > 256 || n_iter < 1 || n < 1 ||
-      p.kb < 1 || p.kb > kMaxKb)
+      c_vox % 8 || n_iter < 1 || n < 1 || p.kb < 1 || p.kb > kMaxKb)
     return (int)cudaErrorInvalidValue;
   if (n_plan != kHeader + plan[kNJobs] * kJobFields + plan[kNReds] * kRedFields)
     return (int)cudaErrorInvalidValue;
@@ -1435,19 +1449,35 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   if (from_all && (p.s_h2 == nullptr || p.s_h3 == nullptr ||
                    p.s_logit == nullptr))
     return (int)cudaErrorInvalidValue;
-  constexpr int M = sizeof(T) == 2 ? 64 : 32;
-  return with_width(g, [&](auto w) {
-    constexpr int G = decltype(w)::value;
-    if (from_all)
-      return run_passes<T, M, kFromAll, G>(p, plan, n, scratch, partials, d_w,
-                                           d_table, events, stream);
-    return from_saves
-               ? run_passes<T, M, kFromL1, G>(p, plan, n, scratch, partials,
-                                              d_w, d_table, events, stream)
-               : run_passes<T, M, kRecompute, G>(p, plan, n, scratch,
-                                                 partials, d_w, d_table,
-                                                 events, stream);
-  });
+  // the tile's rows: the plan's (bf16 64 or 32, f32 32); 64 rows and f32
+  // take imnet_gf <= 64
+  auto at_rows = [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return with_width(g, [&](auto w) {
+      constexpr int G = decltype(w)::value;
+      if constexpr (G > 64 && (M == 64 || sizeof(T) == 4)) {
+        return (int)cudaErrorInvalidValue;
+      } else {
+        if (from_all)
+          return run_passes<T, M, kFromAll, G>(p, plan, n, scratch, partials,
+                                               d_w, d_table, events, stream);
+        return from_saves
+                   ? run_passes<T, M, kFromL1, G>(p, plan, n, scratch,
+                                                  partials, d_w, d_table,
+                                                  events, stream)
+                   : run_passes<T, M, kRecompute, G>(p, plan, n, scratch,
+                                                     partials, d_w, d_table,
+                                                     events, stream);
+      }
+    });
+  };
+  if (plan[kRowsPerTile] == 32)
+    return at_rows(std::integral_constant<int, 32>{});
+  if constexpr (sizeof(T) == 2) {
+    if (plan[kRowsPerTile] == 64)
+      return at_rows(std::integral_constant<int, 64>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1464,8 +1494,9 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
 // pointers; n rays of kb pair slots, kb (1 <= kb <= kMaxKb) in the plan.
 // plan: ops/ray_decode.py::pack_bwd_plan (n_plan int64). events:
 // null, or 2 * n_chunks + 2 CUDA events recorded before the first pass and
-// after each pass, for measurement. g: imnet_gf, in {8, 16, 32, 64}.
-// Returns a cudaError_t.
+// after each pass, for measurement. g: imnet_gf, in {8, 16, 32, 64, 128}
+// (the library's width; 128 in bf16 at 32 rows only). Returns a
+// cudaError_t.
 extern "C" int idt_ray_decode_bwd(void* const* ptrs, const long long* plan,
                                   long long n_plan, long long n,
                                   long long c_vox, long long c_ray,
@@ -1482,4 +1513,34 @@ extern "C" int idt_ray_decode_bwd(void* const* ptrs, const long long* plan,
                  : run<float>(ptrs, plan, n_plan, n, c_vox, c_ray, multires,
                               kp, crp, n_iter, g, use_sigmoid, init_offset,
                               ev, s);
+}
+
+// Dynamic shared memory (bytes) of one Pass A block of M (64 or 32) rows at
+// these widths, or -1 for an instance this library does not hold
+// (ops/ray_decode.py::bwd_smem mirrors it).
+extern "C" long long idt_ray_decode_bwd_smem(long long m, long long crp,
+                                             long long n_iter,
+                                             long long small_size,
+                                             long long g, long long is_bf16) {
+  auto size = [&](auto t, auto rows) -> long long {
+    using T = decltype(t);
+    constexpr int M = decltype(rows)::value;
+    return with_width(g, [&](auto w) -> int {
+      constexpr int G = decltype(w)::value;
+      if constexpr (G > 64 && (M == 64 || sizeof(T) == 4)) {
+        return -1;
+      } else {
+        return (int)BwdSmem<T, M, G>((int)crp, (int)n_iter, (int)small_size)
+            .total;
+      }
+    });
+  };
+  long long r = -1;
+  if (m == 32)
+    r = is_bf16 ? size(__nv_bfloat16(), std::integral_constant<int, 32>{})
+                : size(0.f, std::integral_constant<int, 32>{});
+  else if (m == 64 && is_bf16)
+    r = size(__nv_bfloat16(), std::integral_constant<int, 64>{});
+  // with_width's error code for another width: no block is that small
+  return r < 128 ? -1 : r;
 }

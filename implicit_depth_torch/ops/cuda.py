@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # imnet_gf of the decoders the decode kernels are compiled for (layers
 # 4g -> 2g -> g -> 1; csrc/decode_common.cuh with_width)
-DECODER_GF = (8, 16, 32, 64)
+DECODER_GF = (8, 16, 32, 64, 128)
 # sources built once per width, in parallel: all of K3's instances in one
 # translation unit took 73 s of nvcc on the H100's host
 PER_WIDTH = ("ray_decode_bwd",)

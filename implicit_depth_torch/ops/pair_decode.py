@@ -53,13 +53,18 @@ from implicit_depth_torch.ops.ray_decode import (
     _check_cuda,
     _check_plan,
     _dot,
-    decoder_gf,
+    _halves,
     _ief_loop,
+    _insert_rows,
     _mlp_tail,
+    _pad_tails,
+    _pad_to,
     _q,
     _rank1,
     _round_up,
     _squash,
+    compiled_gf,
+    decoder_gf,
 )
 
 _MATRICES = ("w1", "off_w2", "off_w3", "off_w4", "prob_w2", "prob_w3",
@@ -243,6 +248,30 @@ def pair_decode_plain(vox_table, cells, pos, ray_feat, w, rays=None, *,
                         init_offset, use_sigmoid, dtype or w["w1"].dtype)
 
 
+def pad_pair_operands(w, vox_table):
+    """K6's operands ``w`` (:func:`cast_pair_operands`) and the voxel table
+    at the kernel's widths: the decoders padded to :func:`compiled_gf`,
+    c_vox to a multiple of 8 (the table's columns and w1's voxel rows,
+    :func:`pair_layout` of the padded width). The same tensors where
+    nothing is padded."""
+    c_vox, c_roi, c_dir, multires = w["dims"]
+    g = w["b1"].shape[0] // 8
+    G, c8 = compiled_gf(g), _round_up(c_vox, 8)
+    if (g, c_vox) == (G, c8):
+        return w, vox_table
+    kp = pair_layout(c8, c_roi, c_dir, multires)["kp"]
+    out = dict(w, dims=(c8, c_roi, c_dir, multires))
+    out["w1"] = _halves(_insert_rows(w["w1"], c_vox, c8 - c_vox, kp),
+                        4 * g, 4 * G)
+    out["b1"] = _halves(w["b1"], 4 * g, 4 * G)
+    out["a_vec"] = _pad_to(w["a_vec"], (4 * G,))
+    out["c_vec"] = _pad_to(w["c_vec"], (4 * G,))
+    out.update(_pad_tails(w, ("off_", "prob_"), g, G))
+    out = {k: v.contiguous() if torch.is_tensor(v) else v
+           for k, v in out.items()}
+    return out, _pad_to(vox_table, (vox_table.shape[0], c8)).contiguous()
+
+
 def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
                       n_iter, init_offset, use_sigmoid):
     dtype = w["w1"].dtype
@@ -255,17 +284,21 @@ def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
                                 *(t for t in (rays, n_rows) if t is not None)],
                 dtype)
     for dec in ("off", "prob"):
-        g = decoder_gf("pair_decode", w["b1"].shape[0] // 2,
-                       w[f"{dec}_w2"].shape, w[f"{dec}_w3"].shape)
+        decoder_gf("pair_decode", w["b1"].shape[0] // 2,
+                   w[f"{dec}_w2"].shape, w[f"{dec}_w3"].shape)
     if vox_table.shape[1] != c_vox or ray_feat.shape[1] != c_roi + c_dir \
             or pos.shape != (p, 6) or cells.dim() != 1 or kp != lay["kp"] \
             or (rays is not None and rays.shape != (p,)) \
             or (n_rows is not None and n_rows.dim() != 0):
         raise ValueError("pair_decode: operand shapes do not match the weights")
-    if is_bf16 and (c_vox % 8 or kp - lay["o_pe"] > MAX_PE_COLS):
-        raise ValueError(f"pair_decode kernel takes c_vox a multiple of 8 and "
-                         f"at most {MAX_PE_COLS} columns past the ray row in "
-                         f"bf16 (got c_vox={c_vox}, {kp - lay['o_pe']})")
+    if is_bf16 and kp - lay["o_pe"] > MAX_PE_COLS:
+        raise ValueError(f"pair_decode kernel takes at most {MAX_PE_COLS} "
+                         f"columns past the ray row in bf16 (got "
+                         f"{kp - lay['o_pe']})")
+    w, vox_table = pad_pair_operands(w, vox_table.to(dtype))
+    c_vox = w["dims"][0]
+    lay = pair_layout(*w["dims"])
+    kp, g = w["w1"].shape[0], w["b1"].shape[0] // 8
     _check_plan("pair_decode", "K6", kp, 0, n_iter, is_bf16, p, g)
     if rays is None:
         slots = _dense_slots(p, ray_feat.shape[0])

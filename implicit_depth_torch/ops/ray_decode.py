@@ -33,11 +33,18 @@ CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ray_decode_bwd.cu``,
 ``csrc/ief_decode.cu``) for CUDA tensors, counting launches in
 ``<wrapper>.launches``. The ``global`` and dense stage-1 modes decode
 through ``ops/pair_decode.py`` (K6). The kernels are compiled for the
-decoder widths 4g-2g-g-1 of ``imnet_gf`` g in :data:`DECODER_GF`, read
-from the weights as the Pallas kernels read theirs (:func:`decoder_gf`).
-:func:`decode_plan` mirrors the forward kernels' tiles, shared memory and
-weight schedule on the host (``csrc/decode_tile.cuh``); the wrappers refuse
-widths it says do not fit.
+decoder widths 4g-2g-g-1 of ``imnet_gf`` g in :data:`DECODER_GF`; the
+wrappers take any g from 1 to 128, read from the weights as the Pallas
+kernels read theirs (:func:`decoder_gf`), and run a g between two compiled
+widths at the next one (:func:`compiled_gf`), its weights padded with zero
+units: a padded unit's pre-activation is 0, LeakyReLU(0) = 0 and its row
+in the next layer is 0, so the outputs are those of the narrower decoder,
+and a padded gradient is sliced off. A voxel width (c_vox, c_end) that is
+not a multiple of 8 is padded the same way, with zero columns of the table
+and zero rows of layer 1. :func:`decode_plan` mirrors the forward kernels'
+tiles, shared memory and weight schedule on the host
+(``csrc/decode_tile.cuh``), :func:`bwd_smem` K3's Pass A; the wrappers
+refuse widths they say do not fit, naming the limit.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from implicit_depth_torch.ops import cuda
 
@@ -304,22 +312,154 @@ def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
 
 
 # imnet_gf of the decoders the kernels are compiled for: layers 4g -> 2g ->
-# g -> 1
+# g -> 1; every g up to the last is run at the next of them
 DECODER_GF = cuda.DECODER_GF
+MAX_GF = DECODER_GF[-1]
+
+
+def compiled_gf(g: int) -> int:
+    """The compiled width a decoder of imnet_gf ``g`` runs at: the least of
+    :data:`DECODER_GF` not below it (its other units zero)."""
+    for c in DECODER_GF:
+        if g <= c:
+            return c
+    raise ValueError(f"the decode kernels take imnet_gf 1 to {MAX_GF} "
+                     f"(got {g})")
 
 
 def decoder_gf(name: str, g1: int, w2_shape, w3_shape) -> int:
     """The ``imnet_gf`` g of a decoder whose layer 1 is ``g1`` wide and
     whose layers 2 and 3 have the shapes ``w2_shape``, ``w3_shape``; raises
-    unless the widths are 4g-2g-g-1 for a g the kernels are compiled for."""
+    unless the widths are 4g-2g-g-1 for a g from 1 to :data:`MAX_GF`."""
     g = g1 // 4
     widths = (g1, *w3_shape)
-    if g not in DECODER_GF or tuple(w2_shape) != (g1, 2 * g) \
+    if not 1 <= g <= MAX_GF or g1 != 4 * g \
+            or tuple(w2_shape) != (g1, 2 * g) \
             or tuple(w3_shape) != (2 * g, g):
         raise ValueError(
-            f"{name} kernel takes decoder widths 4g-2g-g-1 for imnet_gf g in "
-            f"{DECODER_GF} (got {'-'.join(map(str, widths))}-1)")
+            f"{name} kernel takes decoder widths 4g-2g-g-1 for imnet_gf g "
+            f"from 1 to {MAX_GF} (got {'-'.join(map(str, widths))}-1)")
     return g
+
+
+# -- padding to the compiled widths (exact: zero units, zero columns) --------
+
+def _pad_to(t, shape):
+    """``t`` with zeros appended along each dimension up to ``shape``."""
+    pads = []
+    for have, want in zip(reversed(t.shape), reversed(shape)):
+        pads += [0, want - have]
+    return F.pad(t, pads) if any(pads) else t
+
+
+def _halves(t, g4, to):
+    """The last dimension [off (g4) | prob (g4)] of ``t`` with each half
+    padded with zeros to ``to`` (or, ``to`` < ``g4``, cut to it)."""
+    h = t.reshape(*t.shape[:-1], 2, g4)
+    h = _pad_to(h, (*h.shape[:-1], to)) if to >= g4 else h[..., :to]
+    return h.reshape(*t.shape[:-1], 2 * to).contiguous()
+
+
+def _pad_tails(w, prefixes, g, G):
+    """Layers 2-4 of each decoder ``prefix`` of ``w`` padded from imnet_gf
+    ``g`` to ``G``."""
+    out = {}
+    for p in prefixes:
+        out[f"{p}w2"] = _pad_to(w[f"{p}w2"], (4 * G, 2 * G))
+        out[f"{p}b2"] = _pad_to(w[f"{p}b2"], (2 * G,))
+        out[f"{p}w3"] = _pad_to(w[f"{p}w3"], (2 * G, G))
+        out[f"{p}b3"] = _pad_to(w[f"{p}b3"], (G,))
+        out[f"{p}w4"] = _pad_to(w[f"{p}w4"], (G,))
+    return out
+
+
+def _unpad_tails(d, prefixes, g):
+    """Gradients of :func:`_pad_tails`'s operands cut back to imnet_gf g."""
+    out = {}
+    for p in prefixes:
+        out[f"{p}w2"] = d[f"{p}w2"][:4 * g, :2 * g]
+        out[f"{p}b2"] = d[f"{p}b2"][:2 * g]
+        out[f"{p}w3"] = d[f"{p}w3"][:2 * g, :g]
+        out[f"{p}b3"] = d[f"{p}b3"][:g]
+        out[f"{p}w4"] = d[f"{p}w4"][:g]
+    return out
+
+
+def _insert_rows(w1, at, n_zero, rows):
+    """``w1`` with ``n_zero`` zero rows inserted before row ``at`` (the
+    columns a voxel width is padded by), its trailing zero rows then cut or
+    padded to ``rows``."""
+    if n_zero == 0 and w1.shape[0] == rows:
+        return w1
+    w = torch.cat([w1[:at], w1.new_zeros((n_zero, *w1.shape[1:])),
+                   w1[at:]], 0)[:rows]
+    return _pad_to(w, (rows, *w.shape[1:]))
+
+
+def _remove_rows(d, at, n_zero, rows):
+    """The converse of :func:`_insert_rows` on a gradient: the inserted
+    rows dropped, then cut or padded (zeros: rows of zero inputs) to
+    ``rows``."""
+    if n_zero:
+        d = torch.cat([d[:at], d[at + n_zero:]], 0)
+    d = d[:rows]
+    return _pad_to(d, (rows, *d.shape[1:]))
+
+
+def _k1_padding(w, multiple):
+    """(g, G, c_vox, c_vox padded) of K1/K2/K3's operands ``w``: the
+    decoders' imnet_gf and the compiled one, the voxel width and its
+    multiple of ``multiple``."""
+    c_vox = w["dims"][0]
+    g = w["b1"].shape[0] // 8
+    return g, compiled_gf(g), c_vox, _round_up(c_vox, multiple)
+
+
+# the voxel width K1/K2 take (16-byte rows) and K3 (its d_rows product on
+# the tensor cores: a 16-multiple; another width takes CUDA-core FMA)
+VOX_MULTIPLE = {"K1": 8, "K3": 16}
+
+
+def pad_ray_decode_operands(w, vox_table, multiple):
+    """K1/K2/K3's operands ``w`` (:func:`cast_ray_decode_operands`) and the
+    voxel table at the kernels' widths: the decoders padded to
+    :func:`compiled_gf`, c_vox to a multiple of ``multiple`` (the table's
+    columns and pair_w1's voxel rows). The same tensors where nothing is
+    padded."""
+    g, G, c_vox, c8 = _k1_padding(w, multiple)
+    if (g, c_vox) == (G, c8):
+        return w, vox_table
+    _, c_ray, multires = w["dims"]
+    kp = _round_up(c8 + 6 + 12 * multires, _PAD)
+    out = dict(w, dims=(c8, c_ray, multires))
+    out["pair_w1"] = _halves(_insert_rows(w["pair_w1"], c_vox, c8 - c_vox,
+                                          kp), 4 * g, 4 * G)
+    out["ray_w1"] = _halves(w["ray_w1"], 4 * g, 4 * G)
+    out["b1"] = _halves(w["b1"], 4 * g, 4 * G)
+    out["a_vec"] = _pad_to(w["a_vec"], (4 * G,))
+    out["c_vec"] = _pad_to(w["c_vec"], (4 * G,))
+    out.update(_pad_tails(w, ("off_", "prob_"), g, G))
+    out = {k: v.contiguous() if torch.is_tensor(v) else v
+           for k, v in out.items()}
+    return out, _pad_to(vox_table, (vox_table.shape[0], c8)).contiguous()
+
+
+def unpad_ray_decode_grads(d_w, d_table, w, multiple):
+    """K3's gradients at :func:`pad_ray_decode_operands`' widths (voxel
+    width a multiple of ``multiple``) cut back to the operands ``w``'s:
+    the pads' gradients dropped."""
+    g, G, c_vox, c8 = _k1_padding(w, multiple)
+    if (g, c_vox) == (G, c8):
+        return d_w, d_table
+    out = dict(d_w)
+    out["pair_w1"] = _remove_rows(_halves(d_w["pair_w1"], 4 * G, 4 * g),
+                                  c_vox, c8 - c_vox, w["pair_w1"].shape[0])
+    out["ray_w1"] = _halves(d_w["ray_w1"], 4 * G, 4 * g)
+    out["b1"] = _halves(d_w["b1"], 4 * G, 4 * g)
+    out["a_vec"] = d_w["a_vec"][:4 * g]
+    out["c_vec"] = d_w["c_vec"][:4 * g]
+    out.update(_unpad_tails(d_w, ("off_", "prob_"), g))
+    return out, d_table[:, :c_vox]
 
 
 def _check_cuda(name, tensors, dtype):
@@ -346,13 +486,15 @@ RING = 3               # weight slabs in shared memory (kRing)
 MAX_SEGS = 24          # products of one tile's schedule (kMaxSegs)
 WARPS, WARPS_N = 8, 4  # warps of a block; along N in the 64-row products
 F32_ROWS = 32          # rows of an f32 block (FMA path)
-# the widest layer-1 inputs the wrappers accept: per pair or row (kp), per
-# ray (crp; K1): K1's covers c_vox 256 with multires 8 (kp 368) and fits
-# the shared memory at imnet_gf 64 with crp 256; K6's fills it; K3 stages
-# X over its H1 and H2 tiles (csrc/ray_decode_bwd.cu kMaxKp)
-MAX_KP = {"K1": 368, "K2all": 368, "K4": 384, "K6": 464, "K3": 400}
-MAX_CRP = 256
-MAX_CVOX = 256  # K3's voxel feature width (pnet_out): its d_rows tile
+# the widest layer-1 inputs the wrappers accept: per pair (kp; K1, K2, K3:
+# pnet_out 512 with multires 10 gives 640), per ray (crp; K1, K3:
+# rgb_out * roi_out_bbox^2 + dir_e, 544 at roi_out_bbox 4). K4's and K6's
+# rows also hold the per-ray part: theirs is the widest whose single-buffered
+# block fits at imnet_gf <= 64. Narrower ones may not fit at imnet_gf 128:
+# decode_plan, bwd_smem say.
+MAX_KP = {"K1": 640, "K2all": 640, "K4": 944, "K6": 944, "K3": 640}
+MAX_CRP = 544
+MAX_CVOX = 512  # K3's voxel feature width (pnet_out): its d_rows tile
 _SEG_BYTES = 24        # sizeof(Seg)
 # the most pair slots a ray K1, K2 and K3 take (decode_common.cuh kMaxKb): a
 # ray of a grid of up to 22 cells a side crosses at most 3·22 - 2 cells
@@ -419,7 +561,9 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     block per SM (at most the number of tiles) walks ``tiles`` tiles of
     TILE_ROWS rows (K1: ``rays_per_tile`` whole rays, :func:`tile_rows`);
     ``smem`` holds the byte offset of each region of ``tile::Smem`` and
-    ``"total"``; ``schedule`` lists each
+    ``"total"``: the double-buffered layout where it fits MAX_SMEM, else
+    (``single``) one X buffer (x1 = x0) and K1's per-ray part in the h2
+    region; ``schedule`` lists each
     product of a tile in the order its weights stream through the slab
     ring: (operand, first column, k, n, slab rows), ``slabs_per_tile``
     their number, and ``warp_grid`` each product's warps and tiles
@@ -435,14 +579,26 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     if is_bf16:
         ld = lambda w: w + TILE_PAD  # noqa: E731
         xb = TILE_ROWS * ld(kp) * 2
-        smem = _regions([
-            ("x0", xb), ("x1", xb),
-            ("rf", TC_RAYS * ld(crp) * 2 if k1 else 0),
-            ("ray", TC_RAYS * g1 * 4 if k1 else 0),
-            ("h", TILE_ROWS * ld(g1) * 2), ("h2", TILE_ROWS * ld(g2) * 2),
-            ("ring", RING * SLAB_ELEMS * 2), ("off", TILE_ROWS * 4),
-            ("logit", TILE_ROWS * 4), ("l4", WARPS_N * TILE_ROWS * 4),
-            ("segs", MAX_SEGS * _SEG_BYTES)])
+
+        def layout(single):
+            out = _regions([
+                ("x0", xb), ("x1", 0 if single else xb),
+                ("rf", TC_RAYS * ld(crp) * 2 if k1 else 0),
+                ("ray", TC_RAYS * g1 * 4 if k1 and not single else 0),
+                ("h", TILE_ROWS * ld(g1) * 2), ("h2", TILE_ROWS * ld(g2) * 2),
+                ("ring", RING * SLAB_ELEMS * 2), ("off", TILE_ROWS * 4),
+                ("logit", TILE_ROWS * 4), ("l4", WARPS_N * TILE_ROWS * 4),
+                ("segs", MAX_SEGS * _SEG_BYTES)])
+            if single:
+                out["x1"] = out["x0"]
+                if k1:
+                    out["ray"] = out["h2"]
+            return out
+
+        smem = layout(False)
+        single = smem["total"] > MAX_SMEM
+        if single:
+            smem = layout(True)
         tail = [("w2", 0, g1, g2), ("w3", 0, g2, g3)]
         if k1:
             # each decoder's per-ray part just before its layer 1
@@ -467,14 +623,16 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
         return {"rows_per_tile": rows, "tiles": tiles,
                 "rays_per_tile": rays, "tiles_per_ray": 1,
                 "blocks": min(tiles, sm_count), "smem": smem,
-                "schedule": sched,
+                "single": single, "schedule": sched,
                 "slabs_per_tile": sum(-(-k // s) for _, _, k, _, s in sched),
                 "warp_grid": [warp_grid(16 if op == "ray_w1" else rows, nn)
                               for op, _, _, nn, _ in sched]}
     m = F32_ROWS
     x = m * max(kp, g2 + g3) * 4
     if k1:
-        smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
+        # c: product scratch, first the per-ray inputs
+        smem = _regions([("x", x), ("e1", m * g1 * 4),
+                         ("c", max(m * g1, F32_RAYS * crp) * 4),
                          ("h", m * g1 * 4), ("ray", F32_RAYS * 2 * g1 * 4),
                          ("off", m * 4), ("logit", m * 4)])
     elif kernel == "K6":
@@ -488,7 +646,7 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     tiles = -(-n // rays) * tpr if k1 else -(-n // m)
     return {"rows_per_tile": m, "tiles": tiles, "rays_per_tile": rays,
             "tiles_per_ray": tpr, "blocks": tiles, "smem": smem,
-            "schedule": [], "slabs_per_tile": 0}
+            "single": False, "schedule": [], "slabs_per_tile": 0}
 
 
 def warp_grid(rows: int, n: int) -> dict:
@@ -505,19 +663,24 @@ def warp_grid(rows: int, n: int) -> dict:
 
 
 def _check_plan(name, kernel, kp, crp, n_iter, is_bf16, n, g=64, kb=8):
-    """Raises unless the kernel takes these widths; returns the plan."""
+    """Raises unless the kernel takes these widths (at the compiled imnet_gf
+    ``g``), naming the limit; returns the plan."""
     if g not in DECODER_GF:
         raise ValueError(f"{name} kernel takes imnet_gf g in {DECODER_GF} "
                          f"(got {g})")
+    if kp > MAX_KP[kernel]:
+        raise ValueError(f"{name} kernel takes layer-1 inputs kp up to "
+                         f"{MAX_KP[kernel]} (got kp={kp})")
+    if crp > MAX_CRP:
+        raise ValueError(f"{name} kernel takes per-ray inputs crp up to "
+                         f"{MAX_CRP} (got crp={crp})")
     plan = decode_plan(kernel, kp, crp, n_iter, is_bf16, n, g=g, kb=kb)
-    if kp > MAX_KP[kernel] or crp > MAX_CRP \
-            or plan["smem"]["total"] > MAX_SMEM \
-            or len(plan["schedule"]) > MAX_SEGS:
-        raise ValueError(f"{name}: widths kp={kp}, crp={crp} or n_iter="
-                         f"{n_iter} do not fit the kernel (at most "
-                         f"{MAX_KP[kernel]}, {MAX_CRP}; {MAX_SEGS} products a "
-                         f"tile; {plan['smem']['total']} bytes of shared "
-                         "memory)")
+    if plan["smem"]["total"] > MAX_SMEM or len(plan["schedule"]) > MAX_SEGS:
+        raise ValueError(f"{name}: widths kp={kp}, crp={crp}, imnet_gf {g} "
+                         f"or n_iter={n_iter} do not fit the kernel's block "
+                         f"({plan['smem']['total']} bytes of shared memory, "
+                         f"at most {MAX_SMEM}; {len(plan['schedule'])} "
+                         f"products a tile, at most {MAX_SEGS})")
     return plan
 
 
@@ -552,15 +715,14 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
             "all": "ray_decode_save_all"}[saves]
     vox_table, cells, pos, ray_feat = _decode_operands(
         name, vox_table, cells, pos, ray_feat, w)
+    g0 = w["b1"].shape[0] // 8  # the decoders' own imnet_gf
+    w, vox_table = pad_ray_decode_operands(w, vox_table, VOX_MULTIPLE["K1"])
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
     kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
     g = w["b1"].shape[0] // 8
     is_bf16 = dtype == torch.bfloat16
-    if is_bf16 and c_vox % 8:
-        raise ValueError(f"{name} kernel takes c_vox a multiple of 8 in "
-                         f"bf16 (got {c_vox})")
     _check_plan(name, "K2all" if saves == "all" else "K1", kp, crp, n_iter,
                 is_bf16, n, g, kb)
     dev = cells.device
@@ -588,11 +750,12 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
                   cuda.stream_ptr(dev)), name)
     if not saves:
         return off, logit
-    saved = tuple(outs[2:5])
+    # the saves at the decoders' own widths (views past padded units)
+    saved = (outs[2][:, :4 * g0], outs[3][:, :4 * g0], outs[4])
     if saves == "all":
         offs, h2s, h3s, logit_pre = outs[5:]
         for i in range(n_iter + 1):
-            saved += (offs[i], h2s[i], h3s[i])
+            saved += (offs[i], h2s[i][:, :2 * g0], h3s[i][:, :g0])
         saved += (logit_pre,)
     return off, logit, saved
 
@@ -747,10 +910,10 @@ def bwd_grad_layout(kp: int, crp: int, g: int = 64) -> Dict[str, tuple]:
 def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
              sm_count: int, chunk_rays: int = K3_CHUNK_RAYS,
              split_rows: int = K3_SPLIT_ROWS, table_elems: int = 0,
-             g: int = 64, kb: int = 8) -> dict:
+             g: int = 64, kb: int = 8, c_vox: int = 0) -> dict:
     """The host-side arithmetic of K3 for ``n`` rays of ``kb`` pairs, a
-    voxel table of ``table_elems`` elements (rows x c_vox) and decoders of
-    imnet_gf ``g`` (Pass B's tiles are K3_TILE at every width: a narrow
+    voxel table of ``table_elems`` elements (rows x ``c_vox``) and decoders
+    of imnet_gf ``g`` (Pass B's tiles are K3_TILE at every width: a narrow
     gradient fills part of its one tile column, the rest of the partial is
     padding that no reduction reads).
 
@@ -758,8 +921,9 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
     of whole tiles of rays: at most ``chunk_rays`` rays, and at most the
     pair rows of the chunks kb 8 takes at this batch, so that K3's scratch
     at any kb is no larger than kb 8's. A tile of ``rows_per_tile`` pair
-    rows (64 bf16, 32 f32) holds ``rays_per_tile`` whole rays or, in f32 at
-    kb > 32, a ray's slots spread over ``tiles_per_ray`` tiles
+    rows (:func:`bwd_rows`: 64 in bf16 where Pass A's block fits, else 32;
+    32 in f32) holds ``rays_per_tile`` whole rays or, at 32 rows and kb >
+    32, a ray's slots spread over ``tiles_per_ray`` tiles
     (:func:`tile_rows`). Pass A runs on a persistent grid of ``blocks_a``
     blocks and writes each weight gradient's operands into the streams
     (``streams``: {name: (element offset, rows per instance, width,
@@ -782,7 +946,12 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
     if not 1 <= kb <= MAX_KB:
         raise ValueError(f"bwd_plan: kb in [1, {MAX_KB}] (got {kb})")
     g1, g2, g3 = 4 * g, 2 * g, g
-    m = 64 if is_bf16 else 32
+    layout = bwd_grad_layout(kp, crp, g)
+    small, s_off = {}, 0
+    for k in K3_SMALL:
+        small[k] = s_off
+        s_off = _align(s_off + math.prod(layout[k][1]), 4)
+    m = bwd_rows(kp, crp, c_vox, n_iter, s_off, g, is_bf16)
     mr = rays_per_tile(kb, m, m // 8)
     tpr = -(-kb // m)
     # the rays of kb 8's chunk at this batch (its tiles: m // 8 rays)
@@ -803,7 +972,6 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         streams[name] = (off, r, widths[name], inst)
         off = _align(off + r * widths[name] * inst)
     scratch = off
-    layout = bwd_grad_layout(kp, crp, g)
     jobs, reds, p_off, blocks_b = [], [], 0, 0
     tk_rows, tn_cols = K3_TILE
     for grad, col, a, b, ief in k3_jobs(g):
@@ -827,16 +995,11 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         blocks_b += tiles_k * tiles_n * splits
     tiles = -(-chunk // mr) * tpr
     blocks_a = max(1, min(sm_count, -(-chunk // mr)))
-    small, s_off = {}, 0
     for k in K3_SMALL:
         size = math.prod(layout[k][1])
-        small[k] = s_off
-        reds.append({"src": p_off + s_off, "stride": 0, "dst": layout[k][0],
-                     "splits": blocks_a, "k": 1, "n": size, "ld_src": size,
-                     "ld_dst": size})
-        s_off = _align(s_off + size, 4)
-    for r in reds[len(jobs):]:
-        r["stride"] = s_off
+        reds.append({"src": p_off + small[k], "stride": s_off,
+                     "dst": layout[k][0], "splits": blocks_a, "k": 1,
+                     "n": size, "ld_src": size, "ld_dst": size})
     table_off = _align(p_off + blocks_a * s_off)
     table_stride = _align(table_elems)
     return {"rows_per_tile": m, "kb": kb, "rays_per_tile": mr,
@@ -849,6 +1012,61 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
             "table_elems": table_elems,
             "partial_floats": table_off + blocks_a * table_stride,
             "reds": reds, "grad_floats": layout["total"][0]}
+
+
+K3_STAGE_ELEMS = 2 * 128 * (64 + 8)  # Pass A's weight slabs (kStageElems)
+
+
+def bwd_smem(m: int, g: int, crp: int, n_iter: int, small_size: int,
+             is_bf16: bool) -> int:
+    """Bytes of dynamic shared memory of one K3 Pass A block of ``m`` rows
+    (64 or 32) at imnet_gf ``g``, per-ray width ``crp``, ``n_iter`` IEF
+    iterations and ``small_size`` floats of small sums: BwdSmem of
+    ``csrc/ray_decode_bwd.cu``. At 64 rows X (kp <= 400) spans the H1 and
+    H2 tiles and the d_rows tile holds c_vox <= 256; at 32 rows kp <= 640,
+    c_vox <= 512."""
+    es = 2 if is_bf16 else 4
+    g1, g2, g3 = 4 * g, 2 * g, g
+    ld1, ld2, ld3 = g1 + 8, g2 + 8, g3 + 8
+    max_kp, max_cvox = (400, 256) if m == 64 else (640, 512)
+    mr = m // 8
+    a = lambda b: _align(b, 128)  # noqa: E731
+    o = a(m * max(ld1, max_kp - ld2) * es)             # H1 | X
+    o = a(o + m * ld2 * es)                             # H2
+    o = a(o + m * ld3 * es)                             # H3
+    o = a(o + max(m * g2 * 4, m * ld1 * es))            # C
+    o = a(o + m * max(g1, max_cvox) * 4)                # D
+    o = a(o + (K3_STAGE_ELEMS * es if is_bf16 else 0))  # weight slabs
+    for _ in range(7):                                  # doff .. next
+        o = a(o + m * 4)
+    o = a(o + g1 * 4)                                   # a_vec
+    o = a(o + g1 * 4)                                   # c_vec
+    o = a(o + mr * ld1 * es)                            # RET
+    o = a(o + (n_iter + 1) * m * 4)                     # offsets
+    o = a(o + mr * crp * es)                            # RF
+    o = a(o + mr * crp * 4)                             # DRF
+    return a(o + small_size * 4)
+
+
+def bwd_rows(kp: int, crp: int, c_vox: int, n_iter: int, small_size: int,
+             g: int, is_bf16: bool) -> int:
+    """K3's Pass A tile rows: 64 in bf16 where that block fits (imnet_gf
+    <= 64, kp <= 400, c_vox <= 256, :func:`bwd_smem`), else 32; raises
+    where neither fits, naming the limit (f32 takes imnet_gf <= 64)."""
+    if is_bf16 and g <= 64 and kp <= 400 and c_vox <= 256 and bwd_smem(
+            64, g, crp, n_iter, small_size, True) <= MAX_SMEM:
+        return 64
+    if g > 64 and not is_bf16:
+        raise ValueError(f"ray_decode_bwd kernel takes imnet_gf up to 64 in "
+                         f"f32 (got {g})")
+    size = bwd_smem(32, g, crp, n_iter, small_size, is_bf16)
+    if kp > MAX_KP["K3"] or c_vox > MAX_CVOX or size > MAX_SMEM:
+        raise ValueError(f"ray_decode_bwd: widths kp={kp}, c_vox={c_vox}, "
+                         f"crp={crp}, imnet_gf {g} do not fit Pass A (kp up "
+                         f"to {MAX_KP['K3']}, c_vox up to {MAX_CVOX}; "
+                         f"{size} bytes of shared memory, at most "
+                         f"{MAX_SMEM})")
+    return 32
 
 
 def bwd_scratch_bytes(plan: dict, elem_bytes: int) -> int:
@@ -979,15 +1197,25 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
         "ray_decode_bwd", vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
+    multires = w["dims"][2]
+    dev = cells.device
+    saves = _bwd_saves(saved, n, kb, w["b1"].shape[0] // 2, multires, n_iter,
+                       dtype, dev)
+    w0, (w, vox_table) = w, pad_ray_decode_operands(w, vox_table,
+                                                    VOX_MULTIPLE["K3"])
     c_vox, c_ray, multires = w["dims"]
     g4 = w["b1"].shape[0] // 2
-    dev = cells.device
-    saves = _bwd_saves(saved, n, kb, g4, multires, n_iter, dtype, dev)
-    kp = w["pair_w1"].shape[0]
-    if c_vox % 8 or c_vox > MAX_CVOX or kp > MAX_KP["K3"]:
-        raise ValueError(f"ray_decode_bwd kernel takes c_vox a multiple of "
-                         f"8 up to {MAX_CVOX} and kp up to {MAX_KP['K3']} "
-                         f"(got c_vox={c_vox}, kp={kp})")
+    # the saves at the compiled widths (zero units past the decoders')
+    widths = (g4, g4, None, None, g4 // 2, g4 // 4, None)
+    saves = tuple(s if s is None or c is None
+                  else _pad_to(s, (*s.shape[:-1], c)).contiguous()
+                  for s, c in zip(saves, widths))
+    kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
+    if c_vox > MAX_CVOX or kp > MAX_KP["K3"] or crp > MAX_CRP:
+        raise ValueError(f"ray_decode_bwd kernel takes c_vox up to "
+                         f"{MAX_CVOX}, kp up to {MAX_KP['K3']} and crp up "
+                         f"to {MAX_CRP} (got c_vox={c_vox}, kp={kp}, "
+                         f"crp={crp})")
     g = torch.stack([g_off.float(), g_logit.float()], -1).contiguous()
     if g.shape != (n, kb, 2):
         raise ValueError("ray_decode_bwd: cotangents must be (N, kb)")
@@ -999,7 +1227,7 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
     if n > 0:
         plan = bwd_plan(n, kp, crp, n_iter, dtype == torch.bfloat16,
                         cuda.sm_count(dev), K3_CHUNK_RAYS, K3_SPLIT_ROWS,
-                        vox_table.numel(), g4 // 4, kb)
+                        vox_table.numel(), g4 // 4, kb, c_vox)
         packed = pack_bwd_plan(plan)
         scratch = torch.empty((plan["scratch_elems"],), dtype=dtype,
                               device=dev)
@@ -1038,6 +1266,8 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
         d_table.zero_()
     grads = {k: d_w[o:o + math.prod(shape)].view(shape)
              for k, (o, shape) in layout.items() if k != "total"}
+    grads, d_table = unpad_ray_decode_grads(grads, d_table, w0,
+                                            VOX_MULTIPLE["K3"])
     return d_table, d_rf, grads
 
 
@@ -1192,6 +1422,28 @@ def ief_decode_plain(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
                    use_sigmoid)
 
 
+def pad_ief_operands(w, end_rows):
+    """K4's operands ``w`` (:func:`cast_ief_operands`) and the end rows at
+    the kernel's widths: the decoder padded to :func:`compiled_gf`, c_end
+    to a multiple of 8 (the end rows' columns and w1's end rows). The same
+    tensors where nothing is padded."""
+    c_end, c_rc, c_pos = w["dims"]
+    g = w["w1"].shape[1] // 4
+    G, c8 = compiled_gf(g), _round_up(c_end, 8)
+    if (g, c_end) == (G, c8):
+        return w, end_rows
+    kp = _round_up(c8 + c_rc + c_pos, _PAD)
+    out = dict(w, dims=(c8, c_rc, c_pos))
+    out["w1"] = _pad_to(_insert_rows(w["w1"], c_end, c8 - c_end, kp),
+                        (kp, 4 * G))
+    for k in ("b1", "a_vec", "c_vec"):
+        out[k] = _pad_to(w[k], (4 * G,))
+    out.update(_pad_tails(w, ("",), g, G))
+    out = {k: v.contiguous() if torch.is_tensor(v) else v
+           for k, v in out.items()}
+    return out, _pad_to(end_rows, (end_rows.shape[0], c8)).contiguous()
+
+
 def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
                      use_sigmoid):
     dtype = w["w1"].dtype
@@ -1199,19 +1451,18 @@ def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
     c_end, c_rc, c_pos = w["dims"]
     _check_cuda("ief_decode", [end_rows, rc_rows, pos_rows,
                                *(w[k] for k in _K4_WEIGHTS)], dtype)
-    g = decoder_gf("ief_decode", w["w1"].shape[1], w["w2"].shape,
-                   w["w3"].shape)
+    decoder_gf("ief_decode", w["w1"].shape[1], w["w2"].shape, w["w3"].shape)
     if end_rows.shape != (n, c_end) or rc_rows.shape != (n, c_rc) \
             or pos_rows.shape != (n, c_pos):
         raise ValueError("ief_decode: operand shapes do not match the weights")
     is_bf16 = dtype == torch.bfloat16
-    if is_bf16 and c_end % 8:
-        raise ValueError(f"ief_decode kernel takes c_end a multiple of 8 in "
-                         f"bf16 (got {c_end})")
-    _check_plan("ief_decode", "K4", w["w1"].shape[0], 0, n_iter, is_bf16, n,
-                g)
     end_rows, rc_rows, pos_rows = (_aligned(t.to(dtype).contiguous())
                                    for t in (end_rows, rc_rows, pos_rows))
+    w, end_rows = pad_ief_operands(w, end_rows)
+    c_end = w["dims"][0]
+    g = w["w1"].shape[1] // 4
+    _check_plan("ief_decode", "K4", w["w1"].shape[0], 0, n_iter, is_bf16, n,
+                g)
     out = torch.empty((n,), dtype=torch.float32, device=end_rows.device)
     ptrs = cuda.ptr_array([end_rows, rc_rows, pos_rows,
                            *(w[k] for k in _K4_WEIGHTS), out])

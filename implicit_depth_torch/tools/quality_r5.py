@@ -16,6 +16,9 @@ At the recipe's 60 / 30 epochs the tool exits with the gate's code; other
 trend, not the gate (exit 0 once every run finished). An existing
 ``--data`` is used as it is. ``--copy_to`` gathers the CSVs, epoch logs,
 the summary and the timings (no checkpoints) into a small directory.
+``--only stage1`` runs only the named runs of ``commands()`` (the dataset
+still where ``--data`` does not exist), with no summary: a stage-1 curve
+to hold against JAX's epoch log (``tools/compare_epoch_logs.py``).
 """
 
 from __future__ import annotations
@@ -108,6 +111,8 @@ def main(argv=None):
     ap.add_argument("--refine_epochs", type=int, default=RECIPE_EPOCHS[1])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--copy_to", default=None)
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="run only these runs of commands(), no summary")
     ap.add_argument("--set", nargs="*", default=[],
                     help="more dotted overrides for every run")
     args = ap.parse_args(argv)
@@ -117,7 +122,12 @@ def main(argv=None):
     os.makedirs(args.logs, exist_ok=True)
     L = args.logs
     for name, cmd in commands(args, py):
-        run(cmd, osp.join(L, f"{name}.log"), timings, name)
+        if args.only is None or name in args.only + ["dataset", "manifest"]:
+            run(cmd, osp.join(L, f"{name}.log"), timings, name)
+    if args.only is not None:
+        copy_results(args, L)
+        print(f"== quality_r5 done: {timings} (only {args.only})", flush=True)
+        return 0
     summary = subprocess.run(
         [py, osp.join(ROOT, "scripts", "summarize_quality.py"), L,
          "--gate", osp.join(ROOT, "docs", "quality_targets_r5.json")],
@@ -133,6 +143,13 @@ def main(argv=None):
     with open(osp.join(L, "timings.json"), "w") as f:
         json.dump({"seconds": timings, "lidf_epochs": args.lidf_epochs,
                    "refine_epochs": args.refine_epochs}, f)
+    copy_results(args, L)
+    print(f"== quality_r5 done: {timings}; gate exit {summary.returncode} "
+          f"({verdict})", flush=True)
+    return 0 if cut else summary.returncode
+
+
+def copy_results(args, L):
     if args.copy_to:
         for d, _, files in os.walk(L):
             for fn in files:
@@ -145,9 +162,6 @@ def main(argv=None):
         manifest = osp.join(args.data, "MANIFEST.sha256")
         if osp.exists(manifest):
             shutil.copy(manifest, args.copy_to)
-    print(f"== quality_r5 done: {timings}; gate exit {summary.returncode} "
-          f"({verdict})", flush=True)
-    return 0 if cut else summary.returncode
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Time the decode kernels K1, K2 ('l1' and 'all'), K3 (its three
 instances), K4 and K6 (``global`` with its row count, and dense) at the
-default decoder widths (imnet_gf 64) and the main path's shapes, beside
-another version of the port, on one NVIDIA GPU.
+default decoder widths (imnet_gf 64, or each ``--gf``) and the main path's
+shapes, beside another version of the port, on one NVIDIA GPU.
 
     python3 implicit_depth_torch/utils/time_decodes.py [--baseline DIR]
-        [--kb 8 [4 12 16 ...]] [--rounds 1] [--out build/time_decodes.json]
+        [--kb 8 [4 12 16 ...]] [--gf 64 [8 16 32 ...]] [--rounds 1]
+        [--out build/time_decodes.json]
 
 The operands are drawn from a seed with numpy, the same in every version:
 K1 and K4 on a served 480x640 frame (76,800 rays of kb pair slots, for
@@ -16,12 +17,14 @@ times them in a process of its own, which imports that version's package
 from its root (``DIR`` is another checkout's root, e.g. ``git archive
 <commit>`` unpacked under ``build/``), builds its kernels there and
 prepares the weights with its own functions, so the C interfaces may
-differ: the median of 10 CUDA-event times after 2 warm-ups, bf16. A
+differ: the median of 10 CUDA-event times after 2 warm-ups (50 for a
+kernel under 2 ms), bf16. A
 version whose wrapper refuses a budget (a port from before every budget
 was taken) times nothing there: null. K1, K2 and K3 are keyed "<kernel>
 kb<kb>". The versions run in turns, baseline first (baseline, this tree,
 this tree, baseline), ``--rounds`` times. Writes ``--out`` and prints each
-kernel's times and this tree's over the baseline's.
+kernel's times and this tree's over the baseline's. At an imnet_gf other
+than 64 every key ends in " gf<g>".
 """
 
 from __future__ import annotations
@@ -36,27 +39,31 @@ from pathlib import Path
 THIS_ROOT = Path(__file__).resolve().parents[2]
 SEED = 0
 # the default model's widths
-C_VOX, C_ROI, C_DIR, MULTIRES, GF4 = 128, 128, 27, 8, 256
+C_VOX, C_ROI, C_DIR, MULTIRES = 128, 128, 27, 8
 C_END, C_POS = 128, 51
 SERVE_RAYS, TRAIN_RAYS, CELLS = 76800, 80000, 729
 GLOBAL_ROWS, GLOBAL_COUNT, DENSE_SLOTS = 614400, 215040, 20
 
 
-def _mlp(rng, w, prefix, in_dim):
-    dims = [(in_dim, GF4), (GF4, GF4 // 2), (GF4 // 2, GF4 // 4),
-            (GF4 // 4, 1)]
+def _mlp(rng, w, prefix, in_dim, gf4):
+    dims = [(in_dim, gf4), (gf4, gf4 // 2), (gf4 // 2, gf4 // 4),
+            (gf4 // 4, 1)]
     for i, (a, b) in enumerate(dims, 1):
         w[f"{prefix}w{i}"] = rng.normal(size=(a, b)) / a ** 0.5
         w[f"{prefix}b{i}"] = 0.1 * rng.normal(size=(b,))
 
 
 def _time(fn, warmup=2, reps=10):
+    """The median CUDA-event ms of ``reps`` calls after ``warmup``; 5x the
+    calls for one under 2 ms, whose single readings spread by ~15%."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for i in range(reps * 5):
+        if i == reps and statistics.median(times) >= 2.0:
+            break
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -67,18 +74,33 @@ def _time(fn, warmup=2, reps=10):
     return statistics.median(times)
 
 
-def worker(budgets):
-    """Times every kernel with the package on sys.path, K1-K3 at each of
-    ``budgets``; prints one JSON line {kernel: ms}."""
-    import numpy as np
+def worker(budgets, gfs):
+    """Times every kernel with the package on sys.path, at each imnet_gf of
+    ``gfs``, K1-K3 at each of ``budgets``; prints one JSON line {kernel:
+    ms}."""
     import torch
 
     from implicit_depth_torch.ops import cuda
+
+    cuda.build_all()
+    out = {}
+    for g in gfs:
+        tag = "" if g == 64 else f" gf{g}"
+        out.update({k + tag: v for k, v in times_at(budgets, 4 * g).items()})
+        torch.cuda.empty_cache()
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "ms": out}),
+          flush=True)
+
+
+def times_at(budgets, gf4):
+    """{kernel: ms} of every kernel with decoders 4g = ``gf4`` wide."""
+    import numpy as np
+    import torch
+
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
 
     dev, bf = torch.device("cuda"), torch.bfloat16
-    cuda.build_all()
     rng = np.random.default_rng(SEED)
 
     def t(a, dtype=torch.float32):
@@ -87,8 +109,8 @@ def worker(budgets):
     c_embed = C_VOX + C_ROI + 6 * (1 + 2 * MULTIRES) + C_DIR
     w = {"off_enc_w": rng.normal(size=(1, 16)),
          "off_enc_b": 0.1 * rng.normal(size=(16,))}
-    _mlp(rng, w, "off_", c_embed + 16)
-    _mlp(rng, w, "prob_", c_embed)
+    _mlp(rng, w, "off_", c_embed + 16, gf4)
+    _mlp(rng, w, "prob_", c_embed, gf4)
     w = {k: t(v) for k, v in w.items()}
     k1w = rd.prep_ray_decode_weights(w, C_VOX, C_ROI, C_DIR, MULTIRES, bf)
 
@@ -131,7 +153,7 @@ def worker(budgets):
     iw = {"enc_w": rng.normal(size=(1, 16)),
           "enc_b": 0.1 * rng.normal(size=(16,))}
     c_rc = C_ROI + C_DIR
-    _mlp(rng, iw, "", C_END + c_rc + C_POS + 16)
+    _mlp(rng, iw, "", C_END + c_rc + C_POS + 16, gf4)
     k4w = rd.prep_ief_weights({k: t(v) for k, v in iw.items()}, C_END, c_rc,
                               C_POS, C_DIR, bf)
     rows = tuple(t(rng.normal(size=(SERVE_RAYS, c)), bf)
@@ -149,16 +171,16 @@ def worker(budgets):
         kw = {} if count is None else {
             "n_rows": torch.tensor(count, dtype=torch.int32, device=dev)}
         out[name] = _time(lambda: pd.pair_decode(*args, **kw))
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "ms": out}),
-          flush=True)
+    return out
 
 
-def run_version(root: Path, budgets) -> dict:
+def run_version(root: Path, budgets, gfs) -> dict:
     """One worker process with the package of ``root``."""
     code = ("import sys; sys.path.insert(0, %r); "
-            "sys.argv = ['time_decodes', '--worker', '--kb', *%r]; "
-            "__file__ = %r; exec(open(__file__).read())") % (
-                str(root), [str(kb) for kb in budgets], __file__)
+            "sys.argv = ['time_decodes', '--worker', '--kb', *%r, '--gf', "
+            "*%r]; __file__ = %r; exec(open(__file__).read())") % (
+                str(root), [str(kb) for kb in budgets],
+                [str(g) for g in gfs], __file__)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=root)
     if res.returncode != 0:
@@ -174,11 +196,13 @@ def main():
     ap.add_argument("--baseline", type=Path, default=None)
     ap.add_argument("--kb", type=int, nargs="+", default=[8],
                     help="pair slots a ray of K1-K3's operands")
+    ap.add_argument("--gf", type=int, nargs="+", default=[64],
+                    help="imnet_gf of the decoders")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.worker:
-        worker(args.kb)
+        worker(args.kb, args.gf)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -191,7 +215,7 @@ def main():
              else ["this"]) * args.rounds
     runs = {v: [] for v in versions}
     for v in order:
-        got = run_version(versions[v], args.kb)
+        got = run_version(versions[v], args.kb, args.gf)
         runs[v].append(got["ms"])
         print(v, json.dumps(got["ms"]), flush=True)
     summary = {}

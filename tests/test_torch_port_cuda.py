@@ -86,12 +86,12 @@ def test_ray_decode_kernel_matches_plain(dev, dtype):
 
 
 def _pair_case(rng, dev, dtype, p, n_rays, indexed, cv=128, c_roi=128,
-               gf=64):
+               gf=64, multires=8):
     """K6's operands (the default widths unless given): P rows over
     ``n_rays`` rays (the dense layout when not ``indexed``: P / n_rays
     consecutive rows a ray)."""
     c_dir = 27
-    c_embed = cv + c_roi + 102 + c_dir
+    c_embed = cv + c_roi + 6 * (1 + 2 * multires) + c_dir
     w = {"off_enc_w": rng.normal(size=(1, 16)),
          "off_enc_b": 0.1 * rng.normal(size=(16,))}
     _mlp_weights(rng, "off_", c_embed + 16, 4 * gf, w)
@@ -100,7 +100,7 @@ def _pair_case(rng, dev, dtype, p, n_rays, indexed, cv=128, c_roi=128,
         w[f"{pre}w4"] *= 0.25
         w[f"{pre}b4"] = np.full((1,), bias)
     pw = pd.prep_pair_decode_weights({k: _t(v, dev) for k, v in w.items()},
-                                     cv, c_roi, c_dir, 8, DTYPES[dtype])
+                                     cv, c_roi, c_dir, multires, DTYPES[dtype])
     return (_t(rng.normal(size=(30, cv)), dev, DTYPES[dtype]),
             _t(rng.integers(0, 30, p), dev, torch.int32),
             _t(0.6 * rng.normal(size=(p, 6)), dev),
@@ -227,8 +227,8 @@ def test_depth_completer_card_matches_cpu(dev):
 # -- stage-1 training: K2, K3, the K5 gradient, a train step ------------------
 
 def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
-                 n_table=30, gf=64, kb=8):
-    c_embed = cv + c_roi + 102 + c_dir
+                 n_table=30, gf=64, kb=8, multires=8):
+    c_embed = cv + c_roi + 6 * (1 + 2 * multires) + c_dir
     w = {"off_enc_w": rng.normal(size=(1, 16)),
          "off_enc_b": 0.1 * rng.normal(size=(16,))}
     _mlp_weights(rng, "off_", c_embed + 16, 4 * gf, w)
@@ -237,7 +237,8 @@ def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
         w[f"{pre}w4"] *= 0.25
         w[f"{pre}b4"] = np.full((1,), bias)
     w32 = rd.split_ray_decode_weights({k: _t(v, dev) for k, v in w.items()},
-                                      cv, c_roi, c_dir, 8, DTYPES[dtype])
+                                      cv, c_roi, c_dir, multires,
+                                      DTYPES[dtype])
     args = (_t(rng.normal(size=(n_table, cv)), dev),
             _t(rng.integers(0, n_table, (n, kb)), dev, torch.int32),
             _t(0.6 * rng.normal(size=(n, kb, 6)), dev),
@@ -370,7 +371,11 @@ def test_save_all_decodes_at_edge_sizes(dev, dtype, size):
 def test_decode_plan_is_the_kernels_layout(dev):
     """ops/ray_decode.py::decode_plan's shared memory is the kernels' own
     (each C library reports its layout's size): K1, K2 'all', K4, K6, at
-    every imnet_gf the kernels are compiled for."""
+    every imnet_gf the kernels are compiled for, at the default widths, the
+    reference's options' (W1-W6: kp 640, crp 288 and 544; K4's rows 464 and
+    720, K6's 528, 784 and 800) and the limits, the single layout where the
+    double one does not fit; and K3's Pass A (``bwd_smem``) at 64 and 32
+    rows a tile, -1 where the library holds no such instance."""
     k1 = cuda.library("ray_decode").idt_ray_decode_smem
     k2all = cuda.library("ray_decode").idt_ray_decode_save_all_smem
     k4 = cuda.library("ief_decode").idt_ief_decode_smem
@@ -378,19 +383,33 @@ def test_decode_plan_is_the_kernels_layout(dev):
     k1.argtypes = k2all.argtypes = [cuda.I64] * 4
     k4.argtypes = k6.argtypes = [cuda.I64] * 3
     k1.restype = k2all.restype = k4.restype = k6.restype = ctypes.c_longlong
+    singles = 0
     for g in rd.DECODER_GF:
         for bf16 in (True, False):
-            for kp, crp in ((240, 160), (256, 256), (368, 160), (32, 16)):
-                assert k1(kp, crp, g, bf16) == rd.decode_plan(
-                    "K1", kp, crp, is_bf16=bf16, g=g)["smem"]["total"]
+            for kp, crp in ((240, 160), (256, 256), (368, 160), (32, 16),
+                            (240, 288), (240, 544), (640, 160),
+                            (rd.MAX_KP["K1"], rd.MAX_CRP)):
+                plan = rd.decode_plan("K1", kp, crp, is_bf16=bf16, g=g)
+                singles += plan["single"]
+                assert k1(kp, crp, g, bf16) == plan["smem"]["total"]
                 assert k2all(kp, crp, g, bf16) == rd.decode_plan(
                     "K2all", kp, crp, is_bf16=bf16, g=g)["smem"]["total"]
-            for kp in (336, 384, 16):
+            for kp in (336, 384, 16, 464, 720, rd.MAX_KP["K4"]):
                 assert k4(kp, g, bf16) == rd.decode_plan(
                     "K4", kp, is_bf16=bf16, g=g)["smem"]["total"]
-            for kp in (400, rd.MAX_KP["K6"], 16):
+            for kp in (400, 528, 784, 800, rd.MAX_KP["K6"], 16):
                 assert k6(kp, g, bf16) == rd.decode_plan(
                     "K6", kp, is_bf16=bf16, g=g)["smem"]["total"]
+        k3 = cuda.library(f"ray_decode_bwd_g{g}").idt_ray_decode_bwd_smem
+        k3.argtypes = [cuda.I64] * 6
+        k3.restype = ctypes.c_longlong
+        for crp in (160, 288, 544):
+            small = rd.bwd_plan(1, 240, crp, 2, True, 132, g=g)["small_size"]
+            for m, bf16 in ((64, True), (32, True), (32, False)):
+                built = g <= 64 or (m == 32 and bf16)
+                want = rd.bwd_smem(m, g, crp, 2, small, bf16) if built else -1
+                assert k3(m, crp, 2, small, g, bf16) == want, (g, crp, m)
+    assert singles > 0
 
 
 def _rel_norm(a, b):
@@ -575,24 +594,168 @@ def test_ray_decode_bwd_at_every_width(dev, dtype, gf, saves_of,
         assert torch.equal(again[2][k], d_w[k]), k
 
 
-def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev):
-    """imnet_gf 24 (96-48-24-1): every decode wrapper names the widths it
-    takes."""
+# the reference's model options (chip_smoke.py phase 41) at the kernels'
+# operand widths: imnet_gf (W1 48, run at 64; W2 128), the per-ray roi
+# features rgb_out * roi_out_bbox^2 (W3 64 * 4, W4 32 * 16), the voxel
+# width pnet_out (W5 100, padded to 104; W6 512) with multires (W6 10)
+MODEL_WIDTHS = {"W1": {"gf": 48}, "W2": {"gf": 128}, "W3": {"c_roi": 256},
+                "W4": {"c_roi": 512}, "W5": {"cv": 100},
+                "W6": {"cv": 512, "multires": 10}}
+
+
+def _width_forwards(dev, dtype, wd):
+    """K1, K2 (both save modes), K4 and K6 (``global`` rows and the dense
+    layout) at the widths ``wd`` against their plain versions, over more
+    tiles than one round of the persistent bf16 grid: K2's outputs are K1's
+    bits, two launches the same bits."""
+    n = 8 * 132 * 2 + 5
+    rng = np.random.default_rng(80)
+    w32, args, _ = _decode_case(rng, dev, dtype, n=n, **wd)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    counts = (rd.ray_decode.launches, rd.ray_decode_save.launches,
+              rd.ray_decode_save_all.launches)
+    k1, again = rd.ray_decode(*args, w), rd.ray_decode(*args, w)
+    off, logit, saves = rd.ray_decode_save(*args, w)
+    off_a, logit_a, saves_a = rd.ray_decode_save_all(*args, w)
+    assert (rd.ray_decode.launches, rd.ray_decode_save.launches,
+            rd.ray_decode_save_all.launches) == (counts[0] + 2, counts[1] + 1,
+                                                 counts[2] + 1)
+    ref = rd.ray_decode_plain(*args, w, saves="all")
+    torch.cuda.synchronize()
+    for a, b in zip(k1, again):
+        assert torch.equal(a, b)
+    for o in ((off, logit), (off_a, logit_a)):
+        assert torch.equal(o[0], k1[0]) and torch.equal(o[1], k1[1])
+    _close(k1, ref[:2], ATOL[dtype])
+    for got, want in zip(saves, ref[2][:3]):
+        _save_close(got, want, dtype)
+    for name, got, want in zip(rd.save_names(2, "all"), saves_a, ref[2]):
+        assert got.shape == want.shape, name
+        if name == "off0":
+            assert torch.equal(got, want)
+        elif name.startswith("off") or name == "logit":
+            _close(got, want, ATOL[dtype])
+        else:
+            _save_close(got, want, dtype)
+    for indexed in (True, False):
+        case = _pair_case(rng, dev, dtype, 20 * 846, 846, indexed, **wd)
+        before = pd.pair_decode.launches
+        got = pd.pair_decode(*case)
+        assert pd.pair_decode.launches == before + 1
+        assert torch.equal(got[0], pd.pair_decode(*case)[0])
+        _close(got, pd.pair_decode_plain(*case), ATOL[dtype])
+
+
+def _width_bwd(dev, dtype, wd):
+    """K3's three instances at the widths ``wd`` against their plain
+    versions (relative norm 1e-4 f32, 2e-2 bf16), over several chunks and
+    Pass B splits; a second launch the same bits of every gradient. The
+    table has about the default model's rows a cell (219 at the training
+    step's 640,000 pair rows over 2,916 cells): d_vox_table sums each
+    cell's rows, and over the 30 cells of ``_decode_case`` (1,067 rows
+    each, with random cotangents that largely cancel) the f32 relative
+    error of d_vox_table read 1.31e-4 at W3 on an H100, past this file's
+    1e-4 for a reason of summation order, not of the kernel."""
+    rng = np.random.default_rng(81)
+    w32, args, cot = _decode_case(rng, dev, dtype, n=4000, n_table=146,
+                                  **wd)
+    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for saves_of in ("l1", None, "all"):
+        saves = _k2_saves(args, w, saves_of)
+        before = rd.ray_decode_bwd.launches
+        d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
+        assert rd.ray_decode_bwd.launches == before + 1
+        ref = rd.ray_decode_bwd_plain(*args, w32, *cot, dtype=DTYPES[dtype],
+                                      saved=saves)
+        torch.cuda.synchronize()
+        got = {"d_table": d_tab, "d_ray_feat": d_rf, **d_w}
+        want = {"d_table": ref[0], "d_ray_feat": ref[1], **ref[2]}
+        for k, g in got.items():
+            assert g.shape == want[k].shape and torch.isfinite(g).all(), k
+            assert _rel_norm(g, want[k]) <= tol, (saves_of, k,
+                                                  _rel_norm(g, want[k]))
+        again = rd.ray_decode_bwd(*args, w, saves, *cot)
+        assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_rf)
+        for k in d_w:
+            assert torch.equal(again[2][k], d_w[k]), k
+
+
+def _refuses(match, *calls):
+    for call in calls:
+        with pytest.raises(ValueError, match=match):
+            call()
+
+
+@pytest.mark.parametrize("case", [*MODEL_WIDTHS, "past the limits"])
+def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev, case,
+                                                              monkeypatch):
+    """W1-W6 (MODEL_WIDTHS): K1, K2 (both save modes), K3 (its three
+    instances), K4 and K6 take the widths of the reference's options, each
+    against its plain version in bf16 and f32, at this file's tolerances
+    (imnet_gf 128 in f32: K1's, K3's and K6's blocks do not fit, and each
+    names its limit; K4's fits). Past the limits every wrapper refuses,
+    naming the limit: imnet_gf 136, kp 656, crp 560, c_vox 520 (K3), K4's
+    and K6's rows 960, and at imnet_gf 128 a kp whose block does not
+    fit."""
+    monkeypatch.setattr(rd, "K3_CHUNK_RAYS", 1500)
+    monkeypatch.setattr(rd, "K3_SPLIT_ROWS", 1000)
     rng = np.random.default_rng(60)
-    w32, args, cot = _decode_case(rng, dev, "bfloat16", n=10, gf=24)
-    w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
-    for fn in (rd.ray_decode, rd.ray_decode_save, rd.ray_decode_save_all):
-        with pytest.raises(ValueError,
-                           match=r"imnet_gf g in \(8, 16, 32, 64\)"):
-            fn(*args, w)
-    with pytest.raises(ValueError, match="imnet_gf g in"):
-        rd.ray_decode_bwd(*args, w, None, *cot)
-    rows, pw = _ief_case(rng, dev, "bfloat16", 10, gf=24)
-    with pytest.raises(ValueError, match="imnet_gf g in"):
-        rd.ief_decode(*rows, pw)
-    case = _pair_case(rng, dev, "bfloat16", 40, 2, True, gf=24)
-    with pytest.raises(ValueError, match="imnet_gf g in"):
-        pd.pair_decode(*case)
+    if case in MODEL_WIDTHS:
+        wd = MODEL_WIDTHS[case]
+        gf, cv = wd.get("gf", 64), wd.get("cv", 128)
+        for dtype in ("bfloat16", "float32"):
+            if dtype == "float32" and gf > 64:
+                w32, args, cot = _decode_case(rng, dev, dtype, n=10, **wd)
+                w = rd.cast_ray_decode_operands(w32, torch.float32)
+                _refuses("shared memory", *(lambda f=f: f(*args, w) for f in (
+                    rd.ray_decode, rd.ray_decode_save,
+                    rd.ray_decode_save_all)),
+                    lambda: pd.pair_decode(*_pair_case(
+                        rng, dev, dtype, 40, 2, True, **wd)))
+                _refuses("imnet_gf up to 64 in f32",
+                         lambda: rd.ray_decode_bwd(*args, w, None, *cot))
+            else:
+                _width_forwards(dev, dtype, wd)
+                _width_bwd(dev, dtype, wd)
+            rows, pw = _ief_case(rng, dev, dtype, 8 * 2117, c_end=cv,
+                                 c_rc=wd.get("c_roi", 128) + 27, gf=gf)
+            before = rd.ief_decode.launches
+            got = rd.ief_decode(*rows, pw)
+            assert rd.ief_decode.launches == before + 1
+            assert torch.equal(got, rd.ief_decode(*rows, pw))
+            _close(got, rd.ief_decode_plain(*rows, pw), ATOL[dtype])
+        return
+
+    def k1_calls(**wd):
+        w32, args, cot = _decode_case(rng, dev, "bfloat16", n=10, **wd)
+        w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
+        return [lambda f=f: f(*args, w) for f in (
+            rd.ray_decode, rd.ray_decode_save, rd.ray_decode_save_all)] + [
+            lambda: rd.ray_decode_bwd(*args, w, None, *cot)]
+
+    _refuses("1 to 128", *k1_calls(gf=136),
+             lambda: rd.ief_decode(*_ief_case(rng, dev, "bfloat16", 10,
+                                              gf=136)[0],
+                                   _ief_case(rng, dev, "bfloat16", 10,
+                                             gf=136)[1]),
+             lambda: pd.pair_decode(*_pair_case(rng, dev, "bfloat16", 40, 2,
+                                                True, gf=136)))
+    # kp 656: c_vox 554 with multires 8
+    _refuses("kp up to 640", *k1_calls(cv=554))
+    # crp 560: roi 533 + dir_e 27
+    _refuses("crp up to 544", *k1_calls(c_roi=533))
+    # K3's d_rows tile: c_vox 520 (kp 624 with multires 8)
+    _refuses("c_vox up to 512", k1_calls(cv=520)[-1])
+    # K4's and K6's rows 960: c_end 752 (+ 155 + 51), c_vox 696 (+ 160 + 102)
+    _refuses("kp up to 944", lambda: rd.ief_decode(*_ief_case(
+        np.random.default_rng(1), dev, "bfloat16", 10, c_end=752)[0],
+        _ief_case(np.random.default_rng(1), dev, "bfloat16", 10,
+                  c_end=752)[1]),
+        lambda: pd.pair_decode(*_pair_case(rng, dev, "bfloat16", 40, 2, True,
+                                           cv=696)))
+    # imnet_gf 128 at kp 640: K1's single-buffered block does not fit
+    _refuses("shared memory", *k1_calls(gf=128, cv=512, multires=10)[:3])
 
 
 # -- every per-ray pair budget: kb 1 (16 rays of a bf16 tile, most rows

@@ -47,13 +47,20 @@ def test_every_instance_fits_one_block(kernel, bf16, which):
     """K1 (and K2, the same layout), K4, K6, bf16 and f32: the regions, each at
     a 128-byte boundary and none overlapping, fit the 232,448 bytes of
     shared memory a block may use, at the default widths and at the widest
-    the wrappers accept."""
+    the wrappers accept (there in the single layout: x1 is x0, and K1's
+    per-ray part lies in the h2 region)."""
     kp, crp = _widths(kernel, which)
-    smem = rd.decode_plan(kernel, kp, crp, is_bf16=bf16)["smem"]
+    plan = rd.decode_plan(kernel, kp, crp, is_bf16=bf16)
+    smem = plan["smem"]
     assert 0 < smem["total"] <= rd.MAX_SMEM == 232448
+    assert plan["single"] == (bf16 and which == "widest")
+    if plan["single"]:
+        assert smem["x1"] == smem["x0"]
+        assert smem["ray"] == (smem["h2"] if crp else smem["h"])
     offs = sorted(smem.values())
     assert all(o % 128 == 0 for o in offs)
-    assert offs[-1] == smem["total"] and len(set(offs)) >= len(offs) - 2
+    assert offs[-1] == smem["total"] \
+        and len(set(offs)) >= len(offs) - 2 - plan["single"]
     rd._check_plan("test", kernel, kp, crp, 2, bf16, 1000)  # accepted
 
 

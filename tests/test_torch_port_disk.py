@@ -29,6 +29,7 @@ from implicit_depth_torch.config import load_config
 from implicit_depth_torch.data import datasets as port_ds
 from implicit_depth_torch.data.exr import read_exr
 from implicit_depth_torch.infer import DepthCompleter
+from implicit_depth_torch.tools import compare_epoch_logs
 from implicit_depth_torch.tools import complete_depth as port_complete
 from implicit_depth_torch.tools import make_disk_datasets as port_make
 from implicit_depth_torch.tools import quality_r5
@@ -491,3 +492,63 @@ def test_quality_tool_exits_with_the_gate(trees, tmp_path, monkeypatch,
     summary = (logs / "summary.txt").read_text()
     assert ("QUALITY REGRESSIONS" in summary) == worse
     assert ("a trend, not the gate" in summary) == (epochs != (60, 30))
+
+
+def test_quality_tool_runs_stage1_alone(trees, tmp_path, monkeypatch):
+    """``--only stage1``: the dataset (where ``--data`` does not exist) and
+    stage 1 at the epochs asked for, no stage 2, no test run and no
+    summary; exit 0."""
+    port, _ = trees
+    logs = tmp_path / "logs"
+    rc, ran = _quality_runs(monkeypatch, [
+        "--data", str(tmp_path / "new"), "--logs", str(logs), "--device",
+        "cpu", "--lidf_epochs", "16", "--only", "stage1"])
+    assert rc == 0
+    assert [n for n, _ in ran] == ["dataset", "manifest", "stage1"]
+    assert "training.nepochs=16" in ran[-1][1]
+    assert not (logs / "summary.txt").exists()
+    _, ran = _quality_runs(monkeypatch, ["--data", port, "--logs", str(logs),
+                                         "--device", "cpu", "--only",
+                                         "stage1"])
+    assert [n for n, _ in ran] == ["stage1"]
+
+
+JAX_EPOCH_LOG = osp.join(REPO, "docs", "results_disk_r5",
+                         "lidf60_epoch_log.jsonl")
+
+
+@pytest.mark.parametrize("case,rc", [("itself", 0), ("rmse 20% up", 1),
+                                     ("a1 30% down", 1), ("no common", 2)])
+def test_compare_epoch_logs_exits_with_its_rule(tmp_path, capsys, case, rc):
+    """``tools/compare_epoch_logs.py`` on JAX's round-5 epoch log: against
+    itself it tracks (exit 0); a copy with one split's rmse raised 20% at
+    every epoch misses the 1.15x rule, one with a split's a1 cut 30% the
+    0.75x rule (exit 1); a log with no common validated epoch exits 2. The
+    side-by-side table names every common epoch."""
+    lines = [json.loads(x) for x in open(JAX_EPOCH_LOG) if x.strip()]
+    for rec in lines:
+        v = rec.get("valid", {})
+        if case == "rmse 20% up" and v:
+            v["real_known"]["rmse"] *= 1.2
+        if case == "a1 30% down" and v:
+            v["synthetic_novel"]["a1"] *= 0.7
+        if case == "no common":
+            rec["epoch"] += 1000
+    run = tmp_path / "epoch_log.jsonl"
+    run.write_text("".join(json.dumps(r) + "\n" for r in lines))
+    got = compare_epoch_logs.main([str(run), JAX_EPOCH_LOG])
+    out = capsys.readouterr().out
+    assert got == rc
+    if rc == 2:
+        return
+    epochs = [r["epoch"] for r in lines if "valid" in r]
+    assert epochs[:6] == [0, 3, 6, 9, 12, 15]
+    for e in epochs:
+        assert f"| {e} |" in out
+    missed = {"itself": None, "rmse 20% up": "real_known: lowest rmse",
+              "a1 30% down": "synthetic_novel: lowest rmse"}[case]
+    assert ("MISSED" in out) == (missed is not None)
+    assert out.strip().endswith("tracks the reference" if rc == 0 else
+                                "does not track the reference")
+    if case == "a1 30% down":
+        assert "highest a1" in out and out.count("MISSED") == 1

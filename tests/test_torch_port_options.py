@@ -84,8 +84,11 @@ MODES = {"per_ray": {},
 
 
 def overrides(option, mode, dtype="float32", **tpu):
+    """The tiny model's overrides with ``option`` (a name of OPTIONS, or
+    its own {section: values}) in ``mode``."""
     out = copy.deepcopy(refine_overrides(dtype))
-    for section, vals in OPTIONS.get(option, {}).items():
+    sections = option if isinstance(option, dict) else OPTIONS.get(option, {})
+    for section, vals in sections.items():
         out[section] = {**out[section], **vals}
     out["tpu"].update(MODES[mode], **tpu)
     return out
