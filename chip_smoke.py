@@ -297,9 +297,9 @@ Phases:
      2), kernel (K1 1, K3 1, K5 2) and kernel_save_all (K2 'all' 1, K3 1,
      K5 2), a stage-2 step (K1 1, K4 2, K5 10);
      each recorded call against its plain version at the default
-     tolerances grown with the depth of its widest product
-     (model_width_tols), MODEL_WIDTH_BITE below the outputs' spread; K3
-     twice on each call the same bits; two steps twice bit for bit at W2
+     tolerances, each at least BITE times below the outputs' spread
+     (MODEL_WIDTH_CHECKS; K4's call in the stage-2 step recorded, not
+     held: the served call holds K4); K3 twice on each call the same bits; two steps twice bit for bit at W2
      and W6. Each kernel's row carries its widths (``at_model_widths``).
      Then the seconds of phases 2-41, of 33-35, of 36-38, of 39, 40, 41.
 The next-to-last line is {"kernels": [...]}; the last is
@@ -318,6 +318,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -364,8 +365,6 @@ TOL = {("ray_decode", torch.float32): 1e-5, ("ray_decode", torch.bfloat16): 4e-3
 # deviation) of the outputs it compares, or the comparison could not tell a
 # right kernel from one that drops an iteration or a layer
 BITE = 10
-# the types every kernel check runs in (phase 41: bf16 alone)
-CHECK_DTYPES = (torch.bfloat16, torch.float32)
 # cross-check (f32, card kernels vs CPU plain, same weights): a pixel agrees
 # when |depth difference| <= 1e-3 m; up to 1% may differ, because a 1e-6
 # difference can still move a predicted point across a voxel boundary (the
@@ -535,6 +534,36 @@ def device_ms(fn, match, reps=100):
         if match in ev.key:
             total += t
     return (total / reps / 1e3 if total else None), ops
+
+
+class Checks(NamedTuple):
+    """How a phase holds each kernel to its plain version and times it:
+    ``dtypes``, the types compared; each tolerance at least BITE times
+    below the spread of the outputs it compares (``cap``: a tolerance that
+    is not is lowered to that spread over BITE); ``quick``: a time is
+    one call after ``warmup`` calls where that call took over
+    BUDGET_SLOW_MS, else the median of BUDGET_REPS calls after it
+    (otherwise ``time_ms``'s medians); ``profiled``, the types in which
+    K3's passes and K5's profiler readings are taken."""
+    dtypes: tuple = (torch.bfloat16, torch.float32)
+    cap: bool = False
+    quick: bool = False
+    warmup: int = 0
+    profiled: tuple = (torch.bfloat16, torch.float32)
+
+    def time(self, fn, warmup=2, reps=10):
+        if not self.quick:
+            return time_ms(fn, warmup, reps)
+        once = time_ms(fn, self.warmup, 1)
+        return once if once > BUDGET_SLOW_MS else time_ms(fn, 0, BUDGET_REPS)
+
+    def tol(self, tol, spread):
+        """``tol``, lowered to ``spread / BITE`` with ``cap``."""
+        return min(tol, spread / BITE) if self.cap else tol
+
+
+# phases 2-38's and 40's checks: bf16 and f32, full timings
+CHECKS = Checks()
 
 
 def nbytes(*ts):
@@ -777,19 +806,22 @@ def segment_as_f32(name, a):
     return d.detach().float(), ids, ns, v
 
 
-def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True):
+def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True,
+                 checks=CHECKS, held=True):
     """Each recorded call ({(name, shapes): (args, kwargs)}) in bf16 (as
     recorded) and f32 (``as_f32(name, args)``), or in ``dtypes`` (default
-    CHECK_DTYPES): max
-    |kernel - plain| against ``tols``, which must lie BITE times below the
-    outputs' spread (with ``bite``; else the spread is only reported);
-    times; bound. Returns the row of each kernel at its largest shape in
-    the first of ``dtypes``."""
+    ``checks.dtypes``): max |kernel - plain| against ``tols``
+    (``checks.tol``), which must lie BITE times below the
+    outputs' spread (with ``bite``; else the spread is only reported; not
+    ``held``: the error and spread are recorded, and only finite outputs
+    required); times; bound. Returns the row of each kernel at its largest
+    shape in the first of ``dtypes``."""
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     from implicit_depth_torch.ops import segment
 
-    dtypes = dtypes or CHECK_DTYPES
+    dtypes = dtypes or checks.dtypes
+    time_ms = checks.time
     mods = kernel_modules()
     by_shape = {}
     plain = {"ray_decode": rd.ray_decode_plain, "ief_decode": rd.ief_decode_plain,
@@ -809,14 +841,16 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True):
             # typical size and least spread of the outputs compared
             typical = max(r.float().abs().mean().item() for r in ref)
             spread = min(r.float().std().item() for r in ref)
-            tol = tols[(name, dt)]
-            ok = err <= tol and all(torch.isfinite(g).all() for g in got)
+            tol = checks.tol(tols[(name, dt)], spread) if held else None
+            ok = all(torch.isfinite(g).all() for g in got) and (
+                not held or err <= tol)
             ms = time_ms(lambda: kern(*a, **kw))
             plain_ms = time_ms(lambda: plain[name](*a, **kw))
             lib_ms, extra = None, {}
             rows = None
             if kw.get("n_rows") is not None:  # K6 in the global mode
-                rows, extra = count_checks(name, dt, kern, a, kw, got, ms)
+                rows, extra = count_checks(name, dt, kern, a, kw, got, ms,
+                                           checks)
             if name == "segment_max0":  # yardstick: one PyTorch scatter call
                 d, ids, ns, v = a
                 src = torch.where(v[:, None], d, torch.zeros((), dtype=d.dtype,
@@ -830,10 +864,11 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True):
                 # device times: the bare kernel (of 100 wrapper calls), what
                 # else each call puts on the stream, and the yardstick's
                 extra["kernel_device_ms"], extra["device_ops_per_call"] = \
-                    device_ms(lambda: kern(*a, **kw), "segment_max")
-                extra["library_device_ms"], _ = device_ms(
+                    device_ms(lambda: kern(*a, **kw), "segment_max") \
+                    if dt in checks.profiled else (None, None)
+                extra["library_device_ms"] = device_ms(
                     lambda: table.scatter_reduce_(0, idx, src, "amax"),
-                    "scatter")
+                    "scatter")[0] if dt in checks.profiled else None
             b_ms, b_by, flops, byt = bound(name, a, dt, rows=rows)
             row = {"name": name, "dtype": str(dt).split(".")[-1],
                    "shape": [list(s) for s in shape], "max_abs_err": err,
@@ -842,7 +877,9 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True):
                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "flops": flops, "bytes": byt, **extra}
             log(f"kernel {name} {row['dtype']} {row['shape']}: "
-                f"max_abs_err {err:.3g} (tol {tol}; outputs: mean |y| "
+                f"max_abs_err {err:.3g} "
+                f"({f'tol {tol}' if held else 'recorded, not held'}; "
+                f"outputs: mean |y| "
                 f"{typical:.3g}, std {spread:.3g}) ms {ms:.4f} "
                 f"plain_ms {plain_ms:.4f} library_ms {lib_ms} "
                 f"bound_ms {b_ms:.4f} ({b_by})"
@@ -850,7 +887,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True):
             if not ok:
                 raise AssertionError(f"{name} {dt}: kernel disagrees with its "
                                      f"plain version: {err} > {tol}")
-            if bite and BITE * tol > spread:
+            if held and bite and BITE * tol > spread:
                 raise AssertionError(f"{name} {dt}: tolerance {tol} is not "
                                      f"{BITE}x below the outputs' spread "
                                      f"{spread}")
@@ -870,7 +907,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True):
     return rows
 
 
-def count_checks(name, dt, kern, a, kw, got, ms):
+def count_checks(name, dt, kern, a, kw, got, ms, checks=CHECKS):
     """K6 called with its row count (the global mode's valid prefix): every
     output row at or past the count exactly 0, and the rows below it the
     bits of the same call without the count (which decodes every row).
@@ -888,7 +925,7 @@ def count_checks(name, dt, kern, a, kw, got, ms):
         if not torch.equal(g[:rows], f[:rows]):
             raise AssertionError(f"{name} {dt}: the rows below n_rows differ "
                                  "from the call without it")
-    ms_all = time_ms(lambda: kern(*a, **kw_all))
+    ms_all = checks.time(lambda: kern(*a, **kw_all))
     b_all = bound(name, a, dt)[0]
     log(f"kernel {name} {str(dt).split('.')[-1]}: {rows} of {p} rows "
         f"decoded: ms {ms:.4f}; every row: ms {ms_all:.4f} bound_ms "
@@ -1135,9 +1172,10 @@ def bwd_checks(name, dt, got, ref, tol, floors):
 
 
 @torch.no_grad()
-def train_kernel_phase(recorded, tols=TRAIN_TOL):
+def train_kernel_phase(recorded, tols=TRAIN_TOL, checks=CHECKS):
     """K2 and K3 at the recorded training shapes, in bf16 (as recorded) and
-    f32: kernel vs plain, times, bounds. Returns each kernel's bf16 row."""
+    f32 (``checks.dtypes``): kernel vs plain, times, bounds. Returns each
+    kernel's bf16 row."""
     from implicit_depth_torch.ops import ray_decode as rd
 
     w32 = recorded["f32_operands"]
@@ -1145,7 +1183,7 @@ def train_kernel_phase(recorded, tols=TRAIN_TOL):
     a3, kw3 = recorded["ray_decode_bwd"]
     g_off, g_logit = a3[6], a3[7]
     rows = {}
-    for dt in CHECK_DTYPES:
+    for dt in checks.dtypes:
         w = w_bf if dt == torch.bfloat16 else w32
         a2 = (vt.to(dt), cells, pos, rf.to(dt), w)
         # K2: outputs as K1's; saves relative to their largest value
@@ -1153,12 +1191,12 @@ def train_kernel_phase(recorded, tols=TRAIN_TOL):
             rd.ray_decode_plain(*a2, **kw2, saves=True)
         torch.cuda.synchronize()
         tol_out = tols[("ray_decode_save_out", dt)]
-        checks = [("offset", got[0], ref[0], tol_out),
-                  ("logit", got[1], ref[1], tol_out)]
+        compared = [("offset", got[0], ref[0], tol_out),
+                    ("logit", got[1], ref[1], tol_out)]
         for nm, g, r in zip(("e1", "z1p", "trig"), got[2], ref[2]):
-            checks.append((nm, g, r, tols[("ray_decode_save", dt)]
+            compared.append((nm, g, r, tols[("ray_decode_save", dt)]
                            * r.float().abs().max().item()))
-        err2 = row_checks("ray_decode_save", dt, checks)
+        err2 = row_checks("ray_decode_save", dt, compared, checks)
         saved = got[2]
         # K3: every gradient against autograd of the plain decode started
         # from the same saves, by the relative norm of the difference
@@ -1196,10 +1234,10 @@ def train_kernel_phase(recorded, tols=TRAIN_TOL):
                 kern = lambda: rd.ray_decode_bwd(*a3, **kw3)  # noqa: E731
                 plain = lambda: rd.ray_decode_bwd_plain(  # noqa: E731
                     *a2[:4], w, g_off, g_logit, **kw3, dtype=dt, saved=saved)
-            ms = time_ms(kern, warmup=1, reps=5)
-            plain_ms = time_ms(plain, warmup=1, reps=3)
+            ms = checks.time(kern, warmup=1, reps=5)
+            plain_ms = checks.time(plain, warmup=1, reps=3)
             b_ms, b_by, flops, byt = bound(name, args, dt)
-            if name == "ray_decode_bwd":
+            if name == "ray_decode_bwd" and dt in checks.profiled:
                 extra = {**extra, "passes": k3_passes(a3, kw3)}
             row = {"name": name, "dtype": str(dt).split(".")[-1],
                    "shape": [list(cells.shape)], "max_abs_err": err,
@@ -1238,13 +1276,15 @@ def k3_passes(a, kw):
     return out
 
 
-def row_checks(name, dt, checks):
-    """Each (what, got, ref, tol): max |got - ref| <= tol, finite, and tol
-    BITE times below the spread of ref; returns the largest error."""
+def row_checks(name, dt, compared, checks=CHECKS):
+    """Each (what, got, ref, tol) of ``compared``: max |got - ref| <= tol
+    (``checks.tol``), finite, and tol BITE times below the spread of ref;
+    returns the largest error."""
     worst, failed = 0.0, []
-    for what, g, r, tol in checks:
+    for what, g, r, tol in compared:
         err = (g.float() - r.float()).abs().max().item()
         spread = r.float().std().item()
+        tol = checks.tol(tol, spread)
         log(f"kernel {name} {str(dt).split('.')[-1]} {what}: max_abs_err "
             f"{err:.3g} (tol {tol:.3g}; std {spread:.3g})")
         if not (err <= tol and torch.isfinite(g).all()):
@@ -1258,18 +1298,20 @@ def row_checks(name, dt, checks):
     return worst
 
 
-def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP):
-    """Warm-up step (recording the kernels' inputs), then TRAIN_STEPS timed
-    steps with the launch counters of ``expect`` from 0; returns (recorded,
-    launches, step_ms)."""
+def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP,
+               steps=None):
+    """Warm-up step (recording the kernels' inputs), then ``steps``
+    (default TRAIN_STEPS) timed steps with the launch counters of
+    ``expect`` from 0; returns (recorded, launches, step_ms)."""
     from implicit_depth_torch.train.state import TrainState
     from implicit_depth_torch.train.steps import make_lidf_train_step
 
     decode_bwd = cfg.tpu.decode_bwd
+    steps = steps or TRAIN_STEPS
     state = TrainState.create(model, cfg.training, steps_per_epoch=1000)
     step = make_lidf_train_step(cfg, model, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    batches = train_batches(TRAIN_STEPS + 1, cfg, TRAIN_BATCH, dev)
+    batches = train_batches(steps + 1, cfg, TRAIN_BATCH, dev)
     recorded = record_train_calls(step, state, batches[0], gen, decode_bwd)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     counts = {k: f for k, f in counters().items() if k in expect}
@@ -1284,7 +1326,7 @@ def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: v.item() for k, v in out.items()})
     launches = {k: f.launches for k, f in counts.items()}
-    log(f"training (decode_bwd {decode_bwd}): {TRAIN_STEPS} steps of batch "
+    log(f"training (decode_bwd {decode_bwd}): {steps} steps of batch "
         f"{TRAIN_BATCH} at {cfg.dataset.img_height}x{cfg.dataset.img_width}, "
         f"launches "
         f"{launches}, step_ms {step_ms}, median step_ms "
@@ -1293,9 +1335,9 @@ def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP):
     log(f"training peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for k, per in expect.items():
-        if launches[k] != per * TRAIN_STEPS:
+        if launches[k] != per * steps:
             raise AssertionError(f"{k}: {launches[k]} launches in "
-                                 f"{TRAIN_STEPS} steps, expected {per} each")
+                                 f"{steps} steps, expected {per} each")
     if not all(np.isfinite(v) for ls in losses for v in ls.values()):
         raise AssertionError("training: a loss is not finite")
     still = [n for n, p in model.named_parameters()
@@ -1492,7 +1534,7 @@ def build_models(cfg, train=False, seed=SEED):
     return lidf, refine
 
 
-def pair_kernel_rows(recorded, lidf, dev, tols=TOL):
+def pair_kernel_rows(recorded, lidf, dev, tols=TOL, checks=CHECKS):
     """K6 on the calls recorded from a served frame (``forward_rows``, with
     the weights re-prepared in f32 for the f32 run)."""
     from implicit_depth_torch.models.lidf import decoder_weights
@@ -1507,7 +1549,8 @@ def pair_kernel_rows(recorded, lidf, dev, tols=TOL):
         return vt.float(), cells, pos, rf.float(), f32w, rays
 
     with torch.inference_mode():
-        row = forward_rows(recorded, as_f32, dev, tols)["pair_decode"]
+        row = forward_rows(recorded, as_f32, dev, tols,
+                           checks=checks)["pair_decode"]
     row.setdefault("rows_decoded", row["shape"][1][0])  # cells: every row
     return row
 
@@ -1597,7 +1640,7 @@ def pair_modes_phase(dev, overrides, frame_hw, profile=False):
 
 
 @torch.no_grad()
-def recompute_kernel_rows(recorded, tols=TRAIN_TOL):
+def recompute_kernel_rows(recorded, tols=TRAIN_TOL, checks=CHECKS):
     """Phase 10's kernel check: K3's recompute instance (``saved=None``) on
     the recorded training inputs against ``ray_decode_bwd_plain(saved=None)``
     in bf16 (as recorded) and f32, by the relative norm of each gradient's
@@ -1611,7 +1654,7 @@ def recompute_kernel_rows(recorded, tols=TRAIN_TOL):
     floors = {"off_b4": g_off.abs().sum().item(),
               "prob_b4": g_logit.abs().sum().item()}
     out = None
-    for dt in CHECK_DTYPES:
+    for dt in checks.dtypes:
         w = w_bf if dt == torch.bfloat16 else w32
         a = (vt.to(dt), cells, pos, rf.to(dt), w, None, g_off, g_logit)
         got = rd.ray_decode_bwd(*a, **kw)
@@ -1626,14 +1669,15 @@ def recompute_kernel_rows(recorded, tols=TRAIN_TOL):
             f"worst relative error {worst[1]:.3g} ({worst[0]}, tol {tol}), "
             f"max |diff| there {err:.3g}")
         del got, ref
-        ms = time_ms(lambda: rd.ray_decode_bwd(*a, **kw), warmup=1, reps=5)
-        plain_ms = time_ms(lambda: rd.ray_decode_bwd_plain(
+        ms = checks.time(lambda: rd.ray_decode_bwd(*a, **kw), warmup=1,
+                         reps=5)
+        plain_ms = checks.time(lambda: rd.ray_decode_bwd_plain(
             *a[:5], g_off, g_logit, **kw, dtype=dt, saved=None),
             warmup=1, reps=3)
         b_ms, b_by, flops, byt = bound("ray_decode_bwd_recompute", a, dt)
         log(f"kernel ray_decode_bwd_recompute {dtn}: ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
-        passes = k3_passes(a, kw)
+        passes = k3_passes(a, kw) if dt in checks.profiled else None
         if dt == torch.bfloat16:
             out = {"name": "ray_decode_bwd_recompute", "dtype": dtn,
                    "shape": [list(cells.shape)], "max_abs_err": err,
@@ -1645,7 +1689,7 @@ def recompute_kernel_rows(recorded, tols=TRAIN_TOL):
     return out
 
 
-def train_forward_row(recorded, dev, train_tols=TRAIN_TOL):
+def train_forward_row(recorded, dev, train_tols=TRAIN_TOL, checks=CHECKS):
     """Phase 10's forward check: K1 on the recorded training inputs against
     ``ray_decode_plain`` (``forward_rows``), at K2's output tolerances
     (of ``train_tols``): the same decode, whose outputs spread less under
@@ -1663,7 +1707,7 @@ def train_forward_row(recorded, dev, train_tols=TRAIN_TOL):
             for dt in (torch.bfloat16, torch.float32)}
     with torch.inference_mode():
         return forward_rows({("ray_decode", shape): (a, kw)}, as_f32, dev,
-                            tols)["ray_decode"]
+                            tols, checks=checks)["ray_decode"]
 
 
 def train_kernel_variant_phase(dev, train_overrides, profile=False):
@@ -1700,7 +1744,7 @@ def train_mode_model(dev, train_overrides, decode_bwd):
 
 
 @torch.no_grad()
-def save_all_kernel_rows(recorded, tols=TRAIN_TOL):
+def save_all_kernel_rows(recorded, tols=TRAIN_TOL, checks=CHECKS):
     """Phase 11's kernel checks on the recorded training inputs, in bf16 (as
     recorded) and f32: K2 'all' against ``ray_decode_plain(saves='all')``,
     K3 from its full saves against ``ray_decode_bwd_plain`` from the same
@@ -1715,7 +1759,7 @@ def save_all_kernel_rows(recorded, tols=TRAIN_TOL):
     floors = {"off_b4": g_off.abs().sum().item(),
               "prob_b4": g_logit.abs().sum().item()}
     rows = {}
-    for dt in CHECK_DTYPES:
+    for dt in checks.dtypes:
         dtn = str(dt).split(".")[-1]
         w = w_bf if dt == torch.bfloat16 else w32
         a2 = (vt.to(dt), cells, pos, rf.to(dt), w)
@@ -1727,8 +1771,8 @@ def save_all_kernel_rows(recorded, tols=TRAIN_TOL):
         # the other saves within an ulp of their largest value; the offset
         # entering the first iteration is init_offset, exactly
         tol_out = tols[("ray_decode_save_out", dt)]
-        checks = [("offset", got[0], ref[0], tol_out),
-                  ("logit", got[1], ref[1], tol_out)]
+        compared = [("offset", got[0], ref[0], tol_out),
+                    ("logit", got[1], ref[1], tol_out)]
         for nm, g, r in zip(names, got[2], ref[2]):
             if nm == "off0":
                 if not torch.equal(g, r):
@@ -1736,10 +1780,10 @@ def save_all_kernel_rows(recorded, tols=TRAIN_TOL):
                                          "is not init_offset")
                 continue
             f32 = nm.startswith("off") or nm == "logit"
-            checks.append((nm, g, r, tol_out if f32 else
-                           tols[("ray_decode_save", dt)]
-                           * r.float().abs().max().item()))
-        err2 = row_checks("ray_decode_save_all", dt, checks)
+            compared.append((nm, g, r, tol_out if f32 else
+                             tols[("ray_decode_save", dt)]
+                             * r.float().abs().max().item()))
+        err2 = row_checks("ray_decode_save_all", dt, compared, checks)
         saved = got[2]
         a3 = (*a2, saved, g_off, g_logit)
         k3 = rd.ray_decode_bwd(*a3, **kw3)
@@ -1767,10 +1811,10 @@ def save_all_kernel_rows(recorded, tols=TRAIN_TOL):
                      saved=saved),
                  err3, {"max_rel_err": worst[1], "worst": worst[0],
                         "tolerance_rel": tol3})):
-            ms = time_ms(kern, warmup=1, reps=5)
-            plain_ms = time_ms(plain, warmup=1, reps=3)
+            ms = checks.time(kern, warmup=1, reps=5)
+            plain_ms = checks.time(plain, warmup=1, reps=3)
             b_ms, b_by, flops, byt = bound(name, args, dt, kw2["n_iter"])
-            if name == "ray_decode_bwd_all":
+            if name == "ray_decode_bwd_all" and dt in checks.profiled:
                 extra = {**extra, "passes": k3_passes(a3, kw3)}
             log(f"kernel {name} {dtn} {list(cells.shape)}: ms {ms:.4f} "
                 f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
@@ -1910,11 +1954,12 @@ def refine_train_path(cfg, lidf, refine, dev, steps, profile=False,
 
 
 def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32),
-                  bite=True, tols=TOL):
+                  bite=True, tols=TOL, checks=CHECKS, held=True):
     """Phase 13's K4 checks on the recorded inputs of K4's training entry
     (one refine iteration's rows), in bf16 (as recorded) and f32: the
     kernel against ``ief_decode_plain`` (``forward_rows``, phase 3's
-    tolerances; ``bite`` as there), and the training decode's gradients
+    tolerances; ``bite``, ``checks`` and ``held`` as there), and the
+    training decode's gradients
     (``IefDecodeTrain``: K4 forward, autograd of the plain decode
     recomputed) against autograd of ``ief_decode_plain`` on the same
     inputs, with the backward's time (the forward in ``dtypes`` only, the
@@ -1925,17 +1970,23 @@ def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32),
     (_, shape), (a, kw) = next((k, v) for k, v in recorded.items()
                                if k[0] == "ief_decode_train")
     end, rc, pos, w32, dtype = a
+    # K4's call as the training entry makes it on the card: the operands
+    # and the end rows at the kernel's widths
+    padded = rd.pad_ief_operands(w32)
+    end_k4 = rd.pad_columns(end, padded["dims"][0])
+    shape = (tuple(end_k4.shape), *shape[1:])
     call = {("ief_decode", shape[:3]):
-            ((end, rc, pos, rd.cast_ief_operands(w32, dtype)), kw)}
+            ((end_k4, rc, pos, rd.cast_ief_operands(padded, dtype)), kw)}
 
     def as_f32(name, args):
         e, r, p, _ = args
         return (e.float(), r.float(), p.float(),
-                rd.cast_ief_operands(w32, torch.float32))
+                rd.cast_ief_operands(padded, torch.float32))
 
     with torch.inference_mode():
         row = forward_rows(call, as_f32, dev, tols, dtypes=dtypes,
-                           bite=bite)["ief_decode"]
+                           bite=bite, checks=checks,
+                           held=held)["ief_decode"]
     g = torch.randn(end.shape[0], device=dev,
                     generator=torch.Generator(device=dev).manual_seed(SEED))
     row["grad"] = {}
@@ -1958,10 +2009,9 @@ def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32),
         errs = {n: rel_norm(x, y) for n, x, y in zip(names, got, ref)}
         worst = max(errs, key=errs.get)
         tol = REFINE_GRAD_TOL[dt]
-        bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
-                                                     retain_graph=True),
-                         warmup=1, reps=5)
-        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        bwd_ms = checks.time(lambda: torch.autograd.grad(
+            out, leaves, g, retain_graph=True), warmup=1, reps=5)
+        plain_bwd_ms = checks.time(lambda: torch.autograd.grad(
             ref_out, leaves, g, retain_graph=True), warmup=1, reps=5)
         log(f"kernel ief_decode training gradient {dtn} {list(end.shape)}: "
             f"{'the same bits as' if same else 'differs from'} autograd of "
@@ -4662,11 +4712,14 @@ STAGE2_BITE = 5
 # H100): a first call, whose time is the reading where it took over
 # BUDGET_SLOW_MS, else the median of BUDGET_REPS calls after it
 BUDGET_REPS, BUDGET_SLOW_MS = 3, 50.0
+# K3's passes timed in bf16 only
+BUDGET_CHECKS = Checks(quick=True, profiled=(torch.bfloat16,))
 # what the kernels line keeps of a kernel's row at a budget
 BUDGET_KEYS = WIDTH_KEYS + ("frame_ms", "train", "stage2")
 
 
-def budget_k1_row(recorded, lidf, dev, tols=TOL, bite=True):
+def budget_k1_row(recorded, lidf, dev, tols=TOL, bite=True,
+                  checks=BUDGET_CHECKS):
     """K1 on the calls of ``recorded`` (``forward_rows``, in bf16 as
     recorded and in f32 with ``lidf``'s weights re-prepared)."""
     f32w = k1_f32_operands(lidf)
@@ -4676,8 +4729,8 @@ def budget_k1_row(recorded, lidf, dev, tols=TOL, bite=True):
         return vt.float(), cells, pos, rf.float(), f32w
 
     with torch.inference_mode():
-        return forward_rows(recorded, as_f32, dev, tols,
-                            bite=bite)["ray_decode"]
+        return forward_rows(recorded, as_f32, dev, tols, bite=bite,
+                            checks=checks)["ray_decode"]
 
 
 def slots_of(kb, rays, *ts):
@@ -4722,9 +4775,10 @@ def budget_alone_rows(serve_calls, train_calls, lidf):
                    "ray_decode_bwd": ((vt, cells, pos, rf, w, None, g_off,
                                        g_logit), kw3)}
         log(f"kb {kb} alone: {n} rays of {kb} slots, from kb {src}'s calls")
-        rows.update(train_kernel_phase(derived))
-        rows["ray_decode_bwd_recompute"] = recompute_kernel_rows(derived)
-        rows.update(save_all_kernel_rows(derived))
+        rows.update(train_kernel_phase(derived, checks=BUDGET_CHECKS))
+        rows["ray_decode_bwd_recompute"] = recompute_kernel_rows(
+            derived, checks=BUDGET_CHECKS)
+        rows.update(save_all_kernel_rows(derived, checks=BUDGET_CHECKS))
         from implicit_depth_torch.ops import ray_decode as rd
         a2 = derived["ray_decode_save"][0]
         for name, saved in (("ray_decode_bwd", rd.ray_decode_save(
@@ -4789,7 +4843,6 @@ def budget_phase(dev, workdir):
     at MODE_XCHECK_DATASET); kb 1 and 64 on calls made from recorded ones
     (budget_alone_rows); the CLI at BUDGET_CLI (budget_cli_phase). Returns
     ({kernel: {"kb<kb>": its row}}, the CLI's launches)."""
-    global TRAIN_STEPS, time_ms, k3_passes
     from implicit_depth_torch.config import load_config
     from implicit_depth_torch.infer import DepthCompleter
     from implicit_depth_torch.models import lidf as lidf_mod
@@ -4801,120 +4854,106 @@ def budget_phase(dev, workdir):
         out.setdefault(name, {})[f"kb{kb}"] = {
             k: row[k] for k in BUDGET_KEYS if k in row}
 
-    # fewer timing repeats; K3's passes timed in bf16 only
-    saved = TRAIN_STEPS, time_ms, k3_passes
-    full_time, full_passes = time_ms, k3_passes
-    TRAIN_STEPS = BUDGET_STEPS
-    def time_ms(fn, warmup=2, reps=10):
-        once = full_time(fn, 0, 1)
-        return once if once > BUDGET_SLOW_MS else full_time(fn, 0,
-                                                            BUDGET_REPS)
-    k3_passes = lambda a, kw: (  # noqa: E731
-        full_passes(a, kw) if a[4]["pair_w1"].dtype == torch.bfloat16
-        else None)
-    try:
-        for kb in BUDGETS:
-            t_kb = time.perf_counter()
-            tpu = {"tpu": {"pairs_budget_per_ray": kb}}
-            cfg = load_config(overrides=merged(SERVE_OVERRIDES, tpu))
-            lidf, refine = build_models(cfg)
-            assert lidf.decode_mode == "per_ray" and lidf.pairs_budget == kb
-            dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
-            calls = record_calls({"ray_decode": kernel_modules()["ray_decode"]},
-                                 lambda: dc.complete(*frames[0]))
-            serve_calls[kb] = calls
-            k1 = budget_k1_row(calls, lidf, dev)
-            launches, frame_ms = main_path(dc, frames[1:], cfg,
-                                           label=f"kb {kb} main path")
-            k1 = add_launches(k1, launches["ray_decode"], BUDGET_FRAMES,
-                              "frame")
-            k1["frame_ms"] = frame_ms
-            if kb == BUDGET_XCHECK:
-                xo = merged(SERVE_OVERRIDES, tpu,
-                            {"dataset": MODE_XCHECK_DATASET})
-                cross_check(xo, *build_models(load_config(overrides=xo)),
-                            frames[1], dev)
-            del dc, lidf, refine
+    for kb in BUDGETS:
+        t_kb = time.perf_counter()
+        tpu = {"tpu": {"pairs_budget_per_ray": kb}}
+        cfg = load_config(overrides=merged(SERVE_OVERRIDES, tpu))
+        lidf, refine = build_models(cfg)
+        assert lidf.decode_mode == "per_ray" and lidf.pairs_budget == kb
+        dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+        calls = record_calls({"ray_decode": kernel_modules()["ray_decode"]},
+                             lambda: dc.complete(*frames[0]))
+        serve_calls[kb] = calls
+        k1 = budget_k1_row(calls, lidf, dev)
+        launches, frame_ms = main_path(dc, frames[1:], cfg,
+                                       label=f"kb {kb} main path")
+        k1 = add_launches(k1, launches["ray_decode"], BUDGET_FRAMES,
+                          "frame")
+        k1["frame_ms"] = frame_ms
+        if kb == BUDGET_XCHECK:
+            xo = merged(SERVE_OVERRIDES, tpu,
+                        {"dataset": MODE_XCHECK_DATASET})
+            cross_check(xo, *build_models(load_config(overrides=xo)),
+                        frames[1], dev)
+        del dc, lidf, refine
+        torch.cuda.empty_cache()
+        # the bare stage-1 steps, each decode_bwd mode
+        for decode_bwd, expect in (
+                ("kernel_save", EXPECT_PER_STEP),
+                ("kernel", EXPECT_PER_STEP_KERNEL),
+                ("kernel_save_all", EXPECT_PER_STEP_SAVE_ALL),
+                ("xla", EXPECT_PER_STEP_XLA)):
+            cfg_t, model = train_mode_model(
+                dev, merged(TRAIN_OVERRIDES, tpu), decode_bwd)
+            assert model.pairs_budget == kb
+            recorded, launches, step_ms = train_path(
+                cfg_t, model, dev, expect=expect, steps=BUDGET_STEPS)
+            del model
             torch.cuda.empty_cache()
-            # the bare stage-1 steps, each decode_bwd mode
-            for decode_bwd, expect in (
-                    ("kernel_save", EXPECT_PER_STEP),
-                    ("kernel", EXPECT_PER_STEP_KERNEL),
-                    ("kernel_save_all", EXPECT_PER_STEP_SAVE_ALL),
-                    ("xla", EXPECT_PER_STEP_XLA)):
-                cfg_t, model = train_mode_model(
-                    dev, merged(TRAIN_OVERRIDES, tpu), decode_bwd)
-                assert model.pairs_budget == kb
-                recorded, launches, step_ms = train_path(cfg_t, model, dev,
-                                                         expect=expect)
-                del model
-                torch.cuda.empty_cache()
-                if decode_bwd == "kernel_save":
-                    train_calls[kb] = recorded
-                    got = train_kernel_phase(recorded)
-                    fwd, bwd = "ray_decode_save", "ray_decode_bwd"
-                elif decode_bwd == "kernel":
-                    k1["train"] = {k: v for k, v in add_launches(
-                        train_forward_row(recorded, dev),
-                        launches["ray_decode"], BUDGET_STEPS,
-                        "step").items() if k in WIDTH_KEYS}
-                    got = {"ray_decode_bwd_recompute":
-                           recompute_kernel_rows(recorded)}
-                    fwd, bwd = None, "ray_decode_bwd_recompute"
-                elif decode_bwd == "kernel_save_all":
-                    got = save_all_kernel_rows(recorded)
-                    fwd, bwd = "ray_decode_save_all", "ray_decode_bwd_all"
-                else:
-                    continue
-                if fwd:
-                    add_launches(got[fwd], launches[fwd], BUDGET_STEPS,
-                                 "step")
-                add_launches(got[bwd], launches["ray_decode_bwd"],
-                             BUDGET_STEPS, "step")
-                got[bwd]["step_ms"] = statistics.median(step_ms)
-                got[bwd]["repeat_bit_identical"] = k3_repeats(recorded)
-                log(f"kb {kb}: {bwd} twice on the recorded call: the same "
-                    f"bits")
-                for name, row in got.items():
-                    put(name, kb, row)
-                if decode_bwd != "kernel_save":
-                    del recorded
-                torch.cuda.empty_cache()
-            # stage 2 behind the frozen stage 1 at this budget
-            cfg_r = load_config(overrides=merged(REFINE_OVERRIDES, tpu))
-            lidf, refine = (m.to(dev) for m in build_models(cfg_r,
-                                                            train=True))
-            run2 = refine_train_path(cfg_r, lidf, refine, dev, BUDGET_STEPS,
-                                     label=f"kb {kb} stage 2")
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            calls = record_calls(
-                {"ray_decode": (lidf_mod, "ray_decode")},
-                lambda: run2["step"](run2["state"], run2["batches"][0], gen,
-                                     0))
-            row = budget_k1_row(calls, lidf, dev, STAGE2_K1_TOL, bite=False)
-            if STAGE2_BITE * row["tolerance"] > row["spread"]:
-                raise AssertionError(f"kb {kb} stage 2: K1's tolerance "
-                                     f"{row['tolerance']} is not "
-                                     f"{STAGE2_BITE}x below the outputs' "
-                                     f"spread {row['spread']}")
-            k1["stage2"] = {k: v for k, v in add_launches(
-                row, run2["launches"]["ray_decode"], BUDGET_STEPS,
-                "step").items() if k in WIDTH_KEYS}
-            k1["stage2"]["step_ms"] = run2["step_ms"]
-            put("ray_decode", kb, k1)
-            del lidf, refine, run2, calls
-            torch.cuda.empty_cache()
-            log(f"kb {kb}: {time.perf_counter() - t_kb:.1f} s")
-        t_alone = time.perf_counter()
-        lidf = build_models(load_config(overrides=SERVE_OVERRIDES))[0]
-        for kb, rows in budget_alone_rows(serve_calls, train_calls,
-                                          lidf.to(dev)).items():
-            for name, row in rows.items():
+            if decode_bwd == "kernel_save":
+                train_calls[kb] = recorded
+                got = train_kernel_phase(recorded, checks=BUDGET_CHECKS)
+                fwd, bwd = "ray_decode_save", "ray_decode_bwd"
+            elif decode_bwd == "kernel":
+                k1["train"] = {k: v for k, v in add_launches(
+                    train_forward_row(recorded, dev, checks=BUDGET_CHECKS),
+                    launches["ray_decode"], BUDGET_STEPS,
+                    "step").items() if k in WIDTH_KEYS}
+                got = {"ray_decode_bwd_recompute": recompute_kernel_rows(
+                    recorded, checks=BUDGET_CHECKS)}
+                fwd, bwd = None, "ray_decode_bwd_recompute"
+            elif decode_bwd == "kernel_save_all":
+                got = save_all_kernel_rows(recorded, checks=BUDGET_CHECKS)
+                fwd, bwd = "ray_decode_save_all", "ray_decode_bwd_all"
+            else:
+                continue
+            if fwd:
+                add_launches(got[fwd], launches[fwd], BUDGET_STEPS,
+                             "step")
+            add_launches(got[bwd], launches["ray_decode_bwd"],
+                         BUDGET_STEPS, "step")
+            got[bwd]["step_ms"] = statistics.median(step_ms)
+            got[bwd]["repeat_bit_identical"] = k3_repeats(recorded)
+            log(f"kb {kb}: {bwd} twice on the recorded call: the same "
+                f"bits")
+            for name, row in got.items():
                 put(name, kb, row)
-        log(f"kb {', '.join(map(str, BUDGET_ALONE))} alone: "
-            f"{time.perf_counter() - t_alone:.1f} s")
-    finally:
-        TRAIN_STEPS, time_ms, k3_passes = saved
+            if decode_bwd != "kernel_save":
+                del recorded
+            torch.cuda.empty_cache()
+        # stage 2 behind the frozen stage 1 at this budget
+        cfg_r = load_config(overrides=merged(REFINE_OVERRIDES, tpu))
+        lidf, refine = (m.to(dev) for m in build_models(cfg_r,
+                                                        train=True))
+        run2 = refine_train_path(cfg_r, lidf, refine, dev, BUDGET_STEPS,
+                                 label=f"kb {kb} stage 2")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        calls = record_calls(
+            {"ray_decode": (lidf_mod, "ray_decode")},
+            lambda: run2["step"](run2["state"], run2["batches"][0], gen,
+                                 0))
+        row = budget_k1_row(calls, lidf, dev, STAGE2_K1_TOL, bite=False)
+        if STAGE2_BITE * row["tolerance"] > row["spread"]:
+            raise AssertionError(f"kb {kb} stage 2: K1's tolerance "
+                                 f"{row['tolerance']} is not "
+                                 f"{STAGE2_BITE}x below the outputs' "
+                                 f"spread {row['spread']}")
+        k1["stage2"] = {k: v for k, v in add_launches(
+            row, run2["launches"]["ray_decode"], BUDGET_STEPS,
+            "step").items() if k in WIDTH_KEYS}
+        k1["stage2"]["step_ms"] = run2["step_ms"]
+        put("ray_decode", kb, k1)
+        del lidf, refine, run2, calls
+        torch.cuda.empty_cache()
+        log(f"kb {kb}: {time.perf_counter() - t_kb:.1f} s")
+    t_alone = time.perf_counter()
+    lidf = build_models(load_config(overrides=SERVE_OVERRIDES))[0]
+    for kb, rows in budget_alone_rows(serve_calls, train_calls,
+                                      lidf.to(dev)).items():
+        for name, row in rows.items():
+            put(name, kb, row)
+    log(f"kb {', '.join(map(str, BUDGET_ALONE))} alone: "
+        f"{time.perf_counter() - t_alone:.1f} s")
     del serve_calls, train_calls
     torch.cuda.empty_cache()
     t_cli = time.perf_counter()
@@ -5294,7 +5333,7 @@ def pair_train_phase(dev, workdir):
 # weights, bf16): W1 imnet_gf 48 (run at the compiled 64, zero units), W2
 # 128 (the single-buffered layout; K3 on tiles of 32 rows), W3 rgb_out 64
 # (crp 288), W4 roi_out_bbox 4 (crp 544; K4's and K6's rows 720 and 784
-# wide), W5 pnet_out 100 (the voxel table padded to 104 columns), W6
+# wide), W5 pnet_out 100 (the voxel table padded to 112 columns), W6
 # pnet_out 512 with multires 10 (kp 640; K6's rows 800 wide)
 MODEL_WIDTHS = {
     "W1": {"model": {"imnet_gf": 48}, "refine": {"imnet_gf": 48}},
@@ -5307,32 +5346,30 @@ MODEL_WIDTHS = {
 }
 # the configurations whose stage-1 steps also run twice, bit for bit
 MODEL_WIDTH_REPEAT = ("W2", "W6")
-# The randomized models at these widths spread their outputs less than the
-# default model's (an exploratory run with every check logged, NVIDIA H100,
-# bf16: the served K1's std 0.0315-0.0727 against the default's 0.050, the
-# step's K1 at W6 0.0097), while a bf16 flip of a hidden activation moves
-# an output by about what it does at the default width (K1 1.39e-3 -
-# 2.62e-3, K6 1.59e-3 - 3.00e-3, K4 0.98e-3 - 2.23e-3): the default
-# tolerances (TOL, TRAIN_TOL, grown with the depth below) each at least
-# MODEL_WIDTH_BITE times below the outputs' spread, STAGE2_BITE's rule (a
-# dropped layer or iteration moves most outputs by about the spread). K4 in the stage-2
-# step is held at its tolerance with its spread recorded, not bitten
-# (W2 0.0139, W5 0.0025: that step's refine outputs sit near one value);
-# the served frame's K4 call, spread 0.069-0.156, bites.
-MODEL_WIDTH_BITE = 5
-# ... and each forward kernel's bf16 tolerance (K1, K4, K6: TOL) grows
-# with the depth of the decode's widest product: every hidden
-# pre-activation is an f32 sum of k bf16 products, summed in another order
-# than the plain version's, so the two sums differ by ~sqrt(k) roundings
-# and straddle a bf16 rounding boundary (moving the activation by an ulp,
-# 2^-8 of it) ~sqrt(k) times as often. A width's tolerance is the
-# default's times sqrt(k / k at the default widths), not below it; k: K1
-# kp + crp (the pair's and the ray's part of layer 1) or 4g, K4 and K6
-# their row's kp or 4g, whichever is larger. K2's outputs and saves keep
-# TRAIN_TOL's: their readings (2.9e-4 - 8.5e-4 at W1-W6; the most at W5,
-# shallower than the default) do not grow with k
-DEPTH_DEFAULT = {"ray_decode": 240 + 160, "ief_decode": 336,
-                 "pair_decode": 400}
+# Phase 41's checks: bf16 alone (the cross-checks' f32, which takes
+# imnet_gf <= 64, is held by phases 26-29); phases 3, 7, 10 and 11's
+# tolerances (TOL, TRAIN_TOL), each lowered, where it does not lie BITE
+# times below the spread of the outputs it compares, to that spread over
+# BITE, and never raised. The randomized models at these widths spread
+# some outputs less than the default model's (NVIDIA H100 80GB HBM3, a run
+# with every check logged: the served K1's std 0.0315 at W3 against the
+# default's 0.050, K2's logit 0.0067 at W2), while a bf16 flip of a hidden
+# activation moves an output by a few hundredths of its spread at every
+# width (K1 0.023-0.080 of it, K2 0.015-0.057, K4 0.012-0.032, K6
+# 0.007-0.020). Timing: a call after one warm-up call, or the median of
+# BUDGET_REPS under BUDGET_SLOW_MS; no K3 passes, no K5 profile (phases 3
+# and 7: neither has a width).
+MODEL_WIDTH_CHECKS = Checks(dtypes=(torch.bfloat16,), cap=True, quick=True,
+                            warmup=1, profiled=())
+# K4's call in the stage-2 step is compared and its error and spread
+# recorded, not held: at W2 and W5 its outputs sit in the soft clamp's
+# flat part (mean 0.997 and 1.01, std 0.0139 and 0.0025), where an
+# activation's error passes at slope 1 while the spread is compressed, so
+# that no tolerance above the readings (W2 2.19e-3) lies BITE times below
+# the spread, and at W4 it read 5.11e-3, above TOL's 4e-3 (its std 0.112).
+# The served frame's K4 call holds K4 at every width (4e-3; std
+# 0.069-0.156), and the step's K4 gradient is held at phase 13's
+# tolerances.
 # what the kernels line keeps of a kernel's row at a width option
 MODEL_WIDTH_KEYS = WIDTH_KEYS + ("spread", "frame_ms", "step_ms", "widths",
                                  "grad", "train", "steps_bit_identical")
@@ -5348,7 +5385,8 @@ def model_widths(cfg):
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     m, r = cfg.model, cfg.refine
-    c_vox, c_end = (-(-c // 8) * 8 for c in (m.pnet_out, r.pnet_out))
+    c_vox, c_end = (-(-c // rd.VOX_MULTIPLE) * rd.VOX_MULTIPLE
+                    for c in (m.pnet_out, r.pnet_out))
     c_roi = m.rgb_out * m.roi_out_bbox ** 2
     kp = -(-(c_vox + 6 + 12 * m.multires) // 16) * 16
     crp = -(-(c_roi + posenc_dim(m.multires_views)) // 16) * 16
@@ -5364,23 +5402,6 @@ def model_widths(cfg):
                                    c_vox=c_vox)["rows_per_tile"]}
 
 
-def model_width_tols(widths):
-    """TOL and TRAIN_TOL with the bf16 tolerances of K1, K4 and K6 scaled
-    to the depth of their widest product at ``widths`` (``model_widths``),
-    as the comment on DEPTH_DEFAULT says."""
-    g4, g4r = 4 * widths["imnet_gf"][1], 4 * widths["refine_imnet_gf"][1]
-    depth = {"ray_decode": max(widths["kp"] + widths["crp"], g4),
-             "ief_decode": max(widths["k4_kp"], g4r),
-             "pair_decode": max(widths["k6_kp"], g4)}
-    scale = {k: max(1.0, math.sqrt(depth[k] / DEPTH_DEFAULT[k]))
-             for k in depth}
-    bf = torch.bfloat16
-    out = {**TOL, **TRAIN_TOL}
-    for name in depth:
-        out[(name, bf)] = TOL[(name, bf)] * scale[name]
-    return out
-
-
 def model_width_phase(dev):
     """Phase 41: the default model at each width option of MODEL_WIDTHS,
     through its entry points, in bf16: DepthCompleter.complete on a
@@ -5391,20 +5412,17 @@ def model_width_phase(dev):
     K3 1, K5 2) and one with kernel_save_all (K2 'all' 1, K3 1, K5 2),
     each after a recorded one; a stage-2 step behind the
     frozen stage 1 (K1 1, K4 2, K5 10). Each recorded call against its
-    plain version at phases 3, 7 and 10's tolerances grown with the depth
-    of its widest product (``model_width_tols``), MODEL_WIDTH_BITE times
-    below the outputs' spread (K4 in the step: the spread recorded; its
-    gradient at phase 13's tolerances); K3 twice
-    on each recorded call, the same bits; at MODEL_WIDTH_REPEAT two steps
-    twice bit for bit. Cuts: one counted frame or step a path; no f32 (the
-    cross-checks' type, which takes imnet_gf <= 64: phases 26-29 hold it).
+    plain version (MODEL_WIDTH_CHECKS: the tolerances of phases 3, 7, 10
+    and 11, each at least BITE times below the outputs' spread; K4 in the
+    step: recorded, its gradient at phase 13's tolerances); K3 twice on
+    each recorded call, the same bits; at MODEL_WIDTH_REPEAT two steps
+    twice bit for bit. Cuts: one counted frame or step a path; bf16 alone.
     Returns {kernel: {option: its row}}."""
-    global TRAIN_STEPS, time_ms, k3_passes, CHECK_DTYPES, device_ms, BITE
     from implicit_depth_torch.config import load_config
     from implicit_depth_torch.infer import DepthCompleter
 
     frames = make_frames(2, FRAME_HW)
-    bf = (torch.bfloat16,)
+    checks, tols = MODEL_WIDTH_CHECKS, {**TOL, **TRAIN_TOL}
     out = {}
 
     def put(name, w, row, widths):
@@ -5412,107 +5430,91 @@ def model_width_phase(dev):
         out.setdefault(name, {})[w] = {k: row[k] for k in MODEL_WIDTH_KEYS
                                        if k in row}
 
-    saved = TRAIN_STEPS, time_ms, k3_passes, CHECK_DTYPES, device_ms, BITE
-    full_time = time_ms
-    TRAIN_STEPS, CHECK_DTYPES, BITE = 1, bf, min(BITE, MODEL_WIDTH_BITE)
-
-    def time_ms(fn, warmup=2, reps=10):
-        once = full_time(fn, 0, 1)
-        return once if once > BUDGET_SLOW_MS else full_time(fn, 0,
-                                                            BUDGET_REPS)
-    # K3's passes and K5's profiler readings: phases 7 and 3 (no width)
-    k3_passes = lambda a, kw: None  # noqa: E731
-    device_ms = lambda fn, match, reps=100: (None, None)  # noqa: E731
-    try:
-        for w, opts in MODEL_WIDTHS.items():
-            t_w = time.perf_counter()
-            serve = merged(SERVE_OVERRIDES, opts)
-            cfg = load_config(overrides=serve)
-            widths = model_widths(cfg)
-            tols = model_width_tols(widths)
-            log(f"{w}: {opts}: {widths}; bf16 tolerances "
-                f"{ {k[0]: v for k, v in tols.items() if k[1] == torch.bfloat16} }")
-            lidf, refine = build_models(cfg)
-            dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
-            with torch.inference_mode():
-                rows = forward_rows(record_calls(
-                    kernel_modules(), lambda: dc.complete(*frames[0])), None,
-                    dev, tols)
-            launches, frame_ms = main_path(dc, frames[1:], cfg,
-                                           label=f"{w} main path")
-            for name, n in launches.items():
-                add_launches(rows[name], n, 1, "frame")
-            rows["ray_decode"]["frame_ms"] = frame_ms
-            del dc, lidf, refine
-            cfg_g = load_config(overrides=mode_overrides(serve, "global"))
-            lidf, refine = build_models(cfg_g)
-            dc = DepthCompleter(cfg_g, lidf=lidf, refine=refine, device=dev)
-            k6 = pair_kernel_rows(record_calls(
-                {"pair_decode": kernel_modules()["pair_decode"]},
-                lambda: dc.complete(*frames[0])), lidf, dev, tols)
-            launches, frame_ms = main_path(dc, frames[1:], cfg_g,
-                                           EXPECT_PER_MODE_FRAME,
-                                           f"{w} global mode")
-            rows["pair_decode"] = add_launches(k6, launches["pair_decode"], 1,
-                                               "frame")
-            rows["pair_decode"]["frame_ms"] = frame_ms
-            del dc, lidf, refine
+    for w, opts in MODEL_WIDTHS.items():
+        t_w = time.perf_counter()
+        serve = merged(SERVE_OVERRIDES, opts)
+        cfg = load_config(overrides=serve)
+        widths = model_widths(cfg)
+        log(f"{w}: {opts}: {widths}")
+        lidf, refine = build_models(cfg)
+        dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+        with torch.inference_mode():
+            rows = forward_rows(record_calls(
+                kernel_modules(), lambda: dc.complete(*frames[0])), None,
+                dev, tols, checks=checks)
+        launches, frame_ms = main_path(dc, frames[1:], cfg,
+                                       label=f"{w} main path")
+        for name, n in launches.items():
+            add_launches(rows[name], n, 1, "frame")
+        rows["ray_decode"]["frame_ms"] = frame_ms
+        del dc, lidf, refine
+        cfg_g = load_config(overrides=mode_overrides(serve, "global"))
+        lidf, refine = build_models(cfg_g)
+        dc = DepthCompleter(cfg_g, lidf=lidf, refine=refine, device=dev)
+        k6 = pair_kernel_rows(record_calls(
+            {"pair_decode": kernel_modules()["pair_decode"]},
+            lambda: dc.complete(*frames[0])), lidf, dev, tols, checks)
+        launches, frame_ms = main_path(dc, frames[1:], cfg_g,
+                                       EXPECT_PER_MODE_FRAME,
+                                       f"{w} global mode")
+        rows["pair_decode"] = add_launches(k6, launches["pair_decode"], 1,
+                                           "frame")
+        rows["pair_decode"]["frame_ms"] = frame_ms
+        del dc, lidf, refine
+        torch.cuda.empty_cache()
+        train = merged(TRAIN_OVERRIDES, opts)
+        for decode_bwd, expect in (
+                ("kernel_save", EXPECT_PER_STEP),
+                ("kernel", EXPECT_PER_STEP_KERNEL),
+                ("kernel_save_all", EXPECT_PER_STEP_SAVE_ALL)):
+            cfg_t, model = train_mode_model(dev, train, decode_bwd)
+            recorded, launches, step_ms = train_path(cfg_t, model, dev,
+                                                     expect=expect, steps=1)
+            if decode_bwd == "kernel_save":
+                got = train_kernel_phase(recorded, tols, checks)
+                fwd, bwd = "ray_decode_save", "ray_decode_bwd"
+            elif decode_bwd == "kernel_save_all":
+                got = save_all_kernel_rows(recorded, tols, checks)
+                fwd, bwd = "ray_decode_save_all", "ray_decode_bwd_all"
+            else:
+                got = {"ray_decode_bwd_recompute":
+                       recompute_kernel_rows(recorded, tols, checks)}
+                rows["ray_decode"]["train"] = {
+                    k: v for k, v in add_launches(
+                        train_forward_row(recorded, dev, tols, checks),
+                        launches["ray_decode"], 1, "step").items()
+                    if k in WIDTH_KEYS}
+                fwd, bwd = None, "ray_decode_bwd_recompute"
+            if fwd:
+                add_launches(got[fwd], launches[fwd], 1, "step")
+            add_launches(got[bwd], launches["ray_decode_bwd"], 1, "step")
+            got[bwd]["step_ms"] = statistics.median(step_ms)
+            got[bwd]["repeat_bit_identical"] = k3_repeats(recorded)
+            log(f"{w}: {bwd} twice on the recorded call: the same bits")
+            if decode_bwd == "kernel_save" and w in MODEL_WIDTH_REPEAT:
+                got[bwd]["steps_bit_identical"] = pair_repeat(
+                    cfg_t, model, dev, TRAIN_BATCH)
+                log(f"{w}: two steps twice: the same bits")
+            rows.update(got)
+            del model, recorded
             torch.cuda.empty_cache()
-            train = merged(TRAIN_OVERRIDES, opts)
-            for decode_bwd, expect in (
-                    ("kernel_save", EXPECT_PER_STEP),
-                    ("kernel", EXPECT_PER_STEP_KERNEL),
-                    ("kernel_save_all", EXPECT_PER_STEP_SAVE_ALL)):
-                cfg_t, model = train_mode_model(dev, train, decode_bwd)
-                recorded, launches, step_ms = train_path(cfg_t, model, dev,
-                                                         expect=expect)
-                if decode_bwd == "kernel_save":
-                    got = train_kernel_phase(recorded, tols)
-                    fwd, bwd = "ray_decode_save", "ray_decode_bwd"
-                elif decode_bwd == "kernel_save_all":
-                    got = save_all_kernel_rows(recorded, tols)
-                    fwd, bwd = "ray_decode_save_all", "ray_decode_bwd_all"
-                else:
-                    got = {"ray_decode_bwd_recompute":
-                           recompute_kernel_rows(recorded, tols)}
-                    rows["ray_decode"]["train"] = {
-                        k: v for k, v in add_launches(
-                            train_forward_row(recorded, dev, tols),
-                            launches["ray_decode"], 1, "step").items()
-                        if k in WIDTH_KEYS}
-                    fwd, bwd = None, "ray_decode_bwd_recompute"
-                if fwd:
-                    add_launches(got[fwd], launches[fwd], 1, "step")
-                add_launches(got[bwd], launches["ray_decode_bwd"], 1, "step")
-                got[bwd]["step_ms"] = statistics.median(step_ms)
-                got[bwd]["repeat_bit_identical"] = k3_repeats(recorded)
-                log(f"{w}: {bwd} twice on the recorded call: the same bits")
-                if decode_bwd == "kernel_save" and w in MODEL_WIDTH_REPEAT:
-                    got[bwd]["steps_bit_identical"] = pair_repeat(
-                        cfg_t, model, dev, TRAIN_BATCH)
-                    log(f"{w}: two steps twice: the same bits")
-                rows.update(got)
-                del model, recorded
-                torch.cuda.empty_cache()
-            cfg_r = load_config(overrides=merged(REFINE_OVERRIDES, opts))
-            lidf, refine = (m.to(dev) for m in build_models(cfg_r,
-                                                            train=True))
-            run2 = refine_train_path(cfg_r, lidf, refine, dev, 1,
-                                     label=f"{w} stage 2")
-            k4 = refine_k4_row(run2["recorded"], dev, dtypes=bf, bite=False,
-                               tols=tols)
-            rows["ief_decode"]["train"] = {
-                k: v for k, v in add_launches(
-                    k4, run2["launches"]["ief_decode"], 1, "step").items()
-                if k in MODEL_WIDTH_KEYS}
-            rows["ief_decode"]["train"]["step_ms"] = run2["step_ms"]
-            del lidf, refine, run2
-            torch.cuda.empty_cache()
-            for name, row in rows.items():
-                put(name, w, row, widths)
-            log(f"{w}: {time.perf_counter() - t_w:.1f} s")
-    finally:
-        TRAIN_STEPS, time_ms, k3_passes, CHECK_DTYPES, device_ms, BITE = saved
+        cfg_r = load_config(overrides=merged(REFINE_OVERRIDES, opts))
+        lidf, refine = (m.to(dev) for m in build_models(cfg_r,
+                                                        train=True))
+        run2 = refine_train_path(cfg_r, lidf, refine, dev, 1,
+                                 label=f"{w} stage 2")
+        k4 = refine_k4_row(run2["recorded"], dev, dtypes=checks.dtypes,
+                           tols=tols, checks=checks, held=False)
+        rows["ief_decode"]["train"] = {
+            k: v for k, v in add_launches(
+                k4, run2["launches"]["ief_decode"], 1, "step").items()
+            if k in MODEL_WIDTH_KEYS}
+        rows["ief_decode"]["train"]["step_ms"] = run2["step_ms"]
+        del lidf, refine, run2
+        torch.cuda.empty_cache()
+        for name, row in rows.items():
+            put(name, w, row, widths)
+        log(f"{w}: {time.perf_counter() - t_w:.1f} s")
     return out
 
 

@@ -42,6 +42,7 @@ from implicit_depth_torch.ops.masked import take_slot
 from implicit_depth_torch.ops.ray_decode import (
     ief_decode,
     ief_decode_train,
+    pad_columns,
     prep_ief_weights,
     split_ief_weights,
 )
@@ -121,9 +122,10 @@ class RefineModel(nn.Module):
         self._decode_w = PreparedWeights()
 
     def decode_operands(self) -> Tensors:
-        """K4's weight operands in the compute dtype, prepared once and
-        reused while the decoder parameters and the dtype stay unchanged
-        (serving and eval; detached)."""
+        """K4's weight operands in the compute dtype at the kernel's widths
+        (the end rows go with them padded to ``w["dims"][0]`` columns),
+        prepared once and reused while the decoder parameters and the
+        dtype stay unchanged (serving and eval; detached)."""
         return self._decode_w.get(
             (self.offset_dec,), self.dtype,
             lambda: prep_ief_weights(
@@ -220,7 +222,9 @@ class RefineModel(nn.Module):
             off = ief_decode_train(*rows, self.train_operands(), self.dtype,
                                    **kw)
         else:
-            off = ief_decode(*rows, self.decode_operands(), **kw)
+            w = self.decode_operands()
+            off = ief_decode(pad_columns(rows[0], w["dims"][0]), *rows[1:], w,
+                             **kw)
         return self._step(pred_pos, miss_dir, off)
 
     def _step(self, pred_pos, miss_dir, off):

@@ -47,11 +47,13 @@ import torch
 from implicit_depth_torch.models.embedder import posenc_dim
 from implicit_depth_torch.ops import cuda
 from implicit_depth_torch.ops.ray_decode import (
+    VOX_MULTIPLE,
     _PAD,
     _act,
     _aligned,
     _check_cuda,
     _check_plan,
+    _contiguous,
     _dot,
     _halves,
     _ief_loop,
@@ -65,6 +67,7 @@ from implicit_depth_torch.ops.ray_decode import (
     _squash,
     compiled_gf,
     decoder_gf,
+    pad_columns,
 )
 
 _MATRICES = ("w1", "off_w2", "off_w3", "off_w4", "prob_w2", "prob_w3",
@@ -166,11 +169,12 @@ def cast_pair_operands(w32: Dict[str, torch.Tensor],
 def prep_pair_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
                              c_roi: int, c_dir: int, multires: int,
                              dtype) -> Dict[str, torch.Tensor]:
-    """The kernel operands: :func:`pair_decode_weights` with the matrices
-    in ``dtype`` and the IEF's biases 2 and 3 rounded to it."""
-    return cast_pair_operands(pair_decode_weights(weights, c_vox, c_roi,
-                                                  c_dir, multires, dtype),
-                              dtype)
+    """The kernel operands: :func:`pair_decode_weights` at the kernel's
+    widths (:func:`pad_pair_operands`) with the matrices in ``dtype`` and
+    the IEF's biases 2 and 3 rounded to it; the voxel table goes with them
+    at ``pad_columns(table, w["dims"][0])``."""
+    return cast_pair_operands(pad_pair_operands(pair_decode_weights(
+        weights, c_vox, c_roi, c_dir, multires, dtype)), dtype)
 
 
 def _dense_slots(p: int, n_rays: int) -> int:
@@ -248,28 +252,27 @@ def pair_decode_plain(vox_table, cells, pos, ray_feat, w, rays=None, *,
                         init_offset, use_sigmoid, dtype or w["w1"].dtype)
 
 
-def pad_pair_operands(w, vox_table):
-    """K6's operands ``w`` (:func:`cast_pair_operands`) and the voxel table
-    at the kernel's widths: the decoders padded to :func:`compiled_gf`,
-    c_vox to a multiple of 8 (the table's columns and w1's voxel rows,
-    :func:`pair_layout` of the padded width). The same tensors where
-    nothing is padded."""
+def pad_pair_operands(w):
+    """K6's operands ``w`` (the f32 ones of :func:`pair_decode_weights`, or
+    their cast) at the kernel's widths: the decoders padded to
+    :func:`compiled_gf` with zero units, c_vox to a multiple of
+    ``VOX_MULTIPLE`` with zero voxel rows of w1 (:func:`pair_layout` of the
+    padded width; the table takes as many zero columns:
+    ``pad_columns``). ``w`` itself where nothing is padded."""
     c_vox, c_roi, c_dir, multires = w["dims"]
     g = w["b1"].shape[0] // 8
-    G, c8 = compiled_gf(g), _round_up(c_vox, 8)
-    if (g, c_vox) == (G, c8):
-        return w, vox_table
-    kp = pair_layout(c8, c_roi, c_dir, multires)["kp"]
-    out = dict(w, dims=(c8, c_roi, c_dir, multires))
-    out["w1"] = _halves(_insert_rows(w["w1"], c_vox, c8 - c_vox, kp),
+    G, cv = compiled_gf(g), _round_up(c_vox, VOX_MULTIPLE)
+    if (g, c_vox) == (G, cv):
+        return w
+    kp = pair_layout(cv, c_roi, c_dir, multires)["kp"]
+    out = dict(w, dims=(cv, c_roi, c_dir, multires))
+    out["w1"] = _halves(_insert_rows(w["w1"], c_vox, cv - c_vox, kp),
                         4 * g, 4 * G)
     out["b1"] = _halves(w["b1"], 4 * g, 4 * G)
     out["a_vec"] = _pad_to(w["a_vec"], (4 * G,))
     out["c_vec"] = _pad_to(w["c_vec"], (4 * G,))
     out.update(_pad_tails(w, ("off_", "prob_"), g, G))
-    out = {k: v.contiguous() if torch.is_tensor(v) else v
-           for k, v in out.items()}
-    return out, _pad_to(vox_table, (vox_table.shape[0], c8)).contiguous()
+    return _contiguous(out)
 
 
 def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
@@ -284,21 +287,18 @@ def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
                                 *(t for t in (rays, n_rows) if t is not None)],
                 dtype)
     for dec in ("off", "prob"):
-        decoder_gf("pair_decode", w["b1"].shape[0] // 2,
-                   w[f"{dec}_w2"].shape, w[f"{dec}_w3"].shape)
+        g = decoder_gf("pair_decode", w["b1"].shape[0] // 2,
+                       w[f"{dec}_w2"].shape, w[f"{dec}_w3"].shape)
     if vox_table.shape[1] != c_vox or ray_feat.shape[1] != c_roi + c_dir \
             or pos.shape != (p, 6) or cells.dim() != 1 or kp != lay["kp"] \
             or (rays is not None and rays.shape != (p,)) \
             or (n_rows is not None and n_rows.dim() != 0):
         raise ValueError("pair_decode: operand shapes do not match the weights")
-    if is_bf16 and kp - lay["o_pe"] > MAX_PE_COLS:
-        raise ValueError(f"pair_decode kernel takes at most {MAX_PE_COLS} "
-                         f"columns past the ray row in bf16 (got "
-                         f"{kp - lay['o_pe']})")
-    w, vox_table = pad_pair_operands(w, vox_table.to(dtype))
-    c_vox = w["dims"][0]
-    lay = pair_layout(*w["dims"])
-    kp, g = w["w1"].shape[0], w["b1"].shape[0] // 8
+    if is_bf16 and (c_vox % 8 or kp - lay["o_pe"] > MAX_PE_COLS):
+        raise ValueError(f"pair_decode kernel takes c_vox a multiple of 8 and "
+                         f"at most {MAX_PE_COLS} columns past the ray row in "
+                         f"bf16 (got c_vox={c_vox}, {kp - lay['o_pe']}; "
+                         "pad_pair_operands pads c_vox)")
     _check_plan("pair_decode", "K6", kp, 0, n_iter, is_bf16, p, g)
     if rays is None:
         slots = _dense_slots(p, ray_feat.shape[0])
@@ -464,13 +464,17 @@ def pair_decode_train(vox_table, cells, pos, ray_feat, w32, rays=None, *,
     ``w32``: the f32 operands from live parameters
     (:func:`pair_decode_weights`). CPU tensors take plain autograd through
     :func:`pair_decode_plain`; CUDA tensors take :class:`PairDecodeTrain`
-    (K6 forward, the chunked plain recompute backward), with no fallback."""
+    (K6 forward, the chunked plain recompute backward), with no fallback,
+    at the kernel's widths: the operands and the table are padded here,
+    under autograd, which drops the pads' gradients."""
     kw = dict(n_rows=n_rows, n_iter=n_iter, init_offset=init_offset,
               use_sigmoid=use_sigmoid)
     if cells.device.type == "cpu":
         return pair_decode_plain(vox_table, cells, pos, ray_feat,
                                  round_pair_biases(w32, dtype), rays,
                                  dtype=dtype, **kw)
+    w32 = pad_pair_operands(w32)
+    vox_table = pad_columns(vox_table, w32["dims"][0])
     return PairDecodeTrain.apply(
         (dtype, w32["dims"], n_iter, init_offset, use_sigmoid),
         vox_table, cells, pos, ray_feat, rays, n_rows,

@@ -33,23 +33,28 @@ CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ray_decode_bwd.cu``,
 ``csrc/ief_decode.cu``) for CUDA tensors, counting launches in
 ``<wrapper>.launches``. The ``global`` and dense stage-1 modes decode
 through ``ops/pair_decode.py`` (K6). The kernels are compiled for the
-decoder widths 4g-2g-g-1 of ``imnet_gf`` g in :data:`DECODER_GF`; the
-wrappers take any g from 1 to 128, read from the weights as the Pallas
-kernels read theirs (:func:`decoder_gf`), and run a g between two compiled
-widths at the next one (:func:`compiled_gf`), its weights padded with zero
-units: a padded unit's pre-activation is 0, LeakyReLU(0) = 0 and its row
-in the next layer is 0, so the outputs are those of the narrower decoder,
-and a padded gradient is sliced off. A voxel width (c_vox, c_end) that is
-not a multiple of 8 is padded the same way, with zero columns of the table
-and zero rows of layer 1. :func:`decode_plan` mirrors the forward kernels'
+decoder widths 4g-2g-g-1 of ``imnet_gf`` g in :data:`DECODER_GF`, read
+from the weights as the Pallas kernels read theirs (:func:`decoder_gf`).
+Any g from 1 to 128 runs at the next compiled width (:func:`compiled_gf`)
+by padding the operands once, where they are made: the serving operands
+(:func:`prep_ray_decode_weights`, :func:`prep_ief_weights`) and, on the
+card, the training entries (:func:`ray_decode_train`,
+:func:`ief_decode_train`), with zero units: a padded unit's pre-activation
+is 0, LeakyReLU(0) = 0 and its row in the next layer is 0, so the outputs
+are those of the narrower decoder. A voxel width (c_vox, c_end) is padded
+to a multiple of :data:`VOX_MULTIPLE` the same way, with zero rows of
+layer 1 and zero columns of the table (:func:`pad_columns`). The padding is
+slicing, concatenation and ``F.pad``, so under autograd the pads'
+gradients are dropped. :func:`decode_plan` mirrors the forward kernels'
 tiles, shared memory and weight schedule on the host
 (``csrc/decode_tile.cuh``), :func:`bwd_smem` K3's Pass A; the wrappers
-refuse widths they say do not fit, naming the limit.
+refuse widths they are not given at, naming the limit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict
 
@@ -123,10 +128,13 @@ def trig_block(pos6: torch.Tensor, multires: int) -> torch.Tensor:
 def prep_ray_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
                             c_roi: int, c_dir: int, multires: int,
                             dtype) -> Dict[str, torch.Tensor]:
-    """The kernel operands (:func:`split_ray_decode_weights` cast by
-    :func:`cast_ray_decode_operands`)."""
-    return cast_ray_decode_operands(split_ray_decode_weights(
-        weights, c_vox, c_roi, c_dir, multires, dtype), dtype)
+    """The kernel operands (:func:`split_ray_decode_weights` at the kernels'
+    widths, :func:`pad_ray_decode_operands`, cast by
+    :func:`cast_ray_decode_operands`); the voxel table goes with them at
+    ``pad_columns(table, w["dims"][0])``."""
+    return cast_ray_decode_operands(pad_ray_decode_operands(
+        split_ray_decode_weights(weights, c_vox, c_roi, c_dir, multires,
+                                 dtype)), dtype)
 
 
 _MATRICES = ("pair_w1", "ray_w1", "off_w2", "off_w3", "off_w4",
@@ -344,6 +352,13 @@ def decoder_gf(name: str, g1: int, w2_shape, w3_shape) -> int:
 
 # -- padding to the compiled widths (exact: zero units, zero columns) --------
 
+# the voxel width (c_vox, c_end) the operands are padded to a multiple of:
+# K1, K2, K4 and K6 take a multiple of 8 in bf16 (16-byte rows), K3's
+# d_rows product runs on the tensor cores at a multiple of 16 (another
+# multiple of 8 takes CUDA-core FMA); one multiple, so one padded table
+VOX_MULTIPLE = 16
+
+
 def _pad_to(t, shape):
     """``t`` with zeros appended along each dimension up to ``shape``."""
     pads = []
@@ -352,12 +367,18 @@ def _pad_to(t, shape):
     return F.pad(t, pads) if any(pads) else t
 
 
+def pad_columns(t, c):
+    """The rows ``t`` (rows, c0) with zero columns appended up to ``c``:
+    the voxel table or the end rows at their padded operands' width
+    ``w["dims"][0]``. ``t`` itself where c0 == c."""
+    return _pad_to(t, (t.shape[0], c))
+
+
 def _halves(t, g4, to):
     """The last dimension [off (g4) | prob (g4)] of ``t`` with each half
-    padded with zeros to ``to`` (or, ``to`` < ``g4``, cut to it)."""
+    padded with zeros to ``to``."""
     h = t.reshape(*t.shape[:-1], 2, g4)
-    h = _pad_to(h, (*h.shape[:-1], to)) if to >= g4 else h[..., :to]
-    return h.reshape(*t.shape[:-1], 2 * to).contiguous()
+    return _pad_to(h, (*h.shape[:-1], to)).reshape(*t.shape[:-1], 2 * to)
 
 
 def _pad_tails(w, prefixes, g, G):
@@ -373,18 +394,6 @@ def _pad_tails(w, prefixes, g, G):
     return out
 
 
-def _unpad_tails(d, prefixes, g):
-    """Gradients of :func:`_pad_tails`'s operands cut back to imnet_gf g."""
-    out = {}
-    for p in prefixes:
-        out[f"{p}w2"] = d[f"{p}w2"][:4 * g, :2 * g]
-        out[f"{p}b2"] = d[f"{p}b2"][:2 * g]
-        out[f"{p}w3"] = d[f"{p}w3"][:2 * g, :g]
-        out[f"{p}b3"] = d[f"{p}b3"][:g]
-        out[f"{p}w4"] = d[f"{p}w4"][:g]
-    return out
-
-
 def _insert_rows(w1, at, n_zero, rows):
     """``w1`` with ``n_zero`` zero rows inserted before row ``at`` (the
     columns a voxel width is padded by), its trailing zero rows then cut or
@@ -396,70 +405,33 @@ def _insert_rows(w1, at, n_zero, rows):
     return _pad_to(w, (rows, *w.shape[1:]))
 
 
-def _remove_rows(d, at, n_zero, rows):
-    """The converse of :func:`_insert_rows` on a gradient: the inserted
-    rows dropped, then cut or padded (zeros: rows of zero inputs) to
-    ``rows``."""
-    if n_zero:
-        d = torch.cat([d[:at], d[at + n_zero:]], 0)
-    d = d[:rows]
-    return _pad_to(d, (rows, *d.shape[1:]))
+def _contiguous(w):
+    return {k: v.contiguous() if torch.is_tensor(v) else v
+            for k, v in w.items()}
 
 
-def _k1_padding(w, multiple):
-    """(g, G, c_vox, c_vox padded) of K1/K2/K3's operands ``w``: the
-    decoders' imnet_gf and the compiled one, the voxel width and its
-    multiple of ``multiple``."""
-    c_vox = w["dims"][0]
+def pad_ray_decode_operands(w):
+    """K1/K2/K3's operands ``w`` (the f32 split of
+    :func:`split_ray_decode_weights`, or its cast) at the kernels' widths:
+    the decoders padded to :func:`compiled_gf` with zero units, c_vox to a
+    multiple of :data:`VOX_MULTIPLE` with zero voxel rows of pair_w1 (the
+    table takes as many zero columns: :func:`pad_columns`). ``w`` itself
+    where nothing is padded."""
+    c_vox, c_ray, multires = w["dims"]
     g = w["b1"].shape[0] // 8
-    return g, compiled_gf(g), c_vox, _round_up(c_vox, multiple)
-
-
-# the voxel width K1/K2 take (16-byte rows) and K3 (its d_rows product on
-# the tensor cores: a 16-multiple; another width takes CUDA-core FMA)
-VOX_MULTIPLE = {"K1": 8, "K3": 16}
-
-
-def pad_ray_decode_operands(w, vox_table, multiple):
-    """K1/K2/K3's operands ``w`` (:func:`cast_ray_decode_operands`) and the
-    voxel table at the kernels' widths: the decoders padded to
-    :func:`compiled_gf`, c_vox to a multiple of ``multiple`` (the table's
-    columns and pair_w1's voxel rows). The same tensors where nothing is
-    padded."""
-    g, G, c_vox, c8 = _k1_padding(w, multiple)
-    if (g, c_vox) == (G, c8):
-        return w, vox_table
-    _, c_ray, multires = w["dims"]
-    kp = _round_up(c8 + 6 + 12 * multires, _PAD)
-    out = dict(w, dims=(c8, c_ray, multires))
-    out["pair_w1"] = _halves(_insert_rows(w["pair_w1"], c_vox, c8 - c_vox,
+    G, cv = compiled_gf(g), _round_up(c_vox, VOX_MULTIPLE)
+    if (g, c_vox) == (G, cv):
+        return w
+    kp = _round_up(cv + 6 + 12 * multires, _PAD)
+    out = dict(w, dims=(cv, c_ray, multires))
+    out["pair_w1"] = _halves(_insert_rows(w["pair_w1"], c_vox, cv - c_vox,
                                           kp), 4 * g, 4 * G)
     out["ray_w1"] = _halves(w["ray_w1"], 4 * g, 4 * G)
     out["b1"] = _halves(w["b1"], 4 * g, 4 * G)
     out["a_vec"] = _pad_to(w["a_vec"], (4 * G,))
     out["c_vec"] = _pad_to(w["c_vec"], (4 * G,))
     out.update(_pad_tails(w, ("off_", "prob_"), g, G))
-    out = {k: v.contiguous() if torch.is_tensor(v) else v
-           for k, v in out.items()}
-    return out, _pad_to(vox_table, (vox_table.shape[0], c8)).contiguous()
-
-
-def unpad_ray_decode_grads(d_w, d_table, w, multiple):
-    """K3's gradients at :func:`pad_ray_decode_operands`' widths (voxel
-    width a multiple of ``multiple``) cut back to the operands ``w``'s:
-    the pads' gradients dropped."""
-    g, G, c_vox, c8 = _k1_padding(w, multiple)
-    if (g, c_vox) == (G, c8):
-        return d_w, d_table
-    out = dict(d_w)
-    out["pair_w1"] = _remove_rows(_halves(d_w["pair_w1"], 4 * G, 4 * g),
-                                  c_vox, c8 - c_vox, w["pair_w1"].shape[0])
-    out["ray_w1"] = _halves(d_w["ray_w1"], 4 * G, 4 * g)
-    out["b1"] = _halves(d_w["b1"], 4 * G, 4 * g)
-    out["a_vec"] = d_w["a_vec"][:4 * g]
-    out["c_vec"] = d_w["c_vec"][:4 * g]
-    out.update(_unpad_tails(d_w, ("off_", "prob_"), g))
-    return out, d_table[:, :c_vox]
+    return _contiguous(out)
 
 
 def _check_cuda(name, tensors, dtype):
@@ -662,12 +634,16 @@ def warp_grid(rows: int, n: int) -> dict:
             "active": wm * wn}
 
 
+@functools.lru_cache(maxsize=256)
 def _check_plan(name, kernel, kp, crp, n_iter, is_bf16, n, g=64, kb=8):
     """Raises unless the kernel takes these widths (at the compiled imnet_gf
-    ``g``), naming the limit; returns the plan."""
+    ``g``), naming the limit; returns the plan (not to be modified). Kept
+    per shape, so that a sub-millisecond launch (K4, K6 ``global``) does
+    not wait on the plan's host arithmetic every call."""
     if g not in DECODER_GF:
         raise ValueError(f"{name} kernel takes imnet_gf g in {DECODER_GF} "
-                         f"(got {g})")
+                         f"(got {g}; the operands' padding runs any g up to "
+                         f"{MAX_GF} at the next)")
     if kp > MAX_KP[kernel]:
         raise ValueError(f"{name} kernel takes layer-1 inputs kp up to "
                          f"{MAX_KP[kernel]} (got kp={kp})")
@@ -715,14 +691,16 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
             "all": "ray_decode_save_all"}[saves]
     vox_table, cells, pos, ray_feat = _decode_operands(
         name, vox_table, cells, pos, ray_feat, w)
-    g0 = w["b1"].shape[0] // 8  # the decoders' own imnet_gf
-    w, vox_table = pad_ray_decode_operands(w, vox_table, VOX_MULTIPLE["K1"])
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
     kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
     g = w["b1"].shape[0] // 8
     is_bf16 = dtype == torch.bfloat16
+    if is_bf16 and c_vox % 8:
+        raise ValueError(f"{name} kernel takes c_vox a multiple of 8 in "
+                         f"bf16 (got {c_vox}; pad_ray_decode_operands pads "
+                         "it)")
     _check_plan(name, "K2all" if saves == "all" else "K1", kp, crp, n_iter,
                 is_bf16, n, g, kb)
     dev = cells.device
@@ -750,12 +728,11 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
                   cuda.stream_ptr(dev)), name)
     if not saves:
         return off, logit
-    # the saves at the decoders' own widths (views past padded units)
-    saved = (outs[2][:, :4 * g0], outs[3][:, :4 * g0], outs[4])
+    saved = tuple(outs[2:5])
     if saves == "all":
         offs, h2s, h3s, logit_pre = outs[5:]
         for i in range(n_iter + 1):
-            saved += (offs[i], h2s[i][:, :2 * g0], h3s[i][:, :g0])
+            saved += (offs[i], h2s[i], h3s[i])
         saved += (logit_pre,)
     return off, logit, saved
 
@@ -1197,25 +1174,16 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
         "ray_decode_bwd", vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
-    multires = w["dims"][2]
-    dev = cells.device
-    saves = _bwd_saves(saved, n, kb, w["b1"].shape[0] // 2, multires, n_iter,
-                       dtype, dev)
-    w0, (w, vox_table) = w, pad_ray_decode_operands(w, vox_table,
-                                                    VOX_MULTIPLE["K3"])
     c_vox, c_ray, multires = w["dims"]
     g4 = w["b1"].shape[0] // 2
-    # the saves at the compiled widths (zero units past the decoders')
-    widths = (g4, g4, None, None, g4 // 2, g4 // 4, None)
-    saves = tuple(s if s is None or c is None
-                  else _pad_to(s, (*s.shape[:-1], c)).contiguous()
-                  for s, c in zip(saves, widths))
+    dev = cells.device
+    saves = _bwd_saves(saved, n, kb, g4, multires, n_iter, dtype, dev)
     kp, crp = w["pair_w1"].shape[0], w["ray_w1"].shape[0]
-    if c_vox > MAX_CVOX or kp > MAX_KP["K3"] or crp > MAX_CRP:
+    if c_vox % 8 or c_vox > MAX_CVOX or kp > MAX_KP["K3"] or crp > MAX_CRP:
         raise ValueError(f"ray_decode_bwd kernel takes c_vox up to "
-                         f"{MAX_CVOX}, kp up to {MAX_KP['K3']} and crp up "
-                         f"to {MAX_CRP} (got c_vox={c_vox}, kp={kp}, "
-                         f"crp={crp})")
+                         f"{MAX_CVOX} (a multiple of 8), kp up to "
+                         f"{MAX_KP['K3']} and crp up to {MAX_CRP} (got "
+                         f"c_vox={c_vox}, kp={kp}, crp={crp})")
     g = torch.stack([g_off.float(), g_logit.float()], -1).contiguous()
     if g.shape != (n, kb, 2):
         raise ValueError("ray_decode_bwd: cotangents must be (N, kb)")
@@ -1266,8 +1234,6 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
         d_table.zero_()
     grads = {k: d_w[o:o + math.prod(shape)].view(shape)
              for k, (o, shape) in layout.items() if k != "total"}
-    grads, d_table = unpad_ray_decode_grads(grads, d_table, w0,
-                                            VOX_MULTIPLE["K3"])
     return d_table, d_rf, grads
 
 
@@ -1345,7 +1311,9 @@ def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
     (:func:`split_ray_decode_weights`, never the serving cache). CPU tensors
     take plain autograd through :func:`ray_decode_plain` (every
     ``decode_bwd`` mode); CUDA tensors take :class:`RayDecodeTrain`, which
-    implements each of ``DECODE_BWD_MODES``."""
+    implements each of ``DECODE_BWD_MODES``, at the kernels' widths: the
+    operands and the table are padded here, under autograd, which drops
+    the pads' gradients."""
     if decode_bwd not in DECODE_BWD_MODES:
         raise ValueError(f"decode_bwd {decode_bwd!r}")
     if cells.device.type == "cpu":
@@ -1353,6 +1321,8 @@ def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
         return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
                                 n_iter=n_iter, init_offset=init_offset,
                                 use_sigmoid=use_sigmoid, dtype=dtype)
+    w32 = pad_ray_decode_operands(w32)
+    vox_table = pad_columns(vox_table, w32["dims"][0])
     return RayDecodeTrain.apply(
         (dtype, w32["dims"], n_iter, init_offset, use_sigmoid, decode_bwd),
         vox_table, cells, pos, ray_feat, *(w32[k] for k in _K1_WEIGHTS))
@@ -1404,10 +1374,11 @@ def cast_ief_operands(w: Dict[str, torch.Tensor],
 
 def prep_ief_weights(weights: Dict[str, torch.Tensor], c_end: int, c_rc: int,
                      c_pos: int, c_dir: int, dtype) -> Dict[str, torch.Tensor]:
-    """The kernel operands (:func:`split_ief_weights` cast by
-    :func:`cast_ief_operands`)."""
-    return cast_ief_operands(split_ief_weights(weights, c_end, c_rc, c_pos,
-                                               c_dir, dtype), dtype)
+    """The kernel operands (:func:`split_ief_weights` at the kernel's
+    widths, :func:`pad_ief_operands`, cast by :func:`cast_ief_operands`);
+    the end rows go with them at ``pad_columns(end, w["dims"][0])``."""
+    return cast_ief_operands(pad_ief_operands(split_ief_weights(
+        weights, c_end, c_rc, c_pos, c_dir, dtype)), dtype)
 
 
 def ief_decode_plain(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
@@ -1422,26 +1393,26 @@ def ief_decode_plain(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
                    use_sigmoid)
 
 
-def pad_ief_operands(w, end_rows):
-    """K4's operands ``w`` (:func:`cast_ief_operands`) and the end rows at
-    the kernel's widths: the decoder padded to :func:`compiled_gf`, c_end
-    to a multiple of 8 (the end rows' columns and w1's end rows). The same
-    tensors where nothing is padded."""
+def pad_ief_operands(w):
+    """K4's operands ``w`` (the f32 split of :func:`split_ief_weights`, or
+    its cast) at the kernel's widths: the decoder padded to
+    :func:`compiled_gf` with zero units, c_end to a multiple of
+    :data:`VOX_MULTIPLE` with zero end rows of w1 (the end rows take as
+    many zero columns: :func:`pad_columns`). ``w`` itself where nothing is
+    padded."""
     c_end, c_rc, c_pos = w["dims"]
     g = w["w1"].shape[1] // 4
-    G, c8 = compiled_gf(g), _round_up(c_end, 8)
-    if (g, c_end) == (G, c8):
-        return w, end_rows
-    kp = _round_up(c8 + c_rc + c_pos, _PAD)
-    out = dict(w, dims=(c8, c_rc, c_pos))
-    out["w1"] = _pad_to(_insert_rows(w["w1"], c_end, c8 - c_end, kp),
+    G, ce = compiled_gf(g), _round_up(c_end, VOX_MULTIPLE)
+    if (g, c_end) == (G, ce):
+        return w
+    kp = _round_up(ce + c_rc + c_pos, _PAD)
+    out = dict(w, dims=(ce, c_rc, c_pos))
+    out["w1"] = _pad_to(_insert_rows(w["w1"], c_end, ce - c_end, kp),
                         (kp, 4 * G))
     for k in ("b1", "a_vec", "c_vec"):
         out[k] = _pad_to(w[k], (4 * G,))
     out.update(_pad_tails(w, ("",), g, G))
-    out = {k: v.contiguous() if torch.is_tensor(v) else v
-           for k, v in out.items()}
-    return out, _pad_to(end_rows, (end_rows.shape[0], c8)).contiguous()
+    return _contiguous(out)
 
 
 def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
@@ -1451,18 +1422,19 @@ def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
     c_end, c_rc, c_pos = w["dims"]
     _check_cuda("ief_decode", [end_rows, rc_rows, pos_rows,
                                *(w[k] for k in _K4_WEIGHTS)], dtype)
-    decoder_gf("ief_decode", w["w1"].shape[1], w["w2"].shape, w["w3"].shape)
+    g = decoder_gf("ief_decode", w["w1"].shape[1], w["w2"].shape,
+                   w["w3"].shape)
     if end_rows.shape != (n, c_end) or rc_rows.shape != (n, c_rc) \
             or pos_rows.shape != (n, c_pos):
         raise ValueError("ief_decode: operand shapes do not match the weights")
     is_bf16 = dtype == torch.bfloat16
-    end_rows, rc_rows, pos_rows = (_aligned(t.to(dtype).contiguous())
-                                   for t in (end_rows, rc_rows, pos_rows))
-    w, end_rows = pad_ief_operands(w, end_rows)
-    c_end = w["dims"][0]
-    g = w["w1"].shape[1] // 4
+    if is_bf16 and c_end % 8:
+        raise ValueError(f"ief_decode kernel takes c_end a multiple of 8 in "
+                         f"bf16 (got {c_end}; pad_ief_operands pads it)")
     _check_plan("ief_decode", "K4", w["w1"].shape[0], 0, n_iter, is_bf16, n,
                 g)
+    end_rows, rc_rows, pos_rows = (_aligned(t.to(dtype).contiguous())
+                                   for t in (end_rows, rc_rows, pos_rows))
     out = torch.empty((n,), dtype=torch.float32, device=end_rows.device)
     ptrs = cuda.ptr_array([end_rows, rc_rows, pos_rows,
                            *(w[k] for k in _K4_WEIGHTS), out])
@@ -1554,12 +1526,16 @@ def ief_decode_train(end_rows, rc_rows, pos_rows, w32, dtype, *, n_iter=2,
     ``w32``: the f32 split operands from live parameters
     (:func:`split_ief_weights`, never the serving cache). CPU tensors take
     plain autograd through :func:`ief_decode_plain`; CUDA tensors take
-    :class:`IefDecodeTrain` (K4 forward, the plain recompute backward)."""
+    :class:`IefDecodeTrain` (K4 forward, the plain recompute backward) at
+    the kernel's widths: the operands and the end rows are padded here,
+    under autograd, which drops the pads' gradients."""
     kw = dict(n_iter=n_iter, init_offset=init_offset, use_sigmoid=use_sigmoid)
     if end_rows.device.type == "cpu":
         return ief_decode_plain(end_rows, rc_rows, pos_rows,
                                 _ief_train_operands(w32, dtype), dtype=dtype,
                                 **kw)
+    w32 = pad_ief_operands(w32)
+    end_rows = pad_columns(end_rows, w32["dims"][0])
     return IefDecodeTrain.apply(
         (dtype, w32["dims"], n_iter, init_offset, use_sigmoid),
         end_rows, rc_rows, pos_rows, *(w32[k] for k in _K4_WEIGHTS))

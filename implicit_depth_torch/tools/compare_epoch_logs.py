@@ -6,10 +6,12 @@ by epoch: two ``epoch_log.jsonl`` files as the trainers write them
 For every epoch that both runs validated, each split's a1 (delta < 1.05)
 and rmse (m) are printed side by side. Then the rule: the run *tracks* the
 reference when, on every split and over those common epochs,
-  - its lowest rmse is at most ``--rmse_factor`` (1.15) times the
+  - its lowest rmse is at most ``RMSE_FACTOR`` (1.15) times the
     reference's lowest, and
-  - its highest a1 is at least ``--a1_factor`` (0.75) times the
+  - its highest a1 is at least ``A1_FACTOR`` (0.75) times the
     reference's highest.
+The two factors were fixed before the port's comparison run (PERF.md §6)
+and are not options, so a verdict cannot be re-decided afterwards.
 The exit code is 0 when it tracks, 1 when it does not (2: no common
 validated epoch).
 
@@ -23,6 +25,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+RMSE_FACTOR = 1.15
+A1_FACTOR = 0.75
 
 
 def read_valid(path):
@@ -41,7 +46,7 @@ def read_valid(path):
     return out
 
 
-def compare(run, ref, rmse_factor=1.15, a1_factor=0.75):
+def compare(run, ref):
     """The side-by-side rows and the rule's checks. ``run`` and ``ref`` are
     ``read_valid``'s dicts. Returns (epochs, splits, checks, tracks):
     ``checks`` one dict a split with both runs' extremes, the limits and
@@ -57,10 +62,10 @@ def compare(run, ref, rmse_factor=1.15, a1_factor=0.75):
         ref_a1 = max(ref[e][s]["a1"] for e in epochs)
         checks.append({
             "split": s, "rmse": run_rmse, "ref_rmse": ref_rmse,
-            "rmse_limit": rmse_factor * ref_rmse,
-            "rmse_ok": run_rmse <= rmse_factor * ref_rmse,
-            "a1": run_a1, "ref_a1": ref_a1, "a1_limit": a1_factor * ref_a1,
-            "a1_ok": run_a1 >= a1_factor * ref_a1})
+            "rmse_limit": RMSE_FACTOR * ref_rmse,
+            "rmse_ok": run_rmse <= RMSE_FACTOR * ref_rmse,
+            "a1": run_a1, "ref_a1": ref_a1, "a1_limit": A1_FACTOR * ref_a1,
+            "a1_ok": run_a1 >= A1_FACTOR * ref_a1})
     tracks = bool(checks) and all(c["rmse_ok"] and c["a1_ok"]
                                   for c in checks)
     return epochs, splits, checks, tracks
@@ -71,13 +76,10 @@ def main(argv=None):
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("run", help="the run's epoch_log.jsonl")
     ap.add_argument("ref", help="the reference's epoch_log.jsonl")
-    ap.add_argument("--rmse_factor", type=float, default=1.15)
-    ap.add_argument("--a1_factor", type=float, default=0.75)
     args = ap.parse_args(argv)
 
     run, ref = read_valid(args.run), read_valid(args.ref)
-    epochs, splits, checks, tracks = compare(run, ref, args.rmse_factor,
-                                             args.a1_factor)
+    epochs, splits, checks, tracks = compare(run, ref)
     if not epochs:
         print("no epoch validated in both logs")
         return 2
@@ -92,9 +94,9 @@ def main(argv=None):
         print(f"| {e} | " + " | ".join(cells) + " |")
     for c in checks:
         print(f"{c['split']}: lowest rmse {c['rmse']:.4f} against "
-              f"{c['rmse_limit']:.4f} ({args.rmse_factor} x {c['ref_rmse']:.4f})"
+              f"{c['rmse_limit']:.4f} ({RMSE_FACTOR} x {c['ref_rmse']:.4f})"
               f" {'ok' if c['rmse_ok'] else 'MISSED'}; highest a1 "
-              f"{c['a1']:.4f} against {c['a1_limit']:.4f} ({args.a1_factor} x "
+              f"{c['a1']:.4f} against {c['a1_limit']:.4f} ({A1_FACTOR} x "
               f"{c['ref_a1']:.4f}) {'ok' if c['a1_ok'] else 'MISSED'}")
     print(json.dumps({"epochs": epochs, "tracks": tracks, "checks": checks}))
     print("verdict: the run tracks the reference" if tracks else

@@ -101,7 +101,8 @@ def _pair_case(rng, dev, dtype, p, n_rays, indexed, cv=128, c_roi=128,
         w[f"{pre}b4"] = np.full((1,), bias)
     pw = pd.prep_pair_decode_weights({k: _t(v, dev) for k, v in w.items()},
                                      cv, c_roi, c_dir, multires, DTYPES[dtype])
-    return (_t(rng.normal(size=(30, cv)), dev, DTYPES[dtype]),
+    return (rd.pad_columns(_t(rng.normal(size=(30, cv)), dev, DTYPES[dtype]),
+                           pw["dims"][0]),
             _t(rng.integers(0, 30, p), dev, torch.int32),
             _t(0.6 * rng.normal(size=(p, 6)), dev),
             _t(rng.normal(size=(n_rays, c_roi + c_dir)), dev, DTYPES[dtype]),
@@ -227,7 +228,10 @@ def test_depth_completer_card_matches_cpu(dev):
 # -- stage-1 training: K2, K3, the K5 gradient, a train step ------------------
 
 def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
-                 n_table=30, gf=64, kb=8, multires=8):
+                 n_table=30, gf=64, kb=8, multires=8, pad=True):
+    """K1/K2/K3's f32 operands (the default widths unless given), at the
+    kernels' widths with ``pad`` (``pad_ray_decode_operands``, the table
+    with zero columns as the model pads it), the inputs and cotangents."""
     c_embed = cv + c_roi + 6 * (1 + 2 * multires) + c_dir
     w = {"off_enc_w": rng.normal(size=(1, 16)),
          "off_enc_b": 0.1 * rng.normal(size=(16,))}
@@ -239,7 +243,10 @@ def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
     w32 = rd.split_ray_decode_weights({k: _t(v, dev) for k, v in w.items()},
                                       cv, c_roi, c_dir, multires,
                                       DTYPES[dtype])
-    args = (_t(rng.normal(size=(n_table, cv)), dev),
+    if pad:
+        w32 = rd.pad_ray_decode_operands(w32)
+    args = (rd.pad_columns(_t(rng.normal(size=(n_table, cv)), dev),
+                           w32["dims"][0]),
             _t(rng.integers(0, n_table, (n, kb)), dev, torch.int32),
             _t(0.6 * rng.normal(size=(n, kb, 6)), dev),
             _t(rng.normal(size=(n, c_roi + c_dir)), dev, DTYPES[dtype]))
@@ -272,8 +279,9 @@ def _ief_case(rng, dev, dtype, n, c_end=128, c_rc=155, gf=64):
     _mlp_weights(rng, "", c_end + c_rc + c_pos + 16, 4 * gf, w)
     pw = rd.prep_ief_weights({k: _t(v, dev) for k, v in w.items()}, c_end,
                              c_rc, c_pos, c_dir, DTYPES[dtype])
-    return tuple(_t(rng.normal(size=(n, c)), dev, DTYPES[dtype])
-                 for c in (c_end, c_rc, c_pos)), pw
+    end, rc, pos = (_t(rng.normal(size=(n, c)), dev, DTYPES[dtype])
+                    for c in (c_end, c_rc, c_pos))
+    return (rd.pad_columns(end, pw["dims"][0]), rc, pos), pw
 
 
 def _save_close(got, want, dtype):
@@ -597,7 +605,8 @@ def test_ray_decode_bwd_at_every_width(dev, dtype, gf, saves_of,
 # the reference's model options (chip_smoke.py phase 41) at the kernels'
 # operand widths: imnet_gf (W1 48, run at 64; W2 128), the per-ray roi
 # features rgb_out * roi_out_bbox^2 (W3 64 * 4, W4 32 * 16), the voxel
-# width pnet_out (W5 100, padded to 104; W6 512) with multires (W6 10)
+# width pnet_out (W5 100, padded to 112; W6 512) with multires (W6 10); the
+# operands padded where they are made (_decode_case, _pair_case, _ief_case)
 MODEL_WIDTHS = {"W1": {"gf": 48}, "W2": {"gf": 128}, "W3": {"c_roi": 256},
                 "W4": {"c_roi": 512}, "W5": {"cv": 100},
                 "W6": {"cv": 512, "multires": 10}}
@@ -694,9 +703,10 @@ def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev, case,
     instances), K4 and K6 take the widths of the reference's options, each
     against its plain version in bf16 and f32, at this file's tolerances
     (imnet_gf 128 in f32: K1's, K3's and K6's blocks do not fit, and each
-    names its limit; K4's fits). Past the limits every wrapper refuses,
-    naming the limit: imnet_gf 136, kp 656, crp 560, c_vox 520 (K3), K4's
-    and K6's rows 960, and at imnet_gf 128 a kp whose block does not
+    names its limit; K4's fits). Past the limits each refuses, naming the
+    limit: imnet_gf 136 (K1-K3's wrappers; K4's and K6's operands, padded
+    where they are made), kp 672, crp 560, c_vox 528 (K3), K4's and K6's
+    rows 960 and 976, and at imnet_gf 128 a kp whose block does not
     fit."""
     monkeypatch.setattr(rd, "K3_CHUNK_RAYS", 1500)
     monkeypatch.setattr(rd, "K3_SPLIT_ROWS", 1000)
@@ -727,27 +737,29 @@ def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev, case,
             _close(got, rd.ief_decode_plain(*rows, pw), ATOL[dtype])
         return
 
-    def k1_calls(**wd):
-        w32, args, cot = _decode_case(rng, dev, "bfloat16", n=10, **wd)
+    def k1_calls(pad=True, **wd):
+        w32, args, cot = _decode_case(rng, dev, "bfloat16", n=10, pad=pad,
+                                      **wd)
         w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
         return [lambda f=f: f(*args, w) for f in (
             rd.ray_decode, rd.ray_decode_save, rd.ray_decode_save_all)] + [
             lambda: rd.ray_decode_bwd(*args, w, None, *cot)]
 
-    _refuses("1 to 128", *k1_calls(gf=136),
+    _refuses("1 to 128", *k1_calls(pad=False, gf=136),
              lambda: rd.ief_decode(*_ief_case(rng, dev, "bfloat16", 10,
                                               gf=136)[0],
                                    _ief_case(rng, dev, "bfloat16", 10,
                                              gf=136)[1]),
              lambda: pd.pair_decode(*_pair_case(rng, dev, "bfloat16", 40, 2,
                                                 True, gf=136)))
-    # kp 656: c_vox 554 with multires 8
+    # kp 672: c_vox 554 (padded to 560) with multires 8
     _refuses("kp up to 640", *k1_calls(cv=554))
     # crp 560: roi 533 + dir_e 27
     _refuses("crp up to 544", *k1_calls(c_roi=533))
-    # K3's d_rows tile: c_vox 520 (kp 624 with multires 8)
+    # K3's d_rows tile: c_vox 520 (padded to 528; kp 640 with multires 8)
     _refuses("c_vox up to 512", k1_calls(cv=520)[-1])
-    # K4's and K6's rows 960: c_end 752 (+ 155 + 51), c_vox 696 (+ 160 + 102)
+    # K4's and K6's rows 960 and 976: c_end 752 (+ 155 + 51), c_vox 696
+    # (padded to 704; + 160 + 102)
     _refuses("kp up to 944", lambda: rd.ief_decode(*_ief_case(
         np.random.default_rng(1), dev, "bfloat16", 10, c_end=752)[0],
         _ief_case(np.random.default_rng(1), dev, "bfloat16", 10,
