@@ -301,7 +301,18 @@ Phases:
      (MODEL_WIDTH_CHECKS; K4's call in the stage-2 step recorded, not
      held: the served call holds K4); K3 twice on each call the same bits; two steps twice bit for bit at W2
      and W6. Each kernel's row carries its widths (``at_model_widths``).
-     Then the seconds of phases 2-41, of 33-35, of 36-38, of 39, 40, 41.
+ 42. the widest widths: phase 41's runs (the dense mode beside
+     ``global``) at W7, every width option at its extreme at once
+     (WIDEST_WIDTHS: imnet_gf 128, pnet_out 512, multires 10, rgb_out 64,
+     roi_out_bbox 4; refine imnet_gf 128, pnet_out 512: kp 640, crp 1056,
+     K4's rows 1616, K6's 1696, the chunked bf16 layout, K3's Pass A on
+     16 rows), in bf16 and with the model computing in f32, and at W2 in
+     f32 (the f32 instances on blocks of 16 rows), each kernel held to its
+     plain version in the model's type (width_checks); two W7 bf16 steps
+     twice bit for bit. The rows go under ``at_model_widths`` ("W7",
+     "W7 f32", "W2 f32").
+     Then the seconds of phases 2-42, of 33-35, of 36-38, of 39, 40, 41,
+     42.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -544,12 +555,17 @@ class Checks(NamedTuple):
     one call after ``warmup`` calls where that call took over
     BUDGET_SLOW_MS, else the median of BUDGET_REPS calls after it
     (otherwise ``time_ms``'s medians); ``profiled``, the types in which
-    K3's passes and K5's profiler readings are taken."""
+    K3's passes and K5's profiler readings are taken; ``per_output``: a
+    forward kernel's outputs each held to the tolerance its own spread
+    gives (over the rows decoded), as ``row_checks`` holds K2's, where
+    without it their largest error is held to the tolerance of their least
+    spread."""
     dtypes: tuple = (torch.bfloat16, torch.float32)
     cap: bool = False
     quick: bool = False
     warmup: int = 0
     profiled: tuple = (torch.bfloat16, torch.float32)
+    per_output: bool = False
 
     def time(self, fn, warmup=2, reps=10):
         if not self.quick:
@@ -836,14 +852,25 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True,
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
-            err = max((g.float() - r.float()).abs().max().item()
-                      for g, r in zip(got, ref))
+            errs = [(g.float() - r.float()).abs().max().item()
+                    for g, r in zip(got, ref)]
+            err = max(errs)
             # typical size and least spread of the outputs compared
             typical = max(r.float().abs().mean().item() for r in ref)
-            spread = min(r.float().std().item() for r in ref)
-            tol = checks.tol(tols[(name, dt)], spread) if held else None
+            if checks.per_output:
+                # each output against its own spread, over the rows decoded
+                # (K6's rows past its count are 0 in both)
+                live = int(kw["n_rows"].item()) if kw.get(
+                    "n_rows") is not None else None
+                spreads = [r[:live].float().std().item() for r in ref]
+            else:  # every output against the least spread
+                spreads = [min(r.float().std().item() for r in ref)] * len(ref)
+            spread = min(spreads)
+            tol_of = [checks.tol(tols[(name, dt)], sp) for sp in spreads]
+            tol = (tol_of if checks.per_output else tol_of[0]) if held \
+                else None
             ok = all(torch.isfinite(g).all() for g in got) and (
-                not held or err <= tol)
+                not held or all(e <= t for e, t in zip(errs, tol_of)))
             ms = time_ms(lambda: kern(*a, **kw))
             plain_ms = time_ms(lambda: plain[name](*a, **kw))
             lib_ms, extra = None, {}
@@ -870,6 +897,8 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True,
                     lambda: table.scatter_reduce_(0, idx, src, "amax"),
                     "scatter")[0] if dt in checks.profiled else None
             b_ms, b_by, flops, byt = bound(name, a, dt, rows=rows)
+            if checks.per_output:
+                extra = {"errors": errs, "spreads": spreads, **extra}
             row = {"name": name, "dtype": str(dt).split(".")[-1],
                    "shape": [list(s) for s in shape], "max_abs_err": err,
                    "tolerance": tol, "typical_abs": typical,
@@ -887,10 +916,11 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True,
             if not ok:
                 raise AssertionError(f"{name} {dt}: kernel disagrees with its "
                                      f"plain version: {err} > {tol}")
-            if held and bite and BITE * tol > spread:
+            if held and bite and any(BITE * t > sp
+                                     for t, sp in zip(tol_of, spreads)):
                 raise AssertionError(f"{name} {dt}: tolerance {tol} is not "
                                      f"{BITE}x below the outputs' spread "
-                                     f"{spread}")
+                                     f"{spreads}")
             if name == "segment_max0":  # every shape's times, for the record
                 by_shape.setdefault(name, []).append(
                     {k: row[k] for k in ("shape", "dtype", "ms", "library_ms",
@@ -1175,7 +1205,7 @@ def bwd_checks(name, dt, got, ref, tol, floors):
 def train_kernel_phase(recorded, tols=TRAIN_TOL, checks=CHECKS):
     """K2 and K3 at the recorded training shapes, in bf16 (as recorded) and
     f32 (``checks.dtypes``): kernel vs plain, times, bounds. Returns each
-    kernel's bf16 row."""
+    kernel's row in the first of ``checks.dtypes``."""
     from implicit_depth_torch.ops import ray_decode as rd
 
     w32 = recorded["f32_operands"]
@@ -1246,7 +1276,7 @@ def train_kernel_phase(recorded, tols=TRAIN_TOL, checks=CHECKS):
                    "bytes": byt, **extra}
             log(f"kernel {name} {row['dtype']} {row['shape']}: ms {ms:.4f} "
                 f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
-            if dt == torch.bfloat16:
+            if dt == checks.dtypes[0]:
                 rows[name] = row
         del a3, k3, p3, exact, got, ref
         torch.cuda.empty_cache()
@@ -1644,7 +1674,8 @@ def recompute_kernel_rows(recorded, tols=TRAIN_TOL, checks=CHECKS):
     """Phase 10's kernel check: K3's recompute instance (``saved=None``) on
     the recorded training inputs against ``ray_decode_bwd_plain(saved=None)``
     in bf16 (as recorded) and f32, by the relative norm of each gradient's
-    difference; times, bound. Returns its bf16 row."""
+    difference; times, bound. Returns its row in the first of
+    ``checks.dtypes``."""
     from implicit_depth_torch.ops import ray_decode as rd
 
     w32 = recorded["f32_operands"]
@@ -1678,7 +1709,7 @@ def recompute_kernel_rows(recorded, tols=TRAIN_TOL, checks=CHECKS):
         log(f"kernel ray_decode_bwd_recompute {dtn}: ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
         passes = k3_passes(a, kw) if dt in checks.profiled else None
-        if dt == torch.bfloat16:
+        if dt == checks.dtypes[0]:
             out = {"name": "ray_decode_bwd_recompute", "dtype": dtn,
                    "shape": [list(cells.shape)], "max_abs_err": err,
                    "max_rel_err": worst[1], "worst": worst[0],
@@ -1748,7 +1779,7 @@ def save_all_kernel_rows(recorded, tols=TRAIN_TOL, checks=CHECKS):
     """Phase 11's kernel checks on the recorded training inputs, in bf16 (as
     recorded) and f32: K2 'all' against ``ray_decode_plain(saves='all')``,
     K3 from its full saves against ``ray_decode_bwd_plain`` from the same
-    saves. Returns both kernels' bf16 rows."""
+    saves. Returns both kernels' rows in the first of ``checks.dtypes``."""
     from implicit_depth_torch.ops import ray_decode as rd
 
     w32 = recorded["f32_operands"]
@@ -1818,7 +1849,7 @@ def save_all_kernel_rows(recorded, tols=TRAIN_TOL, checks=CHECKS):
                 extra = {**extra, "passes": k3_passes(a3, kw3)}
             log(f"kernel {name} {dtn} {list(cells.shape)}: ms {ms:.4f} "
                 f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
-            if dt == torch.bfloat16:
+            if dt == checks.dtypes[0]:
                 rows[name] = {"name": name, "dtype": dtn,
                               "shape": [list(cells.shape)],
                               "max_abs_err": err, "ms": ms,
@@ -5372,7 +5403,41 @@ MODEL_WIDTH_CHECKS = Checks(dtypes=(torch.bfloat16,), cap=True, quick=True,
 # tolerances.
 # what the kernels line keeps of a kernel's row at a width option
 MODEL_WIDTH_KEYS = WIDTH_KEYS + ("spread", "frame_ms", "step_ms", "widths",
-                                 "grad", "train", "steps_bit_identical")
+                                 "grad", "train", "steps_bit_identical",
+                                 "dense")
+
+# -- phase 42: every width option at its extreme at once, bf16 and f32 ------
+# W7: the default model with W2-W6's options all at once (kp 640, crp
+# 1056, K4's rows 1616, K6's 1696; decoders 512-256-128-1): K1/K2's and
+# K4's and K6's bf16 blocks stage X in chunks, K3's Pass A runs on tiles of
+# 16 rows; then W7 and W2 with the model computing in f32 (the FMA
+# instances on blocks of 16 rows, K3's Pass A on tiles of 16). Each run as
+# phase 41's, with the dense mode beside ``global``; the f32 runs hold each
+# kernel to its plain version in f32 at phase 41's rule (MODEL_WIDTH_CHECKS
+# in f32: width_checks)
+W7_OPTIONS = {"model": {"imnet_gf": 128, "pnet_out": 512, "multires": 10,
+                        "rgb_out": 64, "roi_out_bbox": 4},
+              "refine": {"imnet_gf": 128, "pnet_out": 512}}
+WIDEST_WIDTHS = {
+    "W7": W7_OPTIONS,
+    "W7 f32": {**W7_OPTIONS, "tpu": {"compute_dtype": "float32"}},
+    "W2 f32": {**MODEL_WIDTHS["W2"], "tpu": {"compute_dtype": "float32"}},
+}
+WIDEST_REPEAT = ("W7",)
+# phase 41's rule, each output of a forward kernel held to its own spread
+# over the rows decoded (as row_checks holds K2's): at W7 the `global`
+# call's K6 offsets spread 0.0116 over its 280,001 decoded rows and its
+# logits over 0.04 (NVIDIA H100 80GB HBM3); the least spread of the two,
+# over every row (the 334,399 past the count 0 in both), read 0.00785,
+# and would hold the logits' bf16 error (1.28e-3) to a tenth of it
+WIDEST_CHECKS = MODEL_WIDTH_CHECKS._replace(per_output=True)
+
+
+def width_checks(opts, checks=MODEL_WIDTH_CHECKS):
+    """``checks`` in the type the option's model computes in."""
+    if opts.get("tpu", {}).get("compute_dtype") == "float32":
+        return checks._replace(dtypes=(torch.float32,))
+    return checks
 
 
 def model_widths(cfg):
@@ -5380,11 +5445,12 @@ def model_widths(cfg):
     imnet_gf (stage 1, stage 2) and the compiled width each runs at, the
     voxel width and its padded one, K1/K2/K3's kp and crp, K4's and K6's
     row widths, whether K1's block takes the single layout, K3's rows a
-    tile."""
+    tile, in the type the configuration computes in."""
     from implicit_depth_torch.models.embedder import posenc_dim
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     m, r = cfg.model, cfg.refine
+    bf16 = cfg.tpu.compute_dtype == "bfloat16"
     c_vox, c_end = (-(-c // rd.VOX_MULTIPLE) * rd.VOX_MULTIPLE
                     for c in (m.pnet_out, r.pnet_out))
     c_roi = m.rgb_out * m.roi_out_bbox ** 2
@@ -5397,32 +5463,38 @@ def model_widths(cfg):
                          + posenc_dim(r.multires)) // 16) * 16,
             "k6_kp": pd.pair_layout(c_vox, c_roi, posenc_dim(m.multires_views),
                                     m.multires)["kp"],
-            "k1_single": rd.decode_plan("K1", kp, crp, g=g)["single"],
-            "k3_rows": rd.bwd_plan(1, kp, crp, 2, True, 132, g=g,
+            "k1_layout": rd.decode_plan("K1", kp, crp, g=g, is_bf16=bf16)[
+                "layout"],
+            "k3_rows": rd.bwd_plan(1, kp, crp, 2, bf16, 132, g=g,
                                    c_vox=c_vox)["rows_per_tile"]}
 
 
-def model_width_phase(dev):
-    """Phase 41: the default model at each width option of MODEL_WIDTHS,
-    through its entry points, in bf16: DepthCompleter.complete on a
+def model_width_phase(dev, widths=MODEL_WIDTHS, repeat=MODEL_WIDTH_REPEAT,
+                      pair_modes=("global",), base_checks=MODEL_WIDTH_CHECKS):
+    """Phase 41 (and 42, with WIDEST_WIDTHS, WIDEST_REPEAT, the dense mode
+    beside ``global`` in ``pair_modes`` and WIDEST_CHECKS): the default
+    model at each
+    width option of ``widths``, through its entry points, in bf16 (or the
+    option's ``tpu.compute_dtype``): DepthCompleter.complete on a
     480x640 frame per_ray (K1, K4, K5 recorded, then a frame counted: K1 1,
-    K4 2, K5 10) and in the ``global`` mode (K6 recorded, then a frame
+    K4 2, K5 10) and in each of ``pair_modes`` (K6 recorded, then a frame
     counted: K6 1, K4 2, K5 10); a bare 240x320 batch-4 stage-1 step with
     ``decode_bwd`` kernel_save (K2 1, K3 1, K5 2), one with kernel (K1 1,
     K3 1, K5 2) and one with kernel_save_all (K2 'all' 1, K3 1, K5 2),
     each after a recorded one; a stage-2 step behind the
     frozen stage 1 (K1 1, K4 2, K5 10). Each recorded call against its
-    plain version (MODEL_WIDTH_CHECKS: the tolerances of phases 3, 7, 10
-    and 11, each at least BITE times below the outputs' spread; K4 in the
-    step: recorded, its gradient at phase 13's tolerances); K3 twice on
-    each recorded call, the same bits; at MODEL_WIDTH_REPEAT two steps
-    twice bit for bit. Cuts: one counted frame or step a path; bf16 alone.
-    Returns {kernel: {option: its row}}."""
+    plain version (``base_checks`` in the model's type, width_checks:
+    the tolerances of phases 3, 7, 10 and 11, each at least BITE times
+    below the outputs' spread; K4 in the step: recorded, its gradient at
+    phase 13's tolerances); K3 twice on each recorded call, the same bits;
+    at ``repeat`` two steps twice bit for bit. Cuts: one counted frame or
+    step a path; one type an option. Returns {kernel: {option: its
+    row}}; a mode past ``global`` under the K6 row's key of that mode."""
     from implicit_depth_torch.config import load_config
     from implicit_depth_torch.infer import DepthCompleter
 
     frames = make_frames(2, FRAME_HW)
-    checks, tols = MODEL_WIDTH_CHECKS, {**TOL, **TRAIN_TOL}
+    tols = {**TOL, **TRAIN_TOL}
     out = {}
 
     def put(name, w, row, widths):
@@ -5430,38 +5502,46 @@ def model_width_phase(dev):
         out.setdefault(name, {})[w] = {k: row[k] for k in MODEL_WIDTH_KEYS
                                        if k in row}
 
-    for w, opts in MODEL_WIDTHS.items():
+    for w, opts in widths.items():
         t_w = time.perf_counter()
+        checks = width_checks(opts, base_checks)
         serve = merged(SERVE_OVERRIDES, opts)
         cfg = load_config(overrides=serve)
-        widths = model_widths(cfg)
-        log(f"{w}: {opts}: {widths}")
+        at = model_widths(cfg)
+        log(f"{w}: {opts}: {at}")
         lidf, refine = build_models(cfg)
         dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
         with torch.inference_mode():
+            # the recorded calls are in the type the checks compare
             rows = forward_rows(record_calls(
-                kernel_modules(), lambda: dc.complete(*frames[0])), None,
-                dev, tols, checks=checks)
+                kernel_modules(), lambda: dc.complete(*frames[0])),
+                lambda name, a: a, dev, tols, checks=checks)
         launches, frame_ms = main_path(dc, frames[1:], cfg,
                                        label=f"{w} main path")
         for name, n in launches.items():
             add_launches(rows[name], n, 1, "frame")
         rows["ray_decode"]["frame_ms"] = frame_ms
         del dc, lidf, refine
-        cfg_g = load_config(overrides=mode_overrides(serve, "global"))
-        lidf, refine = build_models(cfg_g)
-        dc = DepthCompleter(cfg_g, lidf=lidf, refine=refine, device=dev)
-        k6 = pair_kernel_rows(record_calls(
-            {"pair_decode": kernel_modules()["pair_decode"]},
-            lambda: dc.complete(*frames[0])), lidf, dev, tols, checks)
-        launches, frame_ms = main_path(dc, frames[1:], cfg_g,
-                                       EXPECT_PER_MODE_FRAME,
-                                       f"{w} global mode")
-        rows["pair_decode"] = add_launches(k6, launches["pair_decode"], 1,
-                                           "frame")
-        rows["pair_decode"]["frame_ms"] = frame_ms
-        del dc, lidf, refine
-        torch.cuda.empty_cache()
+        for mode in pair_modes:
+            cfg_g = load_config(overrides=mode_overrides(serve, mode))
+            lidf, refine = build_models(cfg_g)
+            dc = DepthCompleter(cfg_g, lidf=lidf, refine=refine, device=dev)
+            k6 = pair_kernel_rows(record_calls(
+                {"pair_decode": kernel_modules()["pair_decode"]},
+                lambda: dc.complete(*frames[0])), lidf, dev, tols, checks)
+            launches, frame_ms = main_path(dc, frames[1:], cfg_g,
+                                           EXPECT_PER_MODE_FRAME,
+                                           f"{w} {mode} mode")
+            k6 = add_launches(k6, launches["pair_decode"], 1, "frame")
+            k6["frame_ms"] = frame_ms
+            if mode == "global":
+                rows["pair_decode"] = k6
+            else:
+                rows["pair_decode"][mode] = {
+                    k: v for k, v in k6.items()
+                    if k in MODEL_WIDTH_KEYS and k != "widths"}
+            del dc, lidf, refine
+            torch.cuda.empty_cache()
         train = merged(TRAIN_OVERRIDES, opts)
         for decode_bwd, expect in (
                 ("kernel_save", EXPECT_PER_STEP),
@@ -5491,7 +5571,7 @@ def model_width_phase(dev):
             got[bwd]["step_ms"] = statistics.median(step_ms)
             got[bwd]["repeat_bit_identical"] = k3_repeats(recorded)
             log(f"{w}: {bwd} twice on the recorded call: the same bits")
-            if decode_bwd == "kernel_save" and w in MODEL_WIDTH_REPEAT:
+            if decode_bwd == "kernel_save" and w in repeat:
                 got[bwd]["steps_bit_identical"] = pair_repeat(
                     cfg_t, model, dev, TRAIN_BATCH)
                 log(f"{w}: two steps twice: the same bits")
@@ -5513,14 +5593,14 @@ def model_width_phase(dev):
         del lidf, refine, run2
         torch.cuda.empty_cache()
         for name, row in rows.items():
-            put(name, w, row, widths)
+            put(name, w, row, at)
         log(f"{w}: {time.perf_counter() - t_w:.1f} s")
     return out
 
 
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-41 on ``dev``; prints their seconds and the kernels line."""
+    """Phases 2-42 on ``dev``; prints their seconds and the kernels line."""
     t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
@@ -5695,6 +5775,14 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         rows[name]["at_model_widths"] = by_w
     t41 = time.perf_counter() - t0
     log(f"phase 41 seconds {round(t41, 1)}")
+    # -- every width option at its extreme at once, bf16 and f32 (phase 42)
+    t0 = time.perf_counter()
+    for name, by_w in model_width_phase(dev, WIDEST_WIDTHS, WIDEST_REPEAT,
+                                        ("global", "dense"),
+                                        WIDEST_CHECKS).items():
+        rows[name].setdefault("at_model_widths", {}).update(by_w)
+    t42 = time.perf_counter() - t0
+    log(f"phase 42 seconds {round(t42, 1)}")
     rows["segment_max0"]["options"] = {k: v["launches_k5"]
                                        for k, v in options.items()}
     for name, n in remat_launches.items():
@@ -5718,9 +5806,9 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
-    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-41; "
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-42; "
         f"33-35: {disk_s:.1f}; 36-38: {t36 + t37 + t38:.1f}; 39: "
-        f"{t39:.1f}; 40: {t40:.1f}; 41: {t41:.1f})")
+        f"{t39:.1f}; 40: {t40:.1f}; 41: {t41:.1f}; 42: {t42:.1f})")
     log(json.dumps({"kernels": kernels}))
 
 

@@ -209,7 +209,8 @@ struct Grid {
 // weights (N wide), on Grid<R, N>: warp w < kActive owns rows
 // (w / WN) * MT * 16.. and columns (w % WN) * NT * 8..; its accumulators
 // follow the m16n8 layout (see for_pairs). Every warp takes every slab.
-template <int R, int N>
+// kZero false: acc += instead (a product fed in k-chunks, chunked_product).
+template <int R, int N, bool kZero = true>
 __device__ __forceinline__ void product(
     Pipe& pipe, const bf16* A, int lda, int k,
     float (&acc)[Grid<R, N>::MT][Grid<R, N>::NT][4]) {
@@ -219,12 +220,14 @@ __device__ __forceinline__ void product(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp / WN, wn = warp % WN;
   const bool active = Gr::kActive == kWarps || warp < Gr::kActive;
+  if constexpr (kZero) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
+        for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
+  }
   const bf16* a0 = A + (wm * MT * 16 + (lane & 15)) * lda + (lane >> 4) * 8;
   const int boff = (lane & 15) * lds + wn * NT * 8 + (lane >> 4) * 8;
   for (int k0 = 0; k0 < k; k0 += ks) {
@@ -274,6 +277,32 @@ __device__ __forceinline__ void for_pairs(float (&acc)[MT][NT][4], F&& f) {
 // The accumulators of a tile's layer-1 product (kM x 4G): E1 of the IEF
 template <int G>
 using E1Acc = float[Grid<kM, Widths<G>::g1>::MT][Grid<kM, Widths<G>::g1>::NT][4];
+
+// Layer 1 of a tile in the chunked layout (Smem): acc = X @ the pipe's next
+// kp k-rows (N wide), with X's columns staged kc at a time into the chunk
+// buffer XC (stride ld_of(kc)) by stage(k0, kn), which writes columns
+// [k0, k0 + kn) of the tile's 64 rows to XC's columns [0, kn) by cp.async
+// and plain stores. kc is a multiple of the product's slab rows, so that
+// every chunk but the last takes whole slabs and the schedule is the one of
+// the layouts that hold X whole; the accumulators carry across the chunks.
+// The chunks are staged in turn, behind barriers: XC holds one chunk.
+template <int N, class Stage>
+__device__ __forceinline__ void chunked_product(
+    Pipe& pipe, bf16* XC, int kc, int kp,
+    float (&acc)[Grid<kM, N>::MT][Grid<kM, N>::NT][4], Stage&& stage) {
+  for (int k0 = 0; k0 < kp; k0 += kc) {
+    const int kn = min(kc, kp - k0);
+    __syncthreads();  // every warp is done with the chunk before
+    stage(k0, kn);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    if (k0 == 0)
+      product<kM, N>(pipe, XC, ld_of(kc), kn, acc);
+    else
+      product<kM, N, false>(pipe, XC, ld_of(kc), kn, acc);
+  }
+}
 
 // -- the MLP tail ----------------------------------------------------------------
 
@@ -463,26 +492,42 @@ __device__ __forceinline__ void rows_async(RowPtr row_ptr, int rows, int c,
 // ops/ray_decode.py::decode_plan). kp: the layer-1 input width (X); crp:
 // K1's per-ray input width (0 for K4 and K6, which have no per-ray part);
 // g: imnet_gf (layers 4g, 2g, g).
-// Two layouts: the double-buffered one (the next tile's X rows land in x1
-// while this tile runs on x0) wherever it fits, else the single one, for
-// the widest layer-1 inputs and imnet_gf 128: one X buffer (x1 == x0; the
+// Three layouts, the first that fits: the double-buffered one (the next
+// tile's X rows land in x1 while this tile runs on x0); the single one, for
+// wide layer-1 inputs and imnet_gf 128: one X buffer (x1 == x0; the
 // kernels then copy the next tile's rows once the offset decoder's layer 1
 // has read X) and the per-ray part in the h2 region (16 x 4g f32 fits in
 // its 64 x (2g + 8) bf16: each decoder's per-ray part is read by its layer-1
-// epilogue, before the tail's layer-2 epilogue writes h2).
+// epilogue, before the tail's layer-2 epilogue writes h2); and the chunked
+// one, the single layout with x0 holding `chunk` columns of X (the most
+// that fit, a multiple of the layer-1 product's slab rows): the kernels
+// stage X in chunks for each decoder's layer 1 (chunked_product).
+enum Layout { kDouble, kSingle, kChunked };
 struct Smem {
   size_t x0, x1, rf, ray, h, h2, ring, off, logit, l4, segs, total;
   bool single;
+  // X's columns in the chunked layout, else 0 (left unset by the
+  // constructor of a kernel of the other layouts, which does not read it)
+  int chunk;
   __host__ __device__ static size_t al(size_t b) {
     return (b + 127) / 128 * 128;
   }
+  // the first layout that fits (the launch's choice)
   __host__ __device__ Smem(int kp, int crp, int g) {
+    chunk = 0;
     lay(kp, crp, g, false);
     if (total > kMaxSmem) lay(kp, crp, g, true);
+    if (total > kMaxSmem) lay_chunked(kp, crp, g);
   }
-  // the layout `one` names (a kernel instantiated for it)
-  __host__ __device__ Smem(int kp, int crp, int g, bool one) {
-    lay(kp, crp, g, one);
+  // the layout `which` names (a kernel instantiated for it)
+  __host__ __device__ Smem(int kp, int crp, int g, int which) {
+    if (which == kChunked)
+      lay_chunked(kp, crp, g);
+    else
+      lay(kp, crp, g, which == kSingle);
+  }
+  __host__ __device__ int layout() const {
+    return chunk ? kChunked : single ? kSingle : kDouble;
   }
   __host__ __device__ void lay(int kp, int crp, int g, bool one) {
     single = one;
@@ -515,6 +560,19 @@ struct Smem {
     segs = o;
     o = al(o + kMaxSegs * sizeof(Seg));
     total = o;
+  }
+  // the single layout with x0 `chunk` columns wide: the most that fit
+  // beside the other regions (64 rows of 2 bytes: 128 bytes a column, so
+  // the other regions keep their alignment), a multiple of the layer-1
+  // product's slab rows, at least one slab (total says whether it fits)
+  __host__ __device__ void lay_chunked(int kp, int crp, int g) {
+    lay(0, crp, g, true);
+    const long long rest = (long long)total - kM * kPad * 2;
+    const int ks = slab_rows(4 * g);
+    chunk = (int)(((long long)kMaxSmem - rest) / (kM * 2) - kPad) / ks * ks;
+    if (chunk < ks) chunk = ks;
+    if (chunk > kp) chunk = kp;
+    lay(chunk, crp, g, true);
   }
 };
 

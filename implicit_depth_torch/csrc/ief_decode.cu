@@ -16,14 +16,17 @@
 // bf16: ief_decode_tc, a persistent block per SM over tiles of 64 rows on
 // decode_tile.cuh's staged mma.sync products, E1 in registers; each tile's
 // rc and pos_e rows load as one contiguous block in 16-byte pieces, its end
-// rows by cp.async during the tile before (kSingle, the layout of the widest
+// rows by cp.async during the tile before (kSingle, the layout of wide
 // inputs and imnet_gf 128, tile::Smem: once layer 1 has read X, behind a
-// barrier). The first version (wmma
+// barrier; kChunked, the layout of the widest, the rows of the reference's
+// roi_out_bbox 4 or pnet_out 512 at imnet_gf 128: X staged in chunks of
+// whole slabs, chunked_product, the rc and pos columns 2 bytes a load).
+// The first version (wmma
 // fragments from L2, f32 products through shared memory, 2-byte loads)
 // spent ~53% of its time in products, ~66% in their f32 round trips and
 // elementwise passes and ~30% in input loads (scripts/attribute_k1_k4.py).
-// f32 (cross-checks only): ief_decode_kernel, 32 rows a block, CUDA-core FMA
-// products with the weights read from L2.
+// f32 (cross-checks only): ief_decode_kernel, 32 rows a block where that
+// block fits, else 16, CUDA-core FMA products with the weights read from L2.
 #include "decode_tile.cuh"
 
 namespace {
@@ -50,6 +53,11 @@ struct Smem {
     total = o;
   }
 };
+
+// rows of an f32 block: 32 where that block fits, else 16
+int f32_rows(int kp, int g) {
+  return Smem<float>(32, kp, g).total <= tile::kMaxSmem ? 32 : 16;
+}
 
 template <typename T>
 struct Params {
@@ -117,13 +125,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- bf16: the staged tensor-core kernel -------------------------------------
 
-template <int G, bool kSingle>
+template <int G, int kLay>
 __global__ void __launch_bounds__(kThreads, 1)
     ief_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
+  constexpr bool kSingle = kLay == tile::kSingle, kChunk = kLay == kChunked;
   constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, 0, G, kSingle);
+  const tile::Smem lay(p.kp, 0, G, kLay);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -146,8 +155,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       segs[2 + 2 * i] = {p.tail.w3, kG3, kG2, kG3};
     }
   }
-  // the padding columns stay 0
-  for (int i = threadIdx.x; i < 2 * kM * (kp - o_pad); i += blockDim.x) {
+  // the padding columns stay 0 (the chunked layout writes them with each
+  // chunk)
+  for (int i = threadIdx.x; !kChunk && i < 2 * kM * (kp - o_pad);
+       i += blockDim.x) {
     const int r = i / (kp - o_pad);
     x_of(r / kM)[(r % kM) * ldx + o_pad + i % (kp - o_pad)] =
         __float2bfloat16_rn(0.f);
@@ -164,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         },
         kM, p.c_end, X, ldx, p.end);
   };
-  if (blockIdx.x < n_tiles) end_rows(blockIdx.x, x_of(0));
+  if (!kChunk && blockIdx.x < n_tiles) end_rows(blockIdx.x, x_of(0));
   pipe.start();
 
   int parity = 0;
@@ -172,15 +183,46 @@ __global__ void __launch_bounds__(kThreads, 1)
     bf16* X = x_of(parity);
     const long long row0 = t * kM;
     const int valid = (int)min((long long)kM, p.n - row0);
-    stage_rows(p.rc + row0 * p.c_rc, valid, kM, p.c_rc, X, ldx, o_rc);
-    stage_rows(p.pos + row0 * p.c_pos, valid, kM, p.c_pos, X, ldx, o_pos);
+    if (!kChunk) {
+      stage_rows(p.rc + row0 * p.c_rc, valid, kM, p.c_rc, X, ldx, o_rc);
+      stage_rows(p.pos + row0 * p.c_pos, valid, kM, p.c_pos, X, ldx, o_pos);
+    }
     if (threadIdx.x < kM) OFF[threadIdx.x] = p.init_offset;
     // the next tile's end rows land while this one runs
-    if (!kSingle && t + gridDim.x < n_tiles)
+    if (kLay == kDouble && t + gridDim.x < n_tiles)
       end_rows(t + gridDim.x, x_of(parity ^ 1));
 
     E1Acc<G> e1;
-    product<kM, kG1>(pipe, X, ldx, kp, e1);
+    if constexpr (kChunk) {
+      // columns [k0, k0 + kn) of X into its chunk buffer: the end rows by
+      // cp.async, the rc and pos rows (which start anywhere) and the
+      // padding an element a thread
+      chunked_product<kG1>(pipe, X, lay.chunk, kp, e1, [&](int k0, int kn) {
+        const int ldc = ld_of(lay.chunk);
+        if (k0 < o_rc)
+          rows_async(
+              [&](int r) -> const bf16* {
+                return r < valid ? p.end + (row0 + r) * p.c_end + k0
+                                 : nullptr;
+              },
+              kM, min(k0 + kn, o_rc) - k0, X, ldc, p.end);
+        const int c0 = max(k0, o_rc) - k0;
+        for (int i = threadIdx.x; i < kM * (kn - c0); i += blockDim.x) {
+          const int r = i / (kn - c0), col = k0 + c0 + i % (kn - c0);
+          const long long row = row0 + r;
+          bf16 v = __float2bfloat16_rn(0.f);
+          if (r < valid) {
+            if (col < o_pos)
+              v = ldg_raw(p.rc + row * p.c_rc + (col - o_rc));
+            else if (col < o_pad)
+              v = ldg_raw(p.pos + row * p.c_pos + (col - o_pos));
+          }
+          X[r * ldc + col - k0] = v;
+        }
+      });
+    } else {
+      product<kM, kG1>(pipe, X, ldx, kp, e1);
+    }
     if constexpr (kSingle) {  // X is read: the next tile's end rows
       __syncthreads();
       if (t + gridDim.x < n_tiles) end_rows(t + gridDim.x, X);
@@ -198,10 +240,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
-template <int G, bool kSingle>
+template <int G, int kLay>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, 0, G, kSingle);
-  auto kernel = ief_decode_tc<G, kSingle>;
+  const tile::Smem lay(p.kp, 0, G, kLay);
+  auto kernel = ief_decode_tc<G, kLay>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -263,12 +305,17 @@ int run(void* const* ptrs, long long n, long long c_end, long long c_rc,
       if (c_end % 8 || n_iter > (tile::kMaxSegs - 1) / 2 ||
           lay.total > tile::kMaxSmem)
         return (int)cudaErrorInvalidValue;
-      return lay.single ? launch_tc<G, true>(p, stream)
-                        : launch_tc<G, false>(p, stream);
+      if (lay.layout() == tile::kDouble)
+        return launch_tc<G, tile::kDouble>(p, stream);
+      if (lay.layout() == tile::kSingle)
+        return launch_tc<G, tile::kSingle>(p, stream);
+      return launch_tc<G, tile::kChunked>(p, stream);
     } else {
-      if (Smem<T>(32, (int)kp, G).total > tile::kMaxSmem)
+      const int m = f32_rows((int)kp, G);
+      if (Smem<T>(m, (int)kp, G).total > tile::kMaxSmem)
         return (int)cudaErrorInvalidValue;
-      return launch<T, 32, G>(p, stream);
+      return m == 32 ? launch<T, 32, G>(p, stream)
+                     : launch<T, 16, G>(p, stream);
     }
   });
 }
@@ -294,5 +341,7 @@ extern "C" int idt_ief_decode(void* const* ptrs, long long n, long long c_end,
 extern "C" long long idt_ief_decode_smem(long long kp, long long g,
                                          long long is_bf16) {
   return is_bf16 ? (long long)idt::tile::Smem((int)kp, 0, (int)g).total
-                 : (long long)Smem<float>(32, (int)kp, (int)g).total;
+                 : (long long)Smem<float>(f32_rows((int)kp, (int)g), (int)kp,
+                                          (int)g)
+                       .total;
 }

@@ -4,9 +4,9 @@
 // Replaces implicit_depth_tpu/ops/pallas_decode.py::fused_pair_decode (its
 // Pallas kernel over _decode_tile). Each row's 385-d embedding
 // [voxel row | roi | pe(enter) | pe(leave) | dir_e] is decoded by two
-// 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf g in {8, 16, 32, 64, 128},
-// 128 in bf16 only; 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02, soft
-// clamp), the offset decoder as a 2-iteration IEF.
+// 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf g in {8, 16, 32, 64, 128};
+// 256 -> 128 -> 64 -> 1 by default; LeakyReLU 0.02, soft clamp), the offset
+// decoder as a 2-iteration IEF.
 //
 // What bounds it on the H100: operations. One row costs ~0.64 MFLOP (layer 1
 // of both decoders over the embedding, two IEF tails and the probability
@@ -40,13 +40,17 @@
 // embedding one element a thread with 2-byte loads, and decoded the pad rows
 // of the `global` mode: ~37x its bound. Now the voxel and ray rows of the
 // next tile land by cp.async while the current one computes (kSingle, the
-// layout of the widest inputs and imnet_gf 128, tile::Smem: once the offset
-// decoder's layer 1 has read X, behind a barrier), the weights
+// layout of the wide inputs and imnet_gf 128, tile::Smem: once the offset
+// decoder's layer 1 has read X, behind a barrier; kChunked, the layout of
+// the widest, rows of the reference's pnet_out 512 or roi_out_bbox 4: X
+// staged in chunks of whole slabs for each decoder's layer 1,
+// chunked_product), the weights
 // stream through the slab ring once per tile, the epilogues run on the
 // registers, E1 stays in registers for both IEF iterations, and the
 // positional encoding is staged a warp a row, each lane over fixed columns.
-// f32 (the card-vs-CPU cross-checks only): pair_decode_f32, 32 rows a block,
-// CUDA-core FMA products with the weights read from L2.
+// f32 (the card-vs-CPU cross-checks only): pair_decode_f32, 32 rows a block
+// where that block fits, else 16 (imnet_gf 128, or rows wider than ~1,000 at
+// any width), CUDA-core FMA products with the weights read from L2.
 //
 // Numerics follow _decode_tile: every product takes compute-type operands
 // with f32 accumulation; the embedding (raw positions included) is rounded
@@ -132,8 +136,6 @@ __device__ __forceinline__ float pe_value(const float* pos6, int src,
 
 // -- f32: the FMA kernel (cross-checks) --------------------------------------
 
-constexpr int kF32Rows = 32;
-
 struct SmemF32 {
   size_t x, e1, c, h, off, logit, total;
   __host__ __device__ static size_t al(size_t b) { return (b + 127) / 128 * 128; }
@@ -156,10 +158,14 @@ struct SmemF32 {
   }
 };
 
-template <int G>
+// rows of an f32 block: 32 where that block fits, else 16
+int f32_rows(int kp, int g) {
+  return SmemF32(32, kp, g).total <= tile::kMaxSmem ? 32 : 16;
+}
+
+template <int M, int G>
 __global__ void __launch_bounds__(kThreads, 1)
     pair_decode_f32(const Params<float> p) {
-  constexpr int M = kF32Rows;
   constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2;
   const long long n = rows_to_decode(p);
   zero_rows(p, n);
@@ -255,17 +261,18 @@ __device__ int k6_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
   return n;
 }
 
-template <int G, bool kSingle>
+template <int G, int kLay>
 __global__ void __launch_bounds__(kThreads, 1)
     pair_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
+  constexpr bool kSingle = kLay == tile::kSingle, kChunk = kLay == kChunked;
   constexpr int kG1 = Widths<G>::g1;
   const long long n = rows_to_decode(p);
   zero_rows(p, n);
   const long long n_tiles = (n + kM - 1) / kM;
   if (blockIdx.x >= n_tiles) return;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, 0, G, kSingle);
+  const tile::Smem lay(p.kp, 0, G, kLay);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -302,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         },
         kM, p.c_rp, X + p.c_vox, ldx, p.ray_feat);
   };
-  gather(blockIdx.x, x_of(0));
+  if (!kChunk) gather(blockIdx.x, x_of(0));
   pipe.start();
   // the columns o_pe + lane + 32 j of [pe(enter) | pe(leave) | 0] each lane
   // stages in every row: the element of pos6 it reads (-1: padding) plus 8
@@ -324,7 +331,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int valid = (int)min((long long)kM, n - row0);
 
     // -- the positional encoding of the pairs: a warp a row, its lanes over
-    // the columns (what each holds: col_src)
+    // the columns (what each holds: col_src); the chunked layout stages it
+    // with each chunk (chunk_of below)
+    if (!kChunk)
     for (int row = warp; row < kM; row += kWarps) {
       const float* pos6 = p.pos + (row0 + row) * 6;
 #pragma unroll
@@ -339,13 +348,55 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (threadIdx.x < kM) OFF[threadIdx.x] = p.init_offset;
     // the next tile's voxel and ray rows land while this one runs
-    if (!kSingle && t + gridDim.x < n_tiles)
+    if (kLay == kDouble && t + gridDim.x < n_tiles)
       gather(t + gridDim.x, x_of(parity ^ 1));
+    // -- the chunked layout: columns [k0, k0 + kn) of X into its chunk
+    // buffer, the voxel and ray rows by cp.async (every part starts at a
+    // 16-byte boundary), the positional encoding a warp a row as above
+    [[maybe_unused]] auto chunk_of = [&](int k0, int kn) {
+      const int k1 = k0 + kn, ldc = ld_of(lay.chunk);
+      if (k0 < p.c_vox)
+        rows_async(
+            [&](int r) -> const bf16* {
+              if (r >= valid) return nullptr;
+              return p.vox_table +
+                     (long long)__ldg(p.cells + row0 + r) * p.c_vox + k0;
+            },
+            kM, min(k1, p.c_vox) - k0, X, ldc, p.vox_table);
+      const int a = max(k0, p.c_vox), b = min(k1, o_pe);
+      if (a < b)
+        rows_async(
+            [&](int r) -> const bf16* {
+              if (r >= valid) return nullptr;
+              const long long row = row0 + r;
+              const long long ray =
+                  p.rays ? (long long)__ldg(p.rays + row) : row / p.slots;
+              return p.ray_feat + ray * p.c_rp + (a - p.c_vox);
+            },
+            kM, b - a, X + (a - k0), ldc, p.ray_feat);
+      if (k1 <= o_pe) return;
+      for (int r = warp; r < kM; r += kWarps) {
+        const float* pos6 = p.pos + (row0 + r) * 6;
+#pragma unroll
+        for (int j = 0; j < kPeCols; ++j) {
+          const int u = lane + 32 * j, col = o_pe + u;
+          if (u >= kp - o_pe || col >= k1) break;
+          if (col < k0) continue;
+          float v = 0.f;
+          if (r < valid && col_src[j] >= 0)
+            v = pe_value(pos6, col_src[j] & 7, col_src[j] >> 3, col_scale[j]);
+          X[r * ldc + col - k0] = __float2bfloat16_rn(v);
+        }
+      }
+    };
 
     // -- probability decoder: H = act(X @ W_prob + b1), tail -----------------
     {
       E1Acc<G> acc;
-      product<kM, kG1>(pipe, X, ldx, kp, acc);
+      if constexpr (kChunk)
+        chunked_product<kG1>(pipe, X, lay.chunk, kp, acc, chunk_of);
+      else
+        product<kM, kG1>(pipe, X, ldx, kp, acc);
       for_pairs<kM, kG1>(acc, [&](int r, int c, float v0, float v1) {
         const float2 b = ldg2(p.b1 + kG1 + c);
         st_bf16x2(H + r * ld_of(kG1) + c, leaky(v0 + b.x), leaky(v1 + b.y));
@@ -354,7 +405,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     tail<G>(pipe, H, H2, L4, p.prob, LOGIT, /*accumulate=*/false);
     // -- offset decoder: E1 = X @ W_off + b1, kept in registers --------------
     E1Acc<G> e1;
-    product<kM, kG1>(pipe, X, ldx, kp, e1);
+    if constexpr (kChunk)
+      chunked_product<kG1>(pipe, X, lay.chunk, kp, e1, chunk_of);
+    else
+      product<kM, kG1>(pipe, X, ldx, kp, e1);
     if constexpr (kSingle) {  // X is read: the next tile's rows
       __syncthreads();
       if (t + gridDim.x < n_tiles) gather(t + gridDim.x, X);
@@ -375,10 +429,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
-template <int G, bool kSingle>
+template <int G, int kLay>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, 0, G, kSingle);
-  auto kernel = pair_decode_tc<G, kSingle>;
+  const tile::Smem lay(p.kp, 0, G, kLay);
+  auto kernel = pair_decode_tc<G, kLay>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -393,16 +447,17 @@ int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <int G>
+template <int M, int G>
 int launch_f32(const Params<float>& p, void* stream) {
-  const SmemF32 lay(kF32Rows, p.kp, G);
+  const SmemF32 lay(M, p.kp, G);
+  if (lay.total > tile::kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      pair_decode_f32<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pair_decode_f32<M, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (p.p + kF32Rows - 1) / kF32Rows;
-  pair_decode_f32<G><<<(unsigned)blocks, kThreads, lay.total,
-                       (cudaStream_t)stream>>>(p);
+  const long long blocks = (p.p + M - 1) / M;
+  pair_decode_f32<M, G><<<(unsigned)blocks, kThreads, lay.total,
+                          (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -454,12 +509,14 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_rp,
       if (c_vox % 8 || c_rp % 8 || kp - o_pe > 32 * kPeCols ||
           n_iter > (tile::kMaxSegs - 4) / 2 || lay.total > tile::kMaxSmem)
         return (int)cudaErrorInvalidValue;
-      return lay.single ? launch_tc<G, true>(p, stream)
-                        : launch_tc<G, false>(p, stream);
-    } else if constexpr (G <= 64) {  // f32 at 128: its blocks do not fit
-      return launch_f32<G>(p, stream);
+      if (lay.layout() == tile::kDouble)
+        return launch_tc<G, tile::kDouble>(p, stream);
+      if (lay.layout() == tile::kSingle)
+        return launch_tc<G, tile::kSingle>(p, stream);
+      return launch_tc<G, tile::kChunked>(p, stream);
     } else {
-      return (int)cudaErrorInvalidValue;
+      return f32_rows((int)kp, G) == 32 ? launch_f32<32, G>(p, stream)
+                                        : launch_f32<16, G>(p, stream);
     }
   });
 }
@@ -470,7 +527,7 @@ int run(void* const* ptrs, long long n, long long c_vox, long long c_rp,
 // c_vec, off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4}, n_rows (a 0-d
 // int32, or null), out_off, out_logit (24 device pointers). slots: the rows
 // per ray of the dense layout, read when rays is null. g: imnet_gf, in
-// {8, 16, 32, 64, 128} (128 in bf16 only). Returns a cudaError_t.
+// {8, 16, 32, 64, 128}. Returns a cudaError_t.
 extern "C" int idt_pair_decode(void* const* ptrs, long long n, long long c_vox,
                                long long c_rp, long long multires,
                                long long kp, long long slots, long long n_iter,
@@ -489,5 +546,7 @@ extern "C" int idt_pair_decode(void* const* ptrs, long long n, long long c_vox,
 extern "C" long long idt_pair_decode_smem(long long kp, long long g,
                                           long long is_bf16) {
   return is_bf16 ? (long long)idt::tile::Smem((int)kp, 0, (int)g).total
-                 : (long long)SmemF32(kF32Rows, (int)kp, (int)g).total;
+                 : (long long)SmemF32(f32_rows((int)kp, (int)g), (int)kp,
+                                      (int)g)
+                       .total;
 }

@@ -6,8 +6,8 @@
 // (_fused_fwd_impl and its Pallas kernel): for every ray, its kb nearest pair
 // slots (1 <= kb <= kMaxKb, as the Pallas kernel's tiles of t * kb rows take
 // any kb) are decoded by two 4-layer MLPs (4g -> 2g -> g -> 1 for imnet_gf
-// g in {8, 16, 32, 64, 128}, and in bf16 128 only: 256 -> 128 -> 64 -> 1 by
-// default; LeakyReLU 0.02,
+// g in {8, 16, 32, 64, 128}: 256 -> 128 -> 64 -> 1 by default; LeakyReLU
+// 0.02,
 // soft clamp), the offset decoder as a 2-iteration IEF. With kSave it
 // replaces fused_ray_decode_table's training forward (_table_fwd,
 // save_mode='l1'): it also writes, rounded to T as the JAX kernel rounds
@@ -56,11 +56,17 @@
 // runs; ray features load 16 bytes at a time. Where that layout does not
 // fit (imnet_gf 128, the widest layer-1 inputs: tile::Smem), the single
 // layout's instance (kSingle) copies the next tile's voxel rows once the
-// offset decoder's layer 1 has read X, behind a barrier.
+// offset decoder's layer 1 has read X, behind a barrier; where that does
+// not fit either (imnet_gf 128 at kp > 528, or kp > 432 with crp 544: the
+// reference's pnet_out 512 or roi_out_bbox 4 with imnet_gf 128), the
+// chunked one (kChunked) stages X in chunks of whole slabs for each
+// decoder's layer 1, the accumulators carried across them in registers
+// (chunked_product), the trig columns computed with the chunk they fall in.
 // f32 (the card-vs-CPU cross-checks only): ray_decode_kernel, 32 rows a
-// block, min(32 / kb, 4) whole rays or, at kb > 32, 32 slots of one ray (its
-// per-ray part computed by each of its blocks), CUDA-core FMA products with
-// the weights read from L2.
+// block where that block fits (imnet_gf <= 64), else 16; min(rows / kb, 4)
+// whole rays or, at kb > rows, rows slots of one ray (its per-ray part
+// computed by each of its blocks), CUDA-core FMA products with the weights
+// read from L2.
 #include "decode_tile.cuh"
 
 namespace {
@@ -310,14 +316,15 @@ __device__ int k1_schedule(const Params<__nv_bfloat16>& p, tile::Seg* s) {
   return n;
 }
 
-template <int kMode, int G, bool kSingle>
+template <int kMode, int G, int kLay>
 __global__ void __launch_bounds__(kThreads, 1)
     ray_decode_tc(const Params<__nv_bfloat16> p) {
   using namespace tile;
   constexpr bool kSave = kMode != kNoSave;
+  constexpr bool kSingle = kLay == tile::kSingle, kChunk = kLay == kChunked;
   constexpr int kG1 = Widths<G>::g1, kG2 = Widths<G>::g2, kG3 = Widths<G>::g3;
   extern __shared__ __align__(128) unsigned char smem[];
-  const tile::Smem lay(p.kp, p.crp, G, kSingle);
+  const tile::Smem lay(p.kp, p.crp, G, kLay);
   // X of the even and of the odd tiles (by the block's tile count)
   auto x_of = [&](int parity) {
     return reinterpret_cast<bf16*>(smem + (parity ? lay.x1 : lay.x0));
@@ -363,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         },
         kM, c_vox, X, ldx, p.vox_table);
   };
-  if (blockIdx.x < n_tiles) vox_rows(blockIdx.x, x_of(0));
+  if (!kChunk && blockIdx.x < n_tiles) vox_rows(blockIdx.x, x_of(0));
   pipe.start();
   // the columns c_vox + lane + 32 j of [pos6 | trig | 0] each lane stages in
   // every row: the element of pos6 it reads (-1: padding) and, for trig,
@@ -395,7 +402,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int valid_rows = valid * kb;  // rows past them are masked
 
     // -- stage [pos6 | trig | 0] of the pairs and the rays' features --------
-    // a warp a row, its lanes over the columns (what each holds: col_src)
+    // a warp a row, its lanes over the columns (what each holds: col_src);
+    // the chunked layout stages them with each chunk (chunk_of below)
+    if (!kChunk)
     for (int row = warp; row < kM; row += kWarps) {
       const long long prow = row0 + row;
       const bool ok = row < valid_rows;
@@ -418,9 +427,43 @@ __global__ void __launch_bounds__(kThreads, 1)
     stage_rows(p.ray_feat + ray0 * p.c_ray, valid, rays, p.c_ray, RF, ldr, 0);
     if (threadIdx.x < kM) OFF[threadIdx.x] = p.init_offset;
     // the next tile's voxel rows land while this one runs
-    if (!kSingle && t + gridDim.x < n_tiles)
+    if (kLay == kDouble && t + gridDim.x < n_tiles)
       vox_rows(t + gridDim.x, x_of(parity ^ 1));
 
+    // -- the chunked layout: columns [k0, k0 + kn) of X into its chunk
+    // buffer, the voxel rows by cp.async, [pos6 | trig | 0] a warp a row as
+    // above (K2's trig saves with the probability decoder's chunks)
+    [[maybe_unused]] auto chunk_of = [&](int k0, int kn, bool save) {
+      const int k1 = k0 + kn, ldc = ld_of(lay.chunk);
+      if (k0 < c_vox)
+        rows_async(
+            [&](int r) -> const bf16* {
+              if (r >= valid_rows) return nullptr;
+              return p.vox_table +
+                     (long long)__ldg(p.cells + row0 + r) * c_vox + k0;
+            },
+            kM, min(k1, c_vox) - k0, X, ldc, p.vox_table);
+      if (k1 <= c_vox) return;
+      for (int r = warp; r < kM; r += kWarps) {
+        const long long prow = row0 + r;
+#pragma unroll
+        for (int j = 0; j < kColsPerLane; ++j) {
+          const int u = lane + 32 * j, col = c_vox + u;
+          if (u >= kp - c_vox || col >= k1) break;
+          if (col < k0) continue;
+          float v = 0.f;
+          if (r < valid_rows && col_src[j] >= 0) {
+            const float x = __ldg(p.pos + prow * 6 + col_src[j]);
+            v = u < 6 ? x : sinf(x * col_scale[j] + col_phase[j]);
+            if constexpr (kSave) {
+              if (save && u >= 6)
+                p.save_trig[prow * n_trig + u - 6] = __float2bfloat16_rn(v);
+            }
+          }
+          X[r * ldc + col - k0] = __float2bfloat16_rn(v);
+        }
+      }
+    };
     // -- a decoder's per-ray layer-1 part: RAY = RF @ ray_w1[:, its half] --
     // (16 rows, the tile's rays among them)
     auto ray_part = [&]() {
@@ -434,7 +477,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     ray_part();
     {
       E1Acc<G> acc;
-      product<kM, kG1>(pipe, X, ldx, kp, acc);
+      if constexpr (kChunk)
+        chunked_product<kG1>(pipe, X, lay.chunk, kp, acc,
+                             [&](int k0, int kn) { chunk_of(k0, kn, true); });
+      else
+        product<kM, kG1>(pipe, X, ldx, kp, acc);
       for_pairs<kM, kG1>(acc, [&](int r, int c, float v0, float v1) {
         const float2 ray =
             *reinterpret_cast<const float2*>(RAY + ray_of(r) * kG1 + c);
@@ -460,7 +507,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     // tail's products acquired their slabs since)
     ray_part();
     E1Acc<G> e1;
-    product<kM, kG1>(pipe, X, ldx, kp, e1);
+    if constexpr (kChunk)
+      chunked_product<kG1>(pipe, X, lay.chunk, kp, e1,
+                           [&](int k0, int kn) { chunk_of(k0, kn, false); });
+    else
+      product<kM, kG1>(pipe, X, ldx, kp, e1);
     if constexpr (kSingle) {  // X is read: the next tile's voxel rows
       __syncthreads();
       if (t + gridDim.x < n_tiles) vox_rows(t + gridDim.x, X);
@@ -496,10 +547,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   pipe.drain();
 }
 
-template <int kMode, int G, bool kSingle>
+template <int kMode, int G, int kLay>
 int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
-  const tile::Smem lay(p.kp, p.crp, G, kSingle);
-  auto kernel = ray_decode_tc<kMode, G, kSingle>;
+  const tile::Smem lay(p.kp, p.crp, G, kLay);
+  auto kernel = ray_decode_tc<kMode, G, kLay>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -511,6 +562,12 @@ int launch_tc(const Params<__nv_bfloat16>& p, void* stream) {
   const long long blocks = tiles < sms ? tiles : sms;  // one per SM
   kernel<<<(unsigned)blocks, kThreads, lay.total, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// rows of an f32 block: 32 where that block fits, else 16
+int f32_rows(int kp, int crp, int g) {
+  return Smem<float>(32, kF32Rays, kp, crp, g).total <= tile::kMaxSmem ? 32
+                                                                      : 16;
 }
 
 template <typename T, int M, int kMode, int G>
@@ -574,21 +631,35 @@ int run(void* const* ptrs, long long n, long long kb, long long c_vox,
   if (kp % 16 || crp % 16 || kp < c_vox + 6 + 12 * multires || crp < c_ray ||
       kb < 1 || kb > kMaxKb)
     return (int)cudaErrorInvalidValue;
-  p.rays = sizeof(T) == 2 ? rays_per_tile((int)kb, tile::kM, kTcRays)
-                          : rays_per_tile((int)kb, 32, kF32Rays);
   if (n == 0) return 0;
   return with_width(g, [&](auto w) {
     constexpr int G = decltype(w)::value;
     if constexpr (sizeof(T) == 2) {
+      p.rays = rays_per_tile((int)kb, tile::kM, kTcRays);
       const tile::Smem lay((int)kp, (int)crp, G);
       if (c_vox % 8 || kp - c_vox > 32 * kColsPerLane ||
           n_iter > (tile::kMaxSegs - 6) / 2 || lay.total > tile::kMaxSmem)
         return (int)cudaErrorInvalidValue;
-      return lay.single ? launch_tc<kMode, G, true>(p, stream)
-                        : launch_tc<kMode, G, false>(p, stream);
-    } else if constexpr (G <= 64) {  // f32 at 128: its blocks do not fit
-      return launch<T, 32, kMode, G>(p, stream);
+      if (lay.layout() == tile::kDouble)
+        return launch_tc<kMode, G, tile::kDouble>(p, stream);
+      if (lay.layout() == tile::kSingle)
+        return launch_tc<kMode, G, tile::kSingle>(p, stream);
+      // at imnet_gf <= 64 the single layout holds every width the
+      // wrappers take (kp 640, crp 1056)
+      if constexpr (G == 128)
+        return launch_tc<kMode, G, tile::kChunked>(p, stream);
+      return (int)cudaErrorInvalidValue;
     } else {
+      const int m = f32_rows((int)kp, (int)crp, G);
+      p.rays = rays_per_tile((int)kb, m, kF32Rays);
+      if (m == 32) return launch<T, 32, kMode, G>(p, stream);
+      // 16 rows: imnet_gf 128 (32 do not fit at any width; at <= 64 they
+      // fit every width the wrappers take)
+      if constexpr (G == 128) {
+        if (Smem<T>(16, kF32Rays, (int)kp, (int)crp, G).total <=
+            tile::kMaxSmem)
+          return launch<T, 16, kMode, G>(p, stream);
+      }
       return (int)cudaErrorInvalidValue;
     }
   });
@@ -613,8 +684,7 @@ int run_any(void* const* ptrs, long long n, long long kb, long long c_vox,
 // ptrs: vox_table, cells, pos, ray_feat, pair_w1, ray_w1, b1, a_vec, c_vec,
 // off_{w2,b2,w3,b3,w4,b4}, prob_{w2,b2,w3,b3,w4,b4}, out_off, out_logit
 // (23 device pointers); n rays of kb pair slots, 1 <= kb <= kMaxKb. g:
-// imnet_gf, in {8, 16, 32, 64, 128} (128 in bf16 only). Returns a
-// cudaError_t.
+// imnet_gf, in {8, 16, 32, 64, 128}. Returns a cudaError_t.
 extern "C" int idt_ray_decode(void* const* ptrs, long long n, long long kb,
                               long long c_vox, long long c_ray,
                               long long multires, long long kp, long long crp,
@@ -660,10 +730,10 @@ extern "C" int idt_ray_decode_save_all(void* const* ptrs, long long n,
 // (ops/ray_decode.py::decode_plan mirrors it).
 extern "C" long long idt_ray_decode_smem(long long kp, long long crp,
                                          long long g, long long is_bf16) {
-  return is_bf16
-             ? (long long)idt::tile::Smem((int)kp, (int)crp, (int)g).total
-             : (long long)Smem<float>(32, kF32Rays, (int)kp, (int)crp, (int)g)
-                   .total;
+  return is_bf16 ? (long long)idt::tile::Smem((int)kp, (int)crp, (int)g).total
+                 : (long long)Smem<float>(f32_rows((int)kp, (int)crp, (int)g),
+                                          kF32Rays, (int)kp, (int)crp, (int)g)
+                       .total;
 }
 
 // ... of K2 'all' (its saves take no shared memory of their own: K1's

@@ -27,13 +27,20 @@
 //
 // Every instance is compiled for the decoder widths 4g -> 2g -> g -> 1 of
 // imnet_gf g in {8, 16, 32, 64, 128} (the template parameter G; the C entry
-// dispatches on g; one library a width, -DIDT_GF), and for two tile heights
-// M (the plan's rows_per_tile, chosen by ops/ray_decode.py::bwd_plan): 64
-// rows in bf16 where Pass A's buffers fit (imnet_gf <= 64, kp <= 400, c_vox
-// <= 256, and the per-ray regions of crp), else 32 rows, which hold layer-1
-// inputs up to kp 640 and c_vox 512, per-ray inputs up to crp 544 and
-// imnet_gf 128 (bf16 only; at 32 rows a ray of kb > 32 slots spans two
-// tiles, as in f32, which always takes 32).
+// dispatches on g; one library a width, -DIDT_GF), and for three tile
+// heights M (the plan's rows_per_tile, chosen by ops/ray_decode.py::bwd_rows,
+// the first whose block fits): 64 rows in bf16 (imnet_gf <= 64, kp <= 400,
+// c_vox <= 256, and the per-ray regions of crp); 32 rows, which hold
+// layer-1 inputs up to kp 640 and c_vox 512 (bf16, and f32 at imnet_gf <=
+// 64); and 16 rows (f32, and bf16 at imnet_gf 128), which hold every width
+// the wrappers take: f32 at imnet_gf 128 (its 32-row block needs ~269 KB
+// at the default widths), f32 at imnet_gf 64 with crp 1056, bf16 at
+// imnet_gf 128 with crp 1056 (the reference's rgb_out 64 with roi_out_bbox
+// 4: the per-ray regions and the 3,080 small sums take the 32-row block
+// ~9 KB past the limit; 16 rows rather than per-ray regions staged in
+// chunks keep the kernel one path, at its register cap). A ray of kb > M
+// slots spans ceil(kb / M) tiles; the per-ray regions hold 4 rays at 16
+// and 32 rows, 8 at 64.
 //
 // The TPU kernel keeps its weight-gradient accumulators in VMEM across a
 // sequential grid. A GPU block has no room for them (1.15 MB at the default
@@ -138,6 +145,16 @@ template <int M>
 constexpr int max_kp() { return M == 64 ? 400 : 640; }
 template <int M>
 constexpr int max_cvox() { return M == 64 ? 256 : 512; }
+// the instances a library holds: 64 rows in bf16 at imnet_gf <= 64, 32 rows
+// but in f32 at imnet_gf 128 (that block never fits), 16 rows in f32 and
+// in bf16 at imnet_gf 128 (at <= 64 the 32-row bf16 block holds every
+// width the wrappers take)
+template <typename T, int M, int G>
+constexpr bool held() {
+  return M == 64   ? sizeof(T) == 2 && G <= 64
+         : M == 32 ? sizeof(T) == 2 || G <= 64
+                   : sizeof(T) == 4 || G == 128;
+}
 
 // -- the plan's fields (ops/ray_decode.py::pack_bwd_plan) ---------------------
 
@@ -548,7 +565,9 @@ __host__ __device__ constexpr size_t align128(size_t b) {
 
 template <typename T, int M, int G>
 struct BwdSmem {
-  static constexpr int kMR = M / 8;  // rays of a tile, at most
+  // rays of a tile, at most (4 at 16 rows: the per-ray products' FMA path
+  // takes rows in fours)
+  static constexpr int kMR = M / 8 > 4 ? M / 8 : 4;
   static constexpr int kG1 = Dims<G>::g1, kG2 = Dims<G>::g2,
                        kLd1 = Dims<G>::ld1, kLd2 = Dims<G>::ld2,
                        kLd3 = Dims<G>::ld3;
@@ -1449,13 +1468,12 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   if (from_all && (p.s_h2 == nullptr || p.s_h3 == nullptr ||
                    p.s_logit == nullptr))
     return (int)cudaErrorInvalidValue;
-  // the tile's rows: the plan's (bf16 64 or 32, f32 32); 64 rows and f32
-  // take imnet_gf <= 64
+  // the tile's rows: the plan's (64, 32 or 16: held)
   auto at_rows = [&](auto m) {
     constexpr int M = decltype(m)::value;
     return with_width(g, [&](auto w) {
       constexpr int G = decltype(w)::value;
-      if constexpr (G > 64 && (M == 64 || sizeof(T) == 4)) {
+      if constexpr (!held<T, M, G>()) {
         return (int)cudaErrorInvalidValue;
       } else {
         if (from_all)
@@ -1473,6 +1491,8 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
   };
   if (plan[kRowsPerTile] == 32)
     return at_rows(std::integral_constant<int, 32>{});
+  if (plan[kRowsPerTile] == 16)
+    return at_rows(std::integral_constant<int, 16>{});
   if constexpr (sizeof(T) == 2) {
     if (plan[kRowsPerTile] == 64)
       return at_rows(std::integral_constant<int, 64>{});
@@ -1495,8 +1515,7 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
 // plan: ops/ray_decode.py::pack_bwd_plan (n_plan int64). events:
 // null, or 2 * n_chunks + 2 CUDA events recorded before the first pass and
 // after each pass, for measurement. g: imnet_gf, in {8, 16, 32, 64, 128}
-// (the library's width; 128 in bf16 at 32 rows only). Returns a
-// cudaError_t.
+// (the library's width). Returns a cudaError_t.
 extern "C" int idt_ray_decode_bwd(void* const* ptrs, const long long* plan,
                                   long long n_plan, long long n,
                                   long long c_vox, long long c_ray,
@@ -1515,8 +1534,8 @@ extern "C" int idt_ray_decode_bwd(void* const* ptrs, const long long* plan,
                               ev, s);
 }
 
-// Dynamic shared memory (bytes) of one Pass A block of M (64 or 32) rows at
-// these widths, or -1 for an instance this library does not hold
+// Dynamic shared memory (bytes) of one Pass A block of M (64, 32 or 16)
+// rows at these widths, or -1 for an instance this library does not hold
 // (ops/ray_decode.py::bwd_smem mirrors it).
 extern "C" long long idt_ray_decode_bwd_smem(long long m, long long crp,
                                              long long n_iter,
@@ -1527,7 +1546,7 @@ extern "C" long long idt_ray_decode_bwd_smem(long long m, long long crp,
     constexpr int M = decltype(rows)::value;
     return with_width(g, [&](auto w) -> int {
       constexpr int G = decltype(w)::value;
-      if constexpr (G > 64 && (M == 64 || sizeof(T) == 4)) {
+      if constexpr (!held<T, M, G>()) {
         return -1;
       } else {
         return (int)BwdSmem<T, M, G>((int)crp, (int)n_iter, (int)small_size)
@@ -1539,6 +1558,9 @@ extern "C" long long idt_ray_decode_bwd_smem(long long m, long long crp,
   if (m == 32)
     r = is_bf16 ? size(__nv_bfloat16(), std::integral_constant<int, 32>{})
                 : size(0.f, std::integral_constant<int, 32>{});
+  else if (m == 16)
+    r = is_bf16 ? size(__nv_bfloat16(), std::integral_constant<int, 16>{})
+                : size(0.f, std::integral_constant<int, 16>{});
   else if (m == 64 && is_bf16)
     r = size(__nv_bfloat16(), std::integral_constant<int, 64>{});
   // with_width's error code for another width: no block is that small

@@ -86,7 +86,10 @@ def _squash(x, use_sigmoid: bool):
 def _q(x, dtype):
     """``x`` rounded to ``dtype``, held in f32. Under autograd the rounding
     is a straight-through step: the gradient reaches ``x`` unrounded, so
-    that weight gradients stay f32 as the JAX kernel accumulates them."""
+    that weight gradients stay f32 as the JAX kernel accumulates them.
+    float64 (the yardstick of the f32 sums): ``x`` in float64."""
+    if dtype == torch.float64:
+        return x.double()
     r = x.to(dtype).float()
     if x.dtype == torch.float32 and torch.is_grad_enabled() and x.requires_grad:
         return x + (r - x).detach()
@@ -276,8 +279,10 @@ def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
 
     pos6 = pos.reshape(n * kb, 6).float()
     trig = _q(trig_block(pos6, multires), dtype)
-    x = torch.cat([_q(vox_table[cells.reshape(-1).long()].float(), dtype),
-                   _q(pos6, dtype), trig], 1)
+    rows = vox_table[cells.reshape(-1).long()]
+    # (float64: the table's gradient summed in float64 too)
+    rows = rows.double() if dtype == torch.float64 else rows.float()
+    x = torch.cat([_q(rows, dtype), _q(pos6, dtype), trig], 1)
     e1 = (_dot(x, w["pair_w1"][:x.shape[1]], dtype)
           + _dot(ray_feat, w["ray_w1"][:c_ray], dtype).repeat_interleave(kb, 0)
           + w["b1"])
@@ -457,15 +462,19 @@ SLAB_ELEMS = 9216      # elements of one weight slab (kSlabElems)
 RING = 3               # weight slabs in shared memory (kRing)
 MAX_SEGS = 24          # products of one tile's schedule (kMaxSegs)
 WARPS, WARPS_N = 8, 4  # warps of a block; along N in the 64-row products
-F32_ROWS = 32          # rows of an f32 block (FMA path)
-# the widest layer-1 inputs the wrappers accept: per pair (kp; K1, K2, K3:
-# pnet_out 512 with multires 10 gives 640), per ray (crp; K1, K3:
-# rgb_out * roi_out_bbox^2 + dir_e, 544 at roi_out_bbox 4). K4's and K6's
-# rows also hold the per-ray part: theirs is the widest whose single-buffered
-# block fits at imnet_gf <= 64. Narrower ones may not fit at imnet_gf 128:
-# decode_plan, bwd_smem say.
-MAX_KP = {"K1": 640, "K2all": 640, "K4": 944, "K6": 944, "K3": 640}
-MAX_CRP = 544
+# rows of an f32 block (FMA path): the first whose block fits (16 at
+# imnet_gf 128, and for K4's and K6's widest rows at any imnet_gf)
+F32_ROWS = (32, 16)
+# the widest layer-1 inputs the wrappers accept, those of every width option
+# of the reference at its extreme at once (pnet_out 512, multires 10,
+# rgb_out 64, roi_out_bbox 4, refine pnet_out 512): per pair (kp; K1, K2,
+# K3: 512 + 6 + 120 -> 640), per ray (crp; K1, K3: rgb_out *
+# roi_out_bbox^2 + dir_e, 1024 + 27 -> 1056); K4's and K6's rows also hold
+# the per-ray part (K4 1616 with the refine model's multires 8, K6 1696).
+# Every block fits at these widths at every compiled imnet_gf (decode_plan's
+# chunked layout and 16-row f32 blocks; bwd_rows' 16-row tiles).
+MAX_KP = {"K1": 640, "K2all": 640, "K4": 1696, "K6": 1696, "K3": 640}
+MAX_CRP = 1056
 MAX_CVOX = 512  # K3's voxel feature width (pnet_out): its d_rows tile
 _SEG_BYTES = 24        # sizeof(Seg)
 # the most pair slots a ray K1, K2 and K3 take (decode_common.cuh kMaxKb): a
@@ -517,6 +526,64 @@ def _regions(sizes):
     return out
 
 
+def _tile_layout(kp: int, crp: int, g: int, k1: bool, kind: str,
+                 chunk: int = 0) -> dict:
+    """``tile::Smem``'s regions in the ``kind`` layout ("double", "single",
+    "chunked": X's buffer ``chunk`` columns wide)."""
+    ld = lambda w: w + TILE_PAD  # noqa: E731
+    xw = chunk if kind == "chunked" else kp
+    xb = TILE_ROWS * ld(xw) * 2 if xw else 0
+    one = kind != "double"
+    out = _regions([
+        ("x0", xb), ("x1", 0 if one else xb),
+        ("rf", TC_RAYS * ld(crp) * 2 if k1 else 0),
+        ("ray", TC_RAYS * 4 * g * 4 if k1 and not one else 0),
+        ("h", TILE_ROWS * ld(4 * g) * 2), ("h2", TILE_ROWS * ld(2 * g) * 2),
+        ("ring", RING * SLAB_ELEMS * 2), ("off", TILE_ROWS * 4),
+        ("logit", TILE_ROWS * 4), ("l4", WARPS_N * TILE_ROWS * 4),
+        ("segs", MAX_SEGS * _SEG_BYTES)])
+    if one:
+        out["x1"] = out["x0"]
+        if k1:
+            out["ray"] = out["h2"]
+    return out
+
+
+def tile_layout(kp: int, crp: int, g: int, k1: bool) -> tuple:
+    """(kind, chunk, regions) of a bf16 decode block: the first of the
+    double, single and chunked layouts that fits MAX_SMEM (the chunked one
+    may not: its total says so). The chunk is the most columns of X that
+    fit beside the other regions, a multiple of the layer-1 product's slab
+    rows (at least one slab), so that every chunk but the last takes whole
+    slabs (``csrc/decode_tile.cuh::Smem``)."""
+    for kind in ("double", "single"):
+        smem = _tile_layout(kp, crp, g, k1, kind)
+        if smem["total"] <= MAX_SMEM:
+            return kind, 0, smem
+    rest = _tile_layout(0, crp, g, k1, "chunked")["total"]
+    ks = slab_rows(4 * g)
+    chunk = min(kp, max(ks, ((MAX_SMEM - rest) // (TILE_ROWS * 2)
+                             - TILE_PAD) // ks * ks))
+    return "chunked", chunk, _tile_layout(kp, crp, g, k1, "chunked", chunk)
+
+
+def _f32_layout(kernel: str, m: int, kp: int, crp: int, g: int) -> dict:
+    """The f32 FMA kernels' ``Smem`` of ``m`` rows a block."""
+    g1, g2, g3 = 4 * g, 2 * g, g
+    x = m * max(kp, g2 + g3) * 4
+    if kernel in ("K1", "K2all"):
+        # c: product scratch, first the per-ray inputs
+        return _regions([("x", x), ("e1", m * g1 * 4),
+                         ("c", max(m * g1, F32_RAYS * crp) * 4),
+                         ("h", m * g1 * 4), ("ray", F32_RAYS * 2 * g1 * 4),
+                         ("off", m * 4), ("logit", m * 4)])
+    if kernel == "K6":
+        return _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
+                         ("h", m * g1 * 4), ("off", m * 4), ("logit", m * 4)])
+    return _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g2 * 4),
+                     ("h", m * g1 * 4), ("off", m * 4)])
+
+
 def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
                 is_bf16: bool = True, n: int = 0, sm_count: int = 132,
                 g: int = 64, kb: int = 8) -> dict:
@@ -533,15 +600,19 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
     block per SM (at most the number of tiles) walks ``tiles`` tiles of
     TILE_ROWS rows (K1: ``rays_per_tile`` whole rays, :func:`tile_rows`);
     ``smem`` holds the byte offset of each region of ``tile::Smem`` and
-    ``"total"``: the double-buffered layout where it fits MAX_SMEM, else
-    (``single``) one X buffer (x1 = x0) and K1's per-ray part in the h2
-    region; ``schedule`` lists each
+    ``"total"``, in the ``layout`` :func:`tile_layout` takes: "double"
+    where it fits MAX_SMEM, else "single" (``single``: one X buffer, x1 =
+    x0, and K1's per-ray part in the h2 region), else "chunked" (also
+    ``single``; x0 holds ``chunk`` columns of X, which each decoder's layer
+    1 takes in ``chunks``: (first column, columns) each; 0 and [] where X is
+    whole); ``schedule`` lists each
     product of a tile in the order its weights stream through the slab
     ring: (operand, first column, k, n, slab rows), ``slabs_per_tile``
     their number, and ``warp_grid`` each product's warps and tiles
-    (:func:`warp_grid`). f32: one block per tile of F32_ROWS rows (K1:
-    ``rays_per_tile`` whole rays or, at kb > F32_ROWS, ``tiles_per_ray``
-    tiles of one ray's slots), the FMA kernels' ``Smem`` (no schedule)."""
+    (:func:`warp_grid`). f32: one block per tile of ``rows_per_tile`` rows,
+    the first of F32_ROWS whose block fits (K1: ``rays_per_tile`` whole
+    rays or, at kb > rows, ``tiles_per_ray`` tiles of one ray's slots), the
+    FMA kernels' ``Smem`` (no schedule)."""
     if kernel not in ("K1", "K2all", "K4", "K6"):
         raise ValueError(f"decode_plan: kernel {kernel!r}")
     k1 = kernel in ("K1", "K2all")
@@ -549,28 +620,7 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
         raise ValueError(f"decode_plan: kb in [1, {MAX_KB}] (got {kb})")
     g1, g2, g3 = 4 * g, 2 * g, g
     if is_bf16:
-        ld = lambda w: w + TILE_PAD  # noqa: E731
-        xb = TILE_ROWS * ld(kp) * 2
-
-        def layout(single):
-            out = _regions([
-                ("x0", xb), ("x1", 0 if single else xb),
-                ("rf", TC_RAYS * ld(crp) * 2 if k1 else 0),
-                ("ray", TC_RAYS * g1 * 4 if k1 and not single else 0),
-                ("h", TILE_ROWS * ld(g1) * 2), ("h2", TILE_ROWS * ld(g2) * 2),
-                ("ring", RING * SLAB_ELEMS * 2), ("off", TILE_ROWS * 4),
-                ("logit", TILE_ROWS * 4), ("l4", WARPS_N * TILE_ROWS * 4),
-                ("segs", MAX_SEGS * _SEG_BYTES)])
-            if single:
-                out["x1"] = out["x0"]
-                if k1:
-                    out["ray"] = out["h2"]
-            return out
-
-        smem = layout(False)
-        single = smem["total"] > MAX_SMEM
-        if single:
-            smem = layout(True)
+        layout, chunk, smem = tile_layout(kp, crp, g, k1)
         tail = [("w2", 0, g1, g2), ("w3", 0, g2, g3)]
         if k1:
             # each decoder's per-ray part just before its layer 1
@@ -595,30 +645,25 @@ def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
         return {"rows_per_tile": rows, "tiles": tiles,
                 "rays_per_tile": rays, "tiles_per_ray": 1,
                 "blocks": min(tiles, sm_count), "smem": smem,
-                "single": single, "schedule": sched,
+                "layout": layout, "single": layout != "double",
+                "chunk": chunk,
+                "chunks": [(k0, min(chunk, kp - k0))
+                           for k0 in range(0, kp, chunk)] if chunk else [],
+                "schedule": sched,
                 "slabs_per_tile": sum(-(-k // s) for _, _, k, _, s in sched),
                 "warp_grid": [warp_grid(16 if op == "ray_w1" else rows, nn)
                               for op, _, _, nn, _ in sched]}
-    m = F32_ROWS
-    x = m * max(kp, g2 + g3) * 4
-    if k1:
-        # c: product scratch, first the per-ray inputs
-        smem = _regions([("x", x), ("e1", m * g1 * 4),
-                         ("c", max(m * g1, F32_RAYS * crp) * 4),
-                         ("h", m * g1 * 4), ("ray", F32_RAYS * 2 * g1 * 4),
-                         ("off", m * 4), ("logit", m * 4)])
-    elif kernel == "K6":
-        smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
-                         ("h", m * g1 * 4), ("off", m * 4), ("logit", m * 4)])
-    else:
-        smem = _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g2 * 4),
-                         ("h", m * g1 * 4), ("off", m * 4)])
+    for m in F32_ROWS:
+        smem = _f32_layout(kernel, m, kp, crp, g)
+        if smem["total"] <= MAX_SMEM:
+            break
     rays = rays_per_tile(kb, m, F32_RAYS) if k1 else 0
     tpr = -(-kb // m) if k1 else 1
     tiles = -(-n // rays) * tpr if k1 else -(-n // m)
     return {"rows_per_tile": m, "tiles": tiles, "rays_per_tile": rays,
             "tiles_per_ray": tpr, "blocks": tiles, "smem": smem,
-            "single": False, "schedule": [], "slabs_per_tile": 0}
+            "layout": "f32", "single": False, "chunk": 0, "chunks": [],
+            "schedule": [], "slabs_per_tile": 0}
 
 
 def warp_grid(rows: int, n: int) -> dict:
@@ -805,21 +850,24 @@ def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
                          dtype=None, saved=None):
     """K3's function in plain PyTorch: autograd of :func:`ray_decode_plain`
     at the operands ``w`` (compute ``dtype``) -> (d_vox_table, d_ray_feat,
-    {operand: gradient}), all f32. With ``saved`` (K2's e1, z1p, trig, or
-    K2 'all''s full saves, :func:`save_names`) the decode starts from the
+    {operand: gradient}), all f32 (float64 with ``dtype`` float64: every
+    sum of the f32 function in float64, the yardstick against which f32
+    sums in two orders are told apart). With ``saved`` (K2's e1, z1p, trig,
+    or K2 'all''s full saves, :func:`save_names`) the decode starts from the
     saved values, as K3 does (``from_saves`` of :func:`ray_decode_plain`)."""
+    ft = torch.float64 if dtype == torch.float64 else torch.float32
     with torch.enable_grad():
-        leaves = {k: w[k].detach().float().requires_grad_()
+        leaves = {k: w[k].detach().to(ft).requires_grad_()
                   for k in _K1_WEIGHTS}
-        vt = vox_table.detach().float().requires_grad_()
-        rf = ray_feat.detach().float().requires_grad_()
+        vt = vox_table.detach().to(ft).requires_grad_()
+        rf = ray_feat.detach().to(ft).requires_grad_()
         wq = {**w, **leaves}
         wq.update({k: _q(wq[k], dtype) for k in _ROUNDED_BIASES})
         off, logit = ray_decode_plain(
             vt, cells, pos, rf, wq, n_iter=n_iter, init_offset=init_offset,
             use_sigmoid=use_sigmoid, dtype=dtype, from_saves=saved)
         grads = torch.autograd.grad((off, logit), [vt, rf, *leaves.values()],
-                                    (g_off.float(), g_logit.float()))
+                                    (g_off.to(off.dtype), g_logit.to(off.dtype)))
     return grads[0], grads[1], dict(zip(leaves, grads[2:]))
 
 
@@ -898,9 +946,9 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
     of whole tiles of rays: at most ``chunk_rays`` rays, and at most the
     pair rows of the chunks kb 8 takes at this batch, so that K3's scratch
     at any kb is no larger than kb 8's. A tile of ``rows_per_tile`` pair
-    rows (:func:`bwd_rows`: 64 in bf16 where Pass A's block fits, else 32;
-    32 in f32) holds ``rays_per_tile`` whole rays or, at 32 rows and kb >
-    32, a ray's slots spread over ``tiles_per_ray`` tiles
+    rows (:func:`bwd_rows`: 64 in bf16 where Pass A's block fits, else 32,
+    else 16) holds ``rays_per_tile`` whole rays or, at kb > its rows, a
+    ray's slots spread over ``tiles_per_ray`` tiles
     (:func:`tile_rows`). Pass A runs on a persistent grid of ``blocks_a``
     blocks and writes each weight gradient's operands into the streams
     (``streams``: {name: (element offset, rows per instance, width,
@@ -929,7 +977,7 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         small[k] = s_off
         s_off = _align(s_off + math.prod(layout[k][1]), 4)
     m = bwd_rows(kp, crp, c_vox, n_iter, s_off, g, is_bf16)
-    mr = rays_per_tile(kb, m, m // 8)
+    mr = rays_per_tile(kb, m, max(4, m // 8))
     tpr = -(-kb // m)
     # the rays of kb 8's chunk at this batch (its tiles: m // 8 rays)
     chunk8 = _align(-(-n // -(-n // chunk_rays)), m // 8)
@@ -997,16 +1045,16 @@ K3_STAGE_ELEMS = 2 * 128 * (64 + 8)  # Pass A's weight slabs (kStageElems)
 def bwd_smem(m: int, g: int, crp: int, n_iter: int, small_size: int,
              is_bf16: bool) -> int:
     """Bytes of dynamic shared memory of one K3 Pass A block of ``m`` rows
-    (64 or 32) at imnet_gf ``g``, per-ray width ``crp``, ``n_iter`` IEF
+    (64, 32 or 16) at imnet_gf ``g``, per-ray width ``crp``, ``n_iter`` IEF
     iterations and ``small_size`` floats of small sums: BwdSmem of
     ``csrc/ray_decode_bwd.cu``. At 64 rows X (kp <= 400) spans the H1 and
-    H2 tiles and the d_rows tile holds c_vox <= 256; at 32 rows kp <= 640,
-    c_vox <= 512."""
+    H2 tiles and the d_rows tile holds c_vox <= 256; at 32 and 16 rows kp
+    <= 640, c_vox <= 512. The per-ray regions hold max(4, m / 8) rays."""
     es = 2 if is_bf16 else 4
     g1, g2, g3 = 4 * g, 2 * g, g
     ld1, ld2, ld3 = g1 + 8, g2 + 8, g3 + 8
     max_kp, max_cvox = (400, 256) if m == 64 else (640, 512)
-    mr = m // 8
+    mr = max(4, m // 8)
     a = lambda b: _align(b, 128)  # noqa: E731
     o = a(m * max(ld1, max_kp - ld2) * es)             # H1 | X
     o = a(o + m * ld2 * es)                             # H2
@@ -1025,25 +1073,36 @@ def bwd_smem(m: int, g: int, crp: int, n_iter: int, small_size: int,
     return a(o + small_size * 4)
 
 
+def bwd_held(m: int, g: int, is_bf16: bool) -> bool:
+    """Whether K3's libraries hold a Pass A instance of ``m`` rows
+    (``csrc/ray_decode_bwd.cu::held``): 64 rows in bf16 at imnet_gf <= 64;
+    32 rows but in f32 at 128 (that block never fits); 16 rows in f32 and
+    in bf16 at 128 (at <= 64 the 32-row bf16 block holds every width the
+    wrapper takes)."""
+    return {64: is_bf16 and g <= 64, 32: is_bf16 or g <= 64,
+            16: not is_bf16 or g == 128}[m]
+
+
 def bwd_rows(kp: int, crp: int, c_vox: int, n_iter: int, small_size: int,
              g: int, is_bf16: bool) -> int:
-    """K3's Pass A tile rows: 64 in bf16 where that block fits (imnet_gf
-    <= 64, kp <= 400, c_vox <= 256, :func:`bwd_smem`), else 32; raises
-    where neither fits, naming the limit (f32 takes imnet_gf <= 64)."""
-    if is_bf16 and g <= 64 and kp <= 400 and c_vox <= 256 and bwd_smem(
-            64, g, crp, n_iter, small_size, True) <= MAX_SMEM:
-        return 64
-    if g > 64 and not is_bf16:
-        raise ValueError(f"ray_decode_bwd kernel takes imnet_gf up to 64 in "
-                         f"f32 (got {g})")
-    size = bwd_smem(32, g, crp, n_iter, small_size, is_bf16)
-    if kp > MAX_KP["K3"] or c_vox > MAX_CVOX or size > MAX_SMEM:
-        raise ValueError(f"ray_decode_bwd: widths kp={kp}, c_vox={c_vox}, "
-                         f"crp={crp}, imnet_gf {g} do not fit Pass A (kp up "
-                         f"to {MAX_KP['K3']}, c_vox up to {MAX_CVOX}; "
-                         f"{size} bytes of shared memory, at most "
-                         f"{MAX_SMEM})")
-    return 32
+    """K3's Pass A tile rows: the first of 64, 32 and 16 whose block the
+    libraries hold (:func:`bwd_held`) and fits (64: kp <= 400, c_vox <=
+    256; :func:`bwd_smem`); raises past the limits, naming them."""
+    if kp > MAX_KP["K3"] or c_vox > MAX_CVOX or crp > MAX_CRP:
+        raise ValueError(f"ray_decode_bwd kernel takes kp up to "
+                         f"{MAX_KP['K3']}, c_vox up to {MAX_CVOX} and crp up "
+                         f"to {MAX_CRP} (got kp={kp}, c_vox={c_vox}, "
+                         f"crp={crp})")
+    for m in (64, 32, 16):
+        if m == 64 and (kp > 400 or c_vox > 256):
+            continue
+        size = bwd_smem(m, g, crp, n_iter, small_size, is_bf16)
+        if bwd_held(m, g, is_bf16) and size <= MAX_SMEM:
+            return m
+    raise ValueError(f"ray_decode_bwd: widths kp={kp}, c_vox={c_vox}, "
+                     f"crp={crp}, imnet_gf {g} do not fit Pass A ({size} "
+                     f"bytes of shared memory at 16 rows, at most "
+                     f"{MAX_SMEM})")
 
 
 def bwd_scratch_bytes(plan: dict, elem_bytes: int) -> int:

@@ -5,7 +5,14 @@ shapes, beside another version of the port, on one NVIDIA GPU.
 
     python3 implicit_depth_torch/utils/time_decodes.py [--baseline DIR]
         [--kb 8 [4 12 16 ...]] [--gf 64 [8 16 32 ...]] [--rounds 1]
+        [--dtype bfloat16|float32] [--model default|W7]
         [--out build/time_decodes.json]
+
+``--model W7`` sets the layer-1 widths of every width option of the
+reference at its extreme at once (pnet_out 512, multires 10, rgb_out 64,
+roi_out_bbox 4; imnet_gf is ``--gf``'s, so W2 is the default widths at
+``--gf 128``); ``--dtype`` the operands' type (the f32 instances are the
+card-vs-CPU cross-checks').
 
 The operands are drawn from a seed with numpy, the same in every version:
 K1 and K4 on a served 480x640 frame (76,800 rays of kb pair slots, for
@@ -24,7 +31,9 @@ was taken) times nothing there: null. K1, K2 and K3 are keyed "<kernel>
 kb<kb>". The versions run in turns, baseline first (baseline, this tree,
 this tree, baseline), ``--rounds`` times. Writes ``--out`` and prints each
 kernel's times and this tree's over the baseline's. At an imnet_gf other
-than 64 every key ends in " gf<g>".
+than 64 every key ends in " gf<g>", then " <model>" at other widths than
+the default and " f32" in float32. A version that refuses a width times
+nothing there: null.
 """
 
 from __future__ import annotations
@@ -41,6 +50,9 @@ SEED = 0
 # the default model's widths
 C_VOX, C_ROI, C_DIR, MULTIRES = 128, 128, 27, 8
 C_END, C_POS = 128, 51
+# (pnet_out, roi features, multires, refine pnet_out) of each width set
+MODELS = {"default": (C_VOX, C_ROI, MULTIRES, C_END),
+          "W7": (512, 1024, 10, 512)}
 SERVE_RAYS, TRAIN_RAYS, CELLS = 76800, 80000, 729
 GLOBAL_ROWS, GLOBAL_COUNT, DENSE_SLOTS = 614400, 215040, 20
 
@@ -74,10 +86,10 @@ def _time(fn, warmup=2, reps=10):
     return statistics.median(times)
 
 
-def worker(budgets, gfs):
+def worker(budgets, gfs, dtype="bfloat16", model="default"):
     """Times every kernel with the package on sys.path, at each imnet_gf of
-    ``gfs``, K1-K3 at each of ``budgets``; prints one JSON line {kernel:
-    ms}."""
+    ``gfs``, K1-K3 at each of ``budgets``, the widths of ``model`` in
+    ``dtype``; prints one JSON line {kernel: ms}."""
     import torch
 
     from implicit_depth_torch.ops import cuda
@@ -85,22 +97,27 @@ def worker(budgets, gfs):
     cuda.build_all()
     out = {}
     for g in gfs:
-        tag = "" if g == 64 else f" gf{g}"
-        out.update({k + tag: v for k, v in times_at(budgets, 4 * g).items()})
+        tag = ("" if g == 64 else f" gf{g}") + (
+            "" if model == "default" else f" {model}") + (
+            " f32" if dtype == "float32" else "")
+        out.update({k + tag: v for k, v in times_at(
+            budgets, 4 * g, getattr(torch, dtype), MODELS[model]).items()})
         torch.cuda.empty_cache()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "ms": out}),
           flush=True)
 
 
-def times_at(budgets, gf4):
-    """{kernel: ms} of every kernel with decoders 4g = ``gf4`` wide."""
+def times_at(budgets, gf4, bf=None, widths=MODELS["default"]):
+    """{kernel: ms} of every kernel with decoders 4g = ``gf4`` wide, in the
+    type ``bf`` (default bf16), at the layer-1 ``widths`` (MODELS)."""
     import numpy as np
     import torch
 
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
 
-    dev, bf = torch.device("cuda"), torch.bfloat16
+    C_VOX, C_ROI, MULTIRES, C_END = widths
+    dev, bf = torch.device("cuda"), bf or torch.bfloat16
     rng = np.random.default_rng(SEED)
 
     def t(a, dtype=torch.float32):
@@ -158,7 +175,7 @@ def times_at(budgets, gf4):
                               C_POS, C_DIR, bf)
     rows = tuple(t(rng.normal(size=(SERVE_RAYS, c)), bf)
                  for c in (C_END, c_rc, C_POS))
-    out["K4"] = _time(lambda: rd.ief_decode(*rows, k4w))
+    out["K4"] = timed(lambda: rd.ief_decode(*rows, k4w))
     k6w = pd.prep_pair_decode_weights(w, C_VOX, C_ROI, C_DIR, MULTIRES, bf)
     table, ray_feat = serve[0], serve[3]
     for name, p, indexed, count in (
@@ -170,17 +187,19 @@ def times_at(budgets, gf4):
                 if indexed else None)
         kw = {} if count is None else {
             "n_rows": torch.tensor(count, dtype=torch.int32, device=dev)}
-        out[name] = _time(lambda: pd.pair_decode(*args, **kw))
+        out[name] = timed(lambda: pd.pair_decode(*args, **kw))
     return out
 
 
-def run_version(root: Path, budgets, gfs) -> dict:
+def run_version(root: Path, budgets, gfs, dtype="bfloat16",
+                model="default") -> dict:
     """One worker process with the package of ``root``."""
     code = ("import sys; sys.path.insert(0, %r); "
             "sys.argv = ['time_decodes', '--worker', '--kb', *%r, '--gf', "
-            "*%r]; __file__ = %r; exec(open(__file__).read())") % (
+            "*%r, '--dtype', %r, '--model', %r]; __file__ = %r; "
+            "exec(open(__file__).read())") % (
                 str(root), [str(kb) for kb in budgets],
-                [str(g) for g in gfs], __file__)
+                [str(g) for g in gfs], dtype, model, __file__)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=root)
     if res.returncode != 0:
@@ -198,11 +217,15 @@ def main():
                     help="pair slots a ray of K1-K3's operands")
     ap.add_argument("--gf", type=int, nargs="+", default=[64],
                     help="imnet_gf of the decoders")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--model", choices=list(MODELS), default="default",
+                    help="the layer-1 widths of the widest options")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.worker:
-        worker(args.kb, args.gf)
+        worker(args.kb, args.gf, args.dtype, args.model)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -215,7 +238,8 @@ def main():
              else ["this"]) * args.rounds
     runs = {v: [] for v in versions}
     for v in order:
-        got = run_version(versions[v], args.kb, args.gf)
+        got = run_version(versions[v], args.kb, args.gf, args.dtype,
+                          args.model)
         runs[v].append(got["ms"])
         print(v, json.dumps(got["ms"]), flush=True)
     summary = {}

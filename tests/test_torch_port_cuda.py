@@ -380,10 +380,12 @@ def test_decode_plan_is_the_kernels_layout(dev):
     """ops/ray_decode.py::decode_plan's shared memory is the kernels' own
     (each C library reports its layout's size): K1, K2 'all', K4, K6, at
     every imnet_gf the kernels are compiled for, at the default widths, the
-    reference's options' (W1-W6: kp 640, crp 288 and 544; K4's rows 464 and
-    720, K6's 528, 784 and 800) and the limits, the single layout where the
-    double one does not fit; and K3's Pass A (``bwd_smem``) at 64 and 32
-    rows a tile, -1 where the library holds no such instance."""
+    reference's options' (W1-W7: kp 640, crp 288, 544 and 1056; K4's rows
+    464, 720 and 1616, K6's 528, 784, 800 and 1696) and the limits, the
+    single layout where the double one does not fit, the chunked one where
+    neither does, f32 blocks of 16 rows where 32 do not fit; and K3's Pass
+    A (``bwd_smem``) at 64, 32 and 16 rows a tile, -1 where the library
+    holds no such instance (``bwd_held``)."""
     k1 = cuda.library("ray_decode").idt_ray_decode_smem
     k2all = cuda.library("ray_decode").idt_ray_decode_save_all_smem
     k4 = cuda.library("ief_decode").idt_ief_decode_smem
@@ -391,33 +393,37 @@ def test_decode_plan_is_the_kernels_layout(dev):
     k1.argtypes = k2all.argtypes = [cuda.I64] * 4
     k4.argtypes = k6.argtypes = [cuda.I64] * 3
     k1.restype = k2all.restype = k4.restype = k6.restype = ctypes.c_longlong
-    singles = 0
+    layouts = set()
     for g in rd.DECODER_GF:
         for bf16 in (True, False):
             for kp, crp in ((240, 160), (256, 256), (368, 160), (32, 16),
-                            (240, 288), (240, 544), (640, 160),
+                            (240, 288), (240, 544), (640, 160), (640, 544),
                             (rd.MAX_KP["K1"], rd.MAX_CRP)):
                 plan = rd.decode_plan("K1", kp, crp, is_bf16=bf16, g=g)
-                singles += plan["single"]
+                layouts.add((plan["layout"], plan["rows_per_tile"]))
                 assert k1(kp, crp, g, bf16) == plan["smem"]["total"]
                 assert k2all(kp, crp, g, bf16) == rd.decode_plan(
                     "K2all", kp, crp, is_bf16=bf16, g=g)["smem"]["total"]
-            for kp in (336, 384, 16, 464, 720, rd.MAX_KP["K4"]):
-                assert k4(kp, g, bf16) == rd.decode_plan(
-                    "K4", kp, is_bf16=bf16, g=g)["smem"]["total"]
-            for kp in (400, 528, 784, 800, rd.MAX_KP["K6"], 16):
-                assert k6(kp, g, bf16) == rd.decode_plan(
-                    "K6", kp, is_bf16=bf16, g=g)["smem"]["total"]
+            for kp in (336, 384, 16, 464, 720, 944, 1616, rd.MAX_KP["K4"]):
+                plan = rd.decode_plan("K4", kp, is_bf16=bf16, g=g)
+                layouts.add((plan["layout"], plan["rows_per_tile"]))
+                assert k4(kp, g, bf16) == plan["smem"]["total"]
+            for kp in (400, 528, 784, 800, 944, rd.MAX_KP["K6"], 16):
+                plan = rd.decode_plan("K6", kp, is_bf16=bf16, g=g)
+                layouts.add((plan["layout"], plan["rows_per_tile"]))
+                assert k6(kp, g, bf16) == plan["smem"]["total"]
         k3 = cuda.library(f"ray_decode_bwd_g{g}").idt_ray_decode_bwd_smem
         k3.argtypes = [cuda.I64] * 6
         k3.restype = ctypes.c_longlong
-        for crp in (160, 288, 544):
+        for crp in (160, 288, 544, 1056):
             small = rd.bwd_plan(1, 240, crp, 2, True, 132, g=g)["small_size"]
-            for m, bf16 in ((64, True), (32, True), (32, False)):
-                built = g <= 64 or (m == 32 and bf16)
+            for m, bf16 in ((64, True), (32, True), (32, False), (16, True),
+                            (16, False)):
+                built = rd.bwd_held(m, g, bf16)
                 want = rd.bwd_smem(m, g, crp, 2, small, bf16) if built else -1
                 assert k3(m, crp, 2, small, g, bf16) == want, (g, crp, m)
-    assert singles > 0
+    assert {("single", 64), ("chunked", 64), ("f32", 32),
+            ("f32", 16)} <= layouts
 
 
 def _rel_norm(a, b):
@@ -609,7 +615,8 @@ def test_ray_decode_bwd_at_every_width(dev, dtype, gf, saves_of,
 # operands padded where they are made (_decode_case, _pair_case, _ief_case)
 MODEL_WIDTHS = {"W1": {"gf": 48}, "W2": {"gf": 128}, "W3": {"c_roi": 256},
                 "W4": {"c_roi": 512}, "W5": {"cv": 100},
-                "W6": {"cv": 512, "multires": 10}}
+                "W6": {"cv": 512, "multires": 10},
+                "W7": {"gf": 128, "cv": 512, "multires": 10, "c_roi": 1024}}
 
 
 def _width_forwards(dev, dtype, wd):
@@ -655,21 +662,32 @@ def _width_forwards(dev, dtype, wd):
         _close(got, pd.pair_decode_plain(*case), ATOL[dtype])
 
 
-def _width_bwd(dev, dtype, wd):
+def _width_bwd(dev, dtype, wd, n_table=146):
     """K3's three instances at the widths ``wd`` against their plain
     versions (relative norm 1e-4 f32, 2e-2 bf16), over several chunks and
     Pass B splits; a second launch the same bits of every gradient. The
-    table has about the default model's rows a cell (219 at the training
-    step's 640,000 pair rows over 2,916 cells): d_vox_table sums each
-    cell's rows, and over the 30 cells of ``_decode_case`` (1,067 rows
-    each, with random cotangents that largely cancel) the f32 relative
-    error of d_vox_table read 1.31e-4 at W3 on an H100, past this file's
-    1e-4 for a reason of summation order, not of the kernel."""
+    table has about the default model's rows a cell (``n_table`` 146: 219
+    at the training step's 640,000 pair rows over 2,916 cells), or 30
+    cells of 1,067 rows each. There, in f32, the yardstick is the plain
+    version in float64 (``utils/k3_against_f64.py``): on an H100 the f32
+    plain version and K3 from K2 'all''s saves lay 2.4e-4-3.9e-4 from it
+    (W3's d_vox_table 3.68e-4 and 3.85e-4), and K3 from K2's saves or
+    recomputing 1.31e-4 from the f32 plain version at W3, its offset
+    decoder's gradients too: K3 recomputes the IEF's forward in its
+    own order, and with random cotangents over 1,067 rows a cell an input
+    of a LeakyReLU or soft clamp within f32 rounding of its kink takes the
+    other slope. K3 must then lie within 1e-4 plus twice the larger of the
+    f32 plain version's distance from float64 and the float64 gradient's
+    own movement under a jitter of the inputs at f32's rounding
+    (``f64_reference``: sixteen ulps)."""
+    from implicit_depth_torch.utils.k3_against_f64 import f64_reference, rel
     rng = np.random.default_rng(81)
-    w32, args, cot = _decode_case(rng, dev, dtype, n=4000, n_table=146,
+    w32, args, cot = _decode_case(rng, dev, dtype, n=4000, n_table=n_table,
                                   **wd)
     w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
     tol = 1e-4 if dtype == "float32" else 2e-2
+    exact = f64_reference(args, w32, cot) if (
+        dtype == "float32" and n_table == 30) else None
     for saves_of in ("l1", None, "all"):
         saves = _k2_saves(args, w, saves_of)
         before = rd.ray_decode_bwd.launches
@@ -682,12 +700,114 @@ def _width_bwd(dev, dtype, wd):
         want = {"d_table": ref[0], "d_ray_feat": ref[1], **ref[2]}
         for k, g in got.items():
             assert g.shape == want[k].shape and torch.isfinite(g).all(), k
-            assert _rel_norm(g, want[k]) <= tol, (saves_of, k,
-                                                  _rel_norm(g, want[k]))
+            if exact is None:
+                assert _rel_norm(g, want[k]) <= tol, (saves_of, k,
+                                                      _rel_norm(g, want[k]))
+            else:
+                ref64, moved = exact
+                bar = tol + 2 * max(rel(want[k], ref64[k]), moved[k])
+                assert rel(g, ref64[k]) <= bar, (saves_of, k,
+                                                 rel(g, ref64[k]), bar)
         again = rd.ray_decode_bwd(*args, w, saves, *cot)
         assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_rf)
         for k in d_w:
             assert torch.equal(again[2][k], d_w[k]), k
+
+
+# exact operands (test_decode_layouts_are_exact_on_exact_operands): the
+# default widths (the double layout), W7 at imnet_gf 128 (K1, K4 and K6
+# chunked) and W7's inputs at imnet_gf 64 (K1 single, K4 and K6 chunked)
+EXACT_WIDTHS = {"default": {},
+                "W7": MODEL_WIDTHS["W7"],
+                "W7 at imnet_gf 64": {**MODEL_WIDTHS["W7"], "gf": 64}}
+
+
+def _sparse(rng, a, b, k=8):
+    """(a, b): k entries of 1/64 in each column, the others 0."""
+    w = np.zeros((a, b))
+    for j in range(b):
+        w[rng.choice(a, min(k, a), replace=False), j] = 1 / 64
+    return w
+
+
+def _exact_mlp(rng, prefix, in_dim, gf4, b4, w):
+    for i, (a, b) in enumerate([(in_dim, gf4), (gf4, gf4 // 2),
+                                (gf4 // 2, gf4 // 4), (gf4 // 4, 1)], 1):
+        w[f"{prefix}w{i}"] = _sparse(rng, a, b)
+        w[f"{prefix}b{i}"] = np.zeros((b,))
+    w[f"{prefix}b4"] = np.full((1,), b4)
+
+
+@pytest.mark.parametrize("case", list(EXACT_WIDTHS))
+def test_decode_layouts_are_exact_on_exact_operands(dev, case):
+    """bf16 K1, K2, K4 and K6 (``global`` rows and the dense layout) on
+    operands whose every f32 sum is exact, whatever its order: inputs in
+    {0, 1, 2}, positions 0 (each sin 0, each cos 1), weights 1/64 at 8
+    places a column and 0 elsewhere, biases 0 but the last, no offset
+    encoder. Each activation is then the same f32 value in the kernel and
+    in the plain version, rounded to the same bf16, so the two agree but
+    for the soft clamp's rounding (1e-6) and K2's saves bit for bit; a
+    column of X staged twice, dropped or shifted at a chunk's edge would
+    move a sum by 1/64 of an input. The plans' layouts are the ones named
+    (EXACT_WIDTHS)."""
+    wd = EXACT_WIDTHS[case]
+    gf, cv = wd.get("gf", 64), wd.get("cv", 128)
+    c_roi, multires, c_dir = wd.get("c_roi", 128), wd.get("multires", 8), 27
+    rng = np.random.default_rng(61)
+    bf = torch.bfloat16
+
+    def ints(*shape, dtype=bf):
+        return _t(rng.integers(0, 3, shape), dev, dtype)
+
+    c_embed = cv + c_roi + 6 * (1 + 2 * multires) + c_dir
+    w = {"off_enc_w": np.zeros((1, 16)), "off_enc_b": np.zeros((16,))}
+    _exact_mlp(rng, "off_", c_embed + 16, 4 * gf, 0.25, w)
+    _exact_mlp(rng, "prob_", c_embed, 4 * gf, 0.5, w)
+    wt = {k: _t(v, dev) for k, v in w.items()}
+    wk = rd.prep_ray_decode_weights(wt, cv, c_roi, c_dir, multires, bf)
+    n, kb = 8 * 132 * 2 + 5, 8
+    table = rd.pad_columns(ints(30, cv), wk["dims"][0])
+    args = (table, _t(rng.integers(0, 30, (n, kb)), dev, torch.int32),
+            torch.zeros((n, kb, 6), device=dev), ints(n, c_roi + c_dir))
+    layouts = {"K1": rd.decode_plan("K1", wk["pair_w1"].shape[0],
+                                    wk["ray_w1"].shape[0],
+                                    g=rd.compiled_gf(gf))["layout"]}
+    k1 = rd.ray_decode(*args, wk)
+    off, logit, saves = rd.ray_decode_save(*args, wk)
+    ref = rd.ray_decode_plain(*args, wk, saves=True)
+    torch.cuda.synchronize()
+    assert torch.equal(off, k1[0]) and torch.equal(logit, k1[1])
+    for g, r in zip(k1, ref[:2]):
+        assert (g - r).abs().max().item() <= 1e-6
+    for name, g, r in zip(("e1", "z1p", "trig"), saves, ref[2]):
+        assert torch.equal(g, r), name
+    iw = {"enc_w": np.zeros((1, 16)), "enc_b": np.zeros((16,))}
+    c_rc, c_pos = c_roi + c_dir, 51
+    _exact_mlp(rng, "", cv + c_rc + c_pos + 16, 4 * gf, 0.25, iw)
+    pw = rd.prep_ief_weights({k: _t(v, dev) for k, v in iw.items()}, cv, c_rc,
+                             c_pos, c_dir, bf)
+    rows = (rd.pad_columns(ints(8 * n, cv), pw["dims"][0]), ints(8 * n, c_rc),
+            ints(8 * n, c_pos))
+    layouts["K4"] = rd.decode_plan("K4", pw["w1"].shape[0],
+                                   g=rd.compiled_gf(gf))["layout"]
+    got = rd.ief_decode(*rows, pw)
+    assert (got - rd.ief_decode_plain(*rows, pw)).abs().max().item() <= 1e-6
+    k6w = pd.prep_pair_decode_weights(wt, cv, c_roi, c_dir, multires, bf)
+    layouts["K6"] = rd.decode_plan("K6", k6w["w1"].shape[0],
+                                   g=rd.compiled_gf(gf))["layout"]
+    p = 20 * 846
+    for rays in (_t(rng.integers(0, 846, p), dev, torch.int32), None):
+        case6 = (table, _t(rng.integers(0, 30, p), dev, torch.int32),
+                 torch.zeros((p, 6), device=dev), ints(846, c_roi + c_dir),
+                 k6w, rays)
+        for g, r in zip(pd.pair_decode(*case6), pd.pair_decode_plain(*case6)):
+            assert (g - r).abs().max().item() <= 1e-6
+    assert layouts == {"default": {"K1": "double", "K4": "double",
+                                   "K6": "double"},
+                       "W7": {"K1": "chunked", "K4": "chunked",
+                              "K6": "chunked"},
+                       "W7 at imnet_gf 64": {"K1": "single", "K4": "chunked",
+                                             "K6": "chunked"}}[case]
 
 
 def _refuses(match, *calls):
@@ -699,15 +819,14 @@ def _refuses(match, *calls):
 @pytest.mark.parametrize("case", [*MODEL_WIDTHS, "past the limits"])
 def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev, case,
                                                               monkeypatch):
-    """W1-W6 (MODEL_WIDTHS): K1, K2 (both save modes), K3 (its three
+    """W1-W7 (MODEL_WIDTHS): K1, K2 (both save modes), K3 (its three
     instances), K4 and K6 take the widths of the reference's options, each
     against its plain version in bf16 and f32, at this file's tolerances
-    (imnet_gf 128 in f32: K1's, K3's and K6's blocks do not fit, and each
-    names its limit; K4's fits). Past the limits each refuses, naming the
+    (imnet_gf 128 in f32 on blocks of 16 rows; W7's widest inputs in bf16
+    on the chunked layout). Past the limits each refuses, naming the
     limit: imnet_gf 136 (K1-K3's wrappers; K4's and K6's operands, padded
-    where they are made), kp 672, crp 560, c_vox 528 (K3), K4's and K6's
-    rows 960 and 976, and at imnet_gf 128 a kp whose block does not
-    fit."""
+    where they are made), kp 672, crp 1072, c_vox 528 (K3), K4's and K6's
+    rows 1712."""
     monkeypatch.setattr(rd, "K3_CHUNK_RAYS", 1500)
     monkeypatch.setattr(rd, "K3_SPLIT_ROWS", 1000)
     rng = np.random.default_rng(60)
@@ -715,19 +834,9 @@ def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev, case,
         wd = MODEL_WIDTHS[case]
         gf, cv = wd.get("gf", 64), wd.get("cv", 128)
         for dtype in ("bfloat16", "float32"):
-            if dtype == "float32" and gf > 64:
-                w32, args, cot = _decode_case(rng, dev, dtype, n=10, **wd)
-                w = rd.cast_ray_decode_operands(w32, torch.float32)
-                _refuses("shared memory", *(lambda f=f: f(*args, w) for f in (
-                    rd.ray_decode, rd.ray_decode_save,
-                    rd.ray_decode_save_all)),
-                    lambda: pd.pair_decode(*_pair_case(
-                        rng, dev, dtype, 40, 2, True, **wd)))
-                _refuses("imnet_gf up to 64 in f32",
-                         lambda: rd.ray_decode_bwd(*args, w, None, *cot))
-            else:
-                _width_forwards(dev, dtype, wd)
-                _width_bwd(dev, dtype, wd)
+            _width_forwards(dev, dtype, wd)
+            for n_table in (146, 30):
+                _width_bwd(dev, dtype, wd, n_table)
             rows, pw = _ief_case(rng, dev, dtype, 8 * 2117, c_end=cv,
                                  c_rc=wd.get("c_roi", 128) + 27, gf=gf)
             before = rd.ief_decode.launches
@@ -754,20 +863,18 @@ def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev, case,
                                                 True, gf=136)))
     # kp 672: c_vox 554 (padded to 560) with multires 8
     _refuses("kp up to 640", *k1_calls(cv=554))
-    # crp 560: roi 533 + dir_e 27
-    _refuses("crp up to 544", *k1_calls(c_roi=533))
+    # crp 1072: roi 1045 + dir_e 27
+    _refuses("crp up to 1056", *k1_calls(c_roi=1045))
     # K3's d_rows tile: c_vox 520 (padded to 528; kp 640 with multires 8)
     _refuses("c_vox up to 512", k1_calls(cv=520)[-1])
-    # K4's and K6's rows 960 and 976: c_end 752 (+ 155 + 51), c_vox 696
-    # (padded to 704; + 160 + 102)
-    _refuses("kp up to 944", lambda: rd.ief_decode(*_ief_case(
-        np.random.default_rng(1), dev, "bfloat16", 10, c_end=752)[0],
+    # K4's and K6's rows 1712: c_end 1496 (+ 155 + 51), c_vox 1440 (+ 160
+    # + 102)
+    _refuses("kp up to 1696", lambda: rd.ief_decode(*_ief_case(
+        np.random.default_rng(1), dev, "bfloat16", 10, c_end=1496)[0],
         _ief_case(np.random.default_rng(1), dev, "bfloat16", 10,
-                  c_end=752)[1]),
+                  c_end=1496)[1]),
         lambda: pd.pair_decode(*_pair_case(rng, dev, "bfloat16", 40, 2, True,
-                                           cv=696)))
-    # imnet_gf 128 at kp 640: K1's single-buffered block does not fit
-    _refuses("shared memory", *k1_calls(gf=128, cv=512, multires=10)[:3])
+                                           cv=1440)))
 
 
 # -- every per-ray pair budget: kb 1 (16 rays of a bf16 tile, most rows

@@ -191,6 +191,74 @@ def test_schedule_streams_each_weight_from_its_slabs(kernel):
         assert used["w1"] == [(0, 256)] and len(used["w2"]) == 2
 
 
+# (layer-1 widths a kernel, imnet_gf) of the default model, of the
+# reference's imnet_gf 128 (W2) and of every width option at its extreme
+# at once (W7: pnet_out 512, multires 10, rgb_out 64, roi_out_bbox 4; K4's
+# rows with the refine model's multires 8)
+RING_WIDTHS = {"default": (DEFAULT, 64), "W2": (DEFAULT, 128),
+               "W7": ({"K1": (640, 1056), "K4": (1616, 0), "K6": (1696, 0)},
+                      128)}
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K6"])
+@pytest.mark.parametrize("width", list(RING_WIDTHS))
+def test_chunked_layer1_takes_each_row_and_slab_once(kernel, width):
+    """Emulates a tile of the bf16 decodes from the plan alone: the ring
+    hands out the schedule's slabs in order (each product's k-rows in
+    slab_rows pieces), and each product takes them in its k order; a
+    layer-1 product in the chunked layout stages X ``chunk`` columns at a
+    time, each chunk a whole number of slabs but the last. Every k-row of X
+    is staged once per decoder, in order, every slab is taken once, by its
+    own product, at the k-rows of the chunk staged, and the chunks' products
+    summed are X @ W. At W7 the layouts are chunked (K1 at imnet_gf 128:
+    X in 304-column chunks beside the whole per-ray rows)."""
+    widths, g = RING_WIDTHS[width]
+    kp, crp = widths[kernel]
+    plan = rd.decode_plan(kernel, kp, crp, g=g)
+    assert plan["smem"]["total"] <= rd.MAX_SMEM
+    assert (plan["layout"] == "chunked") == (width == "W7")
+    if width == "W7":
+        assert plan["chunk"] == {"K1": 304, "K4": 560, "K6": 560}[kernel]
+        assert plan["smem"]["x0"] + TILE_BYTES * (plan["chunk"] + 8) \
+            <= min(o for k, o in plan["smem"].items() if o > 0 and k != "x1")
+    rng = np.random.default_rng(kp + g)
+    g1 = 4 * g
+    ops = {"pair_w1": rng.normal(size=(kp, 2 * g1)),
+           "ray_w1": rng.normal(size=(crp, 2 * g1)),
+           "w1": rng.normal(size=(kp, (2 if kernel == "K6" else 1) * g1))}
+    for p in ("off_", "prob_", ""):
+        ops[f"{p}w2"] = rng.normal(size=(g1, 2 * g))
+        ops[f"{p}w3"] = rng.normal(size=(2 * g, g))
+    x = rng.normal(size=(64, kp))
+    ring = [(i, k0, min(k0 + ks, k))
+            for i, (_, _, k, _, ks) in enumerate(plan["schedule"])
+            for k0 in range(0, k, ks)]
+    taken, layer1 = 0, 0
+    for i, (op, col, k, n, ks) in enumerate(plan["schedule"]):
+        w = ops[op][:, col:col + n]
+        first = op in ("pair_w1", "w1")
+        chunks = plan["chunks"] if first and plan["chunks"] else [(0, k)]
+        a = x if first else rng.normal(size=(64, k))
+        acc, staged = np.zeros((64, n)), []
+        for k0, kn in chunks:
+            xc = a[:, k0:k0 + kn].copy()  # the chunk buffer
+            staged += range(k0, k0 + kn)
+            for kk in range(0, kn, ks):  # product's slab loop
+                seg, r0, r1 = ring[taken]
+                taken += 1
+                assert (seg, r0) == (i, k0 + kk), (op, k0, kk)
+                assert r1 - r0 <= kn - kk
+                acc += xc[:, kk:kk + r1 - r0] @ w[r0:r1]
+        assert staged == list(range(k))
+        np.testing.assert_allclose(acc, a @ w[:k], rtol=1e-12, atol=1e-9)
+        layer1 += first
+    assert taken == len(ring) == plan["slabs_per_tile"]
+    assert layer1 == (1 if kernel == "K4" else 2)  # once per decoder
+
+
+TILE_BYTES = rd.TILE_ROWS * 2  # bytes of a column of X's 64 bf16 rows
+
+
 def test_k6_default_bf16_layout():
     """K6's bf16 block at the default widths, byte by byte: two 64 x 408
     layer-1 tiles (kp 400 = vox 128 | ray row 160 | pe 102 | 0), no per-ray
@@ -229,12 +297,18 @@ def test_k6_fits_every_width_the_model_takes(multires, c_vox, rgb_out):
 
 
 def test_k6_widest_layout_is_the_smem_limit():
-    """MAX_KP["K6"] is the widest 16-multiple whose block fits: 16 more
-    columns do not."""
-    assert rd.decode_plan("K6", rd.MAX_KP["K6"])["smem"]["total"] \
-        <= rd.MAX_SMEM
-    assert rd.decode_plan("K6", rd.MAX_KP["K6"] + 16)["smem"]["total"] \
-        > rd.MAX_SMEM
+    """MAX_KP["K6"] is the row width of the reference's options at their
+    extreme at once (pnet_out 512, rgb_out 64 with roi_out_bbox 4,
+    multires 10): its block, X staged in chunks, fits at every imnet_gf,
+    and 16 more columns are refused, naming the limit."""
+    assert rd.MAX_KP["K6"] == pd.pair_layout(512, 64 * 16, posenc_dim(4),
+                                             10)["kp"] == 1696
+    for g in rd.DECODER_GF:
+        plan = rd.decode_plan("K6", rd.MAX_KP["K6"], g=g)
+        assert plan["layout"] == "chunked"
+        assert plan["smem"]["total"] <= rd.MAX_SMEM
+    with pytest.raises(ValueError, match="kp up to 1696"):
+        rd._check_plan("test", "K6", rd.MAX_KP["K6"] + 16, 0, 2, True, 100)
 
 
 def _attribution_script():

@@ -18,9 +18,11 @@ kernels in interpret mode, ``xla_ief_rows`` and ``xla_pair_decode`` at
 imnet_gf 32 and 8 (test_torch_port_ops.py holds K1 and K4 at 16,
 test_torch_port_train.py K2 and K3 at 8, test_torch_port_pair_decode.py K6
 at 8). The reference's model options W1-W6 (imnet_gf 48 and 128, rgb_out
-64, roi_out_bbox 4, pnet_out 100, pnet_out 512 with multires 10) run the
-stage-1 and stage-2 steps and the eval forward against the JAX package's
-(section (f)). The kernels themselves run on the card
+64, roi_out_bbox 4, pnet_out 100, pnet_out 512 with multires 10) and W7
+(all of them at their extreme at once) run the stage-1 and stage-2 steps
+and the eval forward against the JAX package's (section (f)), both sides
+in float32 (``tpu.compute_dtype``), JAX under ``jax.jit`` with
+``tpu.use_pallas_decode: false``. The kernels themselves run on the card
 (``test_torch_port_cuda.py``).
 """
 
@@ -58,6 +60,14 @@ MULTIRES, C_DIR = 8, posenc_dim(4)  # the configs' multires and _views
 # (pnet_out, rgb_out, imnet_gf) of the models the configs and tests use
 MODELS = {"smoke_synthetic": (64, 16, 32), "tiny CLI": (16, 8, 8),
           "default": (128, 32, 64)}
+# (voxel width as the kernels see it, roi features, multires) of those
+# models and of the reference's width options at the default model (W1 and
+# W2 set imnet_gf alone, which the plan tests vary; W5's pnet_out 100 runs
+# at 112; W7 every option at its extreme at once: pnet_out 512, rgb_out 64,
+# roi_out_bbox 4, multires 10)
+LAYER1 = {**{k: (v[0], 4 * v[1], MULTIRES) for k, v in MODELS.items()},
+          "W3": (128, 256, 8), "W4": (128, 512, 8), "W5": (112, 128, 8),
+          "W6": (512, 128, 10), "W7": (512, 1024, 10)}
 
 
 def T(a):
@@ -72,44 +82,51 @@ def _round16(x):
     return -(-x // 16) * 16
 
 
-def _layer1_widths(pnet_out, rgb_out):
-    """(kp, crp) of K1/K2/K3, kp of K4 (refine pnet_out = pnet_out) and of
-    K6, for a model's widths."""
-    c_roi = 4 * rgb_out
-    return {"K1": (_round16(pnet_out + 6 + 12 * MULTIRES),
+def _layer1_widths(pnet_out, c_roi, multires=MULTIRES):
+    """(kp, crp) of K1/K2/K3, kp of K4 (refine pnet_out = pnet_out, the
+    refine model's multires 8) and of K6, for a model's widths."""
+    return {"K1": (_round16(pnet_out + 6 + 12 * multires),
                    _round16(c_roi + C_DIR)),
             "K4": (_round16(pnet_out + c_roi + C_DIR + posenc_dim(MULTIRES)),
                    0),
-            "K6": (pd.pair_layout(pnet_out, c_roi, C_DIR, MULTIRES)["kp"], 0)}
+            "K6": (pd.pair_layout(pnet_out, c_roi, C_DIR, multires)["kp"], 0)}
 
 
 # -- (c) the host plans at every width -----------------------------------------
 
 @pytest.mark.parametrize("g", rd.DECODER_GF)
-@pytest.mark.parametrize("model", list(MODELS))
+@pytest.mark.parametrize("model", list(LAYER1))
 @pytest.mark.parametrize("kernel", ["K1", "K2all", "K4", "K6"])
 def test_forward_plans_fit_at_every_width(kernel, model, g):
     """Every forward decode's bf16 and f32 block at each imnet_gf with the
     model's layer-1 widths: the shared memory fits, the schedule holds its
     products, every product's slab fits the ring and divides into 16-deep
     mma steps, the warp grid covers the product with at most 8 warps (at
-    most 4 along N in a tile), and the wrapper's check accepts it."""
-    pnet_out, rgb_out, _ = MODELS[model]
-    kp, crp = _layer1_widths(pnet_out, rgb_out)["K1" if kernel == "K2all"
-                                                 else kernel]
+    most 4 along N in a tile), and the wrapper's check accepts it. f32 at
+    imnet_gf 128 (and K4's and K6's widest rows) takes blocks of 16 rows;
+    bf16 at the widest inputs the chunked layout. K1's libraries hold
+    those two only at imnet_gf 128: below it the single layout and 32 f32
+    rows hold every width the wrappers take (ray_decode.cu::run)."""
+    kp, crp = _layer1_widths(*LAYER1[model])["K1" if kernel == "K2all"
+                                             else kernel]
+    assert kp <= rd.MAX_KP[kernel] and crp <= rd.MAX_CRP
     for bf16 in (True, False):
-        if rd.decode_plan(kernel, kp, crp, is_bf16=bf16,
-                          g=g)["smem"]["total"] > rd.MAX_SMEM:
-            # f32 (the cross-checks' type) at imnet_gf 128: K1's and K6's
-            # blocks of 32 rows, their f32 activations 4g wide, do not fit
-            assert g == 128 and not bf16 and kernel != "K4"
-            with pytest.raises(ValueError, match="shared memory"):
-                rd._check_plan("test", kernel, kp, crp, 2, bf16, 80000, g)
-            continue
         plan = rd._check_plan("test", kernel, kp, crp, 2, bf16, 80000, g)
         smem = plan["smem"]
         assert smem["total"] <= rd.MAX_SMEM
         assert all(o % 128 == 0 for o in smem.values())
+        rows = plan["rows_per_tile"]
+        if kernel in ("K1", "K2all") and g < 128:
+            assert plan["layout"] != "chunked" and rows in (64, 32)
+        if plan["layout"] == "chunked":
+            ks = rd.slab_rows(4 * g)
+            assert plan["chunk"] % ks == 0 and 0 < plan["chunk"] < kp
+            assert smem["x1"] == smem["x0"]
+        if not bf16 and rows == 16:
+            assert rd.decode_plan(kernel, kp, crp, is_bf16=False, g=g,
+                                  n=1)["smem"]["total"] <= rd.MAX_SMEM
+            assert rd._f32_layout(kernel, 32, kp, crp, g)["total"] \
+                > rd.MAX_SMEM
     plan = rd.decode_plan(kernel, kp, crp, g=g, n=80000)
     assert len(plan["schedule"]) <= rd.MAX_SEGS
     assert plan["slabs_per_tile"] >= rd.RING
@@ -148,15 +165,14 @@ def test_narrow_products_leave_warps_without_a_tile(g):
 
 
 @pytest.mark.parametrize("g", rd.DECODER_GF)
-@pytest.mark.parametrize("model", ["smoke_synthetic", "tiny CLI"])
+@pytest.mark.parametrize("model", ["smoke_synthetic", "tiny CLI", "W7"])
 def test_schedule_streams_each_weight_at_every_width(model, g):
     """The ring emulation of test_torch_port_decode_plan.py at each width:
     each product's slabs, cut by the plan alone, reassemble its operand's
     column block, and the product summed slab by slab is the whole
     product."""
     rng = np.random.default_rng(g)
-    pnet_out, rgb_out, _ = MODELS[model]
-    kp, crp = _layer1_widths(pnet_out, rgb_out)["K1"]
+    kp, crp = _layer1_widths(*LAYER1[model])["K1"]
     g1, g2, g3 = 4 * g, 2 * g, g
     ops = {"pair_w1": rng.normal(size=(kp, 2 * g1)),
            "ray_w1": rng.normal(size=(crp, 2 * g1))}
@@ -228,16 +244,24 @@ def _emulate_k3(plan, n, n_iter, g, kp, crp, rng):
 
 
 @pytest.mark.parametrize("g", rd.DECODER_GF)
-@pytest.mark.parametrize("model", ["smoke_synthetic", "tiny CLI"])
+@pytest.mark.parametrize("model", ["smoke_synthetic", "tiny CLI", "W7"])
 def test_k3_plan_at_every_width(model, g):
     """K3's plan at each width: the streams carry the decoder's widths, the
     reductions write every element of the gradients' output once, and the
     emulated Pass B (tiles of K3_TILE, a narrow gradient in part of one
-    tile column) reproduces each weight gradient exactly."""
-    pnet_out, rgb_out, _ = MODELS[model]
-    kp, crp = _layer1_widths(pnet_out, rgb_out)["K1"]
+    tile column) reproduces each weight gradient exactly. At W7 (kp 640,
+    crp 1056) Pass A's block fits in both types (16 rows where 32 do
+    not)."""
+    pnet_out, c_roi, multires = LAYER1[model]
+    kp, crp = _layer1_widths(pnet_out, c_roi, multires)["K1"]
     assert kp <= rd.MAX_KP["K3"]
     n, n_iter = 37, 2
+    for bf16 in (True, False):
+        p = rd.bwd_plan(n, kp, crp, n_iter, bf16, 5, 16, 24,
+                        table_elems=30 * pnet_out, g=g, c_vox=pnet_out)
+        m = p["rows_per_tile"]
+        assert rd.bwd_held(m, g, bf16) and rd.bwd_smem(
+            m, g, crp, n_iter, p["small_size"], bf16) <= rd.MAX_SMEM
     plan = rd.bwd_plan(n, kp, crp, n_iter, True, 5, 16, 24,
                        table_elems=30 * pnet_out, g=g)
     widths = {"x": kp, "rf": crp, "dt2": 2 * g, "h2": 2 * g, "dt3": g}
@@ -265,14 +289,17 @@ def test_k3_plan_at_every_width(model, g):
 REFUSAL_CASES = ["gf 24", "gf 48", "gf 128", "gf 136", "not 4g-2g-g",
                  "kp past 640", "crp past 544", "K4/K6 kp past 944",
                  "c_vox past 512", "128 at the widest kp",
-                 "compiled widths"]
+                 "compiled widths", "crp past 1056", "K4/K6 kp past 1696"]
 
 
 @pytest.mark.parametrize("case", REFUSAL_CASES)
 def test_a_width_outside_the_set_is_refused(case):
     """imnet_gf 24, 48 and 128 run (24 and 48 at the next compiled width);
     136, and layer-1 widths past the kernels' limits, are refused with a
-    message that names the limit; so is what does not fit one block."""
+    message that names the limit. The widths the parent refused past its
+    limits (crp 544, K4's and K6's rows 944) and imnet_gf 128 at the
+    widest inputs, f32 included, now run: every block fits up to the
+    limits."""
     if case.startswith("gf "):
         g = int(case[3:])
         if g > rd.MAX_GF:
@@ -304,25 +331,39 @@ def test_a_width_outside_the_set_is_refused(case):
             rd.bwd_plan(100, 656, 160, 2, True, 132, c_vox=512)
     elif case == "crp past 544":
         rd._check_plan("test", "K1", 240, 544, 2, True, 100)
-        with pytest.raises(ValueError, match="crp up to 544"):
-            rd._check_plan("test", "K1", 240, 560, 2, True, 100)
+        rd._check_plan("test", "K1", 240, 560, 2, True, 100)
         assert rd.bwd_plan(100, 240, 544, 2, True, 132)["rows_per_tile"] == 32
+        assert rd.bwd_plan(100, 240, 560, 2, True, 132)["rows_per_tile"] == 32
+    elif case == "crp past 1056":
+        rd._check_plan("test", "K1", 640, 1056, 2, True, 100, 128)
+        with pytest.raises(ValueError, match="crp up to 1056"):
+            rd._check_plan("test", "K1", 240, 1072, 2, True, 100)
+        with pytest.raises(ValueError, match="crp up to 1056"):
+            rd.bwd_plan(100, 240, 1072, 2, True, 132)
     elif case == "K4/K6 kp past 944":
         for k in ("K4", "K6"):
             rd._check_plan("test", k, 944, 0, 2, True, 100)
-            with pytest.raises(ValueError, match="kp up to 944"):
-                rd._check_plan("test", k, 960, 0, 2, True, 100)
+            rd._check_plan("test", k, 960, 0, 2, True, 100)
+    elif case == "K4/K6 kp past 1696":
+        for k in ("K4", "K6"):
+            for bf16 in (True, False):
+                rd._check_plan("test", k, 1696, 0, 2, bf16, 100, 128)
+            with pytest.raises(ValueError, match="kp up to 1696"):
+                rd._check_plan("test", k, 1712, 0, 2, True, 100)
     elif case == "c_vox past 512":
         with pytest.raises(ValueError, match="c_vox up to 512"):
             rd.bwd_plan(100, 640, 160, 2, True, 132, c_vox=520)
     elif case == "128 at the widest kp":
-        # the layer-1 widths whose block does not fit at imnet_gf 128
-        with pytest.raises(ValueError, match="shared memory"):
-            rd._check_plan("test", "K1", 640, 160, 2, True, 100, 128)
-        with pytest.raises(ValueError, match="shared memory"):
-            rd._check_plan("test", "K6", 944, 0, 2, True, 100, 128)
-        with pytest.raises(ValueError, match="imnet_gf up to 64 in f32"):
-            rd.bwd_plan(100, 240, 160, 2, False, 132, g=128)
+        # the layer-1 widths whose block the parent could not fit at
+        # imnet_gf 128: X in chunks (bf16), 16-row blocks (f32)
+        for bf16 in (True, False):
+            k1 = rd._check_plan("test", "K1", 640, 160, 2, bf16, 100, 128)
+            k6 = rd._check_plan("test", "K6", 944, 0, 2, bf16, 100, 128)
+            assert (k1["layout"], k6["layout"]) == (
+                ("chunked", "chunked") if bf16 else ("f32", "f32"))
+            assert bf16 or k1["rows_per_tile"] == k6["rows_per_tile"] == 16
+            assert rd.bwd_plan(100, 240, 160, 2, bf16, 132, g=128)[
+                "rows_per_tile"] == (32 if bf16 else 16)
     else:
         assert [rd.decoder_gf("t", 4 * g, (4 * g, 2 * g), (2 * g, g))
                 for g in rd.DECODER_GF] == list(rd.DECODER_GF)
@@ -713,9 +754,9 @@ def test_padded_ief_and_pair_decodes_are_the_unpadded_ones(g, cv):
         _assert_padded_exact(gv, wv, "K6 gradient")
 
 
-# -- (f) the reference's model options W1-W6 against the JAX package ---------
+# -- (f) the reference's model options W1-W7 against the JAX package ---------
 
-# W1-W6 on the tiny model (ResNet stages of one block, 48x64 frames, 512
+# W1-W7 on the tiny model (ResNet stages of one block, 48x64 frames, 512
 # valid points, per_ray kb 8 of K 12; its other widths rgb_out 8, pnet_out
 # 16, imnet_gf 8): the model and refine options each sets. Weights and
 # batch from seed 45. At test_torch_port_options.py's seed 44 the W2-W4
@@ -737,6 +778,11 @@ WIDTH_OPTIONS = {
     "W5": {"model": {"pnet_out": 100}, "refine": {"pnet_out": 100}},
     "W6": {"model": {"pnet_out": 512, "multires": 10},
            "refine": {"pnet_out": 512}},
+    # every option above at its extreme at once: kp 640, crp 1056, K4's
+    # rows 1616, K6's 1696, decoders 512-256-128-1
+    "W7": {"model": {"imnet_gf": 128, "pnet_out": 512, "multires": 10,
+                     "rgb_out": 64, "roi_out_bbox": 4},
+           "refine": {"imnet_gf": 128, "pnet_out": 512}},
 }
 _WIDTH_CASES = {}
 
