@@ -14,9 +14,11 @@ tests the reference's own checkpoint layout, trains and serves the IMNet
 offset decoder and the decoders without positional encoding, and trains
 with a checkpointed backbone and with L-BFGS, (phase 39) serves and
 trains at per-ray pair budgets other than 8, (phase 40) trains stage 1
-in the ``global`` and dense modes, and (phase 41) serves and trains at
+in the ``global`` and dense modes, (phase 41) serves and trains at
 every width option of the reference (imnet_gf 48 and 128, rgb_out 64,
-roi_out_bbox 4, pnet_out 100, pnet_out 512 with multires 10).
+roi_out_bbox 4, pnet_out 100, pnet_out 512 with multires 10), (phase 42)
+at all of them at once, and (phase 43) times and traces a served frame and
+a train step with the port's profiling module.
 
     python3 chip_smoke.py             # every phase; exits 0 only if all pass
     python3 chip_smoke.py --profile   # also torch.profiler tables of a frame
@@ -311,8 +313,21 @@ Phases:
      plain version in the model's type (width_checks); two W7 bf16 steps
      twice bit for bit. The rows go under ``at_model_widths`` ("W7",
      "W7 f32", "W2 f32").
-     Then the seconds of phases 2-42, of 33-35, of 36-38, of 39, 40, 41,
-     42.
+ 43. profiling: implicit_depth_torch/utils/profiling.py on the default
+     model, bf16: a served per_ray frame's forward by device_slope_time
+     (runs of 2 and 12 forwards, one read-back a run) beside its
+     CUDA-event time, complete() by interleaved_slope on the host clock;
+     a torch.profiler trace (profiling.trace, Chrome traces under
+     build/traces/) of one served frame and of one batch-4 kernel_save
+     stage-1 step: each logs its ten longest device operations, its
+     device-idle share and its path, and must hold, by CUDA symbol, each
+     hand-written kernel its path launched (frame: K1 ray_decode_tc<0>,
+     K4 ief_decode_tc, K5 segment_max_kernel; step: K2 ray_decode_tc<1>,
+     K3's pass_a_kernel and pass_b_kernel once a chunk and its two
+     reduce_kernel, K5) as many times as the launch counters say. Each
+     kernel's row carries ``profiled``, its launches in each trace.
+     Then the seconds of phases 2-43, of 33-35, of 36-38, of 39, 40, 41,
+     42, 43.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -3752,7 +3767,8 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "by_shape", "passes", "step_ms", "save_bytes", "train_xla",
               "rows_decoded", "ptxas", "refine_train", "trainer", "decoder",
               "at_widths", "config_runs", "rays", "disk", "reference_ckpt",
-              "options", "remat_lbfgs", "at_budgets", "at_model_widths")
+              "options", "remat_lbfgs", "at_budgets", "at_model_widths",
+              "profiled")
 
 
 # -- the disk datasets (phases 33-35) -------------------------------------------
@@ -5598,9 +5614,185 @@ def model_width_phase(dev, widths=MODEL_WIDTHS, repeat=MODEL_WIDTH_REPEAT,
     return out
 
 
+# -- phase 43: the profiling module on the card --------------------------------
+# implicit_depth_torch/utils/profiling.py on the default model at full width,
+# bf16: a served per_ray frame timed by device_slope_time beside its CUDA
+# events and by interleaved_slope on the host clock, then torch.profiler
+# traces of one served frame and of one batch-4 kernel_save stage-1 step.
+# Each trace must name, by CUDA symbol, every hand-written kernel its path
+# launches, as many times as the launch counters say: the proof that the
+# profiler sees the kernels launched through ctypes
+TRACE_DIR = ROOT / "build" / "traces"
+SLOPE_ITERS = (2, 12)    # device_slope_time's runs of the frame's forward
+HOST_ITERS = (1, 5)      # interleaved_slope's runs of complete()
+TOP_OPS = 10
+# each wrapper's kernels by (CUDA symbol, first template argument where it
+# tells them apart: K1's and K2's save mode) and how many a launch puts on
+# the stream: K3 one Pass A and one Pass B a chunk of rays (bwd_plan), then
+# two reductions; K5's bf16 epilogue (to_bf16) is listed, not held
+TRACE_SYMBOLS = {
+    "ray_decode": {("ray_decode_tc", 0): 1},
+    "ray_decode_save": {("ray_decode_tc", 1): 1},
+    "ief_decode": {("ief_decode_tc", None): 1},
+    "segment_max0": {("segment_max_kernel", None): 1},
+    "ray_decode_bwd": {("pass_a_kernel", None): "chunks",
+                       ("pass_b_kernel", None): "chunks",
+                       ("reduce_kernel", None): 2},
+}
+
+
+def kernel_symbol(name):
+    """(symbol, first template argument where it is an integer) of a
+    kernel of the port's CUDA sources (each in an anonymous namespace), from
+    its demangled or its mangled name; None for any other device
+    operation."""
+    import re
+    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)(?:<(\d+)[,>])?",
+                 name)
+    if m:
+        return m.group(1), int(m.group(2)) if m.group(2) else None
+    m = re.match(r"_ZN12_GLOBAL__N_1(\d+)", name)
+    if m:
+        end = m.end() + int(m.group(1))
+        arg = re.match(r"ILi(\d+)E", name[end:])
+        return name[m.end():end], int(arg.group(1)) if arg else None
+    return None
+
+
+def traced_kernels(prof):
+    """{(symbol, template argument): (count, device ms)} of the port's
+    kernels in a profile."""
+    from implicit_depth_torch.utils import profiling
+    out = {}
+    for name, (ms, count) in profiling.device_ops(prof).items():
+        sym = kernel_symbol(name)
+        if sym is not None:
+            n0, ms0 = out.get(sym, (0, 0.0))
+            out[sym] = (n0 + count, ms0 + ms)
+    return out
+
+
+def traced_phase(label, run, expect, chunks=None):
+    """``run()`` once under ``profiling.trace`` with the launch counters of
+    ``expect`` from 0: logs the trace's ten longest device operations, the
+    device-idle share of the window and the trace's path; fails unless
+    every wrapper launched as ``expect`` says and the trace holds each of
+    its kernels as many times (K3's chunks: ``chunks``). Returns the
+    launches, the symbols' counts and device ms, and the idle share."""
+    from implicit_depth_torch.utils import profiling
+    counts = {k: f for k, f in counters().items() if k in expect}
+    for f in counts.values():
+        f.launches = 0
+    with profiling.stage_timer(label, sync=True):
+        with profiling.trace(str(TRACE_DIR), cuda=True) as t:
+            run()
+    launches = {k: f.launches for k, f in counts.items()}
+    ops = profiling.device_ops(t.profile)
+    idle = profiling.device_idle_share(t.profile)
+    log(f"{label}: the {TOP_OPS} longest device operations (ms, count):")
+    for name, (ms, n) in list(ops.items())[:TOP_OPS]:
+        log(f"  {ms:9.3f} {n:5d}  {name[:120]}")
+    log(f"{label}: device time {sum(ms for ms, _ in ops.values()):.3f} ms, "
+        f"device idle {idle:.4f} of the traced window; launches "
+        f"{launches}; Chrome trace {t.path}")
+    found = traced_kernels(t.profile)
+    log(f"{label}: the port's kernels in the trace {found}")
+    failed = [f"{k}: {launches[k]} launches, expected {n}"
+              for k, n in expect.items() if launches[k] != n]
+    symbols = {}
+    for name, n in launches.items():
+        for sym, per in TRACE_SYMBOLS[name].items():
+            want = n * (chunks if per == "chunks" else per)
+            hits = [v for (s, arg), v in found.items()
+                    if s == sym[0] and sym[1] in (None, arg)]
+            got = (sum(c for c, _ in hits), sum(ms for _, ms in hits))
+            symbols[f"{sym[0]}" + (f"<{sym[1]}>" if sym[1] is not None
+                                   else "")] = {"count": got[0],
+                                                "device_ms": got[1]}
+            if got[0] != want:
+                failed.append(f"{name}: {got[0]} kernels {sym} in the "
+                              f"trace, expected {want}")
+    if failed:
+        raise AssertionError(f"phase 43 {label}: {failed}")
+    return {"launches": launches, "symbols": symbols, "idle_share": idle,
+            "device_ms": sum(ms for ms, _ in ops.values()),
+            "trace": str(t.path)}
+
+
+def profiling_phase(dev):
+    """Phase 43 (see TRACE_DIR); returns {kernel: {"frame" / "step":
+    launches in the trace}} and the phase's readings."""
+    from implicit_depth_torch.builder import (
+        build_lidf,
+        build_static,
+        randomize_weights_,
+    )
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.infer import DepthCompleter
+    from implicit_depth_torch.ops import ray_decode as rd
+    from implicit_depth_torch.train.state import TrainState
+    from implicit_depth_torch.train.steps import make_lidf_train_step
+    from implicit_depth_torch.utils import profiling
+
+    cfg = load_config(overrides=SERVE_OVERRIDES)
+    lidf, refine = build_models(cfg)
+    dc = DepthCompleter(cfg, lidf=lidf, refine=refine, device=dev)
+    frame = make_frames(1, FRAME_HW)[0]
+    dc.complete(*frame)
+    batch = dc.device_batch([frame[0]], [frame[1]], [frame[2]])
+
+    def forward(gen, b):  # each call's valid-point draw from its generator
+        return dc.forward(b, seed=gen.initial_seed())[0].sum()
+
+    slope_ms = profiling.device_slope_time(
+        forward, batch, iters_a=SLOPE_ITERS[0], iters_b=SLOPE_ITERS[1]) * 1e3
+    event_ms = time_ms(lambda: dc.forward(batch, 0))
+    runs = [lambda n=n: [dc.complete(*frame) for _ in range(n)]
+            for n in HOST_ITERS]
+    host_ms = profiling.interleaved_slope(*runs, *HOST_ITERS) * 1e3
+    log(f"phase 43 served frame: device_slope_time {slope_ms:.3f} ms a "
+        f"forward (runs of {SLOPE_ITERS}), CUDA events {event_ms:.3f} ms "
+        f"(median of 10), interleaved_slope of complete() {host_ms:.3f} ms "
+        "a frame on the host clock")
+    out = {"frame_slope_ms": slope_ms, "frame_event_ms": event_ms,
+           "frame_host_ms": host_ms}
+    out["frame"] = traced_phase("phase 43 traced frame",
+                                lambda: dc.complete(*frame),
+                                EXPECT_PER_FRAME)
+    del dc, lidf, refine, batch
+    torch.cuda.empty_cache()
+
+    cfg_t = load_config(overrides=TRAIN_OVERRIDES)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = randomize_weights_(build_lidf(cfg_t, build_static(cfg_t), gen),
+                               gen).to(dev)
+    state = TrainState.create(model, cfg_t.training, steps_per_epoch=1000)
+    step = make_lidf_train_step(cfg_t, model, dev)
+    step_gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = train_batches(2, cfg_t, TRAIN_BATCH, dev)
+    recorded = record_train_calls(step, state, batches[0], step_gen)
+    a3, kw3 = recorded["ray_decode_bwd"]
+    chunks = rd.ray_decode_bwd_pass_ms(*a3, **kw3)["chunks"]
+    out["step"] = traced_phase(
+        f"phase 43 traced step (batch {TRAIN_BATCH}, decode_bwd "
+        f"{cfg_t.tpu.decode_bwd})",
+        lambda: step(state, batches[1], step_gen, 1), EXPECT_PER_STEP,
+        chunks)
+    out["step"]["k3_chunks"] = chunks
+    out["stage_seconds"] = profiling.stage_times()
+    log(f"phase 43 stage_times {out['stage_seconds']}")
+    del model, state, step, recorded
+    torch.cuda.empty_cache()
+    per_kernel = {}
+    for where in ("frame", "step"):
+        for name, n in out[where]["launches"].items():
+            per_kernel.setdefault(name, {})[where] = n
+    return per_kernel, out
+
+
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-42 on ``dev``; prints their seconds and the kernels line."""
+    """Phases 2-43 on ``dev``; prints their seconds and the kernels line."""
     t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
@@ -5783,6 +5975,14 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         rows[name].setdefault("at_model_widths", {}).update(by_w)
     t42 = time.perf_counter() - t0
     log(f"phase 42 seconds {round(t42, 1)}")
+    # -- the profiling module on the card (phase 43) -------------------------
+    t0 = time.perf_counter()
+    profiled, prof43 = profiling_phase(dev)
+    for name, by in profiled.items():
+        rows[name]["profiled"] = by
+    t43 = time.perf_counter() - t0
+    log(f"phase 43: {json.dumps(prof43)}")
+    log(f"phase 43 seconds {round(t43, 1)}")
     rows["segment_max0"]["options"] = {k: v["launches_k5"]
                                        for k, v in options.items()}
     for name, n in remat_launches.items():
@@ -5806,9 +6006,10 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
-    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-42; "
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-43; "
         f"33-35: {disk_s:.1f}; 36-38: {t36 + t37 + t38:.1f}; 39: "
-        f"{t39:.1f}; 40: {t40:.1f}; 41: {t41:.1f}; 42: {t42:.1f})")
+        f"{t39:.1f}; 40: {t40:.1f}; 41: {t41:.1f}; 42: {t42:.1f}; 43: "
+        f"{t43:.1f})")
     log(json.dumps({"kernels": kernels}))
 
 

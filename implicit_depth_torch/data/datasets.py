@@ -249,6 +249,14 @@ class ClearGraspReal:
         }
 
 
+# the datasets of an Omniverse scene the loader reads, as the JAX package's
+# loader reads them through h5py (implicit_depth_tpu/data/datasets.py):
+# the file's other datasets are not decoded
+OMNIVERSE_KEYS = ("rgb_glass", "instance_seg", "semantic_seg", "depth",
+                  "camera/focal_length", "camera/horizontal_aperture",
+                  "camera/vertical_aperture")
+
+
 class Omniverse:
     """src/datasets/omniverse_dataset.py:18-245 (h5 scenes)."""
 
@@ -306,7 +314,7 @@ class Omniverse:
         rng = np.random.default_rng(self.base_seed + epoch * len(self) + idx)
         train_aug = self.exp_type == "train" and p["use_data_augmentation"]
 
-        f = read_hdf5(self.h5_paths[idx])
+        f = read_hdf5(self.h5_paths[idx], OMNIVERSE_KEYS)
         rgb_raw = f["rgb_glass"]
         src_h, src_w = rgb_raw.shape[:2]
         scale = (w / src_w, h / src_h)

@@ -1,16 +1,19 @@
 """JPEG decoding and baseline encoding in numpy, without OpenCV or Pillow.
 
 :func:`read_jpeg` decodes a baseline, extended sequential or progressive
-Huffman JPEG of 8-bit samples (1 or 3 components, sampling factors 1-2,
-restart intervals) as libjpeg-turbo does by default, and so as
-``cv2.imread`` does: the ``islow`` integer IDCT (``jidctint.c``), "fancy"
-triangle upsampling of subsampled chroma (``jdsample.c``) and the
-fixed-point YCbCr to RGB of ``jdcolor.c``. It returns BGR like
-``cv2.imread``. A progressive file's scans (DC first and refine, AC first
-with end-of-band runs, AC refine: ``jdphuff.c``) fill one coefficient
-buffer, read whole before the output is made, as libjpeg-turbo reads a
-file whole, whose block smoothing then has no incomplete coefficient to
-act on. Arithmetic-coded, lossless, hierarchical and 12-bit files raise a
+Huffman JPEG of 8-bit samples (1, 3 or 4 components, sampling factors 1-4
+in integral ratios, restart intervals) as libjpeg-turbo does by default,
+and so as ``cv2.imread`` does: the ``islow`` integer IDCT
+(``jidctint.c``), upsampling of subsampled components as ``jdsample.c``
+chooses it ("fancy" triangle filters for factors of 2, replication for
+others, such as 4:1:1's 4), the fixed-point YCbCr to RGB of
+``jdcolor.c``, and for 4 components (CMYK, as Pillow writes it) OpenCV's
+conversion of inverted CMYK to BGR. It returns BGR like ``cv2.imread``. A
+progressive file's scans (DC first and refine, AC first with end-of-band
+runs, AC refine: ``jdphuff.c``) fill one coefficient buffer, read whole
+before the output is made, as libjpeg-turbo reads a file whole, whose
+block smoothing then has no incomplete coefficient to act on.
+Arithmetic-coded, lossless, hierarchical, 12-bit and YCCK files raise a
 ``ValueError`` that names them.
 
 :func:`write_jpeg` encodes baseline 4:2:0 colour with libjpeg's
@@ -259,12 +262,17 @@ def _edge(a: np.ndarray, axis: int, side: int) -> np.ndarray:
 
 
 def _upsample(plane: np.ndarray, rh: int, rv: int) -> np.ndarray:
-    """libjpeg-turbo's fancy upsampling of a component's real samples
-    (downsampled height x width) by (rv, rh) in {1, 2}."""
+    """libjpeg-turbo's upsampling of a component's real samples
+    (downsampled height x width) by (rv, rh), as ``jinit_upsampler``
+    chooses it: the "fancy" triangle filters for (1, 2), (2, 1) and (2, 2)
+    (the last two only past 2 samples a row; else a box), and replication
+    for any other integral factors (``int_upsample``: 4:1:1's (1, 4))."""
     x = plane.astype(np.int32)
     dh, dw = x.shape
     if rh == 1 and rv == 1:
         return plane
+    if rh > 2 or rv > 2:
+        return np.repeat(np.repeat(plane, rv, 0), rh, 1)
     fancy_h = dw > 2
     if rv == 1:  # h2v1
         if not fancy_h:
@@ -310,6 +318,15 @@ def _ycc_to_bgr(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([b, g, r], -1), 0, 255).astype(np.uint8)
 
 
+def _cmyk_to_bgr(c, m, y, k) -> np.ndarray:
+    """OpenCV's CMYK to BGR (``icvCvt_CMYK2BGR_8u_C4C3R``), which reads the
+    samples as Adobe's inverted CMYK: each of C, M, Y becomes ``k - (255 -
+    v) * k >> 8``."""
+    k = k.astype(np.int32)
+    return np.stack([k - ((255 - v.astype(np.int32)) * k >> 8)
+                     for v in (y, m, c)], -1).astype(np.uint8)
+
+
 # -- the decoder ---------------------------------------------------------------
 
 def decode_jpeg(data: bytes) -> np.ndarray:
@@ -353,16 +370,20 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if precision != 8:
                 raise ValueError(f"JPEG: {precision}-bit samples are not read "
                                  "(8-bit only)")
-            if nc not in (1, 3):
+            if nc not in (1, 3, 4):
                 raise ValueError(f"JPEG: {nc} components are not read "
-                                 "(1 or 3)")
+                                 "(1, 3 or 4)")
             for i in range(nc):
                 cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
                 h, v = hv >> 4, hv & 15
-                if h not in (1, 2) or v not in (1, 2):
+                if not (1 <= h <= 4 and 1 <= v <= 4):
                     raise ValueError(f"JPEG: sampling factors {h}x{v} are not "
-                                     "read (1 or 2)")
+                                     "read (1 to 4)")
                 comps.append(_Component(cid, h, v, tq))
+            hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+            if any(hmax % c.h or vmax % c.v for c in comps):
+                raise ValueError("JPEG: sampling factors of no integral "
+                                 "ratio are not read")
         elif m == 0xDB:
             i = 0
             while i < len(body):
@@ -677,6 +698,12 @@ def _finish(comps, quant, height, width, adobe_transform):
         planes.append(up[:height, :width])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, -1)
+    if len(planes) == 4:
+        # libjpeg reads 4 components as CMYK unless an Adobe marker says
+        # they were transformed (YCCK)
+        if adobe_transform not in (None, 0):
+            raise ValueError("JPEG: YCCK files are not read (CMYK only)")
+        return _cmyk_to_bgr(*planes)
     ids = tuple(c.id for c in comps)
     if adobe_transform == 0 or ids == (82, 71, 66):  # stored as RGB
         return np.stack(planes[::-1], -1)

@@ -3,6 +3,7 @@ on the CPU: ``data/png.py``, ``data/jpeg.py``, ``data/hdf5.py`` and
 ``data/cv.py``. Bits are the target; the one exception is stated where it
 is tested (the float32 resizes this OpenCV build hands to Intel IPP)."""
 
+import io
 import os.path as osp
 import struct
 import sys
@@ -255,6 +256,7 @@ SAMPLING = {"420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
             "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
             "444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
             "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+            "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411,
             "grey": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444}
 
 
@@ -284,7 +286,7 @@ def test_jpeg_decoder_gives_cv2_bits(sampling, quality, restart):
 
 
 @pytest.mark.parametrize("restart", [0, 2])
-@pytest.mark.parametrize("sampling", ["420", "422", "444", "grey"])
+@pytest.mark.parametrize("sampling", ["420", "422", "444", "411", "grey"])
 @pytest.mark.parametrize("quality", [75, 95])
 def test_jpeg_decoder_gives_cv2_bits_for_progressive_files(sampling, quality,
                                                            restart):
@@ -324,15 +326,47 @@ def test_jpeg_decoder_reads_the_loader_frames_as_cv2(tmp_path):
         np.testing.assert_array_equal(jpeg.read_jpeg(path), cv2.imread(path))
 
 
+def _pillow_cmyk(bgr, **kw):
+    """A CMYK JPEG as Pillow writes it (an Adobe marker of transform 0)."""
+    out = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).convert(
+        "CMYK").save(out, "JPEG", **kw)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("subsampling", [0, 2, -1])
+def test_jpeg_decoder_reads_pillow_cmyk_files_as_cv2(subsampling,
+                                                     progressive):
+    """CMYK files (4 components, as Pillow writes them: 4:4:4, C at 2x2
+    beside 1x1 planes, Pillow's default) decode to ``cv2.imdecode``'s BGR
+    bits: OpenCV's conversion of inverted CMYK."""
+    rng = np.random.default_rng(subsampling + 1 + 7 * progressive)
+    for img in (np.clip(rng.normal(128, 40, (97, 131, 3)), 0, 255).astype(
+            np.uint8), scene_bgr(97, 131, subsampling + 4)):
+        data = _pillow_cmyk(img, quality=90, subsampling=subsampling,
+                            progressive=progressive)
+        sof = data.index(b"\xff\xc2" if progressive else b"\xff\xc0")
+        assert data[sof + 9] == 4 and b"Adobe" in data
+        np.testing.assert_array_equal(
+            jpeg.decode_jpeg(data),
+            cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+
+
 def test_jpeg_decoder_refuses_other_modes(tmp_path):
-    """Arithmetic coding (sequential and progressive), 12-bit samples and
-    4:1:1 sampling raise, naming them."""
+    """Arithmetic coding (sequential and progressive), lossless and
+    hierarchical files, 12-bit samples and YCCK raise, naming them."""
     img = scene_bgr(32, 48)
     data = bytearray(cv2.imencode(".jpg", img)[1].tobytes())
     sof = data.index(b"\xff\xc0")
     arith = bytes(data[:sof + 1]) + b"\xc9" + bytes(data[sof + 2:])
     with pytest.raises(ValueError, match="arithmetic"):
         jpeg.decode_jpeg(arith)
+    for marker, kind in ((b"\xc3", "lossless"),
+                         (b"\xc5", "hierarchical sequential")):
+        with pytest.raises(ValueError, match=kind):
+            jpeg.decode_jpeg(bytes(data[:sof + 1]) + marker
+                             + bytes(data[sof + 2:]))
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     prog = bytearray(prog.tobytes())
     sof2 = prog.index(b"\xff\xc2")
@@ -342,11 +376,12 @@ def test_jpeg_decoder_refuses_other_modes(tmp_path):
     twelve = bytes(data[:sof + 4]) + b"\x0c" + bytes(data[sof + 5:])
     with pytest.raises(ValueError, match="12-bit"):
         jpeg.decode_jpeg(twelve)
-    ok, s411 = cv2.imencode(".jpg", img, [
-        cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
-    with pytest.raises(ValueError, match="sampling factors 4x1"):
-        jpeg.decode_jpeg(s411.tobytes())
+    cmyk = bytearray(_pillow_cmyk(img))
+    adobe = cmyk.index(b"Adobe")
+    assert cmyk[adobe + 11] == 0  # the transform: none (CMYK)
+    cmyk[adobe + 11] = 2          # YCCK
+    with pytest.raises(ValueError, match="YCCK"):
+        jpeg.decode_jpeg(bytes(cmyk))
 
 
 def psnr(a, b):
@@ -418,9 +453,9 @@ def test_hdf5_writer_reads_back_through_h5py(tmp_path):
 
 
 def test_hdf5_reads_compact_and_refuses_other_storage(tmp_path):
-    """Compact storage is read; what stays refused raises, naming it: a
-    filter other than deflate, shuffle and fletcher32 (lzf, scale-offset),
-    the file format of libver='latest', compound and string types."""
+    """Compact storage is read; what stays refused raises when it is asked
+    for, naming it: the szip filter, compound and string types, external
+    and virtual storage."""
     path = str(tmp_path / "c.h5")
     with h5py.File(path, "w") as f:
         dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
@@ -430,22 +465,310 @@ def test_hdf5_reads_compact_and_refuses_other_storage(tmp_path):
         ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.arange(10, dtype=np.int16))
     np.testing.assert_array_equal(hdf5.read_hdf5(path)["compact"],
                                   np.arange(10))
-    refused = {"lzf": ({"compression": "lzf"}, "filter lzf"),
-               "so": ({"scaleoffset": 2}, "filter scale-offset"),
+    refused = {"szip": ({"compression": "szip"}, "filter szip"),
                "cmp": ({"data": np.zeros(3, [("a", "<i4"), ("b", "<f4")])},
                        "compound datatype"),
                "str": ({"data": np.array([b"ab", b"cd"])},
-                       "string datatype")}
+                       "string datatype"),
+               "ext": ({"external": [(str(tmp_path / "raw.bin"), 0,
+                                      64 * 64 * 4)]},
+                       "external data files")}
     for tag, (kw, match) in refused.items():
         with h5py.File(str(tmp_path / f"{tag}.h5"), "w") as f:
             f.create_dataset("x", **({"data": np.ones((64, 64), np.float32)}
                                      | kw))
         with pytest.raises(ValueError, match=match):
             hdf5.read_hdf5(str(tmp_path / f"{tag}.h5"))
-    with h5py.File(str(tmp_path / "l.h5"), "w", libver="latest") as f:
-        f["x"] = np.ones(3)
-    with pytest.raises(ValueError, match="superblock version"):
-        hdf5.read_hdf5(str(tmp_path / "l.h5"))
+    path = str(tmp_path / "v.h5")
+    with h5py.File(path, "w", libver="latest") as f:
+        f["src"] = np.arange(3.0)
+        layout = h5py.VirtualLayout(shape=(2, 3), dtype="f8")
+        layout[0] = layout[1] = h5py.VirtualSource(f["src"])
+        f.create_virtual_dataset("v", layout)
+    np.testing.assert_array_equal(hdf5.read_hdf5(path, ["src"])["src"],
+                                  np.arange(3.0))
+    with pytest.raises(ValueError, match="virtual dataset storage"):
+        hdf5.read_hdf5(path, ["v"])
+
+
+def test_hdf5_decodes_only_the_datasets_asked_for(tmp_path):
+    """A dataset that is not read (a string, an szip one) refuses the file
+    only when it is asked for; a name the file lacks is a KeyError."""
+    path = str(tmp_path / "n.h5")
+    with h5py.File(path, "w", libver="latest") as f:
+        f["a"] = np.arange(6.0).reshape(2, 3)
+        f["g/label"] = np.array([b"glass", b"cup"])
+        f.create_dataset("g/z", data=np.ones((64, 64), np.float32),
+                         compression="szip")
+        f["g/b"] = np.arange(4, dtype=np.int16)
+    got = hdf5.read_hdf5(path, ["a", "g/b"])
+    assert sorted(got) == ["a", "g/b"]
+    np.testing.assert_array_equal(got["g/b"], np.arange(4))
+    for name, match in (("g/label", "string datatype"),
+                        ("g/z", "filter szip"), (None, "string datatype")):
+        with pytest.raises(ValueError, match=match):
+            hdf5.read_hdf5(path, None if name is None else [name])
+    with pytest.raises(KeyError, match="nothing"):
+        hdf5.read_hdf5(path, ["a", "nothing"])
+
+
+def _zoo(rng):
+    """One array of each kind the reader takes: little- and big-endian
+    integers and floats, h5py's bool, at shapes chunks do not divide."""
+    return {"f4": rng.random((101, 75)).astype(np.float32),
+            "u8": rng.integers(0, 255, (50, 61, 3), np.uint8),
+            "i2": rng.integers(-900, 900, (33, 17), np.int16),
+            "be_f8": rng.random((37, 29)).astype(">f8"),
+            "be_i4": rng.integers(-5, 5, (23, 41)).astype(">i4"),
+            "bool": rng.random((70, 9)) > 0.5}
+
+
+def assert_reads_as_h5py(path):
+    got, want = hdf5.read_hdf5(path), _h5py_tree(path)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and \
+            got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    return got
+
+
+HDF5_FORMATS = {"latest": {"libver": "latest"},
+                "track_order": {"track_order": True},
+                "latest, track_order": {"libver": "latest",
+                                        "track_order": True}}
+
+
+@pytest.mark.parametrize("members", [3, 9, 40, 300])
+@pytest.mark.parametrize("fmt", list(HDF5_FORMATS))
+def test_hdf5_reads_the_newer_file_formats_as_h5py(tmp_path, monkeypatch,
+                                                   fmt, members):
+    """Files of h5py's ``libver='latest'`` (superblock 3, version 2 object
+    headers, link messages, the version 4 layout) and of
+    ``track_order=True``: every kind of dataset, contiguous, compact and
+    chunked, in nested groups, and a group of ``members`` links: past 8
+    they are stored dense, in a fractal heap (an indirect block of
+    several rows at 40 and 300) under a version 2 B-tree of their names'
+    hashes."""
+    path = str(tmp_path / "n.h5")
+    with h5py.File(path, "w", **HDF5_FORMATS[fmt]) as f:
+        for k, v in _zoo(np.random.default_rng(members)).items():
+            f[k] = v
+        f.create_dataset("camera/inner/gz", data=np.arange(700.0),
+                         compression="gzip", chunks=(64,))
+        g = f.create_group("many",
+                           track_order=HDF5_FORMATS[fmt].get("track_order"))
+        for i in range(members):
+            g[f"m{i:03d}_{'x' * (i % 7)}"] = np.full(i % 5 + 1, i, np.int32)
+    with open(path, "rb") as fh:
+        head = fh.read(9)
+    assert head[8] == (3 if "latest" in fmt else 0)
+    fetched = []
+    heap_object = hdf5._Reader.heap_object
+    monkeypatch.setattr(hdf5._Reader, "heap_object", lambda self, a, hid: (
+        fetched.append(a), heap_object(self, a, hid))[1])
+    assert len(assert_reads_as_h5py(path)) == 7 + members
+    assert len(fetched) == (members if members > 8 else 0)
+
+
+def _chunks_for(shape, chunks):
+    """``chunks`` with whole trailing axes, at most the shape (h5py's
+    rule); "whole": one chunk."""
+    if chunks == "whole":
+        return shape
+    return tuple(min(c, n) for c, n in zip(
+        chunks + shape[len(chunks):], shape))
+
+
+def _layout(path, name):
+    r, found = hdf5._datasets(path)
+    return next(b for t, _, b in r.messages(found[name]) if t == 0x08)
+
+
+def _index_type(path, name):
+    lay = _layout(path, name)
+    assert lay[:2] == b"\x04\x02", lay[:2]  # version 4, chunked
+    return lay[5 + lay[3] * lay[4]]
+
+
+# the chunk indexes of the version 4 layout, by h5py's settings: (chunks,
+# the axes made unlimited, other settings, the index type h5py picks)
+HDF5_INDEXES = {
+    "single chunk": ("whole", (), {}, 1),
+    "single chunk, filtered": ("whole", (), {"compression": "gzip"}, 1),
+    "fixed array": ((16, 16), (), {}, 3),
+    "fixed array, filtered": ((16, 16), (), {
+        "compression": "gzip", "shuffle": True, "fletcher32": True}, 3),
+    "fixed array, paged": ((2, 1), (), {}, 3),
+    "fixed array, paged, filtered": ((2, 1), (), {"compression": "gzip"}, 3),
+    "extensible array": ((16, 16), (0,), {}, 4),
+    "extensible array, second axis": ((16, 8), (1,), {}, 4),
+    "extensible array, filtered": ((4, 16), (0,), {
+        "compression": "gzip", "fletcher32": True}, 4),
+    "version 2 B-tree": ((16, 16), (0, 1), {}, 5),
+    "version 2 B-tree, filtered": ((4, 4), (0, 1), {
+        "compression": "gzip", "shuffle": True}, 5),
+}
+
+
+@pytest.mark.parametrize("kind", list(HDF5_INDEXES))
+def test_hdf5_reads_every_chunk_index_as_h5py(tmp_path, kind):
+    """Every dataset kind, chunked under each index of the version 4
+    layout (``libver='latest'``), with edge chunks, and a dataset most of
+    whose chunks were never written (the fill value; under an extensible
+    array or a B-tree, grown past what was written)."""
+    chunks, unlimited, kw, index = HDF5_INDEXES[kind]
+    path = str(tmp_path / "k.h5")
+    with h5py.File(path, "w", libver="latest") as f:
+        for name, a in _zoo(np.random.default_rng(len(kind))).items():
+            f.create_dataset(name, data=a, chunks=_chunks_for(a.shape, chunks),
+                             maxshape=tuple(None if i in unlimited else n
+                                            for i, n in enumerate(a.shape)),
+                             **kw)
+        part = f.create_dataset(
+            "part", shape=(64, 70), dtype=np.float32, fillvalue=-2.5,
+            chunks=_chunks_for((64, 70), chunks), maxshape=tuple(
+                None if i in unlimited else n
+                for i, n in enumerate((64, 70))), **kw)
+        part[5:20, 40:50] = 1.0
+        if unlimited:
+            part.resize(tuple(n + 9 if i in unlimited else n
+                              for i, n in enumerate(part.shape)))
+    for name in ("f4", "u8", "part"):
+        assert _index_type(path, name) == index, name
+    got = assert_reads_as_h5py(path)
+    assert (got["part"] == -2.5).mean() > 0.9
+
+
+def test_hdf5_reads_the_implicit_chunk_index_as_h5py(tmp_path):
+    """Chunks allocated when the dataset is made, without filters or
+    unlimited axes: the implicit index (every chunk, in order)."""
+    path = str(tmp_path / "i.h5")
+    rng = np.random.default_rng(5)
+    arrays = {b"f4": (rng.random((101, 75)).astype(np.float32),
+                      h5py.h5t.IEEE_F32LE),
+              b"be_i4": (rng.integers(-9, 9, (23, 41)).astype(">i4"),
+                         h5py.h5t.STD_I32BE)}
+    with h5py.File(path, "w", libver="latest") as f:
+        for name, (a, ftype) in arrays.items():
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_chunk((16, 16))
+            dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+            ds = h5py.h5d.create(f.id, name, ftype,
+                                 h5py.h5s.create_simple(a.shape), dcpl=dcpl)
+            ds.write(h5py.h5s.ALL, h5py.h5s.ALL, a)
+    assert _index_type(path, "f4") == 2
+    assert_reads_as_h5py(path)
+
+
+def _nbit_dataset(f, name, base, precision, offset, rng):
+    """An integer dataset of ``precision`` bits from bit ``offset`` of
+    ``base``, through the n-bit filter."""
+    ftype = base.copy()
+    ftype.set_precision(precision)
+    ftype.set_offset(offset)
+    signed = base.get_sign() == h5py.h5t.SGN_2
+    lo, hi = ((-(1 << precision - 1), 1 << precision - 1) if signed
+              else (0, 1 << precision))
+    a = rng.integers(lo, hi, (33, 17)).astype(
+        f"{'i' if signed else 'u'}{base.get_size()}")
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_chunk((8, 8))
+    dcpl.set_filter(h5py.h5z.FILTER_NBIT)
+    ds = h5py.h5d.create(f.id, name.encode(), ftype,
+                         h5py.h5s.create_simple(a.shape), dcpl=dcpl)
+    ds.write(h5py.h5s.ALL, h5py.h5s.ALL, a)
+
+
+def _write_filtered(f, kind, rng):
+    if kind == "lzf":
+        for name, a in _zoo(rng).items():
+            f.create_dataset(name, data=a, compression="lzf")
+            f.create_dataset(f"s_{name}", data=a, compression="lzf",
+                             shuffle=True, fletcher32=True, chunks=_chunks_for(
+                                 a.shape, (8, 8)))
+        f.create_dataset("zeros", data=np.zeros((300, 40), np.float32),
+                         compression="lzf")
+    elif kind == "scale-offset, integers":
+        so = {"i2": (rng.integers(-900, 900, (33, 17)).astype(np.int16), 0),
+              "i4 9 bits": (rng.integers(0, 100, (33, 17)).astype(np.int32),
+                            9),
+              "u2": (rng.integers(0, 3000, (33, 17)).astype(np.uint16), 0),
+              "u1": (rng.integers(0, 100, (33, 17)).astype(np.uint8), 0),
+              "i8": (rng.integers(-2 ** 40, 2 ** 40, (33, 17)), 0),
+              "be_i4": (rng.integers(-900, 900, (33, 17)).astype(">i4"), 0),
+              "constant": (np.full((33, 17), 5, np.int32), 0)}
+        for name, (a, bits) in so.items():
+            f.create_dataset(name, data=a, chunks=(8, 8), scaleoffset=bits)
+        part = f.create_dataset("part", shape=(40, 30), dtype=np.int16,
+                                fillvalue=7, chunks=(8, 8), scaleoffset=0)
+        part[3:20, 4:9] = rng.integers(-50, 50, (17, 5))
+    elif kind == "scale-offset, floats":
+        so = {"f4": (rng.random((101, 75)).astype(np.float32), 3),
+              "f8": (rng.random((40, 30)) * 100, 4),
+              "be_f8": (rng.normal(0, 5, (40, 30)).astype(">f8"), 2),
+              "constant": (np.full((20, 20), 2.5, np.float32), 2)}
+        for name, (a, digits) in so.items():
+            f.create_dataset(name, data=a, chunks=(16, 16),
+                             scaleoffset=digits)
+        part = f.create_dataset("part", shape=(40, 30), dtype=np.float32,
+                                fillvalue=-2.5, chunks=(8, 8), scaleoffset=3)
+        part[3:20, 4:9] = rng.random((17, 5))
+    else:  # n-bit
+        for i, (base, precision, offset) in enumerate((
+                (h5py.h5t.STD_I16LE, 12, 0), (h5py.h5t.STD_I32LE, 24, 4),
+                (h5py.h5t.STD_U32BE, 20, 3), (h5py.h5t.STD_U8LE, 7, 0),
+                (h5py.h5t.STD_I64LE, 40, 8))):
+            _nbit_dataset(f, f"n{i}", base, precision, offset, rng)
+        # a type with no unused bits: the filter stores it as it is
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk((16, 16))
+        dcpl.set_filter(h5py.h5z.FILTER_NBIT)
+        ds = h5py.h5d.create(f.id, b"f4", h5py.h5t.IEEE_F32LE,
+                             h5py.h5s.create_simple((101, 75)), dcpl=dcpl)
+        ds.write(h5py.h5s.ALL, h5py.h5s.ALL,
+                 rng.random((101, 75)).astype(np.float32))
+
+
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+@pytest.mark.parametrize("kind", ["lzf", "scale-offset, integers",
+                                  "scale-offset, floats", "n-bit"])
+def test_hdf5_reads_h5py_other_filters_as_h5py(tmp_path, kind, libver):
+    """h5py's lzf (alone, and with shuffle and fletcher32), scale-offset
+    (integers at their minimum bits or a given number, of every size, a
+    constant chunk, and chunks holding the fill value; floats decimally
+    scaled) and n-bit (integers of 7-40 significant bits at bit offsets
+    0-8, signed, unsigned, big-endian; a full float stored as it is),
+    under both file formats' chunk indexes."""
+    path = str(tmp_path / "f.h5")
+    with h5py.File(path, "w", libver=libver) as f:
+        _write_filtered(f, kind, np.random.default_rng(len(kind)))
+    with h5py.File(path) as f:
+        fid = {"lzf": 32000, "n-bit": h5py.h5z.FILTER_NBIT}.get(
+            kind, h5py.h5z.FILTER_SCALEOFFSET)
+        for name, ds in f.items():
+            plist = ds.id.get_create_plist()
+            assert fid in [plist.get_filter(i)[0]
+                           for i in range(plist.get_nfilters())], name
+    assert_reads_as_h5py(path)
+
+
+@pytest.mark.parametrize("where", ["superblock", "object header"])
+def test_hdf5_refuses_metadata_whose_checksum_does_not_match(tmp_path,
+                                                             where):
+    path = tmp_path / "m.h5"
+    with h5py.File(path, "w", libver="latest") as f:
+        f["x"] = np.arange(12.0)
+    raw = bytearray(path.read_bytes())
+    if where == "superblock":
+        raw[33] ^= 1  # the end-of-file address's high byte
+    else:
+        _, found = hdf5._datasets(str(path))
+        raw[found["x"] + 12] ^= 1
+    path.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match=f"{where} at .* checksum does not "
+                       "match"):
+        hdf5.read_hdf5(str(path))
 
 
 HDF5_CHUNKED = {
@@ -551,6 +874,59 @@ def test_gzip_omniverse_files_load_as_the_jax_package_loads_them(tmp_path):
         assert_samples_equal(ds.__getitem__(idx, 1), jds.__getitem__(idx, 1),
                              {"xyz_corrupt"})
 
+
+def test_latest_omniverse_files_load_as_the_jax_package_loads_them(tmp_path):
+    """An Omniverse tree whose files h5py rewrote with ``libver='latest'``
+    (chunked datasets under the version 4 layout's indexes), each
+    beside datasets the loader never reads: a scale-offset one, and a
+    string and an szip one that the port does not decode. The port's
+    samples are the JAX package's (augmented train samples' xyz_corrupt
+    within the INTER_CUBIC bound, as above); read whole, the file
+    refuses."""
+    from make_disk_datasets import write_omniverse
+    from test_torch_port_data import assert_samples_equal
+
+    from implicit_depth_torch.config import load_config
+    from implicit_depth_torch.data import datasets as port_ds
+    from implicit_depth_tpu.config import load_config as jax_load_config
+    from implicit_depth_tpu.data import datasets as jax_ds
+
+    root = tmp_path / "omniverse"
+    write_omniverse(str(root / "train"), 4, np.random.default_rng(1),
+                    (48, 64))
+    rng = np.random.default_rng(2)
+    paths = sorted((root / "train" / "batch0").glob("*.h5"))
+    for p in paths:
+        arrays = _h5py_tree(str(p))
+        with h5py.File(p, "w", libver="latest") as f:
+            for k, v in arrays.items():
+                f.create_dataset(k, data=v, chunks=True if v.size > 64
+                                 else None)
+            f.create_dataset("extra/scaled", data=rng.random((48, 64)),
+                             chunks=(16, 16), scaleoffset=3)
+            f["extra/label"] = np.array([b"glass", b"cup"])
+            f.create_dataset("extra/szip", data=np.ones((64, 64), np.float32),
+                             compression="szip")
+        with open(p, "rb") as fh:
+            assert fh.read(9)[8] == 3
+        got = hdf5.read_hdf5(str(p), port_ds.OMNIVERSE_KEYS)
+        for k in port_ds.OMNIVERSE_KEYS:
+            assert got[k].dtype == arrays[k].dtype, k
+            np.testing.assert_array_equal(got[k], arrays[k], err_msg=k)
+        with pytest.raises(ValueError, match="string datatype"):
+            hdf5.read_hdf5(str(p))
+    for aug in (True, False):
+        ov = {"dataset": {"type": "omniverse", "omniverse_root_dir": str(root),
+                          "img_width": 64, "img_height": 48,
+                          "use_data_augmentation": aug, "depth_aug": aug}}
+        ds = port_ds.get_dataset(load_config(overrides=ov).dataset, "train",
+                                 "known", base_seed=3)
+        jds = jax_ds.get_dataset(jax_load_config(overrides=ov).dataset,
+                                 "train", "known", base_seed=3)
+        assert len(ds) == len(jds) >= 2
+        for idx in range(len(ds)):
+            assert_samples_equal(ds.__getitem__(idx, 1),
+                                 jds.__getitem__(idx, 1), {"xyz_corrupt"})
 
 # -- the OpenCV twins -------------------------------------------------------
 
