@@ -1,0 +1,37 @@
+"""backward_ms.train: the mean host-clock ms a training step spends in its
+backward (the program's ``train.backward`` span: the gradients zeroed,
+``backward()``, their all-reduce), less the waits for the card inside it
+(its ``sync.*`` spans, which ``sync_wait_ms.train`` counts), over the
+steps of the traced stretch. None where the program keeps no spans."""
+
+NAME, WAIT = "train.backward", "sync."
+
+
+def read(run):
+    try:
+        from implicit_depth_torch.utils.profiling import spans
+    except ImportError:
+        return None
+    # the traced stretch's records: set-up's profiled step came before the
+    # window, whose spans are on the same clock
+    after = max((t1 for _, _, t1 in run.spans), default=0.0) * 1e9
+    recs = [r for r in spans() if r.start_ns > after]
+    by_id = {r.id: r for r in recs}
+    waits = {}  # id of a NAME span -> the outermost waits inside it
+    for r in recs:
+        up = by_id.get(r.parent) if r.name.startswith(WAIT) else None
+        while up is not None and not up.name.startswith(WAIT):
+            if up.name == NAME:
+                waits.setdefault(up.id, []).append((r.start_ns, r.end_ns))
+                break
+            up = by_id.get(up.parent)
+    d = []
+    for r in recs:
+        if r.name != NAME:
+            continue
+        own, reach = r.end_ns - r.start_ns, r.start_ns
+        for s, e in sorted(waits.get(r.id, ())):  # their union, once
+            own -= max(0, e - max(s, reach))
+            reach = max(reach, e)
+        d.append(own)
+    return 1e-6 * sum(d) / run.driver.traced_iters if d else None

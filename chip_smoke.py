@@ -324,8 +324,14 @@ Phases:
      hand-written kernel its path launched (frame: K1 ray_decode_tc<0>,
      K4 ief_decode_tc, K5 segment_max_kernel; step: K2 ray_decode_tc<1>,
      K3's pass_a_kernel and pass_b_kernel once a chunk and its two
-     reduce_kernel, K5) as many times as the launch counters say. Each
-     kernel's row carries ``profiled``, its launches in each trace.
+     reduce_kernel, K5) as many times as the launch counters say; each
+     trace's idle split by program span (profiling.idle_by_span) must sum
+     to its device-idle share times its window, within 1% of the window.
+     The frame and the step then run once more with tracing on under
+     torch.cuda.set_sync_debug_mode("warn"): every operation that makes
+     the host wait for the card must lie in a sync.* span (the frame's
+     one read-back in infer.read_back). Each kernel's row carries
+     ``profiled``, its launches in each trace.
      Then the seconds of phases 2-43, of 33-35, of 36-38, of 39, 40, 41,
      42, 43.
 The next-to-last line is {"kernels": [...]}; the last is
@@ -5621,8 +5627,13 @@ def model_width_phase(dev, widths=MODEL_WIDTHS, repeat=MODEL_WIDTH_REPEAT,
 # traces of one served frame and of one batch-4 kernel_save stage-1 step.
 # Each trace must name, by CUDA symbol, every hand-written kernel its path
 # launches, as many times as the launch counters say: the proof that the
-# profiler sees the kernels launched through ctypes
+# profiler sees the kernels launched through ctypes. Each trace's idle is
+# split by the program's spans (sum held to the idle share within
+# IDLE_SPLIT_SLACK of the window), and every wait of the host for the card
+# in the frame and the step must lie in a span named in SYNC_SPANS
 TRACE_DIR = ROOT / "build" / "traces"
+IDLE_SPLIT_SLACK = 0.01
+SYNC_SPANS = ("sync.", "infer.read_back")
 SLOPE_ITERS = (2, 12)    # device_slope_time's runs of the frame's forward
 HOST_ITERS = (1, 5)      # interleaved_slope's runs of complete()
 TOP_OPS = 10
@@ -5689,6 +5700,7 @@ def traced_phase(label, run, expect, chunks=None):
     launches = {k: f.launches for k, f in counts.items()}
     ops = profiling.device_ops(t.profile)
     idle = profiling.device_idle_share(t.profile)
+    by_span = idle_split(label, t.profile, idle)
     log(f"{label}: the {TOP_OPS} longest device operations (ms, count):")
     for name, (ms, n) in list(ops.items())[:TOP_OPS]:
         log(f"  {ms:9.3f} {n:5d}  {name[:120]}")
@@ -5715,8 +5727,70 @@ def traced_phase(label, run, expect, chunks=None):
     if failed:
         raise AssertionError(f"phase 43 {label}: {failed}")
     return {"launches": launches, "symbols": symbols, "idle_share": idle,
+            "idle_by_span": by_span,
             "device_ms": sum(ms for ms, _ in ops.values()),
             "trace": str(t.path)}
+
+
+def idle_split(label, prof, idle):
+    """profiling.idle_by_span of a trace, logged; fails unless its parts
+    sum to the device-idle share ``idle`` times the window within
+    IDLE_SPLIT_SLACK of the window."""
+    from implicit_depth_torch.utils import profiling
+    events = prof.events()
+    window = (max(ev.time_range.end for ev in events)
+              - min(ev.time_range.start for ev in events)) / 1e6
+    by_span = profiling.idle_by_span(prof)
+    off = abs(sum(by_span.values()) - idle * window)
+    log(f"{label}: idle by program span (ms) " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in by_span.items())
+        + f"; the sum {off * 1e3:.4f} ms off the idle share times the "
+        f"{window * 1e3:.3f} ms window")
+    if off > IDLE_SPLIT_SLACK * window:
+        raise AssertionError(f"phase 43 {label}: idle_by_span sums "
+                             f"{off * 1e3:.4f} ms off of a {window * 1e3:.3f}"
+                             " ms window")
+    return by_span
+
+
+def sync_sites(label, run):
+    """``run()`` with tracing on under torch.cuda.set_sync_debug_mode
+    ("warn"): {innermost open span: waits} of every operation that made
+    the host wait for the card, on whichever thread; fails unless each
+    lies in a span of SYNC_SPANS."""
+    import collections
+    import threading
+    import warnings
+
+    from implicit_depth_torch.utils import profiling
+    found, stray = collections.Counter(), []
+    show = warnings.showwarning
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):  # the mode's notice
+            return show(message, category, filename, lineno, file, line)
+        inner = (profiling.open_spans() or ["(no span)"])[-1]
+        found[inner] += 1
+        if not inner.startswith(SYNC_SPANS):
+            stray.append(f"{inner} [{threading.current_thread().name}] "
+                         f"{filename}:{lineno}: {str(message)[:60]}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        profiling.enable()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            profiling.disable()
+    torch.cuda.synchronize()
+    log(f"{label}: host waits by span {dict(found)}")
+    if stray:
+        raise AssertionError(f"phase 43 {label}: waits outside a sync span: "
+                             f"{stray}")
+    return dict(found)
 
 
 def profiling_phase(dev):
@@ -5759,6 +5833,8 @@ def profiling_phase(dev):
     out["frame"] = traced_phase("phase 43 traced frame",
                                 lambda: dc.complete(*frame),
                                 EXPECT_PER_FRAME)
+    out["frame"]["sync_sites"] = sync_sites("phase 43 frame",
+                                            lambda: dc.complete(*frame))
     del dc, lidf, refine, batch
     torch.cuda.empty_cache()
 
@@ -5779,6 +5855,8 @@ def profiling_phase(dev):
         lambda: step(state, batches[1], step_gen, 1), EXPECT_PER_STEP,
         chunks)
     out["step"]["k3_chunks"] = chunks
+    out["step"]["sync_sites"] = sync_sites(
+        "phase 43 step", lambda: step(state, batches[1], step_gen, 1))
     out["stage_seconds"] = profiling.stage_times()
     log(f"phase 43 stage_times {out['stage_seconds']}")
     del model, state, step, recorded

@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from implicit_depth_torch.utils import profiling
+
 
 @functools.lru_cache(maxsize=8)
 def _block_order_perm(h: int, w: int, block_y: int, block_x: int) -> np.ndarray:
@@ -101,7 +103,9 @@ def sample_valid_stratified(valid_mask: torch.Tensor, n_sample: int,
     b, h, w = valid_mask.shape
     dev = valid_mask.device
     m = h * w
-    perm = torch.from_numpy(_block_order_perm(h, w, block_y, block_x)).to(dev)
+    with profiling.span("sync.block_order"):  # a copy from pageable memory
+        perm = torch.from_numpy(_block_order_perm(h, w, block_y,
+                                                  block_x)).to(dev)
     mask_block = valid_mask.reshape(b, m)[:, perm]
     order = _nonzero_first_order(mask_block)  # block positions
     cnt = mask_block.sum(dim=1)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from implicit_depth_torch import constants
+from implicit_depth_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,12 +33,14 @@ class VoxelGrid:
 
     def cell_of(self, pts: torch.Tensor) -> torch.Tensor:
         """(..., 3) points -> (..., 3) int32 cell coords (may be out of bounds)."""
-        xmin0 = torch.tensor(self.xmin0, dtype=pts.dtype, device=pts.device)
+        with profiling.span("sync.cell_of"):  # a copy from pageable memory
+            xmin0 = torch.tensor(self.xmin0, dtype=pts.dtype, device=pts.device)
         return torch.floor((pts - xmin0) / self.part_size).to(torch.int32)
 
     def in_bounds(self, ijk: torch.Tensor) -> torch.Tensor:
         """(..., 3) cell coords -> (...,) bool inside the grid."""
-        dims = torch.tensor(self.dims, dtype=torch.int32, device=ijk.device)
+        with profiling.span("sync.in_bounds"):
+            dims = torch.tensor(self.dims, dtype=torch.int32, device=ijk.device)
         return ((ijk >= 0) & (ijk < dims)).all(dim=-1)
 
     def linear_id(self, ijk: torch.Tensor) -> torch.Tensor:
@@ -55,7 +58,8 @@ class VoxelGrid:
 
     def cell_center(self, ijk: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
         """(..., 3) cell coords -> (..., 3) cell center position."""
-        xmin0 = torch.tensor(self.xmin0, dtype=dtype, device=ijk.device)
+        with profiling.span("sync.cell_center"):
+            xmin0 = torch.tensor(self.xmin0, dtype=dtype, device=ijk.device)
         return xmin0 + ijk.to(dtype) * self.part_size + 0.5 * self.part_size
 
 

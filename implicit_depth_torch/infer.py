@@ -58,6 +58,7 @@ from implicit_depth_torch.models.lidf import (
 )
 from implicit_depth_torch.models.refine import RefineModel, refine_forward
 from implicit_depth_torch.parallel.mesh import ray_block
+from implicit_depth_torch.utils import profiling
 
 Intrinsics = Union[Tuple[float, float, float, float], Sequence[float]]
 
@@ -185,6 +186,7 @@ class DepthCompleter:
 
     # -- device forward -----------------------------------------------------
     @torch.inference_mode()
+    @profiling.spanned("infer.forward")
     def forward(self, batch: Dict[str, torch.Tensor], seed: int = 0,
                 valid_idx: Optional[torch.Tensor] = None):
         """Two-stage forward of a device batch dict -> (completed (B, h, w),
@@ -271,16 +273,19 @@ class DepthCompleter:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    @profiling.spanned("infer.device_batch")
     def device_batch(self, rgbs, depths, intrinsics) -> Dict[str, torch.Tensor]:
         """Host frames -> the device batch dict of :meth:`forward`, padded to
         ``batch_size`` by repeating the last frame."""
-        frames = [self._prep_frame(np.asarray(r), np.asarray(d), i)
-                  for r, d, i in zip(rgbs, depths, intrinsics)]
+        with profiling.span("infer.prep_frames"):
+            frames = [self._prep_frame(np.asarray(r), np.asarray(d), i)
+                      for r, d, i in zip(rgbs, depths, intrinsics)]
         frames += [frames[-1]] * (self.batch_size - len(frames))
-        rgb = self._to_device(np.stack([f[0] for f in frames]))
-        depth = self._to_device(np.stack([f[1] for f in frames]))
-        fx, fy, cx, cy = self._to_device(
-            np.asarray([f[2] for f in frames], np.float32).T.copy())
+        with profiling.span("infer.h2d"):
+            rgb = self._to_device(np.stack([f[0] for f in frames]))
+            depth = self._to_device(np.stack([f[1] for f in frames]))
+            fx, fy, cx, cy = self._to_device(
+                np.asarray([f[2] for f in frames], np.float32).T.copy())
         return {
             "rgb": rgb,
             "depth_corrupt": depth,
@@ -307,6 +312,7 @@ class DepthCompleter:
         out = self.complete_batch([rgb], [depth], [intrinsics], seed=seed)
         return {"depth": out["depth"][0], "depth_pred": out["depth_pred"][0]}
 
+    @profiling.spanned("infer.complete_batch")
     def complete_batch(self, rgbs, depths, intrinsics,
                        seed: int = 0) -> Dict[str, np.ndarray]:
         """Batched :meth:`complete` of at most ``batch_size`` frames."""
@@ -316,7 +322,8 @@ class DepthCompleter:
                              f"{self.batch_size}")
         batch = self.device_batch(rgbs, depths, intrinsics)
         completed, pred_z = self.forward(batch, seed)
-        both = torch.stack([completed, pred_z]).cpu().numpy()  # one readback
+        with profiling.span("infer.read_back"):  # the call's one read-back
+            both = torch.stack([completed, pred_z]).cpu().numpy()
         completed, pred_z = both[0, :n], both[1, :n]
         out_depth = []
         for img, depth0 in zip(completed, depths):

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from implicit_depth_torch.utils import profiling
+
 
 def posenc_dim(multires: int, input_dims: int = 3, enabled: bool = True) -> int:
     if not enabled or multires <= 0:
@@ -23,10 +25,11 @@ def positional_encoding(x: torch.Tensor, multires: int,
     if not enabled or multires <= 0:
         return x
     xf = x.float()
-    freqs = torch.tensor([2.0 ** j for j in range(multires)],
-                         dtype=torch.float32, device=x.device)
-    phase = torch.tensor([0.0, math.pi / 2], dtype=torch.float32,
-                         device=x.device)
+    with profiling.span("sync.posenc_consts"):  # copies from pageable memory
+        freqs = torch.tensor([2.0 ** j for j in range(multires)],
+                             dtype=torch.float32, device=x.device)
+        phase = torch.tensor([0.0, math.pi / 2], dtype=torch.float32,
+                             device=x.device)
     # (..., m, 2, D): x·2^j (exact) + phase, columns ordered (j, sin|cos, d)
     arg = (xf[..., None, None, :] * freqs[:, None, None]) + phase[:, None]
     trig = torch.sin(arg).reshape(*x.shape[:-1], -1)

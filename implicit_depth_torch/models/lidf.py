@@ -84,6 +84,7 @@ from implicit_depth_torch.ops.ray_grid import ray_grid_intersect
 from implicit_depth_torch.ops.roi_align import roi_window_pool
 from implicit_depth_torch.parallel import mesh
 from implicit_depth_torch.parallel.hardneg import sharded_hard_neg_mean
+from implicit_depth_torch.utils import profiling
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -101,6 +102,7 @@ class LIDFStatic:
     use_all_valid: bool = False  # grid.valid_sample_num == -1
 
 
+@profiling.spanned("lidf.prepare_inputs")
 def prepare_inputs(static: LIDFStatic, batch: Tensors, train: bool = False,
                    mask_type: str = "all",
                    pred_mask: Optional[torch.Tensor] = None,
@@ -359,6 +361,7 @@ class LIDFModel(nn.Module):
                          b * grid.n_cells,
                          inputs["vox_point_valid"].reshape(-1), self.dtype)
 
+    @profiling.spanned("lidf.trunk")
     def trunk(self, inputs: Tensors):
         """Per-image work shared by all rays: RGB features + voxel features.
         With ``remat_backbone`` the ResNet is checkpointed as one unit
@@ -511,6 +514,7 @@ class LIDFModel(nn.Module):
         return (scatter_back(off_s), scatter_back(logit_s),
                 scatter_back(sel_valid))
 
+    @profiling.spanned("lidf.decode_rays")
     def decode_rays(self, inputs: Tensors, feat_map: torch.Tensor,
                     vox_feat: torch.Tensor, use_gt_label=False,
                     whole=None) -> Tensors:

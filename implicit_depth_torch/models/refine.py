@@ -47,6 +47,7 @@ from implicit_depth_torch.ops.ray_decode import (
     split_ief_weights,
 )
 from implicit_depth_torch.parallel import mesh
+from implicit_depth_torch.utils import profiling
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -235,6 +236,7 @@ class RefineModel(nn.Module):
         return pred_pos + scaled[..., None] * miss_dir
 
 
+@profiling.spanned("refine.forward")
 def refine_forward(model: RefineModel, inputs: Tensors, lidf_out: Tensors,
                    forward_times: int, *, perturb: bool = False,
                    perturb_prob: float = 0.8,

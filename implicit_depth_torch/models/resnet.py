@@ -37,6 +37,7 @@ from torch import nn
 
 from implicit_depth_torch.models.init import normal_
 from implicit_depth_torch.parallel import mesh
+from implicit_depth_torch.utils import profiling
 
 
 def bilinear_matrix(n_out: int, n_in: int) -> torch.Tensor:
@@ -69,8 +70,9 @@ class _BilinearResize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (h_out, w_out), (h_in, w_in) = g.shape[-2:], ctx.in_hw
-        a_h = bilinear_matrix(h_out, h_in).to(g.device)
-        a_w = bilinear_matrix(w_out, w_in).to(g.device)
+        with profiling.span("sync.resize_matrices"):  # pageable copies
+            a_h = bilinear_matrix(h_out, h_in).to(g.device)
+            a_w = bilinear_matrix(w_out, w_in).to(g.device)
         return (a_h.t() @ (g.float() @ a_w)).to(ctx.dtype), None
 
 

@@ -18,6 +18,7 @@ from typing import Dict
 import torch
 
 from implicit_depth_torch.geometry.voxel import VoxelGrid
+from implicit_depth_torch.utils import profiling
 
 
 def ray_grid_intersect(grid: VoxelGrid, ray_dir: torch.Tensor,
@@ -30,11 +31,12 @@ def ray_grid_intersect(grid: VoxelGrid, ray_dir: torch.Tensor,
     b, r, _ = ray_dir.shape
     dev = ray_dir.device
     f32 = {"dtype": torch.float32, "device": dev}
-    xmin0 = torch.tensor(grid.xmin0, **f32)
-    part = torch.tensor(grid.part_size, **f32)
+    with profiling.span("sync.ray_grid_consts"):  # copies from pageable memory
+        xmin0 = torch.tensor(grid.xmin0, **f32)
+        part = torch.tensor(grid.part_size, **f32)
+        ext = torch.tensor(grid.dims, **f32) * part
 
     inv = 1.0 / (ray_dir + 1e-12)
-    ext = torch.tensor(grid.dims, **f32) * part
     t_lo = xmin0 * inv
     t_hi = (xmin0 + ext) * inv
     t0 = torch.minimum(t_lo, t_hi).amax(dim=-1)            # (B, R)

@@ -54,6 +54,7 @@ from implicit_depth_torch.models.refine import (
 )
 from implicit_depth_torch.parallel import mesh
 from implicit_depth_torch.train.state import TrainState
+from implicit_depth_torch.utils import profiling
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -64,7 +65,8 @@ def _loss_kwargs(cfg, train: bool, epoch: int, device, sharded=False) -> dict:
     def gate(on: bool) -> torch.Tensor:
         # a tensor, not a bool: lidf_loss then computes the smooth term only
         # when its weight is set, as the JAX step's traced flag does
-        return torch.tensor(on, device=device)
+        with profiling.span("sync.loss_gates"):  # a pageable copy
+            return torch.tensor(on, device=device)
 
     return dict(
         train=train,
@@ -138,6 +140,7 @@ def make_lidf_train_step(cfg, model: LIDFModel,
     dev = resolve_device(device)
     model.to(dev)
 
+    @profiling.spanned("train.step")
     def step(state: TrainState, batch: Tensors,
              generator: Optional[torch.Generator], epoch: int,
              valid_idx: Optional[torch.Tensor] = None,
@@ -153,12 +156,15 @@ def make_lidf_train_step(cfg, model: LIDFModel,
         blk = split_rays(inputs, split)
         out = model(blk, use_gt_label=use_gt,
                     whole=_whole(model, inputs, split, True))
-        losses = lidf_loss(blk, out, **_loss_kwargs(cfg, True, epoch, dev,
-                                                     split))
-        state.optimizer.zero_grad(set_to_none=True)
-        losses["loss_net"].backward()
-        mesh.all_reduce_grads(model.parameters())
-        state.apply_gradients()
+        with profiling.span("train.loss"):
+            losses = lidf_loss(blk, out, **_loss_kwargs(cfg, True, epoch, dev,
+                                                         split))
+        with profiling.span("train.backward", adopt=True):
+            state.optimizer.zero_grad(set_to_none=True)
+            losses["loss_net"].backward()
+            mesh.all_reduce_grads(model.parameters())
+        with profiling.span("train.optimizer"):
+            state.apply_gradients()
         return {k: v.detach() for k, v in losses.items()}
 
     return step
@@ -284,6 +290,7 @@ def make_refine_train_step(cfg, lidf_model: LIDFModel,
     perturb = bool(cfg.refine.perturb)
     perturb_prob = float(cfg.refine.perturb_prob)
 
+    @profiling.spanned("train.step")
     def step(state: TrainState, batch: Tensors,
              generator: Optional[torch.Generator], epoch: int,
              valid_idx: Optional[torch.Tensor] = None,
@@ -306,13 +313,16 @@ def make_refine_train_step(cfg, lidf_model: LIDFModel,
                               perturb=perturb, perturb_prob=perturb_prob,
                               generator=generator, noise=noise,
                               shard=mesh.shard(), split=_ray_split(split))
-        losses = refine_loss(blk, pred,
-                             **_refine_loss_kwargs(cfg, True, epoch, dev,
-                                                   split))
-        state.optimizer.zero_grad(set_to_none=True)
-        losses["loss_net"].backward()
-        mesh.all_reduce_grads(refine_model.parameters())
-        state.apply_gradients()
+        with profiling.span("train.loss"):
+            losses = refine_loss(blk, pred,
+                                 **_refine_loss_kwargs(cfg, True, epoch, dev,
+                                                       split))
+        with profiling.span("train.backward", adopt=True):
+            state.optimizer.zero_grad(set_to_none=True)
+            losses["loss_net"].backward()
+            mesh.all_reduce_grads(refine_model.parameters())
+        with profiling.span("train.optimizer"):
+            state.apply_gradients()
         return {k: v.detach() for k, v in losses.items()}
 
     return step

@@ -67,6 +67,7 @@ from implicit_depth_torch.train.steps import (
     make_refine_eval_step,
     make_refine_train_step,
 )
+from implicit_depth_torch.utils import profiling
 
 VALID_SPLITS = (("cleargrasp_synthetic", "known"), ("cleargrasp_synthetic", "novel"),
                 ("cleargrasp_real", "known"), ("cleargrasp_real", "novel"))
@@ -96,6 +97,7 @@ def auto_log_name(cfg: Config, stage: str) -> str:
     return "_".join(str(p) for p in parts)
 
 
+@profiling.spanned("train.to_device")
 def to_device(batch: Dict[str, np.ndarray],
               dev: torch.device) -> Dict[str, torch.Tensor]:
     """A host batch's arrays (``item_path`` left out) as tensors on ``dev``:
@@ -124,6 +126,13 @@ def _host_scalars(values: List[Dict[str, torch.Tensor]],
     if sum_ranks:
         stacked = mesh.all_reduce_sum(stacked)
     return [dict(zip(keys, row)) for row in stacked.cpu().tolist()]
+
+
+_TIMING_PHASES = ("feed_wait", "dispatch", "harvest")
+
+
+def _seconds(totals, phase: str) -> float:
+    return totals.get("train." + phase, (0, 0.0))[1]
 
 
 class BaseTrainer:
@@ -354,11 +363,32 @@ class BaseTrainer:
         """Shared train-epoch loop. ``run_one(device_batch)`` runs one
         step and returns its loss tensors; the losses of an item are read
         back one item LATE, so that the device has the next item queued
-        while the host reads."""
+        while the host reads. ``IDT_TIMING`` turns tracing on for the epoch
+        and prints the sums of its ``train.feed_wait``, ``train.dispatch``
+        and ``train.harvest`` spans."""
+        timing = bool(os.environ.get("IDT_TIMING"))
+        if timing:
+            profiling.enable()
+        try:
+            before = profiling.span_totals()
+            means = self._train_epoch_items(epoch, run_one, tag, log_keys)
+            after = profiling.span_totals()
+        finally:
+            if timing:
+                profiling.disable()
+        if timing:
+            # harvest(last) is where the queued device work drains, so it
+            # reads as "device time the host could not overlap"
+            print(f"[timing] rank {self.rank} epoch {epoch} " + " ".join(
+                f"{k}={_seconds(after, k) - _seconds(before, k):.2f}s"
+                for k in _TIMING_PHASES), flush=True)
+        return means
+
+    def _train_epoch_items(self, epoch: int, run_one, tag: str,
+                           log_keys) -> Dict[str, float]:
         cfg = self.cfg
         self.meters.reset()
         t_start = time.time()
-        phases = {"feed_wait": 0.0, "dispatch": 0.0, "harvest": 0.0}
         pending = None
         skip = self._resume_skip_steps
         self._resume_skip_steps = 0  # only the interrupted epoch skips
@@ -373,32 +403,23 @@ class BaseTrainer:
                 break
             first, losses = it + 1, []
             for _ in range(size):
-                t0 = time.perf_counter()
-                batch = next(batches)
-                phases["feed_wait"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                dev_batch = to_device(batch, self.device)
-                losses.append(run_one(dev_batch))
-                it += 1
-                self._train_vis(epoch, it, batch, dev_batch)
-                phases["dispatch"] += time.perf_counter() - t0
+                with profiling.span("train.feed_wait"):
+                    batch = next(batches)
+                with profiling.span("train.dispatch"):
+                    dev_batch = to_device(batch, self.device)
+                    losses.append(run_one(dev_batch))
+                    it += 1
+                    self._train_vis(epoch, it, batch, dev_batch)
             if pending is not None:  # harvest the PREVIOUS item (overlapped)
-                t0 = time.perf_counter()
-                self._harvest_losses(epoch, pending, tag, log_keys)
-                phases["harvest"] += time.perf_counter() - t0
+                with profiling.span("train.harvest"):
+                    self._harvest_losses(epoch, pending, tag, log_keys)
             pending = (first, losses)
             self._maybe_step_ckpt(epoch, it + 1)
         if pending is not None:
-            t0 = time.perf_counter()
-            self._harvest_losses(epoch, pending, tag, log_keys)
-            phases["harvest"] += time.perf_counter() - t0
+            with profiling.span("train.harvest"):
+                self._harvest_losses(epoch, pending, tag, log_keys)
         means = self.meters.means()
         means["epoch_time_s"] = time.time() - t_start
-        if os.environ.get("IDT_TIMING"):
-            # harvest(last) is where the queued device work drains, so it
-            # reads as "device time the host could not overlap"
-            print(f"[timing] rank {self.rank} epoch {epoch} " + " ".join(
-                f"{k}={v:.2f}s" for k, v in phases.items()), flush=True)
         return means
 
     def _harvest_losses(self, epoch: int, pending, tag: str, log_keys) -> None:
