@@ -47,7 +47,9 @@ Phases:
   6. training path: 5 timed Adam steps (after a warm-up step) of the
      default stage-1 model at 240x320, 20,000 rays and 10,000 valid points
      per image, batch 4, bf16 (launch counters from 0: K2 1, K3 1, K5 2 per
-     step), finite losses, every parameter moved; median step_ms, peak
+     step; K3's Pass A on wgmma, ``ray_decode_bwd.wgmma_launches``, 1 per
+     step wherever K3's plan takes the 64-row instance, in phases 10 and 11
+     too), finite losses, every parameter moved; median step_ms, peak
      memory;
   7. training kernels, on the inputs the warm-up step gave them (recorded),
      in bf16 and f32, against their plain versions: K2 ray_decode_save's
@@ -125,11 +127,12 @@ Phases:
      host time per sample and per batch of 32;
  18. (A) stage 1 at the config's batch 32, one epoch of 2 steps from
      phase 6's unit-scale weights (a checkpoint the CLI loads): launch
-     counters from 0 (K2 1, K3 1, K5 2 per step), the trainer's step time
-     (epoch_time_s / steps), peak memory and, with ``--profile``, a step's
-     device time; the first step's K2 and K3 calls (recorded) against their
-     plain versions computed over chunks of 80,000 rays, with phase 7's
-     bf16 tolerances, timed; then 10 steps at batch 4 for the trainer's
+     counters from 0 (K2 1, K3 1 with its Pass A on wgmma, K5 2 per step),
+     the trainer's step time (epoch_time_s / steps), peak memory and, with
+     ``--profile``, a step's device time; the first step's K2 and K3 calls
+     (recorded) against their plain versions computed over chunks of 80,000
+     rays, with phase 7's bf16 tolerances, timed, and Pass A and Pass B of
+     each K3 instance on them; then 10 steps at batch 4 for the trainer's
      step time beside phase 6's;
  19. (B) stage 1 at batch 4, 2 epochs of 2 steps, a checkpoint every step,
      each epoch validated over 8 synthetic frames: launches per step as
@@ -762,6 +765,13 @@ def counters():
             "pair_decode": pd.pair_decode}
 
 
+def counts_of(fn):
+    """The names of a kernel wrapper's launch counters (``launches`` and,
+    K3's, ``wgmma_launches``)."""
+    return [k for k, v in vars(fn).items()
+            if k.endswith("launches") and isinstance(v, int)]
+
+
 def record_calls(mods, run, when=None, keep=None):
     """``run()`` with each kernel wrapper of ``mods`` ({name: (module,
     attribute)}) replaced by a recorder; returns {(name, shapes): (args,
@@ -779,8 +789,9 @@ def record_calls(mods, run, when=None, keep=None):
                 recorded[(name, shape)] = (keep(a) if keep else a, kw)
             return originals[name](*a, **kw)
         # a wrapper that counts through its own module's global name counts
-        # on this recorder while it stands in there
-        call.launches = 0
+        # on this recorder while it stands in there (each of its counters)
+        for k in counts_of(originals[name]):
+            setattr(call, k, 0)
         return call
 
     recorders = {name: recorder(name) for name in mods}
@@ -791,9 +802,10 @@ def record_calls(mods, run, when=None, keep=None):
     finally:
         for name, (m, attr) in mods.items():
             setattr(m, attr, originals[name])
-            # launches counted on the recorder go to the wrapper's count
-            if recorders[name].launches:
-                originals[name].launches += recorders[name].launches
+            # launches counted on the recorder go to the wrapper's counts
+            for k in counts_of(originals[name]):
+                setattr(originals[name], k, getattr(originals[name], k) +
+                        getattr(recorders[name], k))
     torch.cuda.synchronize()
     return recorded
 
@@ -1304,6 +1316,21 @@ def train_kernel_phase(recorded, tols=TRAIN_TOL, checks=CHECKS):
     return rows
 
 
+def k3_wgmma(a, kw):
+    """1 where K3's plan for the operands ``a`` (as ``ray_decode_bwd``
+    takes them) runs the 64-row wgmma Pass A, else 0: the launches of
+    ``ray_decode_bwd.wgmma_launches`` a K3 call on them adds."""
+    from implicit_depth_torch.ops import cuda
+    from implicit_depth_torch.ops import ray_decode as rd
+    cells, w = a[1], a[4]
+    n, kb = cells.shape
+    plan = rd.bwd_plan(n, w["pair_w1"].shape[0], w["ray_w1"].shape[0],
+                       kw.get("n_iter", 2), w["pair_w1"].dtype == torch.bfloat16,
+                       cuda.sm_count(cells.device), g=w["b1"].shape[0] // 8,
+                       kb=kb, c_vox=w["dims"][0])
+    return int(plan["pass_a"] == "wgmma")
+
+
 def k3_passes(a, kw):
     """K3's passes on the operands ``a`` (as ``ray_decode_bwd`` takes them):
     the device ms of Pass A and of Pass B over all chunks and of the final
@@ -1369,6 +1396,8 @@ def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP,
     torch.cuda.reset_peak_memory_stats()
     for f in counts.values():
         f.launches = 0
+    from implicit_depth_torch.ops import ray_decode as rd
+    wgmma0 = rd.ray_decode_bwd.wgmma_launches
     step_ms, losses = [], []
     for i, b in enumerate(batches[1:]):
         t0 = time.perf_counter()
@@ -1389,6 +1418,16 @@ def train_path(cfg, model, dev, profile=False, expect=EXPECT_PER_STEP,
         if launches[k] != per * steps:
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{steps} steps, expected {per} each")
+    if expect.get("ray_decode_bwd"):
+        # K3's Pass A on wgmma wherever its plan takes it (bf16, 64 rows)
+        wgmma = rd.ray_decode_bwd.wgmma_launches - wgmma0
+        want = launches["ray_decode_bwd"] * k3_wgmma(
+            *recorded["ray_decode_bwd"])
+        log(f"training (decode_bwd {decode_bwd}): {wgmma} K3 launches with "
+            f"the wgmma Pass A in {steps} steps, expected {want}")
+        if wgmma != want:
+            raise AssertionError(f"K3's wgmma Pass A: {wgmma} launches in "
+                                 f"{steps} steps, expected {want}")
     if not all(np.isfinite(v) for ls in losses for v in ls.values()):
         raise AssertionError("training: a loss is not finite")
     still = [n for n, p in model.named_parameters()
@@ -1497,7 +1536,8 @@ def cross_check_seed(dev, seed, witness, mode=None):
         floors["prob_b4"] = a[at + 1].abs().sum().item()
         return bwd(*a, **kw)
 
-    recorder.launches = 0
+    for k in counts_of(bwd):  # the wrapper counts on its stand-in
+        setattr(recorder, k, 0)
     variants = [("card", dev, contextlib.nullcontext()),
                 ("cpu", torch.device("cpu"), contextlib.nullcontext())]
     if witness:
@@ -2494,7 +2534,20 @@ def batch32_kernel_rows(recorded):
         log(f"kernel {name} bf16 at batch 32 {rows[name]['shape']}: ms "
             f"{ms:.4f} plain_ms (chunks of {n_chunk} rays) {plain_ms:.4f} "
             f"bound_ms {b_ms:.4f} ({b_by})")
-    torch.cuda.empty_cache()
+    # Pass A and Pass B of each K3 instance at batch 32: from K2's saves,
+    # recomputing layer 1, from K2 'all''s full saves
+    passes = {}
+    for inst, saves in (("kernel_save", got[2]), ("kernel", None),
+                        ("kernel_save_all", "all")):
+        if saves == "all":
+            del got
+            torch.cuda.empty_cache()
+            saves = rd.ray_decode_save_all(*a2, **kw2)[2]
+        log(f"kernel ray_decode_bwd ({inst}) bf16 at batch 32:")
+        passes[inst] = k3_passes((*a2, saves, a3[6], a3[7]), kw3)
+        del saves
+        torch.cuda.empty_cache()
+    rows["ray_decode_bwd"]["passes"] = passes
     return rows
 
 
@@ -2528,12 +2581,24 @@ def trainer_batch32_phase(dev, workdir, profile=False):
     trainer's step time beside phase 6's bare step."""
     init = unit_scale_checkpoint("lidf", BATCH32_SET, workdir / "init")
     sets = (*BATCH32_SET, f"checkpoint_path={init}")
+    from implicit_depth_torch.ops import ray_decode as rd
     holder = {}
     torch.cuda.reset_peak_memory_stats()
+    wgmma0 = rd.ray_decode_bwd.wgmma_launches
     recorded, launches = counted(lambda: record_calls(
         train_kernel_modules(),
         lambda: holder.update(tr=cli(dev, "lidf", workdir / "a32", *sets))))
     tr = holder["tr"]
+    # K3's Pass A on wgmma (bf16, 64 rows): one launch a stage-1 step
+    wgmma = rd.ray_decode_bwd.wgmma_launches - wgmma0
+    a3, kw3 = next(call for (name, _), call in recorded.items()
+                   if name == "ray_decode_bwd")
+    want = launches["ray_decode_bwd"] * k3_wgmma(a3, kw3)
+    log(f"trainer batch 32: {wgmma} K3 launches with the wgmma Pass A in "
+        f"{tr.steps_per_epoch} steps, expected {want}")
+    if wgmma != want or want != tr.steps_per_epoch:
+        raise AssertionError(f"trainer batch 32: {wgmma} wgmma Pass A "
+                             f"launches, expected {tr.steps_per_epoch}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec = epoch_records(tr)[-1]
     step_ms = trainer_step_ms(tr, rec)

@@ -47,9 +47,11 @@
 // widths) and no order between blocks, so the work is split in passes that
 // one C call runs on the stream, over chunks of at most K3_CHUNK_RAYS rays
 // (ops/ray_decode.py::bwd_plan, which sizes everything below):
-//   * Pass A, a persistent grid (one 512-thread block per SM, ~214 KB of
-//     shared memory) walking tiles of 64 (bf16) or 32 (f32) pair rows: the
-//     row-local recompute and backward. A tile holds the whole rays of
+//   * Pass A, a persistent grid (one 512-thread block per SM) walking
+//     tiles of 64 (bf16: two tiles in flight a block, on wgmma,
+//     ray_decode_bwd_wg.cuh), 32 or 16 pair rows (one a block, ~214 KB of
+//     shared memory, below): the row-local recompute and backward. A tile
+//     holds the whole rays of
 //     rays_per_tile(kb) = min(rows / kb, rows / 8) (8 rays of 8 slots in
 //     bf16: the per-ray regions' rows cap it, and rows idle at kb < 8), or,
 //     in f32 at kb > 32, 32 slots of one ray: its tiles then follow each
@@ -87,28 +89,27 @@
 // What bounds it on the H100: at the training shapes (640,000 pair rows)
 // ~0.73 TFLOP, 0.74 ms at the bf16 tensor-core peak; the streams add ~3 GB
 // written and read once (~2 ms at 3.35 TB/s) in place of the ~23 GB of
-// per-tile workspace traffic of the first version, which spent ~30% of its
-// time there and ~40% in products (scripts/attribute_k3_k5.py). Measured
-// the same way (scripts/attribute_k3_passes.py), Pass A's own products
-// then took 65-70% of Pass A: each warp read its weight fragments from L2
-// with 2- or 4-byte loads, and a fragment that two or four warps needed
-// came from L2 that many times. Every 64-row bf16 product now stages its
-// weights through shared memory in slabs of 32-64 k-rows (cp.async, the
-// next slab in flight while the 16 warps use the current one): each weight
-// element leaves L2 once a block, in 16-byte pieces, and the fragments come
-// from padded rows (kLd1..3, the slabs' strides) that do not conflict on
-// banks. The room for the slabs comes from T(d_z1p), which the last product
-// reads back from its stream. The f32 instance keeps CUDA-core FMA products
-// with the weights read from L2. What bounds Pass A now: its products are
-// still ~60-67% of it, each between two __syncthreads of the SM's one
-// block, and the bf16 instances sit at the 128-register cap of 512
-// threads: a second product path in the same kernel, or shared-memory
-// offsets held in registers, cost more in spills than staging gained, so
-// there is one path for the 64-row products and the fixed regions of
-// BwdSmem have compile-time offsets. PERF.md has the times of each pass.
+// per-tile workspace traffic of the first version. The 32- and 16-row
+// instances (f32; imnet_gf 128; the widest per-ray and layer-1 inputs)
+// keep the design below, which at 64 rows measured: bf16 products staging
+// their weights through shared memory in slabs (cp.async, each weight
+// element out of L2 once a block, padded rows kLd1..3 that do not conflict
+// on banks), wmma 16x16x16 with the f32 accumulators through the C and D
+// tiles, each between two __syncthreads of the SM's one tile, 60-67% of
+// Pass A (scripts/attribute_k3_passes.py), at the 128-register cap of 512
+// threads, the f32 tiles leaving no room for a second tile. The 64-row bf16
+// instance (ray_decode_bwd_wg.cuh) is wgmma with the accumulators and the
+// epilogues in registers: without those tiles one block holds two tiles,
+// which share the weight slabs and the barriers.
+// Its Pass A takes 75 ms at batch 32 on the H100 against the 98 of the
+// design above (PERF.md): it is no longer bound by its products but by the
+// length of a tile's chain of ~130 barrier phases, each waiting for a slab
+// or a global load; skipping each cost in turn, the weight slabs are ~27%
+// of it, the products' own issue and barriers ~18%, the stream writes ~16%.
 #include <type_traits>
 
 #include "decode_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -536,7 +537,9 @@ struct BwdParams {
   const T* s_h3;        // (n_iter + 1, n*kb, 64)
   const float* s_logit; // (n*kb,)
   long long s_inst;     // n*kb
-  float* e1_scratch;    // recompute: (gridDim.x, M, 256) f32
+  // recompute: (gridDim.x, M, 4g) f32; at 64 rows, every mode:
+  // (gridDim.x, wg_scratch_floats) f32
+  float* e1_scratch;
   const float* g;       // (n, kb, 2) cotangents [offset | logit]
   float* table_part;    // (gridDim.x, table_stride) f32 copies of d_vox_table, zeroed
   long long table_stride;
@@ -547,6 +550,7 @@ struct BwdParams {
   int small_off[kSmall];
   int small_size;
   long long ray_base, n_chunk;  // the chunk's first ray and its rays
+  int n_vblocks;  // Pass A blocks of the plan (at 64 rows: tile slots)
   long long row_base;           // the chunk's first pair row, ray_base * kb
   // pair slots a ray; whole rays of a tile; slots of a tile's ray (kb, or
   // M at kb > M); tiles of a ray (1, or f32 at kb > M: 2)
@@ -722,9 +726,17 @@ __device__ void tail_backward(const T* H1, T* H2, T* H3, float* DOFF,
   }
 }
 
+#include "ray_decode_bwd_wg.cuh"
+
+// Pass A: the 64-row bf16 instance on wgmma (ray_decode_bwd_wg.cuh), two
+// tiles a block; the 32- and 16-row instances below, one tile a block
 template <typename T, int M, int kMode, int G>
-__global__ void __launch_bounds__(kThreadsA, 1)
-    pass_a_kernel(const BwdParams<T> p) {
+__global__ void __launch_bounds__(M == 64 ? kThreadsW : kThreadsA, 1)
+    pass_a_kernel(const __grid_constant__ BwdParams<T> p) {
+  if constexpr (M == 64) {
+    pass_a_wg<kMode, G>(p);
+    return;
+  }
   IDT_DIMS(G);
   using Lay = BwdSmem<T, M, G>;
   constexpr bool kFromSaves = kMode != kRecompute;
@@ -1291,6 +1303,15 @@ __global__ void reduce_kernel(const float* __restrict__ P,
 
 // -- the host side -------------------------------------------------------------
 
+// Pass A's dynamic shared memory (bytes) at these widths
+template <typename T, int M, int G>
+size_t pass_a_smem(int crp, int n_iter, int small_size) {
+  if constexpr (M == 64)
+    return WgSmem<G>(crp, n_iter, small_size).total;
+  else
+    return BwdSmem<T, M, G>(crp, n_iter, small_size).total;
+}
+
 int stream_width(int s, int kp, int crp, int g) {
   switch (s) {
     case kX: return kp;
@@ -1322,6 +1343,7 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
       plan[kTableStride] < table_elems || table_elems % p.c_vox ||
       table_elems > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  p.n_vblocks = blocks_a;
   p.table_part = partials + plan[kTableOff];
   p.table_stride = plan[kTableStride];
   for (int s = 0; s < kStreams; ++s) {
@@ -1363,14 +1385,16 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
                   (int)f[6], (int)f[7]};
   }
 
+  // the 64-row instance keeps the IEF's d_z1 in a global scratch
+  if (M == 64 && p.e1_scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(
       partials, 0, (size_t)plan[kPartialFloats] * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
-  const BwdSmem<T, M, G> lay(p.crp, p.n_iter, p.small_size);
-  if (lay.total > kMaxSmemA) return (int)cudaErrorInvalidValue;
+  const size_t smem = pass_a_smem<T, M, G>(p.crp, p.n_iter, p.small_size);
+  if (smem > kMaxSmemA) return (int)cudaErrorInvalidValue;
   auto ka = pass_a_kernel<T, M, kMode, G>;
   err = cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)lay.total);
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   // measurement: events[0] before the first pass, then after each pass
   auto mark = [&](int i) {
@@ -1381,7 +1405,8 @@ int run_passes(BwdParams<T> p, const long long* plan, long long n,
     p.ray_base = c * chunk;
     p.row_base = p.ray_base * p.kb;
     p.n_chunk = n - p.ray_base < chunk ? n - p.ray_base : chunk;
-    ka<<<blocks_a, kThreadsA, lay.total, stream>>>(p);
+    ka<<<M == 64 ? (blocks_a + kSlotsW - 1) / kSlotsW : blocks_a,
+         M == 64 ? kThreadsW : kThreadsA, smem, stream>>>(p);
     mark(1 + 2 * c);
     for (int j = 0; j < n_jobs; ++j)
       gp.job[j].rows = (int)(is_per_ray((int)jobs[j * kJobFields])
@@ -1507,9 +1532,10 @@ int run(void* const* ptrs, const long long* plan, long long n_plan,
 // e1, z1p, trig (K2's saves; all null for the recompute instance), g (n, kb,
 // 2) f32 cotangents, d_table (S, c_vox) f32, d_ray (n, c_ray) f32, d_w (the
 // weight gradients, f32, in ops/ray_decode.py::bwd_grad_layout), scratch
-// (the streams, T), partials (f32), e1_scratch (blocks, rows per tile, 4g)
-// f32 for the recompute instance (else null), then K2 'all''s off (n_iter +
-// 1, n*kb) f32, h2 (n_iter + 1, n*kb, 2g), h3 (n_iter + 1, n*kb, g) and
+// (the streams, T), partials (f32), e1_scratch (f32: at 64 rows
+// (blocks, wg_scratch_floats); at 32 and 16 (blocks, rows per tile, 4g) for
+// the recompute instance, else null), then K2 'all''s off (n_iter + 1, n*kb)
+// f32, h2 (n_iter + 1, n*kb, 2g), h3 (n_iter + 1, n*kb, g) and
 // logit (n*kb,) f32 for the instance from full saves (else null): 35 device
 // pointers; n rays of kb pair slots, kb (1 <= kb <= kMaxKb) in the plan.
 // plan: ops/ray_decode.py::pack_bwd_plan (n_plan int64). events:
@@ -1549,8 +1575,8 @@ extern "C" long long idt_ray_decode_bwd_smem(long long m, long long crp,
       if constexpr (!held<T, M, G>()) {
         return -1;
       } else {
-        return (int)BwdSmem<T, M, G>((int)crp, (int)n_iter, (int)small_size)
-            .total;
+        return (int)pass_a_smem<T, M, G>((int)crp, (int)n_iter,
+                                         (int)small_size);
       }
     });
   };
@@ -1565,4 +1591,50 @@ extern "C" long long idt_ray_decode_bwd_smem(long long m, long long crp,
     r = size(__nv_bfloat16(), std::integral_constant<int, 64>{});
   // with_width's error code for another width: no block is that small
   return r < 128 ? -1 : r;
+}
+
+// Pass A blocks of M rows (64, 32 or 16) that one SM holds at once at these
+// widths (the instance from K2's saves; every instance has the same
+// registers and shared memory), or -1 for an instance this library does
+// not hold or a CUDA error
+extern "C" long long idt_ray_decode_bwd_blocks_per_sm(long long m,
+                                                      long long crp,
+                                                      long long n_iter,
+                                                      long long small_size,
+                                                      long long g,
+                                                      long long is_bf16) {
+#ifdef IDT_GF
+  if (g != IDT_GF) return -1;  // another library's width
+#endif
+  auto blocks = [&](auto t, auto rows) -> long long {
+    using T = decltype(t);
+    constexpr int M = decltype(rows)::value;
+    return with_width(g, [&](auto w) -> int {
+      constexpr int G = decltype(w)::value;
+      if constexpr (!held<T, M, G>()) {
+        return -1;
+      } else {
+        const int smem = (int)pass_a_smem<T, M, G>((int)crp, (int)n_iter,
+                                                   (int)small_size);
+        auto ka = pass_a_kernel<T, M, kFromL1, G>;
+        int n = 0;
+        if (cudaFuncSetAttribute(
+                ka, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, ka, M == 64 ? kThreadsW : kThreadsA, smem))
+          return -1;
+        return n;
+      }
+    });
+  };
+  long long r = -1;
+  if (m == 32)
+    r = is_bf16 ? blocks(__nv_bfloat16(), std::integral_constant<int, 32>{})
+                : blocks(0.f, std::integral_constant<int, 32>{});
+  else if (m == 16)
+    r = is_bf16 ? blocks(__nv_bfloat16(), std::integral_constant<int, 16>{})
+                : blocks(0.f, std::integral_constant<int, 16>{});
+  else if (m == 64 && is_bf16)
+    r = blocks(__nv_bfloat16(), std::integral_constant<int, 64>{});
+  return r;
 }

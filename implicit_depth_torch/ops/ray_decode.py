@@ -1019,7 +1019,10 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         p_off += splits * stride
         blocks_b += tiles_k * tiles_n * splits
     tiles = -(-chunk // mr) * tpr
-    blocks_a = max(1, min(sm_count, -(-chunk // mr)))
+    # Pass A's blocks (one an SM): at 64 rows (wgmma) each holds
+    # K3_WG_SLOTS tiles, and blocks_a counts those slots
+    slots = K3_WG_SLOTS if m == 64 else 1
+    blocks_a = max(1, min(slots * sm_count, -(-chunk // mr)))
     for k in K3_SMALL:
         size = math.prod(layout[k][1])
         reds.append({"src": p_off + small[k], "stride": s_off,
@@ -1028,6 +1031,9 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
     table_off = _align(p_off + blocks_a * s_off)
     table_stride = _align(table_elems)
     return {"rows_per_tile": m, "kb": kb, "rays_per_tile": mr,
+            "pass_a": "wgmma" if m == 64 else "wmma",
+            "smem_a": bwd_smem(m, g, crp, n_iter, s_off, is_bf16),
+            "tile_slots": slots,
             "tiles_per_ray": tpr, "chunk_rays": chunk, "n_chunks": n_chunks,
             "tiles_per_chunk": tiles, "blocks_a": blocks_a,
             "n_inst": n_inst, "split_rows": split_rows, "streams": streams,
@@ -1040,16 +1046,22 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
 
 
 K3_STAGE_ELEMS = 2 * 128 * (64 + 8)  # Pass A's weight slabs (kStageElems)
+# the 64-row Pass A (csrc/ray_decode_bwd_wg.cuh): the tiles a block holds
+# (kSlotsW), the ring of weight slabs they share (bf16 elements: wgmma.cuh
+# kSlabs of kSlabElems) and F's row stride (kLdF)
+K3_WG_SLOTS, K3_WG_SLABS, K3_WG_LDF = 2, 3 * 4096, 68
 
 
 def bwd_smem(m: int, g: int, crp: int, n_iter: int, small_size: int,
              is_bf16: bool) -> int:
     """Bytes of dynamic shared memory of one K3 Pass A block of ``m`` rows
     (64, 32 or 16) at imnet_gf ``g``, per-ray width ``crp``, ``n_iter`` IEF
-    iterations and ``small_size`` floats of small sums: BwdSmem of
-    ``csrc/ray_decode_bwd.cu``. At 64 rows X (kp <= 400) spans the H1 and
-    H2 tiles and the d_rows tile holds c_vox <= 256; at 32 and 16 rows kp
-    <= 640, c_vox <= 512. The per-ray regions hold max(4, m / 8) rays."""
+    iterations and ``small_size`` floats of small sums: WgSmem (64 rows,
+    ``csrc/ray_decode_bwd_wg.cuh``: K3_WG_SLOTS tiles' regions and the
+    weight slabs they share) or BwdSmem (``csrc/ray_decode_bwd.cu``). At 64
+    rows X (kp <= 400) spans the H1 and H2 tiles and the d_rows pieces hold
+    c_vox <= 256; at 32 and 16 rows kp <= 640, c_vox <= 512. The per-ray
+    regions hold max(4, m / 8) rays."""
     es = 2 if is_bf16 else 4
     g1, g2, g3 = 4 * g, 2 * g, g
     ld1, ld2, ld3 = g1 + 8, g2 + 8, g3 + 8
@@ -1059,16 +1071,21 @@ def bwd_smem(m: int, g: int, crp: int, n_iter: int, small_size: int,
     o = a(m * max(ld1, max_kp - ld2) * es)             # H1 | X
     o = a(o + m * ld2 * es)                             # H2
     o = a(o + m * ld3 * es)                             # H3
-    o = a(o + max(m * g2 * 4, m * ld1 * es))            # C
-    o = a(o + m * max(g1, max_cvox) * 4)                # D
-    o = a(o + (K3_STAGE_ELEMS * es if is_bf16 else 0))  # weight slabs
-    for _ in range(7):                                  # doff .. next
-        o = a(o + m * 4)
-    o = a(o + g1 * 4)                                   # a_vec
-    o = a(o + g1 * 4)                                   # c_vec
-    o = a(o + mr * ld1 * es)                            # RET
+    if m == 64:
+        o = a(o + m * K3_WG_LDF * 4) + 6 * m * 4        # F, doff .. next
+    else:
+        o = a(o + max(m * g2 * 4, m * ld1 * es))            # C
+        o = a(o + m * max(g1, max_cvox) * 4)                # D
+        o = a(o + (K3_STAGE_ELEMS * es if is_bf16 else 0))  # weight slabs
+        for _ in range(7):                                  # doff .. next
+            o = a(o + m * 4)
+        o = a(o + g1 * 4)                                   # a_vec
+        o = a(o + g1 * 4)                                   # c_vec
+        o = a(o + mr * ld1 * es)                            # RET
     o = a(o + (n_iter + 1) * m * 4)                     # offsets
     o = a(o + mr * crp * es)                            # RF
+    if m == 64:  # d_ray_feat's sums lie in the global scratch
+        return K3_WG_SLOTS * a(o + small_size * 4) + K3_WG_SLABS * 2
     o = a(o + mr * crp * 4)                             # DRF
     return a(o + small_size * 4)
 
@@ -1136,12 +1153,15 @@ def pack_bwd_plan(plan: dict) -> list:
 def ray_decode_bwd(vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
                    *, n_iter=2, init_offset=0.001, use_sigmoid=False):
     """Kernel K3 (see :func:`_ray_decode_bwd_cuda`), counted in
-    ``ray_decode_bwd.launches``."""
+    ``ray_decode_bwd.launches``, and in ``ray_decode_bwd.wgmma_launches``
+    where its Pass A ran the 64-row wgmma instance (the plan's ``pass_a``)."""
+    taken = {}
     out = _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved,
                                g_off, g_logit, n_iter=n_iter,
                                init_offset=init_offset,
-                               use_sigmoid=use_sigmoid)
+                               use_sigmoid=use_sigmoid, taken=taken)
     ray_decode_bwd.launches += 1
+    ray_decode_bwd.wgmma_launches += int(taken.get("pass_a") == "wgmma")
     return out
 
 
@@ -1212,7 +1232,7 @@ def _bwd_saves(saved, n, kb, g4, multires, n_iter, dtype, dev):
 
 def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
                          g_logit, *, n_iter=2, init_offset=0.001,
-                         use_sigmoid=False, events=None):
+                         use_sigmoid=False, events=None, taken=None):
     """Kernel K3: gradients of the stage-1 decode, from K2's saves, from K2
     'all''s full saves (``decode_bwd='kernel_save_all'``: no forward
     product) or, with ``saved=None``, recomputing layer 1
@@ -1228,7 +1248,8 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
     :func:`bwd_plan` chunk by chunk (``events``: a dict that receives the
     CUDA events it records between them, for measurement); every gradient,
     d_vox_table too, is summed in a fixed order (bit-identical run to
-    run)."""
+    run). ``taken``: a dict that receives the plan's Pass A instance under
+    ``"pass_a"`` when the kernel runs."""
     vox_table, cells, pos, ray_feat = _decode_operands(
         "ray_decode_bwd", vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
@@ -1260,11 +1281,17 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
                               device=dev)
         partials = torch.empty((plan["partial_floats"],),
                                dtype=torch.float32, device=dev)
-        # the recompute instance keeps each block's f32 e1 tile in a slice
-        # of its own
-        e1_scratch = None if saved is not None else torch.empty(
-            (plan["blocks_a"], plan["rows_per_tile"], g4),
-            dtype=torch.float32, device=dev)
+        # each block's f32 slice: the recompute instance's e1 tile; at 64
+        # rows the IEF's d_z1, the recompute's z1p, e1 and per-ray layer 1,
+        # and d_ray_feat's sums (csrc/ray_decode_bwd_wg.cuh
+        # wg_scratch_floats)
+        wgmma = plan["pass_a"] == "wgmma"
+        per_block = ((64 if saved is not None else 144) * g4 + 8 * crp
+                     if wgmma else plan["rows_per_tile"] * g4)
+        slots = plan["tile_slots"]  # every slot of the last block
+        e1_scratch = None if saved is not None and not wgmma else \
+            torch.empty((-(-plan["blocks_a"] // slots) * slots, per_block),
+                        dtype=torch.float32, device=dev)
         ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
                                *(w[k] for k in _K1_WEIGHTS), *saves[:3], g,
                                d_table, d_rf, d_w, scratch, partials,
@@ -1283,6 +1310,8 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
         fn = cuda.bind(f"ray_decode_bwd_g{g4 // 4}", "idt_ray_decode_bwd",
                        cuda.PTR, cuda.PTR, *[cuda.I64] * 11, cuda.F32,
                        cuda.PTR)
+        if taken is not None:
+            taken["pass_a"] = plan["pass_a"]
         cuda.check(fn(ptrs, (cuda.I64 * len(packed))(*packed), len(packed),
                       n, c_vox, c_ray, multires, kp, crp, n_iter, g4 // 4,
                       int(dtype == torch.bfloat16), int(use_sigmoid),
@@ -1297,6 +1326,7 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
 
 
 ray_decode_bwd.launches = 0
+ray_decode_bwd.wgmma_launches = 0
 
 DECODE_BWD_MODES = ("kernel_save", "kernel", "kernel_save_all", "xla")
 

@@ -426,6 +426,29 @@ def test_decode_plan_is_the_kernels_layout(dev):
             ("f32", 16)} <= layouts
 
 
+def test_k3_pass_a_blocks_an_sm_hold_the_plans_tiles(dev):
+    """The card holds one K3 Pass A block an SM at the widths the plan
+    takes (the default widths and W3's and W4's per-ray widths, imnet_gf 8
+    to 128, bf16 and f32), and the plan sizes its grid for what a block
+    holds: two 64-row tiles (the wgmma instance, bf16), one of 32 or 16
+    rows otherwise. So two 64-row tiles are in flight on each SM."""
+    for g in rd.DECODER_GF:
+        occ = cuda.library(
+            f"ray_decode_bwd_g{g}").idt_ray_decode_bwd_blocks_per_sm
+        occ.argtypes = [cuda.I64] * 6
+        occ.restype = ctypes.c_longlong
+        for crp in (160, 288, 544):
+            for bf16 in (True, False):
+                plan = rd.bwd_plan(1000, 240, crp, 2, bf16, 132, g=g,
+                                   c_vox=128)
+                m = plan["rows_per_tile"]
+                got = occ(m, crp, 2, plan["small_size"], g, bf16)
+                assert got == 1, (g, crp, bf16, m, got)
+                assert plan["tile_slots"] == (2 if m == 64 else 1)
+                assert plan["blocks_a"] == min(132 * plan["tile_slots"],
+                                               plan["tiles_per_chunk"])
+
+
 def _rel_norm(a, b):
     a, b = a.double(), b.double()
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
@@ -508,11 +531,17 @@ def test_ray_decode_bwd_d_vox_table_is_deterministic(dev, dtype, saves_of,
     w32, args, cot = _decode_case(rng, dev, dtype, n=4000)
     w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
     saves = _k2_saves(args, w, saves_of)
+    wgmma = rd.ray_decode_bwd.wgmma_launches
     first = rd.ray_decode_bwd(*args, w, saves, *cot)
     for _ in range(2):
         again = rd.ray_decode_bwd(*args, w, saves, *cot)
         assert torch.equal(again[0], first[0])
         assert torch.equal(again[1], first[1])
+        for k in first[2]:
+            assert torch.equal(again[2][k], first[2][k]), k
+    # bf16 at the default widths: the 64-row Pass A on wgmma, each launch
+    assert rd.ray_decode_bwd.wgmma_launches - wgmma == \
+        (3 if dtype == "bfloat16" else 0)
 
 
 # -- the decoders' other widths: imnet_gf 32 (the smoke and convergence
@@ -602,6 +631,51 @@ def test_ray_decode_bwd_at_every_width(dev, dtype, gf, saves_of,
     for k, g in got.items():
         assert g.shape == want[k].shape and torch.isfinite(g).all(), k
         assert _rel_norm(g, want[k]) <= tol, (k, _rel_norm(g, want[k]))
+    again = rd.ray_decode_bwd(*args, w, saves, *cot)
+    assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_rf)
+    for k in d_w:
+        assert torch.equal(again[2][k], d_w[k]), k
+
+
+# imnet_gf: the widths of _decode_case at 64, WIDTHS at 32 and 8; 16 between
+WGMMA_WIDTHS = {64: {}, 32: WIDTHS[32], 16: {"cv": 48, "c_roi": 48},
+                8: WIDTHS[8]}
+
+
+@pytest.mark.parametrize("gf", list(WGMMA_WIDTHS))
+@pytest.mark.parametrize("kb", [4, 8, 16])
+@pytest.mark.parametrize("saves_of", ["l1", None, "all"])  # each K3 instance
+def test_ray_decode_bwd_wgmma_pass_a_matches_plain(dev, gf, kb, saves_of,
+                                                   monkeypatch):
+    """K3's 64-row bf16 Pass A (wgmma, two tiles a block) in each save mode
+    against the plain version, at the tolerance of
+    test_ray_decode_bwd_kernel_matches_plain, at imnet_gf 64, 32, 16 and 8
+    and kb 4, 8 and 16: rays that end in a ragged last tile, in several
+    chunks; the launch takes the wgmma path and a second one gives the same
+    bits of every gradient."""
+    monkeypatch.setattr(rd, "K3_CHUNK_RAYS", 700)
+    monkeypatch.setattr(rd, "K3_SPLIT_ROWS", 1000)
+    n = 1501  # tiles of 64 // kb rays: the last one ragged
+    plan = rd.bwd_plan(n, 240, 160, 2, True, 132, 700, 1000, kb=kb)
+    assert plan["n_chunks"] > 1 and n % plan["rays_per_tile"]
+    rng = np.random.default_rng(90 + gf + kb)
+    w32, args, cot = _decode_case(rng, dev, "bfloat16", n=n, kb=kb, gf=gf,
+                                  **WGMMA_WIDTHS[gf])
+    w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
+    saves = _k2_saves(args, w, saves_of)
+    before = (rd.ray_decode_bwd.launches, rd.ray_decode_bwd.wgmma_launches)
+    d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
+    assert (rd.ray_decode_bwd.launches,
+            rd.ray_decode_bwd.wgmma_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = rd.ray_decode_bwd_plain(*args, w32, *cot, dtype=torch.bfloat16,
+                                  saved=saves)
+    torch.cuda.synchronize()
+    got = {"d_table": d_tab, "d_ray_feat": d_rf, **d_w}
+    want = {"d_table": ref[0], "d_ray_feat": ref[1], **ref[2]}
+    for k, g in got.items():
+        assert g.shape == want[k].shape and torch.isfinite(g).all(), k
+        assert _rel_norm(g, want[k]) <= 2e-2, (k, _rel_norm(g, want[k]))
     again = rd.ray_decode_bwd(*args, w, saves, *cot)
     assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_rf)
     for k in d_w:

@@ -72,7 +72,10 @@ def test_chunks_and_tiles_cover_the_rays(n, bf16, n_iter, chunk, split):
     assert c % (m // 8) == 0 and c <= max(chunk, m // 8)
     assert (plan["n_chunks"] - 1) * c < n <= plan["n_chunks"] * c
     assert plan["tiles_per_chunk"] == -(-c // (m // 8))
-    assert 1 <= plan["blocks_a"] <= min(132, plan["tiles_per_chunk"])
+    # the 64-row (wgmma) Pass A: two tiles a block, a block an SM
+    assert plan["tile_slots"] == (2 if bf16 else 1)
+    assert 1 <= plan["blocks_a"] <= min(132 * plan["tile_slots"],
+                                        plan["tiles_per_chunk"])
     assert plan["n_inst"] == n_iter + 1
 
 
@@ -277,14 +280,15 @@ def test_table_copies_follow_the_other_partials(n, bf16, blocks):
 
 
 def test_table_copies_cost_a_bounded_scratch():
-    """At the training shapes the copies add blocks x 1.49 MB: ~197 MB on
-    132 SMs, beside ~1.16 GB of streams and partials."""
+    """At the training shapes the copies add blocks x 1.49 MB: ~394 MB for
+    the 264 tile slots (two a block, a block an SM) on 132 SMs, beside
+    ~1.16 GB of streams and partials."""
     plan = rd.bwd_plan(80000, KP, CRP, 2, True, 132, table_elems=TABLE)
     base = rd.bwd_plan(80000, KP, CRP, 2, True, 132)
     extra = rd.bwd_scratch_bytes(plan, 2) - rd.bwd_scratch_bytes(base, 2)
-    assert plan["blocks_a"] == 132
-    assert 132 * TABLE * 4 <= extra < 132 * (TABLE + 64) * 4 + 256
-    assert extra < 0.2e9
+    assert plan["blocks_a"] == 264
+    assert 264 * TABLE * 4 <= extra < 264 * (TABLE + 64) * 4 + 256
+    assert extra < 0.4e9
 
 
 @pytest.mark.parametrize("blocks", [1, 3, 7])
@@ -323,3 +327,72 @@ def test_k3_attribution_edits_apply_to_the_sources(variant, tmp_path):
     d = mod.variant_dir(tmp_path, mod.VARIANTS[variant])
     text = (d / "ray_decode_bwd.cu").read_text()
     assert text.startswith(f"#define IDT_SKIP {mod.VARIANTS[variant]}")
+
+
+# (kp, crp, c_vox, imnet_gf, bf16, rows): the default widths, the
+# reference's options W4 (rgb_out 64: crp 544) and W7 (imnet_gf 128,
+# pnet_out 512, multires 10, rgb_out 128: kp 640, crp 1056), and f32
+PATH_CASES = {"default": (KP, CRP, 128, 64, True, 64),
+              "W4": (KP, 544, 128, 64, True, 64),
+              "W7": (640, 1056, 512, 128, True, 16),
+              "f32": (KP, CRP, 128, 64, False, 32),
+              "W7 f32": (640, 1056, 512, 128, False, 16)}
+
+
+@pytest.mark.parametrize("case", list(PATH_CASES))
+def test_pass_a_takes_wgmma_exactly_at_64_bf16_rows(case):
+    """Pass A's instance follows the plan's rows: the wgmma one (two tiles
+    a block) for every bf16 64-row plan, today's 32- and 16-row ones (one
+    tile a block) otherwise; the packed plan carries those rows to the C
+    function, which dispatches on them."""
+    kp, crp, c_vox, g, bf16, rows = PATH_CASES[case]
+    plan = rd.bwd_plan(1000, kp, crp, 2, bf16, 132, g=g, c_vox=c_vox)
+    m = rd.bwd_rows(kp, crp, c_vox, 2, plan["small_size"], g, bf16)
+    assert plan["rows_per_tile"] == m == rows
+    wgmma = bf16 and m == 64
+    assert plan["pass_a"] == ("wgmma" if wgmma else "wmma")
+    assert plan["smem_a"] == rd.bwd_smem(m, g, crp, 2, plan["small_size"],
+                                         bf16) <= rd.MAX_SMEM
+    assert plan["tile_slots"] == (2 if wgmma else 1)
+    assert plan["blocks_a"] == min(132 * plan["tile_slots"],
+                                   plan["tiles_per_chunk"])
+    assert rd.pack_bwd_plan(plan)[3] == m
+
+
+def _cpu_decode_operands(rng, n=5, kb=8, cv=16, c_roi=16, c_dir=27,
+                         multires=2, gf=8, n_table=7):
+    """Small f32 operands of the stage-1 decode on the CPU."""
+    c_embed = cv + c_roi + 6 * (1 + 2 * multires) + c_dir
+    w = {"off_enc_w": rng.normal(size=(1, 16)),
+         "off_enc_b": 0.1 * rng.normal(size=(16,))}
+    for prefix, in_dim in (("off_", c_embed + 16), ("prob_", c_embed)):
+        dims = [(in_dim, 4 * gf), (4 * gf, 2 * gf), (2 * gf, gf), (gf, 1)]
+        for i, (a, b) in enumerate(dims, 1):
+            w[f"{prefix}w{i}"] = rng.normal(size=(a, b)) / np.sqrt(a)
+            w[f"{prefix}b{i}"] = 0.1 * rng.normal(size=(b,))
+    w32 = rd.split_ray_decode_weights(
+        {k: torch.tensor(v, dtype=torch.float32) for k, v in w.items()},
+        cv, c_roi, c_dir, multires, torch.float32)
+    f = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt)  # noqa: E731
+    args = (f(rng.normal(size=(n_table, cv))).requires_grad_(),
+            f(rng.integers(0, n_table, (n, kb)), torch.int32),
+            f(0.6 * rng.normal(size=(n, kb, 6))),
+            f(rng.normal(size=(n, c_roi + c_dir))).requires_grad_())
+    return w32, args
+
+
+@pytest.mark.parametrize("decode_bwd", rd.DECODE_BWD_MODES)
+def test_wgmma_counter_starts_at_zero_and_the_cpu_route_leaves_it(
+        decode_bwd):
+    """``ray_decode_bwd.wgmma_launches`` starts at 0 and counts only K3
+    launches on the card: the CPU route (plain autograd, every mode) leaves
+    it and ``ray_decode_bwd.launches`` as they were."""
+    assert rd.ray_decode_bwd.wgmma_launches == 0
+    before = rd.ray_decode_bwd.launches
+    w32, args = _cpu_decode_operands(np.random.default_rng(3))
+    off, logit = rd.ray_decode_train(*args, w32, torch.bfloat16,
+                                     decode_bwd=decode_bwd)
+    (off.sum() + logit.sum()).backward()
+    assert torch.isfinite(args[0].grad).all()
+    assert rd.ray_decode_bwd.wgmma_launches == 0
+    assert rd.ray_decode_bwd.launches == before
