@@ -444,7 +444,8 @@ class LIDFModel(nn.Module):
         """The ``global`` mode (``_decode_compacted`` of the JAX package):
         the valid slots ranked k-major (every ray's nearest pair before any
         second-nearest), the first P = min(B·R·pairs_budget, B·R·K) taken,
-        the results scattered back. The valid rows are the prefix of
+        the results scattered back (the selection in the span
+        ``lidf.compact_pairs``). The valid rows are the prefix of
         min(valid slots, P) rows, counted on the device: only those are
         decoded (the JAX package decodes the pad rows too, at slot 0, and
         zeroes them; the outputs are the same). Returns (offset, logit,
@@ -463,43 +464,47 @@ class LIDFModel(nn.Module):
         bt, rt = pv_all.shape[:2]
         n_all = bt * rt * k
         p = min(bt * rt * self.pairs_budget, n_all)
-        valid_km = pv_all.permute(2, 0, 1).reshape(-1)
-        rank = torch.cumsum(valid_km.long(), 0) - 1
-        rank = torch.where(valid_km & (rank < p), rank,
-                           torch.full_like(rank, p))
-        # slot p takes every dropped index and is cut off
-        sel = torch.full((p + 1,), n_all, dtype=torch.long,
-                         device=dev).scatter_(
-            0, rank, torch.arange(n_all, device=dev))[:p]
-        sel_valid = sel < n_all
-        sel = torch.where(sel_valid, sel, torch.zeros_like(sel))
-        if whole is None:
-            sel_ray = sel % (b * r)                  # flat b·R + r
-            slot = sel // (b * r)
-            # the valid prefix's length, with no host sync
-            n_rows = valid_km.sum().clamp(max=p).to(torch.int32)
-        else:
-            gb = torch.div(sel % (bt * rt), rt, rounding_mode="floor") - row0
-            gr = sel % rt - ray0
-            mine = sel_valid & (gb >= 0) & (gb < b) & (gr >= 0) & (gr < r)
-            n_mine = mine.sum()
-            dest = torch.where(mine, torch.cumsum(mine, 0) - 1,
-                               n_mine + torch.cumsum(~mine, 0) - 1)
-            src = torch.empty_like(sel).scatter_(
-                0, dest, torch.arange(p, device=dev))
-            sel_valid = mine[src]
-            sel_ray = torch.where(sel_valid, (gb * r + gr)[src],
-                                  torch.zeros_like(sel))
-            slot = torch.where(sel_valid, torch.div(sel, bt * rt,
-                                                    rounding_mode="floor")[src],
-                               torch.zeros_like(sel))
-            n_rows = n_mine.to(torch.int32)
-        row = sel_ray * k + slot                     # row-major (B, R, K)
-        cells = (torch.div(sel_ray, r, rounding_mode="floor")
-                 * self.static.grid.n_cells
-                 + inputs["pair_cell"].reshape(-1)[row])
-        enter, leave = self._pair_positions(inputs)
-        pos = torch.cat([enter, leave], -1).float().reshape(-1, 6)[row]
+        with profiling.span("lidf.compact_pairs"):
+            valid_km = pv_all.permute(2, 0, 1).reshape(-1)
+            rank = torch.cumsum(valid_km.long(), 0) - 1
+            rank = torch.where(valid_km & (rank < p), rank,
+                               torch.full_like(rank, p))
+            # slot p takes every dropped index and is cut off
+            sel = torch.full((p + 1,), n_all, dtype=torch.long,
+                             device=dev).scatter_(
+                0, rank, torch.arange(n_all, device=dev))[:p]
+            sel_valid = sel < n_all
+            sel = torch.where(sel_valid, sel, torch.zeros_like(sel))
+            if whole is None:
+                sel_ray = sel % (b * r)                  # flat b·R + r
+                slot = sel // (b * r)
+                # the valid prefix's length, with no host sync
+                n_rows = valid_km.sum().clamp(max=p).to(torch.int32)
+            else:
+                gb = torch.div(sel % (bt * rt), rt,
+                               rounding_mode="floor") - row0
+                gr = sel % rt - ray0
+                mine = (sel_valid & (gb >= 0) & (gb < b) & (gr >= 0)
+                        & (gr < r))
+                n_mine = mine.sum()
+                dest = torch.where(mine, torch.cumsum(mine, 0) - 1,
+                                   n_mine + torch.cumsum(~mine, 0) - 1)
+                src = torch.empty_like(sel).scatter_(
+                    0, dest, torch.arange(p, device=dev))
+                sel_valid = mine[src]
+                sel_ray = torch.where(sel_valid, (gb * r + gr)[src],
+                                      torch.zeros_like(sel))
+                slot = torch.where(
+                    sel_valid,
+                    torch.div(sel, bt * rt, rounding_mode="floor")[src],
+                    torch.zeros_like(sel))
+                n_rows = n_mine.to(torch.int32)
+            row = sel_ray * k + slot                     # row-major (B, R, K)
+            cells = (torch.div(sel_ray, r, rounding_mode="floor")
+                     * self.static.grid.n_cells
+                     + inputs["pair_cell"].reshape(-1)[row])
+            enter, leave = self._pair_positions(inputs)
+            pos = torch.cat([enter, leave], -1).float().reshape(-1, 6)[row]
         off_s, logit_s = self._decode_pairs(vox_feat, cells, pos, ray_feat,
                                             sel_ray, n_rows)
         row_w = torch.where(sel_valid, row, torch.full_like(row, n_slots))

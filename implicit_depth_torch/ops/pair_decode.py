@@ -36,6 +36,13 @@ backward, as the JAX kernel has no VJP: the training decode
 recomputed from the same inputs, by chunks of :data:`TRAIN_CHUNK_ROWS`
 rows, as the JAX package trains these modes through autograd of
 ``xla_pair_decode``.
+
+Spans (``utils/profiling.py``): ``pair_decode.forward`` around the training
+forward's K6 launch, ``pair_decode.backward`` around the recompute, and
+``sync.pair_rows`` around the backward's one host wait. Counters of the
+backward, as function attributes of :func:`pair_decode_bwd_chunked`, read
+from the rows that wait brought to the host: ``rows`` (rows recomputed)
+and ``chunks``.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from implicit_depth_torch.ops.ray_decode import (
     decoder_gf,
     pad_columns,
 )
+from implicit_depth_torch.utils import profiling
 
 _MATRICES = ("w1", "off_w2", "off_w3", "off_w4", "prob_w2", "prob_w3",
              "prob_w4")
@@ -357,8 +365,8 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
 
     Only the rows that carry a gradient are recomputed: those below the row
     count whose cotangents are not both 0 (a row with zero cotangents adds
-    exact zeros to every gradient). Finding them takes one host sync. The
-    dense layout's empty slots and the ``global`` mode's pad rows, most of
+    exact zeros to every gradient). Finding them takes one host sync, the
+    span ``sync.pair_rows``. The dense layout's empty slots and the ``global`` mode's pad rows, most of
     the rows, all name one cell of an image: their sorted scatter would
     walk tens of thousands of duplicates of one index in series.
 
@@ -371,7 +379,11 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
     keep = (g_off != 0) | (g_logit != 0)
     if n_rows is not None:
         keep &= torch.arange(p, device=cells.device) < n_rows
-    live = keep.nonzero()[:, 0]
+    with profiling.span("sync.pair_rows"):
+        live = keep.nonzero()[:, 0]
+    chunk = max(1, TRAIN_CHUNK_ROWS)
+    pair_decode_bwd_chunked.rows += live.shape[0]
+    pair_decode_bwd_chunked.chunks += -(-live.shape[0] // chunk)
     if rays is None:
         slots = _dense_slots(p, ray_feat.shape[0])
     d_vox = torch.zeros(vox_table.shape, dtype=torch.float32,
@@ -380,7 +392,6 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
                         device=ray_feat.device) if need_ray else None
     d_w = {k: torch.zeros_like(w32[k], dtype=torch.float32)
            for k in _K6_WEIGHTS if need_w}
-    chunk = max(1, TRAIN_CHUNK_ROWS)
     for s in range(0, live.shape[0], chunk):
         r = live[s:s + chunk]
         cells_c = cells[r].long()
@@ -413,6 +424,10 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
             d_w or None)
 
 
+pair_decode_bwd_chunked.rows = 0
+pair_decode_bwd_chunked.chunks = 0
+
+
 class PairDecodeTrain(torch.autograd.Function):
     """The training pair decode on the card: forward K6, backward
     :func:`pair_decode_bwd_chunked` (autograd of :func:`pair_decode_plain`
@@ -431,10 +446,12 @@ class PairDecodeTrain(torch.autograd.Function):
                 *ops):
         dtype, dims, n_iter, init_offset, use_sigmoid = opts
         w32 = dict(zip(_K6_WEIGHTS, ops), dims=dims)
-        out = pair_decode(vox_table, cells, pos, ray_feat,
-                          cast_pair_operands(w32, dtype), rays, n_rows=n_rows,
-                          n_iter=n_iter, init_offset=init_offset,
-                          use_sigmoid=use_sigmoid)
+        with profiling.span("pair_decode.forward"):
+            out = pair_decode(vox_table, cells, pos, ray_feat,
+                              cast_pair_operands(w32, dtype), rays,
+                              n_rows=n_rows, n_iter=n_iter,
+                              init_offset=init_offset,
+                              use_sigmoid=use_sigmoid)
         ctx.opts = opts
         ctx.save_for_backward(vox_table, cells, pos, ray_feat, rays, n_rows,
                               *ops)
@@ -446,11 +463,13 @@ class PairDecodeTrain(torch.autograd.Function):
         vox_table, cells, pos, ray_feat, rays, n_rows, *ops = \
             ctx.saved_tensors
         need = ctx.needs_input_grad
-        d_vox, d_ray, d_w = pair_decode_bwd_chunked(
-            vox_table, cells, pos, ray_feat,
-            dict(zip(_K6_WEIGHTS, ops), dims=dims), rays, n_rows, g_off,
-            g_logit, need=(need[1], need[4], any(need[7:])), dtype=dtype,
-            n_iter=n_iter, init_offset=init_offset, use_sigmoid=use_sigmoid)
+        with profiling.span("pair_decode.backward"):
+            d_vox, d_ray, d_w = pair_decode_bwd_chunked(
+                vox_table, cells, pos, ray_feat,
+                dict(zip(_K6_WEIGHTS, ops), dims=dims), rays, n_rows, g_off,
+                g_logit, need=(need[1], need[4], any(need[7:])), dtype=dtype,
+                n_iter=n_iter, init_offset=init_offset,
+                use_sigmoid=use_sigmoid)
         return (None, d_vox, None, None, d_ray, None, None,
                 *(d_w[k] if d_w and n else None
                   for k, n in zip(_K6_WEIGHTS, need[7:])))

@@ -40,6 +40,13 @@ run when the group holds more than one rank; the gradient all-reduce, the
 barriers and the broadcasts run in any group (a 1-rank group's sum is its
 own value). Until :func:`use_layout` is called the layout is ``data`` =
 world, ``rays`` = 1: every rank a block of the batch.
+
+Tracing (``utils/profiling.py``): the span ``parallel.all_reduce_grads``
+around the gradients' all-reduce, and the counters
+``all_reduce_grads.calls`` and ``all_reduce_sum.calls`` (the loss counts;
+the BatchNorm moments' all-reduces are counted in
+``models/resnet.py::_global_moments.calls``), all of which only a group
+moves.
 """
 
 from __future__ import annotations
@@ -54,6 +61,8 @@ from typing import Any, Iterable, Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from implicit_depth_torch.utils import profiling
 
 BACKENDS = ("nccl", "gloo")
 TIMEOUT_S = 600.0  # a collective that waits longer on a lost rank raises
@@ -125,6 +134,12 @@ def _refuse_shared_cards(store, rank_: int, world_: int,
                 f"ranks {min(rank_, other)} and {max(rank_, other)} both run "
                 f"on card {me} under NCCL, which refuses two ranks on one "
                 "card; use --dist_backend gloo to share a card")
+
+
+def store():
+    """The rendezvous store of :func:`init_from_env`'s group (rank 0
+    serves it), for keys of the caller's own; None outside such a group."""
+    return _STORE
 
 
 def shutdown(clean: bool = True) -> None:
@@ -206,9 +221,13 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     gradient); ``t`` itself without a group."""
     if not dist.is_initialized():
         return t
+    all_reduce_sum.calls += 1
     out = _on_backend(t.detach()).clone()
     dist.all_reduce(out)
     return out.to(t.device)
+
+
+all_reduce_sum.calls = 0
 
 
 def all_gather(t: torch.Tensor) -> torch.Tensor:
@@ -258,13 +277,18 @@ def all_reduce_grads(params: Iterable[nn.Parameter]) -> None:
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    offset = 0
-    for g in grads:
-        n = g.numel()
-        g.copy_(flat[offset:offset + n].view_as(g))
-        offset += n
+    all_reduce_grads.calls += 1
+    with profiling.span("parallel.all_reduce_grads"):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        offset = 0
+        for g in grads:
+            n = g.numel()
+            g.copy_(flat[offset:offset + n].view_as(g))
+            offset += n
+
+
+all_reduce_grads.calls = 0
 
 
 # -- the ("data", "rays") layout ---------------------------------------------

@@ -36,7 +36,13 @@ host wait for the card):
   ``refine.forward``, ``train.loss``, ``train.backward``,
   ``train.optimizer``; ``train/trainer.py``: ``train.to_device``, and in
   the epoch loop ``train.feed_wait``, ``train.dispatch``, ``train.harvest``
-  (``IDT_TIMING`` turns tracing on for the epoch and prints their sums).
+  (``IDT_TIMING`` turns tracing on for the epoch and prints their sums);
+- the ``global`` and dense modes (``models/lidf.py``,
+  ``ops/pair_decode.py``): ``lidf.decode_rays`` > ``lidf.compact_pairs``
+  (the ``global`` selection), ``pair_decode.forward`` (K6 in training);
+  ``train.backward`` > ``pair_decode.backward`` > ``sync.pair_rows``;
+- data parallel (``parallel/mesh.py``): ``train.backward`` >
+  ``parallel.all_reduce_grads``.
 
 To see where a served frame or a train step spends the card's time::
 
