@@ -283,8 +283,10 @@ Phases:
      forward, the backward autograd of the plain decode recomputed in
      chunks), each at phase 6's default widths: at batch 4 and at
      train_lidf.yaml's batch 32 a recorded step and PAIR_STEPS counted ones
-     (launch counters from 0: K6 1, K5 2, K1-K3 0 a step; host ms, device
-     ms of a step, peak memory), K6 against its plain version on the
+     (launch counters from 0: K6 1, K5 2, K1-K3 0 a step, the segment sum
+     SUMS_PER_CHUNK a chunk of the recompute; host ms, device ms of a
+     step, peak memory; the segment sum's calls recorded), K6 against its
+     plain version on the
      step's recorded forward call (bf16 and f32 at PAIR_TRAIN_TOL, on at
      most PAIR_CHECK_ROWS of its rows), two steps twice bit for bit
      under cuDNN's deterministic algorithms; at batch 4 the step's
@@ -335,8 +337,25 @@ Phases:
      the host wait for the card must lie in a sync.* span (the frame's
      one read-back in infer.read_back). Each kernel's row carries
      ``profiled``, its launches in each trace.
-     Then the seconds of phases 2-43, of 33-35, of 36-38, of 39, 40, 41,
-     42, 43.
+ 44. segment sum: ops/segment.py::segment_sum_ (csrc/segment_sum.cu).
+     Each call phase 40 recorded in the global mode's batch-32 step (the
+     voxel and the ray table, a whole chunk and the last) replayed onto a
+     zero table: the plain version's bits, the same bits twice, the
+     index_put_(accumulate=True) it replaced within f32 summation order;
+     CUDA-event times of the kernel, the plain version and index_put_, and
+     the bound by bytes: the segment_sum_ row of the kernels line. Then
+     train.lidf.allpairs.b32's recompute shapes (SUM_ROWS live rows of a
+     step in chunks of SUM_CHUNK; f32 rows onto the 23,328 x 128 voxel
+     table, one cell taking SUM_BIG rows of the first chunk; bf16 rows
+     onto the 640,000 x 155 ray rows): the step's two sorts and its sums
+     against the plain version bit for bit and against the same chunks'
+     index_put_ within f32 summation order, the same bits twice,
+     SUMS_PER_CHUNK launches a chunk; CUDA-event times of the kernel path
+     (sorts included), of the index_put_ it replaced and of the plain
+     version, and the device time of each operation under torch.profiler
+     (the row's ``at_cell_shapes``).
+     Then the seconds of phases 2-44, of 33-35, of 36-38, of 39, 40, 41,
+     42, 43, 44.
 The next-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 """
@@ -522,7 +541,11 @@ SOURCES = {"ray_decode": ("implicit_depth_torch/csrc/ray_decode.cu",
            "ief_decode": ("implicit_depth_torch/csrc/ief_decode.cu",
                           "implicit_depth_tpu/ops/pallas_ray_decode.py:821"),
            "segment_max0": ("implicit_depth_torch/csrc/segment_max.cu",
-                            "implicit_depth_tpu/ops/pallas_segment.py:63")}
+                            "implicit_depth_tpu/ops/pallas_segment.py:63"),
+           # no TPU kernel: XLA sums the gathered rows' gradients there
+           "segment_sum_": ("implicit_depth_torch/csrc/segment_sum.cu",
+                            "index_put_(accumulate=True) in "
+                            "ops/pair_decode.py::pair_decode_bwd_chunked")}
 
 
 def log(*a):
@@ -762,14 +785,16 @@ def counters():
             "ray_decode_save_all": rd.ray_decode_save_all,
             "ray_decode_bwd": rd.ray_decode_bwd, "ief_decode": rd.ief_decode,
             "segment_max0": segment.segment_max0,
-            "pair_decode": pd.pair_decode}
+            "pair_decode": pd.pair_decode,
+            "segment_sum_": segment.segment_sum_}
 
 
 def counts_of(fn):
-    """The names of a kernel wrapper's launch counters (``launches`` and,
-    K3's, ``wgmma_launches``)."""
+    """The names of a wrapper's counters, its integer attributes
+    (``launches``; K3's ``wgmma_launches``; the segment sum's ``rows``; the
+    recompute's ``rows`` and ``chunks``)."""
     return [k for k, v in vars(fn).items()
-            if k.endswith("launches") and isinstance(v, int)]
+            if isinstance(v, int) and not isinstance(v, bool)]
 
 
 def record_calls(mods, run, when=None, keep=None):
@@ -2406,11 +2431,16 @@ def counted(run):
     return out, {k: f.launches for k, f in counts.items()}
 
 
-def expect_launches(label, launches, steps, frames, per_step, per_frame):
+def expect_launches(label, launches, steps, frames, per_step, per_frame,
+                    chunks=0):
     """Each kernel's launches against ``steps`` x ``per_step`` + ``frames``
-    x ``per_frame`` (a kernel named in neither: 0)."""
+    x ``per_frame`` (a kernel named in neither: 0); the segment sum's
+    against SUMS_PER_CHUNK x ``chunks``, the recompute backward's chunks
+    (the global and dense modes' training)."""
     want = {k: steps * per_step.get(k, 0) + frames * per_frame.get(k, 0)
             for k in launches}
+    if "segment_sum_" in want:
+        want["segment_sum_"] += SUMS_PER_CHUNK * chunks
     log(f"{label}: launches {launches} in {steps} steps and {frames} eval "
         f"frames")
     if launches != want:
@@ -3186,6 +3216,7 @@ def timed(params):
     allreduce_ms.append((time.perf_counter() - t0) * 1e3)
 
 
+timed.calls = 0  # all_reduce_grads counts through its global name
 mesh.all_reduce_grads = timed
 out = sys.argv[1]
 sys.argv = ["implicit_depth_torch.main", *sys.argv[2:]]
@@ -3839,7 +3870,8 @@ ENTRY_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "rows_decoded", "ptxas", "refine_train", "trainer", "decoder",
               "at_widths", "config_runs", "rays", "disk", "reference_ckpt",
               "options", "remat_lbfgs", "at_budgets", "at_model_widths",
-              "profiled")
+              "profiled", "recompute_chunks", "launches_per_chunk",
+              "rel_gap_to_index_put", "at_cell_shapes")
 
 
 # -- the disk datasets (phases 33-35) -------------------------------------------
@@ -5092,6 +5124,9 @@ EXPECT_PER_PAIR_STEP = {"pair_decode": 1, "segment_max0": 2, "ray_decode": 0,
                         "ray_decode_save": 0, "ray_decode_save_all": 0,
                         "ray_decode_bwd": 0}
 EXPECT_PER_PAIR_EVAL_FRAME = {"pair_decode": 1, "segment_max0": 2}
+# the recompute backward's segment sum: two launches a table (voxels, rays)
+# a chunk, however many chunks a step's live rows make
+SUMS_PER_CHUNK = 4
 # K6 against its plain version on the recorded forward call, on at most
 # this many of its rows (the plain decode of batch 32's 12.8 M dense rows
 # would need ~50 GB of f32 intermediates): batch 4's dense rows, all
@@ -5214,11 +5249,19 @@ def pair_k6_row(recorded, f32w, dev):
     return row
 
 
+def sum_operands(a):
+    """A recorded segment-sum call kept for a replay onto a zero table: the
+    table's shape, then the rows, keys and order."""
+    return (tuple(a[0].shape), *(t.detach() for t in a[1:]))
+
+
 def pair_steps(cfg, model, dev, batch):
-    """A recorded step (K6's forward call), then PAIR_STEPS counted steps of
-    ``batch``: returns (recorded, launches, step_ms, peak GiB, device ms of
-    one step, losses)."""
+    """A recorded step (K6's forward call, the recompute's, the segment
+    sum's), then PAIR_STEPS counted steps of ``batch``: returns (recorded,
+    the segment sum's recorded calls, launches, recompute chunks, step_ms,
+    peak GiB, device ms of one step, losses)."""
     from implicit_depth_torch.ops import pair_decode as pd
+    from implicit_depth_torch.ops import segment
     from implicit_depth_torch.train.state import TrainState
     from implicit_depth_torch.train.steps import make_lidf_train_step
 
@@ -5226,12 +5269,19 @@ def pair_steps(cfg, model, dev, batch):
     step = make_lidf_train_step(cfg, model, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     batches = train_batches(PAIR_STEPS + 1, cfg, batch, dev)
-    recorded = record_calls({"pair_decode": (pd, "pair_decode"),
-                             "recompute": (pd, "pair_decode_bwd_chunked")},
-                            lambda: step(state, batches[0], gen, 0))
-    counts = {k: f for k, f in counters().items() if k in EXPECT_PER_PAIR_STEP}
+    recorded = {}
+    sums = record_calls(
+        {"segment_sum_": (segment, "segment_sum_")},
+        lambda: recorded.update(record_calls(
+            {"pair_decode": (pd, "pair_decode"),
+             "recompute": (pd, "pair_decode_bwd_chunked")},
+            lambda: step(state, batches[0], gen, 0))),
+        keep=sum_operands)
+    counts = {k: f for k, f in counters().items()
+              if k in EXPECT_PER_PAIR_STEP or k == "segment_sum_"}
     for f in counts.values():
         f.launches = 0
+    chunks0 = pd.pair_decode_bwd_chunked.chunks
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     for i, b in enumerate(batches[1:]):
@@ -5241,6 +5291,7 @@ def pair_steps(cfg, model, dev, batch):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append({k: v.item() for k, v in out.items()})
     launches = {k: f.launches for k, f in counts.items()}
+    chunks = pd.pair_decode_bwd_chunked.chunks - chunks0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     dev_ms = profile_device_ms(lambda: step(state, batches[1], gen, 0),
                                f"batch {batch}: device time of one step",
@@ -5249,9 +5300,15 @@ def pair_steps(cfg, model, dev, batch):
         if launches[k] != per * PAIR_STEPS:
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{PAIR_STEPS} steps, expected {per} each")
+    if chunks < PAIR_STEPS or \
+            launches["segment_sum_"] != SUMS_PER_CHUNK * chunks:
+        raise AssertionError(f"segment_sum_: {launches['segment_sum_']} "
+                             f"launches in {PAIR_STEPS} steps of {chunks} "
+                             f"recompute chunks, expected {SUMS_PER_CHUNK} "
+                             f"a chunk")
     if not all(np.isfinite(v) for ls in losses for v in ls.values()):
         raise AssertionError(f"a loss is not finite: {losses}")
-    return recorded, launches, step_ms, peak, dev_ms, losses
+    return recorded, sums, launches, chunks, step_ms, peak, dev_ms, losses
 
 
 def pair_repeat(cfg, model, dev, batch):
@@ -5303,6 +5360,9 @@ def pair_plain_grads(dev, mode, dtype):
         floors["prob_b4"] = a[8].abs().sum().item()
         return bwd(*a, **kw)
 
+    for k in counts_of(bwd):  # the wrapper counts on its stand-in
+        setattr(recorder, k, 0)
+
     def plain_train(vox, cells, pos, rf, w32, rays=None, *, dtype, **kw):
         return pd.pair_decode_plain(vox, cells, pos, rf,
                                     pd.round_pair_biases(w32, dtype), rays,
@@ -5348,17 +5408,21 @@ def pair_plain_grads(dev, mode, dtype):
 def pair_cli_phase(dev, workdir, mode):
     """train_lidf.yaml in ``mode`` through the CLI (PAIR_CLI_SET), then
     test_lidf.yaml from its checkpoint in the same mode: per step K6 1, K5
-    2, K1-K3 0; per eval frame K6 1, K5 2; finite losses; the test's CSV.
+    2, K1-K3 0, the segment sum SUMS_PER_CHUNK a recompute chunk; per eval
+    frame K6 1, K5 2; finite losses; the test's CSV.
     Returns {kernel: launches} of both runs."""
+    from implicit_depth_torch.ops import pair_decode as pd
     sets = PAIR_MODE_SETS[mode]
+    chunks0 = pd.pair_decode_bwd_chunked.chunks
     tr, launches = counted(lambda: cli(dev, "lidf", workdir / f"{mode}_train",
                                        *PAIR_CLI_SET, *sets))
+    chunks = pd.pair_decode_bwd_chunked.chunks - chunks0
     recs = epoch_records(tr)
     steps = tr.steps_per_epoch * len(recs)
     frames = sum(len(tr.make_valid_loaders()["synthetic"].dataset)
                  for r in recs if "valid" in r)
     expect_launches(f"{mode} CLI train_lidf", launches, steps, frames,
-                    EXPECT_PER_PAIR_STEP, EXPECT_PER_PAIR_EVAL_FRAME)
+                    EXPECT_PER_PAIR_STEP, EXPECT_PER_PAIR_EVAL_FRAME, chunks)
     losses = [v for r in recs for v in r["train"].values()]
     if tr.model.decode_mode != mode or steps != 2 \
             or not all(np.isfinite(losses)):
@@ -5389,7 +5453,9 @@ def pair_train_phase(dev, workdir):
     algorithms; at batch 4 the step's gradients against the plain path's
     (f32 and bf16); an f32 step card vs CPU at XCHECK_TRAIN (as phase 8);
     then train_lidf.yaml and test_lidf.yaml through the CLI. Returns
-    {mode: its record}."""
+    ({mode: its record}, the segment sum's row: its calls recorded in the
+    global mode's step at the last of PAIR_BATCHES, for phase 44, and its
+    launches in that batch's counted steps)."""
     failed, out = [], {}
     for mode in MODES:
         t_mode = time.perf_counter()
@@ -5397,14 +5463,21 @@ def pair_train_phase(dev, workdir):
         for batch in PAIR_BATCHES:
             cfg, model = pair_train_model(dev, mode)
             f32w = pair_f32_operands(model)
-            recorded, launches, step_ms, peak, dev_ms, losses = pair_steps(
-                cfg, model, dev, batch)
+            recorded, sums, launches, chunks, step_ms, peak, dev_ms, \
+                losses = pair_steps(cfg, model, dev, batch)
             k6 = pair_k6_row(recorded, f32w, dev)
             del recorded
+            if mode == "global" and batch == PAIR_BATCHES[-1]:
+                sum_row = {"recorded": sums, "recompute_chunks": chunks,
+                           "launches_per_chunk": SUMS_PER_CHUNK,
+                           **add_launches({}, launches["segment_sum_"],
+                                          PAIR_STEPS, "step")}
+            del sums
             torch.cuda.empty_cache()
             same = pair_repeat(cfg, model, dev, batch)
             log(f"{mode} training batch {batch}: launches {launches} in "
-                f"{PAIR_STEPS} steps, step_ms {step_ms}, device ms of a step "
+                f"{PAIR_STEPS} steps ({chunks} recompute chunks), step_ms "
+                f"{step_ms}, device ms of a step "
                 f"{dev_ms:.3f}, peak {peak:.2f} GiB, losses {losses}; K6 "
                 f"max_abs_err {k6['max_abs_err']:.3g} (tol "
                 f"{k6['tolerance']}, spread {k6['spread']:.3g}) on "
@@ -5412,6 +5485,7 @@ def pair_train_phase(dev, workdir):
             rec[f"batch{batch}"] = {
                 "launches_per_step": {k: n // PAIR_STEPS
                                       for k, n in launches.items()},
+                "recompute_chunks": chunks,
                 "step_ms": step_ms, "step_device_ms": dev_ms,
                 "peak_gib": peak, "repeat_bit_identical": same,
                 "k6": {k: k6[k] for k in (
@@ -5443,7 +5517,7 @@ def pair_train_phase(dev, workdir):
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"phase 40: {failed}")
-    return out
+    return out, sum_row
 
 
 # -- phase 41: the reference's model options at their widths -----------------
@@ -5933,9 +6007,161 @@ def profiling_phase(dev):
     return per_kernel, out
 
 
+# phase 44: a step of train.lidf.allpairs.b32's recompute backward (C24b:
+# 726-786 k live rows, 6 chunks): rows, chunk, the voxel table (B·9³ cells
+# x c_vox) and the per-ray rows (B·R x c_roi + c_dir), rows of one cell
+SUM_ROWS, SUM_CHUNK = 760_000, 1 << 17
+SUM_VOX, SUM_RAYS, SUM_BIG = (23_328, 128), (640_000, 155), 50_000
+
+
+def segment_sum_inputs(dev, seed=SEED):
+    """(cells, rays, f32 voxel-row gradients, bf16 ray-row gradients) of
+    SUM_ROWS live rows: cells drawn with a heavy skew (many rays cross a
+    few voxels) and SUM_BIG rows of the first chunk in one cell; rays
+    uniform."""
+    g = torch.Generator(dev).manual_seed(seed)
+    weight = torch.rand(SUM_VOX[0], generator=g, device=dev) ** 8
+    cells = torch.multinomial(weight, SUM_ROWS, replacement=True,
+                              generator=g)
+    cells[torch.randperm(SUM_CHUNK, generator=g, device=dev)[:SUM_BIG]] = \
+        SUM_VOX[0] // 3
+    rays = torch.randint(0, SUM_RAYS[0], (SUM_ROWS,), generator=g,
+                         device=dev)
+    return (cells, rays,
+            torch.randn(SUM_ROWS, SUM_VOX[1], generator=g, device=dev),
+            torch.randn(SUM_ROWS, SUM_RAYS[1], generator=g,
+                        device=dev).bfloat16())
+
+
+# the segment sum against the index_put_ it replaced, which sums the same
+# rows in f32 in another order: relative norm of the difference
+SUM_GAP = 1e-5
+
+
+def sum_bytes(rows, keys_by_chunk):
+    """Bytes the segment sum moves: the rows once, a key and an order (int64)
+    a row, each table row a chunk touches read and written once in f32."""
+    c = rows.shape[1]
+    touched = sum(int(torch.unique(k).numel()) for k in keys_by_chunk) * c
+    return nbytes(rows) + 16 * rows.shape[0] + 8 * touched
+
+
+def segment_sum_replays(dev, recorded):
+    """Phase 44's replays of the segment sum's calls recorded in phase 40
+    (see the module docstring): the row of the largest call, with every
+    call's readings under ``by_shape``."""
+    from implicit_depth_torch.ops import segment
+    calls = []
+    for (_, shapes), (a, _) in sorted(recorded.items()):
+        shape, rows, keys, order = a
+        index = torch.empty_like(keys)
+        index[order] = keys  # each row's table row, as index_put_ took it
+
+        def zero():
+            return torch.zeros(shape, device=dev)
+
+        def old(table):
+            return table.index_put_((index,), rows.float(), accumulate=True)
+
+        got = [segment.segment_sum_(zero(), rows, keys, order)
+               for _ in range(2)]
+        plain = segment.segment_sum_plain_(zero(), rows, keys, order)
+        ref = old(zero())
+        torch.cuda.synchronize()
+        label = (f"segment_sum_ {list(shape)} x {rows.shape[0]} "
+                 f"{str(rows.dtype).split('.')[-1]} rows")
+        assert torch.equal(got[0], got[1]), f"{label}: not the same bits"
+        assert torch.equal(got[0], plain), f"{label}: not the plain bits"
+        gap = rel_norm(got[0], ref)
+        assert gap <= SUM_GAP, f"{label}: {gap} from index_put_"
+        del got, plain, ref
+        table = zero()
+        row = {"name": "segment_sum_",
+               "dtype": str(rows.dtype).split(".")[-1],
+               "shape": [list(x) for x in shapes], "max_abs_err": 0.0,
+               "tolerance": 0.0, "rel_gap_to_index_put": gap,
+               "ms": time_ms(lambda: segment.segment_sum_(table, rows, keys,
+                                                          order)),
+               "plain_ms": time_ms(lambda: segment.segment_sum_plain_(
+                   table, rows, keys, order), 1, 3),
+               "library_ms": time_ms(lambda: old(table), 1, 5),
+               "bound_ms": sum_bytes(rows, [keys]) / PEAK_BYTES * 1e3,
+               "bound_by": "bytes"}
+        log(f"kernel {label}: the plain bits, twice; rel gap to index_put_ "
+            f"{gap:.3g}; ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+            f"library_ms {row['library_ms']:.4f} bound_ms "
+            f"{row['bound_ms']:.4f} (bytes)")
+        calls.append((rows.numel(), row))
+        del table
+    if not calls:
+        raise AssertionError("phase 44: no segment-sum call was recorded")
+    out = dict(max(calls, key=lambda c: c[0])[1])
+    out["by_shape"] = [{k: r[k] for k in ("shape", "dtype", "ms", "plain_ms",
+                                          "library_ms", "bound_ms")}
+                       for _, r in calls]
+    return out
+
+
+def segment_sum_phase(dev, recorded):
+    """Phase 44 (see the module docstring): the segment sum's row of the
+    kernels line, the calls ``recorded`` in phase 40 replayed, and its
+    readings at the cell's shapes under ``at_cell_shapes``."""
+    from implicit_depth_torch.ops import segment
+    row = segment_sum_replays(dev, recorded)
+    cells, rays, vox_rows, ray_rows = segment_sum_inputs(dev)
+    index = ((cells, vox_rows, SUM_VOX), (rays, ray_rows, SUM_RAYS))
+
+    def by(add):
+        tables = [torch.zeros(shape, device=dev) for _, _, shape in index]
+        plans = [segment.chunk_sort(i, SUM_CHUNK, shape[0]) if add else None
+                 for i, _, shape in index]
+        for s in range(0, SUM_ROWS, SUM_CHUNK):
+            for table, plan, (i, rows, _) in zip(tables, plans, index):
+                if add is None:  # the sorted index_put_ it replaced
+                    table.index_put_((i[s:s + SUM_CHUNK],),
+                                     rows[s:s + SUM_CHUNK].float(),
+                                     accumulate=True)
+                    continue
+                keys, order = (t[s:s + SUM_CHUNK] for t in plan)
+                add(table, rows[s:s + SUM_CHUNK], keys, order)
+        return tables
+
+    segment.segment_sum_.launches = 0
+    got = by(segment.segment_sum_)
+    chunks = -(-SUM_ROWS // SUM_CHUNK)
+    assert segment.segment_sum_.launches == SUMS_PER_CHUNK * chunks
+    again = by(segment.segment_sum_)
+    plain = by(segment.segment_sum_plain_)
+    old = by(None)
+    torch.cuda.synchronize()
+    out = {"rows": SUM_ROWS, "chunks": chunks, "rel_gap_to_index_put": {}}
+    for name, a, b, p, o in zip(("vox", "ray"), got, again, plain, old):
+        assert torch.equal(a, b), f"segment sum {name}: not the same bits"
+        assert torch.equal(a, p), f"segment sum {name}: not the plain bits"
+        gap = rel_norm(a, o)
+        assert gap <= SUM_GAP, f"segment sum {name}: {gap} from index_put_"
+        out["rel_gap_to_index_put"][name] = gap
+    del got, again, plain, old
+    out["kernel_ms"] = time_ms(lambda: by(segment.segment_sum_))
+    out["index_put_ms"] = time_ms(lambda: by(None), 1, 5)
+    out["plain_ms"] = time_ms(lambda: by(segment.segment_sum_plain_), 1, 3)
+    _, ops = device_ms(lambda: by(segment.segment_sum_), "segment_sum",
+                       reps=10)
+    out["device_ops_ms"] = {k: round(v[0], 4) for k, v in ops.items()}
+    out["kernels_device_ms"] = sum(v[0] for k, v in ops.items()
+                                   if "segment_sum" in k)
+    out["bound_ms"] = sum(
+        sum_bytes(rows, [i[s:s + SUM_CHUNK]
+                         for s in range(0, SUM_ROWS, SUM_CHUNK)])
+        for i, rows, _ in index) / PEAK_BYTES * 1e3
+    log(f"phase 44 at the cell's shapes: {json.dumps(out)}")
+    row["at_cell_shapes"] = out
+    return row
+
+
 def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
         train_overrides=TRAIN_OVERRIDES):
-    """Phases 2-43 on ``dev``; prints their seconds and the kernels line."""
+    """Phases 2-44 on ``dev``; prints their seconds and the kernels line."""
     t_start = time.perf_counter()
     from implicit_depth_torch.builder import (
         build_lidf,
@@ -5971,6 +6197,7 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     cross_check(overrides, lidf_cpu, refine_cpu, frames[1], dev)
     del dc, lidf, refine, lidf_cpu, refine_cpu
     torch.cuda.empty_cache()
+    rows["segment_sum_"] = {}  # the recompute's: phases 40 and 44
 
     # -- stage-1 training ------------------------------------------------------
     cfg_t = load_config(overrides=train_overrides)
@@ -6038,7 +6265,7 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
             rows[name].setdefault("at_widths", {})[decoder_label(g)] = {
                 k: row[k] for k in WIDTH_KEYS if k in row}
     for name in rows:
-        if name != "segment_max0":  # the main rows' decoders
+        if name not in ("segment_max0", "segment_sum_"):  # the decoders
             rows[name]["decoder"] = decoder_label(64)
     for run_name, rec in config_phases(dev).items():
         for name, n in rec["launches"].items():
@@ -6101,7 +6328,8 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     # -- the global and dense modes' stage-1 training (phase 40) -------------
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        rows["pair_decode"]["train"] = pair_train_phase(dev, pathlib.Path(d))
+        rows["pair_decode"]["train"], sums = pair_train_phase(
+            dev, pathlib.Path(d))
         t40 = time.perf_counter() - t0
     log(f"phase 40 seconds {round(t40, 1)}")
     # -- the reference's model options at their widths (phase 41) -----------
@@ -6126,6 +6354,13 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     t43 = time.perf_counter() - t0
     log(f"phase 43: {json.dumps(prof43)}")
     log(f"phase 43 seconds {round(t43, 1)}")
+    # -- the recompute backward's segment sum (phase 44) ---------------------
+    t0 = time.perf_counter()
+    rows["segment_sum_"].update(segment_sum_phase(dev, sums.pop("recorded")),
+                                **sums)
+    del sums
+    t44 = time.perf_counter() - t0
+    log(f"phase 44 seconds {round(t44, 1)}")
     rows["segment_max0"]["options"] = {k: v["launches_k5"]
                                        for k, v in options.items()}
     for name, n in remat_launches.items():
@@ -6149,10 +6384,10 @@ def run(dev, overrides=SERVE_OVERRIDES, frame_hw=FRAME_HW, profile=False,
     uncounted = [e["name"] for e in kernels if "launches" not in e]
     if uncounted:
         raise AssertionError(f"kernels with no main-path launches: {uncounted}")
-    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-43; "
+    log(f"smoke_s {time.perf_counter() - t_start:.1f} (phases 2-44; "
         f"33-35: {disk_s:.1f}; 36-38: {t36 + t37 + t38:.1f}; 39: "
         f"{t39:.1f}; 40: {t40:.1f}; 41: {t41:.1f}; 42: {t42:.1f}; 43: "
-        f"{t43:.1f})")
+        f"{t43:.1f}; 44: {t44:.1f})")
     log(json.dumps({"kernels": kernels}))
 
 

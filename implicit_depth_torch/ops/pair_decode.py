@@ -42,7 +42,8 @@ forward's K6 launch, ``pair_decode.backward`` around the recompute, and
 ``sync.pair_rows`` around the backward's one host wait. Counters of the
 backward, as function attributes of :func:`pair_decode_bwd_chunked`, read
 from the rows that wait brought to the host: ``rows`` (rows recomputed)
-and ``chunks``.
+and ``chunks``; the gathered rows' gradients go back through
+``ops/segment.py::segment_sum_``, which counts its own launches and rows.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from typing import Dict, Optional
 import torch
 
 from implicit_depth_torch.models.embedder import posenc_dim
-from implicit_depth_torch.ops import cuda
+from implicit_depth_torch.ops import cuda, segment
 from implicit_depth_torch.ops.ray_decode import (
     VOX_MULTIPLE,
     _PAD,
@@ -366,14 +367,17 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
     Only the rows that carry a gradient are recomputed: those below the row
     count whose cotangents are not both 0 (a row with zero cotangents adds
     exact zeros to every gradient). Finding them takes one host sync, the
-    span ``sync.pair_rows``. The dense layout's empty slots and the ``global`` mode's pad rows, most of
-    the rows, all name one cell of an image: their sorted scatter would
-    walk tens of thousands of duplicates of one index in series.
+    span ``sync.pair_rows``. The dense layout's empty slots and the
+    ``global`` mode's pad rows, most of the rows, all name one cell of an
+    image and are left out.
 
-    A chunk's voxel and ray rows are gathered as leaves of its own graph;
-    their gradients go back with the sorted ``index_put_(accumulate=True)``
-    (no atomics), and every sum runs in f32 in chunk order, so that the
-    result is the same bits run to run."""
+    A chunk's voxel and ray rows are gathered as leaves of its own graph.
+    Their gradients go back onto f32 tables by ``ops/segment.py::
+    segment_sum_``, two launches a table a chunk: the live rows are sorted
+    once, by (chunk, cell) and by (chunk, ray), and each chunk's rows are
+    summed by key in an order that sort fixes, with no atomics. Every sum
+    runs in f32 in chunk order, so that the result is the same bits run to
+    run."""
     need_vox, need_ray, need_w = need
     p = cells.shape[0]
     keep = (g_off != 0) | (g_logit != 0)
@@ -384,18 +388,23 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
     chunk = max(1, TRAIN_CHUNK_ROWS)
     pair_decode_bwd_chunked.rows += live.shape[0]
     pair_decode_bwd_chunked.chunks += -(-live.shape[0] // chunk)
-    if rays is None:
-        slots = _dense_slots(p, ray_feat.shape[0])
+    cells_l = cells[live].long()
+    rays_l = live // _dense_slots(p, ray_feat.shape[0]) if rays is None \
+        else rays[live].long()
     d_vox = torch.zeros(vox_table.shape, dtype=torch.float32,
                         device=vox_table.device) if need_vox else None
     d_ray = torch.zeros(ray_feat.shape, dtype=torch.float32,
                         device=ray_feat.device) if need_ray else None
+    # one sort a table a step: each chunk's order and segments
+    vox_plan = segment.chunk_sort(cells_l, chunk, vox_table.shape[0]) \
+        if need_vox else None
+    ray_plan = segment.chunk_sort(rays_l, chunk, ray_feat.shape[0]) \
+        if need_ray else None
     d_w = {k: torch.zeros_like(w32[k], dtype=torch.float32)
            for k in _K6_WEIGHTS if need_w}
     for s in range(0, live.shape[0], chunk):
         r = live[s:s + chunk]
-        cells_c = cells[r].long()
-        rays_c = r // slots if rays is None else rays[r].long()
+        cells_c, rays_c = cells_l[s:s + chunk], rays_l[s:s + chunk]
         with torch.enable_grad():
             vox_rows = vox_table[cells_c].detach().requires_grad_(need_vox)
             ray_rows = ray_feat[rays_c].detach().requires_grad_(need_ray)
@@ -411,12 +420,10 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
                 out, wanted, (g_off[r], g_logit[r]), allow_unused=True))
         grads = [torch.zeros_like(t) if g is None else g
                  for g, t in zip(grads, wanted)]
-        if need_vox:
-            d_vox.index_put_((cells_c,), grads.pop(0).float(),
-                             accumulate=True)
-        if need_ray:
-            d_ray.index_put_((rays_c,), grads.pop(0).float(),
-                             accumulate=True)
+        for table, plan in ((d_vox, vox_plan), (d_ray, ray_plan)):
+            if table is not None:
+                keys, order = (t[s:s + chunk] for t in plan)
+                segment.segment_sum_(table, grads.pop(0), keys, order)
         for k, g in zip(d_w, grads):
             d_w[k] += g
     return (None if d_vox is None else d_vox.to(vox_table.dtype),

@@ -17,6 +17,7 @@ from implicit_depth_torch.builder import build_static
 from implicit_depth_torch.models import lidf as lidf_mod
 from implicit_depth_torch.models.lidf import lidf_loss, prepare_inputs
 from implicit_depth_torch.ops import pair_decode as pd
+from implicit_depth_torch.ops import segment
 from implicit_depth_torch.train.state import TrainState
 from implicit_depth_torch.train.steps import _loss_kwargs, make_lidf_train_step
 from implicit_depth_torch.utils import profiling
@@ -170,7 +171,9 @@ def test_the_pair_decodes_spans_and_counters(monkeypatch):
     ``lidf.compact_pairs`` under ``lidf.decode_rays``,
     ``pair_decode.forward`` under it, ``pair_decode.backward`` under
     ``train.backward`` with ``sync.pair_rows`` under it; the counters move
-    by the rows recomputed and their chunks."""
+    by the rows recomputed and their chunks, and the segment sum's by the
+    rows recomputed for each of the two tables (voxels and rays), with no
+    kernel launch on the CPU."""
     cfg = _tiny()
     pcfg = port.config(cfg)
     static = build_static(pcfg)
@@ -191,6 +194,8 @@ def test_the_pair_decodes_spans_and_counters(monkeypatch):
     state = TrainState.create(model, pcfg.training, steps_per_epoch=10)
     bwd = pd.pair_decode_bwd_chunked
     before = {k: getattr(bwd, k) for k in ("rows", "chunks")}
+    summed = {k: getattr(segment.segment_sum_, k)
+              for k in ("rows", "launches")}
     profiling.enable()
     try:
         since = max((r.id for r in profiling.spans()), default=0)
@@ -211,6 +216,8 @@ def test_the_pair_decodes_spans_and_counters(monkeypatch):
     moved = {k: getattr(bwd, k) - v for k, v in before.items()}
     assert 0 < moved["rows"] <= 12_000
     assert moved["chunks"] == -(-moved["rows"] // 100)
+    assert segment.segment_sum_.rows - summed["rows"] == 2 * moved["rows"]
+    assert segment.segment_sum_.launches == summed["launches"]
 
 
 def test_the_spans_and_counters_cost_nothing_off():

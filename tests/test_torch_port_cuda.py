@@ -1305,6 +1305,142 @@ def test_pair_decode_train_is_k6_forward_and_the_recompute_gradient(
             a.float(), b.float()))
 
 
+def _segment_case(rng, dev, n, segments, c, dtype, big=0):
+    """A chunk of a chunk_sort plan: rows (n, C), skewed keys with ``big``
+    rows of one segment, sorted as the third chunk of a step (its keys and
+    order local to it), and a table of nonzero values."""
+    w = rng.pareto(1.2, size=segments) + 1e-3
+    idx = np.concatenate([rng.choice(segments, size=n - big, p=w / w.sum()),
+                          np.full(big, segments // 2)])
+    index = _t(rng.permutation(idx), dev, torch.int64)
+    keys, order = segment.chunk_sort(
+        torch.cat([torch.zeros(2 * n, dtype=torch.int64, device=dev), index]),
+        max(n, 1), segments)
+    rows = _t(rng.normal(size=(n, c)), dev, DTYPES[dtype])
+    table = _t(rng.normal(size=(segments, c)), dev)
+    return (table, rows, keys[2 * n:], order[2 * n:]), index
+
+
+def _segment_sum_f64_bound(table, rows, index):
+    """index_put_(accumulate=True) in float64 of the rows onto the table,
+    and the bound of f32 recursive summation at the kernel's depth (a run
+    of a tile, a group's pieces, the groups, the table's add) times
+    2^-24 times the sum of the magnitudes."""
+    n = rows.shape[0]
+    pieces = -(-n // segment.SUM_TILE_ROWS) + 1
+    depth = (segment.SUM_TILE_ROWS + -(-pieces // segment.SUM_GROUPS)
+             + segment.SUM_GROUPS + 1)
+    ref = table.double().index_put_((index,), rows.double(), accumulate=True)
+    mag = table.double().abs().index_put_((index,), rows.double().abs(),
+                                          accumulate=True)
+    return ref, depth * 2.0 ** -24 * mag
+
+
+# n: one tile; a row count no tile multiple with one segment over 19 tiles;
+# a single row
+@pytest.mark.parametrize("c", [128, 155])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,big", [(64, 0), (3001, 1200), (1, 0)])
+def test_segment_sum_kernel_is_the_plain_bits(dev, n, big, dtype, c):
+    """The kernel sums in the plain version's order: the same bits, on two
+    runs; against index_put_ in float64 within f32 summation's bound (the
+    kernel sums in f32, in an order of its own); two launches."""
+    rng = np.random.default_rng(31)
+    (table, rows, keys, order), index = _segment_case(
+        rng, dev, n, 40, c, dtype, big)
+    before = segment.segment_sum_.launches
+    got = [segment.segment_sum_(table.clone(), rows, keys, order)
+           for _ in range(2)]
+    assert segment.segment_sum_.launches == before + 4
+    plain = segment.segment_sum_plain_(table.clone(), rows, keys, order)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], plain)
+    ref, bound = _segment_sum_f64_bound(table, rows, index)
+    assert ((got[0].double() - ref).abs() <= bound).all()
+
+
+def test_segment_sum_at_the_cells_shape(dev):
+    """A chunk of train.lidf.allpairs.b32's recompute: 131,072 rows onto the
+    23,328 x 128 f32 voxel table, one cell taking 50,000 of them: the plain
+    version's bits, the same bits twice, f32 summation's bound against
+    float64, and no host sync in the sort or the sum."""
+    rng = np.random.default_rng(32)
+    n, segments = 131_072, 23_328
+    (table, rows, _, _), index = _segment_case(
+        rng, dev, n, segments, 128, "float32", big=50_000)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keys, order = segment.chunk_sort(
+            torch.cat([torch.zeros(2 * n, dtype=torch.int64, device=dev),
+                       index]), n, segments)
+        keys, order = keys[2 * n:], order[2 * n:]
+        got = [segment.segment_sum_(table.clone(), rows, keys, order)
+               for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    plain = segment.segment_sum_plain_(table.clone(), rows, keys, order)
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], plain)
+    ref, bound = _segment_sum_f64_bound(table, rows, index)
+    assert ((got[0].double() - ref).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("indexed", [True, False])  # global rows; dense layout
+def test_pair_decode_recompute_sums_without_index_put(dev, indexed,
+                                                      monkeypatch):
+    """On the card the recompute lays the gathered rows' gradients back
+    through the segment sum: no index_put_, index_add_ or scatter_add_ in
+    pair_decode_bwd_chunked, two launches a table a chunk, and the same bits
+    on two runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(func.name())
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(pd, "TRAIN_CHUNK_ROWS", 128)
+    rng = np.random.default_rng(24)
+    vt, cells, pos, rf, _, rays = _pair_case(rng, dev, "bfloat16", 1000, 50,
+                                             indexed)
+    c_embed = 128 + 128 + 102 + 27
+    w = {"off_enc_w": rng.normal(size=(1, 16)),
+         "off_enc_b": 0.1 * rng.normal(size=(16,))}
+    _mlp_weights(rng, "off_", c_embed + 16, 256, w)
+    _mlp_weights(rng, "prob_", c_embed, 256, w)
+    w32 = pd.pair_decode_weights({k: _t(v, dev) for k, v in w.items()},
+                                 128, 128, 27, 8, torch.bfloat16)
+    n_rows = torch.tensor(777, dtype=torch.int32, device=dev) \
+        if indexed else None
+    g = torch.Generator(dev).manual_seed(3)
+    cot = (torch.randn(1000, generator=g, device=dev),
+           torch.randn(1000, generator=g, device=dev))
+    runs = []
+    for _ in range(2):
+        before = (pd.pair_decode_bwd_chunked.chunks,
+                  segment.segment_sum_.launches)
+        with Ops() as ops:
+            runs.append(pd.pair_decode_bwd_chunked(
+                vt.float(), cells, pos, rf, w32, rays, n_rows, *cot,
+                need=(True, True, True), dtype=torch.bfloat16))
+        chunks = pd.pair_decode_bwd_chunked.chunks - before[0]
+        assert chunks > 1
+        assert segment.segment_sum_.launches - before[1] == 4 * chunks
+        scatter = {n for n in ops.names
+                   if any(k in n for k in ("index_put", "index_add",
+                                           "scatter_add"))}
+        assert not scatter, scatter
+    torch.cuda.synchronize()
+    for a, b in zip(runs[0][:2], runs[1][:2]):
+        assert torch.equal(a, b)
+    for k in runs[0][2]:
+        assert torch.equal(runs[0][2][k], runs[1][2][k])
+
+
 @pytest.mark.parametrize("budget", [8, 1])  # pad rows; dropped pairs
 def test_global_frame_is_the_same_without_the_count(dev, budget, monkeypatch):
     """A served bf16 frame in the global mode: K6 decoding only the valid
