@@ -778,12 +778,13 @@ def kernel_modules():
 
 def counters():
     """Each kernel wrapper, which counts its launches in ``.launches``."""
+    from implicit_depth_torch.ops import ief_decode as ied
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     from implicit_depth_torch.ops import segment
     return {"ray_decode": rd.ray_decode, "ray_decode_save": rd.ray_decode_save,
             "ray_decode_save_all": rd.ray_decode_save_all,
-            "ray_decode_bwd": rd.ray_decode_bwd, "ief_decode": rd.ief_decode,
+            "ray_decode_bwd": rd.ray_decode_bwd, "ief_decode": ied.ief_decode,
             "segment_max0": segment.segment_max0,
             "pair_decode": pd.pair_decode,
             "segment_sum_": segment.segment_sum_}
@@ -797,18 +798,35 @@ def counts_of(fn):
             if isinstance(v, int) and not isinstance(v, bool)]
 
 
+def as_served(name, a):
+    """A serving entry's arguments ``a`` with its table (end rows) cast and
+    padded as the entry does before either branch
+    (``decode_common.rows_operand``): the arguments its kernel and its
+    plain version take. Other wrappers' arguments as they are."""
+    from implicit_depth_torch.ops import decode_common as common
+    from implicit_depth_torch.ops import ief_decode as ied
+    from implicit_depth_torch.ops import pair_decode as pd
+    from implicit_depth_torch.ops import ray_decode as rd
+    fmt, at_w = {"ray_decode": (rd.FORMAT, 4), "pair_decode": (pd.FORMAT, 4),
+                 "ief_decode": (ied.FORMAT, 3)}.get(name, (None, 0))
+    if fmt is None:
+        return a
+    return (common.rows_operand(a[0], a[at_w], fmt), *a[1:])
+
+
 def record_calls(mods, run, when=None, keep=None):
     """``run()`` with each kernel wrapper of ``mods`` ({name: (module,
     attribute)}) replaced by a recorder; returns {(name, shapes): (args,
     kwargs)} of each wrapper's first call per input shape (among the calls
-    ``when(args)`` accepts; stored as ``keep(args)`` gives them). The
-    launches ``run()`` makes count on the wrappers as without the
-    recorders."""
+    ``when(args)`` accepts; stored as ``keep(args)`` gives them; a serving
+    entry's as its kernel takes them, ``as_served``). The launches
+    ``run()`` makes count on the wrappers as without the recorders."""
     recorded = {}
     originals = {name: getattr(m, attr) for name, (m, attr) in mods.items()}
 
     def recorder(name):
         def call(*a, **kw):
+            a = as_served(name, a)
             shape = tuple(tuple(t.shape) for t in a if torch.is_tensor(t))
             if (name, shape) not in recorded and (when is None or when(a)):
                 recorded[(name, shape)] = (keep(a) if keep else a, kw)
@@ -850,10 +868,10 @@ def kernel_phase(recorded, lidf, refine, dev, tols=TOL, bite=True):
     """Each recorded call of a served frame, kernel vs plain (see
     ``forward_rows``). Returns the row of each kernel at its largest bf16
     shape."""
-    from implicit_depth_torch.ops import ray_decode as rd
+    from implicit_depth_torch.ops import ief_decode as ied
 
     f32w_k1 = k1_f32_operands(lidf)
-    f32w_k4 = rd.prep_ief_weights(
+    f32w_k4 = ied.prep_ief_weights(
         refine.offset_dec.decode_weights(), refine.dims["c_end"],
         refine.dims["c_rc"], refine.dims["c_pos"], refine.dims["c_dir"],
         torch.float32)
@@ -890,6 +908,7 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True,
     ``held``: the error and spread are recorded, and only finite outputs
     required); times; bound. Returns the row of each kernel at its largest
     shape in the first of ``dtypes``."""
+    from implicit_depth_torch.ops import ief_decode as ied
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     from implicit_depth_torch.ops import segment
@@ -898,7 +917,8 @@ def forward_rows(recorded, as_f32, dev, tols=TOL, dtypes=None, bite=True,
     time_ms = checks.time
     mods = kernel_modules()
     by_shape = {}
-    plain = {"ray_decode": rd.ray_decode_plain, "ief_decode": rd.ief_decode_plain,
+    plain = {"ray_decode": rd.ray_decode_plain,
+             "ief_decode": ied.ief_decode_plain,
              "segment_max0": segment.segment_max0_plain,
              "pair_decode": pd.pair_decode_plain}
     entries = {}
@@ -2082,23 +2102,25 @@ def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32),
     inputs, with the backward's time (the forward in ``dtypes`` only, the
     gradient in both). Returns the forward's row in the first of
     ``dtypes``."""
-    from implicit_depth_torch.ops import ray_decode as rd
+    from implicit_depth_torch.ops import decode_common as common
+    from implicit_depth_torch.ops import ief_decode as ied
 
     (_, shape), (a, kw) = next((k, v) for k, v in recorded.items()
                                if k[0] == "ief_decode_train")
     end, rc, pos, w32, dtype = a
     # K4's call as the training entry makes it on the card: the operands
     # and the end rows at the kernel's widths
-    padded = rd.pad_ief_operands(w32)
-    end_k4 = rd.pad_columns(end, padded["dims"][0])
+    padded = common.pad_operands(w32, ied.FORMAT)
+    end_k4 = common.pad_columns(end, padded["dims"][0])
     shape = (tuple(end_k4.shape), *shape[1:])
     call = {("ief_decode", shape[:3]):
-            ((end_k4, rc, pos, rd.cast_ief_operands(padded, dtype)), kw)}
+            ((end_k4, rc, pos,
+              common.cast_operands(padded, ied.FORMAT, dtype)), kw)}
 
     def as_f32(name, args):
         e, r, p, _ = args
         return (e.float(), r.float(), p.float(),
-                rd.cast_ief_operands(padded, torch.float32))
+                common.cast_operands(padded, ied.FORMAT, torch.float32))
 
     with torch.inference_mode():
         row = forward_rows(call, as_f32, dev, tols, dtypes=dtypes,
@@ -2109,17 +2131,17 @@ def refine_k4_row(recorded, dev, dtypes=(torch.bfloat16, torch.float32),
     row["grad"] = {}
     for dt in (torch.bfloat16, torch.float32):
         dtn = str(dt).split(".")[-1]
-        wl = {k: w32[k].clone().requires_grad_() for k in rd._K4_WEIGHTS}
+        wl = {k: w32[k].clone().requires_grad_() for k in ied.FORMAT.operands}
         w = dict(wl, dims=w32["dims"])
         e = end.to(dt).clone().requires_grad_()
         p = pos.to(dt).clone().requires_grad_()
         r = rc.to(dt)
         leaves = [e, p, *wl.values()]
         names = ["d_end", "d_pos", *wl]
-        out = rd.ief_decode_train(e, r, p, w, dt, **kw)
+        out = ied.ief_decode_train(e, r, p, w, dt, **kw)
         got = torch.autograd.grad(out, leaves, g, retain_graph=True)
-        ref_out = rd.ief_decode_plain(e, r, p, rd._ief_train_operands(w, dt),
-                                      dtype=dt, **kw)
+        ref_out = ied.ief_decode_plain(
+            e, r, p, common.round_biases(w, ied.FORMAT, dt), dtype=dt, **kw)
         ref = torch.autograd.grad(ref_out, leaves, g, retain_graph=True)
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip(got, ref))
@@ -5346,6 +5368,7 @@ def pair_plain_grads(dev, mode, dtype):
     relative difference."""
     from implicit_depth_torch.models import lidf as lidf_mod
     from implicit_depth_torch.models.lidf import decoder_weights
+    from implicit_depth_torch.ops import decode_common as common
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.train.state import TrainState
     from implicit_depth_torch.train.steps import make_lidf_train_step
@@ -5365,8 +5388,9 @@ def pair_plain_grads(dev, mode, dtype):
 
     def plain_train(vox, cells, pos, rf, w32, rays=None, *, dtype, **kw):
         return pd.pair_decode_plain(vox, cells, pos, rf,
-                                    pd.round_pair_biases(w32, dtype), rays,
-                                    dtype=dtype, **kw)
+                                    common.round_biases(w32, pd.FORMAT,
+                                                        dtype),
+                                    rays, dtype=dtype, **kw)
 
     runs = {}
     train = lidf_mod.pair_decode_train
@@ -5608,23 +5632,24 @@ def model_widths(cfg):
     row widths, whether K1's block takes the single layout, K3's rows a
     tile, in the type the configuration computes in."""
     from implicit_depth_torch.models.embedder import posenc_dim
+    from implicit_depth_torch.ops import decode_common as common
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
     m, r = cfg.model, cfg.refine
     bf16 = cfg.tpu.compute_dtype == "bfloat16"
-    c_vox, c_end = (-(-c // rd.VOX_MULTIPLE) * rd.VOX_MULTIPLE
+    c_vox, c_end = (-(-c // common.VOX_MULTIPLE) * common.VOX_MULTIPLE
                     for c in (m.pnet_out, r.pnet_out))
     c_roi = m.rgb_out * m.roi_out_bbox ** 2
     kp = -(-(c_vox + 6 + 12 * m.multires) // 16) * 16
     crp = -(-(c_roi + posenc_dim(m.multires_views)) // 16) * 16
-    g, g2 = rd.compiled_gf(m.imnet_gf), rd.compiled_gf(r.imnet_gf)
+    g, g2 = common.compiled_gf(m.imnet_gf), common.compiled_gf(r.imnet_gf)
     return {"imnet_gf": [m.imnet_gf, g], "refine_imnet_gf": [r.imnet_gf, g2],
             "c_vox": [m.pnet_out, c_vox], "kp": kp, "crp": crp,
             "k4_kp": -(-(c_end + c_roi + posenc_dim(r.multires_views)
                          + posenc_dim(r.multires)) // 16) * 16,
             "k6_kp": pd.pair_layout(c_vox, c_roi, posenc_dim(m.multires_views),
                                     m.multires)["kp"],
-            "k1_layout": rd.decode_plan("K1", kp, crp, g=g, is_bf16=bf16)[
+            "k1_layout": common.decode_plan("K1", kp, crp, g=g, is_bf16=bf16)[
                 "layout"],
             "k3_rows": rd.bwd_plan(1, kp, crp, 2, bf16, 132, g=g,
                                    c_vox=c_vox)["rows_per_tile"]}

@@ -2,7 +2,9 @@
 ``implicit_depth_tpu/models/embedder.py``): the input, then per frequency
 2^0..2^(m-1) a sin block and a cos block; multires=8 -> 3 + 3·2·8 = 51 dims,
 multires_views=4 -> 27. cos x is computed as sin(x + π/2) with π/2 rounded
-to f32, exactly as the JAX package does."""
+to f32, exactly as the JAX package does. The encoding's width
+(``posenc_dim``) is the decode kernels' operand format's, from
+``ops/decode_common.py``."""
 
 from __future__ import annotations
 
@@ -10,13 +12,8 @@ import math
 
 import torch
 
+from implicit_depth_torch.ops.decode_common import posenc_dim  # noqa: F401
 from implicit_depth_torch.utils import profiling
-
-
-def posenc_dim(multires: int, input_dims: int = 3, enabled: bool = True) -> int:
-    if not enabled or multires <= 0:
-        return input_dims
-    return input_dims * (1 + 2 * multires)
 
 
 def positional_encoding(x: torch.Tensor, multires: int,

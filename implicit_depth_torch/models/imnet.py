@@ -12,8 +12,9 @@ These modules hold the decoder parameters and compute the plain forward
 products, as the JAX module's ``from_parts`` computes it): the decode of
 the configurations the kernels do not take (an IMNet offset decoder, no
 positional encoding). The IEF decode with positional encoding goes through
-``ops/ray_decode.py`` and ``ops/pair_decode.py`` (kernels K1, K2, K4, K6),
-which take the same parameters split by embedding part.
+``ops/ray_decode.py``, ``ops/ief_decode.py`` and ``ops/pair_decode.py``
+(kernels K1-K3, K4, K6), which take the same parameters split by
+embedding part.
 """
 
 from __future__ import annotations
@@ -100,7 +101,7 @@ class IEF(nn.Module):
         return torch.sigmoid(offset) if self.use_sigmoid else soft_clamp01(offset)
 
     def decode_weights(self, detach: bool = True) -> dict:
-        """The decode weight dict of ``ops/ray_decode.split_ief_weights``,
+        """The decode weight dict of ``ops/ief_decode.split_ief_weights``,
         JAX (in, out) layout: enc_w/enc_b and w1..w4/b1..b4; detached for
         the forward-only kernel, else views of the live parameters (the
         training decode)."""

@@ -74,7 +74,6 @@ from implicit_depth_torch.ops.pair_decode import (
     prep_pair_decode_weights,
 )
 from implicit_depth_torch.ops.ray_decode import (
-    pad_columns,
     prep_ray_decode_weights,
     ray_decode,
     ray_decode_train,
@@ -318,10 +317,9 @@ class LIDFModel(nn.Module):
         self._pair_w = PreparedWeights()
 
     def decode_operands(self) -> Tensors:
-        """K1's weight operands in the compute dtype at the kernels' widths
-        (the voxel table goes with them padded to ``w["dims"][0]``
-        columns), prepared once and reused while the decoder parameters
-        and the dtype stay unchanged (serving and eval; detached)."""
+        """K1's weight operands in the compute dtype at the kernels'
+        widths, prepared once and reused while the decoder parameters and
+        the dtype stay unchanged (serving and eval; detached)."""
         return self._decode_w.get(
             (self.offset_dec, self.prob_dec), self.dtype,
             lambda: prep_ray_decode_weights(
@@ -335,6 +333,14 @@ class LIDFModel(nn.Module):
         live parameters on every call (no cache: gradients flow back through
         the split)."""
         return split_ray_decode_weights(
+            decoder_weights(self.offset_dec, self.prob_dec),
+            self.dims["c_vox"], self.dims["c_roi"], self.dims["c_dir"],
+            self.multires, self.dtype)
+
+    def pair_train_operands(self) -> Tensors:
+        """K6's f32 operands of the training decode, from the live
+        parameters on every call, as :meth:`train_operands`."""
+        return pair_decode_weights(
             decoder_weights(self.offset_dec, self.prob_dec),
             self.dims["c_vox"], self.dims["c_roi"], self.dims["c_dir"],
             self.multires, self.dtype)
@@ -396,15 +402,10 @@ class LIDFModel(nn.Module):
                   init_offset=self.offset_dec.init_offset,
                   use_sigmoid=self.use_sigmoid)
         if not self.training:
-            w = self.pair_operands()
-            return pair_decode(pad_columns(vox_feat.to(self.dtype),
-                                           w["dims"][0]), cells, pos,
-                               ray_feat, w, rays, **kw)
-        w32 = pair_decode_weights(
-            decoder_weights(self.offset_dec, self.prob_dec),
-            self.dims["c_vox"], self.dims["c_roi"], self.dims["c_dir"],
-            self.multires, self.dtype)
-        return pair_decode_train(vox_feat, cells, pos, ray_feat, w32, rays,
+            return pair_decode(vox_feat, cells, pos, ray_feat,
+                               self.pair_operands(), rays, **kw)
+        return pair_decode_train(vox_feat, cells, pos, ray_feat,
+                                 self.pair_train_operands(), rays,
                                  dtype=self.dtype, **kw)
 
     def _embed_decode(self, vox_feat, cells, pos, ray_feat, rays=None):
@@ -576,10 +577,8 @@ class LIDFModel(nn.Module):
                                               decode_bwd=self.decode_bwd,
                                               **kw)
             else:
-                w = self.decode_operands()
-                off, logit = ray_decode(pad_columns(vox_feat.to(self.dtype),
-                                                    w["dims"][0]), cells, pos,
-                                        ray_feat, w, **kw)
+                off, logit = ray_decode(vox_feat, cells, pos, ray_feat,
+                                        self.decode_operands(), **kw)
             pred_offset = off.reshape(b, r, kb)
             prob_logit = logit.reshape(b, r, kb)
         else:

@@ -6,7 +6,7 @@ it lands in when that cell is occupied, else the stage-1 argmax-pair voxel),
 injects the predicted points into the PointNet input, re-embeds
 [end voxel feature | ROI feature | posenc(prediction) | posenc(ray dir)] and
 decodes a signed offset along the ray. Without autograd (serving, eval) the
-decode is ``ops/ray_decode.ief_decode`` (kernel K4 on the card) on cached
+decode is ``ops/ief_decode.ief_decode`` (kernel K4 on the card) on cached
 operands; with grad enabled it is ``ief_decode_train`` on operands split
 from the live parameters (K4 forward and the plain recompute backward on
 the card), so the decoder and the PointNet get their gradients through it.
@@ -39,10 +39,9 @@ from implicit_depth_torch.models.lidf import (
 )
 from implicit_depth_torch.models.pointnet import PointNet2Stage
 from implicit_depth_torch.ops.masked import take_slot
-from implicit_depth_torch.ops.ray_decode import (
+from implicit_depth_torch.ops.ief_decode import (
     ief_decode,
     ief_decode_train,
-    pad_columns,
     prep_ief_weights,
     split_ief_weights,
 )
@@ -123,8 +122,7 @@ class RefineModel(nn.Module):
         self._decode_w = PreparedWeights()
 
     def decode_operands(self) -> Tensors:
-        """K4's weight operands in the compute dtype at the kernel's widths
-        (the end rows go with them padded to ``w["dims"][0]`` columns),
+        """K4's weight operands in the compute dtype at the kernel's widths,
         prepared once and reused while the decoder parameters and the
         dtype stay unchanged (serving and eval; detached)."""
         return self._decode_w.get(
@@ -223,9 +221,7 @@ class RefineModel(nn.Module):
             off = ief_decode_train(*rows, self.train_operands(), self.dtype,
                                    **kw)
         else:
-            w = self.decode_operands()
-            off = ief_decode(pad_columns(rows[0], w["dims"][0]), *rows[1:], w,
-                             **kw)
+            off = ief_decode(*rows, self.decode_operands(), **kw)
         return self._step(pred_pos, miss_dir, off)
 
     def _step(self, pred_pos, miss_dir, off):

@@ -52,39 +52,31 @@ from typing import Dict, Optional
 
 import torch
 
-from implicit_depth_torch.models.embedder import posenc_dim
 from implicit_depth_torch.ops import cuda, segment
-from implicit_depth_torch.ops.ray_decode import (
-    VOX_MULTIPLE,
-    _PAD,
-    _act,
-    _aligned,
-    _check_cuda,
-    _check_plan,
-    _contiguous,
-    _dot,
-    _halves,
-    _ief_loop,
-    _insert_rows,
-    _mlp_tail,
-    _pad_tails,
-    _pad_to,
-    _q,
-    _rank1,
-    _round_up,
-    _squash,
-    compiled_gf,
-    decoder_gf,
+from implicit_depth_torch.ops.decode_common import (
+    K_GRANULE,
+    OperandFormat,
+    act,
+    aligned,
+    cast_operands,
+    check_cuda,
+    check_plan,
+    dot,
+    ief_loop,
+    mlp_tail,
+    operands_gf,
     pad_columns,
+    pad_operands,
+    posenc_dim,
+    round_biases,
+    round_up,
+    rounded,
+    rows_operand,
+    split_operands,
+    squash,
 )
 from implicit_depth_torch.utils import profiling
 
-_MATRICES = ("w1", "off_w2", "off_w3", "off_w4", "prob_w2", "prob_w3",
-             "prob_w4")
-ROUNDED_BIASES = ("off_b2", "off_b3")  # prob_b1..b3 add unrounded (_mlp4)
-_K6_WEIGHTS = ("w1", "b1", "a_vec", "c_vec",
-               "off_w2", "off_b2", "off_w3", "off_b3", "off_w4", "off_b4",
-               "prob_w2", "prob_b2", "prob_w3", "prob_b3", "prob_w4", "prob_b4")
 # the columns past the ray row (positional encoding and padding) the bf16
 # kernel stages in each row: 5 a lane of a warp
 MAX_PE_COLS = 160
@@ -101,11 +93,21 @@ def pair_layout(c_vox: int, c_roi: int, c_dir: int, multires: int) -> dict:
     (2·c_pe from o_pe) | 0 to kp]. The ray row is padded to a 16-byte
     multiple of bf16 so that the kernel gathers it, like the voxel row, by
     cp.async in 16-byte pieces; kp is a multiple of the 16-deep mma step."""
-    c_rp = _round_up(c_roi + c_dir, _RAY_ALIGN)
+    c_rp = round_up(c_roi + c_dir, _RAY_ALIGN)
     c_pe = posenc_dim(multires)
     o_pe = c_vox + c_rp
     return {"c_rp": c_rp, "c_pe": c_pe, "o_pe": o_pe,
-            "kp": _round_up(o_pe + 2 * c_pe, _PAD)}
+            "kp": round_up(o_pe + 2 * c_pe, K_GRANULE)}
+
+
+FORMAT = OperandFormat(
+    operands=("w1", "b1", "a_vec", "c_vec",
+              "off_w2", "off_b2", "off_w3", "off_b3", "off_w4", "off_b4",
+              "prob_w2", "prob_b2", "prob_w3", "prob_b3", "prob_w4",
+              "prob_b4"),
+    layer1=("w1",), prefixes=("off_", "prob_"),
+    # prob_b1..b3 add unrounded (_mlp4)
+    rounded=("off_b2", "off_b3"), layout=pair_layout)
 
 
 def _layer1_rows(w: torch.Tensor, c_vox: int, c_roi: int, c_dir: int,
@@ -136,54 +138,23 @@ def pair_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
                         c_roi: int, c_dir: int, multires: int,
                         dtype) -> Dict[str, torch.Tensor]:
     """The decoder weights (``models/lidf.py::decoder_weights`` layout) as
-    K6's operands, all in f32: w1 (kp, 2·4g) rows in :func:`pair_layout`'s
-    order, columns [off | prob]; b1 (2·4g,); a_vec, c_vec (4g,) of the
-    offset encoder folded with ``dtype`` operands; each decoder's layers
-    2-4. Only slicing, concatenation and the rank-1 fold, so autograd lays
-    gradients taken at these operands back onto the parameters."""
-    c_embed = c_vox + c_roi + 2 * posenc_dim(multires) + c_dir
-    a_vec, c_vec = _rank1(weights["off_enc_w"], weights["off_enc_b"],
-                          weights["off_w1"][c_embed:], dtype)
-    w = {"w1": _layer1_rows(torch.cat([weights["off_w1"][:c_embed],
-                                       weights["prob_w1"]], 1),
-                            c_vox, c_roi, c_dir, multires).float(),
-         "b1": torch.cat([weights["off_b1"], weights["prob_b1"]]).float(),
-         "a_vec": a_vec, "c_vec": c_vec}
-    for p in ("off", "prob"):
-        for n in ("w2", "b2", "w3", "b3"):
-            w[f"{p}_{n}"] = weights[f"{p}_{n}"].float()
-        w[f"{p}_w4"] = weights[f"{p}_w4"].reshape(-1).float()
-        w[f"{p}_b4"] = weights[f"{p}_b4"].reshape(1).float()
-    w["dims"] = (c_vox, c_roi, c_dir, multires)
-    return w
-
-
-def round_pair_biases(w: Dict[str, torch.Tensor],
-                      dtype) -> Dict[str, torch.Tensor]:
-    """``w`` with the IEF's biases 2 and 3 rounded to ``dtype`` (held in
-    f32; a straight-through step under autograd)."""
-    return {**w, **{k: _q(w[k], dtype) for k in ROUNDED_BIASES}}
-
-
-def cast_pair_operands(w32: Dict[str, torch.Tensor],
-                       dtype) -> Dict[str, torch.Tensor]:
-    """The kernel operands of the f32 ones (:func:`pair_decode_weights`):
-    the matrices in ``dtype``, the IEF's biases 2 and 3 rounded to it."""
-    w = round_pair_biases(w32, dtype)
-    for k in _MATRICES:
-        w[k] = w[k].to(dtype).contiguous()
-    return w
+    K6's operands (``split_operands``), all in f32: w1 (kp, 2·4g) rows in
+    :func:`pair_layout`'s order, columns [off | prob]."""
+    return split_operands(
+        weights, FORMAT, c_vox + c_roi + 2 * posenc_dim(multires) + c_dir,
+        (c_vox, c_roi, c_dir, multires),
+        lambda w1: (_layer1_rows(w1, c_vox, c_roi, c_dir, multires),), dtype)
 
 
 def prep_pair_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
                              c_roi: int, c_dir: int, multires: int,
                              dtype) -> Dict[str, torch.Tensor]:
-    """The kernel operands: :func:`pair_decode_weights` at the kernel's
-    widths (:func:`pad_pair_operands`) with the matrices in ``dtype`` and
-    the IEF's biases 2 and 3 rounded to it; the voxel table goes with them
-    at ``pad_columns(table, w["dims"][0])``."""
-    return cast_pair_operands(pad_pair_operands(pair_decode_weights(
-        weights, c_vox, c_roi, c_dir, multires, dtype)), dtype)
+    """The serving operands: :func:`pair_decode_weights` at the kernel's
+    widths (``pad_operands``), cast as the kernel takes them
+    (``cast_operands``)."""
+    return cast_operands(pad_operands(pair_decode_weights(
+        weights, c_vox, c_roi, c_dir, multires, dtype), FORMAT), FORMAT,
+        dtype)
 
 
 def _dense_slots(p: int, n_rays: int) -> int:
@@ -193,11 +164,6 @@ def _dense_slots(p: int, n_rays: int) -> int:
         raise ValueError("pair_decode: without rays, P must be a multiple "
                          "of the number of rays")
     return p // n_rays
-
-
-def _ray_rows(ray_feat: torch.Tensor, c_rp: int) -> torch.Tensor:
-    """The per-ray [roi | dir_e] rows padded with zero columns to c_rp."""
-    return torch.nn.functional.pad(ray_feat, (0, c_rp - ray_feat.shape[1]))
 
 
 def _mask_rows(v: torch.Tensor, n_rows) -> torch.Tensor:
@@ -221,11 +187,11 @@ def _layer1_of(vox_rows, pos, ray_rows, w, dtype):
     lay = pair_layout(*w["dims"])
     multires = w["dims"][3]
     pos = pos.float()
-    x = _q(torch.cat([vox_rows.float(),
-                      _ray_rows(ray_rows.float(), lay["c_rp"]),
-                      posenc_rows(pos[:, :3], multires),
-                      posenc_rows(pos[:, 3:], multires)], 1), dtype)
-    return _dot(x, w["w1"][:x.shape[1]], dtype) + w["b1"]
+    x = rounded(torch.cat([vox_rows.float(),
+                           pad_columns(ray_rows.float(), lay["c_rp"]),
+                           posenc_rows(pos[:, :3], multires),
+                           posenc_rows(pos[:, 3:], multires)], 1), dtype)
+    return dot(x, w["w1"][:x.shape[1]], dtype) + w["b1"]
 
 
 def layer1(vox_table, cells, pos, ray_feat, w, rays, dtype):
@@ -235,16 +201,16 @@ def layer1(vox_table, cells, pos, ray_feat, w, rays, dtype):
     return _layer1_of(vox_rows, pos, ray_rows, w, dtype)
 
 
-def _decode_rows(vox_rows, pos, ray_rows, w, n_rows, n_iter, init_offset,
-                 use_sigmoid, dtype):
+def decode_rows(vox_rows, pos, ray_rows, w, n_rows, n_iter, init_offset,
+                use_sigmoid, dtype):
     """:func:`pair_decode_plain` of rows whose voxel and ray rows are
     gathered already."""
     g4 = w["b1"].shape[0] // 2
     z = _layer1_of(vox_rows, pos, ray_rows, w, dtype)
-    offset = _ief_loop(z[:, :g4], w, "off_", n_iter, init_offset, dtype)
-    logit = _mlp_tail(_act(z[:, g4:]), w, "prob_", dtype) + w["prob_b4"]
-    return (_mask_rows(_squash(offset, use_sigmoid), n_rows),
-            _mask_rows(_squash(logit, use_sigmoid), n_rows))
+    offset = ief_loop(z[:, :g4], w, "off_", n_iter, init_offset, dtype)
+    logit = mlp_tail(act(z[:, g4:]), w, "prob_", dtype) + w["prob_b4"]
+    return (_mask_rows(squash(offset, use_sigmoid), n_rows),
+            _mask_rows(squash(logit, use_sigmoid), n_rows))
 
 
 def pair_decode_plain(vox_table, cells, pos, ray_feat, w, rays=None, *,
@@ -257,31 +223,8 @@ def pair_decode_plain(vox_table, cells, pos, ray_feat, w, rays=None, *,
     tensor; None: every row). ``dtype``: the compute dtype (default: that of
     ``w["w1"]``, which may then hold f32 values)."""
     vox_rows, ray_rows = _gather_rows(vox_table, cells, ray_feat, rays)
-    return _decode_rows(vox_rows, pos, ray_rows, w, n_rows, n_iter,
-                        init_offset, use_sigmoid, dtype or w["w1"].dtype)
-
-
-def pad_pair_operands(w):
-    """K6's operands ``w`` (the f32 ones of :func:`pair_decode_weights`, or
-    their cast) at the kernel's widths: the decoders padded to
-    :func:`compiled_gf` with zero units, c_vox to a multiple of
-    ``VOX_MULTIPLE`` with zero voxel rows of w1 (:func:`pair_layout` of the
-    padded width; the table takes as many zero columns:
-    ``pad_columns``). ``w`` itself where nothing is padded."""
-    c_vox, c_roi, c_dir, multires = w["dims"]
-    g = w["b1"].shape[0] // 8
-    G, cv = compiled_gf(g), _round_up(c_vox, VOX_MULTIPLE)
-    if (g, c_vox) == (G, cv):
-        return w
-    kp = pair_layout(cv, c_roi, c_dir, multires)["kp"]
-    out = dict(w, dims=(cv, c_roi, c_dir, multires))
-    out["w1"] = _halves(_insert_rows(w["w1"], c_vox, cv - c_vox, kp),
-                        4 * g, 4 * G)
-    out["b1"] = _halves(w["b1"], 4 * g, 4 * G)
-    out["a_vec"] = _pad_to(w["a_vec"], (4 * G,))
-    out["c_vec"] = _pad_to(w["c_vec"], (4 * G,))
-    out.update(_pad_tails(w, ("off_", "prob_"), g, G))
-    return _contiguous(out)
+    return decode_rows(vox_rows, pos, ray_rows, w, n_rows, n_iter,
+                       init_offset, use_sigmoid, dtype or w["w1"].dtype)
 
 
 def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
@@ -291,13 +234,11 @@ def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
     c_vox, c_roi, c_dir, multires = w["dims"]
     lay = pair_layout(c_vox, c_roi, c_dir, multires)
     kp, is_bf16 = w["w1"].shape[0], dtype == torch.bfloat16
-    _check_cuda("pair_decode", [vox_table, cells, pos, ray_feat,
-                                *(w[k] for k in _K6_WEIGHTS),
-                                *(t for t in (rays, n_rows) if t is not None)],
-                dtype)
-    for dec in ("off", "prob"):
-        g = decoder_gf("pair_decode", w["b1"].shape[0] // 2,
-                       w[f"{dec}_w2"].shape, w[f"{dec}_w3"].shape)
+    check_cuda("pair_decode", [vox_table, cells, pos, ray_feat,
+                               *(w[k] for k in FORMAT.operands),
+                               *(t for t in (rays, n_rows) if t is not None)],
+               dtype)
+    g = operands_gf("pair_decode", w, FORMAT)
     if vox_table.shape[1] != c_vox or ray_feat.shape[1] != c_roi + c_dir \
             or pos.shape != (p, 6) or cells.dim() != 1 or kp != lay["kp"] \
             or (rays is not None and rays.shape != (p,)) \
@@ -307,21 +248,23 @@ def _pair_decode_cuda(vox_table, cells, pos, ray_feat, w, rays, n_rows,
         raise ValueError(f"pair_decode kernel takes c_vox a multiple of 8 and "
                          f"at most {MAX_PE_COLS} columns past the ray row in "
                          f"bf16 (got c_vox={c_vox}, {kp - lay['o_pe']}; "
-                         "pad_pair_operands pads c_vox)")
-    _check_plan("pair_decode", "K6", kp, 0, n_iter, is_bf16, p, g)
+                         "pad_operands pads c_vox)")
+    check_plan("pair_decode", "K6", kp, 0, n_iter, is_bf16, p, g)
     if rays is None:
         slots = _dense_slots(p, ray_feat.shape[0])
     else:
         rays, slots = rays.to(torch.int32).contiguous(), 0
     if n_rows is not None:
         n_rows = n_rows.to(torch.int32).contiguous()
-    vox_table = _aligned(vox_table.to(dtype).contiguous())
-    ray_feat = _aligned(_ray_rows(ray_feat.to(dtype), lay["c_rp"]).contiguous())
+    vox_table = aligned(vox_table.to(dtype).contiguous())
+    ray_feat = aligned(pad_columns(ray_feat.to(dtype),
+                                   lay["c_rp"]).contiguous())
     cells, pos = cells.to(torch.int32).contiguous(), pos.float().contiguous()
     off = torch.empty((p,), dtype=torch.float32, device=cells.device)
     logit = torch.empty_like(off)
     ptrs = cuda.ptr_array([vox_table, cells, rays, pos, ray_feat,
-                           *(w[k] for k in _K6_WEIGHTS), n_rows, off, logit])
+                           *(w[k] for k in FORMAT.operands), n_rows, off,
+                           logit])
     fn = cuda.bind("pair_decode", "idt_pair_decode", cuda.PTR,
                    *[cuda.I64] * 10, cuda.F32)
     cuda.check(fn(ptrs, p, c_vox, lay["c_rp"], multires, kp, slots, n_iter, g,
@@ -336,7 +279,10 @@ def pair_decode(vox_table, cells, pos, ray_feat, w,
                 init_offset=0.001, use_sigmoid=False):
     """Stage-1 per-pair decode (see :func:`pair_decode_plain`); kernel K6 on
     CUDA, which decodes only the rows below ``n_rows``. ``w``:
-    :func:`prep_pair_decode_weights`."""
+    :func:`prep_pair_decode_weights`. ``vox_table``: the unpadded table in
+    any float dtype, cast and padded here to the operands'
+    (``rows_operand``) for either branch."""
+    vox_table = rows_operand(vox_table, w, FORMAT)
     if cells.device.type == "cpu":
         return pair_decode_plain(vox_table, cells, pos, ray_feat, w, rays,
                                  n_rows=n_rows, n_iter=n_iter,
@@ -401,7 +347,7 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
     ray_plan = segment.chunk_sort(rays_l, chunk, ray_feat.shape[0]) \
         if need_ray else None
     d_w = {k: torch.zeros_like(w32[k], dtype=torch.float32)
-           for k in _K6_WEIGHTS if need_w}
+           for k in FORMAT.operands if need_w}
     for s in range(0, live.shape[0], chunk):
         r = live[s:s + chunk]
         cells_c, rays_c = cells_l[s:s + chunk], rays_l[s:s + chunk]
@@ -409,10 +355,10 @@ def pair_decode_bwd_chunked(vox_table, cells, pos, ray_feat, w32, rays,
             vox_rows = vox_table[cells_c].detach().requires_grad_(need_vox)
             ray_rows = ray_feat[rays_c].detach().requires_grad_(need_ray)
             leaves = {k: w32[k].detach().requires_grad_(need_w)
-                      for k in _K6_WEIGHTS}
-            w = round_pair_biases({**leaves, "dims": w32["dims"]}, dtype)
-            out = _decode_rows(vox_rows, pos[r], ray_rows, w, None, n_iter,
-                               init_offset, use_sigmoid, dtype)
+                      for k in FORMAT.operands}
+            w = round_biases({**leaves, "dims": w32["dims"]}, FORMAT, dtype)
+            out = decode_rows(vox_rows, pos[r], ray_rows, w, None, n_iter,
+                              init_offset, use_sigmoid, dtype)
             wanted = ([vox_rows] if need_vox else []) \
                 + ([ray_rows] if need_ray else []) \
                 + (list(leaves.values()) if need_w else [])
@@ -452,10 +398,10 @@ class PairDecodeTrain(torch.autograd.Function):
     def forward(ctx, opts, vox_table, cells, pos, ray_feat, rays, n_rows,
                 *ops):
         dtype, dims, n_iter, init_offset, use_sigmoid = opts
-        w32 = dict(zip(_K6_WEIGHTS, ops), dims=dims)
+        w32 = dict(zip(FORMAT.operands, ops), dims=dims)
         with profiling.span("pair_decode.forward"):
             out = pair_decode(vox_table, cells, pos, ray_feat,
-                              cast_pair_operands(w32, dtype), rays,
+                              cast_operands(w32, FORMAT, dtype), rays,
                               n_rows=n_rows, n_iter=n_iter,
                               init_offset=init_offset,
                               use_sigmoid=use_sigmoid)
@@ -473,13 +419,14 @@ class PairDecodeTrain(torch.autograd.Function):
         with profiling.span("pair_decode.backward"):
             d_vox, d_ray, d_w = pair_decode_bwd_chunked(
                 vox_table, cells, pos, ray_feat,
-                dict(zip(_K6_WEIGHTS, ops), dims=dims), rays, n_rows, g_off,
-                g_logit, need=(need[1], need[4], any(need[7:])), dtype=dtype,
+                dict(zip(FORMAT.operands, ops), dims=dims), rays, n_rows,
+                g_off, g_logit, need=(need[1], need[4], any(need[7:])),
+                dtype=dtype,
                 n_iter=n_iter, init_offset=init_offset,
                 use_sigmoid=use_sigmoid)
         return (None, d_vox, None, None, d_ray, None, None,
                 *(d_w[k] if d_w and n else None
-                  for k, n in zip(_K6_WEIGHTS, need[7:])))
+                  for k, n in zip(FORMAT.operands, need[7:])))
 
 
 def pair_decode_train(vox_table, cells, pos, ray_feat, w32, rays=None, *,
@@ -497,11 +444,11 @@ def pair_decode_train(vox_table, cells, pos, ray_feat, w32, rays=None, *,
               use_sigmoid=use_sigmoid)
     if cells.device.type == "cpu":
         return pair_decode_plain(vox_table, cells, pos, ray_feat,
-                                 round_pair_biases(w32, dtype), rays,
+                                 round_biases(w32, FORMAT, dtype), rays,
                                  dtype=dtype, **kw)
-    w32 = pad_pair_operands(w32)
+    w32 = pad_operands(w32, FORMAT)
     vox_table = pad_columns(vox_table, w32["dims"][0])
     return PairDecodeTrain.apply(
         (dtype, w32["dims"], n_iter, init_offset, use_sigmoid),
         vox_table, cells, pos, ray_feat, rays, n_rows,
-        *(w32[k] for k in _K6_WEIGHTS))
+        *(w32[k] for k in FORMAT.operands))

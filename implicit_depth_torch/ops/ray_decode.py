@@ -1,113 +1,74 @@
-"""Ray-major fused implicit decodes: stage 1 (kernel K1) and stage 2 (K4).
+"""Ray-major fused stage-1 decode: forward (kernels K1, K2) and backward (K3).
 
-Counterpart of ``implicit_depth_tpu/ops/pallas_ray_decode.py``:
+Counterpart of ``implicit_depth_tpu/ops/pallas_ray_decode.py``'s
+``fused_ray_decode``, ``xla_ray_decode`` and ``_decode_rows``:
+:func:`ray_decode` is the per-pair decode. The per_ray pair slots are
+t-sorted and front-packed, so decoding the first ``kb`` slots of every ray
+is a dense (N, kb) computation. Layer 1 of both decoders (IEF offset, IMNet
+termination probability) is split into a per-PAIR part over [vox | pos6 |
+trig] and a per-RAY part over [roi | dir_e], computed once per ray
+(``split_l1``; :func:`ray_layout`). The positional encoding of the
+enter/leave points is never materialised: only its sin/cos columns
+(``trig``) are built from the raw positions, in the kernel. The kernel
+reads each pair's voxel row by its cell id from the (B·G³, Cv) voxel table
+instead of taking gathered (N·kb, Cv) rows. The kernels take every budget
+1 <= kb <= ``MAX_KB`` (``rays_per_tile``), as the Pallas kernels take any
+kb. The IEF decoder hoists layer 1 out of the iterations and folds the 1 ->
+16 offset encoder into a rank-1 update; biases 1 and 4 add in f32, biases 2
+and 3 are rounded to the compute dtype first (``ops/decode_common.py``).
 
-* :func:`ray_decode` — stage-1 per-pair decode (``fused_ray_decode``,
-  ``xla_ray_decode``, ``_decode_rows``). The per_ray pair slots are t-sorted
-  and front-packed, so decoding the first ``kb`` slots of every ray is a
-  dense (N, kb) computation. Layer 1 of both decoders (IEF offset, IMNet
-  termination probability) is split into a per-PAIR part over
-  [vox | pos6 | trig] and a per-RAY part over [roi | dir_e], computed once
-  per ray (``split_l1``). The positional encoding of the enter/leave points
-  is never materialised: only its sin/cos columns (``trig``) are built from
-  the raw positions, in the kernel. The kernel reads each pair's voxel row
-  by its cell id from the (B·G³, Cv) voxel table instead of taking gathered
-  (N·kb, Cv) rows. The kernels take every budget 1 <= kb <= :data:`MAX_KB`
-  (:func:`rays_per_tile`), as the Pallas kernels take any kb.
-* :func:`ief_decode` — stage-2 per-ray IEF decode (``fused_ief_rows``,
-  ``xla_ief_rows``, ``_ief_rows``) over the embed parts [end | rc | pos_e];
-  forward only, it refuses an operand that asks for a gradient.
-  :func:`ief_decode_train` is the refine training's decode: K4 forward and,
-  as ``fused_ief_rows``' VJP recomputes through ``xla_ief_rows``, autograd
-  of the plain decode recomputed (:class:`IefDecodeTrain`).
-
-Both IEF decoders hoist layer 1 out of the iterations and fold the 1 -> 16
-offset encoder into a rank-1 update: (offset·enc_w + enc_b) @ W_x =
-offset·a_vec + c_vec. Rounding follows ``_decode_rows`` / ``_ief_rows``:
-every product takes compute-dtype operands with f32 accumulation; biases
-1 and 4 add in f32, biases 2 and 3 are rounded to the compute dtype first;
-each hidden activation is rounded to the compute dtype before its product.
+The training decode (:func:`ray_decode_train`, :class:`RayDecodeTrain`)
+runs K2 or K1 forward and K3 backward, by ``decode_bwd``.
 
 Each wrapper runs the plain PyTorch version for CPU tensors and launches its
-CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ray_decode_bwd.cu``,
-``csrc/ief_decode.cu``) for CUDA tensors, counting launches in
-``<wrapper>.launches``. The ``global`` and dense stage-1 modes decode
-through ``ops/pair_decode.py`` (K6). The kernels are compiled for the
-decoder widths 4g-2g-g-1 of ``imnet_gf`` g in :data:`DECODER_GF`, read
-from the weights as the Pallas kernels read theirs (:func:`decoder_gf`).
-Any g from 1 to 128 runs at the next compiled width (:func:`compiled_gf`)
-by padding the operands once, where they are made: the serving operands
-(:func:`prep_ray_decode_weights`, :func:`prep_ief_weights`) and, on the
-card, the training entries (:func:`ray_decode_train`,
-:func:`ief_decode_train`), with zero units: a padded unit's pre-activation
-is 0, LeakyReLU(0) = 0 and its row in the next layer is 0, so the outputs
-are those of the narrower decoder. A voxel width (c_vox, c_end) is padded
-to a multiple of :data:`VOX_MULTIPLE` the same way, with zero rows of
-layer 1 and zero columns of the table (:func:`pad_columns`). The padding is
-slicing, concatenation and ``F.pad``, so under autograd the pads'
-gradients are dropped. :func:`decode_plan` mirrors the forward kernels'
-tiles, shared memory and weight schedule on the host
-(``csrc/decode_tile.cuh``), :func:`bwd_smem` K3's Pass A; the wrappers
-refuse widths they are not given at, naming the limit.
+CUDA kernel (``csrc/ray_decode.cu``, ``csrc/ray_decode_bwd.cu``) for CUDA
+tensors, counting launches in ``<wrapper>.launches``. The ``global`` and
+dense stage-1 modes decode through ``ops/pair_decode.py`` (K6), stage 2
+through ``ops/ief_decode.py`` (K4). The operands are padded to the kernels'
+widths once, where they are made (``ops/decode_common.py::pad_operands``):
+the serving operands (:func:`prep_ray_decode_weights`) and, on the card,
+the training entry (:func:`ray_decode_train`). :func:`bwd_plan` and
+:func:`bwd_smem` mirror K3's chunks, streams and Pass A on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from implicit_depth_torch.ops import cuda
-
-LEAKY = 0.02
-_PAD = 16  # kernels' K-dimension granule (bf16 tensor-core fragment depth)
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _act(v):
-    return torch.where(v > 0, v, LEAKY * v)
-
-
-def soft_clamp(x):
-    return torch.maximum(torch.minimum(x, 0.01 * x + 0.99), 0.01 * x)
-
-
-def _squash(x, use_sigmoid: bool):
-    return torch.sigmoid(x) if use_sigmoid else soft_clamp(x)
-
-
-def _q(x, dtype):
-    """``x`` rounded to ``dtype``, held in f32. Under autograd the rounding
-    is a straight-through step: the gradient reaches ``x`` unrounded, so
-    that weight gradients stay f32 as the JAX kernel accumulates them.
-    float64 (the yardstick of the f32 sums): ``x`` in float64."""
-    if dtype == torch.float64:
-        return x.double()
-    r = x.to(dtype).float()
-    if x.dtype == torch.float32 and torch.is_grad_enabled() and x.requires_grad:
-        return x + (r - x).detach()
-    return r
-
-
-def _dot(a, b, dtype):
-    """a @ b with ``dtype`` operands and f32 accumulation."""
-    return _q(a, dtype) @ _q(b, dtype)
-
-
-def _pad_rows(w, rows):
-    return torch.cat([w, w.new_zeros((rows - w.shape[0], *w.shape[1:]))], 0)
-
-
-def _rank1(enc_w, enc_b, w_x, dtype):
-    """a_vec, c_vec (4g,) f32 of the folded offset encoder."""
-    return _dot(enc_w, w_x, dtype)[0], _dot(enc_b[None, :], w_x, dtype)[0]
+from implicit_depth_torch.ops.decode_common import (
+    DECODER_GF,
+    K_GRANULE,
+    LEAKY,
+    MAX_CRP,
+    MAX_CVOX,
+    MAX_KB,
+    MAX_KP,
+    MAX_SMEM,
+    OperandFormat,
+    act,
+    aligned,
+    cast_operands,
+    check_cuda,
+    check_plan,
+    dot,
+    operands_gf,
+    pad_columns,
+    pad_operands,
+    pad_to,
+    posenc_dim,
+    rays_per_tile,
+    round_biases,
+    round_up,
+    rounded,
+    rows_operand,
+    split_operands,
+    squash,
+)
 
 
 def trig_block(pos6: torch.Tensor, multires: int) -> torch.Tensor:
@@ -128,96 +89,57 @@ def trig_block(pos6: torch.Tensor, multires: int) -> torch.Tensor:
 # Stage 1: per-pair decode (K1)
 # ---------------------------------------------------------------------------
 
+def ray_layout(c_vox: int, c_ray: int, multires: int) -> dict:
+    """K1/K2/K3's layer-1 layout: per pair [vox (c_vox) | pos6 | trig
+    (12·multires) | 0 to kp], per ray [roi | dir_e (c_ray) | 0 to crp]; kp
+    and crp are multiples of the 16-deep mma step."""
+    return {"kp": round_up(c_vox + 2 * posenc_dim(multires), K_GRANULE),
+            "crp": round_up(c_ray, K_GRANULE)}
+
+
+FORMAT = OperandFormat(
+    operands=("pair_w1", "ray_w1", "b1", "a_vec", "c_vec",
+              "off_w2", "off_b2", "off_w3", "off_b3", "off_w4", "off_b4",
+              "prob_w2", "prob_b2", "prob_w3", "prob_b3", "prob_w4",
+              "prob_b4"),
+    layer1=("pair_w1", "ray_w1"), prefixes=("off_", "prob_"),
+    rounded=("off_b2", "off_b3", "prob_b2", "prob_b3"), layout=ray_layout)
+
+
 def prep_ray_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
                             c_roi: int, c_dir: int, multires: int,
                             dtype) -> Dict[str, torch.Tensor]:
-    """The kernel operands (:func:`split_ray_decode_weights` at the kernels'
-    widths, :func:`pad_ray_decode_operands`, cast by
-    :func:`cast_ray_decode_operands`); the voxel table goes with them at
-    ``pad_columns(table, w["dims"][0])``."""
-    return cast_ray_decode_operands(pad_ray_decode_operands(
-        split_ray_decode_weights(weights, c_vox, c_roi, c_dir, multires,
-                                 dtype)), dtype)
-
-
-_MATRICES = ("pair_w1", "ray_w1", "off_w2", "off_w3", "off_w4",
-             "prob_w2", "prob_w3", "prob_w4")
-_ROUNDED_BIASES = ("off_b2", "off_b3", "prob_b2", "prob_b3")
-
-
-def cast_ray_decode_operands(w: Dict[str, torch.Tensor],
-                             dtype) -> Dict[str, torch.Tensor]:
-    """The f32 split operands as the kernels take them: matrices in
-    ``dtype``, biases 2 and 3 rounded to ``dtype`` and held in f32."""
-    out = dict(w)
-    for k in _MATRICES:
-        out[k] = w[k].to(dtype).contiguous()
-    for k in _ROUNDED_BIASES:
-        out[k] = _q(w[k], dtype)
-    return out
+    """The serving operands: :func:`split_ray_decode_weights` at the
+    kernels' widths (``pad_operands``), cast as the kernels take them
+    (``cast_operands``)."""
+    return cast_operands(pad_operands(split_ray_decode_weights(
+        weights, c_vox, c_roi, c_dir, multires, dtype), FORMAT), FORMAT,
+        dtype)
 
 
 def split_ray_decode_weights(weights: Dict[str, torch.Tensor], c_vox: int,
                              c_roi: int, c_dir: int, multires: int,
                              dtype) -> Dict[str, torch.Tensor]:
-    """Split the decoder weights (JAX layout: off_enc_w/b, off_w1..4,
-    off_b1..4, prob_w1..4, prob_b1..4; kernels (in, out)) into the kernel
-    operands, all in f32. Layer 1's input layout is the embed [vox | roi |
-    pe(enter) | pe(leave) | dir (| 16 offset-encoder rows for IEF)].
-
-    Returns pair_w1 (KP, 2·4g) rows [vox | pos6 | trig | 0-pad] and ray_w1
-    (CRP, 2·4g) rows [roi | dir | 0-pad], columns [off | prob]; b1 (2·4g,);
-    a_vec, c_vec (4g,) of the offset encoder folded into layer 1 with
-    ``dtype`` operands; and each decoder's layers 2-4. Only slicing,
-    concatenation and the rank-1 fold: training differentiates through it,
-    which lays the kernels' split gradients back onto the parameters."""
-    c_pos = 6 * (1 + 2 * multires)
+    """The decoder weights (``off_`` and ``prob_`` decoders) as the kernel
+    operands (``split_operands``), all in f32. Layer 1's input layout is
+    the embed [vox | roi | pe(enter) | pe(leave) | dir]; pair_w1 (kp, 2·4g)
+    takes its rows [vox | pos6 | trig | 0-pad] and ray_w1 (crp, 2·4g) its
+    rows [roi | dir | 0-pad] (:func:`ray_layout`), columns [off | prob]."""
+    c_pos = 2 * posenc_dim(multires)
     half = c_pos // 2
-    o1, o2, o3, o4 = c_vox, c_vox + c_roi, c_vox + c_roi + c_pos, \
-        c_vox + c_roi + c_pos + c_dir
+    o1, o2, o3 = c_vox, c_vox + c_roi, c_vox + c_roi + c_pos
+    lay = ray_layout(c_vox, c_roi + c_dir, multires)
 
-    def split(w1):
+    def rows(w1):
         pe = w1[o2:o3]
         pair = torch.cat([w1[:o1], pe[0:3], pe[half:half + 3],
                           pe[3:half], pe[half + 3:]], 0)
-        ray = torch.cat([w1[o1:o2], w1[o3:o4]], 0)
-        return pair, ray
+        ray = torch.cat([w1[o1:o2], w1[o3:]], 0)
+        return (pad_to(pair, (lay["kp"], pair.shape[1])),
+                pad_to(ray, (lay["crp"], ray.shape[1])))
 
-    off_pair, off_ray = split(weights["off_w1"])
-    prob_pair, prob_ray = split(weights["prob_w1"])
-    kp = _round_up(c_vox + 6 + 12 * multires, _PAD)
-    crp = _round_up(c_roi + c_dir, _PAD)
-    a_vec, c_vec = _rank1(weights["off_enc_w"], weights["off_enc_b"],
-                          weights["off_w1"][o4:], dtype)
-    w = {
-        "pair_w1": _pad_rows(torch.cat([off_pair, prob_pair], 1), kp).float(),
-        "ray_w1": _pad_rows(torch.cat([off_ray, prob_ray], 1), crp).float(),
-        "b1": torch.cat([weights["off_b1"], weights["prob_b1"]]).float(),
-        "a_vec": a_vec, "c_vec": c_vec,
-    }
-    for p in ("off", "prob"):
-        w[f"{p}_w2"], w[f"{p}_b2"], w[f"{p}_w3"], w[f"{p}_b3"] = (
-            weights[f"{p}_{n}"].float() for n in ("w2", "b2", "w3", "b3"))
-        w[f"{p}_w4"] = weights[f"{p}_w4"].reshape(-1).float()
-        w[f"{p}_b4"] = weights[f"{p}_b4"].reshape(1).float()
-    w["dims"] = (c_vox, c_roi + c_dir, multires)
-    return w
-
-
-def _mlp_tail(h1, w, prefix, dtype):
-    """Layers 2-4 from the rounded layer-1 activation; returns (rows,) f32."""
-    h2 = _act(_dot(h1, w[f"{prefix}w2"], dtype) + w[f"{prefix}b2"])
-    h3 = _act(_dot(h2, w[f"{prefix}w3"], dtype) + w[f"{prefix}b3"])
-    return _dot(h3, w[f"{prefix}w4"][:, None], dtype)[:, 0]
-
-
-def _ief_loop(e1, w, prefix, n_iter, init_offset, dtype):
-    offset = torch.full(e1.shape[:1], init_offset, dtype=torch.float32,
-                        device=e1.device)
-    for _ in range(n_iter):
-        h1 = _act(e1 + offset[:, None] * w["a_vec"] + w["c_vec"])
-        offset = offset + _mlp_tail(h1, w, prefix, dtype) + w[f"{prefix}b4"]
-    return offset
+    return split_operands(weights, FORMAT, o3 + c_dir,
+                          (c_vox, c_roi + c_dir, multires), rows, dtype)
 
 
 def save_names(n_iter: int, mode: str = "l1") -> tuple:
@@ -278,27 +200,27 @@ def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
         return x + (sv[name].float().reshape(x.shape) - x).detach()
 
     pos6 = pos.reshape(n * kb, 6).float()
-    trig = _q(trig_block(pos6, multires), dtype)
+    trig = rounded(trig_block(pos6, multires), dtype)
     rows = vox_table[cells.reshape(-1).long()]
     # (float64: the table's gradient summed in float64 too)
     rows = rows.double() if dtype == torch.float64 else rows.float()
-    x = torch.cat([_q(rows, dtype), _q(pos6, dtype), trig], 1)
-    e1 = (_dot(x, w["pair_w1"][:x.shape[1]], dtype)
-          + _dot(ray_feat, w["ray_w1"][:c_ray], dtype).repeat_interleave(kb, 0)
+    x = torch.cat([rounded(rows, dtype), rounded(pos6, dtype), trig], 1)
+    e1 = (dot(x, w["pair_w1"][:x.shape[1]], dtype)
+          + dot(ray_feat, w["ray_w1"][:c_ray], dtype).repeat_interleave(kb, 0)
           + w["b1"])
     e1_off, z1p = keep(e1[:, :g4], "e1"), keep(e1[:, g4:], "z1p")
     acts = []
 
-    def act(z, name):
-        return _saved_act(z, sv[name]) if name in sv else _act(z)
+    def act_of(z, name):
+        return _saved_act(z, sv[name]) if name in sv else act(z)
 
     def tail(h1, p, tag):
-        """Layers 2-4 of decoder ``p`` (as :func:`_mlp_tail`), h2 and h3
+        """Layers 2-4 of decoder ``p`` (as ``mlp_tail``), h2 and h3
         from the saves named by ``tag`` where given."""
-        h2 = act(_dot(h1, w[f"{p}w2"], dtype) + w[f"{p}b2"], f"h2{tag}")
-        h3 = act(_dot(h2, w[f"{p}w3"], dtype) + w[f"{p}b3"], f"h3{tag}")
+        h2 = act_of(dot(h1, w[f"{p}w2"], dtype) + w[f"{p}b2"], f"h2{tag}")
+        h3 = act_of(dot(h2, w[f"{p}w3"], dtype) + w[f"{p}b3"], f"h3{tag}")
         acts.extend((h2, h3))
-        return _dot(h3, w[f"{p}w4"][:, None], dtype)[:, 0]
+        return dot(h3, w[f"{p}w4"][:, None], dtype)[:, 0]
 
     offset = torch.full(e1_off.shape[:1], init_offset, dtype=torch.float32,
                         device=e1_off.device)
@@ -306,12 +228,12 @@ def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
     for i in range(n_iter):
         offset = keep(offset, f"off{i}")
         offs.append(offset)
-        h1 = _act(e1_off + offset[:, None] * w["a_vec"] + w["c_vec"])
+        h1 = act(e1_off + offset[:, None] * w["a_vec"] + w["c_vec"])
         offset = offset + tail(h1, "off_", f"_{i}") + w["off_b4"]
     offset = keep(offset, "off_fin")
-    logit = keep(tail(_act(z1p), "prob_", "p") + w["prob_b4"], "logit")
-    out = (_squash(offset, use_sigmoid).reshape(n, kb),
-           _squash(logit, use_sigmoid).reshape(n, kb))
+    logit = keep(tail(act(z1p), "prob_", "p") + w["prob_b4"], "logit")
+    out = (squash(offset, use_sigmoid).reshape(n, kb),
+           squash(logit, use_sigmoid).reshape(n, kb))
     if saves:
         q = lambda t: t.to(dtype)  # noqa: E731
         col = lambda t: t.float().reshape(-1, 1)  # noqa: E731
@@ -324,407 +246,24 @@ def ray_decode_plain(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
     return out
 
 
-# imnet_gf of the decoders the kernels are compiled for: layers 4g -> 2g ->
-# g -> 1; every g up to the last is run at the next of them
-DECODER_GF = cuda.DECODER_GF
-MAX_GF = DECODER_GF[-1]
-
-
-def compiled_gf(g: int) -> int:
-    """The compiled width a decoder of imnet_gf ``g`` runs at: the least of
-    :data:`DECODER_GF` not below it (its other units zero)."""
-    for c in DECODER_GF:
-        if g <= c:
-            return c
-    raise ValueError(f"the decode kernels take imnet_gf 1 to {MAX_GF} "
-                     f"(got {g})")
-
-
-def decoder_gf(name: str, g1: int, w2_shape, w3_shape) -> int:
-    """The ``imnet_gf`` g of a decoder whose layer 1 is ``g1`` wide and
-    whose layers 2 and 3 have the shapes ``w2_shape``, ``w3_shape``; raises
-    unless the widths are 4g-2g-g-1 for a g from 1 to :data:`MAX_GF`."""
-    g = g1 // 4
-    widths = (g1, *w3_shape)
-    if not 1 <= g <= MAX_GF or g1 != 4 * g \
-            or tuple(w2_shape) != (g1, 2 * g) \
-            or tuple(w3_shape) != (2 * g, g):
-        raise ValueError(
-            f"{name} kernel takes decoder widths 4g-2g-g-1 for imnet_gf g "
-            f"from 1 to {MAX_GF} (got {'-'.join(map(str, widths))}-1)")
-    return g
-
-
-# -- padding to the compiled widths (exact: zero units, zero columns) --------
-
-# the voxel width (c_vox, c_end) the operands are padded to a multiple of:
-# K1, K2, K4 and K6 take a multiple of 8 in bf16 (16-byte rows), K3's
-# d_rows product runs on the tensor cores at a multiple of 16 (another
-# multiple of 8 takes CUDA-core FMA); one multiple, so one padded table
-VOX_MULTIPLE = 16
-
-
-def _pad_to(t, shape):
-    """``t`` with zeros appended along each dimension up to ``shape``."""
-    pads = []
-    for have, want in zip(reversed(t.shape), reversed(shape)):
-        pads += [0, want - have]
-    return F.pad(t, pads) if any(pads) else t
-
-
-def pad_columns(t, c):
-    """The rows ``t`` (rows, c0) with zero columns appended up to ``c``:
-    the voxel table or the end rows at their padded operands' width
-    ``w["dims"][0]``. ``t`` itself where c0 == c."""
-    return _pad_to(t, (t.shape[0], c))
-
-
-def _halves(t, g4, to):
-    """The last dimension [off (g4) | prob (g4)] of ``t`` with each half
-    padded with zeros to ``to``."""
-    h = t.reshape(*t.shape[:-1], 2, g4)
-    return _pad_to(h, (*h.shape[:-1], to)).reshape(*t.shape[:-1], 2 * to)
-
-
-def _pad_tails(w, prefixes, g, G):
-    """Layers 2-4 of each decoder ``prefix`` of ``w`` padded from imnet_gf
-    ``g`` to ``G``."""
-    out = {}
-    for p in prefixes:
-        out[f"{p}w2"] = _pad_to(w[f"{p}w2"], (4 * G, 2 * G))
-        out[f"{p}b2"] = _pad_to(w[f"{p}b2"], (2 * G,))
-        out[f"{p}w3"] = _pad_to(w[f"{p}w3"], (2 * G, G))
-        out[f"{p}b3"] = _pad_to(w[f"{p}b3"], (G,))
-        out[f"{p}w4"] = _pad_to(w[f"{p}w4"], (G,))
-    return out
-
-
-def _insert_rows(w1, at, n_zero, rows):
-    """``w1`` with ``n_zero`` zero rows inserted before row ``at`` (the
-    columns a voxel width is padded by), its trailing zero rows then cut or
-    padded to ``rows``."""
-    if n_zero == 0 and w1.shape[0] == rows:
-        return w1
-    w = torch.cat([w1[:at], w1.new_zeros((n_zero, *w1.shape[1:])),
-                   w1[at:]], 0)[:rows]
-    return _pad_to(w, (rows, *w.shape[1:]))
-
-
-def _contiguous(w):
-    return {k: v.contiguous() if torch.is_tensor(v) else v
-            for k, v in w.items()}
-
-
-def pad_ray_decode_operands(w):
-    """K1/K2/K3's operands ``w`` (the f32 split of
-    :func:`split_ray_decode_weights`, or its cast) at the kernels' widths:
-    the decoders padded to :func:`compiled_gf` with zero units, c_vox to a
-    multiple of :data:`VOX_MULTIPLE` with zero voxel rows of pair_w1 (the
-    table takes as many zero columns: :func:`pad_columns`). ``w`` itself
-    where nothing is padded."""
-    c_vox, c_ray, multires = w["dims"]
-    g = w["b1"].shape[0] // 8
-    G, cv = compiled_gf(g), _round_up(c_vox, VOX_MULTIPLE)
-    if (g, c_vox) == (G, cv):
-        return w
-    kp = _round_up(cv + 6 + 12 * multires, _PAD)
-    out = dict(w, dims=(cv, c_ray, multires))
-    out["pair_w1"] = _halves(_insert_rows(w["pair_w1"], c_vox, cv - c_vox,
-                                          kp), 4 * g, 4 * G)
-    out["ray_w1"] = _halves(w["ray_w1"], 4 * g, 4 * G)
-    out["b1"] = _halves(w["b1"], 4 * g, 4 * G)
-    out["a_vec"] = _pad_to(w["a_vec"], (4 * G,))
-    out["c_vec"] = _pad_to(w["c_vec"], (4 * G,))
-    out.update(_pad_tails(w, ("off_", "prob_"), g, G))
-    return _contiguous(out)
-
-
-def _check_cuda(name, tensors, dtype):
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: all operands must be CUDA tensors")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: compute dtype {dtype} not supported")
-
-
-def _aligned(t):
-    """``t`` at a 16-byte aligned address (the kernels load 16 bytes at a
-    time): a fresh copy where a view starts elsewhere."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-# -- the forward decodes' plan (K1/K2, K4, K6): tiles, shared memory, schedule
-
-MAX_SMEM = 232448      # dynamic shared memory one block may use (H100)
-TILE_ROWS = 64         # rows of a bf16 tile (decode_tile.cuh kM)
-TILE_PAD = 8           # elements past each shared row's width (kPad)
-SLAB_ELEMS = 9216      # elements of one weight slab (kSlabElems)
-RING = 3               # weight slabs in shared memory (kRing)
-MAX_SEGS = 24          # products of one tile's schedule (kMaxSegs)
-WARPS, WARPS_N = 8, 4  # warps of a block; along N in the 64-row products
-# rows of an f32 block (FMA path): the first whose block fits (16 at
-# imnet_gf 128, and for K4's and K6's widest rows at any imnet_gf)
-F32_ROWS = (32, 16)
-# the widest layer-1 inputs the wrappers accept, those of every width option
-# of the reference at its extreme at once (pnet_out 512, multires 10,
-# rgb_out 64, roi_out_bbox 4, refine pnet_out 512): per pair (kp; K1, K2,
-# K3: 512 + 6 + 120 -> 640), per ray (crp; K1, K3: rgb_out *
-# roi_out_bbox^2 + dir_e, 1024 + 27 -> 1056); K4's and K6's rows also hold
-# the per-ray part (K4 1616 with the refine model's multires 8, K6 1696).
-# Every block fits at these widths at every compiled imnet_gf (decode_plan's
-# chunked layout and 16-row f32 blocks; bwd_rows' 16-row tiles).
-MAX_KP = {"K1": 640, "K2all": 640, "K4": 1696, "K6": 1696, "K3": 640}
-MAX_CRP = 1056
-MAX_CVOX = 512  # K3's voxel feature width (pnet_out): its d_rows tile
-_SEG_BYTES = 24        # sizeof(Seg)
-# the most pair slots a ray K1, K2 and K3 take (decode_common.cuh kMaxKb): a
-# ray of a grid of up to 22 cells a side crosses at most 3·22 - 2 cells
-MAX_KB = 64
-# whole rays of a tile at most: K1's bf16 tile (its per-ray product's 16
-# rows) and f32 block (ray_decode.cu kTcRays, kF32Rays), K3's tile of
-# rows_per_tile rows (its per-ray regions' rows_per_tile / 8)
-TC_RAYS, F32_RAYS = 16, 4
-
-
-def rays_per_tile(kb: int, rows: int, cap: int) -> int:
-    """The whole rays of ``kb`` pair slots that a tile of ``rows`` rows
-    holds, at most ``cap``; 1 where a ray's slots fill more than a tile
-    (kb > rows: the ray then spans ceil(kb / rows) tiles of its slots).
-    Mirrors decode_common.cuh::rays_per_tile."""
-    return 1 if kb > rows else min(rows // kb, cap)
-
-
-def tile_rows(kb: int, rows: int, rays: int, n: int, tile: int) -> list:
-    """The pair row (ray·kb + slot) of each row of tile ``tile`` of ``n``
-    rays, or None where the row is masked (past the tile's rays or past
-    the ray's slots), as the kernels map them: the tile's rays are
-    consecutive, ``rays`` of them, or (kb > rows) the tile is rows slots of
-    one ray. The CPU plan tests hold this map to cover each pair row once."""
-    spt, tpr = min(kb, rows), -(-kb // rows)
-    ray0, slot0 = tile // tpr * rays, tile % tpr * spt
-    out = []
-    for r in range(rows):
-        ray, slot = ray0 + r // spt, slot0 + r % spt
-        ok = r // spt < rays and ray < n and slot < kb
-        out.append(ray * kb + slot if ok else None)
-    return out
-
-
-def slab_rows(n: int) -> int:
-    """k-rows of one weight slab of a product ``n`` wide (16-row multiple)."""
-    return SLAB_ELEMS // (n + TILE_PAD) // 16 * 16
-
-
-def _regions(sizes):
-    """{name: byte offset} of consecutive regions, each 128-byte aligned,
-    and the total under "total"."""
-    out, o = {}, 0
-    for name, size in sizes:
-        out[name] = o
-        o = _align(o + size, 128)
-    out["total"] = o
-    return out
-
-
-def _tile_layout(kp: int, crp: int, g: int, k1: bool, kind: str,
-                 chunk: int = 0) -> dict:
-    """``tile::Smem``'s regions in the ``kind`` layout ("double", "single",
-    "chunked": X's buffer ``chunk`` columns wide)."""
-    ld = lambda w: w + TILE_PAD  # noqa: E731
-    xw = chunk if kind == "chunked" else kp
-    xb = TILE_ROWS * ld(xw) * 2 if xw else 0
-    one = kind != "double"
-    out = _regions([
-        ("x0", xb), ("x1", 0 if one else xb),
-        ("rf", TC_RAYS * ld(crp) * 2 if k1 else 0),
-        ("ray", TC_RAYS * 4 * g * 4 if k1 and not one else 0),
-        ("h", TILE_ROWS * ld(4 * g) * 2), ("h2", TILE_ROWS * ld(2 * g) * 2),
-        ("ring", RING * SLAB_ELEMS * 2), ("off", TILE_ROWS * 4),
-        ("logit", TILE_ROWS * 4), ("l4", WARPS_N * TILE_ROWS * 4),
-        ("segs", MAX_SEGS * _SEG_BYTES)])
-    if one:
-        out["x1"] = out["x0"]
-        if k1:
-            out["ray"] = out["h2"]
-    return out
-
-
-def tile_layout(kp: int, crp: int, g: int, k1: bool) -> tuple:
-    """(kind, chunk, regions) of a bf16 decode block: the first of the
-    double, single and chunked layouts that fits MAX_SMEM (the chunked one
-    may not: its total says so). The chunk is the most columns of X that
-    fit beside the other regions, a multiple of the layer-1 product's slab
-    rows (at least one slab), so that every chunk but the last takes whole
-    slabs (``csrc/decode_tile.cuh::Smem``)."""
-    for kind in ("double", "single"):
-        smem = _tile_layout(kp, crp, g, k1, kind)
-        if smem["total"] <= MAX_SMEM:
-            return kind, 0, smem
-    rest = _tile_layout(0, crp, g, k1, "chunked")["total"]
-    ks = slab_rows(4 * g)
-    chunk = min(kp, max(ks, ((MAX_SMEM - rest) // (TILE_ROWS * 2)
-                             - TILE_PAD) // ks * ks))
-    return "chunked", chunk, _tile_layout(kp, crp, g, k1, "chunked", chunk)
-
-
-def _f32_layout(kernel: str, m: int, kp: int, crp: int, g: int) -> dict:
-    """The f32 FMA kernels' ``Smem`` of ``m`` rows a block."""
-    g1, g2, g3 = 4 * g, 2 * g, g
-    x = m * max(kp, g2 + g3) * 4
-    if kernel in ("K1", "K2all"):
-        # c: product scratch, first the per-ray inputs
-        return _regions([("x", x), ("e1", m * g1 * 4),
-                         ("c", max(m * g1, F32_RAYS * crp) * 4),
-                         ("h", m * g1 * 4), ("ray", F32_RAYS * 2 * g1 * 4),
-                         ("off", m * 4), ("logit", m * 4)])
-    if kernel == "K6":
-        return _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g1 * 4),
-                         ("h", m * g1 * 4), ("off", m * 4), ("logit", m * 4)])
-    return _regions([("x", x), ("e1", m * g1 * 4), ("c", m * g2 * 4),
-                     ("h", m * g1 * 4), ("off", m * 4)])
-
-
-def decode_plan(kernel: str, kp: int, crp: int = 0, n_iter: int = 2,
-                is_bf16: bool = True, n: int = 0, sm_count: int = 132,
-                g: int = 64, kb: int = 8) -> dict:
-    """The host-side arithmetic of the forward decodes, as the kernels lay
-    it out: ``kernel`` "K1" (also K2; ``n`` rays of ``kb`` pairs, layer-1
-    widths ``kp`` per pair and ``crp`` per ray), "K2all" (K2 'all': K1's
-    layout, its saves go from registers and the shared h2 tile to device
-    memory), "K4" (``n`` rows, layer-1 width ``kp``) or "K6" (``n`` pair
-    rows, layer-1 width ``kp``: ``ops/pair_decode.py::pair_layout``; the
-    operand "w1" holds both decoders' layer 1, offset columns first); the
-    decoders' widths 4g-2g-g-1 of imnet_gf ``g``.
-
-    bf16 (``csrc/decode_tile.cuh``): a persistent grid of ``blocks`` = one
-    block per SM (at most the number of tiles) walks ``tiles`` tiles of
-    TILE_ROWS rows (K1: ``rays_per_tile`` whole rays, :func:`tile_rows`);
-    ``smem`` holds the byte offset of each region of ``tile::Smem`` and
-    ``"total"``, in the ``layout`` :func:`tile_layout` takes: "double"
-    where it fits MAX_SMEM, else "single" (``single``: one X buffer, x1 =
-    x0, and K1's per-ray part in the h2 region), else "chunked" (also
-    ``single``; x0 holds ``chunk`` columns of X, which each decoder's layer
-    1 takes in ``chunks``: (first column, columns) each; 0 and [] where X is
-    whole); ``schedule`` lists each
-    product of a tile in the order its weights stream through the slab
-    ring: (operand, first column, k, n, slab rows), ``slabs_per_tile``
-    their number, and ``warp_grid`` each product's warps and tiles
-    (:func:`warp_grid`). f32: one block per tile of ``rows_per_tile`` rows,
-    the first of F32_ROWS whose block fits (K1: ``rays_per_tile`` whole
-    rays or, at kb > rows, ``tiles_per_ray`` tiles of one ray's slots), the
-    FMA kernels' ``Smem`` (no schedule)."""
-    if kernel not in ("K1", "K2all", "K4", "K6"):
-        raise ValueError(f"decode_plan: kernel {kernel!r}")
-    k1 = kernel in ("K1", "K2all")
-    if k1 and not 1 <= kb <= MAX_KB:
-        raise ValueError(f"decode_plan: kb in [1, {MAX_KB}] (got {kb})")
-    g1, g2, g3 = 4 * g, 2 * g, g
-    if is_bf16:
-        layout, chunk, smem = tile_layout(kp, crp, g, k1)
-        tail = [("w2", 0, g1, g2), ("w3", 0, g2, g3)]
-        if k1:
-            # each decoder's per-ray part just before its layer 1
-            sched = [("ray_w1", g1, crp, g1), ("pair_w1", g1, kp, g1),
-                     *((f"prob_{w}", c, k, nn) for w, c, k, nn in tail),
-                     ("ray_w1", 0, crp, g1), ("pair_w1", 0, kp, g1),
-                     *((f"off_{w}", c, k, nn) for _ in range(n_iter)
-                       for w, c, k, nn in tail)]
-        elif kernel == "K6":
-            sched = [("w1", g1, kp, g1),
-                     *((f"prob_{w}", c, k, nn) for w, c, k, nn in tail),
-                     ("w1", 0, kp, g1),
-                     *((f"off_{w}", c, k, nn) for _ in range(n_iter)
-                       for w, c, k, nn in tail)]
-        else:
-            sched = [("w1", 0, kp, g1),
-                     *(s for _ in range(n_iter) for s in tail)]
-        sched = [(op, c, k, nn, slab_rows(nn)) for op, c, k, nn in sched]
-        rows = TILE_ROWS
-        rays = rays_per_tile(kb, rows, TC_RAYS) if k1 else 0
-        tiles = -(-n // (rays if k1 else rows))
-        return {"rows_per_tile": rows, "tiles": tiles,
-                "rays_per_tile": rays, "tiles_per_ray": 1,
-                "blocks": min(tiles, sm_count), "smem": smem,
-                "layout": layout, "single": layout != "double",
-                "chunk": chunk,
-                "chunks": [(k0, min(chunk, kp - k0))
-                           for k0 in range(0, kp, chunk)] if chunk else [],
-                "schedule": sched,
-                "slabs_per_tile": sum(-(-k // s) for _, _, k, _, s in sched),
-                "warp_grid": [warp_grid(16 if op == "ray_w1" else rows, nn)
-                              for op, _, _, nn, _ in sched]}
-    for m in F32_ROWS:
-        smem = _f32_layout(kernel, m, kp, crp, g)
-        if smem["total"] <= MAX_SMEM:
-            break
-    rays = rays_per_tile(kb, m, F32_RAYS) if k1 else 0
-    tpr = -(-kb // m) if k1 else 1
-    tiles = -(-n // rays) * tpr if k1 else -(-n // m)
-    return {"rows_per_tile": m, "tiles": tiles, "rays_per_tile": rays,
-            "tiles_per_ray": tpr, "blocks": tiles, "smem": smem,
-            "layout": "f32", "single": False, "chunk": 0, "chunks": [],
-            "schedule": [], "slabs_per_tile": 0}
-
-
-def warp_grid(rows: int, n: int) -> dict:
-    """The warp grid of a bf16 product ``rows`` (64: a tile; 16: K1's
-    per-ray rows) by ``n`` columns (``csrc/decode_tile.cuh::Grid``): ``wn``
-    warps along N (at most WARPS_N for a tile, all WARPS for the per-ray
-    rows), ``wm`` along M, each ``mt`` m16 by ``nt`` n8 tiles; ``active``
-    warps own a tile, the others only meet the barriers."""
-    tm, tn = rows // 16, n // 8
-    wn = min(tn, WARPS if rows == 16 else WARPS_N)
-    wm = min(tm, WARPS // wn)
-    return {"wn": wn, "wm": wm, "mt": tm // wm, "nt": tn // wn,
-            "active": wm * wn}
-
-
-@functools.lru_cache(maxsize=256)
-def _check_plan(name, kernel, kp, crp, n_iter, is_bf16, n, g=64, kb=8):
-    """Raises unless the kernel takes these widths (at the compiled imnet_gf
-    ``g``), naming the limit; returns the plan (not to be modified). Kept
-    per shape, so that a sub-millisecond launch (K4, K6 ``global``) does
-    not wait on the plan's host arithmetic every call."""
-    if g not in DECODER_GF:
-        raise ValueError(f"{name} kernel takes imnet_gf g in {DECODER_GF} "
-                         f"(got {g}; the operands' padding runs any g up to "
-                         f"{MAX_GF} at the next)")
-    if kp > MAX_KP[kernel]:
-        raise ValueError(f"{name} kernel takes layer-1 inputs kp up to "
-                         f"{MAX_KP[kernel]} (got kp={kp})")
-    if crp > MAX_CRP:
-        raise ValueError(f"{name} kernel takes per-ray inputs crp up to "
-                         f"{MAX_CRP} (got crp={crp})")
-    plan = decode_plan(kernel, kp, crp, n_iter, is_bf16, n, g=g, kb=kb)
-    if plan["smem"]["total"] > MAX_SMEM or len(plan["schedule"]) > MAX_SEGS:
-        raise ValueError(f"{name}: widths kp={kp}, crp={crp}, imnet_gf {g} "
-                         f"or n_iter={n_iter} do not fit the kernel's block "
-                         f"({plan['smem']['total']} bytes of shared memory, "
-                         f"at most {MAX_SMEM}; {len(plan['schedule'])} "
-                         f"products a tile, at most {MAX_SEGS})")
-    return plan
-
-
-def _decode_operands(name, vox_table, cells, pos, ray_feat, w):
+def check_operands(name, vox_table, cells, pos, ray_feat, w):
     """Checks the K1/K2/K3 operands; returns them contiguous in the kernels'
     types."""
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
     c_vox, c_ray, multires = w["dims"]
-    _check_cuda(name, [vox_table, cells, pos, ray_feat,
-                       *(w[k] for k in _K1_WEIGHTS)], dtype)
+    check_cuda(name, [vox_table, cells, pos, ray_feat,
+                      *(w[k] for k in FORMAT.operands)], dtype)
     if not 1 <= kb <= MAX_KB:
         raise ValueError(f"{name} kernel takes 1 <= kb <= {MAX_KB} pair slots "
                          f"a ray (got kb={kb})")
-    for p in ("off", "prob"):
-        decoder_gf(name, w["b1"].shape[0] // 2, w[f"{p}_w2"].shape,
-                   w[f"{p}_w3"].shape)
+    operands_gf(name, w, FORMAT)
     if vox_table.shape[1] != c_vox or ray_feat.shape != (n, c_ray) \
             or pos.shape != (n, kb, 6):
         raise ValueError(f"{name}: operand shapes do not match the weights")
-    return (_aligned(vox_table.to(dtype).contiguous()),
+    return (aligned(vox_table.to(dtype).contiguous()),
             cells.to(torch.int32).contiguous(), pos.float().contiguous(),
-            _aligned(ray_feat.to(dtype).contiguous()))
+            aligned(ray_feat.to(dtype).contiguous()))
 
 
 def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
@@ -734,7 +273,7 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
     h3, the probability decoder's, and the pre-squash outputs)."""
     name = {False: "ray_decode", True: "ray_decode_save",
             "all": "ray_decode_save_all"}[saves]
-    vox_table, cells, pos, ray_feat = _decode_operands(
+    vox_table, cells, pos, ray_feat = check_operands(
         name, vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
@@ -744,10 +283,9 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
     is_bf16 = dtype == torch.bfloat16
     if is_bf16 and c_vox % 8:
         raise ValueError(f"{name} kernel takes c_vox a multiple of 8 in "
-                         f"bf16 (got {c_vox}; pad_ray_decode_operands pads "
-                         "it)")
-    _check_plan(name, "K2all" if saves == "all" else "K1", kp, crp, n_iter,
-                is_bf16, n, g, kb)
+                         f"bf16 (got {c_vox}; pad_operands pads it)")
+    check_plan(name, "K2all" if saves == "all" else "K1", kp, crp, n_iter,
+               is_bf16, n, g, kb)
     dev = cells.device
     off = torch.empty((n, kb), dtype=torch.float32, device=dev)
     logit = torch.empty_like(off)
@@ -765,7 +303,7 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
                  torch.empty((inst, rows, g), dtype=dtype, device=dev),
                  torch.empty((rows, 1), dtype=torch.float32, device=dev)]
     ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
-                           *(w[k] for k in _K1_WEIGHTS), *outs])
+                           *(w[k] for k in FORMAT.operands), *outs])
     fn = cuda.bind("ray_decode", f"idt_{name}", cuda.PTR, *[cuda.I64] * 11,
                    cuda.F32)
     cuda.check(fn(ptrs, n, kb, c_vox, c_ray, multires, kp, crp, n_iter, g,
@@ -782,14 +320,12 @@ def _ray_decode_cuda(vox_table, cells, pos, ray_feat, w, n_iter, init_offset,
     return off, logit, saved
 
 
-_K1_WEIGHTS = ("pair_w1", "ray_w1", "b1", "a_vec", "c_vec",
-               "off_w2", "off_b2", "off_w3", "off_b3", "off_w4", "off_b4",
-               "prob_w2", "prob_b2", "prob_w3", "prob_b3", "prob_w4", "prob_b4")
-
-
 def ray_decode(vox_table, cells, pos, ray_feat, w, *, n_iter=2,
                init_offset=0.001, use_sigmoid=False):
-    """Stage-1 decode (see :func:`ray_decode_plain`); kernel K1 on CUDA."""
+    """Stage-1 decode (see :func:`ray_decode_plain`); kernel K1 on CUDA.
+    ``vox_table``: the unpadded table in any float dtype, cast and padded
+    here to the operands' (``rows_operand``) for either branch."""
+    vox_table = rows_operand(vox_table, w, FORMAT)
     if cells.device.type == "cpu":
         return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
                                 n_iter=n_iter, init_offset=init_offset,
@@ -858,11 +394,10 @@ def ray_decode_bwd_plain(vox_table, cells, pos, ray_feat, w, g_off, g_logit,
     ft = torch.float64 if dtype == torch.float64 else torch.float32
     with torch.enable_grad():
         leaves = {k: w[k].detach().to(ft).requires_grad_()
-                  for k in _K1_WEIGHTS}
+                  for k in FORMAT.operands}
         vt = vox_table.detach().to(ft).requires_grad_()
         rf = ray_feat.detach().to(ft).requires_grad_()
-        wq = {**w, **leaves}
-        wq.update({k: _q(wq[k], dtype) for k in _ROUNDED_BIASES})
+        wq = round_biases({**w, **leaves}, FORMAT, dtype)
         off, logit = ray_decode_plain(
             vt, cells, pos, rf, wq, n_iter=n_iter, init_offset=init_offset,
             use_sigmoid=use_sigmoid, dtype=dtype, from_saves=saved)
@@ -909,10 +444,6 @@ _PLAN_HEADER = 40   # int64 fields before the jobs (see csrc/ray_decode_bwd.cu)
 _JOB_FIELDS, _RED_FIELDS = 12, 9
 
 
-def _align(x: int, a: int = 64) -> int:
-    return -(-x // a) * a
-
-
 def bwd_grad_layout(kp: int, crp: int, g: int = 64) -> Dict[str, tuple]:
     """{operand: (float offset, shape)} of each weight gradient in K3's f32
     output (decoders of imnet_gf ``g``), in the operand order of K1/K2,
@@ -925,9 +456,9 @@ def bwd_grad_layout(kp: int, crp: int, g: int = 64) -> Dict[str, tuple]:
                        f"{p}_w3": (g2, g3), f"{p}_b3": (g3,),
                        f"{p}_w4": (g3,), f"{p}_b4": (1,)})
     out, off = {}, 0
-    for k in _K1_WEIGHTS:
+    for k in FORMAT.operands:
         out[k] = (off, shapes[k])
-        off = _align(off + math.prod(shapes[k]))
+        off = round_up(off + math.prod(shapes[k]), 64)
     out["total"] = (off, ())
     return out
 
@@ -975,15 +506,15 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
     small, s_off = {}, 0
     for k in K3_SMALL:
         small[k] = s_off
-        s_off = _align(s_off + math.prod(layout[k][1]), 4)
+        s_off = round_up(s_off + math.prod(layout[k][1]), 4)
     m = bwd_rows(kp, crp, c_vox, n_iter, s_off, g, is_bf16)
     mr = rays_per_tile(kb, m, max(4, m // 8))
     tpr = -(-kb // m)
     # the rays of kb 8's chunk at this batch (its tiles: m // 8 rays)
-    chunk8 = _align(-(-n // -(-n // chunk_rays)), m // 8)
+    chunk8 = round_up(-(-n // -(-n // chunk_rays)), m // 8)
     limit = max(mr, min(chunk_rays, chunk8 * 8 // kb) // mr * mr)
     n_chunks = -(-n // limit)
-    chunk = _align(-(-n // n_chunks), mr)
+    chunk = round_up(-(-n // n_chunks), mr)
     n_chunks = -(-n // chunk)
     n_inst = n_iter + 1
     rows = chunk * kb
@@ -995,7 +526,7 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         r = chunk * tpr if name in _PER_RAY_STREAMS else rows
         inst = n_inst if name in _TAIL_STREAMS else 1
         streams[name] = (off, r, widths[name], inst)
-        off = _align(off + r * widths[name] * inst)
+        off = round_up(off + r * widths[name] * inst, 64)
     scratch = off
     jobs, reds, p_off, blocks_b = [], [], 0, 0
     tk_rows, tn_cols = K3_TILE
@@ -1028,8 +559,8 @@ def bwd_plan(n: int, kp: int, crp: int, n_iter: int, is_bf16: bool,
         reds.append({"src": p_off + small[k], "stride": s_off,
                      "dst": layout[k][0], "splits": blocks_a, "k": 1,
                      "n": size, "ld_src": size, "ld_dst": size})
-    table_off = _align(p_off + blocks_a * s_off)
-    table_stride = _align(table_elems)
+    table_off = round_up(p_off + blocks_a * s_off, 64)
+    table_stride = round_up(table_elems, 64)
     return {"rows_per_tile": m, "kb": kb, "rays_per_tile": mr,
             "pass_a": "wgmma" if m == 64 else "wmma",
             "smem_a": bwd_smem(m, g, crp, n_iter, s_off, is_bf16),
@@ -1067,7 +598,7 @@ def bwd_smem(m: int, g: int, crp: int, n_iter: int, small_size: int,
     ld1, ld2, ld3 = g1 + 8, g2 + 8, g3 + 8
     max_kp, max_cvox = (400, 256) if m == 64 else (640, 512)
     mr = max(4, m // 8)
-    a = lambda b: _align(b, 128)  # noqa: E731
+    a = lambda b: round_up(b, 128)  # noqa: E731
     o = a(m * max(ld1, max_kp - ld2) * es)             # H1 | X
     o = a(o + m * ld2 * es)                             # H2
     o = a(o + m * ld3 * es)                             # H3
@@ -1238,7 +769,7 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
     product) or, with ``saved=None``, recomputing layer 1
     (``decode_bwd='kernel'``).
 
-    ``w`` are the kernel operands (:func:`cast_ray_decode_operands`);
+    ``w`` are the kernel operands (``cast_operands``);
     ``saved`` = (e1, z1p, trig) from :func:`ray_decode_save`, the full saves
     from :func:`ray_decode_save_all`, or None; g_off, g_logit (N, kb) the
     cotangents of its outputs. Its plain version is
@@ -1250,7 +781,7 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
     d_vox_table too, is summed in a fixed order (bit-identical run to
     run). ``taken``: a dict that receives the plan's Pass A instance under
     ``"pass_a"`` when the kernel runs."""
-    vox_table, cells, pos, ray_feat = _decode_operands(
+    vox_table, cells, pos, ray_feat = check_operands(
         "ray_decode_bwd", vox_table, cells, pos, ray_feat, w)
     dtype = w["pair_w1"].dtype
     n, kb = cells.shape
@@ -1293,7 +824,7 @@ def _ray_decode_bwd_cuda(vox_table, cells, pos, ray_feat, w, saved, g_off,
             torch.empty((-(-plan["blocks_a"] // slots) * slots, per_block),
                         dtype=torch.float32, device=dev)
         ptrs = cuda.ptr_array([vox_table, cells, pos, ray_feat,
-                               *(w[k] for k in _K1_WEIGHTS), *saves[:3], g,
+                               *(w[k] for k in FORMAT.operands), *saves[:3], g,
                                d_table, d_rf, d_w, scratch, partials,
                                e1_scratch, *saves[3:]])
         ev = None
@@ -1352,8 +883,8 @@ class RayDecodeTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, opts, vox_table, cells, pos, ray_feat, *ops):
         dtype, dims, n_iter, init_offset, use_sigmoid, decode_bwd = opts
-        w32 = dict(zip(_K1_WEIGHTS, ops), dims=dims)
-        w = cast_ray_decode_operands(w32, dtype)
+        w32 = dict(zip(FORMAT.operands, ops), dims=dims)
+        w = cast_operands(w32, FORMAT, dtype)
         kw = dict(n_iter=n_iter, init_offset=init_offset,
                   use_sigmoid=use_sigmoid)
         if decode_bwd == "kernel_save":
@@ -1368,15 +899,15 @@ class RayDecodeTrain(torch.autograd.Function):
         ctx.opts = opts
         ctx.in_dtypes = (vox_table.dtype, ray_feat.dtype)
         ctx.save_for_backward(vox_table, cells, pos, ray_feat,
-                              *(w[k] for k in _K1_WEIGHTS), *saved)
+                              *(w[k] for k in FORMAT.operands), *saved)
         return off, logit
 
     @staticmethod
     def backward(ctx, g_off, g_logit):
         dtype, dims, n_iter, init_offset, use_sigmoid, decode_bwd = ctx.opts
         vox_table, cells, pos, ray_feat, *rest = ctx.saved_tensors
-        w = dict(zip(_K1_WEIGHTS, rest), dims=dims)
-        saved = tuple(rest[len(_K1_WEIGHTS):]) or None
+        w = dict(zip(FORMAT.operands, rest), dims=dims)
+        saved = tuple(rest[len(FORMAT.operands):]) or None
         kw = dict(n_iter=n_iter, init_offset=init_offset,
                   use_sigmoid=use_sigmoid)
         if decode_bwd == "xla":
@@ -1388,7 +919,7 @@ class RayDecodeTrain(torch.autograd.Function):
                 vox_table, cells, pos, ray_feat, w, saved, g_off, g_logit,
                 **kw)
         return (None, d_table.to(ctx.in_dtypes[0]), None, None,
-                d_rf.to(ctx.in_dtypes[1]), *(d_w[k] for k in _K1_WEIGHTS))
+                d_rf.to(ctx.in_dtypes[1]), *(d_w[k] for k in FORMAT.operands))
 
 
 def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
@@ -1406,225 +937,12 @@ def ray_decode_train(vox_table, cells, pos, ray_feat, w32, dtype, *,
     if decode_bwd not in DECODE_BWD_MODES:
         raise ValueError(f"decode_bwd {decode_bwd!r}")
     if cells.device.type == "cpu":
-        w = {**w32, **{k: _q(w32[k], dtype) for k in _ROUNDED_BIASES}}
-        return ray_decode_plain(vox_table, cells, pos, ray_feat, w,
+        return ray_decode_plain(vox_table, cells, pos, ray_feat,
+                                round_biases(w32, FORMAT, dtype),
                                 n_iter=n_iter, init_offset=init_offset,
                                 use_sigmoid=use_sigmoid, dtype=dtype)
-    w32 = pad_ray_decode_operands(w32)
+    w32 = pad_operands(w32, FORMAT)
     vox_table = pad_columns(vox_table, w32["dims"][0])
     return RayDecodeTrain.apply(
         (dtype, w32["dims"], n_iter, init_offset, use_sigmoid, decode_bwd),
-        vox_table, cells, pos, ray_feat, *(w32[k] for k in _K1_WEIGHTS))
-
-
-# ---------------------------------------------------------------------------
-# Stage 2: per-ray IEF decode (K4)
-# ---------------------------------------------------------------------------
-
-def split_ief_weights(weights: Dict[str, torch.Tensor], c_end: int,
-                      c_rc: int, c_pos: int, c_dir: int,
-                      dtype) -> Dict[str, torch.Tensor]:
-    """Split the refine IEF weights (JAX layout enc_w/enc_b, w1..w4, b1..b4)
-    over the stage-2 embed [end | roi | pos_e | dir_e | enc(16)] into the
-    kernel operands, all in f32: w1 (KP, 4g) rows [end | rc = (roi, dir) |
-    pos | 0-pad], b1, a_vec, c_vec (the offset encoder folded into layer 1
-    with ``dtype`` operands) and layers 2-4. Only slicing, concatenation
-    and the rank-1 fold: the training decode differentiates through it,
-    which lays the split gradients back onto the parameters."""
-    w1 = weights["w1"]
-    o1 = c_end
-    o2 = o1 + (c_rc - c_dir)
-    o3 = o2 + c_pos
-    o4 = o3 + c_dir
-    kp = _round_up(c_end + c_rc + c_pos, _PAD)
-    a_vec, c_vec = _rank1(weights["enc_w"], weights["enc_b"], w1[o4:], dtype)
-    w = {"w1": _pad_rows(torch.cat([w1[:o1], w1[o1:o2], w1[o3:o4], w1[o2:o3]],
-                                   0), kp).float(),
-         "b1": weights["b1"].float(), "a_vec": a_vec, "c_vec": c_vec}
-    for n in ("w2", "b2", "w3", "b3"):
-        w[n] = weights[n].float()
-    w["w4"] = weights["w4"].reshape(-1).float()
-    w["b4"] = weights["b4"].reshape(1).float()
-    w["dims"] = (c_end, c_rc, c_pos)
-    return w
-
-
-def cast_ief_operands(w: Dict[str, torch.Tensor],
-                      dtype) -> Dict[str, torch.Tensor]:
-    """The f32 split operands as K4 takes them: matrices in ``dtype``,
-    biases 2 and 3 rounded to ``dtype`` and held in f32."""
-    out = dict(w)
-    for k in ("w1", "w2", "w3", "w4"):
-        out[k] = w[k].to(dtype).contiguous()
-    for k in ("b2", "b3"):
-        out[k] = _q(w[k], dtype)
-    return out
-
-
-def prep_ief_weights(weights: Dict[str, torch.Tensor], c_end: int, c_rc: int,
-                     c_pos: int, c_dir: int, dtype) -> Dict[str, torch.Tensor]:
-    """The kernel operands (:func:`split_ief_weights` at the kernel's
-    widths, :func:`pad_ief_operands`, cast by :func:`cast_ief_operands`);
-    the end rows go with them at ``pad_columns(end, w["dims"][0])``."""
-    return cast_ief_operands(pad_ief_operands(split_ief_weights(
-        weights, c_end, c_rc, c_pos, c_dir, dtype)), dtype)
-
-
-def ief_decode_plain(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
-                     init_offset=0.001, use_sigmoid=False, dtype=None):
-    """end (N, c_end), rc (N, c_rc), pos_e (N, c_pos) -> (N,) f32 offsets
-    after the squash. ``dtype``: the compute dtype (default: that of
-    ``w["w1"]``, which may then hold f32 values)."""
-    dtype = dtype or w["w1"].dtype
-    x = torch.cat([end_rows.to(dtype), rc_rows.to(dtype), pos_rows.to(dtype)], 1)
-    e1 = _dot(x, w["w1"][:x.shape[1]], dtype) + w["b1"]
-    return _squash(_ief_loop(e1, w, "", n_iter, init_offset, dtype),
-                   use_sigmoid)
-
-
-def pad_ief_operands(w):
-    """K4's operands ``w`` (the f32 split of :func:`split_ief_weights`, or
-    its cast) at the kernel's widths: the decoder padded to
-    :func:`compiled_gf` with zero units, c_end to a multiple of
-    :data:`VOX_MULTIPLE` with zero end rows of w1 (the end rows take as
-    many zero columns: :func:`pad_columns`). ``w`` itself where nothing is
-    padded."""
-    c_end, c_rc, c_pos = w["dims"]
-    g = w["w1"].shape[1] // 4
-    G, ce = compiled_gf(g), _round_up(c_end, VOX_MULTIPLE)
-    if (g, c_end) == (G, ce):
-        return w
-    kp = _round_up(ce + c_rc + c_pos, _PAD)
-    out = dict(w, dims=(ce, c_rc, c_pos))
-    out["w1"] = _pad_to(_insert_rows(w["w1"], c_end, ce - c_end, kp),
-                        (kp, 4 * G))
-    for k in ("b1", "a_vec", "c_vec"):
-        out[k] = _pad_to(w[k], (4 * G,))
-    out.update(_pad_tails(w, ("",), g, G))
-    return _contiguous(out)
-
-
-def _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter, init_offset,
-                     use_sigmoid):
-    dtype = w["w1"].dtype
-    n = end_rows.shape[0]
-    c_end, c_rc, c_pos = w["dims"]
-    _check_cuda("ief_decode", [end_rows, rc_rows, pos_rows,
-                               *(w[k] for k in _K4_WEIGHTS)], dtype)
-    g = decoder_gf("ief_decode", w["w1"].shape[1], w["w2"].shape,
-                   w["w3"].shape)
-    if end_rows.shape != (n, c_end) or rc_rows.shape != (n, c_rc) \
-            or pos_rows.shape != (n, c_pos):
-        raise ValueError("ief_decode: operand shapes do not match the weights")
-    is_bf16 = dtype == torch.bfloat16
-    if is_bf16 and c_end % 8:
-        raise ValueError(f"ief_decode kernel takes c_end a multiple of 8 in "
-                         f"bf16 (got {c_end}; pad_ief_operands pads it)")
-    _check_plan("ief_decode", "K4", w["w1"].shape[0], 0, n_iter, is_bf16, n,
-                g)
-    end_rows, rc_rows, pos_rows = (_aligned(t.to(dtype).contiguous())
-                                   for t in (end_rows, rc_rows, pos_rows))
-    out = torch.empty((n,), dtype=torch.float32, device=end_rows.device)
-    ptrs = cuda.ptr_array([end_rows, rc_rows, pos_rows,
-                           *(w[k] for k in _K4_WEIGHTS), out])
-    fn = cuda.bind("ief_decode", "idt_ief_decode", cuda.PTR, *[cuda.I64] * 9,
-                   cuda.F32)
-    cuda.check(fn(ptrs, n, c_end, c_rc, c_pos, w["w1"].shape[0], n_iter, g,
-                  int(is_bf16), int(use_sigmoid), init_offset,
-                  cuda.stream_ptr(end_rows.device)), "ief_decode")
-    return out
-
-
-_K4_WEIGHTS = ("w1", "b1", "a_vec", "c_vec", "w2", "b2", "w3", "b3", "w4", "b4")
-
-
-def ief_decode(end_rows, rc_rows, pos_rows, w, *, n_iter=2,
-               init_offset=0.001, use_sigmoid=False):
-    """Stage-2 IEF decode (see :func:`ief_decode_plain`); kernel K4 on CUDA.
-    No gradient: raises when grad is enabled and an operand requires one
-    (:func:`ief_decode_train` is the differentiable decode)."""
-    if torch.is_grad_enabled() and any(
-            torch.is_tensor(t) and t.requires_grad
-            for t in (end_rows, rc_rows, pos_rows, *w.values())):
-        raise RuntimeError("ief_decode carries no gradient, and an operand "
-                           "requires one: decode through the training entry "
-                           "(ief_decode_train), or under torch.no_grad()")
-    if end_rows.device.type == "cpu":
-        return ief_decode_plain(end_rows, rc_rows, pos_rows, w, n_iter=n_iter,
-                                init_offset=init_offset,
-                                use_sigmoid=use_sigmoid)
-    out = _ief_decode_cuda(end_rows, rc_rows, pos_rows, w, n_iter,
-                           init_offset, use_sigmoid)
-    ief_decode.launches += 1
-    return out
-
-
-ief_decode.launches = 0
-
-
-def _ief_train_operands(w32, dtype):
-    """The f32 split operands with biases 2 and 3 rounded to ``dtype`` as
-    the kernel takes them (straight through under autograd)."""
-    return {**w32, "b2": _q(w32["b2"], dtype), "b3": _q(w32["b3"], dtype)}
-
-
-class IefDecodeTrain(torch.autograd.Function):
-    """The training IEF decode on the card: forward K4, backward autograd
-    through :func:`ief_decode_plain` recomputed from the same inputs and the
-    f32 split operands, as the JAX package's ``fused_ief_rows`` VJP
-    recomputes through ``xla_ief_rows`` (no backward kernel there either).
-
-    Takes the f32 split operands (:func:`split_ief_weights`) and casts them
-    inside, so that their gradients reach the f32 parameters unrounded.
-    Returns d end, d pos and every operand's gradient; d rc only when rc
-    asks for one."""
-
-    @staticmethod
-    def forward(ctx, opts, end_rows, rc_rows, pos_rows, *ops):
-        dtype, dims, n_iter, init_offset, use_sigmoid = opts
-        w32 = dict(zip(_K4_WEIGHTS, ops), dims=dims)
-        out = ief_decode(end_rows, rc_rows, pos_rows,
-                         cast_ief_operands(w32, dtype), n_iter=n_iter,
-                         init_offset=init_offset, use_sigmoid=use_sigmoid)
-        ctx.opts = opts
-        ctx.save_for_backward(end_rows, rc_rows, pos_rows, *ops)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        dtype, dims, n_iter, init_offset, use_sigmoid = ctx.opts
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-            end_rows, rc_rows, pos_rows, *ops = leaves
-            w = _ief_train_operands(dict(zip(_K4_WEIGHTS, ops), dims=dims),
-                                    dtype)
-            out = ief_decode_plain(end_rows, rc_rows, pos_rows, w,
-                                   n_iter=n_iter, init_offset=init_offset,
-                                   use_sigmoid=use_sigmoid, dtype=dtype)
-            wanted = [t for t, n in zip(leaves, need) if n]
-            grads = iter(torch.autograd.grad(out, wanted, g)) if wanted else ()
-        return (None, *(next(grads) if n else None for n in need))
-
-
-def ief_decode_train(end_rows, rc_rows, pos_rows, w32, dtype, *, n_iter=2,
-                     init_offset=0.001, use_sigmoid=False):
-    """Differentiable stage-2 IEF decode of the refine training step.
-
-    ``w32``: the f32 split operands from live parameters
-    (:func:`split_ief_weights`, never the serving cache). CPU tensors take
-    plain autograd through :func:`ief_decode_plain`; CUDA tensors take
-    :class:`IefDecodeTrain` (K4 forward, the plain recompute backward) at
-    the kernel's widths: the operands and the end rows are padded here,
-    under autograd, which drops the pads' gradients."""
-    kw = dict(n_iter=n_iter, init_offset=init_offset, use_sigmoid=use_sigmoid)
-    if end_rows.device.type == "cpu":
-        return ief_decode_plain(end_rows, rc_rows, pos_rows,
-                                _ief_train_operands(w32, dtype), dtype=dtype,
-                                **kw)
-    w32 = pad_ief_operands(w32)
-    end_rows = pad_columns(end_rows, w32["dims"][0])
-    return IefDecodeTrain.apply(
-        (dtype, w32["dims"], n_iter, init_offset, use_sigmoid),
-        end_rows, rc_rows, pos_rows, *(w32[k] for k in _K4_WEIGHTS))
+        vox_table, cells, pos, ray_feat, *(w32[k] for k in FORMAT.operands))

@@ -53,6 +53,7 @@ def decode_case(rng, dev, n=4000, cv=128, c_roi=128, c_dir=27, n_table=30,
                 gf=64, kb=8, multires=8):
     """f32 operands, inputs and cotangents drawn as
     test_torch_port_cuda.py's _decode_case draws them."""
+    from implicit_depth_torch.ops import decode_common as common
     from implicit_depth_torch.ops import ray_decode as rd
 
     def t(a, dtype=torch.float32):
@@ -66,11 +67,11 @@ def decode_case(rng, dev, n=4000, cv=128, c_roi=128, c_dir=27, n_table=30,
     for pre, bias in (("off_", 0.25), ("prob_", 0.5)):  # outputs in (0, 1)
         w[f"{pre}w4"] *= 0.25
         w[f"{pre}b4"] = np.full((1,), bias)
-    w32 = rd.pad_ray_decode_operands(rd.split_ray_decode_weights(
+    w32 = common.pad_operands(rd.split_ray_decode_weights(
         {k: t(v) for k, v in w.items()}, cv, c_roi, c_dir, multires,
-        torch.float32))
-    args = (rd.pad_columns(t(rng.normal(size=(n_table, cv))),
-                           w32["dims"][0]),
+        torch.float32), rd.FORMAT)
+    args = (common.pad_columns(t(rng.normal(size=(n_table, cv))),
+                               w32["dims"][0]),
             t(rng.integers(0, n_table, (n, kb)), torch.int32),
             t(0.6 * rng.normal(size=(n, kb, 6))),
             t(rng.normal(size=(n, c_roi + c_dir))))
@@ -116,6 +117,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
+    from implicit_depth_torch.ops import decode_common as common
     from implicit_depth_torch.ops import ray_decode as rd
     if not torch.cuda.is_available():
         raise SystemExit("k3_against_f64: needs an NVIDIA GPU")
@@ -128,7 +130,7 @@ def main():
         for n_table in TABLES:
             w32, a, cot = decode_case(np.random.default_rng(81), dev,
                                       n_table=n_table, **wd)
-            w = rd.cast_ray_decode_operands(w32, torch.float32)
+            w = common.cast_operands(w32, rd.FORMAT, torch.float32)
             exact, jitter = f64_reference(a, w32, cot)
             for inst, saves_of in INSTANCES.items():
                 fwd = {"l1": rd.ray_decode_save,

@@ -113,6 +113,7 @@ def times_at(budgets, gf4, bf=None, widths=MODELS["default"]):
     import numpy as np
     import torch
 
+    from implicit_depth_torch.ops import ief_decode as ied
     from implicit_depth_torch.ops import pair_decode as pd
     from implicit_depth_torch.ops import ray_decode as rd
 
@@ -171,11 +172,11 @@ def times_at(budgets, gf4, bf=None, widths=MODELS["default"]):
           "enc_b": 0.1 * rng.normal(size=(16,))}
     c_rc = C_ROI + C_DIR
     _mlp(rng, iw, "", C_END + c_rc + C_POS + 16, gf4)
-    k4w = rd.prep_ief_weights({k: t(v) for k, v in iw.items()}, C_END, c_rc,
-                              C_POS, C_DIR, bf)
+    k4w = ied.prep_ief_weights({k: t(v) for k, v in iw.items()}, C_END, c_rc,
+                               C_POS, C_DIR, bf)
     rows = tuple(t(rng.normal(size=(SERVE_RAYS, c)), bf)
                  for c in (C_END, c_rc, C_POS))
-    out["K4"] = timed(lambda: rd.ief_decode(*rows, k4w))
+    out["K4"] = timed(lambda: ied.ief_decode(*rows, k4w))
     k6w = pd.prep_pair_decode_weights(w, C_VOX, C_ROI, C_DIR, MULTIRES, bf)
     table, ray_feat = serve[0], serve[3]
     for name, p, indexed, count in (

@@ -54,6 +54,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from implicit_depth_torch.ops import cuda  # noqa: E402
+from implicit_depth_torch.ops import ief_decode as ied  # noqa: E402
 from implicit_depth_torch.ops import ray_decode as rd  # noqa: E402
 
 # the decode sources a variant needs (the rest of csrc/ is not built)
@@ -222,7 +223,7 @@ def child(csrc: Path, inputs: Path):
     with torch.no_grad():
         for name, fn, warm, reps in (("K1", rd.ray_decode, 2, 10),
                                      ("K2", rd.ray_decode_save, 1, 5),
-                                     ("K4", rd.ief_decode, 2, 10)):
+                                     ("K4", ied.ief_decode, 2, 10)):
             a, kw = rec[name]
             out[name] = cs.time_ms(lambda: fn(*a, **kw), warmup=warm,
                                    reps=reps)

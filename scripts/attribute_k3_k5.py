@@ -130,7 +130,7 @@ def k3_call(lib, a, saved, kw):
     wrapper did (workspace zeroed, e1 scratch for the recompute instance)."""
     vt, cells, pos, rf, w = a[:5]
     g_off, g_logit = a[6], a[7]
-    vt, cells, pos, rf = rd._decode_operands("k3", vt, cells, pos, rf, w)
+    vt, cells, pos, rf = rd.check_operands("k3", vt, cells, pos, rf, w)
     dtype = w["pair_w1"].dtype
     n = cells.shape[0]
     c_vox, c_ray, multires = w["dims"]
@@ -159,7 +159,7 @@ def k3_call(lib, a, saved, kw):
                            device=dev)
         d_table = torch.zeros(vt.shape, dtype=torch.float32, device=dev)
         ptrs = cuda.ptr_array([vt, cells, pos, rf,
-                               *(w[k] for k in rd._K1_WEIGHTS), *saved, g,
+                               *(w[k] for k in rd.FORMAT.operands), *saved, g,
                                d_table, d_rf, work, d_w, scratch])
         cuda.check(fn(ptrs, n, c_vox, c_ray, multires, kp, crp,
                       kw.get("n_iter", 2), int(dtype == torch.bfloat16),

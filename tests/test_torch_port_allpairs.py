@@ -186,7 +186,7 @@ def test_the_pair_decodes_spans_and_counters(monkeypatch):
         return pd.PairDecodeTrain.apply(
             (dtype, w32["dims"], n_iter, init_offset, use_sigmoid),
             vox_table, cells, pos, ray_feat, rays, n_rows,
-            *(w32[k] for k in pd._K6_WEIGHTS))
+            *(w32[k] for k in pd.FORMAT.operands))
 
     monkeypatch.setattr(lidf_mod, "pair_decode_train", train_decode)
     monkeypatch.setattr(pd, "TRAIN_CHUNK_ROWS", 100)

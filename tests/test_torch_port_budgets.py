@@ -5,7 +5,7 @@ the host plans of the kernels at every budget 1 <= kb <= 64.
 
 The Pallas kernels take any budget kb (``fused_ray_decode`` tiles its rows
 as ``rays_per_tile * kb``); the port's CUDA kernels take 1 <= kb <=
-``ops/ray_decode.py::MAX_KB`` and run only on the card
+``ops/decode_common.py::MAX_KB`` and run only on the card
 (``test_torch_port_cuda.py``, which holds them against these plain
 versions). Here the JAX kernels run in interpret mode, as the JAX package's
 own tests run them on the CPU, at imnet_gf 8 and c_vox 32, on 42 rays (2
@@ -36,6 +36,7 @@ from implicit_depth_tpu.train import steps as jsteps
 from implicit_depth_torch.builder import build_lidf, build_static
 from implicit_depth_torch.config import load_config
 from implicit_depth_torch.data.synthetic import synthetic_batch
+from implicit_depth_torch.ops import decode_common as common
 from implicit_depth_torch.ops import ray_decode as rd
 from implicit_depth_torch.train.state import TrainState
 from implicit_depth_torch.train.steps import make_lidf_train_step
@@ -129,8 +130,8 @@ def test_ray_decode_plain_matches_fused_ray_decode(kb):
     joff, jlogit = fused_ray_decode(pair_vox, pos, rf, jw, kb, MULTIRES, 2,
                                     0.001, False, jnp.float32, TILE, True)
     args, _, w32 = _port(case)
-    off, logit = rd.ray_decode(*args, rd.cast_ray_decode_operands(
-        w32, torch.float32))
+    off, logit = rd.ray_decode(*args, common.cast_operands(
+        w32, rd.FORMAT, torch.float32))
     assert off.shape == (N_IMG * RAYS_PER_IMG, kb)
     assert_rel_max(N(off), np.asarray(joff), 1e-5, "offset")
     assert_rel_max(N(logit), np.asarray(jlogit), 1e-5, "logit")
@@ -152,8 +153,8 @@ def test_saving_forward_matches_fused_ray_decode_table(kb, save_mode):
         train=True)
     args, _, w32 = _port(case)
     fwd = rd.ray_decode_save if save_mode == "l1" else rd.ray_decode_save_all
-    off, logit, saves = fwd(*args, rd.cast_ray_decode_operands(
-        w32, torch.float32))
+    off, logit, saves = fwd(*args, common.cast_operands(
+        w32, rd.FORMAT, torch.float32))
     names = rd.save_names(2, save_mode)
     assert len(names) == len(saves) == len(jsaves)
     assert_rel_max(N(off), np.asarray(joff), 1e-5, "offset")
@@ -189,17 +190,17 @@ def test_ray_decode_bwd_plain_matches_fused_bwd(kb, bwd_impl):
     jd_rf, jd_tab, jd_w = vjp((jnp.asarray(case["g_off"]),
                                jnp.asarray(case["g_logit"])))
     args, wp, w32 = _port(case, requires_grad=True)
-    w = rd.cast_ray_decode_operands({k: v.detach() if torch.is_tensor(v)
-                                     else v for k, v in w32.items()},
-                                    torch.float32)
+    w = common.cast_operands({k: v.detach() if torch.is_tensor(v)
+                              else v for k, v in w32.items()}, rd.FORMAT,
+                             torch.float32)
     saves = None
     if BWD[bwd_impl]:
         saves = rd.ray_decode_plain(*args, w, saves=BWD[bwd_impl])[2]
     d_tab, d_rf, d_split = rd.ray_decode_bwd_plain(
         *args, w, T(case["g_off"]), T(case["g_logit"]), dtype=torch.float32,
         saved=saves)
-    torch.autograd.backward([w32[k] for k in rd._K1_WEIGHTS],
-                            [d_split[k] for k in rd._K1_WEIGHTS])
+    torch.autograd.backward([w32[k] for k in rd.FORMAT.operands],
+                            [d_split[k] for k in rd.FORMAT.operands])
     got = {"d_table": N(d_tab), "d_ray_feat": N(d_rf),
            **{k: N(v.grad) for k, v in wp.items()}}
     want = {"d_table": jd_tab, "d_ray_feat": jd_rf, **jd_w}
@@ -323,7 +324,7 @@ def test_stage1_step_at_a_budget_matches_jax_grad(kb):
 
 # -- the kernels' host plans at every budget --------------------------------------
 
-ALL_BUDGETS = list(range(1, rd.MAX_KB + 1))
+ALL_BUDGETS = list(range(1, common.MAX_KB + 1))
 # layer-1 widths (kp, crp) of K1/K2/K3 at each imnet_gf tested: the tiny
 # CLI model (pnet_out 16, rgb_out 8), configs/smoke_synthetic.yaml's
 # (64, 16) and the default (128, 32), each with multires 8 and
@@ -336,7 +337,7 @@ def _covers_each_row_once(kb, rows, rays, n, tiles):
     once; a masked row maps to none."""
     seen = np.zeros(n * kb, np.int64)
     for t in range(tiles):
-        got = rd.tile_rows(kb, rows, rays, n, t)
+        got = common.tile_rows(kb, rows, rays, n, t)
         assert len(got) == rows
         live = [r for r in got if r is not None]
         # a tile's live rows come first and are consecutive pair rows
@@ -360,11 +361,11 @@ def test_forward_plans_at_every_budget(g):
     for kb in ALL_BUDGETS:
         for bf16 in (True, False):
             for kernel in ("K1", "K2all"):
-                plan = rd._check_plan("test", kernel, kp, crp, 2, bf16, n, g,
-                                      kb)
-                assert plan["smem"]["total"] <= rd.MAX_SMEM
+                plan = common.check_plan("test", kernel, kp, crp, 2, bf16,
+                                         n, g, kb)
+                assert plan["smem"]["total"] <= common.MAX_SMEM
             rows, rays = plan["rows_per_tile"], plan["rays_per_tile"]
-            cap = rd.TC_RAYS if bf16 else rd.F32_RAYS
+            cap = common.TC_RAYS if bf16 else common.F32_RAYS
             assert 1 <= rays <= cap and (rays * kb <= rows or rays == 1)
             if kb <= rows:  # whole rays, as many as the tile and cap allow
                 assert rays == min(rows // kb, cap)
@@ -375,7 +376,7 @@ def test_forward_plans_at_every_budget(g):
             _covers_each_row_once(kb, rows, rays, n, plan["tiles"])
     for bf16 in (True, False):
         with pytest.raises(ValueError, match="64"):
-            rd.decode_plan("K1", kp, crp, is_bf16=bf16, n=n, g=g, kb=65)
+            common.decode_plan("K1", kp, crp, is_bf16=bf16, n=n, g=g, kb=65)
 
 
 def test_forward_layout_does_not_depend_on_the_budget():
@@ -383,14 +384,14 @@ def test_forward_layout_does_not_depend_on_the_budget():
     regions hold 16 rays, one decoder's per-ray part at a time), so that
     the widest widths the wrappers accept fit at every kb; only the tiles
     change."""
-    for g, (kp, crp) in [*WIDTHS.items(), (64, (rd.MAX_KP["K1"],
-                                                rd.MAX_CRP))]:
+    for g, (kp, crp) in [*WIDTHS.items(), (64, (common.MAX_KP["K1"],
+                                                common.MAX_CRP))]:
         for bf16 in (True, False):
-            at8 = rd.decode_plan("K1", kp, crp, is_bf16=bf16, g=g)["smem"]
+            at8 = common.decode_plan("K1", kp, crp, is_bf16=bf16, g=g)["smem"]
             for kb in ALL_BUDGETS:
-                assert rd.decode_plan("K1", kp, crp, is_bf16=bf16, g=g,
-                                      kb=kb)["smem"] == at8
-            assert at8["total"] <= rd.MAX_SMEM
+                assert common.decode_plan("K1", kp, crp, is_bf16=bf16, g=g,
+                                          kb=kb)["smem"] == at8
+            assert at8["total"] <= common.MAX_SMEM
 
 
 @pytest.mark.parametrize("g", sorted(WIDTHS))
@@ -420,7 +421,7 @@ def test_k3_plans_at_every_budget(g):
                 assert got <= at8 and got <= most, (kb, n, got, at8)
                 m, rays = plan["rows_per_tile"], plan["rays_per_tile"]
                 c = plan["chunk_rays"]
-                assert rays == rd.rays_per_tile(kb, m, m // 8)
+                assert rays == common.rays_per_tile(kb, m, m // 8)
                 assert c % rays == 0 and c <= rd.K3_CHUNK_RAYS
                 assert (plan["n_chunks"] - 1) * c < n <= plan["n_chunks"] * c
                 tpr = plan["tiles_per_ray"]
@@ -441,7 +442,7 @@ def test_k3_plans_at_every_budget(g):
             for ci in range(plan["n_chunks"]):
                 rays_c = min(c, 37 - ci * c)
                 for t in range(-(-rays_c // rays) * tpr):
-                    for r in rd.tile_rows(kb, m, rays, rays_c, t):
+                    for r in common.tile_rows(kb, m, rays, rays_c, t):
                         if r is not None:
                             seen[ci * c * kb + r] += 1
             assert (seen == 1).all(), kb
@@ -453,9 +454,9 @@ def test_budget_eight_plans_are_unchanged():
     """At kb 8 the plans are what the kernels had before any other budget:
     K1's tiles of 8 rays (4 in f32), K3's chunks of at most K3_CHUNK_RAYS
     rays in tiles of 8 (4), the 1.4 GB scratch of a full bf16 chunk."""
-    k1 = rd.decode_plan("K1", 240, 160, n=76800)
+    k1 = common.decode_plan("K1", 240, 160, n=76800)
     assert (k1["rays_per_tile"], k1["tiles"]) == (8, 9600)
-    f32 = rd.decode_plan("K1", 240, 160, is_bf16=False, n=76800)
+    f32 = common.decode_plan("K1", 240, 160, is_bf16=False, n=76800)
     assert (f32["rays_per_tile"], f32["tiles"]) == (4, 19200)
     one = rd.bwd_plan(rd.K3_CHUNK_RAYS, 240, 160, 2, True, 132)
     assert (one["rays_per_tile"], one["chunk_rays"], one["n_chunks"]) == \

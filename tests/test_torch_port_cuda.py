@@ -22,6 +22,8 @@ from implicit_depth_torch.builder import (
 from implicit_depth_torch.config import load_config
 from implicit_depth_torch.infer import DepthCompleter
 from implicit_depth_torch.ops import cuda
+from implicit_depth_torch.ops import decode_common as common
+from implicit_depth_torch.ops import ief_decode as ied
 from implicit_depth_torch.ops import pair_decode as pd
 from implicit_depth_torch.ops import ray_decode as rd
 from implicit_depth_torch.ops import segment
@@ -101,8 +103,8 @@ def _pair_case(rng, dev, dtype, p, n_rays, indexed, cv=128, c_roi=128,
         w[f"{pre}b4"] = np.full((1,), bias)
     pw = pd.prep_pair_decode_weights({k: _t(v, dev) for k, v in w.items()},
                                      cv, c_roi, c_dir, multires, DTYPES[dtype])
-    return (rd.pad_columns(_t(rng.normal(size=(30, cv)), dev, DTYPES[dtype]),
-                           pw["dims"][0]),
+    return (common.pad_columns(_t(rng.normal(size=(30, cv)), dev,
+                                  DTYPES[dtype]), pw["dims"][0]),
             _t(rng.integers(0, 30, p), dev, torch.int32),
             _t(0.6 * rng.normal(size=(p, 6)), dev),
             _t(rng.normal(size=(n_rays, c_roi + c_dir)), dev, DTYPES[dtype]),
@@ -138,7 +140,7 @@ def test_pair_decode_rows_below_the_count(dev, dtype, size):
     bits."""
     p = PAIR_SIZES[size]
     if size == "persistent":
-        plan = rd.decode_plan("K6", 400, n=p, sm_count=cuda.sm_count(dev))
+        plan = common.decode_plan("K6", 400, n=p, sm_count=cuda.sm_count(dev))
         assert plan["tiles"] > plan["blocks"]
     for indexed in (True, False):
         args = _pair_case(np.random.default_rng(29), dev, dtype, p, p // 20,
@@ -167,13 +169,14 @@ def test_ief_decode_kernel_matches_plain(dev, dtype):
     n, c_end, c_rc, c_pos, c_dir = 100, 128, 155, 51, 27
     w = {"enc_w": rng.normal(size=(1, 16)), "enc_b": 0.1 * rng.normal(size=(16,))}
     _mlp_weights(rng, "", c_end + c_rc + c_pos + 16, 256, w)
-    pw = rd.prep_ief_weights({k: _t(v, dev) for k, v in w.items()}, c_end,
-                             c_rc, c_pos, c_dir, DTYPES[dtype])
+    pw = ied.prep_ief_weights({k: _t(v, dev) for k, v in w.items()}, c_end,
+                              c_rc, c_pos, c_dir, DTYPES[dtype])
     args = tuple(_t(rng.normal(size=(n, c)), dev, DTYPES[dtype])
                  for c in (c_end, c_rc, c_pos))
-    before = rd.ief_decode.launches
-    _close(rd.ief_decode(*args, pw), rd.ief_decode_plain(*args, pw), ATOL[dtype])
-    assert rd.ief_decode.launches == before + 1
+    before = ied.ief_decode.launches
+    _close(ied.ief_decode(*args, pw), ied.ief_decode_plain(*args, pw),
+           ATOL[dtype])
+    assert ied.ief_decode.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -230,7 +233,7 @@ def test_depth_completer_card_matches_cpu(dev):
 def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
                  n_table=30, gf=64, kb=8, multires=8, pad=True):
     """K1/K2/K3's f32 operands (the default widths unless given), at the
-    kernels' widths with ``pad`` (``pad_ray_decode_operands``, the table
+    kernels' widths with ``pad`` (``pad_operands``, the table
     with zero columns as the model pads it), the inputs and cotangents."""
     c_embed = cv + c_roi + 6 * (1 + 2 * multires) + c_dir
     w = {"off_enc_w": rng.normal(size=(1, 16)),
@@ -244,9 +247,9 @@ def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
                                       cv, c_roi, c_dir, multires,
                                       DTYPES[dtype])
     if pad:
-        w32 = rd.pad_ray_decode_operands(w32)
-    args = (rd.pad_columns(_t(rng.normal(size=(n_table, cv)), dev),
-                           w32["dims"][0]),
+        w32 = common.pad_operands(w32, rd.FORMAT)
+    args = (common.pad_columns(_t(rng.normal(size=(n_table, cv)), dev),
+                               w32["dims"][0]),
             _t(rng.integers(0, n_table, (n, kb)), dev, torch.int32),
             _t(0.6 * rng.normal(size=(n, kb, 6)), dev),
             _t(rng.normal(size=(n, c_roi + c_dir)), dev, DTYPES[dtype]))
@@ -259,7 +262,7 @@ def _decode_case(rng, dev, dtype, n=100, cv=128, c_roi=128, c_dir=27,
 def test_ray_decode_save_kernel_matches_plain(dev, dtype):
     rng = np.random.default_rng(15)
     w32, args, _ = _decode_case(rng, dev, dtype)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     before = rd.ray_decode_save.launches
     off, logit, saves = rd.ray_decode_save(*args, w)
     assert rd.ray_decode_save.launches == before + 1
@@ -277,11 +280,11 @@ def _ief_case(rng, dev, dtype, n, c_end=128, c_rc=155, gf=64):
     c_pos, c_dir = 51, 27
     w = {"enc_w": rng.normal(size=(1, 16)), "enc_b": 0.1 * rng.normal(size=(16,))}
     _mlp_weights(rng, "", c_end + c_rc + c_pos + 16, 4 * gf, w)
-    pw = rd.prep_ief_weights({k: _t(v, dev) for k, v in w.items()}, c_end,
-                             c_rc, c_pos, c_dir, DTYPES[dtype])
+    pw = ied.prep_ief_weights({k: _t(v, dev) for k, v in w.items()}, c_end,
+                              c_rc, c_pos, c_dir, DTYPES[dtype])
     end, rc, pos = (_t(rng.normal(size=(n, c)), dev, DTYPES[dtype])
                     for c in (c_end, c_rc, c_pos))
-    return (rd.pad_columns(end, pw["dims"][0]), rc, pos), pw
+    return (common.pad_columns(end, pw["dims"][0]), rc, pos), pw
 
 
 def _save_close(got, want, dtype):
@@ -314,12 +317,12 @@ def test_forward_decodes_at_edge_sizes(dev, dtype, size):
     n = EDGE_SIZES[size]
     if size == "persistent":  # each block walks more than one tile
         for kernel, rows in (("K1", n), ("K4", 8 * n)):
-            plan = rd.decode_plan(kernel, 240, 160, n=rows,
-                                  sm_count=cuda.sm_count(dev))
+            plan = common.decode_plan(kernel, 240, 160, n=rows,
+                                      sm_count=cuda.sm_count(dev))
             assert plan["tiles"] > plan["blocks"]
     rng = np.random.default_rng(23)
     w32, args, _ = _decode_case(rng, dev, dtype, n=n)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     k1, again = rd.ray_decode(*args, w), rd.ray_decode(*args, w)
     off, logit, saves = rd.ray_decode_save(*args, w)
     saves_again = rd.ray_decode_save(*args, w)[2]
@@ -333,9 +336,10 @@ def test_forward_decodes_at_edge_sizes(dev, dtype, size):
     for got, want in zip(saves, ref[2]):
         _save_close(got, want, dtype)
     rows, pw = _ief_case(rng, dev, dtype, 8 * n)
-    got = rd.ief_decode(*rows, pw)
-    assert torch.equal(got, rd.ief_decode(*rows, pw)) and got.shape == (8 * n,)
-    _close(got, rd.ief_decode_plain(*rows, pw), ATOL[dtype])
+    got = ied.ief_decode(*rows, pw)
+    assert torch.equal(got, ied.ief_decode(*rows, pw))
+    assert got.shape == (8 * n,)
+    _close(got, ied.ief_decode_plain(*rows, pw), ATOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -349,7 +353,7 @@ def test_save_all_decodes_at_edge_sizes(dev, dtype, size):
     n = EDGE_SIZES[size]
     rng = np.random.default_rng(24)
     w32, args, _ = _decode_case(rng, dev, dtype, n=n)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     before = rd.ray_decode_save_all.launches
     off, logit, saves = rd.ray_decode_save_all(*args, w)
     assert rd.ray_decode_save_all.launches == before + 1
@@ -377,7 +381,7 @@ def test_save_all_decodes_at_edge_sizes(dev, dtype, size):
 
 
 def test_decode_plan_is_the_kernels_layout(dev):
-    """ops/ray_decode.py::decode_plan's shared memory is the kernels' own
+    """ops/decode_common.py::decode_plan's shared memory is the kernels' own
     (each C library reports its layout's size): K1, K2 'all', K4, K6, at
     every imnet_gf the kernels are compiled for, at the default widths, the
     reference's options' (W1-W7: kp 640, crp 288, 544 and 1056; K4's rows
@@ -394,22 +398,22 @@ def test_decode_plan_is_the_kernels_layout(dev):
     k4.argtypes = k6.argtypes = [cuda.I64] * 3
     k1.restype = k2all.restype = k4.restype = k6.restype = ctypes.c_longlong
     layouts = set()
-    for g in rd.DECODER_GF:
+    for g in common.DECODER_GF:
         for bf16 in (True, False):
             for kp, crp in ((240, 160), (256, 256), (368, 160), (32, 16),
                             (240, 288), (240, 544), (640, 160), (640, 544),
-                            (rd.MAX_KP["K1"], rd.MAX_CRP)):
-                plan = rd.decode_plan("K1", kp, crp, is_bf16=bf16, g=g)
+                            (common.MAX_KP["K1"], common.MAX_CRP)):
+                plan = common.decode_plan("K1", kp, crp, is_bf16=bf16, g=g)
                 layouts.add((plan["layout"], plan["rows_per_tile"]))
                 assert k1(kp, crp, g, bf16) == plan["smem"]["total"]
-                assert k2all(kp, crp, g, bf16) == rd.decode_plan(
+                assert k2all(kp, crp, g, bf16) == common.decode_plan(
                     "K2all", kp, crp, is_bf16=bf16, g=g)["smem"]["total"]
-            for kp in (336, 384, 16, 464, 720, 944, 1616, rd.MAX_KP["K4"]):
-                plan = rd.decode_plan("K4", kp, is_bf16=bf16, g=g)
+            for kp in (336, 384, 16, 464, 720, 944, 1616, common.MAX_KP["K4"]):
+                plan = common.decode_plan("K4", kp, is_bf16=bf16, g=g)
                 layouts.add((plan["layout"], plan["rows_per_tile"]))
                 assert k4(kp, g, bf16) == plan["smem"]["total"]
-            for kp in (400, 528, 784, 800, 944, rd.MAX_KP["K6"], 16):
-                plan = rd.decode_plan("K6", kp, is_bf16=bf16, g=g)
+            for kp in (400, 528, 784, 800, 944, common.MAX_KP["K6"], 16):
+                plan = common.decode_plan("K6", kp, is_bf16=bf16, g=g)
                 layouts.add((plan["layout"], plan["rows_per_tile"]))
                 assert k6(kp, g, bf16) == plan["smem"]["total"]
         k3 = cuda.library(f"ray_decode_bwd_g{g}").idt_ray_decode_bwd_smem
@@ -432,7 +436,7 @@ def test_k3_pass_a_blocks_an_sm_hold_the_plans_tiles(dev):
     to 128, bf16 and f32), and the plan sizes its grid for what a block
     holds: two 64-row tiles (the wgmma instance, bf16), one of 32 or 16
     rows otherwise. So two 64-row tiles are in flight on each SM."""
-    for g in rd.DECODER_GF:
+    for g in common.DECODER_GF:
         occ = cuda.library(
             f"ray_decode_bwd_g{g}").idt_ray_decode_bwd_blocks_per_sm
         occ.argtypes = [cuda.I64] * 6
@@ -495,7 +499,7 @@ def _bwd_matches_plain(dev, dtype, n, chunk, split, saves_of, monkeypatch):
                            split)["n_chunks"] > 1
     rng = np.random.default_rng(16)
     w32, args, cot = _decode_case(rng, dev, dtype, n=n)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     saves = _k2_saves(args, w, saves_of)
     before = rd.ray_decode_bwd.launches
     d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
@@ -529,7 +533,7 @@ def test_ray_decode_bwd_d_vox_table_is_deterministic(dev, dtype, saves_of,
     monkeypatch.setattr(rd, "K3_SPLIT_ROWS", 1000)
     rng = np.random.default_rng(18)
     w32, args, cot = _decode_case(rng, dev, dtype, n=4000)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     saves = _k2_saves(args, w, saves_of)
     wgmma = rd.ray_decode_bwd.wgmma_launches
     first = rd.ray_decode_bwd(*args, w, saves, *cot)
@@ -561,7 +565,7 @@ def test_forward_decodes_at_every_width(dev, dtype, gf):
     rng = np.random.default_rng(40 + gf)
     wd = WIDTHS[gf]
     w32, args, _ = _decode_case(rng, dev, dtype, n=n, gf=gf, **wd)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     counts = (rd.ray_decode.launches, rd.ray_decode_save.launches,
               rd.ray_decode_save_all.launches)
     k1, again = rd.ray_decode(*args, w), rd.ray_decode(*args, w)
@@ -589,11 +593,11 @@ def test_forward_decodes_at_every_width(dev, dtype, gf):
             _save_close(got, want, dtype)
     rows, pw = _ief_case(rng, dev, dtype, 8 * n, c_end=wd["cv"],
                          c_rc=wd["c_roi"] + 27, gf=gf)
-    before = rd.ief_decode.launches
-    got = rd.ief_decode(*rows, pw)
-    assert rd.ief_decode.launches == before + 1
-    assert torch.equal(got, rd.ief_decode(*rows, pw))
-    _close(got, rd.ief_decode_plain(*rows, pw), ATOL[dtype])
+    before = ied.ief_decode.launches
+    got = ied.ief_decode(*rows, pw)
+    assert ied.ief_decode.launches == before + 1
+    assert torch.equal(got, ied.ief_decode(*rows, pw))
+    _close(got, ied.ief_decode_plain(*rows, pw), ATOL[dtype])
     for indexed in (True, False):
         case = _pair_case(rng, dev, dtype, 20 * 846, 846, indexed, gf=gf,
                           **wd)
@@ -617,7 +621,7 @@ def test_ray_decode_bwd_at_every_width(dev, dtype, gf, saves_of,
     rng = np.random.default_rng(50 + gf)
     w32, args, cot = _decode_case(rng, dev, dtype, n=4000, gf=gf,
                                   **WIDTHS[gf])
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     saves = _k2_saves(args, w, saves_of)
     before = rd.ray_decode_bwd.launches
     d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
@@ -661,7 +665,7 @@ def test_ray_decode_bwd_wgmma_pass_a_matches_plain(dev, gf, kb, saves_of,
     rng = np.random.default_rng(90 + gf + kb)
     w32, args, cot = _decode_case(rng, dev, "bfloat16", n=n, kb=kb, gf=gf,
                                   **WGMMA_WIDTHS[gf])
-    w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
+    w = common.cast_operands(w32, rd.FORMAT, torch.bfloat16)
     saves = _k2_saves(args, w, saves_of)
     before = (rd.ray_decode_bwd.launches, rd.ray_decode_bwd.wgmma_launches)
     d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
@@ -701,7 +705,7 @@ def _width_forwards(dev, dtype, wd):
     n = 8 * 132 * 2 + 5
     rng = np.random.default_rng(80)
     w32, args, _ = _decode_case(rng, dev, dtype, n=n, **wd)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     counts = (rd.ray_decode.launches, rd.ray_decode_save.launches,
               rd.ray_decode_save_all.launches)
     k1, again = rd.ray_decode(*args, w), rd.ray_decode(*args, w)
@@ -758,7 +762,7 @@ def _width_bwd(dev, dtype, wd, n_table=146):
     rng = np.random.default_rng(81)
     w32, args, cot = _decode_case(rng, dev, dtype, n=4000, n_table=n_table,
                                   **wd)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     tol = 1e-4 if dtype == "float32" else 2e-2
     exact = f64_reference(args, w32, cot) if (
         dtype == "float32" and n_table == 30) else None
@@ -840,12 +844,12 @@ def test_decode_layouts_are_exact_on_exact_operands(dev, case):
     wt = {k: _t(v, dev) for k, v in w.items()}
     wk = rd.prep_ray_decode_weights(wt, cv, c_roi, c_dir, multires, bf)
     n, kb = 8 * 132 * 2 + 5, 8
-    table = rd.pad_columns(ints(30, cv), wk["dims"][0])
+    table = common.pad_columns(ints(30, cv), wk["dims"][0])
     args = (table, _t(rng.integers(0, 30, (n, kb)), dev, torch.int32),
             torch.zeros((n, kb, 6), device=dev), ints(n, c_roi + c_dir))
-    layouts = {"K1": rd.decode_plan("K1", wk["pair_w1"].shape[0],
-                                    wk["ray_w1"].shape[0],
-                                    g=rd.compiled_gf(gf))["layout"]}
+    layouts = {"K1": common.decode_plan("K1", wk["pair_w1"].shape[0],
+                                        wk["ray_w1"].shape[0],
+                                        g=common.compiled_gf(gf))["layout"]}
     k1 = rd.ray_decode(*args, wk)
     off, logit, saves = rd.ray_decode_save(*args, wk)
     ref = rd.ray_decode_plain(*args, wk, saves=True)
@@ -858,17 +862,17 @@ def test_decode_layouts_are_exact_on_exact_operands(dev, case):
     iw = {"enc_w": np.zeros((1, 16)), "enc_b": np.zeros((16,))}
     c_rc, c_pos = c_roi + c_dir, 51
     _exact_mlp(rng, "", cv + c_rc + c_pos + 16, 4 * gf, 0.25, iw)
-    pw = rd.prep_ief_weights({k: _t(v, dev) for k, v in iw.items()}, cv, c_rc,
-                             c_pos, c_dir, bf)
-    rows = (rd.pad_columns(ints(8 * n, cv), pw["dims"][0]), ints(8 * n, c_rc),
-            ints(8 * n, c_pos))
-    layouts["K4"] = rd.decode_plan("K4", pw["w1"].shape[0],
-                                   g=rd.compiled_gf(gf))["layout"]
-    got = rd.ief_decode(*rows, pw)
-    assert (got - rd.ief_decode_plain(*rows, pw)).abs().max().item() <= 1e-6
+    pw = ied.prep_ief_weights({k: _t(v, dev) for k, v in iw.items()}, cv, c_rc,
+                              c_pos, c_dir, bf)
+    rows = (common.pad_columns(ints(8 * n, cv), pw["dims"][0]),
+            ints(8 * n, c_rc), ints(8 * n, c_pos))
+    layouts["K4"] = common.decode_plan("K4", pw["w1"].shape[0],
+                                       g=common.compiled_gf(gf))["layout"]
+    got = ied.ief_decode(*rows, pw)
+    assert (got - ied.ief_decode_plain(*rows, pw)).abs().max().item() <= 1e-6
     k6w = pd.prep_pair_decode_weights(wt, cv, c_roi, c_dir, multires, bf)
-    layouts["K6"] = rd.decode_plan("K6", k6w["w1"].shape[0],
-                                   g=rd.compiled_gf(gf))["layout"]
+    layouts["K6"] = common.decode_plan("K6", k6w["w1"].shape[0],
+                                       g=common.compiled_gf(gf))["layout"]
     p = 20 * 846
     for rays in (_t(rng.integers(0, 846, p), dev, torch.int32), None):
         case6 = (table, _t(rng.integers(0, 30, p), dev, torch.int32),
@@ -913,26 +917,26 @@ def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev, case,
                 _width_bwd(dev, dtype, wd, n_table)
             rows, pw = _ief_case(rng, dev, dtype, 8 * 2117, c_end=cv,
                                  c_rc=wd.get("c_roi", 128) + 27, gf=gf)
-            before = rd.ief_decode.launches
-            got = rd.ief_decode(*rows, pw)
-            assert rd.ief_decode.launches == before + 1
-            assert torch.equal(got, rd.ief_decode(*rows, pw))
-            _close(got, rd.ief_decode_plain(*rows, pw), ATOL[dtype])
+            before = ied.ief_decode.launches
+            got = ied.ief_decode(*rows, pw)
+            assert ied.ief_decode.launches == before + 1
+            assert torch.equal(got, ied.ief_decode(*rows, pw))
+            _close(got, ied.ief_decode_plain(*rows, pw), ATOL[dtype])
         return
 
     def k1_calls(pad=True, **wd):
         w32, args, cot = _decode_case(rng, dev, "bfloat16", n=10, pad=pad,
                                       **wd)
-        w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
+        w = common.cast_operands(w32, rd.FORMAT, torch.bfloat16)
         return [lambda f=f: f(*args, w) for f in (
             rd.ray_decode, rd.ray_decode_save, rd.ray_decode_save_all)] + [
             lambda: rd.ray_decode_bwd(*args, w, None, *cot)]
 
     _refuses("1 to 128", *k1_calls(pad=False, gf=136),
-             lambda: rd.ief_decode(*_ief_case(rng, dev, "bfloat16", 10,
-                                              gf=136)[0],
-                                   _ief_case(rng, dev, "bfloat16", 10,
-                                             gf=136)[1]),
+             lambda: ied.ief_decode(*_ief_case(rng, dev, "bfloat16", 10,
+                                               gf=136)[0],
+                                    _ief_case(rng, dev, "bfloat16", 10,
+                                              gf=136)[1]),
              lambda: pd.pair_decode(*_pair_case(rng, dev, "bfloat16", 40, 2,
                                                 True, gf=136)))
     # kp 672: c_vox 554 (padded to 560) with multires 8
@@ -943,7 +947,7 @@ def test_decode_kernels_refuse_a_width_they_are_not_built_for(dev, case,
     _refuses("c_vox up to 512", k1_calls(cv=520)[-1])
     # K4's and K6's rows 1712: c_end 1496 (+ 155 + 51), c_vox 1440 (+ 160
     # + 102)
-    _refuses("kp up to 1696", lambda: rd.ief_decode(*_ief_case(
+    _refuses("kp up to 1696", lambda: ied.ief_decode(*_ief_case(
         np.random.default_rng(1), dev, "bfloat16", 10, c_end=1496)[0],
         _ief_case(np.random.default_rng(1), dev, "bfloat16", 10,
                   c_end=1496)[1]),
@@ -971,7 +975,7 @@ def test_forward_decodes_at_every_budget(dev, dtype, kb):
     n = 16 * 132 * 2 + 5
     rng = np.random.default_rng(70 + kb)
     w32, args, _ = _decode_case(rng, dev, dtype, n=n, kb=kb)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     counts = (rd.ray_decode.launches, rd.ray_decode_save.launches,
               rd.ray_decode_save_all.launches)
     k1, again = rd.ray_decode(*args, w), rd.ray_decode(*args, w)
@@ -1016,7 +1020,7 @@ def test_ray_decode_bwd_at_every_budget(dev, dtype, kb, saves_of,
                        kb=kb)["n_chunks"] > 1
     rng = np.random.default_rng(80 + kb)
     w32, args, cot = _decode_case(rng, dev, dtype, n=n, kb=kb)
-    w = rd.cast_ray_decode_operands(w32, DTYPES[dtype])
+    w = common.cast_operands(w32, rd.FORMAT, DTYPES[dtype])
     saves = _k2_saves(args, w, saves_of)
     before = rd.ray_decode_bwd.launches
     d_tab, d_rf, d_w = rd.ray_decode_bwd(*args, w, saves, *cot)
@@ -1040,7 +1044,7 @@ def test_decode_kernels_refuse_a_budget_past_the_limit(dev):
     """kb 65: every stage-1 decode wrapper names the limit of 64."""
     rng = np.random.default_rng(61)
     w32, args, cot = _decode_case(rng, dev, "bfloat16", n=10, kb=65)
-    w = rd.cast_ray_decode_operands(w32, torch.bfloat16)
+    w = common.cast_operands(w32, rd.FORMAT, torch.bfloat16)
     for fn in (rd.ray_decode, rd.ray_decode_save, rd.ray_decode_save_all):
         with pytest.raises(ValueError, match="kb <= 64"):
             fn(*args, w)
@@ -1245,7 +1249,7 @@ def test_pair_decode_modes_serve_and_train_on_the_card(dev, tpu):
 def test_pair_decode_train_is_k6_forward_and_the_recompute_gradient(
         dev, dtype, indexed, monkeypatch):
     """The training pair decode on the card: its forward is K6 (the bits of
-    ``pair_decode`` on ``cast_pair_operands``, one launch; rows at or past
+    ``pair_decode`` on ``cast_operands``, one launch; rows at or past
     the count 0), its backward the chunked plain recompute (chunks of 128
     rows, which divide neither the rows nor the dense layout's 20 slots a
     ray): the bits of ``pair_decode_bwd_chunked`` called on the same
@@ -1281,8 +1285,8 @@ def test_pair_decode_train_is_k6_forward_and_the_recompute_gradient(
                                n_rows=n_rows)
     assert pd.pair_decode.launches == before + 1
     with torch.no_grad():
-        k6 = pd.pair_decode(vt, cells, pos, rf, pd.cast_pair_operands(
-            w32(), dt), rays, n_rows=n_rows)
+        k6 = pd.pair_decode(vt, cells, pos, rf, common.cast_operands(
+            w32(), pd.FORMAT, dt), rays, n_rows=n_rows)
     for a, b in zip(out, k6):
         assert torch.equal(a, b)
     if indexed:
@@ -1295,8 +1299,8 @@ def test_pair_decode_train_is_k6_forward_and_the_recompute_gradient(
     assert torch.equal(got[0], d_vox) and torch.equal(got[1], d_ray)
     rf32 = rf.detach().float().requires_grad_()
     plain = pd.pair_decode_plain(vt, cells, pos, rf32,
-                                 pd.round_pair_biases(w32(), dt), rays,
-                                 n_rows=n_rows, dtype=dt)
+                                 common.round_biases(w32(), pd.FORMAT, dt),
+                                 rays, n_rows=n_rows, dtype=dt)
     want = torch.autograd.grad(plain, [vt, rf32, *params.values()], cot)
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.isfinite(a).all()
@@ -1542,7 +1546,7 @@ def _ief_train_case(rng, dev, dtype, n):
     params = {k: _t(v, dev).requires_grad_() for k, v in w.items()}
     rows = [_t(rng.normal(size=(n, c)), dev, dtype).requires_grad_(need)
             for c, need in ((c_end, True), (c_rc, False), (c_pos, True))]
-    w32 = rd.split_ief_weights(params, c_end, c_rc, c_pos, c_dir, dtype)
+    w32 = ied.split_ief_weights(params, c_end, c_rc, c_pos, c_dir, dtype)
     return rows, params, w32
 
 
@@ -1561,18 +1565,18 @@ def test_ief_decode_train_is_k4_forward_and_the_plain_gradient(dev, dtype, n):
     inputs, bit for bit; rc, which asks for no gradient, gets none."""
     dt = DTYPES[dtype]
     rows, params, w32 = _ief_train_case(np.random.default_rng(60), dev, dt, n)
-    before = rd.ief_decode.launches
-    out = rd.ief_decode_train(*rows, w32, dt)
-    assert rd.ief_decode.launches == before + 1
+    before = ied.ief_decode.launches
+    out = ied.ief_decode_train(*rows, w32, dt)
+    assert ied.ief_decode.launches == before + 1
     with torch.no_grad():
-        k4 = rd.ief_decode(*rows, rd.prep_ief_weights(
+        k4 = ied.ief_decode(*rows, ied.prep_ief_weights(
             params, 128, 155, 51, 27, dt))
     assert torch.equal(out, k4)
     g = torch.randn(out.shape, generator=torch.Generator(dev).manual_seed(1),
                     device=dev)
     got = _ief_grads(out, rows, params, g)
-    plain = rd.ief_decode_plain(*rows, rd._ief_train_operands(w32, dt),
-                                dtype=dt)
+    plain = ied.ief_decode_plain(
+        *rows, common.round_biases(w32, ied.FORMAT, dt), dtype=dt)
     want = _ief_grads(plain, rows, params, g)
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
@@ -1628,8 +1632,9 @@ def test_refine_steps_are_bit_identical_and_launch_their_kernels(dev):
     lidf, refine = _refine_pair(cfg, build_static(cfg))
     batches = [{k: torch.from_numpy(v) for k, v in
                 synthetic_batch(60 + i, 2, 48, 64).items()} for i in range(2)]
-    names = ("ray_decode", "ray_decode_save", "ray_decode_bwd", "ief_decode")
+    names = ("ray_decode", "ray_decode_save", "ray_decode_bwd")
     counts = {n: getattr(rd, n) for n in names}
+    counts["ief_decode"] = ied.ief_decode
     counts["segment_max0"] = segment.segment_max0
     before = {n: f.launches for n, f in counts.items()}
     a = _refine_steps(dev, cfg, lidf, refine, batches)
@@ -1695,15 +1700,15 @@ def _old_k4_operands(refine):
     o1, o2 = c_end, c_end + (c_rc - c_dir)
     o3, o4 = o2 + c_pos, o2 + c_pos + c_dir
     kp = -(-(c_end + c_rc + c_pos) // 16) * 16
-    a_vec, c_vec = rd._rank1(w["enc_w"], w["enc_b"], w1[o4:], dtype)
-    out = {"w1": rd._pad_rows(torch.cat([w1[:o1], w1[o1:o2], w1[o3:o4],
-                                         w1[o2:o3]], 0), kp).to(dtype
-                                                                ).contiguous(),
+    a_vec, c_vec = common.rank1(w["enc_w"], w["enc_b"], w1[o4:], dtype)
+    out = {"w1": common.pad_to(torch.cat([w1[:o1], w1[o1:o2], w1[o3:o4],
+                                          w1[o2:o3]], 0), (kp, w1.shape[1])
+                               ).to(dtype).contiguous(),
            "b1": w["b1"].float(), "a_vec": a_vec, "c_vec": c_vec}
     out.update({"w2": w["w2"].to(dtype).contiguous(),
-                "b2": rd._q(w["b2"], dtype),
+                "b2": common.rounded(w["b2"], dtype),
                 "w3": w["w3"].to(dtype).contiguous(),
-                "b3": rd._q(w["b3"], dtype),
+                "b3": common.rounded(w["b3"], dtype),
                 "w4": w["w4"].reshape(-1).to(dtype).contiguous(),
                 "b4": w["b4"].reshape(1).float()})
     out["dims"] = (c_end, c_rc, c_pos)
@@ -1730,7 +1735,7 @@ def test_served_frame_is_unchanged_by_the_training_decode(dev, dtype,
     now = dc.complete(*frame)
     old = _old_k4_operands(refine)
     new = refine.decode_operands()
-    for k in rd._K4_WEIGHTS:
+    for k in ied.FORMAT.operands:
         assert torch.equal(old[k], new[k]), k
     monkeypatch.setattr(RefineModel, "decode_operands",
                         lambda self: _old_k4_operands(self))

@@ -1,5 +1,5 @@
 """The host-side arithmetic of the forward decodes K1/K2, K4 and K6
-(``ops/ray_decode.py::decode_plan``), on the CPU: each instance's shared
+(``ops/decode_common.py::decode_plan``), on the CPU: each instance's shared
 memory, its tiles and persistent grid, the slab ring and warp grid of the
 bf16 products, and the schedule by which the weights stream through the
 ring.
@@ -21,17 +21,18 @@ import pytest
 
 from implicit_depth_torch.models.embedder import posenc_dim
 from implicit_depth_torch.ops import cuda
+from implicit_depth_torch.ops import decode_common as common
 from implicit_depth_torch.ops import pair_decode as pd
-from implicit_depth_torch.ops import ray_decode as rd
 
 ROOT = Path(__file__).resolve().parents[1]
 # layer-1 widths of the default models (kp, crp): K1/K2 per pair and per
 # ray; K4 and K6 per row
 DEFAULT = {"K1": (240, 160), "K2all": (240, 160), "K4": (336, 0),
            "K6": (400, 0)}
-WIDEST = {"K1": (rd.MAX_KP["K1"], rd.MAX_CRP),
-          "K2all": (rd.MAX_KP["K2all"], rd.MAX_CRP), "K4": (rd.MAX_KP["K4"], 0),
-          "K6": (rd.MAX_KP["K6"], 0)}
+WIDEST = {"K1": (common.MAX_KP["K1"], common.MAX_CRP),
+          "K2all": (common.MAX_KP["K2all"], common.MAX_CRP),
+          "K4": (common.MAX_KP["K4"], 0),
+          "K6": (common.MAX_KP["K6"], 0)}
 INSTANCES = [(k, bf16, widths) for k in ("K1", "K4", "K2all", "K6")
              for bf16 in (True, False) for widths in ("default", "widest")]
 # the products ahead of the IEF tails in a tile's schedule
@@ -50,9 +51,9 @@ def test_every_instance_fits_one_block(kernel, bf16, which):
     the wrappers accept (there in the single layout: x1 is x0, and K1's
     per-ray part lies in the h2 region)."""
     kp, crp = _widths(kernel, which)
-    plan = rd.decode_plan(kernel, kp, crp, is_bf16=bf16)
+    plan = common.decode_plan(kernel, kp, crp, is_bf16=bf16)
     smem = plan["smem"]
-    assert 0 < smem["total"] <= rd.MAX_SMEM == 232448
+    assert 0 < smem["total"] <= common.MAX_SMEM == 232448
     assert plan["single"] == (bf16 and which == "widest")
     if plan["single"]:
         assert smem["x1"] == smem["x0"]
@@ -61,22 +62,22 @@ def test_every_instance_fits_one_block(kernel, bf16, which):
     assert all(o % 128 == 0 for o in offs)
     assert offs[-1] == smem["total"] \
         and len(set(offs)) >= len(offs) - 2 - plan["single"]
-    rd._check_plan("test", kernel, kp, crp, 2, bf16, 1000)  # accepted
+    common.check_plan("test", kernel, kp, crp, 2, bf16, 1000)  # accepted
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K4", "K2all", "K6"])
 def test_wrappers_refuse_what_does_not_fit(kernel):
     kp, crp = WIDEST[kernel]
-    n_max = (rd.MAX_SEGS - HEAD[kernel]) // 2
+    n_max = (common.MAX_SEGS - HEAD[kernel]) // 2
     for bad in ((kp + 16, crp, 2), (kp, crp + 16 if crp else 0, 2),
                 (kp, crp, n_max + 1)):
         if bad == (kp, crp, 2):
             continue
         with pytest.raises(ValueError):
-            rd._check_plan("test", kernel, *bad, True, 1000)
+            common.check_plan("test", kernel, *bad, True, 1000)
     # the most IEF iterations a schedule holds
-    assert len(rd.decode_plan(kernel, kp, crp, n_max)["schedule"]) \
-        <= rd.MAX_SEGS
+    assert len(common.decode_plan(kernel, kp, crp, n_max)["schedule"]) \
+        <= common.MAX_SEGS
 
 
 def test_default_bf16_layout():
@@ -84,7 +85,7 @@ def test_default_bf16_layout():
     two 64 x 248 layer-1 tiles, 16 x 168 per-ray rows, 16 x 256 f32 per-ray
     parts (one decoder's at a time), the 64 x 264 and 64 x 136 activations,
     three 18,432-byte slabs."""
-    smem = rd.decode_plan("K1", 240, 160)["smem"]
+    smem = common.decode_plan("K1", 240, 160)["smem"]
     assert smem == {"x0": 0, "x1": 31744, "rf": 63488, "ray": 68864,
                     "h": 85248, "h2": 119040, "ring": 136448,
                     "off": 191744, "logit": 192000, "l4": 192256,
@@ -97,12 +98,12 @@ def test_tiles_and_persistent_grid(kernel, n):
     """bf16: tiles of 64 rows (8 rays of K1) on at most one block per SM;
     f32: one block per tile of 32 rows (4 rays)."""
     per = 8 if kernel == "K1" else 64
-    plan = rd.decode_plan(kernel, *DEFAULT[kernel], n=n, sm_count=132)
+    plan = common.decode_plan(kernel, *DEFAULT[kernel], n=n, sm_count=132)
     assert plan["rows_per_tile"] == 64
     assert plan["tiles"] == math.ceil(n / per)
     assert plan["blocks"] == min(plan["tiles"], 132)
     assert (plan["tiles"] - 1) * per < n <= plan["tiles"] * per or n == 0
-    f32 = rd.decode_plan(kernel, *DEFAULT[kernel], is_bf16=False, n=n)
+    f32 = common.decode_plan(kernel, *DEFAULT[kernel], is_bf16=False, n=n)
     assert f32["tiles"] == f32["blocks"] == math.ceil(n / (per // 2))
 
 
@@ -114,20 +115,20 @@ def test_slab_ring_and_warp_grid_divide_the_products(kernel, n_iter):
     columns (K1's per-ray products), and n / 8 a power of two that a block's
     threads divide (the slab copy's mapping); a slab a multiple of 16 rows
     that fits its share of the ring."""
-    plan = rd.decode_plan(kernel, *DEFAULT[kernel], n_iter=n_iter)
+    plan = common.decode_plan(kernel, *DEFAULT[kernel], n_iter=n_iter)
     sched = plan["schedule"]
     assert len(sched) == HEAD[kernel] + 2 * n_iter
     for op, col, k, n, ks in sched:
-        warps_n = rd.WARPS if op == "ray_w1" else rd.WARPS_N
+        warps_n = common.WARPS if op == "ray_w1" else common.WARPS_N
         assert k % 16 == 0 and n % (warps_n * 16) == 0, op
         chunks = n // 8
         assert chunks & (chunks - 1) == 0 and 256 % chunks == 0, op
-        assert ks == rd.slab_rows(n) and ks % 16 == 0 and ks >= 16
-        assert ks * (n + rd.TILE_PAD) <= rd.SLAB_ELEMS
+        assert ks == common.slab_rows(n) and ks % 16 == 0 and ks >= 16
+        assert ks * (n + common.TILE_PAD) <= common.SLAB_ELEMS
     # 64 rows = 2 warps along M x 2 m16 tiles
-    assert rd.TILE_ROWS == (rd.WARPS // rd.WARPS_N) * 2 * 16
+    assert common.TILE_ROWS == (common.WARPS // common.WARPS_N) * 2 * 16
     assert plan["slabs_per_tile"] == sum(-(-k // ks) for *_, k, _, ks in sched)
-    assert plan["slabs_per_tile"] >= rd.RING  # the ring never laps a tile
+    assert plan["slabs_per_tile"] >= common.RING  # the ring never laps a tile
 
 
 @pytest.mark.parametrize("width", [16, 64, 128, 155, 160, 240, 256, 336, 384,
@@ -137,7 +138,7 @@ def test_shared_rows_are_aligned_and_conflict_free(width):
     mma operand) lies kPad elements apart: 16-byte aligned, and the eight
     16-byte rows of one ldmatrix fall in eight different bank groups."""
     w = -(-width // 16) * 16
-    ld = w + rd.TILE_PAD
+    ld = w + common.TILE_PAD
     assert (ld * 2) % 16 == 0
     assert len({(r * ld * 2 // 16) % 8 for r in range(8)}) == 8
 
@@ -162,7 +163,7 @@ def test_schedule_streams_each_weight_from_its_slabs(kernel):
     iteration."""
     rng = np.random.default_rng(0)
     kp, crp = DEFAULT[kernel]
-    plan = rd.decode_plan(kernel, kp, crp, n_iter=2)
+    plan = common.decode_plan(kernel, kp, crp, n_iter=2)
     ops = _operands(rng, kernel, kp, crp)
     used = {}
     for op, col, k, n, ks in plan["schedule"]:
@@ -214,8 +215,8 @@ def test_chunked_layer1_takes_each_row_and_slab_once(kernel, width):
     X in 304-column chunks beside the whole per-ray rows)."""
     widths, g = RING_WIDTHS[width]
     kp, crp = widths[kernel]
-    plan = rd.decode_plan(kernel, kp, crp, g=g)
-    assert plan["smem"]["total"] <= rd.MAX_SMEM
+    plan = common.decode_plan(kernel, kp, crp, g=g)
+    assert plan["smem"]["total"] <= common.MAX_SMEM
     assert (plan["layout"] == "chunked") == (width == "W7")
     if width == "W7":
         assert plan["chunk"] == {"K1": 304, "K4": 560, "K6": 560}[kernel]
@@ -256,7 +257,7 @@ def test_chunked_layer1_takes_each_row_and_slab_once(kernel, width):
     assert layer1 == (1 if kernel == "K4" else 2)  # once per decoder
 
 
-TILE_BYTES = rd.TILE_ROWS * 2  # bytes of a column of X's 64 bf16 rows
+TILE_BYTES = common.TILE_ROWS * 2  # bytes of a column of X's 64 bf16 rows
 
 
 def test_k6_default_bf16_layout():
@@ -264,7 +265,7 @@ def test_k6_default_bf16_layout():
     layer-1 tiles (kp 400 = vox 128 | ray row 160 | pe 102 | 0), no per-ray
     regions, the 64 x 264 and 64 x 136 activations, three 18,432-byte
     slabs: ~213 KB of the 227 KB."""
-    smem = rd.decode_plan("K6", 400)["smem"]
+    smem = common.decode_plan("K6", 400)["smem"]
     assert smem == {"x0": 0, "x1": 52224, "rf": 104448, "ray": 104448,
                     "h": 104448, "h2": 138240, "ring": 155648,
                     "off": 210944, "logit": 211200, "l4": 211456,
@@ -291,9 +292,9 @@ def test_k6_fits_every_width_the_model_takes(multires, c_vox, rgb_out):
     assert lay["c_rp"] % 8 == 0 and c_vox % 8 == 0
     assert kp - lay["o_pe"] <= pd.MAX_PE_COLS == 5 * 32
     for bf16 in (True, False):
-        rd._check_plan("test", "K6", kp, 0, 2, bf16, 614400)
-        assert rd.decode_plan("K6", kp, is_bf16=bf16)["smem"]["total"] \
-            <= rd.MAX_SMEM
+        common.check_plan("test", "K6", kp, 0, 2, bf16, 614400)
+        assert common.decode_plan("K6", kp, is_bf16=bf16)["smem"]["total"] \
+            <= common.MAX_SMEM
 
 
 def test_k6_widest_layout_is_the_smem_limit():
@@ -301,14 +302,15 @@ def test_k6_widest_layout_is_the_smem_limit():
     extreme at once (pnet_out 512, rgb_out 64 with roi_out_bbox 4,
     multires 10): its block, X staged in chunks, fits at every imnet_gf,
     and 16 more columns are refused, naming the limit."""
-    assert rd.MAX_KP["K6"] == pd.pair_layout(512, 64 * 16, posenc_dim(4),
-                                             10)["kp"] == 1696
-    for g in rd.DECODER_GF:
-        plan = rd.decode_plan("K6", rd.MAX_KP["K6"], g=g)
+    assert common.MAX_KP["K6"] == pd.pair_layout(512, 64 * 16, posenc_dim(4),
+                                                 10)["kp"] == 1696
+    for g in common.DECODER_GF:
+        plan = common.decode_plan("K6", common.MAX_KP["K6"], g=g)
         assert plan["layout"] == "chunked"
-        assert plan["smem"]["total"] <= rd.MAX_SMEM
+        assert plan["smem"]["total"] <= common.MAX_SMEM
     with pytest.raises(ValueError, match="kp up to 1696"):
-        rd._check_plan("test", "K6", rd.MAX_KP["K6"] + 16, 0, 2, True, 100)
+        common.check_plan("test", "K6", common.MAX_KP["K6"] + 16, 0, 2, True,
+                          100)
 
 
 def _attribution_script():
@@ -338,5 +340,5 @@ def test_save_all_has_k1s_layout_and_schedule(bf16):
     straight to device memory: its block is K1's, region by region, with
     K1's tiles, grid and weight schedule."""
     for n in (0, 100, 80000):
-        assert rd.decode_plan("K2all", 240, 160, is_bf16=bf16, n=n) == \
-            rd.decode_plan("K1", 240, 160, is_bf16=bf16, n=n)
+        assert common.decode_plan("K2all", 240, 160, is_bf16=bf16, n=n) == \
+            common.decode_plan("K1", 240, 160, is_bf16=bf16, n=n)

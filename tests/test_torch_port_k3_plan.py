@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from implicit_depth_torch.ops import decode_common as common
 from implicit_depth_torch.ops import ray_decode as rd
 
 KP, CRP = 240, 160  # the default model's layer-1 operand rows (c_vox 128)
@@ -42,9 +43,9 @@ def test_grad_layout_is_the_operand_layout(kp, crp):
     boundaries, of the operand's shape; regions do not overlap."""
     lay = rd.bwd_grad_layout(kp, crp)
     shapes = _grad_shapes(kp, crp)
-    assert list(lay)[:-1] == list(rd._K1_WEIGHTS)
+    assert list(lay)[:-1] == list(rd.FORMAT.operands)
     end = 0
-    for k in rd._K1_WEIGHTS:
+    for k in rd.FORMAT.operands:
         off, shape = lay[k]
         assert shape == shapes[k] and off % 64 == 0 and off >= end, k
         end = off + math.prod(shape)
@@ -252,7 +253,7 @@ def test_bwd_plan_refuses_empty_sizes():
 def test_ray_decode_bwd_needs_the_card():
     """K3's wrapper launches the kernel or raises: a CPU tensor gets no
     silent fallback (training on the CPU goes through plain autograd)."""
-    w = {k: torch.zeros(1) for k in rd._K1_WEIGHTS}
+    w = {k: torch.zeros(1) for k in rd.FORMAT.operands}
     w["pair_w1"] = torch.zeros((KP, 512))
     w["dims"] = (128, 155, 8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -352,7 +353,7 @@ def test_pass_a_takes_wgmma_exactly_at_64_bf16_rows(case):
     wgmma = bf16 and m == 64
     assert plan["pass_a"] == ("wgmma" if wgmma else "wmma")
     assert plan["smem_a"] == rd.bwd_smem(m, g, crp, 2, plan["small_size"],
-                                         bf16) <= rd.MAX_SMEM
+                                         bf16) <= common.MAX_SMEM
     assert plan["tile_slots"] == (2 if wgmma else 1)
     assert plan["blocks_a"] == min(132 * plan["tile_slots"],
                                    plan["tiles_per_chunk"])

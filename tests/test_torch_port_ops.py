@@ -35,6 +35,8 @@ from implicit_depth_torch.geometry.sampling import (
 )
 from implicit_depth_torch.geometry.voxel import make_voxel_grid, voxelize_points
 from implicit_depth_torch.models.embedder import positional_encoding
+from implicit_depth_torch.ops import decode_common as common
+from implicit_depth_torch.ops import ief_decode as ied
 from implicit_depth_torch.ops import ray_decode as rd
 from implicit_depth_torch.ops.masked import masked_argmax, masked_softmax
 from implicit_depth_torch.ops.ray_grid import ray_grid_intersect
@@ -134,10 +136,10 @@ def test_decode_operands_from_transposed_views_are_dense(dtype):
     assert not views["off_w2"].is_contiguous()
     tdt = DTYPES[dtype][0]
     split = rd.split_ray_decode_weights(views, cv, c_roi, c_dir, multires, tdt)
-    ops = rd.cast_ray_decode_operands(split, tdt)
+    ops = common.cast_operands(split, rd.FORMAT, tdt)
     want = rd.prep_ray_decode_weights({k: T(v) for k, v in w.items()}, cv,
                                       c_roi, c_dir, multires, tdt)
-    for k in rd._K1_WEIGHTS:
+    for k in rd.FORMAT.operands:
         assert ops[k].is_contiguous(), k
         if k in ("a_vec", "c_vec"):  # products: the layout moves the order
             torch.testing.assert_close(ops[k], want[k], rtol=1e-6, atol=1e-7)
@@ -169,9 +171,9 @@ def test_ief_decode_plain_matches_xla_ief_rows(dtype):
     ref = jax.jit(lambda e, r, p, ww: xla_ief_rows(
         e.astype(jdt), r.astype(jdt), p.astype(jdt), ww, c_dir=c_dir,
         dtype=jdt))(end, rc, pe, w)
-    pw = rd.prep_ief_weights({k: T(v) for k, v in w.items()}, c_end, c_rc,
-                             c_pos, c_dir, tdt)
-    got = rd.ief_decode(T(end).to(tdt), T(rc).to(tdt), T(pe).to(tdt), pw)
+    pw = ied.prep_ief_weights({k: T(v) for k, v in w.items()}, c_end, c_rc,
+                              c_pos, c_dir, tdt)
+    got = ied.ief_decode(T(end).to(tdt), T(rc).to(tdt), T(pe).to(tdt), pw)
     assert got.shape == (n,)
     np.testing.assert_allclose(N(got), np.asarray(ref), atol=ATOL[dtype], rtol=0)
 

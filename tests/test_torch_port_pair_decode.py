@@ -32,6 +32,7 @@ from implicit_depth_tpu.train import steps as jsteps
 from implicit_depth_torch.builder import build_lidf, build_refine, build_static
 from implicit_depth_torch.config import load_config
 from implicit_depth_torch.models.lidf import prepare_inputs
+from implicit_depth_torch.ops import decode_common as common
 from implicit_depth_torch.ops import pair_decode as pd
 from implicit_depth_torch.ops import ray_decode as rd
 from implicit_depth_torch.train.state import TrainState
@@ -163,7 +164,8 @@ def test_pair_decode_plain_matches_xla_and_the_pallas_kernel(dtype):
     if dtype == "bfloat16":
         # K1's tail rounds the probability decoder's biases 2 and 3: K6
         # must not, and the tolerance above tells the two apart
-        mutant = {**w, **{k: rd._q(w[k], tdt) for k in ("prob_b2", "prob_b3")}}
+        mutant = {**w, **{k: common.rounded(w[k], tdt)
+                          for k in ("prob_b2", "prob_b3")}}
         off_m, logit_m = _port_pair_decode(c, mutant, tdt)
         assert np.abs(logit_m - ref[1]).max() > 10 * PAIR_ATOL[dtype]
 
@@ -203,7 +205,7 @@ def _kernel_x(c, lay):
     zero-padded ray row gathered by index into columns [0, o_pe), then each
     column of [pe(enter) | pe(leave) | 0] from its lane's column table."""
     rows = torch.cat([T(c["table"])[T(c["cells"]).long()],
-                      pd._ray_rows(T(c["ray_feat"]), lay["c_rp"])[
+                      common.pad_columns(T(c["ray_feat"]), lay["c_rp"])[
                           T(c["rays"]).long()]], 1)
     pos = T(c["pos"]).double()
     cols = []
@@ -675,8 +677,9 @@ def test_ray_decode_bwd_plain_unsaved_matches_jax_kernel_bwd(dtype, use_sigmoid)
         T(c["table"]).to(tdt), T(c["cells"]), T(c["pos"]),
         T(c["ray_feat"]).to(tdt), w32, T(c["g_off"]), T(c["g_logit"]),
         use_sigmoid=use_sigmoid, dtype=tdt, saved=None)
-    d_w = torch.autograd.grad([w32[k] for k in rd._K1_WEIGHTS], list(w.values()),
-                              [d_ops[k] for k in rd._K1_WEIGHTS])
+    d_w = torch.autograd.grad([w32[k] for k in rd.FORMAT.operands],
+                              list(w.values()),
+                              [d_ops[k] for k in rd.FORMAT.operands])
     got = {"d_table": N(d_tab), "d_ray_feat": N(d_rf),
            **{k: N(g) for k, g in zip(w, d_w)}}
     want = {"d_table": jd_tab, "d_ray_feat": jd_rf, **jd_w}

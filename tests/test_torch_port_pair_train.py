@@ -20,6 +20,7 @@ from implicit_depth_torch.builder import build_lidf, build_static
 from implicit_depth_torch.config import load_config
 from implicit_depth_torch.data.synthetic import synthetic_batch
 from implicit_depth_torch.models import lidf as lidf_mod
+from implicit_depth_torch.ops import decode_common as common
 from implicit_depth_torch.ops import pair_decode as pd
 from implicit_depth_torch.train.state import TrainState
 from implicit_depth_torch.train.steps import make_lidf_train_step
@@ -79,8 +80,8 @@ def _one_shot(c, dtype):
     rf32 = c["ray_feat"].detach().float().requires_grad_()
     w32 = pd.pair_decode_weights(c["w"], CV, C_ROI, C_DIR, MULTIRES, dtype)
     out = pd.pair_decode_plain(c["vox"], c["cells"], c["pos"], rf32,
-                               pd.round_pair_biases(w32, dtype), c["rays"],
-                               n_rows=c["n_rows"], dtype=dtype)
+                               common.round_biases(w32, pd.FORMAT, dtype),
+                               c["rays"], n_rows=c["n_rows"], dtype=dtype)
     grads = torch.autograd.grad(out, [c["vox"], rf32, *c["w"].values()],
                                 c["cot"])
     return out, [grads[0], grads[1].to(dtype), *grads[2:]]
@@ -91,7 +92,7 @@ def _through_the_function(c, dtype):
     out = pd.PairDecodeTrain.apply(
         (dtype, w32["dims"], 2, 0.001, False), c["vox"], c["cells"],
         c["pos"], c["ray_feat"], c["rays"], c["n_rows"],
-        *(w32[k] for k in pd._K6_WEIGHTS))
+        *(w32[k] for k in pd.FORMAT.operands))
     return out, list(torch.autograd.grad(
         out, [c["vox"], c["ray_feat"], *c["w"].values()], c["cot"]))
 
@@ -141,13 +142,13 @@ def test_rows_past_the_count_leave_the_gradients_alone(monkeypatch):
     0."""
     monkeypatch.setattr(pd, "TRAIN_CHUNK_ROWS", 64)
     c = _case("global", torch.float32)
-    decoded, decode = [], pd._decode_rows
+    decoded, decode = [], pd.decode_rows
 
     def counting(vox_rows, *a):
         decoded.append(vox_rows.shape[0])
         return decode(vox_rows, *a)
 
-    monkeypatch.setattr(pd, "_decode_rows", counting)
+    monkeypatch.setattr(pd, "decode_rows", counting)
     base = _through_the_function(c, torch.float32)[1]
     live = ((c["cot"][0] != 0) | (c["cot"][1] != 0))[:451].sum().item()
     assert decoded[0] == 600 and sum(decoded[1:]) == live < 451
@@ -204,7 +205,7 @@ def test_train_step_through_the_recompute_is_plain_autograd(mode, dtype,
         return pd.PairDecodeTrain.apply(
             (dtype, w32["dims"], kw["n_iter"], kw["init_offset"],
              kw["use_sigmoid"]), vox, cells, pos, ray_feat, rays,
-            kw["n_rows"], *(w32[k] for k in pd._K6_WEIGHTS))
+            kw["n_rows"], *(w32[k] for k in pd.FORMAT.operands))
 
     runs = []
     for route in ("plain", "function"):

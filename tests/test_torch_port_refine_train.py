@@ -38,7 +38,7 @@ from implicit_depth_torch.config import load_config
 from implicit_depth_torch.data.synthetic import synthetic_batch
 from implicit_depth_torch.models import lidf
 from implicit_depth_torch.models.refine import perturb_pred_pos, refine_loss
-from implicit_depth_torch.ops import ray_decode as rd
+from implicit_depth_torch.ops import ief_decode as ied
 from implicit_depth_torch.train.state import TrainState
 from implicit_depth_torch.train.steps import (
     make_lidf_vis_step,
@@ -287,16 +287,16 @@ def _port_ief_grads(rows, w, g_out, dims, use_sigmoid, dtype, rc_grad,
     forward takes the plain version on a CPU tensor."""
     c_end, c_rc, c_pos, c_dir = dims
     params = {k: T(v).requires_grad_() for k, v in w.items()}
-    w32 = rd.split_ief_weights(params, c_end, c_rc, c_pos, c_dir, dtype)
+    w32 = ied.split_ief_weights(params, c_end, c_rc, c_pos, c_dir, dtype)
     leaves = [T(r).to(dtype).requires_grad_(need)
               for r, need in zip(rows, (True, rc_grad, True))]
     kw = dict(n_iter=2, init_offset=0.001, use_sigmoid=use_sigmoid)
     if function:
-        out = rd.IefDecodeTrain.apply((dtype, w32["dims"], 2, 0.001,
-                                       use_sigmoid), *leaves,
-                                      *(w32[k] for k in rd._K4_WEIGHTS))
+        out = ied.IefDecodeTrain.apply((dtype, w32["dims"], 2, 0.001,
+                                        use_sigmoid), *leaves,
+                                       *(w32[k] for k in ied.FORMAT.operands))
     else:
-        out = rd.ief_decode_train(*leaves, w32, dtype, **kw)
+        out = ied.ief_decode_train(*leaves, w32, dtype, **kw)
     (out * T(g_out)).sum().backward()
     return (out, *(t.grad for t in leaves),
             {k: p.grad for k, p in params.items()})
@@ -360,33 +360,19 @@ def test_ief_decode_refuses_a_gradient_it_cannot_carry():
     gradient, instead of dropping it; it decodes under no_grad."""
     rows, w, _, (c_end, c_rc, c_pos, c_dir), _ = _ief_case(45, False)
     params = {k: T(v).requires_grad_() for k, v in w.items()}
-    live = rd.prep_ief_weights(params, c_end, c_rc, c_pos, c_dir,
-                               torch.float32)
-    frozen = rd.prep_ief_weights({k: T(v) for k, v in w.items()}, c_end,
-                                 c_rc, c_pos, c_dir, torch.float32)
+    live = ied.prep_ief_weights(params, c_end, c_rc, c_pos, c_dir,
+                                torch.float32)
+    frozen = ied.prep_ief_weights({k: T(v) for k, v in w.items()}, c_end,
+                                  c_rc, c_pos, c_dir, torch.float32)
     end = T(rows[0]).requires_grad_()
     with pytest.raises(RuntimeError, match="carries no gradient"):
-        rd.ief_decode(end, T(rows[1]), T(rows[2]), frozen)
+        ied.ief_decode(end, T(rows[1]), T(rows[2]), frozen)
     with pytest.raises(RuntimeError, match="carries no gradient"):
-        rd.ief_decode(T(rows[0]), T(rows[1]), T(rows[2]), live)
+        ied.ief_decode(T(rows[0]), T(rows[1]), T(rows[2]), live)
     with torch.no_grad():
-        got = rd.ief_decode(end, T(rows[1]), T(rows[2]), live)
+        got = ied.ief_decode(end, T(rows[1]), T(rows[2]), live)
     np.testing.assert_array_equal(
-        N(got), N(rd.ief_decode(T(rows[0]), T(rows[1]), T(rows[2]), frozen)))
-
-
-def test_prep_ief_weights_is_the_cast_split():
-    """The serving operands are the training split cast as K4 takes it."""
-    _, w, _, (c_end, c_rc, c_pos, c_dir), _ = _ief_case(46, False)
-    tw = {k: T(v) for k, v in w.items()}
-    for dt in (torch.float32, torch.bfloat16):
-        prep = rd.prep_ief_weights(tw, c_end, c_rc, c_pos, c_dir, dt)
-        split = rd.split_ief_weights(tw, c_end, c_rc, c_pos, c_dir, dt)
-        assert all(split[k].dtype == torch.float32 for k in rd._K4_WEIGHTS)
-        cast = rd.cast_ief_operands(split, dt)
-        for k in rd._K4_WEIGHTS:
-            assert prep[k].dtype == cast[k].dtype, k
-            np.testing.assert_array_equal(N(prep[k]), N(cast[k]), err_msg=k)
+        N(got), N(ied.ief_decode(T(rows[0]), T(rows[1]), T(rows[2]), frozen)))
 
 
 # -- the whole refine train step -------------------------------------------------

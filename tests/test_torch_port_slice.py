@@ -232,6 +232,36 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+# the layers above ops/: the kernels' wrappers and their operand format
+# know nothing of the models, the training, serving or the mesh
+ABOVE_OPS = ("models", "train", "infer", "parallel", "builder")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO))
+    for p in (REPO / "implicit_depth_torch").rglob("*.py")))
+def test_port_layers_import_downward_and_public_names(path):
+    """``ops/`` imports nothing from the layers above it, and no module of
+    the port imports another module's ``_``-prefixed name."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    in_ops = pathlib.PurePath(path).parts[1] == "ops"
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            private = [a.name for a in node.names if a.name.startswith("_")]
+            assert not private, \
+                f"{path}:{node.lineno} imports {private} from {node.module}"
+            names = [node.module or ""]
+            names += [f"{node.module}.{a.name}" for a in node.names]
+        else:
+            continue
+        if in_ops:
+            up = [m for m in names if m.split(".")[:2] in (
+                ["implicit_depth_torch", layer] for layer in ABOVE_OPS)]
+            assert not up, f"{path}:{node.lineno} imports {up}"
+
+
 # the card's machine has no OpenCV, Pillow or pyyaml (nor JAX): what the
 # trainer and chip_smoke.py need must import and run without them
 _BLOCKED_IMPORTS = """

@@ -46,6 +46,7 @@ from implicit_depth_torch.geometry import normals
 from implicit_depth_torch.geometry.sampling import sample_masked_window
 from implicit_depth_torch.models import lidf
 from implicit_depth_torch.models.resnet import ResNet34_8s
+from implicit_depth_torch.ops import decode_common as common
 from implicit_depth_torch.ops import masked
 from implicit_depth_torch.ops import ray_decode as rd
 from implicit_depth_torch.ops.segment import segment_max0_grad, segment_max0_plain
@@ -322,7 +323,7 @@ def test_ray_decode_save_matches_the_l1_saves(dtype):
     off, logit, saves = rd.ray_decode_save(
         T(case["table"]).to(tdt), T(case["cells"]), T(case["pos"]),
         T(case["ray_feat"]).to(tdt),
-        rd.cast_ray_decode_operands(w32, tdt))
+        common.cast_operands(w32, rd.FORMAT, tdt))
     check = assert_rel_max if dtype == "float32" else assert_rel_norm
     # f32 1e-5 of the scale; bf16 a relative norm of 1e-2 (a one-ulp move
     # of a rounded pre-activation)
@@ -352,7 +353,7 @@ def test_ray_decode_save_all_matches_the_full_saves(dtype):
     off, logit, saves = rd.ray_decode_save_all(
         T(case["table"]).to(tdt), T(case["cells"]), T(case["pos"]),
         T(case["ray_feat"]).to(tdt),
-        rd.cast_ray_decode_operands(w32, tdt))
+        common.cast_operands(w32, rd.FORMAT, tdt))
     names = rd.save_names(2, "all")
     assert len(names) == len(saves) == len(jsaves) == 13
     check = assert_rel_max if dtype == "float32" else assert_rel_norm
@@ -392,7 +393,7 @@ def test_ray_decode_bwd_plain_from_full_saves_matches_jax(dtype, use_sigmoid):
 
     want = jgrads("kernel_save_all")
     _, w32 = _port_w32(case, tdt)
-    w = rd.cast_ray_decode_operands(w32, tdt)
+    w = common.cast_operands(w32, rd.FORMAT, tdt)
     args = (T(case["table"]).to(tdt), T(case["cells"]), T(case["pos"]),
             T(case["ray_feat"]).to(tdt))
     kw = dict(use_sigmoid=use_sigmoid)
@@ -403,8 +404,8 @@ def test_ray_decode_bwd_plain_from_full_saves_matches_jax(dtype, use_sigmoid):
     # the split operands' gradients laid back onto the parameters, as
     # training does through split_ray_decode_weights
     wp, w32p = _port_w32(case, tdt, requires_grad=True)
-    torch.autograd.backward([w32p[k] for k in rd._K1_WEIGHTS],
-                            [d_split[k] for k in rd._K1_WEIGHTS])
+    torch.autograd.backward([w32p[k] for k in rd.FORMAT.operands],
+                            [d_split[k] for k in rd.FORMAT.operands])
     got = {"d_table": N(d_tab), "d_ray_feat": N(d_rf),
            **{k: N(v.grad) for k, v in wp.items()}}
     xla = jgrads("xla") if dtype == "bfloat16" else None
@@ -480,7 +481,8 @@ def test_ray_decode_bwd_plain_is_the_train_gradient():
             T(case["pos"]), T(case["ray_feat"]).requires_grad_())
     off, logit = rd.ray_decode_train(*args, w32, torch.float32)
     grads = torch.autograd.grad(
-        (off, logit), [args[0], args[3], *(w32[k] for k in rd._K1_WEIGHTS)],
+        (off, logit),
+        [args[0], args[3], *(w32[k] for k in rd.FORMAT.operands)],
         (T(case["g_off"]), T(case["g_logit"])))
     d_tab, d_rf, d_w = rd.ray_decode_bwd_plain(
         *args, {k: v.detach() for k, v in w32.items()
@@ -488,7 +490,7 @@ def test_ray_decode_bwd_plain_is_the_train_gradient():
         T(case["g_off"]), T(case["g_logit"]), dtype=torch.float32)
     np.testing.assert_array_equal(N(d_tab), N(grads[0]))
     np.testing.assert_array_equal(N(d_rf), N(grads[1]))
-    for k, g in zip(rd._K1_WEIGHTS, grads[2:]):
+    for k, g in zip(rd.FORMAT.operands, grads[2:]):
         np.testing.assert_array_equal(N(d_w[k]), N(g), err_msg=k)
 
 
@@ -544,7 +546,8 @@ def test_ray_decode_train_function_runs_each_mode(dtype, decode_bwd,
         monkeypatch.setattr(rd, name, stand_in(name, fn))
     table = T(case["table"]).to(tdt).requires_grad_()
     rf = T(case["ray_feat"]).to(tdt).requires_grad_()
-    ops = [w32[k].detach().clone().requires_grad_() for k in rd._K1_WEIGHTS]
+    ops = [w32[k].detach().clone().requires_grad_()
+           for k in rd.FORMAT.operands]
     args = (T(case["cells"]), T(case["pos"]))
     off, logit = rd.RayDecodeTrain.apply(
         (tdt, w32["dims"], 2, 0.001, False, decode_bwd), table, *args, rf,
@@ -556,14 +559,14 @@ def test_ray_decode_train_function_runs_each_mode(dtype, decode_bwd,
     if decode_bwd != "xla":
         want_calls["ray_decode_bwd"] = 1
     assert calls == want_calls
-    w = rd.cast_ray_decode_operands(w32, tdt)
+    w = common.cast_operands(w32, rd.FORMAT, tdt)
     plain = (T(case["table"]).to(tdt), *args, T(case["ray_feat"]).to(tdt))
     saved = rd.ray_decode_plain(*plain, w, saves=saves)[2] if saves else None
     ref = rd.ray_decode_bwd_plain(*plain, w, *cot, dtype=tdt, saved=saved)
     np.testing.assert_array_equal(N(off), N(rd.ray_decode_plain(*plain, w)[0]))
     np.testing.assert_array_equal(N(table.grad), N(ref[0].to(tdt)))
     np.testing.assert_array_equal(N(rf.grad), N(ref[1].to(tdt)))
-    for k, g in zip(rd._K1_WEIGHTS, ops):
+    for k, g in zip(rd.FORMAT.operands, ops):
         np.testing.assert_array_equal(N(g.grad), N(ref[2][k]), err_msg=k)
 
 

@@ -4,7 +4,7 @@ the plain versions of K1-K4 and K6 against the JAX package at the widths
 other tests do not cover.
 
 The kernels are compiled for the decoder widths 4g-2g-g-1 of imnet_gf g in
-``ops/ray_decode.py::DECODER_GF`` (8, 16, 32, 64, 128), as the Pallas
+``ops/decode_common.py::DECODER_GF`` (8, 16, 32, 64, 128), as the Pallas
 kernels read theirs from their operands; any g from 1 to 128 runs at the
 next compiled width, and a voxel width (pnet_out) at the next multiple of
 16, with zero units and zero columns, the operands padded once where they
@@ -43,6 +43,8 @@ from implicit_depth_tpu.ops.pallas_ray_decode import (
     xla_ray_decode,
 )
 from implicit_depth_torch.models.embedder import posenc_dim
+from implicit_depth_torch.ops import decode_common as common
+from implicit_depth_torch.ops import ief_decode as ied
 from implicit_depth_torch.ops import pair_decode as pd
 from implicit_depth_torch.ops import ray_decode as rd
 
@@ -94,7 +96,7 @@ def _layer1_widths(pnet_out, c_roi, multires=MULTIRES):
 
 # -- (c) the host plans at every width -----------------------------------------
 
-@pytest.mark.parametrize("g", rd.DECODER_GF)
+@pytest.mark.parametrize("g", common.DECODER_GF)
 @pytest.mark.parametrize("model", list(LAYER1))
 @pytest.mark.parametrize("kernel", ["K1", "K2all", "K4", "K6"])
 def test_forward_plans_fit_at_every_width(kernel, model, g):
@@ -109,27 +111,27 @@ def test_forward_plans_fit_at_every_width(kernel, model, g):
     rows hold every width the wrappers take (ray_decode.cu::run)."""
     kp, crp = _layer1_widths(*LAYER1[model])["K1" if kernel == "K2all"
                                              else kernel]
-    assert kp <= rd.MAX_KP[kernel] and crp <= rd.MAX_CRP
+    assert kp <= common.MAX_KP[kernel] and crp <= common.MAX_CRP
     for bf16 in (True, False):
-        plan = rd._check_plan("test", kernel, kp, crp, 2, bf16, 80000, g)
+        plan = common.check_plan("test", kernel, kp, crp, 2, bf16, 80000, g)
         smem = plan["smem"]
-        assert smem["total"] <= rd.MAX_SMEM
+        assert smem["total"] <= common.MAX_SMEM
         assert all(o % 128 == 0 for o in smem.values())
         rows = plan["rows_per_tile"]
         if kernel in ("K1", "K2all") and g < 128:
             assert plan["layout"] != "chunked" and rows in (64, 32)
         if plan["layout"] == "chunked":
-            ks = rd.slab_rows(4 * g)
+            ks = common.slab_rows(4 * g)
             assert plan["chunk"] % ks == 0 and 0 < plan["chunk"] < kp
             assert smem["x1"] == smem["x0"]
         if not bf16 and rows == 16:
-            assert rd.decode_plan(kernel, kp, crp, is_bf16=False, g=g,
-                                  n=1)["smem"]["total"] <= rd.MAX_SMEM
-            assert rd._f32_layout(kernel, 32, kp, crp, g)["total"] \
-                > rd.MAX_SMEM
-    plan = rd.decode_plan(kernel, kp, crp, g=g, n=80000)
-    assert len(plan["schedule"]) <= rd.MAX_SEGS
-    assert plan["slabs_per_tile"] >= rd.RING
+            assert common.decode_plan(kernel, kp, crp, is_bf16=False, g=g,
+                                      n=1)["smem"]["total"] <= common.MAX_SMEM
+            assert common.f32_layout(kernel, 32, kp, crp, g)["total"] \
+                > common.MAX_SMEM
+    plan = common.decode_plan(kernel, kp, crp, g=g, n=80000)
+    assert len(plan["schedule"]) <= common.MAX_SEGS
+    assert plan["slabs_per_tile"] >= common.RING
     g1, g2, g3 = 4 * g, 2 * g, g
     widths = [n for *_, n, _ in plan["schedule"]]
     assert set(widths) <= {2 * g1, g1, g2, g3}
@@ -137,34 +139,35 @@ def test_forward_plans_fit_at_every_width(kernel, model, g):
                                        plan["warp_grid"]):
         assert k % 16 == 0 and n % 8 == 0, op
         assert (n // 8) & (n // 8 - 1) == 0 and n // 8 <= 256, op
-        assert ks == rd.slab_rows(n) and ks % 16 == 0
-        assert ks * (n + rd.TILE_PAD) <= rd.SLAB_ELEMS
-        rows = 16 if op == "ray_w1" else rd.TILE_ROWS
+        assert ks == common.slab_rows(n) and ks % 16 == 0
+        assert ks * (n + common.TILE_PAD) <= common.SLAB_ELEMS
+        rows = 16 if op == "ray_w1" else common.TILE_ROWS
         assert grid["wn"] * grid["nt"] * 8 == n, op
         assert grid["wm"] * grid["mt"] * 16 == rows, op
-        assert 1 <= grid["active"] <= rd.WARPS, op
-        assert grid["wn"] <= (rd.WARPS if rows == 16 else rd.WARPS_N), op
+        assert 1 <= grid["active"] <= common.WARPS, op
+        assert grid["wn"] <= (common.WARPS if rows == 16
+                              else common.WARPS_N), op
 
 
-@pytest.mark.parametrize("g", rd.DECODER_GF)
+@pytest.mark.parametrize("g", common.DECODER_GF)
 def test_narrow_products_leave_warps_without_a_tile(g):
     """The layer-3 product of a tile is g wide: at g 64 the 2 x 4 grid of
     the first kernels, narrower a grid with fewer warps along N, and at
     g 8 (one n8 tile) four warps own the tile's four m16 rows and four own
     nothing."""
-    grid = rd.warp_grid(rd.TILE_ROWS, g)
+    grid = common.warp_grid(common.TILE_ROWS, g)
     want = {128: (4, 2, 2, 4, 8), 64: (4, 2, 2, 2, 8), 32: (4, 2, 2, 1, 8),
             16: (2, 4, 1, 1, 8), 8: (1, 4, 1, 1, 4)}[g]
     assert (grid["wn"], grid["wm"], grid["mt"], grid["nt"],
             grid["active"]) == want
-    assert rd.warp_grid(rd.TILE_ROWS, 256) == {"wn": 4, "wm": 2, "mt": 2,
-                                               "nt": 8, "active": 8}
+    assert common.warp_grid(common.TILE_ROWS, 256) == {
+        "wn": 4, "wm": 2, "mt": 2, "nt": 8, "active": 8}
     # K1's per-ray product (16 rows, 2 x 4g wide): all 8 warps along N
-    assert rd.warp_grid(16, 8 * g) == {"wn": 8, "wm": 1, "mt": 1,
-                                       "nt": g // 8, "active": 8}
+    assert common.warp_grid(16, 8 * g) == {"wn": 8, "wm": 1, "mt": 1,
+                                           "nt": g // 8, "active": 8}
 
 
-@pytest.mark.parametrize("g", rd.DECODER_GF)
+@pytest.mark.parametrize("g", common.DECODER_GF)
 @pytest.mark.parametrize("model", ["smoke_synthetic", "tiny CLI", "W7"])
 def test_schedule_streams_each_weight_at_every_width(model, g):
     """The ring emulation of test_torch_port_decode_plan.py at each width:
@@ -180,7 +183,8 @@ def test_schedule_streams_each_weight_at_every_width(model, g):
         ops[f"{p}w2"] = rng.normal(size=(g1, g2))
         ops[f"{p}w3"] = rng.normal(size=(g2, g3))
     used = []
-    for op, col, k, n, ks in rd.decode_plan("K1", kp, crp, g=g)["schedule"]:
+    sched = common.decode_plan("K1", kp, crp, g=g)["schedule"]
+    for op, col, k, n, ks in sched:
         w = ops[op]
         slabs = [w[k0:min(k0 + ks, k), col:col + n] for k0 in range(0, k, ks)]
         np.testing.assert_array_equal(np.concatenate(slabs, 0),
@@ -243,7 +247,7 @@ def _emulate_k3(plan, n, n_iter, g, kp, crp, rng):
     return out, want, lay
 
 
-@pytest.mark.parametrize("g", rd.DECODER_GF)
+@pytest.mark.parametrize("g", common.DECODER_GF)
 @pytest.mark.parametrize("model", ["smoke_synthetic", "tiny CLI", "W7"])
 def test_k3_plan_at_every_width(model, g):
     """K3's plan at each width: the streams carry the decoder's widths, the
@@ -254,14 +258,14 @@ def test_k3_plan_at_every_width(model, g):
     not)."""
     pnet_out, c_roi, multires = LAYER1[model]
     kp, crp = _layer1_widths(pnet_out, c_roi, multires)["K1"]
-    assert kp <= rd.MAX_KP["K3"]
+    assert kp <= common.MAX_KP["K3"]
     n, n_iter = 37, 2
     for bf16 in (True, False):
         p = rd.bwd_plan(n, kp, crp, n_iter, bf16, 5, 16, 24,
                         table_elems=30 * pnet_out, g=g, c_vox=pnet_out)
         m = p["rows_per_tile"]
         assert rd.bwd_held(m, g, bf16) and rd.bwd_smem(
-            m, g, crp, n_iter, p["small_size"], bf16) <= rd.MAX_SMEM
+            m, g, crp, n_iter, p["small_size"], bf16) <= common.MAX_SMEM
     plan = rd.bwd_plan(n, kp, crp, n_iter, True, 5, 16, 24,
                        table_elems=30 * pnet_out, g=g)
     widths = {"x": kp, "rf": crp, "dt2": 2 * g, "h2": 2 * g, "dt3": g}
@@ -302,55 +306,55 @@ def test_a_width_outside_the_set_is_refused(case):
     limits."""
     if case.startswith("gf "):
         g = int(case[3:])
-        if g > rd.MAX_GF:
-            for f in (lambda: rd.compiled_gf(g), lambda: rd.decoder_gf(
+        if g > common.MAX_GF:
+            for f in (lambda: common.compiled_gf(g), lambda: common.decoder_gf(
                     "test", 4 * g, (4 * g, 2 * g), (2 * g, g))):
                 with pytest.raises(ValueError, match="imnet_gf g? ?.*1 to 128"):
                     f()
             with pytest.raises(ValueError, match=r"in \(8, 16, 32, 64, 128\)"):
-                rd._check_plan("test", "K1", 176, 96, 2, True, 100, g)
+                common.check_plan("test", "K1", 176, 96, 2, True, 100, g)
             return
-        assert rd.decoder_gf("t", 4 * g, (4 * g, 2 * g), (2 * g, g)) == g
-        G = rd.compiled_gf(g)
+        assert common.decoder_gf("t", 4 * g, (4 * g, 2 * g), (2 * g, g)) == g
+        G = common.compiled_gf(g)
         assert G == {24: 32, 48: 64, 128: 128}[g]
-        rd._check_plan("test", "K1", 240, 160, 2, True, 100, G)
-        rd._check_plan("test", "K6", 400, 0, 2, True, 100, G)
-        rd._check_plan("test", "K4", 336, 0, 2, True, 100, G)
+        common.check_plan("test", "K1", 240, 160, 2, True, 100, G)
+        common.check_plan("test", "K6", 400, 0, 2, True, 100, G)
+        common.check_plan("test", "K4", 336, 0, 2, True, 100, G)
         plan = rd.bwd_plan(100, 240, 160, 2, True, 132, g=G, c_vox=128)
         assert plan["rows_per_tile"] == (64 if G <= 64 else 32)
     elif case == "not 4g-2g-g":
         with pytest.raises(ValueError, match="got 128-64-16-1"):
-            rd.decoder_gf("test", 128, (128, 64), (64, 16))
+            common.decoder_gf("test", 128, (128, 64), (64, 16))
     elif case == "kp past 640":
         for k in ("K1", "K2all"):
-            rd._check_plan("test", k, 640, 160, 2, True, 100)
+            common.check_plan("test", k, 640, 160, 2, True, 100)
             with pytest.raises(ValueError, match="kp up to 640"):
-                rd._check_plan("test", k, 656, 160, 2, True, 100)
+                common.check_plan("test", k, 656, 160, 2, True, 100)
         rd.bwd_plan(100, 640, 160, 2, True, 132, c_vox=512)
         with pytest.raises(ValueError, match="kp up to 640"):
             rd.bwd_plan(100, 656, 160, 2, True, 132, c_vox=512)
     elif case == "crp past 544":
-        rd._check_plan("test", "K1", 240, 544, 2, True, 100)
-        rd._check_plan("test", "K1", 240, 560, 2, True, 100)
+        common.check_plan("test", "K1", 240, 544, 2, True, 100)
+        common.check_plan("test", "K1", 240, 560, 2, True, 100)
         # K3's 64-row (wgmma) block holds these per-ray widths too
         assert rd.bwd_plan(100, 240, 544, 2, True, 132)["rows_per_tile"] == 64
         assert rd.bwd_plan(100, 240, 560, 2, True, 132)["rows_per_tile"] == 64
     elif case == "crp past 1056":
-        rd._check_plan("test", "K1", 640, 1056, 2, True, 100, 128)
+        common.check_plan("test", "K1", 640, 1056, 2, True, 100, 128)
         with pytest.raises(ValueError, match="crp up to 1056"):
-            rd._check_plan("test", "K1", 240, 1072, 2, True, 100)
+            common.check_plan("test", "K1", 240, 1072, 2, True, 100)
         with pytest.raises(ValueError, match="crp up to 1056"):
             rd.bwd_plan(100, 240, 1072, 2, True, 132)
     elif case == "K4/K6 kp past 944":
         for k in ("K4", "K6"):
-            rd._check_plan("test", k, 944, 0, 2, True, 100)
-            rd._check_plan("test", k, 960, 0, 2, True, 100)
+            common.check_plan("test", k, 944, 0, 2, True, 100)
+            common.check_plan("test", k, 960, 0, 2, True, 100)
     elif case == "K4/K6 kp past 1696":
         for k in ("K4", "K6"):
             for bf16 in (True, False):
-                rd._check_plan("test", k, 1696, 0, 2, bf16, 100, 128)
+                common.check_plan("test", k, 1696, 0, 2, bf16, 100, 128)
             with pytest.raises(ValueError, match="kp up to 1696"):
-                rd._check_plan("test", k, 1712, 0, 2, True, 100)
+                common.check_plan("test", k, 1712, 0, 2, True, 100)
     elif case == "c_vox past 512":
         with pytest.raises(ValueError, match="c_vox up to 512"):
             rd.bwd_plan(100, 640, 160, 2, True, 132, c_vox=520)
@@ -358,18 +362,19 @@ def test_a_width_outside_the_set_is_refused(case):
         # the layer-1 widths whose block the parent could not fit at
         # imnet_gf 128: X in chunks (bf16), 16-row blocks (f32)
         for bf16 in (True, False):
-            k1 = rd._check_plan("test", "K1", 640, 160, 2, bf16, 100, 128)
-            k6 = rd._check_plan("test", "K6", 944, 0, 2, bf16, 100, 128)
+            k1 = common.check_plan("test", "K1", 640, 160, 2, bf16, 100, 128)
+            k6 = common.check_plan("test", "K6", 944, 0, 2, bf16, 100, 128)
             assert (k1["layout"], k6["layout"]) == (
                 ("chunked", "chunked") if bf16 else ("f32", "f32"))
             assert bf16 or k1["rows_per_tile"] == k6["rows_per_tile"] == 16
             assert rd.bwd_plan(100, 240, 160, 2, bf16, 132, g=128)[
                 "rows_per_tile"] == (32 if bf16 else 16)
     else:
-        assert [rd.decoder_gf("t", 4 * g, (4 * g, 2 * g), (2 * g, g))
-                for g in rd.DECODER_GF] == list(rd.DECODER_GF)
-        assert [rd.compiled_gf(g) for g in range(1, 129)] == \
-            [min(c for c in rd.DECODER_GF if c >= g) for g in range(1, 129)]
+        assert [common.decoder_gf("t", 4 * g, (4 * g, 2 * g), (2 * g, g))
+                for g in common.DECODER_GF] == list(common.DECODER_GF)
+        assert [common.compiled_gf(g) for g in range(1, 129)] == \
+            [min(c for c in common.DECODER_GF if c >= g)
+             for g in range(1, 129)]
 
 
 # -- (d) the plain decodes against the JAX package at imnet_gf 32 and 8 -------
@@ -443,9 +448,9 @@ def test_k4_plain_matches_xla_ief_rows(g, dtype):
     ref = jax.jit(lambda e, r, p, ww: xla_ief_rows(
         e.astype(jdt), r.astype(jdt), p.astype(jdt), ww, c_dir=C_DIR,
         dtype=jdt))(end, rc, pe, w)
-    pw = rd.prep_ief_weights({k: T(v) for k, v in w.items()}, c_end, c_rc,
-                             c_pos, C_DIR, tdt)
-    got = rd.ief_decode(T(end).to(tdt), T(rc).to(tdt), T(pe).to(tdt), pw)
+    pw = ied.prep_ief_weights({k: T(v) for k, v in w.items()}, c_end, c_rc,
+                              c_pos, C_DIR, tdt)
+    got = ied.ief_decode(T(end).to(tdt), T(rc).to(tdt), T(pe).to(tdt), pw)
     assert got.shape == (n,)
     np.testing.assert_allclose(N(got), np.asarray(ref), atol=ATOL[dtype],
                                rtol=0)
@@ -546,7 +551,7 @@ def test_k2_saves_match_the_jax_kernel_at_32(mode, dtype):
     fwd = rd.ray_decode_save if mode == "l1" else rd.ray_decode_save_all
     off, logit, saves = fwd(T(c["table"]).to(tdt), T(c["cells"]),
                             T(c["pos"]), T(c["ray_feat"]).to(tdt),
-                            rd.cast_ray_decode_operands(w32, tdt))
+                            common.cast_operands(w32, rd.FORMAT, tdt))
     names = rd.save_names(2, mode)
     assert len(saves) == len(jsaves) == len(names)
     for name, got, want in zip(("offset", "logit", *names),
@@ -632,18 +637,15 @@ def _grads(out, cot, leaves):
     return torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
 
-@pytest.mark.parametrize("g,cv", PADDED)
-def test_padded_ray_decode_is_the_unpadded_one(g, cv, monkeypatch):
-    """K1/K2/K3's operands padded once, under autograd, as the serving
-    operands and the card's training entry pad them
-    (``pad_ray_decode_operands``, the table by ``pad_columns``): the plain
-    decode's outputs are the unpadded decode's, K2's saves are the
-    unpadded saves with zero columns past the decoders' widths (what K3
-    reads), and in every ``decode_bwd`` mode the training Function
-    (``RayDecodeTrain``; on the CPU its wrappers run their plain versions,
-    K3 replaced by ``ray_decode_bwd_plain`` from the same saves) at the
-    padded operands lays on the parameters, the table and the ray features
-    the unpadded decode's gradients: autograd drops the pads'."""
+def _padded_k1(g, cv, monkeypatch):
+    """K1/K2/K3 (``rd.FORMAT``): the plain decode's outputs at the padded
+    operands are the unpadded decode's, K2's saves are the unpadded saves
+    with zero columns past the decoders' widths (what K3 reads), and in
+    every ``decode_bwd`` mode the training Function (``RayDecodeTrain``;
+    on the CPU its wrappers run their plain versions, K3 replaced by
+    ``ray_decode_bwd_plain`` from the same saves) at the padded operands
+    lays on the parameters, the table and the ray features the unpadded
+    decode's gradients: autograd drops the pads'."""
     rng = np.random.default_rng(g + cv)
     c_roi, n, kb, cells_n = 32, 24, 8, 30
     w = {k: T(v).requires_grad_()
@@ -658,11 +660,12 @@ def test_padded_ray_decode_is_the_unpadded_one(g, cv, monkeypatch):
     def split():
         return rd.split_ray_decode_weights(w, cv, c_roi, C_DIR, MULTIRES, f32)
 
-    padded = rd.pad_ray_decode_operands(split())
-    G, cp = rd.compiled_gf(g), -(-cv // 16) * 16
+    padded = common.pad_operands(split(), rd.FORMAT)
+    G, cp = common.compiled_gf(g), -(-cv // 16) * 16
     assert padded["b1"].shape == (8 * G,) and padded["dims"][0] == cp
-    assert padded["pair_w1"].shape[0] == -(-(cp + 6 + 12 * MULTIRES) // 16) * 16
-    ptable = rd.pad_columns(table, cp)
+    assert padded["pair_w1"].shape[0] == \
+        -(-(cp + 6 + 12 * MULTIRES) // 16) * 16
+    ptable = common.pad_columns(table, cp)
     assert ptable.shape == (cells_n, cp)
     with torch.no_grad():
         for saves in (True, "all"):
@@ -677,17 +680,22 @@ def test_padded_ray_decode_is_the_unpadded_one(g, cv, monkeypatch):
                 _assert_padded_exact(s_got[:, :s_ref.shape[1]], s_ref, name)
                 _pad_rest_zero(s_got, (slice(None),
                                        slice(0, s_ref.shape[1])))
+        served = rd.prep_ray_decode_weights(
+            {k: v.detach() for k, v in w.items()}, cv, c_roi, C_DIR,
+            MULTIRES, torch.bfloat16)
+        _assert_served_bits(rd.ray_decode, table, served,
+                            (cells, pos, ray_feat))
     ref = rd.ray_decode_plain(table, cells, pos, ray_feat, split())
     want = _grads(ref, cot, leaves)
     monkeypatch.setattr(rd, "ray_decode_bwd", lambda *a, **kw: (
         rd.ray_decode_bwd_plain(*a[:5], *a[6:], dtype=f32, saved=a[5],
                                 **kw)))
     for mode in rd.DECODE_BWD_MODES:
-        w32 = rd.pad_ray_decode_operands(split())
+        w32 = common.pad_operands(split(), rd.FORMAT)
         out = rd.RayDecodeTrain.apply(
             (f32, w32["dims"], 2, 0.001, False, mode),
-            rd.pad_columns(table, w32["dims"][0]), cells, pos, ray_feat,
-            *(w32[k] for k in rd._K1_WEIGHTS))
+            common.pad_columns(table, w32["dims"][0]), cells, pos, ray_feat,
+            *(w32[k] for k in rd.FORMAT.operands))
         for k in range(2):
             _assert_padded_exact(out[k], ref[k], f"{mode} output {k}")
         for name, gv, wv in zip(["d_table", "d_ray_feat", *w], _grads(
@@ -696,13 +704,11 @@ def test_padded_ray_decode_is_the_unpadded_one(g, cv, monkeypatch):
             _assert_padded_exact(gv, wv, f"{mode} {name}")
 
 
-@pytest.mark.parametrize("g,cv", PADDED)
-def test_padded_ief_and_pair_decodes_are_the_unpadded_ones(g, cv):
-    """K4 (``pad_ief_operands``, c_end padded as the voxel width) and K6
-    (``pad_pair_operands``), padded once under autograd: the plain decodes
-    at the padded operands are the unpadded decodes', and their training
-    Functions (``IefDecodeTrain``, ``PairDecodeTrain``; the plain versions
-    on the CPU) lay the unpadded gradients on the parameters and inputs."""
+def _padded_k4(g, cv, monkeypatch):
+    """K4 (``ied.FORMAT``; c_end padded as the voxel width): the plain
+    decode at the padded operands is the unpadded decode, and its training
+    Function (``IefDecodeTrain``; the plain version on the CPU) lays the
+    unpadded gradients on the parameters and inputs."""
     rng = np.random.default_rng(7 * g + cv)
     f32 = torch.float32
     c_rc, c_pos, n = 32 + C_DIR, posenc_dim(MULTIRES), 40
@@ -713,22 +719,34 @@ def test_padded_ief_and_pair_decodes_are_the_unpadded_ones(g, cv):
     end, rc, pe = _leaves(rng, [(n, cv), (n, c_rc), (n, c_pos)])
     cot = T(rng.normal(size=(n,)).astype(np.float32))
     leaves = [end, rc, pe, *w.values()]
-    ops = rd.split_ief_weights(w, cv, c_rc, c_pos, C_DIR, f32)
-    padded = rd.pad_ief_operands(ops)
+    ops = ied.split_ief_weights(w, cv, c_rc, c_pos, C_DIR, f32)
+    padded = common.pad_operands(ops, ied.FORMAT)
     assert padded["dims"][0] == -(-cv // 16) * 16
-    assert padded["w1"].shape[1] == 4 * rd.compiled_gf(g)
-    pend = rd.pad_columns(end, padded["dims"][0])
-    ref = rd.ief_decode_plain(end, rc, pe, ops)
-    _assert_padded_exact(rd.ief_decode_plain(pend, rc, pe, padded), ref,
+    assert padded["w1"].shape[1] == 4 * common.compiled_gf(g)
+    pend = common.pad_columns(end, padded["dims"][0])
+    ref = ied.ief_decode_plain(end, rc, pe, ops)
+    _assert_padded_exact(ied.ief_decode_plain(pend, rc, pe, padded), ref,
                          "K4")
-    out = rd.IefDecodeTrain.apply((f32, padded["dims"], 2, 0.001, False),
-                                  pend, rc, pe,
-                                  *(padded[k] for k in rd._K4_WEIGHTS))
+    with torch.no_grad():
+        served = ied.prep_ief_weights({k: v.detach() for k, v in w.items()},
+                                      cv, c_rc, c_pos, C_DIR, torch.bfloat16)
+        _assert_served_bits(ied.ief_decode, end, served, (rc, pe))
+    out = ied.IefDecodeTrain.apply((f32, padded["dims"], 2, 0.001, False),
+                                   pend, rc, pe,
+                                   *(padded[k] for k in ied.FORMAT.operands))
     _assert_padded_exact(out, ref, "K4 training")
     for gv, wv in zip(_grads(out, cot, leaves), _grads(ref, cot, leaves)):
         assert gv.shape == wv.shape
         _assert_padded_exact(gv, wv, "K4 gradient")
 
+
+def _padded_k6(g, cv, monkeypatch):
+    """K6 (``pd.FORMAT``): the plain decode at the padded operands is the
+    unpadded decode, and its training Function (``PairDecodeTrain``; the
+    plain version on the CPU) lays the unpadded gradients on the
+    parameters and inputs."""
+    rng = np.random.default_rng(11 * g + cv)
+    f32 = torch.float32
     c_roi, p, n_rays, n_table = 32, 60, 20, 25
     w = {k: T(v).requires_grad_()
          for k, v in _decoders(rng, cv, c_roi, 4 * g, inside=True).items()}
@@ -739,20 +757,96 @@ def test_padded_ief_and_pair_decodes_are_the_unpadded_ones(g, cv):
     cot = [T(rng.normal(size=(p,)).astype(np.float32)) for _ in range(2)]
     leaves = [table, ray_feat, *w.values()]
     ops = pd.pair_decode_weights(w, cv, c_roi, C_DIR, MULTIRES, f32)
-    padded = pd.pad_pair_operands(ops)
+    padded = common.pad_operands(ops, pd.FORMAT)
     assert padded["w1"].shape[0] == pd.pair_layout(
         -(-cv // 16) * 16, c_roi, C_DIR, MULTIRES)["kp"]
-    ptable = rd.pad_columns(table, padded["dims"][0])
+    ptable = common.pad_columns(table, padded["dims"][0])
     ref = pd.pair_decode_plain(table, cells, pos, ray_feat, ops, rays)
     got = pd.pair_decode_plain(ptable, cells, pos, ray_feat, padded, rays)
     for k in range(2):
         _assert_padded_exact(got[k], ref[k], f"K6 output {k}")
+    with torch.no_grad():
+        served = pd.prep_pair_decode_weights(
+            {k: v.detach() for k, v in w.items()}, cv, c_roi, C_DIR,
+            MULTIRES, torch.bfloat16)
+        _assert_served_bits(pd.pair_decode, table, served,
+                            (cells, pos, ray_feat), rays)
     out = pd.PairDecodeTrain.apply(
         (f32, padded["dims"], 2, 0.001, False), ptable, cells, pos, ray_feat,
-        rays, None, *(padded[k] for k in pd._K6_WEIGHTS))
+        rays, None, *(padded[k] for k in pd.FORMAT.operands))
     for gv, wv in zip(_grads(out, cot, leaves), _grads(ref, cot, leaves)):
         assert gv.shape == wv.shape
         _assert_padded_exact(gv, wv, "K6 gradient")
+
+
+def _assert_served_bits(entry, rows, w, rest, *more):
+    """The serving ``entry`` given the unpadded f32 table (end rows)
+    ``rows`` returns the bits it returns given them cast to the operands'
+    dtype and padded to ``w["dims"][0]`` columns, as the models passed them
+    before the entries padded their own."""
+    rows = rows.detach()
+    rest = tuple(t.detach() for t in rest)
+    mat = next(v for v in w.values() if torch.is_tensor(v) and v.dim() == 2)
+    cast = common.pad_columns(rows.to(mat.dtype), w["dims"][0])
+    assert rows.dtype == torch.float32 and rows.shape[1] <= cast.shape[1]
+    got = entry(rows, *rest, w, *more)
+    want = entry(cast, *rest, w, *more)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("g,cv", PADDED)
+@pytest.mark.parametrize("family", ["K1", "K4", "K6"])
+def test_padded_decode_is_the_unpadded_one(family, g, cv, monkeypatch):
+    """Each family's operands padded once by the one pad
+    (``decode_common.pad_operands`` with the family's ``FORMAT``), under
+    autograd, as the serving operands and the card's training entries pad
+    them, the table or end rows by ``pad_columns``: the plain decodes and
+    the training Functions at the padded operands give the unpadded
+    decodes' outputs and gradients. Each serving entry pads and casts its
+    own table or end rows: given them unpadded in f32 it returns the bits
+    it returns given them padded and cast."""
+    {"K1": _padded_k1, "K4": _padded_k4, "K6": _padded_k6}[family](
+        g, cv, monkeypatch)
+
+
+@pytest.mark.parametrize("family", ["K1", "K4", "K6"])
+def test_prep_is_the_cast_split(family):
+    """Each family's serving operands (``prep_*``) are its training split
+    at the kernels' widths (``pad_operands``), cast as the kernels take it
+    (``cast_operands``), at widths that pad both the decoders and the
+    voxel (end) width."""
+    g, cv = PADDED[0]
+    rng = np.random.default_rng(46)
+    c_roi = 32
+    if family == "K4":
+        c_rc, c_pos = c_roi + C_DIR, posenc_dim(MULTIRES)
+        w = {"enc_w": rng.normal(size=(1, 16)).astype(np.float32),
+             "enc_b": (0.1 * rng.normal(size=(16,))).astype(np.float32)}
+        _mlp_weights(rng, "", cv + c_rc + c_pos + 16, 4 * g, w)
+        args, fmt = (cv, c_rc, c_pos, C_DIR), ied.FORMAT
+        prep, split = ied.prep_ief_weights, ied.split_ief_weights
+    else:
+        w = _decoders(rng, cv, c_roi, 4 * g)
+        args = (cv, c_roi, C_DIR, MULTIRES)
+        mod = rd if family == "K1" else pd
+        fmt = mod.FORMAT
+        prep, split = {"K1": (rd.prep_ray_decode_weights,
+                              rd.split_ray_decode_weights),
+                       "K6": (pd.prep_pair_decode_weights,
+                              pd.pair_decode_weights)}[family]
+    tw = {k: T(v) for k, v in w.items()}
+    for dt in (torch.float32, torch.bfloat16):
+        served = prep(tw, *args, dt)
+        f32 = split(tw, *args, dt)
+        assert all(f32[k].dtype == torch.float32 for k in fmt.operands)
+        cast = common.cast_operands(common.pad_operands(f32, fmt), fmt, dt)
+        assert served["dims"] == cast["dims"]
+        for k in fmt.operands:
+            assert served[k].dtype == cast[k].dtype, k
+            np.testing.assert_array_equal(N(served[k].float()),
+                                          N(cast[k].float()), err_msg=k)
 
 
 # -- (f) the reference's model options W1-W7 against the JAX package ---------
